@@ -1,0 +1,213 @@
+"""Host-side page bookkeeping for the paged KV cache.
+
+Split out of ``inference/kv_cache.py`` so the scheduler's imports stay
+jax-free (``kv_cache.py`` needs jax for array allocation; nothing here
+touches an array — page movement is pure Python, which is exactly why
+the compiled program set is untouched by it). ``kv_cache`` re-exports
+:class:`PageAllocator` and :func:`pages_for`, so either import path
+works.
+"""
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+__all__ = ["PageAllocator", "pages_for"]
+
+
+def pages_for(tokens: int, page_size: int) -> int:
+    """Pages needed to hold ``tokens`` cache positions."""
+    return -(-int(tokens) // int(page_size))
+
+
+class PageAllocator:
+    """Host-side page bookkeeping: free list, per-page refcounts, and
+    the prefix cache (chain-hashed full prompt pages).
+
+    Pure host code, no jax — page allocation happens in the scheduler
+    (the jit programs only ever see static-shape block tables), so the
+    compiled program set is untouched by how pages move.
+
+    Refcount discipline: every page in a live request's block table
+    holds one reference per reader. Shared prefix pages are incref'd by
+    each reusing request at admission; a page returns to the free list
+    only when its LAST reader evicts (refcount hits 0), at which point
+    its prefix-cache entry (if any) is dropped too.
+
+    Prefix chain hash: page *i* of a prompt hashes ``(hash of pages
+    <i, tokens of page i)`` — one dict lookup per page, no token-level
+    rescans. The hash is ONLY an index: a hit additionally verifies the
+    candidate page's own token chunk AND that its registered *parent*
+    is the exact physical page the walk just verified at position
+    ``i-1``. By induction the matched page's K/V was therefore
+    prefilled under precisely the claimed token prefix — a crafted
+    chain-hash collision (builtin tuple hashing is predictable) can
+    never hand one request K/V computed under another prompt's context,
+    even when the colliding page's own chunk matches.
+    """
+
+    def __init__(self, num_pages: int, page_size: int,
+                 prefix_cache: bool = True):
+        if num_pages < 2:
+            raise ValueError(
+                f"PageAllocator needs >= 2 pages (one is the reserved "
+                f"null page), got {num_pages}")
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        self.prefix_cache_enabled = bool(prefix_cache)
+        self._free: List[int] = list(range(1, self.num_pages))
+        self._ref: Dict[int, int] = {}
+        self._prefix: Dict[int, int] = {}        # chain hash -> page id
+        self._page_hash: Dict[int, int] = {}     # page id -> chain hash
+        # page id -> the exact token chunk it holds, and the physical
+        # page registered immediately before it (None for a prompt's
+        # first page): hits verify CONTENT and PARENT, the hash is only
+        # an index — see the class docstring
+        self._page_tokens: Dict[int, Tuple[int, ...]] = {}
+        self._page_parent: Dict[int, Optional[int]] = {}
+        # cumulative telemetry
+        self.prefix_hit_tokens = 0
+        self.prefix_miss_tokens = 0
+        self.prefix_hit_requests = 0     # admissions that reused pages
+        self.prefix_evictions = 0        # cache entries dropped on free
+
+    # ------------------------------------------------------------ state
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.num_pages - 1 - len(self._free)
+
+    def refcount(self, page: int) -> int:
+        return self._ref.get(page, 0)
+
+    @property
+    def prefix_entries(self) -> int:
+        """Live prefix-cache entries (pages currently matchable)."""
+        return len(self._prefix)
+
+    def debug_state(self) -> dict:
+        """Pool snapshot for live introspection (engine.debug_state()):
+        occupancy, sharing, and prefix-cache accounting — pure host
+        reads, no device touch."""
+        shared = sum(1 for c in self._ref.values() if c > 1)
+        return {
+            "num_pages": self.num_pages,
+            "page_size": self.page_size,
+            "pages_free": self.free_pages,
+            "pages_in_use": self.pages_in_use,
+            "pages_shared": shared,
+            "shared_duplicate_tokens": self.shared_duplicate_tokens,
+            "prefix_cache": {
+                "enabled": self.prefix_cache_enabled,
+                "entries": self.prefix_entries,
+                "hit_requests": self.prefix_hit_requests,
+                "hit_tokens": self.prefix_hit_tokens,
+                "miss_tokens": self.prefix_miss_tokens,
+                "evictions": self.prefix_evictions,
+            },
+        }
+
+    @property
+    def shared_duplicate_tokens(self) -> int:
+        """Tokens counted more than once when summing per-reader context
+        lengths. Only prefix sharing ever raises a refcount above 1, and
+        shared prefix pages are always FULL pages, so each extra reader
+        of a page duplicates exactly ``page_size`` tokens."""
+        return sum((c - 1) * self.page_size
+                   for c in self._ref.values() if c > 1)
+
+    # ------------------------------------------------------ alloc / free
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """Take ``n`` pages off the free list (refcount 1 each), or
+        None — never a partial grab — when the pool can't supply them."""
+        if n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._ref[p] = 1
+        return pages
+
+    def incref(self, pages: Sequence[int]):
+        for p in pages:
+            if self._ref.get(p, 0) < 1:
+                raise ValueError(f"incref of unowned page {p}")
+            self._ref[p] += 1
+
+    def free(self, pages: Sequence[int]):
+        """Drop one reference per page; pages whose count hits 0 return
+        to the free list and lose their prefix-cache entry — shared
+        prefix pages survive exactly until their last reader evicts."""
+        for p in pages:
+            c = self._ref.get(p, 0)
+            if c < 1:
+                raise ValueError(f"free of unowned page {p}")
+            if c == 1:
+                del self._ref[p]
+                h = self._page_hash.pop(p, None)
+                if h is not None and self._prefix.get(h) == p:
+                    del self._prefix[h]
+                    self.prefix_evictions += 1
+                self._page_tokens.pop(p, None)
+                self._page_parent.pop(p, None)
+                self._free.append(p)
+            else:
+                self._ref[p] = c - 1
+
+    # ----------------------------------------------------- prefix cache
+    def _chain_hashes(self, tokens: Sequence[int]):
+        """Chain hash per FULL page of ``tokens`` (partial tail pages
+        are private — they still take decode writes). Lazy: admission
+        re-scans blocked candidates every step, and a first-page miss
+        should cost one page hash, not the whole prompt's."""
+        ps = self.page_size
+        h = 0
+        for i in range(len(tokens) // ps):
+            h = hash((h, tuple(tokens[i * ps:(i + 1) * ps])))
+            yield h
+
+    def match_prefix(self, tokens: Sequence[int]) -> Tuple[List[int], int]:
+        """Longest cached page-aligned prefix of ``tokens``: returns
+        ``(page_ids, n_tokens)``. Does NOT take references — the caller
+        increfs once it commits to reusing them."""
+        if not self.prefix_cache_enabled or not self._prefix:
+            return [], 0
+        ps = self.page_size
+        pages: List[int] = []
+        prev: Optional[int] = None
+        for i, h in enumerate(self._chain_hashes(tokens)):
+            p = self._prefix.get(h)
+            if p is None or self._ref.get(p, 0) < 1:
+                break
+            # the hash only located the candidate: verify its chunk AND
+            # that it was registered directly after the page matched at
+            # i-1 — deep-layer K/V depends on the WHOLE prefix, so a
+            # colliding page with the right chunk but a different
+            # registered context must not serve (class docstring)
+            if self._page_tokens.get(p) != tuple(
+                    tokens[i * ps:(i + 1) * ps]):
+                break
+            if self._page_parent.get(p, -1) != prev:
+                break
+            pages.append(p)
+            prev = p
+        return pages, len(pages) * ps
+
+    def register_prefix(self, tokens: Sequence[int],
+                        pages: Sequence[int]):
+        """Publish a request's full prompt pages into the prefix cache
+        (``pages`` = its complete block-table pages, shared prefix
+        included; only the full-prompt-page span registers). First
+        registration of a hash wins — concurrent identical prompts all
+        map to one physical page set."""
+        if not self.prefix_cache_enabled:
+            return
+        ps = self.page_size
+        for i, h in enumerate(self._chain_hashes(tokens)):
+            if h in self._prefix:
+                continue
+            p = pages[i]
+            self._prefix[h] = p
+            self._page_hash[p] = h
+            self._page_tokens[p] = tuple(tokens[i * ps:(i + 1) * ps])
+            self._page_parent[p] = pages[i - 1] if i > 0 else None

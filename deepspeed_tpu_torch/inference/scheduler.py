@@ -1,0 +1,879 @@
+"""Continuous-batching scheduler for the serving engine.
+
+Static-batch serving wastes slots: a batch of 8 runs at the speed of
+its longest request while 7 finished rows decode garbage. Continuous
+batching (Orca-style iteration-level scheduling) instead treats the
+decode batch as SLOTS: every engine step, finished sequences (EOS /
+max_tokens) are evicted and waiting requests are admitted into the
+freed slots via a bucketed prefill — occupancy stays high under
+heterogeneous request lengths.
+
+This module is the pure host-side half: the admission queue (FIFO with
+a bounded lookahead window so one request that doesn't fit the free
+pages cannot stall everything behind it), slot table, bucket grouping
+for admission, per-request sampling state (temperature + PRNG seed —
+deterministic per request, independent of what else shares the batch),
+and completion bookkeeping (TTFT, per-request token counts).
+
+With a :class:`~deepspeed_tpu_torch.inference.paging.PageAllocator` the
+scheduler also owns PAGE management (the jit programs only ever see the
+static-shape block tables it produces): admission reserves
+``ceil((prompt + max_new_tokens) / page_size)`` pages up front (no
+mid-flight eviction needed), prefix-cache hits replace the leading
+page-aligned prompt pages with shared refcounted ones (the engine then
+prefills only the suffix), and eviction returns pages to the pool.
+
+The jit-facing half (padded arrays, paged scatter/gather) lives in
+``inference/engine.py``; nothing here imports jax, so scheduler policy
+is unit-testable in microseconds.
+"""
+
+import itertools
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from deepspeed_tpu_torch.inference.buckets import pick_bucket
+from deepspeed_tpu_torch.inference.paging import PageAllocator, pages_for
+
+__all__ = ["Request", "FinishedRequest", "PrefillBatch", "Scheduler"]
+
+_uid_counter = itertools.count()
+
+
+@dataclass
+class Request:
+    """One generation request. ``seed`` drives the per-request PRNG key
+    (sampling is deterministic per request regardless of batch
+    composition); ``temperature <= 0`` decodes greedily."""
+    prompt: Sequence[int]
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    seed: int = 0
+    eos_id: Optional[int] = None
+    # admission tier for the fleet router's SLO shed ladder (higher =
+    # more important; 0 is the first tier rejected under load). The
+    # scheduler itself stays FIFO — priority is routing policy, not
+    # slot policy (inference/fleet.py).
+    priority: int = 0
+    uid: int = field(default_factory=lambda: next(_uid_counter))
+    # distributed-trace context (inference/fleet.py stamps these at the
+    # router): one trace id follows the request across every process
+    # boundary — RPC dispatch, live KV migration, resubmit — and the
+    # hop ordinal counts boundary crossings. None/0 when the request
+    # never leaves one engine; the tracer simply omits the fields.
+    trace_id: Optional[str] = None
+    hop: int = 0
+
+    def __post_init__(self):
+        self.prompt = [int(t) for t in np.asarray(self.prompt).reshape(-1)]
+        if not self.prompt:
+            raise ValueError("empty prompt")
+        if self.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+
+
+@dataclass
+class FinishedRequest:
+    """A completed request plus its serving telemetry. ``ttft_ms`` is
+    None — never 0.0 — for a request evicted before its first token;
+    ``queue_wait_ms`` is the submit -> admit wait (None when evicted
+    straight out of the queue), the first leg of the per-request
+    latency decomposition (queue_wait / prefill / TBT —
+    inference/tracing.py)."""
+    uid: int
+    prompt: List[int]
+    tokens: List[int]            # generated tokens (EOS included if hit)
+    finish_reason: str           # "eos" | "length" | "evicted"
+    ttft_ms: Optional[float]
+    latency_ms: float            # submit -> finish wall time
+    queue_wait_ms: Optional[float] = None
+    # per-request decode rate (kept tokens / total latency; None when
+    # no token or no measurable latency) and the speculative-decoding
+    # ledger: every PROPOSED draft token the verify dispatches saw for
+    # this request vs how many were ACCEPTED (kept). ``tokens`` only
+    # ever contains verified-and-kept tokens — rolled-back drafts are
+    # never recorded, so goodput accounting stays honest by
+    # construction (inference/tracing.py).
+    tokens_per_s: Optional[float] = None
+    draft_proposed: int = 0
+    draft_accepted: int = 0
+    # which serving weights produced ``tokens`` — the engine stamps its
+    # current checkpoint tag (or "initial") so a live weight swap is
+    # attributable per response (inference/fleet.py swap protocol)
+    weight_version: Optional[str] = None
+
+
+@dataclass
+class PrefillBatch:
+    """One bucketed prefill the engine must run: ``requests[i]`` lands
+    in serving slot ``slot_ids[i]``; the engine pads to
+    (batch_bucket, prompt_bucket) and routes pad rows to scratch (dense)
+    or the null page (paged). Paged engines additionally read
+    ``prefix_lens[i]`` (tokens already covered by shared prefix pages —
+    the engine prefills only ``prompt[prefix_lens[i]:]``) and
+    ``page_tables[i]`` (the slot's full page list, shared prefix pages
+    first)."""
+    slot_ids: List[int]
+    requests: List[Request]
+    batch_bucket: int
+    prompt_bucket: int
+    prefix_lens: List[int] = field(default_factory=list)
+    page_tables: List[List[int]] = field(default_factory=list)
+
+
+@dataclass
+class _Slot:
+    request: Request
+    position: int                # tokens currently in this row's cache
+    pending_tok: Optional[int]   # sampled, not yet written to cache
+    tokens: List[int]
+    t_submit: float
+    ttft_ms: Optional[float] = None
+    pages: List[int] = field(default_factory=list)   # paged mode only
+    prefix_len: int = 0          # tokens reused from the prefix cache
+    queue_wait_ms: float = 0.0   # submit -> admit (latency decomposition)
+    # which allocator owns ``pages``: admission reserves from the admit
+    # allocator ("admit" — the prefill pool under disaggregated
+    # separate-pools serving, else the main pool); a claimed handoff
+    # re-homes the slot onto the main pool via ``adopt_pages``
+    pool: str = "admit"
+    draft_proposed: int = 0      # speculative-decoding ledger
+    draft_accepted: int = 0
+    # chunked prefill (long prompts): absolute prompt tokens already
+    # scattered into this slot's pages — the ONLY extra state a chunk
+    # needs (the next chunk is just the prefill program at
+    # ``positions = chunk_pos``). None = not chunked / prefill done.
+    # While an int, ``pending_tok`` stays None, which already keeps the
+    # slot out of decode dispatches and nulls its block-table rows.
+    chunk_pos: Optional[int] = None
+
+
+class Scheduler:
+    """Continuous-batching scheduler over ``num_slots`` decode slots.
+
+    The engine drives it: ``submit`` -> ``admit`` (bucketed prefill
+    batches for free slots) -> ``record_tokens`` (one sampled token per
+    active slot; evicts finished sequences and frees their slots and
+    pages). ``clock`` is injectable for deterministic tests.
+
+    ``allocator`` (paged mode) makes admission page-aware; ``lookahead``
+    bounds how many queued requests past the head are scanned for one
+    that fits when the head doesn't (head-of-line fix; 0 = strict FIFO).
+
+    ``tracer`` (optional, an ``inference/tracing.py`` ServeTracer or
+    anything with its hook surface) receives the request lifecycle:
+    submit, defer (with reason), prefix hit, admit, first token,
+    per-token, finish/evict. Hooks are pure host calls — scheduling
+    stays jax-free with tracing on.
+    """
+
+    def __init__(self, num_slots: int, prompt_buckets: Sequence[int],
+                 batch_buckets: Sequence[int], max_len: int,
+                 clock=time.monotonic,
+                 allocator: Optional[PageAllocator] = None,
+                 lookahead: int = 0, tracer=None,
+                 admit_allocator: Optional[PageAllocator] = None,
+                 drafter=None, spec_k: int = 0,
+                 chunk_tokens: int = 0):
+        if num_slots < 1:
+            raise ValueError("num_slots must be >= 1")
+        if lookahead < 0:
+            raise ValueError("lookahead must be >= 0")
+        self.num_slots = int(num_slots)
+        self.prompt_buckets = tuple(int(b) for b in prompt_buckets)
+        self.batch_buckets = tuple(int(b) for b in batch_buckets)
+        self.max_len = int(max_len)
+        self._clock = clock
+        self.allocator = allocator
+        # disaggregated separate-pools mode: admission reserves PROMPT
+        # pages from its own (prefill) pool; the decode-lifetime
+        # reservation moves to handoff claim (``adopt_pages``). Default
+        # — one pool — keeps the whole-lifetime up-front reservation.
+        self.admit_allocator = (admit_allocator if admit_allocator
+                                is not None else allocator)
+        self._separate_pools = (self.admit_allocator is not None and
+                                self.admit_allocator is not allocator)
+        # speculative decoding: a host-side drafter (inference/draft.py
+        # surface: ``propose(history, k) -> tokens``) proposing up to
+        # ``spec_k`` tokens per slot per decode dispatch
+        self.drafter = drafter
+        self.spec_k = int(spec_k)
+        # chunked prefill: a prompt whose (post-prefix) suffix exceeds
+        # the largest prompt bucket is admitted as a sequence of
+        # ``chunk_tokens``-sized prefill chunks instead of one bucketed
+        # dispatch (0 = off — over-bucket prompts are rejected at
+        # submit with reason "reject_too_long").
+        self.chunk_tokens = int(chunk_tokens)
+        self.lookahead = int(lookahead)
+        self.tracer = tracer
+        self.queue: List[Request] = []
+        self.slots: List[Optional[_Slot]] = [None] * self.num_slots
+        self._submit_time: Dict[int, float] = {}
+        self.finished: List[FinishedRequest] = []
+        # graceful submit-time rejections awaiting the engine's next
+        # ``step``/``run`` drain (they are already in ``finished`` too)
+        self._rejects: List[FinishedRequest] = []
+        self._new_ttfts: List[float] = []
+        self._new_queue_waits: List[float] = []
+        # cumulative counters (serving telemetry)
+        self.total_admitted = 0
+        self.total_tokens = 0
+        self.peak_tokens_in_flight = 0
+        # stamped onto every FinishedRequest; the engine sets it at
+        # construction / from_checkpoint / swap_params so a live weight
+        # swap is attributable per response
+        self.weight_version: Optional[str] = None
+
+    # ------------------------------------------------------------ state
+    def free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def active_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is not None]
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.queue)
+
+    @property
+    def occupancy(self) -> float:
+        return 1.0 - len(self.free_slots()) / self.num_slots
+
+    @property
+    def tokens_in_flight(self) -> int:
+        """Live cache tokens across active slots — what the pool
+        actually holds. Shared prefix pages are deduplicated via the
+        allocator's refcounts (only prefix sharing raises a refcount
+        above 1); dense slots never share."""
+        n = sum(s.position for s in self.slots if s is not None)
+        # prefix sharing lives in the admission-side allocator (the
+        # prefill pool under separate-pools disaggregation)
+        if self.admit_allocator is not None:
+            n -= self.admit_allocator.shared_duplicate_tokens
+        return n
+
+    def idle(self) -> bool:
+        return not self.queue and not self.active_slots()
+
+    # ----------------------------------------------------------- submit
+    def _reject_too_long(self, request: Request) -> int:
+        """Graceful submit-time rejection of a request no bucket/cache
+        geometry could ever serve: the caller gets a normal
+        :class:`FinishedRequest` with the pinned reason
+        ``"reject_too_long"`` (tokens empty, ``ttft_ms`` None) on the
+        next ``step``/``run`` drain — never a crash, never a silent
+        truncation. The trail records submit -> evict like any other
+        terminal outcome."""
+        if self.tracer is not None:
+            self.tracer.on_submit(request.uid, len(request.prompt),
+                                  request.max_new_tokens,
+                                  trace_id=getattr(request, "trace_id",
+                                                   None),
+                                  hop=getattr(request, "hop", 0))
+        fin = FinishedRequest(
+            uid=request.uid, prompt=list(request.prompt), tokens=[],
+            finish_reason="reject_too_long", ttft_ms=None,
+            latency_ms=0.0, queue_wait_ms=None,
+            weight_version=self.weight_version)
+        self.finished.append(fin)
+        self._rejects.append(fin)
+        if self.tracer is not None:
+            self.tracer.on_finish(fin, evicted=True)
+        return request.uid
+
+    def submit(self, request: Request) -> int:
+        """Queue a request; returns its uid. What no bucket/cache
+        geometry could ever serve is rejected up front with a graceful
+        ``"reject_too_long"`` :class:`FinishedRequest` (drained by the
+        engine's next step) — a queued request never dies later of a
+        shape it arrived with. With chunked prefill on
+        (``chunk_tokens > 0``) the prompt-bucket ceiling does not apply:
+        any prompt fitting ``max_len`` and the page pool serves."""
+        plen = len(request.prompt)
+        if self.chunk_tokens <= 0 and plen > max(self.prompt_buckets):
+            return self._reject_too_long(request)
+        if plen + request.max_new_tokens > self.max_len:
+            return self._reject_too_long(request)
+        if self.allocator is not None:
+            total = pages_for(plen + request.max_new_tokens,
+                              self.allocator.page_size)
+            if total > self.allocator.num_pages - 1:
+                return self._reject_too_long(request)
+        if self._separate_pools:
+            ppages = pages_for(plen, self.admit_allocator.page_size)
+            if ppages > self.admit_allocator.num_pages - 1:
+                return self._reject_too_long(request)
+        self._submit_time[request.uid] = self._clock()
+        self.queue.append(request)
+        if self.tracer is not None:
+            self.tracer.on_submit(request.uid, plen,
+                                  request.max_new_tokens,
+                                  trace_id=getattr(request, "trace_id",
+                                                   None),
+                                  hop=getattr(request, "hop", 0))
+        return request.uid
+
+    def drain_rejects(self) -> List[FinishedRequest]:
+        """Submit-time rejections since the last drain — the engine
+        returns them from its next ``step`` so ``run``/``generate``
+        callers see rejected requests as ordinary finished results."""
+        out = self._rejects
+        self._rejects = []
+        return out
+
+    def queue_by_bucket(self) -> Dict[int, int]:
+        """Waiting requests per prompt bucket (live-pool introspection;
+        buckets are of the FULL prompt — admission may land a shorter
+        suffix bucket after a prefix hit)."""
+        out: Dict[int, int] = {}
+        top = max(self.prompt_buckets)
+        for req in self.queue:
+            # over-bucket prompts (queueable only with chunked prefill
+            # on) count under the largest bucket — they have no ladder
+            # rung of their own
+            b = pick_bucket(min(len(req.prompt), top),
+                            self.prompt_buckets)
+            out[b] = out.get(b, 0) + 1
+        return out
+
+    # ------------------------------------------------------------ admit
+    def _match_prefix(self, req: Request) -> Tuple[List[int], int]:
+        """Cached prefix pages reusable by ``req`` — capped one token
+        short of the full prompt: the last prompt token must run through
+        prefill to produce the first-token logits."""
+        if self.admit_allocator is None:
+            return [], 0
+        shared, reused = self.admit_allocator.match_prefix(req.prompt)
+        ps = self.admit_allocator.page_size
+        cap = (len(req.prompt) - 1) // ps
+        shared = shared[:cap]
+        return shared, len(shared) * ps
+
+    def _try_reserve(self, req: Request,
+                     match: Optional[Tuple[List[int], int]] = None
+                     ) -> Optional[Tuple[List[int], int]]:
+        """Commit page reservations for ``req``: incref its shared
+        prefix pages and allocate the rest (whole lifetime —
+        ``ceil((prompt + max_new) / page_size)``), or None (nothing
+        taken) when the pool can't supply them. ``match`` reuses a
+        just-computed ``_match_prefix`` result (admission's bucket
+        pre-check) instead of re-hashing the prompt."""
+        alloc = self.admit_allocator
+        if alloc is None:
+            return [], 0
+        shared, reused = match if match is not None else \
+            self._match_prefix(req)
+        # separate-pools disaggregation: prefill only ever writes the
+        # PROMPT's K/V, so admission reserves just that — the decode
+        # lifetime (prompt + max_new) is reserved from the main pool
+        # when the handoff is claimed (adopt_pages)
+        tokens = len(req.prompt) if self._separate_pools else \
+            len(req.prompt) + req.max_new_tokens
+        total = pages_for(tokens, alloc.page_size)
+        fresh = alloc.alloc(total - len(shared))
+        if fresh is None:
+            return None
+        alloc.incref(shared)
+        alloc.prefix_hit_tokens += reused
+        alloc.prefix_miss_tokens += len(req.prompt) - reused
+        if reused:
+            alloc.prefix_hit_requests += 1
+            if self.tracer is not None:
+                self.tracer.on_prefix_hit(req.uid, reused, len(shared))
+        pages = shared + fresh
+        # publish this prompt's full pages for later (or same-batch)
+        # requests sharing the prefix — content is determined by the
+        # prompt alone, and every reader's gather runs after this
+        # request's prefill scatter (same or later dispatch)
+        alloc.register_prefix(req.prompt, pages)
+        return pages, reused
+
+    def _release(self, slot: _Slot):
+        alloc = self.admit_allocator if slot.pool == "admit" else \
+            self.allocator
+        if alloc is not None and slot.pages:
+            alloc.free(slot.pages)
+            slot.pages = []
+
+    def adopt_pages(self, sid: int, pages: List[int]) -> None:
+        """Re-home slot ``sid`` onto the MAIN (decode) pool: its
+        admission-side pages (the prefill pool's, under separate-pools
+        disaggregation) free immediately and ``pages`` — already
+        allocated from ``self.allocator`` by the engine's handoff
+        claim, content already migrated — become the slot's block
+        table."""
+        slot = self.slots[sid]
+        if slot is None:
+            raise KeyError(f"slot {sid} is not active")
+        self._release(slot)
+        slot.pages = list(pages)
+        slot.pool = "main"
+
+    def install_slot(self, request: Request, *, position: int,
+                     pending_tok: int, tokens: List[int],
+                     pages: List[int], ttft_ms: Optional[float] = None,
+                     queue_wait_ms: float = 0.0,
+                     elapsed_ms: float = 0.0,
+                     draft_proposed: int = 0, draft_accepted: int = 0,
+                     pool: str = "main") -> Optional[int]:
+        """Install an ALREADY-RUNNING request into a free slot — the
+        destination half of live KV migration. ``pages``
+        are already allocated (owner named by ``pool``) and already
+        hold the migrated cache content; ``position``/``pending_tok``
+        resume decode exactly where the source replica stopped — no
+        re-prefill, bitwise-identical continuation (sampling keys are
+        (seed, position)-derived). Cross-process clocks share no
+        epoch, so the source ships *elapsed* durations and
+        ``t_submit`` is back-dated against the local clock — latency
+        accounting stays continuous across the hop. No tracer hooks
+        fire (the request's serve trace lives on the source replica;
+        the router's ``serve_migration`` row stitches the timelines).
+        Returns the slot id, or None when no slot is free (the caller
+        still owns ``pages`` and falls back)."""
+        free = self.free_slots()
+        if not free:
+            return None
+        sid = free[0]
+        self.slots[sid] = _Slot(
+            request=request, position=int(position),
+            pending_tok=int(pending_tok), tokens=list(tokens),
+            t_submit=self._clock() - float(elapsed_ms) / 1e3,
+            ttft_ms=ttft_ms, pages=list(pages),
+            queue_wait_ms=float(queue_wait_ms), pool=pool,
+            draft_proposed=int(draft_proposed),
+            draft_accepted=int(draft_accepted))
+        self.total_admitted += 1
+        self.peak_tokens_in_flight = max(self.peak_tokens_in_flight,
+                                         self.tokens_in_flight)
+        return sid
+
+    def admit(self) -> List[PrefillBatch]:
+        """Assign waiting requests to free slots, grouped into bucketed
+        prefill batches.
+
+        FIFO with same-bucket batching and bounded lookahead: the HEAD
+        is the first request in the ``lookahead + 1``-deep window whose
+        pages fit the pool (strict FIFO head when everything fits, or in
+        dense mode); it fixes the prompt bucket (of its un-prefixed
+        SUFFIX, in paged mode). Later queued requests sharing that
+        bucket — and fitting the remaining pages — ride along (up to the
+        largest batch bucket / free slots). Repeats until slots, pages,
+        or queue run out. A too-big head therefore delays, but never
+        blocks, everything behind it. The window bounds how far FIFO
+        order is violated per admission, NOT the head's wait: under a
+        sustained stream of small requests an oversized head can wait
+        indefinitely (no aging/reservation yet) — set ``lookahead=0``
+        for strict FIFO when that matters more than utilization.
+        """
+        batches: List[PrefillBatch] = []
+        free = self.free_slots()
+        tracer = self.tracer
+        while free and self.queue:
+            # head selection within the lookahead window
+            head_idx = None
+            head_res = None
+            for i, req in enumerate(
+                    self.queue[:self.lookahead + 1]):
+                res = self._try_reserve(req)
+                if res is not None:
+                    head_idx, head_res = i, res
+                    break
+                if tracer is not None:
+                    tracer.on_defer(req.uid, "pages")
+            if head_idx is None:
+                # nothing in the window fits; whatever sits just past
+                # it wasn't even scanned — that's a lookahead defer,
+                # not a page defer (the tracer dedupes repeats)
+                if tracer is not None and \
+                        len(self.queue) > self.lookahead + 1:
+                    tracer.on_defer(
+                        self.queue[self.lookahead + 1].uid, "lookahead")
+                break
+            head = self.queue[head_idx]
+            if (self.chunk_tokens > 0 and
+                    len(head.prompt) - head_res[1]
+                    > max(self.prompt_buckets)):
+                # chunked admission: the long prompt bypasses the
+                # prompt-bucket ladder — it takes ONE slot now and the
+                # engine prefills it ``chunk_tokens`` at a time,
+                # interleaved with decode steps (at most one chunk
+                # dispatch per step, so in-flight decodes never wait
+                # behind the whole prompt). Pages were already reserved
+                # whole-lifetime by ``_try_reserve``; chunk state is
+                # just ``chunk_pos`` advancing over them.
+                self.queue.pop(head_idx)
+                sid = free.pop(0)
+                now = self._clock()
+                t_sub = self._submit_time.pop(head.uid, now)
+                qwait = (now - t_sub) * 1e3
+                pages, reused = head_res
+                self.slots[sid] = _Slot(
+                    request=head, position=reused, pending_tok=None,
+                    tokens=[], t_submit=t_sub, pages=pages,
+                    prefix_len=reused, queue_wait_ms=qwait,
+                    chunk_pos=reused)
+                self._new_queue_waits.append(qwait)
+                if tracer is not None:
+                    tracer.on_admit(head.uid, sid, qwait, reused,
+                                    self.chunk_tokens, 1)
+                self.total_admitted += 1
+                continue
+            head_bucket = pick_bucket(len(head.prompt) - head_res[1],
+                                      self.prompt_buckets)
+            cap = min(len(free), max(self.batch_buckets))
+            take: List[Request] = [head]
+            reserved: List[Tuple[List[int], int]] = [head_res]
+            for req in self.queue[head_idx + 1:]:
+                if len(take) >= cap:
+                    break
+                match = self._match_prefix(req)
+                if (self.chunk_tokens > 0 and
+                        len(req.prompt) - match[1]
+                        > max(self.prompt_buckets)):
+                    continue    # chunked: only ever admitted as a head
+                if pick_bucket(len(req.prompt) - match[1],
+                               self.prompt_buckets) != head_bucket:
+                    if tracer is not None:
+                        tracer.on_defer(req.uid, "bucket")
+                    continue
+                res = self._try_reserve(req, match)
+                if res is None:
+                    if tracer is not None:
+                        tracer.on_defer(req.uid, "pages")
+                    continue
+                take.append(req)
+                reserved.append(res)
+            for req in take:
+                self.queue.remove(req)
+            batch_bucket = pick_bucket(len(take), self.batch_buckets)
+            slot_ids = [free.pop(0) for _ in take]
+            now = self._clock()
+            for sid, req, (pages, reused) in zip(slot_ids, take, reserved):
+                t_sub = self._submit_time.pop(req.uid, now)
+                qwait = (now - t_sub) * 1e3
+                self.slots[sid] = _Slot(
+                    request=req, position=len(req.prompt),
+                    pending_tok=None, tokens=[],
+                    t_submit=t_sub,
+                    pages=pages, prefix_len=reused,
+                    queue_wait_ms=qwait)
+                self._new_queue_waits.append(qwait)
+                if tracer is not None:
+                    tracer.on_admit(req.uid, sid, qwait, reused,
+                                    head_bucket, batch_bucket)
+            self.total_admitted += len(take)
+            batches.append(PrefillBatch(
+                slot_ids=slot_ids, requests=take,
+                batch_bucket=batch_bucket, prompt_bucket=head_bucket,
+                prefix_lens=[r for _, r in reserved],
+                page_tables=[p for p, _ in reserved]))
+        self.peak_tokens_in_flight = max(self.peak_tokens_in_flight,
+                                         self.tokens_in_flight)
+        return batches
+
+    # ----------------------------------------------------- token stream
+    def record_tokens(self, tokens: Dict[int, int]
+                      ) -> List[FinishedRequest]:
+        """Record one sampled token per slot (``{slot_id: token}``) —
+        from a prefill's first token or a decode step — advancing each
+        slot's pending/position bookkeeping. Finished sequences (EOS or
+        max_new_tokens) are evicted; their slots (and pages) free
+        immediately for the next ``admit``. Returns the newly finished
+        requests."""
+        return self.record_token_runs(
+            {sid: [tok] for sid, tok in tokens.items()})
+
+    def record_token_runs(self, runs: Dict[int, Sequence[int]],
+                          draft_stats: Optional[
+                              Dict[int, Tuple[int, int]]] = None
+                          ) -> List[FinishedRequest]:
+        """Record a RUN of kept tokens per slot — one token from a
+        plain decode/prefill dispatch, or ``m + 1`` from a speculative
+        verify dispatch that accepted ``m`` draft tokens (the accepted
+        drafts plus the dispatch's fresh bonus sample). Every token in
+        a run advances position by one: each was written to the cache
+        by the dispatch that produced it, except the LAST, which
+        becomes the new pending token — exactly the single-token
+        invariant, iterated. A mid-run EOS (or max_new) finishes the
+        request and DISCARDS the run's remainder: tokens past a stop
+        are never emitted, counted, or written back.
+
+        ``draft_stats`` (``{slot_id: (proposed, accepted)}``) settles
+        the speculative ledger for the dispatch that produced the runs
+        — rejected (rolled-back) drafts thus exist only in these
+        counters, never in ``total_tokens``/goodput."""
+        now = self._clock()
+        tracer = self.tracer
+        done: List[FinishedRequest] = []
+        for sid, run in runs.items():
+            slot = self.slots[sid]
+            if slot is None:
+                raise KeyError(f"slot {sid} is not active")
+            req = slot.request
+            if draft_stats is not None and sid in draft_stats:
+                proposed, accepted = draft_stats[sid]
+                slot.draft_proposed += int(proposed)
+                slot.draft_accepted += int(accepted)
+                if tracer is not None and proposed:
+                    tracer.on_spec(req.uid, int(proposed), int(accepted))
+            fin = None
+            for tok in run:
+                tok = int(tok)
+                if slot.pending_tok is not None:
+                    # the previous sample was written to the cache by
+                    # the dispatch that produced this one
+                    slot.position += 1
+                if slot.ttft_ms is None:
+                    slot.ttft_ms = (now - slot.t_submit) * 1e3
+                    self._new_ttfts.append(slot.ttft_ms)
+                    if tracer is not None:
+                        tracer.on_first_token(req.uid, slot.ttft_ms)
+                elif tracer is not None:
+                    tracer.on_token(req.uid)
+                slot.tokens.append(tok)
+                slot.pending_tok = tok
+                self.total_tokens += 1
+                hit_eos = req.eos_id is not None and tok == req.eos_id
+                if hit_eos or len(slot.tokens) >= req.max_new_tokens:
+                    # ttft_ms can only be None here for a request whose
+                    # first token never arrived — impossible on this
+                    # path (a token was just recorded) but the
+                    # FinishedRequest contract allows it (eviction
+                    # produces it), so downstream consumers must treat
+                    # None as "no first token", never as 0.0
+                    latency_ms = (now - slot.t_submit) * 1e3
+                    fin = FinishedRequest(
+                        uid=req.uid, prompt=list(req.prompt),
+                        tokens=list(slot.tokens),
+                        finish_reason="eos" if hit_eos else "length",
+                        ttft_ms=slot.ttft_ms,
+                        latency_ms=latency_ms,
+                        queue_wait_ms=slot.queue_wait_ms,
+                        tokens_per_s=(len(slot.tokens) * 1e3 /
+                                      latency_ms if latency_ms > 0
+                                      else None),
+                        draft_proposed=slot.draft_proposed,
+                        draft_accepted=slot.draft_accepted,
+                        weight_version=self.weight_version)
+                    break
+            if fin is not None:
+                done.append(fin)
+                self._release(slot)
+                self.slots[sid] = None
+                if tracer is not None:
+                    tracer.on_finish(fin)
+        self.finished.extend(done)
+        self.peak_tokens_in_flight = max(self.peak_tokens_in_flight,
+                                         self.tokens_in_flight)
+        return done
+
+    # ------------------------------------------------- chunked prefill
+    def chunk_batch(self, cap: int) -> List[int]:
+        """Slot ids with chunked prefill still in flight (oldest slot
+        first), up to ``cap`` — the engine batches them into ONE chunk
+        dispatch per step, so the per-step prefill work is bounded by
+        ``cap * chunk_tokens`` regardless of prompt length."""
+        out: List[int] = []
+        for sid in self.active_slots():
+            slot = self.slots[sid]
+            if slot.chunk_pos is None:
+                continue
+            out.append(sid)
+            if len(out) >= cap:
+                break
+        return out
+
+    def chunk_span(self, sid: int) -> Tuple[int, int]:
+        """(start, length) of slot ``sid``'s next prefill chunk in
+        absolute prompt positions — the last chunk is simply shorter
+        (the program pads it; ``lengths`` carries the true size)."""
+        slot = self.slots[sid]
+        if slot is None or slot.chunk_pos is None:
+            raise KeyError(f"slot {sid} has no chunked prefill in flight")
+        start = slot.chunk_pos
+        return start, min(self.chunk_tokens,
+                          len(slot.request.prompt) - start)
+
+    def record_chunk(self, sid: int, ntokens: int) -> bool:
+        """One prefill chunk of ``ntokens`` landed in slot ``sid``'s
+        cache. Returns True when the prompt is now fully prefilled —
+        the slot leaves chunk state with ``position == len(prompt)``
+        and ``pending_tok`` still None: byte-identical to a freshly
+        whole-prompt-prefilled slot, so the caller records the final
+        chunk's first token (or pushes the disagg handoff) through the
+        exact same paths."""
+        slot = self.slots[sid]
+        if slot is None or slot.chunk_pos is None:
+            raise KeyError(f"slot {sid} has no chunked prefill in flight")
+        slot.chunk_pos += int(ntokens)
+        slot.position = slot.chunk_pos
+        if slot.chunk_pos >= len(slot.request.prompt):
+            slot.position = len(slot.request.prompt)
+            slot.chunk_pos = None
+            return True
+        return False
+
+    def chunking_slots(self) -> List[int]:
+        """All slot ids currently mid-chunked-prefill (introspection /
+        idle accounting)."""
+        return [sid for sid in self.active_slots()
+                if self.slots[sid].chunk_pos is not None]
+
+    def draft_proposals(self, cap: Optional[int] = None
+                        ) -> Dict[int, List[int]]:
+        """Host-side speculation for the next decode dispatch: for
+        every slot mid-decode, ask the drafter for up to
+        ``min(spec_k, cap, tokens left before max_new)`` continuation
+        tokens of the slot's full history (prompt + kept tokens — the
+        pending token is history too: it is what the verify dispatch
+        writes first). Slots the drafter has nothing for are simply
+        absent — they ride the verify dispatch as plain one-token
+        decode rows (a draft stall, not an error)."""
+        out: Dict[int, List[int]] = {}
+        if self.drafter is None or self.spec_k < 1:
+            return out
+        for sid in self.active_slots():
+            slot = self.slots[sid]
+            if slot.pending_tok is None:
+                continue
+            # the run a verify dispatch may emit is (accepted + 1)
+            # tokens; cap proposals so even full acceptance cannot
+            # overshoot max_new_tokens
+            k_row = min(self.spec_k,
+                        slot.request.max_new_tokens
+                        - len(slot.tokens) - 1)
+            if cap is not None:
+                k_row = min(k_row, cap)
+            if k_row < 1:
+                continue
+            history = list(slot.request.prompt) + slot.tokens
+            props = [int(t) for t in
+                     self.drafter.propose(history, k_row)][:k_row]
+            if props:
+                out[sid] = props
+        return out
+
+    def drain_ttfts(self) -> List[float]:
+        """TTFTs recorded since the last drain (telemetry pull — the
+        engine writes one ``Serve/ttft_ms`` scalar per admitted
+        request)."""
+        out = self._new_ttfts
+        self._new_ttfts = []
+        return out
+
+    def drain_queue_waits(self) -> List[float]:
+        """Queue waits (submit -> admit ms) recorded since the last
+        drain — one ``Serve/queue_wait_ms`` scalar per admitted
+        request, the first leg of the latency decomposition."""
+        out = self._new_queue_waits
+        self._new_queue_waits = []
+        return out
+
+    # ---------------------------------------------------------- eviction
+    def evict(self, uid: int, reason: str = "evicted"
+              ) -> Optional[FinishedRequest]:
+        """Force ``uid`` out of the system — from the waiting queue or
+        from its live slot (pages freed, slot reusable next admit).
+        Returns the FinishedRequest (``ttft_ms`` None — NOT 0.0 — when
+        no first token was ever produced), or None for an unknown/
+        already-finished uid. Must not be called between building a
+        decode batch and recording its tokens (the engine's ``step`` is
+        atomic in that respect)."""
+        now = self._clock()
+        for i, req in enumerate(self.queue):
+            if req.uid == uid:
+                self.queue.pop(i)
+                t_sub = self._submit_time.pop(uid, now)
+                fin = FinishedRequest(
+                    uid=uid, prompt=list(req.prompt), tokens=[],
+                    finish_reason=reason, ttft_ms=None,
+                    latency_ms=(now - t_sub) * 1e3,
+                    queue_wait_ms=None,
+                    weight_version=self.weight_version)
+                self.finished.append(fin)
+                if self.tracer is not None:
+                    self.tracer.on_finish(fin, evicted=True)
+                return fin
+        for sid in self.active_slots():
+            slot = self.slots[sid]
+            if slot.request.uid != uid:
+                continue
+            latency_ms = (now - slot.t_submit) * 1e3
+            fin = FinishedRequest(
+                uid=uid, prompt=list(slot.request.prompt),
+                tokens=list(slot.tokens), finish_reason=reason,
+                ttft_ms=slot.ttft_ms,
+                latency_ms=latency_ms,
+                queue_wait_ms=slot.queue_wait_ms,
+                tokens_per_s=(len(slot.tokens) * 1e3 / latency_ms
+                              if slot.tokens and latency_ms > 0
+                              else None),
+                draft_proposed=slot.draft_proposed,
+                draft_accepted=slot.draft_accepted,
+                weight_version=self.weight_version)
+            self._release(slot)
+            self.slots[sid] = None
+            self.finished.append(fin)
+            if self.tracer is not None:
+                self.tracer.on_finish(fin, evicted=True)
+            return fin
+        return None
+
+    # -------------------------------------------- decode-batch assembly
+    def decode_state(self):
+        """Host arrays for one decode dispatch over the full slot table:
+        (slot_ids, toks, positions, temps, seeds) — inactive rows carry
+        zeros and are ignored on the way back. Empty when nothing is
+        mid-decode."""
+        sids, toks, poss, temps, seeds = [], [], [], [], []
+        for sid in self.active_slots():
+            slot = self.slots[sid]
+            if slot.pending_tok is None:
+                continue        # admitted this step; first token pending
+            sids.append(sid)
+            toks.append(slot.pending_tok)
+            poss.append(slot.position)
+            temps.append(slot.request.temperature)
+            seeds.append(slot.request.seed)
+        return sids, toks, poss, temps, seeds
+
+    def block_table_rows(self, rows: int, pages_per_seq: int) -> np.ndarray:
+        """The decode dispatch's static-shape block tables: one
+        (rows, pages_per_seq) int32 array, active slots' pages in their
+        rows, everything else 0 (the null page — inactive rows write
+        and read only garbage the mask hides). ``pages_per_seq`` may be
+        NARROWER than a slot's full reservation (the engine's
+        live-page-bucketed decode width): the tail entries dropped are
+        reserved-but-unreached pages this step can neither write nor
+        read, so the clamp is exact. Slots with no pending token
+        (admitted but not yet claimed by the decode worker, under
+        disaggregation) keep all-null rows: their pages — possibly a
+        DIFFERENT pool's, or shared prefix pages — must never receive
+        the dispatch's garbage row writes."""
+        out = np.zeros((rows, pages_per_seq), np.int32)
+        for sid in self.active_slots():
+            slot = self.slots[sid]
+            if slot.pending_tok is None:
+                continue
+            pages = slot.pages[:pages_per_seq]
+            out[sid, :len(pages)] = pages
+        return out
+
+    def max_live_pages(self) -> int:
+        """Widest live page count across active slots for ONE decode
+        step: slot at ``position`` writes its pending token at
+        ``position`` and attends positions ``<= position`` —
+        ``position // page_size + 1`` pages (slots parked awaiting a
+        disagg handoff claim count too: the width clamp is a dispatch
+        bucket, and a spuriously wide table is merely unclamped, never
+        wrong). The engine buckets this up to a compiled decode width
+        (never below 1: an idle table still needs its null column)."""
+        if self.allocator is None:
+            return 1
+        ps = self.allocator.page_size
+        return max((s.position // ps + 1
+                    for s in self.slots if s is not None),
+                   default=1)

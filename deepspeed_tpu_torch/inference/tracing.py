@@ -1,0 +1,647 @@
+"""Request-granular serving observability (the serving-plane tracer).
+
+The aggregate ``Serve/*`` scalars answer "how fast is the engine";
+they cannot answer "why was THIS request slow" — queue wait? prefill
+bucket padding? page starvation behind an oversized head? That is the
+question a production serving system must answer per request, so every
+:class:`~.scheduler.Request` gets a stamped lifecycle trail written
+into the crash-safe ``events.jsonl``:
+
+    serve_submit -> [serve_defer (reason: pages | bucket | lookahead
+                                        | handoff | draft_stall)]*
+                 -> [serve_prefix_hit] -> serve_admit -> serve_prefill
+                 -> [serve_handoff] -> serve_first_token
+                 -> [serve_decode_window | serve_spec_window]*
+                 -> serve_finish | serve_evict
+
+The fleet router (inference/fleet.py) adds fleet-plane rows
+in the same trail — ``fleet_shed`` (a request rejected or degraded by
+the SLO shed ladder, reason from :data:`SHED_REASONS`), ``fleet_drain``
+(a replica stopped admitting and its queue was redistributed; the
+rerouted requests' scheduler-side evictions ride ``serve_evict`` with
+reason "drain"), ``fleet_swap`` (a live weight push, tag + ok/rollback),
+and periodic ``fleet_state`` snapshots.
+
+Disaggregated serving adds the ``serve_handoff`` row — the
+prefill->decode page-ownership transfer, with queue wait, measured
+transfer wall time, and the LinkModel-priced wire cost side by side —
+and splits TTFT into queue_wait / prefill / handoff / first_decode
+legs on the ``serve_first_token`` row. Speculative decoding adds
+sampled ``serve_spec_window`` rows (proposed vs accepted draft tokens
+per window) plus per-request draft counters on the finish row.
+Goodput stays honest by construction: only verified-and-KEPT tokens
+ever reach ``on_token``/``on_finish`` (the scheduler never records a
+rolled-back draft), so ``Serve/goodput_tokens_per_s`` cannot be
+inflated by speculation.
+
+plus a latency decomposition per request (queue_wait / prefill /
+time-between-tokens), bounded-histogram percentiles (p50/p95/p99 via
+:class:`~deepspeed_tpu_torch.utils.monitor.Histogram` — memory stays bounded
+over millions of requests), and SLO/goodput accounting: a request is
+*within SLO* when its TTFT and mean TBT beat the configured
+``observability.serve.slo`` thresholds, ``slo_attainment`` is the
+fraction of finished requests within SLO, and *goodput* counts only
+their tokens — so raw throughput and user-visible goodput are distinct
+numbers in every run report.
+
+Everything here is pure host code and sync-free by construction:
+stamps are host wall-clock (``time.perf_counter``), events are
+line-buffered file appends, and nothing imports jax — the compiled
+program set, the warmup dispatch count, and the zero-per-dispatch-sync
+contract are untouched with tracing on (pinned source-level by the
+jax-free test in tests/unit/test_inference.py and end-to-end by the
+``serve_trace_overhead`` bench row).
+
+Chrome-trace request lanes: with a recorder attached (the engine wires
+``profiling/spans.py``'s :class:`ChromeTraceRecorder` when
+``observability.chrome_trace_path`` is set), each finished request
+emits its queue_wait / prefill / decode phases onto its own lane
+(``tid`` = request uid), so Perfetto shows per-request timelines next
+to the engine's prefill/decode phase spans.
+"""
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Set
+
+from deepspeed_tpu_torch.utils.monitor import Histogram
+
+__all__ = ["ServeTracer", "DEFER_REASONS", "SHED_REASONS"]
+
+#: the pinned defer vocabulary (docs/observability.md event schema):
+#: "pages"       - page reservation failed (pool starvation)
+#: "bucket"      - ride-along skipped: prompt bucket != the head's
+#: "lookahead"   - outside the bounded admission window this round
+#: "handoff"     - disagg: decode-pool claim bounced, handoff requeued
+#: "draft_stall" - speculation: drafter proposed nothing this dispatch
+#:                 (the slot rode the verify program with 0 drafts)
+DEFER_REASONS = ("pages", "bucket", "lookahead", "handoff", "draft_stall")
+
+#: the pinned fleet shed/degrade vocabulary (``fleet_shed`` rows and
+#: drain-path ``serve_evict`` rows — docs/serving-fleet.md):
+#: "shed_slo"        - rejected: fleet p95 TTFT breached the budget and
+#:                     the request's priority tier is below the floor
+#: "shed_capacity"   - rejected: no live replica can ever serve it
+#:                     (fleet draining/retired, not a transient defer)
+#: "degrade_max_new" - admitted, but max_new_tokens capped by the shed
+#:                     ladder's degrade rung
+#: "degrade_spec_off"- fleet-wide: speculation switched off under
+#:                     sustained SLO breach (plain decode programs are
+#:                     already warm — zero recompiles)
+#: "drain"           - requeued off a draining replica and resubmitted
+#:                     to a survivor (the client still gets exactly one
+#:                     response; the drain-side eviction row is
+#:                     bookkeeping, not an answer)
+#: "reject_too_long" - rejected at submit: the prompt exceeds what the
+#:                     engine's geometry can EVER serve (over the
+#:                     largest prompt bucket with chunked prefill off,
+#:                     or prompt + max_new over max_len / the page
+#:                     pool). A graceful FinishedRequest, never a
+#:                     crash or silent truncation.
+SHED_REASONS = ("shed_slo", "shed_capacity", "degrade_max_new",
+                "degrade_spec_off", "drain", "reject_too_long")
+
+
+@dataclass
+class _ReqTrace:
+    """Host-side per-request stamps (tracer clock)."""
+    uid: int
+    prompt_tokens: int = 0
+    max_new_tokens: int = 0
+    # distributed-trace context: stamped by the fleet router
+    # before dispatch and carried on every row this request emits, so
+    # ``obs_report --fleet`` can stitch one timeline across process
+    # boundaries. ``hop`` counts boundary crossings (0 = the replica
+    # the request was first dispatched to; each migration import
+    # increments it).
+    trace_id: Optional[str] = None
+    hop: int = 0
+    t_submit: float = 0.0
+    t_admit: Optional[float] = None
+    t_first: Optional[float] = None
+    t_last: Optional[float] = None
+    slot: Optional[int] = None
+    queue_wait_ms: Optional[float] = None     # scheduler-clock values
+    ttft_ms: Optional[float] = None
+    n_tokens: int = 0
+    tbt_sum: float = 0.0
+    tbt_max: float = 0.0
+    # decode-window sampling state (intervals tracked separately: the
+    # first window spans stride-1 TBT intervals, later ones stride)
+    window_t0: Optional[float] = None
+    window_tokens: int = 0
+    window_intervals: int = 0
+    deferred: Set[str] = field(default_factory=set)
+    # disagg: prefill->decode handoff leg of TTFT (queue + transfer)
+    handoff_ms: Optional[float] = None
+    # speculation: per-request draft accounting + window sampling
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    spec_dispatches: int = 0
+    spec_window_proposed: int = 0
+    spec_window_accepted: int = 0
+    spec_window_dispatches: int = 0
+    # chunked prefill: chunk dispatches this request's prompt rode and
+    # their summed wall time (the trail's per-chunk rows carry the
+    # running ``cum_ms`` so TTFT decomposes into queue + k*chunk)
+    chunks: int = 0
+    chunk_ms: float = 0.0
+
+
+class ServeTracer:
+    """Lifecycle tracing + SLO/goodput accounting for the serving
+    engine.
+
+    ``cfg`` is the parsed ``observability.serve`` section
+    (``{"enabled", "slo": {"ttft_ms", "tbt_ms"}, "sample_rate"}``);
+    ``writer`` a ``_JsonlWriter``-shaped sink (or None — accounting
+    still runs for :meth:`snapshot`/``engine.debug_state()``);
+    ``recorder`` an optional Chrome-trace recorder with an
+    ``add_lane`` method. When ``enabled`` is False every hook is a
+    no-op except :meth:`on_finish`, which still emits the legacy
+    ``serve_finish``/``serve_evict`` row (the pre-tracing schema, with
+    ``ttft_ms`` null for requests evicted before their first token).
+
+    The scheduler owns the request-ms values it computes with its own
+    (injectable) clock — queue wait, TTFT, total latency ride in
+    through the hook arguments; the tracer's own clock covers only
+    what the scheduler doesn't measure: time-between-tokens and the
+    Chrome lane spans.
+    """
+
+    #: defaults when constructed without a parsed config section
+    DEFAULT_SLO_TTFT_MS = 2000.0
+    DEFAULT_SLO_TBT_MS = 200.0
+    DEFAULT_SAMPLE_RATE = 0.0625          # one window row per 16 tokens
+
+    #: every ``serve_*`` event kind this tracer can emit — the schema
+    #: contract tests walk (each kind must appear in the pinned
+    #: TRAIL_SCHEMA and have an obs_report handler, so a new trail row
+    #: cannot silently fall out of the report)
+    EVENT_KINDS = (
+        "serve_submit", "serve_defer", "serve_prefix_hit",
+        "serve_admit", "serve_prefill", "serve_prefill_chunk",
+        "serve_handoff",
+        "serve_spec_window", "serve_first_token", "serve_decode_window",
+        "serve_finish", "serve_evict",
+        "serve_migrate_out", "serve_migrate_in",
+    )
+
+    def __init__(self, cfg: Optional[Dict[str, Any]] = None,
+                 writer=None, recorder=None, clock=time.perf_counter):
+        cfg = cfg or {}
+        slo = cfg.get("slo") or {}
+        self.enabled = bool(cfg.get("enabled", True))
+        # fleet identity: which replica's log this is. Stamped on every
+        # event row (``replica_id``) so the offline fleet merger can
+        # attribute rows without trusting directory names. None for a
+        # standalone engine — the field is simply omitted.
+        rid = cfg.get("replica_id")
+        self.replica_id = int(rid) if rid is not None else None
+        self.slo_ttft_ms = float(slo.get("ttft_ms",
+                                         self.DEFAULT_SLO_TTFT_MS))
+        self.slo_tbt_ms = float(slo.get("tbt_ms", self.DEFAULT_SLO_TBT_MS))
+        rate = float(cfg.get("sample_rate", self.DEFAULT_SAMPLE_RATE))
+        # deterministic stride, not RNG: a window row every 1/rate
+        # tokens per request (0 disables window sampling)
+        self.window_tokens = int(round(1.0 / rate)) if rate > 0 else 0
+        self.writer = writer
+        self.recorder = recorder
+        self._clock = clock
+        self._req: Dict[int, _ReqTrace] = {}
+        self.hist = {"queue_wait_ms": Histogram(), "ttft_ms": Histogram(),
+                     "prefill_ms": Histogram(), "tbt_ms": Histogram(),
+                     "handoff_ms": Histogram(),
+                     "spec_accept_rate": Histogram(),
+                     "chunk_ms": Histogram(),
+                     "chunks_per_request": Histogram()}
+        # SLO / goodput accounting
+        self.finished = 0
+        self.finished_in_slo = 0
+        self.evicted = 0
+        self.good_tokens = 0
+        self.finished_tokens = 0
+        self._step_tbts: List[float] = []
+        # global speculation / disagg counters (engine scalar writes +
+        # debug_state; per-request detail rides the event rows)
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_dispatches = 0
+        self.handoffs = 0
+        # chunked prefill: chunk-row dispatches across all requests
+        # (one request contributes ceil(suffix / chunk_tokens) rows)
+        self.chunk_rows = 0
+        self.chunked_requests = 0
+
+    # ------------------------------------------------------------- sinks
+    def _event(self, kind: str, **fields) -> None:
+        if self.writer is not None:
+            if self.replica_id is not None:
+                fields.setdefault("replica_id", self.replica_id)
+            self.writer.add_event(kind, **fields)
+
+    def _ctx(self, uid: int) -> Dict[str, Any]:
+        """Trace-context fields for ``uid``'s rows ({} when the request
+        was never stamped — single-engine serving stays schema-stable)."""
+        tr = self._req.get(uid)
+        if tr is None or tr.trace_id is None:
+            return {}
+        return {"trace_id": tr.trace_id, "hop": tr.hop}
+
+    @staticmethod
+    def _r(v: Optional[float]) -> Optional[float]:
+        return round(v, 3) if v is not None else None
+
+    # ------------------------------------------------------------- hooks
+    def on_submit(self, uid: int, prompt_tokens: int,
+                  max_new_tokens: int,
+                  trace_id: Optional[str] = None, hop: int = 0) -> None:
+        if not self.enabled:
+            return
+        self._req[uid] = _ReqTrace(uid=uid, prompt_tokens=prompt_tokens,
+                                   max_new_tokens=max_new_tokens,
+                                   t_submit=self._clock(),
+                                   trace_id=trace_id, hop=int(hop))
+        self._event("serve_submit", uid=uid, prompt_tokens=prompt_tokens,
+                    max_new_tokens=max_new_tokens, **self._ctx(uid))
+
+    def on_defer(self, uid: int, reason: str) -> None:
+        """One admission pass skipped ``uid`` for ``reason``. Deduped
+        per (uid, reason) — admission rescans its window every engine
+        step, and an event per rescan would swamp the log with copies
+        of the same fact."""
+        if not self.enabled:
+            return
+        tr = self._req.get(uid)
+        if tr is None or reason in tr.deferred:
+            return
+        tr.deferred.add(reason)
+        self._event("serve_defer", uid=uid, reason=str(reason),
+                    **self._ctx(uid))
+
+    def on_prefix_hit(self, uid: int, tokens: int, pages: int) -> None:
+        if not self.enabled:
+            return
+        self._event("serve_prefix_hit", uid=uid, tokens=int(tokens),
+                    pages=int(pages), **self._ctx(uid))
+
+    def on_admit(self, uid: int, slot: int, queue_wait_ms: float,
+                 prefix_tokens: int, prompt_bucket: int,
+                 batch_bucket: int) -> None:
+        if not self.enabled:
+            return
+        tr = self._req.get(uid)
+        if tr is None:       # submitted before the tracer existed
+            tr = self._req[uid] = _ReqTrace(uid=uid,
+                                            t_submit=self._clock())
+        tr.t_admit = self._clock()
+        tr.slot = slot
+        tr.queue_wait_ms = queue_wait_ms
+        tr.deferred.clear()
+        self.hist["queue_wait_ms"].record(queue_wait_ms)
+        self._event("serve_admit", uid=uid, slot=int(slot),
+                    queue_wait_ms=self._r(queue_wait_ms),
+                    prefix_tokens=int(prefix_tokens),
+                    prompt_bucket=int(prompt_bucket),
+                    batch_bucket=int(batch_bucket), **self._ctx(uid))
+
+    def on_prefill(self, uid: int, slot: int, wall_ms: float,
+                   prompt_bucket: int, batch_bucket: int,
+                   rows: int) -> None:
+        """The engine ran ``uid``'s prefill dispatch (``rows`` real
+        requests shared the padded (batch_bucket, prompt_bucket)
+        program — the wall time is the batch's, amortized context for
+        this request's trail)."""
+        if not self.enabled:
+            return
+        self._event("serve_prefill", uid=uid, slot=int(slot),
+                    wall_ms=self._r(wall_ms),
+                    prompt_bucket=int(prompt_bucket),
+                    batch_bucket=int(batch_bucket), rows=int(rows),
+                    **self._ctx(uid))
+
+    def on_prefill_chunk(self, uid: int, slot: int, index: int,
+                         tokens: int, wall_ms: float,
+                         cp_shards: int = 1) -> None:
+        """One chunk of ``uid``'s chunked prefill landed: ``index`` is
+        the 0-based chunk ordinal, ``tokens`` the real (unpadded)
+        tokens it scattered, ``wall_ms`` the dispatch wall time
+        (amortized over the rows sharing it), ``cum_ms`` the running
+        sum — so the trail shows TTFT decomposing into
+        ``queue + k*chunk`` per request. ``cp_shards > 1`` marks a
+        context-parallel chunk (the sequence axis ran sharded over the
+        serving mesh)."""
+        if not self.enabled:
+            return
+        self.chunk_rows += 1
+        self.hist["chunk_ms"].record(wall_ms)
+        tr = self._req.get(uid)
+        cum = None
+        if tr is not None:
+            if tr.chunks == 0:
+                self.chunked_requests += 1
+            tr.chunks += 1
+            tr.chunk_ms += wall_ms
+            cum = tr.chunk_ms
+        self._event("serve_prefill_chunk", uid=uid, slot=int(slot),
+                    chunk=int(index), tokens=int(tokens),
+                    wall_ms=self._r(wall_ms), cum_ms=self._r(cum),
+                    cp_shards=int(cp_shards), **self._ctx(uid))
+
+    def on_handoff(self, uid: int, queue_ms: float, transfer_ms: float,
+                   pages: int, bytes_moved: int, mode: str,
+                   priced_ms: Optional[float] = None) -> None:
+        """Disagg only: ``uid``'s prefill->decode page handoff was
+        claimed. ``queue_ms`` is the wait in the handoff queue,
+        ``transfer_ms`` the measured page-migration wall time (0 for a
+        shared-pool bookkeeping move), ``priced_ms`` the LinkModel's
+        prediction for the same bytes — measured and modeled ride the
+        row side by side. Called BEFORE the claim releases the first
+        token, so :meth:`on_first_token` can subtract the handoff leg
+        out of prefill time."""
+        if not self.enabled:
+            return
+        tr = self._req.get(uid)
+        total = max(queue_ms, 0.0) + max(transfer_ms, 0.0)
+        if tr is not None:
+            tr.handoff_ms = total
+        self.handoffs += 1
+        self.hist["handoff_ms"].record(total)
+        self._event("serve_handoff", uid=uid, mode=str(mode),
+                    queue_ms=self._r(queue_ms),
+                    transfer_ms=self._r(transfer_ms),
+                    handoff_ms=self._r(total),
+                    priced_ms=self._r(priced_ms),
+                    pages=int(pages), bytes_moved=int(bytes_moved),
+                    **self._ctx(uid))
+
+    def on_spec(self, uid: int, proposed: int, accepted: int) -> None:
+        """One verify dispatch's draft outcome for ``uid``: ``proposed``
+        draft tokens went in, ``accepted`` survived verification (the
+        scheduler only ever records the kept ones — this hook is pure
+        accounting, it does not touch token state). Emits a sampled
+        ``serve_spec_window`` row on the decode-window stride."""
+        if not self.enabled or proposed <= 0:
+            return
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        self.spec_dispatches += 1
+        self.hist["spec_accept_rate"].record(accepted / proposed)
+        tr = self._req.get(uid)
+        if tr is None:
+            return
+        tr.spec_proposed += proposed
+        tr.spec_accepted += accepted
+        tr.spec_dispatches += 1
+        tr.spec_window_proposed += proposed
+        tr.spec_window_accepted += accepted
+        tr.spec_window_dispatches += 1
+        if (self.window_tokens
+                and tr.spec_window_proposed >= self.window_tokens):
+            self._event(
+                "serve_spec_window", uid=uid,
+                proposed=tr.spec_window_proposed,
+                accepted=tr.spec_window_accepted,
+                dispatches=tr.spec_window_dispatches,
+                accept_rate=self._r(tr.spec_window_accepted
+                                    / tr.spec_window_proposed),
+                **self._ctx(uid))
+            tr.spec_window_proposed = 0
+            tr.spec_window_accepted = 0
+            tr.spec_window_dispatches = 0
+
+    def on_first_token(self, uid: int, ttft_ms: float) -> None:
+        if not self.enabled:
+            return
+        tr = self._req.get(uid)
+        if tr is None:
+            return
+        now = self._clock()
+        tr.t_first = tr.t_last = now
+        tr.ttft_ms = ttft_ms
+        tr.n_tokens = 1
+        tr.window_t0 = now
+        tr.window_tokens = 1
+        tr.window_intervals = 0
+        # TTFT decomposition: queue_wait + prefill (+ handoff under
+        # disagg; the handoff leg is 0/absent otherwise, so the legacy
+        # two-way split is the same number)
+        prefill_ms = (ttft_ms - tr.queue_wait_ms - (tr.handoff_ms or 0.0)
+                      if tr.queue_wait_ms is not None else None)
+        self.hist["ttft_ms"].record(ttft_ms)
+        if prefill_ms is not None:
+            self.hist["prefill_ms"].record(max(prefill_ms, 0.0))
+        self._event("serve_first_token", uid=uid, ttft_ms=self._r(ttft_ms),
+                    prefill_ms=self._r(prefill_ms),
+                    handoff_ms=self._r(tr.handoff_ms), **self._ctx(uid))
+
+    def on_token(self, uid: int) -> None:
+        """One decode token for ``uid``: a time-between-tokens sample,
+        plus the sampled ``serve_decode_window`` row at window
+        boundaries."""
+        if not self.enabled:
+            return
+        tr = self._req.get(uid)
+        if tr is None or tr.t_last is None:
+            return
+        now = self._clock()
+        tbt = (now - tr.t_last) * 1e3
+        tr.t_last = now
+        tr.n_tokens += 1
+        tr.tbt_sum += tbt
+        tr.tbt_max = max(tr.tbt_max, tbt)
+        self.hist["tbt_ms"].record(tbt)
+        self._step_tbts.append(tbt)
+        tr.window_tokens += 1
+        tr.window_intervals += 1
+        if self.window_tokens and tr.window_tokens >= self.window_tokens:
+            window_ms = (now - tr.window_t0) * 1e3
+            self._event(
+                "serve_decode_window", uid=uid, tokens=tr.window_tokens,
+                end_token=tr.n_tokens,
+                window_ms=self._r(window_ms),
+                tbt_ms=self._r(window_ms / max(tr.window_intervals, 1)),
+                **self._ctx(uid))
+            tr.window_t0 = now
+            tr.window_tokens = 0
+            tr.window_intervals = 0
+
+    def on_finish(self, fin, evicted: bool = False) -> None:
+        """Terminal hook — ``fin`` is the scheduler's
+        :class:`FinishedRequest`. Emits ``serve_finish`` (or
+        ``serve_evict``), classifies the request against the SLO, and
+        draws the Chrome lane spans. ``ttft_ms`` is ``null`` (never
+        0.0) for requests evicted before their first token."""
+        kind = "serve_evict" if evicted else "serve_finish"
+        tr = self._req.pop(fin.uid, None) if self.enabled else None
+        if tr is None:
+            # tracing off (or unknown uid): the legacy row, ttft
+            # honest-null for no-first-token evictions
+            self._event(kind, uid=fin.uid, reason=fin.finish_reason,
+                        new_tokens=len(fin.tokens),
+                        ttft_ms=self._r(fin.ttft_ms),
+                        latency_ms=self._r(fin.latency_ms))
+            if self.enabled:
+                self._account(fin, evicted, tbt_mean=None)
+            return
+        tbt_mean = (tr.tbt_sum / (tr.n_tokens - 1)
+                    if tr.n_tokens > 1 else None)
+        prefill_ms = (fin.ttft_ms - tr.queue_wait_ms
+                      - (tr.handoff_ms or 0.0)
+                      if fin.ttft_ms is not None
+                      and tr.queue_wait_ms is not None else None)
+        slo_ok = self._account(fin, evicted, tbt_mean)
+        if tr.chunks:
+            self.hist["chunks_per_request"].record(float(tr.chunks))
+        ctx = ({"trace_id": tr.trace_id, "hop": tr.hop}
+               if tr.trace_id is not None else {})
+        self._event(kind, uid=fin.uid, reason=fin.finish_reason,
+                    new_tokens=len(fin.tokens),
+                    ttft_ms=self._r(fin.ttft_ms),
+                    latency_ms=self._r(fin.latency_ms),
+                    queue_wait_ms=self._r(tr.queue_wait_ms),
+                    prefill_ms=self._r(prefill_ms),
+                    handoff_ms=self._r(tr.handoff_ms),
+                    tbt_ms=self._r(tbt_mean),
+                    tbt_ms_max=self._r(tr.tbt_max if tr.n_tokens > 1
+                                       else None),
+                    slo_ok=slo_ok,
+                    draft_proposed=tr.spec_proposed,
+                    draft_accepted=tr.spec_accepted,
+                    chunks=tr.chunks, **ctx)
+        self._lanes(tr)
+
+    # ----------------------------------------------- migration lineage
+    def on_migrate_out(self, uid: int, *, position: int, pages: int,
+                       nbytes: int, reason: str = "migrate") -> None:
+        """The engine exported ``uid``'s live state for migration (the
+        source half of the lineage pair). Emitted BEFORE the local
+        "migrate" eviction, so the row still carries the request's
+        trace context; the destination's ``serve_migrate_in`` shares
+        the trace id, stitching the timeline across replica death."""
+        if not self.enabled:
+            return
+        self._event("serve_migrate_out", uid=uid, position=int(position),
+                    pages=int(pages), nbytes=int(nbytes),
+                    reason=str(reason), **self._ctx(uid))
+
+    def on_migrate_in(self, uid: int, *, trace_id: Optional[str],
+                      hop: int, position: int, pages: int, nbytes: int,
+                      queue_wait_ms: Optional[float] = None,
+                      ttft_ms: Optional[float] = None,
+                      elapsed_ms: float = 0.0, tokens: int = 0) -> None:
+        """The engine resumed a migrated request here (the destination
+        half). Installs a resumed trace so every later row —
+        decode windows, the finish row — carries the ORIGINAL trace id
+        with the hop ordinal bumped; the carried elapsed/queue/ttft
+        durations keep the finish row's latency decomposition summing
+        exactly across the hop (clocks ship as durations, never
+        absolute times — disagg.MigrationRecord doctrine)."""
+        if not self.enabled:
+            return
+        now = self._clock()
+        tr = self._req[uid] = _ReqTrace(
+            uid=uid, trace_id=trace_id, hop=int(hop),
+            t_submit=now - max(float(elapsed_ms), 0.0) / 1e3,
+            queue_wait_ms=queue_wait_ms, ttft_ms=ttft_ms,
+            n_tokens=int(tokens))
+        if ttft_ms is not None:
+            # first token already happened on the source replica —
+            # resume TBT/window sampling from the import instant
+            tr.t_first = tr.t_last = now
+            tr.window_t0 = now
+        self._event("serve_migrate_in", uid=uid, position=int(position),
+                    pages=int(pages), nbytes=int(nbytes),
+                    resumed_tokens=int(tokens), **self._ctx(uid))
+
+    def _account(self, fin, evicted: bool,
+                 tbt_mean: Optional[float]) -> bool:
+        """SLO classification + goodput counters. An evicted request —
+        or one whose first token never came — is by definition outside
+        SLO."""
+        self.finished += 1
+        self.finished_tokens += len(fin.tokens)
+        if evicted:
+            self.evicted += 1
+        slo_ok = (not evicted and fin.ttft_ms is not None
+                  and fin.ttft_ms <= self.slo_ttft_ms
+                  and (tbt_mean is None or tbt_mean <= self.slo_tbt_ms))
+        if slo_ok:
+            self.finished_in_slo += 1
+            self.good_tokens += len(fin.tokens)
+        return slo_ok
+
+    def _lanes(self, tr: _ReqTrace) -> None:
+        """Per-request Chrome-trace lane: queue_wait / prefill / decode
+        phase spans on lane ``tid = uid`` (drawn at finish so each
+        request costs a constant three events)."""
+        if self.recorder is None or not hasattr(self.recorder, "add_lane"):
+            return
+        now = self._clock()
+        lane = f"req {tr.uid}"
+        if tr.t_admit is not None:
+            self.recorder.add_lane(tr.uid, lane, "queue_wait",
+                                   tr.t_submit, tr.t_admit)
+            if tr.t_first is not None:
+                self.recorder.add_lane(tr.uid, lane, "prefill",
+                                       tr.t_admit, tr.t_first)
+                self.recorder.add_lane(tr.uid, lane, "decode",
+                                       tr.t_first, now,
+                                       tokens=tr.n_tokens)
+            else:
+                self.recorder.add_lane(tr.uid, lane, "prefill",
+                                       tr.t_admit, now)
+        else:
+            self.recorder.add_lane(tr.uid, lane, "queue_wait",
+                                   tr.t_submit, now)
+
+    # ------------------------------------------------------------ scalars
+    def drain_step_tbts(self) -> List[float]:
+        """TBT samples since the last drain (the engine writes their
+        mean as one ``Serve/tbt_ms`` scalar per decode dispatch)."""
+        out = self._step_tbts
+        self._step_tbts = []
+        return out
+
+    @property
+    def slo_attainment(self) -> Optional[float]:
+        if not self.finished:
+            return None
+        return self.finished_in_slo / self.finished
+
+    @property
+    def spec_accept_rate(self) -> Optional[float]:
+        """Lifetime accepted/proposed draft ratio (None before the
+        first verify dispatch with live drafts)."""
+        if not self.spec_proposed:
+            return None
+        return self.spec_accepted / self.spec_proposed
+
+    # ----------------------------------------------------------- reports
+    def snapshot(self) -> Dict[str, Any]:
+        """The SLO/latency block of ``engine.debug_state()`` and the
+        periodic ``serve_state`` event: bounded-histogram percentiles +
+        attainment/goodput counters (all host-side)."""
+        att = self.slo_attainment
+        return {
+            "enabled": self.enabled,
+            "slo": {"ttft_ms": self.slo_ttft_ms,
+                    "tbt_ms": self.slo_tbt_ms},
+            "finished": self.finished,
+            "evicted": self.evicted,
+            "in_slo": self.finished_in_slo,
+            "attainment": round(att, 4) if att is not None else None,
+            "good_tokens": self.good_tokens,
+            "finished_tokens": self.finished_tokens,
+            "in_flight": len(self._req),
+            "spec": {"proposed": self.spec_proposed,
+                     "accepted": self.spec_accepted,
+                     "dispatches": self.spec_dispatches,
+                     "accept_rate": (round(self.spec_accept_rate, 4)
+                                     if self.spec_accept_rate is not None
+                                     else None)},
+            "handoffs": self.handoffs,
+            "chunked_prefill": {"chunk_rows": self.chunk_rows,
+                                "requests": self.chunked_requests},
+            "latency": {k: h.snapshot() for k, h in self.hist.items()},
+        }

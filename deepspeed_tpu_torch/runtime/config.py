@@ -1,0 +1,453 @@
+"""Config parsing of the serving slice (the port of
+``deepspeed_tpu/runtime/config.py``'s ``get_inference_config`` and the
+serving part of ``get_observability_config``). The same dict resolves
+to the same fields and raises the same errors as the JAX package.
+"""
+
+from deepspeed_tpu_torch.runtime import constants as C
+
+
+class DeepSpeedConfigError(Exception):
+    pass
+
+
+def get_observability_config(param_dict):
+    """The serving part of the ``observability`` section: the ``serve``
+    sub-section (request trail, SLO thresholds, sampling, rotation,
+    replica id), the top-level ``events_max_mb`` rotation cap it
+    inherits, and ``chrome_trace_path``."""
+    sub = param_dict.get(C.OBSERVABILITY, {})
+    srv = sub.get(C.OBS_SERVE, {}) or {}
+    slo = srv.get(C.OBS_SERVE_SLO, {}) or {}
+    events_max_mb = sub.get(C.OBS_EVENTS_MAX_MB,
+                            C.OBS_EVENTS_MAX_MB_DEFAULT)
+    serve_max_mb = srv.get(C.OBS_SERVE_EVENTS_MAX_MB,
+                           C.OBS_SERVE_EVENTS_MAX_MB_DEFAULT)
+    serve = {
+        "enabled": bool(srv.get(C.OBS_SERVE_ENABLED,
+                                C.OBS_SERVE_ENABLED_DEFAULT)),
+        "slo": {
+            "ttft_ms": float(slo.get(C.OBS_SERVE_SLO_TTFT_MS,
+                                     C.OBS_SERVE_SLO_TTFT_MS_DEFAULT)),
+            "tbt_ms": float(slo.get(C.OBS_SERVE_SLO_TBT_MS,
+                                    C.OBS_SERVE_SLO_TBT_MS_DEFAULT)),
+        },
+        "sample_rate": float(srv.get(C.OBS_SERVE_SAMPLE_RATE,
+                                     C.OBS_SERVE_SAMPLE_RATE_DEFAULT)),
+        # serving events log inherits the top-level rotation cap
+        # unless overridden inside the serve section
+        "events_max_mb": float(events_max_mb if serve_max_mb is None
+                               else serve_max_mb),
+        "replica_id": srv.get(C.OBS_SERVE_REPLICA_ID,
+                              C.OBS_SERVE_REPLICA_ID_DEFAULT),
+    }
+    # validated here (not only in DeepSpeedConfig) because the
+    # inference engine parses this section standalone
+    if serve["sample_rate"] < 0 or serve["sample_rate"] > 1:
+        raise DeepSpeedConfigError(
+            f"observability.serve.sample_rate must be in [0, 1], got "
+            f"{serve['sample_rate']}")
+    if serve["slo"]["ttft_ms"] <= 0 or serve["slo"]["tbt_ms"] <= 0:
+        raise DeepSpeedConfigError(
+            "observability.serve.slo thresholds must be > 0, got "
+            f"{serve['slo']}")
+    if float(events_max_mb) < 0:
+        raise DeepSpeedConfigError(
+            "observability.events_max_mb must be >= 0 (0 disables "
+            "rotation)")
+    if serve["events_max_mb"] < 0:
+        raise DeepSpeedConfigError(
+            "observability.serve.events_max_mb must be >= 0 (0 disables "
+            "rotation)")
+    if serve["replica_id"] is not None:
+        serve["replica_id"] = int(serve["replica_id"])
+        if serve["replica_id"] < 0:
+            raise DeepSpeedConfigError(
+                "observability.serve.replica_id must be >= 0, got "
+                f"{serve['replica_id']}")
+
+    return {
+        "events_max_mb": float(events_max_mb),
+        "chrome_trace_path": sub.get(C.OBS_CHROME_TRACE_PATH,
+                                     C.OBS_CHROME_TRACE_PATH_DEFAULT),
+        "serve": serve,
+    }
+
+
+def _norm_quantize_weights(v):
+    """``inference.quantize_weights``: False | "bf16" | "int8". True is
+    a back-compat alias for "bf16" (the historical wire-only behavior);
+    the normalized value is what the engine branches on."""
+    if isinstance(v, str):
+        low = v.lower()
+        if low in ("bf16", "int8"):
+            return low
+        raise DeepSpeedConfigError(
+            f"inference.quantize_weights must be false, true (alias for "
+            f"'bf16'), 'bf16', or 'int8', got {v!r}")
+    return "bf16" if v else False
+
+
+def get_inference_config(param_dict):
+    """Serving-engine knobs (deepspeed_tpu/inference/; docs/inference.md).
+    Bucket lists are validated up front — a malformed bucket table would
+    otherwise surface as silent steady-state recompiles, the exact
+    failure mode the buckets exist to prevent."""
+    from deepspeed_tpu_torch.inference.buckets import validate_buckets
+    sub = param_dict.get(C.INFERENCE, {})
+    cfg = {
+        "max_batch_size": int(sub.get(C.INF_MAX_BATCH_SIZE,
+                                      C.INF_MAX_BATCH_SIZE_DEFAULT)),
+        "prompt_buckets": list(sub.get(C.INF_PROMPT_BUCKETS,
+                                       C.INF_PROMPT_BUCKETS_DEFAULT)),
+        "batch_buckets": list(sub.get(C.INF_BATCH_BUCKETS,
+                                      C.INF_BATCH_BUCKETS_DEFAULT)),
+        "max_seq_len": int(sub.get(C.INF_MAX_SEQ_LEN,
+                                   C.INF_MAX_SEQ_LEN_DEFAULT)),
+        "max_new_tokens": int(sub.get(C.INF_MAX_NEW_TOKENS,
+                                      C.INF_MAX_NEW_TOKENS_DEFAULT)),
+        "temperature": float(sub.get(C.INF_TEMPERATURE,
+                                     C.INF_TEMPERATURE_DEFAULT)),
+        "top_k": int(sub.get(C.INF_TOP_K, C.INF_TOP_K_DEFAULT)),
+        "eos_token_id": sub.get(C.INF_EOS_TOKEN_ID,
+                                C.INF_EOS_TOKEN_ID_DEFAULT),
+        "events_dir": sub.get(C.INF_EVENTS_DIR, C.INF_EVENTS_DIR_DEFAULT),
+        "quantize_weights": _norm_quantize_weights(
+            sub.get(C.INF_QUANTIZE_WEIGHTS,
+                    C.INF_QUANTIZE_WEIGHTS_DEFAULT)),
+        "quantize_block": int(sub.get(C.INF_QUANTIZE_BLOCK,
+                                      C.INF_QUANTIZE_BLOCK_DEFAULT)),
+        "admit_lookahead": int(sub.get(C.INF_ADMIT_LOOKAHEAD,
+                                       C.INF_ADMIT_LOOKAHEAD_DEFAULT)),
+    }
+    pk = sub.get(C.INF_PAGED_KV, {}) or {}
+    cfg["paged_kv"] = {
+        "enabled": bool(pk.get(C.INF_PAGED_ENABLED,
+                               C.INF_PAGED_ENABLED_DEFAULT)),
+        "page_size": int(pk.get(C.INF_PAGED_PAGE_SIZE,
+                                C.INF_PAGED_PAGE_SIZE_DEFAULT)),
+        "num_pages": int(pk.get(C.INF_PAGED_NUM_PAGES,
+                                C.INF_PAGED_NUM_PAGES_DEFAULT)),
+        "prefix_cache": bool(pk.get(C.INF_PAGED_PREFIX_CACHE,
+                                    C.INF_PAGED_PREFIX_CACHE_DEFAULT)),
+        "attn_kernel": str(pk.get(C.INF_PAGED_ATTN_KERNEL,
+                                  C.INF_PAGED_ATTN_KERNEL_DEFAULT)),
+        "decode_page_buckets": list(pk.get(
+            C.INF_PAGED_DECODE_PAGE_BUCKETS,
+            C.INF_PAGED_DECODE_PAGE_BUCKETS_DEFAULT)),
+        "kv_dtype": pk.get(C.INF_PAGED_KV_DTYPE,
+                           C.INF_PAGED_KV_DTYPE_DEFAULT),
+        "kv_quant_block": int(pk.get(C.INF_PAGED_KV_QUANT_BLOCK,
+                                     C.INF_PAGED_KV_QUANT_BLOCK_DEFAULT)),
+    }
+    mesh_sub = sub.get(C.INF_MESH, {}) or {}
+    cfg["mesh"] = {"axes": dict(mesh_sub.get(C.INF_MESH_AXES, {}) or {})}
+    ck = sub.get(C.INF_CHUNKED_PREFILL, {}) or {}
+    cfg["chunked_prefill"] = {
+        "enabled": bool(ck.get(C.INF_CHUNK_ENABLED,
+                               C.INF_CHUNK_ENABLED_DEFAULT)),
+        "chunk_tokens": int(ck.get(C.INF_CHUNK_TOKENS,
+                                   C.INF_CHUNK_TOKENS_DEFAULT)),
+        "cp_threshold_tokens": int(ck.get(
+            C.INF_CHUNK_CP_THRESHOLD,
+            C.INF_CHUNK_CP_THRESHOLD_DEFAULT)),
+    }
+    sd = sub.get(C.INF_SPEC_DECODE, {}) or {}
+    cfg["spec_decode"] = {
+        "enabled": bool(sd.get(C.INF_SPEC_ENABLED,
+                               C.INF_SPEC_ENABLED_DEFAULT)),
+        "k": int(sd.get(C.INF_SPEC_K, C.INF_SPEC_K_DEFAULT)),
+        "method": str(sd.get(C.INF_SPEC_METHOD,
+                             C.INF_SPEC_METHOD_DEFAULT)),
+        "ngram_min": int(sd.get(C.INF_SPEC_NGRAM_MIN,
+                                C.INF_SPEC_NGRAM_MIN_DEFAULT)),
+        "ngram_max": int(sd.get(C.INF_SPEC_NGRAM_MAX,
+                                C.INF_SPEC_NGRAM_MAX_DEFAULT)),
+        "verify_widths": list(sd.get(C.INF_SPEC_VERIFY_WIDTHS,
+                                     C.INF_SPEC_VERIFY_WIDTHS_DEFAULT)),
+    }
+    dg = sub.get(C.INF_DISAGG, {}) or {}
+    dg_mesh = dg.get(C.INF_DISAGG_DECODE_MESH, {}) or {}
+    cfg["disagg"] = {
+        "enabled": bool(dg.get(C.INF_DISAGG_ENABLED,
+                               C.INF_DISAGG_ENABLED_DEFAULT)),
+        "separate_pools": dg.get(C.INF_DISAGG_SEPARATE_POOLS,
+                                 C.INF_DISAGG_SEPARATE_POOLS_DEFAULT),
+        "prefill_pages": int(dg.get(C.INF_DISAGG_PREFILL_PAGES,
+                                    C.INF_DISAGG_PREFILL_PAGES_DEFAULT)),
+        "decode_mesh": {"axes": dict(
+            dg_mesh.get(C.INF_MESH_AXES, {}) or {})},
+    }
+    fl = sub.get(C.INF_FLEET, {}) or {}
+    shed = fl.get(C.INF_FLEET_SLO_SHED, {}) or {}
+    swap = fl.get(C.INF_FLEET_SWAP, {}) or {}
+    pm = fl.get(C.INF_FLEET_PROCESS_MODE, {}) or {}
+    ascale = fl.get(C.INF_FLEET_AUTOSCALE, {}) or {}
+    budget = shed.get(C.INF_FLEET_SHED_TTFT_BUDGET_MS,
+                      C.INF_FLEET_SHED_TTFT_BUDGET_MS_DEFAULT)
+    cfg["fleet"] = {
+        "replicas": int(fl.get(C.INF_FLEET_REPLICAS,
+                               C.INF_FLEET_REPLICAS_DEFAULT)),
+        "routing": str(fl.get(C.INF_FLEET_ROUTING,
+                              C.INF_FLEET_ROUTING_DEFAULT)),
+        "slo_shed": {
+            "enabled": bool(shed.get(C.INF_FLEET_SHED_ENABLED,
+                                     C.INF_FLEET_SHED_ENABLED_DEFAULT)),
+            "ttft_budget_ms": (float(budget) if budget is not None
+                               else None),
+            "min_samples": int(shed.get(
+                C.INF_FLEET_SHED_MIN_SAMPLES,
+                C.INF_FLEET_SHED_MIN_SAMPLES_DEFAULT)),
+            "shed_below_priority": int(shed.get(
+                C.INF_FLEET_SHED_BELOW_PRIORITY,
+                C.INF_FLEET_SHED_BELOW_PRIORITY_DEFAULT)),
+            "degrade_factor": float(shed.get(
+                C.INF_FLEET_SHED_DEGRADE_FACTOR,
+                C.INF_FLEET_SHED_DEGRADE_FACTOR_DEFAULT)),
+            "degrade_max_new": int(shed.get(
+                C.INF_FLEET_SHED_DEGRADE_MAX_NEW,
+                C.INF_FLEET_SHED_DEGRADE_MAX_NEW_DEFAULT)),
+        },
+        "swap": {
+            "verify_integrity": bool(swap.get(
+                C.INF_FLEET_SWAP_VERIFY_INTEGRITY,
+                C.INF_FLEET_SWAP_VERIFY_INTEGRITY_DEFAULT)),
+        },
+        "process_mode": {
+            "enabled": bool(pm.get(C.INF_FLEET_PM_ENABLED,
+                                   C.INF_FLEET_PM_ENABLED_DEFAULT)),
+            "rpc_timeout_s": float(pm.get(
+                C.INF_FLEET_PM_RPC_TIMEOUT_S,
+                C.INF_FLEET_PM_RPC_TIMEOUT_S_DEFAULT)),
+            "rpc_retries": int(pm.get(
+                C.INF_FLEET_PM_RPC_RETRIES,
+                C.INF_FLEET_PM_RPC_RETRIES_DEFAULT)),
+            "rpc_backoff_s": float(pm.get(
+                C.INF_FLEET_PM_RPC_BACKOFF_S,
+                C.INF_FLEET_PM_RPC_BACKOFF_S_DEFAULT)),
+            "max_restarts": int(pm.get(
+                C.INF_FLEET_PM_MAX_RESTARTS,
+                C.INF_FLEET_PM_MAX_RESTARTS_DEFAULT)),
+            "restart_backoff_s": float(pm.get(
+                C.INF_FLEET_PM_RESTART_BACKOFF_S,
+                C.INF_FLEET_PM_RESTART_BACKOFF_S_DEFAULT)),
+            "ready_timeout_s": float(pm.get(
+                C.INF_FLEET_PM_READY_TIMEOUT_S,
+                C.INF_FLEET_PM_READY_TIMEOUT_S_DEFAULT)),
+        },
+        "autoscale": {
+            "enabled": bool(ascale.get(
+                C.INF_FLEET_AS_ENABLED,
+                C.INF_FLEET_AS_ENABLED_DEFAULT)),
+            "min_replicas": int(ascale.get(
+                C.INF_FLEET_AS_MIN_REPLICAS,
+                C.INF_FLEET_AS_MIN_REPLICAS_DEFAULT)),
+            "max_replicas": int(ascale.get(
+                C.INF_FLEET_AS_MAX_REPLICAS,
+                C.INF_FLEET_AS_MAX_REPLICAS_DEFAULT)),
+            "scale_up_patience": int(ascale.get(
+                C.INF_FLEET_AS_UP_PATIENCE,
+                C.INF_FLEET_AS_UP_PATIENCE_DEFAULT)),
+            "scale_down_patience": int(ascale.get(
+                C.INF_FLEET_AS_DOWN_PATIENCE,
+                C.INF_FLEET_AS_DOWN_PATIENCE_DEFAULT)),
+            "cooldown_steps": int(ascale.get(
+                C.INF_FLEET_AS_COOLDOWN_STEPS,
+                C.INF_FLEET_AS_COOLDOWN_STEPS_DEFAULT)),
+        },
+    }
+    try:
+        cfg["prompt_buckets"] = list(validate_buckets(
+            cfg["prompt_buckets"], "inference.prompt_buckets"))
+        cfg["batch_buckets"] = list(validate_buckets(
+            cfg["batch_buckets"], "inference.batch_buckets"))
+    except ValueError as e:
+        raise DeepSpeedConfigError(str(e))
+    if cfg["max_batch_size"] < 1:
+        raise DeepSpeedConfigError(
+            f"inference.max_batch_size must be >= 1, got "
+            f"{cfg['max_batch_size']}")
+    if max(cfg["batch_buckets"]) > cfg["max_batch_size"]:
+        raise DeepSpeedConfigError(
+            f"inference.batch_buckets max ({max(cfg['batch_buckets'])}) "
+            f"exceeds max_batch_size ({cfg['max_batch_size']})")
+    if max(cfg["prompt_buckets"]) > cfg["max_seq_len"]:
+        raise DeepSpeedConfigError(
+            f"inference.prompt_buckets max ({max(cfg['prompt_buckets'])}) "
+            f"exceeds max_seq_len ({cfg['max_seq_len']})")
+    if cfg["max_new_tokens"] < 1 or cfg["top_k"] < 0 or \
+            cfg["quantize_block"] < 8:
+        raise DeepSpeedConfigError(
+            "inference: max_new_tokens >= 1, top_k >= 0 and "
+            "quantize_block >= 8 required")
+    if cfg["admit_lookahead"] < 0:
+        raise DeepSpeedConfigError(
+            f"inference.admit_lookahead must be >= 0, got "
+            f"{cfg['admit_lookahead']}")
+    pkc = cfg["paged_kv"]
+    if pkc["page_size"] < 1 or pkc["page_size"] > cfg["max_seq_len"]:
+        raise DeepSpeedConfigError(
+            f"inference.paged_kv.page_size must be in [1, max_seq_len], "
+            f"got {pkc['page_size']}")
+    if pkc["num_pages"] < 0 or pkc["num_pages"] == 1:
+        # 0 = auto-size; an explicit pool needs >= 2 (null + 1 usable)
+        raise DeepSpeedConfigError(
+            f"inference.paged_kv.num_pages must be 0 (auto) or >= 2, "
+            f"got {pkc['num_pages']}")
+    if pkc["attn_kernel"] not in ("pallas", "gather"):
+        raise DeepSpeedConfigError(
+            f"inference.paged_kv.attn_kernel must be 'pallas' or "
+            f"'gather', got {pkc['attn_kernel']!r}")
+    if pkc["decode_page_buckets"]:
+        try:
+            pkc["decode_page_buckets"] = list(validate_buckets(
+                pkc["decode_page_buckets"],
+                "inference.paged_kv.decode_page_buckets"))
+        except ValueError as e:
+            raise DeepSpeedConfigError(str(e))
+    if pkc["kv_dtype"] is not None:
+        pkc["kv_dtype"] = str(pkc["kv_dtype"]).lower()
+        if pkc["kv_dtype"] not in ("bf16", "int8"):
+            raise DeepSpeedConfigError(
+                f"inference.paged_kv.kv_dtype must be null (engine "
+                f"dtype), 'bf16', or 'int8', got {pkc['kv_dtype']!r}")
+    if pkc["kv_quant_block"] < 0:
+        raise DeepSpeedConfigError(
+            f"inference.paged_kv.kv_quant_block must be >= 0 (0 = one "
+            f"scale per token row), got {pkc['kv_quant_block']}")
+    if pkc["kv_quant_block"] and pkc["kv_dtype"] != "int8":
+        raise DeepSpeedConfigError(
+            "inference.paged_kv.kv_quant_block requires "
+            "kv_dtype: 'int8'")
+    for where, axes in (("inference.mesh", cfg["mesh"]["axes"]),
+                        ("inference.disagg.decode_mesh",
+                         cfg["disagg"]["decode_mesh"]["axes"])):
+        for name, size in axes.items():
+            if name != "model":
+                # the serving programs shard params/cache over the
+                # 'model' axis only today; an unknown axis would
+                # otherwise surface as an opaque jax resource error
+                # deep in engine init
+                raise DeepSpeedConfigError(
+                    f"{where}.axes supports only the 'model' "
+                    f"(tensor-parallel) axis, got {name!r}")
+            if not isinstance(size, int) or size < 1:
+                raise DeepSpeedConfigError(
+                    f"{where}.axes entries must be positive ints, "
+                    f"got {name}={size!r}")
+    ckc = cfg["chunked_prefill"]
+    if ckc["enabled"] and not pkc["enabled"]:
+        raise DeepSpeedConfigError(
+            "inference.chunked_prefill requires paged_kv.enabled (a "
+            "chunk is cache_position advancing over the slot's pages)")
+    if ckc["enabled"] and (ckc["chunk_tokens"] < 1
+                           or ckc["chunk_tokens"] > cfg["max_seq_len"]):
+        raise DeepSpeedConfigError(
+            f"inference.chunked_prefill.chunk_tokens must be in "
+            f"[1, max_seq_len], got {ckc['chunk_tokens']}")
+    if ckc["cp_threshold_tokens"] < 0:
+        raise DeepSpeedConfigError(
+            f"inference.chunked_prefill.cp_threshold_tokens must be "
+            f">= 0 (0 = context-parallel off), got "
+            f"{ckc['cp_threshold_tokens']}")
+    sdc = cfg["spec_decode"]
+    if sdc["enabled"] and not pkc["enabled"]:
+        raise DeepSpeedConfigError(
+            "inference.spec_decode requires paged_kv.enabled (rollback "
+            "is a block-table/position edit on the page pool)")
+    if sdc["k"] < 1 or sdc["k"] >= cfg["max_seq_len"]:
+        raise DeepSpeedConfigError(
+            f"inference.spec_decode.k must be in [1, max_seq_len), got "
+            f"{sdc['k']}")
+    if sdc["method"] not in ("ngram", "callable"):
+        raise DeepSpeedConfigError(
+            f"inference.spec_decode.method must be 'ngram' or "
+            f"'callable', got {sdc['method']!r}")
+    if sdc["ngram_min"] < 1 or sdc["ngram_max"] < sdc["ngram_min"]:
+        raise DeepSpeedConfigError(
+            "inference.spec_decode: 1 <= ngram_min <= ngram_max "
+            f"required, got [{sdc['ngram_min']}, {sdc['ngram_max']}]")
+    if sdc["verify_widths"]:
+        try:
+            sdc["verify_widths"] = list(validate_buckets(
+                sdc["verify_widths"],
+                "inference.spec_decode.verify_widths"))
+        except ValueError as e:
+            raise DeepSpeedConfigError(str(e))
+        if min(sdc["verify_widths"]) < 2:
+            # width 1 IS the plain decode program; a verify program
+            # only exists to check >= 1 draft token in one dispatch
+            raise DeepSpeedConfigError(
+                "inference.spec_decode.verify_widths entries must be "
+                ">= 2 (width 1 is the plain decode program)")
+    dgc = cfg["disagg"]
+    if dgc["enabled"] and not pkc["enabled"]:
+        raise DeepSpeedConfigError(
+            "inference.disagg requires paged_kv.enabled (the handoff "
+            "transfers page ownership between worker loops)")
+    if dgc["separate_pools"] is not None:
+        dgc["separate_pools"] = bool(dgc["separate_pools"])
+    if dgc["prefill_pages"] < 0 or dgc["prefill_pages"] == 1:
+        raise DeepSpeedConfigError(
+            f"inference.disagg.prefill_pages must be 0 (auto) or >= 2, "
+            f"got {dgc['prefill_pages']}")
+    if dgc["decode_mesh"]["axes"] and not dgc["enabled"]:
+        raise DeepSpeedConfigError(
+            "inference.disagg.decode_mesh.axes set but disagg.enabled "
+            "is false")
+    flc = cfg["fleet"]
+    if flc["replicas"] < 1:
+        raise DeepSpeedConfigError(
+            f"inference.fleet.replicas must be >= 1, got "
+            f"{flc['replicas']}")
+    if flc["routing"] not in C.INF_FLEET_ROUTING_CHOICES:
+        raise DeepSpeedConfigError(
+            f"inference.fleet.routing must be one of "
+            f"{list(C.INF_FLEET_ROUTING_CHOICES)}, got "
+            f"{flc['routing']!r}")
+    shc = flc["slo_shed"]
+    if shc["ttft_budget_ms"] is not None and shc["ttft_budget_ms"] <= 0:
+        raise DeepSpeedConfigError(
+            f"inference.fleet.slo_shed.ttft_budget_ms must be > 0 (or "
+            f"null for the serve SLO), got {shc['ttft_budget_ms']}")
+    if shc["min_samples"] < 1 or shc["shed_below_priority"] < 0 or \
+            shc["degrade_max_new"] < 0:
+        raise DeepSpeedConfigError(
+            "inference.fleet.slo_shed: min_samples >= 1, "
+            "shed_below_priority >= 0 and degrade_max_new >= 0 required")
+    if shc["degrade_factor"] < 1.0:
+        raise DeepSpeedConfigError(
+            f"inference.fleet.slo_shed.degrade_factor must be >= 1.0 "
+            f"(the degrade rung engages above the shed rung), got "
+            f"{shc['degrade_factor']}")
+    pmc = flc["process_mode"]
+    if pmc["rpc_timeout_s"] <= 0 or pmc["ready_timeout_s"] <= 0:
+        raise DeepSpeedConfigError(
+            f"inference.fleet.process_mode: rpc_timeout_s and "
+            f"ready_timeout_s must be > 0, got "
+            f"{pmc['rpc_timeout_s']}/{pmc['ready_timeout_s']}")
+    if pmc["rpc_retries"] < 0 or pmc["rpc_backoff_s"] < 0 or \
+            pmc["max_restarts"] < 0 or pmc["restart_backoff_s"] < 0:
+        raise DeepSpeedConfigError(
+            "inference.fleet.process_mode: rpc_retries, rpc_backoff_s, "
+            "max_restarts and restart_backoff_s must be >= 0")
+    asc = flc["autoscale"]
+    if asc["min_replicas"] < 1:
+        raise DeepSpeedConfigError(
+            f"inference.fleet.autoscale.min_replicas must be >= 1, got "
+            f"{asc['min_replicas']}")
+    if asc["max_replicas"] < asc["min_replicas"]:
+        raise DeepSpeedConfigError(
+            f"inference.fleet.autoscale.max_replicas must be >= "
+            f"min_replicas ({asc['min_replicas']}), got "
+            f"{asc['max_replicas']}")
+    if asc["scale_up_patience"] < 1 or asc["scale_down_patience"] < 1:
+        raise DeepSpeedConfigError(
+            "inference.fleet.autoscale: scale_up_patience and "
+            "scale_down_patience must be >= 1 (hysteresis — a single "
+            "hot or idle step must never flap the fleet)")
+    if asc["cooldown_steps"] < 0:
+        raise DeepSpeedConfigError(
+            f"inference.fleet.autoscale.cooldown_steps must be >= 0, "
+            f"got {asc['cooldown_steps']}")
+    return cfg

@@ -52,9 +52,13 @@ setup(
     description="TPU-native deep learning optimization library: ZeRO, "
                 "pipeline/3D parallelism, fused Pallas kernels, sparse "
                 "attention — DeepSpeed capabilities on JAX/XLA",
-    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*"]),
+    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*",
+                                    "deepspeed_tpu_torch",
+                                    "deepspeed_tpu_torch.*"]),
     package_data={"deepspeed_tpu.ops.adam": ["*.so"],
-                  "deepspeed_tpu.ops.attention": ["block_table.json"]},
+                  "deepspeed_tpu.ops.attention": ["block_table.json"],
+                  # the port's CUDA sources, built with nvcc at first use
+                  "deepspeed_tpu_torch": ["csrc/*.cu"]},
     scripts=["bin/dstpu", "bin/ds", "bin/dstpu_ssh"],
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],

@@ -1,0 +1,272 @@
+"""The port's paged-decode attention (deepspeed_tpu_torch/ops/attention/
+paged.py) against the JAX package's Pallas kernel K4
+(deepspeed_tpu/ops/attention/paged.py::_decode_kernel) run in interpret
+mode on the CPU.
+
+The same numpy inputs, made from a seed, go through both. Tolerances:
+2e-5 in fp32 (what tests/unit/test_paged_attention.py holds the Pallas
+kernel to against its oracle: the sums run in another order) and 2e-2 in
+bf16 (q.K is exact in fp32 either way, but the probabilities are rounded
+to bf16 before P.V and the sums run in another order).
+
+The CUDA kernel itself runs only on a card: its test is marked ``cuda``
+and skips here.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+FP32_ATOL = 2e-5
+BF16_ATOL = 2e-2
+# the CUDA kernel against the plain version on the card: the same p
+# rounding in both, so only the sum order differs; the output's last
+# bf16 rounding may still land one ulp apart (2**-8 relative)
+CUDA_BF16_ATOL = 2e-3
+CUDA_BF16_RTOL = 1e-2
+
+
+def _jax_decode(q, kpool, vpool, tables, pos, dtype):
+    """K4 in interpret mode on numpy inputs; returns fp32 numpy."""
+    import jax.numpy as jnp
+
+    from deepspeed_tpu.ops.attention.paged import paged_decode_attention
+    jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    out = paged_decode_attention(
+        jnp.asarray(q).astype(jd), jnp.asarray(kpool).astype(jd),
+        jnp.asarray(vpool).astype(jd), jnp.asarray(tables, jnp.int32),
+        jnp.asarray(pos, jnp.int32), interpret=True)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _torch_args(q, kpool, vpool, tables, pos, dtype):
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    return (torch.from_numpy(q).to(td), torch.from_numpy(kpool).to(td),
+            torch.from_numpy(vpool).to(td),
+            torch.from_numpy(np.asarray(tables, np.int32)),
+            torch.from_numpy(np.asarray(pos, np.int32)))
+
+
+def _case(rng, kv_heads, gqa, page_size, pages_per_seq, hd=16, batch=5,
+          num_pages=None):
+    """Random pools, queries and per-row tables of distinct non-null
+    pages, as numpy fp32."""
+    H = kv_heads * gqa
+    num_pages = num_pages or (batch * pages_per_seq + 1)
+    kpool = rng.randn(num_pages, kv_heads, page_size, hd).astype(np.float32)
+    vpool = rng.randn(num_pages, kv_heads, page_size, hd).astype(np.float32)
+    q = rng.randn(batch, H, hd).astype(np.float32)
+    tables = np.zeros((batch, pages_per_seq), np.int32)
+    avail = list(range(1, num_pages))
+    rng.shuffle(avail)
+    for b in range(batch):
+        tables[b] = [avail.pop() for _ in range(pages_per_seq)]
+    return q, kpool, vpool, tables
+
+
+def _both(args, dtype):
+    """(plain, wrapper-on-CPU) outputs of the port as fp32 numpy."""
+    from deepspeed_tpu_torch.ops.attention.paged import (
+        paged_decode_attention, paged_decode_plain)
+    t = _torch_args(*args, dtype)
+    return (paged_decode_plain(*t).float().numpy(),
+            paged_decode_attention(*t).float().numpy())
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("gqa", [1, 4])
+@pytest.mark.parametrize("page_size", [8, 16, 128])
+def test_matches_jax_kernel_sweep(page_size, gqa, dtype):
+    """page_size x GQA sweep with the cache-position edges in one batch:
+    position 0, the last slot of page 0 (page-aligned context), the
+    first slot of page 1 (one past a page), the slot after it, and the
+    table's final position."""
+    rng = np.random.RandomState(page_size + gqa)
+    P = 3
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=gqa,
+                                    page_size=page_size, pages_per_seq=P)
+    pos = np.asarray([0, page_size - 1, page_size, page_size + 1,
+                      P * page_size - 1], np.int32)
+    ref = _jax_decode(q, kpool, vpool, tables, pos, dtype)
+    atol = BF16_ATOL if dtype == "bf16" else FP32_ATOL
+    for out in _both((q, kpool, vpool, tables, pos), dtype):
+        np.testing.assert_allclose(out, ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_shared_prefix_pages_two_rows(dtype):
+    """Two rows whose tables point at the SAME physical prefix pages, with
+    identical queries at identical positions, read identical K/V — and
+    a third row diverges."""
+    rng = np.random.RandomState(0)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=2, page_size=8,
+                                    pages_per_seq=3, batch=3)
+    tables[1, :2] = tables[0, :2]
+    tables[1, 2] = tables[0, 2]
+    q[1] = q[0]
+    pos = np.asarray([17, 17, 5], np.int32)
+    ref = _jax_decode(q, kpool, vpool, tables, pos, dtype)
+    atol = BF16_ATOL if dtype == "bf16" else FP32_ATOL
+    for out in _both((q, kpool, vpool, tables, pos), dtype):
+        np.testing.assert_allclose(out, ref, atol=atol, rtol=0)
+        np.testing.assert_array_equal(out[0], out[1])
+        assert not np.allclose(out[0], out[2])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_all_null_rows_are_zero(dtype):
+    """Inactive slots and the scratch row carry all-null tables: their
+    output is exactly 0, in the port as in K4 (its l_safe), never NaN;
+    an all-null row beside live rows leaves them untouched."""
+    rng = np.random.RandomState(1)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=1, page_size=8,
+                                    pages_per_seq=2, batch=3)
+    tables[1] = 0
+    tables[2] = 0
+    pos = np.asarray([9, 0, 15], np.int32)
+    ref = _jax_decode(q, kpool, vpool, tables, pos, dtype)
+    np.testing.assert_array_equal(ref[1:], 0.0)
+    atol = BF16_ATOL if dtype == "bf16" else FP32_ATOL
+    for out in _both((q, kpool, vpool, tables, pos), dtype):
+        np.testing.assert_array_equal(out[1:], 0.0)
+        np.testing.assert_allclose(out, ref, atol=atol, rtol=0)
+
+
+def test_null_entry_inside_live_pages_is_masked():
+    """A null entry among a row's live pages masks that page only."""
+    rng = np.random.RandomState(3)
+    q, kpool, vpool, tables = _case(rng, kv_heads=1, gqa=2, page_size=8,
+                                    pages_per_seq=3, batch=2)
+    tables[0, 1] = 0
+    pos = np.asarray([20, 20], np.int32)
+    ref = _jax_decode(q, kpool, vpool, tables, pos, "fp32")
+    for out in _both((q, kpool, vpool, tables, pos), "fp32"):
+        np.testing.assert_allclose(out, ref, atol=FP32_ATOL, rtol=0)
+
+
+def test_nan_past_live_pages_does_not_leak():
+    """NaN planted in every page past each row's live count (its own
+    reserved-but-unreached pages included) must not reach the output:
+    the result equals K4's on the clean pool."""
+    rng = np.random.RandomState(2)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=2, page_size=8,
+                                    pages_per_seq=4, batch=2)
+    pos = np.asarray([9, 3], np.int32)        # live pages: 2 and 1
+    ref = _jax_decode(q, kpool, vpool, tables, pos, "fp32")
+    kp, vp = kpool.copy(), vpool.copy()
+    for b, live in ((0, 2), (1, 1)):
+        for page in tables[b, live:]:
+            kp[page] = np.nan
+            vp[page] = np.nan
+    for out in _both((q, kp, vp, tables, pos), "fp32"):
+        assert np.isfinite(out).all()
+        np.testing.assert_allclose(out, ref, atol=FP32_ATOL, rtol=0)
+
+
+def test_cpu_wrapper_counts_no_launch():
+    from deepspeed_tpu_torch.ops.attention.paged import \
+        paged_decode_attention
+    rng = np.random.RandomState(4)
+    args = _torch_args(*_case(rng, 1, 1, 8, 2, batch=2),
+                       np.asarray([3, 9], np.int32), "fp32")
+    before = paged_decode_attention.launches
+    paged_decode_attention(*args)
+    assert paged_decode_attention.launches == before
+
+
+def test_wrapper_refuses_other_devices():
+    from deepspeed_tpu_torch.ops.attention.paged import \
+        paged_decode_attention
+    q = torch.empty((2, 4, 16), device="meta")
+    pool = torch.empty((5, 4, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        paged_decode_attention(q, pool, pool,
+                               torch.zeros((2, 2), dtype=torch.int32),
+                               torch.zeros((2,), dtype=torch.int32))
+
+
+def test_read_bytes_and_live_pages_match_jax():
+    from deepspeed_tpu.ops.attention import paged as jp
+
+    from deepspeed_tpu_torch.ops.attention import paged as tp
+    pos = [0, 15, 16, 300, 1023]
+    for ps in (8, 16, 128):
+        assert tp.decode_read_bytes(pos, ps, 64, 16, 64) == \
+            jp.decode_read_bytes(pos, ps, 64, 16, 64)
+        assert [tp.live_pages(p, ps) for p in pos] == \
+            [jp.live_pages(p, ps) for p in pos]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kv_heads,gqa,hd,page_size", [
+    ("bf16", 16, 1, 64, 16),      # the GPT-2 345M serving shapes
+    ("bf16", 2, 4, 128, 16),      # GQA
+    ("fp32", 4, 2, 64, 128),      # fp32, wide pages
+    ("bf16", 2, 8, 256, 8),       # widest head, largest group
+])
+def test_cuda_kernel_matches_plain(dtype, kv_heads, gqa, hd, page_size):
+    """The sm_90a kernel against its plain version on the card, with the
+    cache-position edges, an all-null row and NaN past the live pages."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from deepspeed_tpu_torch.ops.attention.paged import (
+        paged_decode_attention, paged_decode_plain)
+    rng = np.random.RandomState(hd + gqa)
+    P = 4
+    q, kpool, vpool, tables = _case(rng, kv_heads, gqa, page_size, P, hd=hd,
+                                    batch=6)
+    tables[5] = 0
+    pos = np.asarray([0, page_size - 1, page_size, page_size + 1,
+                      P * page_size - 1, 7], np.int32)
+    for b in range(5):
+        for page in tables[b, pos[b] // page_size + 1:]:
+            kpool[page] = np.nan
+            vpool[page] = np.nan
+    args = [t.cuda() for t in _torch_args(q, kpool, vpool, tables, pos,
+                                          dtype)]
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    ref = paged_decode_plain(*args)
+    assert torch.isfinite(out).all()
+    assert (out[5] == 0).all()
+    atol, rtol = (CUDA_BF16_ATOL, CUDA_BF16_RTOL) if dtype == "bf16" \
+        else (1e-5, 0)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    assert math.isfinite(float(out.float().abs().max()))
+
+
+def test_nan_past_position_inside_last_live_page():
+    """Rows past a row's position inside its last live page are never
+    read by the port. K4 itself multiplies their masked (zero)
+    probabilities by V, so a NaN there reaches its output: the port
+    deliberately does not copy that."""
+    rng = np.random.RandomState(5)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=1, page_size=8,
+                                    pages_per_seq=2, batch=2)
+    pos = np.asarray([10, 4], np.int32)
+    clean = _jax_decode(q, kpool, vpool, tables, pos, "fp32")
+    kp, vp = kpool.copy(), vpool.copy()
+    kp[tables[0, 1], :, 3:] = np.nan       # positions 11.. of row 0
+    vp[tables[0, 1], :, 3:] = np.nan
+    kp[tables[1, 0], :, 5:] = np.nan       # positions 5.. of row 1
+    vp[tables[1, 0], :, 5:] = np.nan
+    assert np.isnan(_jax_decode(q, kp, vp, tables, pos, "fp32")).any()
+    for out in _both((q, kp, vp, tables, pos), "fp32"):
+        np.testing.assert_allclose(out, clean, atol=FP32_ATOL, rtol=0)
+
+
+def test_position_past_the_table_walks_the_table_only():
+    """A position at or past the table's extent reads the P pages the
+    table maps and no entry past it (K4 would index past the table)."""
+    from deepspeed_tpu_torch.ops.attention.paged import paged_decode_plain
+    rng = np.random.RandomState(6)
+    case = _case(rng, kv_heads=2, gqa=2, page_size=8, pages_per_seq=2,
+                 batch=2)
+    last = _torch_args(*case, np.asarray([15, 15], np.int32), "fp32")
+    past = _torch_args(*case, np.asarray([16, 40], np.int32), "fp32")
+    torch.testing.assert_close(paged_decode_plain(*past),
+                               paged_decode_plain(*last), atol=0, rtol=0)

@@ -23,7 +23,30 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
 4. kernel path against plain path through the model: an fp32 engine of
    the same model, one decode step from one prefilled state with the
    kernel and with the plain gather attention; logits compared.
-5. the {"kernels": [...]} line, the nvidia-smi line, and last
+5. train_kernel_check: the masked-flash kernels K1 (o, lse), K2 (dq) and
+   K3 (dk, dv) against their plain versions on the card, at the training
+   shapes (B 8, H 16, S 1024, D 64, bf16, causal, block 128) with
+   dropout 0 and 0.1, and on a dense mask, GQA (Hkv 4, G 4, D 128), fp32,
+   and per-head layouts with empty rows at block 16. Element by element
+   (TRAIN_TOL), and at the training shapes a control: the plain versions
+   with the bf16 rounding of p and ds left out must fail the same check.
+6. train_kernel_timing: K1, K2 and K3 timed at the training shapes (L2
+   flushed before each call) beside their bound, their plain versions and
+   the library yardstick (scaled_dot_product_attention forward for K1,
+   its backward for K2+K3 together).
+7. training: GPT-2 345M at full width (random weights from seed 0),
+   bf16 over fp32 masters, Adam lr 1e-4, batch 8 x 1024 through
+   deepspeed_tpu_torch.initialize: 2 warm-up and 10 timed train_batch
+   steps on one repeated batch; step time, tokens/s, MFU, peak memory,
+   every loss. Checks finite, falling losses and that K1, K2 and K3 each
+   launched 24 times per step. Then a torch.profiler window over 2 more
+   steps (device time by kernel group, device idle share) and the tied
+   LM head's forward and backward timed alone.
+8. training_dropout: the same model at dropout 0.1 for 3 steps (the
+   attention dropout inside K1-K3): finite losses, 24 launches per step.
+9. train_kernel_vs_plain: loss and every grad of a 2-layer full-width
+   GPT-2 in fp32, the kernel path against the plain path.
+10. the {"kernels": [...]} line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 """
 
@@ -41,6 +64,23 @@ BF16_ATOL = 2e-3     # summation order differs; p is rounded to bf16
 FP32_ATOL = 1e-5     # summation order differs
 MODEL_LOGIT_ATOL = 1e-3   # fp32, 24 layers of differently ordered sums
 TIMED_CALLS = 100
+# masked flash, kernel against plain version, element by element:
+# |a - b| <= atol + rtol * |b|, and in bf16 also over the whole tensor:
+# ||a - b|| <= rms * ||b||. In bf16 both sides round the same fp32
+# values (p before P.V, ds before its products, the outputs), summed in
+# another order, so an element may land one bf16 ulp (rtol 2**-7) apart;
+# atol covers elements near zero. The same check applied to a plain
+# version with the rounding of p and ds left out must fail on every
+# output (the control of train_kernel_check). fp32: only the sum order
+# differs.
+TRAIN_TOL = {"bf16": dict(atol=1e-4, rtol=2.0**-7, rms=1e-3),
+             "fp32": dict(atol=1e-5, rtol=1e-4, rms=None)}
+LSE_ATOL = 1e-3           # lse is fp32 in both: differently ordered sums
+# the fp32 2-layer model, kernel path against plain path: loss relative
+# error and each grad's error relative to the grad's largest entry
+TRAIN_MODEL_LOSS_RTOL = 1e-5
+TRAIN_MODEL_GRAD_TOL = 1e-4
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 # by card (NVIDIA data sheets): device-memory bytes/s, dense bf16 FLOP/s
 CARD_PEAKS = (("H200", 4.8e12, 989e12), ("H100 NVL", 3.9e12, 835e12),
               ("H100 PCIe", 2.0e12, 756e12), ("H100", 3.35e12, 989e12))
@@ -409,6 +449,488 @@ def model_path_phase(model_config, params, device, prompts):
                              f"path by {err} (atol {MODEL_LOGIT_ATOL})")
 
 
+# ------------------------------------------------------------ training
+MAIN_SHAPE = dict(B=8, H=16, Hkv=16, S=1024, D=64, block=128)
+
+
+def train_inputs(rng, B, H, Hkv, S, D, dtype):
+    """q, k, v, do of one masked-flash call on the card, from numpy."""
+    import torch
+    arrs = [rng.randn(B, H, S, D), rng.randn(B, Hkv, S, D),
+            rng.randn(B, Hkv, S, D), rng.randn(B, H, S, D)]
+    return [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+            for a in arrs]
+
+
+def compare(out, ref, atol, rtol, rms):
+    """(worst |a - b| / (atol + rtol |b|), ||a - b|| / ||b||, max |a - b|,
+    whether both are within bounds)."""
+    import torch
+    a, b = out.float(), ref.float()
+    d = (a - b).abs()
+    ratio = float((d / (atol + rtol * b.abs())).max())
+    rel_rms = float(torch.linalg.vector_norm(d)
+                    / torch.linalg.vector_norm(b).clamp_min(1e-30))
+    ok = bool(torch.isfinite(a).all()) and ratio <= 1.0 and \
+        (rms is None or rel_rms <= rms)
+    return ratio, rel_rms, float(d.max()), ok
+
+
+def check_train_kernels(name, mask, args, rate, seed=-123457,
+                        control=False):
+    """K1, K2 and K3 against their plain versions on the same inputs;
+    the backward kernels get the plain forward's lse and delta, so each
+    kernel is held against its own plain version. With ``control`` (bf16
+    only), the plain versions also run on fp32 copies of the inputs,
+    which leaves out the rounding of p and ds before their products, and
+    that control must fail the same check on every output."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    q, k, v, do = args
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed)
+    torch.cuda.synchronize()
+    o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed)
+    delta = (do.float() * o_p.float()).sum(-1)
+    dq = mf.masked_flash_dq(q, k, v, do, lse_p, delta, mask, scale, rate,
+                            seed)
+    dk, dv = mf.masked_flash_dkv(q, k, v, do, lse_p, delta, mask, scale,
+                                 rate, seed)
+    torch.cuda.synchronize()
+    dq_p = mf.masked_flash_dq_plain(q, k, v, do, lse_p, delta, mask, scale,
+                                    rate, seed)
+    dk_p, dv_p = mf.masked_flash_dkv_plain(q, k, v, do, lse_p, delta, mask,
+                                           scale, rate, seed)
+    tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+    row = {"phase": "train_kernel_check", "case": name,
+           "dtype": str(q.dtype), "shape_q": list(q.shape),
+           "shape_kv": list(k.shape), "block": mask.block,
+           "mask_heads": mask.heads, "walked_tiles": mask.nnz,
+           "dropout": rate, "tol": tol, "lse_atol": LSE_ATOL}
+    refs = {"o": o_p, "dq": dq_p, "dk": dk_p, "dv": dv_p}
+    ok = True
+    for key, out in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+        ratio, rel_rms, err, good = compare(out, refs[key], **tol)
+        row[f"{key}_max_abs_err"] = err
+        row[f"{key}_worst_ratio"] = ratio
+        row[f"{key}_rel_rms"] = rel_rms
+        ok &= good
+    # rows with no valid entry carry NEG_INF in both
+    lse_err = float((lse - lse_p).abs().max())
+    row["lse_max_abs_err"] = lse_err
+    ok &= lse_err <= LSE_ATOL
+    if control:
+        f32 = [t.float() for t in args]
+        o_c, _ = mf.masked_flash_fwd_plain(*f32[:3], mask, scale, rate, seed)
+        dq_c = mf.masked_flash_dq_plain(*f32, lse_p, delta, mask, scale,
+                                        rate, seed)
+        dk_c, dv_c = mf.masked_flash_dkv_plain(*f32, lse_p, delta, mask,
+                                               scale, rate, seed)
+        for key, out in (("o", o_c), ("dq", dq_c), ("dk", dk_c),
+                         ("dv", dv_c)):
+            ratio, rel_rms, _, good = compare(out.to(q.dtype), refs[key],
+                                              **tol)
+            row[f"control_{key}_worst_ratio"] = ratio
+            row[f"control_{key}_rel_rms"] = rel_rms
+            row[f"control_{key}_fails"] = not good
+            ok &= not good
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        raise AssertionError(f"masked flash kernels disagree with their "
+                             f"plain versions on {name}, or the check "
+                             f"misses the bf16 rounding: {row}")
+    return row
+
+
+def train_kernel_check_phase():
+    """Returns the main-path case's row at dropout 0."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention.masked_flash import BlockMask
+    rng = np.random.RandomState(SEED)
+    m = MAIN_SHAPE
+    main = train_inputs(rng, m["B"], m["H"], m["Hkv"], m["S"], m["D"],
+                        torch.bfloat16)
+    causal = BlockMask.causal(m["S"], m["block"])
+    main_row = check_train_kernels("gpt2_345m_causal_bf16", causal, main,
+                                   0.0, control=True)
+    check_train_kernels("gpt2_345m_causal_bf16_dropout0.1", causal, main,
+                        0.1, control=True)
+    check_train_kernels("dense_bf16", BlockMask.dense(512, 512, 128),
+                        train_inputs(rng, 2, 8, 8, 512, 64, torch.bfloat16),
+                        0.0)
+    check_train_kernels("gqa_hkv4_g4_hd128_bf16_dropout0.1",
+                        BlockMask.causal(512, 128),
+                        train_inputs(rng, 2, 16, 4, 512, 128,
+                                     torch.bfloat16), 0.1)
+    check_train_kernels("fp32_causal_block64_dropout0.1",
+                        BlockMask.causal(256, 64),
+                        train_inputs(rng, 2, 4, 2, 256, 64, torch.float32),
+                        0.1)
+    # per-head layouts at block 16 with an empty block row in each head
+    layout = rng.rand(4, 8, 8) < 0.4
+    layout[:, 3] = False
+    layout[:, :, 0] |= np.arange(8) != 3
+    check_train_kernels("per_head_layout_block16_empty_rows_fp32",
+                        BlockMask.from_layout(layout, 16),
+                        train_inputs(rng, 2, 4, 4, 128, 32, torch.float32),
+                        0.0)
+    return main_row
+
+
+def train_kernel_timing_phase(smi):
+    """Median CUDA-event ms of K1, K2 and K3 at the training shapes, the
+    L2 flushed before each call, beside the bound, the plain version and
+    the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    from deepspeed_tpu_torch.ops.attention.masked_flash import BlockMask
+    rng = np.random.RandomState(SEED + 1)
+    m = MAIN_SHAPE
+    B, H, S, D = m["B"], m["H"], m["S"], m["D"]
+    q, k, v, do = train_inputs(rng, B, H, m["Hkv"], S, D, torch.bfloat16)
+    mask = BlockMask.causal(S, m["block"])
+    scale = 1.0 / float(np.sqrt(D))
+    o, lse = mf.masked_flash_fwd(q, k, v, mask, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    bytes_per_s, flops_per_s = card_peaks(smi)
+    tile = B * H * S * D * 2
+    rowvec = B * H * S * 4
+    walks = {"csr": sum(a.nbytes for a in mask.csr()),
+             "csc": sum(a.nbytes for a in mask.csc())}
+
+    qs = q.detach().clone().requires_grad_()
+    ks = k.detach().clone().requires_grad_()
+    vs = v.detach().clone().requires_grad_()
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa_fwd_ms = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        TIMED_CALLS, flush)
+    sdpa_bwd_ms = time_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do,
+                                    retain_graph=True), TIMED_CALLS, flush)
+    specs = {
+        # name: (call, plain call, dots per tile, bytes in, bytes out,
+        #        replaces, library ms)
+        "masked_flash_fwd": (
+            lambda: mf.masked_flash_fwd(q, k, v, mask, scale),
+            lambda: mf.masked_flash_fwd_plain(q, k, v, mask, scale),
+            2, 3 * tile, tile + rowvec,
+            "deepspeed_tpu/ops/attention/masked_flash.py:450", sdpa_fwd_ms),
+        "masked_flash_dq": (
+            lambda: mf.masked_flash_dq(q, k, v, do, lse, delta, mask, scale),
+            lambda: mf.masked_flash_dq_plain(q, k, v, do, lse, delta, mask,
+                                             scale),
+            3, 4 * tile + 2 * rowvec, tile,
+            "deepspeed_tpu/ops/attention/masked_flash.py:532", sdpa_bwd_ms),
+        "masked_flash_dkv": (
+            lambda: mf.masked_flash_dkv(q, k, v, do, lse, delta, mask,
+                                        scale),
+            lambda: mf.masked_flash_dkv_plain(q, k, v, do, lse, delta, mask,
+                                              scale),
+            4, 4 * tile + 2 * rowvec, 2 * tile,
+            "deepspeed_tpu/ops/attention/masked_flash.py:604", sdpa_bwd_ms),
+    }
+    out = {}
+    hm = H if mask.heads == 1 else 1
+    for name, (call, plain, dots, b_in, b_out, replaces, lib) in \
+            specs.items():
+        kernel_ms = time_ms(call, TIMED_CALLS, flush)
+        plain_ms = time_ms(plain, 20, flush)
+        flops = mask.nnz * hm * B * dots * 2 * mask.block ** 2 * D
+        nbytes = b_in + b_out + walks[
+            "csc" if name == "masked_flash_dkv" else "csr"]
+        bytes_ms = nbytes / bytes_per_s * 1e3
+        ops_ms = flops / flops_per_s * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        emit({"phase": "train_kernel_timing", "kernel": name,
+              "shape": dict(MAIN_SHAPE, dtype="bf16", mask="causal"),
+              "walked_tiles_per_bh": mask.nnz, "flops": flops,
+              "bytes": nbytes, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "library_ms": lib,
+              "library": ("scaled_dot_product_attention forward"
+                          if name == "masked_flash_fwd" else
+                          "scaled_dot_product_attention backward "
+                          "(dq, dk, dv together)"),
+              "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "achieved_tflop_per_s": flops / kernel_ms / 1e9,
+              "nvidia_smi": smi})
+        out[name] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                     "library_ms": lib, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "replaces": replaces}
+    return out
+
+
+def gpt2_345m_train_config():
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    # the JAX bench's gpt2_train_mfu row: 128-aligned vocab, dropout 0
+    return GPT2Config(vocab_size=50304, max_position_embeddings=1024,
+                      hidden_size=1024, num_layers=24, num_heads=16,
+                      embd_dropout=0.0, attn_dropout=0.0, resid_dropout=0.0)
+
+
+TRAIN_DS_CONFIG = {"train_micro_batch_size_per_gpu": 8,
+                   "gradient_accumulation_steps": 1,
+                   "bf16": {"enabled": True},
+                   "steps_per_print": 10**9,
+                   "zero_optimization": {"stage": 0},
+                   "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}}
+
+
+def _train_launches():
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    return {"masked_flash_fwd": mf.masked_flash_fwd.launches,
+            "masked_flash_dq": mf.masked_flash_dq.launches,
+            "masked_flash_dkv": mf.masked_flash_dkv.launches}
+
+
+def _reset_train_launches():
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    for fn in (mf.masked_flash_fwd, mf.masked_flash_dq, mf.masked_flash_dkv):
+        fn.launches = 0
+
+
+def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
+                   steps=TRAIN_STEPS, warmup=TRAIN_WARMUP):
+    """GPT-2 345M trained through initialize + train_batch on one
+    repeated batch. Returns the per-kernel launches of the timed steps."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import (count_params, gpt2_loss_fn,
+                                                 init_gpt2_params)
+    cfg = config or gpt2_345m_train_config()
+    on_cuda = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_gpt2_params(cfg, gen)
+    n_params = count_params(params)
+    ds_config = dict(TRAIN_DS_CONFIG, train_micro_batch_size_per_gpu=batch)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=gpt2_loss_fn(cfg, dtype=torch.bfloat16, deterministic=True),
+        model_parameters=params, config=ds_config, device=device)
+    del params
+    ids = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+    data = {"input_ids": ids}
+    for _ in range(warmup):
+        engine.train_batch(iter([data]))
+    if on_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_train_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(engine.train_batch(iter([data])))
+    if on_cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _train_launches()
+    losses = [float(x) for x in losses]
+    L, H = cfg.num_layers, cfg.hidden_size
+    flops_per_token = 6 * n_params + 12 * L * seq * H
+    step_s = wall / steps
+    tokens_per_s = batch * seq / step_s
+    row = {"phase": "training", "model": "gpt2-345m", "params": n_params,
+           "batch": batch, "seq": seq, "dtype": "bf16 over fp32 masters",
+           "optimizer": "Adam lr 1e-4", "zero_stage": 0,
+           "warmup_steps": warmup, "steps": steps,
+           "step_ms": step_s * 1e3, "tokens_per_s": tokens_per_s,
+           "flops_per_token": flops_per_token, "losses": losses,
+           "kernel_launches": launches, "nvidia_smi": smi}
+    if on_cuda:
+        _, peak_flops = card_peaks(smi)
+        row["mfu"] = flops_per_token * tokens_per_s / peak_flops
+        row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    emit(row)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the repeated batch's loss did not fall: "
+                             f"{losses}")
+    for name, n in launches.items():
+        if n != L * steps:
+            raise AssertionError(f"{name} launched {n} times in {steps} "
+                                 f"steps, want {L} per step")
+    if on_cuda:
+        train_profile_phase(engine, data, row["step_ms"])
+        head_phase(engine, cfg, batch, seq, row["step_ms"])
+    return launches
+
+
+def train_profile_phase(engine, data, step_ms, steps=2):
+    """Where a training step's time goes: a torch.profiler window over
+    ``steps`` train_batch calls, the kernels' own device time per step
+    (one stream, so kernels do not overlap), grouped into the three
+    masked-flash kernels, GEMMs and the rest; the device idle share is
+    what the kernels leave of the unprofiled step time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.train_batch(iter([data]))
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3 / steps,
+                e.count / steps)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.self_device_time_total > 0]
+    kernels.sort(key=lambda k: -k[1])
+    groups = {"masked_flash_fwd": ("mf_fwd_kernel",),
+              "masked_flash_dq": ("mf_dq_kernel",),
+              "masked_flash_dkv": ("mf_dkv_kernel",),
+              "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas")}
+    by_group = {g: 0.0 for g in list(groups) + ["other"]}
+    for name, ms, _ in kernels:
+        low = name.lower()
+        group = next((g for g, keys in groups.items()
+                      if any(k in low for k in keys)), "other")
+        by_group[group] += ms
+    busy_ms = sum(k[1] for k in kernels)
+    emit({"phase": "train_profile", "steps": steps, "step_ms": step_ms,
+          "device_busy_ms_per_step": busy_ms,
+          "device_idle_share": 1 - busy_ms / step_ms,
+          "ms_per_step_by_group": by_group,
+          "kernel_launches_per_step": sum(k[2] for k in kernels),
+          "top_kernels": [{"name": k[0][:90], "ms_per_step": k[1],
+                           "calls_per_step": k[2]} for k in kernels[:15]]})
+
+
+def head_phase(engine, cfg, batch, seq, step_ms, calls=5):
+    """What the tied LM head and cross entropy cost at the training
+    shapes: forward and backward of the chunked head, whose (tokens,
+    vocab) GEMMs run in fp32 with TF32 off on bf16-rounded operands
+    (the JAX head's bf16-operand, fp32-result product), median of
+    ``calls`` CUDA-event-timed calls."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import _tied_xent_chunked
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    x = torch.randn((batch, seq, cfg.hidden_size), generator=gen,
+                    device="cuda").to(torch.bfloat16).requires_grad_()
+    wte = engine.module_params["wte"].detach().to(
+        torch.bfloat16).requires_grad_()
+    targets = torch.randint(0, cfg.vocab_size, (batch, seq), device="cuda",
+                            generator=gen)
+
+    def fwd_bwd():
+        loss = _tied_xent_chunked(x, wte, targets, torch.bfloat16)
+        torch.autograd.grad(loss, (x, wte))
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    ms = time_ms(fwd_bwd, calls, flush)
+    # four (tokens x vocab x hidden) GEMMs: logits, their recompute in the
+    # backward, dx and dwte
+    flops = 4 * 2 * batch * seq * cfg.vocab_size * cfg.hidden_size
+    emit({"phase": "train_head", "tokens": batch * seq,
+          "vocab": cfg.vocab_size, "hidden": cfg.hidden_size,
+          "fwd_bwd_ms": ms, "share_of_step": ms / step_ms, "flops": flops,
+          "achieved_tflop_per_s": flops / ms / 1e9,
+          "matmul": "fp32, TF32 off, bf16-rounded operands"})
+
+
+def training_dropout_phase(steps=3, batch=8, seq=1024):
+    """The gpt2_train_mfu_dropout row's path: GPT-2 345M at dropout 0.1
+    (embedding, residual and attention dropout, the last inside K1-K3)
+    for a few train_batch steps; finite losses and every kernel launched
+    once per layer per step."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_loss_fn, init_gpt2_params
+    cfg = gpt2_345m_train_config()._replace(
+        embd_dropout=0.1, attn_dropout=0.1, resid_dropout=0.1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=gpt2_loss_fn(cfg, dtype=torch.bfloat16),
+        model_parameters=init_gpt2_params(cfg, gen),
+        config=dict(TRAIN_DS_CONFIG, train_micro_batch_size_per_gpu=batch))
+    ids = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+    _reset_train_launches()
+    losses = [float(engine.train_batch(iter([{"input_ids": ids}])))
+              for _ in range(steps)]
+    launches = _train_launches()
+    emit({"phase": "training_dropout", "model": "gpt2-345m",
+          "dropout": 0.1, "steps": steps, "losses": losses,
+          "kernel_launches": launches})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite dropout training loss: {losses}")
+    for name, n in launches.items():
+        if n != cfg.num_layers * steps:
+            raise AssertionError(f"{name} launched {n} times in {steps} "
+                                 f"dropout steps")
+
+
+class _PlainMaskedFlash:
+    """Within the block, the masked-flash autograd Function calls the
+    three kernels' plain versions instead of their wrappers."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+        self._saved = (mf.masked_flash_fwd, mf.masked_flash_dq,
+                       mf.masked_flash_dkv)
+        mf.masked_flash_fwd = mf.masked_flash_fwd_plain
+        mf.masked_flash_dq = mf.masked_flash_dq_plain
+        mf.masked_flash_dkv = mf.masked_flash_dkv_plain
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+        (mf.masked_flash_fwd, mf.masked_flash_dq,
+         mf.masked_flash_dkv) = self._saved
+        return False
+
+
+def train_kernel_vs_plain_phase(device="cuda", batch=2, seq=1024):
+    """Loss and every grad of a 2-layer full-width GPT-2 in fp32, through
+    the kernels and through their plain versions."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_loss_fn, init_gpt2_params
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    cfg = gpt2_345m_train_config()._replace(num_layers=2)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    params = init_gpt2_params(cfg, gen)
+    leaves = list(tree_leaves(params))
+    for t in leaves:
+        t.requires_grad_()
+    ids = np.random.RandomState(SEED + 2).randint(
+        0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+    data = {"input_ids": torch.from_numpy(ids).to(device)}
+    loss_fn = gpt2_loss_fn(cfg, dtype=torch.float32, deterministic=True)
+    results = {}
+    for path in ("kernel", "plain"):
+        before = _train_launches()["masked_flash_fwd"]
+        if path == "plain":
+            with _PlainMaskedFlash():
+                loss = loss_fn(params, data, None)
+                grads = torch.autograd.grad(loss, leaves)
+        else:
+            loss = loss_fn(params, data, None)
+            grads = torch.autograd.grad(loss, leaves)
+        ran_kernel = _train_launches()["masked_flash_fwd"] > before
+        if ran_kernel != (path == "kernel"):
+            raise AssertionError(f"the {path} path ran the kernel: "
+                                 f"{ran_kernel}")
+        results[path] = (float(loss), grads)
+    (lk, gk), (lp, gp) = results["kernel"], results["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(gk, gp))
+    emit({"phase": "train_kernel_vs_plain", "model": "gpt2-345m-width",
+          "layers": 2, "dtype": "fp32", "batch": batch, "seq": seq,
+          "loss_kernel": lk, "loss_plain": lp, "loss_rel_err": loss_rel,
+          "loss_rtol": TRAIN_MODEL_LOSS_RTOL, "grads": len(gk),
+          "worst_grad_rel_err": worst, "grad_tol": TRAIN_MODEL_GRAD_TOL})
+    if not (loss_rel <= TRAIN_MODEL_LOSS_RTOL
+            and worst <= TRAIN_MODEL_GRAD_TOL):
+        raise AssertionError(f"kernel path differs from the plain path: "
+                             f"loss {loss_rel}, grads {worst}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -434,6 +956,8 @@ def main() -> int:
                     for n, log in _build.build_logs.items()}})
 
     timing = kernel_phase(smi)
+    train_check = train_kernel_check_phase()
+    train_timing = train_kernel_timing_phase(smi)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_gpt2_params(GPT2_MEDIUM, gen)
     launches, prompts, engine = serving_phase(GPT2_MEDIUM, params, "cuda",
@@ -441,15 +965,32 @@ def main() -> int:
     profile_phase(engine, prompts)
     del engine
     model_path_phase(GPT2_MEDIUM, params, "cuda", prompts)
+    del params
+    train_launches = training_phase(smi)
+    training_dropout_phase()
+    train_kernel_vs_plain_phase()
 
-    emit({"kernels": [dict(
+    kernels = [dict(
         name="paged_decode", route="cuda",
         source="deepspeed_tpu_torch/csrc/paged_decode.cu",
         replaces="deepspeed_tpu/ops/attention/paged.py:217",
         launches=launches, max_abs_err=timing["max_abs_err"],
         ms=timing["ms"], kernel_ms=timing["ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-        bound_by=timing["bound_by"], library_ms=timing["library_ms"])]})
+        bound_by=timing["bound_by"], library_ms=timing["library_ms"])]
+    errs = {"masked_flash_fwd": train_check["o_max_abs_err"],
+            "masked_flash_dq": train_check["dq_max_abs_err"],
+            "masked_flash_dkv": max(train_check["dk_max_abs_err"],
+                                    train_check["dv_max_abs_err"])}
+    for name, t in train_timing.items():
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="deepspeed_tpu_torch/csrc/masked_flash.cu",
+            replaces=t["replaces"], launches=train_launches[name],
+            max_abs_err=errs[name], ms=t["ms"], kernel_ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -2,10 +2,18 @@
 Hopper GPUs.
 
 This package imports torch and numpy, never jax and nothing of
-``deepspeed_tpu``. What is ported so far is paged GPT-2 serving:
-``InferenceEngine`` over the paged KV pool, with decode attention in a
-hand-written CUDA kernel (``ops/attention/paged.py``). Entry points run
-on CUDA unless the caller passes ``device="cpu"``.
+``deepspeed_tpu``. Ported so far:
+
+- training: :func:`initialize` builds a :class:`DeepSpeedEngine` (one
+  device, ZeRO stage 0, bf16 over fp32 masters, Adam) that trains a
+  loss function such as ``models.gpt2.gpt2_loss_fn``, whose attention
+  runs the masked-flash kernels K1-K3 written in CUDA
+  (``ops/attention/masked_flash.py``);
+- paged GPT-2 serving: ``InferenceEngine`` over the paged KV pool, with
+  decode attention in a hand-written CUDA kernel
+  (``ops/attention/paged.py``).
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from deepspeed_tpu_torch.inference import (FinishedRequest, InferenceEngine,
@@ -14,7 +22,34 @@ from deepspeed_tpu_torch.models.gpt2 import (GPT2_LARGE, GPT2_MEDIUM,
                                              GPT2_SMALL, GPT2_XL, GPT2Config,
                                              init_gpt2_params,
                                              params_from_jax)
+from deepspeed_tpu_torch.ops.optimizers import Adam
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
+                                                    RepeatingLoader)
+from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
-__all__ = ["InferenceEngine", "Request", "FinishedRequest", "GPT2Config",
-           "GPT2_SMALL", "GPT2_MEDIUM", "GPT2_LARGE", "GPT2_XL",
-           "init_gpt2_params", "params_from_jax"]
+__all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig", "Adam",
+           "DeepSpeedDataLoader", "RepeatingLoader", "InferenceEngine",
+           "Request", "FinishedRequest", "GPT2Config", "GPT2_SMALL",
+           "GPT2_MEDIUM", "GPT2_LARGE", "GPT2_XL", "init_gpt2_params",
+           "params_from_jax"]
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, collate_fn=None,
+               config=None, config_params=None, seed: int = 0, device=None):
+    """Initialize the training engine (the JAX package's ``initialize``).
+
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
+    ``model`` is a loss function ``loss_fn(params, batch[, seed])`` and
+    ``model_parameters`` its initial parameter tree. ``device`` defaults
+    to the current CUDA device; without a card pass ``device="cpu"``."""
+    engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
+                             model_parameters=model_parameters,
+                             training_data=training_data,
+                             lr_scheduler=lr_scheduler,
+                             collate_fn=collate_fn, config=config,
+                             config_params=config_params, seed=seed,
+                             device=device)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)

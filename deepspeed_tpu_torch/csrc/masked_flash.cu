@@ -1,0 +1,667 @@
+// Masked flash attention for training, forward and backward, for Hopper.
+//
+// Replaces the three Pallas TPU kernels of
+// deepspeed_tpu/ops/attention/masked_flash.py:
+//   K1 _mf_fwd_kernel  -> masked_flash_fwd : o, lse     (CSR row walk)
+//   K2 _mf_dq_kernel   -> masked_flash_dq  : dq         (CSR row walk)
+//   K3 _mf_dkv_kernel  -> masked_flash_dkv : dk, dv     (CSC column walk)
+// Same function as the Pallas kernels, for block kinds FULL and CAUSAL:
+//   q (B*H, Sq, D); k, v (B*Hkv, Sk, D) in fp32 or bf16, GQA row
+//   b*Hkv + h / (H/Hkv); a block mask of block `blk` walked through its
+//   CSR (offs, cnts, cols, kinds) or CSC metadata, Hm = 1 or H mask heads.
+// Semantics kept exactly: s = (q.k) * sm_scale, then the causal clip of
+// CAUSAL tiles sets s = NEG_INF; a cell with s <= VALID_THRESH has p = 0;
+// the online softmax runs per walked tile in fp32 (m_safe = 0 while the
+// running max is still masked); a row with no valid entry writes o = 0 and
+// lse = NEG_INF. p is rounded to V's dtype before P.V and ds to K/Q's dtype
+// before its products; every sum accumulates in fp32. Dropout regenerates
+// the keep mask of flash.dropout_keep_mask from (seed, b*H + h, q, k) in
+// all three kernels; the forward scales o by 1/(1-rate) after the
+// normalization, dq scales dp, and dk/dv use the dropped, scaled pd for dv
+// and the undropped p in ds. dq and dk are scaled by sm_scale once at the
+// end, dv is not. At G > 1 dk/dv are written as fp32 per-q-head partials
+// that the caller sums per group.
+//
+// What bounds it on an H100: operations. At the GPT-2 345M training
+// shapes (S 1024, D 64, block 128, causal) a walked tile does 2-4 small
+// products of 128 x 128 x 64 for 2 x 128 x 64 input values, well above the
+// ~295 flop/byte line. This first version is the simple design: no tensor
+// cores. A CTA of 128 threads owns 32 rows of a tile (q rows for K1/K2, k
+// rows for K3); it stages its own operand rows once and each walked tile's
+// partner rows in chunks of 32 into shared memory as fp32 (rows padded to
+// D+1 words, so the transposed reads are free of bank conflicts), and does
+// every product with a 2x4 register micro-tile of fp32 FMAs. The per-row
+// softmax state and the accumulators stay in shared memory beside the
+// operands. K1 keeps the whole tile's scores so the running max moves once
+// per walked tile, as in the Pallas kernel; K2 and K3 need no running max
+// (p = exp(s - lse)), so they go chunk by chunk. Later work: mma/wgmma on
+// the tensor cores, cp.async/TMA staging, keeping the CTA's rows in
+// registers.
+//
+// Built by deepspeed_tpu_torch/ops/_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC
+// into a library with a plain C interface, loaded through ctypes.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 32;        // rows a CTA owns, and rows per chunk
+constexpr int kMaxBlk = 128;     // widest walk block
+constexpr int kMaxHd = 128;
+constexpr float kNegInf = -1e30f;       // flash.NEG_INF
+constexpr float kValidThresh = -1e28f;  // masked_flash.VALID_THRESH
+constexpr int kKindCausal = 1;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x as the next product's operand sees it: rounded to the operand dtype
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// flash.dropout_keep_mask: a lowbias32-style hash of (seed, bh, q, k)
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+struct Dropout {
+  int on;              // 0: no dropout
+  uint32_t thresh;     // keep iff hash < thresh
+  float inv_keep;      // 1 / (1 - rate), rounded to fp32
+  uint32_t seed;       // the int32 seed's bits
+
+  // the two-round finalizer (flash._HASH_FINAL_ROUNDS == 2, which the
+  // wrappers require)
+  __device__ __forceinline__ bool keep(int bh, int qi, int ki) const {
+    const uint32_t row =
+        mix32((uint32_t)qi ^ ((uint32_t)bh * 0x9E3779B9u) ^ seed);
+    return mix32(row ^ (uint32_t)ki) < thresh;
+  }
+};
+
+struct Shape {
+  int H, Hkv, Hm;      // q heads, kv heads, mask heads (1 or H)
+  int Sq, Sk, D, blk;  // sequence lengths, head dim, walk block
+  float sm_scale;
+};
+
+// C[r][c] = (accumulate ? C[r][c] * row_scale[r] : 0) + sum_k A(r,k) B(k,c)
+// for r < R, c < N, k < K, with A(r,k) = A[r*sar + k*sak] and
+// B(k,c) = B[k*sbk + c*sbc], all fp32 in shared memory. Each thread owns
+// 2 x 4 outputs: rows 2*rb, 2*rb+1 and columns cb + j*(N/4), so the lanes
+// of a warp read neighbouring B columns and mostly one A row (a broadcast).
+__device__ __forceinline__ void mm(float* C, int ldc, bool accumulate,
+                                   const float* row_scale, const float* A,
+                                   int sar, int sak, const float* B, int sbk,
+                                   int sbc, int R, int N, int K) {
+  constexpr int RPT = 2, CPT = 4;
+  const int ncb = N / CPT;
+  const int items = (R / RPT) * ncb;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int rb = it / ncb;
+    const int cb = it - rb * ncb;
+    const float* a = A + (size_t)rb * RPT * sar;
+    const float* b = B + (size_t)cb * sbc;
+    float acc[RPT][CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+    for (int k = 0; k < K; ++k) {
+      float av[RPT], bv[CPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) av[i] = a[i * sar + k * sak];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) bv[j] = b[j * ncb * sbc + k * sbk];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = rb * RPT + i;
+      const float sc = row_scale ? row_scale[r] : 1.f;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        float* cp = C + (size_t)r * ldc + cb + j * ncb;
+        *cp = (accumulate ? *cp * sc : 0.f) + acc[i][j];
+      }
+    }
+  }
+}
+
+// rows [0, n) of a (., D) global matrix -> fp32 shared rows of stride D+1
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, int n,
+                                           int D) {
+  for (int e = threadIdx.x; e < n * D; e += blockDim.x) {
+    const int r = e / D;
+    const int d = e - r * D;
+    dst[r * (D + 1) + d] = to_f(src[(size_t)r * D + d]);
+  }
+}
+
+__device__ __forceinline__ void fill(float* dst, int n, float v) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = v;
+}
+
+// ------------------------------------------------------------------- K1
+// grid (Sq / R, B*H); R = min(blk, 32) q rows per CTA.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, const int32_t* __restrict__ offs,
+              const int32_t* __restrict__ cnts,
+              const int32_t* __restrict__ cols,
+              const int32_t* __restrict__ kinds, Shape sh, Dropout dr) {
+  extern __shared__ float smem[];
+  const int D = sh.D, blk = sh.blk;
+  const int R = blk < kRows ? blk : kRows;
+  const int bh = blockIdx.y;
+  const int h = bh % sh.H;
+  const int b = bh / sh.H;
+  const int r0 = blockIdx.x * R;
+  const int j = r0 / blk;
+  const int mrow = (h % sh.Hm) * (sh.Sq / blk) + j;
+  const int n = cnts[mrow];
+  const int base = offs[mrow];
+  const int kvr = b * sh.Hkv + h / (sh.H / sh.Hkv);
+  const T* kg = k + (size_t)kvr * sh.Sk * D;
+  const T* vg = v + (size_t)kvr * sh.Sk * D;
+
+  float* qs = smem;                       // R x (D+1)
+  float* ss = qs + R * (D + 1);           // R x blk: s, then p
+  float* os = ss + R * blk;               // R x D accumulator
+  float* kv = os + R * D;                 // R x (D+1) staged K or V rows
+  float* m_s = kv + R * (D + 1);          // R
+  float* l_s = m_s + R;                   // R
+  float* a_s = l_s + R;                   // R: this tile's alpha
+
+  stage_rows(qs, q + ((size_t)bh * sh.Sq + r0) * D, R, D);
+  fill(os, R * D, 0.f);
+  fill(m_s, R, kNegInf);
+  fill(l_s, R, 0.f);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int t = 0; t < n; ++t) {
+    const int k0 = cols[base + t] * blk;
+    const int kind = kinds[base + t];
+    // s = q . k over the whole walked tile, R x blk
+    for (int c0 = 0; c0 < blk; c0 += R) {
+      stage_rows(kv, kg + (size_t)(k0 + c0) * D, R, D);
+      __syncthreads();
+      mm(ss + c0, blk, false, nullptr, qs, D + 1, 1, kv, 1, D + 1, R, R, D);
+      __syncthreads();
+    }
+    // online softmax of the tile: warp w owns rows w, w + 4, ...
+    for (int r = warp; r < R; r += kWarps) {
+      const int qi = r0 + r;
+      float sv[kMaxBlk / 32];
+      float mx = kNegInf;
+#pragma unroll
+      for (int u = 0; u < kMaxBlk / 32; ++u) {
+        const int c = lane + 32 * u;
+        float s = kNegInf;
+        if (c < blk) {
+          s = ss[r * blk + c] * sh.sm_scale;
+          if ((kind & kKindCausal) && qi < k0 + c) s = kNegInf;
+        }
+        sv[u] = s;
+        mx = fmaxf(mx, s);
+      }
+      mx = warp_max(mx);
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, mx);
+      const float m_safe = m_new <= kValidThresh ? 0.f : m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kMaxBlk / 32; ++u) {
+        const int c = lane + 32 * u;
+        if (c < blk) {
+          float p = sv[u] > kValidThresh ? expf(sv[u] - m_safe) : 0.f;
+          sum += p;
+          if (dr.on && !dr.keep(bh, qi, k0 + c)) p = 0.f;
+          ss[r * blk + c] = round_to<T>(p);
+        }
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        a_s[r] = alpha;
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+    // acc = acc * alpha + p . v
+    for (int c0 = 0; c0 < blk; c0 += R) {
+      stage_rows(kv, vg + (size_t)(k0 + c0) * D, R, D);
+      __syncthreads();
+      mm(os, D, true, c0 == 0 ? a_s : nullptr, ss + c0, blk, 1, kv, D + 1, 1,
+         R, D, R);
+      __syncthreads();
+    }
+  }
+
+  T* og = o + ((size_t)bh * sh.Sq + r0) * D;
+  for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
+    const int r = e / D;
+    const float l = l_s[r];
+    float out = os[e] / (l == 0.f ? 1.f : l);
+    if (dr.on) out = out * dr.inv_keep;
+    og[e] = from_f<T>(out);
+  }
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const float l = l_s[r];
+    const float m = m_s[r];
+    lse[(size_t)bh * sh.Sq + r0 + r] =
+        l == 0.f ? kNegInf : (m <= kValidThresh ? 0.f : m) + logf(l);
+  }
+}
+
+// ------------------------------------------------------------------- K2
+// grid (Sq / R, B*H); per walked tile, chunk by chunk of R key rows.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dq, const int32_t* __restrict__ offs,
+             const int32_t* __restrict__ cnts,
+             const int32_t* __restrict__ cols,
+             const int32_t* __restrict__ kinds, Shape sh, Dropout dr) {
+  extern __shared__ float smem[];
+  const int D = sh.D, blk = sh.blk;
+  const int R = blk < kRows ? blk : kRows;
+  const int bh = blockIdx.y;
+  const int h = bh % sh.H;
+  const int b = bh / sh.H;
+  const int r0 = blockIdx.x * R;
+  const int j = r0 / blk;
+  const int mrow = (h % sh.Hm) * (sh.Sq / blk) + j;
+  const int n = cnts[mrow];
+  const int base = offs[mrow];
+  const int kvr = b * sh.Hkv + h / (sh.H / sh.Hkv);
+  const T* kg = k + (size_t)kvr * sh.Sk * D;
+  const T* vg = v + (size_t)kvr * sh.Sk * D;
+  const size_t row0 = (size_t)bh * sh.Sq + r0;
+
+  float* qs = smem;                 // R x (D+1)
+  float* dos = qs + R * (D + 1);    // R x (D+1)
+  float* ks = dos + R * (D + 1);    // R x (D+1)
+  float* vs = ks + R * (D + 1);     // R x (D+1)
+  float* ps = vs + R * (D + 1);     // R x R: s, then ds
+  float* dps = ps + R * R;          // R x R: dp
+  float* dqs = dps + R * R;         // R x D accumulator
+  float* lse_s = dqs + R * D;       // R
+  float* dl_s = lse_s + R;          // R
+
+  stage_rows(qs, q + row0 * D, R, D);
+  stage_rows(dos, dout + row0 * D, R, D);
+  fill(dqs, R * D, 0.f);
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    lse_s[r] = lse[row0 + r];
+    dl_s[r] = delta[row0 + r];
+  }
+  __syncthreads();
+
+  for (int t = 0; t < n; ++t) {
+    const int k0 = cols[base + t] * blk;
+    const int kind = kinds[base + t];
+    for (int c0 = 0; c0 < blk; c0 += R) {
+      stage_rows(ks, kg + (size_t)(k0 + c0) * D, R, D);
+      stage_rows(vs, vg + (size_t)(k0 + c0) * D, R, D);
+      __syncthreads();
+      mm(ps, R, false, nullptr, qs, D + 1, 1, ks, 1, D + 1, R, R, D);
+      mm(dps, R, false, nullptr, dos, D + 1, 1, vs, 1, D + 1, R, R, D);
+      __syncthreads();
+      for (int e = threadIdx.x; e < R * R; e += blockDim.x) {
+        const int r = e / R;
+        const int c = e - r * R;
+        const int qi = r0 + r;
+        const int ki = k0 + c0 + c;
+        float s = ps[e] * sh.sm_scale;
+        if ((kind & kKindCausal) && qi < ki) s = kNegInf;
+        const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
+        float dp = dps[e];
+        if (dr.on) dp = dr.keep(bh, qi, ki) ? dp * dr.inv_keep : 0.f;
+        ps[e] = round_to<T>(p * (dp - dl_s[r]));
+      }
+      __syncthreads();
+      mm(dqs, D, true, nullptr, ps, R, 1, ks, D + 1, 1, R, D, R);
+      __syncthreads();
+    }
+  }
+
+  T* dqg = dq + row0 * D;
+  for (int e = threadIdx.x; e < R * D; e += blockDim.x)
+    dqg[e] = from_f<T>(dqs[e] * sh.sm_scale);
+}
+
+// ------------------------------------------------------------------- K3
+// grid (Sk / R, B*H): one CTA per q head and R key rows, over the CSC
+// walk of the key block, chunk by chunk of R query rows. TO is T, or
+// float for the per-q-head partials at G > 1.
+template <typename T, typename TO>
+__global__ void __launch_bounds__(kThreads)
+mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              TO* __restrict__ dk, TO* __restrict__ dv,
+              const int32_t* __restrict__ coffs,
+              const int32_t* __restrict__ ccnts,
+              const int32_t* __restrict__ crows,
+              const int32_t* __restrict__ ckinds, Shape sh, Dropout dr) {
+  extern __shared__ float smem[];
+  const int D = sh.D, blk = sh.blk;
+  const int R = blk < kRows ? blk : kRows;
+  const int bh = blockIdx.y;
+  const int h = bh % sh.H;
+  const int b = bh / sh.H;
+  const int kr0 = blockIdx.x * R;
+  const int jb = kr0 / blk;
+  const int col = (h % sh.Hm) * (sh.Sk / blk) + jb;
+  const int n = ccnts[col];
+  const int base = coffs[col];
+  const int kvr = b * sh.Hkv + h / (sh.H / sh.Hkv);
+  const T* qg = q + (size_t)bh * sh.Sq * D;
+  const T* dog = dout + (size_t)bh * sh.Sq * D;
+
+  float* ks = smem;                 // R x (D+1)
+  float* vs = ks + R * (D + 1);     // R x (D+1)
+  float* qs = vs + R * (D + 1);     // R x (D+1)
+  float* dos = qs + R * (D + 1);    // R x (D+1)
+  float* ps = dos + R * (D + 1);    // R(q) x R(k): s, then pd
+  float* dps = ps + R * R;          // R(q) x R(k): dp, then ds
+  float* dks = dps + R * R;         // R x D
+  float* dvs = dks + R * D;         // R x D
+  float* lse_s = dvs + R * D;       // R
+  float* dl_s = lse_s + R;          // R
+
+  stage_rows(ks, k + ((size_t)kvr * sh.Sk + kr0) * D, R, D);
+  stage_rows(vs, v + ((size_t)kvr * sh.Sk + kr0) * D, R, D);
+  fill(dks, R * D, 0.f);
+  fill(dvs, R * D, 0.f);
+  __syncthreads();
+
+  for (int t = 0; t < n; ++t) {
+    const int q0 = crows[base + t] * blk;
+    const int kind = ckinds[base + t];
+    for (int c0 = 0; c0 < blk; c0 += R) {
+      const size_t qrow = (size_t)bh * sh.Sq + q0 + c0;
+      stage_rows(qs, qg + (size_t)(q0 + c0) * D, R, D);
+      stage_rows(dos, dog + (size_t)(q0 + c0) * D, R, D);
+      for (int r = threadIdx.x; r < R; r += blockDim.x) {
+        lse_s[r] = lse[qrow + r];
+        dl_s[r] = delta[qrow + r];
+      }
+      __syncthreads();
+      mm(ps, R, false, nullptr, qs, D + 1, 1, ks, 1, D + 1, R, R, D);
+      mm(dps, R, false, nullptr, dos, D + 1, 1, vs, 1, D + 1, R, R, D);
+      __syncthreads();
+      for (int e = threadIdx.x; e < R * R; e += blockDim.x) {
+        const int r = e / R;            // query row in the chunk
+        const int c = e - r * R;        // key row of this CTA
+        const int qi = q0 + c0 + r;
+        const int ki = kr0 + c;
+        float s = ps[e] * sh.sm_scale;
+        if ((kind & kKindCausal) && qi < ki) s = kNegInf;
+        const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
+        float dp = dps[e];
+        float pd = p;
+        if (dr.on) {
+          const bool kp = dr.keep(bh, qi, ki);
+          pd = kp ? p * dr.inv_keep : 0.f;
+          dp = kp ? dp * dr.inv_keep : 0.f;
+        }
+        ps[e] = round_to<T>(pd);
+        dps[e] = round_to<T>(p * (dp - dl_s[r]));
+      }
+      __syncthreads();
+      // dv += pd^T . do ; dk += ds^T . q
+      mm(dvs, D, true, nullptr, ps, 1, R, dos, D + 1, 1, R, D, R);
+      mm(dks, D, true, nullptr, dps, 1, R, qs, D + 1, 1, R, D, R);
+      __syncthreads();
+    }
+  }
+
+  TO* dkg = dk + ((size_t)bh * sh.Sk + kr0) * D;
+  TO* dvg = dv + ((size_t)bh * sh.Sk + kr0) * D;
+  for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
+    dkg[e] = from_f<TO>(dks[e] * sh.sm_scale);
+    dvg[e] = from_f<TO>(dvs[e]);
+  }
+}
+
+int rows_of(int blk) { return blk < kRows ? blk : kRows; }
+
+size_t fwd_smem(int R, int D, int blk) {
+  return sizeof(float) *
+         ((size_t)2 * R * (D + 1) + (size_t)R * blk + (size_t)R * D + 3 * R);
+}
+
+size_t bwd_smem(int R, int D) {
+  return sizeof(float) *
+         ((size_t)4 * R * (D + 1) + (size_t)2 * R * R + (size_t)2 * R * D +
+          2 * R);
+}
+
+bool bad_shape(int bh, int H, int Hkv, int Hm, int Sq, int Sk, int D,
+               int blk) {
+  return bh <= 0 || bh > 65535 || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
+         bh % H != 0 || (Hm != 1 && Hm != H) || D <= 0 || D > kMaxHd ||
+         D % 8 != 0 ||
+         (blk != 16 && blk != 32 && blk != 64 && blk != 128) ||
+         Sq <= 0 || Sk <= 0 || Sq % blk != 0 || Sk % blk != 0;
+}
+
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
+  if (smem > 48 * 1024)
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+  return cudaSuccess;
+}
+
+Dropout make_dropout(int on, uint32_t thresh, float inv_keep, int seed) {
+  Dropout dr;
+  dr.on = on;
+  dr.thresh = thresh;
+  dr.inv_keep = inv_keep;
+  dr.seed = (uint32_t)seed;
+  return dr;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Each entry point returns the CUDA
+// error of its launch (0 on success); it launches on `stream` and does not
+// synchronise.
+extern "C" int masked_flash_fwd(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* offs, const void* cnts, const void* cols, const void* kinds,
+    int dtype, int bh, int heads, int kv_heads, int mask_heads, int seq_q,
+    int seq_k, int head_dim, int block, float sm_scale, int dropout,
+    unsigned keep_thresh, float inv_keep, int seed, void* stream) {
+  if (bad_shape(bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim,
+                block))
+    return (int)cudaErrorInvalidValue;
+  const Shape sh{heads, kv_heads, mask_heads, seq_q, seq_k,
+                 head_dim, block, sm_scale};
+  const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
+  const int R = rows_of(block);
+  const dim3 grid(seq_q / R, bh);
+  const size_t smem = fwd_smem(R, head_dim, block);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* of = static_cast<const int32_t*>(offs);
+  const int32_t* cn = static_cast<const int32_t*>(cnts);
+  const int32_t* co = static_cast<const int32_t*>(cols);
+  const int32_t* ki = static_cast<const int32_t*>(kinds);
+  cudaError_t err;
+  if (dtype == 0) {
+    if ((err = prepare(mf_fwd_kernel<float>, smem)) != cudaSuccess)
+      return (int)err;
+    mf_fwd_kernel<float><<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o),
+        static_cast<float*>(lse), of, cn, co, ki, sh, dr);
+  } else if (dtype == 1) {
+    if ((err = prepare(mf_fwd_kernel<__nv_bfloat16>, smem)) != cudaSuccess)
+      return (int)err;
+    mf_fwd_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), of, cn, co,
+        ki, sh, dr);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int masked_flash_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const void* offs,
+    const void* cnts, const void* cols, const void* kinds, int dtype, int bh,
+    int heads, int kv_heads, int mask_heads, int seq_q, int seq_k,
+    int head_dim, int block, float sm_scale, int dropout,
+    unsigned keep_thresh, float inv_keep, int seed, void* stream) {
+  if (bad_shape(bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim,
+                block))
+    return (int)cudaErrorInvalidValue;
+  const Shape sh{heads, kv_heads, mask_heads, seq_q, seq_k,
+                 head_dim, block, sm_scale};
+  const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
+  const int R = rows_of(block);
+  const dim3 grid(seq_q / R, bh);
+  const size_t smem = bwd_smem(R, head_dim);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const int32_t* of = static_cast<const int32_t*>(offs);
+  const int32_t* cn = static_cast<const int32_t*>(cnts);
+  const int32_t* co = static_cast<const int32_t*>(cols);
+  const int32_t* ki = static_cast<const int32_t*>(kinds);
+  cudaError_t err;
+  if (dtype == 0) {
+    if ((err = prepare(mf_dq_kernel<float>, smem)) != cudaSuccess)
+      return (int)err;
+    mf_dq_kernel<float><<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), ls, dl,
+        static_cast<float*>(dq), of, cn, co, ki, sh, dr);
+  } else if (dtype == 1) {
+    if ((err = prepare(mf_dq_kernel<__nv_bfloat16>, smem)) != cudaSuccess)
+      return (int)err;
+    mf_dq_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const __nv_bfloat16*>(dout), ls, dl,
+        static_cast<__nv_bfloat16*>(dq), of, cn, co, ki, sh, dr);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// fp32_out: 1 writes dk, dv as fp32 per-q-head partials (GQA), 0 in the
+// input dtype. Both are (B*H, Sk, D).
+extern "C" int masked_flash_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
+    const void* coffs, const void* ccnts, const void* crows,
+    const void* ckinds, int dtype, int fp32_out, int bh, int heads,
+    int kv_heads, int mask_heads, int seq_q, int seq_k, int head_dim,
+    int block, float sm_scale, int dropout, unsigned keep_thresh,
+    float inv_keep, int seed, void* stream) {
+  if (bad_shape(bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim,
+                block))
+    return (int)cudaErrorInvalidValue;
+  const Shape sh{heads, kv_heads, mask_heads, seq_q, seq_k,
+                 head_dim, block, sm_scale};
+  const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
+  const int R = rows_of(block);
+  const dim3 grid(seq_k / R, bh);
+  const size_t smem = bwd_smem(R, head_dim);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const int32_t* of = static_cast<const int32_t*>(coffs);
+  const int32_t* cn = static_cast<const int32_t*>(ccnts);
+  const int32_t* ro = static_cast<const int32_t*>(crows);
+  const int32_t* ki = static_cast<const int32_t*>(ckinds);
+  cudaError_t err;
+  if (dtype == 0) {
+    if ((err = prepare(mf_dkv_kernel<float, float>, smem)) != cudaSuccess)
+      return (int)err;
+    mf_dkv_kernel<float, float><<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), ls, dl,
+        static_cast<float*>(dk), static_cast<float*>(dv), of, cn, ro, ki, sh,
+        dr);
+  } else if (dtype == 1 && fp32_out) {
+    if ((err = prepare(mf_dkv_kernel<__nv_bfloat16, float>, smem)) !=
+        cudaSuccess)
+      return (int)err;
+    mf_dkv_kernel<__nv_bfloat16, float><<<grid, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const __nv_bfloat16*>(dout), ls, dl,
+        static_cast<float*>(dk), static_cast<float*>(dv), of, cn, ro, ki, sh,
+        dr);
+  } else if (dtype == 1) {
+    if ((err = prepare(mf_dkv_kernel<__nv_bfloat16, __nv_bfloat16>, smem)) !=
+        cudaSuccess)
+      return (int)err;
+    mf_dkv_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const __nv_bfloat16*>(dout), ls, dl,
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), of,
+        cn, ro, ki, sh, dr);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

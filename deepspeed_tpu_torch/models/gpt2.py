@@ -1,5 +1,5 @@
-"""GPT-2 for serving (the port of the cached, paged path of
-``deepspeed_tpu/models/gpt2.py``).
+"""GPT-2 (the port of ``deepspeed_tpu/models/gpt2.py``): the training
+forward and loss, and the cached, paged serving path.
 
 Parameters are a plain dict with the JAX package's tree layout:
 ``wte``, ``wpe``, ``ln_f`` and one ``h_{i}`` dict per block, each leaf a
@@ -7,12 +7,20 @@ Parameters are a plain dict with the JAX package's tree layout:
 so a projection is ``x @ w + b`` in both packages). :func:`params_from_jax`
 carries a JAX tree across through numpy, under either JAX layout.
 
-The forward here is the serving forward: one token of decode or a padded
-prompt of prefill, with K/V written into the paged pool and attention
-read back from it. Training (causal flash attention, dropout, the loss)
-arrives with the training slice.
+Training: :func:`gpt2_loss_fn` is the engine's loss contract
+``loss_fn(params, batch, seed)``; the trunk runs causal
+:func:`~deepspeed_tpu_torch.ops.attention.flash.flash_attention` (the
+masked-flash kernels K1-K3) with the hash dropouts, and the tied LM head
+and cross entropy run chunk by chunk, each chunk recomputed in the
+backward. As in the JAX model, matmul weights are cast to the compute
+dtype at their use site; the engine hands the loss its compute-dtype
+copy of the fp32 masters, as the JAX engine does.
+
+Serving: one token of decode or a padded prompt of prefill, with K/V
+written into the paged pool and attention read back from it.
 """
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
@@ -20,14 +28,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch.ops.attention.flash import (_M32, _mix32, _mul32,
+                                                     flash_attention)
 from deepspeed_tpu_torch.ops.attention.paged import (NEG_INF,
                                                      paged_decode_attention)
-from deepspeed_tpu_torch.ops.functional import layer_norm
+from deepspeed_tpu_torch.ops.functional import dropout, layer_norm
+from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["GPT2Config", "GPT2_SMALL", "GPT2_MEDIUM", "GPT2_LARGE",
-           "GPT2_XL", "init_gpt2_params", "params_from_jax", "gpt2_block",
-           "gpt2_forward", "causal_cache_mask", "write_paged_kv_cache",
-           "gather_paged_kv", "paged_decode_ctx"]
+           "GPT2_XL", "init_gpt2_params", "params_from_jax",
+           "trainable_params_from_jax", "count_params", "gpt2_block",
+           "gpt2_forward", "gpt2_loss_fn", "causal_cache_mask",
+           "write_paged_kv_cache", "gather_paged_kv", "paged_decode_ctx"]
 
 
 class GPT2Config(NamedTuple):
@@ -104,12 +116,6 @@ def init_gpt2_params(config: GPT2Config,
     return params
 
 
-def _tree_map(fn: Callable, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_jax(tree) -> Dict[str, Any]:
     """Torch parameters from a JAX GPT-2 param tree whose leaves are
     numpy arrays (``np.asarray`` of each JAX leaf). Reads both JAX
@@ -119,37 +125,53 @@ def params_from_jax(tree) -> Dict[str, Any]:
     def leaf(a):
         return torch.from_numpy(np.array(a, copy=True))
 
-    out = {k: _tree_map(leaf, v) for k, v in tree.items() if k != "h"}
+    out = {k: tree_map(leaf, v) for k, v in tree.items() if k != "h"}
     if "h" in tree:
-        layers = next(iter(_leaves(tree["h"]))).shape[0]
+        layers = next(tree_leaves(tree["h"])).shape[0]
         for i in range(layers):
-            out[f"h_{i}"] = _tree_map(lambda a, i=i: leaf(np.asarray(a)[i]),
-                                      tree["h"])
+            out[f"h_{i}"] = tree_map(lambda a, i=i: leaf(np.asarray(a)[i]),
+                                     tree["h"])
     return out
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def trainable_params_from_jax(tree, device) -> Dict[str, Any]:
+    """:func:`params_from_jax` for training: fp32 leaf tensors on
+    ``device`` with ``requires_grad``."""
+    return tree_map(
+        lambda t: t.to(device, torch.float32).requires_grad_(),
+        params_from_jax(tree))
+
+
+def count_params(params) -> int:
+    return sum(int(t.numel()) for t in tree_leaves(params))
+
+
+def fold_seed(seed: int, i: int) -> int:
+    """The int32 seed of dropout site ``i`` under a step's seed: one
+    round of the dropout hash, so sites draw independent masks. (The JAX
+    model splits a ``jax.random`` key per site; torch cannot derive the
+    same keys, so the port's sites take these seeds instead.)"""
+    x = _mix32((int(seed) & _M32) ^ _mul32((i + 1) & _M32, 0x9E3779B9))
+    return x - (1 << 32) if x >= (1 << 31) else x
 
 
 def gpt2_block(block_params, config: GPT2Config, x: torch.Tensor, dtype,
-               attention_fn: Callable) -> torch.Tensor:
-    """One pre-LN transformer block, deterministic (serving).
-    ``attention_fn(q, k, v)`` takes (B, heads, S, hd) tensors and returns
-    the context in the same layout; the serving paths pass the paged
-    cache attention of :func:`_paged_cache_attention`."""
-    if attention_fn is None:
-        raise NotImplementedError(
-            "gpt2_block without attention_fn is the JAX package's causal "
-            "flash-attention training path (Pallas kernels K1-K3), which "
-            "is not ported yet")
+               attention_fn: Optional[Callable] = None,
+               seed: Optional[int] = None,
+               deterministic: bool = True) -> torch.Tensor:
+    """One pre-LN transformer block.
+
+    Default attention is causal :func:`flash_attention` (the masked
+    kernels K1-K3), with the attention dropout inside the kernels and the
+    residual dropouts outside when ``deterministic`` is False and a
+    ``seed`` (this block's int32 seed) is given. ``attention_fn(q, k, v)``
+    replaces it with an attention over (B, heads, S, hd) tensors: the
+    serving paths pass the paged cache attention of
+    :func:`_paged_cache_attention`."""
     B, S, h = x.shape
     heads = config.num_heads
     hd = h // heads
+    train = not deterministic and seed is not None
     a_in = layer_norm(x, block_params["ln_1"]["w"], block_params["ln_1"]["b"],
                       config.layer_norm_eps)
     ap = block_params["attn"]
@@ -158,16 +180,134 @@ def gpt2_block(block_params, config: GPT2Config, x: torch.Tensor, dtype,
     q = q.reshape(B, S, heads, hd).transpose(1, 2)
     k = k.reshape(B, S, heads, hd).transpose(1, 2)
     v = v.reshape(B, S, heads, hd).transpose(1, 2)
-    ctx = attention_fn(q, k, v)
+    if attention_fn is not None:
+        ctx = attention_fn(q, k, v)
+    else:
+        drop = config.attn_dropout if train else 0.0
+        ctx = flash_attention(q, k, v, causal=True, dropout_rate=drop,
+                              dropout_seed=fold_seed(seed, 1) if drop > 0.0
+                              else None)
     ctx = ctx.transpose(1, 2).reshape(B, S, h)
-    x = x + (ctx @ ap["ow"].to(dtype) + ap["ob"].to(dtype))
+    attn_out = ctx @ ap["ow"].to(dtype) + ap["ob"].to(dtype)
+    x = x + dropout(attn_out, config.resid_dropout,
+                    fold_seed(seed, 0) if train else None, deterministic)
 
     m_in = layer_norm(x, block_params["ln_2"]["w"], block_params["ln_2"]["b"],
                       config.layer_norm_eps)
     mp = block_params["mlp"]
     hmid = m_in @ mp["fc_w"].to(dtype) + mp["fc_b"].to(dtype)
     hmid = F.gelu(hmid, approximate="tanh")
-    return x + (hmid @ mp["proj_w"].to(dtype) + mp["proj_b"].to(dtype))
+    m_out = hmid @ mp["proj_w"].to(dtype) + mp["proj_b"].to(dtype)
+    return x + dropout(m_out, config.resid_dropout,
+                       fold_seed(seed, 2) if train else None, deterministic)
+
+
+def _embed(wte, wpe, ids, dtype):
+    """Token + position embedding, summed in the tables' dtype, then
+    cast. Ids are clamped into the table, as a JAX gather clamps."""
+    pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+    ids = ids.long().clamp(0, wte.shape[0] - 1)
+    return (wte[ids] + wpe[pos]).to(dtype)
+
+
+def _gpt2_trunk(params, config: GPT2Config, input_ids,
+                seed: Optional[int] = None, deterministic: bool = True,
+                dtype=torch.bfloat16) -> torch.Tensor:
+    """Final hidden states (B, S, hidden) after ln_f (no LM head), the
+    non-remat path. ``seed`` is the step's int32 dropout seed (None: no
+    dropout)."""
+    x = _embed(params["wte"], params["wpe"], input_ids, dtype)
+    if seed is not None:
+        x = dropout(x, config.embd_dropout, fold_seed(seed, 0),
+                    deterministic)
+    for i in range(config.num_layers):
+        x = gpt2_block(params[f"h_{i}"], config, x, dtype,
+                       seed=None if seed is None else fold_seed(seed, i + 1),
+                       deterministic=deterministic)
+    return layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"],
+                      config.layer_norm_eps)
+
+
+@contextlib.contextmanager
+def _ieee_fp32_matmul():
+    """fp32 matmuls in full fp32 on the card (TF32 off) for the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class _TiedXentChunk(torch.autograd.Function):
+    """Sum over one chunk of tokens of ``w * (logsumexp(logits) -
+    logits[target])`` with ``logits = x @ wte.T`` in fp32 from the
+    compute-dtype operands (products of two bf16 values are exact in
+    fp32, so an fp32 matmul of the widened operands with TF32 off is the
+    JAX head's bf16-operand, fp32-result product). The (chunk, vocab)
+    logits are recomputed in the backward instead of kept."""
+
+    @staticmethod
+    def forward(ctx, xs, w, ts, ws):
+        with _ieee_fp32_matmul():
+            logits = xs.float() @ w.float().t()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(1, ts[:, None])[:, 0]
+        ctx.save_for_backward(xs, w, ts, ws)
+        return ((lse - picked) * ws).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, w, ts, ws = ctx.saved_tensors
+        wf = w.float()
+        with _ieee_fp32_matmul():
+            dl = torch.softmax(xs.float() @ wf.t(), dim=-1)
+            rows = torch.arange(dl.shape[0], device=dl.device)
+            dl[rows, ts] -= 1.0
+            dl = dl * (ws * g)[:, None]
+            dx = (dl @ wf).to(xs.dtype)
+            dw = (dl.t() @ xs.float()).to(w.dtype)
+        return dx, dw, None, None
+
+
+def _tied_xent_chunked(x, wte, targets, dtype, chunk_tokens: int = 2048,
+                       mean: bool = True, weights=None):
+    """Tied LM head + next-token cross entropy, chunked over tokens: no
+    (B*S, vocab) fp32 logits tensor is ever whole, and each chunk's
+    logits are recomputed in its backward. Short inputs are padded to a
+    multiple of the chunk with zero-weight tokens, as in JAX."""
+    B, S, H = x.shape
+    n = B * S
+    xf = x.reshape(n, H)
+    tf = targets.reshape(n).long()
+    c = min(chunk_tokens, n)
+    pad = (-n) % c
+    wf = (torch.ones((n,), dtype=torch.float32, device=x.device)
+          if weights is None else weights.reshape(n).float())
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, H))])
+        tf = torch.cat([tf, tf.new_zeros((pad,))])
+        wf = torch.cat([wf, wf.new_zeros((pad,))])
+    wte_d = wte.to(dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, n + pad, c):
+        total = total + _TiedXentChunk.apply(
+            xf[i:i + c], wte_d, tf[i:i + c], wf[i:i + c])
+    return total / n if mean else total
+
+
+def gpt2_loss_fn(config: GPT2Config, dtype=torch.bfloat16,
+                 deterministic: bool = False):
+    """Engine-contract loss: ``batch = {"input_ids": (B, S+1) int}``,
+    next-token cross entropy on the shifted ids; ``seed`` is the step's
+    int32 dropout seed (None: no dropout)."""
+    def loss_fn(params, batch, seed):
+        ids = batch["input_ids"]
+        inputs, targets = ids[:, :-1], ids[:, 1:]
+        x = _gpt2_trunk(params, config, inputs, seed=seed,
+                        deterministic=deterministic, dtype=dtype)
+        return _tied_xent_chunked(x, params["wte"], targets, dtype)
+    return loss_fn
 
 
 def tied_head_weight(wte: torch.Tensor, dtype) -> torch.Tensor:
@@ -302,19 +442,24 @@ def _gpt2_trunk_cached(params, config: GPT2Config, input_ids, kv_cache,
 
 def gpt2_forward(params, config: GPT2Config, input_ids, dtype=torch.bfloat16,
                  kv_cache=None, cache_position=None, block_tables=None,
-                 paged_attn_kernel: str = "gather"):
-    """Serving forward: ``(logits (B, S, vocab) fp32, kv_cache)``.
+                 paged_attn_kernel: str = "gather",
+                 seed: Optional[int] = None, deterministic: bool = True):
+    """Logits (B, S, vocab) in fp32; the LM head is tied to ``wte``.
 
-    ``kv_cache = (kc, vc)`` is the paged pool pair, updated in place
-    (the same tensors come back); ``cache_position`` ((B,) int) is each
-    row's first query position; ``block_tables`` ((B, pages_per_seq)
-    int) maps logical pages to pool pages; ``paged_attn_kernel`` is
-    ``"kernel"`` (the paged-decode kernel for seq-1 queries) or
-    ``"gather"`` (the plain stripe path)."""
+    Without ``kv_cache`` this is the training forward (causal flash
+    attention, dropouts under ``seed`` unless ``deterministic``).
+    Serving: ``kv_cache = (kc, vc)`` is the paged pool pair, updated in
+    place (the same tensors come back with the logits);
+    ``cache_position`` ((B,) int) is each row's first query position;
+    ``block_tables`` ((B, pages_per_seq) int) maps logical pages to pool
+    pages; ``paged_attn_kernel`` is ``"kernel"`` (the paged-decode kernel
+    for seq-1 queries) or ``"gather"`` (the plain stripe path)."""
     if kv_cache is None:
-        raise NotImplementedError(
-            "gpt2_forward without kv_cache is the JAX package's training "
-            "forward (causal flash attention), which is not ported yet")
+        x = _gpt2_trunk(params, config, input_ids, seed=seed,
+                        deterministic=deterministic, dtype=dtype)
+        with _ieee_fp32_matmul():
+            return _tied_logits(x, tied_head_weight(params["wte"], dtype),
+                                dtype)
     if cache_position is None:
         cache_position = torch.zeros((input_ids.shape[0],), dtype=torch.int32,
                                      device=input_ids.device)

@@ -1,0 +1,721 @@
+"""Masked flash attention for training (the port of
+``deepspeed_tpu/ops/attention/masked_flash.py``).
+
+One mask-parameterized attention, forward and backward, over a static
+:class:`BlockMask` (dense and causal are mask choices). Three kernels,
+each with a wrapper and a plain PyTorch version of the same tile walk:
+
+- :func:`masked_flash_fwd` — K1, ``o`` and ``lse`` over the mask's CSR
+  walk (replaces ``_mf_fwd_kernel``);
+- :func:`masked_flash_dq` — K2, ``dq`` over the CSR walk (replaces
+  ``_mf_dq_kernel``);
+- :func:`masked_flash_dkv` — K3, ``dk`` and ``dv`` over the CSC walk, as
+  fp32 per-q-head partials summed per group outside the kernel at G > 1
+  (replaces ``_mf_dkv_kernel``).
+
+For CUDA tensors each wrapper launches its hand-written kernel in
+``csrc/masked_flash.cu`` (built with nvcc for sm_90a at first use) or
+raises; it never falls back. For CPU tensors it runs the plain version
+(``*_plain``). Each launch adds one to the wrapper's ``launches``.
+:func:`masked_flash_call` is the ``torch.autograd.Function`` over the
+three; :func:`masked_flash_attention` is the public entry.
+
+Ported arity: block kinds FULL and CAUSAL, GQA, mask heads 1 or H,
+dropout, fp32 and bf16, head_dim a multiple of 8 up to 128, walk blocks
+16, 32, 64 and 128. Still to port: ``KIND_BAND`` (the banded fine
+structure of a coarsened walk) and the additive key-padding mask
+(``has_kpm``); a mask or call that needs either raises.
+"""
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.ops.attention import flash as _flash
+from deepspeed_tpu_torch.ops.attention.flash import (NEG_INF,
+                                                     dropout_keep_mask,
+                                                     dropout_mask_reference,
+                                                     keep_threshold)
+
+__all__ = ["BlockMask", "masked_flash_attention", "masked_flash_call",
+           "masked_flash_cost", "masked_flash_reference", "masked_flash_fwd",
+           "masked_flash_dq", "masked_flash_dkv", "masked_flash_fwd_plain",
+           "masked_flash_dq_plain", "masked_flash_dkv_plain"]
+
+# scores below this are structurally masked
+VALID_THRESH = -1e28
+
+# partial-tile predicate bits (BlockMask.kinds cell values)
+KIND_FULL = 0          # every cell computed (block-level mask semantics)
+KIND_CAUSAL = 1        # elementwise q_idx >= k_idx (diagonal tiles)
+KIND_BAND = 2          # banded fine structure (not ported: raises)
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_BLOCKS = (16, 32, 64, 128)
+MAX_HEAD_DIM = 128
+
+
+class BlockMask:
+    """Static block-level attention mask (numpy; the JAX package's class).
+
+    ``active``: (Hm, nq, nk) bool — which (q-block, k-block) tiles are
+    walked; ``kinds``: (Hm, nq, nk) uint8 bitmask over active tiles.
+    ``Hm`` is 1 (head-uniform) or the head count. ``band`` carries the
+    fine structure of KIND_BAND tiles, which the port's kernels do not
+    take. Instances are immutable and hashable, and cache their CSR/CSC
+    walk metadata (and its device copies)."""
+
+    def __init__(self, active: np.ndarray, kinds: np.ndarray, block: int,
+                 seq_q: int, seq_k: int,
+                 band: Optional[Tuple[int, int, int, int, bool]] = None):
+        active = np.ascontiguousarray(np.asarray(active, bool))
+        kinds = np.ascontiguousarray(np.asarray(kinds, np.uint8))
+        if active.ndim != 3 or active.shape != kinds.shape:
+            raise ValueError(f"BlockMask: active {active.shape} and kinds "
+                             f"{kinds.shape} must be one (Hm, nq, nk) shape")
+        Hm, nq, nk = active.shape
+        if nq * block != seq_q or nk * block != seq_k:
+            raise ValueError(f"BlockMask: {active.shape} blocks of {block} "
+                             f"do not tile seq ({seq_q}, {seq_k})")
+        self.active = active
+        self.kinds = kinds
+        self.block = int(block)
+        self.seq_q = int(seq_q)
+        self.seq_k = int(seq_k)
+        self.heads = Hm
+        self.band = tuple(band) if band is not None else None
+        self._key = (self.block, self.seq_q, self.seq_k, self.band,
+                     active.tobytes(), kinds.tobytes())
+        self._csr = None
+        self._csc = None
+        self._device_walks = {}
+
+    # ---------------------------------------------------- constructors
+    @classmethod
+    def dense(cls, seq_q: int, seq_k: int, block: int) -> "BlockMask":
+        nq, nk = seq_q // block, seq_k // block
+        return cls(np.ones((1, nq, nk), bool),
+                   np.zeros((1, nq, nk), np.uint8), block, seq_q, seq_k)
+
+    @classmethod
+    def causal(cls, seq: int, block: int) -> "BlockMask":
+        """Square causal mask: tiles below the diagonal are FULL, the
+        diagonal tiles apply the elementwise clip, above is skipped."""
+        nb = seq // block
+        r = np.arange(nb)[:, None]
+        c = np.arange(nb)[None, :]
+        active = (r >= c)[None]
+        kinds = np.where(r == c, KIND_CAUSAL, KIND_FULL
+                         ).astype(np.uint8)[None]
+        return cls(active, kinds * active, block, seq, seq)
+
+    @classmethod
+    def from_layout(cls, layout: np.ndarray, fine_block: int,
+                    walk_block: Optional[int] = None) -> "BlockMask":
+        """A SparsityConfig layout (H, nb, nb) as a BlockMask, walked at
+        the layout's own block. Head-identical layouts collapse to one
+        mask head. The JAX package may coarsen a banded layout's walk
+        onto KIND_BAND tiles; the port always takes the fine walk (the
+        same attention), and a coarse ``walk_block`` raises."""
+        layout = np.asarray(layout)
+        if layout.ndim != 3 or layout.shape[1] != layout.shape[2]:
+            raise ValueError(f"layout must be (H, nb, nb), got "
+                             f"{layout.shape}")
+        if walk_block not in (None, 0):
+            raise NotImplementedError(
+                f"BlockMask.from_layout: walk_block={walk_block} coarsens "
+                "the walk onto KIND_BAND tiles, an arity of the masked "
+                "flash kernels K1-K3 that is not ported yet")
+        if (layout == layout[:1]).all():
+            layout = layout[:1]                  # head-uniform: collapse
+        fine = layout.astype(bool)
+        S = fine.shape[1] * fine_block
+        return cls(fine, np.zeros_like(fine, np.uint8), fine_block, S, S)
+
+    # ------------------------------------------------------- metadata
+    @property
+    def nq(self) -> int:
+        return self.seq_q // self.block
+
+    @property
+    def nk(self) -> int:
+        return self.seq_k // self.block
+
+    @property
+    def nnz(self) -> int:
+        return int(self.active.sum())
+
+    def csr(self):
+        """(offs, cnts, cols, kinds) flattened over rows mh * nq + r."""
+        if self._csr is None:
+            self._csr = self._runs(self.active, self.kinds)
+        return self._csr
+
+    def csc(self):
+        """(offs, cnts, rows, kinds) flattened over cols mh * nk + c —
+        the column-major walk the dk/dv pass follows."""
+        if self._csc is None:
+            self._csc = self._runs(
+                np.ascontiguousarray(self.active.transpose(0, 2, 1)),
+                np.ascontiguousarray(self.kinds.transpose(0, 2, 1)))
+        return self._csc
+
+    @staticmethod
+    def _runs(active, kinds):
+        offs, cnts, idxs, iks = [], [], [], []
+        off = 0
+        H, nr, _ = active.shape
+        for h in range(H):
+            for r in range(nr):
+                nz = np.nonzero(active[h, r])[0]
+                offs.append(off)
+                cnts.append(len(nz))
+                idxs.extend(int(c) for c in nz)
+                iks.extend(int(kinds[h, r, c]) for c in nz)
+                off += len(nz)
+        return (np.asarray(offs, np.int32), np.asarray(cnts, np.int32),
+                np.asarray(idxs if idxs else [0], np.int32),
+                np.asarray(iks if iks else [0], np.int32))
+
+    def device_walk(self, which: str, device) -> Tuple[torch.Tensor, ...]:
+        """The CSR (``which="csr"``) or CSC walk as int32 tensors on
+        ``device``, copied once per device."""
+        key = (which, str(device))
+        walk = self._device_walks.get(key)
+        if walk is None:
+            host = self.csr() if which == "csr" else self.csc()
+            walk = tuple(torch.from_numpy(a).to(device) for a in host)
+            self._device_walks[key] = walk
+        return walk
+
+    def dense_additive(self) -> np.ndarray:
+        """(Hm, Sq, Sk) additive 0 / NEG_INF expansion — the oracle view
+        of what the kernels compute tile by tile."""
+        self._check_ported()
+        b = self.block
+        keep = np.kron(self.active, np.ones((b, b), bool))
+        qi = np.arange(self.seq_q)[:, None]
+        ki = np.arange(self.seq_k)[None, :]
+        kinds = np.kron(self.kinds, np.ones((b, b), np.uint8))
+        if (kinds & KIND_CAUSAL).any():
+            keep &= ~((kinds & KIND_CAUSAL).astype(bool)) | (qi >= ki)
+        return np.where(keep, 0.0, NEG_INF).astype(np.float32)
+
+    def _check_ported(self):
+        if self.band is not None or bool((self.kinds & KIND_BAND).any()):
+            raise NotImplementedError(
+                "BlockMask with KIND_BAND tiles: the banded arity of the "
+                "masked flash kernels K1-K3 is not ported yet")
+
+    def __hash__(self):
+        return hash(self._key)
+
+    def __eq__(self, other):
+        return isinstance(other, BlockMask) and self._key == other._key
+
+
+def masked_flash_cost(mask: BlockMask, batch: int, heads: int,
+                      head_dim: int, dtype_bytes: int = 2,
+                      backward: bool = False):
+    """Modeled FLOPs and bytes of one forward (optionally + backward)
+    pass, the JAX package's accounting: ``flops`` counts the products of
+    every walked tile; ``kv_bytes`` the K/V tiles each walked item reads
+    (a TPU VMEM model); ``io_bytes`` q in, o/lse out per block row."""
+    hm = heads if mask.heads == 1 else 1
+    items = mask.nnz * hm * batch
+    rows = mask.heads * mask.nq * hm * batch
+    b, d = mask.block, head_dim
+    dots_per_item = 2 if not backward else 2 + 6
+    flops = items * dots_per_item * 2 * b * b * d
+    kv_tile = b * d * dtype_bytes
+    q_tile = b * d * dtype_bytes
+    row_io = q_tile + q_tile + b * 4
+    kv_bytes = items * 2 * kv_tile
+    io_bytes = rows * row_io
+    if backward:
+        kv_bytes *= 2
+        io_bytes += rows * 3 * q_tile
+    return {"flops": int(flops), "kv_bytes": int(kv_bytes),
+            "io_bytes": int(io_bytes),
+            "bytes": int(kv_bytes + io_bytes),
+            "items": int(items), "block": b}
+
+
+def masked_flash_reference(q, k, v, mask: BlockMask, key_mask=None,
+                           sm_scale=None, dropout_rate: float = 0.0,
+                           dropout_seed=None):
+    """Dense fp32 oracle with the mask expanded additively: exact-zero
+    probabilities for structurally masked cells, zero output for fully
+    masked rows, the kernels' hash dropout."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if k.shape[1] != q.shape[1]:
+        rep = q.shape[1] // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    s = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
+    if key_mask is not None:
+        s = s + key_mask.reshape(key_mask.shape[0], 1, 1, -1).float()
+    s = s + torch.from_numpy(mask.dense_additive()).to(q.device)[None]
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(m <= VALID_THRESH, 0.0, m)
+    p = torch.where(s > VALID_THRESH, torch.exp(s - m_safe), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l == 0.0, 1.0, l)
+    if dropout_rate > 0.0:
+        b_, h_, sq_, sk_ = p.shape
+        keep = dropout_mask_reference(dropout_seed, b_, h_, sq_, sk_,
+                                      dropout_rate, device=q.device)
+        p = torch.where(keep, p, 0.0) / (1.0 - dropout_rate)
+    return (p @ v.float()).to(q.dtype)
+
+
+# --------------------------------------------------------------------- #
+# plain versions: the kernels' tile walk in PyTorch
+# --------------------------------------------------------------------- #
+def _head_groups(mask: BlockMask, H: int, G: int, B: int, device):
+    """Per mask head: (hm, q-head index, kv-head index, (B, nh) b*H+h)."""
+    out = []
+    for hm in range(mask.heads):
+        hs = (torch.arange(H, device=device) if mask.heads == 1
+              else torch.tensor([hm], device=device))
+        bh = torch.arange(B, device=device)[:, None] * H + hs[None, :]
+        out.append((hm, hs, hs // G, bh))
+    return out
+
+
+def _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx):
+    s = (qt @ kt.transpose(-1, -2)) * sm_scale
+    if kind & KIND_CAUSAL:
+        s = torch.where(q_idx[:, None] >= k_idx[None, :], s, NEG_INF)
+    return s
+
+
+def _keep(seed, bh, q_idx, k_idx, seq_k, rate):
+    return dropout_keep_mask(seed, bh[:, :, None, None], q_idx[:, None],
+                             k_idx[None, :], seq_k, rate)
+
+
+def masked_flash_fwd_plain(q, k, v, mask: BlockMask, sm_scale: float,
+                           rate: float = 0.0, seed: int = 0):
+    """K1's function in plain PyTorch, with its tile walk: per walked
+    tile an fp32 online-softmax step, p rounded to V's dtype before P.V.
+    q (B, H, Sq, D), k/v (B, Hkv, Sk, D) -> o (q's dtype), lse (B, H, Sq)
+    fp32."""
+    mask._check_ported()
+    B, H, Sq, D = q.shape
+    G = H // k.shape[1]
+    blk = mask.block
+    offs, cnts, cols, kinds = mask.csr()
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    ar = torch.arange(blk, device=q.device)
+    for hm, hs, kvh, bh in _head_groups(mask, H, G, B, q.device):
+        qh, kh, vh = q[:, hs].float(), k[:, kvh].float(), v[:, kvh]
+        for j in range(mask.nq):
+            row = hm * mask.nq + j
+            rows = slice(j * blk, (j + 1) * blk)
+            q_idx = j * blk + ar
+            qt = qh[:, :, rows]
+            m = torch.full(qt.shape[:-1], NEG_INF, dtype=torch.float32,
+                           device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros_like(qt)
+            for t in range(int(cnts[row])):
+                c, kind = int(cols[offs[row] + t]), int(kinds[offs[row] + t])
+                k_idx = c * blk + ar
+                s = _tile_scores(qt, kh[:, :, c * blk:(c + 1) * blk],
+                                 sm_scale, kind, q_idx, k_idx)
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                m_safe = torch.where(m_new <= VALID_THRESH, 0.0, m_new)
+                alpha = torch.exp(m - m_new)
+                p = torch.where(s > VALID_THRESH,
+                                torch.exp(s - m_safe[..., None]), 0.0)
+                l = l * alpha + p.sum(dim=-1)
+                if rate > 0.0:
+                    p = torch.where(_keep(seed, bh, q_idx, k_idx, k.shape[2],
+                                          rate), p, 0.0)
+                vt = vh[:, :, c * blk:(c + 1) * blk]
+                acc = acc * alpha[..., None] + \
+                    p.to(v.dtype).float() @ vt.float()
+                m = m_new
+            l_safe = torch.where(l == 0.0, 1.0, l)
+            out = acc / l_safe[..., None]
+            if rate > 0.0:
+                out = out * (1.0 / (1.0 - rate))
+            o[:, hs, rows] = out.to(q.dtype)
+            lse[:, hs, rows] = torch.where(
+                l == 0.0, NEG_INF,
+                torch.where(m <= VALID_THRESH, 0.0, m) + torch.log(l_safe))
+    return o, lse
+
+
+def masked_flash_dq_plain(q, k, v, do, lse, delta, mask: BlockMask,
+                          sm_scale: float, rate: float = 0.0,
+                          seed: int = 0):
+    """K2's function in plain PyTorch over the CSR walk: p recomputed
+    from lse, ds = p * (dp - delta) rounded to K's dtype, dq scaled by
+    sm_scale at the end."""
+    mask._check_ported()
+    B, H, Sq, D = q.shape
+    G = H // k.shape[1]
+    blk = mask.block
+    offs, cnts, cols, kinds = mask.csr()
+    dq = torch.empty_like(q)
+    ar = torch.arange(blk, device=q.device)
+    inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    for hm, hs, kvh, bh in _head_groups(mask, H, G, B, q.device):
+        qh, kh, vh = q[:, hs].float(), k[:, kvh].float(), v[:, kvh].float()
+        doh, lseh, dlh = do[:, hs].float(), lse[:, hs], delta[:, hs]
+        for j in range(mask.nq):
+            row = hm * mask.nq + j
+            rows = slice(j * blk, (j + 1) * blk)
+            q_idx = j * blk + ar
+            qt, dot = qh[:, :, rows], doh[:, :, rows]
+            acc = torch.zeros_like(qt)
+            for t in range(int(cnts[row])):
+                c, kind = int(cols[offs[row] + t]), int(kinds[offs[row] + t])
+                k_idx = c * blk + ar
+                kt = kh[:, :, c * blk:(c + 1) * blk]
+                s = _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx)
+                p = torch.where(s > VALID_THRESH,
+                                torch.exp(s - lseh[:, :, rows, None]), 0.0)
+                dp = dot @ vh[:, :, c * blk:(c + 1) * blk].transpose(-1, -2)
+                if rate > 0.0:
+                    dp = torch.where(_keep(seed, bh, q_idx, k_idx,
+                                           k.shape[2], rate), dp * inv, 0.0)
+                ds = p * (dp - dlh[:, :, rows, None])
+                acc = acc + ds.to(k.dtype).float() @ kt
+            dq[:, hs, rows] = (acc * sm_scale).to(q.dtype)
+    return dq
+
+
+def masked_flash_dkv_plain(q, k, v, do, lse, delta, mask: BlockMask,
+                           sm_scale: float, rate: float = 0.0,
+                           seed: int = 0):
+    """K3's function in plain PyTorch over the CSC walk: dv from the
+    dropped, scaled pd, dk from the undropped p in ds; per-q-head fp32
+    partials summed per group at G > 1. Returns (dk, dv) shaped like k."""
+    mask._check_ported()
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    blk = mask.block
+    offs, cnts, rws, kinds = mask.csc()
+    part = torch.float32 if G > 1 else k.dtype
+    dk = torch.empty((B, H, Sk, D), dtype=part, device=q.device)
+    dv = torch.empty_like(dk)
+    ar = torch.arange(blk, device=q.device)
+    inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    for hm, hs, kvh, bh in _head_groups(mask, H, G, B, q.device):
+        qh, kh, vh = q[:, hs].float(), k[:, kvh].float(), v[:, kvh].float()
+        doh, lseh, dlh = do[:, hs].float(), lse[:, hs], delta[:, hs]
+        for jb in range(mask.nk):
+            col = hm * mask.nk + jb
+            cols_ = slice(jb * blk, (jb + 1) * blk)
+            k_idx = jb * blk + ar
+            kt, vt = kh[:, :, cols_], vh[:, :, cols_]
+            acc_k = torch.zeros_like(kt)
+            acc_v = torch.zeros_like(vt)
+            for t in range(int(cnts[col])):
+                rq, kind = int(rws[offs[col] + t]), int(kinds[offs[col] + t])
+                rows = slice(rq * blk, (rq + 1) * blk)
+                q_idx = rq * blk + ar
+                qt, dot = qh[:, :, rows], doh[:, :, rows]
+                s = _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx)
+                p = torch.where(s > VALID_THRESH,
+                                torch.exp(s - lseh[:, :, rows, None]), 0.0)
+                dp = dot @ vt.transpose(-1, -2)
+                if rate > 0.0:
+                    keep = _keep(seed, bh, q_idx, k_idx, Sk, rate)
+                    pd = torch.where(keep, p * inv, 0.0)
+                    dp = torch.where(keep, dp * inv, 0.0)
+                else:
+                    pd = p
+                acc_v = acc_v + \
+                    pd.to(do.dtype).float().transpose(-1, -2) @ dot
+                ds = p * (dp - dlh[:, :, rows, None])
+                acc_k = acc_k + ds.to(q.dtype).float().transpose(-1, -2) @ qt
+            dk[:, hs, cols_] = (acc_k * sm_scale).to(part)
+            dv[:, hs, cols_] = acc_v.to(part)
+    return _group_sum(dk, dv, k, v)
+
+
+def _group_sum(dk, dv, k, v):
+    """Per-q-head partials (B, H, Sk, D) -> (B, Hkv, Sk, D): summed in
+    fp32 per group at G > 1, then cast to k's / v's dtype."""
+    B, Hkv, Sk, D = k.shape
+    G = dk.shape[1] // Hkv
+    if G == 1:
+        return dk, dv
+    return (dk.reshape(B, Hkv, G, Sk, D).sum(2).to(k.dtype),
+            dv.reshape(B, Hkv, G, Sk, D).sum(2).to(v.dtype))
+
+
+# --------------------------------------------------------------------- #
+# the kernels' wrappers
+# --------------------------------------------------------------------- #
+def _check_args(q, k, v, mask: BlockMask):
+    """What the kernels and their plain versions both require."""
+    mask._check_ported()
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"masked flash takes (B, H, S, D) q and (B, Hkv, "
+                         f"S, D) k/v, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Sq, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[1] != 0:
+        raise ValueError(f"masked flash shapes: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+    if mask.seq_q != Sq or mask.seq_k != k.shape[2]:
+        raise ValueError(f"mask geometry ({mask.seq_q}, {mask.seq_k}) vs "
+                         f"inputs ({Sq}, {k.shape[2]})")
+    if mask.heads not in (1, H):
+        raise ValueError(f"mask heads {mask.heads} must be 1 (uniform) or "
+                         f"{H}")
+
+
+def _check_cuda(tensors, mask: BlockMask):
+    q = tensors[0]
+    B, H, Sq, D = q.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"masked flash runs on cuda or cpu, not "
+                         f"{q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"masked flash kernels take {list(_DTYPE_CODE)}, "
+                        f"got {q.dtype}")
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"masked flash: operands on {t.device} and "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError("masked flash kernels need contiguous "
+                             "operands")
+    for t in tensors[1:4]:
+        if t.dtype != q.dtype:
+            raise TypeError(f"masked flash kernels take one dtype for q, "
+                            f"k, v and do, got {q.dtype} and {t.dtype}")
+    if D % 8 != 0 or D > MAX_HEAD_DIM:
+        raise ValueError(f"masked flash kernels take head_dim a multiple "
+                         f"of 8 up to {MAX_HEAD_DIM}, got {D}")
+    if mask.block not in KERNEL_BLOCKS:
+        raise ValueError(f"masked flash kernels take walk blocks "
+                         f"{KERNEL_BLOCKS}, got {mask.block}")
+    if B * H > 65535:
+        raise ValueError(f"masked flash kernels take B*H <= 65535, got "
+                         f"{B * H}")
+
+
+_fns = {}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# what every entry point takes after its pointers, dtype (and fp32_out):
+# bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim, block, then
+# sm_scale, dropout, keep_thresh, inv_keep, seed, stream
+_GEOMETRY = [_I] * 8
+_TAIL = [_F, _I, ctypes.c_uint32, _F, ctypes.c_int32, _P]
+
+
+def _kernel(name: str, argtypes):
+    """One of the library's C entry points, built and typed at first
+    use."""
+    fn = _fns.get(name)
+    if fn is None:
+        from deepspeed_tpu_torch.ops._build import load
+        fn = getattr(load("masked_flash.cu"), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _fns[name] = fn
+    return fn
+
+
+def _as_int32(x: int) -> int:
+    x = int(x) & 0xFFFFFFFF
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
+def _check_hash_rounds(rate: float):
+    """The kernels hash with the two-round finalizer only; the plain
+    versions follow ``flash._HASH_FINAL_ROUNDS``. The wrappers refuse any
+    other value on every device, so the two cannot drift apart."""
+    if rate > 0.0 and _flash._HASH_FINAL_ROUNDS != 2:
+        raise NotImplementedError(
+            f"masked flash kernels: flash._HASH_FINAL_ROUNDS = "
+            f"{_flash._HASH_FINAL_ROUNDS}; the kernels' dropout hash has "
+            f"the two-round finalizer only")
+
+
+def _geometry(q, k, mask: BlockMask):
+    B, H, Sq, D = q.shape
+    return [B * H, H, k.shape[1], mask.heads, Sq, mask.seq_k, D, mask.block]
+
+
+def _dropout(sm_scale: float, rate: float, seed: int):
+    if rate <= 0.0:
+        return [float(sm_scale), 0, 0, 1.0, 0]
+    return [float(sm_scale), 1, keep_threshold(rate),
+            float(1.0 / (1.0 - rate)), _as_int32(seed)]
+
+
+def _run(name, fn, q, args):
+    """Launch ``fn(*args, stream)`` on q's device and current stream."""
+    def go():
+        return fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+
+    if q.device.index == torch.cuda.current_device():
+        err = go()
+    else:                     # the launch goes to the current device
+        with torch.cuda.device(q.device):
+            err = go()
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def masked_flash_fwd(q, k, v, mask: BlockMask, sm_scale: float,
+                     rate: float = 0.0, seed: int = 0):
+    """K1: ``(o, lse)`` of :func:`masked_flash_fwd_plain`. A CUDA ``q``
+    launches the sm_90a kernel (raising on any dtype, shape, device or
+    launch problem); a CPU ``q`` runs the plain version."""
+    _check_args(q, k, v, mask)
+    _check_hash_rounds(rate)
+    if q.device.type == "cpu":
+        return masked_flash_fwd_plain(q, k, v, mask, sm_scale, rate, seed)
+    _check_cuda((q, k, v), mask)
+    B, H, Sq, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # q, k, v, o, lse, offs, cnts, cols, kinds; dtype
+    fn = _kernel("masked_flash_fwd", [_P] * 9 + [_I] + _GEOMETRY + _TAIL)
+    walk = mask.device_walk("csr", q.device)
+    _run("masked_flash_fwd", fn, q,
+         [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+          lse.data_ptr(), *(w.data_ptr() for w in walk),
+          _DTYPE_CODE[q.dtype], *_geometry(q, k, mask),
+          *_dropout(sm_scale, rate, seed)])
+    masked_flash_fwd.launches += 1
+    return o, lse
+
+
+def masked_flash_dq(q, k, v, do, lse, delta, mask: BlockMask,
+                    sm_scale: float, rate: float = 0.0, seed: int = 0):
+    """K2: ``dq`` of :func:`masked_flash_dq_plain`; kernel on CUDA, plain
+    version on the CPU."""
+    _check_args(q, k, v, mask)
+    _check_hash_rounds(rate)
+    if q.device.type == "cpu":
+        return masked_flash_dq_plain(q, k, v, do, lse, delta, mask,
+                                     sm_scale, rate, seed)
+    _check_cuda((q, k, v, do, lse, delta), mask)
+    dq = torch.empty_like(q)
+    # q, k, v, do, lse, delta, dq, offs, cnts, cols, kinds; dtype
+    fn = _kernel("masked_flash_dq", [_P] * 11 + [_I] + _GEOMETRY + _TAIL)
+    walk = mask.device_walk("csr", q.device)
+    _run("masked_flash_dq", fn, q,
+         [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+          *(w.data_ptr() for w in walk),
+          _DTYPE_CODE[q.dtype], *_geometry(q, k, mask),
+          *_dropout(sm_scale, rate, seed)])
+    masked_flash_dq.launches += 1
+    return dq
+
+
+def masked_flash_dkv(q, k, v, do, lse, delta, mask: BlockMask,
+                     sm_scale: float, rate: float = 0.0, seed: int = 0):
+    """K3: ``(dk, dv)`` of :func:`masked_flash_dkv_plain`; kernel on
+    CUDA (fp32 per-q-head partials at G > 1, summed here), plain version
+    on the CPU."""
+    _check_args(q, k, v, mask)
+    _check_hash_rounds(rate)
+    if q.device.type == "cpu":
+        return masked_flash_dkv_plain(q, k, v, do, lse, delta, mask,
+                                      sm_scale, rate, seed)
+    _check_cuda((q, k, v, do, lse, delta), mask)
+    B, H, Sq, D = q.shape
+    G = H // k.shape[1]
+    part = torch.float32 if G > 1 else k.dtype
+    dk = torch.empty((B, H, k.shape[2], D), dtype=part, device=q.device)
+    dv = torch.empty_like(dk)
+    # q, k, v, do, lse, delta, dk, dv, coffs, ccnts, crows, ckinds;
+    # dtype, fp32_out
+    fn = _kernel("masked_flash_dkv",
+                 [_P] * 12 + [_I, _I] + _GEOMETRY + _TAIL)
+    walk = mask.device_walk("csc", q.device)
+    _run("masked_flash_dkv", fn, q,
+         [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+          *(w.data_ptr() for w in walk),
+          _DTYPE_CODE[q.dtype], int(G > 1), *_geometry(q, k, mask),
+          *_dropout(sm_scale, rate, seed)])
+    masked_flash_dkv.launches += 1
+    return _group_sum(dk, dv, k, v)
+
+
+masked_flash_fwd.launches = 0
+masked_flash_dq.launches = 0
+masked_flash_dkv.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# autograd + public API
+# --------------------------------------------------------------------- #
+class _MaskedFlash(torch.autograd.Function):
+    """Forward K1, saving (q, k, v, o, lse); backward delta = sum(do*o)
+    in fp32, then K2 and K3."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, mask, sm_scale, rate):
+        o, lse = masked_flash_fwd(q, k, v, mask, sm_scale, rate, seed)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask, ctx.sm_scale, ctx.rate, ctx.seed = mask, sm_scale, rate, \
+            seed
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1)
+        args = (ctx.mask, ctx.sm_scale, ctx.rate, ctx.seed)
+        dq = masked_flash_dq(q, k, v, do, lse, delta, *args)
+        dk, dv = masked_flash_dkv(q, k, v, do, lse, delta, *args)
+        return dq, dk, dv, None, None, None, None
+
+
+def masked_flash_call(q, k, v, seed: int, mask: BlockMask, sm_scale: float,
+                      rate: float):
+    """Low-level entry, all operands explicit: ``o`` with the custom
+    backward. ``seed`` is the dropout seed (int32; unused at rate 0)."""
+    return _MaskedFlash.apply(q.contiguous(), k.contiguous(),
+                              v.contiguous(), int(seed), mask,
+                              float(sm_scale), float(rate))
+
+
+def masked_flash_attention(q, k, v, mask: BlockMask, key_mask=None,
+                           sm_scale: Optional[float] = None,
+                           dropout_rate: float = 0.0,
+                           dropout_seed: Optional[int] = None):
+    """Blocked flash attention under a static :class:`BlockMask`.
+
+    q: (B, H, Sq, D); k, v: (B, kv_heads, Sk, D) with H % kv_heads == 0.
+    ``mask.heads`` must be 1 or H. ``dropout_rate > 0`` requires
+    ``dropout_seed`` (an int32). The additive ``key_mask`` arity is not
+    ported: it raises."""
+    if key_mask is not None:
+        raise NotImplementedError(
+            "masked flash with an additive key-padding mask (the has_kpm "
+            "arity of K1-K3) is not ported yet")
+    _check_args(q, k, v, mask)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    dropout_rate = float(dropout_rate)
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("masked_flash_attention: dropout_rate > 0 "
+                             "requires dropout_seed")
+        if dropout_rate >= 1.0:
+            raise ValueError(f"dropout_rate must be < 1, got "
+                             f"{dropout_rate}")
+    return masked_flash_call(q, k, v, dropout_seed or 0, mask, sm_scale,
+                             dropout_rate)

@@ -1,14 +1,219 @@
-"""Config parsing of the serving slice (the port of
-``deepspeed_tpu/runtime/config.py``'s ``get_inference_config`` and the
-serving part of ``get_observability_config``). The same dict resolves
-to the same fields and raises the same errors as the JAX package.
+"""Config parsing (the port of ``deepspeed_tpu/runtime/config.py``,
+``config_utils.py`` and ``zero/config.py``): the training keys of
+:class:`DeepSpeedConfig` (the batch triangle, ``bf16``, ``fp16``,
+``optimizer``, ``scheduler``, ``gradient_clipping``,
+``zero_optimization.stage``, ``steps_per_print``),
+``get_inference_config`` and the serving part of
+``get_observability_config``. The same dict resolves to the same fields
+and raises the same errors as the JAX package; settings whose runtime is
+not ported yet (ZeRO stage > 0, offload, 1-bit Adam, pipeline, fp16)
+raise ``NotImplementedError`` naming them.
 """
+
+import collections
+import json
+from typing import Optional
 
 from deepspeed_tpu_torch.runtime import constants as C
 
 
 class DeepSpeedConfigError(Exception):
     pass
+
+
+def get_scalar_param(param_dict, param_name, param_default_value):
+    if param_dict is None:
+        return param_default_value
+    return param_dict.get(param_name, param_default_value)
+
+
+def dict_raise_error_on_duplicate_keys(ordered_pairs):
+    """json ``object_pairs_hook`` that rejects duplicate keys."""
+    d = dict((k, v) for k, v in ordered_pairs)
+    if len(d) != len(ordered_pairs):
+        counter = collections.Counter(k for k, _ in ordered_pairs)
+        keys = [k for k, v in counter.items() if v > 1]
+        raise ValueError(
+            "Duplicate keys in DeepSpeed-TPU config: {}".format(keys))
+    return d
+
+
+def _sub(param_dict, key):
+    return param_dict[key] if key in param_dict else None
+
+
+def get_train_micro_batch_size_per_gpu(param_dict):
+    v = get_scalar_param(param_dict, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU, None)
+    if v is None:
+        v = get_scalar_param(param_dict, C.TRAIN_MICRO_BATCH_SIZE_PER_CHIP,
+                             C.TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT)
+    return v
+
+
+def get_optimizer_name(param_dict):
+    if C.OPTIMIZER in param_dict and C.TYPE in param_dict[C.OPTIMIZER]:
+        return param_dict[C.OPTIMIZER][C.TYPE]
+    return C.OPTIMIZER_TYPE_DEFAULT
+
+
+def get_optimizer_params(param_dict):
+    if get_optimizer_name(param_dict) is not None and \
+            C.OPTIMIZER_PARAMS in param_dict[C.OPTIMIZER]:
+        return param_dict[C.OPTIMIZER][C.OPTIMIZER_PARAMS]
+    return None
+
+
+def get_scheduler_name(param_dict):
+    if C.SCHEDULER in param_dict and C.TYPE in param_dict[C.SCHEDULER]:
+        return param_dict[C.SCHEDULER][C.TYPE]
+    return C.SCHEDULER_TYPE_DEFAULT
+
+
+def get_scheduler_params(param_dict):
+    if get_scheduler_name(param_dict) is not None and \
+            C.SCHEDULER_PARAMS in param_dict[C.SCHEDULER]:
+        return param_dict[C.SCHEDULER][C.SCHEDULER_PARAMS]
+    return None
+
+
+class DeepSpeedZeroConfig:
+    """The ``zero_optimization`` section's stage and offload switch (the
+    legacy boolean form means stage 1)."""
+
+    def __init__(self, param_dict):
+        sub = param_dict.get(C.ZERO_OPTIMIZATION, {})
+        if isinstance(sub, bool):
+            sub = {C.ZERO_OPTIMIZATION_STAGE: 1 if sub else 0}
+        self.stage = get_scalar_param(sub, C.ZERO_OPTIMIZATION_STAGE,
+                                      C.ZERO_OPTIMIZATION_STAGE_DEFAULT)
+        self.cpu_offload = get_scalar_param(
+            sub, C.ZERO_OPTIMIZATION_CPU_OFFLOAD,
+            C.ZERO_OPTIMIZATION_CPU_OFFLOAD_DEFAULT)
+
+
+class DeepSpeedConfig:
+    """Parsed view of the training config. ``world_size`` is the
+    data-parallel degree the batch triangle resolves against (the port
+    trains on one device, so the engine passes 1)."""
+
+    def __init__(self, json_file_or_dict, world_size: Optional[int] = None):
+        if isinstance(json_file_or_dict, dict):
+            self._param_dict = json_file_or_dict
+        else:
+            with open(json_file_or_dict, "r") as f:
+                self._param_dict = json.load(
+                    f, object_pairs_hook=dict_raise_error_on_duplicate_keys)
+        self.world_size = 1 if world_size is None else int(world_size)
+        self._initialize_params(self._param_dict)
+        self._set_batch_related_parameters()
+        self._batch_assertion()
+        self._do_error_check()
+
+    def _initialize_params(self, d):
+        self.train_batch_size = get_scalar_param(
+            d, C.TRAIN_BATCH_SIZE, C.TRAIN_BATCH_SIZE_DEFAULT)
+        self.train_micro_batch_size_per_gpu = \
+            get_train_micro_batch_size_per_gpu(d)
+        self.gradient_accumulation_steps = get_scalar_param(
+            d, C.GRADIENT_ACCUMULATION_STEPS,
+            C.GRADIENT_ACCUMULATION_STEPS_DEFAULT)
+        self.steps_per_print = get_scalar_param(d, C.STEPS_PER_PRINT,
+                                                C.STEPS_PER_PRINT_DEFAULT)
+        self.zero_config = DeepSpeedZeroConfig(d)
+        self.zero_optimization_stage = self.zero_config.stage
+        self.gradient_clipping = get_scalar_param(
+            d, C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT)
+        self.fp16_enabled = get_scalar_param(
+            _sub(d, C.FP16), C.FP16_ENABLED, C.FP16_ENABLED_DEFAULT)
+        self.bf16_enabled = get_scalar_param(
+            _sub(d, C.BF16), C.BF16_ENABLED, C.BF16_ENABLED_DEFAULT)
+        self.bf16_master_weights = get_scalar_param(
+            _sub(d, C.BF16), C.BF16_MASTER_WEIGHTS,
+            C.BF16_MASTER_WEIGHTS_DEFAULT)
+        self.optimizer_name = get_optimizer_name(d)
+        if self.optimizer_name is not None and \
+                self.optimizer_name.lower() in C.DEEPSPEED_OPTIMIZERS:
+            self.optimizer_name = self.optimizer_name.lower()
+        self.optimizer_params = get_optimizer_params(d)
+        self.scheduler_name = get_scheduler_name(d)
+        self.scheduler_params = get_scheduler_params(d)
+        self.wall_clock_breakdown = get_scalar_param(
+            d, C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT)
+        self.memory_breakdown = get_scalar_param(
+            d, C.MEMORY_BREAKDOWN, C.MEMORY_BREAKDOWN_DEFAULT)
+
+    def _set_batch_related_parameters(self):
+        """Solve the batch triangle from the keys given."""
+        train_batch = self.train_batch_size
+        micro_batch = self.train_micro_batch_size_per_gpu
+        grad_acc = self.gradient_accumulation_steps
+        if all(x is not None for x in [train_batch, micro_batch, grad_acc]):
+            return
+        elif train_batch is not None and micro_batch is not None:
+            grad_acc = train_batch // micro_batch
+            grad_acc //= self.world_size
+            self.gradient_accumulation_steps = grad_acc
+        elif train_batch is not None and grad_acc is not None:
+            micro_batch = train_batch // self.world_size
+            micro_batch //= grad_acc
+            self.train_micro_batch_size_per_gpu = micro_batch
+        elif micro_batch is not None and grad_acc is not None:
+            self.train_batch_size = micro_batch * grad_acc * self.world_size
+        elif train_batch is not None:
+            self.gradient_accumulation_steps = 1
+            self.train_micro_batch_size_per_gpu = \
+                train_batch // self.world_size
+        elif micro_batch is not None:
+            self.train_batch_size = micro_batch * self.world_size
+            self.gradient_accumulation_steps = 1
+        else:
+            raise DeepSpeedConfigError(
+                "Either train_batch_size or train_micro_batch_size_per_gpu "
+                "needs to be provided")
+
+    def _batch_assertion(self):
+        train_batch = self.train_batch_size
+        micro_batch = self.train_micro_batch_size_per_gpu
+        grad_acc = self.gradient_accumulation_steps
+        if not (train_batch > 0 and micro_batch > 0 and grad_acc > 0):
+            raise DeepSpeedConfigError(
+                f"batch sizes must be > 0: train_batch_size {train_batch}, "
+                f"micro batch {micro_batch}, grad acc {grad_acc}")
+        if train_batch != micro_batch * grad_acc * self.world_size:
+            raise DeepSpeedConfigError(
+                f"Check batch related parameters. train_batch_size is not "
+                f"equal to micro_batch_per_gpu * gradient_acc_step * "
+                f"world_size {train_batch} != {micro_batch} * {grad_acc} * "
+                f"{self.world_size}")
+
+    def _do_error_check(self):
+        if self.fp16_enabled and self.bf16_enabled:
+            raise DeepSpeedConfigError(
+                "fp16 and bf16 cannot both be enabled; pick one")
+        if not self.bf16_master_weights and not self.bf16_enabled:
+            raise DeepSpeedConfigError(
+                "bf16.master_weights=false requires bf16.enabled=true "
+                "(params are held in bf16 end-to-end)")
+        unported = []
+        if self.zero_optimization_stage > 0:
+            unported.append(f"zero_optimization.stage "
+                            f"{self.zero_optimization_stage} (ZeRO)")
+        if self.zero_config.cpu_offload:
+            unported.append("zero_optimization.cpu_offload")
+        if self.optimizer_name and "onebit" in \
+                self.optimizer_name.lower().replace("_", ""):
+            unported.append(f"optimizer {self.optimizer_name} (1-bit Adam)")
+        if C.PIPELINE in self._param_dict:
+            unported.append("pipeline")
+        if self.fp16_enabled:
+            unported.append("fp16.enabled (fp16 and loss scaling)")
+        if not self.bf16_master_weights:
+            unported.append("bf16.master_weights=false (stochastic "
+                            "rounding)")
+        if unported:
+            raise NotImplementedError(
+                "not ported to deepspeed_tpu_torch yet: "
+                + ", ".join(unported))
 
 
 def get_observability_config(param_dict):

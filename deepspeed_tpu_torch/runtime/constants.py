@@ -1,8 +1,72 @@
-"""Config keys and defaults of the serving slice (the port of the
-``inference`` and ``observability`` parts of
-``deepspeed_tpu/runtime/constants.py``): same names, same defaults, so
-one JSON config drives either package.
+"""Config keys and defaults (the port of the training keys, the
+``inference`` and the ``observability`` parts of
+``deepspeed_tpu/runtime/constants.py``, and of
+``deepspeed_tpu/runtime/zero/constants.py``): same names, same defaults,
+so one JSON config drives either package.
 """
+
+#############################################
+# Batch size (triangle: train_batch_size == micro * grad_acc * world)
+#############################################
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_BATCH_SIZE_DEFAULT = None
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT = None
+# the JAX package's TPU spelling; both accepted
+TRAIN_MICRO_BATCH_SIZE_PER_CHIP = "train_micro_batch_size_per_chip"
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+GRADIENT_ACCUMULATION_STEPS_DEFAULT = None
+
+#############################################
+# Optimizer / scheduler
+#############################################
+OPTIMIZER = "optimizer"
+OPTIMIZER_TYPE_DEFAULT = None
+OPTIMIZER_PARAMS = "params"
+TYPE = "type"
+SCHEDULER = "scheduler"
+SCHEDULER_TYPE_DEFAULT = None
+SCHEDULER_PARAMS = "params"
+ADAM_OPTIMIZER = "adam"
+LAMB_OPTIMIZER = "lamb"
+ONEBIT_ADAM_OPTIMIZER = "onebitadam"
+DEEPSPEED_ADAM = "deepspeed_adam"
+SGD_OPTIMIZER = "sgd"
+ADAMW_OPTIMIZER = "adamw"
+DEEPSPEED_OPTIMIZERS = [
+    ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
+    DEEPSPEED_ADAM, SGD_OPTIMIZER,
+]
+
+#############################################
+# Steps, precision, clipping, timers
+#############################################
+STEPS_PER_PRINT = "steps_per_print"
+STEPS_PER_PRINT_DEFAULT = 10
+FP16 = "fp16"
+FP16_ENABLED = "enabled"
+FP16_ENABLED_DEFAULT = False
+BF16 = "bf16"
+BF16_ENABLED = "enabled"
+BF16_ENABLED_DEFAULT = False
+BF16_MASTER_WEIGHTS = "master_weights"
+BF16_MASTER_WEIGHTS_DEFAULT = True
+GRADIENT_CLIPPING = "gradient_clipping"
+GRADIENT_CLIPPING_DEFAULT = 0.0
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+MEMORY_BREAKDOWN = "memory_breakdown"
+MEMORY_BREAKDOWN_DEFAULT = False
+PIPELINE = "pipeline"
+
+#############################################
+# ZeRO (zero/constants.py)
+#############################################
+ZERO_OPTIMIZATION = "zero_optimization"
+ZERO_OPTIMIZATION_STAGE = "stage"
+ZERO_OPTIMIZATION_STAGE_DEFAULT = 0
+ZERO_OPTIMIZATION_CPU_OFFLOAD = "cpu_offload"
+ZERO_OPTIMIZATION_CPU_OFFLOAD_DEFAULT = False
 
 #############################################
 # Observability (serving subset)

@@ -1,0 +1,355 @@
+"""DeepSpeedEngine, the training runtime (the port of
+``deepspeed_tpu/runtime/engine.py``, reduced to one device and ZeRO
+stage 0).
+
+Same facade and contract as the JAX engine:
+
+- the model is a loss function ``loss_fn(params, batch[, seed]) -> loss |
+  (loss, aux)`` and ``model_parameters`` its initial parameter tree (a
+  dict of tensors or numpy arrays);
+- ``train_batch`` runs one full batch of ``gradient_accumulation_steps``
+  micro batches and applies the optimizer at the boundary;
+  ``forward``/``backward``/``step`` are the same step in three calls;
+- grads of each micro batch are divided by the accumulation steps and
+  summed in fp32; clipping scales them by
+  ``min(1, gradient_clipping / (norm + 1e-6))``.
+
+Where the JAX engine threads a ``jax.random`` key, this engine owns a
+``torch.Generator`` and draws one int32 seed per micro batch from it;
+the loss derives its dropout seeds from that. With ``bf16`` the params
+stay fp32 masters: each micro batch the engine hands the loss a bf16 copy
+made through a differentiable cast (the JAX engine's ``_cast_for_loss``),
+so the grads arrive in fp32 through autograd. Optimizer updates are in
+place. Entry points run on the current CUDA device unless the caller
+passes ``device="cpu"``; without a card and without ``device`` they
+raise.
+
+Not ported yet: ZeRO stages > 0 and offload, fp16 and loss scaling,
+pipeline and multi-GPU data parallelism, lr schedules, checkpoints,
+remat, the async pipeline and the observability layers.
+"""
+
+import inspect
+from typing import Any, Callable, Optional
+
+import torch
+
+from deepspeed_tpu_torch.ops.optimizers import Optimizer, build_optimizer
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
+                                                    RepeatingLoader,
+                                                    to_device)
+from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
+                                             ThroughputTimer)
+from deepspeed_tpu_torch.utils.tree import (tree_leaves, tree_map,
+                                            tree_unflatten)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as given, else the current CUDA device. Never drifts to
+    the CPU on its own: with no card and no explicit device it raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "DeepSpeedEngine runs on CUDA and no CUDA device is available; "
+            "pass device='cpu' to train on the CPU with the kernels' plain "
+            "versions")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+class DeepSpeedEngine:
+
+    def __init__(self, args=None, model: Callable = None,
+                 optimizer: Optional[Optimizer] = None,
+                 model_parameters: Any = None, training_data=None,
+                 lr_scheduler=None, collate_fn=None, config: Any = None,
+                 config_params: Any = None, seed: int = 0, device=None):
+        if model is None:
+            raise ValueError("deepspeed_tpu_torch.initialize requires a "
+                             "model (loss fn)")
+        if model_parameters is None:
+            raise ValueError("deepspeed_tpu_torch.initialize requires "
+                             "model_parameters (the initial param tree)")
+        raw = config if config is not None else config_params
+        if raw is None and args is not None and \
+                getattr(args, "deepspeed_config", None):
+            raw = args.deepspeed_config
+        if raw is None:
+            raise ValueError("a DeepSpeed config (dict or path) is required")
+        self.device = resolve_device(device)
+        self._config = DeepSpeedConfig(raw, world_size=1)
+        self.dp_world_size = 1
+        if lr_scheduler is not None or \
+                self._config.scheduler_name is not None:
+            raise NotImplementedError(
+                "lr schedules (scheduler "
+                f"{self._config.scheduler_name or lr_scheduler!r}) are not "
+                "ported yet: runtime/lr_schedules.py waits")
+        self.lr_scheduler = None
+
+        # -- precision: fp32 masters, compute in bf16 or fp32 --
+        self.fp16_enabled = False
+        self.bf16_enabled = bool(self._config.bf16_enabled)
+        self.compute_dtype = torch.bfloat16 if self.bf16_enabled else None
+
+        # -- loss fn --
+        self._loss_fn = model
+        try:
+            n_args = len(inspect.signature(model).parameters)
+        except (TypeError, ValueError):
+            n_args = None
+        self._loss_takes_rng = n_args == 3
+
+        # -- optimizer + state --
+        self.optimizer = optimizer if optimizer is not None else \
+            build_optimizer(self._config.optimizer_name,
+                            self._config.optimizer_params)
+        self.zero_stage = 0
+        # an explicit copy: the engine updates its masters in place and
+        # must not write through to the caller's tensors
+        self.params = tree_map(
+            lambda t: torch.as_tensor(t).detach().to(
+                self.device, torch.float32).clone().requires_grad_(),
+            model_parameters)
+        self.opt_state = self.optimizer.init(self.params)
+        self.gradient_accumulation_steps = \
+            self._config.gradient_accumulation_steps
+        self.accum_grads = None
+        if self.gradient_accumulation_steps > 1:
+            self.accum_grads = [torch.zeros_like(p)
+                                for p in tree_leaves(self.params)]
+        self.gradient_clipping = self._config.gradient_clipping
+        self._generator = torch.Generator().manual_seed(seed)
+
+        # -- data --
+        self.training_dataloader = None
+        if training_data is not None:
+            self.training_dataloader = self.deepspeed_io(
+                training_data, collate_fn=collate_fn)
+        self._train_iter = None
+
+        # -- bookkeeping --
+        self.timers = SynchronizedWallClockTimer()
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_micro_batch_size_per_gpu() *
+            self.gradient_accumulation_steps,
+            num_workers=self.dp_world_size,
+            steps_per_output=self._config.steps_per_print)
+        self.wall_clock_breakdown_enabled = self._config.wall_clock_breakdown
+        self.global_step = 0
+        self.micro_step = 0
+        self._host_micro_step = 0
+        self._cached_grads = None
+        self._cached_loss = None
+        self._pending_grads = None
+        self._last_loss = None
+        log_dist(f"DeepSpeedEngine initialized: device={self.device} "
+                 f"zero_stage=0 dtype={self.compute_dtype or torch.float32} "
+                 f"grad_acc={self.gradient_accumulation_steps}", ranks=[0])
+
+    # ------------------------------------------------------------------ #
+    # config accessors
+    # ------------------------------------------------------------------ #
+    def train_batch_size(self):
+        return self._config.train_batch_size
+
+    def train_micro_batch_size_per_gpu(self):
+        return self._config.train_micro_batch_size_per_gpu
+
+    def steps_per_print(self):
+        return self._config.steps_per_print
+
+    def zero_optimization_stage(self):
+        return self.zero_stage
+
+    def get_lr(self):
+        return [float(self.optimizer.lr)]
+
+    @property
+    def global_steps(self) -> int:
+        return self.global_step
+
+    @property
+    def module_params(self):
+        return self.params
+
+    def is_gradient_accumulation_boundary(self):
+        """True while processing the last micro batch of the window."""
+        return ((self._host_micro_step + 1) %
+                self.gradient_accumulation_steps == 0)
+
+    def deepspeed_io(self, dataset, batch_size=None, collate_fn=None):
+        """A loader over micro batches, on the engine's device."""
+        if batch_size is None:
+            batch_size = self.train_micro_batch_size_per_gpu()
+        return DeepSpeedDataLoader(dataset, batch_size=batch_size,
+                                   device=self.device,
+                                   collate_fn=collate_fn)
+
+    # ------------------------------------------------------------------ #
+    # the step
+    # ------------------------------------------------------------------ #
+    def _next_seed(self) -> int:
+        """One int32 dropout seed per micro batch, from the engine's
+        generator."""
+        return int(torch.randint(-(2**31), 2**31 - 1, (1,),
+                                 generator=self._generator))
+
+    def _cast_for_loss(self, params):
+        """fp32 masters -> compute dtype, differentiably (identity in
+        fp32)."""
+        if self.compute_dtype is None:
+            return params
+        return tree_map(lambda p: p.to(self.compute_dtype), params)
+
+    def _call_loss(self, params, batch, seed):
+        out = (self._loss_fn(params, batch, seed) if self._loss_takes_rng
+               else self._loss_fn(params, batch))
+        return out[0] if isinstance(out, tuple) else out
+
+    def _compute_loss_and_grads(self, batch, seed):
+        """One micro batch: the loss and the fp32 grads of
+        ``loss / gradient_accumulation_steps`` w.r.t. the masters, in
+        sorted-leaf order."""
+        batch = to_device(batch, self.device)
+        loss = self._call_loss(self._cast_for_loss(self.params), batch, seed)
+        scaled = loss.float() / self.gradient_accumulation_steps
+        masters = list(tree_leaves(self.params))
+        grads = torch.autograd.grad(scaled, masters, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g.float()
+                 for p, g in zip(masters, grads)]
+        return loss.detach(), grads
+
+    def _accumulate(self, grads):
+        if self.accum_grads is None:
+            self._pending_grads = grads
+        else:
+            torch._foreach_add_(self.accum_grads, grads)
+        self.micro_step += 1
+
+    @torch.no_grad()
+    def _apply_update(self, grads):
+        """Optimizer boundary: clip, update in place, reset the window."""
+        if self.gradient_clipping > 0:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            clip = torch.clamp(self.gradient_clipping / (norm + 1e-6),
+                               max=1.0)
+            grads = torch._foreach_mul(grads, clip)
+        self.params, self.opt_state = self.optimizer.update(
+            tree_unflatten(self.params, grads), self.opt_state, self.params,
+            lr=self.optimizer.lr)
+        if self.accum_grads is not None:
+            torch._foreach_zero_(self.accum_grads)
+        self._pending_grads = None
+        self.global_step += 1
+        self.micro_step = 0
+
+    def forward(self, batch):
+        """Loss of one micro batch. As in the JAX engine, the backward
+        pass runs here and its grads are cached for :meth:`backward`."""
+        if self.wall_clock_breakdown_enabled:
+            self.timers("forward").start()
+        self._cached_loss, self._cached_grads = \
+            self._compute_loss_and_grads(batch, self._next_seed())
+        if self.wall_clock_breakdown_enabled:
+            self.timers("forward").stop()
+        return self._cached_loss
+
+    __call__ = forward
+
+    def backward(self, loss=None):
+        """Accumulate the grads cached by :meth:`forward`."""
+        if self._cached_grads is None:
+            raise RuntimeError("backward() must follow forward() on the "
+                               "same micro batch")
+        if self.wall_clock_breakdown_enabled:
+            self.timers("backward").start()
+        grads, self._cached_grads = self._cached_grads, None
+        self._accumulate(grads)
+        if self.wall_clock_breakdown_enabled:
+            self.timers("backward").stop()
+        return loss
+
+    def step(self):
+        """Apply the optimizer at the accumulation boundary."""
+        if self.wall_clock_breakdown_enabled:
+            self.timers("step").start()
+        if self.accum_grads is not None:
+            if self.is_gradient_accumulation_boundary():
+                self._apply_update(self.accum_grads)
+                self._report_progress()
+        else:
+            if self._pending_grads is None:
+                raise RuntimeError("step() must follow backward()")
+            self._apply_update(self._pending_grads)
+            self._report_progress()
+        self._host_micro_step += 1
+        if self.wall_clock_breakdown_enabled:
+            self.timers("step").stop()
+            self.timers.log(["forward", "backward", "step"],
+                            memory_breakdown=self._config.memory_breakdown)
+
+    def _ensure_train_iter(self):
+        if self.training_dataloader is None:
+            raise ValueError("train_batch() without data_iter requires "
+                             "training_data")
+        if self._train_iter is None:
+            self._train_iter = iter(RepeatingLoader(self.training_dataloader))
+        return self._train_iter
+
+    def train_batch(self, data_iter=None):
+        """One full batch: ``gradient_accumulation_steps`` micro batches
+        from ``data_iter`` (default: the training data), then the update.
+        Returns the mean loss as a device scalar (``float`` of it, or
+        :meth:`last_loss`, syncs)."""
+        if data_iter is None:
+            data_iter = self._ensure_train_iter()
+        self.tput_timer.start()
+        total = None
+        for _ in range(self.gradient_accumulation_steps):
+            loss, grads = self._compute_loss_and_grads(next(data_iter),
+                                                       self._next_seed())
+            self._accumulate(grads)
+            total = loss if total is None else total + loss
+        self._apply_update(self.accum_grads if self.accum_grads is not None
+                           else self._pending_grads)
+        self.tput_timer.stop()
+        self._host_micro_step += self.gradient_accumulation_steps
+        self._report_progress()
+        self._last_loss = total / self.gradient_accumulation_steps
+        return self._last_loss
+
+    def last_loss(self):
+        """Python float of the latest ``train_batch`` mean loss (a sync
+        point); None before the first step."""
+        return None if self._last_loss is None else float(self._last_loss)
+
+    @torch.no_grad()
+    def eval_batch(self, batch):
+        """Loss without grads or update, with no dropout (seed None). A
+        single batch, or an iterator of micro batches drained up to the
+        accumulation window (mean loss)."""
+        if hasattr(batch, "__next__"):
+            micros = []
+            for _ in range(self.gradient_accumulation_steps):
+                try:
+                    micros.append(next(batch))
+                except StopIteration:
+                    break
+        else:
+            micros = [batch]
+        if not micros:
+            raise ValueError("eval_batch: empty micro-batch iterator")
+        total = None
+        for m in micros:
+            loss = self._call_loss(self._cast_for_loss(self.params),
+                                   to_device(m, self.device), None)
+            total = loss if total is None else total + loss
+        return total / len(micros)
+
+    def _report_progress(self):
+        step = self.global_step
+        if step > 0 and step % self._config.steps_per_print == 0:
+            log_dist(f"step={step} lr={self.get_lr()[0]:.3e}", ranks=[0])

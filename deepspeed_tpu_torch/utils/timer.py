@@ -1,0 +1,160 @@
+"""Wall-clock and throughput timers (the port of
+``deepspeed_tpu/utils/timer.py``).
+
+Where the JAX timers drain the async dispatch queue, these synchronise
+the current CUDA device (``torch.cuda.synchronize``) when one is in use,
+so a timing covers the work launched before it.
+"""
+
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from deepspeed_tpu_torch.utils.logging import log_dist
+
+
+def _device_sync():
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class Timer_:
+    """One named timer."""
+
+    def __init__(self, name: str, synchronize: bool = True):
+        self.name_ = name
+        self.elapsed_ = 0.0
+        self.started_ = False
+        self.start_time = 0.0
+        self.synchronize = synchronize
+
+    def start(self):
+        if self.started_:
+            raise RuntimeError(f"timer {self.name_} has already been started")
+        if self.synchronize:
+            _device_sync()
+        self.start_time = time.perf_counter()
+        self.started_ = True
+
+    def stop(self, reset: bool = False):
+        if not self.started_:
+            raise RuntimeError(f"timer {self.name_} is not started")
+        if self.synchronize:
+            _device_sync()
+        if reset:
+            self.elapsed_ = time.perf_counter() - self.start_time
+        else:
+            self.elapsed_ += time.perf_counter() - self.start_time
+        self.started_ = False
+
+    def reset(self):
+        self.elapsed_ = 0.0
+        self.started_ = False
+
+    def elapsed(self, reset: bool = True) -> float:
+        started = self.started_
+        if started:
+            self.stop()
+        elapsed_ = self.elapsed_
+        if reset:
+            self.reset()
+        if started:
+            self.start()
+        return elapsed_
+
+
+class SynchronizedWallClockTimer:
+    """Group of named timers."""
+
+    def __init__(self, synchronize: bool = True):
+        self.timers: Dict[str, Timer_] = {}
+        self.synchronize = synchronize
+
+    def __call__(self, name: str) -> Timer_:
+        if name not in self.timers:
+            self.timers[name] = Timer_(name, synchronize=self.synchronize)
+        return self.timers[name]
+
+    @staticmethod
+    def memory_usage() -> str:
+        if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+            return "mem stats unavailable"
+        in_use = torch.cuda.memory_allocated() / (1024**3)
+        peak = torch.cuda.max_memory_allocated() / (1024**3)
+        return f"mem in_use={in_use:.2f} GB peak={peak:.2f} GB"
+
+    def log(self, names: List[str], normalizer: float = 1.0,
+            reset: bool = True, ranks: Optional[List[int]] = None,
+            memory_breakdown: bool = False):
+        if normalizer <= 0.0:
+            raise ValueError("normalizer must be > 0")
+        string = "time (ms)"
+        for name in names:
+            if name in self.timers:
+                elapsed_time = (self.timers[name].elapsed(reset=reset)
+                                * 1000.0 / normalizer)
+                string += f" | {name}: {elapsed_time:.2f}"
+        if memory_breakdown:
+            string += " | " + self.memory_usage()
+        log_dist(string, ranks=ranks or [0])
+
+
+class ThroughputTimer:
+    """Samples/sec reporting. No device sync per step: only at a
+    reporting boundary, which keeps the cumulative time honest."""
+
+    def __init__(self, batch_size: int, num_workers: int = 1,
+                 start_step: int = 2, steps_per_output: int = 50,
+                 monitor_memory: bool = False, logging_fn=None):
+        self.start_time = 0.0
+        self.end_time = 0.0
+        self.started = False
+        self.batch_size = max(1, batch_size)
+        self.num_workers = num_workers
+        self.start_step = start_step
+        self.epoch_count = 0
+        self.local_step_count = 0
+        self.total_step_count = 0
+        self.total_elapsed_time = 0.0
+        self.steps_per_output = steps_per_output
+        self.monitor_memory = monitor_memory
+        self.logging = logging_fn or log_dist
+
+    def update_epoch_count(self):
+        self.epoch_count += 1
+        self.local_step_count = 0
+
+    def start(self):
+        self.started = True
+        if self.total_step_count >= self.start_step:
+            self.start_time = time.perf_counter()
+
+    def stop(self, report_speed: bool = True):
+        if not self.started:
+            return
+        self.started = False
+        self.total_step_count += 1
+        self.local_step_count += 1
+        if self.total_step_count > self.start_step:
+            will_report = (report_speed and
+                           self.local_step_count % self.steps_per_output == 0)
+            if will_report:
+                _device_sync()
+            self.end_time = time.perf_counter()
+            duration = self.end_time - self.start_time
+            self.total_elapsed_time += duration
+            if will_report:
+                self.logging(
+                    f"epoch={self.epoch_count}/step={self.local_step_count}: "
+                    f"{self.avg_samples_per_sec():.2f} samples/sec, "
+                    f"batch_time={duration * 1000.0:.2f} ms")
+
+    def avg_samples_per_sec(self) -> float:
+        if self.total_step_count > self.start_step and \
+                self.total_elapsed_time > 0:
+            samples = self.batch_size * self.num_workers
+            avg_time_per_step = self.total_elapsed_time / (
+                self.total_step_count - self.start_step)
+            return samples / avg_time_per_step
+        return float("-1")

@@ -1,0 +1,417 @@
+"""The port's masked flash attention (deepspeed_tpu_torch/ops/attention/
+masked_flash.py and flash.py) against the JAX package's Pallas kernels
+K1-K3 (deepspeed_tpu/ops/attention/masked_flash.py) run in interpret
+mode on the CPU.
+
+The same numpy inputs, made from a seed, go through both. Tolerances:
+
+- fp32: atol 1e-5 (the sums run in another order);
+- bf16: every element within 1e-4 + 2**-7 |want| (both sides round the
+  same fp32 values to bf16 -- p before P.V, ds before its products, the
+  outputs -- so an element may land one bf16 ulp apart), and the whole
+  tensor within a relative RMS error of 1e-3. The plain versions with
+  the rounding of p and ds left out fail that check on every output
+  (``test_bf16_check_pins_the_rounding_of_p_and_ds``).
+
+Dropout is held bit for bit at the mask level, and through the kernels
+with the same int32 seed on both sides (negative seeds included).
+
+The CUDA kernels run only on a card: their tests are marked ``cuda`` and
+skip here.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+FP32_ATOL = 1e-5
+BF16_TOL = dict(atol=1e-4, rtol=2.0**-7, rms=1e-3)
+S, D, BLOCK = 64, 16, 16
+
+
+def _bf16_check(got, want, atol, rtol, rms):
+    """(worst |got - want| / (atol + rtol |want|), relative RMS error,
+    whether both are within bounds)."""
+    diff = np.abs(got - want)
+    ratio = float((diff / (atol + rtol * np.abs(want))).max())
+    rel_rms = float(np.linalg.norm(diff) / max(np.linalg.norm(want), 1e-30))
+    return ratio, rel_rms, ratio <= 1.0 and rel_rms <= rms
+
+
+def _jax_mask(kind, s=S, block=BLOCK, layout=None):
+    from deepspeed_tpu.ops.attention.masked_flash import BlockMask
+    if kind == "dense":
+        return BlockMask.dense(s, s, block)
+    if kind == "causal":
+        return BlockMask.causal(s, block)
+    return BlockMask.from_layout(layout, block)
+
+
+def _port_mask(kind, s=S, block=BLOCK, layout=None):
+    from deepspeed_tpu_torch.ops.attention.masked_flash import BlockMask
+    if kind == "dense":
+        return BlockMask.dense(s, s, block)
+    if kind == "causal":
+        return BlockMask.causal(s, block)
+    return BlockMask.from_layout(layout, block)
+
+
+def _random_layout(rng, heads=2, nb=4):
+    """A per-head layout no band describes (the JAX package walks it at
+    the fine block too), with an empty block row in head 0."""
+    layout = rng.rand(heads, nb, nb) < 0.5
+    layout[:, :, 0] = True
+    layout[0, 2] = False
+    return layout.astype(np.int64)
+
+
+@pytest.mark.parametrize("kind", ["dense", "causal", "layout"])
+def test_block_mask_walks_match_jax(kind):
+    layout = _random_layout(np.random.RandomState(1))
+    jm = _jax_mask(kind, layout=layout)
+    tm = _port_mask(kind, layout=layout)
+    assert (tm.heads, tm.nq, tm.nk, tm.nnz, tm.block) == \
+        (jm.heads, jm.nq, jm.nk, jm.nnz, jm.block)
+    for ours, theirs in zip(tm.csr() + tm.csc(), jm.csr() + jm.csc()):
+        np.testing.assert_array_equal(ours, theirs)
+    np.testing.assert_array_equal(tm.dense_additive(), jm.dense_additive())
+
+
+def test_cost_model_matches_jax():
+    from deepspeed_tpu.ops.attention.masked_flash import \
+        masked_flash_cost as jax_cost
+
+    from deepspeed_tpu_torch.ops.attention.masked_flash import \
+        masked_flash_cost
+    for bwd in (False, True):
+        assert masked_flash_cost(_port_mask("causal"), 2, 4, 16,
+                                 backward=bwd) == \
+            jax_cost(_jax_mask("causal"), 2, 4, 16, backward=bwd)
+
+
+@pytest.mark.parametrize("seed", [0, 7, -1, -(2**31), 2**31 - 1])
+def test_dropout_hashes_bitwise_equal_jax(seed):
+    import jax.numpy as jnp
+    from deepspeed_tpu.ops import functional as jf
+    from deepspeed_tpu.ops.attention import flash as jflash
+
+    from deepspeed_tpu_torch.ops import functional as tf
+    from deepspeed_tpu_torch.ops.attention import flash as tflash
+    for rate in (0.1, 0.5):
+        want = np.asarray(jflash.dropout_mask_reference(
+            jnp.asarray(seed, jnp.int32), 2, 3, 24, 40, rate))
+        got = tflash.dropout_mask_reference(seed, 2, 3, 24, 40, rate)
+        np.testing.assert_array_equal(got.numpy(), want)
+        seed32 = jnp.asarray(seed, jnp.int32).astype(jnp.uint32)
+        want = np.asarray(jf._hash_keep_mask(seed32, 5000, rate))
+        np.testing.assert_array_equal(
+            tf._hash_keep_mask(seed, 5000, rate).numpy(), want)
+
+
+def test_one_round_hash_knob(monkeypatch):
+    """flash._HASH_FINAL_ROUNDS = 1 (the JAX package's A/B knob) gives
+    JAX's one-round bits in the plain hash; the kernels' wrappers, whose
+    hash has the two-round finalizer only, refuse it when dropout is on,
+    on the CPU as on a card."""
+    import jax.numpy as jnp
+    from deepspeed_tpu.ops.attention import flash as jflash
+
+    from deepspeed_tpu_torch.ops.attention import flash as tflash
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    monkeypatch.setattr(jflash, "_HASH_FINAL_ROUNDS", 1)
+    monkeypatch.setattr(tflash, "_HASH_FINAL_ROUNDS", 1)
+    want = np.asarray(jflash.dropout_mask_reference(
+        jnp.asarray(-5, jnp.int32), 2, 3, 24, 40, 0.3))
+    got = tflash.dropout_mask_reference(-5, 2, 3, 24, 40, 0.3).numpy()
+    np.testing.assert_array_equal(got, want)
+    q = torch.zeros(1, 2, 32, 16)
+    mask = mf.BlockMask.causal(32, 16)
+    for call in (lambda: mf.masked_flash_fwd(q, q, q, mask, 0.25, 0.1, 3),
+                 lambda: mf.masked_flash_dq(q, q, q, q, q[..., 0], q[..., 0],
+                                            mask, 0.25, 0.1, 3),
+                 lambda: mf.masked_flash_dkv(q, q, q, q, q[..., 0],
+                                             q[..., 0], mask, 0.25, 0.1, 3)):
+        with pytest.raises(NotImplementedError, match="_HASH_FINAL_ROUNDS"):
+            call()
+    o, _ = mf.masked_flash_fwd(q, q, q, mask, 0.25, 0.0, 3)   # no hash
+    assert (o == 0).all()
+
+
+def test_elementwise_dropout_matches_jax_mask():
+    import jax.numpy as jnp
+    from deepspeed_tpu.ops import functional as jf
+
+    from deepspeed_tpu_torch.ops.functional import dropout
+    x = np.random.RandomState(2).randn(4, 33).astype(np.float32)
+    got = dropout(torch.from_numpy(x), 0.25, -12345, False).numpy()
+    keep = np.asarray(jf._hash_keep_mask(
+        jnp.asarray(-12345, jnp.int32).astype(jnp.uint32), x.size, 0.25))
+    np.testing.assert_allclose(got, np.where(keep.reshape(x.shape),
+                                             x / 0.75, 0.0), rtol=1e-7)
+    assert dropout(torch.from_numpy(x), 0.25, None, False) is not None
+    np.testing.assert_array_equal(
+        dropout(torch.from_numpy(x), 0.25, 3, True).numpy(), x)
+
+
+def _inputs(rng, G, dtype, B=1, H=2, s=S, d=D):
+    arrs = [rng.randn(B, H, s, d), rng.randn(B, H // G, s, d),
+            rng.randn(B, H // G, s, d), rng.randn(B, H, s, d)]
+    return [a.astype(np.float32) * 0.5 for a in arrs]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case(kind, G, rate, dtype):
+    """The JAX side of one grid case, computed once per test session."""
+    rng = np.random.RandomState(G * 10 + int(rate * 10))
+    q, k, v, do = _inputs(rng, G, dtype)
+    seed = -987654321 if rate else 0
+    # walk block 32: two tiles per block row, so the online softmax
+    # carries across tiles (block 16, four tiles, is held below)
+    want = _jax_run(q, k, v, do, _jax_mask(kind, block=32), rate, seed,
+                    dtype)
+    return (q, k, v, do, seed), want
+
+
+def _jax_run(q, k, v, do, jmask, rate, seed, dtype):
+    """K1's o and lse, then dq/dk/dv through masked_flash_call's own vjp
+    rules (what jax.vjp runs), in interpret mode, in one jit."""
+    import jax
+    import jax.numpy as jnp
+    from deepspeed_tpu.ops.attention.masked_flash import masked_flash_call
+    jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jd) for a in (q, k, v, do))
+    kpm = jnp.zeros((q.shape[0], 1), jnp.float32)
+    jseed = jnp.asarray([[seed]], jnp.int32)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+
+    @jax.jit
+    def run(jq, jk, jv, jdo):
+        o, res = masked_flash_call.fwd(jq, jk, jv, kpm, jseed, jmask, scale,
+                                       True, rate, False)
+        grads = masked_flash_call.bwd(jmask, scale, True, rate, False, res,
+                                      jdo)
+        return o, res[-1], grads[:3]
+    o, lse, grads = run(jq, jk, jv, jdo)
+    f32 = [np.asarray(x.astype(jnp.float32)) for x in (o, *grads)]
+    return f32[0], np.asarray(lse).reshape(q.shape[:3]), f32[1:]
+
+
+def _port_run(q, k, v, do, tmask, rate, seed, dtype):
+    from deepspeed_tpu_torch.ops.attention.masked_flash import (
+        masked_flash_attention, masked_flash_fwd)
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    tq, tk, tv = (torch.from_numpy(a).to(td).requires_grad_()
+                  for a in (q, k, v))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    _, lse = masked_flash_fwd(tq.detach(), tk.detach(), tv.detach(), tmask,
+                              scale, rate, seed)
+    o = masked_flash_attention(tq, tk, tv, tmask, dropout_rate=rate,
+                               dropout_seed=seed)
+    grads = torch.autograd.grad(o, (tq, tk, tv),
+                                torch.from_numpy(do).to(td))
+    return (o.detach().float().numpy(), lse.numpy(),
+            [g.float().numpy() for g in grads])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("kind", ["dense", "causal"])
+def test_kernels_and_grads_match_jax(kind, G, rate, dtype):
+    """K1's o and lse, and dq/dk/dv through the autograd Function (the
+    plain versions of K2 and K3 on the CPU), against masked_flash_call
+    and its vjp."""
+    (q, k, v, do, seed), want = _jax_case(kind, G, rate, dtype)
+    got = _port_run(q, k, v, do, _port_mask(kind, block=32), rate, seed,
+                    dtype)
+    # lse is fp32 on both sides
+    np.testing.assert_allclose(got[1], want[1], atol=FP32_ATOL, rtol=0)
+    for g, w in zip([got[0], *got[2]], [want[0], *want[2]]):
+        if dtype == "fp32":
+            np.testing.assert_allclose(g, w, atol=FP32_ATOL, rtol=0)
+        else:
+            ratio, rel_rms, ok = _bf16_check(g, w, **BF16_TOL)
+            assert ok, (ratio, rel_rms)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("G", [1, 2])
+def test_bf16_check_pins_the_rounding_of_p_and_ds(G, rate):
+    """The control: the plain versions run on fp32 copies of the bf16
+    inputs, which leaves out the rounding of p to V's dtype before P.V
+    and of ds to K/Q's dtype before its products (the outputs are still
+    rounded to bf16, and the backward takes JAX's own lse and delta).
+    Against JAX's bf16 kernels that fails the bf16 check on o and dv
+    (p) and on dq and dk (ds), so the check holds those roundings."""
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    (q, k, v, do, seed), want = _jax_case("causal", G, rate, "bf16")
+    mask = _port_mask("causal", block=32)
+    scale = 1.0 / np.sqrt(D)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16).float()
+                   for a in (q, k, v, do))
+    o, _ = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed)
+    lse = torch.tensor(want[1])
+    delta = (do * torch.tensor(want[0])).sum(-1)
+    dq = mf.masked_flash_dq_plain(q, k, v, do, lse, delta, mask, scale,
+                                  rate, seed)
+    dk, dv = mf.masked_flash_dkv_plain(q, k, v, do, lse, delta, mask, scale,
+                                       rate, seed)
+    for name, g, w in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                          (want[0], *want[2])):
+        ratio, rel_rms, ok = _bf16_check(g.to(torch.bfloat16).float().numpy(),
+                                         w, **BF16_TOL)
+        assert not ok, (name, ratio, rel_rms)
+
+
+def test_rows_with_no_valid_entry():
+    """A per-head layout with an empty block row: o = 0 and lse = NEG_INF
+    there, zero grads into it, and everything else as JAX computes it."""
+    from deepspeed_tpu_torch.ops.attention.flash import NEG_INF
+    layout = _random_layout(np.random.RandomState(3))
+    rng = np.random.RandomState(4)
+    q, k, v, do = _inputs(rng, 1, "fp32")
+    want = _jax_run(q, k, v, do, _jax_mask("layout", layout=layout), 0.0,
+                    0, "fp32")
+    got = _port_run(q, k, v, do, _port_mask("layout", layout=layout), 0.0,
+                    0, "fp32")
+    rows = slice(2 * BLOCK, 3 * BLOCK)
+    assert (got[0][0, 0, rows] == 0).all()
+    assert (got[1][0, 0, rows] == NEG_INF).all()
+    assert (got[2][0][0, 0, rows] == 0).all()
+    assert np.isfinite(got[0]).all()
+    np.testing.assert_allclose(got[0], want[0], atol=FP32_ATOL, rtol=0)
+    np.testing.assert_allclose(got[1], want[1], atol=FP32_ATOL, rtol=0)
+    for g, w in zip(got[2], want[2]):
+        np.testing.assert_allclose(g, w, atol=FP32_ATOL, rtol=0)
+
+
+def test_plain_matches_dense_oracle_with_dropout():
+    """The plain versions against the dense reference (same hash mask),
+    forward and grads, GQA and a negative seed."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import (
+        BlockMask, masked_flash_attention, masked_flash_reference)
+    rng = np.random.RandomState(5)
+    q, k, v, do = (torch.from_numpy(a).requires_grad_()
+                   for a in _inputs(rng, 2, "fp32", B=2, H=4, s=48))
+    mask = BlockMask.causal(48, 16)
+    outs = [f(q, k, v, mask, dropout_rate=0.2, dropout_seed=-3)
+            for f in (masked_flash_attention, masked_flash_reference)]
+    torch.testing.assert_close(outs[0], outs[1], atol=FP32_ATOL, rtol=0)
+    gs = [torch.autograd.grad(o, (q, k, v), do.detach()) for o in outs]
+    for a, b in zip(*gs):
+        torch.testing.assert_close(a, b, atol=FP32_ATOL, rtol=0)
+
+
+def test_flash_attention_causal_matches_jax():
+    """The front end's default route (walk block 16 at seq 48) against
+    JAX's flash_attention, forward and grads."""
+    import jax
+    import jax.numpy as jnp
+
+    from deepspeed_tpu.ops.attention.flash import \
+        flash_attention as jax_flash
+
+    from deepspeed_tpu_torch.ops.attention.flash import flash_attention
+    rng = np.random.RandomState(6)
+    q, k, v, do = _inputs(rng, 1, "fp32", H=2, s=48)
+    jo, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal=True,
+                                                interpret=True),
+                      *(jnp.asarray(a) for a in (q, k, v)))
+    jg = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    to = flash_attention(tq, tk, tv, causal=True)
+    tg = torch.autograd.grad(to, (tq, tk, tv), torch.from_numpy(do))
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo),
+                               atol=FP32_ATOL, rtol=0)
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=FP32_ATOL,
+                                   rtol=0)
+
+
+def test_routing(monkeypatch):
+    """seq % 16 != 0 takes the reference path; the masked route runs the
+    masked kernels; the legacy route, the key-padding mask and KIND_BAND
+    raise instead of falling back."""
+    from deepspeed_tpu_torch.ops.attention import flash as tflash
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    rng = np.random.RandomState(7)
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(rng, 1, "fp32",
+                                                       s=24))
+    calls = []
+    real = mf.masked_flash_attention
+    monkeypatch.setattr(mf, "masked_flash_attention",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    out = tflash.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(out, tflash.attention_reference(
+        q, k, v, causal=True), atol=0, rtol=0)
+    assert calls == []
+    q2, k2, v2, _ = (torch.from_numpy(a) for a in _inputs(rng, 1, "fp32"))
+    tflash.flash_attention(q2, k2, v2, causal=True)
+    assert calls == [1]
+    with pytest.raises(NotImplementedError, match="K5-K7"):
+        tflash.flash_attention(q2, k2, v2, kernel="flash")
+    with pytest.raises(NotImplementedError, match="K5-K7"):
+        tflash.flash_attention(q2, k2[:, :, :32], v2[:, :, :32],
+                               causal=True)
+    with pytest.raises(NotImplementedError, match="has_kpm"):
+        tflash.flash_attention(q2, k2, v2, mask=torch.zeros(1, 1, 1, S))
+    band = mf.BlockMask(np.ones((1, 4, 4)), np.full((1, 4, 4), 2), 16, S, S,
+                        band=(16, 1, 0, 0, False))
+    for call in (lambda: mf.masked_flash_attention(q2, k2, v2, band),
+                 lambda: mf.masked_flash_fwd_plain(q2, k2, v2, band, 0.25)):
+        with pytest.raises(NotImplementedError, match="KIND_BAND"):
+            call()
+    with pytest.raises(NotImplementedError, match="KIND_BAND"):
+        mf.BlockMask.from_layout(np.ones((1, 4, 4)), 16, walk_block=64)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        tflash.flash_attention(q2, k2, v2, causal=True, dropout_rate=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, H, Hkv, S, D, mask, block, dtype, rate)
+    (8, 16, 16, 1024, 64, "causal", 128, "bf16", 0.0),  # GPT-2 345M train
+    (8, 16, 16, 1024, 64, "causal", 128, "bf16", 0.1),
+    (2, 8, 8, 512, 64, "dense", 64, "bf16", 0.0),
+    (2, 16, 4, 256, 128, "causal", 128, "bf16", 0.1),    # GQA, widest head
+    (2, 4, 2, 128, 24, "causal", 32, "fp32", 0.1),       # fp32, odd head dim
+    (2, 4, 4, 128, 32, "layout", 16, "fp32", 0.0),       # per-head, empty rows
+])
+def test_cuda_kernels_match_plain(case):
+    """K1, K2 and K3 on the card against their plain versions on the same
+    inputs (the backward kernels take the plain forward's lse)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    B, H, Hkv, s, d, kind, block, dtype, rate = case
+    rng = np.random.RandomState(s + d)
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v, do = (torch.from_numpy(a).to("cuda", td) for a in
+                   _inputs(rng, H // Hkv, dtype, B=B, H=H, s=s, d=d))
+    layout = (_random_layout(rng, heads=H, nb=s // block)
+              if kind == "layout" else None)
+    mask = _port_mask(kind, s=s, block=block, layout=layout)
+    scale, seed = 1.0 / np.sqrt(d), -42
+    before = (mf.masked_flash_fwd.launches, mf.masked_flash_dq.launches,
+              mf.masked_flash_dkv.launches)
+    o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed)
+    o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed)
+    delta = (do.float() * o_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, mask, scale, rate, seed)
+    got = [o, mf.masked_flash_dq(*args), *mf.masked_flash_dkv(*args)]
+    torch.cuda.synchronize()
+    assert (mf.masked_flash_fwd.launches, mf.masked_flash_dq.launches,
+            mf.masked_flash_dkv.launches) == tuple(n + 1 for n in before)
+    want = [o_p, mf.masked_flash_dq_plain(*args),
+            *mf.masked_flash_dkv_plain(*args)]
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+        if dtype == "fp32":
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4)
+        else:
+            ratio, rel_rms, ok = _bf16_check(a, b, **BF16_TOL)
+            assert ok, (ratio, rel_rms)
+    assert float((lse - lse_p).abs().max()) <= 1e-3

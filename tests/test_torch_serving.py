@@ -323,11 +323,16 @@ def test_port_imports_neither_jax_nor_deepspeed_tpu():
 
 
 def test_port_package_imports_without_jax():
-    """Importing the port in a fresh interpreter loads no jax module."""
+    """Importing the port (serving and training entry points, the
+    masked-flash kernels' module) in a fresh interpreter loads no jax
+    module."""
     import subprocess
     import sys
     code = ("import sys; before = set(sys.modules); "
+            "import deepspeed_tpu_torch; "
             "import deepspeed_tpu_torch.inference.engine; "
+            "import deepspeed_tpu_torch.runtime.engine; "
+            "import deepspeed_tpu_torch.ops.attention.masked_flash; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'deepspeed_tpu')]; "
             "assert not bad, bad")

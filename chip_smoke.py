@@ -9,10 +9,22 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
 1. device: the card as nvidia-smi names it, torch/CUDA versions; then
    every kernel of the port is built with nvcc from csrc/ for sm_90a.
 2. kernels: each kernel against its plain PyTorch version on the card
-   (serving shapes, GQA, fp32, cache-position edges with an all-null
-   row, NaN planted past the live pages), and the kernel, plain version
+   (the GPT-2 and the Llama serving shapes, GQA, fp32, cache-position
+   edges with an all-null row, NaN planted past the live pages), and the
+   kernel, plain version
    and one-library-call yardstick timed at the serving shapes (median of
    CUDA-event-timed calls, L2 flushed before each) beside the bound.
+   The same for the paged-decode kernel's int8-pool arity at the Llama
+   serving shapes (9 rows, 8 kv heads, groups of 4, head_dim 64, page
+   16, 64-page tables, one scale per token row, bf16 q), at the GPT-2
+   serving shapes (16 kv heads, G 1), and with G 1, head_dim 128, 2 and
+   4 scale blocks, page 8, fp32 q, all-null rows,
+   garbage payload under NaN scales past each row's position, a
+   position past the table and two rows sharing prefix pages; element
+   by element (INT8_TOL), with controls that must fail the same check:
+   the plain version with the scales left out, and the dense arity's
+   habits (bf16 values, probabilities rounded to bf16). Both arities'
+   time against context length (all rows at 16, 256, 1024 tokens).
 3. serving: GPT-2 345M at full width (random weights from seed 0), bf16,
    default inference config: warmup, then 16 greedy requests of 64 new
    tokens with prompts of 20-250 tokens, 8 sharing one 64-token prefix.
@@ -46,7 +58,20 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
    attention dropout inside K1-K3): finite losses, 24 launches per step.
 9. train_kernel_vs_plain: loss and every grad of a 2-layer full-width
    GPT-2 in fp32, the kernel path against the plain path.
-10. the {"kernels": [...]} line, the nvidia-smi line, and last
+Phases 10 to 12 run after phase 4, before the training phases.
+10. llama serving: the LLAMA_1B geometry (hidden 2048, 16 layers, 32
+   heads over 8 kv heads, vocab 32128, nothing cut; random weights from
+   seed 0), bf16, the default inference config, the same 16 requests:
+   once over the bf16 pool (the dense paged-decode kernel at G 4) and
+   once over the int8 pool (its int8 arity), each with the checks of
+   phase 3 and a decode profile; the pools' bytes per token and the
+   share of greedy tokens on which the two runs agree.
+11. Llama model path: the same Llama in fp32, 4 layers deep, one prefill
+   and 3 decode steps with the kernel and with the plain gather
+   attention, over the fp32 pool (logits compared) and over the int8
+   pool (logits and pools compared).
+12. GPT-2 345M over the int8 pool, 8 requests (G 1 on the main path).
+13. the {"kernels": [...]} line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 """
 
@@ -75,6 +100,18 @@ TIMED_CALLS = 100
 # differs.
 TRAIN_TOL = {"bf16": dict(atol=1e-4, rtol=2.0**-7, rms=1e-3),
              "fp32": dict(atol=1e-5, rtol=1e-4, rms=None)}
+# the int8 paged-decode kernel against its plain version, element by
+# element, |a - b| <= atol + rtol * |b|: every product is fp32 in both
+# and only the sum order differs; with bf16 q the output's rounding may
+# land one bf16 ulp (2**-7 relative) apart
+INT8_TOL = {"bf16": dict(atol=1e-4, rtol=2.0**-7, rms=None),
+            "fp32": dict(atol=1e-5, rtol=1e-4, rms=None)}
+# the kernel path's and the plain path's sums differ in order, so past
+# the first layer a value may sit on the other side of an int8 rounding
+# step: at most this share of the payload values the run wrote, by one
+# step (3 of 3.1e6 on an H100), and a scale may differ in its last bits
+INT8_POOL_FLIP_SHARE = 1e-5
+INT8_POOL_SCALE_RTOL = 1e-5
 LSE_ATOL = 1e-3           # lse is fp32 in both: differently ordered sums
 # the fp32 2-layer model, kernel path against plain path: loss relative
 # error and each grad's error relative to the grad's largest entry
@@ -82,8 +119,11 @@ TRAIN_MODEL_LOSS_RTOL = 1e-5
 TRAIN_MODEL_GRAD_TOL = 1e-4
 TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 # by card (NVIDIA data sheets): device-memory bytes/s, dense bf16 FLOP/s
-CARD_PEAKS = (("H200", 4.8e12, 989e12), ("H100 NVL", 3.9e12, 835e12),
-              ("H100 PCIe", 2.0e12, 756e12), ("H100", 3.35e12, 989e12))
+# on the tensor cores, fp32 FLOP/s outside them
+CARD_PEAKS = (("H200", 4.8e12, 989e12, 67e12),
+              ("H100 NVL", 3.9e12, 835e12, 60e12),
+              ("H100 PCIe", 2.0e12, 756e12, 51e12),
+              ("H100", 3.35e12, 989e12, 67e12))
 
 
 def emit(obj):
@@ -98,11 +138,12 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def card_peaks(name: str):
-    """(bytes/s, bf16 FLOP/s) of the card nvidia-smi named."""
-    for key, bytes_per_s, flops in CARD_PEAKS:
+def card_peaks(name: str, ops: str = "bf16"):
+    """(bytes/s, FLOP/s of ``ops``: "bf16" or "fp32") of the card
+    nvidia-smi named."""
+    for key, bytes_per_s, bf16, fp32 in CARD_PEAKS:
         if key in name:
-            return bytes_per_s, flops
+            return bytes_per_s, bf16 if ops == "bf16" else fp32
     raise RuntimeError(f"no peak rates on record for {name!r}")
 
 
@@ -177,6 +218,29 @@ def time_ms(fn, calls, flush):
     return float(np.median(times))
 
 
+def context_sweep(kernel, args, page_size, flush, contexts=(16, 256, 1024)):
+    """The kernel's time against context length: every live row of
+    ``args`` (inputs at the main-path shape whose rows are written up to
+    the table's extent; element 4 holds the positions) set to the same
+    context, L2 flushed before each call."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention.paged import \
+        paged_decode_attention
+    args = list(args)
+    live = args[3][:, 0] != 0
+    rows = []
+    for n in contexts:
+        args[4] = torch.where(live, n - 1, 0).to(torch.int32)
+        ms = time_ms(lambda: paged_decode_attention(*args), 50, flush)
+        rows.append({"context_tokens": n, "pages": n // page_size,
+                     "kernel_ms": ms})
+    per_page = ((rows[-1]["kernel_ms"] - rows[0]["kernel_ms"])
+                / (rows[-1]["pages"] - rows[0]["pages"]))
+    emit({"phase": "kernel_context_sweep", "kernel": kernel,
+          "live_rows": int(live.sum()), "rows": rows,
+          "ms_per_walked_page": per_page})
+
+
 def kernel_phase(smi):
     import torch
     import torch.nn.functional as F
@@ -196,6 +260,12 @@ def kernel_phase(smi):
                  to_device(pool_case(rng, 6, KH, G, hd, ps, P, edges,
                                      null_rows=(5,)), torch.bfloat16),
                  BF16_ATOL, null_rows=(5,))
+    # the Llama serving shapes: 32 heads over 8 kv heads
+    llama_pos = list(rng.randint(0, P * ps, size=B - 1)) + [0]
+    check_kernel("llama_serving_shapes_kh8_g4_bf16",
+                 to_device(pool_case(rng, B, 8, 4, hd, ps, P, llama_pos,
+                                     null_rows=(B - 1,)), torch.bfloat16),
+                 BF16_ATOL, null_rows=(B - 1,))
     check_kernel("gqa_kh2_g4_hd128_bf16",
                  to_device(pool_case(rng, 5, 2, 4, 128, ps, 8,
                                      [3, 16, 40, 127, 64]), torch.bfloat16),
@@ -240,6 +310,11 @@ def kernel_phase(smi):
     ops_ms = flops / flops_per_s * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    full = [P * ps - 1] * (B - 1) + [0]
+    context_sweep("paged_decode",
+                  to_device(pool_case(rng, B, KH, G, hd, ps, P, full,
+                                      null_rows=(B - 1,), poison=False),
+                            torch.bfloat16), ps, flush)
     row = {"phase": "kernel_timing", "kernel": "paged_decode",
            "shape": {"B": B, "H": KH * G, "KH": KH, "hd": hd,
                      "page_size": ps, "P": P, "dtype": "bf16"},
@@ -251,6 +326,217 @@ def kernel_phase(smi):
            "achieved_gb_per_s": (kv_bytes + other) / kernel_ms / 1e6,
            "nvidia_smi": smi}
     emit(row)
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def int8_pool_case(rng, batch, kv_heads, group, hd, page_size,
+                   pages_per_seq, nb, positions, null_rows=(), share=None):
+    """Numpy inputs of one int8 paged-decode call: float K/V quantized
+    per token row into ``nb`` blocks (the port's quantize_kv), distinct
+    non-null pages per row. Every token row past a row's position, in
+    its last live page and in the pages after it, holds garbage payload
+    under NaN scales: nothing may read it. ``share=(a, b, n)`` points
+    row b's first n table entries at row a's pages (a shared prefix;
+    both rows must be past those pages)."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention.paged import quantize_kv
+    q, kf, vf, tables, pos = pool_case(rng, batch, kv_heads, group, hd,
+                                       page_size, pages_per_seq, positions,
+                                       null_rows=null_rows, poison=False)
+    kq, ks = (t.numpy() for t in quantize_kv(torch.from_numpy(kf), nb))
+    vq, vs = (t.numpy() for t in quantize_kv(torch.from_numpy(vf), nb))
+    if share is not None:
+        a, b, n = share
+        if min(pos[a], pos[b]) // page_size < n:
+            raise ValueError("shared pages must lie before both positions")
+        tables[b, :n] = tables[a, :n]
+    for b in range(batch):
+        if b in null_rows:
+            continue
+        last = int(pos[b]) // page_size
+        for i in range(last, pages_per_seq):
+            first_dead = int(pos[b]) % page_size + 1 if i == last else 0
+            page = tables[b, i]
+            for payload, scales in ((kq, ks), (vq, vs)):
+                payload[page, :, first_dead:] = -128
+                scales[page, :, first_dead:] = np.nan
+    return q, kq, vq, ks, vs, tables, pos
+
+
+def int8_to_device(case, dtype):
+    """Arguments of paged_decode_attention on the card, in its order."""
+    import torch
+    q, kq, vq, ks, vs, tables, pos = case
+    dev = lambda a: torch.from_numpy(a).cuda()
+    return (dev(q).to(dtype), dev(kq), dev(vq), dev(tables), dev(pos), None,
+            dev(ks), dev(vs))
+
+
+def check_int8_kernel(name, args, null_rows=(), identical_rows=None):
+    """The int8 kernel against its plain version on the same inputs,
+    element by element (INT8_TOL). Two controls must fail the same
+    check: the plain version with every scale set to 1 (the scales left
+    out), and the dense arity's habits (the dequantized pools held in
+    bf16 and the probabilities rounded to bf16)."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention.paged import (
+        dequantize_pool, paged_decode_attention, paged_decode_plain)
+    q, kq, vq, tables, pos, _, ks, vs = args
+    out = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = paged_decode_plain(*args)
+    tol = INT8_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+    ratio, _, err, ok = compare(out, ref, **tol)
+    nulls_zero = all(bool((out[b] == 0).all()) for b in null_rows)
+    same = identical_rows is None or bool(
+        (out[identical_rows[0]] == out[identical_rows[1]]).all())
+    controls = {
+        "scales_left_out": paged_decode_plain(
+            q, kq, vq, tables, pos, None, torch.ones_like(ks),
+            torch.ones_like(vs)),
+        "dense_habits": paged_decode_plain(
+            q, torch.nan_to_num(dequantize_pool(kq, ks)).bfloat16(),
+            torch.nan_to_num(dequantize_pool(vq, vs)).bfloat16(), tables,
+            pos),
+    }
+    row = {"phase": "int8_kernel_check", "case": name,
+           "dtype": str(q.dtype), "shape_q": list(q.shape),
+           "shape_pool": list(kq.shape), "scale_blocks": ks.shape[-1],
+           "tol": tol, "max_abs_err": err, "worst_ratio": ratio,
+           "null_rows_zero": nulls_zero, "shared_rows_identical": same}
+    ok = ok and nulls_zero and same
+    for cname, cout in controls.items():
+        c_ratio, _, _, c_ok = compare(cout, ref, **tol)
+        row[f"control_{cname}_worst_ratio"] = c_ratio
+        row[f"control_{cname}_fails"] = not c_ok
+        ok = ok and not c_ok
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        raise AssertionError(f"int8 paged decode kernel disagrees with its "
+                             f"plain version on {name}, or a control that "
+                             f"must fail passes: {row}")
+    return err
+
+
+# the Llama serving shapes: 8 slots + the scratch row (all-null), 32
+# heads over 8 kv heads of dim 64, page 16, 64-page tables (max_seq_len
+# 1024), one scale per token row
+INT8_MAIN = dict(B=9, KH=8, G=4, hd=64, ps=16, P=64, nb=1)
+
+
+def int8_kernel_phase(smi):
+    """Check the int8 arity against its plain version, then time it at
+    the main-path shape beside its bound, its plain version and one SDPA
+    call over pre-gathered, pre-dequantized stripes."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention.paged import (
+        dequantize_pool, paged_decode_attention, paged_decode_plain)
+    rng = np.random.RandomState(SEED + 4)
+    m = INT8_MAIN
+    B, KH, G, hd, ps, P, nb = (m[k] for k in ("B", "KH", "G", "hd", "ps",
+                                              "P", "nb"))
+    pos = list(rng.randint(0, P * ps, size=B - 1)) + [0]
+    main = int8_to_device(int8_pool_case(rng, B, KH, G, hd, ps, P, nb, pos,
+                                         null_rows=(B - 1,)), torch.bfloat16)
+    err = check_int8_kernel("llama_serving_shapes_bf16", main,
+                            null_rows=(B - 1,))
+    # the GPT-2 345M serving shapes: 16 heads, each its own kv head
+    gpt2_pos = list(rng.randint(0, P * ps, size=B - 1)) + [0]
+    check_int8_kernel(
+        "gpt2_serving_shapes_kh16_g1_bf16",
+        int8_to_device(int8_pool_case(rng, B, 16, 1, hd, ps, P, nb, gpt2_pos,
+                                      null_rows=(B - 1,)), torch.bfloat16),
+        null_rows=(B - 1,))
+    edges = [0, ps - 1, ps, ps + 1, P * ps - 1, P * ps + 40, 0]
+    check_int8_kernel(
+        "cache_position_edges_past_table_fp32",
+        int8_to_device(int8_pool_case(rng, 7, KH, G, hd, ps, P, nb, edges,
+                                      null_rows=(6,)), torch.float32),
+        null_rows=(6,))
+    check_int8_kernel(
+        "g1_hd128_nb2_page8_fp32",
+        int8_to_device(int8_pool_case(rng, 5, 4, 1, 128, 8, 16, 2,
+                                      [3, 8, 40, 127, 64]), torch.float32))
+    check_int8_kernel(
+        "g1_hd128_nb4_page8_fp32",
+        int8_to_device(int8_pool_case(rng, 4, 2, 1, 128, 8, 8, 4,
+                                      [0, 7, 8, 63], null_rows=(0,)),
+                       torch.float32),
+        null_rows=(0,))
+    check_int8_kernel(
+        "g4_hd128_nb4_bf16",
+        int8_to_device(int8_pool_case(rng, 5, 2, 4, 128, ps, 8, 4,
+                                      [3, 16, 40, 127, 64], null_rows=(1,)),
+                       torch.bfloat16),
+        null_rows=(1,))
+    # rows 0 and 1 share their first two pages and carry the same query
+    # at the same position, with the same tail page contents
+    shared = int8_pool_case(rng, 3, KH, G, hd, ps, 4, nb, [40, 40, 9],
+                            share=(0, 1, 2))
+    shared[0][1] = shared[0][0]
+    shared[5][1, 2] = shared[5][0, 2]
+    check_int8_kernel("shared_prefix_pages_fp32",
+                      int8_to_device(shared, torch.float32),
+                      identical_rows=(0, 1))
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    kernel_ms = time_ms(lambda: paged_decode_attention(*main), TIMED_CALLS,
+                        flush)
+    plain_ms = time_ms(lambda: paged_decode_plain(*main), 50, flush)
+    q, kq, vq, tables, positions, _, ks, vs = main
+    # yardstick: one SDPA call over stripes gathered, dequantized to bf16
+    # and expanded to the 32 q heads beforehand, so it leaves the
+    # dequantization (and the gather) out
+    L = P * ps
+    stripe = lambda pool, sc: torch.nan_to_num(
+        dequantize_pool(pool[tables.long()], sc[tables.long()])
+    ).transpose(1, 2).reshape(B, KH, L, hd).repeat_interleave(
+        G, dim=1).bfloat16().contiguous()
+    kc, vc = stripe(kq, ks), stripe(vq, vs)
+    mask = (torch.arange(L, device="cuda")[None, :]
+            <= positions.long()[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    library_ms = time_ms(
+        lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask),
+        TIMED_CALLS, flush)
+    live = [int(p) for p, t in zip(positions.tolist(), tables.tolist())
+            if t[0] != 0]
+    # what the kernel must move: the int8 K and V of each live row's
+    # positions 0..pos and their scale rows, the table entries of the
+    # pages it walks, q in, the output out, and the positions
+    walked = sum(min(int(p) // ps + 1, P) for p in positions.tolist())
+    kv_bytes = sum((p + 1) * KH * (hd + nb * 4) * 2 for p in live)
+    other = 2 * q.numel() * 2 + walked * 4 + positions.numel() * 4
+    # q.K and P.V (2 * hd multiply-adds per visible token per query head)
+    # and one dequantizing multiply per K and V value, all in fp32
+    flops = sum((p + 1) * KH * (4 * G * hd + 2 * hd) for p in live)
+    bytes_per_s, flops_per_s = card_peaks(smi, "fp32")
+    bytes_ms = (kv_bytes + other) / bytes_per_s * 1e3
+    ops_ms = flops / flops_per_s * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    full = [P * ps - 1] * (B - 1) + [0]
+    context_sweep("paged_decode_int8",
+                  int8_to_device(int8_pool_case(rng, B, KH, G, hd, ps, P, nb,
+                                                full, null_rows=(B - 1,)),
+                                 torch.bfloat16), ps, flush)
+    emit({"phase": "int8_kernel_timing", "kernel": "paged_decode_int8",
+          "shape": dict(m, H=KH * G, dtype_q="bf16"),
+          "positions": [int(p) for p in positions.tolist()],
+          "bytes": kv_bytes + other, "flops": flops, "kernel_ms": kernel_ms,
+          "plain_ms": plain_ms, "library_ms": library_ms,
+          "library": "scaled_dot_product_attention over pre-gathered, "
+                     "pre-dequantized bf16 stripes expanded to 32 heads: "
+                     "it leaves the dequantization out",
+          "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+          "ops_peak": "fp32 outside the tensor cores",
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "achieved_gb_per_s": (kv_bytes + other) / kernel_ms / 1e6,
+          "nvidia_smi": smi})
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
@@ -290,10 +576,12 @@ def serve(engine, prompts, new_tokens):
                                   temperature=0.0, seed=i))
             for i, p in enumerate(prompts)]
     paged_decode_attention.launches = 0
+    paged_decode_attention.launches_int8 = 0
     t0 = time.perf_counter()
     done = {f.uid: f for f in engine.run()}
     wall = time.perf_counter() - t0
     counts = {"launches": paged_decode_attention.launches,
+              "launches_int8": paged_decode_attention.launches_int8,
               "decode_dispatches": engine.dispatches["decode"] - decode0,
               "decode_secs": engine.dispatch_secs["decode"] - secs0["decode"],
               "prefill_secs": (engine.dispatch_secs["prefill"]
@@ -302,15 +590,21 @@ def serve(engine, prompts, new_tokens):
     return [done[u] for u in uids], counts
 
 
-def serving_phase(model_config, params, device, smi):
+def serving_phase(model_config, params, device, smi, model="gpt2-345m",
+                  inference_config=None, requests=None):
+    """Serve the 16 requests of make_prompts (or only the first
+    ``requests`` of them) through InferenceEngine and check the outputs
+    and that the pool's kernel, and only it, ran once per layer per
+    decode dispatch. Returns (the kernel's launches, prompts, engine,
+    generated tokens)."""
     import torch
     from deepspeed_tpu_torch import InferenceEngine
     on_cuda = torch.device(device).type == "cuda"
     if on_cuda:
         torch.cuda.reset_peak_memory_stats()
-    engine = InferenceEngine(model_config, params, {},
+    engine = InferenceEngine(model_config, params, inference_config or {},
                              dtype=torch.bfloat16, device=device)
-    prompts = make_prompts(model_config.vocab_size)
+    prompts = make_prompts(model_config.vocab_size)[:requests]
     finished, counts = serve(engine, prompts, NEW_TOKENS)
     for p, f in zip(prompts, finished):
         if f.finish_reason != "length" or len(f.tokens) != NEW_TOKENS or \
@@ -320,27 +614,37 @@ def serving_phase(model_config, params, device, smi):
         if not all(0 <= t < model_config.vocab_size for t in f.tokens):
             raise AssertionError(f"request {f.uid}: token outside vocab")
     layers = model_config.num_layers
-    if counts["launches"] <= 0 or \
-            counts["launches"] != counts["decode_dispatches"] * layers:
+    quantized = engine.paged_spec.quantized
+    ran, other = (("launches_int8", "launches") if quantized
+                  else ("launches", "launches_int8"))
+    if counts[ran] <= 0 or counts[other] != 0 or \
+            counts[ran] != counts["decode_dispatches"] * layers:
         raise AssertionError(
-            f"paged decode kernel launches {counts['launches']} != decode "
-            f"dispatches {counts['decode_dispatches']} x {layers} layers")
+            f"paged decode kernel {ran} {counts[ran]} != decode dispatches "
+            f"{counts['decode_dispatches']} x {layers} layers, or the other "
+            f"arity's kernel ran ({other} {counts[other]})")
     state = engine.debug_state()
     shapes = state["prefill_shapes"]
-    buckets = {s.split("x")[i] for s in shapes for i in (0, 1)}
-    want = {str(b) for b in engine.config["batch_buckets"]
-            + engine.config["prompt_buckets"]}
-    if not want <= buckets:
-        raise AssertionError(f"served prefill shapes {shapes} miss a "
-                             f"bucket of {sorted(want)}")
     hits = state["page_pool"]["prefix_cache"]["hit_requests"]
-    if hits < 1:
-        raise AssertionError("the shared prefix never hit the prefix cache")
+    if requests is None:        # the full traffic reaches every bucket
+        buckets = {s.split("x")[i] for s in shapes for i in (0, 1)}
+        want = {str(b) for b in engine.config["batch_buckets"]
+                + engine.config["prompt_buckets"]}
+        if not want <= buckets:
+            raise AssertionError(f"served prefill shapes {shapes} miss a "
+                                 f"bucket of {sorted(want)}")
+        if hits < 1:
+            raise AssertionError("the shared prefix never hit the prefix "
+                                 "cache")
     ttft = [f.ttft_ms for f in finished]
     decode_tokens = sum(len(f.tokens) - 1 for f in finished)
-    emit({"phase": "serving_tokens",
+    quant = state["quantization"]
+    emit({"phase": "serving_tokens", "model": model,
+          "kv_dtype": quant["kv_dtype"],
           "tokens": [f.tokens for f in finished]})
-    row = {"phase": "serving", "model": "gpt2-345m", "dtype": "bf16",
+    row = {"phase": "serving", "model": model, "dtype": "bf16",
+           "family": state["family"], "kv_dtype": quant["kv_dtype"],
+           "kv_pool_bytes_per_token": quant["kv_pool_bytes_per_token"],
            "requests": len(finished), "new_tokens": NEW_TOKENS,
            "prompt_lengths": [len(p) for p in prompts],
            "prefill_shapes": shapes, "prefix_hit_requests": hits,
@@ -353,14 +657,16 @@ def serving_phase(model_config, params, device, smi):
            "prefill_secs": counts["prefill_secs"],
            "wall_secs": counts["wall_secs"],
            "decode_dispatches": counts["decode_dispatches"],
-           "kernel_launches": counts["launches"], "nvidia_smi": smi}
+           "kernel": "paged_decode_int8" if quantized else "paged_decode",
+           "kernel_launches": counts[ran],
+           "other_arity_launches": counts[other], "nvidia_smi": smi}
     if on_cuda:
         row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     emit(row)
-    return counts["launches"], prompts, engine
+    return counts[ran], prompts, engine, [f.tokens for f in finished]
 
 
-def profile_phase(engine, prompts, steps=8):
+def profile_phase(engine, prompts, steps=8, model="gpt2-345m"):
     """Where a decode step's time goes, with 8 requests in flight: the
     wall time of ``steps`` decode-only steps (host clock, synchronised),
     then a torch.profiler window over ``steps`` more for the kernels'
@@ -396,7 +702,9 @@ def profile_phase(engine, prompts, steps=8):
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
-    emit({"phase": "decode_profile", "steps": steps, "rows": 8,
+    emit({"phase": "decode_profile", "model": model,
+          "kv_dtype": engine.debug_state()["quantization"]["kv_dtype"],
+          "steps": steps, "rows": 8,
           "wall_ms_per_step": wall_ms,
           "device_busy_ms_per_step": busy_ms,
           "device_idle_share": 1 - busy_ms / wall_ms,
@@ -407,15 +715,22 @@ def profile_phase(engine, prompts, steps=8):
                            "calls_per_step": k[2]} for k in kernels[:10]]})
 
 
-def model_path_phase(model_config, params, device, prompts):
-    """One decode step from one prefilled state, kernel against plain
-    gather attention, through the whole fp32 model."""
+def model_path_phase(model_config, params, device, prompts, forward,
+                     model="gpt2-345m", inference_config=None,
+                     decode_steps=1):
+    """``decode_steps`` decode steps from one prefilled state, through
+    the whole fp32 model with the paged-decode kernel and with the plain
+    gather attention, each on its own copy of the pools and both fed the
+    kernel path's greedy tokens. Logits are compared at every step; over
+    an int8 pool the pools are compared too: the first layer's payload
+    and scales hold the same bits (the write path does not depend on the
+    attention), and past it the two paths' differently ordered sums may
+    move a value across an int8 rounding step."""
     import torch
     from deepspeed_tpu_torch import InferenceEngine
     from deepspeed_tpu_torch.inference import Request
-    from deepspeed_tpu_torch.models.gpt2 import gpt2_forward
-    engine = InferenceEngine(model_config, params, {}, dtype=torch.float32,
-                             device=device)
+    engine = InferenceEngine(model_config, params, inference_config or {},
+                             dtype=torch.float32, device=device)
     for i, p in enumerate(prompts[:8]):
         engine.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS, seed=i))
     engine.step()                       # prefill + one decode
@@ -428,25 +743,121 @@ def model_path_phase(model_config, params, device, prompts):
     pos_a[sids] = poss
     tables = sched.block_table_rows(rows, engine.paged_spec.pages_per_seq)
     dev = engine.device
-    logits = {}
-    for path in ("kernel", "gather"):
-        cache = tuple(c.clone() for c in engine._cache)
-        out, _ = gpt2_forward(
-            engine.params, model_config, torch.as_tensor(tok_a, device=dev),
-            dtype=torch.float32, kv_cache=cache,
-            cache_position=torch.as_tensor(pos_a, device=dev),
-            block_tables=torch.as_tensor(tables, device=dev),
-            paged_attn_kernel=path)
-        logits[path] = out[sids, 0]
-    err = float((logits["kernel"] - logits["gather"]).abs().max())
-    match = float((logits["kernel"].argmax(-1)
-                   == logits["gather"].argmax(-1)).float().mean())
-    emit({"phase": "model_kernel_vs_plain", "dtype": "fp32",
-          "rows": len(sids), "max_abs_logit_err": err,
-          "atol": MODEL_LOGIT_ATOL, "argmax_match_share": match})
-    if not err <= MODEL_LOGIT_ATOL:
-        raise AssertionError(f"kernel path logits differ from the plain "
-                             f"path by {err} (atol {MODEL_LOGIT_ATOL})")
+    caches = {path: tuple(c.clone() for c in engine._cache)
+              for path in ("kernel", "gather")}
+    err, match = 0.0, 1.0
+    for step in range(decode_steps):
+        logits = {}
+        for path, cache in caches.items():
+            out, _ = forward(
+                engine.params, model_config,
+                torch.as_tensor(tok_a, device=dev), dtype=torch.float32,
+                kv_cache=cache,
+                cache_position=torch.as_tensor(pos_a + step, device=dev),
+                block_tables=torch.as_tensor(tables, device=dev),
+                paged_attn_kernel=path)
+            logits[path] = out[sids, 0]
+        err = max(err, float((logits["kernel"]
+                              - logits["gather"]).abs().max()))
+        nxt = logits["kernel"].argmax(-1)
+        match = min(match, float((nxt == logits["gather"].argmax(-1))
+                                 .float().mean()))
+        tok_a[sids, 0] = nxt.cpu().numpy()
+    row = {"phase": "model_kernel_vs_plain", "model": model,
+           "layers": model_config.num_layers, "dtype": "fp32",
+           "kv_dtype": engine.debug_state()["quantization"]["kv_dtype"],
+           "rows": len(sids), "decode_steps": decode_steps,
+           "max_abs_logit_err": err, "atol": MODEL_LOGIT_ATOL,
+           "argmax_match_share": match}
+    ok = err <= MODEL_LOGIT_ATOL
+    if engine.paged_spec.quantized:
+        (kk, vk, ksk, vsk), (kg, vg, ksg, vsg) = (caches["kernel"],
+                                                  caches["gather"])
+        # page 0 is scratch: pad rows and idle slots write there
+        first_equal = all(bool((a[0, 1:] == b[0, 1:]).all()) for a, b in
+                          ((kk, kg), (vk, vg), (ksk, ksg), (vsk, vsg)))
+        diff = [(a[:, 1:].int() - b[:, 1:].int()).abs()
+                for a, b in ((kk, kg), (vk, vg))]
+        flips = sum(int((d != 0).sum()) for d in diff)
+        worst = max(int(d.max()) for d in diff)
+        scale_rel = max(float(((a[:, 1:] - b[:, 1:]).abs()
+                               / b[:, 1:].abs().clamp_min(1e-30)).max())
+                        for a, b in ((ksk, ksg), (vsk, vsg)))
+        # K and V values of every token the rows hold by now, all layers
+        written = int((pos_a[sids] + decode_steps).sum()) * 2 * \
+            kk.shape[0] * kk.shape[2] * kk.shape[4]
+        row.update(first_layer_pools_bitwise_equal=first_equal,
+                   payload_values_written=written,
+                   payload_values_differing=flips,
+                   payload_worst_step=worst,
+                   payload_flip_share_limit=INT8_POOL_FLIP_SHARE,
+                   scale_max_rel_diff=scale_rel,
+                   scale_rtol=INT8_POOL_SCALE_RTOL)
+        ok = ok and first_equal and worst <= 1 and \
+            scale_rel <= INT8_POOL_SCALE_RTOL and \
+            flips <= INT8_POOL_FLIP_SHARE * written
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        raise AssertionError(f"the kernel path differs from the plain "
+                             f"path: {row}")
+
+
+def llama_1b_config():
+    from deepspeed_tpu_torch import LlamaConfig
+    # the LLAMA_1B geometry of examples/llama/train.py: head_dim 64,
+    # SwiGLU width 5504, groups of 4 q heads per kv head
+    return LlamaConfig(vocab_size=32128, hidden_size=2048, num_layers=16,
+                       num_heads=32, num_kv_heads=8,
+                       max_position_embeddings=2048)
+
+
+def llama_phase(smi):
+    """Llama at the LLAMA_1B geometry served over the bf16 pool and over
+    the int8 pool, then the model path over both pool types in fp32,
+    kernel against plain.
+    Returns {"bf16": launches, "int8": launches}."""
+    import torch
+    from deepspeed_tpu_torch.models.llama import (count_params,
+                                                  init_llama_params,
+                                                  llama_forward)
+    cfg = llama_1b_config()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_llama_params(cfg, gen)
+    emit({"phase": "llama_model", "model": "llama-1b",
+          "params": count_params(params), "config": cfg._asdict(),
+          "head_dim": cfg.head_dim, "inter": cfg.inter,
+          "group": cfg.num_heads // cfg.kv_heads})
+    runs = {}
+    for kv, icfg in (("bf16", {}),
+                     ("int8", {"paged_kv": {"kv_dtype": "int8"}})):
+        launches, prompts, engine, tokens = serving_phase(
+            cfg, params, "cuda", smi, model="llama-1b",
+            inference_config=icfg)
+        profile_phase(engine, prompts, model="llama-1b")
+        runs[kv] = (launches, tokens, engine.debug_state()["quantization"][
+            "kv_pool_bytes_per_token"])
+        del engine
+    pairs = [(a, b) for ta, tb in zip(runs["bf16"][1], runs["int8"][1])
+             for a, b in zip(ta, tb)]
+    # printed, not asserted: with random weights a near-tie may flip, and
+    # every later token of that request then differs
+    emit({"phase": "llama_serving_compare", "model": "llama-1b",
+          "kv_pool_bytes_per_token": {"bf16": runs["bf16"][2],
+                                      "int8": runs["int8"][2]},
+          "int8_over_bf16_bytes": runs["int8"][2] / runs["bf16"][2],
+          "greedy_tokens_compared": len(pairs),
+          "greedy_token_agreement": float(np.mean([a == b
+                                                   for a, b in pairs]))})
+    shallow = cfg._replace(num_layers=4)
+    keep = {f"h_{i}" for i in range(shallow.num_layers)}
+    shallow_params = {k: v for k, v in params.items()
+                      if not k.startswith("h_") or k in keep}
+    for icfg in ({}, {"paged_kv": {"kv_dtype": "int8"}}):
+        model_path_phase(shallow, shallow_params, "cuda", prompts,
+                         llama_forward, model="llama-1b-width",
+                         inference_config=icfg, decode_steps=3)
+    return {kv: r[0] for kv, r in runs.items()}
 
 
 # ------------------------------------------------------------ training
@@ -936,7 +1347,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
-    from deepspeed_tpu_torch.models.gpt2 import GPT2_MEDIUM, init_gpt2_params
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2_MEDIUM, gpt2_forward,
+                                                 init_gpt2_params)
     from deepspeed_tpu_torch.ops import _build
 
     # fp32 matmuls in full fp32 (no TF32), for the fp32 comparisons
@@ -956,16 +1368,21 @@ def main() -> int:
                     for n, log in _build.build_logs.items()}})
 
     timing = kernel_phase(smi)
+    int8_timing = int8_kernel_phase(smi)
     train_check = train_kernel_check_phase()
     train_timing = train_kernel_timing_phase(smi)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_gpt2_params(GPT2_MEDIUM, gen)
-    launches, prompts, engine = serving_phase(GPT2_MEDIUM, params, "cuda",
-                                              smi)
+    launches, prompts, engine, _ = serving_phase(GPT2_MEDIUM, params,
+                                                 "cuda", smi)
     profile_phase(engine, prompts)
     del engine
-    model_path_phase(GPT2_MEDIUM, params, "cuda", prompts)
-    del params
+    model_path_phase(GPT2_MEDIUM, params, "cuda", prompts, gpt2_forward)
+    gpt2_int8_launches, _, engine, _ = serving_phase(
+        GPT2_MEDIUM, params, "cuda", smi,
+        inference_config={"paged_kv": {"kv_dtype": "int8"}}, requests=8)
+    del engine, params
+    llama_launches = llama_phase(smi)
     train_launches = training_phase(smi)
     training_dropout_phase()
     train_kernel_vs_plain_phase()
@@ -974,10 +1391,25 @@ def main() -> int:
         name="paged_decode", route="cuda",
         source="deepspeed_tpu_torch/csrc/paged_decode.cu",
         replaces="deepspeed_tpu/ops/attention/paged.py:217",
-        launches=launches, max_abs_err=timing["max_abs_err"],
+        launches=launches + llama_launches["bf16"],
+        launches_by_path={"gpt2-345m bf16 pool": launches,
+                          "llama-1b bf16 pool": llama_launches["bf16"]},
+        max_abs_err=timing["max_abs_err"],
         ms=timing["ms"], kernel_ms=timing["ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-        bound_by=timing["bound_by"], library_ms=timing["library_ms"])]
+        bound_by=timing["bound_by"], library_ms=timing["library_ms"]),
+        dict(
+        name="paged_decode_int8", route="cuda",
+        source="deepspeed_tpu_torch/csrc/paged_decode.cu",
+        replaces="deepspeed_tpu/ops/attention/paged.py:217 "
+                 "(quantized=True, the int8-pool arity)",
+        launches=llama_launches["int8"] + gpt2_int8_launches,
+        launches_by_path={"llama-1b int8 pool": llama_launches["int8"],
+                          "gpt2-345m int8 pool": gpt2_int8_launches},
+        max_abs_err=int8_timing["max_abs_err"], ms=int8_timing["ms"],
+        kernel_ms=int8_timing["ms"], plain_ms=int8_timing["plain_ms"],
+        bound_ms=int8_timing["bound_ms"], bound_by=int8_timing["bound_by"],
+        library_ms=int8_timing["library_ms"])]
     errs = {"masked_flash_fwd": train_check["o_max_abs_err"],
             "masked_flash_dq": train_check["dq_max_abs_err"],
             "masked_flash_dkv": max(train_check["dk_max_abs_err"],

@@ -9,9 +9,9 @@ This package imports torch and numpy, never jax and nothing of
   loss function such as ``models.gpt2.gpt2_loss_fn``, whose attention
   runs the masked-flash kernels K1-K3 written in CUDA
   (``ops/attention/masked_flash.py``);
-- paged GPT-2 serving: ``InferenceEngine`` over the paged KV pool, with
-  decode attention in a hand-written CUDA kernel
-  (``ops/attention/paged.py``).
+- paged serving of GPT-2 and Llama (GQA) models: ``InferenceEngine``
+  over the paged KV pool, bf16 or int8, with decode attention in
+  hand-written CUDA kernels (``ops/attention/paged.py``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -22,6 +22,7 @@ from deepspeed_tpu_torch.models.gpt2 import (GPT2_LARGE, GPT2_MEDIUM,
                                              GPT2_SMALL, GPT2_XL, GPT2Config,
                                              init_gpt2_params,
                                              params_from_jax)
+from deepspeed_tpu_torch.models.llama import LlamaConfig
 from deepspeed_tpu_torch.ops.optimizers import Adam
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
@@ -31,8 +32,8 @@ from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 __all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig", "Adam",
            "DeepSpeedDataLoader", "RepeatingLoader", "InferenceEngine",
            "Request", "FinishedRequest", "GPT2Config", "GPT2_SMALL",
-           "GPT2_MEDIUM", "GPT2_LARGE", "GPT2_XL", "init_gpt2_params",
-           "params_from_jax"]
+           "GPT2_MEDIUM", "GPT2_LARGE", "GPT2_XL", "LlamaConfig",
+           "init_gpt2_params", "params_from_jax"]
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,

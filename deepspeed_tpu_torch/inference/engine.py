@@ -1,17 +1,22 @@
 """The inference serving engine (the port of
-``deepspeed_tpu/inference/engine.py``, paged GPT-2 path).
+``deepspeed_tpu/inference/engine.py``, paged path, GPT-2 and Llama
+families).
 
 - **Paged KV cache.** A pool of ``(kv_heads, page_size, head_dim)``
   pages addressed through per-slot block tables
   (``inference/kv_cache.py``); occupancy is bounded by the tokens
   reserved in flight, and page-aligned shared prompt prefixes are
-  hash-deduplicated so they are prefilled once.
-- **Paged-decode kernel.** The decode step computes attention straight
-  against the pool with the hand-written CUDA kernel
-  (``ops/attention/paged.py`` over ``csrc/paged_decode.cu``): each row
-  reads only its live pages. ``paged_kv.attn_kernel: "gather"`` selects
-  the plain stripe-gather attention instead. There is no automatic
-  fallback: where the kernel cannot run, the call raises.
+  hash-deduplicated so they are prefilled once. With
+  ``paged_kv.kv_dtype: "int8"`` the pool holds int8 payload and fp32
+  per-token-row scales: about half the bytes per token of a bf16 pool.
+- **Paged-decode kernels.** The decode step computes attention straight
+  against the pool with the hand-written CUDA kernels
+  (``ops/attention/paged.py`` over ``csrc/paged_decode.cu``, one entry
+  point per pool type): each row reads only its
+  live pages, and the q heads of a GQA group share their kv head's.
+  ``paged_kv.attn_kernel: "gather"`` selects the plain stripe-gather
+  attention instead. There is no automatic fallback: where the kernel
+  cannot run, the call raises.
 - **Bucketed shapes, continuous batching.** Prompts pad to
   ``prompt_buckets`` and prefill batches to ``batch_buckets``; the
   host-side :class:`~.scheduler.Scheduler` admits queued requests into
@@ -22,13 +27,14 @@
   decomposition and SLO split come from ``inference/tracing.py``.
 
 Where the JAX engine donates the cache to each compiled program, the
-port's programs update the two pool tensors in place
+port's programs update the pool tensors in place
 (``models/gpt2.write_paged_kv_cache``). PyTorch runs eagerly, so there
 is no compile tracker and no recompile count; :meth:`warmup` runs every
 bucket shape once. Configurations outside this slice raise
 ``NotImplementedError`` naming the JAX feature.
 """
 
+import functools
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -47,6 +53,9 @@ from deepspeed_tpu_torch.inference.scheduler import (FinishedRequest,
 from deepspeed_tpu_torch.inference.tracing import ServeTracer
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, _gpt2_trunk_cached,
                                              _tied_logits, tied_head_weight)
+from deepspeed_tpu_torch.models.llama import (LlamaConfig,
+                                              _llama_trunk_cached,
+                                              rope_cos_sin)
 from deepspeed_tpu_torch.ops.attention.paged import NEG_INF
 from deepspeed_tpu_torch.profiling.spans import (ChromeTraceRecorder,
                                                  trace_span)
@@ -63,6 +72,31 @@ __all__ = ["InferenceEngine"]
 _ATTN_PATHS = {"pallas": "kernel", "gather": "gather"}
 # block leaves used only as matmul operands, cast at use in the JAX model
 _MATMUL_LEAVES = ("attn", "mlp")
+
+
+def _llama_trunk(config, max_len, device):
+    """The Llama cached trunk bound to its RoPE tables, made once per
+    engine at ``max_len`` rather than per dispatch."""
+    return functools.partial(_llama_trunk_cached, rope=rope_cos_sin(
+        max_len, config.head_dim, config.rope_theta, device=device))
+
+
+# config class -> (family name, (config, max_len, device) -> cached trunk,
+# the LM head's weight leaf)
+_FAMILIES = {
+    GPT2Config: ("gpt2", lambda config, max_len, device: _gpt2_trunk_cached,
+                 "wte"),
+    LlamaConfig: ("llama", _llama_trunk, "lm_head"),
+}
+
+
+def _family_of(model_config):
+    for cls, entry in _FAMILIES.items():
+        if isinstance(model_config, cls):
+            return entry
+    raise TypeError(
+        f"unsupported model config {type(model_config).__name__}; "
+        f"serving supports {[c.__name__ for c in _FAMILIES]}")
 
 
 def _resolve_device(device) -> torch.device:
@@ -90,8 +124,6 @@ def _refuse_unported(cfg: Dict[str, Any]) -> None:
         (cfg["disagg"]["enabled"], "inference.disagg (disaggregated "
          "prefill/decode)"),
         (cfg["chunked_prefill"]["enabled"], "inference.chunked_prefill"),
-        (pk["kv_dtype"] == "int8", "inference.paged_kv.kv_dtype 'int8' "
-         "(the int8 KV pool and K4's int8 arity)"),
         (bool(cfg["quantize_weights"]), "inference.quantize_weights (qwZ "
          "int8 weights)"),
     ]
@@ -103,22 +135,17 @@ def _refuse_unported(cfg: Dict[str, Any]) -> None:
 
 
 class InferenceEngine:
-    """Paged bucketed prefill/decode serving of GPT-2 over a
-    continuous-batching scheduler. ``device`` defaults to CUDA (and
+    """Paged bucketed prefill/decode serving of a GPT-2 or Llama model
+    over a continuous-batching scheduler. ``device`` defaults to CUDA (and
     raises without a card); pass ``device="cpu"`` to run the kernels'
     plain versions on the CPU."""
 
     def __init__(self, model_config, params, inference_config=None,
                  dtype=torch.bfloat16, monitor: Optional[Any] = None,
                  observability_config=None, device=None):
-        if not isinstance(model_config, GPT2Config):
-            raise NotImplementedError(
-                f"serving {type(model_config).__name__}: the port serves "
-                f"GPT2Config; the JAX engine's LlamaConfig family is not "
-                f"ported yet")
+        self.family, make_trunk, head_leaf = _family_of(model_config)
         self.device = _resolve_device(device)
         self.model_config = model_config
-        self.family = "gpt2"
         self.dtype = dtype
         cfg = get_inference_config(
             {"inference": dict(inference_config or {})})
@@ -143,7 +170,11 @@ class InferenceEngine:
         self._vocab = model_config.vocab_size
         self._top_k = min(cfg["top_k"], self._vocab)
         self.params = self._place_params(params)
-        self._head_w = tied_head_weight(self.params["wte"], dtype)
+        self._head_w = tied_head_weight(self.params[head_leaf], dtype)
+        self._trunk = make_trunk(model_config, max_len, self.device)
+        # an offline quantized-vs-fp probe's max logit error, recorded by
+        # record_quant_logit_err: serving itself never pays for an oracle
+        self.quant_logit_err: Optional[float] = None
 
         # telemetry: monitor + events.jsonl, Chrome-trace lanes, and the
         # request-granular serving plane (pure host code)
@@ -177,11 +208,14 @@ class InferenceEngine:
         ps = pk["page_size"]
         num_pages = pk["num_pages"] or (
             self.num_slots * pages_for(max_len, ps) + 1)
-        kv_dtype = torch.bfloat16 if pk["kv_dtype"] == "bf16" else dtype
-        self.paged_spec = paged_spec_for(model_config, num_pages, ps,
-                                         max_len, dtype=kv_dtype)
+        kv_dtype = {"bf16": torch.bfloat16, "int8": torch.int8}.get(
+            pk["kv_dtype"], dtype)
+        self.paged_spec = paged_spec_for(
+            model_config, num_pages, ps, max_len, dtype=kv_dtype,
+            kv_quant_block=pk["kv_quant_block"])
         self._cache = init_paged_kv_cache(self.paged_spec, self.device)
         cache_bytes = paged_kv_bytes(self.paged_spec)
+        # static pool cost per token of capacity, scales included
         self._kv_bpt = cache_bytes / float(num_pages * ps)
         allocator = PageAllocator(num_pages, ps,
                                   prefix_cache=pk["prefix_cache"])
@@ -210,15 +244,19 @@ class InferenceEngine:
             f"{self.num_slots} slots, max_len {max_len}, prompt buckets "
             f"{cfg['prompt_buckets']}, batch buckets {cfg['batch_buckets']}, "
             f"paged KV cache: {num_pages} pages x {ps} tokens "
-            f"({cache_bytes / 2**20:.1f} MiB, {kv_dtype}), prefix cache "
+            f"({cache_bytes / 2**20:.1f} MiB, {kv_dtype}"
+            f"{' + fp32 scales' if self.paged_spec.quantized else ''}), "
+            f"prefix cache "
             f"{'on' if pk['prefix_cache'] else 'off'}")
 
     def _place_params(self, params) -> Dict[str, Any]:
         """Params on the engine's device. The block matmul weights and
         biases are cast to the engine dtype once, here: the JAX model
         casts the same fp32 values at every use, so the operands are
-        identical. Embeddings and LayerNorm parameters stay as given,
-        since the JAX model reads them in fp32."""
+        identical. Embeddings, an untied ``lm_head`` and the norm
+        parameters stay as given, since the JAX model reads them in
+        fp32. Blocks come as one ``h_{i}`` per block or stacked under
+        ``h``."""
         def place(tree, cast):
             if isinstance(tree, dict):
                 return {k: place(v, cast) for k, v in tree.items()}
@@ -227,7 +265,7 @@ class InferenceEngine:
                 t.to(self.device)
         out = {}
         for name, sub in params.items():
-            if name.startswith("h_"):
+            if name == "h" or name.startswith("h_"):
                 out[name] = {k: place(v, k in _MATMUL_LEAVES)
                              for k, v in sub.items()}
             else:
@@ -274,7 +312,7 @@ class InferenceEngine:
         dev = self.device
         ids_t = torch.as_tensor(ids, device=dev)
         pos_t = torch.as_tensor(positions, device=dev)
-        x = _gpt2_trunk_cached(
+        x = self._trunk(
             self.params, self.model_config, ids_t, self._cache, pos_t,
             self.dtype, torch.as_tensor(tables, device=dev),
             self._decode_attn_path)
@@ -291,7 +329,7 @@ class InferenceEngine:
         each row's live pages (or the gather path assembles the stripe).
         Inactive rows carry all-null tables: their output is discarded."""
         dev = self.device
-        x = _gpt2_trunk_cached(
+        x = self._trunk(
             self.params, self.model_config,
             torch.as_tensor(toks, device=dev)[:, None], self._cache,
             torch.as_tensor(positions, device=dev), self.dtype,
@@ -427,7 +465,8 @@ class InferenceEngine:
                              if seen else 0.0),
             decode_attn_path=(1.0 if self._decode_attn_path == "kernel"
                               else 0.0),
-            kv_pool_bytes_per_token=self._kv_bpt, **slo_kw)
+            kv_pool_bytes_per_token=self._kv_bpt,
+            quant_logit_err=self.quant_logit_err, **slo_kw)
         return True
 
     def step(self) -> List[FinishedRequest]:
@@ -517,6 +556,14 @@ class InferenceEngine:
                                 paged=True)
         return shapes
 
+    def record_quant_logit_err(self, err: float) -> None:
+        """Record an offline quantized-vs-fp max-logit-error probe (a
+        test or bench computes it; the serving path never pays for an
+        oracle). The next decode telemetry write carries it as
+        ``Serve/quant_logit_err`` and :meth:`debug_state` mirrors it for
+        ``tools/obs_report.py --serve``."""
+        self.quant_logit_err = float(err)
+
     def debug_state(self) -> Dict[str, Any]:
         """Live introspection snapshot (pure host reads): page pool
         occupancy and prefix-cache accounting, the slot table, queue
@@ -550,9 +597,9 @@ class InferenceEngine:
             "weight_bytes": wbytes,
             "weight_bytes_dense": wbytes,
             "kv_dtype": str(self.paged_spec.dtype).replace("torch.", ""),
-            "kv_quant_block": 0,
+            "kv_quant_block": self.paged_spec.quant_block,
             "kv_pool_bytes_per_token": round(self._kv_bpt, 3),
-            "quant_logit_err": None,
+            "quant_logit_err": self.quant_logit_err,
         }
         return {
             "family": self.family,

@@ -31,7 +31,9 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch.ops.attention.flash import (_M32, _mix32, _mul32,
                                                      flash_attention)
 from deepspeed_tpu_torch.ops.attention.paged import (NEG_INF,
-                                                     paged_decode_attention)
+                                                     dequantize_pool,
+                                                     paged_decode_attention,
+                                                     quantize_kv)
 from deepspeed_tpu_torch.ops.functional import dropout, layer_norm
 from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -375,38 +377,72 @@ def gather_paged_kv(pool: torch.Tensor,
     return pool[block_table.long()].transpose(1, 2).reshape(B, H, P * ps, hd)
 
 
-def paged_decode_ctx(q, kpool, vpool, block_table, cache_position):
-    """The seq-1 kernel dispatch: run
+def paged_decode_ctx(q, kpool, vpool, block_table, cache_position,
+                     k_scales=None, v_scales=None):
+    """The seq-1 kernel dispatch both families share: run
     :func:`~deepspeed_tpu_torch.ops.attention.paged.paged_decode_attention`
     against the (already-written) pool and restore the (B, H, 1, hd)
-    context layout."""
+    context layout. ``k_scales``/``v_scales`` select the int8 pool
+    arity."""
     out = paged_decode_attention(q[:, :, 0].contiguous(), kpool, vpool,
-                                 block_table, cache_position)
+                                 block_table, cache_position,
+                                 k_scales=k_scales, v_scales=v_scales)
     return out[:, :, None, :]
 
 
 def _paged_cache_attention(kpool, vpool, block_table, cache_position,
-                           attn_kernel: str = "gather"):
-    """attention_fn for the paged cached forward: scatter this call's
-    K/V into the pool (in place), then attend. Single-query calls with
-    ``attn_kernel="kernel"`` run the paged-decode kernel straight
-    against the pool (only live pages are read); everything else gathers
-    each row's stripe and attends in fp32 under
-    :func:`causal_cache_mask` — the plain path, as in the JAX package."""
+                           attn_kernel: str = "gather", kscale_pool=None,
+                           vscale_pool=None):
+    """attention_fn for the paged cached forward of both families:
+    scatter this call's K/V into the kv_heads-sized pool (in place),
+    then attend. Single-query calls with ``attn_kernel="kernel"`` run
+    the paged-decode kernel straight against the pool (only live pages
+    are read; the q heads of a GQA group share their kv head's pages);
+    everything else gathers each row's stripe and attends group-wise in
+    fp32 under :func:`causal_cache_mask` — the plain path, as in the JAX
+    package.
+
+    With ``kscale_pool``/``vscale_pool`` the pool is int8: this call's
+    K/V are quantized per token row (``quantize_kv``), payload and
+    scales land through the same block-table scatter, and every read
+    dequantizes (inside the kernel, or after the gather). The gather
+    path reads back what was just written, so a prefill over an int8
+    pool attends the dequantized values, not this call's K/V."""
+    quantized = kscale_pool is not None
+
     def attn(q, k, v):
+        if quantized:
+            nb = kscale_pool.shape[-1]
+            k, k_s = quantize_kv(k, nb)
+            v, v_s = quantize_kv(v, nb)
+            write_paged_kv_cache(kscale_pool, k_s, block_table,
+                                 cache_position)
+            write_paged_kv_cache(vscale_pool, v_s, block_table,
+                                 cache_position)
         write_paged_kv_cache(kpool, k, block_table, cache_position)
         write_paged_kv_cache(vpool, v, block_table, cache_position)
         if attn_kernel == "kernel" and q.shape[2] == 1:
             return paged_decode_ctx(q, kpool, vpool, block_table,
-                                    cache_position)
+                                    cache_position, k_scales=kscale_pool,
+                                    v_scales=vscale_pool)
         kc = gather_paged_kv(kpool, block_table)
         vc = gather_paged_kv(vpool, block_table)
-        hd = q.shape[-1]
-        scores = (q.float() @ kc.float().transpose(-1, -2)) / math.sqrt(hd)
-        mask = causal_cache_mask(cache_position, q.shape[2], kc.shape[2])
-        scores = torch.where(mask, scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        return (probs @ vc.float()).to(q.dtype)
+        if quantized:
+            kc = dequantize_pool(kc, gather_paged_kv(kscale_pool,
+                                                     block_table))
+            vc = dequantize_pool(vc, gather_paged_kv(vscale_pool,
+                                                     block_table))
+        B, H, S, hd = q.shape
+        KH, L = kc.shape[1], kc.shape[2]
+        G = H // KH
+        # q head h reads kv head h // G: fold each group into its kv
+        # head's rows, so K/V never expand to the full head count
+        qg = q.reshape(B, KH, G * S, hd).float()
+        scores = (qg @ kc.float().transpose(-1, -2)) / math.sqrt(hd)
+        mask = causal_cache_mask(cache_position, S, L)[:, :, None]
+        scores = torch.where(mask, scores.reshape(B, KH, G, S, L), NEG_INF)
+        probs = torch.softmax(scores, dim=-1).reshape(B, KH, G * S, L)
+        return (probs @ vc.float()).reshape(B, H, S, hd).to(q.dtype)
     return attn
 
 
@@ -414,8 +450,9 @@ def _gpt2_trunk_cached(params, config: GPT2Config, input_ids, kv_cache,
                        cache_position, dtype, block_tables,
                        paged_attn_kernel: str = "gather") -> torch.Tensor:
     """Run ``input_ids`` (B, S) through every block with attention over
-    the paged pool pair ``kv_cache = (kc, vc)`` (each (layers, num_pages,
-    heads, page_size, hd)), writing this call's K/V at each row's
+    the paged pools ``kv_cache``: ``(kc, vc)``, each (layers, num_pages,
+    heads, page_size, hd), or the int8 pool's ``(kc, vc, kscale,
+    vscale)``. This call's K/V are written at each row's
     ``cache_position`` offset in place. Returns the hidden states after
     ``ln_f``. Serves prefill (S = padded prompt) and decode (S = 1) with
     one code path."""
@@ -424,7 +461,6 @@ def _gpt2_trunk_cached(params, config: GPT2Config, input_ids, kv_cache,
             "the dense (B, heads, max_len, hd) KV cache of the JAX package "
             "(inference.paged_kv.enabled: false) is not ported; pass "
             "block_tables over a paged pool")
-    kc, vc = kv_cache
     B, S = input_ids.shape
     dev = input_ids.device
     pos = cache_position.long()[:, None] + torch.arange(S, device=dev)[None, :]
@@ -433,8 +469,9 @@ def _gpt2_trunk_cached(params, config: GPT2Config, input_ids, kv_cache,
     ids = input_ids.long().clamp(0, config.vocab_size - 1)
     x = (params["wte"][ids].float() + params["wpe"][pos].float()).to(dtype)
     for i in range(config.num_layers):
-        attn = _paged_cache_attention(kc[i], vc[i], block_tables,
-                                      cache_position, paged_attn_kernel)
+        kc, vc, *scales = (c[i] for c in kv_cache)
+        attn = _paged_cache_attention(kc, vc, block_tables, cache_position,
+                                      paged_attn_kernel, *scales)
         x = gpt2_block(params[f"h_{i}"], config, x, dtype, attention_fn=attn)
     return layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"],
                       config.layer_norm_eps)
@@ -448,8 +485,9 @@ def gpt2_forward(params, config: GPT2Config, input_ids, dtype=torch.bfloat16,
 
     Without ``kv_cache`` this is the training forward (causal flash
     attention, dropouts under ``seed`` unless ``deterministic``).
-    Serving: ``kv_cache = (kc, vc)`` is the paged pool pair, updated in
-    place (the same tensors come back with the logits);
+    Serving: ``kv_cache`` is the paged pool tree, ``(kc, vc)`` or the
+    int8 pool's ``(kc, vc, kscale, vscale)``, updated in place (the same
+    tensors come back with the logits);
     ``cache_position`` ((B,) int) is each row's first query position;
     ``block_tables`` ((B, pages_per_seq) int) maps logical pages to pool
     pages; ``paged_attn_kernel`` is ``"kernel"`` (the paged-decode kernel

@@ -1,0 +1,294 @@
+"""Llama-style decoder family (the port of ``deepspeed_tpu/models/llama.py``):
+RoPE, RMSNorm, SwiGLU and grouped-query attention, for the forward and
+the cached, paged serving path.
+
+Parameters are a plain dict with the JAX package's tree layout:
+``tok_emb``, ``ln_f``, the untied ``lm_head`` (stored (vocab, hidden)
+like a tied embedding) and the blocks, either one ``h_{i}`` dict per
+block or, under ``scan_layers``, one stacked ``h`` with a leading layer
+dim. Weights are ``(in, out)``. :func:`llama_params_from_jax` carries a
+JAX tree across through numpy.
+
+Without a cache the blocks run causal
+:func:`~deepspeed_tpu_torch.ops.attention.flash.flash_attention`, whose
+kernels serve GQA natively. With a paged cache they run
+``models.gpt2._paged_cache_attention`` (the JAX package's
+``_gqa_paged_cache_attention``): K/V go into the kv_heads-sized pool,
+dense or int8, and seq-1 queries read it through the paged-decode
+kernel, the q heads of a group sharing their kv head's pages.
+
+Not ported yet: the dense slot cache (``_gqa_offset_cache_attention``),
+``llama_generate``, ``llama_param_specs``, ``llama_loss_fn``, remat and
+the ring-prefill branch of the paged attention.
+"""
+
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from deepspeed_tpu_torch.models.gpt2 import (_ieee_fp32_matmul,
+                                             _paged_cache_attention,
+                                             _tied_logits, count_params,
+                                             params_from_jax,
+                                             tied_head_weight)
+from deepspeed_tpu_torch.ops.attention.flash import flash_attention
+from deepspeed_tpu_torch.ops.functional import rms_norm
+from deepspeed_tpu_torch.utils.tree import tree_map
+
+__all__ = ["LlamaConfig", "init_llama_params", "llama_params_from_jax",
+           "count_params", "rope_cos_sin", "apply_rope", "llama_block",
+           "llama_forward"]
+
+
+class LlamaConfig(NamedTuple):
+    vocab_size: int = 32000
+    hidden_size: int = 512
+    num_layers: int = 8
+    num_heads: int = 8
+    num_kv_heads: int = 0          # 0 => num_heads (MHA); 1 = MQA
+    intermediate_size: int = 0     # 0 => the llama 8/3 * hidden, 128-aligned
+    max_position_embeddings: int = 2048
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    initializer_range: float = 0.02
+    scan_layers: bool = False
+
+    @property
+    def kv_heads(self):
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_heads
+
+    @property
+    def inter(self):
+        if self.intermediate_size:
+            return self.intermediate_size
+        raw = int(self.hidden_size * 8 / 3)
+        return (raw + 127) // 128 * 128
+
+
+def init_llama_params(config: LlamaConfig,
+                      generator: torch.Generator) -> Dict[str, Any]:
+    """Random fp32 parameters with the JAX init's distributions (normal
+    weights at ``initializer_range``, ``wo`` and ``w_down`` scaled by
+    ``1/sqrt(2 * num_layers)``, unit RMSNorm gains), on the generator's
+    device, in the layout ``config.scan_layers`` names. The numbers
+    differ from ``jax.random``'s; use :func:`llama_params_from_jax` for
+    the same weights in both packages."""
+    h, hd = config.hidden_size, config.head_dim
+    hkv, inter = config.kv_heads, config.inter
+    rng = config.initializer_range
+    out_rng = rng / math.sqrt(2.0 * config.num_layers)
+    dev = generator.device
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=generator, device=dev,
+                           dtype=torch.float32) * std
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.float32, device=dev)
+
+    params: Dict[str, Any] = {
+        "tok_emb": normal((config.vocab_size, h), rng),
+        "ln_f": {"w": ones(h)},
+        "lm_head": normal((config.vocab_size, h), rng),
+    }
+    layers = []
+    for _ in range(config.num_layers):
+        layers.append({
+            "ln_1": {"w": ones(h)},
+            "attn": {"wq": normal((h, h), rng),
+                     "wk": normal((h, hkv * hd), rng),
+                     "wv": normal((h, hkv * hd), rng),
+                     "wo": normal((h, h), out_rng)},
+            "ln_2": {"w": ones(h)},
+            "mlp": {"w_gate": normal((h, inter), rng),
+                    "w_up": normal((h, inter), rng),
+                    "w_down": normal((inter, h), out_rng)},
+        })
+    if config.scan_layers:
+        params["h"] = tree_map(lambda *xs: torch.stack(xs), *layers)
+    else:
+        for i, lp in enumerate(layers):
+            params[f"h_{i}"] = lp
+    return params
+
+
+def llama_params_from_jax(tree) -> Dict[str, Any]:
+    """Torch parameters from a JAX Llama param tree whose leaves are
+    numpy arrays (``np.asarray`` of each JAX leaf), read from either JAX
+    layout and returned with one ``h_{i}`` dict per block (the model
+    functions read either). Values and dtypes are kept as they are."""
+    return params_from_jax(tree)
+
+
+def layer_params(params, i: int):
+    """Block i's parameters under whichever layout the tree has."""
+    if "h" in params:
+        return tree_map(lambda a: a[i], params["h"])
+    return params[f"h_{i}"]
+
+
+def rope_cos_sin(seq_len: int, head_dim: int, theta: float,
+                 dtype=torch.float32, device=None):
+    """(S, hd/2) cos/sin tables for rotary embedding. The inverse
+    frequencies are made in numpy fp32 and the angles as an fp32 outer
+    product, as in the JAX package, so the angles are the same bits;
+    ``torch.cos``/``sin`` may differ from XLA's by an ulp."""
+    inv = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                           / head_dim))
+    t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, torch.from_numpy(inv.astype(np.float32)).to(
+        t.device))
+    return torch.cos(freqs).to(dtype), torch.sin(freqs).to(dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate (B, H, S, hd) by per-position angles, in x's dtype.
+
+    ``cos``/``sin`` are either the shared (S, hd/2) tables (every row at
+    positions 0..S-1) or per-row (B, S, hd/2) gathers (serving slots sit
+    at different absolute positions). Pair layout is (x[..., :hd/2],
+    x[..., hd/2:]), the "rotate_half" convention."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.dim() == 3:           # (B, S, hd/2): broadcast over heads only
+        c = cos[:, None].to(x.dtype)
+        s = sin[:, None].to(x.dtype)
+    else:                        # (S, hd/2): broadcast over batch + heads
+        c = cos[None, None].to(x.dtype)
+        s = sin[None, None].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+
+
+def llama_block(block_params, config: LlamaConfig, x: torch.Tensor, cos,
+                sin, dtype,
+                attention_fn: Optional[Callable] = None) -> torch.Tensor:
+    """One pre-RMSNorm block: GQA attention with RoPE, then SwiGLU.
+    ``attention_fn(q, k, v) -> ctx`` replaces causal GQA flash attention
+    (q post-RoPE (B, H, S, hd); k/v (B, kv_heads, S, hd), k post-RoPE):
+    the KV-cache hook."""
+    B, S, h = x.shape
+    H, hkv, hd = config.num_heads, config.kv_heads, config.head_dim
+    a_in = rms_norm(x, block_params["ln_1"]["w"], config.rms_norm_eps)
+    ap = block_params["attn"]
+    q = (a_in @ ap["wq"].to(dtype)).reshape(B, S, H, hd)
+    k = (a_in @ ap["wk"].to(dtype)).reshape(B, S, hkv, hd)
+    v = (a_in @ ap["wv"].to(dtype)).reshape(B, S, hkv, hd)
+    q = apply_rope(q.transpose(1, 2), cos, sin)
+    k = apply_rope(k.transpose(1, 2), cos, sin)
+    v = v.transpose(1, 2)
+    if attention_fn is not None:
+        ctx = attention_fn(q, k, v)
+    else:
+        ctx = flash_attention(q, k, v, causal=True)      # native GQA
+    ctx = ctx.transpose(1, 2).reshape(B, S, h)
+    x = x + ctx @ ap["wo"].to(dtype)
+
+    m_in = rms_norm(x, block_params["ln_2"]["w"], config.rms_norm_eps)
+    mp = block_params["mlp"]
+    gate = F.silu(m_in @ mp["w_gate"].to(dtype))
+    up = m_in @ mp["w_up"].to(dtype)
+    return x + (gate * up) @ mp["w_down"].to(dtype)
+
+
+def _emb_rows(tok_emb: torch.Tensor, ids: torch.Tensor, dtype):
+    """Embedding rows in ``dtype``; ids clamped into the table, as a JAX
+    gather clamps."""
+    return tok_emb[ids.long().clamp(0, tok_emb.shape[0] - 1)].to(dtype)
+
+
+def _llama_trunk(params, config: LlamaConfig, input_ids,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """Final hidden states (B, S, hidden) after ln_f (no LM head), the
+    non-remat path."""
+    B, S = input_ids.shape
+    if S > config.max_position_embeddings:
+        raise ValueError(
+            f"sequence length {S} exceeds max_position_embeddings "
+            f"{config.max_position_embeddings}: RoPE would extrapolate")
+    x = _emb_rows(params["tok_emb"], input_ids, dtype)
+    cos, sin = rope_cos_sin(S, config.head_dim, config.rope_theta,
+                            device=x.device)
+    for i in range(config.num_layers):
+        x = llama_block(layer_params(params, i), config, x, cos,
+                        sin, dtype)
+    return rms_norm(x, params["ln_f"]["w"], config.rms_norm_eps)
+
+
+# the JAX package's name for the paged attention_fn of this family; the
+# port's gpt2 one attends group-wise already, so both families share it
+_gqa_paged_cache_attention = _paged_cache_attention
+
+
+def _llama_trunk_cached(params, config: LlamaConfig, input_ids, kv_cache,
+                        cache_position, dtype, block_tables,
+                        paged_attn_kernel: str = "gather",
+                        rope=None) -> torch.Tensor:
+    """Cache-carrying trunk (see ``gpt2._gpt2_trunk_cached``): one code
+    path for prefill into the pages and decode, through the same
+    :func:`llama_block` as the plain forward. ``kv_cache`` is the paged
+    pool tree, ``(kc, vc)`` (each (layers, num_pages, kv_heads,
+    page_size, hd)) or the int8 pool's ``(kc, vc, kscale, vscale)``,
+    updated in place. RoPE angles are gathered per row at each token's
+    absolute position from ``rope``, the ``(cos, sin)`` tables of
+    :func:`rope_cos_sin` (made here over the table's extent when None; a
+    serving engine makes them once). Returns the hidden states after
+    ln_f."""
+    if block_tables is None:
+        raise NotImplementedError(
+            "the dense (B, kv_heads, max_len, hd) KV cache of the JAX "
+            "package (_gqa_offset_cache_attention, inference.paged_kv."
+            "enabled: false) is not ported; pass block_tables over a paged "
+            "pool")
+    B, S = input_ids.shape
+    dev = input_ids.device
+    if rope is None:
+        max_len = block_tables.shape[1] * kv_cache[0].shape[3]
+        rope = rope_cos_sin(max_len, config.head_dim, config.rope_theta,
+                            device=dev)
+    cos_full, sin_full = rope
+    pos = cache_position.long()[:, None] + torch.arange(S, device=dev)[None, :]
+    # jnp gathers clamp out-of-range indices; so do these
+    pos = pos.clamp(0, cos_full.shape[0] - 1)
+    cos_b, sin_b = cos_full[pos], sin_full[pos]          # (B, S, hd/2)
+    x = _emb_rows(params["tok_emb"], input_ids, dtype)
+    for i in range(config.num_layers):
+        kc, vc, *scales = (c[i] for c in kv_cache)
+        attn = _gqa_paged_cache_attention(kc, vc, block_tables,
+                                          cache_position, paged_attn_kernel,
+                                          *scales)
+        x = llama_block(layer_params(params, i), config, x, cos_b,
+                        sin_b, dtype, attention_fn=attn)
+    return rms_norm(x, params["ln_f"]["w"], config.rms_norm_eps)
+
+
+def llama_forward(params, config: LlamaConfig, input_ids,
+                  dtype=torch.bfloat16, kv_cache=None, cache_position=None,
+                  block_tables=None, paged_attn_kernel: str = "gather"):
+    """Logits (B, S, vocab) in fp32, through the untied ``lm_head``.
+
+    Serving: with ``kv_cache`` (the paged pool tree, updated in place;
+    the same tensors come back with the logits), ``cache_position``
+    ((B,) int, each row's first query position) and ``block_tables``
+    ((B, pages_per_seq) int) — the contract of
+    :func:`deepspeed_tpu_torch.models.gpt2.gpt2_forward`, including
+    ``paged_attn_kernel`` ``"kernel"`` or ``"gather"``."""
+    head_w = tied_head_weight(params["lm_head"], dtype)
+    if kv_cache is None:
+        x = _llama_trunk(params, config, input_ids, dtype=dtype)
+        with _ieee_fp32_matmul():
+            return _tied_logits(x, head_w, dtype)
+    if cache_position is None:
+        cache_position = torch.zeros((input_ids.shape[0],), dtype=torch.int32,
+                                     device=input_ids.device)
+    x = _llama_trunk_cached(params, config, input_ids, kv_cache,
+                            cache_position, dtype, block_tables,
+                            paged_attn_kernel)
+    return _tied_logits(x, head_w, dtype), kv_cache

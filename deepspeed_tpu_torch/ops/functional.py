@@ -1,6 +1,6 @@
 """Elementwise building blocks (the port of
-``deepspeed_tpu/ops/functional.py``'s ``layer_norm``, ``_hash_keep_mask``
-and ``dropout``).
+``deepspeed_tpu/ops/functional.py``'s ``layer_norm``, ``rms_norm``,
+``_hash_keep_mask`` and ``dropout``).
 
 GELU is ``torch.nn.functional.gelu(x, approximate="tanh")`` at its call
 site, as ``jax.nn.gelu(approximate=True)`` is in the JAX model.
@@ -26,6 +26,15 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = F.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(),
                        eps)
     return out.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with fp32 statistics (no mean subtraction, no bias),
+    output in the input dtype: the pre-norm of the llama family."""
+    x32 = x.float()
+    ms = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
 
 
 def _hash_keep_mask(seed32: int, n: int, rate: float,

@@ -112,9 +112,9 @@ OBS_SERVE_REPLICA_ID_DEFAULT = None
 #############################################
 # Inference serving engine. The schema is the JAX package's; the port
 # serves the paged path (paged_kv.enabled: true, attn_kernel "pallas"
-# — which selects the hand-written CUDA paged-decode kernel here — or
-# "gather"), and its engine raises NotImplementedError for mesh,
-# chunked_prefill, spec_decode, disagg, kv_dtype "int8" and
+# — which selects the hand-written CUDA paged-decode kernels here — or
+# "gather"), over a bf16, fp32 or int8 pool, and its engine raises
+# NotImplementedError for mesh, chunked_prefill, spec_decode, disagg and
 # quantize_weights (deepspeed_tpu_torch/inference/engine.py).
 #
 # "inference": {

@@ -35,7 +35,11 @@ TAG_SERVE_QUEUE_WAIT = "Serve/queue_wait_ms"        # per admitted request
 TAG_SERVE_TBT = "Serve/tbt_ms"                      # per decode dispatch
 TAG_SERVE_SLO = "Serve/slo_attainment"              # finished-in-SLO frac
 TAG_SERVE_GOODPUT = "Serve/goodput_tokens_per_s"    # within-SLO tokens/s
+# static pool cost per token of KV capacity (an int8 pool lands near half
+# the bf16 figure) and the offline quantized-vs-fp max logit error probe
+# (InferenceEngine.record_quant_logit_err)
 TAG_SERVE_KV_POOL_BPT = "Serve/kv_pool_bytes_per_token"
+TAG_SERVE_QUANT_LOGIT_ERR = "Serve/quant_logit_err"
 TAG_SERVE_TBT_MAX = "Serve/tbt_max_ms"              # per decode dispatch
 
 
@@ -249,7 +253,7 @@ class TensorBoardMonitor:
                               tbt_ms=None, slo_attainment=None,
                               goodput_tokens_per_s=None,
                               kv_pool_bytes_per_token=None,
-                              tbt_max_ms=None,
+                              quant_logit_err=None, tbt_max_ms=None,
                               tokens: int = 0, flush: bool = True):
         """Serving telemetry: TTFT per admitted request, per-decode-step
         token latency, cumulative tokens/s, queue depth and slot
@@ -274,7 +278,8 @@ class TensorBoardMonitor:
                 (TAG_SERVE_TBT_MAX, tbt_max_ms),
                 (TAG_SERVE_SLO, slo_attainment),
                 (TAG_SERVE_GOODPUT, goodput_tokens_per_s),
-                (TAG_SERVE_KV_POOL_BPT, kv_pool_bytes_per_token)):
+                (TAG_SERVE_KV_POOL_BPT, kv_pool_bytes_per_token),
+                (TAG_SERVE_QUANT_LOGIT_ERR, quant_logit_err)):
             if value is not None:
                 self.write_scalar(tag, value, tokens)
         if flush:

@@ -26,6 +26,10 @@ BF16_ATOL = 2e-2
 # bf16 rounding may still land one ulp apart (2**-8 relative)
 CUDA_BF16_ATOL = 2e-3
 CUDA_BF16_RTOL = 1e-2
+# the int8 arity with bf16 q: every product is fp32 on both sides, so
+# only the output's bf16 rounding differs, by at most one ulp
+INT8_BF16_ATOL = 1e-4
+INT8_BF16_RTOL = 2.0 ** -7
 
 
 def _jax_decode(q, kpool, vpool, tables, pos, dtype):
@@ -270,3 +274,296 @@ def test_position_past_the_table_walks_the_table_only():
     past = _torch_args(*case, np.asarray([16, 40], np.int32), "fp32")
     torch.testing.assert_close(paged_decode_plain(*past),
                                paged_decode_plain(*last), atol=0, rtol=0)
+
+
+# --------------------------------------------------------------------- #
+# the int8-pool arity (K4 with quantized=True)
+# --------------------------------------------------------------------- #
+def _quantized(kpool, vpool, nb):
+    """(kq, vq, kscale, vscale) as numpy, by the JAX package's
+    quantize_kv."""
+    import jax.numpy as jnp
+
+    from deepspeed_tpu.ops.attention.paged import quantize_kv
+    kq, ks = quantize_kv(jnp.asarray(kpool), nb)
+    vq, vs = quantize_kv(jnp.asarray(vpool), nb)
+    return tuple(np.array(a) for a in (kq, vq, ks, vs))
+
+
+def _jax_decode_int8(q, kq, vq, ks, vs, tables, pos, dtype):
+    """K4's int8 arity in interpret mode; returns fp32 numpy."""
+    import jax.numpy as jnp
+
+    from deepspeed_tpu.ops.attention.paged import paged_decode_attention
+    jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    out = paged_decode_attention(
+        jnp.asarray(q).astype(jd), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(tables, jnp.int32), jnp.asarray(pos, jnp.int32),
+        interpret=True, k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _both_int8(q, kq, vq, ks, vs, tables, pos, dtype):
+    """(plain, wrapper-on-CPU) outputs of the port's int8 arity."""
+    from deepspeed_tpu_torch.ops.attention.paged import (
+        paged_decode_attention, paged_decode_plain)
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    t = (torch.from_numpy(q).to(td), torch.from_numpy(kq),
+         torch.from_numpy(vq), torch.from_numpy(np.asarray(tables, np.int32)),
+         torch.from_numpy(np.asarray(pos, np.int32)))
+    kw = dict(k_scales=torch.from_numpy(ks), v_scales=torch.from_numpy(vs))
+    return (paged_decode_plain(*t, **kw).float().numpy(),
+            paged_decode_attention(*t, **kw).float().numpy())
+
+
+@pytest.mark.parametrize("nb", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_quantize_kv_bitwise_equal_jax(dtype, nb):
+    """Payload and scales hold the JAX function's bits: one fp32
+    division for the scale, round half to even, a zero block at scale 1.
+    dequantize_pool inverts it with the same bits too."""
+    import jax.numpy as jnp
+
+    from deepspeed_tpu.ops.attention import paged as jp
+
+    from deepspeed_tpu_torch.ops.attention import paged as tp
+    rng = np.random.RandomState(nb)
+    x = (rng.randn(3, 2, 5, 16) * rng.choice([1e-3, 1.0, 30.0],
+                                             size=(3, 2, 5, 1))
+         ).astype(np.float32)
+    x[0, 0, 0] = 0.0                       # a zero row
+    x[1, 1, 2, :16 // nb] = 0.0            # a zero block
+    x[2, 0, 1] = np.round(x[2, 0, 1]) + 0.5    # values on rounding ties
+    jd, td = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+              else (jnp.float32, torch.float32))
+    jq, js = jp.quantize_kv(jnp.asarray(x).astype(jd), nb)
+    tq, ts = tp.quantize_kv(torch.from_numpy(x).to(td), nb)
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    assert ts.shape == (3, 2, 5, nb)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert (ts.numpy()[0, 0, 0] == 1.0).all() and ts.numpy()[1, 1, 2, 0] == 1
+    np.testing.assert_array_equal(
+        tp.dequantize_pool(tq, ts).numpy(),
+        np.asarray(jp.dequantize_pool(jq, js)))
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("nb", [1, 2])
+@pytest.mark.parametrize("gqa", [1, 4])
+@pytest.mark.parametrize("page_size", [8, 16])
+def test_int8_matches_jax_kernel_sweep(page_size, gqa, nb, dtype):
+    """The int8 arity against K4 (quantized) in interpret mode, with the
+    cache-position edges in one batch. Every product is fp32 on both
+    sides, so fp32 q holds FP32_ATOL (a plain version that rounded p as
+    the dense arity does would miss it by orders); bf16 q adds only the
+    output's rounding, which may land one bf16 ulp apart
+    (INT8_BF16_ATOL + INT8_BF16_RTOL |ref|)."""
+    rng = np.random.RandomState(page_size + gqa + nb)
+    P = 3
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=gqa,
+                                    page_size=page_size, pages_per_seq=P)
+    kq, vq, ks, vs = _quantized(kpool, vpool, nb)
+    pos = np.asarray([0, page_size - 1, page_size, page_size + 1,
+                      P * page_size - 1], np.int32)
+    ref = _jax_decode_int8(q, kq, vq, ks, vs, tables, pos, dtype)
+    atol, rtol = ((INT8_BF16_ATOL, INT8_BF16_RTOL) if dtype == "bf16"
+                  else (FP32_ATOL, 0))
+    for out in _both_int8(q, kq, vq, ks, vs, tables, pos, dtype):
+        np.testing.assert_allclose(out, ref, atol=atol, rtol=rtol)
+
+
+def test_int8_poisoned_dead_pages_and_scales_do_not_leak():
+    """Garbage payload under NaN scales in every page past each row's
+    live count must not reach the output: the result equals K4's on the
+    clean pools."""
+    rng = np.random.RandomState(12)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=2, page_size=8,
+                                    pages_per_seq=4, batch=2)
+    kq, vq, ks, vs = _quantized(kpool, vpool, 2)
+    pos = np.asarray([9, 3], np.int32)        # live pages: 2 and 1
+    ref = _jax_decode_int8(q, kq, vq, ks, vs, tables, pos, "fp32")
+    for b, live in ((0, 2), (1, 1)):
+        for page in tables[b, live:]:
+            kq[page] = vq[page] = -128
+            ks[page] = vs[page] = np.nan
+    for out in _both_int8(q, kq, vq, ks, vs, tables, pos, "fp32"):
+        assert np.isfinite(out).all()
+        np.testing.assert_allclose(out, ref, atol=FP32_ATOL, rtol=0)
+
+
+def test_int8_shared_prefix_pages_share_their_scales():
+    """Two rows whose tables point at the same physical pages read the
+    same payload and the same scale pages."""
+    rng = np.random.RandomState(10)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=2, page_size=8,
+                                    pages_per_seq=3, batch=3)
+    kq, vq, ks, vs = _quantized(kpool, vpool, 1)
+    tables[1] = tables[0]
+    q[1] = q[0]
+    pos = np.asarray([17, 17, 5], np.int32)
+    ref = _jax_decode_int8(q, kq, vq, ks, vs, tables, pos, "fp32")
+    for out in _both_int8(q, kq, vq, ks, vs, tables, pos, "fp32"):
+        np.testing.assert_allclose(out, ref, atol=FP32_ATOL, rtol=0)
+        np.testing.assert_array_equal(out[0], out[1])
+        assert not np.allclose(out[0], out[2])
+
+
+def test_int8_all_null_rows_are_zero():
+    rng = np.random.RandomState(11)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=1, page_size=8,
+                                    pages_per_seq=2, batch=3)
+    kq, vq, ks, vs = _quantized(kpool, vpool, 1)
+    tables[1] = 0
+    tables[2] = 0
+    pos = np.asarray([9, 0, 15], np.int32)
+    ref = _jax_decode_int8(q, kq, vq, ks, vs, tables, pos, "fp32")
+    np.testing.assert_array_equal(ref[1:], 0.0)
+    for out in _both_int8(q, kq, vq, ks, vs, tables, pos, "fp32"):
+        np.testing.assert_array_equal(out[1:], 0.0)
+        np.testing.assert_allclose(out, ref, atol=FP32_ATOL, rtol=0)
+
+
+def test_int8_unwritten_rows_inside_last_live_page_are_never_read():
+    """An unwritten row's scale may be anything, NaN included. K4
+    dequantizes the whole tile and multiplies the masked (zero)
+    probabilities by V, so a NaN scale past ``pos`` reaches its output;
+    the port never reads those rows."""
+    rng = np.random.RandomState(15)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=1, page_size=8,
+                                    pages_per_seq=2, batch=2)
+    kq, vq, ks, vs = _quantized(kpool, vpool, 1)
+    pos = np.asarray([10, 4], np.int32)
+    clean = _jax_decode_int8(q, kq, vq, ks, vs, tables, pos, "fp32")
+    ks[tables[0, 1], :, 3:] = vs[tables[0, 1], :, 3:] = np.nan
+    ks[tables[1, 0], :, 5:] = vs[tables[1, 0], :, 5:] = np.nan
+    assert np.isnan(_jax_decode_int8(q, kq, vq, ks, vs, tables, pos,
+                                     "fp32")).any()
+    for out in _both_int8(q, kq, vq, ks, vs, tables, pos, "fp32"):
+        np.testing.assert_allclose(out, clean, atol=FP32_ATOL, rtol=0)
+
+
+def test_int8_position_past_the_table_walks_the_table_only():
+    rng = np.random.RandomState(16)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=2, page_size=8,
+                                    pages_per_seq=2, batch=2)
+    quant = _quantized(kpool, vpool, 2)
+    last = _both_int8(q, *quant, tables, np.asarray([15, 15]), "fp32")[0]
+    past = _both_int8(q, *quant, tables, np.asarray([16, 40]), "fp32")[0]
+    np.testing.assert_array_equal(past, last)
+
+
+def test_int8_wrapper_wants_both_scales_and_counts_no_cpu_launch():
+    from deepspeed_tpu_torch.ops.attention.paged import \
+        paged_decode_attention
+    rng = np.random.RandomState(14)
+    q, kpool, vpool, tables = _case(rng, 1, 1, 8, 2, batch=2)
+    kq, vq, ks, vs = _quantized(kpool, vpool, 1)
+    args = (torch.from_numpy(q), torch.from_numpy(kq), torch.from_numpy(vq),
+            torch.from_numpy(tables), torch.tensor([3, 9], dtype=torch.int32))
+    with pytest.raises(ValueError, match="both k_scales and v_scales"):
+        paged_decode_attention(*args, k_scales=torch.from_numpy(ks))
+    before = (paged_decode_attention.launches,
+              paged_decode_attention.launches_int8)
+    paged_decode_attention(*args, k_scales=torch.from_numpy(ks),
+                           v_scales=torch.from_numpy(vs))
+    assert (paged_decode_attention.launches,
+            paged_decode_attention.launches_int8) == before
+
+
+def test_int8_read_bytes_match_jax():
+    from deepspeed_tpu.ops.attention import paged as jp
+
+    from deepspeed_tpu_torch.ops.attention import paged as tp
+    pos = [0, 15, 16, 300, 1023]
+    for nb in (1, 4):
+        assert tp.decode_read_bytes(pos, 16, 64, 8, 64, dtype_bytes=1,
+                                    scale_blocks=nb) == \
+            jp.decode_read_bytes(pos, 16, 64, 8, 64, dtype_bytes=1,
+                                 scale_blocks=nb)
+
+
+# the int8 kernel against its plain version on the card: every product
+# is fp32 in both; bf16 q adds one bf16 ulp of the output's rounding
+CUDA_INT8_TOL = {"bf16": dict(atol=1e-4, rtol=2.0**-7),
+                 "fp32": dict(atol=1e-5, rtol=1e-4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kv_heads,gqa,hd,page_size,nb", [
+    ("bf16", 8, 4, 64, 16, 1),     # the Llama serving shapes
+    ("bf16", 16, 1, 64, 16, 1),    # the GPT-2 345M serving shapes
+    ("fp32", 4, 1, 128, 8, 2),     # fp32 q, short pages, two blocks
+    ("bf16", 2, 4, 128, 16, 4),    # four scale blocks
+    ("fp32", 2, 8, 256, 8, 32),    # widest head, largest group, 8-wide blocks
+    ("fp32", 4, 2, 64, 128, 1),    # wide pages
+])
+def test_cuda_int8_kernel_matches_plain(dtype, kv_heads, gqa, hd, page_size,
+                                        nb):
+    """The sm_90a int8 kernel against its plain version on the card, with
+    the cache-position edges, an all-null row, and garbage payload under
+    NaN scales in every row past each position."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from deepspeed_tpu_torch.ops.attention.paged import (
+        paged_decode_attention, paged_decode_plain, quantize_kv)
+    rng = np.random.RandomState(hd + gqa + nb)
+    P = 4
+    q, kpool, vpool, tables = _case(rng, kv_heads, gqa, page_size, P, hd=hd,
+                                    batch=7)
+    tables[5] = 0
+    pos = np.asarray([0, page_size - 1, page_size, page_size + 1,
+                      P * page_size - 1, 7, P * page_size + 3], np.int32)
+    kq, ks = quantize_kv(torch.from_numpy(kpool), nb)
+    vq, vs = quantize_kv(torch.from_numpy(vpool), nb)
+    for b in (0, 1, 2, 3, 4):
+        last = pos[b] // page_size
+        for i in range(last, P):
+            dead = pos[b] % page_size + 1 if i == last else 0
+            for payload, scales in ((kq, ks), (vq, vs)):
+                payload[tables[b, i], :, dead:] = -128
+                scales[tables[b, i], :, dead:] = float("nan")
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    args = (torch.from_numpy(q).to(td).cuda(), kq.cuda(), vq.cuda(),
+            torch.from_numpy(tables).cuda(), torch.from_numpy(pos).cuda())
+    kw = dict(k_scales=ks.cuda(), v_scales=vs.cuda())
+    before = (paged_decode_attention.launches,
+              paged_decode_attention.launches_int8)
+    out = paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert (paged_decode_attention.launches,
+            paged_decode_attention.launches_int8) == (before[0],
+                                                      before[1] + 1)
+    ref = paged_decode_plain(*args, **kw)
+    assert torch.isfinite(out).all()
+    assert (out[5] == 0).all()
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **CUDA_INT8_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_int8_wrapper_raises_and_never_falls_back():
+    """On CUDA tensors the wrapper launches the kernel or raises: a
+    head_dim that is no multiple of 16, bf16 scales, and float pools
+    passed with scales are all refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from deepspeed_tpu_torch.ops.attention.paged import \
+        paged_decode_attention
+
+    def call(hd=64, pool_dtype=torch.int8, scale_dtype=torch.float32):
+        q = torch.zeros((2, 4, hd), device="cuda")
+        pool = torch.zeros((5, 2, 8, hd), dtype=pool_dtype, device="cuda")
+        sc = torch.ones((5, 2, 8, 1), dtype=scale_dtype, device="cuda")
+        return paged_decode_attention(
+            q, pool, pool, torch.zeros((2, 2), dtype=torch.int32,
+                                       device="cuda"),
+            torch.zeros((2,), dtype=torch.int32, device="cuda"),
+            k_scales=sc, v_scales=sc)
+    assert (call() == 0).all()
+    with pytest.raises(ValueError, match="multiple of 16"):
+        call(hd=24)
+    with pytest.raises(TypeError, match="int8 pools and fp32 scales"):
+        call(scale_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="int8 pools and fp32 scales"):
+        call(pool_dtype=torch.float32)

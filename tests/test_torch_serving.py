@@ -1,5 +1,5 @@
-"""The port's paged GPT-2 serving slice (deepspeed_tpu_torch/) against the
-JAX package on the CPU.
+"""The port's paged serving slices (deepspeed_tpu_torch/: GPT-2 and
+Llama, float and int8 KV pools) against the JAX package on the CPU.
 
 - ``params_from_jax`` carries the JAX init across through numpy, under
   both JAX layouts;
@@ -8,7 +8,10 @@ JAX package on the CPU.
   write the same pools;
 - greedy ``generate()`` equals the JAX engine's token for token, with
   more requests than slots and a shared page-aligned prefix, so
-  continuous batching and prefix-cache hits are both exercised;
+  continuous batching and prefix-cache hits are both exercised: for
+  both families, over the float and the int8 pool, with the paged-decode
+  path and the gather path (the Llama model itself is held against JAX
+  in tests/test_torch_llama.py);
 - config parsing resolves the same fields and raises the same errors;
 - nothing in the port, nor chip_smoke.py, imports jax or deepspeed_tpu.
 """
@@ -25,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.unit.test_inference import TINY_INF, tiny_gpt2
+from tests.unit.test_inference import TINY_INF, tiny_gpt2, tiny_llama
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 LOGIT_ATOL = 1e-4
@@ -150,6 +153,68 @@ def test_greedy_generate_matches_jax_engine(attn_kernel):
     assert pool["pages_in_use"] == 0            # everything freed
 
 
+def _tiny_family(family):
+    """(JAX config, JAX params, port config, port params)."""
+    if family == "gpt2":
+        cfg, params = tiny_gpt2()
+        return cfg, params, _port_config(cfg), _port_params(params)
+    from deepspeed_tpu_torch.models.llama import (LlamaConfig,
+                                                  llama_params_from_jax)
+    cfg, params = tiny_llama()
+    return cfg, params, LlamaConfig(**cfg._asdict()), llama_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params))
+
+
+@pytest.mark.parametrize("attn_kernel", ["pallas", "gather"])
+@pytest.mark.parametrize("family,kv", [("gpt2", "int8"), ("llama", "fp"),
+                                       ("llama", "int8")])
+def test_greedy_generate_families_and_pools_match_jax(family, kv,
+                                                      attn_kernel):
+    """Llama over the float pool and both families over the int8 pool
+    (two scale blocks per token row), token for token, with continuous
+    batching and prefix reuse happening under quantization too. GPT-2
+    over the float pool is test_greedy_generate_matches_jax_engine."""
+    from deepspeed_tpu.inference import InferenceEngine as JaxEngine
+
+    from deepspeed_tpu_torch import InferenceEngine
+    cfg, params, tcfg, tparams = _tiny_family(family)
+    icfg = copy.deepcopy(PAGED_INF)
+    icfg["paged_kv"]["attn_kernel"] = attn_kernel
+    if kv == "int8":
+        icfg["paged_kv"].update(kv_dtype="int8", kv_quant_block=4)
+    ref = JaxEngine(cfg, params, icfg, dtype=jnp.float32).generate(
+        PROMPTS, max_new_tokens=6)
+    eng = InferenceEngine(tcfg, tparams, icfg, dtype=torch.float32,
+                          device="cpu")
+    assert eng.family == family
+    assert len(eng._cache) == (4 if kv == "int8" else 2)
+    out = eng.generate(PROMPTS, max_new_tokens=6)
+    assert out == ref
+    state = eng.debug_state()
+    assert state["page_pool"]["prefix_cache"]["hit_requests"] >= 1
+    assert state["page_pool"]["pages_in_use"] == 0
+    assert state["quantization"]["kv_dtype"] == (
+        "int8" if kv == "int8" else "float32")
+
+
+def test_llama_engine_serves_the_stacked_layout():
+    """A ``scan_layers`` tree (blocks stacked under ``h``) serves as it
+    is, and generates what the ``h_{i}`` layout generates."""
+    from deepspeed_tpu_torch import InferenceEngine
+    from deepspeed_tpu_torch.utils.tree import tree_map
+    _, _, tcfg, tparams = _tiny_family("llama")
+    stacked = {k: v for k, v in tparams.items() if not k.startswith("h_")}
+    stacked["h"] = tree_map(lambda *xs: torch.stack(xs),
+                            *(tparams[f"h_{i}"]
+                              for i in range(tcfg.num_layers)))
+    icfg = dict(PAGED_INF, paged_kv={"page_size": 4, "kv_dtype": "int8"})
+    out = [InferenceEngine(tcfg, p, icfg, dtype=torch.float32,
+                           device="cpu").generate(PROMPTS[:3],
+                                                  max_new_tokens=4)
+           for p in (tparams, stacked)]
+    assert out[0] == out[1]
+
+
 def test_warmup_then_serve_with_events(tmp_path):
     """warmup runs every bucket shape once; the events.jsonl rows keep the
     JAX schema, so tools/obs_report.py reads a port run."""
@@ -272,7 +337,7 @@ def test_observability_serve_section_like_jax(obs):
     ({"disagg": {"enabled": True}}, "disagg"),
     ({"chunked_prefill": {"enabled": True, "chunk_tokens": 8}},
      "chunked_prefill"),
-    ({"paged_kv": {"kv_dtype": "int8"}}, "int8"),
+    ({"quantize_weights": True}, "quantize_weights"),      # the bf16 alias
     ({"quantize_weights": "int8"}, "quantize_weights"),
 ])
 def test_unported_features_raise(override, feature):
@@ -285,11 +350,21 @@ def test_unported_features_raise(override, feature):
 
 
 def test_unported_model_and_checkpoint_raise():
-    from deepspeed_tpu.models.llama import LlamaConfig
+    """A config outside the family table is refused with the JAX
+    engine's error: the JAX package's own LlamaConfig is such a class
+    to the port, which serves its own."""
+    from deepspeed_tpu.inference import InferenceEngine as JaxEngine
+    from deepspeed_tpu.models.bert import BertConfig
+    from deepspeed_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 
     from deepspeed_tpu_torch import InferenceEngine
-    with pytest.raises(NotImplementedError, match="LlamaConfig"):
-        InferenceEngine(LlamaConfig(), {}, device="cpu")
+    with pytest.raises(TypeError) as jerr:
+        JaxEngine(BertConfig(), {})
+    with pytest.raises(TypeError) as terr:
+        InferenceEngine(BertConfig(), {}, device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    with pytest.raises(TypeError, match="unsupported model config"):
+        InferenceEngine(JaxLlamaConfig(), {}, device="cpu")
     with pytest.raises(NotImplementedError, match="from_checkpoint"):
         InferenceEngine.from_checkpoint("/nonexistent", None)
 
@@ -315,6 +390,7 @@ def test_port_imports_neither_jax_nor_deepspeed_tpu():
     files = sorted((REPO / "deepspeed_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    assert REPO / "deepspeed_tpu_torch" / "models" / "llama.py" in files
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -323,9 +399,9 @@ def test_port_imports_neither_jax_nor_deepspeed_tpu():
 
 
 def test_port_package_imports_without_jax():
-    """Importing the port (serving and training entry points, the
-    masked-flash kernels' module) in a fresh interpreter loads no jax
-    module."""
+    """Importing the port (serving and training entry points, both
+    model families, the kernels' modules) in a fresh interpreter loads
+    no jax module."""
     import subprocess
     import sys
     code = ("import sys; before = set(sys.modules); "
@@ -333,6 +409,9 @@ def test_port_package_imports_without_jax():
             "import deepspeed_tpu_torch.inference.engine; "
             "import deepspeed_tpu_torch.runtime.engine; "
             "import deepspeed_tpu_torch.ops.attention.masked_flash; "
+            "import deepspeed_tpu_torch.ops.attention.paged; "
+            "import deepspeed_tpu_torch.models.llama; "
+            "import deepspeed_tpu_torch.inference.kv_cache; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'deepspeed_tpu')]; "
             "assert not bad, bad")

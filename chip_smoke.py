@@ -71,10 +71,34 @@ Phases 10 to 12 run after phase 4, before the training phases.
    attention, over the fp32 pool (logits compared) and over the int8
    pool (logits and pools compared).
 12. GPT-2 345M over the int8 pool, 8 requests (G 1 on the main path).
-13. the {"kernels": [...]} line, the nvidia-smi line, and last
-   {"ok": true, "device": {...}}.
+Phases 13 to 17 run after phase 9.
+13. bert_kernel_check: K1, K2 and K3 in their key-mask arity (BERT's
+   additive padding mask, -1e9 on the pads) against their plain versions
+   on the card: BERT-large's attention (B 8, H 16, S 128, D 64, bf16,
+   dense, block 128, real lengths 64-128) at dropout 0 and 0.1, S 512
+   with lengths 256-512, a batch row whose keys are all pads, GQA (Hkv
+   4, G 4, D 128), fp32 at block 64, and a causal mask under the key
+   mask. Control: the plain versions without the key mask must fail the
+   same check on every output.
+14. bert_kernel_timing: the three at S 128 and S 512, timed as in phase
+   6, beside the bound, the plain version and SDPA with the same float
+   (B, 1, 1, S) mask.
+15. bert_training: BERT-large (nothing cut, random weights from seed 0)
+   with examples/bing_bert/ds_config.json as the repo holds it (Lamb,
+   WarmupLR, clipping 1.0, ZeRO 1, micro batch 8, ga 2, bf16 over fp32
+   masters, dropout 0.1) on padded synthetic MLM batches: 2 warm-up and
+   10 timed steps at seq 128 (step ms, samples/s, real tokens/s, MFU,
+   peak memory, losses, lrs, Lamb coefficients), a profile of 2 more,
+   then 3 timed steps at seq 512. Checks finite losses, the lr of each
+   step against WarmupLR.lr_at, the coefficients inside [0.01, 0.3], and
+   48 key-mask launches of each kernel per step and no mask-free one.
+16. bert_kernel_vs_plain: a 2-layer full-width BERT-large in fp32 on a
+   padded batch, the kernel path against the plain path.
+17. the {"kernels": [...]} line (with the three key-mask entries), the
+   nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -117,6 +141,9 @@ LSE_ATOL = 1e-3           # lse is fp32 in both: differently ordered sums
 # error and each grad's error relative to the grad's largest entry
 TRAIN_MODEL_LOSS_RTOL = 1e-5
 TRAIN_MODEL_GRAD_TOL = 1e-4
+# the same for BERT's MLM loss, whose head rounds its operands to bf16
+# (bert_kernel_vs_plain_phase): one bf16 ulp of each grad's largest entry
+BERT_HEAD_GRAD_TOL = 2.0 ** -8
 TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 # by card (NVIDIA data sheets): device-memory bytes/s, dense bf16 FLOP/s
 # on the tensor cores, fp32 FLOP/s outside them
@@ -888,36 +915,41 @@ def compare(out, ref, atol, rtol, rms):
 
 
 def check_train_kernels(name, mask, args, rate, seed=-123457,
-                        control=False):
+                        control=False, key_mask=None):
     """K1, K2 and K3 against their plain versions on the same inputs;
     the backward kernels get the plain forward's lse and delta, so each
-    kernel is held against its own plain version. With ``control`` (bf16
-    only), the plain versions also run on fp32 copies of the inputs,
-    which leaves out the rounding of p and ds before their products, and
-    that control must fail the same check on every output."""
+    kernel is held against its own plain version. With ``key_mask`` the
+    kernels' key-mask arity runs. With ``control``, a plain version that
+    leaves out what the check must catch has to fail the same check on
+    every output: without a key mask (bf16 only), the plain versions run
+    on fp32 copies of the inputs, which leaves out the rounding of p and
+    ds before their products; with one, they run without the key
+    mask."""
     import torch
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
     q, k, v, do = args
     scale = 1.0 / float(np.sqrt(q.shape[-1]))
-    o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed)
+    o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed, key_mask)
     torch.cuda.synchronize()
-    o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed)
+    o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed,
+                                           key_mask)
     delta = (do.float() * o_p.float()).sum(-1)
-    dq = mf.masked_flash_dq(q, k, v, do, lse_p, delta, mask, scale, rate,
-                            seed)
-    dk, dv = mf.masked_flash_dkv(q, k, v, do, lse_p, delta, mask, scale,
-                                 rate, seed)
+    bwd = (q, k, v, do, lse_p, delta, mask, scale, rate, seed, key_mask)
+    dq = mf.masked_flash_dq(*bwd)
+    dk, dv = mf.masked_flash_dkv(*bwd)
     torch.cuda.synchronize()
-    dq_p = mf.masked_flash_dq_plain(q, k, v, do, lse_p, delta, mask, scale,
-                                    rate, seed)
-    dk_p, dv_p = mf.masked_flash_dkv_plain(q, k, v, do, lse_p, delta, mask,
-                                           scale, rate, seed)
+    dq_p = mf.masked_flash_dq_plain(*bwd)
+    dk_p, dv_p = mf.masked_flash_dkv_plain(*bwd)
     tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
     row = {"phase": "train_kernel_check", "case": name,
            "dtype": str(q.dtype), "shape_q": list(q.shape),
            "shape_kv": list(k.shape), "block": mask.block,
            "mask_heads": mask.heads, "walked_tiles": mask.nnz,
-           "dropout": rate, "tol": tol, "lse_atol": LSE_ATOL}
+           "dropout": rate, "key_mask": key_mask is not None,
+           "tol": tol, "lse_atol": LSE_ATOL}
+    if key_mask is not None:
+        real = (key_mask == 0).sum(-1)
+        row["real_keys_per_row"] = [int(n) for n in real.tolist()]
     refs = {"o": o_p, "dq": dq_p, "dk": dk_p, "dv": dv_p}
     ok = True
     for key, out in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
@@ -931,12 +963,18 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     row["lse_max_abs_err"] = lse_err
     ok &= lse_err <= LSE_ATOL
     if control:
-        f32 = [t.float() for t in args]
-        o_c, _ = mf.masked_flash_fwd_plain(*f32[:3], mask, scale, rate, seed)
-        dq_c = mf.masked_flash_dq_plain(*f32, lse_p, delta, mask, scale,
-                                        rate, seed)
-        dk_c, dv_c = mf.masked_flash_dkv_plain(*f32, lse_p, delta, mask,
-                                               scale, rate, seed)
+        if key_mask is None:
+            row["control"] = "fp32 inputs: no rounding of p and ds"
+            c_args = [t.float() for t in args]
+            c_bwd = (*c_args, lse_p, delta, mask, scale, rate, seed)
+        else:
+            row["control"] = "the key mask left out"
+            c_args = args
+            c_bwd = (*args, lse_p, delta, mask, scale, rate, seed)
+        o_c, _ = mf.masked_flash_fwd_plain(*c_args[:3], mask, scale, rate,
+                                           seed)
+        dq_c = mf.masked_flash_dq_plain(*c_bwd)
+        dk_c, dv_c = mf.masked_flash_dkv_plain(*c_bwd)
         for key, out in (("o", o_c), ("dq", dq_c), ("dk", dk_c),
                          ("dv", dv_c)):
             ratio, rel_rms, _, good = compare(out.to(q.dtype), refs[key],
@@ -949,8 +987,8 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     emit(row)
     if not ok:
         raise AssertionError(f"masked flash kernels disagree with their "
-                             f"plain versions on {name}, or the check "
-                             f"misses the bf16 rounding: {row}")
+                             f"plain versions on {name}, or the control "
+                             f"passes the check: {row}")
     return row
 
 
@@ -1326,7 +1364,7 @@ def train_kernel_vs_plain_phase(device="cuda", batch=2, seq=1024):
         if ran_kernel != (path == "kernel"):
             raise AssertionError(f"the {path} path ran the kernel: "
                                  f"{ran_kernel}")
-        results[path] = (float(loss), grads)
+        results[path] = (float(loss.detach()), grads)
     (lk, gk), (lp, gp) = results["kernel"], results["plain"]
     loss_rel = abs(lk - lp) / abs(lp)
     worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
@@ -1340,6 +1378,415 @@ def train_kernel_vs_plain_phase(device="cuda", batch=2, seq=1024):
             and worst <= TRAIN_MODEL_GRAD_TOL):
         raise AssertionError(f"kernel path differs from the plain path: "
                              f"loss {loss_rel}, grads {worst}")
+
+
+# ---------------------------------------------------------------- BERT
+# BERT-large's attention at the bing_bert micro batch: B 8, 16 heads of
+# 64, seq 128, one dense tile per (row, head) at block 128
+BERT_SHAPE = dict(B=8, H=16, Hkv=16, S=128, D=64, block=128)
+BERT_DS_CONFIG = "examples/bing_bert/ds_config.json"
+BERT_STEPS, BERT_WARMUP, BERT_STEPS_512 = 10, 2, 3
+KPM_NAMES = ("masked_flash_fwd", "masked_flash_dq", "masked_flash_dkv")
+
+
+def bert_key_mask(rng, batch, seq, min_len, all_pad_rows=()):
+    """BERT's additive key mask on the card, (B, S) fp32: each row's real
+    length drawn from [min_len, seq], -1e9 on the pads (bert_encoder's
+    mask), every key a pad in ``all_pad_rows``."""
+    import torch
+    lengths = rng.randint(min_len, seq + 1, size=batch)
+    am = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.float32)
+    am[list(all_pad_rows)] = 0.0
+    return torch.from_numpy((1.0 - am) * -1e9).float().cuda()
+
+
+def bert_kernel_check_phase():
+    """K1, K2 and K3 in their key-mask arity against their plain versions
+    on the card; each case's control (the plain versions with the key
+    mask left out) must fail. Returns the main case's row (dropout 0)."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention.masked_flash import BlockMask
+    rng = np.random.RandomState(SEED + 5)
+    m = BERT_SHAPE
+    bf16 = torch.bfloat16
+    main = train_inputs(rng, m["B"], m["H"], m["Hkv"], m["S"], m["D"], bf16)
+    dense = BlockMask.dense(m["S"], m["S"], m["block"])
+    kpm = bert_key_mask(rng, m["B"], m["S"], 64)
+    main_row = check_train_kernels("bert_large_s128_bf16", dense, main, 0.0,
+                                   control=True, key_mask=kpm)
+    check_train_kernels("bert_large_s128_bf16_dropout0.1", dense, main, 0.1,
+                        control=True, key_mask=kpm)
+    cases = [
+        # name, mask, (B, H, Hkv, S, D), dtype, rate, min_len, all-pad rows
+        ("bert_large_s512_bf16_dropout0.1", BlockMask.dense(512, 512, 128),
+         (8, 16, 16, 512, 64), bf16, 0.1, 256, ()),
+        ("all_pad_row_s128_bf16", dense, (4, 16, 16, 128, 64), bf16, 0.0,
+         64, (2,)),
+        ("gqa_hkv4_g4_hd128_bf16_dropout0.1", BlockMask.dense(256, 256, 128),
+         (2, 16, 4, 256, 128), bf16, 0.1, 100, ()),
+        ("fp32_block64_dropout0.1", BlockMask.dense(256, 256, 64),
+         (2, 4, 4, 256, 64), torch.float32, 0.1, 100, ()),
+        ("causal_with_key_mask_bf16", BlockMask.causal(512, 128),
+         (2, 8, 8, 512, 64), bf16, 0.0, 200, ()),
+    ]
+    for name, mask, (B, H, Hkv, S, D), dtype, rate, min_len, pads in cases:
+        check_train_kernels(name, mask, train_inputs(rng, B, H, Hkv, S, D,
+                                                     dtype),
+                            rate, control=True,
+                            key_mask=bert_key_mask(rng, B, S, min_len, pads))
+    return main_row
+
+
+def bert_kernel_timing_phase(smi):
+    """The key-mask arity of K1, K2 and K3 at BERT-large's attention (B 8,
+    H 16, D 64, bf16, dense, block 128) at seq 128 and 512, each timed
+    as train_kernel_timing times the causal arity, beside its bound, its
+    plain version and SDPA with the same float (B, 1, 1, S) mask."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    from deepspeed_tpu_torch.ops.attention.masked_flash import BlockMask
+    rng = np.random.RandomState(SEED + 6)
+    bytes_per_s, flops_per_s = card_peaks(smi)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for S, min_len in ((128, 64), (512, 256)):
+        m = dict(BERT_SHAPE, S=S)
+        B, H, D = m["B"], m["H"], m["D"]
+        q, k, v, do = train_inputs(rng, B, H, m["Hkv"], S, D, torch.bfloat16)
+        kpm = bert_key_mask(rng, B, S, min_len)
+        mask = BlockMask.dense(S, S, m["block"])
+        scale = 1.0 / float(np.sqrt(D))
+        o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, key_mask=kpm)
+        delta = (do.float() * o.float()).sum(-1)
+        tile = B * H * S * D * 2
+        rowvec = B * H * S * 4
+        mask_bytes = kpm.numel() * 4
+        walks = {"csr": sum(a.nbytes for a in mask.csr()),
+                 "csc": sum(a.nbytes for a in mask.csc())}
+        am = kpm[:, None, None, :].to(torch.bfloat16)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am)
+        sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=am), TIMED_CALLS, flush)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qs, ks, vs), do, retain_graph=True), TIMED_CALLS,
+            flush)
+        bwd = (q, k, v, do, lse, delta, mask, scale)
+        specs = {
+            # name: (call, plain call, dots per tile, bytes in, bytes out,
+            #        replaces, library ms)
+            "masked_flash_fwd": (
+                lambda: mf.masked_flash_fwd(q, k, v, mask, scale,
+                                            key_mask=kpm),
+                lambda: mf.masked_flash_fwd_plain(q, k, v, mask, scale,
+                                                  key_mask=kpm),
+                2, 3 * tile + mask_bytes, tile + rowvec,
+                "deepspeed_tpu/ops/attention/masked_flash.py:495-496 "
+                "(the has_kpm arity of _mf_fwd_kernel :450)", sdpa_fwd_ms),
+            "masked_flash_dq": (
+                lambda: mf.masked_flash_dq(*bwd, key_mask=kpm),
+                lambda: mf.masked_flash_dq_plain(*bwd, key_mask=kpm),
+                3, 4 * tile + 2 * rowvec + mask_bytes, tile,
+                "deepspeed_tpu/ops/attention/masked_flash.py:580-581 "
+                "(the has_kpm arity of _mf_dq_kernel :532)", sdpa_bwd_ms),
+            "masked_flash_dkv": (
+                lambda: mf.masked_flash_dkv(*bwd, key_mask=kpm),
+                lambda: mf.masked_flash_dkv_plain(*bwd, key_mask=kpm),
+                4, 4 * tile + 2 * rowvec + mask_bytes, 2 * tile,
+                "deepspeed_tpu/ops/attention/masked_flash.py:620-621, "
+                ":654-655 (the has_kpm arity of _mf_dkv_kernel :604)",
+                sdpa_bwd_ms),
+        }
+        for name, (call, plain, dots, b_in, b_out, replaces, lib) in \
+                specs.items():
+            kernel_ms = time_ms(call, TIMED_CALLS, flush)
+            plain_ms = time_ms(plain, 20, flush)
+            # every walked tile's products: the kernels compute the
+            # padded keys' scores too (their p is 0), as the Pallas
+            # kernels do
+            flops = mask.nnz * H * B * dots * 2 * mask.block ** 2 * D
+            nbytes = b_in + b_out + walks[
+                "csc" if name == "masked_flash_dkv" else "csr"]
+            bytes_ms = nbytes / bytes_per_s * 1e3
+            ops_ms = flops / flops_per_s * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            emit({"phase": "bert_kernel_timing", "kernel": f"{name}_kpm",
+                  "shape": dict(m, dtype="bf16", mask="dense",
+                                key_mask=f"lengths {min_len}-{S}"),
+                  "flops": flops, "bytes": nbytes, "kernel_ms": kernel_ms,
+                  "plain_ms": plain_ms, "library_ms": lib,
+                  "library": ("scaled_dot_product_attention forward, "
+                              "float (B, 1, 1, S) mask"
+                              if name == "masked_flash_fwd" else
+                              "scaled_dot_product_attention backward "
+                              "(dq, dk, dv together), float mask"),
+                  "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "achieved_tflop_per_s": flops / kernel_ms / 1e9,
+                  "nvidia_smi": smi})
+            out.setdefault(name, {})[S] = {
+                "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "replaces": replaces}
+    return out
+
+
+def bert_batches(vocab, batch, seq, min_len, n, seed=SEED):
+    """``n`` synthetic MLM micro batches in the manner of
+    examples/bing_bert/train.py, with each row's real length drawn from
+    [min_len, seq]: attention_mask 0 on the pads, labels -100 on the pads
+    and on the real tokens not picked (15% picked, replaced by [MASK] =
+    103)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, vocab, (batch, seq))
+        lengths = rng.randint(min_len, seq + 1, size=batch)
+        am = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int32)
+        picked = (rng.rand(batch, seq) < 0.15) & (am == 1)
+        labels = np.where(picked, ids, -100).astype(np.int32)
+        ids = np.where(picked, 103, ids) * am
+        out.append({"input_ids": ids.astype(np.int32),
+                    "attention_mask": am, "labels": labels})
+    return out
+
+
+def _kpm_launches():
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    return {n: (getattr(mf, n).launches_kpm,
+                getattr(mf, n).launches - getattr(mf, n).launches_kpm)
+            for n in KPM_NAMES}
+
+
+def _reset_kpm_launches():
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    for n in KPM_NAMES:
+        getattr(mf, n).launches = 0
+        getattr(mf, n).launches_kpm = 0
+
+
+def bert_training_phase(smi, device="cuda", config=None, seq=128,
+                        min_len=64, steps=BERT_STEPS, warmup=BERT_WARMUP,
+                        profile=True):
+    """BERT-large MLM trained through initialize + train_batch with the
+    bing_bert config as the repo holds it (Lamb, WarmupLR, clipping 1.0,
+    ZeRO 1, micro batch 8, ga 2, bf16 over fp32 masters, dropout 0.1).
+    Checks finite losses, the lr of every step against WarmupLR.lr_at,
+    the Lamb coefficients inside [min_coeff, max_coeff], and that K1, K2
+    and K3 launched their key-mask arity once per layer per micro batch
+    and their mask-free arity never. Returns the kpm launches."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import (BERT_LARGE,
+                                                 bert_mlm_loss_fn,
+                                                 count_params,
+                                                 init_bert_params)
+    from deepspeed_tpu_torch.runtime.lr_schedules import WarmupLR
+    cfg = config or BERT_LARGE
+    on_cuda = torch.device(device).type == "cuda"
+    with open(BERT_DS_CONFIG) as f:
+        ds_config = json.load(f)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_bert_params(cfg, gen)
+    n_params = count_params(params)
+    engine, opt, _, sched = deepspeed_tpu_torch.initialize(
+        model=bert_mlm_loss_fn(cfg, dtype=torch.bfloat16),
+        model_parameters=params, config=ds_config, device=device)
+    del params
+    if not isinstance(sched, WarmupLR):
+        raise AssertionError(f"the bing_bert config built {sched!r}")
+    want_sched = WarmupLR(**ds_config["scheduler"]["params"])
+    micro, ga = (engine.train_micro_batch_size_per_gpu(),
+                 engine.gradient_accumulation_steps)
+    data = bert_batches(cfg.vocab_size, micro, seq, min_len,
+                        n=ga * (warmup + steps + 2))
+    it = iter(data)
+    for _ in range(warmup):
+        engine.train_batch(it)
+    if on_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_kpm_launches()
+    losses, lrs, trusts = [], [], []
+    step0 = engine.global_steps
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lrs.append(engine.get_lr()[0])
+        losses.append(engine.train_batch(it))
+        trusts.append(opt.last_trust)
+    if on_cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kpm_launches()
+    losses = [float(x) for x in losses]
+    coeffs = torch.stack(trusts).float().cpu()
+    want_lrs = [want_sched.lr_at(step0 + i) for i in range(steps)]
+    timed = data[ga * warmup:ga * (warmup + steps)]
+    real_tokens = sum(int(b["attention_mask"].sum()) for b in timed)
+    L, H = cfg.num_layers, cfg.hidden_size
+    # per token the step computes (pads included): 6N for the GEMMs'
+    # forward and backward, 12 L S H for attention's
+    flops_per_token = 6 * n_params + 12 * L * seq * H
+    step_s = wall / steps
+    tokens_per_s = micro * ga * seq / step_s
+    row = {"phase": "bert_training",
+           "model": "bert-large" if cfg == BERT_LARGE else "bert",
+           "params": n_params, "config": BERT_DS_CONFIG,
+           "micro_batch": micro, "grad_acc": ga, "seq": seq,
+           "real_lengths": f"{min_len}-{seq}",
+           "dtype": "bf16 over fp32 masters", "optimizer": "Lamb",
+           "zero_stage": engine.zero_optimization_stage(),
+           "warmup_steps": warmup, "steps": steps,
+           "step_ms": step_s * 1e3,
+           "samples_per_s": micro * ga / step_s,
+           "real_tokens_per_s": real_tokens / wall,
+           "tokens_per_s": tokens_per_s,
+           "flops_per_token": flops_per_token,
+           "mfu_formula": "(6 N + 12 L S H) x computed tokens/s / dense "
+                          "bf16 peak", "losses": losses, "lrs": lrs,
+           "lamb_coeff_min": float(coeffs.min()),
+           "lamb_coeff_max": float(coeffs.max()),
+           "kpm_launches": {n: c[0] for n, c in launches.items()},
+           "mask_free_launches": {n: c[1] for n, c in launches.items()},
+           "nvidia_smi": smi}
+    if on_cuda:
+        _, peak_flops = card_peaks(smi)
+        row["mfu"] = flops_per_token * tokens_per_s / peak_flops
+        row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    emit(row)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite BERT loss: {losses}")
+    if not np.allclose(lrs, want_lrs, rtol=1e-12, atol=0):
+        raise AssertionError(f"lr {lrs} != WarmupLR.lr_at {want_lrs}")
+    # the ratios are fp32: the bounds as fp32 rounds them
+    lo, hi = (float(np.float32(c)) for c in (opt.min_coeff, opt.max_coeff))
+    if not (lo <= row["lamb_coeff_min"] and row["lamb_coeff_max"] <= hi):
+        raise AssertionError(f"Lamb coefficients outside [{lo}, {hi}]: "
+                             f"{row['lamb_coeff_min']}, "
+                             f"{row['lamb_coeff_max']}")
+    for name, (kpm_n, free_n) in launches.items():
+        if kpm_n != L * ga * steps or free_n != 0:
+            raise AssertionError(
+                f"{name}: {kpm_n} key-mask launches in {steps} steps (want "
+                f"{L * ga} per step) and {free_n} mask-free ones (want 0)")
+    if on_cuda and profile:
+        bert_profile_phase(engine, it, row["step_ms"])
+    return {n: c[0] for n, c in launches.items()}
+
+
+def bert_profile_phase(engine, it, step_ms, steps=2):
+    """Where a BERT step's time goes: a torch.profiler window over
+    ``steps`` train_batch calls, the kernels' device time per step by
+    group, and the device idle share left of the unprofiled step time.
+    The MLM head's vocab GEMMs are the fp32 ones (TF32 off) and its
+    log-softmax; Lamb, the accumulation and the clipping are the
+    multi-tensor (foreach) kernels and the norms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.train_batch(it)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3 / steps,
+                e.count / steps)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.self_device_time_total > 0]
+    kernels.sort(key=lambda k: -k[1])
+    groups = {"K1-K3 (key-mask arity)": ("mf_fwd_kernel", "mf_dq_kernel",
+                                         "mf_dkv_kernel"),
+              "mlm head (fp32 GEMMs, log-softmax)": ("sgemm", "f32f32",
+                                                     "softmax"),
+              "gemm (bf16)": ("gemm", "nvjet", "xmma", "cutlass", "cublas"),
+              "lamb, accumulation, clipping (foreach, norms)": (
+                  "multi_tensor", "foreach", "norm_kernel", "reduce_kernel")}
+    by_group = {g: 0.0 for g in list(groups) + ["other"]}
+    for name, ms, _ in kernels:
+        low = name.lower()
+        group = next((g for g, keys in groups.items()
+                      if any(k in low for k in keys)), "other")
+        by_group[group] += ms
+    busy_ms = sum(k[1] for k in kernels)
+    emit({"phase": "bert_profile", "steps": steps, "step_ms": step_ms,
+          "device_busy_ms_per_step": busy_ms,
+          "device_idle_share": 1 - busy_ms / step_ms,
+          "ms_per_step_by_group": by_group,
+          "kernel_launches_per_step": sum(k[2] for k in kernels),
+          "top_kernels": [{"name": k[0][:90], "ms_per_step": k[1],
+                           "calls_per_step": k[2]} for k in kernels[:15]]})
+
+
+def bert_kernel_vs_plain_phase(device="cuda", batch=4, seq=128):
+    """A 2-layer full-width BERT-large in fp32 on a padded batch, dropout
+    0, through the kernels' key-mask arity and through their plain
+    versions: the encoder (a fixed random linear function of its output,
+    and every grad of it) at the TRAIN_MODEL_* tolerances, and the MLM
+    loss and its grads. The MLM head's product rounds its operands to
+    bf16 in an fp32 model too (matmul_bf16_accum_fp32, as in JAX), so a
+    value the two paths carry a few fp32 ulps apart may round to
+    neighbouring bf16 values there: the loss's grads are held to one bf16
+    ulp (BERT_HEAD_GRAD_TOL) of each grad's largest entry."""
+    import torch
+    from deepspeed_tpu_torch.models.bert import (BERT_LARGE, bert_encoder,
+                                                 bert_mlm_loss_fn,
+                                                 init_bert_params)
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    cfg = BERT_LARGE._replace(num_layers=2)
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    params = init_bert_params(cfg, gen)
+    leaves = list(tree_leaves(params))
+    for t in leaves:
+        t.requires_grad_()
+    data = {k: torch.from_numpy(v).to(device) for k, v in
+            bert_batches(cfg.vocab_size, batch, seq, 40, 1,
+                         seed=SEED + 7)[0].items()}
+    r = torch.randn((batch, seq, cfg.hidden_size), generator=gen,
+                    device=device)
+    mlm = bert_mlm_loss_fn(cfg, dtype=torch.float32, deterministic=True)
+
+    def encoder(p):
+        out = bert_encoder(p, cfg, data["input_ids"], data["attention_mask"],
+                           dtype=torch.float32)
+        return (out * r).sum()
+    row = {"phase": "bert_kernel_vs_plain", "model": "bert-large-width",
+           "layers": 2, "dtype": "fp32", "batch": batch, "seq": seq,
+           "real_lengths": f"40-{seq}", "loss_rtol": TRAIN_MODEL_LOSS_RTOL}
+    ok = True
+    for name, fn, grad_tol in (
+            ("encoder", encoder, TRAIN_MODEL_GRAD_TOL),
+            ("mlm_loss", lambda p: mlm(p, data, None), BERT_HEAD_GRAD_TOL)):
+        results = {}
+        for path in ("kernel", "plain"):
+            before = _kpm_launches()["masked_flash_fwd"][0]
+            with (_PlainMaskedFlash() if path == "plain"
+                  else contextlib.nullcontext()):
+                loss = fn(params)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            ran_kernel = _kpm_launches()["masked_flash_fwd"][0] > before
+            if ran_kernel != (path == "kernel"):
+                raise AssertionError(f"the {path} path ran the kernel: "
+                                     f"{ran_kernel}")
+            results[path] = (float(loss.detach()), grads)
+        (lk, gk), (lp, gp) = results["kernel"], results["plain"]
+        pairs = [(a, b) for a, b in zip(gk, gp) if b is not None]
+        loss_rel = abs(lk - lp) / abs(lp)
+        worst = max(float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30) for a, b in pairs)
+        row.update({f"{name}_kernel": lk, f"{name}_plain": lp,
+                    f"{name}_rel_err": loss_rel, f"{name}_grads": len(pairs),
+                    f"{name}_worst_grad_rel_err": worst,
+                    f"{name}_grad_tol": grad_tol})
+        ok &= loss_rel <= TRAIN_MODEL_LOSS_RTOL and worst <= grad_tol
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        raise AssertionError(f"BERT kernel path differs from the plain "
+                             f"path: {row}")
 
 
 def main() -> int:
@@ -1386,6 +1833,13 @@ def main() -> int:
     train_launches = training_phase(smi)
     training_dropout_phase()
     train_kernel_vs_plain_phase()
+    bert_check = bert_kernel_check_phase()
+    bert_timing = bert_kernel_timing_phase(smi)
+    bert_launches = bert_training_phase(smi)
+    bert_launches_512 = bert_training_phase(
+        smi, seq=512, min_len=256, steps=BERT_STEPS_512,
+        profile=False)
+    bert_kernel_vs_plain_phase()
 
     kernels = [dict(
         name="paged_decode", route="cuda",
@@ -1422,6 +1876,27 @@ def main() -> int:
             max_abs_err=errs[name], ms=t["ms"], kernel_ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    bert_errs = {"masked_flash_fwd": bert_check["o_max_abs_err"],
+                 "masked_flash_dq": bert_check["dq_max_abs_err"],
+                 "masked_flash_dkv": max(bert_check["dk_max_abs_err"],
+                                         bert_check["dv_max_abs_err"])}
+    for name in KPM_NAMES:
+        t128, t512 = bert_timing[name][128], bert_timing[name][512]
+        kernels.append(dict(
+            name=f"{name}_kpm", route="cuda",
+            source="deepspeed_tpu_torch/csrc/masked_flash.cu",
+            replaces=t128["replaces"], launches=bert_launches[name],
+            launches_by_path={
+                f"bert-large seq 128 ({BERT_STEPS} steps)":
+                    bert_launches[name],
+                f"bert-large seq 512 ({BERT_STEPS_512} steps)":
+                    bert_launches_512[name]},
+            max_abs_err=bert_errs[name], ms=t128["ms"],
+            kernel_ms=t128["ms"], plain_ms=t128["plain_ms"],
+            bound_ms=t128["bound_ms"], bound_by=t128["bound_by"],
+            library_ms=t128["library_ms"], seq512={
+                k: t512[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

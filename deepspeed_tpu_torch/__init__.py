@@ -5,10 +5,14 @@ This package imports torch and numpy, never jax and nothing of
 ``deepspeed_tpu``. Ported so far:
 
 - training: :func:`initialize` builds a :class:`DeepSpeedEngine` (one
-  device, ZeRO stage 0, bf16 over fp32 masters, Adam) that trains a
-  loss function such as ``models.gpt2.gpt2_loss_fn``, whose attention
-  runs the masked-flash kernels K1-K3 written in CUDA
-  (``ops/attention/masked_flash.py``);
+  device, ZeRO stage 0, or 1 and 2 on a world of one; bf16 over fp32
+  masters; Adam or Lamb; the lr schedules of ``runtime/lr_schedules.py``)
+  that trains a loss function such as ``models.gpt2.gpt2_loss_fn`` or
+  ``models.bert.bert_mlm_loss_fn`` (BERT MLM pretraining on the
+  DeepSpeed transformer layer, :class:`DeepSpeedTransformerLayer`), whose
+  attention runs the masked-flash kernels K1-K3 written in CUDA
+  (``ops/attention/masked_flash.py``), BERT's padding mask in their
+  key-mask arity;
 - paged serving of GPT-2 and Llama (GQA) models: ``InferenceEngine``
   over the paged KV pool, bf16 or int8, with decode attention in
   hand-written CUDA kernels (``ops/attention/paged.py``).
@@ -18,21 +22,26 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
 from deepspeed_tpu_torch.inference import (FinishedRequest, InferenceEngine,
                                            Request)
+from deepspeed_tpu_torch.models.bert import BERT_BASE, BERT_LARGE, BertConfig
 from deepspeed_tpu_torch.models.gpt2 import (GPT2_LARGE, GPT2_MEDIUM,
                                              GPT2_SMALL, GPT2_XL, GPT2Config,
                                              init_gpt2_params,
                                              params_from_jax)
 from deepspeed_tpu_torch.models.llama import LlamaConfig
-from deepspeed_tpu_torch.ops.optimizers import Adam
+from deepspeed_tpu_torch.ops.optimizers import Adam, Lamb
+from deepspeed_tpu_torch.ops.transformer.transformer import (
+    DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader)
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
 __all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig", "Adam",
-           "DeepSpeedDataLoader", "RepeatingLoader", "InferenceEngine",
-           "Request", "FinishedRequest", "GPT2Config", "GPT2_SMALL",
-           "GPT2_MEDIUM", "GPT2_LARGE", "GPT2_XL", "LlamaConfig",
+           "Lamb", "DeepSpeedDataLoader", "RepeatingLoader",
+           "InferenceEngine", "Request", "FinishedRequest", "GPT2Config",
+           "GPT2_SMALL", "GPT2_MEDIUM", "GPT2_LARGE", "GPT2_XL",
+           "LlamaConfig", "BertConfig", "BERT_BASE", "BERT_LARGE",
+           "DeepSpeedTransformerConfig", "DeepSpeedTransformerLayer",
            "init_gpt2_params", "params_from_jax"]
 
 
@@ -41,7 +50,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                config=None, config_params=None, seed: int = 0, device=None):
     """Initialize the training engine (the JAX package's ``initialize``).
 
-    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;
+    the schedule is the caller's ``lr_scheduler`` or the one the config's
+    ``scheduler`` section builds (None without either).
     ``model`` is a loss function ``loss_fn(params, batch[, seed])`` and
     ``model_parameters`` its initial parameter tree. ``device`` defaults
     to the current CUDA device; without a card pass ``device="cpu"``."""

@@ -8,9 +8,16 @@
 // Same function as the Pallas kernels, for block kinds FULL and CAUSAL:
 //   q (B*H, Sq, D); k, v (B*Hkv, Sk, D) in fp32 or bf16, GQA row
 //   b*Hkv + h / (H/Hkv); a block mask of block `blk` walked through its
-//   CSR (offs, cnts, cols, kinds) or CSC metadata, Hm = 1 or H mask heads.
-// Semantics kept exactly: s = (q.k) * sm_scale, then the causal clip of
-// CAUSAL tiles sets s = NEG_INF; a cell with s <= VALID_THRESH has p = 0;
+//   CSR (offs, cnts, cols, kinds) or CSC metadata, Hm = 1 or H mask heads;
+//   optionally an additive fp32 key mask kpm (B, Sk) (the has_kpm arity,
+//   the template flag KPM: a null kpm pointer runs the KPM = false
+//   instantiation, whose code is the mask-free kernel's).
+// Semantics kept exactly: s = (q.k) * sm_scale, then s += kpm[b, key] in
+// fp32 (b = bh / H: every head and every GQA group of a batch row reads
+// one mask row), then the causal clip of CAUSAL tiles sets s = NEG_INF; a
+// cell with s <= VALID_THRESH has p = 0 (BERT's -1e9 pads stay above it:
+// p = exp(s - m) = 0 unless every key of the row is a pad, and then the
+// row attends uniformly, as in the Pallas kernels);
 // the online softmax runs per walked tile in fp32 (m_safe = 0 while the
 // running max is still masked); a row with no valid entry writes o = 0 and
 // lse = NEG_INF. p is rounded to V's dtype before P.V and ds to K/Q's dtype
@@ -180,10 +187,11 @@ __device__ __forceinline__ void fill(float* dst, int n, float v) {
 
 // ------------------------------------------------------------------- K1
 // grid (Sq / R, B*H); R = min(blk, 32) q rows per CTA.
-template <typename T>
+template <typename T, bool KPM>
 __global__ void __launch_bounds__(kThreads)
 mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o,
+              const T* __restrict__ v, const float* __restrict__ kpm,
+              T* __restrict__ o,
               float* __restrict__ lse, const int32_t* __restrict__ offs,
               const int32_t* __restrict__ cnts,
               const int32_t* __restrict__ cols,
@@ -202,6 +210,7 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvr = b * sh.Hkv + h / (sh.H / sh.Hkv);
   const T* kg = k + (size_t)kvr * sh.Sk * D;
   const T* vg = v + (size_t)kvr * sh.Sk * D;
+  const float* kpm_b = KPM ? kpm + (size_t)b * sh.Sk : nullptr;
 
   float* qs = smem;                       // R x (D+1)
   float* ss = qs + R * (D + 1);           // R x blk: s, then p
@@ -240,6 +249,7 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s = kNegInf;
         if (c < blk) {
           s = ss[r * blk + c] * sh.sm_scale;
+          if constexpr (KPM) s += kpm_b[k0 + c];
           if ((kind & kKindCausal) && qi < k0 + c) s = kNegInf;
         }
         sv[u] = s;
@@ -297,10 +307,11 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------- K2
 // grid (Sq / R, B*H); per walked tile, chunk by chunk of R key rows.
-template <typename T>
+template <typename T, bool KPM>
 __global__ void __launch_bounds__(kThreads)
 mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+             const T* __restrict__ v, const float* __restrict__ kpm,
+             const T* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              T* __restrict__ dq, const int32_t* __restrict__ offs,
              const int32_t* __restrict__ cnts,
@@ -320,6 +331,7 @@ mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvr = b * sh.Hkv + h / (sh.H / sh.Hkv);
   const T* kg = k + (size_t)kvr * sh.Sk * D;
   const T* vg = v + (size_t)kvr * sh.Sk * D;
+  const float* kpm_b = KPM ? kpm + (size_t)b * sh.Sk : nullptr;
   const size_t row0 = (size_t)bh * sh.Sq + r0;
 
   float* qs = smem;                 // R x (D+1)
@@ -357,6 +369,7 @@ mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qi = r0 + r;
         const int ki = k0 + c0 + c;
         float s = ps[e] * sh.sm_scale;
+        if constexpr (KPM) s += kpm_b[ki];
         if ((kind & kKindCausal) && qi < ki) s = kNegInf;
         const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
         float dp = dps[e];
@@ -377,11 +390,13 @@ mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ------------------------------------------------------------------- K3
 // grid (Sk / R, B*H): one CTA per q head and R key rows, over the CSC
 // walk of the key block, chunk by chunk of R query rows. TO is T, or
-// float for the per-q-head partials at G > 1.
-template <typename T, typename TO>
+// float for the per-q-head partials at G > 1. With KPM the CTA's R key
+// rows' mask values are loaded once, beside the staged K and V rows.
+template <typename T, typename TO, bool KPM>
 __global__ void __launch_bounds__(kThreads)
 mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+              const T* __restrict__ v, const float* __restrict__ kpm,
+              const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               TO* __restrict__ dk, TO* __restrict__ dv,
               const int32_t* __restrict__ coffs,
@@ -413,11 +428,16 @@ mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dvs = dks + R * D;         // R x D
   float* lse_s = dvs + R * D;       // R
   float* dl_s = lse_s + R;          // R
+  float* km_s = dl_s + R;           // R, with KPM: this CTA's key mask
 
   stage_rows(ks, k + ((size_t)kvr * sh.Sk + kr0) * D, R, D);
   stage_rows(vs, v + ((size_t)kvr * sh.Sk + kr0) * D, R, D);
   fill(dks, R * D, 0.f);
   fill(dvs, R * D, 0.f);
+  if constexpr (KPM) {
+    for (int c = threadIdx.x; c < R; c += blockDim.x)
+      km_s[c] = kpm[(size_t)b * sh.Sk + kr0 + c];
+  }
   __syncthreads();
 
   for (int t = 0; t < n; ++t) {
@@ -441,6 +461,7 @@ mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qi = q0 + c0 + r;
         const int ki = kr0 + c;
         float s = ps[e] * sh.sm_scale;
+        if constexpr (KPM) s += km_s[c];
         if ((kind & kKindCausal) && qi < ki) s = kNegInf;
         const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
         float dp = dps[e];
@@ -476,10 +497,11 @@ size_t fwd_smem(int R, int D, int blk) {
          ((size_t)2 * R * (D + 1) + (size_t)R * blk + (size_t)R * D + 3 * R);
 }
 
-size_t bwd_smem(int R, int D) {
+// K3 with a key mask holds R more floats (K2 reads its mask from global)
+size_t bwd_smem(int R, int D, bool kpm_rows) {
   return sizeof(float) *
          ((size_t)4 * R * (D + 1) + (size_t)2 * R * R + (size_t)2 * R * D +
-          2 * R);
+          (kpm_rows ? 3 : 2) * R);
 }
 
 bool bad_shape(int bh, int H, int Hkv, int Hm, int Sq, int Sk, int D,
@@ -509,17 +531,68 @@ Dropout make_dropout(int on, uint32_t thresh, float inv_keep, int seed) {
   return dr;
 }
 
+template <typename... KArgs, typename... Args>
+cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, size_t smem,
+                   cudaStream_t s, Args... args) {
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+template <typename T, bool KPM>
+cudaError_t run_fwd(dim3 grid, size_t smem, cudaStream_t s, const void* q,
+                    const void* k, const void* v, const void* kpm, void* o,
+                    void* lse, const int32_t* of, const int32_t* cn,
+                    const int32_t* co, const int32_t* ki, Shape sh,
+                    Dropout dr) {
+  return launch(mf_fwd_kernel<T, KPM>, grid, smem, s,
+                static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<const float*>(kpm),
+                static_cast<T*>(o), static_cast<float*>(lse), of, cn, co, ki,
+                sh, dr);
+}
+
+template <typename T, bool KPM>
+cudaError_t run_dq(dim3 grid, size_t smem, cudaStream_t s, const void* q,
+                   const void* k, const void* v, const void* kpm,
+                   const void* dout, const float* ls, const float* dl,
+                   void* dq, const int32_t* of, const int32_t* cn,
+                   const int32_t* co, const int32_t* ki, Shape sh,
+                   Dropout dr) {
+  return launch(mf_dq_kernel<T, KPM>, grid, smem, s,
+                static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<const float*>(kpm),
+                static_cast<const T*>(dout), ls, dl, static_cast<T*>(dq), of,
+                cn, co, ki, sh, dr);
+}
+
+template <typename T, typename TO, bool KPM>
+cudaError_t run_dkv(dim3 grid, size_t smem, cudaStream_t s, const void* q,
+                    const void* k, const void* v, const void* kpm,
+                    const void* dout, const float* ls, const float* dl,
+                    void* dk, void* dv, const int32_t* of, const int32_t* cn,
+                    const int32_t* ro, const int32_t* ki, Shape sh,
+                    Dropout dr) {
+  return launch(mf_dkv_kernel<T, TO, KPM>, grid, smem, s,
+                static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<const float*>(kpm),
+                static_cast<const T*>(dout), ls, dl, static_cast<TO*>(dk),
+                static_cast<TO*>(dv), of, cn, ro, ki, sh, dr);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each entry point returns the CUDA
-// error of its launch (0 on success); it launches on `stream` and does not
-// synchronise.
+// dtype: 0 = float32, 1 = bfloat16. kpm: the (B, Sk) fp32 additive key
+// mask, or null for none. Each entry point returns the CUDA error of its
+// launch (0 on success); it launches on `stream` and does not synchronise.
 extern "C" int masked_flash_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    const void* offs, const void* cnts, const void* cols, const void* kinds,
-    int dtype, int bh, int heads, int kv_heads, int mask_heads, int seq_q,
-    int seq_k, int head_dim, int block, float sm_scale, int dropout,
-    unsigned keep_thresh, float inv_keep, int seed, void* stream) {
+    const void* q, const void* k, const void* v, const void* kpm, void* o,
+    void* lse, const void* offs, const void* cnts, const void* cols,
+    const void* kinds, int dtype, int bh, int heads, int kv_heads,
+    int mask_heads, int seq_q, int seq_k, int head_dim, int block,
+    float sm_scale, int dropout, unsigned keep_thresh, float inv_keep,
+    int seed, void* stream) {
   if (bad_shape(bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim,
                 block))
     return (int)cudaErrorInvalidValue;
@@ -534,35 +607,21 @@ extern "C" int masked_flash_fwd(
   const int32_t* cn = static_cast<const int32_t*>(cnts);
   const int32_t* co = static_cast<const int32_t*>(cols);
   const int32_t* ki = static_cast<const int32_t*>(kinds);
-  cudaError_t err;
-  if (dtype == 0) {
-    if ((err = prepare(mf_fwd_kernel<float>, smem)) != cudaSuccess)
-      return (int)err;
-    mf_fwd_kernel<float><<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), of, cn, co, ki, sh, dr);
-  } else if (dtype == 1) {
-    if ((err = prepare(mf_fwd_kernel<__nv_bfloat16>, smem)) != cudaSuccess)
-      return (int)err;
-    mf_fwd_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), of, cn, co,
-        ki, sh, dr);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  auto run = dtype == 0 ? (kpm ? run_fwd<float, true> : run_fwd<float, false>)
+             : dtype == 1 ? (kpm ? run_fwd<__nv_bfloat16, true>
+                                 : run_fwd<__nv_bfloat16, false>)
+                          : nullptr;
+  if (run == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)run(grid, smem, s, q, k, v, kpm, o, lse, of, cn, co, ki, sh,
+                  dr);
 }
 
 extern "C" int masked_flash_dq(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, const void* offs,
-    const void* cnts, const void* cols, const void* kinds, int dtype, int bh,
-    int heads, int kv_heads, int mask_heads, int seq_q, int seq_k,
-    int head_dim, int block, float sm_scale, int dropout,
+    const void* q, const void* k, const void* v, const void* kpm,
+    const void* dout, const void* lse, const void* delta, void* dq,
+    const void* offs, const void* cnts, const void* cols, const void* kinds,
+    int dtype, int bh, int heads, int kv_heads, int mask_heads, int seq_q,
+    int seq_k, int head_dim, int block, float sm_scale, int dropout,
     unsigned keep_thresh, float inv_keep, int seed, void* stream) {
   if (bad_shape(bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim,
                 block))
@@ -572,7 +631,7 @@ extern "C" int masked_flash_dq(
   const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
   const int R = rows_of(block);
   const dim3 grid(seq_q / R, bh);
-  const size_t smem = bwd_smem(R, head_dim);
+  const size_t smem = bwd_smem(R, head_dim, false);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -580,34 +639,20 @@ extern "C" int masked_flash_dq(
   const int32_t* cn = static_cast<const int32_t*>(cnts);
   const int32_t* co = static_cast<const int32_t*>(cols);
   const int32_t* ki = static_cast<const int32_t*>(kinds);
-  cudaError_t err;
-  if (dtype == 0) {
-    if ((err = prepare(mf_dq_kernel<float>, smem)) != cudaSuccess)
-      return (int)err;
-    mf_dq_kernel<float><<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), ls, dl,
-        static_cast<float*>(dq), of, cn, co, ki, sh, dr);
-  } else if (dtype == 1) {
-    if ((err = prepare(mf_dq_kernel<__nv_bfloat16>, smem)) != cudaSuccess)
-      return (int)err;
-    mf_dq_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), ls, dl,
-        static_cast<__nv_bfloat16*>(dq), of, cn, co, ki, sh, dr);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  auto run = dtype == 0 ? (kpm ? run_dq<float, true> : run_dq<float, false>)
+             : dtype == 1 ? (kpm ? run_dq<__nv_bfloat16, true>
+                                 : run_dq<__nv_bfloat16, false>)
+                          : nullptr;
+  if (run == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)run(grid, smem, s, q, k, v, kpm, dout, ls, dl, dq, of, cn, co,
+                  ki, sh, dr);
 }
 
 // fp32_out: 1 writes dk, dv as fp32 per-q-head partials (GQA), 0 in the
 // input dtype. Both are (B*H, Sk, D).
 extern "C" int masked_flash_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv,
+    const void* q, const void* k, const void* v, const void* kpm,
+    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
     const void* coffs, const void* ccnts, const void* crows,
     const void* ckinds, int dtype, int fp32_out, int bh, int heads,
     int kv_heads, int mask_heads, int seq_q, int seq_k, int head_dim,
@@ -621,7 +666,7 @@ extern "C" int masked_flash_dkv(
   const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
   const int R = rows_of(block);
   const dim3 grid(seq_k / R, bh);
-  const size_t smem = bwd_smem(R, head_dim);
+  const size_t smem = bwd_smem(R, head_dim, kpm != nullptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -629,39 +674,15 @@ extern "C" int masked_flash_dkv(
   const int32_t* cn = static_cast<const int32_t*>(ccnts);
   const int32_t* ro = static_cast<const int32_t*>(crows);
   const int32_t* ki = static_cast<const int32_t*>(ckinds);
-  cudaError_t err;
-  if (dtype == 0) {
-    if ((err = prepare(mf_dkv_kernel<float, float>, smem)) != cudaSuccess)
-      return (int)err;
-    mf_dkv_kernel<float, float><<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), ls, dl,
-        static_cast<float*>(dk), static_cast<float*>(dv), of, cn, ro, ki, sh,
-        dr);
-  } else if (dtype == 1 && fp32_out) {
-    if ((err = prepare(mf_dkv_kernel<__nv_bfloat16, float>, smem)) !=
-        cudaSuccess)
-      return (int)err;
-    mf_dkv_kernel<__nv_bfloat16, float><<<grid, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), ls, dl,
-        static_cast<float*>(dk), static_cast<float*>(dv), of, cn, ro, ki, sh,
-        dr);
-  } else if (dtype == 1) {
-    if ((err = prepare(mf_dkv_kernel<__nv_bfloat16, __nv_bfloat16>, smem)) !=
-        cudaSuccess)
-      return (int)err;
-    mf_dkv_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), ls, dl,
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), of,
-        cn, ro, ki, sh, dr);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  using Bf = __nv_bfloat16;
+  auto run =
+      dtype == 0 ? (kpm ? run_dkv<float, float, true>
+                        : run_dkv<float, float, false>)
+      : dtype == 1 && fp32_out ? (kpm ? run_dkv<Bf, float, true>
+                                      : run_dkv<Bf, float, false>)
+      : dtype == 1 ? (kpm ? run_dkv<Bf, Bf, true> : run_dkv<Bf, Bf, false>)
+                   : nullptr;
+  if (run == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)run(grid, smem, s, q, k, v, kpm, dout, ls, dl, dk, dv, of, cn,
+                  ro, ki, sh, dr);
 }

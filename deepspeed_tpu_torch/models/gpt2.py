@@ -20,7 +20,6 @@ Serving: one token of decode or a padded prompt of prefill, with K/V
 written into the paged pool and attention read back from it.
 """
 
-import contextlib
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
@@ -28,13 +27,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.ops.attention.flash import (_M32, _mix32, _mul32,
-                                                     flash_attention)
+from deepspeed_tpu_torch.ops.attention.flash import flash_attention
 from deepspeed_tpu_torch.ops.attention.paged import (NEG_INF,
                                                      dequantize_pool,
                                                      paged_decode_attention,
                                                      quantize_kv)
-from deepspeed_tpu_torch.ops.functional import dropout, layer_norm
+from deepspeed_tpu_torch.ops.functional import (dropout, fold_seed,
+                                                ieee_fp32_matmul, layer_norm)
 from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["GPT2Config", "GPT2_SMALL", "GPT2_MEDIUM", "GPT2_LARGE",
@@ -148,15 +147,6 @@ def count_params(params) -> int:
     return sum(int(t.numel()) for t in tree_leaves(params))
 
 
-def fold_seed(seed: int, i: int) -> int:
-    """The int32 seed of dropout site ``i`` under a step's seed: one
-    round of the dropout hash, so sites draw independent masks. (The JAX
-    model splits a ``jax.random`` key per site; torch cannot derive the
-    same keys, so the port's sites take these seeds instead.)"""
-    x = _mix32((int(seed) & _M32) ^ _mul32((i + 1) & _M32, 0x9E3779B9))
-    return x - (1 << 32) if x >= (1 << 31) else x
-
-
 def gpt2_block(block_params, config: GPT2Config, x: torch.Tensor, dtype,
                attention_fn: Optional[Callable] = None,
                seed: Optional[int] = None,
@@ -230,17 +220,6 @@ def _gpt2_trunk(params, config: GPT2Config, input_ids,
                       config.layer_norm_eps)
 
 
-@contextlib.contextmanager
-def _ieee_fp32_matmul():
-    """fp32 matmuls in full fp32 on the card (TF32 off) for the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 class _TiedXentChunk(torch.autograd.Function):
     """Sum over one chunk of tokens of ``w * (logsumexp(logits) -
     logits[target])`` with ``logits = x @ wte.T`` in fp32 from the
@@ -251,7 +230,7 @@ class _TiedXentChunk(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xs, w, ts, ws):
-        with _ieee_fp32_matmul():
+        with ieee_fp32_matmul():
             logits = xs.float() @ w.float().t()
         lse = torch.logsumexp(logits, dim=-1)
         picked = logits.gather(1, ts[:, None])[:, 0]
@@ -262,7 +241,7 @@ class _TiedXentChunk(torch.autograd.Function):
     def backward(ctx, g):
         xs, w, ts, ws = ctx.saved_tensors
         wf = w.float()
-        with _ieee_fp32_matmul():
+        with ieee_fp32_matmul():
             dl = torch.softmax(xs.float() @ wf.t(), dim=-1)
             rows = torch.arange(dl.shape[0], device=dl.device)
             dl[rows, ts] -= 1.0
@@ -495,7 +474,7 @@ def gpt2_forward(params, config: GPT2Config, input_ids, dtype=torch.bfloat16,
     if kv_cache is None:
         x = _gpt2_trunk(params, config, input_ids, seed=seed,
                         deterministic=deterministic, dtype=dtype)
-        with _ieee_fp32_matmul():
+        with ieee_fp32_matmul():
             return _tied_logits(x, tied_head_weight(params["wte"], dtype),
                                 dtype)
     if cache_position is None:

@@ -29,13 +29,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.models.gpt2 import (_ieee_fp32_matmul,
-                                             _paged_cache_attention,
+from deepspeed_tpu_torch.models.gpt2 import (_paged_cache_attention,
                                              _tied_logits, count_params,
                                              params_from_jax,
                                              tied_head_weight)
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention
-from deepspeed_tpu_torch.ops.functional import rms_norm
+from deepspeed_tpu_torch.ops.functional import ieee_fp32_matmul, rms_norm
 from deepspeed_tpu_torch.utils.tree import tree_map
 
 __all__ = ["LlamaConfig", "init_llama_params", "llama_params_from_jax",
@@ -283,7 +282,7 @@ def llama_forward(params, config: LlamaConfig, input_ids,
     head_w = tied_head_weight(params["lm_head"], dtype)
     if kv_cache is None:
         x = _llama_trunk(params, config, input_ids, dtype=dtype)
-        with _ieee_fp32_matmul():
+        with ieee_fp32_matmul():
             return _tied_logits(x, head_w, dtype)
     if cache_position is None:
         cache_position = torch.zeros((input_ids.shape[0],), dtype=torch.int32,

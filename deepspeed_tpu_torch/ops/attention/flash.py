@@ -7,7 +7,9 @@ reference of ``deepspeed_tpu/ops/attention/flash.py``).
   :func:`attention_reference` (the plain O(S^2) path), logged once above
   2048 tokens;
 - the default ``kernel="masked"`` route runs the masked-flash kernels
-  K1-K3 (``masked_flash.py``) over a dense or causal ``BlockMask``;
+  K1-K3 (``masked_flash.py``) over a dense or causal ``BlockMask``, with
+  an additive ``(B, 1, 1, Sk)`` mask (BERT's padding) in their key-mask
+  arity;
 - the legacy route (``kernel="flash"``, or causal attention with
   ``sq != sk``) reaches the per-path Pallas kernels K5-K7, which are not
   ported: it raises.

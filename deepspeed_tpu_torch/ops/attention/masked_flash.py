@@ -22,9 +22,10 @@ three; :func:`masked_flash_attention` is the public entry.
 
 Ported arity: block kinds FULL and CAUSAL, GQA, mask heads 1 or H,
 dropout, fp32 and bf16, head_dim a multiple of 8 up to 128, walk blocks
-16, 32, 64 and 128. Still to port: ``KIND_BAND`` (the banded fine
-structure of a coarsened walk) and the additive key-padding mask
-(``has_kpm``); a mask or call that needs either raises.
+16, 32, 64 and 128, and the additive fp32 key-padding mask (``has_kpm``:
+a ``(B, Sk)`` row added to the scaled scores of every head before the
+causal clip). Still to port: ``KIND_BAND`` (the banded fine structure of
+a coarsened walk); a mask that needs it raises.
 """
 
 import ctypes
@@ -287,11 +288,24 @@ def _head_groups(mask: BlockMask, H: int, G: int, B: int, device):
     return out
 
 
-def _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx):
+def _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx, kpm=None):
+    """Scores of one walked tile in fp32: ``(q . k) * sm_scale``, then
+    the key mask's row ``kpm`` ((B, 1, 1, blk) or None) added, then the
+    causal clip."""
     s = (qt @ kt.transpose(-1, -2)) * sm_scale
+    if kpm is not None:
+        s = s + kpm
     if kind & KIND_CAUSAL:
         s = torch.where(q_idx[:, None] >= k_idx[None, :], s, NEG_INF)
     return s
+
+
+def _kpm_tile(key_mask, c, blk):
+    """Key block ``c`` of the (B, Sk) fp32 key mask, shaped to broadcast
+    over (B, heads, rows, blk); None without a mask."""
+    if key_mask is None:
+        return None
+    return key_mask[:, None, None, c * blk:(c + 1) * blk]
 
 
 def _keep(seed, bh, q_idx, k_idx, seq_k, rate):
@@ -300,11 +314,11 @@ def _keep(seed, bh, q_idx, k_idx, seq_k, rate):
 
 
 def masked_flash_fwd_plain(q, k, v, mask: BlockMask, sm_scale: float,
-                           rate: float = 0.0, seed: int = 0):
+                           rate: float = 0.0, seed: int = 0, key_mask=None):
     """K1's function in plain PyTorch, with its tile walk: per walked
     tile an fp32 online-softmax step, p rounded to V's dtype before P.V.
-    q (B, H, Sq, D), k/v (B, Hkv, Sk, D) -> o (q's dtype), lse (B, H, Sq)
-    fp32."""
+    q (B, H, Sq, D), k/v (B, Hkv, Sk, D), optional fp32 ``key_mask``
+    (B, Sk) -> o (q's dtype), lse (B, H, Sq) fp32."""
     mask._check_ported()
     B, H, Sq, D = q.shape
     G = H // k.shape[1]
@@ -328,7 +342,8 @@ def masked_flash_fwd_plain(q, k, v, mask: BlockMask, sm_scale: float,
                 c, kind = int(cols[offs[row] + t]), int(kinds[offs[row] + t])
                 k_idx = c * blk + ar
                 s = _tile_scores(qt, kh[:, :, c * blk:(c + 1) * blk],
-                                 sm_scale, kind, q_idx, k_idx)
+                                 sm_scale, kind, q_idx, k_idx,
+                                 _kpm_tile(key_mask, c, blk))
                 m_new = torch.maximum(m, s.amax(dim=-1))
                 m_safe = torch.where(m_new <= VALID_THRESH, 0.0, m_new)
                 alpha = torch.exp(m - m_new)
@@ -355,10 +370,10 @@ def masked_flash_fwd_plain(q, k, v, mask: BlockMask, sm_scale: float,
 
 def masked_flash_dq_plain(q, k, v, do, lse, delta, mask: BlockMask,
                           sm_scale: float, rate: float = 0.0,
-                          seed: int = 0):
+                          seed: int = 0, key_mask=None):
     """K2's function in plain PyTorch over the CSR walk: p recomputed
-    from lse, ds = p * (dp - delta) rounded to K's dtype, dq scaled by
-    sm_scale at the end."""
+    from lse (the key mask added as in K1), ds = p * (dp - delta) rounded
+    to K's dtype, dq scaled by sm_scale at the end."""
     mask._check_ported()
     B, H, Sq, D = q.shape
     G = H // k.shape[1]
@@ -380,7 +395,8 @@ def masked_flash_dq_plain(q, k, v, do, lse, delta, mask: BlockMask,
                 c, kind = int(cols[offs[row] + t]), int(kinds[offs[row] + t])
                 k_idx = c * blk + ar
                 kt = kh[:, :, c * blk:(c + 1) * blk]
-                s = _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx)
+                s = _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx,
+                                 _kpm_tile(key_mask, c, blk))
                 p = torch.where(s > VALID_THRESH,
                                 torch.exp(s - lseh[:, :, rows, None]), 0.0)
                 dp = dot @ vh[:, :, c * blk:(c + 1) * blk].transpose(-1, -2)
@@ -395,10 +411,11 @@ def masked_flash_dq_plain(q, k, v, do, lse, delta, mask: BlockMask,
 
 def masked_flash_dkv_plain(q, k, v, do, lse, delta, mask: BlockMask,
                            sm_scale: float, rate: float = 0.0,
-                           seed: int = 0):
-    """K3's function in plain PyTorch over the CSC walk: dv from the
-    dropped, scaled pd, dk from the undropped p in ds; per-q-head fp32
-    partials summed per group at G > 1. Returns (dk, dv) shaped like k."""
+                           seed: int = 0, key_mask=None):
+    """K3's function in plain PyTorch over the CSC walk: p recomputed
+    with the key block's mask row, dv from the dropped, scaled pd, dk
+    from the undropped p in ds; per-q-head fp32 partials summed per group
+    at G > 1. Returns (dk, dv) shaped like k."""
     mask._check_ported()
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -418,6 +435,7 @@ def masked_flash_dkv_plain(q, k, v, do, lse, delta, mask: BlockMask,
             cols_ = slice(jb * blk, (jb + 1) * blk)
             k_idx = jb * blk + ar
             kt, vt = kh[:, :, cols_], vh[:, :, cols_]
+            kpm_row = _kpm_tile(key_mask, jb, blk)
             acc_k = torch.zeros_like(kt)
             acc_v = torch.zeros_like(vt)
             for t in range(int(cnts[col])):
@@ -425,7 +443,8 @@ def masked_flash_dkv_plain(q, k, v, do, lse, delta, mask: BlockMask,
                 rows = slice(rq * blk, (rq + 1) * blk)
                 q_idx = rq * blk + ar
                 qt, dot = qh[:, :, rows], doh[:, :, rows]
-                s = _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx)
+                s = _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx,
+                                 kpm_row)
                 p = torch.where(s > VALID_THRESH,
                                 torch.exp(s - lseh[:, :, rows, None]), 0.0)
                 dp = dot @ vt.transpose(-1, -2)
@@ -458,7 +477,7 @@ def _group_sum(dk, dv, k, v):
 # --------------------------------------------------------------------- #
 # the kernels' wrappers
 # --------------------------------------------------------------------- #
-def _check_args(q, k, v, mask: BlockMask):
+def _check_args(q, k, v, mask: BlockMask, key_mask=None):
     """What the kernels and their plain versions both require."""
     mask._check_ported()
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -475,9 +494,15 @@ def _check_args(q, k, v, mask: BlockMask):
     if mask.heads not in (1, H):
         raise ValueError(f"mask heads {mask.heads} must be 1 (uniform) or "
                          f"{H}")
+    if key_mask is not None and (
+            tuple(key_mask.shape) != (B, k.shape[2])
+            or key_mask.dtype != torch.float32):
+        raise ValueError(f"masked flash takes an fp32 (B, Sk) = "
+                         f"({B}, {k.shape[2]}) key mask, got "
+                         f"{key_mask.dtype} {tuple(key_mask.shape)}")
 
 
-def _check_cuda(tensors, mask: BlockMask):
+def _check_cuda(tensors, mask: BlockMask, key_mask=None):
     q = tensors[0]
     B, H, Sq, D = q.shape
     if q.device.type != "cuda":
@@ -486,7 +511,7 @@ def _check_cuda(tensors, mask: BlockMask):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"masked flash kernels take {list(_DTYPE_CODE)}, "
                         f"got {q.dtype}")
-    for t in tensors:
+    for t in (*tensors, *(() if key_mask is None else (key_mask,))):
         if t.device != q.device:
             raise ValueError(f"masked flash: operands on {t.device} and "
                              f"{q.device}")
@@ -515,6 +540,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # sm_scale, dropout, keep_thresh, inv_keep, seed, stream
 _GEOMETRY = [_I] * 8
 _TAIL = [_F, _I, ctypes.c_uint32, _F, ctypes.c_int32, _P]
+
+
+def _ptr(t) -> Optional[int]:
+    """A tensor's device pointer; None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def _kernel(name: str, argtypes):
@@ -573,123 +603,142 @@ def _run(name, fn, q, args):
 
 
 def masked_flash_fwd(q, k, v, mask: BlockMask, sm_scale: float,
-                     rate: float = 0.0, seed: int = 0):
+                     rate: float = 0.0, seed: int = 0, key_mask=None):
     """K1: ``(o, lse)`` of :func:`masked_flash_fwd_plain`. A CUDA ``q``
     launches the sm_90a kernel (raising on any dtype, shape, device or
-    launch problem); a CPU ``q`` runs the plain version."""
-    _check_args(q, k, v, mask)
+    launch problem); a CPU ``q`` runs the plain version. With a
+    ``key_mask`` the kernel's key-mask arity runs, and the launch also
+    counts in ``launches_kpm``."""
+    _check_args(q, k, v, mask, key_mask)
     _check_hash_rounds(rate)
     if q.device.type == "cpu":
-        return masked_flash_fwd_plain(q, k, v, mask, sm_scale, rate, seed)
-    _check_cuda((q, k, v), mask)
+        return masked_flash_fwd_plain(q, k, v, mask, sm_scale, rate, seed,
+                                      key_mask)
+    _check_cuda((q, k, v), mask, key_mask)
     B, H, Sq, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    # q, k, v, o, lse, offs, cnts, cols, kinds; dtype
-    fn = _kernel("masked_flash_fwd", [_P] * 9 + [_I] + _GEOMETRY + _TAIL)
+    # q, k, v, kpm, o, lse, offs, cnts, cols, kinds; dtype
+    fn = _kernel("masked_flash_fwd", [_P] * 10 + [_I] + _GEOMETRY + _TAIL)
     walk = mask.device_walk("csr", q.device)
     _run("masked_flash_fwd", fn, q,
-         [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-          lse.data_ptr(), *(w.data_ptr() for w in walk),
+         [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+          o.data_ptr(), lse.data_ptr(), *(w.data_ptr() for w in walk),
           _DTYPE_CODE[q.dtype], *_geometry(q, k, mask),
           *_dropout(sm_scale, rate, seed)])
-    masked_flash_fwd.launches += 1
+    _count(masked_flash_fwd, key_mask)
     return o, lse
 
 
 def masked_flash_dq(q, k, v, do, lse, delta, mask: BlockMask,
-                    sm_scale: float, rate: float = 0.0, seed: int = 0):
-    """K2: ``dq`` of :func:`masked_flash_dq_plain`; kernel on CUDA, plain
-    version on the CPU."""
-    _check_args(q, k, v, mask)
+                    sm_scale: float, rate: float = 0.0, seed: int = 0,
+                    key_mask=None):
+    """K2: ``dq`` of :func:`masked_flash_dq_plain`; kernel on CUDA (its
+    key-mask arity with a ``key_mask``), plain version on the CPU."""
+    _check_args(q, k, v, mask, key_mask)
     _check_hash_rounds(rate)
     if q.device.type == "cpu":
         return masked_flash_dq_plain(q, k, v, do, lse, delta, mask,
-                                     sm_scale, rate, seed)
-    _check_cuda((q, k, v, do, lse, delta), mask)
+                                     sm_scale, rate, seed, key_mask)
+    _check_cuda((q, k, v, do, lse, delta), mask, key_mask)
     dq = torch.empty_like(q)
-    # q, k, v, do, lse, delta, dq, offs, cnts, cols, kinds; dtype
-    fn = _kernel("masked_flash_dq", [_P] * 11 + [_I] + _GEOMETRY + _TAIL)
+    # q, k, v, kpm, do, lse, delta, dq, offs, cnts, cols, kinds; dtype
+    fn = _kernel("masked_flash_dq", [_P] * 12 + [_I] + _GEOMETRY + _TAIL)
     walk = mask.device_walk("csr", q.device)
     _run("masked_flash_dq", fn, q,
-         [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-          lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+         [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+          do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
           *(w.data_ptr() for w in walk),
           _DTYPE_CODE[q.dtype], *_geometry(q, k, mask),
           *_dropout(sm_scale, rate, seed)])
-    masked_flash_dq.launches += 1
+    _count(masked_flash_dq, key_mask)
     return dq
 
 
 def masked_flash_dkv(q, k, v, do, lse, delta, mask: BlockMask,
-                     sm_scale: float, rate: float = 0.0, seed: int = 0):
+                     sm_scale: float, rate: float = 0.0, seed: int = 0,
+                     key_mask=None):
     """K3: ``(dk, dv)`` of :func:`masked_flash_dkv_plain`; kernel on
-    CUDA (fp32 per-q-head partials at G > 1, summed here), plain version
-    on the CPU."""
-    _check_args(q, k, v, mask)
+    CUDA (fp32 per-q-head partials at G > 1, summed here; its key-mask
+    arity with a ``key_mask``), plain version on the CPU."""
+    _check_args(q, k, v, mask, key_mask)
     _check_hash_rounds(rate)
     if q.device.type == "cpu":
         return masked_flash_dkv_plain(q, k, v, do, lse, delta, mask,
-                                      sm_scale, rate, seed)
-    _check_cuda((q, k, v, do, lse, delta), mask)
+                                      sm_scale, rate, seed, key_mask)
+    _check_cuda((q, k, v, do, lse, delta), mask, key_mask)
     B, H, Sq, D = q.shape
     G = H // k.shape[1]
     part = torch.float32 if G > 1 else k.dtype
     dk = torch.empty((B, H, k.shape[2], D), dtype=part, device=q.device)
     dv = torch.empty_like(dk)
-    # q, k, v, do, lse, delta, dk, dv, coffs, ccnts, crows, ckinds;
+    # q, k, v, kpm, do, lse, delta, dk, dv, coffs, ccnts, crows, ckinds;
     # dtype, fp32_out
     fn = _kernel("masked_flash_dkv",
-                 [_P] * 12 + [_I, _I] + _GEOMETRY + _TAIL)
+                 [_P] * 13 + [_I, _I] + _GEOMETRY + _TAIL)
     walk = mask.device_walk("csc", q.device)
     _run("masked_flash_dkv", fn, q,
-         [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-          lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-          *(w.data_ptr() for w in walk),
+         [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+          do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+          dv.data_ptr(), *(w.data_ptr() for w in walk),
           _DTYPE_CODE[q.dtype], int(G > 1), *_geometry(q, k, mask),
           *_dropout(sm_scale, rate, seed)])
-    masked_flash_dkv.launches += 1
+    _count(masked_flash_dkv, key_mask)
     return _group_sum(dk, dv, k, v)
 
 
-masked_flash_fwd.launches = 0
-masked_flash_dq.launches = 0
-masked_flash_dkv.launches = 0
+def _count(wrapper, key_mask):
+    """One launch of ``wrapper``'s kernel: ``launches`` counts every
+    launch, ``launches_kpm`` those of the key-mask arity."""
+    wrapper.launches += 1
+    if key_mask is not None:
+        wrapper.launches_kpm += 1
+
+
+for _w in (masked_flash_fwd, masked_flash_dq, masked_flash_dkv):
+    _w.launches = 0
+    _w.launches_kpm = 0
 
 
 # --------------------------------------------------------------------- #
 # autograd + public API
 # --------------------------------------------------------------------- #
 class _MaskedFlash(torch.autograd.Function):
-    """Forward K1, saving (q, k, v, o, lse); backward delta = sum(do*o)
-    in fp32, then K2 and K3."""
+    """Forward K1, saving (q, k, v, key_mask, o, lse); backward delta =
+    sum(do*o) in fp32, then K2 and K3. The key mask takes no gradient: a
+    zero one where asked for, as the JAX package's vjp returns."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, mask, sm_scale, rate):
-        o, lse = masked_flash_fwd(q, k, v, mask, sm_scale, rate, seed)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, key_mask, seed, mask, sm_scale, rate):
+        o, lse = masked_flash_fwd(q, k, v, mask, sm_scale, rate, seed,
+                                  key_mask)
+        ctx.save_for_backward(q, k, v, key_mask, o, lse)
         ctx.mask, ctx.sm_scale, ctx.rate, ctx.seed = mask, sm_scale, rate, \
             seed
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, key_mask, o, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)
-        args = (ctx.mask, ctx.sm_scale, ctx.rate, ctx.seed)
+        args = (ctx.mask, ctx.sm_scale, ctx.rate, ctx.seed, key_mask)
         dq = masked_flash_dq(q, k, v, do, lse, delta, *args)
         dk, dv = masked_flash_dkv(q, k, v, do, lse, delta, *args)
-        return dq, dk, dv, None, None, None, None
+        dkpm = (torch.zeros_like(key_mask) if ctx.needs_input_grad[3]
+                else None)
+        return dq, dk, dv, dkpm, None, None, None, None
 
 
 def masked_flash_call(q, k, v, seed: int, mask: BlockMask, sm_scale: float,
-                      rate: float):
+                      rate: float, key_mask=None):
     """Low-level entry, all operands explicit: ``o`` with the custom
-    backward. ``seed`` is the dropout seed (int32; unused at rate 0)."""
-    return _MaskedFlash.apply(q.contiguous(), k.contiguous(),
-                              v.contiguous(), int(seed), mask,
-                              float(sm_scale), float(rate))
+    backward. ``seed`` is the dropout seed (int32; unused at rate 0);
+    ``key_mask`` the optional fp32 (B, Sk) additive key mask."""
+    return _MaskedFlash.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        None if key_mask is None else key_mask.contiguous(), int(seed),
+        mask, float(sm_scale), float(rate))
 
 
 def masked_flash_attention(q, k, v, mask: BlockMask, key_mask=None,
@@ -699,14 +748,12 @@ def masked_flash_attention(q, k, v, mask: BlockMask, key_mask=None,
     """Blocked flash attention under a static :class:`BlockMask`.
 
     q: (B, H, Sq, D); k, v: (B, kv_heads, Sk, D) with H % kv_heads == 0.
-    ``mask.heads`` must be 1 or H. ``dropout_rate > 0`` requires
-    ``dropout_seed`` (an int32). The additive ``key_mask`` arity is not
-    ported: it raises."""
+    ``mask.heads`` must be 1 or H. ``key_mask``: optional *additive* key
+    mask, (B, Sk) or BERT-style (B, 1, 1, Sk), taken in fp32.
+    ``dropout_rate > 0`` requires ``dropout_seed`` (an int32)."""
     if key_mask is not None:
-        raise NotImplementedError(
-            "masked flash with an additive key-padding mask (the has_kpm "
-            "arity of K1-K3) is not ported yet")
-    _check_args(q, k, v, mask)
+        key_mask = key_mask.reshape(q.shape[0], k.shape[2]).float()
+    _check_args(q, k, v, mask, key_mask)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     dropout_rate = float(dropout_rate)
@@ -718,4 +765,4 @@ def masked_flash_attention(q, k, v, mask: BlockMask, key_mask=None,
             raise ValueError(f"dropout_rate must be < 1, got "
                              f"{dropout_rate}")
     return masked_flash_call(q, k, v, dropout_seed or 0, mask, sm_scale,
-                             dropout_rate)
+                             dropout_rate, key_mask)

@@ -1,9 +1,11 @@
-"""Elementwise building blocks (the port of
+"""Elementwise building blocks and the vocab GEMM (the port of
 ``deepspeed_tpu/ops/functional.py``'s ``layer_norm``, ``rms_norm``,
-``_hash_keep_mask`` and ``dropout``).
+``_hash_keep_mask``, ``dropout`` and ``matmul_bf16_accum_fp32``).
 
-GELU is ``torch.nn.functional.gelu(x, approximate="tanh")`` at its call
-site, as ``jax.nn.gelu(approximate=True)`` is in the JAX model.
+GELU is written at its call site, as in the JAX models: GPT-2's is
+``F.gelu(x, approximate="tanh")`` (``jax.nn.gelu(approximate=True)``),
+BERT's and the transformer layer's the exact ``F.gelu(x)``
+(``jax.nn.gelu(approximate=False)``).
 
 ``dropout`` takes its 32-bit seed directly: the JAX function folds it out
 of a ``jax.random`` key's data, which torch cannot reproduce. Given the
@@ -12,10 +14,12 @@ in int64 with the uint32 wrap-around done by hand; see
 ``ops/attention/flash.py``).
 """
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.ops.attention.flash import (_M32, _mul32,
+from deepspeed_tpu_torch.ops.attention.flash import (_M32, _mix32, _mul32,
                                                      keep_threshold)
 
 
@@ -49,6 +53,15 @@ def _hash_keep_mask(seed32: int, n: int, rate: float,
     return x < keep_threshold(rate)
 
 
+def fold_seed(seed: int, i: int) -> int:
+    """The int32 seed of dropout site ``i`` under a step's seed: one
+    round of the dropout hash, so sites draw independent masks. (The JAX
+    models split a ``jax.random`` key per site; torch cannot derive the
+    same keys, so the port's sites take these seeds instead.)"""
+    x = _mix32((int(seed) & _M32) ^ _mul32((i + 1) & _M32, 0x9E3779B9))
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
 def dropout(x: torch.Tensor, rate: float, seed32, deterministic: bool):
     """Inverted dropout with the hash keep mask of ``seed32``; identity
     when deterministic, rate == 0 or ``seed32`` is None."""
@@ -58,3 +71,56 @@ def dropout(x: torch.Tensor, rate: float, seed32, deterministic: bool):
     mask = _hash_keep_mask(seed32, x.numel(), rate,
                            device=x.device).reshape(x.shape)
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+@contextlib.contextmanager
+def ieee_fp32_matmul():
+    """fp32 matmuls in full fp32 on the card (TF32 off) for the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _operand_dtype(x: torch.Tensor):
+    return x.dtype if x.dtype in (torch.bfloat16, torch.float16) \
+        else torch.bfloat16
+
+
+class _MatmulBf16AccumFp32(torch.autograd.Function):
+    """``x @ w_t.T`` over bf16-rounded operands with fp32 sums and an fp32
+    result, and a backward that keeps the rounded operands and returns
+    fp32 sums cast to each input's dtype (the JAX custom VJP). Each
+    product is an fp32 GEMM of the widened operands with TF32 off: the
+    product of two bf16 values is exact in fp32, so this is the bf16
+    GEMM with fp32 accumulation and output, on the CPU as on the card,
+    by the route the GPT-2 head takes (``models/gpt2.py``)."""
+
+    @staticmethod
+    def forward(ctx, x, w_t):
+        dt = _operand_dtype(x)
+        xb, wb = x.to(dt), w_t.to(dt)
+        ctx.save_for_backward(xb, wb)
+        ctx.dtypes = (x.dtype, w_t.dtype)
+        with ieee_fp32_matmul():
+            return xb.float() @ wb.float().t()
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gb = g.to(xb.dtype).float()
+        with ieee_fp32_matmul():
+            dx = (gb @ wb.float()).to(ctx.dtypes[0])
+            dw = (gb.reshape(-1, gb.shape[-1]).t()
+                  @ xb.reshape(-1, xb.shape[-1]).float()).to(ctx.dtypes[1])
+        return dx, dw
+
+
+def matmul_bf16_accum_fp32(x: torch.Tensor, w_t: torch.Tensor):
+    """``x @ w_t.T`` with bf16-cast operands (fp16 ones stay fp16) and
+    fp32 accumulation and result, the vocab projection's product.
+    ``w_t``: (vocab, hidden). Gradients: fp32 sums, cast to x's and
+    w_t's dtypes."""
+    return _MatmulBf16AccumFp32.apply(x, w_t)

@@ -5,9 +5,12 @@
 ``zero_optimization.stage``, ``steps_per_print``),
 ``get_inference_config`` and the serving part of
 ``get_observability_config``. The same dict resolves to the same fields
-and raises the same errors as the JAX package; settings whose runtime is
-not ported yet (ZeRO stage > 0, offload, 1-bit Adam, pipeline, fp16)
-raise ``NotImplementedError`` naming them.
+and raises the same errors as the JAX package. ZeRO stages 1 and 2 are
+taken on a data-parallel world of one: the JAX engine then shards the
+masters, moments (and at stage 2 the grads) over a data axis of size 1,
+one shard, so the step is stage 0's. Settings whose runtime is not
+ported yet (ZeRO above a world of one, stage 3, offload, 1-bit Adam,
+pipeline, fp16) raise ``NotImplementedError`` naming them.
 """
 
 import collections
@@ -195,11 +198,14 @@ class DeepSpeedConfig:
                 "bf16.master_weights=false requires bf16.enabled=true "
                 "(params are held in bf16 end-to-end)")
         unported = []
-        if self.zero_optimization_stage > 0:
-            unported.append(f"zero_optimization.stage "
-                            f"{self.zero_optimization_stage} (ZeRO)")
+        stage = self.zero_optimization_stage
+        if stage > 2 or (stage > 0 and self.world_size > 1):
+            unported.append(f"zero_optimization.stage {stage} (ZeRO) on a "
+                            f"data-parallel world of {self.world_size} "
+                            "(ROADMAP Queue 1 items 10-11)")
         if self.zero_config.cpu_offload:
-            unported.append("zero_optimization.cpu_offload")
+            unported.append("zero_optimization.cpu_offload (ZeRO-Offload, "
+                            "ROADMAP Queue 1 item 11)")
         if self.optimizer_name and "onebit" in \
                 self.optimizer_name.lower().replace("_", ""):
             unported.append(f"optimizer {self.optimizer_name} (1-bit Adam)")

@@ -1,6 +1,5 @@
 """DeepSpeedEngine, the training runtime (the port of
-``deepspeed_tpu/runtime/engine.py``, reduced to one device and ZeRO
-stage 0).
+``deepspeed_tpu/runtime/engine.py``, reduced to one device).
 
 Same facade and contract as the JAX engine:
 
@@ -12,7 +11,15 @@ Same facade and contract as the JAX engine:
   ``forward``/``backward``/``step`` are the same step in three calls;
 - grads of each micro batch are divided by the accumulation steps and
   summed in fp32; clipping scales them by
-  ``min(1, gradient_clipping / (norm + 1e-6))``.
+  ``min(1, gradient_clipping / (norm + 1e-6))``;
+- the lr schedule comes from the config's ``scheduler`` section (or the
+  caller's ``lr_scheduler``, any object with ``lr_at(step)``): each
+  update takes ``lr_at(global_step)`` read before the step counts, and
+  a schedule that cycles momentum hands ``mom_at(global_step)`` to the
+  optimizer as beta1, as the JAX engine does;
+- ZeRO stages 1 and 2 on this one device are one shard of everything:
+  the step is stage 0's, and ``zero_optimization_stage()`` reports the
+  configured stage.
 
 Where the JAX engine threads a ``jax.random`` key, this engine owns a
 ``torch.Generator`` and draws one int32 seed per micro batch from it;
@@ -24,9 +31,9 @@ place. Entry points run on the current CUDA device unless the caller
 passes ``device="cpu"``; without a card and without ``device`` they
 raise.
 
-Not ported yet: ZeRO stages > 0 and offload, fp16 and loss scaling,
-pipeline and multi-GPU data parallelism, lr schedules, checkpoints,
-remat, the async pipeline and the observability layers.
+Not ported yet: ZeRO across devices and offload, fp16 and loss scaling,
+pipeline and multi-GPU data parallelism, checkpoints, the async pipeline
+and the observability layers.
 """
 
 import inspect
@@ -39,6 +46,7 @@ from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader,
                                                     to_device)
+from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_schedule
 from deepspeed_tpu_torch.utils.logging import log_dist
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer)
@@ -81,13 +89,9 @@ class DeepSpeedEngine:
         self.device = resolve_device(device)
         self._config = DeepSpeedConfig(raw, world_size=1)
         self.dp_world_size = 1
-        if lr_scheduler is not None or \
-                self._config.scheduler_name is not None:
-            raise NotImplementedError(
-                "lr schedules (scheduler "
-                f"{self._config.scheduler_name or lr_scheduler!r}) are not "
-                "ported yet: runtime/lr_schedules.py waits")
-        self.lr_scheduler = None
+        self.lr_scheduler = lr_scheduler if lr_scheduler is not None else \
+            build_lr_schedule(self._config.scheduler_name,
+                              self._config.scheduler_params)
 
         # -- precision: fp32 masters, compute in bf16 or fp32 --
         self.fp16_enabled = False
@@ -106,7 +110,7 @@ class DeepSpeedEngine:
         self.optimizer = optimizer if optimizer is not None else \
             build_optimizer(self._config.optimizer_name,
                             self._config.optimizer_params)
-        self.zero_stage = 0
+        self.zero_stage = self._config.zero_optimization_stage
         # an explicit copy: the engine updates its masters in place and
         # must not write through to the caller's tensors
         self.params = tree_map(
@@ -146,7 +150,8 @@ class DeepSpeedEngine:
         self._pending_grads = None
         self._last_loss = None
         log_dist(f"DeepSpeedEngine initialized: device={self.device} "
-                 f"zero_stage=0 dtype={self.compute_dtype or torch.float32} "
+                 f"zero_stage={self.zero_stage} "
+                 f"dtype={self.compute_dtype or torch.float32} "
                  f"grad_acc={self.gradient_accumulation_steps}", ranks=[0])
 
     # ------------------------------------------------------------------ #
@@ -165,7 +170,28 @@ class DeepSpeedEngine:
         return self.zero_stage
 
     def get_lr(self):
-        return [float(self.optimizer.lr)]
+        return [float(self._lr_at(self.global_step))]
+
+    def get_mom(self):
+        """The scheduled momentum, else the optimizer's beta1."""
+        mom = self._mom_at(self.global_step)
+        if mom is not None:
+            return [float(mom)]
+        return [float(getattr(self.optimizer, "b1", 0.0))]
+
+    def _lr_at(self, step: int) -> float:
+        if self.lr_scheduler is not None:
+            return float(self.lr_scheduler.lr_at(step))
+        return float(self.optimizer.lr)
+
+    def _mom_at(self, step: int):
+        """The schedule's momentum (OneCycle with ``cycle_momentum``),
+        else None."""
+        sch = self.lr_scheduler
+        if sch is not None and getattr(sch, "cycle_momentum", False) and \
+                hasattr(sch, "mom_at"):
+            return float(sch.mom_at(step))
+        return None
 
     @property
     def global_steps(self) -> int:
@@ -237,9 +263,11 @@ class DeepSpeedEngine:
             clip = torch.clamp(self.gradient_clipping / (norm + 1e-6),
                                max=1.0)
             grads = torch._foreach_mul(grads, clip)
+        mom = self._mom_at(self.global_step)
+        kw = {} if mom is None else {"momentum": mom}
         self.params, self.opt_state = self.optimizer.update(
             tree_unflatten(self.params, grads), self.opt_state, self.params,
-            lr=self.optimizer.lr)
+            lr=self._lr_at(self.global_step), **kw)
         if self.accum_grads is not None:
             torch._foreach_zero_(self.accum_grads)
         self._pending_grads = None

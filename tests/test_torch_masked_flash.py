@@ -16,6 +16,11 @@ The same numpy inputs, made from a seed, go through both. Tolerances:
 Dropout is held bit for bit at the mask level, and through the kernels
 with the same int32 seed on both sides (negative seeds included).
 
+The additive key-padding arity (``has_kpm``) is held the same way, with
+BERT's mask: 0 on real keys, -1e9 on pads that start inside a walk tile,
+and in one case a batch row whose keys are all pads (it attends
+uniformly over all keys, in JAX as in the port).
+
 The CUDA kernels run only on a card: their tests are marked ``cuda`` and
 skip here.
 """
@@ -174,41 +179,45 @@ def _jax_case(kind, G, rate, dtype):
     return (q, k, v, do, seed), want
 
 
-def _jax_run(q, k, v, do, jmask, rate, seed, dtype):
+def _jax_run(q, k, v, do, jmask, rate, seed, dtype, key_mask=None):
     """K1's o and lse, then dq/dk/dv through masked_flash_call's own vjp
-    rules (what jax.vjp runs), in interpret mode, in one jit."""
+    rules (what jax.vjp runs), in interpret mode, in one jit; with a
+    (B, Sk) ``key_mask`` the kernels' has_kpm arity."""
     import jax
     import jax.numpy as jnp
     from deepspeed_tpu.ops.attention.masked_flash import masked_flash_call
     jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
     jq, jk, jv, jdo = (jnp.asarray(a).astype(jd) for a in (q, k, v, do))
-    kpm = jnp.zeros((q.shape[0], 1), jnp.float32)
+    has_kpm = key_mask is not None
+    kpm = (jnp.asarray(key_mask) if has_kpm
+           else jnp.zeros((q.shape[0], 1), jnp.float32))
     jseed = jnp.asarray([[seed]], jnp.int32)
     scale = 1.0 / np.sqrt(q.shape[-1])
 
     @jax.jit
     def run(jq, jk, jv, jdo):
         o, res = masked_flash_call.fwd(jq, jk, jv, kpm, jseed, jmask, scale,
-                                       True, rate, False)
-        grads = masked_flash_call.bwd(jmask, scale, True, rate, False, res,
-                                      jdo)
+                                       True, rate, has_kpm)
+        grads = masked_flash_call.bwd(jmask, scale, True, rate, has_kpm,
+                                      res, jdo)
         return o, res[-1], grads[:3]
     o, lse, grads = run(jq, jk, jv, jdo)
     f32 = [np.asarray(x.astype(jnp.float32)) for x in (o, *grads)]
     return f32[0], np.asarray(lse).reshape(q.shape[:3]), f32[1:]
 
 
-def _port_run(q, k, v, do, tmask, rate, seed, dtype):
+def _port_run(q, k, v, do, tmask, rate, seed, dtype, key_mask=None):
     from deepspeed_tpu_torch.ops.attention.masked_flash import (
         masked_flash_attention, masked_flash_fwd)
     td = torch.bfloat16 if dtype == "bf16" else torch.float32
     tq, tk, tv = (torch.from_numpy(a).to(td).requires_grad_()
                   for a in (q, k, v))
+    kpm = None if key_mask is None else torch.from_numpy(key_mask)
     scale = 1.0 / np.sqrt(q.shape[-1])
     _, lse = masked_flash_fwd(tq.detach(), tk.detach(), tv.detach(), tmask,
-                              scale, rate, seed)
-    o = masked_flash_attention(tq, tk, tv, tmask, dropout_rate=rate,
-                               dropout_seed=seed)
+                              scale, rate, seed, kpm)
+    o = masked_flash_attention(tq, tk, tv, tmask, key_mask=kpm,
+                               dropout_rate=rate, dropout_seed=seed)
     grads = torch.autograd.grad(o, (tq, tk, tv),
                                 torch.from_numpy(do).to(td))
     return (o.detach().float().numpy(), lse.numpy(),
@@ -234,6 +243,123 @@ def test_kernels_and_grads_match_jax(kind, G, rate, dtype):
         else:
             ratio, rel_rms, ok = _bf16_check(g, w, **BF16_TOL)
             assert ok, (ratio, rel_rms)
+
+
+def _bert_key_mask(rng, batch, s, min_len, all_pad_rows=()):
+    """BERT's additive key mask as (B, Sk) fp32: each row's real length
+    drawn from [min_len, s] (pads start inside a tile), -1e9 on the
+    pads, every key a pad in ``all_pad_rows``."""
+    lengths = rng.randint(min_len, s + 1, size=batch)
+    am = (np.arange(s)[None, :] < lengths[:, None]).astype(np.float32)
+    am[list(all_pad_rows)] = 0.0
+    return ((1.0 - am) * -1e9).astype(np.float32)
+
+
+def _assert_matches(got, want, dtype):
+    np.testing.assert_allclose(got[1], want[1], atol=FP32_ATOL, rtol=0)
+    for g, w in zip([got[0], *got[2]], [want[0], *want[2]]):
+        if dtype == "fp32":
+            np.testing.assert_allclose(g, w, atol=FP32_ATOL, rtol=0)
+        else:
+            ratio, rel_rms, ok = _bf16_check(g, w, **BF16_TOL)
+            assert ok, (ratio, rel_rms)
+
+
+@pytest.mark.parametrize("kind,G,rate,dtype", [
+    ("dense", 1, 0.0, "fp32"), ("dense", 1, 0.1, "bf16"),
+    ("dense", 2, 0.1, "fp32"), ("causal", 1, 0.0, "bf16"),
+    ("causal", 2, 0.1, "bf16"), ("causal", 2, 0.0, "fp32")])
+def test_key_mask_kernels_and_grads_match_jax(kind, G, rate, dtype):
+    """The has_kpm arity: K1's o and lse, and dq/dk/dv through the
+    autograd Function, against masked_flash_call(has_kpm=True) and its
+    vjp, with BERT's -1e9 pads starting inside the walk tiles (walk
+    block 32, two tiles per block row), GQA, dropout and a causal mask
+    under the key mask."""
+    rng = np.random.RandomState(40 + G * 10 + int(rate * 10))
+    q, k, v, do = _inputs(rng, G, dtype, B=2)
+    kpm = _bert_key_mask(rng, 2, S, 20)
+    seed = -135792468 if rate else 0
+    want = _jax_run(q, k, v, do, _jax_mask(kind, block=32), rate, seed,
+                    dtype, key_mask=kpm)
+    got = _port_run(q, k, v, do, _port_mask(kind, block=32), rate, seed,
+                    dtype, key_mask=kpm)
+    _assert_matches(got, want, dtype)
+    # the mask matters: without it the port's o moves far from JAX's
+    plain = _port_run(q, k, v, do, _port_mask(kind, block=32), rate, seed,
+                      dtype)
+    assert np.abs(plain[0] - want[0]).max() > 1e-2
+
+
+def test_key_mask_all_padded_row_attends_uniformly():
+    """A batch row whose keys are all pads: every score rounds to about
+    -1e9 (the fp32 ulp there is 64), above VALID_THRESH, so the row
+    attends uniformly over all keys, in JAX as in the port; the other
+    row only over its real keys. Forward and grads against JAX."""
+    rng = np.random.RandomState(47)
+    q, k, v, do = _inputs(rng, 1, "fp32", B=2)
+    kpm = _bert_key_mask(rng, 2, S, 20, all_pad_rows=(1,))
+    want = _jax_run(q, k, v, do, _jax_mask("dense", block=16), 0.0, 0,
+                    "fp32", key_mask=kpm)
+    got = _port_run(q, k, v, do, _port_mask("dense", block=16), 0.0, 0,
+                    "fp32", key_mask=kpm)
+    _assert_matches(got, want, "fp32")
+    uniform = np.broadcast_to(v[1].mean(axis=1, keepdims=True), v[1].shape)
+    np.testing.assert_allclose(got[0][1], uniform, atol=FP32_ATOL, rtol=0)
+    n_real = int((kpm[0] == 0).sum())
+    np.testing.assert_allclose(
+        got[0][0], np.asarray(torch.softmax(
+            torch.from_numpy(q[0] @ k[0, :, :n_real].swapaxes(-1, -2)
+                             / np.sqrt(D)), -1).numpy() @ v[0, :, :n_real]),
+        atol=FP32_ATOL, rtol=0)
+
+
+def test_key_mask_cotangent_is_zero():
+    """The key mask takes no gradient: a zero one where it is asked for
+    (JAX's vjp returns zeros), none otherwise."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import \
+        masked_flash_attention
+    rng = np.random.RandomState(48)
+    q, k, v, _ = (torch.from_numpy(a).requires_grad_()
+                  for a in _inputs(rng, 1, "fp32", B=2))
+    kpm = torch.from_numpy(_bert_key_mask(rng, 2, S, 20)).requires_grad_()
+    mask = _port_mask("dense")
+    o = masked_flash_attention(q, k, v, mask, key_mask=kpm)
+    g_kpm, g_q = torch.autograd.grad(o.sum(), (kpm, q))
+    assert g_kpm.shape == kpm.shape and float(g_kpm.abs().max()) == 0.0
+    assert float(g_q.abs().max()) > 0.0
+    o = masked_flash_attention(q, k, v, mask, key_mask=kpm.detach())
+    assert torch.autograd.grad(o.sum(), q)[0].shape == q.shape
+
+
+def test_flash_attention_key_mask_matches_jax():
+    """The front end with a (B, 1, 1, Sk) BERT mask (the route
+    transformer_layer_forward takes) against JAX's flash_attention,
+    forward and grads, at a sequence the kernels walk and at one they do
+    not (seq % 16 != 0, the reference path)."""
+    import jax
+    import jax.numpy as jnp
+
+    from deepspeed_tpu.ops.attention.flash import \
+        flash_attention as jax_flash
+
+    from deepspeed_tpu_torch.ops.attention.flash import flash_attention
+    for s in (48, 40):
+        rng = np.random.RandomState(49 + s)
+        q, k, v, do = _inputs(rng, 1, "fp32", B=2, H=2, s=s)
+        kpm = _bert_key_mask(rng, 2, s, 10)[:, None, None, :]
+        jo, vjp = jax.vjp(lambda a, b, c: jax_flash(
+            a, b, c, mask=jnp.asarray(kpm), interpret=True),
+            *(jnp.asarray(a) for a in (q, k, v)))
+        jg = vjp(jnp.asarray(do))
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_()
+                      for a in (q, k, v))
+        to = flash_attention(tq, tk, tv, mask=torch.from_numpy(kpm))
+        tg = torch.autograd.grad(to, (tq, tk, tv), torch.from_numpy(do))
+        np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo),
+                                   atol=FP32_ATOL, rtol=0)
+        for a, b in zip(tg, jg):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                       atol=FP32_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -332,8 +458,8 @@ def test_flash_attention_causal_matches_jax():
 
 def test_routing(monkeypatch):
     """seq % 16 != 0 takes the reference path; the masked route runs the
-    masked kernels; the legacy route, the key-padding mask and KIND_BAND
-    raise instead of falling back."""
+    masked kernels, with a (B, 1, 1, Sk) key-padding mask too; the legacy
+    route and KIND_BAND raise instead of falling back."""
     from deepspeed_tpu_torch.ops.attention import flash as tflash
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
     rng = np.random.RandomState(7)
@@ -355,8 +481,11 @@ def test_routing(monkeypatch):
     with pytest.raises(NotImplementedError, match="K5-K7"):
         tflash.flash_attention(q2, k2[:, :, :32], v2[:, :, :32],
                                causal=True)
-    with pytest.raises(NotImplementedError, match="has_kpm"):
-        tflash.flash_attention(q2, k2, v2, mask=torch.zeros(1, 1, 1, S))
+    tflash.flash_attention(q2, k2, v2, mask=torch.zeros(1, 1, 1, S))
+    assert calls == [1, 1]
+    with pytest.raises(ValueError, match="key mask"):
+        mf.masked_flash_fwd(q2, k2, v2, mf.BlockMask.dense(S, S, 16), 0.25,
+                            key_mask=torch.zeros(1, S, dtype=torch.float64))
     band = mf.BlockMask(np.ones((1, 4, 4)), np.full((1, 4, 4), 2), 16, S, S,
                         band=(16, 1, 0, 0, False))
     for call in (lambda: mf.masked_flash_attention(q2, k2, v2, band),
@@ -404,6 +533,55 @@ def test_cuda_kernels_match_plain(case):
     torch.cuda.synchronize()
     assert (mf.masked_flash_fwd.launches, mf.masked_flash_dq.launches,
             mf.masked_flash_dkv.launches) == tuple(n + 1 for n in before)
+    want = [o_p, mf.masked_flash_dq_plain(*args),
+            *mf.masked_flash_dkv_plain(*args)]
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+        if dtype == "fp32":
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4)
+        else:
+            ratio, rel_rms, ok = _bf16_check(a, b, **BF16_TOL)
+            assert ok, (ratio, rel_rms)
+    assert float((lse - lse_p).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, H, Hkv, S, D, mask, block, dtype, rate, min_len, all-pad rows)
+    (8, 16, 16, 128, 64, "dense", 128, "bf16", 0.0, 64, ()),   # BERT-large
+    (8, 16, 16, 128, 64, "dense", 128, "bf16", 0.1, 64, ()),
+    (2, 16, 16, 512, 64, "dense", 128, "bf16", 0.1, 256, (1,)),
+    (2, 16, 4, 256, 128, "causal", 128, "bf16", 0.1, 100, ()),  # GQA
+    (2, 4, 2, 128, 24, "dense", 64, "fp32", 0.1, 30, (0,)),
+])
+def test_cuda_key_mask_kernels_match_plain(case):
+    """The has_kpm arity of K1, K2 and K3 on the card against their plain
+    versions on the same inputs; launches count in ``launches_kpm``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    B, H, Hkv, s, d, kind, block, dtype, rate, min_len, pads = case
+    rng = np.random.RandomState(s + d + 1)
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v, do = (torch.from_numpy(a).to("cuda", td) for a in
+                   _inputs(rng, H // Hkv, dtype, B=B, H=H, s=s, d=d))
+    kpm = torch.from_numpy(_bert_key_mask(rng, B, s, min_len, pads)).cuda()
+    mask = _port_mask(kind, s=s, block=block)
+    scale, seed = 1.0 / np.sqrt(d), 77
+    before = [f.launches_kpm for f in (mf.masked_flash_fwd,
+                                       mf.masked_flash_dq,
+                                       mf.masked_flash_dkv)]
+    o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed, kpm)
+    o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed,
+                                           kpm)
+    delta = (do.float() * o_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, mask, scale, rate, seed, kpm)
+    got = [o, mf.masked_flash_dq(*args), *mf.masked_flash_dkv(*args)]
+    torch.cuda.synchronize()
+    assert [f.launches_kpm for f in (mf.masked_flash_fwd, mf.masked_flash_dq,
+                                     mf.masked_flash_dkv)] == \
+        [n + 1 for n in before]
     want = [o_p, mf.masked_flash_dq_plain(*args),
             *mf.masked_flash_dkv_plain(*args)]
     for a, b in zip(got, want):

@@ -390,7 +390,10 @@ def test_port_imports_neither_jax_nor_deepspeed_tpu():
     files = sorted((REPO / "deepspeed_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
-    assert REPO / "deepspeed_tpu_torch" / "models" / "llama.py" in files
+    for module in ("models/llama.py", "models/bert.py",
+                   "ops/transformer/transformer.py",
+                   "runtime/lr_schedules.py", "ops/optimizers.py"):
+        assert REPO / "deepspeed_tpu_torch" / module in files
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -399,9 +402,9 @@ def test_port_imports_neither_jax_nor_deepspeed_tpu():
 
 
 def test_port_package_imports_without_jax():
-    """Importing the port (serving and training entry points, both
-    model families, the kernels' modules) in a fresh interpreter loads
-    no jax module."""
+    """Importing the port (serving and training entry points, the GPT-2,
+    Llama and BERT families, the transformer layer, the schedules, the
+    kernels' modules) in a fresh interpreter loads no jax module."""
     import subprocess
     import sys
     code = ("import sys; before = set(sys.modules); "
@@ -412,6 +415,9 @@ def test_port_package_imports_without_jax():
             "import deepspeed_tpu_torch.ops.attention.paged; "
             "import deepspeed_tpu_torch.models.llama; "
             "import deepspeed_tpu_torch.inference.kv_cache; "
+            "import deepspeed_tpu_torch.models.bert; "
+            "import deepspeed_tpu_torch.ops.transformer.transformer; "
+            "import deepspeed_tpu_torch.runtime.lr_schedules; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'deepspeed_tpu')]; "
             "assert not bad, bad")

@@ -1,7 +1,8 @@
 """The port's training path (deepspeed_tpu_torch: initialize, the engine,
-Adam, the config's batch triangle and the GPT-2 loss) against the JAX
+Adam, Lamb with WarmupLR, ZeRO stages on a world of one, the config's
+batch triangle, the GPT-2 loss and the BERT MLM loss) against the JAX
 package on the CPU, at a tiny GPT-2 (2 layers, hidden 64, 2 heads, seq
-32).
+32) and a tiny BERT of the same widths.
 
 The same parameters (made by the JAX init from a seed and carried across
 through numpy) and the same token ids go through both. The JAX side's
@@ -14,7 +15,7 @@ runs the masked-flash kernels' plain versions. Tolerances:
   each grad's largest entry (bf16 activations rounded after differently
   ordered fp32 sums);
 - Adam: rtol 1e-6 (the same fp32 expressions, fused differently);
-- the 5-step trajectory (fp32): every loss within rtol 1e-5, the final
+- the 5-step trajectories (fp32): every loss within rtol 1e-5, the final
   params within 1e-4 absolute.
 
 Dropout cannot run the same masks on both sides (the JAX engine derives
@@ -311,16 +312,34 @@ def test_training_data_loader_repeats():
 
 
 @pytest.mark.parametrize("extra,word", [
-    ({"zero_optimization": {"stage": 1}}, "ZeRO"),
+    ({"zero_optimization": {"stage": 3}}, "ZeRO"),
     ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "offload"),
     ({"fp16": {"enabled": True}}, "fp16"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}}, "1-bit"),
-    ({"scheduler": {"type": "WarmupLR", "params": {}}}, "lr schedules"),
+    ({"optimizer": {"type": "SGD", "params": {"lr": 1e-3}}}, "not ported"),
 ])
 def test_unported_settings_raise(extra, word):
     with pytest.raises(NotImplementedError, match=word):
         _port_engine(1, 0.0, _jax_tree(), **extra)
+
+
+@pytest.mark.parametrize("stage,world,offload", [(1, 2, False),
+                                                 (2, 4, False),
+                                                 (3, 1, False),
+                                                 (1, 1, True)])
+def test_zero_beyond_one_shard_raises(stage, world, offload):
+    """ZeRO across devices, stage 3 and offload name the ROADMAP items
+    that port them; stages 1 and 2 on a world of one parse."""
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    raw = {"train_micro_batch_size_per_gpu": 2,
+           "zero_optimization": {"stage": stage, "cpu_offload": offload}}
+    with pytest.raises(NotImplementedError, match="Queue 1 item"):
+        DeepSpeedConfig(raw, world_size=world)
+    for ok in (1, 2):
+        cfg = DeepSpeedConfig({"train_micro_batch_size_per_gpu": 2,
+                               "zero_optimization": {"stage": ok}})
+        assert cfg.zero_optimization_stage == ok
 
 
 def test_engine_needs_a_card_or_an_explicit_device(monkeypatch):
@@ -359,3 +378,114 @@ def test_timers_and_wall_clock_breakdown():
     engine.backward()
     engine.step()
     assert engine.global_steps == 1
+
+
+# ------------------------------------------------------------------ BERT
+BERT = dict(vocab_size=V, hidden_size=64, num_layers=2, num_heads=2,
+            intermediate_size=128, max_position_embeddings=S,
+            hidden_dropout=0.0, attn_dropout=0.0)
+
+
+def _bing_bert_config(**over):
+    """examples/bing_bert/ds_config.json as the repo holds it (Lamb,
+    WarmupLR, clipping 1.0, ZeRO 1, ga 2), with micro batch B, fp32."""
+    import json
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / \
+        "bing_bert" / "ds_config.json"
+    raw = json.loads(path.read_text())
+    raw.update(train_micro_batch_size_per_gpu=B, bf16={"enabled": False},
+               steps_per_print=1000, **over)
+    return raw
+
+
+def _mlm_batches(seed, n):
+    """Padded MLM micro batches: lengths 16-32, labels -100 on the pads
+    and on the real tokens not picked."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, V, (B, S)).astype(np.int32)
+        am = (np.arange(S)[None, :] < rng.randint(16, S + 1, B)[:, None]
+              ).astype(np.int32)
+        labels = np.where((rng.rand(B, S) < 0.3) & (am == 1), ids,
+                          -100).astype(np.int32)
+        out.append({"input_ids": ids, "attention_mask": am,
+                    "labels": labels})
+    return out
+
+
+def _bert_engine(tree, raw):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import BertConfig, bert_mlm_loss_fn
+    return deepspeed_tpu_torch.initialize(
+        model=bert_mlm_loss_fn(BertConfig(**BERT), dtype=torch.float32,
+                               deterministic=True),
+        model_parameters=_np_tree(tree), config=raw, device="cpu")
+
+
+def _bert_tree():
+    from deepspeed_tpu.models.bert import BertConfig, init_bert_params
+    return init_bert_params(BertConfig(**BERT), jax.random.PRNGKey(0))
+
+
+def test_bing_bert_trajectory_matches_jax_engine():
+    """5 train_batch steps of the bing_bert config (Lamb lr 2e-3, wd 0.01,
+    coefficients clamped to [0.01, 0.3]; log WarmupLR over 100 steps;
+    clipping 1.0; ZeRO 1; ga 2) in fp32 on a padded batch, against the
+    JAX engine on one device: every loss, every step's lr (read before the
+    step counts) and the final params."""
+    import deepspeed_tpu
+    from deepspeed_tpu.models.bert import BertConfig, bert_mlm_loss_fn
+
+    from deepspeed_tpu_torch.ops.optimizers import Lamb
+    from deepspeed_tpu_torch.runtime.lr_schedules import WarmupLR
+    tree = _bert_tree()
+    micros = _mlm_batches(3, 2) * 5
+    raw = _bing_bert_config()
+    jeng, *_ = deepspeed_tpu.initialize(
+        model=bert_mlm_loss_fn(BertConfig(**BERT), dtype=jnp.float32,
+                               deterministic=True),
+        model_parameters=tree, config=dict(raw, mesh={"axes": {"data": 1}}))
+    teng, opt, _, sched = _bert_engine(tree, raw)
+    assert isinstance(opt, Lamb) and isinstance(sched, WarmupLR)
+    assert (opt.lr, opt.weight_decay, opt.min_coeff, opt.max_coeff) == \
+        (2e-3, 0.01, 0.01, 0.3)
+    assert teng.zero_optimization_stage() == jeng.zero_optimization_stage() \
+        == 1
+    jit, tit = iter(micros), iter(micros)
+    jl, tl = [], []
+    for step in range(5):
+        np.testing.assert_allclose(teng.get_lr(), jeng.get_lr(), rtol=1e-6,
+                                   atol=1e-12)
+        assert teng.get_lr() == [sched.lr_at(step)]
+        jl.append(float(jeng.train_batch(jit)))
+        tl.append(float(teng.train_batch(tit)))
+        coeffs = opt.get_lamb_coeffs()
+        assert len(coeffs) == len(_port_leaves(teng.module_params))
+        assert all(c == 1.0 or np.float32(0.01) <= c <= np.float32(0.3)
+                   for c in coeffs)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    for t, j in zip(_port_leaves(teng.module_params),
+                    jax.tree_util.tree_leaves(jeng.module_params)):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_zero_stage_at_world_one_equals_stage_0(stage):
+    """ZeRO 1 and 2 on one device are one shard of everything: three
+    steps take the params stage 0 takes, bit for bit."""
+    tree = _bert_tree()
+    micros = _mlm_batches(4, 2) * 3
+    runs = []
+    for st in (0, stage):
+        eng, *_ = _bert_engine(tree, _bing_bert_config(
+            zero_optimization={"stage": st}))
+        assert eng.zero_optimization_stage() == st
+        it = iter(micros)
+        losses = [float(eng.train_batch(it)) for _ in range(3)]
+        runs.append((losses, _port_leaves(eng.module_params)))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)

@@ -94,8 +94,36 @@ Phases 13 to 17 run after phase 9.
    48 key-mask launches of each kernel per step and no mask-free one.
 16. bert_kernel_vs_plain: a 2-layer full-width BERT-large in fp32 on a
    padded batch, the kernel path against the plain path.
-17. the {"kernels": [...]} line (with the three key-mask entries), the
-   nvidia-smi line, and last {"ok": true, "device": {...}}.
+Phases 17 to 20 run after phase 16: block-sparse BERT-large
+(examples/bing_bert/train.py --mode sparse at seq 2048, the position
+table extended from 512 by SparseAttentionUtils) in two configurations:
+ds_config_sparse.json as the repo holds it (fixed, per-head layouts at
+block 16: K1-K3's key-mask arity at walk 16 with 16 mask heads) and its
+sparse_attention section replaced by {"mode": "bslongformer"} (the
+schema's defaults: K1-K3's KIND_BAND arity over a walk of 128).
+17. sparse_kernel_check: K1, K2 and K3 in their band arity against their
+   plain versions on the card (TRAIN_TOL): B 8, H 16, S 2048, D 64,
+   bf16, the BSLongformer layout at walk 128, 64 and 32 with the sparse
+   route's key mask (lengths 1024-2048, -1e30 on the pads), dropout 0.1,
+   fp32, a causally clipped band, and walked BAND tiles with rows and
+   columns that keep no cell beside a batch row of pads. Control: the
+   plain versions with the BAND tiles taken as FULL must fail the same
+   check on every output.
+18. sparse_kernel_timing: the three at the fixed layouts (walk 16) and
+   the BSLongformer layout at walk 128, 64, 32 and 16, timed as in phase
+   6, beside the bound (bytes, or the fine layout's FLOP), the plain
+   version and SDPA with the dense float (B, H, S, S) mask.
+19. bert_sparse_training: each configuration, 1 warm-up and 3 timed
+   train_batch steps on padded synthetic MLM batches (step ms,
+   samples/s, real tokens/s, MFU beside the layout's density, peak
+   memory, losses, lrs), then a profile of 2 more. Checks finite losses,
+   the lrs, the Lamb coefficients, and 48 launches per step of each
+   kernel, all in the one arity the layout gives.
+20. bert_sparse_kernel_vs_plain: phase 16 with sparse attention, the
+   fixed configuration at seq 512 and the BSLongformer one at 2048.
+21. the {"kernels": [...]} line (with the three key-mask and the three
+   band entries), the nvidia-smi line, and last {"ok": true, "device":
+   {...}}.
 """
 
 import contextlib
@@ -226,11 +254,11 @@ def check_kernel(name, args, atol, null_rows=()):
     return err
 
 
-def time_ms(fn, calls, flush):
-    """Median ms of ``calls`` CUDA-event-timed calls after warmup, the L2
-    cache flushed before each."""
+def time_ms(fn, calls, flush, warmup=3):
+    """Median ms of ``calls`` CUDA-event-timed calls after ``warmup``
+    calls, the L2 cache flushed before each."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(calls):
@@ -915,16 +943,18 @@ def compare(out, ref, atol, rtol, rms):
 
 
 def check_train_kernels(name, mask, args, rate, seed=-123457,
-                        control=False, key_mask=None):
+                        control=False, key_mask=None, control_mask=None,
+                        phase="train_kernel_check", extra=None):
     """K1, K2 and K3 against their plain versions on the same inputs;
     the backward kernels get the plain forward's lse and delta, so each
     kernel is held against its own plain version. With ``key_mask`` the
     kernels' key-mask arity runs. With ``control``, a plain version that
     leaves out what the check must catch has to fail the same check on
-    every output: without a key mask (bf16 only), the plain versions run
-    on fp32 copies of the inputs, which leaves out the rounding of p and
-    ds before their products; with one, they run without the key
-    mask."""
+    every output: with a ``control_mask`` (a BAND mask's tiles taken as
+    FULL) the plain versions run over it; else without a key mask (bf16
+    only) they run on fp32 copies of the inputs, which leaves out the
+    rounding of p and ds before their products; with one, they run
+    without the key mask."""
     import torch
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
     q, k, v, do = args
@@ -941,12 +971,16 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     dq_p = mf.masked_flash_dq_plain(*bwd)
     dk_p, dv_p = mf.masked_flash_dkv_plain(*bwd)
     tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
-    row = {"phase": "train_kernel_check", "case": name,
+    row = {"phase": phase, "case": name,
            "dtype": str(q.dtype), "shape_q": list(q.shape),
            "shape_kv": list(k.shape), "block": mask.block,
            "mask_heads": mask.heads, "walked_tiles": mask.nnz,
            "dropout": rate, "key_mask": key_mask is not None,
            "tol": tol, "lse_atol": LSE_ATOL}
+    if mask.band is not None:
+        row.update(fine_block=mask.fine_block, band=list(mask.band),
+                   band_tiles=int((mask.kinds[mask.active] != 0).sum()))
+    row.update(extra or {})
     if key_mask is not None:
         real = (key_mask == 0).sum(-1)
         row["real_keys_per_row"] = [int(n) for n in real.tolist()]
@@ -963,16 +997,19 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     row["lse_max_abs_err"] = lse_err
     ok &= lse_err <= LSE_ATOL
     if control:
-        if key_mask is None:
+        c_mask, c_key = mask, None
+        if control_mask is not None:
+            row["control"] = "KIND_BAND tiles taken as FULL"
+            c_args, c_mask, c_key = args, control_mask, key_mask
+        elif key_mask is None:
             row["control"] = "fp32 inputs: no rounding of p and ds"
             c_args = [t.float() for t in args]
-            c_bwd = (*c_args, lse_p, delta, mask, scale, rate, seed)
         else:
             row["control"] = "the key mask left out"
             c_args = args
-            c_bwd = (*args, lse_p, delta, mask, scale, rate, seed)
-        o_c, _ = mf.masked_flash_fwd_plain(*c_args[:3], mask, scale, rate,
-                                           seed)
+        c_bwd = (*c_args, lse_p, delta, c_mask, scale, rate, seed, c_key)
+        o_c, _ = mf.masked_flash_fwd_plain(*c_args[:3], c_mask, scale, rate,
+                                           seed, c_key)
         dq_c = mf.masked_flash_dq_plain(*c_bwd)
         dk_c, dv_c = mf.masked_flash_dkv_plain(*c_bwd)
         for key, out in (("o", o_c), ("dq", dq_c), ("dk", dk_c),
@@ -1139,8 +1176,7 @@ def _train_launches():
 
 def _reset_train_launches():
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
-    for fn in (mf.masked_flash_fwd, mf.masked_flash_dq, mf.masked_flash_dkv):
-        fn.launches = 0
+    mf.reset_launches()
 
 
 def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
@@ -1387,17 +1423,33 @@ BERT_SHAPE = dict(B=8, H=16, Hkv=16, S=128, D=64, block=128)
 BERT_DS_CONFIG = "examples/bing_bert/ds_config.json"
 BERT_STEPS, BERT_WARMUP, BERT_STEPS_512 = 10, 2, 3
 KPM_NAMES = ("masked_flash_fwd", "masked_flash_dq", "masked_flash_dkv")
+# block-sparse BERT-large: examples/bing_bert/train.py --mode sparse at
+# seq 2048 (the position table extended from 512), real lengths
+# 1024-2048, in two configurations: the file as the repo holds it (fixed,
+# per-head layouts at block 16) and its sparse_attention section replaced
+# by {"mode": "bslongformer"} (the schema's defaults: block 16, a window
+# of 3 blocks, global block 0, one layout for all heads)
+SPARSE_DS_CONFIG = "examples/bing_bert/ds_config_sparse.json"
+SPARSE_SEQ, SPARSE_MIN_LEN = 2048, 1024
+SPARSE_STEPS, SPARSE_WARMUP = 3, 1
+SPARSE_KINDS = ("fixed", "bslongformer")
+# the arity each configuration's layout runs K1-K3 in at seq 2048
+SPARSE_ARITY = {"fixed": "kpm walk16 heads16",
+                "bslongformer": "kpm+band walk128 heads1"}
+SPARSE_SHAPE = dict(B=8, H=16, S=SPARSE_SEQ, D=64)
+SPARSE_TIMED_CALLS = 20
 
 
-def bert_key_mask(rng, batch, seq, min_len, all_pad_rows=()):
+def bert_key_mask(rng, batch, seq, min_len, all_pad_rows=(), pad=-1e9):
     """BERT's additive key mask on the card, (B, S) fp32: each row's real
-    length drawn from [min_len, seq], -1e9 on the pads (bert_encoder's
-    mask), every key a pad in ``all_pad_rows``."""
+    length drawn from [min_len, seq], ``pad`` on the pads (-1e9:
+    bert_encoder's dense mask; -1e30: the sparse route's 'mul' mode),
+    every key a pad in ``all_pad_rows``."""
     import torch
     lengths = rng.randint(min_len, seq + 1, size=batch)
     am = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.float32)
     am[list(all_pad_rows)] = 0.0
-    return torch.from_numpy((1.0 - am) * -1e9).float().cuda()
+    return torch.from_numpy((1.0 - am) * pad).float().cuda()
 
 
 def bert_kernel_check_phase():
@@ -1533,6 +1585,248 @@ def bert_kernel_timing_phase(smi):
     return out
 
 
+# ------------------------------------------------------ sparse BERT
+def sparse_config(kind, ds_config=None, heads=16):
+    """The SparsityConfig of ``kind``: "fixed", the sparse_attention
+    section of ds_config_sparse.json as the repo holds it; "bslongformer",
+    that section replaced in ``ds_config`` by {"mode": "bslongformer"};
+    parsed by get_sparse_attention, as examples/bing_bert/train.py
+    does."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        sparsity_config_from_dict
+    from deepspeed_tpu_torch.runtime.config import get_sparse_attention
+    if ds_config is None:
+        with open(SPARSE_DS_CONFIG) as f:
+            ds_config = json.load(f)
+    if kind == "bslongformer":
+        ds_config["sparse_attention"] = {"mode": "bslongformer"}
+    return sparsity_config_from_dict(get_sparse_attention(ds_config),
+                                     num_heads=heads)
+
+
+def _no_band(mask):
+    """``mask`` with its KIND_BAND tiles taken as FULL: the control."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import BlockMask
+    return BlockMask(mask.active, np.zeros_like(mask.kinds), mask.block,
+                     mask.seq_q, mask.seq_k)
+
+
+def _empty_in_band_tiles(mask):
+    """Rows and columns of walked KIND_BAND tiles that keep no cell."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import KIND_BAND
+    b = mask.block
+    keep = mask.dense_additive()[0] == 0.0
+    tiles = keep.reshape(mask.nq, b, mask.nk, b).transpose(0, 2, 1, 3)
+    band = tiles[mask.active[0] & (mask.kinds[0] & KIND_BAND).astype(bool)]
+    return {"empty_rows_in_band_tiles": int((~band.any(-1)).sum()),
+            "empty_cols_in_band_tiles": int((~band.any(-2)).sum())}
+
+
+def check_band_kernels(name, mask, args, rate, key_mask):
+    """K1-K3 in their band arity against their plain versions
+    (TRAIN_TOL); the control: the plain versions with the KIND_BAND
+    tiles taken as FULL must fail the same check on every output."""
+    if not mask.has_band:
+        raise AssertionError(f"{name}: {mask.describe()} has no BAND tile")
+    return check_train_kernels(name, mask, args, rate, control=True,
+                               key_mask=key_mask,
+                               control_mask=_no_band(mask),
+                               phase="sparse_kernel_check",
+                               extra=_empty_in_band_tiles(mask))
+
+
+def sparse_kernel_check_phase():
+    """K1, K2 and K3 in their KIND_BAND arity against their plain
+    versions on the card: BERT-large's attention at S 2048 (B 8, H 16,
+    D 64, bf16) under the BSLongformer layout coarsened to walk 128, 64
+    and 32, with the sparse route's key mask (real lengths 1024-2048,
+    -1e30 on the pads); dropout 0.1; fp32; a causally clipped band; and a
+    batch row of pads beside a row with 100 real keys. Returns the main
+    case's row (walk 128, dropout 0)."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention.masked_flash import (NEG_INF,
+                                                                BlockMask)
+    rng = np.random.RandomState(SEED + 8)
+    m = SPARSE_SHAPE
+    B, H, S, D = m["B"], m["H"], m["S"], m["D"]
+    bf16 = torch.bfloat16
+    sc = sparse_config("bslongformer")
+    layout = sc.make_layout(S)
+    main = train_inputs(rng, B, H, H, S, D, bf16)
+    kpm = bert_key_mask(rng, B, S, SPARSE_MIN_LEN, pad=NEG_INF)
+    walk128 = BlockMask.from_layout(layout, sc.block, walk_block=128)
+    main_row = check_band_kernels("bert_large_s2048_bslongformer_walk128",
+                                  walk128, main, 0.0, kpm)
+    for walk in (64, 32):
+        check_band_kernels(f"bert_large_s2048_bslongformer_walk{walk}",
+                           BlockMask.from_layout(layout, sc.block,
+                                                 walk_block=walk),
+                           main, 0.0, kpm)
+    check_band_kernels("bert_large_s2048_bslongformer_walk128_dropout0.1",
+                       walk128, main, 0.1, kpm)
+    check_band_kernels(
+        "fp32_s512_bslongformer_walk64",
+        BlockMask.from_layout(sc.make_layout(512), sc.block, walk_block=64),
+        train_inputs(rng, 2, 4, 4, 512, 64, torch.float32), 0.0,
+        bert_key_mask(rng, 2, 512, 200, pad=NEG_INF))
+    n = 1024 // 16
+    rb, cb = np.arange(n)[:, None], np.arange(n)[None, :]
+    clipped = ((rb < 1) | (cb < 1) | (np.abs(rb - cb) <= 2)) & (cb <= rb)
+    causal = BlockMask.from_layout(clipped[None].astype(np.int32), 16,
+                                   walk_block=128)
+    if not causal.band[4]:
+        raise AssertionError(f"detect_banded missed the clip: {causal.band}")
+    check_band_kernels("causal_clipped_band_s1024_walk128_bf16", causal,
+                       train_inputs(rng, 2, 8, 8, 1024, 64, bf16), 0.0,
+                       bert_key_mask(rng, 2, 1024, 512, pad=NEG_INF))
+    kpm_pads = bert_key_mask(rng, 4, 1024, 512, all_pad_rows=(1,),
+                             pad=NEG_INF)
+    kpm_pads[2, 100:] = NEG_INF
+    pads = check_band_kernels(
+        "empty_rows_cols_all_pad_row_s1024_walk64_bf16",
+        BlockMask.from_layout(sc.make_layout(1024), sc.block,
+                              walk_block=64),
+        train_inputs(rng, 4, 8, 8, 1024, 64, bf16), 0.0, kpm_pads)
+    if not (pads["empty_rows_in_band_tiles"]
+            and pads["empty_cols_in_band_tiles"]):
+        raise AssertionError(f"no empty row or column in a BAND tile: "
+                             f"{pads}")
+    return main_row
+
+
+def sparse_kernel_timing_phase(smi):
+    """K1, K2 and K3 at the two main-path shapes of block-sparse
+    BERT-large (B 8, H 16, S 2048, D 64, bf16, the sparse route's key
+    mask): the fixed per-head layouts at walk 16 (the key-mask arity)
+    and the BSLongformer layout at walk 128 (the main path's band
+    arity), 64, 32 and the fine walk of 16, timed as train_kernel_timing
+    times them. The bound counts the bytes moved once and the FINE
+    layout's FLOP, so work spent on the coarse tiles' dropped cells
+    shows as distance from it. Library: one scaled_dot_product_attention
+    call with the dense float (B, H, S, S) mask of layout plus key mask
+    (forward for K1, backward for K2 and K3 together)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    from deepspeed_tpu_torch.ops.attention.masked_flash import (NEG_INF,
+                                                                BlockMask)
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        layout_additive_mask
+    rng = np.random.RandomState(SEED + 9)
+    m = SPARSE_SHAPE
+    B, H, S, D = m["B"], m["H"], m["S"], m["D"]
+    q, k, v, do = train_inputs(rng, B, H, H, S, D, torch.bfloat16)
+    kpm = bert_key_mask(rng, B, S, SPARSE_MIN_LEN, pad=NEG_INF)
+    scale = 1.0 / float(np.sqrt(D))
+    bytes_per_s, flops_per_s = card_peaks(smi)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    tile = B * H * S * D * 2
+    rowvec = B * H * S * 4
+    mask_bytes = kpm.numel() * 4
+    replaces = {
+        "masked_flash_fwd": "deepspeed_tpu/ops/attention/masked_flash.py:"
+                            "413-427 (_partial_keep's band predicate, the "
+                            "KIND_BAND arity of _mf_fwd_kernel :450)",
+        "masked_flash_dq": "deepspeed_tpu/ops/attention/masked_flash.py:"
+                           "413-427 (the KIND_BAND arity of _mf_dq_kernel "
+                           ":532)",
+        "masked_flash_dkv": "deepspeed_tpu/ops/attention/masked_flash.py:"
+                            "413-427 (the KIND_BAND arity of _mf_dkv_kernel "
+                            ":604)"}
+    out = {}
+    for kind in SPARSE_KINDS:
+        sc = sparse_config(kind, heads=H)
+        layout = sc.make_layout(S)
+        fine_tiles = int(layout.astype(bool).sum())      # over all H heads
+        am = (torch.from_numpy(layout_additive_mask(layout, sc.block))
+              .cuda()[None] + kpm[:, None, None, :]).to(torch.bfloat16)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am)
+        lib = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=am), SPARSE_TIMED_CALLS, flush),
+            "bwd": time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qs, ks, vs), do, retain_graph=True),
+                SPARSE_TIMED_CALLS, flush)}
+        del sdpa_out, qs, ks, vs, am
+        walks = ((16,) if kind == "fixed" else (128, 64, 32, 0))
+        for walk in walks:
+            mask = BlockMask.from_layout(layout, sc.block,
+                                         walk_block=None if kind == "fixed"
+                                         else walk)
+            label = f"{kind} walk{mask.block}"
+            o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, key_mask=kpm)
+            delta = (do.float() * o.float()).sum(-1)
+            bwd = (q, k, v, do, lse, delta, mask, scale)
+            meta = {"csr": sum(a.nbytes for a in mask.csr()),
+                    "csc": sum(a.nbytes for a in mask.csc())}
+            hm = H if mask.heads == 1 else 1
+            # the per-tile plain walk of the per-head layouts launches
+            # ~1e6 small kernels per call: time one call
+            plain_calls, plain_warm = (1, 0) if mask.block == 16 else (3, 1)
+            specs = {
+                # name: (call, plain call, dots per tile, bytes in, out,
+                #        library ms)
+                "masked_flash_fwd": (
+                    lambda: mf.masked_flash_fwd(q, k, v, mask, scale,
+                                                key_mask=kpm),
+                    lambda: mf.masked_flash_fwd_plain(q, k, v, mask, scale,
+                                                      key_mask=kpm),
+                    2, 3 * tile + mask_bytes, tile + rowvec, lib["fwd"]),
+                "masked_flash_dq": (
+                    lambda: mf.masked_flash_dq(*bwd, key_mask=kpm),
+                    lambda: mf.masked_flash_dq_plain(*bwd, key_mask=kpm),
+                    3, 4 * tile + 2 * rowvec + mask_bytes, tile,
+                    lib["bwd"]),
+                "masked_flash_dkv": (
+                    lambda: mf.masked_flash_dkv(*bwd, key_mask=kpm),
+                    lambda: mf.masked_flash_dkv_plain(*bwd, key_mask=kpm),
+                    4, 4 * tile + 2 * rowvec + mask_bytes, 2 * tile,
+                    lib["bwd"]),
+            }
+            for name, (call, plain, dots, b_in, b_out, lib_ms) in \
+                    specs.items():
+                kernel_ms = time_ms(call, SPARSE_TIMED_CALLS, flush)
+                plain_ms = time_ms(plain, plain_calls, flush,
+                                   warmup=plain_warm)
+                # the fine layout's products: what this data needs
+                flops = fine_tiles * B * dots * 2 * sc.block ** 2 * D
+                walked = mask.nnz * hm * B * dots * 2 * mask.block ** 2 * D
+                nbytes = b_in + b_out + meta[
+                    "csc" if name == "masked_flash_dkv" else "csr"]
+                bytes_ms = nbytes / bytes_per_s * 1e3
+                ops_ms = flops / flops_per_s * 1e3
+                bound_ms = max(bytes_ms, ops_ms)
+                bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+                emit({"phase": "sparse_kernel_timing", "kernel": name,
+                      "case": label, "arity": mf.arity(kpm, mask),
+                      "shape": dict(m, dtype="bf16", block=mask.block,
+                                    fine_block=sc.block,
+                                    mask_heads=mask.heads,
+                                    key_mask=f"lengths {SPARSE_MIN_LEN}-"
+                                             f"{S}, -1e30 on the pads"),
+                      "walked_tiles": mask.nnz,
+                      "band_tiles": int((mask.kinds[mask.active]
+                                         != 0).sum()),
+                      "fine_layout_flops": flops, "walked_flops": walked,
+                      "bytes": nbytes, "kernel_ms": kernel_ms,
+                      "plain_ms": plain_ms, "plain_calls": plain_calls,
+                      "library_ms": lib_ms,
+                      "library": ("scaled_dot_product_attention forward, "
+                                  "float (B, H, S, S) mask"
+                                  if name == "masked_flash_fwd" else
+                                  "scaled_dot_product_attention backward "
+                                  "(dq, dk, dv together), float mask"),
+                      "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "achieved_tflop_per_s": flops / kernel_ms / 1e9,
+                      "nvidia_smi": smi})
+                out.setdefault(name, {})[label] = {
+                    "ms": kernel_ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "replaces": replaces[name]}
+    return out
+
+
 def bert_batches(vocab, batch, seq, min_len, n, seed=SEED):
     """``n`` synthetic MLM micro batches in the manner of
     examples/bing_bert/train.py, with each row's real length drawn from
@@ -1562,37 +1856,78 @@ def _kpm_launches():
 
 def _reset_kpm_launches():
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
-    for n in KPM_NAMES:
-        getattr(mf, n).launches = 0
-        getattr(mf, n).launches_kpm = 0
+    mf.reset_launches()
+
+
+def sparse_bert_setup(kind, ds_config, params, cfg, seq):
+    """examples/bing_bert/train.py --mode sparse, with the reference's
+    recipe for sequences past the position table: the SparsityConfig of
+    :func:`sparse_config`, and the position table extended to ``seq`` by
+    ``SparseAttentionUtils``' model surgery. Returns (sparsity config,
+    params, model config, the layout's BlockMask at ``seq``, the
+    layout's density)."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import BlockMask
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        SparseAttentionUtils
+    sc = sparse_config(kind, ds_config, cfg.num_heads)
+    params, cfg, _ = SparseAttentionUtils.\
+        replace_model_self_attention_with_sparse_self_attention(
+            params, cfg, max_position=seq, sparsity_config=sc)
+    # the gather clamps positions past the table: never lean on it
+    if params["pos_emb"].shape[0] < seq or \
+            cfg.max_position_embeddings < seq:
+        raise AssertionError(f"position table {params['pos_emb'].shape} "
+                             f"does not cover seq {seq}")
+    layout = sc.make_layout(seq)
+    return (sc, params, cfg, BlockMask.from_layout(layout, sc.block),
+            float(layout.astype(bool).mean()))
 
 
 def bert_training_phase(smi, device="cuda", config=None, seq=128,
                         min_len=64, steps=BERT_STEPS, warmup=BERT_WARMUP,
-                        profile=True):
+                        profile=True, sparse=None):
     """BERT-large MLM trained through initialize + train_batch with the
     bing_bert config as the repo holds it (Lamb, WarmupLR, clipping 1.0,
     ZeRO 1, micro batch 8, ga 2, bf16 over fp32 masters, dropout 0.1).
     Checks finite losses, the lr of every step against WarmupLR.lr_at,
     the Lamb coefficients inside [min_coeff, max_coeff], and that K1, K2
     and K3 launched their key-mask arity once per layer per micro batch
-    and their mask-free arity never. Returns the kpm launches."""
+    and their mask-free arity never. Returns the kpm launches.
+
+    With ``sparse`` ("fixed" or "bslongformer") the phase is
+    bert_sparse_training: ds_config_sparse.json and
+    :func:`sparse_bert_setup`, and every launch of K1-K3 must be of the
+    one arity the layout gives (``masked_flash.arity``: the key mask at
+    walk 16 with 16 mask heads for the fixed per-head layouts, the key
+    mask and the band at walk 128 with one mask head for BSLongformer);
+    returns the launches of that arity."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.bert import (BERT_LARGE,
                                                  bert_mlm_loss_fn,
                                                  count_params,
                                                  init_bert_params)
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
     from deepspeed_tpu_torch.runtime.lr_schedules import WarmupLR
     cfg = config or BERT_LARGE
     on_cuda = torch.device(device).type == "cuda"
-    with open(BERT_DS_CONFIG) as f:
+    ds_path = BERT_DS_CONFIG if sparse is None else SPARSE_DS_CONFIG
+    with open(ds_path) as f:
         ds_config = json.load(f)
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = init_bert_params(cfg, gen)
+    sc = None
+    if sparse is not None:
+        sc, params, cfg, bmask, density = sparse_bert_setup(
+            sparse, ds_config, params, cfg, seq)
+        want_arity = mf.arity(True, bmask)
+        if config is None and want_arity != SPARSE_ARITY[sparse]:
+            raise AssertionError(f"{sparse} layout walks as {want_arity}, "
+                                 f"not {SPARSE_ARITY[sparse]}")
     n_params = count_params(params)
     engine, opt, _, sched = deepspeed_tpu_torch.initialize(
-        model=bert_mlm_loss_fn(cfg, dtype=torch.bfloat16),
+        model=bert_mlm_loss_fn(cfg, dtype=torch.bfloat16,
+                               sparsity_config=sc),
         model_parameters=params, config=ds_config, device=device)
     del params
     if not isinstance(sched, WarmupLR):
@@ -1620,6 +1955,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _kpm_launches()
+    arities = {n: dict(getattr(mf, n).arities) for n in KPM_NAMES}
     losses = [float(x) for x in losses]
     coeffs = torch.stack(trusts).float().cpu()
     want_lrs = [want_sched.lr_at(step0 + i) for i in range(steps)]
@@ -1631,9 +1967,10 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
     flops_per_token = 6 * n_params + 12 * L * seq * H
     step_s = wall / steps
     tokens_per_s = micro * ga * seq / step_s
-    row = {"phase": "bert_training",
-           "model": "bert-large" if cfg == BERT_LARGE else "bert",
-           "params": n_params, "config": BERT_DS_CONFIG,
+    row = {"phase": "bert_training" if sparse is None
+           else "bert_sparse_training",
+           "model": "bert-large" if config is None else "bert",
+           "params": n_params, "config": ds_path,
            "micro_batch": micro, "grad_acc": ga, "seq": seq,
            "real_lengths": f"{min_len}-{seq}",
            "dtype": "bf16 over fp32 masters", "optimizer": "Lamb",
@@ -1648,9 +1985,18 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
                           "bf16 peak", "losses": losses, "lrs": lrs,
            "lamb_coeff_min": float(coeffs.min()),
            "lamb_coeff_max": float(coeffs.max()),
+           "lamb_coeffs_of_zero_norm_leaves": int((coeffs == 1.0).sum()),
            "kpm_launches": {n: c[0] for n, c in launches.items()},
            "mask_free_launches": {n: c[1] for n, c in launches.items()},
+           "launches_by_arity": arities,
            "nvidia_smi": smi}
+    if sparse is not None:
+        row.update(sparse=sparse,
+                   sparse_attention=engine._config.sparse_attention,
+                   layout_density=density, arity=want_arity,
+                   walk_block=bmask.block, mask_heads=bmask.heads,
+                   band=None if bmask.band is None else list(bmask.band),
+                   position_table=cfg.max_position_embeddings)
     if on_cuda:
         _, peak_flops = card_peaks(smi)
         row["mfu"] = flops_per_token * tokens_per_s / peak_flops
@@ -1662,21 +2008,34 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
         raise AssertionError(f"lr {lrs} != WarmupLR.lr_at {want_lrs}")
     # the ratios are fp32: the bounds as fp32 rounds them
     lo, hi = (float(np.float32(c)) for c in (opt.min_coeff, opt.max_coeff))
-    if not (lo <= row["lamb_coeff_min"] and row["lamb_coeff_max"] <= hi):
+    # Lamb's ratio is 1 for a leaf of norm 0: after a single warm-up step
+    # (WarmupLR's step 0 has lr 0) the zero-initialized biases still are
+    clamped = coeffs if warmup >= 2 else coeffs[coeffs != 1.0]
+    if not (lo <= float(clamped.min()) and float(clamped.max()) <= hi):
         raise AssertionError(f"Lamb coefficients outside [{lo}, {hi}]: "
                              f"{row['lamb_coeff_min']}, "
                              f"{row['lamb_coeff_max']}")
+    want = L * ga * steps
     for name, (kpm_n, free_n) in launches.items():
-        if kpm_n != L * ga * steps or free_n != 0:
+        if kpm_n != want or free_n != 0:
             raise AssertionError(
                 f"{name}: {kpm_n} key-mask launches in {steps} steps (want "
                 f"{L * ga} per step) and {free_n} mask-free ones (want 0)")
+        if sparse is not None and arities[name] != {want_arity: want}:
+            raise AssertionError(f"{name}: launches {arities[name]}, want "
+                                 f"{want} of {want_arity} only")
     if on_cuda and profile:
-        bert_profile_phase(engine, it, row["step_ms"])
+        if sparse is None:
+            bert_profile_phase(engine, it, row["step_ms"])
+        else:
+            bert_profile_phase(engine, it, row["step_ms"],
+                               phase="bert_sparse_profile",
+                               attention=f"K1-K3 ({want_arity})")
     return {n: c[0] for n, c in launches.items()}
 
 
-def bert_profile_phase(engine, it, step_ms, steps=2):
+def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
+                       attention="K1-K3 (key-mask arity)"):
     """Where a BERT step's time goes: a torch.profiler window over
     ``steps`` train_batch calls, the kernels' device time per step by
     group, and the device idle share left of the unprofiled step time.
@@ -1698,8 +2057,7 @@ def bert_profile_phase(engine, it, step_ms, steps=2):
                and not getattr(e, "is_user_annotation", False)
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
-    groups = {"K1-K3 (key-mask arity)": ("mf_fwd_kernel", "mf_dq_kernel",
-                                         "mf_dkv_kernel"),
+    groups = {attention: ("mf_fwd_kernel", "mf_dq_kernel", "mf_dkv_kernel"),
               "mlm head (fp32 GEMMs, log-softmax)": ("sgemm", "f32f32",
                                                      "softmax"),
               "gemm (bf16)": ("gemm", "nvjet", "xmma", "cutlass", "cublas"),
@@ -1712,7 +2070,7 @@ def bert_profile_phase(engine, it, step_ms, steps=2):
                       if any(k in low for k in keys)), "other")
         by_group[group] += ms
     busy_ms = sum(k[1] for k in kernels)
-    emit({"phase": "bert_profile", "steps": steps, "step_ms": step_ms,
+    emit({"phase": phase, "steps": steps, "step_ms": step_ms,
           "device_busy_ms_per_step": busy_ms,
           "device_idle_share": 1 - busy_ms / step_ms,
           "ms_per_step_by_group": by_group,
@@ -1721,7 +2079,8 @@ def bert_profile_phase(engine, it, step_ms, steps=2):
                            "calls_per_step": k[2]} for k in kernels[:15]]})
 
 
-def bert_kernel_vs_plain_phase(device="cuda", batch=4, seq=128):
+def bert_kernel_vs_plain_phase(device="cuda", batch=4, seq=128,
+                               sparse=None, config=None):
     """A 2-layer full-width BERT-large in fp32 on a padded batch, dropout
     0, through the kernels' key-mask arity and through their plain
     versions: the encoder (a fixed random linear function of its output,
@@ -1730,32 +2089,48 @@ def bert_kernel_vs_plain_phase(device="cuda", batch=4, seq=128):
     bf16 in an fp32 model too (matmul_bf16_accum_fp32, as in JAX), so a
     value the two paths carry a few fp32 ulps apart may round to
     neighbouring bf16 values there: the loss's grads are held to one bf16
-    ulp (BERT_HEAD_GRAD_TOL) of each grad's largest entry."""
+    ulp (BERT_HEAD_GRAD_TOL) of each grad's largest entry. With
+    ``sparse`` the layers' attention is block-sparse
+    (:func:`sparse_bert_setup`): bert_sparse_kernel_vs_plain."""
     import torch
     from deepspeed_tpu_torch.models.bert import (BERT_LARGE, bert_encoder,
                                                  bert_mlm_loss_fn,
                                                  init_bert_params)
     from deepspeed_tpu_torch.utils.tree import tree_leaves
-    cfg = BERT_LARGE._replace(num_layers=2)
+    cfg = config or BERT_LARGE._replace(num_layers=2)
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     params = init_bert_params(cfg, gen)
+    sc, min_len = None, 40
+    if sparse is not None:
+        with open(SPARSE_DS_CONFIG) as f:
+            ds_config = json.load(f)
+        sc, params, cfg, bmask, _ = sparse_bert_setup(sparse, ds_config,
+                                                      params, cfg, seq)
+        min_len = seq // 2
     leaves = list(tree_leaves(params))
     for t in leaves:
         t.requires_grad_()
     data = {k: torch.from_numpy(v).to(device) for k, v in
-            bert_batches(cfg.vocab_size, batch, seq, 40, 1,
+            bert_batches(cfg.vocab_size, batch, seq, min_len, 1,
                          seed=SEED + 7)[0].items()}
     r = torch.randn((batch, seq, cfg.hidden_size), generator=gen,
                     device=device)
-    mlm = bert_mlm_loss_fn(cfg, dtype=torch.float32, deterministic=True)
+    mlm = bert_mlm_loss_fn(cfg, dtype=torch.float32, deterministic=True,
+                           sparsity_config=sc)
 
     def encoder(p):
         out = bert_encoder(p, cfg, data["input_ids"], data["attention_mask"],
-                           dtype=torch.float32)
+                           dtype=torch.float32, sparsity_config=sc)
         return (out * r).sum()
-    row = {"phase": "bert_kernel_vs_plain", "model": "bert-large-width",
-           "layers": 2, "dtype": "fp32", "batch": batch, "seq": seq,
-           "real_lengths": f"40-{seq}", "loss_rtol": TRAIN_MODEL_LOSS_RTOL}
+    row = {"phase": "bert_kernel_vs_plain" if sparse is None
+           else "bert_sparse_kernel_vs_plain",
+           "model": "bert-large-width", "layers": cfg.num_layers,
+           "dtype": "fp32", "batch": batch, "seq": seq,
+           "real_lengths": f"{min_len}-{seq}",
+           "loss_rtol": TRAIN_MODEL_LOSS_RTOL}
+    if sparse is not None:
+        row.update(sparse=sparse, walk_block=bmask.block,
+                   mask_heads=bmask.heads)
     ok = True
     for name, fn, grad_tol in (
             ("encoder", encoder, TRAIN_MODEL_GRAD_TOL),
@@ -1840,6 +2215,16 @@ def main() -> int:
         smi, seq=512, min_len=256, steps=BERT_STEPS_512,
         profile=False)
     bert_kernel_vs_plain_phase()
+    sparse_check = sparse_kernel_check_phase()
+    sparse_timing = sparse_kernel_timing_phase(smi)
+    sparse_launches = {kind: bert_training_phase(
+        smi, seq=SPARSE_SEQ, min_len=SPARSE_MIN_LEN, steps=SPARSE_STEPS,
+        warmup=SPARSE_WARMUP, sparse=kind) for kind in SPARSE_KINDS}
+    # the plain versions' per-tile walk of 16 per-head layouts at seq 2048
+    # launches ~1e6 small kernels per call: the fixed config runs at 512
+    bert_kernel_vs_plain_phase(batch=2, seq=512, sparse="fixed")
+    bert_kernel_vs_plain_phase(batch=2, seq=SPARSE_SEQ,
+                               sparse="bslongformer")
 
     kernels = [dict(
         name="paged_decode", route="cuda",
@@ -1880,6 +2265,7 @@ def main() -> int:
                  "masked_flash_dq": bert_check["dq_max_abs_err"],
                  "masked_flash_dkv": max(bert_check["dk_max_abs_err"],
                                          bert_check["dv_max_abs_err"])}
+    timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name in KPM_NAMES:
         t128, t512 = bert_timing[name][128], bert_timing[name][512]
         kernels.append(dict(
@@ -1890,13 +2276,39 @@ def main() -> int:
                 f"bert-large seq 128 ({BERT_STEPS} steps)":
                     bert_launches[name],
                 f"bert-large seq 512 ({BERT_STEPS_512} steps)":
-                    bert_launches_512[name]},
+                    bert_launches_512[name],
+                f"bert-large sparse fixed seq {SPARSE_SEQ} "
+                f"({SPARSE_STEPS} steps)": sparse_launches["fixed"][name]},
             max_abs_err=bert_errs[name], ms=t128["ms"],
             kernel_ms=t128["ms"], plain_ms=t128["plain_ms"],
             bound_ms=t128["bound_ms"], bound_by=t128["bound_by"],
-            library_ms=t128["library_ms"], seq512={
-                k: t512[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}))
+            library_ms=t128["library_ms"],
+            seq512={k: t512[k] for k in timing_keys},
+            sparse_fixed_walk16={
+                k: sparse_timing[name]["fixed walk16"][k]
+                for k in timing_keys}))
+    band_errs = {"masked_flash_fwd": sparse_check["o_max_abs_err"],
+                 "masked_flash_dq": sparse_check["dq_max_abs_err"],
+                 "masked_flash_dkv": max(sparse_check["dk_max_abs_err"],
+                                         sparse_check["dv_max_abs_err"])}
+    for name in KPM_NAMES:
+        t = sparse_timing[name]["bslongformer walk128"]
+        kernels.append(dict(
+            name=f"{name}_band", route="cuda",
+            source="deepspeed_tpu_torch/csrc/masked_flash.cu",
+            replaces=t["replaces"],
+            launches=sparse_launches["bslongformer"][name],
+            launches_by_path={
+                f"bert-large sparse bslongformer seq {SPARSE_SEQ} "
+                f"({SPARSE_STEPS} steps)":
+                    sparse_launches["bslongformer"][name]},
+            max_abs_err=band_errs[name], ms=t["ms"], kernel_ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            other_walks={label: {k: v[k] for k in timing_keys}
+                         for label, v in sparse_timing[name].items()
+                         if label.startswith("bslongformer")
+                         and label != "bslongformer walk128"}))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

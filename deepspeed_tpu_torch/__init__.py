@@ -12,7 +12,9 @@ This package imports torch and numpy, never jax and nothing of
   DeepSpeed transformer layer, :class:`DeepSpeedTransformerLayer`), whose
   attention runs the masked-flash kernels K1-K3 written in CUDA
   (``ops/attention/masked_flash.py``), BERT's padding mask in their
-  key-mask arity;
+  key-mask arity; with a ``sparsity_config`` (``ops/sparse_attention``,
+  from a config's ``sparse_attention`` section) BERT's attention is
+  block-sparse, banded layouts in the kernels' KIND_BAND arity;
 - paged serving of GPT-2 and Llama (GQA) models: ``InferenceEngine``
   over the paged KV pool, bf16 or int8, with decode attention in
   hand-written CUDA kernels (``ops/attention/paged.py``).

@@ -5,23 +5,32 @@
 //   K1 _mf_fwd_kernel  -> masked_flash_fwd : o, lse     (CSR row walk)
 //   K2 _mf_dq_kernel   -> masked_flash_dq  : dq         (CSR row walk)
 //   K3 _mf_dkv_kernel  -> masked_flash_dkv : dk, dv     (CSC column walk)
-// Same function as the Pallas kernels, for block kinds FULL and CAUSAL:
+// Same function as the Pallas kernels, for block kinds FULL, CAUSAL and
+// BAND:
 //   q (B*H, Sq, D); k, v (B*Hkv, Sk, D) in fp32 or bf16, GQA row
 //   b*Hkv + h / (H/Hkv); a block mask of block `blk` walked through its
 //   CSR (offs, cnts, cols, kinds) or CSC metadata, Hm = 1 or H mask heads;
 //   optionally an additive fp32 key mask kpm (B, Sk) (the has_kpm arity,
 //   the template flag KPM: a null kpm pointer runs the KPM = false
-//   instantiation, whose code is the mask-free kernel's).
+//   instantiation, whose code is the mask-free kernel's); optionally the
+//   banded fine structure of KIND_BAND tiles (the template flag BAND: a
+//   band with fine_block 0 runs the BAND = false instantiation).
 // Semantics kept exactly: s = (q.k) * sm_scale, then s += kpm[b, key] in
 // fp32 (b = bh / H: every head and every GQA group of a batch row reads
-// one mask row), then the causal clip of CAUSAL tiles sets s = NEG_INF; a
+// one mask row), then the causal clip of CAUSAL tiles and the band
+// predicate of BAND tiles (Band::keep, masked_flash.py::_partial_keep)
+// set s = NEG_INF; a
 // cell with s <= VALID_THRESH has p = 0 (BERT's -1e9 pads stay above it:
 // p = exp(s - m) = 0 unless every key of the row is a pad, and then the
 // row attends uniformly, as in the Pallas kernels);
 // the online softmax runs per walked tile in fp32 (m_safe = 0 while the
 // running max is still masked); a row with no valid entry writes o = 0 and
-// lse = NEG_INF. p is rounded to V's dtype before P.V and ds to K/Q's dtype
-// before its products; every sum accumulates in fp32. Dropout regenerates
+// lse = NEG_INF. Under the band a walked coarse tile may hold a row (K1,
+// K2) or a column (K3) with no kept cell: its scores are all NEG_INF, so
+// m_safe keeps the row's max at 0 and s > VALID_THRESH gives p = 0, and
+// such a row adds exactly 0 to l, o, dq, dk and dv. p is rounded to V's
+// dtype before P.V and ds to K/Q's dtype before its products; every sum
+// accumulates in fp32. Dropout regenerates
 // the keep mask of flash.dropout_keep_mask from (seed, b*H + h, q, k) in
 // all three kernels; the forward scales o by 1/(1-rate) after the
 // normalization, dq scales dp, and dk/dv use the dropped, scaled pd for dv
@@ -64,6 +73,7 @@ constexpr int kMaxHd = 128;
 constexpr float kNegInf = -1e30f;       // flash.NEG_INF
 constexpr float kValidThresh = -1e28f;  // masked_flash.VALID_THRESH
 constexpr int kKindCausal = 1;
+constexpr int kKindBand = 2;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -115,6 +125,23 @@ struct Dropout {
     const uint32_t row =
         mix32((uint32_t)qi ^ ((uint32_t)bh * 0x9E3779B9u) ^ seed);
     return mix32(row ^ (uint32_t)ki) < thresh;
+  }
+};
+
+// The banded fine structure of KIND_BAND tiles, in fine blocks of fb
+// rows: keep a cell of query qi, key ki iff its fine row is a global row,
+// its fine column a global column, or they are at most w apart, then
+// (clip) the layout's causal clip.
+struct Band {
+  int fb, w, g_r, g_c, clip;
+
+  __device__ __forceinline__ bool keep(int qi, int ki) const {
+    const int qf = qi / fb;
+    const int kf = ki / fb;
+    const int d = qf - kf;
+    bool ok = qf < g_r || kf < g_c || (d <= w && -d <= w);
+    if (clip) ok = ok && kf <= qf;
+    return ok;
   }
 };
 
@@ -187,7 +214,7 @@ __device__ __forceinline__ void fill(float* dst, int n, float v) {
 
 // ------------------------------------------------------------------- K1
 // grid (Sq / R, B*H); R = min(blk, 32) q rows per CTA.
-template <typename T, bool KPM>
+template <typename T, bool KPM, bool BAND>
 __global__ void __launch_bounds__(kThreads)
 mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ kpm,
@@ -195,7 +222,8 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               float* __restrict__ lse, const int32_t* __restrict__ offs,
               const int32_t* __restrict__ cnts,
               const int32_t* __restrict__ cols,
-              const int32_t* __restrict__ kinds, Shape sh, Dropout dr) {
+              const int32_t* __restrict__ kinds, Shape sh, Band bd,
+              Dropout dr) {
   extern __shared__ float smem[];
   const int D = sh.D, blk = sh.blk;
   const int R = blk < kRows ? blk : kRows;
@@ -251,6 +279,8 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           s = ss[r * blk + c] * sh.sm_scale;
           if constexpr (KPM) s += kpm_b[k0 + c];
           if ((kind & kKindCausal) && qi < k0 + c) s = kNegInf;
+          if constexpr (BAND)
+            if ((kind & kKindBand) && !bd.keep(qi, k0 + c)) s = kNegInf;
         }
         sv[u] = s;
         mx = fmaxf(mx, s);
@@ -307,7 +337,7 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------- K2
 // grid (Sq / R, B*H); per walked tile, chunk by chunk of R key rows.
-template <typename T, bool KPM>
+template <typename T, bool KPM, bool BAND>
 __global__ void __launch_bounds__(kThreads)
 mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const float* __restrict__ kpm,
@@ -316,7 +346,8 @@ mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
              T* __restrict__ dq, const int32_t* __restrict__ offs,
              const int32_t* __restrict__ cnts,
              const int32_t* __restrict__ cols,
-             const int32_t* __restrict__ kinds, Shape sh, Dropout dr) {
+             const int32_t* __restrict__ kinds, Shape sh, Band bd,
+             Dropout dr) {
   extern __shared__ float smem[];
   const int D = sh.D, blk = sh.blk;
   const int R = blk < kRows ? blk : kRows;
@@ -371,6 +402,8 @@ mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s = ps[e] * sh.sm_scale;
         if constexpr (KPM) s += kpm_b[ki];
         if ((kind & kKindCausal) && qi < ki) s = kNegInf;
+        if constexpr (BAND)
+          if ((kind & kKindBand) && !bd.keep(qi, ki)) s = kNegInf;
         const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
         float dp = dps[e];
         if (dr.on) dp = dr.keep(bh, qi, ki) ? dp * dr.inv_keep : 0.f;
@@ -392,7 +425,7 @@ mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // walk of the key block, chunk by chunk of R query rows. TO is T, or
 // float for the per-q-head partials at G > 1. With KPM the CTA's R key
 // rows' mask values are loaded once, beside the staged K and V rows.
-template <typename T, typename TO, bool KPM>
+template <typename T, typename TO, bool KPM, bool BAND>
 __global__ void __launch_bounds__(kThreads)
 mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ kpm,
@@ -402,7 +435,8 @@ mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const int32_t* __restrict__ coffs,
               const int32_t* __restrict__ ccnts,
               const int32_t* __restrict__ crows,
-              const int32_t* __restrict__ ckinds, Shape sh, Dropout dr) {
+              const int32_t* __restrict__ ckinds, Shape sh, Band bd,
+              Dropout dr) {
   extern __shared__ float smem[];
   const int D = sh.D, blk = sh.blk;
   const int R = blk < kRows ? blk : kRows;
@@ -463,6 +497,8 @@ mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s = ps[e] * sh.sm_scale;
         if constexpr (KPM) s += km_s[c];
         if ((kind & kKindCausal) && qi < ki) s = kNegInf;
+        if constexpr (BAND)
+          if ((kind & kKindBand) && !bd.keep(qi, ki)) s = kNegInf;
         const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
         float dp = dps[e];
         float pd = p;
@@ -513,6 +549,12 @@ bool bad_shape(int bh, int H, int Hkv, int Hm, int Sq, int Sk, int D,
          Sq <= 0 || Sk <= 0 || Sq % blk != 0 || Sk % blk != 0;
 }
 
+// fine_block 0: no band (the BAND = false instantiation)
+bool bad_band(const Band& bd) {
+  return bd.fb < 0 ||
+         (bd.fb > 0 && (bd.w < 0 || bd.g_r < 0 || bd.g_c < 0));
+}
+
 template <typename K>
 cudaError_t prepare(K kernel, size_t smem) {
   if (smem > 48 * 1024)
@@ -540,61 +582,86 @@ cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-template <typename T, bool KPM>
+template <typename T, bool KPM, bool BAND>
 cudaError_t run_fwd(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                     const void* k, const void* v, const void* kpm, void* o,
                     void* lse, const int32_t* of, const int32_t* cn,
-                    const int32_t* co, const int32_t* ki, Shape sh,
+                    const int32_t* co, const int32_t* ki, Shape sh, Band bd,
                     Dropout dr) {
-  return launch(mf_fwd_kernel<T, KPM>, grid, smem, s,
+  return launch(mf_fwd_kernel<T, KPM, BAND>, grid, smem, s,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const float*>(kpm),
                 static_cast<T*>(o), static_cast<float*>(lse), of, cn, co, ki,
-                sh, dr);
+                sh, bd, dr);
 }
 
-template <typename T, bool KPM>
+template <typename T, bool KPM, bool BAND>
 cudaError_t run_dq(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                    const void* k, const void* v, const void* kpm,
                    const void* dout, const float* ls, const float* dl,
                    void* dq, const int32_t* of, const int32_t* cn,
-                   const int32_t* co, const int32_t* ki, Shape sh,
+                   const int32_t* co, const int32_t* ki, Shape sh, Band bd,
                    Dropout dr) {
-  return launch(mf_dq_kernel<T, KPM>, grid, smem, s,
+  return launch(mf_dq_kernel<T, KPM, BAND>, grid, smem, s,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const float*>(kpm),
                 static_cast<const T*>(dout), ls, dl, static_cast<T*>(dq), of,
-                cn, co, ki, sh, dr);
+                cn, co, ki, sh, bd, dr);
 }
 
-template <typename T, typename TO, bool KPM>
+template <typename T, typename TO, bool KPM, bool BAND>
 cudaError_t run_dkv(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                     const void* k, const void* v, const void* kpm,
                     const void* dout, const float* ls, const float* dl,
                     void* dk, void* dv, const int32_t* of, const int32_t* cn,
-                    const int32_t* ro, const int32_t* ki, Shape sh,
+                    const int32_t* ro, const int32_t* ki, Shape sh, Band bd,
                     Dropout dr) {
-  return launch(mf_dkv_kernel<T, TO, KPM>, grid, smem, s,
+  return launch(mf_dkv_kernel<T, TO, KPM, BAND>, grid, smem, s,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const float*>(kpm),
                 static_cast<const T*>(dout), ls, dl, static_cast<TO*>(dk),
-                static_cast<TO*>(dv), of, cn, ro, ki, sh, dr);
+                static_cast<TO*>(dv), of, cn, ro, ki, sh, bd, dr);
+}
+
+// the instantiation of one dtype for a call's key mask and band
+template <typename T>
+auto pick_fwd(bool kpm, bool band) {
+  return kpm ? (band ? run_fwd<T, true, true> : run_fwd<T, true, false>)
+             : (band ? run_fwd<T, false, true> : run_fwd<T, false, false>);
+}
+
+template <typename T>
+auto pick_dq(bool kpm, bool band) {
+  return kpm ? (band ? run_dq<T, true, true> : run_dq<T, true, false>)
+             : (band ? run_dq<T, false, true> : run_dq<T, false, false>);
+}
+
+template <typename T, typename TO>
+auto pick_dkv(bool kpm, bool band) {
+  return kpm ? (band ? run_dkv<T, TO, true, true>
+                     : run_dkv<T, TO, true, false>)
+             : (band ? run_dkv<T, TO, false, true>
+                     : run_dkv<T, TO, false, false>);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. kpm: the (B, Sk) fp32 additive key
-// mask, or null for none. Each entry point returns the CUDA error of its
-// launch (0 on success); it launches on `stream` and does not synchronise.
+// mask, or null for none. fine_block, band_w, band_g_r, band_g_c,
+// band_causal: the band of KIND_BAND tiles (fine_block 0 for none). Each
+// entry point returns the CUDA error of its launch (0 on success); it
+// launches on `stream` and does not synchronise.
 extern "C" int masked_flash_fwd(
     const void* q, const void* k, const void* v, const void* kpm, void* o,
     void* lse, const void* offs, const void* cnts, const void* cols,
     const void* kinds, int dtype, int bh, int heads, int kv_heads,
     int mask_heads, int seq_q, int seq_k, int head_dim, int block,
+    int fine_block, int band_w, int band_g_r, int band_g_c, int band_causal,
     float sm_scale, int dropout, unsigned keep_thresh, float inv_keep,
     int seed, void* stream) {
+  const Band bd{fine_block, band_w, band_g_r, band_g_c, band_causal};
   if (bad_shape(bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim,
-                block))
+                block) || bad_band(bd))
     return (int)cudaErrorInvalidValue;
   const Shape sh{heads, kv_heads, mask_heads, seq_q, seq_k,
                  head_dim, block, sm_scale};
@@ -607,13 +674,13 @@ extern "C" int masked_flash_fwd(
   const int32_t* cn = static_cast<const int32_t*>(cnts);
   const int32_t* co = static_cast<const int32_t*>(cols);
   const int32_t* ki = static_cast<const int32_t*>(kinds);
-  auto run = dtype == 0 ? (kpm ? run_fwd<float, true> : run_fwd<float, false>)
-             : dtype == 1 ? (kpm ? run_fwd<__nv_bfloat16, true>
-                                 : run_fwd<__nv_bfloat16, false>)
+  const bool band = fine_block > 0, has_kpm = kpm != nullptr;
+  auto run = dtype == 0   ? pick_fwd<float>(has_kpm, band)
+             : dtype == 1 ? pick_fwd<__nv_bfloat16>(has_kpm, band)
                           : nullptr;
   if (run == nullptr) return (int)cudaErrorInvalidValue;
   return (int)run(grid, smem, s, q, k, v, kpm, o, lse, of, cn, co, ki, sh,
-                  dr);
+                  bd, dr);
 }
 
 extern "C" int masked_flash_dq(
@@ -621,10 +688,13 @@ extern "C" int masked_flash_dq(
     const void* dout, const void* lse, const void* delta, void* dq,
     const void* offs, const void* cnts, const void* cols, const void* kinds,
     int dtype, int bh, int heads, int kv_heads, int mask_heads, int seq_q,
-    int seq_k, int head_dim, int block, float sm_scale, int dropout,
-    unsigned keep_thresh, float inv_keep, int seed, void* stream) {
+    int seq_k, int head_dim, int block, int fine_block, int band_w,
+    int band_g_r, int band_g_c, int band_causal, float sm_scale,
+    int dropout, unsigned keep_thresh, float inv_keep, int seed,
+    void* stream) {
+  const Band bd{fine_block, band_w, band_g_r, band_g_c, band_causal};
   if (bad_shape(bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim,
-                block))
+                block) || bad_band(bd))
     return (int)cudaErrorInvalidValue;
   const Shape sh{heads, kv_heads, mask_heads, seq_q, seq_k,
                  head_dim, block, sm_scale};
@@ -639,13 +709,13 @@ extern "C" int masked_flash_dq(
   const int32_t* cn = static_cast<const int32_t*>(cnts);
   const int32_t* co = static_cast<const int32_t*>(cols);
   const int32_t* ki = static_cast<const int32_t*>(kinds);
-  auto run = dtype == 0 ? (kpm ? run_dq<float, true> : run_dq<float, false>)
-             : dtype == 1 ? (kpm ? run_dq<__nv_bfloat16, true>
-                                 : run_dq<__nv_bfloat16, false>)
+  const bool band = fine_block > 0, has_kpm = kpm != nullptr;
+  auto run = dtype == 0   ? pick_dq<float>(has_kpm, band)
+             : dtype == 1 ? pick_dq<__nv_bfloat16>(has_kpm, band)
                           : nullptr;
   if (run == nullptr) return (int)cudaErrorInvalidValue;
   return (int)run(grid, smem, s, q, k, v, kpm, dout, ls, dl, dq, of, cn, co,
-                  ki, sh, dr);
+                  ki, sh, bd, dr);
 }
 
 // fp32_out: 1 writes dk, dv as fp32 per-q-head partials (GQA), 0 in the
@@ -656,10 +726,12 @@ extern "C" int masked_flash_dkv(
     const void* coffs, const void* ccnts, const void* crows,
     const void* ckinds, int dtype, int fp32_out, int bh, int heads,
     int kv_heads, int mask_heads, int seq_q, int seq_k, int head_dim,
-    int block, float sm_scale, int dropout, unsigned keep_thresh,
+    int block, int fine_block, int band_w, int band_g_r, int band_g_c,
+    int band_causal, float sm_scale, int dropout, unsigned keep_thresh,
     float inv_keep, int seed, void* stream) {
+  const Band bd{fine_block, band_w, band_g_r, band_g_c, band_causal};
   if (bad_shape(bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim,
-                block))
+                block) || bad_band(bd))
     return (int)cudaErrorInvalidValue;
   const Shape sh{heads, kv_heads, mask_heads, seq_q, seq_k,
                  head_dim, block, sm_scale};
@@ -675,14 +747,12 @@ extern "C" int masked_flash_dkv(
   const int32_t* ro = static_cast<const int32_t*>(crows);
   const int32_t* ki = static_cast<const int32_t*>(ckinds);
   using Bf = __nv_bfloat16;
-  auto run =
-      dtype == 0 ? (kpm ? run_dkv<float, float, true>
-                        : run_dkv<float, float, false>)
-      : dtype == 1 && fp32_out ? (kpm ? run_dkv<Bf, float, true>
-                                      : run_dkv<Bf, float, false>)
-      : dtype == 1 ? (kpm ? run_dkv<Bf, Bf, true> : run_dkv<Bf, Bf, false>)
-                   : nullptr;
+  const bool band = fine_block > 0, has_kpm = kpm != nullptr;
+  auto run = dtype == 0              ? pick_dkv<float, float>(has_kpm, band)
+             : dtype == 1 && fp32_out ? pick_dkv<Bf, float>(has_kpm, band)
+             : dtype == 1             ? pick_dkv<Bf, Bf>(has_kpm, band)
+                                      : nullptr;
   if (run == nullptr) return (int)cudaErrorInvalidValue;
   return (int)run(grid, smem, s, q, k, v, kpm, dout, ls, dl, dk, dv, of, cn,
-                  ro, ki, sh, dr);
+                  ro, ki, sh, bd, dr);
 }

@@ -17,10 +17,14 @@ against the tied ``tok_emb``, ``mlm_bias``) and the masked mean NLL with
 ``-100`` labels ignored. Layer ``i`` draws its dropout seed as
 ``fold_seed(seed, i)``.
 
-Not ported: the block-sparse ``sparsity_config`` route (it needs the
-``KIND_BAND`` arity of K1-K3 and the sparse kernels), the
-sequence-parallel ``bert_mlm_sp_loss_fn`` (ring attention, K5-K7) and
-``bert_param_specs`` (tensor parallelism).
+With a ``sparsity_config`` the layers' core attention is block-sparse
+(``ops/sparse_attention``): ``SparseSelfAttention`` in 'mul' mode over
+the batch's (B, S) 1/0 mask, through the layer's ``attention_fn`` hook,
+so K1-K3 run on the config's layout (per-head layouts at their block,
+banded ones over a coarsened walk with KIND_BAND tiles).
+
+Not ported: the sequence-parallel ``bert_mlm_sp_loss_fn`` (ring
+attention, K5-K7) and ``bert_param_specs`` (tensor parallelism).
 """
 
 from typing import Any, Dict, NamedTuple, Optional
@@ -150,13 +154,14 @@ def bert_encoder(params, config: BertConfig, input_ids, attention_mask=None,
     """Sequence output (B, S, H) in ``dtype``. ``attention_mask``: (B, S)
     with 1 = keep; ``seed``: the step's int32 dropout seed (None: no
     dropout); ``remat`` recomputes each layer in the backward
-    (non-reentrant ``torch.utils.checkpoint``)."""
-    if sparsity_config is not None:
-        raise NotImplementedError(
-            "bert_encoder(sparsity_config=...): block-sparse attention "
-            "(ROADMAP Queue 1 item 20) needs the KIND_BAND arity of the "
-            "masked flash kernels K1-K3 and the sparse kernels, which are "
-            "not ported yet")
+    (non-reentrant ``torch.utils.checkpoint``).
+
+    ``sparsity_config``: a SparsityConfig — the layers' core attention is
+    block-sparse, the projections and all other params unchanged. S must
+    be a multiple of its block (``SparseAttentionUtils.pad_to_block_size``).
+    Positions past the table clamp to its last row, as JAX's gather does:
+    extend the table first
+    (``SparseAttentionUtils.extend_position_embedding``)."""
     B, S = input_ids.shape
     lcfg = layer_config(config, training=not deterministic, dtype=dtype)
     dev = input_ids.device
@@ -174,9 +179,22 @@ def bert_encoder(params, config: BertConfig, input_ids, attention_mask=None,
     if attention_mask is not None:
         add_mask = (1.0 - attention_mask[:, None, None, :].float()) * -1e9
 
+    attention_fn = None
+    if sparsity_config is not None:
+        from deepspeed_tpu_torch.ops.sparse_attention import \
+            SparseSelfAttention
+        # 'mul' mode: the (B, S) mask is 1 = keep / 0 = pad, so its zeros
+        # become NEG_INF ('add' would add the raw 1/0 values)
+        sparse_attn = SparseSelfAttention(sparsity_config,
+                                          key_padding_mask_mode="mul")
+
+        def attention_fn(q, k, v, _add_mask):
+            return sparse_attn(q, k, v, key_padding_mask=attention_mask)
+
     def layer(lp, x, layer_seed):
         return transformer_layer_forward(lp, lcfg, x, add_mask, layer_seed,
-                                         deterministic)
+                                         deterministic,
+                                         attention_fn=attention_fn)
 
     for i in range(_num_layers(params)):
         layer_seed = None if seed is None else fold_seed(seed, i)
@@ -194,7 +212,8 @@ def bert_mlm_loss_fn(config: BertConfig, dtype=torch.bfloat16,
     """Engine-contract MLM loss. batch: ``input_ids`` (B, S), ``labels``
     (B, S) with -100 = not masked (ignored), optional ``attention_mask``
     and ``token_type_ids`` (B, S); ``seed``: the step's int32 dropout
-    seed. ``sparsity_config`` raises (not ported)."""
+    seed; ``sparsity_config``: block-sparse core attention, as in
+    :func:`bert_encoder`."""
     def loss_fn(params, batch, seed=None):
         x = bert_encoder(params, config, batch["input_ids"],
                          attention_mask=batch.get("attention_mask"),

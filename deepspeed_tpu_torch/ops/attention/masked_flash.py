@@ -20,12 +20,15 @@ raises; it never falls back. For CPU tensors it runs the plain version
 :func:`masked_flash_call` is the ``torch.autograd.Function`` over the
 three; :func:`masked_flash_attention` is the public entry.
 
-Ported arity: block kinds FULL and CAUSAL, GQA, mask heads 1 or H,
-dropout, fp32 and bf16, head_dim a multiple of 8 up to 128, walk blocks
-16, 32, 64 and 128, and the additive fp32 key-padding mask (``has_kpm``:
-a ``(B, Sk)`` row added to the scaled scores of every head before the
-causal clip). Still to port: ``KIND_BAND`` (the banded fine structure of
-a coarsened walk); a mask that needs it raises.
+Ported arity: block kinds FULL, CAUSAL and BAND, GQA, mask heads 1 or
+H, dropout, fp32 and bf16, head_dim a multiple of 8 up to 128, walk
+blocks 16, 32, 64 and 128, and the additive fp32 key-padding mask
+(``has_kpm``: a ``(B, Sk)`` row added to the scaled scores of every head
+before the partial-tile predicates). ``KIND_BAND`` tiles carry the
+banded fine structure of a coarsened walk (:meth:`BlockMask.from_layout`
+on a head-uniform global-prefix + window layout): the predicate
+``band = (fine_block, w, g_r, g_c, causal)`` is evaluated per cell, a
+template flag of the kernels beside the key mask.
 """
 
 import ctypes
@@ -52,26 +55,32 @@ VALID_THRESH = -1e28
 # partial-tile predicate bits (BlockMask.kinds cell values)
 KIND_FULL = 0          # every cell computed (block-level mask semantics)
 KIND_CAUSAL = 1        # elementwise q_idx >= k_idx (diagonal tiles)
-KIND_BAND = 2          # banded fine structure (not ported: raises)
+KIND_BAND = 2          # banded fine structure (global prefix + window)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_BLOCKS = (16, 32, 64, 128)
 MAX_HEAD_DIM = 128
+# the automatic coarse walk tile of a banded layout: the widest of these
+# that is wider than the fine block, a multiple of it, and divides S (the
+# kernels take walk blocks up to 128)
+COARSE_WALK_BLOCKS = (128, 64, 32)
 
 
 class BlockMask:
     """Static block-level attention mask (numpy; the JAX package's class).
 
     ``active``: (Hm, nq, nk) bool — which (q-block, k-block) tiles are
-    walked; ``kinds``: (Hm, nq, nk) uint8 bitmask over active tiles.
-    ``Hm`` is 1 (head-uniform) or the head count. ``band`` carries the
-    fine structure of KIND_BAND tiles, which the port's kernels do not
-    take. Instances are immutable and hashable, and cache their CSR/CSC
+    walked; ``kinds``: (Hm, nq, nk) uint8 bitmask over active tiles
+    (KIND_CAUSAL / KIND_BAND; 0 = full). ``Hm`` is 1 (head-uniform) or
+    the head count. ``band`` carries the fine structure of KIND_BAND
+    tiles, ``(fine_block, w, g_r, g_c, causal_clip)`` in fine-block
+    units. Instances are immutable and hashable, and cache their CSR/CSC
     walk metadata (and its device copies)."""
 
     def __init__(self, active: np.ndarray, kinds: np.ndarray, block: int,
                  seq_q: int, seq_k: int,
-                 band: Optional[Tuple[int, int, int, int, bool]] = None):
+                 band: Optional[Tuple[int, int, int, int, bool]] = None,
+                 fine_block: Optional[int] = None):
         active = np.ascontiguousarray(np.asarray(active, bool))
         kinds = np.ascontiguousarray(np.asarray(kinds, np.uint8))
         if active.ndim != 3 or active.shape != kinds.shape:
@@ -81,6 +90,9 @@ class BlockMask:
         if nq * block != seq_q or nk * block != seq_k:
             raise ValueError(f"BlockMask: {active.shape} blocks of {block} "
                              f"do not tile seq ({seq_q}, {seq_k})")
+        if band is None and bool((kinds[active] & KIND_BAND).any()):
+            raise ValueError("BlockMask: KIND_BAND tiles need a band "
+                             "(fine_block, w, g_r, g_c, causal)")
         self.active = active
         self.kinds = kinds
         self.block = int(block)
@@ -88,6 +100,8 @@ class BlockMask:
         self.seq_k = int(seq_k)
         self.heads = Hm
         self.band = tuple(band) if band is not None else None
+        # the layout's own block (== block unless the walk was coarsened)
+        self.fine_block = int(fine_block or block)
         self._key = (self.block, self.seq_q, self.seq_k, self.band,
                      active.tobytes(), kinds.tobytes())
         self._csr = None
@@ -116,25 +130,74 @@ class BlockMask:
     @classmethod
     def from_layout(cls, layout: np.ndarray, fine_block: int,
                     walk_block: Optional[int] = None) -> "BlockMask":
-        """A SparsityConfig layout (H, nb, nb) as a BlockMask, walked at
-        the layout's own block. Head-identical layouts collapse to one
-        mask head. The JAX package may coarsen a banded layout's walk
-        onto KIND_BAND tiles; the port always takes the fine walk (the
-        same attention), and a coarse ``walk_block`` raises."""
+        """A SparsityConfig layout (H, nb, nb) as a BlockMask.
+
+        Head-identical layouts collapse to one mask head. When the
+        collapsed layout is banded (``detect_banded``: a global prefix
+        plus a window, BSLongformer-class) the walk is coarsened: the
+        tiles of ``walk_block`` that hold any kept fine block are walked,
+        those partly kept are KIND_BAND and carry the fine structure in
+        ``band``. Other layouts walk at the fine block. ``walk_block``
+        forces a coarse tile (0 forces the fine walk); without it the
+        tile is the widest of ``COARSE_WALK_BLOCKS`` that fits."""
         layout = np.asarray(layout)
         if layout.ndim != 3 or layout.shape[1] != layout.shape[2]:
             raise ValueError(f"layout must be (H, nb, nb), got "
                              f"{layout.shape}")
-        if walk_block not in (None, 0):
-            raise NotImplementedError(
-                f"BlockMask.from_layout: walk_block={walk_block} coarsens "
-                "the walk onto KIND_BAND tiles, an arity of the masked "
-                "flash kernels K1-K3 that is not ported yet")
         if (layout == layout[:1]).all():
             layout = layout[:1]                  # head-uniform: collapse
+        H, nb, _ = layout.shape
+        S = nb * fine_block
         fine = layout.astype(bool)
-        S = fine.shape[1] * fine_block
-        return cls(fine, np.zeros_like(fine, np.uint8), fine_block, S, S)
+        bp = None
+        if H == 1:
+            from deepspeed_tpu_torch.ops.sparse_attention.banded import \
+                detect_banded
+            bp = detect_banded(layout)
+        cb = cls._pick_walk_block(fine_block, S, bp, walk_block)
+        if cb is None:
+            return cls(fine, np.zeros_like(fine, np.uint8), fine_block,
+                       S, S, fine_block=fine_block)
+        f = cb // fine_block
+        nc = nb // f
+        sub = fine.reshape(1, nc, f, nc, f)
+        coarse_any = sub.any(axis=(2, 4))
+        coarse_all = sub.all(axis=(2, 4))
+        kinds = np.where(coarse_any & ~coarse_all, KIND_BAND, KIND_FULL
+                         ).astype(np.uint8)
+        band = (fine_block, bp.w, bp.g_r, bp.g_c, bool(bp.causal))
+        return cls(coarse_any, kinds, cb, S, S, band=band,
+                   fine_block=fine_block)
+
+    @staticmethod
+    def _pick_walk_block(fine_block, S, bp, walk_block):
+        """The coarse walk tile, or None for the fine walk. A coarse
+        tile needs a banded layout (the predicate must reproduce every
+        partial tile exactly); a requested one that cannot be honoured
+        raises rather than silently walking the fine blocks."""
+        if walk_block == 0:
+            return None
+        if bp is None:
+            if walk_block is not None:
+                raise ValueError(
+                    f"walk_block={walk_block} requested but the layout "
+                    "is not banded-describable (per-head, random blocks, "
+                    "or non-prefix globals) — coarse partial tiles need "
+                    "the register band predicate. Use walk_block=0 (fine "
+                    "walk) or a banded layout.")
+            return None
+        if walk_block is not None:
+            if not (walk_block > fine_block and walk_block % fine_block == 0
+                    and S % walk_block == 0):
+                raise ValueError(
+                    f"walk_block={walk_block} must be wider than the fine "
+                    f"block {fine_block}, a multiple of it, and divide the "
+                    f"sequence {S}")
+            return walk_block
+        for cb in COARSE_WALK_BLOCKS:
+            if cb > fine_block and cb % fine_block == 0 and S % cb == 0:
+                return cb
+        return None
 
     # ------------------------------------------------------- metadata
     @property
@@ -148,6 +211,15 @@ class BlockMask:
     @property
     def nnz(self) -> int:
         return int(self.active.sum())
+
+    @property
+    def has_partials(self) -> bool:
+        return bool((self.kinds[self.active] != 0).any())
+
+    @property
+    def has_band(self) -> bool:
+        """Whether a walked tile is KIND_BAND: the kernels' band arity."""
+        return bool((self.kinds[self.active] & KIND_BAND).any())
 
     def csr(self):
         """(offs, cnts, cols, kinds) flattened over rows mh * nq + r."""
@@ -195,7 +267,6 @@ class BlockMask:
     def dense_additive(self) -> np.ndarray:
         """(Hm, Sq, Sk) additive 0 / NEG_INF expansion — the oracle view
         of what the kernels compute tile by tile."""
-        self._check_ported()
         b = self.block
         keep = np.kron(self.active, np.ones((b, b), bool))
         qi = np.arange(self.seq_q)[:, None]
@@ -203,19 +274,36 @@ class BlockMask:
         kinds = np.kron(self.kinds, np.ones((b, b), np.uint8))
         if (kinds & KIND_CAUSAL).any():
             keep &= ~((kinds & KIND_CAUSAL).astype(bool)) | (qi >= ki)
+        if self.band is not None and (kinds & KIND_BAND).any():
+            keep &= ~((kinds & KIND_BAND).astype(bool)) | \
+                _band_keep(self.band, qi, ki)
         return np.where(keep, 0.0, NEG_INF).astype(np.float32)
 
-    def _check_ported(self):
-        if self.band is not None or bool((self.kinds & KIND_BAND).any()):
-            raise NotImplementedError(
-                "BlockMask with KIND_BAND tiles: the banded arity of the "
-                "masked flash kernels K1-K3 is not ported yet")
+    def describe(self) -> str:
+        s = f"masked(block={self.block}, nnz={self.nnz}/" \
+            f"{self.heads * self.nq * self.nk}"
+        if self.block != self.fine_block:
+            s += f", coarsened from {self.fine_block}"
+        return s + ")"
 
     def __hash__(self):
         return hash(self._key)
 
     def __eq__(self, other):
         return isinstance(other, BlockMask) and self._key == other._key
+
+
+def _band_keep(band, q_idx, k_idx):
+    """The band predicate on absolute indices: global rows, global
+    columns or the window, in fine blocks, then the layout's own causal
+    clip."""
+    fb, w, g_r, g_c, clip = band
+    qf = q_idx // fb
+    kf = k_idx // fb
+    ok = (qf < g_r) | (kf < g_c) | (abs(qf - kf) <= w)
+    if clip:
+        ok = ok & (kf <= qf)
+    return ok
 
 
 def masked_flash_cost(mask: BlockMask, batch: int, heads: int,
@@ -288,15 +376,20 @@ def _head_groups(mask: BlockMask, H: int, G: int, B: int, device):
     return out
 
 
-def _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx, kpm=None):
+def _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx, kpm=None,
+                 band=None):
     """Scores of one walked tile in fp32: ``(q . k) * sm_scale``, then
     the key mask's row ``kpm`` ((B, 1, 1, blk) or None) added, then the
-    causal clip."""
+    partial-tile predicates (JAX's ``_partial_keep``): the causal clip
+    of a CAUSAL tile, the ``band`` predicate of a BAND tile."""
     s = (qt @ kt.transpose(-1, -2)) * sm_scale
     if kpm is not None:
         s = s + kpm
     if kind & KIND_CAUSAL:
         s = torch.where(q_idx[:, None] >= k_idx[None, :], s, NEG_INF)
+    if kind & KIND_BAND:
+        s = torch.where(_band_keep(band, q_idx[:, None], k_idx[None, :]),
+                        s, NEG_INF)
     return s
 
 
@@ -319,7 +412,6 @@ def masked_flash_fwd_plain(q, k, v, mask: BlockMask, sm_scale: float,
     tile an fp32 online-softmax step, p rounded to V's dtype before P.V.
     q (B, H, Sq, D), k/v (B, Hkv, Sk, D), optional fp32 ``key_mask``
     (B, Sk) -> o (q's dtype), lse (B, H, Sq) fp32."""
-    mask._check_ported()
     B, H, Sq, D = q.shape
     G = H // k.shape[1]
     blk = mask.block
@@ -343,7 +435,7 @@ def masked_flash_fwd_plain(q, k, v, mask: BlockMask, sm_scale: float,
                 k_idx = c * blk + ar
                 s = _tile_scores(qt, kh[:, :, c * blk:(c + 1) * blk],
                                  sm_scale, kind, q_idx, k_idx,
-                                 _kpm_tile(key_mask, c, blk))
+                                 _kpm_tile(key_mask, c, blk), mask.band)
                 m_new = torch.maximum(m, s.amax(dim=-1))
                 m_safe = torch.where(m_new <= VALID_THRESH, 0.0, m_new)
                 alpha = torch.exp(m - m_new)
@@ -374,7 +466,6 @@ def masked_flash_dq_plain(q, k, v, do, lse, delta, mask: BlockMask,
     """K2's function in plain PyTorch over the CSR walk: p recomputed
     from lse (the key mask added as in K1), ds = p * (dp - delta) rounded
     to K's dtype, dq scaled by sm_scale at the end."""
-    mask._check_ported()
     B, H, Sq, D = q.shape
     G = H // k.shape[1]
     blk = mask.block
@@ -396,7 +487,7 @@ def masked_flash_dq_plain(q, k, v, do, lse, delta, mask: BlockMask,
                 k_idx = c * blk + ar
                 kt = kh[:, :, c * blk:(c + 1) * blk]
                 s = _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx,
-                                 _kpm_tile(key_mask, c, blk))
+                                 _kpm_tile(key_mask, c, blk), mask.band)
                 p = torch.where(s > VALID_THRESH,
                                 torch.exp(s - lseh[:, :, rows, None]), 0.0)
                 dp = dot @ vh[:, :, c * blk:(c + 1) * blk].transpose(-1, -2)
@@ -416,7 +507,6 @@ def masked_flash_dkv_plain(q, k, v, do, lse, delta, mask: BlockMask,
     with the key block's mask row, dv from the dropped, scaled pd, dk
     from the undropped p in ds; per-q-head fp32 partials summed per group
     at G > 1. Returns (dk, dv) shaped like k."""
-    mask._check_ported()
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -444,7 +534,7 @@ def masked_flash_dkv_plain(q, k, v, do, lse, delta, mask: BlockMask,
                 q_idx = rq * blk + ar
                 qt, dot = qh[:, :, rows], doh[:, :, rows]
                 s = _tile_scores(qt, kt, sm_scale, kind, q_idx, k_idx,
-                                 kpm_row)
+                                 kpm_row, mask.band)
                 p = torch.where(s > VALID_THRESH,
                                 torch.exp(s - lseh[:, :, rows, None]), 0.0)
                 dp = dot @ vt.transpose(-1, -2)
@@ -479,7 +569,6 @@ def _group_sum(dk, dv, k, v):
 # --------------------------------------------------------------------- #
 def _check_args(q, k, v, mask: BlockMask, key_mask=None):
     """What the kernels and their plain versions both require."""
-    mask._check_ported()
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"masked flash takes (B, H, S, D) q and (B, Hkv, "
                          f"S, D) k/v, got {tuple(q.shape)}, "
@@ -536,9 +625,10 @@ def _check_cuda(tensors, mask: BlockMask, key_mask=None):
 _fns = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # what every entry point takes after its pointers, dtype (and fp32_out):
-# bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim, block, then
-# sm_scale, dropout, keep_thresh, inv_keep, seed, stream
-_GEOMETRY = [_I] * 8
+# bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim, block, the
+# band (fine_block, w, g_r, g_c, causal; fine_block 0: no band arity),
+# then sm_scale, dropout, keep_thresh, inv_keep, seed, stream
+_GEOMETRY = [_I] * 13
 _TAIL = [_F, _I, ctypes.c_uint32, _F, ctypes.c_int32, _P]
 
 
@@ -578,7 +668,9 @@ def _check_hash_rounds(rate: float):
 
 def _geometry(q, k, mask: BlockMask):
     B, H, Sq, D = q.shape
-    return [B * H, H, k.shape[1], mask.heads, Sq, mask.seq_k, D, mask.block]
+    band = mask.band if mask.has_band else (0, 0, 0, 0, False)
+    return [B * H, H, k.shape[1], mask.heads, Sq, mask.seq_k, D, mask.block,
+            *(int(x) for x in band)]
 
 
 def _dropout(sm_scale: float, rate: float, seed: int):
@@ -608,7 +700,8 @@ def masked_flash_fwd(q, k, v, mask: BlockMask, sm_scale: float,
     launches the sm_90a kernel (raising on any dtype, shape, device or
     launch problem); a CPU ``q`` runs the plain version. With a
     ``key_mask`` the kernel's key-mask arity runs, and the launch also
-    counts in ``launches_kpm``."""
+    counts in ``launches_kpm``; with KIND_BAND tiles its band arity. Every
+    launch counts in ``arities`` under :func:`arity`."""
     _check_args(q, k, v, mask, key_mask)
     _check_hash_rounds(rate)
     if q.device.type == "cpu":
@@ -626,7 +719,7 @@ def masked_flash_fwd(q, k, v, mask: BlockMask, sm_scale: float,
           o.data_ptr(), lse.data_ptr(), *(w.data_ptr() for w in walk),
           _DTYPE_CODE[q.dtype], *_geometry(q, k, mask),
           *_dropout(sm_scale, rate, seed)])
-    _count(masked_flash_fwd, key_mask)
+    _count(masked_flash_fwd, key_mask, mask)
     return o, lse
 
 
@@ -651,7 +744,7 @@ def masked_flash_dq(q, k, v, do, lse, delta, mask: BlockMask,
           *(w.data_ptr() for w in walk),
           _DTYPE_CODE[q.dtype], *_geometry(q, k, mask),
           *_dropout(sm_scale, rate, seed)])
-    _count(masked_flash_dq, key_mask)
+    _count(masked_flash_dq, key_mask, mask)
     return dq
 
 
@@ -683,21 +776,40 @@ def masked_flash_dkv(q, k, v, do, lse, delta, mask: BlockMask,
           dv.data_ptr(), *(w.data_ptr() for w in walk),
           _DTYPE_CODE[q.dtype], int(G > 1), *_geometry(q, k, mask),
           *_dropout(sm_scale, rate, seed)])
-    _count(masked_flash_dkv, key_mask)
+    _count(masked_flash_dkv, key_mask, mask)
     return _group_sum(dk, dv, k, v)
 
 
-def _count(wrapper, key_mask):
+def arity(key_mask, mask: BlockMask) -> str:
+    """The name of the kernel arity a call runs, with its walk block and
+    mask heads: e.g. ``"kpm+band walk128 heads1"``; ``"plain"`` names
+    the arity with neither the key mask nor the band."""
+    flags = [f for f, on in (("kpm", key_mask is not None),
+                             ("band", mask.has_band)) if on]
+    return (f"{'+'.join(flags) or 'plain'} walk{mask.block} "
+            f"heads{mask.heads}")
+
+
+def _count(wrapper, key_mask, mask: BlockMask):
     """One launch of ``wrapper``'s kernel: ``launches`` counts every
-    launch, ``launches_kpm`` those of the key-mask arity."""
+    launch, ``launches_kpm`` those of the key-mask arity, and ``arities``
+    every launch by :func:`arity`."""
     wrapper.launches += 1
     if key_mask is not None:
         wrapper.launches_kpm += 1
+    name = arity(key_mask, mask)
+    wrapper.arities[name] = wrapper.arities.get(name, 0) + 1
 
 
-for _w in (masked_flash_fwd, masked_flash_dq, masked_flash_dkv):
-    _w.launches = 0
-    _w.launches_kpm = 0
+def reset_launches():
+    """Set every launch count of K1-K3 to 0."""
+    for w in (masked_flash_fwd, masked_flash_dq, masked_flash_dkv):
+        w.launches = 0
+        w.launches_kpm = 0
+        w.arities = {}
+
+
+reset_launches()
 
 
 # --------------------------------------------------------------------- #

@@ -1,0 +1,16 @@
+"""Block-sparse attention (the port of
+``deepspeed_tpu/ops/sparse_attention``): sparsity layout configs, the
+block-sparse front end over the masked flash kernels K1-K3, and the
+attention modules. ``ops.py`` (``MatMul``, ``Softmax``) is not ported
+yet."""
+
+from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (  # noqa
+    SparsityConfig, DenseSparsityConfig, FixedSparsityConfig,
+    VariableSparsityConfig, BigBirdSparsityConfig,
+    BSLongformerSparsityConfig, sparsity_config_from_dict)
+from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import (  # noqa
+    block_sparse_attention, block_sparse_attention_reference,
+    build_row_luts, build_col_luts, layout_additive_mask)
+from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (  # noqa
+    SparseSelfAttention, BertSparseSelfAttention,
+    init_bert_sparse_self_attention_params, SparseAttentionUtils)

@@ -1,0 +1,425 @@
+"""Block-sparsity layout configurations for sparse attention (the port of
+``deepspeed_tpu/ops/sparse_attention/sparsity_config.py``, numpy, copied
+with its errors and its parse-first check on ``block``).
+
+The JAX package's re-design of the reference's sparsity pattern zoo
+(reference: deepspeed/ops/sparse_attention/sparsity_config.py — classes
+SparsityConfig:9, DenseSparsityConfig:63, FixedSparsityConfig:94,
+VariableSparsityConfig:243, BigBirdSparsityConfig:421,
+BSLongformerSparsityConfig:544). Each config produces a block-level layout
+tensor of shape ``(num_heads, seq_len // block, seq_len // block)`` with 1
+marking an attended (query-block, key-block) pair. The layout is static
+numpy data that ``blocksparse.py`` turns into the masked flash kernels'
+``BlockMask``.
+
+Deviations from the reference, on purpose:
+- layouts are numpy ``int32`` (not torch int64) — they are host-side
+  constants, never device data;
+- random patterns draw from a seeded ``np.random.Generator`` (``seed``
+  knob, default 0) instead of the global ``random`` module, so every
+  process builds the identical layout;
+- the class default ``block`` is 64 (reference: 16); the JSON schema's
+  default (``runtime/config.py::get_sparse_attention``) is 16.
+"""
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+
+class SparsityConfig:
+    """Base class: shared knobs + layout allocation/propagation helpers.
+
+    Reference parity: sparsity_config.py:9 (num_heads / block /
+    different_layout_per_head; setup_layout:29 seq-divisibility check;
+    check_and_propagate_first_head_layout:48).
+    """
+
+    def __init__(self, num_heads: int, block: int = 64,
+                 different_layout_per_head: bool = False):
+        self.num_heads = num_heads
+        self.block = block
+        self.different_layout_per_head = different_layout_per_head
+        self.num_layout_heads = num_heads if different_layout_per_head else 1
+
+    def setup_layout(self, seq_len: int) -> np.ndarray:
+        if seq_len % self.block != 0:
+            raise ValueError(
+                f"sequence length {seq_len} must be divisible by block size "
+                f"{self.block}")
+        num_blocks = seq_len // self.block
+        return np.zeros((self.num_heads, num_blocks, num_blocks),
+                        dtype=np.int32)
+
+    def propagate_first_head(self, layout: np.ndarray) -> np.ndarray:
+        """Broadcast head 0's layout to all heads when layouts are shared."""
+        if not self.different_layout_per_head:
+            layout[1:] = layout[0]
+        return layout
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def make_block_mask(self, seq_len: int, walk_block=None):
+        """Resolve this config to the masked flash kernels'
+        :class:`~deepspeed_tpu_torch.ops.attention.masked_flash.BlockMask`.
+        Head-uniform layouts collapse to a single mask head; banded
+        layouts (BSLongformer-class) coarsen their walk tile
+        automatically, the fine structure in the KIND_BAND predicate.
+        ``walk_block`` forces a tile size (0 = the config's own block)."""
+        from deepspeed_tpu_torch.ops.attention.masked_flash import \
+            BlockMask
+        return BlockMask.from_layout(self.make_layout(seq_len),
+                                     self.block, walk_block=walk_block)
+
+    def layout_cache_key(self):
+        """Hashable identity used by SparseSelfAttention's per-seq-len op
+        cache. Subclasses with extra knobs extend this tuple."""
+        return (type(self).__name__, self.num_heads, self.block,
+                self.different_layout_per_head)
+
+
+class DenseSparsityConfig(SparsityConfig):
+    """All blocks active — for comparison/debugging only.
+    Reference parity: sparsity_config.py:63."""
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        layout = self.setup_layout(seq_len)
+        layout[:] = 1
+        return layout
+
+
+def _check_attention(attention: str, horizontal_global_attention: bool):
+    if attention not in ("unidirectional", "bidirectional"):
+        raise NotImplementedError(
+            "attention must be 'unidirectional' or 'bidirectional'")
+    if attention != "bidirectional" and horizontal_global_attention:
+        raise ValueError("horizontal global attention requires "
+                         "bidirectional attention")
+
+
+class FixedSparsityConfig(SparsityConfig):
+    """Fixed local windows + periodic global blocks (Sparse-Transformer
+    style, arXiv:1904.10509). Reference parity: sparsity_config.py:94
+    (set_local_layout:154, set_global_layout:175).
+
+    Each contiguous window of ``num_local_blocks`` block-rows attends within
+    itself (lower-triangular only when unidirectional). The last
+    ``num_global_blocks`` of each window act as global: every (later, when
+    unidirectional) row attends to them; with
+    ``horizontal_global_attention`` they also attend to everything. Heads
+    can rotate which window slot is global via
+    ``num_different_global_patterns``.
+    """
+
+    def __init__(self, num_heads: int, block: int = 64,
+                 different_layout_per_head: bool = False,
+                 num_local_blocks: int = 4, num_global_blocks: int = 1,
+                 attention: str = "bidirectional",
+                 horizontal_global_attention: bool = False,
+                 num_different_global_patterns: int = 1):
+        super().__init__(num_heads, block, different_layout_per_head)
+        if num_local_blocks % num_global_blocks != 0:
+            raise ValueError(
+                f"num_local_blocks ({num_local_blocks}) must be divisible "
+                f"by num_global_blocks ({num_global_blocks})")
+        _check_attention(attention, horizontal_global_attention)
+        if num_different_global_patterns > 1 and not different_layout_per_head:
+            raise ValueError(
+                "num_different_global_patterns > 1 requires "
+                "different_layout_per_head=True")
+        if num_different_global_patterns > num_local_blocks // \
+                num_global_blocks:
+            raise ValueError(
+                f"num_different_global_patterns "
+                f"({num_different_global_patterns}) cannot exceed "
+                f"num_local_blocks/num_global_blocks "
+                f"({num_local_blocks // num_global_blocks})")
+        self.num_local_blocks = num_local_blocks
+        self.num_global_blocks = num_global_blocks
+        self.attention = attention
+        self.horizontal_global_attention = horizontal_global_attention
+        self.num_different_global_patterns = num_different_global_patterns
+
+    def layout_cache_key(self):
+        return super().layout_cache_key() + (
+            self.num_local_blocks, self.num_global_blocks, self.attention,
+            self.horizontal_global_attention,
+            self.num_different_global_patterns)
+
+    def _set_local(self, h: int, layout: np.ndarray):
+        nb = layout.shape[1]
+        uni = self.attention == "unidirectional"
+        for start in range(0, nb, self.num_local_blocks):
+            end = min(start + self.num_local_blocks, nb)
+            win = np.ones((end - start, end - start), dtype=np.int32)
+            if uni:
+                win = np.tril(win)
+            layout[h, start:end, start:end] |= win
+
+    def _set_global(self, h: int, layout: np.ndarray):
+        nb = layout.shape[1]
+        g = self.num_global_blocks
+        # which slot (counted from the window's end) is global for this head
+        slot = self.num_local_blocks - \
+            (1 + h % self.num_different_global_patterns) * g
+        full_windows_end = nb - nb % self.num_local_blocks
+        starts = list(range(slot, full_windows_end, self.num_local_blocks))
+        if full_windows_end < nb:  # short trailing window
+            starts.append(min(full_windows_end + slot, nb - g))
+        for s in starts:
+            first_row = 0 if self.attention == "bidirectional" else s
+            layout[h, first_row:, s:s + g] = 1
+            if self.horizontal_global_attention:
+                layout[h, s:s + g, :] = 1
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        layout = self.setup_layout(seq_len)
+        for h in range(self.num_layout_heads):
+            self._set_local(h, layout)
+            self._set_global(h, layout)
+        return self.propagate_first_head(layout)
+
+
+class VariableSparsityConfig(SparsityConfig):
+    """Fixed-style layout with per-window sizes, explicit global block
+    (ranges), and optional random blocks. Reference parity:
+    sparsity_config.py:243 (set_random_layout:309, set_local_layout:331,
+    set_global_layout:364)."""
+
+    def __init__(self, num_heads: int, block: int = 64,
+                 different_layout_per_head: bool = False,
+                 num_random_blocks: int = 0,
+                 local_window_blocks: Optional[Sequence[int]] = None,
+                 global_block_indices: Optional[Sequence[int]] = None,
+                 global_block_end_indices: Optional[Sequence[int]] = None,
+                 attention: str = "bidirectional",
+                 horizontal_global_attention: bool = False,
+                 seed: int = 0):
+        super().__init__(num_heads, block, different_layout_per_head)
+        self.num_random_blocks = num_random_blocks
+        self.local_window_blocks = list(local_window_blocks or [4])
+        self.global_block_indices = list(global_block_indices or [0])
+        if global_block_end_indices is not None:
+            ends = list(global_block_end_indices)
+            if len(self.global_block_indices) != len(ends):
+                raise ValueError(
+                    "global_block_indices and global_block_end_indices must "
+                    "have the same length")
+            for s, e in zip(self.global_block_indices, ends):
+                if s >= e:
+                    raise ValueError(
+                        f"global block start {s} must be < end {e}")
+            self.global_block_end_indices: Optional[List[int]] = ends
+        else:
+            self.global_block_end_indices = None
+        _check_attention(attention, horizontal_global_attention)
+        self.attention = attention
+        self.horizontal_global_attention = horizontal_global_attention
+        self.seed = seed
+
+    def layout_cache_key(self):
+        return super().layout_cache_key() + (
+            self.num_random_blocks, tuple(self.local_window_blocks),
+            tuple(self.global_block_indices),
+            None if self.global_block_end_indices is None
+            else tuple(self.global_block_end_indices),
+            self.attention, self.horizontal_global_attention, self.seed)
+
+    def _set_random(self, h: int, layout: np.ndarray,
+                    rng: np.random.Generator):
+        nb = layout.shape[1]
+        if self.num_random_blocks == 0:
+            return
+        if nb < self.num_random_blocks:
+            raise ValueError(
+                f"num_random_blocks ({self.num_random_blocks}) must be <= "
+                f"blocks per row ({nb})")
+        for row in range(nb):
+            cols = rng.choice(nb, size=self.num_random_blocks, replace=False)
+            layout[h, row, cols] = 1
+
+    def _set_local(self, h: int, layout: np.ndarray):
+        nb = layout.shape[1]
+        uni = self.attention == "unidirectional"
+
+        def fill(start, end):
+            if start >= nb:
+                return
+            end = min(end, nb)
+            win = np.ones((end - start, end - start), dtype=np.int32)
+            if uni:
+                win = np.tril(win)
+            layout[h, start:end, start:end] |= win
+
+        start = 0
+        for size in self.local_window_blocks:
+            fill(start, start + size)
+            start += size
+        # remaining rows reuse the last window size
+        size = self.local_window_blocks[-1]
+        while start < nb:
+            fill(start, start + size)
+            start += size
+
+    def _set_global(self, h: int, layout: np.ndarray):
+        nb = layout.shape[1]
+        if self.global_block_end_indices is None:
+            spans = [(i, i + 1) for i in self.global_block_indices]
+        else:
+            spans = list(zip(self.global_block_indices,
+                             self.global_block_end_indices))
+        for s, e in spans:
+            if s >= nb:
+                continue
+            e = min(e, nb)
+            first_row = 0 if self.attention == "bidirectional" else s
+            layout[h, first_row:, s:e] = 1
+            if self.horizontal_global_attention:
+                layout[h, s:e, :] = 1
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        layout = self.setup_layout(seq_len)
+        rng = np.random.default_rng(self.seed)
+        for h in range(self.num_layout_heads):
+            self._set_random(h, layout, rng)
+            self._set_local(h, layout)
+            self._set_global(h, layout)
+        return self.propagate_first_head(layout)
+
+
+class BigBirdSparsityConfig(SparsityConfig):
+    """Random + sliding-window + ITC-global blocks (arXiv:2007.14062).
+    Reference parity: sparsity_config.py:421 (set_random_layout:452,
+    set_sliding_window_layout:475, set_global_layout_itc:499)."""
+
+    def __init__(self, num_heads: int, block: int = 64,
+                 different_layout_per_head: bool = False,
+                 num_random_blocks: int = 1,
+                 num_sliding_window_blocks: int = 3,
+                 num_global_blocks: int = 1, seed: int = 0):
+        super().__init__(num_heads, block, different_layout_per_head)
+        self.num_random_blocks = num_random_blocks
+        self.num_sliding_window_blocks = num_sliding_window_blocks
+        self.num_global_blocks = num_global_blocks
+        self.seed = seed
+
+    def layout_cache_key(self):
+        return super().layout_cache_key() + (
+            self.num_random_blocks, self.num_sliding_window_blocks,
+            self.num_global_blocks, self.seed)
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        layout = self.setup_layout(seq_len)
+        nb = layout.shape[1]
+        for name, n in (("num_random_blocks", self.num_random_blocks),
+                        ("num_sliding_window_blocks",
+                         self.num_sliding_window_blocks),
+                        ("num_global_blocks", self.num_global_blocks)):
+            if nb < n:
+                raise ValueError(f"{name} ({n}) must be <= blocks per row "
+                                 f"({nb})")
+        rng = np.random.default_rng(self.seed)
+        w = self.num_sliding_window_blocks // 2
+        band = np.abs(np.arange(nb)[:, None] - np.arange(nb)[None, :]) <= w
+        for h in range(self.num_layout_heads):
+            for row in range(nb):
+                cols = rng.choice(nb, size=self.num_random_blocks,
+                                  replace=False)
+                layout[h, row, cols] = 1
+            layout[h][band] = 1
+            layout[h, :self.num_global_blocks, :] = 1     # global rows
+            layout[h, :, :self.num_global_blocks] = 1     # global columns
+        return self.propagate_first_head(layout)
+
+
+class BSLongformerSparsityConfig(SparsityConfig):
+    """Block-sparse Longformer: sliding window + chosen global block
+    (ranges) (arXiv:2004.05150). Reference parity: sparsity_config.py:544
+    (set_sliding_window_layout:590, set_global_layout:614)."""
+
+    def __init__(self, num_heads: int, block: int = 64,
+                 different_layout_per_head: bool = False,
+                 num_sliding_window_blocks: int = 3,
+                 global_block_indices: Optional[Sequence[int]] = None,
+                 global_block_end_indices: Optional[Sequence[int]] = None):
+        super().__init__(num_heads, block, different_layout_per_head)
+        self.num_sliding_window_blocks = num_sliding_window_blocks
+        self.global_block_indices = list(global_block_indices or [0])
+        if global_block_end_indices is not None:
+            ends = list(global_block_end_indices)
+            if len(self.global_block_indices) != len(ends):
+                raise ValueError(
+                    "global_block_indices and global_block_end_indices must "
+                    "have the same length")
+            for s, e in zip(self.global_block_indices, ends):
+                if s >= e:
+                    raise ValueError(
+                        f"global block start {s} must be < end {e}")
+            self.global_block_end_indices: Optional[List[int]] = ends
+        else:
+            self.global_block_end_indices = None
+
+    def layout_cache_key(self):
+        return super().layout_cache_key() + (
+            self.num_sliding_window_blocks,
+            tuple(self.global_block_indices),
+            None if self.global_block_end_indices is None
+            else tuple(self.global_block_end_indices))
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        layout = self.setup_layout(seq_len)
+        nb = layout.shape[1]
+        if nb < self.num_sliding_window_blocks:
+            raise ValueError(
+                f"num_sliding_window_blocks "
+                f"({self.num_sliding_window_blocks}) must be <= blocks per "
+                f"row ({nb})")
+        w = self.num_sliding_window_blocks // 2
+        band = np.abs(np.arange(nb)[:, None] - np.arange(nb)[None, :]) <= w
+        if self.global_block_end_indices is None:
+            spans = [(i, i + 1) for i in self.global_block_indices]
+        else:
+            spans = list(zip(self.global_block_indices,
+                             self.global_block_end_indices))
+        for h in range(self.num_layout_heads):
+            layout[h][band] = 1
+            for s, e in spans:
+                if s >= nb:
+                    continue
+                e = min(e, nb)
+                layout[h, s:e, :] = 1   # global rows
+                layout[h, :, s:e] = 1   # global columns
+        return self.propagate_first_head(layout)
+
+
+def sparsity_config_from_dict(cfg, num_heads: int):
+    """Build a SparsityConfig from the parsed ``sparse_attention`` JSON
+    sub-config (``runtime/config.py::get_sparse_attention``): the dict's
+    keys are the class constructor keywords, ``mode`` selects the class,
+    and ``num_heads`` comes from the model.
+    """
+    if cfg is None:
+        return None
+    kwargs = {k: v for k, v in cfg.items() if k != "mode" and v is not None}
+    classes = {
+        "dense": DenseSparsityConfig,
+        "fixed": FixedSparsityConfig,
+        "variable": VariableSparsityConfig,
+        "bigbird": BigBirdSparsityConfig,
+        "bslongformer": BSLongformerSparsityConfig,
+    }
+    mode = cfg.get("mode", "fixed")
+    if mode not in classes:
+        raise ValueError(
+            f"sparse_attention mode {mode!r} not in {sorted(classes)}")
+    if "block" not in cfg:
+        # the parse-first contract: a raw (unparsed) dict would
+        # silently get the CLASS defaults
+        # (block=64) instead of the JSON-schema defaults (block=16)
+        # that runtime/config.py get_sparse_attention applies
+        raise ValueError(
+            "sparsity_config_from_dict expects the PARSED sparse_attention "
+            "sub-config (runtime/config.py get_sparse_attention), which "
+            "always carries 'block'; got a raw dict without it")
+    return classes[mode](num_heads=num_heads, **kwargs)

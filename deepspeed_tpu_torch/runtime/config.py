@@ -2,7 +2,8 @@
 ``config_utils.py`` and ``zero/config.py``): the training keys of
 :class:`DeepSpeedConfig` (the batch triangle, ``bf16``, ``fp16``,
 ``optimizer``, ``scheduler``, ``gradient_clipping``,
-``zero_optimization.stage``, ``steps_per_print``),
+``zero_optimization.stage``, ``steps_per_print``,
+``sparse_attention``),
 ``get_inference_config`` and the serving part of
 ``get_observability_config``. The same dict resolves to the same fields
 and raises the same errors as the JAX package. ZeRO stages 1 and 2 are
@@ -79,6 +80,67 @@ def get_scheduler_params(param_dict):
     return None
 
 
+# each sparse_attention mode's keys beside mode, block and
+# different_layout_per_head, and every key's schema default
+_SPARSE_MODE_KEYS = {
+    C.SPARSE_DENSE_MODE: (),
+    C.SPARSE_FIXED_MODE: (C.SPARSE_NUM_LOCAL_BLOCKS,
+                          C.SPARSE_NUM_GLOBAL_BLOCKS,
+                          C.SPARSE_ATTENTION_TYPE,
+                          C.SPARSE_HORIZONTAL_GLOBAL_ATTENTION,
+                          C.SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS),
+    C.SPARSE_VARIABLE_MODE: (C.SPARSE_NUM_RANDOM_BLOCKS,
+                             C.SPARSE_LOCAL_WINDOW_BLOCKS,
+                             C.SPARSE_GLOBAL_BLOCK_INDICES,
+                             C.SPARSE_GLOBAL_BLOCK_END_INDICES,
+                             C.SPARSE_ATTENTION_TYPE,
+                             C.SPARSE_HORIZONTAL_GLOBAL_ATTENTION),
+    C.SPARSE_BIGBIRD_MODE: (C.SPARSE_NUM_RANDOM_BLOCKS,
+                            C.SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
+                            C.SPARSE_NUM_GLOBAL_BLOCKS),
+    C.SPARSE_BSLONGFORMER_MODE: (C.SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
+                                 C.SPARSE_GLOBAL_BLOCK_INDICES,
+                                 C.SPARSE_GLOBAL_BLOCK_END_INDICES),
+}
+_SPARSE_DEFAULTS = {
+    C.SPARSE_BLOCK: C.SPARSE_BLOCK_DEFAULT,
+    C.SPARSE_DIFFERENT_LAYOUT_PER_HEAD:
+        C.SPARSE_DIFFERENT_LAYOUT_PER_HEAD_DEFAULT,
+    C.SPARSE_NUM_LOCAL_BLOCKS: C.SPARSE_NUM_LOCAL_BLOCKS_DEFAULT,
+    C.SPARSE_NUM_GLOBAL_BLOCKS: C.SPARSE_NUM_GLOBAL_BLOCKS_DEFAULT,
+    C.SPARSE_ATTENTION_TYPE: C.SPARSE_ATTENTION_TYPE_DEFAULT,
+    C.SPARSE_HORIZONTAL_GLOBAL_ATTENTION:
+        C.SPARSE_HORIZONTAL_GLOBAL_ATTENTION_DEFAULT,
+    C.SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS:
+        C.SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS_DEFAULT,
+    C.SPARSE_NUM_RANDOM_BLOCKS: C.SPARSE_NUM_RANDOM_BLOCKS_DEFAULT,
+    C.SPARSE_LOCAL_WINDOW_BLOCKS: C.SPARSE_LOCAL_WINDOW_BLOCKS_DEFAULT,
+    C.SPARSE_GLOBAL_BLOCK_INDICES: C.SPARSE_GLOBAL_BLOCK_INDICES_DEFAULT,
+    C.SPARSE_GLOBAL_BLOCK_END_INDICES:
+        C.SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT,
+    C.SPARSE_NUM_SLIDING_WINDOW_BLOCKS:
+        C.SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT,
+}
+
+
+def get_sparse_attention(param_dict):
+    """Parse the ``sparse_attention`` sub-config: the mode, the JSON
+    schema's defaults (block 16) and the keys of that mode only; None
+    without the section."""
+    if C.SPARSE_ATTENTION not in param_dict:
+        return None
+    sparsity = param_dict[C.SPARSE_ATTENTION]
+    mode = get_scalar_param(sparsity, C.SPARSE_MODE, C.SPARSE_MODE_DEFAULT)
+    if mode not in _SPARSE_MODE_KEYS:
+        raise NotImplementedError(
+            f"Given sparsity mode, {mode}, has not been implemented yet!")
+    keys = (C.SPARSE_BLOCK, C.SPARSE_DIFFERENT_LAYOUT_PER_HEAD,
+            *_SPARSE_MODE_KEYS[mode])
+    return {C.SPARSE_MODE: mode,
+            **{k: get_scalar_param(sparsity, k, _SPARSE_DEFAULTS[k])
+               for k in keys}}
+
+
 class DeepSpeedZeroConfig:
     """The ``zero_optimization`` section's stage and offload switch (the
     legacy boolean form means stage 1)."""
@@ -144,6 +206,7 @@ class DeepSpeedConfig:
             d, C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT)
         self.memory_breakdown = get_scalar_param(
             d, C.MEMORY_BREAKDOWN, C.MEMORY_BREAKDOWN_DEFAULT)
+        self.sparse_attention = get_sparse_attention(d)
 
     def _set_batch_related_parameters(self):
         """Solve the batch triangle from the keys given."""

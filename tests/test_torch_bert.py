@@ -431,10 +431,30 @@ def test_mlm_dropout_is_seeded_and_remat_keeps_the_numbers():
 
 
 def test_sparsity_config_raises():
+    """The sparsity_config route runs: over a dense layout it gives the
+    dense route's loss and grads (the sparse route's 'mul' key mask puts
+    -1e30 on the pads, the dense one -1e9: both give pads p = 0). It
+    raises where JAX does: a sequence that is not a multiple of the
+    block, and an unparsed sparse_attention dict."""
     from deepspeed_tpu_torch.models import bert as tb
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        DenseSparsityConfig, sparsity_config_from_dict)
     _, tcfg = _cfgs()
     params = tb.init_bert_params(tcfg, torch.Generator().manual_seed(0))
+    leaves = _leaves(params)
+    for t in leaves:
+        t.requires_grad_()
     batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
-    with pytest.raises(NotImplementedError, match="item 20.*KIND_BAND"):
-        tb.bert_mlm_loss_fn(tcfg, sparsity_config=object())(params, batch,
-                                                            None)
+    outs = []
+    for sc in (None, DenseSparsityConfig(num_heads=2, block=16)):
+        loss = tb.bert_mlm_loss_fn(tcfg, dtype=torch.float32,
+                                   deterministic=True,
+                                   sparsity_config=sc)(params, batch, None)
+        outs.append([loss] + list(torch.autograd.grad(loss, leaves)))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+    with pytest.raises(ValueError, match="divisible"):
+        tb.bert_mlm_loss_fn(tcfg, sparsity_config=DenseSparsityConfig(
+            num_heads=2, block=24))(params, batch, None)
+    with pytest.raises(ValueError, match="PARSED"):
+        sparsity_config_from_dict({"mode": "bslongformer"}, num_heads=2)

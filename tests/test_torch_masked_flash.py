@@ -459,7 +459,7 @@ def test_flash_attention_causal_matches_jax():
 def test_routing(monkeypatch):
     """seq % 16 != 0 takes the reference path; the masked route runs the
     masked kernels, with a (B, 1, 1, Sk) key-padding mask too; the legacy
-    route and KIND_BAND raise instead of falling back."""
+    route raises instead of falling back; KIND_BAND tiles run."""
     from deepspeed_tpu_torch.ops.attention import flash as tflash
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
     rng = np.random.RandomState(7)
@@ -486,14 +486,22 @@ def test_routing(monkeypatch):
     with pytest.raises(ValueError, match="key mask"):
         mf.masked_flash_fwd(q2, k2, v2, mf.BlockMask.dense(S, S, 16), 0.25,
                             key_mask=torch.zeros(1, S, dtype=torch.float64))
+    # KIND_BAND tiles run (their plain versions here) with the band's
+    # fine structure; a layout no band describes cannot take a coarse
+    # walk; a user attention mask (K8-K10) raises
     band = mf.BlockMask(np.ones((1, 4, 4)), np.full((1, 4, 4), 2), 16, S, S,
                         band=(16, 1, 0, 0, False))
-    for call in (lambda: mf.masked_flash_attention(q2, k2, v2, band),
-                 lambda: mf.masked_flash_fwd_plain(q2, k2, v2, band, 0.25)):
-        with pytest.raises(NotImplementedError, match="KIND_BAND"):
-            call()
-    with pytest.raises(NotImplementedError, match="KIND_BAND"):
+    torch.testing.assert_close(
+        mf.masked_flash_attention(q2, k2, v2, band),
+        mf.masked_flash_reference(q2, k2, v2, band), atol=FP32_ATOL, rtol=0)
+    assert not (band.dense_additive() == 0).all()
+    with pytest.raises(ValueError, match="banded-describable"):
         mf.BlockMask.from_layout(np.ones((1, 4, 4)), 16, walk_block=64)
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention
+    with pytest.raises(NotImplementedError, match="K8-K10"):
+        block_sparse_attention(q2, k2, v2, np.ones((2, 4, 4), np.int32),
+                               attn_mask=torch.ones(S, S))
     with pytest.raises(ValueError, match="dropout_seed"):
         tflash.flash_attention(q2, k2, v2, causal=True, dropout_rate=0.1)
 
@@ -593,3 +601,78 @@ def test_cuda_key_mask_kernels_match_plain(case):
             ratio, rel_rms, ok = _bf16_check(a, b, **BF16_TOL)
             assert ok, (ratio, rel_rms)
     assert float((lse - lse_p).abs().max()) <= 1e-3
+
+
+def _band_mask(s, walk, causal=False):
+    """The BSLongformer defaults' layout at block 16 (global block 0, a
+    window of 3 blocks), or that band clipped causally, as a BlockMask
+    over a coarse walk with KIND_BAND tiles."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import BlockMask
+    n = s // 16
+    idx = np.arange(n)
+    rb, cb = idx[:, None], idx[None, :]
+    keep = (rb < 1) | (cb < 1) | (np.abs(rb - cb) <= 1)
+    if causal:
+        keep &= cb <= rb
+    mask = BlockMask.from_layout(keep[None].astype(np.int32), 16,
+                                 walk_block=walk)
+    # detect_banded may describe the clipped band with a longer global
+    # row prefix (rows 0-2 keep all their causal cells)
+    assert mask.has_band and mask.band[:2] == (16, 1)
+    assert mask.band[4] is causal
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, H, S, D, walk, causal, dtype, rate, min_len, all-pad rows)
+    (8, 16, 2048, 64, 128, False, "bf16", 0.0, 1024, ()),  # BERT-large
+    (2, 16, 2048, 64, 64, False, "bf16", 0.1, 1024, ()),
+    (2, 4, 512, 64, 32, False, "fp32", 0.1, 200, (1,)),
+    (2, 8, 512, 64, 64, True, "bf16", 0.0, None, ()),       # causal clip
+])
+def test_cuda_band_kernels_match_plain(case):
+    """The KIND_BAND arity of K1, K2 and K3 on the card against their
+    plain versions on the same inputs, with the sparse route's 'mul' key
+    mask (-1e30 on the pads); launches count under the band arity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    B, H, s, d, walk, causal, dtype, rate, min_len, pads = case
+    rng = np.random.RandomState(s + walk)
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v, do = (torch.from_numpy(a).to("cuda", td) for a in
+                   _inputs(rng, 1, dtype, B=B, H=H, s=s, d=d))
+    kpm = None
+    if min_len is not None:
+        add = _bert_key_mask(rng, B, s, min_len, pads)
+        kpm = torch.from_numpy(np.where(add < 0, -1e30, 0.0).astype(
+            np.float32)).cuda()
+    mask = _band_mask(s, walk, causal)
+    scale, seed = 1.0 / np.sqrt(d), 5
+    kernels = (mf.masked_flash_fwd, mf.masked_flash_dq, mf.masked_flash_dkv)
+    name = mf.arity(kpm, mask)
+    assert "band" in name
+    before = [f.arities.get(name, 0) for f in kernels]
+    o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed, kpm)
+    o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed,
+                                           kpm)
+    delta = (do.float() * o_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, mask, scale, rate, seed, kpm)
+    got = [o, mf.masked_flash_dq(*args), *mf.masked_flash_dkv(*args)]
+    torch.cuda.synchronize()
+    assert [f.arities.get(name, 0) for f in kernels] == \
+        [n + 1 for n in before]
+    want = [o_p, mf.masked_flash_dq_plain(*args),
+            *mf.masked_flash_dkv_plain(*args)]
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+        if dtype == "fp32":
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4)
+        else:
+            ratio, rel_rms, ok = _bf16_check(a, b, **BF16_TOL)
+            assert ok, (ratio, rel_rms)
+    assert float((lse - lse_p).abs().max()) <= 1e-3
+    if pads:
+        assert (o[list(pads)] == 0).all()

@@ -942,9 +942,23 @@ def compare(out, ref, atol, rtol, rms):
     return ratio, rel_rms, float(d.max()), ok
 
 
+def timed_once(fn, flush):
+    """``fn()`` once, the L2 cache flushed before it: its result and its
+    CUDA-event ms."""
+    import torch
+    flush.zero_()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def check_train_kernels(name, mask, args, rate, seed=-123457,
                         control=False, key_mask=None, control_mask=None,
-                        phase="train_kernel_check", extra=None):
+                        phase="train_kernel_check", extra=None, flush=None):
     """K1, K2 and K3 against their plain versions on the same inputs;
     the backward kernels get the plain forward's lse and delta, so each
     kernel is held against its own plain version. With ``key_mask`` the
@@ -954,22 +968,31 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     FULL) the plain versions run over it; else without a key mask (bf16
     only) they run on fp32 copies of the inputs, which leaves out the
     rounding of p and ds before their products; with one, they run
-    without the key mask."""
+    without the key mask. With ``flush`` each plain call is timed as
+    :func:`timed_once` times it, in the row's ``plain_ms``."""
     import torch
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
     q, k, v, do = args
     scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    plain_ms = {}
+
+    def plain(kernel, fn, *a):
+        if flush is None:
+            return fn(*a)
+        out, plain_ms[kernel] = timed_once(lambda: fn(*a), flush)
+        return out
+
     o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed, key_mask)
     torch.cuda.synchronize()
-    o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed,
-                                           key_mask)
+    o_p, lse_p = plain("masked_flash_fwd", mf.masked_flash_fwd_plain, q, k,
+                       v, mask, scale, rate, seed, key_mask)
     delta = (do.float() * o_p.float()).sum(-1)
     bwd = (q, k, v, do, lse_p, delta, mask, scale, rate, seed, key_mask)
     dq = mf.masked_flash_dq(*bwd)
     dk, dv = mf.masked_flash_dkv(*bwd)
     torch.cuda.synchronize()
-    dq_p = mf.masked_flash_dq_plain(*bwd)
-    dk_p, dv_p = mf.masked_flash_dkv_plain(*bwd)
+    dq_p = plain("masked_flash_dq", mf.masked_flash_dq_plain, *bwd)
+    dk_p, dv_p = plain("masked_flash_dkv", mf.masked_flash_dkv_plain, *bwd)
     tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
     row = {"phase": phase, "case": name,
            "dtype": str(q.dtype), "shape_q": list(q.shape),
@@ -977,6 +1000,8 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
            "mask_heads": mask.heads, "walked_tiles": mask.nnz,
            "dropout": rate, "key_mask": key_mask is not None,
            "tol": tol, "lse_atol": LSE_ATOL}
+    if plain_ms:
+        row["plain_ms"] = plain_ms
     if mask.band is not None:
         row.update(fine_block=mask.fine_block, band=list(mask.band),
                    band_tiles=int((mask.kinds[mask.active] != 0).sum()))
@@ -1622,6 +1647,27 @@ def _empty_in_band_tiles(mask):
             "empty_cols_in_band_tiles": int((~band.any(-2)).sum())}
 
 
+def computed_chunks(mask):
+    """The chunks of R x R cells (R = min(walk block, 32)) the kernels
+    compute over all mask heads: every chunk of a walked tile, but of a
+    KIND_BAND tile only those that keep a cell (the kernels skip the
+    others, ``Band::any`` in masked_flash.cu)."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import KIND_BAND
+    b = mask.block
+    R = min(b, 32)
+    f = b // R
+    grow = np.ones((f, f), bool)
+    walked = np.stack([np.kron(a, grow) for a in mask.active])
+    if not mask.has_band:
+        return int(walked.sum())
+    band = np.stack([np.kron(a & (k & KIND_BAND).astype(bool), grow)
+                     for a, k in zip(mask.active, mask.kinds)])
+    n = mask.seq_q // R
+    live = (mask.dense_additive() == 0.0).reshape(
+        mask.heads, n, R, mask.seq_k // R, R).any(axis=(2, 4))
+    return int((walked & (~band | live)).sum())
+
+
 def check_band_kernels(name, mask, args, rate, key_mask):
     """K1-K3 in their band arity against their plain versions
     (TRAIN_TOL); the control: the plain versions with the KIND_BAND
@@ -1704,7 +1750,10 @@ def sparse_kernel_timing_phase(smi):
     layout's FLOP, so work spent on the coarse tiles' dropped cells
     shows as distance from it. Library: one scaled_dot_product_attention
     call with the dense float (B, H, S, S) mask of layout plus key mask
-    (forward for K1, backward for K2 and K3 together)."""
+    (forward for K1, backward for K2 and K3 together). The fixed walk's
+    one plain call of each kernel also holds the kernels against it
+    (:func:`check_train_kernels`, TRAIN_TOL, the key mask left out as the
+    control). Returns the timings and that check's row."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
@@ -1733,7 +1782,7 @@ def sparse_kernel_timing_phase(smi):
         "masked_flash_dkv": "deepspeed_tpu/ops/attention/masked_flash.py:"
                             "413-427 (the KIND_BAND arity of _mf_dkv_kernel "
                             ":604)"}
-    out = {}
+    out, fixed_row = {}, None
     for kind in SPARSE_KINDS:
         sc = sparse_config(kind, heads=H)
         layout = sc.make_layout(S)
@@ -1760,9 +1809,16 @@ def sparse_kernel_timing_phase(smi):
             meta = {"csr": sum(a.nbytes for a in mask.csr()),
                     "csc": sum(a.nbytes for a in mask.csc())}
             hm = H if mask.heads == 1 else 1
-            # the per-tile plain walk of the per-head layouts launches
-            # ~1e6 small kernels per call: time one call
-            plain_calls, plain_warm = (1, 0) if mask.block == 16 else (3, 1)
+            plain_calls, plain_warm = 3, 1
+            if kind == "fixed":
+                # the per-tile plain walk of the per-head layouts launches
+                # ~1e6 small kernels per call: one timed call of each,
+                # whose outputs hold the kernels at this main-path shape
+                plain_calls, plain_warm = 1, 0
+                fixed_row = check_train_kernels(
+                    "bert_large_s2048_fixed_walk16_kpm", mask,
+                    (q, k, v, do), 0.0, control=True, key_mask=kpm,
+                    phase="sparse_kernel_check", flush=flush)
             specs = {
                 # name: (call, plain call, dots per tile, bytes in, out,
                 #        library ms)
@@ -1786,11 +1842,17 @@ def sparse_kernel_timing_phase(smi):
             for name, (call, plain, dots, b_in, b_out, lib_ms) in \
                     specs.items():
                 kernel_ms = time_ms(call, SPARSE_TIMED_CALLS, flush)
-                plain_ms = time_ms(plain, plain_calls, flush,
-                                   warmup=plain_warm)
+                if kind == "fixed":
+                    plain_ms = fixed_row["plain_ms"][name]
+                else:
+                    plain_ms = time_ms(plain, plain_calls, flush,
+                                       warmup=plain_warm)
                 # the fine layout's products: what this data needs
                 flops = fine_tiles * B * dots * 2 * sc.block ** 2 * D
                 walked = mask.nnz * hm * B * dots * 2 * mask.block ** 2 * D
+                chunks = computed_chunks(mask)
+                rr = min(mask.block, 32)
+                computed = chunks * hm * B * dots * 2 * rr ** 2 * D
                 nbytes = b_in + b_out + meta[
                     "csc" if name == "masked_flash_dkv" else "csr"]
                 bytes_ms = nbytes / bytes_per_s * 1e3
@@ -1808,6 +1870,8 @@ def sparse_kernel_timing_phase(smi):
                       "band_tiles": int((mask.kinds[mask.active]
                                          != 0).sum()),
                       "fine_layout_flops": flops, "walked_flops": walked,
+                      "computed_chunks": chunks, "chunk": rr,
+                      "computed_flops": computed,
                       "bytes": nbytes, "kernel_ms": kernel_ms,
                       "plain_ms": plain_ms, "plain_calls": plain_calls,
                       "library_ms": lib_ms,
@@ -1824,7 +1888,7 @@ def sparse_kernel_timing_phase(smi):
                     "ms": kernel_ms, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "replaces": replaces[name]}
-    return out
+    return out, fixed_row
 
 
 def bert_batches(vocab, batch, seq, min_len, n, seed=SEED):
@@ -1849,9 +1913,12 @@ def bert_batches(vocab, batch, seq, min_len, n, seed=SEED):
 
 def _kpm_launches():
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
-    return {n: (getattr(mf, n).launches_kpm,
-                getattr(mf, n).launches - getattr(mf, n).launches_kpm)
-            for n in KPM_NAMES}
+    out = {}
+    for n in KPM_NAMES:
+        w = getattr(mf, n)
+        kpm = sum(c for a, c in w.arities.items() if a.startswith("kpm"))
+        out[n] = (kpm, w.launches - kpm)
+    return out
 
 
 def _reset_kpm_launches():
@@ -1944,13 +2011,14 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     _reset_kpm_launches()
-    losses, lrs, trusts = [], [], []
+    losses, lrs, trusts, zero_norms = [], [], [], []
     step0 = engine.global_steps
     t0 = time.perf_counter()
     for _ in range(steps):
         lrs.append(engine.get_lr()[0])
         losses.append(engine.train_batch(it))
         trusts.append(opt.last_trust)
+        zero_norms.append(opt.last_zero_norm)
     if on_cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1958,6 +2026,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
     arities = {n: dict(getattr(mf, n).arities) for n in KPM_NAMES}
     losses = [float(x) for x in losses]
     coeffs = torch.stack(trusts).float().cpu()
+    zero_norm = torch.stack(zero_norms).cpu()
     want_lrs = [want_sched.lr_at(step0 + i) for i in range(steps)]
     timed = data[ga * warmup:ga * (warmup + steps)]
     real_tokens = sum(int(b["attention_mask"].sum()) for b in timed)
@@ -1985,7 +2054,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
                           "bf16 peak", "losses": losses, "lrs": lrs,
            "lamb_coeff_min": float(coeffs.min()),
            "lamb_coeff_max": float(coeffs.max()),
-           "lamb_coeffs_of_zero_norm_leaves": int((coeffs == 1.0).sum()),
+           "lamb_coeffs_of_zero_norm_leaves": int(zero_norm.sum()),
            "kpm_launches": {n: c[0] for n, c in launches.items()},
            "mask_free_launches": {n: c[1] for n, c in launches.items()},
            "launches_by_arity": arities,
@@ -2008,13 +2077,17 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
         raise AssertionError(f"lr {lrs} != WarmupLR.lr_at {want_lrs}")
     # the ratios are fp32: the bounds as fp32 rounds them
     lo, hi = (float(np.float32(c)) for c in (opt.min_coeff, opt.max_coeff))
-    # Lamb's ratio is 1 for a leaf of norm 0: after a single warm-up step
-    # (WarmupLR's step 0 has lr 0) the zero-initialized biases still are
-    clamped = coeffs if warmup >= 2 else coeffs[coeffs != 1.0]
-    if not (lo <= float(clamped.min()) and float(clamped.max()) <= hi):
-        raise AssertionError(f"Lamb coefficients outside [{lo}, {hi}]: "
-                             f"{row['lamb_coeff_min']}, "
-                             f"{row['lamb_coeff_max']}")
+    # Lamb's ratio is 1 for a leaf whose weight or update norm is 0 (after
+    # a single warm-up step, WarmupLR's step 0 of lr 0, the zero-initialized
+    # biases still are), and clamped into [lo, hi] for every other leaf
+    clamped = coeffs[~zero_norm].tolist()
+    if not (bool((coeffs[zero_norm] == 1.0).all()) and clamped
+            and lo <= min(clamped) and max(clamped) <= hi):
+        raise AssertionError(
+            f"Lamb coefficients: {int(zero_norm.sum())} leaves of norm 0 "
+            f"with ratios {coeffs[zero_norm].unique().tolist()} (want 1), "
+            f"{len(clamped)} others in [{min(clamped, default=None)}, "
+            f"{max(clamped, default=None)}] (want [{lo}, {hi}])")
     want = L * ga * steps
     for name, (kpm_n, free_n) in launches.items():
         if kpm_n != want or free_n != 0:
@@ -2216,7 +2289,7 @@ def main() -> int:
         profile=False)
     bert_kernel_vs_plain_phase()
     sparse_check = sparse_kernel_check_phase()
-    sparse_timing = sparse_kernel_timing_phase(smi)
+    sparse_timing, fixed_check = sparse_kernel_timing_phase(smi)
     sparse_launches = {kind: bert_training_phase(
         smi, seq=SPARSE_SEQ, min_len=SPARSE_MIN_LEN, steps=SPARSE_STEPS,
         warmup=SPARSE_WARMUP, sparse=kind) for kind in SPARSE_KINDS}
@@ -2261,10 +2334,12 @@ def main() -> int:
             max_abs_err=errs[name], ms=t["ms"], kernel_ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
-    bert_errs = {"masked_flash_fwd": bert_check["o_max_abs_err"],
-                 "masked_flash_dq": bert_check["dq_max_abs_err"],
-                 "masked_flash_dkv": max(bert_check["dk_max_abs_err"],
-                                         bert_check["dv_max_abs_err"])}
+    bert_errs, fixed_errs, band_errs = (
+        {"masked_flash_fwd": row["o_max_abs_err"],
+         "masked_flash_dq": row["dq_max_abs_err"],
+         "masked_flash_dkv": max(row["dk_max_abs_err"],
+                                 row["dv_max_abs_err"])}
+        for row in (bert_check, fixed_check, sparse_check))
     timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name in KPM_NAMES:
         t128, t512 = bert_timing[name][128], bert_timing[name][512]
@@ -2279,7 +2354,11 @@ def main() -> int:
                     bert_launches_512[name],
                 f"bert-large sparse fixed seq {SPARSE_SEQ} "
                 f"({SPARSE_STEPS} steps)": sparse_launches["fixed"][name]},
-            max_abs_err=bert_errs[name], ms=t128["ms"],
+            max_abs_err=max(bert_errs[name], fixed_errs[name]),
+            max_abs_err_by_case={"bert-large seq 128": bert_errs[name],
+                                 f"sparse fixed walk 16 seq {SPARSE_SEQ}":
+                                     fixed_errs[name]},
+            ms=t128["ms"],
             kernel_ms=t128["ms"], plain_ms=t128["plain_ms"],
             bound_ms=t128["bound_ms"], bound_by=t128["bound_by"],
             library_ms=t128["library_ms"],
@@ -2287,10 +2366,6 @@ def main() -> int:
             sparse_fixed_walk16={
                 k: sparse_timing[name]["fixed walk16"][k]
                 for k in timing_keys}))
-    band_errs = {"masked_flash_fwd": sparse_check["o_max_abs_err"],
-                 "masked_flash_dq": sparse_check["dq_max_abs_err"],
-                 "masked_flash_dkv": max(sparse_check["dk_max_abs_err"],
-                                         sparse_check["dv_max_abs_err"])}
     for name in KPM_NAMES:
         t = sparse_timing[name]["bslongformer walk128"]
         kernels.append(dict(

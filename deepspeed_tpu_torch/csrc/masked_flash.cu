@@ -28,7 +28,12 @@
 // lse = NEG_INF. Under the band a walked coarse tile may hold a row (K1,
 // K2) or a column (K3) with no kept cell: its scores are all NEG_INF, so
 // m_safe keeps the row's max at 0 and s > VALID_THRESH gives p = 0, and
-// such a row adds exactly 0 to l, o, dq, dk and dv. p is rounded to V's
+// such a row adds exactly 0 to l, o, dq, dk and dv. A chunk of R rows by
+// R keys of a BAND tile in which Band::any finds no kept cell is skipped
+// (K1 skips the whole tile when every chunk of its rows is), so a coarse
+// walk computes the band's cells at the granularity of R, not of the
+// walk block; every output equals that of the walk without the skip bit
+// for bit. p is rounded to V's
 // dtype before P.V and ds to K/Q's dtype before its products; every sum
 // accumulates in fp32. Dropout regenerates
 // the keep mask of flash.dropout_keep_mask from (seed, b*H + h, q, k) in
@@ -141,6 +146,18 @@ struct Band {
     const int d = qf - kf;
     bool ok = qf < g_r || kf < g_c || (d <= w && -d <= w);
     if (clip) ok = ok && kf <= qf;
+    return ok;
+  }
+
+  // whether keep() holds for any cell of queries [qa, qb] x keys [ka, kb]
+  // (inclusive): a chunk of a BAND tile for which it does not adds
+  // exactly 0 to every output, so the kernels skip it
+  __device__ __forceinline__ bool any(int qa, int qb, int ka, int kb) const {
+    const int q0 = qa / fb, q1 = qb / fb, k0 = ka / fb, k1 = kb / fb;
+    // the window: qf - kf in [-w, w] ([0, w] under the clip)
+    bool ok = q0 - k1 <= w && k0 - q1 <= (clip ? 0 : w);
+    ok = ok || (q0 < g_r && (!clip || k0 <= min(q1, g_r - 1)));
+    ok = ok || (k0 < g_c && (!clip || k0 <= q1));
     return ok;
   }
 };
@@ -259,8 +276,24 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n; ++t) {
     const int k0 = cols[base + t] * blk;
     const int kind = kinds[base + t];
+    // bit i: chunk i of R keys holds a kept cell of this CTA's rows (with
+    // R == 32 for walks of 32 and wider, chunk i is lane group u == i
+    // below); a BAND tile's other chunks are skipped, and a tile with no
+    // live chunk leaves m, l and the accumulator as they are (alpha 1)
+    unsigned live = ~0u;
+    if constexpr (BAND) {
+      if (kind & kKindBand) {
+        live = 0u;
+        for (int c0 = 0; c0 < blk; c0 += R)
+          if (bd.any(r0, r0 + R - 1, k0 + c0, k0 + c0 + R - 1))
+            live |= 1u << (c0 / R);
+        if (live == 0u) continue;
+      }
+    }
     // s = q . k over the whole walked tile, R x blk
     for (int c0 = 0; c0 < blk; c0 += R) {
+      if constexpr (BAND)
+        if (!((live >> (c0 / R)) & 1u)) continue;
       stage_rows(kv, kg + (size_t)(k0 + c0) * D, R, D);
       __syncthreads();
       mm(ss + c0, blk, false, nullptr, qs, D + 1, 1, kv, 1, D + 1, R, R, D);
@@ -275,7 +308,9 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < kMaxBlk / 32; ++u) {
         const int c = lane + 32 * u;
         float s = kNegInf;
-        if (c < blk) {
+        bool in_tile = c < blk;
+        if constexpr (BAND) in_tile = in_tile && ((live >> u) & 1u);
+        if (in_tile) {
           s = ss[r * blk + c] * sh.sm_scale;
           if constexpr (KPM) s += kpm_b[k0 + c];
           if ((kind & kKindCausal) && qi < k0 + c) s = kNegInf;
@@ -293,7 +328,9 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < kMaxBlk / 32; ++u) {
         const int c = lane + 32 * u;
-        if (c < blk) {
+        bool in_tile = c < blk;
+        if constexpr (BAND) in_tile = in_tile && ((live >> u) & 1u);
+        if (in_tile) {
           float p = sv[u] > kValidThresh ? expf(sv[u] - m_safe) : 0.f;
           sum += p;
           if (dr.on && !dr.keep(bh, qi, k0 + c)) p = 0.f;
@@ -309,8 +346,21 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-    // acc = acc * alpha + p . v
+    // acc = acc * alpha + p . v, alpha with chunk 0's product
+    [[maybe_unused]] bool scaled = false;
     for (int c0 = 0; c0 < blk; c0 += R) {
+      if constexpr (BAND) {
+        if (!((live >> (c0 / R)) & 1u)) continue;
+        if (c0 != 0 && !scaled) {
+          // chunk 0 was skipped: scale as its product of zeros would
+          // have, round(acc * alpha), so the outputs equal those of the
+          // walk without the skip bit for bit
+          for (int e = threadIdx.x; e < R * D; e += blockDim.x)
+            os[e] = os[e] * a_s[e / D];
+          __syncthreads();
+        }
+        scaled = true;
+      }
       stage_rows(kv, vg + (size_t)(k0 + c0) * D, R, D);
       __syncthreads();
       mm(os, D, true, c0 == 0 ? a_s : nullptr, ss + c0, blk, 1, kv, D + 1, 1,
@@ -388,6 +438,11 @@ mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = cols[base + t] * blk;
     const int kind = kinds[base + t];
     for (int c0 = 0; c0 < blk; c0 += R) {
+      // a chunk of a BAND tile with no kept cell adds 0 to dq
+      if constexpr (BAND)
+        if ((kind & kKindBand) &&
+            !bd.any(r0, r0 + R - 1, k0 + c0, k0 + c0 + R - 1))
+          continue;
       stage_rows(ks, kg + (size_t)(k0 + c0) * D, R, D);
       stage_rows(vs, vg + (size_t)(k0 + c0) * D, R, D);
       __syncthreads();
@@ -478,6 +533,11 @@ mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q0 = crows[base + t] * blk;
     const int kind = ckinds[base + t];
     for (int c0 = 0; c0 < blk; c0 += R) {
+      // a chunk of a BAND tile with no kept cell adds 0 to dk and dv
+      if constexpr (BAND)
+        if ((kind & kKindBand) &&
+            !bd.any(q0 + c0, q0 + c0 + R - 1, kr0, kr0 + R - 1))
+          continue;
       const size_t qrow = (size_t)bh * sh.Sq + q0 + c0;
       stage_rows(qs, qg + (size_t)(q0 + c0) * D, R, D);
       stage_rows(dos, dog + (size_t)(q0 + c0) * D, R, D);

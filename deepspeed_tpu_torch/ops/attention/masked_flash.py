@@ -90,7 +90,9 @@ class BlockMask:
         if nq * block != seq_q or nk * block != seq_k:
             raise ValueError(f"BlockMask: {active.shape} blocks of {block} "
                              f"do not tile seq ({seq_q}, {seq_k})")
-        if band is None and bool((kinds[active] & KIND_BAND).any()):
+        # whether a walked tile is KIND_BAND: the kernels' band arity
+        self.has_band = bool((kinds[active] & KIND_BAND).any())
+        if band is None and self.has_band:
             raise ValueError("BlockMask: KIND_BAND tiles need a band "
                              "(fine_block, w, g_r, g_c, causal)")
         self.active = active
@@ -215,11 +217,6 @@ class BlockMask:
     @property
     def has_partials(self) -> bool:
         return bool((self.kinds[self.active] != 0).any())
-
-    @property
-    def has_band(self) -> bool:
-        """Whether a walked tile is KIND_BAND: the kernels' band arity."""
-        return bool((self.kinds[self.active] & KIND_BAND).any())
 
     def csr(self):
         """(offs, cnts, cols, kinds) flattened over rows mh * nq + r."""
@@ -699,9 +696,9 @@ def masked_flash_fwd(q, k, v, mask: BlockMask, sm_scale: float,
     """K1: ``(o, lse)`` of :func:`masked_flash_fwd_plain`. A CUDA ``q``
     launches the sm_90a kernel (raising on any dtype, shape, device or
     launch problem); a CPU ``q`` runs the plain version. With a
-    ``key_mask`` the kernel's key-mask arity runs, and the launch also
-    counts in ``launches_kpm``; with KIND_BAND tiles its band arity. Every
-    launch counts in ``arities`` under :func:`arity`."""
+    ``key_mask`` the kernel's key-mask arity runs; with KIND_BAND tiles
+    its band arity. Every launch counts in ``launches`` and in
+    ``arities`` under :func:`arity`."""
     _check_args(q, k, v, mask, key_mask)
     _check_hash_rounds(rate)
     if q.device.type == "cpu":
@@ -792,11 +789,8 @@ def arity(key_mask, mask: BlockMask) -> str:
 
 def _count(wrapper, key_mask, mask: BlockMask):
     """One launch of ``wrapper``'s kernel: ``launches`` counts every
-    launch, ``launches_kpm`` those of the key-mask arity, and ``arities``
-    every launch by :func:`arity`."""
+    launch, ``arities`` every launch by :func:`arity`."""
     wrapper.launches += 1
-    if key_mask is not None:
-        wrapper.launches_kpm += 1
     name = arity(key_mask, mask)
     wrapper.arities[name] = wrapper.arities.get(name, 0) + 1
 
@@ -805,7 +799,6 @@ def reset_launches():
     """Set every launch count of K1-K3 to 0."""
     for w in (masked_flash_fwd, masked_flash_dq, masked_flash_dkv):
         w.launches = 0
-        w.launches_kpm = 0
         w.arities = {}
 
 

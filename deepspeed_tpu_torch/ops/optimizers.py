@@ -130,7 +130,9 @@ class Lamb(Optimizer):
     ``||w|| / ||update||`` over the fp32 master, clamped to
     ``[min_coeff, max_coeff]``, and 1.0 when either norm is 0; the
     ratios come in leaf order (sorted dict keys, JAX's order), and
-    ``last_trust`` holds the last update's as a device tensor."""
+    ``last_trust`` holds the last update's as a device tensor, beside
+    ``last_zero_norm``, which of its leaves had a weight or update norm
+    of 0."""
 
     def __init__(self, lr: float = 1e-3, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0,
@@ -144,17 +146,21 @@ class Lamb(Optimizer):
         self.min_coeff = min_coeff
         self.bias_correction = bias_correction
         self.last_trust = None
+        self.last_zero_norm = None
 
     def init(self, params):
         return LambState(0, *_zero_moments(params))
 
     def _trust(self, ps, upd):
+        """(the trust ratios, whether each leaf's ratio is 1 for a norm
+        of 0)."""
         w = torch.stack(torch._foreach_norm(ps))
         u = torch.stack(torch._foreach_norm(upd))
-        return torch.where((w > 0) & (u > 0),
+        nonzero = (w > 0) & (u > 0)
+        return torch.where(nonzero,
                            torch.clamp(w / u, self.min_coeff,
                                        self.max_coeff),
-                           torch.ones_like(w))
+                           torch.ones_like(w)), ~nonzero
 
     def _direction(self, grads, state: LambState, params, momentum,
                    in_place: bool):
@@ -182,7 +188,7 @@ class Lamb(Optimizer):
         lr = self.lr if lr is None else lr
         step, ps, upd = self._direction(grads, state, params, momentum,
                                         in_place=True)
-        trust = self._trust(ps, upd)
+        trust, self.last_zero_norm = self._trust(ps, upd)
         torch._foreach_mul_(upd, list((trust * -lr).unbind()))
         torch._foreach_add_(ps, upd)
         self.last_trust = trust
@@ -202,7 +208,7 @@ class Lamb(Optimizer):
         state and params, changing none of them."""
         _, ps, upd = self._direction(grads, state, params, None,
                                      in_place=False)
-        return [float(c) for c in self._trust(ps, upd).cpu()]
+        return [float(c) for c in self._trust(ps, upd)[0].cpu()]
 
 
 # the reference's public names

@@ -87,8 +87,8 @@ def test_lamb_update_and_coeffs_match_jax(kw):
 
 def test_lamb_zero_norm_leaf_takes_unit_trust():
     """A leaf whose weights are all 0 takes trust 1.0 and a finite step
-    (tests/unit/test_optimizers.py); a leaf with a huge trust ratio is
-    clamped to max_coeff."""
+    (tests/unit/test_optimizers.py), and ``last_zero_norm`` names it; a
+    leaf with a huge trust ratio is clamped to max_coeff."""
     opt = topt.Lamb(lr=1e-3, max_coeff=10.0, min_coeff=0.01)
     params = {"w": torch.full((8, 8), 100.0), "z": torch.zeros(4)}
     before = params["w"].clone()
@@ -97,6 +97,7 @@ def test_lamb_zero_norm_leaf_takes_unit_trust():
                params)
     coeffs = dict(zip(("w", "z"), opt.get_lamb_coeffs()))
     assert coeffs["z"] == 1.0 and torch.isfinite(params["z"]).all()
+    assert opt.last_zero_norm.tolist() == [False, True]
     assert coeffs["w"] == pytest.approx(10.0)
     delta = (before - params["w"]).numpy()
     assert (delta > 0).all() and delta.max() <= 1e-3 * 10.0 * 1.5

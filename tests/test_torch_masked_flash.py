@@ -565,7 +565,8 @@ def test_cuda_kernels_match_plain(case):
 ])
 def test_cuda_key_mask_kernels_match_plain(case):
     """The has_kpm arity of K1, K2 and K3 on the card against their plain
-    versions on the same inputs; launches count in ``launches_kpm``."""
+    versions on the same inputs; launches count under the key-mask
+    arity."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
@@ -577,9 +578,10 @@ def test_cuda_key_mask_kernels_match_plain(case):
     kpm = torch.from_numpy(_bert_key_mask(rng, B, s, min_len, pads)).cuda()
     mask = _port_mask(kind, s=s, block=block)
     scale, seed = 1.0 / np.sqrt(d), 77
-    before = [f.launches_kpm for f in (mf.masked_flash_fwd,
-                                       mf.masked_flash_dq,
-                                       mf.masked_flash_dkv)]
+    kernels = (mf.masked_flash_fwd, mf.masked_flash_dq, mf.masked_flash_dkv)
+    name = mf.arity(kpm, mask)
+    assert name.startswith("kpm ")
+    before = [f.arities.get(name, 0) for f in kernels]
     o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed, kpm)
     o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed,
                                            kpm)
@@ -587,8 +589,7 @@ def test_cuda_key_mask_kernels_match_plain(case):
     args = (q, k, v, do, lse_p, delta, mask, scale, rate, seed, kpm)
     got = [o, mf.masked_flash_dq(*args), *mf.masked_flash_dkv(*args)]
     torch.cuda.synchronize()
-    assert [f.launches_kpm for f in (mf.masked_flash_fwd, mf.masked_flash_dq,
-                                     mf.masked_flash_dkv)] == \
+    assert [f.arities.get(name, 0) for f in kernels] == \
         [n + 1 for n in before]
     want = [o_p, mf.masked_flash_dq_plain(*args),
             *mf.masked_flash_dkv_plain(*args)]

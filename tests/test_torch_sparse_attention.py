@@ -662,8 +662,9 @@ def test_sparse_attention_utils_match_jax():
         is TU.replace_model_self_attention_with_sparse_self_attention
     ids2 = rng.randint(0, 97, (1, 2 * S)).astype(np.int32)
     am2 = (np.arange(2 * S)[None, :] < 200).astype(np.int32)
-    want = jenc(jp, jnp.asarray(ids2), attention_mask=jnp.asarray(am2),
-                dtype=jnp.float32)
+    want = jax.jit(lambda p, i, a: jenc(p, i, attention_mask=a,
+                                        dtype=jnp.float32))(
+        jp, jnp.asarray(ids2), jnp.asarray(am2))
     got = tenc(tp, torch.from_numpy(ids2),
                attention_mask=torch.from_numpy(am2), dtype=torch.float32)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
@@ -705,8 +706,10 @@ def test_mlm_loss_with_sparsity_config_matches_jax(kind, dtype):
     td = torch.float32 if dtype == "fp32" else torch.bfloat16
     jloss = jb.bert_mlm_loss_fn(jcfg, dtype=jd, deterministic=True,
                                 sparsity_config=jsc)
-    jv, jg = jax.value_and_grad(lambda p: jloss(
-        p, {k: jnp.asarray(v) for k, v in batch.items()}, None))(
+    # jitted: one compile of the interpret-mode kernels, not an eager
+    # dispatch of each of their operations
+    jv, jg = jax.jit(jax.value_and_grad(lambda p: jloss(
+        p, {k: jnp.asarray(v) for k, v in batch.items()}, None)))(
         jax.tree_util.tree_map(jnp.asarray, tree))
     params = tb.bert_params_from_jax(tree)
     leaves = list(tree_leaves(params))
@@ -785,9 +788,9 @@ def test_positions_past_the_table_clamp_as_in_jax():
     tree = _np(jb.init_bert_params(jb.BertConfig(**small),
                                    jax.random.PRNGKey(7)))
     ids = np.random.RandomState(7).randint(0, 97, (1, 64)).astype(np.int32)
-    want = jb.bert_encoder(jax.tree_util.tree_map(jnp.asarray, tree),
-                           jb.BertConfig(**small), jnp.asarray(ids),
-                           dtype=jnp.float32)
+    want = jax.jit(lambda p, i: jb.bert_encoder(
+        p, jb.BertConfig(**small), i, dtype=jnp.float32))(
+        jax.tree_util.tree_map(jnp.asarray, tree), jnp.asarray(ids))
     got = tb.bert_encoder(tb.bert_params_from_jax(tree),
                           tb.BertConfig(**small), torch.from_numpy(ids),
                           dtype=torch.float32)

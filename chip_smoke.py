@@ -100,7 +100,8 @@ table extended from 512 by SparseAttentionUtils) in two configurations:
 ds_config_sparse.json as the repo holds it (fixed, per-head layouts at
 block 16: K1-K3's key-mask arity at walk 16 with 16 mask heads) and its
 sparse_attention section replaced by {"mode": "bslongformer"} (the
-schema's defaults: K1-K3's KIND_BAND arity over a walk of 128).
+schema's defaults: K1-K3's key-mask arity at the fine walk of 16 with one
+mask head, the walk rule's pick, masked_flash.walk_cost_us).
 17. sparse_kernel_check: K1, K2 and K3 in their band arity against their
    plain versions on the card (TRAIN_TOL): B 8, H 16, S 2048, D 64,
    bf16, the BSLongformer layout at walk 128, 64 and 32 with the sparse
@@ -112,18 +113,42 @@ schema's defaults: K1-K3's KIND_BAND arity over a walk of 128).
 18. sparse_kernel_timing: the three at the fixed layouts (walk 16) and
    the BSLongformer layout at walk 128, 64, 32 and 16, timed as in phase
    6, beside the bound (bytes, or the fine layout's FLOP), the plain
-   version and SDPA with the dense float (B, H, S, S) mask.
+   version and SDPA with the dense float (B, H, S, S) mask; the
+   BSLongformer sweep fitted to the walk cost model (walk_cost_fit).
 19. bert_sparse_training: each configuration, 1 warm-up and 3 timed
    train_batch steps on padded synthetic MLM batches (step ms,
    samples/s, real tokens/s, MFU beside the layout's density, peak
    memory, losses, lrs), then a profile of 2 more. Checks finite losses,
    the lrs, the Lamb coefficients, and 48 launches per step of each
-   kernel, all in the one arity the layout gives.
+   kernel, all in the one arity the layout gives (printed).
 20. bert_sparse_kernel_vs_plain: phase 16 with sparse attention, the
    fixed configuration at seq 512 and the BSLongformer one at 2048.
-21. the {"kernels": [...]} line (with the three key-mask and the three
-   band entries), the nvidia-smi line, and last {"ok": true, "device":
-   {...}}.
+Phases 21 to 23: block-sparse attention under a user (S, S) attention
+mask, the row-run kernels K8 (forward), K9 (dq) and K10 (dk, dv), at B 8,
+H 16, S 2048, D 64, bf16, the layouts of ds_config_sparse.json as held,
+the sparse route's key mask (lengths 1024-2048) and a 'mul' mask made
+from the seed.
+21. v2_kernel_check: K8-K10 against their plain versions on the card
+   (TRAIN_TOL) at that shape and the walk the rule picks (the plain calls
+   timed once), then at S 512: 'add' mode with finite values, the BigBird
+   layout under a causal keep mask, fp32, forced coarse walks of 64 and
+   128, and mask rows that drop every key beside a batch row of pads.
+   Control: the plain versions with the mask tiles left out must fail
+   the same check on every output.
+22. v2_kernel_timing: the three at the main shape at the fine walk and
+   every coarse walk the tile budget admits, timed as in phase 6, beside
+   the bound, the plain version and SDPA with the dense float
+   (B, H, S, S) mask; the sweep fitted to the walk cost model.
+23. sparse_self_attention: the entry point, SparseSelfAttention with the
+   config's sparse_attention section, forward and backward of a scalar
+   loss (1 warm-up, 3 timed): ms, peak memory, one launch of each of
+   K8-K10 per call and none of K1-K3; a 2-head fp32 call on the kernel
+   path against the plain path; and SparseSelfAttention under a
+   BSLongformer window of 5 blocks without an attn_mask, where the walk
+   rule coarsens to 128: K1-K3's band arity.
+24. the {"kernels": [...]} line (with the three key-mask, the three
+   band and the three row-run entries), the nvidia-smi line, and last
+   {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -1460,7 +1485,7 @@ SPARSE_STEPS, SPARSE_WARMUP = 3, 1
 SPARSE_KINDS = ("fixed", "bslongformer")
 # the arity each configuration's layout runs K1-K3 in at seq 2048
 SPARSE_ARITY = {"fixed": "kpm walk16 heads16",
-                "bslongformer": "kpm+band walk128 heads1"}
+                "bslongformer": "kpm walk16 heads1"}
 SPARSE_SHAPE = dict(B=8, H=16, S=SPARSE_SEQ, D=64)
 SPARSE_TIMED_CALLS = 20
 
@@ -1782,7 +1807,7 @@ def sparse_kernel_timing_phase(smi):
         "masked_flash_dkv": "deepspeed_tpu/ops/attention/masked_flash.py:"
                             "413-427 (the KIND_BAND arity of _mf_dkv_kernel "
                             ":604)"}
-    out, fixed_row = {}, None
+    out, fixed_row, sweep = {}, None, []
     for kind in SPARSE_KINDS:
         sc = sparse_config(kind, heads=H)
         layout = sc.make_layout(S)
@@ -1839,9 +1864,11 @@ def sparse_kernel_timing_phase(smi):
                     4, 4 * tile + 2 * rowvec + mask_bytes, 2 * tile,
                     lib["bwd"]),
             }
+            total = 0.0
             for name, (call, plain, dots, b_in, b_out, lib_ms) in \
                     specs.items():
                 kernel_ms = time_ms(call, SPARSE_TIMED_CALLS, flush)
+                total += kernel_ms
                 if kind == "fixed":
                     plain_ms = fixed_row["plain_ms"][name]
                 else:
@@ -1888,6 +1915,19 @@ def sparse_kernel_timing_phase(smi):
                     "ms": kernel_ms, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "replaces": replaces[name]}
+            if kind == "bslongformer":            # one mask head
+                sweep.append((mask.nnz, computed_chunks(mask),
+                              min(mask.block, 32), total / (B * H)))
+    emit({"phase": "walk_cost_fit", "kernels": "masked_flash",
+          "layout": "bslongformer", "sweep": [
+              dict(zip(("tiles", "chunks", "chunk", "ms"), w))
+              for w in sweep],
+          "units": "per (batch, head); fit in us per tile, chunk, cell",
+          "fit": fit_walk_costs(sweep),
+          "committed": list(mf.WALK_COSTS["masked_flash"]),
+          "rule_walk": BlockMask.from_layout(
+              sparse_config("bslongformer", heads=H).make_layout(S),
+              16).block, "nvidia_smi": smi})
     return out, fixed_row
 
 
@@ -2237,6 +2277,494 @@ def bert_kernel_vs_plain_phase(device="cuda", batch=4, seq=128,
                              f"path: {row}")
 
 
+# --------------------------------- block-sparse under a user attn_mask
+# SparseSelfAttention with an (S, S) attention mask: the row-run kernels
+# K8-K10 at BERT-large's width and the sparse BERT sequence (B 8, H 16,
+# S 2048, D 64, bf16), the layouts of ds_config_sparse.json as the repo
+# holds it (fixed, block 16, a layout per head, 4 global patterns), the
+# sparse route's key mask (real lengths 1024-2048) and a 'mul' mask made
+# from the seed that keeps V2_KEEP of the cells
+V2_SHAPE = dict(B=8, H=16, S=SPARSE_SEQ, D=64)
+V2_NAMES = ("blocksparse_v2_fwd", "blocksparse_v2_dq", "blocksparse_v2_dkv")
+V2_KEEP = 0.9
+V2_ITERS, V2_WARMUP = 3, 1
+V2_REPLACES = {
+    "blocksparse_v2_fwd": "deepspeed_tpu/ops/sparse_attention/"
+                          "blocksparse_v2.py:143 (_v2_fwd_kernel, has_am)",
+    "blocksparse_v2_dq": "deepspeed_tpu/ops/sparse_attention/"
+                         "blocksparse_v2.py:205 (_v2_dq_kernel, has_am)",
+    "blocksparse_v2_dkv": "deepspeed_tpu/ops/sparse_attention/"
+                          "blocksparse_v2.py:262 (_v2_dkv_kernel, has_am)"}
+# a BSLongformer layout whose band the K1-K3 walk rule coarsens (a window
+# of 5 blocks: most live 32 x 32 chunks are full): the entry point's
+# band arity
+BAND_PATH_SPARSE = {"mode": "bslongformer", "num_sliding_window_blocks": 5}
+BAND_PATH_ARITY = "kpm+band walk128 heads1"
+
+
+def _v2_launches():
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2
+    return {n: getattr(blocksparse_v2, n).launches for n in V2_NAMES}
+
+
+def v2_mask(rng, S, mode="mul", dropped_rows=()):
+    """An (S, S) attention mask on the card, made from the seed: 'mul'
+    keeps V2_KEEP of the cells (1) and drops the others (0), every key of
+    ``dropped_rows``; 'add' holds N(0, 1) values, -1e4 where 'mul'
+    drops."""
+    import torch
+    keep = (rng.rand(S, S) < V2_KEEP).astype(np.float32)
+    keep[list(dropped_rows)] = 0.0
+    if mode == "add":
+        keep = np.where(keep == 0, -1e4, rng.randn(S, S)).astype(np.float32)
+    return torch.from_numpy(keep).cuda()
+
+
+def v2_plan(layout, block, walk=None):
+    """The row-run walk of ``layout``: the rule's (``walk`` None), the
+    fine one (0) or a forced coarse walk."""
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse_v2 import \
+        RowRunPlan
+    if walk is None:
+        walk = bs._pick_coarse_block(layout, block, True)
+    return RowRunPlan(layout, block, walk or None)
+
+
+def check_v2_kernels(name, plan, args, key_mask, am_add, flush=None,
+                     extra=None):
+    """K8, K9 and K10 against their plain versions on the same inputs (K9
+    and K10 get the plain forward's lse and delta), under TRAIN_TOL; lse
+    within LSE_ATOL (a row with no valid key carries its max, <=
+    VALID_THRESH, in both). The control: the plain versions with the mask
+    tiles left out (all 0; K9 and K10 fed that forward's lse and delta)
+    must fail the same check on every output. With
+    ``flush`` each plain call is timed once (:func:`timed_once`)."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as v2
+    q, k, v, do = args
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    tiles = plan.mask_tiles(am_add)
+    plain_ms = {}
+
+    def plain(kernel, fn, *a):
+        if flush is None:
+            return fn(*a)
+        out, plain_ms[kernel] = timed_once(lambda: fn(*a), flush)
+        return out
+
+    o, lse = v2.blocksparse_v2_fwd(q, k, v, key_mask, tiles, plan, scale)
+    torch.cuda.synchronize()
+    o_p, lse_p = plain("blocksparse_v2_fwd", v2.blocksparse_v2_fwd_plain,
+                       q, k, v, key_mask, tiles, plan, scale)
+    delta = (do.float() * o_p.float()).sum(-1)
+    bwd = (q, k, v, do, lse_p, delta, key_mask, tiles, plan, scale)
+    dq = v2.blocksparse_v2_dq(*bwd)
+    dk, dv = v2.blocksparse_v2_dkv(*bwd)
+    torch.cuda.synchronize()
+    dq_p = plain("blocksparse_v2_dq", v2.blocksparse_v2_dq_plain, *bwd)
+    dk_p, dv_p = plain("blocksparse_v2_dkv", v2.blocksparse_v2_dkv_plain,
+                       *bwd)
+    tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+    row = {"phase": "v2_kernel_check", "case": name, "dtype": str(q.dtype),
+           "shape": list(q.shape), "fine_block": plan.fine_block,
+           "walk_block": plan.block, "walked_tiles": plan.tiles_walked,
+           "unique_tiles": plan.unique_tiles,
+           "key_mask": key_mask is not None,
+           "rows_with_no_key": int((lse_p <= v2.VALID_THRESH).sum()),
+           "tol": tol, "lse_atol": LSE_ATOL}
+    if plain_ms:
+        row["plain_ms"] = plain_ms
+    row.update(extra or {})
+    refs = {"o": o_p, "dq": dq_p, "dk": dk_p, "dv": dv_p}
+    ok = True
+    for key, out in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+        ratio, rel_rms, err, good = compare(out, refs[key], **tol)
+        row[f"{key}_max_abs_err"] = err
+        row[f"{key}_worst_ratio"] = ratio
+        row[f"{key}_rel_rms"] = rel_rms
+        ok &= good
+    lse_err = float((lse - lse_p).abs().max())
+    row["lse_max_abs_err"] = lse_err
+    ok &= lse_err <= LSE_ATOL
+    row["control"] = "the mask tiles left out"
+    c_tiles = torch.zeros_like(tiles)
+    o_c, lse_c = v2.blocksparse_v2_fwd_plain(q, k, v, key_mask, c_tiles,
+                                             plan, scale)
+    c_bwd = (q, k, v, do, lse_c, (do.float() * o_c.float()).sum(-1),
+             key_mask, c_tiles, plan, scale)
+    dq_c = v2.blocksparse_v2_dq_plain(*c_bwd)
+    dk_c, dv_c = v2.blocksparse_v2_dkv_plain(*c_bwd)
+    for key, out in (("o", o_c), ("dq", dq_c), ("dk", dk_c), ("dv", dv_c)):
+        ratio, rel_rms, _, good = compare(out, refs[key], **tol)
+        row[f"control_{key}_worst_ratio"] = ratio
+        row[f"control_{key}_rel_rms"] = rel_rms
+        row[f"control_{key}_fails"] = not good
+        ok &= not good
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        raise AssertionError(f"the row-run kernels disagree with their "
+                             f"plain versions on {name}, or the control "
+                             f"passes the check: {row}")
+    return row
+
+
+def v2_kernel_check_phase():
+    """K8, K9 and K10 against their plain versions on the card: the main
+    shape (the fixed per-head layouts at the walk the rule picks, a 'mul'
+    mask, the key mask), the plain calls timed once; then at S 512: 'add'
+    mode with finite values, the BigBird layout under a causal keep mask
+    (tests/unit/test_sparse_attention.py:200), fp32, forced coarse walks,
+    and mask rows that drop every key beside a batch row of pads. Returns
+    the main case's row."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig)
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import (
+        NEG_INF, _to_additive)
+    rng = np.random.RandomState(SEED + 10)
+    m = V2_SHAPE
+    B, H, S, D = m["B"], m["H"], m["S"], m["D"]
+    bf16 = torch.bfloat16
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    layout = sparse_config("fixed", heads=H).make_layout(S)
+    main = train_inputs(rng, B, H, H, S, D, bf16)
+    kpm = bert_key_mask(rng, B, S, SPARSE_MIN_LEN, pad=NEG_INF)
+    plan = v2_plan(layout, 16)
+    main_row = check_v2_kernels(
+        f"bert_large_s2048_fixed_mul_walk{plan.block}", plan, main, kpm,
+        _to_additive(v2_mask(rng, S), "mul"), flush=flush)
+    del main, flush
+    b, h, s = 2, 4, 512
+    small = sparse_config("fixed", heads=h).make_layout(s)
+    bigbird = BigBirdSparsityConfig(num_heads=h, block=16).make_layout(s)
+    causal = torch.ones(s, s, device="cuda").tril()
+    cases = [
+        # name, layout, walk, dtype, mask (additive), all-pad batch rows
+        ("add_finite_s512_bf16", small, 0, bf16,
+         _to_additive(v2_mask(rng, s, "add"), "add"), ()),
+        ("bigbird_causal_keep_s512_bf16", bigbird, 0, bf16,
+         _to_additive(causal, "mul"), ()),
+        ("fp32_s512", small, 0, torch.float32,
+         _to_additive(v2_mask(rng, s), "mul"), ()),
+        ("forced_walk64_s512_bf16", small, 64, bf16,
+         _to_additive(v2_mask(rng, s), "mul"), ()),
+        ("forced_walk128_s512_fp32", small, 128, torch.float32,
+         _to_additive(v2_mask(rng, s, "add"), "add"), ()),
+        ("dropped_rows_pad_row_s512_bf16", small, 0, bf16,
+         _to_additive(v2_mask(rng, s, dropped_rows=(5, 300, 301)), "mul"),
+         (1,)),
+    ]
+    for name, lay, walk, dtype, am_add, pads in cases:
+        row = check_v2_kernels(
+            name, v2_plan(lay, 16, walk),
+            train_inputs(rng, b, h, h, s, 64, dtype),
+            bert_key_mask(rng, b, s, 200, all_pad_rows=pads, pad=NEG_INF),
+            am_add)
+        if pads and row["rows_with_no_key"] < h * s + 3 * (b - 1) * h:
+            raise AssertionError(f"{name}: expected the pad row and the "
+                                 f"dropped rows keyless: {row}")
+    return main_row
+
+
+def fit_walk_costs(sweep):
+    """Non-negative least-squares (us per tile, per chunk, per cell) of a
+    walk sweep: rows of (tiles, chunks, chunk, ms of the three kernels
+    together) per (batch, head); masked_flash.WALK_COSTS holds such
+    fits."""
+    from scipy.optimize import nnls
+    a = np.array([[t, c, c * r * r] for t, c, r, _ in sweep], float)
+    y = np.array([ms for *_, ms in sweep], float) * 1e3
+    return [float(x) for x in nnls(a, y)[0]]
+
+
+def v2_kernel_timing_phase(smi, main_row):
+    """K8, K9 and K10 at the main shape, timed as train_kernel_timing
+    times them, at the fine walk and every coarse walk the tile budget
+    admits, beside the bound (bytes moved once, or the fine layout's
+    FLOP), the plain versions (one call each, from ``main_row``, at the
+    rule's walk) and SDPA with the dense float (B, H, S, S) mask of
+    layout, key mask and attention mask (forward for K8, backward for K9
+    and K10 together). The sweep is fitted to the cost model of
+    masked_flash.walk_cost_us. Returns the timings at the rule's walk."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention.masked_flash import (CHUNK,
+                                                                WALK_COSTS)
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as v2
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        layout_additive_mask
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import (
+        NEG_INF, _to_additive)
+    rng = np.random.RandomState(SEED + 11)
+    m = V2_SHAPE
+    B, H, S, D = m["B"], m["H"], m["S"], m["D"]
+    q, k, v, do = train_inputs(rng, B, H, H, S, D, torch.bfloat16)
+    kpm = bert_key_mask(rng, B, S, SPARSE_MIN_LEN, pad=NEG_INF)
+    am_add = _to_additive(v2_mask(rng, S), "mul")
+    scale = 1.0 / float(np.sqrt(D))
+    bytes_per_s, flops_per_s = card_peaks(smi)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    layout = sparse_config("fixed", heads=H).make_layout(S)
+    fine_tiles = int(layout.astype(bool).sum())          # over all H heads
+    dense = (torch.from_numpy(layout_additive_mask(layout, 16)).cuda()[None]
+             + kpm[:, None, None, :] + am_add[None, None]).to(torch.bfloat16)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=dense)
+    lib = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=dense), SPARSE_TIMED_CALLS, flush),
+        "bwd": time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qs, ks, vs), do, retain_graph=True),
+            SPARSE_TIMED_CALLS, flush)}
+    del sdpa_out, qs, ks, vs, dense
+    tile = B * H * S * D * 2
+    rowvec = B * H * S * 4
+    rule_walk = v2_plan(layout, 16).block
+    walks = [0] + [cb for cb in (32, 64, 128) if bs.build_coarse_index(
+        layout, 16, cb, per_coord=True, count_only=True)[1] * cb * cb * 4
+        <= bs._COARSE_TILE_BUDGET]
+    out, sweep = {}, []
+    for walk in walks:
+        plan = v2_plan(layout, 16, walk)
+        tiles = plan.mask_tiles(am_add)
+        o, lse = v2.blocksparse_v2_fwd(q, k, v, kpm, tiles, plan, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, kpm, tiles, plan, scale)
+        meta = {"csr": sum(a.nbytes for a in plan.csr),
+                "csc": sum(a.nbytes for a in plan.csc)}
+        masks = kpm.numel() * 4 + tiles.numel() * 4
+        specs = {
+            # name: (call, dots per tile, bytes in, bytes out, library ms)
+            "blocksparse_v2_fwd": (
+                lambda: v2.blocksparse_v2_fwd(q, k, v, kpm, tiles, plan,
+                                              scale),
+                2, 3 * tile + masks + meta["csr"], tile + rowvec,
+                lib["fwd"]),
+            "blocksparse_v2_dq": (
+                lambda: v2.blocksparse_v2_dq(*bwd),
+                3, 4 * tile + 2 * rowvec + masks + meta["csr"], tile,
+                lib["bwd"]),
+            "blocksparse_v2_dkv": (
+                lambda: v2.blocksparse_v2_dkv(*bwd),
+                4, 4 * tile + 2 * rowvec + masks + meta["csc"], 2 * tile,
+                lib["bwd"]),
+        }
+        total = 0.0
+        for name, (call, dots, b_in, b_out, lib_ms) in specs.items():
+            kernel_ms = time_ms(call, SPARSE_TIMED_CALLS, flush)
+            total += kernel_ms
+            # the fine layout's products: what this data needs
+            flops = fine_tiles * B * dots * 2 * 16 ** 2 * D
+            walked = plan.tiles_walked * B * dots * 2 * plan.block ** 2 * D
+            nbytes = b_in + b_out
+            bytes_ms = nbytes / bytes_per_s * 1e3
+            ops_ms = flops / flops_per_s * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            main = plan.block == rule_walk
+            plain_ms = main_row["plain_ms"][name] if main else None
+            emit({"phase": "v2_kernel_timing", "kernel": name,
+                  "case": f"fixed walk{plan.block}", "rule_walk": main,
+                  "shape": dict(m, dtype="bf16", block=plan.block,
+                                fine_block=16, mask="'mul', keeps "
+                                f"{V2_KEEP}", key_mask=f"lengths "
+                                f"{SPARSE_MIN_LEN}-{S}, -1e30 on the pads"),
+                  "walked_tiles": plan.tiles_walked,
+                  "unique_tiles": plan.unique_tiles,
+                  "fine_layout_flops": flops, "walked_flops": walked,
+                  "bytes": nbytes, "kernel_ms": kernel_ms,
+                  "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "library": ("scaled_dot_product_attention forward, "
+                              "float (B, H, S, S) mask"
+                              if name == "blocksparse_v2_fwd" else
+                              "scaled_dot_product_attention backward "
+                              "(dq, dk, dv together), float mask"),
+                  "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "achieved_tflop_per_s": flops / kernel_ms / 1e9,
+                  "nvidia_smi": smi})
+            if main:
+                out[name] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by,
+                             "replaces": V2_REPLACES[name]}
+        r = min(plan.block, CHUNK)
+        per_bh = B * H
+        sweep.append((plan.tiles_walked * B / per_bh,
+                      plan.tiles_walked * (plan.block // r) ** 2 * B
+                      / per_bh, r, total / per_bh))
+    fit = fit_walk_costs(sweep)
+    emit({"phase": "walk_cost_fit", "kernels": "blocksparse_v2",
+          "sweep": [dict(zip(("tiles", "chunks", "chunk", "ms"), s))
+                    for s in sweep],
+          "units": "per (batch, head); fit in us per tile, chunk, cell",
+          "fit": fit, "committed": list(WALK_COSTS["blocksparse_v2"]),
+          "rule_walk": rule_walk, "nvidia_smi": smi})
+    return out
+
+
+class _PlainRowRun:
+    """Within the block, the row-run autograd Function calls the three
+    kernels' plain versions instead of their wrappers."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2
+        self._saved = tuple(getattr(blocksparse_v2, n) for n in V2_NAMES)
+        for n in V2_NAMES:
+            setattr(blocksparse_v2, n, getattr(blocksparse_v2, n + "_plain"))
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2
+        for n, fn in zip(V2_NAMES, self._saved):
+            setattr(blocksparse_v2, n, fn)
+        return False
+
+
+def sparse_self_attention_phase(smi):
+    """The entry point: SparseSelfAttention with the sparse_attention
+    section of ds_config_sparse.json (sparsity_config_from_dict), the key
+    mask in 'mul' mode (real lengths 1024-2048) and an (S, S) 'mul' mask,
+    on bf16 q, k, v of (8, 16, 2048, 64) that require grad: the forward
+    and the backward of a scalar loss, 1 warm-up and V2_ITERS timed
+    iterations. Checks finite outputs and grads, one launch of each of
+    K8, K9 and K10 per iteration and none of K1-K3. Then a 2-head fp32
+    call on the kernel path and on the plain path (outputs and grads,
+    TRAIN_TOL fp32), and the band path: SparseSelfAttention under
+    BAND_PATH_SPARSE without an attn_mask, once, which the walk rule
+    runs on K1-K3's band arity. Returns the launches of K8-K10 and of
+    the band arity."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        SparseSelfAttention, blocksparse_v2, sparsity_config_from_dict)
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import \
+        planned_kernel
+    from deepspeed_tpu_torch.runtime.config import get_sparse_attention
+    rng = np.random.RandomState(SEED + 12)
+    m = V2_SHAPE
+    B, H, S, D = m["B"], m["H"], m["S"], m["D"]
+    with open(SPARSE_DS_CONFIG) as f:
+        ds_config = json.load(f)
+    sa = get_sparse_attention(ds_config)
+
+    def inputs(heads, dtype):
+        q, k, v, g = train_inputs(rng, B, heads, heads, S, D, dtype)
+        return [t.requires_grad_() for t in (q, k, v)], g
+
+    lengths = rng.randint(SPARSE_MIN_LEN, S + 1, size=B)
+    keep = torch.from_numpy((np.arange(S)[None, :] < lengths[:, None]
+                             ).astype(np.float32)).cuda()
+    am = v2_mask(rng, S)
+    ssa = SparseSelfAttention(sparsity_config_from_dict(sa, num_heads=H),
+                              key_padding_mask_mode="mul")
+    qkv, g = inputs(H, torch.bfloat16)
+
+    def call(module, qkv, g):
+        o = module(*qkv, key_padding_mask=keep, attn_mask=am)
+        (o.float() * g.float()).sum().backward()
+        return o
+
+    for _ in range(V2_WARMUP):
+        call(ssa, qkv, g)
+    torch.cuda.synchronize()
+    for t in qkv:
+        t.grad = None
+    torch.cuda.reset_peak_memory_stats()
+    blocksparse_v2.reset_launches()
+    mf.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(V2_ITERS):
+        o = call(ssa, qkv, g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _v2_launches()
+    k1_k3 = _train_launches()
+    layout = ssa.get_layout(S)
+    row = {"phase": "sparse_self_attention",
+           "entry": "SparseSelfAttention(sparsity_config_from_dict("
+                    "ds_config_sparse.json), key_padding_mask_mode='mul')"
+                    "(q, k, v, key_padding_mask, attn_mask)",
+           "sparse_attention": sa, "shape": dict(m, dtype="bf16"),
+           "route": planned_kernel(layout, 16, has_am=True),
+           "attn_mask": f"'mul', keeps {V2_KEEP}",
+           "real_lengths": f"{SPARSE_MIN_LEN}-{S}",
+           "iters": V2_ITERS, "warmup": V2_WARMUP,
+           "ms_per_fwd_bwd": wall / V2_ITERS * 1e3,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "k1_k3_launches": k1_k3,
+           "nvidia_smi": smi}
+    finite = bool(torch.isfinite(o).all()) and all(
+        t.grad is not None and bool(torch.isfinite(t.grad).all())
+        for t in qkv)
+    row["finite"] = finite
+    emit(row)
+    if not finite:
+        raise AssertionError(f"non-finite outputs or grads: {row}")
+    if any(n != V2_ITERS for n in launches.values()) or any(k1_k3.values()):
+        raise AssertionError(f"want {V2_ITERS} launches of each of K8-K10 "
+                             f"and none of K1-K3: {row}")
+    del qkv, g, o
+
+    # the kernel path against the plain path: 2 heads, fp32
+    ssa2 = SparseSelfAttention(sparsity_config_from_dict(sa, num_heads=2),
+                               key_padding_mask_mode="mul")
+    qkv, g = inputs(2, torch.float32)
+    results = {}
+    for path in ("kernel", "plain"):
+        for t in qkv:
+            t.grad = None
+        before = _v2_launches()["blocksparse_v2_fwd"]
+        with (_PlainRowRun() if path == "plain"
+              else contextlib.nullcontext()):
+            o = call(ssa2, qkv, g)
+        ran_kernel = _v2_launches()["blocksparse_v2_fwd"] > before
+        if ran_kernel != (path == "kernel"):
+            raise AssertionError(f"the {path} path ran the kernel: "
+                                 f"{ran_kernel}")
+        results[path] = [o.detach()] + [t.grad.clone() for t in qkv]
+    tol = TRAIN_TOL["fp32"]
+    cmp = {key: compare(a, b, **tol) for key, a, b in
+           zip(("o", "dq", "dk", "dv"), results["kernel"],
+               results["plain"])}
+    row = {"phase": "sparse_self_attention_kernel_vs_plain", "heads": 2,
+           "dtype": "fp32", "tol": tol,
+           **{f"{key}_worst_ratio": c[0] for key, c in cmp.items()},
+           **{f"{key}_max_abs_err": c[2] for key, c in cmp.items()},
+           "ok": all(c[3] for c in cmp.values())}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"SparseSelfAttention's kernel path differs "
+                             f"from its plain path: {row}")
+    del qkv, g, o, results
+
+    # the band path: K1-K3's band arity where the walk rule coarsens
+    ds_band = dict(ds_config, sparse_attention=BAND_PATH_SPARSE)
+    band = SparseSelfAttention(sparsity_config_from_dict(
+        get_sparse_attention(ds_band), num_heads=H),
+        key_padding_mask_mode="mul")
+    qkv, g = inputs(H, torch.bfloat16)
+    mf.reset_launches()
+    o = band(*qkv, key_padding_mask=keep)
+    (o.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    arities = {n: dict(getattr(mf, n).arities) for n in KPM_NAMES}
+    band_launches = {n: a.get(BAND_PATH_ARITY, 0) for n, a in
+                     arities.items()}
+    row = {"phase": "sparse_self_attention_band",
+           "sparse_attention": BAND_PATH_SPARSE,
+           "route": planned_kernel(band.get_layout(S), 16),
+           "launches_by_arity": arities, "nvidia_smi": smi}
+    emit(row)
+    if any(a != {BAND_PATH_ARITY: 1} for a in arities.values()) or \
+            not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"the band path: want one launch of each of "
+                             f"K1-K3 in {BAND_PATH_ARITY}: {row}")
+    return launches, band_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2298,6 +2826,9 @@ def main() -> int:
     bert_kernel_vs_plain_phase(batch=2, seq=512, sparse="fixed")
     bert_kernel_vs_plain_phase(batch=2, seq=SPARSE_SEQ,
                                sparse="bslongformer")
+    v2_check = v2_kernel_check_phase()
+    v2_timing = v2_kernel_timing_phase(smi, v2_check)
+    v2_launches, band_launches = sparse_self_attention_phase(smi)
 
     kernels = [dict(
         name="paged_decode", route="cuda",
@@ -2353,7 +2884,10 @@ def main() -> int:
                 f"bert-large seq 512 ({BERT_STEPS_512} steps)":
                     bert_launches_512[name],
                 f"bert-large sparse fixed seq {SPARSE_SEQ} "
-                f"({SPARSE_STEPS} steps)": sparse_launches["fixed"][name]},
+                f"({SPARSE_STEPS} steps)": sparse_launches["fixed"][name],
+                f"bert-large sparse bslongformer seq {SPARSE_SEQ} "
+                f"({SPARSE_STEPS} steps)":
+                    sparse_launches["bslongformer"][name]},
             max_abs_err=max(bert_errs[name], fixed_errs[name]),
             max_abs_err_by_case={"bert-large seq 128": bert_errs[name],
                                  f"sparse fixed walk 16 seq {SPARSE_SEQ}":
@@ -2372,11 +2906,10 @@ def main() -> int:
             name=f"{name}_band", route="cuda",
             source="deepspeed_tpu_torch/csrc/masked_flash.cu",
             replaces=t["replaces"],
-            launches=sparse_launches["bslongformer"][name],
+            launches=band_launches[name],
             launches_by_path={
-                f"bert-large sparse bslongformer seq {SPARSE_SEQ} "
-                f"({SPARSE_STEPS} steps)":
-                    sparse_launches["bslongformer"][name]},
+                f"SparseSelfAttention {BAND_PATH_SPARSE} seq {SPARSE_SEQ} "
+                "(one forward and backward)": band_launches[name]},
             max_abs_err=band_errs[name], ms=t["ms"], kernel_ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
@@ -2384,6 +2917,22 @@ def main() -> int:
                          for label, v in sparse_timing[name].items()
                          if label.startswith("bslongformer")
                          and label != "bslongformer walk128"}))
+    v2_errs = {"blocksparse_v2_fwd": v2_check["o_max_abs_err"],
+               "blocksparse_v2_dq": v2_check["dq_max_abs_err"],
+               "blocksparse_v2_dkv": max(v2_check["dk_max_abs_err"],
+                                         v2_check["dv_max_abs_err"])}
+    for name in V2_NAMES:
+        t = v2_timing[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="deepspeed_tpu_torch/csrc/blocksparse_v2.cu",
+            replaces=t["replaces"], launches=v2_launches[name],
+            launches_by_path={
+                f"SparseSelfAttention with attn_mask seq {SPARSE_SEQ} "
+                f"({V2_ITERS} forward and backward)": v2_launches[name]},
+            max_abs_err=v2_errs[name], ms=t["ms"], kernel_ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

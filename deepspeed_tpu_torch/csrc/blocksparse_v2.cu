@@ -1,0 +1,478 @@
+// Row-run block-sparse attention under a user attention mask, forward and
+// backward, for Hopper.
+//
+// Replaces the three Pallas TPU kernels of
+// deepspeed_tpu/ops/sparse_attention/blocksparse_v2.py (the has_am arity):
+//   K8  _v2_fwd_kernel -> blocksparse_v2_fwd : o, lse  (CSR row walk)
+//   K9  _v2_dq_kernel  -> blocksparse_v2_dq  : dq      (CSR row walk)
+//   K10 _v2_dkv_kernel -> blocksparse_v2_dkv : dk, dv  (CSC column walk)
+// Same function as the Pallas kernels:
+//   q, k, v (B*H, S, D) in fp32 or bf16; a layout of H heads walked at
+//   block `blk` through its CSR (offs, cnts, cols, uids) or CSC (offs,
+//   cnts, rows, uids) metadata over rows h * nq + r (columns h * nk + c);
+//   per walked item the additive fp32 mask tile tiles[uid] (blk x blk,
+//   row-major: query row, then key); optionally an additive fp32 key mask
+//   kpm (B, S) (null: none).
+// Semantics kept exactly: s = (q.k) * sm_scale, then s += kpm[b, key],
+// then s += tile[q, key], in fp32; a cell with s <= VALID_THRESH (-1e29)
+// has p = 0. The forward's online softmax runs per walked tile with no
+// m_safe guard (p = exp(s - m_new), alpha = exp(m_old - m_new)); a row
+// with l == 0 writes o = 0 and lse = m. K9 and K10 recompute
+// p = exp(s - lse). p is rounded to V's (K10: do's) dtype before its
+// product, ds = p * (dp - delta) to K's (K10: q's) dtype before its
+// product; every sum accumulates in fp32. dq and dk are scaled by sm_scale
+// once at the end, dv is not. A row or column whose every cell is masked
+// (by the tile, the key mask or both) adds exactly 0.
+//
+// What bounds it on an H100: operations. At the main path's shape (B 8,
+// H 16, S 2048, D 64, the fixed per-head layouts of ds_config_sparse.json
+// at block 16) a walked 16 x 16 tile does 2-4 products of 16 x 16 x 64
+// over 2 x 16 x 64 staged values and 256 mask values. This first version
+// is the simple design of masked_flash.cu (flash_tiles.cuh): fp32 FMAs
+// on the CUDA cores, no tensor cores. A CTA of 128 threads owns R =
+// min(blk, 32) rows of a walked block row (K8, K9) or column (K10); it
+// stages its own rows once and each walked item's partner rows in chunks
+// of R into shared memory as fp32, reads the mask tile's cells straight
+// from global memory (each once per CTA), and keeps the softmax state and
+// the accumulators in shared memory. The Pallas design's double-buffered
+// DMA of transposed (D, block) tiles is a Mosaic lane rule and is not
+// carried over. Later work: mma/wgmma, cp.async/TMA staging.
+//
+// Built by deepspeed_tpu_torch/ops/_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC
+// into a library with a plain C interface, loaded through ctypes.
+
+#include <stdint.h>
+
+#include "flash_tiles.cuh"
+
+namespace {
+
+constexpr float kValidThresh = -1e29f;  // blocksparse_v2.VALID_THRESH
+
+struct Shape {
+  int H, S, D, blk;  // heads, sequence length, head dim, walk block
+  float sm_scale;
+};
+
+// ------------------------------------------------------------------- K8
+// grid (S / R, B*H); R = min(blk, 32) q rows per CTA.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+v2_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const float* __restrict__ kpm,
+              const float* __restrict__ tiles, T* __restrict__ o,
+              float* __restrict__ lse, const int32_t* __restrict__ offs,
+              const int32_t* __restrict__ cnts,
+              const int32_t* __restrict__ cols,
+              const int32_t* __restrict__ uids, Shape sh) {
+  extern __shared__ float smem[];
+  const int D = sh.D, blk = sh.blk;
+  const int R = rows_of(blk);
+  const int bh = blockIdx.y;
+  const int h = bh % sh.H;
+  const int b = bh / sh.H;
+  const int r0 = blockIdx.x * R;
+  const int mrow = h * (sh.S / blk) + r0 / blk;
+  const int n = cnts[mrow];
+  const int base = offs[mrow];
+  const T* kg = k + (size_t)bh * sh.S * D;
+  const T* vg = v + (size_t)bh * sh.S * D;
+  const float* kpm_b = kpm ? kpm + (size_t)b * sh.S : nullptr;
+  const int tr0 = r0 % blk;               // this CTA's first row in a tile
+
+  float* qs = smem;                       // R x (D+1)
+  float* ss = qs + R * (D + 1);           // R x blk: s, then p
+  float* os = ss + R * blk;               // R x D accumulator
+  float* kv = os + R * D;                 // R x (D+1) staged K or V rows
+  float* m_s = kv + R * (D + 1);          // R
+  float* l_s = m_s + R;                   // R
+  float* a_s = l_s + R;                   // R: this tile's alpha
+
+  stage_rows(qs, q + ((size_t)bh * sh.S + r0) * D, R, D);
+  fill(os, R * D, 0.f);
+  fill(m_s, R, kNegInf);
+  fill(l_s, R, 0.f);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int t = 0; t < n; ++t) {
+    const int k0 = cols[base + t] * blk;
+    const float* tile =
+        tiles + (size_t)uids[base + t] * blk * blk + (size_t)tr0 * blk;
+    // s = q . k over the whole walked tile, R x blk
+    for (int c0 = 0; c0 < blk; c0 += R) {
+      stage_rows(kv, kg + (size_t)(k0 + c0) * D, R, D);
+      __syncthreads();
+      mm(ss + c0, blk, false, nullptr, qs, D + 1, 1, kv, 1, D + 1, R, R, D);
+      __syncthreads();
+    }
+    // online softmax of the tile: warp w owns rows w, w + 4, ...
+    for (int r = warp; r < R; r += kWarps) {
+      float sv[kMaxBlk / 32];
+      float mx = kNegInf;
+#pragma unroll
+      for (int u = 0; u < kMaxBlk / 32; ++u) {
+        const int c = lane + 32 * u;
+        float s = kNegInf;
+        if (c < blk) {
+          s = ss[r * blk + c] * sh.sm_scale;
+          if (kpm_b) s += kpm_b[k0 + c];
+          s += tile[r * blk + c];
+        }
+        sv[u] = s;
+        mx = fmaxf(mx, s);
+      }
+      mx = warp_max(mx);
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kMaxBlk / 32; ++u) {
+        const int c = lane + 32 * u;
+        if (c < blk) {
+          const float p = sv[u] > kValidThresh ? expf(sv[u] - m_new) : 0.f;
+          sum += p;
+          ss[r * blk + c] = round_to<T>(p);
+        }
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        a_s[r] = alpha;
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+    // acc = acc * alpha + p . v, alpha with chunk 0's product
+    for (int c0 = 0; c0 < blk; c0 += R) {
+      stage_rows(kv, vg + (size_t)(k0 + c0) * D, R, D);
+      __syncthreads();
+      mm(os, D, true, c0 == 0 ? a_s : nullptr, ss + c0, blk, 1, kv, D + 1, 1,
+         R, D, R);
+      __syncthreads();
+    }
+  }
+
+  T* og = o + ((size_t)bh * sh.S + r0) * D;
+  for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
+    const float l = l_s[e / D];
+    og[e] = from_f<T>(os[e] / (l == 0.f ? 1.f : l));
+  }
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const float l = l_s[r];
+    lse[(size_t)bh * sh.S + r0 + r] = m_s[r] + logf(l == 0.f ? 1.f : l);
+  }
+}
+
+// ------------------------------------------------------------------- K9
+// grid (S / R, B*H); per walked item, chunk by chunk of R key rows.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+v2_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             const float* __restrict__ kpm, const float* __restrict__ tiles,
+             T* __restrict__ dq, const int32_t* __restrict__ offs,
+             const int32_t* __restrict__ cnts,
+             const int32_t* __restrict__ cols,
+             const int32_t* __restrict__ uids, Shape sh) {
+  extern __shared__ float smem[];
+  const int D = sh.D, blk = sh.blk;
+  const int R = rows_of(blk);
+  const int bh = blockIdx.y;
+  const int h = bh % sh.H;
+  const int b = bh / sh.H;
+  const int r0 = blockIdx.x * R;
+  const int mrow = h * (sh.S / blk) + r0 / blk;
+  const int n = cnts[mrow];
+  const int base = offs[mrow];
+  const T* kg = k + (size_t)bh * sh.S * D;
+  const T* vg = v + (size_t)bh * sh.S * D;
+  const float* kpm_b = kpm ? kpm + (size_t)b * sh.S : nullptr;
+  const size_t row0 = (size_t)bh * sh.S + r0;
+  const int tr0 = r0 % blk;
+
+  float* qs = smem;                 // R x (D+1)
+  float* dos = qs + R * (D + 1);    // R x (D+1)
+  float* ks = dos + R * (D + 1);    // R x (D+1)
+  float* vs = ks + R * (D + 1);     // R x (D+1)
+  float* ps = vs + R * (D + 1);     // R x R: s, then ds
+  float* dps = ps + R * R;          // R x R: dp
+  float* dqs = dps + R * R;         // R x D accumulator
+  float* lse_s = dqs + R * D;       // R
+  float* dl_s = lse_s + R;          // R
+
+  stage_rows(qs, q + row0 * D, R, D);
+  stage_rows(dos, dout + row0 * D, R, D);
+  fill(dqs, R * D, 0.f);
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    lse_s[r] = lse[row0 + r];
+    dl_s[r] = delta[row0 + r];
+  }
+  __syncthreads();
+
+  for (int t = 0; t < n; ++t) {
+    const int k0 = cols[base + t] * blk;
+    const float* tile =
+        tiles + (size_t)uids[base + t] * blk * blk + (size_t)tr0 * blk;
+    for (int c0 = 0; c0 < blk; c0 += R) {
+      stage_rows(ks, kg + (size_t)(k0 + c0) * D, R, D);
+      stage_rows(vs, vg + (size_t)(k0 + c0) * D, R, D);
+      __syncthreads();
+      mm(ps, R, false, nullptr, qs, D + 1, 1, ks, 1, D + 1, R, R, D);
+      mm(dps, R, false, nullptr, dos, D + 1, 1, vs, 1, D + 1, R, R, D);
+      __syncthreads();
+      for (int e = threadIdx.x; e < R * R; e += blockDim.x) {
+        const int r = e / R;
+        const int c = e - r * R;
+        float s = ps[e] * sh.sm_scale;
+        if (kpm_b) s += kpm_b[k0 + c0 + c];
+        s += tile[r * blk + c0 + c];
+        const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
+        ps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
+      }
+      __syncthreads();
+      mm(dqs, D, true, nullptr, ps, R, 1, ks, D + 1, 1, R, D, R);
+      __syncthreads();
+    }
+  }
+
+  T* dqg = dq + row0 * D;
+  for (int e = threadIdx.x; e < R * D; e += blockDim.x)
+    dqg[e] = from_f<T>(dqs[e] * sh.sm_scale);
+}
+
+// ------------------------------------------------------------------ K10
+// grid (S / R, B*H): one CTA per head and R key rows, over the CSC walk of
+// the key block, chunk by chunk of R query rows. The CTA's R key rows'
+// mask values are loaded once, beside the staged K and V rows.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+v2_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              const float* __restrict__ kpm, const float* __restrict__ tiles,
+              T* __restrict__ dk, T* __restrict__ dv,
+              const int32_t* __restrict__ coffs,
+              const int32_t* __restrict__ ccnts,
+              const int32_t* __restrict__ crows,
+              const int32_t* __restrict__ uids, Shape sh) {
+  extern __shared__ float smem[];
+  const int D = sh.D, blk = sh.blk;
+  const int R = rows_of(blk);
+  const int bh = blockIdx.y;
+  const int h = bh % sh.H;
+  const int b = bh / sh.H;
+  const int kr0 = blockIdx.x * R;
+  const int col = h * (sh.S / blk) + kr0 / blk;
+  const int n = ccnts[col];
+  const int base = coffs[col];
+  const T* qg = q + (size_t)bh * sh.S * D;
+  const T* dog = dout + (size_t)bh * sh.S * D;
+  const int tc0 = kr0 % blk;              // this CTA's first key in a tile
+
+  float* ks = smem;                 // R x (D+1)
+  float* vs = ks + R * (D + 1);     // R x (D+1)
+  float* qs = vs + R * (D + 1);     // R x (D+1)
+  float* dos = qs + R * (D + 1);    // R x (D+1)
+  float* ps = dos + R * (D + 1);    // R(q) x R(k): s, then p rounded
+  float* dps = ps + R * R;          // R(q) x R(k): dp, then ds
+  float* dks = dps + R * R;         // R x D
+  float* dvs = dks + R * D;         // R x D
+  float* lse_s = dvs + R * D;       // R
+  float* dl_s = lse_s + R;          // R
+  float* km_s = dl_s + R;           // R: this CTA's key mask (0 without)
+
+  stage_rows(ks, k + ((size_t)bh * sh.S + kr0) * D, R, D);
+  stage_rows(vs, v + ((size_t)bh * sh.S + kr0) * D, R, D);
+  fill(dks, R * D, 0.f);
+  fill(dvs, R * D, 0.f);
+  for (int c = threadIdx.x; c < R; c += blockDim.x)
+    km_s[c] = kpm ? kpm[(size_t)b * sh.S + kr0 + c] : 0.f;
+  __syncthreads();
+
+  for (int t = 0; t < n; ++t) {
+    const int q0 = crows[base + t] * blk;
+    const float* tile = tiles + (size_t)uids[base + t] * blk * blk + tc0;
+    for (int c0 = 0; c0 < blk; c0 += R) {
+      const size_t qrow = (size_t)bh * sh.S + q0 + c0;
+      stage_rows(qs, qg + (size_t)(q0 + c0) * D, R, D);
+      stage_rows(dos, dog + (size_t)(q0 + c0) * D, R, D);
+      for (int r = threadIdx.x; r < R; r += blockDim.x) {
+        lse_s[r] = lse[qrow + r];
+        dl_s[r] = delta[qrow + r];
+      }
+      __syncthreads();
+      mm(ps, R, false, nullptr, qs, D + 1, 1, ks, 1, D + 1, R, R, D);
+      mm(dps, R, false, nullptr, dos, D + 1, 1, vs, 1, D + 1, R, R, D);
+      __syncthreads();
+      for (int e = threadIdx.x; e < R * R; e += blockDim.x) {
+        const int r = e / R;            // query row in the chunk
+        const int c = e - r * R;        // key row of this CTA
+        float s = ps[e] * sh.sm_scale;
+        if (kpm) s += km_s[c];
+        s += tile[(size_t)(c0 + r) * blk + c];
+        const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
+        ps[e] = round_to<T>(p);
+        dps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
+      }
+      __syncthreads();
+      // dv += p^T . do ; dk += ds^T . q
+      mm(dvs, D, true, nullptr, ps, 1, R, dos, D + 1, 1, R, D, R);
+      mm(dks, D, true, nullptr, dps, 1, R, qs, D + 1, 1, R, D, R);
+      __syncthreads();
+    }
+  }
+
+  T* dkg = dk + ((size_t)bh * sh.S + kr0) * D;
+  T* dvg = dv + ((size_t)bh * sh.S + kr0) * D;
+  for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
+    dkg[e] = from_f<T>(dks[e] * sh.sm_scale);
+    dvg[e] = from_f<T>(dvs[e]);
+  }
+}
+
+size_t fwd_smem(int R, int D, int blk) {
+  return sizeof(float) *
+         ((size_t)2 * R * (D + 1) + (size_t)R * blk + (size_t)R * D + 3 * R);
+}
+
+size_t bwd_smem(int R, int D) {
+  return sizeof(float) * ((size_t)4 * R * (D + 1) + (size_t)2 * R * R +
+                          (size_t)2 * R * D + 3 * R);
+}
+
+bool bad_shape(int bh, int H, int S, int D, int blk) {
+  return bh <= 0 || bh > 65535 || H <= 0 || bh % H != 0 || D <= 0 ||
+         D > kMaxHd || D % 8 != 0 ||
+         (blk != 16 && blk != 32 && blk != 64 && blk != 128) || S <= 0 ||
+         S % blk != 0;
+}
+
+template <typename T>
+cudaError_t run_fwd(dim3 grid, size_t smem, cudaStream_t s, const void* q,
+                    const void* k, const void* v, const float* kpm,
+                    const float* tiles, void* o, float* lse,
+                    const int32_t* of, const int32_t* cn, const int32_t* co,
+                    const int32_t* ui, Shape sh) {
+  return launch(v2_fwd_kernel<T>, grid, smem, s, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v), kpm,
+                tiles, static_cast<T*>(o), lse, of, cn, co, ui, sh);
+}
+
+template <typename T>
+cudaError_t run_dq(dim3 grid, size_t smem, cudaStream_t s, const void* q,
+                   const void* k, const void* v, const void* dout,
+                   const float* ls, const float* dl, const float* kpm,
+                   const float* tiles, void* dq, const int32_t* of,
+                   const int32_t* cn, const int32_t* co, const int32_t* ui,
+                   Shape sh) {
+  return launch(v2_dq_kernel<T>, grid, smem, s, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const T*>(dout), ls, dl, kpm, tiles,
+                static_cast<T*>(dq), of, cn, co, ui, sh);
+}
+
+template <typename T>
+cudaError_t run_dkv(dim3 grid, size_t smem, cudaStream_t s, const void* q,
+                    const void* k, const void* v, const void* dout,
+                    const float* ls, const float* dl, const float* kpm,
+                    const float* tiles, void* dk, void* dv, const int32_t* of,
+                    const int32_t* cn, const int32_t* ro, const int32_t* ui,
+                    Shape sh) {
+  return launch(v2_dkv_kernel<T>, grid, smem, s, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const T*>(dout), ls, dl, kpm, tiles,
+                static_cast<T*>(dk), static_cast<T*>(dv), of, cn, ro, ui,
+                sh);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. kpm: the (B, S) fp32 additive key
+// mask, or null for none. tiles: the (U, block, block) fp32 mask tiles.
+// offs, cnts, cols (rows for dkv), uids: int32 CSR (CSC) walk metadata.
+// Each entry point returns the CUDA error of its launch (0 on success);
+// it launches on `stream` and does not synchronise.
+extern "C" int blocksparse_v2_fwd(
+    const void* q, const void* k, const void* v, const void* kpm,
+    const void* tiles, void* o, void* lse, const void* offs,
+    const void* cnts, const void* cols, const void* uids, int dtype, int bh,
+    int heads, int seq, int head_dim, int block, float sm_scale,
+    void* stream) {
+  if (bad_shape(bh, heads, seq, head_dim, block))
+    return (int)cudaErrorInvalidValue;
+  const Shape sh{heads, seq, head_dim, block, sm_scale};
+  const int R = rows_of(block);
+  const dim3 grid(seq / R, bh);
+  const size_t smem = fwd_smem(R, head_dim, block);
+  auto run = dtype == 0   ? run_fwd<float>
+             : dtype == 1 ? run_fwd<__nv_bfloat16>
+                          : nullptr;
+  if (run == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)run(grid, smem, static_cast<cudaStream_t>(stream), q, k, v,
+                  static_cast<const float*>(kpm),
+                  static_cast<const float*>(tiles), o,
+                  static_cast<float*>(lse), static_cast<const int32_t*>(offs),
+                  static_cast<const int32_t*>(cnts),
+                  static_cast<const int32_t*>(cols),
+                  static_cast<const int32_t*>(uids), sh);
+}
+
+extern "C" int blocksparse_v2_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* kpm, const void* tiles,
+    void* dq, const void* offs, const void* cnts, const void* cols,
+    const void* uids, int dtype, int bh, int heads, int seq, int head_dim,
+    int block, float sm_scale, void* stream) {
+  if (bad_shape(bh, heads, seq, head_dim, block))
+    return (int)cudaErrorInvalidValue;
+  const Shape sh{heads, seq, head_dim, block, sm_scale};
+  const int R = rows_of(block);
+  const dim3 grid(seq / R, bh);
+  const size_t smem = bwd_smem(R, head_dim);
+  auto run = dtype == 0   ? run_dq<float>
+             : dtype == 1 ? run_dq<__nv_bfloat16>
+                          : nullptr;
+  if (run == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)run(grid, smem, static_cast<cudaStream_t>(stream), q, k, v,
+                  dout, static_cast<const float*>(lse),
+                  static_cast<const float*>(delta),
+                  static_cast<const float*>(kpm),
+                  static_cast<const float*>(tiles), dq,
+                  static_cast<const int32_t*>(offs),
+                  static_cast<const int32_t*>(cnts),
+                  static_cast<const int32_t*>(cols),
+                  static_cast<const int32_t*>(uids), sh);
+}
+
+extern "C" int blocksparse_v2_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* kpm, const void* tiles,
+    void* dk, void* dv, const void* coffs, const void* ccnts,
+    const void* crows, const void* uids, int dtype, int bh, int heads,
+    int seq, int head_dim, int block, float sm_scale, void* stream) {
+  if (bad_shape(bh, heads, seq, head_dim, block))
+    return (int)cudaErrorInvalidValue;
+  const Shape sh{heads, seq, head_dim, block, sm_scale};
+  const int R = rows_of(block);
+  const dim3 grid(seq / R, bh);
+  const size_t smem = bwd_smem(R, head_dim);
+  auto run = dtype == 0   ? run_dkv<float>
+             : dtype == 1 ? run_dkv<__nv_bfloat16>
+                          : nullptr;
+  if (run == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)run(grid, smem, static_cast<cudaStream_t>(stream), q, k, v,
+                  dout, static_cast<const float*>(lse),
+                  static_cast<const float*>(delta),
+                  static_cast<const float*>(kpm),
+                  static_cast<const float*>(tiles), dk, dv,
+                  static_cast<const int32_t*>(coffs),
+                  static_cast<const int32_t*>(ccnts),
+                  static_cast<const int32_t*>(crows),
+                  static_cast<const int32_t*>(uids), sh);
+}

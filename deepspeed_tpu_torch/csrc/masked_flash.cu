@@ -64,52 +64,15 @@
 //        -Xcompiler -fPIC
 // into a library with a plain C interface, loaded through ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 32;        // rows a CTA owns, and rows per chunk
-constexpr int kMaxBlk = 128;     // widest walk block
-constexpr int kMaxHd = 128;
-constexpr float kNegInf = -1e30f;       // flash.NEG_INF
 constexpr float kValidThresh = -1e28f;  // masked_flash.VALID_THRESH
 constexpr int kKindCausal = 1;
 constexpr int kKindBand = 2;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x as the next product's operand sees it: rounded to the operand dtype
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 // flash.dropout_keep_mask: a lowbias32-style hash of (seed, bh, q, k)
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -167,67 +130,6 @@ struct Shape {
   int Sq, Sk, D, blk;  // sequence lengths, head dim, walk block
   float sm_scale;
 };
-
-// C[r][c] = (accumulate ? C[r][c] * row_scale[r] : 0) + sum_k A(r,k) B(k,c)
-// for r < R, c < N, k < K, with A(r,k) = A[r*sar + k*sak] and
-// B(k,c) = B[k*sbk + c*sbc], all fp32 in shared memory. Each thread owns
-// 2 x 4 outputs: rows 2*rb, 2*rb+1 and columns cb + j*(N/4), so the lanes
-// of a warp read neighbouring B columns and mostly one A row (a broadcast).
-__device__ __forceinline__ void mm(float* C, int ldc, bool accumulate,
-                                   const float* row_scale, const float* A,
-                                   int sar, int sak, const float* B, int sbk,
-                                   int sbc, int R, int N, int K) {
-  constexpr int RPT = 2, CPT = 4;
-  const int ncb = N / CPT;
-  const int items = (R / RPT) * ncb;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int rb = it / ncb;
-    const int cb = it - rb * ncb;
-    const float* a = A + (size_t)rb * RPT * sar;
-    const float* b = B + (size_t)cb * sbc;
-    float acc[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      float av[RPT], bv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) av[i] = a[i * sar + k * sak];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) bv[j] = b[j * ncb * sbc + k * sbk];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rb * RPT + i;
-      const float sc = row_scale ? row_scale[r] : 1.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        float* cp = C + (size_t)r * ldc + cb + j * ncb;
-        *cp = (accumulate ? *cp * sc : 0.f) + acc[i][j];
-      }
-    }
-  }
-}
-
-// rows [0, n) of a (., D) global matrix -> fp32 shared rows of stride D+1
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int n,
-                                           int D) {
-  for (int e = threadIdx.x; e < n * D; e += blockDim.x) {
-    const int r = e / D;
-    const int d = e - r * D;
-    dst[r * (D + 1) + d] = to_f(src[(size_t)r * D + d]);
-  }
-}
-
-__device__ __forceinline__ void fill(float* dst, int n, float v) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = v;
-}
 
 // ------------------------------------------------------------------- K1
 // grid (Sq / R, B*H); R = min(blk, 32) q rows per CTA.
@@ -586,8 +488,6 @@ mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-int rows_of(int blk) { return blk < kRows ? blk : kRows; }
-
 size_t fwd_smem(int R, int D, int blk) {
   return sizeof(float) *
          ((size_t)2 * R * (D + 1) + (size_t)R * blk + (size_t)R * D + 3 * R);
@@ -615,15 +515,6 @@ bool bad_band(const Band& bd) {
          (bd.fb > 0 && (bd.w < 0 || bd.g_r < 0 || bd.g_c < 0));
 }
 
-template <typename K>
-cudaError_t prepare(K kernel, size_t smem) {
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
-  return cudaSuccess;
-}
-
 Dropout make_dropout(int on, uint32_t thresh, float inv_keep, int seed) {
   Dropout dr;
   dr.on = on;
@@ -631,15 +522,6 @@ Dropout make_dropout(int on, uint32_t thresh, float inv_keep, int seed) {
   dr.inv_keep = inv_keep;
   dr.seed = (uint32_t)seed;
   return dr;
-}
-
-template <typename... KArgs, typename... Args>
-cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, size_t smem,
-                   cudaStream_t s, Args... args) {
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, s>>>(args...);
-  return cudaGetLastError();
 }
 
 template <typename T, bool KPM, bool BAND>

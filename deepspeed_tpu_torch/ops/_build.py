@@ -5,8 +5,9 @@ for ``sm_90a`` into a shared library with a plain C interface, loaded
 through ``ctypes`` (no PyTorch headers, so a build takes seconds). The
 build happens at first use, from the checkout's sources only, into
 ``deepspeed_tpu_torch/.build/`` (listed in ``.gitignore``); the library
-name carries a hash of the source and flags, so an edited source builds
-anew and an unchanged one loads what is there. :func:`build_all` starts
+name carries a hash of the source, the shared headers and the flags, so
+an edited source or header builds anew and an unchanged one loads what
+is there. :func:`build_all` starts
 one ``nvcc`` per source, all at once.
 """
 
@@ -40,8 +41,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library path of ``csrc/<name>``, named by a hash of the source,
+    the shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for part in (name, *headers):
+        with open(os.path.join(CSRC, part), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(name)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 

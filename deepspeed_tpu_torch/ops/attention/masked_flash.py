@@ -45,7 +45,7 @@ from deepspeed_tpu_torch.ops.attention.flash import (NEG_INF,
                                                      keep_threshold)
 
 __all__ = ["BlockMask", "masked_flash_attention", "masked_flash_call",
-           "masked_flash_cost", "masked_flash_reference", "masked_flash_fwd",
+           "masked_flash_cost", "walk_cost_us", "masked_flash_reference", "masked_flash_fwd",
            "masked_flash_dq", "masked_flash_dkv", "masked_flash_fwd_plain",
            "masked_flash_dq_plain", "masked_flash_dkv_plain"]
 
@@ -60,10 +60,59 @@ KIND_BAND = 2          # banded fine structure (global prefix + window)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_BLOCKS = (16, 32, 64, 128)
 MAX_HEAD_DIM = 128
-# the automatic coarse walk tile of a banded layout: the widest of these
-# that is wider than the fine block, a multiple of it, and divides S (the
-# kernels take walk blocks up to 128)
+# the coarse walk tiles a banded layout may take (the kernels take walk
+# blocks up to 128); the rule (BlockMask._pick_walk_block) takes one only
+# on a modeled win
 COARSE_WALK_BLOCKS = (128, 64, 32)
+# the kernels compute a walked tile in chunks of R x R cells, R =
+# min(walk block, CHUNK): K1-K3 skip the chunks of a KIND_BAND tile that
+# keep no cell, K8-K10 compute every chunk of a walked tile
+CHUNK = 32
+
+# The cost of a walk on one H100, in us per (batch, head): per walked tile,
+# per computed chunk (a floor: staging, barriers, the softmax pass) and
+# per computed cell, for the three kernels of a forward and backward
+# together. Each is a non-negative least-squares fit
+# (chip_smoke.fit_walk_costs) of a sweep of chip_smoke.py's sparse kernel
+# timing phases (medians of CUDA-event-timed calls, L2 flushed; B 8, H 16,
+# S 2048, D 64, bf16; NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6):
+# - "masked_flash" (K1-K3): the BSLongformer layout at walks 128, 64, 32
+#   and 16 (74, 154, 314 tiles over 314 live chunks of 32, and 634 tiles
+#   of 16, in 9.594, 9.308, 9.539 and 8.172 ms); the tiles cost nothing
+#   measurable, and a chunk of 16 x 16 costs 0.43 of one of 32 x 32, so
+#   the fine walk wins;
+# - "blocksparse_v2" (K8-K10): the fixed per-head layouts of
+#   ds_config_sparse.json under an (S, S) 'mul' mask at walks 16, 32, 64
+#   and 128 (4480, 2112, 1024 and 256 tiles per (b, h), in 24.14, 39.37,
+#   78.98 and 79.79 ms); they compute every chunk of a walked tile, so a
+#   coarse walk of this layout computes 1.9-3.7x the fine walk's cells
+#   and the fine walk wins.
+# Only ratios matter: the rules compare walks of one layout.
+WALK_COSTS = {
+    # (us per tile, us per chunk, us per cell)
+    "masked_flash": (9.075e-5, 5.554e-2, 1.7606e-4),
+    "blocksparse_v2": (0.0, 5.885e-3, 1.4145e-4),
+}
+
+
+def walk_cost_us(kernels: str, tiles: int, chunks: int, chunk: int) -> float:
+    """Modeled cost of one walk of ``kernels`` ("masked_flash" or
+    "blocksparse_v2"): ``tiles`` walked tiles, ``chunks`` computed chunks
+    of ``chunk`` x ``chunk`` cells, per (batch, head)."""
+    per_tile, per_chunk, per_cell = WALK_COSTS[kernels]
+    return tiles * per_tile + chunks * (per_chunk + per_cell * chunk * chunk)
+
+
+def _live_chunks(layout: np.ndarray, fine_block: int, chunk: int) -> int:
+    """The ``chunk`` x ``chunk`` cell chunks of a fine (H, nb, nb) layout
+    that hold a kept cell: what a walk computes when it skips the others
+    (a fine tile wider than ``chunk`` holds (fine_block / chunk)**2)."""
+    fine = np.asarray(layout).astype(bool)
+    if fine_block >= chunk:
+        return int(fine.sum()) * (fine_block // chunk) ** 2
+    g = chunk // fine_block
+    H, nb, _ = fine.shape
+    return int(fine.reshape(H, nb // g, g, nb // g, g).any(axis=(2, 4)).sum())
 
 
 class BlockMask:
@@ -136,12 +185,13 @@ class BlockMask:
 
         Head-identical layouts collapse to one mask head. When the
         collapsed layout is banded (``detect_banded``: a global prefix
-        plus a window, BSLongformer-class) the walk is coarsened: the
+        plus a window, BSLongformer-class) the walk may be coarsened: the
         tiles of ``walk_block`` that hold any kept fine block are walked,
         those partly kept are KIND_BAND and carry the fine structure in
         ``band``. Other layouts walk at the fine block. ``walk_block``
-        forces a coarse tile (0 forces the fine walk); without it the
-        tile is the widest of ``COARSE_WALK_BLOCKS`` that fits."""
+        forces a coarse tile (0 forces the fine walk); without it a tile
+        of ``COARSE_WALK_BLOCKS`` is taken only where :func:`walk_cost_us`
+        models a win of more than 10% over the fine walk."""
         layout = np.asarray(layout)
         if layout.ndim != 3 or layout.shape[1] != layout.shape[2]:
             raise ValueError(f"layout must be (H, nb, nb), got "
@@ -156,7 +206,7 @@ class BlockMask:
             from deepspeed_tpu_torch.ops.sparse_attention.banded import \
                 detect_banded
             bp = detect_banded(layout)
-        cb = cls._pick_walk_block(fine_block, S, bp, walk_block)
+        cb = cls._pick_walk_block(fine, fine_block, S, bp, walk_block)
         if cb is None:
             return cls(fine, np.zeros_like(fine, np.uint8), fine_block,
                        S, S, fine_block=fine_block)
@@ -172,11 +222,13 @@ class BlockMask:
                    fine_block=fine_block)
 
     @staticmethod
-    def _pick_walk_block(fine_block, S, bp, walk_block):
-        """The coarse walk tile, or None for the fine walk. A coarse
-        tile needs a banded layout (the predicate must reproduce every
-        partial tile exactly); a requested one that cannot be honoured
-        raises rather than silently walking the fine blocks."""
+    def _pick_walk_block(fine, fine_block, S, bp, walk_block):
+        """The coarse walk tile, or None for the fine walk (the JAX
+        package's rule with this card's costs): a coarse tile needs a
+        banded layout (the predicate must reproduce every partial tile
+        exactly) and a modeled win of more than 10% over the fine walk. A
+        requested one that cannot be honoured raises rather than silently
+        walking the fine blocks."""
         if walk_block == 0:
             return None
         if bp is None:
@@ -196,10 +248,23 @@ class BlockMask:
                     f"block {fine_block}, a multiple of it, and divide the "
                     f"sequence {S}")
             return walk_block
+        nnz_f = int(fine.sum())
+        r_f = min(fine_block, CHUNK)
+        fine_cost = walk_cost_us("masked_flash", nnz_f,
+                                 nnz_f * (fine_block // r_f) ** 2, r_f)
+        best = None
         for cb in COARSE_WALK_BLOCKS:
-            if cb > fine_block and cb % fine_block == 0 and S % cb == 0:
-                return cb
-        return None
+            if cb <= fine_block or cb % fine_block or S % cb:
+                continue
+            f = cb // fine_block
+            nc = (S // fine_block) // f
+            tiles = int(fine.reshape(1, nc, f, nc, f).any(axis=(2, 4)).sum())
+            r = min(cb, CHUNK)
+            cost = walk_cost_us("masked_flash", tiles,
+                                _live_chunks(fine, fine_block, r), r)
+            if cost < fine_cost * 0.9 and (best is None or cost < best[0]):
+                best = (cost, cb)
+        return best[1] if best else None
 
     # ------------------------------------------------------- metadata
     @property

@@ -1,8 +1,8 @@
 """Block-sparse attention (the port of
 ``deepspeed_tpu/ops/sparse_attention``): sparsity layout configs, the
-block-sparse front end over the masked flash kernels K1-K3, and the
-attention modules. ``ops.py`` (``MatMul``, ``Softmax``) is not ported
-yet."""
+block-sparse front end over the masked flash kernels K1-K3 and, with a
+user attention mask, the row-run kernels K8-K10, the attention modules,
+and the composable ``MatMul`` / ``Softmax`` ops."""
 
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (  # noqa
     SparsityConfig, DenseSparsityConfig, FixedSparsityConfig,
@@ -14,3 +14,5 @@ from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import (  # noqa
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (  # noqa
     SparseSelfAttention, BertSparseSelfAttention,
     init_bert_sparse_self_attention_params, SparseAttentionUtils)
+from deepspeed_tpu_torch.ops.sparse_attention.ops import (  # noqa
+    MatMul, Softmax)

@@ -1,25 +1,32 @@
 """Block-sparse attention, the front end (the port of
 ``deepspeed_tpu/ops/sparse_attention/blocksparse.py``).
 
-A layout from ``sparsity_config.py`` (numpy ``(H, nb, nb)``, 1 = an
-attended (query-block, key-block) pair) becomes a :class:`BlockMask` of
-the masked flash kernels K1-K3 (``ops/attention/masked_flash.py``),
-the JAX package's default route (``USE_MASKED_FLASH``): head-uniform
-layouts collapse to one mask head, banded layouts coarsen their walk
-onto KIND_BAND tiles, and the key-padding mask rides the kernels'
-additive ``(B, S)`` key-mask arity. The port does not pre-block the key
-mask (``_block_kpm`` is a TPU lane rule).
+Two routes, as in the JAX package:
+
+- without a user ``attn_mask`` (``USE_MASKED_FLASH``), a layout from
+  ``sparsity_config.py`` (numpy ``(H, nb, nb)``, 1 = an attended
+  (query-block, key-block) pair) becomes a :class:`BlockMask` of the
+  masked flash kernels K1-K3 (``ops/attention/masked_flash.py``):
+  head-uniform layouts collapse to one mask head, banded layouts may
+  coarsen their walk onto KIND_BAND tiles, and the key-padding mask rides
+  the kernels' additive ``(B, S)`` key-mask arity;
+- with an ``attn_mask``, the row-run kernels K8-K10
+  (``blocksparse_v2.py``) over the layout's walk or a coarse one that
+  :func:`_pick_coarse_block` picks, the ``(S, S)`` mask deduplicated into
+  unique tiles.
+
+The port does not pre-block the masks (``_block_kpm`` / ``_block_am`` are
+a TPU lane rule), and has no dense-reference fallback for an
+``attn_mask``: a walk block the kernels cannot take raises on the card.
 
 Mask semantics (the reference's sparse softmax): scores are scaled, then
 rpe added, then the key-padding mask and the attention mask applied —
 'add' mode adds the mask values; 'mul' mode maps zero entries to
 ``NEG_INF`` and nonzero ones to 0 (a hard keep/drop mask).
 
-Not ported: a user ``attn_mask`` (the JAX package sends it to the
-row-run kernels K8-K10 of ``blocksparse_v2.py``) raises
-``NotImplementedError``; the legacy dispatch behind the module flags
-(banded K11-K13, v1 K14-K16) is not here. An ``rpe`` routes to the
-dense reference, as in JAX.
+Not here: the legacy dispatch behind the module flags (banded K11-K13,
+hybrid, v1 K14-K16). An ``rpe`` routes to the dense reference, as in
+JAX.
 """
 
 import math
@@ -29,7 +36,10 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.attention.masked_flash import (
-    BlockMask, masked_flash_attention)
+    CHUNK, COARSE_WALK_BLOCKS, KERNEL_BLOCKS, BlockMask,
+    masked_flash_attention, walk_cost_us)
+from deepspeed_tpu_torch.ops.sparse_attention.blocksparse_v2 import (
+    RowRunPlan, build_coarse_index, row_run_attention)
 
 __all__ = ["NEG_INF", "VALID_THRESH", "block_sparse_attention",
            "block_sparse_attention_reference", "build_row_luts",
@@ -40,12 +50,6 @@ NEG_INF = -1e30
 # stack, so the threshold sits well above any sum of them but far below
 # any finite score
 VALID_THRESH = -1e28
-
-_ATTN_MASK_UNPORTED = (
-    "block_sparse_attention with a user attn_mask: the JAX package runs it "
-    "on the row-run block-sparse kernels K8-K10 "
-    "(ops/sparse_attention/blocksparse_v2.py), which are not ported yet")
-
 
 # --------------------------------------------------------------------- #
 # layout utilities
@@ -126,32 +130,94 @@ def block_sparse_attention_reference(q, k, v, layout, sm_scale=None,
 # dispatch
 # --------------------------------------------------------------------- #
 _FN_CACHE = {}
+# the coarse walk of the row-run kernels: None = the rule below, 0 = the
+# fine walk, N = force N
+_FORCE_COARSE_BLOCK = None
+_COARSE_TILE_BUDGET = 256 * 2 ** 20   # bytes of unique (cb, cb) tiles
+
+
+def _pick_coarse_block(layout: np.ndarray, block: int, has_am: bool):
+    """The coarse walk tile of the row-run kernels, or None (JAX's rule
+    with this card's candidates and costs): coarsening must beat the fine
+    walk's modeled cost (:func:`walk_cost_us`, "blocksparse_v2": they
+    compute every chunk of a walked tile) by more than 10% and keep the
+    unique mask tiles under the byte budget. A fine block the kernels
+    cannot take costs the fine walk nothing finite, so any admitted coarse
+    tile is taken."""
+    H, nq, nk = layout.shape
+    if _FORCE_COARSE_BLOCK is not None:
+        cb = _FORCE_COARSE_BLOCK
+        if not cb:
+            return None
+        if not (cb > block and cb % block == 0 and cb in KERNEL_BLOCKS
+                and (nq * block) % cb == 0 and (nk * block) % cb == 0):
+            raise ValueError(f"_FORCE_COARSE_BLOCK={cb} incompatible with "
+                             f"block={block}, S=({nq * block}, "
+                             f"{nk * block})")
+        return cb
+    nnz_f = int(np.count_nonzero(layout))
+    r_f = min(block, CHUNK)
+    fine_cost = (walk_cost_us("blocksparse_v2", nnz_f,
+                              nnz_f * (block // r_f) ** 2, r_f)
+                 if block in KERNEL_BLOCKS else float("inf"))
+    best = None
+    for cb in COARSE_WALK_BLOCKS:
+        if cb <= block or cb % block or (nq * block) % cb or \
+                (nk * block) % cb:
+            continue
+        nnz_c, n_unique = build_coarse_index(layout, block, cb,
+                                             per_coord=has_am,
+                                             count_only=True)
+        if n_unique * cb * cb * 4 > _COARSE_TILE_BUDGET:
+            continue
+        r = min(cb, CHUNK)
+        cost = walk_cost_us("blocksparse_v2", nnz_c,
+                            nnz_c * (cb // r) ** 2, r)
+        if cost < fine_cost * 0.9 and (best is None or cost < best[0]):
+            best = (cost, cb)
+    return best[1] if best else None
 
 
 def planned_kernel(layout, block, has_am=False) -> str:
     """Which route :func:`block_sparse_attention` takes for this layout
-    (reporting only): ``'masked'`` (K1-K3 at the layout's block) or
+    (reporting only): ``'masked'`` (K1-K3 at the layout's block),
     ``'masked-coarse<N>'`` (K1-K3 over a coarsened walk of N with
-    KIND_BAND tiles). A user attention mask raises: its kernels, K8-K10,
-    are not ported."""
+    KIND_BAND tiles), and with a user attention mask ``'v2'`` (K8-K10 at
+    the layout's block) or ``'v2-coarse<N>'`` (K8-K10 over a walk of N,
+    the fine structure in the mask tiles)."""
+    layout = np.asarray(layout)
     if has_am:
-        raise NotImplementedError(_ATTN_MASK_UNPORTED)
-    bm = BlockMask.from_layout(np.asarray(layout), block)
+        coarse = _pick_coarse_block(layout, block, True)
+        return f"v2-coarse{coarse}" if coarse else "v2"
+    bm = BlockMask.from_layout(layout, block)
     return f"masked-coarse{bm.block}" if bm.block != block else "masked"
 
 
-def _sparse_attention_fn(layout: np.ndarray, block: int, sm_scale: float):
-    """``f(q, k, v, key_mask)`` over the layout's :class:`BlockMask`
-    (cached per layout, block and scale); ``key_mask`` the additive fp32
-    ``(B, S)`` key mask or None."""
-    key = (layout.shape, layout.tobytes(), block, float(sm_scale))
+def _sparse_attention_fn(layout: np.ndarray, block: int, sm_scale: float,
+                         has_am: bool):
+    """``f(q, k, v, key_mask[, attn_mask])`` for the layout (cached per
+    layout, block, scale, route and coarse-walk setting): over its
+    :class:`BlockMask`, or with ``has_am`` over its :class:`RowRunPlan`.
+    ``key_mask`` is the additive fp32 ``(B, S)`` key mask or None,
+    ``attn_mask`` the additive ``(S, S)`` mask."""
+    key = (layout.shape, layout.tobytes(), block, float(sm_scale), has_am,
+           _FORCE_COARSE_BLOCK, _COARSE_TILE_BUDGET)
     fn = _FN_CACHE.get(key)
     if fn is None:
-        bm = BlockMask.from_layout(layout, block)
+        if has_am:
+            plan = RowRunPlan(layout, block,
+                              _pick_coarse_block(layout, block, True))
 
-        def fn(q, k, v, key_mask):
-            return masked_flash_attention(q, k, v, bm, key_mask=key_mask,
-                                          sm_scale=sm_scale)
+            def fn(q, k, v, key_mask, attn_mask):
+                return row_run_attention(q, k, v, plan, attn_mask,
+                                         key_mask=key_mask,
+                                         sm_scale=sm_scale)
+        else:
+            bm = BlockMask.from_layout(layout, block)
+
+            def fn(q, k, v, key_mask):
+                return masked_flash_attention(q, k, v, bm, key_mask=key_mask,
+                                              sm_scale=sm_scale)
         _FN_CACHE[key] = fn
     return fn
 
@@ -171,8 +237,9 @@ def block_sparse_attention(q, k, v, layout, sm_scale: Optional[float] = None,
     attn_mask: (S, S); modes per the reference's sparse softmax ('add'
     adds values, 'mul' drops zero entries). rpe (dense additive
     (B, H, S, S)) and ``force_reference`` route through the dense
-    reference. Otherwise the call runs the masked flash kernels K1-K3
-    (their plain versions on CPU tensors); a user ``attn_mask`` raises.
+    reference. Otherwise the call runs the masked flash kernels K1-K3,
+    or with an ``attn_mask`` the row-run kernels K8-K10 (their plain
+    versions on CPU tensors).
     """
     B, H, S, D = q.shape
     layout = np.asarray(layout)
@@ -189,8 +256,11 @@ def block_sparse_attention(q, k, v, layout, sm_scale: Optional[float] = None,
             key_padding_mask=key_padding_mask,
             key_padding_mask_mode=key_padding_mask_mode,
             attn_mask=attn_mask, attn_mask_mode=attn_mask_mode, rpe=rpe)
-    if attn_mask is not None:
-        raise NotImplementedError(_ATTN_MASK_UNPORTED)
     kpm = (None if key_padding_mask is None else
            _to_additive(key_padding_mask, key_padding_mask_mode))
-    return _sparse_attention_fn(layout, block, float(sm_scale))(q, k, v, kpm)
+    fn = _sparse_attention_fn(layout, block, float(sm_scale),
+                              attn_mask is not None)
+    if attn_mask is None:
+        return fn(q, k, v, kpm)
+    return fn(q, k, v, kpm, _to_additive(attn_mask, attn_mask_mode).to(
+        q.device))

@@ -10,7 +10,8 @@
   the block size, and the BERT encoder with sparse core attention.
 
 The core runs ``blocksparse.block_sparse_attention``: the masked flash
-kernels K1-K3 on CUDA tensors, their plain versions on CPU tensors.
+kernels K1-K3, or with an ``attn_mask`` the row-run kernels K8-K10, on
+CUDA tensors; their plain versions on CPU tensors.
 """
 
 from typing import Any, Dict, Optional

@@ -488,7 +488,8 @@ def test_routing(monkeypatch):
                             key_mask=torch.zeros(1, S, dtype=torch.float64))
     # KIND_BAND tiles run (their plain versions here) with the band's
     # fine structure; a layout no band describes cannot take a coarse
-    # walk; a user attention mask (K8-K10) raises
+    # walk; a user attention mask runs the row-run kernels K8-K10 (their
+    # plain versions here), not K1-K3
     band = mf.BlockMask(np.ones((1, 4, 4)), np.full((1, 4, 4), 2), 16, S, S,
                         band=(16, 1, 0, 0, False))
     torch.testing.assert_close(
@@ -497,11 +498,16 @@ def test_routing(monkeypatch):
     assert not (band.dense_additive() == 0).all()
     with pytest.raises(ValueError, match="banded-describable"):
         mf.BlockMask.from_layout(np.ones((1, 4, 4)), 16, walk_block=64)
-    from deepspeed_tpu_torch.ops.sparse_attention import \
-        block_sparse_attention
-    with pytest.raises(NotImplementedError, match="K8-K10"):
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        block_sparse_attention, block_sparse_attention_reference)
+    am = torch.ones(S, S).tril()
+    torch.testing.assert_close(
         block_sparse_attention(q2, k2, v2, np.ones((2, 4, 4), np.int32),
-                               attn_mask=torch.ones(S, S))
+                               attn_mask=am),
+        block_sparse_attention_reference(q2, k2, v2,
+                                         np.ones((2, 4, 4), np.int32),
+                                         attn_mask=am),
+        atol=FP32_ATOL, rtol=0)
     with pytest.raises(ValueError, match="dropout_seed"):
         tflash.flash_attention(q2, k2, v2, causal=True, dropout_rate=0.1)
 

@@ -293,18 +293,34 @@ def test_block_mask_from_layout_matches_jax(name, walk):
     assert tm.has_band == (walk != 0)
 
 
-def test_from_layout_auto_walk_and_errors():
-    """The port's own automatic tile (the widest of 128, 64, 32 that is
-    wider than the fine block, a multiple of it and divides S; JAX's
-    512/256 comes from a TPU cost model), and JAX's errors."""
+def test_from_layout_auto_walk_and_errors(monkeypatch):
+    """The port's automatic tile follows JAX's rule (the fine walk unless
+    a coarse tile of 128, 64 or 32 is modeled to win by more than 10%)
+    with this card's costs (``walk_cost_us``; JAX's 512/256 and
+    ``_iter_cost_us`` model a TPU), and JAX's errors."""
     from deepspeed_tpu.ops.attention.masked_flash import BlockMask as JBM
 
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
     from deepspeed_tpu_torch.ops.attention.masked_flash import \
         BlockMask as TBM
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        BSLongformerSparsityConfig
     layout = _walk_layouts()["bslongformer"]                 # S 256
-    assert TBM.from_layout(layout, FB).block == 128
+    # a window of 3 blocks of 16: a live 32 x 32 chunk holds 2-3 kept
+    # fine tiles, and a chunk of 16 costs 0.43 of one of 32: the fine walk
+    assert TBM.from_layout(layout, FB).block == FB
     assert TBM.from_layout(layout[:, :6, :6], FB).block == 32     # S 96
     assert TBM.from_layout(_band_layout(4), 128).block == 128     # fine
+    # the main path's BSLongformer layout at S 2048: the fine walk
+    main = BSLongformerSparsityConfig(num_heads=16, block=FB).make_layout(
+        2048)
+    assert TBM.from_layout(main, FB).block == FB
+    # a window of 5: most live chunks are full, walk 128 wins
+    wide = _walk_layouts()["bslongformer_w2_g2"]
+    assert TBM.from_layout(wide, FB).block == 128
+    # a cost per cell alone: a coarse walk never computes fewer cells
+    monkeypatch.setitem(mf.WALK_COSTS, "masked_flash", (0.0, 0.0, 1.0))
+    assert TBM.from_layout(wide, FB).block == FB
     per_head = TBM.from_layout(_modes_layout("fixed_per_head"), FB)
     assert per_head.block == FB and per_head.heads == 4
     assert per_head.band is None and not per_head.has_band
@@ -492,8 +508,9 @@ def test_block_sparse_attention_matches_jax(case):
 
 def test_front_end_routes(monkeypatch):
     """rpe and force_reference take the dense reference (as in JAX); a
-    user attn_mask raises and names K8-K10; planned_kernel reports the
-    port's routes; the LUTs and the dense expansion equal JAX's."""
+    user attn_mask takes the row-run route ('v2', or 'v2-coarse<N>' on a
+    coarse walk); planned_kernel reports the port's routes; the LUTs and
+    the dense expansion equal JAX's."""
     from deepspeed_tpu.ops.sparse_attention import blocksparse as jbs
 
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
@@ -511,13 +528,21 @@ def test_front_end_routes(monkeypatch):
         np.asarray(want), atol=FP32_ATOL)
     tbs.block_sparse_attention(q, k, v, layout, force_reference=True)
     assert mf.masked_flash_fwd.launches == before
-    am = torch.ones(S, S)
-    for call in (lambda: tbs.block_sparse_attention(q, k, v, layout,
-                                                    attn_mask=am),
-                 lambda: tbs.planned_kernel(layout, FB, has_am=True)):
-        with pytest.raises(NotImplementedError, match="K8-K10"):
-            call()
-    assert tbs.planned_kernel(layout, FB) == "masked-coarse128"
+    # a user attn_mask takes the row-run kernels K8-K10, not K1-K3
+    am = torch.ones(S, S).tril()
+    np.testing.assert_allclose(
+        tbs.block_sparse_attention(q, k, v, layout, attn_mask=am).numpy(),
+        tbs.block_sparse_attention_reference(q, k, v, layout,
+                                             attn_mask=am).numpy(),
+        atol=FP32_ATOL)
+    assert mf.masked_flash_fwd.launches == before
+    assert tbs.planned_kernel(layout, FB, has_am=True) == "v2"
+    monkeypatch.setattr(tbs, "_FORCE_COARSE_BLOCK", 64)
+    assert tbs.planned_kernel(layout, FB, has_am=True) == "v2-coarse64"
+    monkeypatch.setattr(tbs, "_FORCE_COARSE_BLOCK", None)
+    assert tbs.planned_kernel(layout, FB) == "masked"
+    assert tbs.planned_kernel(_walk_layouts()["bslongformer_w2_g2"],
+                              FB) == "masked-coarse128"
     # the key mask reaches the kernels as the additive (B, S) row, not
     # pre-blocked as JAX's TPU lane rule has it; no mask, no key-mask arity
     seen = []

@@ -146,8 +146,41 @@ from the seed.
    path against the plain path; and SparseSelfAttention under a
    BSLongformer window of 5 blocks without an attn_mask, where the walk
    rule coarsens to 128: K1-K3's band arity.
-24. the {"kernels": [...]} line (with the three key-mask, the three
-   band and the three row-run entries), the nvidia-smi line, and last
+Phases 24 to 27: the legacy sparse dispatch (blocksparse.USE_MASKED_FLASH
+= False, restored after), which JAX's sparse_attention_speedup_s8k row
+pins, at its geometry (B 1, H 16, S 8192, D 64, bf16, fine block 128):
+BSLongformer with a window of 3 blocks runs the banded kernels K11
+(forward), K12 (dq) and K13 (dk, dv); BigBird's defaults run the hybrid
+(K11-K13 on the band, K8-K10 without a mask tile on the 928 residual
+blocks, merged by their lse).
+24. banded_kernel_check: K11-K13, every instance, against their plain
+   versions on the card (TRAIN_TOL): the s8k BSLongformer layout at the
+   rule's tiles, sparse BERT's BSLongformer (B 8, H 16, S 2048, block 16)
+   with its key mask, and JAX's eight geometries at S 512 at tiles
+   (64, 128) and (128, 64), bf16 and fp32, with batch rows of pads.
+   Control: the plain versions with the keep predicate dropped must fail
+   every output.
+25. v2_nomask_kernel_check: K8-K10 without a mask tile against their
+   plain versions: the BigBird residue at the s8k geometry, and the fixed
+   layouts of ds_config_sparse.json at S 2048, fine and at a forced coarse
+   walk of 64 (structural tiles). Controls as in phase 21 (the tiles left
+   out; without tiles the key mask left out, or fp32 inputs).
+26. legacy_sparse_timing: at both layouts, K11-K13 per instance and
+   summed, timed as in phase 6, beside the bound, one plain call, SDPA
+   with the dense float mask (the library column), SDPA is_causal=True
+   (the dense baseline of JAX's row) and K1-K3 on the masked route; for
+   BigBird K8-K10 without a mask tile and the merge; a sweep of walk tiles
+   fitted to walk_cost_us (kernels "banded"). Then SparseSelfAttention
+   forward and backward under the legacy and the default dispatch: ms,
+   peak memory and launches per call (BSLongformer 2, 2, 3 of K11, K12,
+   K13 and nothing else; BigBird the same and one of each of K8-K10).
+27. bert_sparse_training_legacy: phase 19's BSLongformer configuration
+   under the legacy dispatch, 1 warm-up and 3 timed steps and a 2-step
+   profile: 96, 96 and 144 launches of K11, K12, K13 per step and none of
+   K1-K3; then phase 20's kernel-vs-plain check of it.
+28. the {"kernels": [...]} line (with the three key-mask, the three
+   band, the three row-run, the three banded and the three no-mask
+   row-run entries), the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 """
 
@@ -1992,7 +2025,7 @@ def sparse_bert_setup(kind, ds_config, params, cfg, seq):
 
 def bert_training_phase(smi, device="cuda", config=None, seq=128,
                         min_len=64, steps=BERT_STEPS, warmup=BERT_WARMUP,
-                        profile=True, sparse=None):
+                        profile=True, sparse=None, legacy=False):
     """BERT-large MLM trained through initialize + train_batch with the
     bing_bert config as the repo holds it (Lamb, WarmupLR, clipping 1.0,
     ZeRO 1, micro batch 8, ga 2, bf16 over fp32 masters, dropout 0.1).
@@ -2007,7 +2040,11 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
     one arity the layout gives (``masked_flash.arity``: the key mask at
     walk 16 with 16 mask heads for the fixed per-head layouts, the key
     mask and the band at walk 128 with one mask head for BSLongformer);
-    returns the launches of that arity."""
+    returns the launches of that arity. With ``legacy`` (called inside
+    :class:`_Legacy`) the phase is bert_sparse_training_legacy: the
+    BSLongformer layout runs the banded kernels, BANDED_PER_CALL launches
+    of each of K11-K13 per layer and micro batch and none of K1-K3 or
+    K8-K10; returns the launches of K11-K13."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.bert import (BERT_LARGE,
@@ -2028,7 +2065,8 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
         sc, params, cfg, bmask, density = sparse_bert_setup(
             sparse, ds_config, params, cfg, seq)
         want_arity = mf.arity(True, bmask)
-        if config is None and want_arity != SPARSE_ARITY[sparse]:
+        if config is None and not legacy and \
+                want_arity != SPARSE_ARITY[sparse]:
             raise AssertionError(f"{sparse} layout walks as {want_arity}, "
                                  f"not {SPARSE_ARITY[sparse]}")
     n_params = count_params(params)
@@ -2051,6 +2089,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     _reset_kpm_launches()
+    _reset_legacy_launches()
     losses, lrs, trusts, zero_norms = [], [], [], []
     step0 = engine.global_steps
     t0 = time.perf_counter()
@@ -2063,6 +2102,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _kpm_launches()
+    legacy_launches = {**_banded_launches(), **_v2_launches()}
     arities = {n: dict(getattr(mf, n).arities) for n in KPM_NAMES}
     losses = [float(x) for x in losses]
     coeffs = torch.stack(trusts).float().cpu()
@@ -2077,6 +2117,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
     step_s = wall / steps
     tokens_per_s = micro * ga * seq / step_s
     row = {"phase": "bert_training" if sparse is None
+           else "bert_sparse_training_legacy" if legacy
            else "bert_sparse_training",
            "model": "bert-large" if config is None else "bert",
            "params": n_params, "config": ds_path,
@@ -2106,6 +2147,17 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
                    walk_block=bmask.block, mask_heads=bmask.heads,
                    band=None if bmask.band is None else list(bmask.band),
                    position_table=cfg.max_position_embeddings)
+    if legacy:
+        from deepspeed_tpu_torch.ops.sparse_attention import banded
+        from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import \
+            planned_kernel
+        layout = sc.make_layout(seq)
+        route = planned_kernel(layout, sc.block)
+        plan = banded.plan(layout, sc.block, False)
+        row.update(route=route, banded=None if plan is None else dict(
+            params=list(plan[0]), tiles=list(plan[1])),
+            legacy_launches=legacy_launches)
+        del row["arity"], row["walk_block"], row["mask_heads"], row["band"]
     if on_cuda:
         _, peak_flops = card_peaks(smi)
         row["mfu"] = flops_per_token * tokens_per_s / peak_flops
@@ -2129,6 +2181,23 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
             f"{len(clamped)} others in [{min(clamped, default=None)}, "
             f"{max(clamped, default=None)}] (want [{lo}, {hi}])")
     want = L * ga * steps
+    if legacy:
+        want_legacy = {n: BANDED_PER_CALL.get(n, 0) * want
+                       for n in legacy_launches}
+        if row["route"] != "banded" or legacy_launches != want_legacy or \
+                any(sum(c) for c in launches.values()):
+            raise AssertionError(
+                f"the legacy dispatch: route {row['route']}, launches "
+                f"{legacy_launches} (want {want_legacy}) and K1-K3 "
+                f"{launches} (want none)")
+        if on_cuda and profile:
+            bert_profile_phase(engine, it, row["step_ms"],
+                               phase="bert_sparse_profile_legacy",
+                               attention="K11-K13 (banded)",
+                               kernels=("banded_fwd_kernel",
+                                        "banded_dq_kernel",
+                                        "banded_dkv_kernel"))
+        return {n: legacy_launches[n] for n in BANDED_NAMES}
     for name, (kpm_n, free_n) in launches.items():
         if kpm_n != want or free_n != 0:
             raise AssertionError(
@@ -2148,7 +2217,9 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
 
 
 def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
-                       attention="K1-K3 (key-mask arity)"):
+                       attention="K1-K3 (key-mask arity)",
+                       kernels=("mf_fwd_kernel", "mf_dq_kernel",
+                                "mf_dkv_kernel")):
     """Where a BERT step's time goes: a torch.profiler window over
     ``steps`` train_batch calls, the kernels' device time per step by
     group, and the device idle share left of the unprofiled step time.
@@ -2163,6 +2234,12 @@ def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
         for _ in range(steps):
             engine.train_batch(it)
         torch.cuda.synchronize()
+    groups = {attention: kernels,
+              "mlm head (fp32 GEMMs, log-softmax)": ("sgemm", "f32f32",
+                                                     "softmax"),
+              "gemm (bf16)": ("gemm", "nvjet", "xmma", "cutlass", "cublas"),
+              "lamb, accumulation, clipping (foreach, norms)": (
+                  "multi_tensor", "foreach", "norm_kernel", "reduce_kernel")}
     kernels = [(e.key, e.self_device_time_total / 1e3 / steps,
                 e.count / steps)
                for e in prof.key_averages()
@@ -2170,12 +2247,6 @@ def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
                and not getattr(e, "is_user_annotation", False)
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
-    groups = {attention: ("mf_fwd_kernel", "mf_dq_kernel", "mf_dkv_kernel"),
-              "mlm head (fp32 GEMMs, log-softmax)": ("sgemm", "f32f32",
-                                                     "softmax"),
-              "gemm (bf16)": ("gemm", "nvjet", "xmma", "cutlass", "cublas"),
-              "lamb, accumulation, clipping (foreach, norms)": (
-                  "multi_tensor", "foreach", "norm_kernel", "reduce_kernel")}
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
     for name, ms, _ in kernels:
         low = name.lower()
@@ -2193,7 +2264,7 @@ def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
 
 
 def bert_kernel_vs_plain_phase(device="cuda", batch=4, seq=128,
-                               sparse=None, config=None):
+                               sparse=None, config=None, legacy=False):
     """A 2-layer full-width BERT-large in fp32 on a padded batch, dropout
     0, through the kernels' key-mask arity and through their plain
     versions: the encoder (a fixed random linear function of its output,
@@ -2204,7 +2275,9 @@ def bert_kernel_vs_plain_phase(device="cuda", batch=4, seq=128,
     neighbouring bf16 values there: the loss's grads are held to one bf16
     ulp (BERT_HEAD_GRAD_TOL) of each grad's largest entry. With
     ``sparse`` the layers' attention is block-sparse
-    (:func:`sparse_bert_setup`): bert_sparse_kernel_vs_plain."""
+    (:func:`sparse_bert_setup`): bert_sparse_kernel_vs_plain; with
+    ``legacy`` through the legacy dispatch (K11-K13 against their plain
+    versions): bert_sparse_kernel_vs_plain_legacy."""
     import torch
     from deepspeed_tpu_torch.models.bert import (BERT_LARGE, bert_encoder,
                                                  bert_mlm_loss_fn,
@@ -2236,26 +2309,37 @@ def bert_kernel_vs_plain_phase(device="cuda", batch=4, seq=128,
                            dtype=torch.float32, sparsity_config=sc)
         return (out * r).sum()
     row = {"phase": "bert_kernel_vs_plain" if sparse is None
+           else "bert_sparse_kernel_vs_plain_legacy" if legacy
            else "bert_sparse_kernel_vs_plain",
            "model": "bert-large-width", "layers": cfg.num_layers,
            "dtype": "fp32", "batch": batch, "seq": seq,
            "real_lengths": f"{min_len}-{seq}",
            "loss_rtol": TRAIN_MODEL_LOSS_RTOL}
-    if sparse is not None:
+    if sparse is not None and not legacy:
         row.update(sparse=sparse, walk_block=bmask.block,
                    mask_heads=bmask.heads)
+    if legacy:
+        from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import \
+            planned_kernel
+        row.update(sparse=sparse, route=planned_kernel(
+            sc.make_layout(seq), sc.block))
+
+    def kernel_launches():
+        return (_banded_launches()["banded_fwd"] if legacy
+                else _kpm_launches()["masked_flash_fwd"][0])
     ok = True
     for name, fn, grad_tol in (
             ("encoder", encoder, TRAIN_MODEL_GRAD_TOL),
             ("mlm_loss", lambda p: mlm(p, data, None), BERT_HEAD_GRAD_TOL)):
         results = {}
         for path in ("kernel", "plain"):
-            before = _kpm_launches()["masked_flash_fwd"][0]
-            with (_PlainMaskedFlash() if path == "plain"
+            before = kernel_launches()
+            plain_ctx = _PlainBanded() if legacy else _PlainMaskedFlash()
+            with (plain_ctx if path == "plain"
                   else contextlib.nullcontext()):
                 loss = fn(params)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            ran_kernel = _kpm_launches()["masked_flash_fwd"][0] > before
+            ran_kernel = kernel_launches() > before
             if ran_kernel != (path == "kernel"):
                 raise AssertionError(f"the {path} path ran the kernel: "
                                      f"{ran_kernel}")
@@ -2332,19 +2416,24 @@ def v2_plan(layout, block, walk=None):
 
 
 def check_v2_kernels(name, plan, args, key_mask, am_add, flush=None,
-                     extra=None):
+                     extra=None, phase="v2_kernel_check"):
     """K8, K9 and K10 against their plain versions on the same inputs (K9
     and K10 get the plain forward's lse and delta), under TRAIN_TOL; lse
     within LSE_ATOL (a row with no valid key carries its max, <=
-    VALID_THRESH, in both). The control: the plain versions with the mask
-    tiles left out (all 0; K9 and K10 fed that forward's lse and delta)
-    must fail the same check on every output. With
-    ``flush`` each plain call is timed once (:func:`timed_once`)."""
+    VALID_THRESH, in both). With ``am_add`` None the no-mask arity runs:
+    no tile at the fine walk, the structural tiles on a coarse one. The
+    control, which must fail the same check on every output (K9 and K10
+    fed the control forward's lse and delta): the plain versions with the
+    mask tiles left out (all 0); where there is none, without the key
+    mask; where there is neither, on fp32 copies of the inputs, which
+    leaves out the rounding of p and ds. With ``flush`` each plain call is
+    timed once (:func:`timed_once`)."""
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as v2
     q, k, v, do = args
     scale = 1.0 / float(np.sqrt(q.shape[-1]))
-    tiles = plan.mask_tiles(am_add)
+    tiles = (plan.structural_tiles(q.device) if am_add is None
+             else plan.mask_tiles(am_add))
     plain_ms = {}
 
     def plain(kernel, fn, *a):
@@ -2366,10 +2455,10 @@ def check_v2_kernels(name, plan, args, key_mask, am_add, flush=None,
     dk_p, dv_p = plain("blocksparse_v2_dkv", v2.blocksparse_v2_dkv_plain,
                        *bwd)
     tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
-    row = {"phase": "v2_kernel_check", "case": name, "dtype": str(q.dtype),
+    row = {"phase": phase, "case": name, "dtype": str(q.dtype),
            "shape": list(q.shape), "fine_block": plan.fine_block,
            "walk_block": plan.block, "walked_tiles": plan.tiles_walked,
-           "unique_tiles": plan.unique_tiles,
+           "unique_tiles": plan.unique_tiles, "tiles": tiles is not None,
            "key_mask": key_mask is not None,
            "rows_with_no_key": int((lse_p <= v2.VALID_THRESH).sum()),
            "tol": tol, "lse_atol": LSE_ATOL}
@@ -2387,16 +2476,24 @@ def check_v2_kernels(name, plan, args, key_mask, am_add, flush=None,
     lse_err = float((lse - lse_p).abs().max())
     row["lse_max_abs_err"] = lse_err
     ok &= lse_err <= LSE_ATOL
-    row["control"] = "the mask tiles left out"
-    c_tiles = torch.zeros_like(tiles)
-    o_c, lse_c = v2.blocksparse_v2_fwd_plain(q, k, v, key_mask, c_tiles,
+    c_args, c_key, c_tiles = args, key_mask, tiles
+    if tiles is not None:
+        row["control"] = "the mask tiles left out"
+        c_tiles = torch.zeros_like(tiles)
+    elif key_mask is not None:
+        row["control"] = "the key mask left out"
+        c_key = None
+    else:
+        row["control"] = "fp32 inputs: no rounding of p and ds"
+        c_args = [t.float() for t in args]
+    o_c, lse_c = v2.blocksparse_v2_fwd_plain(*c_args[:3], c_key, c_tiles,
                                              plan, scale)
-    c_bwd = (q, k, v, do, lse_c, (do.float() * o_c.float()).sum(-1),
-             key_mask, c_tiles, plan, scale)
+    c_bwd = (*c_args, lse_c, (c_args[3].float() * o_c.float()).sum(-1),
+             c_key, c_tiles, plan, scale)
     dq_c = v2.blocksparse_v2_dq_plain(*c_bwd)
     dk_c, dv_c = v2.blocksparse_v2_dkv_plain(*c_bwd)
     for key, out in (("o", o_c), ("dq", dq_c), ("dk", dk_c), ("dv", dv_c)):
-        ratio, rel_rms, _, good = compare(out, refs[key], **tol)
+        ratio, rel_rms, _, good = compare(out.to(q.dtype), refs[key], **tol)
         row[f"control_{key}_worst_ratio"] = ratio
         row[f"control_{key}_rel_rms"] = rel_rms
         row[f"control_{key}_fails"] = not good
@@ -2765,6 +2862,576 @@ def sparse_self_attention_phase(smi):
     return launches, band_launches
 
 
+# ------------------------------------------- the legacy sparse dispatch
+# blocksparse.USE_MASKED_FLASH = False: the legacy dispatch JAX's
+# sparse_attention_speedup_s8k row pins (bench.py:542-561), at its
+# geometry (_sparse_row_geometry, bench.py:504-512): B 1, H 16, S 8192,
+# D 64, bf16, fine block 128. "lf": BSLongformer with a window of 3 blocks
+# (5024 active blocks, 7.7% dense), the banded kernels K11-K13; "bb":
+# BigBird's defaults (5952 blocks), the hybrid: K11-K13 on the band and
+# K8-K10 without a mask tile on the 928 residual blocks.
+S8K_SHAPE = dict(B=1, H=16, S=8192, D=64, block=128)
+BANDED_NAMES = ("banded_fwd", "banded_dq", "banded_dkv")
+BANDED_REPLACES = {
+    "banded_fwd": "deepspeed_tpu/ops/sparse_attention/banded.py:241 "
+                  "(_fwd_body)",
+    "banded_dq": "deepspeed_tpu/ops/sparse_attention/banded.py:280 "
+                 "(_dq_body)",
+    "banded_dkv": "deepspeed_tpu/ops/sparse_attention/banded.py:314 "
+                  "(_dkv_body)"}
+NOMASK_REPLACES = {n: r.replace("has_am", "has_am=False, the no-mask arity")
+                   for n, r in V2_REPLACES.items()}
+# launches of K11, K12 and K13 per attention call of a layout with global
+# rows and columns: fwd and dq run the band and gr instances, dkv the
+# band, gc and gr ones
+BANDED_PER_CALL = {"banded_fwd": 2, "banded_dq": 2, "banded_dkv": 3}
+# JAX's test_geometry_parity (tests/unit/test_banded_attention.py:198)
+BANDED_GEOMETRIES = [(1, 1, 1, False), (2, 2, 2, True), (0, 0, 1, False),
+                     (0, 0, 2, True), (3, 3, 1, False), (2, 0, 1, False),
+                     (0, 2, 1, True), (1, 1, 0, True)]
+BANDED_SWEEP = ((32, 32), (64, 64), (128, 128), (64, 128), (128, 64))
+
+
+def s8k_config(kind, heads=16):
+    """The SparsityConfig of the s8k row's layouts: "lf" or "bb"."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, BSLongformerSparsityConfig)
+    if kind == "lf":
+        return BSLongformerSparsityConfig(num_heads=heads, block=128,
+                                          num_sliding_window_blocks=3)
+    return BigBirdSparsityConfig(num_heads=heads, block=128)
+
+
+def _banded_launches():
+    from deepspeed_tpu_torch.ops.sparse_attention import banded
+    return {n: getattr(banded, n).launches for n in BANDED_NAMES}
+
+
+def _reset_legacy_launches():
+    from deepspeed_tpu_torch.ops.sparse_attention import (banded,
+                                                          blocksparse_v2)
+    banded.reset_launches()
+    blocksparse_v2.reset_launches()
+
+
+class _Legacy:
+    """Within the block, block_sparse_attention runs the legacy dispatch
+    (``blocksparse.USE_MASKED_FLASH = False``); the flag and the function
+    cache are restored after."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops.sparse_attention import blocksparse
+        self._saved = blocksparse.USE_MASKED_FLASH
+        blocksparse.USE_MASKED_FLASH = False
+        blocksparse._FN_CACHE.clear()
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.ops.sparse_attention import blocksparse
+        blocksparse.USE_MASKED_FLASH = self._saved
+        blocksparse._FN_CACHE.clear()
+        return False
+
+
+class _PlainBanded:
+    """Within the block, the banded instances run the three kernels'
+    plain versions instead of their wrappers."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops.sparse_attention import banded
+        self._saved = tuple(getattr(banded, n) for n in BANDED_NAMES)
+        for n in BANDED_NAMES:
+            setattr(banded, n, getattr(banded, n + "_plain"))
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.ops.sparse_attention import banded
+        for n, fn in zip(BANDED_NAMES, self._saved):
+            setattr(banded, n, fn)
+        return False
+
+
+class _NoPredicate:
+    """Within the block, the plain versions keep every walked cell: the
+    banded checks' control."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops.sparse_attention.banded import \
+            BandedPlan
+        self._saved = BandedPlan.keep
+        BandedPlan.keep = lambda self, pred, rb, cb: (rb >= 0) & (cb >= 0)
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.ops.sparse_attention.banded import \
+            BandedPlan
+        BandedPlan.keep = self._saved
+        return False
+
+
+def check_banded_kernels(name, bp, args, key_mask, extra=None):
+    """K11, K12 and K13 against their plain versions on the same inputs,
+    launch by launch: each instance of each kernel, the backward ones fed
+    the plain forward's lse of their rows and delta of its combined
+    output, under TRAIN_TOL (the worst instance per output); lse within
+    LSE_ATOL. The combination of the instances is the same PyTorch on
+    both sides. The control: the plain versions with the keep predicate
+    dropped (every walked cell kept; the backward fed that forward's lses
+    and delta) must fail the same check on every output."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import banded as tb
+    q, k, v, do = args
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+    def plain_forward():
+        """Each row instance's plain (o, lse), and the lses of each
+        instance's rows and delta of the combined o, the backward's
+        inputs."""
+        fwd = {kind: tb.banded_fwd_plain(q, k, v, key_mask, bp, kind, scale)
+               for kind in bp.instances["row"]}
+        o = fwd["band"][0]
+        if "gr" in fwd:
+            o = tb._add_rows(o, fwd["gr"][0])
+        lses = {kind: lse for kind, (_, lse) in fwd.items()}
+        lses["gc"] = lses["band"]
+        return fwd, lses, (do.float() * o.float()).sum(-1)
+
+    fwd_plain, lses, delta = plain_forward()
+    with _NoPredicate():
+        fwd_c, lses_c, delta_c = plain_forward()
+    # output -> [(instance, kernel, plain, control)]
+    outs = {"o": [], "dq": [], "dk": [], "dv": []}
+    lse_err = 0.0
+    for kind in bp.instances["row"]:
+        o, lse = tb.banded_fwd(q, k, v, key_mask, bp, kind, scale)
+        a = (q, k, v, do, lses[kind], delta, key_mask, bp, kind, scale)
+        dq = tb.banded_dq(*a)
+        torch.cuda.synchronize()
+        lse_err = max(lse_err, float((lse - lses[kind]).abs().max()))
+        with _NoPredicate():
+            dq_c = tb.banded_dq_plain(q, k, v, do, lses_c[kind], delta_c,
+                                      key_mask, bp, kind, scale)
+        outs["o"].append((kind, o, fwd_plain[kind][0], fwd_c[kind][0]))
+        outs["dq"].append((kind, dq, tb.banded_dq_plain(*a), dq_c))
+    for kind in bp.instances["col"]:
+        a = (q, k, v, do, lses[kind], delta, key_mask, bp, kind, scale)
+        dk, dv = tb.banded_dkv(*a)
+        torch.cuda.synchronize()
+        dk_p, dv_p = tb.banded_dkv_plain(*a)
+        with _NoPredicate():
+            dk_c, dv_c = tb.banded_dkv_plain(q, k, v, do, lses_c[kind],
+                                             delta_c, key_mask, bp, kind,
+                                             scale)
+        outs["dk"].append((kind, dk, dk_p, dk_c))
+        outs["dv"].append((kind, dv, dv_p, dv_c))
+    row = {"phase": "banded_kernel_check", "case": name,
+           "dtype": str(q.dtype), "shape": list(q.shape),
+           "fine_block": bp.fine_block, "params": list(bp.params),
+           "tiles": [bp.bq, bp.bkv],
+           "instances": {w: sorted(i) for w, i in bp.instances.items()},
+           "key_mask": key_mask is not None,
+           "rows_with_no_key": int((lses["band"] <= tb.VALID_THRESH).sum()),
+           "tol": tol, "lse_atol": LSE_ATOL, **(extra or {}),
+           "control": "the keep predicate dropped: every walked cell kept"}
+    ok = True
+    for key, items in outs.items():
+        checks = [(kind, compare(out, ref, **tol)) for kind, out, ref, _
+                  in items]
+        controls = [compare(c, ref, **tol) for _, _, ref, c in items]
+        row[f"{key}_max_abs_err"] = max(c[2] for _, c in checks)
+        row[f"{key}_worst_ratio"] = max(c[0] for _, c in checks)
+        row[f"{key}_rel_rms"] = max(c[1] for _, c in checks)
+        row[f"{key}_worst_ratio_by_instance"] = {kind: c[0]
+                                                 for kind, c in checks}
+        ok &= all(c[3] for _, c in checks)
+        row[f"control_{key}_worst_ratio"] = max(c[0] for c in controls)
+        row[f"control_{key}_fails"] = not all(c[3] for c in controls)
+        ok &= row[f"control_{key}_fails"]
+    row["lse_max_abs_err"] = lse_err
+    ok &= lse_err <= LSE_ATOL
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        raise AssertionError(f"the banded kernels disagree with their plain "
+                             f"versions on {name}, or the control passes "
+                             f"the check: {row}")
+    return row
+
+
+def _banded_plan(layout, block, cpu=False):
+    """The BandedPlan the legacy dispatch builds for ``layout``: the exact
+    banded path's, or the hybrid's band."""
+    from deepspeed_tpu_torch.ops.sparse_attention import banded, hybrid
+    planned = banded.plan(layout, block, cpu)
+    if planned is None:
+        hp = hybrid.plan_hybrid(layout, block, cpu)
+        planned = (hp.params, hp.blocks)
+    H, nb, _ = layout.shape
+    return banded.BandedPlan(H, nb * block, block, planned[0], *planned[1])
+
+
+def banded_kernel_check_phase():
+    """Phase 24: K11-K13 against their plain versions on the card: the
+    s8k BSLongformer layout at the rule's tiles; sparse BERT's
+    BSLongformer (B 8, H 16, S 2048, block 16) with its key mask (lengths
+    1024-2048, -1e30 on the pads); JAX's eight geometries at S 512, fine
+    block 32, at tiles (64, 128) and (128, 64) (wider than the fine
+    block), bf16 and fp32, with a batch row of pads. Returns the s8k and
+    the BERT rows."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import banded as tb
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import NEG_INF
+    rng = np.random.RandomState(SEED + 13)
+    m = S8K_SHAPE
+    B, H, S, D = m["B"], m["H"], m["S"], m["D"]
+    bf16 = torch.bfloat16
+    main_row = check_banded_kernels(
+        "s8k_bslongformer_w3_bf16",
+        _banded_plan(s8k_config("lf", H).make_layout(S), m["block"]),
+        train_inputs(rng, B, H, H, S, D, bf16), None)
+    sc = sparse_config("bslongformer")
+    m = SPARSE_SHAPE
+    bert_row = check_banded_kernels(
+        "bert_large_s2048_bslongformer_kpm",
+        _banded_plan(sc.make_layout(m["S"]), sc.block),
+        train_inputs(rng, m["B"], m["H"], m["H"], m["S"], m["D"], bf16),
+        bert_key_mask(rng, m["B"], m["S"], SPARSE_MIN_LEN, pad=NEG_INF))
+    for i, geom in enumerate(BANDED_GEOMETRIES):
+        tiles = ((64, 128), (128, 64))[i % 2]
+        dtype = (bf16, torch.float32)[(i // 2) % 2]
+        pads = (1,) if i % 3 == 0 else ()
+        check_banded_kernels(
+            "geometry_g{}_{}_w{}{}_tiles{}x{}_{}".format(
+                *geom[:3], "_causal" if geom[3] else "", *tiles,
+                "fp32" if dtype == torch.float32 else "bf16"),
+            tb.BandedPlan(4, 512, 32, tb.BandedParams(*geom), *tiles),
+            train_inputs(rng, 2, 4, 4, 512, 64, dtype),
+            bert_key_mask(rng, 2, 512, 200, all_pad_rows=pads, pad=NEG_INF),
+            extra={"all_pad_rows": list(pads)})
+    return main_row, bert_row
+
+
+def v2_nomask_kernel_check_phase():
+    """Phase 25: K8, K9 and K10 without a mask tile against their plain
+    versions on the card: the hybrid's residue of the s8k BigBird layout
+    (928 blocks of 128, the fine walk), and the fixed per-head layouts of
+    ds_config_sparse.json at S 2048 with the key mask, at the fine walk
+    and at a forced coarse walk of 64 (its structural tiles, bf16
+    values). Returns the residue's row."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import hybrid
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import NEG_INF
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse_v2 import \
+        RowRunPlan
+    rng = np.random.RandomState(SEED + 14)
+    m = S8K_SHAPE
+    B, H, S, D = m["B"], m["H"], m["S"], m["D"]
+    bf16 = torch.bfloat16
+    hp = hybrid.plan_hybrid(s8k_config("bb", H).make_layout(S), m["block"],
+                            False)
+    main_row = check_v2_kernels(
+        "s8k_bigbird_residual_bf16",
+        RowRunPlan(hp.residual, m["block"], None, per_coord=False),
+        train_inputs(rng, B, H, H, S, D, bf16), None, None,
+        phase="v2_nomask_kernel_check",
+        extra={"residual_blocks": int(hp.residual.sum())})
+    m = V2_SHAPE
+    layout = sparse_config("fixed", heads=m["H"]).make_layout(m["S"])
+    args = train_inputs(rng, m["B"], m["H"], m["H"], m["S"], m["D"], bf16)
+    kpm = bert_key_mask(rng, m["B"], m["S"], SPARSE_MIN_LEN, pad=NEG_INF)
+    for walk in (None, 64):
+        check_v2_kernels(
+            f"bert_large_s2048_fixed_nomask_walk{walk or 16}",
+            RowRunPlan(layout, 16, walk, per_coord=False), args, kpm, None,
+            phase="v2_nomask_kernel_check")
+    return main_row
+
+
+def _banded_timing(bp, args, key_mask, flush, plain=True):
+    """Per kernel of K11-K13: the median ms of each instance (as
+    train_kernel_timing times, the L2 flushed) summed over the instances,
+    and with ``plain`` one timed call of each instance's plain version,
+    summed."""
+    from deepspeed_tpu_torch.ops.sparse_attention import banded as tb
+    q, k, v, do = args
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    o, lse_b, lse_g = tb.banded_fwd_impl(q, k, v, key_mask, bp, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    lses = {"band": lse_b, "gc": lse_b, "gr": lse_g}
+    calls = []
+    for kind in bp.instances["row"]:
+        a = (q, k, v, do, lses[kind], delta, key_mask, bp, kind, scale)
+        calls += [("banded_fwd", kind, tb.banded_fwd, tb.banded_fwd_plain,
+                   (q, k, v, key_mask, bp, kind, scale)),
+                  ("banded_dq", kind, tb.banded_dq, tb.banded_dq_plain, a)]
+    for kind in bp.instances["col"]:
+        a = (q, k, v, do, lses[kind], delta, key_mask, bp, kind, scale)
+        calls.append(("banded_dkv", kind, tb.banded_dkv, tb.banded_dkv_plain,
+                      a))
+    out = {n: {"ms": 0.0, "plain_ms": 0.0 if plain else None,
+               "instances": {}} for n in BANDED_NAMES}
+    for name, kind, fn, plain_fn, a in calls:
+        ms = time_ms(lambda: fn(*a), SPARSE_TIMED_CALLS, flush)
+        out[name]["ms"] += ms
+        out[name]["instances"][kind] = ms
+        if plain:
+            out[name]["plain_ms"] += time_ms(lambda: plain_fn(*a), 1, flush,
+                                             warmup=0)
+    return out
+
+
+def _bounds(flops, b_in, b_out, bytes_per_s, flops_per_s):
+    bytes_ms = (b_in + b_out) / bytes_per_s * 1e3
+    ops_ms = flops / flops_per_s * 1e3
+    return {"bytes": b_in + b_out, "flops": flops, "bytes_bound_ms": bytes_ms,
+            "ops_bound_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def legacy_sparse_timing_phase(smi):
+    """Phase 26: at the s8k geometry, for the BSLongformer (banded) and
+    the BigBird (hybrid) layouts, K11, K12 and K13 per instance and
+    summed, timed as train_kernel_timing times them, each beside its
+    bound (the bytes moved once, or the FLOP of the layout's banded part
+    at the dense bf16 peak), one timed call of its plain version, SDPA
+    with the dense float (B, H, S, S) mask of the layout (forward for K11,
+    backward for K12 and K13 together: the library column), SDPA with
+    is_causal=True (the dense baseline of JAX's row) and K1-K3 on the
+    masked route at the same layout (the twin row sparse_attn_speedup_v2,
+    bench.py:836). For BigBird also K8-K10 without a mask tile on the
+    residue and the merge. Then a sweep of walk tiles at BSLongformer,
+    fitted to the cost model (walk_cost_fit, kernels "banded"). Returns
+    the timings of K11-K13 at BSLongformer and of the no-mask K8-K10 at
+    BigBird."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    from deepspeed_tpu_torch.ops.attention.masked_flash import BlockMask
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        banded, blocksparse_v2 as v2, hybrid)
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import NEG_INF
+    rng = np.random.RandomState(SEED + 15)
+    m = S8K_SHAPE
+    B, H, S, D, fb = m["B"], m["H"], m["S"], m["D"], m["block"]
+    args = train_inputs(rng, B, H, H, S, D, torch.bfloat16)
+    q, k, v, do = args
+    scale = 1.0 / float(np.sqrt(D))
+    bytes_per_s, flops_per_s = card_peaks(smi)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    tile = B * H * S * D * 2
+    rowvec = B * H * S * 4
+    io = {  # name: (dots per cell pair, bytes in, bytes out)
+        "fwd": (2, 3 * tile, tile + rowvec),
+        "dq": (3, 4 * tile + 2 * rowvec, tile),
+        "dkv": (4, 4 * tile + 2 * rowvec, 2 * tile)}
+
+    def sdpa(mask=None, causal=False):
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                             is_causal=causal)
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal), SPARSE_TIMED_CALLS,
+            flush)
+        bwd = time_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True), SPARSE_TIMED_CALLS,
+            flush)
+        return {"fwd": fwd, "bwd": bwd}
+
+    causal = sdpa(causal=True)
+    results, out = {}, {}
+    for kind in ("lf", "bb"):
+        layout = s8k_config(kind, H).make_layout(S)
+        blocks = torch.from_numpy(layout).cuda().bool()
+        dense = torch.where(blocks.repeat_interleave(fb, 1)
+                            .repeat_interleave(fb, 2), 0.0, NEG_INF).to(
+            torch.bfloat16)[None]
+        lib = sdpa(dense)
+        del dense, blocks
+        bm = BlockMask.from_layout(layout, fb)
+        o_m, lse_m = mf.masked_flash_fwd(q, k, v, bm, scale)
+        delta = (do.float() * o_m.float()).sum(-1)
+        masked = {
+            "masked_flash_fwd": time_ms(lambda: mf.masked_flash_fwd(
+                q, k, v, bm, scale), SPARSE_TIMED_CALLS, flush),
+            "masked_flash_dq": time_ms(lambda: mf.masked_flash_dq(
+                q, k, v, do, lse_m, delta, bm, scale), SPARSE_TIMED_CALLS,
+                flush),
+            "masked_flash_dkv": time_ms(lambda: mf.masked_flash_dkv(
+                q, k, v, do, lse_m, delta, bm, scale), SPARSE_TIMED_CALLS,
+                flush)}
+        bp = _banded_plan(layout, fb)
+        timing = _banded_timing(bp, args, None, flush)
+        hp = hybrid.plan_hybrid(layout, fb, False)
+        # the layout's blocks the banded kernels own
+        band_blocks = int(layout.sum()) - (0 if hp is None
+                                           else int(hp.residual.sum()))
+        meta = bp.bstart.nbytes + bp.bend.nbytes
+        for name in BANDED_NAMES:
+            dots, b_in, b_out = io[name.split("_")[1]]
+            t = timing[name]
+            t.update(_bounds(band_blocks * B * dots * 2 * fb * fb * D,
+                             b_in + meta, b_out, bytes_per_s, flops_per_s))
+            t["library_ms"] = lib["fwd" if name == "banded_fwd" else "bwd"]
+            t["replaces"] = BANDED_REPLACES[name]
+            emit({"phase": "legacy_sparse_timing", "kernel": name,
+                  "layout": kind, "shape": dict(m, dtype="bf16"),
+                  "tiles": [bp.bq, bp.bkv], "params": list(bp.params),
+                  "banded_blocks": band_blocks,
+                  "layout_blocks": int(layout.sum()),
+                  "kernel_ms": t["ms"], **t,
+                  "library": "scaled_dot_product_attention "
+                             + ("forward" if name == "banded_fwd" else
+                                "backward (dq, dk, dv together)")
+                             + ", dense float (B, H, S, S) mask",
+                  "sdpa_causal_ms": causal["fwd" if name == "banded_fwd"
+                                           else "bwd"],
+                  "masked_route_ms": masked[name.replace("banded",
+                                                         "masked_flash")],
+                  "achieved_tflop_per_s": t["flops"] / t["ms"] / 1e9,
+                  "nvidia_smi": smi})
+        results[kind] = {"banded": timing, "lib": lib, "masked": masked}
+        if kind == "lf":
+            out.update(timing)
+            continue
+        # the hybrid's residue on K8-K10 without a mask tile, and the merge
+        rp = v2.RowRunPlan(hp.residual, fb, None, per_coord=False)
+        o_r, lse_r = v2.blocksparse_v2_fwd(q, k, v, None, None, rp, scale)
+        o_b, lse_b, lse_g = banded.banded_fwd_impl(q, k, v, None, bp, scale)
+        merge_ms = time_ms(lambda: hybrid.merge(o_b, lse_b, lse_g, o_r,
+                                                lse_r), SPARSE_TIMED_CALLS,
+                           flush)
+        o_h, L = hybrid.merge(o_b, lse_b, lse_g, o_r, lse_r)
+        delta = (do.float() * o_h.float()).sum(-1)
+        bwd = (q, k, v, do, L, delta, None, None, rp, scale)
+        specs = {"blocksparse_v2_fwd": (
+            lambda: v2.blocksparse_v2_fwd(q, k, v, None, None, rp, scale),
+            lambda: v2.blocksparse_v2_fwd_plain(q, k, v, None, None, rp,
+                                                scale)),
+            "blocksparse_v2_dq": (lambda: v2.blocksparse_v2_dq(*bwd),
+                                  lambda: v2.blocksparse_v2_dq_plain(*bwd)),
+            "blocksparse_v2_dkv": (lambda: v2.blocksparse_v2_dkv(*bwd),
+                                   lambda: v2.blocksparse_v2_dkv_plain(*bwd))}
+        res_blocks = int(hp.residual.sum())
+        for name, (call, plain) in specs.items():
+            dots, b_in, b_out = io[name.split("_")[2]]
+            walk = sum(a.nbytes for a in (rp.csc if name.endswith("dkv")
+                                          else rp.csr))
+            t = {"ms": time_ms(call, SPARSE_TIMED_CALLS, flush),
+                 "plain_ms": time_ms(plain, 1, flush, warmup=0),
+                 "library_ms": lib["fwd" if name.endswith("fwd")
+                                   else "bwd"],
+                 "replaces": NOMASK_REPLACES[name],
+                 **_bounds(res_blocks * B * dots * 2 * fb * fb * D,
+                           b_in + walk, b_out, bytes_per_s, flops_per_s)}
+            emit({"phase": "legacy_sparse_timing", "kernel": name,
+                  "arity": "no mask tile", "layout": "bb residue",
+                  "shape": dict(m, dtype="bf16"),
+                  "residual_blocks": res_blocks, "kernel_ms": t["ms"], **t,
+                  "library": "scaled_dot_product_attention with the whole "
+                             "BigBird layout's dense float mask",
+                  "nvidia_smi": smi})
+            out[f"{name}_nomask"] = t
+        emit({"phase": "legacy_sparse_timing", "kernel": "hybrid merge",
+              "layout": kind, "ms": merge_ms,
+              "coverage": hp.coverage, "nvidia_smi": smi})
+    # the walk tiles of K11-K13 at BSLongformer, fitted to walk_cost_us
+    layout = s8k_config("lf", H).make_layout(S)
+    params = banded.detect_banded(layout)
+    rule = list(banded.pick_blocks(S, fb, params, False))
+    sweep = []
+    for tiles in BANDED_SWEEP:
+        bp = banded.BandedPlan(H, S, fb, params, *tiles)
+        t = _banded_timing(bp, args, None, flush, plain=False)
+        total = sum(t[n]["ms"] for n in BANDED_NAMES)
+        counts = banded.walk_counts(S, fb, params, *tiles)
+        sweep.append((*counts, total / (B * H)))
+        emit({"phase": "legacy_sparse_timing", "kernel": "K11-K13 sweep",
+              "layout": "lf", "tiles": list(tiles),
+              "ms": {n: t[n]["ms"] for n in BANDED_NAMES}, "total_ms": total,
+              "modeled_us_per_bh": banded.walk_cost(S, fb, params, *tiles),
+              "rule_tiles": rule, "nvidia_smi": smi})
+    emit({"phase": "walk_cost_fit", "kernels": "banded",
+          "layout": "s8k bslongformer", "sweep": [
+              dict(zip(("tiles", "chunks", "chunk", "ms"), w))
+              for w in sweep],
+          "units": "per (batch, head); fit in us per tile, chunk, cell",
+          "fit": fit_walk_costs(sweep),
+          "committed": list(mf.WALK_COSTS["banded"]), "rule_tiles": rule,
+          "nvidia_smi": smi})
+    return out
+
+
+def legacy_entry_point_phase(smi):
+    """The end of phase 26: SparseSelfAttention at the s8k geometry,
+    forward and backward of a scalar loss (1 warm-up, V2_ITERS timed),
+    under the legacy dispatch and under the default one: ms, peak memory
+    and launches per call. BSLongformer must launch BANDED_PER_CALL of
+    K11-K13 per call under the legacy dispatch and nothing else; BigBird
+    the same and one of each of K8-K10; the default launches K1-K3 once
+    each. Returns the launches of the legacy runs."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import \
+        planned_kernel
+    rng = np.random.RandomState(SEED + 16)
+    m = S8K_SHAPE
+    B, H, S, D = m["B"], m["H"], m["S"], m["D"]
+    q, k, v, g = train_inputs(rng, B, H, H, S, D, torch.bfloat16)
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    launches = {}
+    for kind in ("lf", "bb"):
+        ssa = SparseSelfAttention(s8k_config(kind, H))
+        for legacy in (True, False):
+            with (_Legacy() if legacy else contextlib.nullcontext()):
+                route = planned_kernel(ssa.get_layout(S), m["block"])
+
+                def call():
+                    o = ssa(*qkv)
+                    (o.float() * g.float()).sum().backward()
+                    return o
+                call()
+                torch.cuda.synchronize()
+                for t in qkv:
+                    t.grad = None
+                torch.cuda.reset_peak_memory_stats()
+                _reset_legacy_launches()
+                mf.reset_launches()
+                t0 = time.perf_counter()
+                for _ in range(V2_ITERS):
+                    o = call()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = {**_banded_launches(), **_v2_launches(),
+                   **_train_launches()}
+            want = {n: 0 for n in got}
+            if legacy:
+                want.update({n: c * V2_ITERS
+                             for n, c in BANDED_PER_CALL.items()})
+                if kind == "bb":
+                    want.update({n: V2_ITERS for n in V2_NAMES})
+            else:
+                want.update({n: V2_ITERS for n in KPM_NAMES})
+            finite = bool(torch.isfinite(o).all()) and all(
+                bool(torch.isfinite(t.grad).all()) for t in qkv)
+            row = {"phase": "legacy_entry_point", "layout": kind,
+                   "dispatch": "legacy" if legacy else "default",
+                   "route": route, "shape": dict(m, dtype="bf16"),
+                   "iters": V2_ITERS, "warmup": 1,
+                   "ms_per_fwd_bwd": wall / V2_ITERS * 1e3,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": got, "finite": finite, "nvidia_smi": smi}
+            emit(row)
+            if got != want or not finite:
+                raise AssertionError(f"SparseSelfAttention at the s8k "
+                                     f"geometry: want launches {want}: {row}")
+            for t in qkv:
+                t.grad = None
+            if legacy:
+                launches[kind] = got
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2829,6 +3496,16 @@ def main() -> int:
     v2_check = v2_kernel_check_phase()
     v2_timing = v2_kernel_timing_phase(smi, v2_check)
     v2_launches, band_launches = sparse_self_attention_phase(smi)
+    banded_check, banded_bert_check = banded_kernel_check_phase()
+    nomask_check = v2_nomask_kernel_check_phase()
+    legacy_timing = legacy_sparse_timing_phase(smi)
+    entry_launches = legacy_entry_point_phase(smi)
+    with _Legacy():
+        legacy_bert_launches = bert_training_phase(
+            smi, seq=SPARSE_SEQ, min_len=SPARSE_MIN_LEN, steps=SPARSE_STEPS,
+            warmup=SPARSE_WARMUP, sparse="bslongformer", legacy=True)
+        bert_kernel_vs_plain_phase(batch=2, seq=SPARSE_SEQ,
+                                   sparse="bslongformer", legacy=True)
 
     kernels = [dict(
         name="paged_decode", route="cuda",
@@ -2931,6 +3608,44 @@ def main() -> int:
                 f"SparseSelfAttention with attn_mask seq {SPARSE_SEQ} "
                 f"({V2_ITERS} forward and backward)": v2_launches[name]},
             max_abs_err=v2_errs[name], ms=t["ms"], kernel_ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    banded_errs = {n: max(max(row[f"{key}_max_abs_err"] for key in keys)
+                          for row in (banded_check, banded_bert_check))
+                   for n, keys in (("banded_fwd", ("o",)),
+                                   ("banded_dq", ("dq",)),
+                                   ("banded_dkv", ("dk", "dv")))}
+    for name in BANDED_NAMES:
+        t = legacy_timing[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="deepspeed_tpu_torch/csrc/banded.cu",
+            replaces=t["replaces"], launches=legacy_bert_launches[name],
+            launches_by_path={
+                f"bert-large sparse bslongformer seq {SPARSE_SEQ}, legacy "
+                f"dispatch ({SPARSE_STEPS} steps)": legacy_bert_launches[name],
+                f"SparseSelfAttention s8k bslongformer, legacy ({V2_ITERS} "
+                "forward and backward)": entry_launches["lf"][name],
+                f"SparseSelfAttention s8k bigbird, legacy ({V2_ITERS} "
+                "forward and backward)": entry_launches["bb"][name]},
+            max_abs_err=banded_errs[name], ms=t["ms"], kernel_ms=t["ms"],
+            ms_by_instance=t["instances"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"]))
+    nomask_errs = {"blocksparse_v2_fwd": nomask_check["o_max_abs_err"],
+                   "blocksparse_v2_dq": nomask_check["dq_max_abs_err"],
+                   "blocksparse_v2_dkv": max(nomask_check["dk_max_abs_err"],
+                                             nomask_check["dv_max_abs_err"])}
+    for name in V2_NAMES:
+        t = legacy_timing[f"{name}_nomask"]
+        kernels.append(dict(
+            name=f"{name}_nomask", route="cuda",
+            source="deepspeed_tpu_torch/csrc/blocksparse_v2.cu",
+            replaces=t["replaces"], launches=entry_launches["bb"][name],
+            launches_by_path={
+                f"SparseSelfAttention s8k bigbird, legacy ({V2_ITERS} "
+                "forward and backward)": entry_launches["bb"][name]},
+            max_abs_err=nomask_errs[name], ms=t["ms"], kernel_ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
     emit({"kernels": kernels})

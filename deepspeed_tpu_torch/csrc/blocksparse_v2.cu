@@ -1,8 +1,8 @@
-// Row-run block-sparse attention under a user attention mask, forward and
-// backward, for Hopper.
+// Row-run block-sparse attention, forward and backward, for Hopper.
 //
 // Replaces the three Pallas TPU kernels of
-// deepspeed_tpu/ops/sparse_attention/blocksparse_v2.py (the has_am arity):
+// deepspeed_tpu/ops/sparse_attention/blocksparse_v2.py, in both arities
+// (the template flag HAS_AM; null tiles pick HAS_AM = false):
 //   K8  _v2_fwd_kernel -> blocksparse_v2_fwd : o, lse  (CSR row walk)
 //   K9  _v2_dq_kernel  -> blocksparse_v2_dq  : dq      (CSR row walk)
 //   K10 _v2_dkv_kernel -> blocksparse_v2_dkv : dk, dv  (CSC column walk)
@@ -11,11 +11,13 @@
 //   block `blk` through its CSR (offs, cnts, cols, uids) or CSC (offs,
 //   cnts, rows, uids) metadata over rows h * nq + r (columns h * nk + c);
 //   per walked item the additive fp32 mask tile tiles[uid] (blk x blk,
-//   row-major: query row, then key); optionally an additive fp32 key mask
-//   kpm (B, S) (null: none).
+//   row-major: query row, then key: a user mask, or a coarse walk's
+//   structural tiles), or with null tiles none (JAX's has_am = False at
+//   the fine walk: the kernels read no tile and no uid); optionally an
+//   additive fp32 key mask kpm (B, S) (null: none).
 // Semantics kept exactly: s = (q.k) * sm_scale, then s += kpm[b, key],
-// then s += tile[q, key], in fp32; a cell with s <= VALID_THRESH (-1e29)
-// has p = 0. The forward's online softmax runs per walked tile with no
+// then s += tile[q, key] (HAS_AM), in fp32; a cell with s <= VALID_THRESH
+// (-1e29) has p = 0. The forward's online softmax runs per walked tile with no
 // m_safe guard (p = exp(s - m_new), alpha = exp(m_old - m_new)); a row
 // with l == 0 writes o = 0 and lse = m. K9 and K10 recompute
 // p = exp(s - lse). p is rounded to V's (K10: do's) dtype before its
@@ -58,7 +60,7 @@ struct Shape {
 
 // ------------------------------------------------------------------- K8
 // grid (S / R, B*H); R = min(blk, 32) q rows per CTA.
-template <typename T>
+template <typename T, bool HAS_AM>
 __global__ void __launch_bounds__(kThreads)
 v2_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ kpm,
@@ -101,7 +103,8 @@ v2_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n; ++t) {
     const int k0 = cols[base + t] * blk;
     const float* tile =
-        tiles + (size_t)uids[base + t] * blk * blk + (size_t)tr0 * blk;
+        HAS_AM ? tiles + (size_t)uids[base + t] * blk * blk + (size_t)tr0 * blk
+               : nullptr;
     // s = q . k over the whole walked tile, R x blk
     for (int c0 = 0; c0 < blk; c0 += R) {
       stage_rows(kv, kg + (size_t)(k0 + c0) * D, R, D);
@@ -120,7 +123,7 @@ v2_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (c < blk) {
           s = ss[r * blk + c] * sh.sm_scale;
           if (kpm_b) s += kpm_b[k0 + c];
-          s += tile[r * blk + c];
+          if (HAS_AM) s += tile[r * blk + c];
         }
         sv[u] = s;
         mx = fmaxf(mx, s);
@@ -170,7 +173,7 @@ v2_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------- K9
 // grid (S / R, B*H); per walked item, chunk by chunk of R key rows.
-template <typename T>
+template <typename T, bool HAS_AM>
 __global__ void __launch_bounds__(kThreads)
 v2_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
@@ -218,7 +221,8 @@ v2_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n; ++t) {
     const int k0 = cols[base + t] * blk;
     const float* tile =
-        tiles + (size_t)uids[base + t] * blk * blk + (size_t)tr0 * blk;
+        HAS_AM ? tiles + (size_t)uids[base + t] * blk * blk + (size_t)tr0 * blk
+               : nullptr;
     for (int c0 = 0; c0 < blk; c0 += R) {
       stage_rows(ks, kg + (size_t)(k0 + c0) * D, R, D);
       stage_rows(vs, vg + (size_t)(k0 + c0) * D, R, D);
@@ -231,7 +235,7 @@ v2_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = e - r * R;
         float s = ps[e] * sh.sm_scale;
         if (kpm_b) s += kpm_b[k0 + c0 + c];
-        s += tile[r * blk + c0 + c];
+        if (HAS_AM) s += tile[r * blk + c0 + c];
         const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
         ps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
       }
@@ -250,7 +254,7 @@ v2_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // grid (S / R, B*H): one CTA per head and R key rows, over the CSC walk of
 // the key block, chunk by chunk of R query rows. The CTA's R key rows'
 // mask values are loaded once, beside the staged K and V rows.
-template <typename T>
+template <typename T, bool HAS_AM>
 __global__ void __launch_bounds__(kThreads)
 v2_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
@@ -297,7 +301,8 @@ v2_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = 0; t < n; ++t) {
     const int q0 = crows[base + t] * blk;
-    const float* tile = tiles + (size_t)uids[base + t] * blk * blk + tc0;
+    const float* tile =
+        HAS_AM ? tiles + (size_t)uids[base + t] * blk * blk + tc0 : nullptr;
     for (int c0 = 0; c0 < blk; c0 += R) {
       const size_t qrow = (size_t)bh * sh.S + q0 + c0;
       stage_rows(qs, qg + (size_t)(q0 + c0) * D, R, D);
@@ -315,7 +320,7 @@ v2_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = e - r * R;        // key row of this CTA
         float s = ps[e] * sh.sm_scale;
         if (kpm) s += km_s[c];
-        s += tile[(size_t)(c0 + r) * blk + c];
+        if (HAS_AM) s += tile[(size_t)(c0 + r) * blk + c];
         const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
         ps[e] = round_to<T>(p);
         dps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
@@ -353,38 +358,41 @@ bool bad_shape(int bh, int H, int S, int D, int blk) {
          S % blk != 0;
 }
 
-template <typename T>
+template <typename T, bool HAS_AM>
 cudaError_t run_fwd(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                     const void* k, const void* v, const float* kpm,
                     const float* tiles, void* o, float* lse,
                     const int32_t* of, const int32_t* cn, const int32_t* co,
                     const int32_t* ui, Shape sh) {
-  return launch(v2_fwd_kernel<T>, grid, smem, s, static_cast<const T*>(q),
+  return launch(v2_fwd_kernel<T, HAS_AM>, grid, smem, s,
+                static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v), kpm,
                 tiles, static_cast<T*>(o), lse, of, cn, co, ui, sh);
 }
 
-template <typename T>
+template <typename T, bool HAS_AM>
 cudaError_t run_dq(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                    const void* k, const void* v, const void* dout,
                    const float* ls, const float* dl, const float* kpm,
                    const float* tiles, void* dq, const int32_t* of,
                    const int32_t* cn, const int32_t* co, const int32_t* ui,
                    Shape sh) {
-  return launch(v2_dq_kernel<T>, grid, smem, s, static_cast<const T*>(q),
+  return launch(v2_dq_kernel<T, HAS_AM>, grid, smem, s,
+                static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), ls, dl, kpm, tiles,
                 static_cast<T*>(dq), of, cn, co, ui, sh);
 }
 
-template <typename T>
+template <typename T, bool HAS_AM>
 cudaError_t run_dkv(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                     const void* k, const void* v, const void* dout,
                     const float* ls, const float* dl, const float* kpm,
                     const float* tiles, void* dk, void* dv, const int32_t* of,
                     const int32_t* cn, const int32_t* ro, const int32_t* ui,
                     Shape sh) {
-  return launch(v2_dkv_kernel<T>, grid, smem, s, static_cast<const T*>(q),
+  return launch(v2_dkv_kernel<T, HAS_AM>, grid, smem, s,
+                static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), ls, dl, kpm, tiles,
                 static_cast<T*>(dk), static_cast<T*>(dv), of, cn, ro, ui,
@@ -394,7 +402,8 @@ cudaError_t run_dkv(dim3 grid, size_t smem, cudaStream_t s, const void* q,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. kpm: the (B, S) fp32 additive key
-// mask, or null for none. tiles: the (U, block, block) fp32 mask tiles.
+// mask, or null for none. tiles: the (U, block, block) fp32 mask tiles, or
+// null for none (then uids are not read).
 // offs, cnts, cols (rows for dkv), uids: int32 CSR (CSC) walk metadata.
 // Each entry point returns the CUDA error of its launch (0 on success);
 // it launches on `stream` and does not synchronise.
@@ -410,8 +419,10 @@ extern "C" int blocksparse_v2_fwd(
   const int R = rows_of(block);
   const dim3 grid(seq / R, bh);
   const size_t smem = fwd_smem(R, head_dim, block);
-  auto run = dtype == 0   ? run_fwd<float>
-             : dtype == 1 ? run_fwd<__nv_bfloat16>
+  const bool am = tiles != nullptr;
+  auto run = dtype == 0   ? (am ? run_fwd<float, true> : run_fwd<float, false>)
+             : dtype == 1 ? (am ? run_fwd<__nv_bfloat16, true>
+                                : run_fwd<__nv_bfloat16, false>)
                           : nullptr;
   if (run == nullptr) return (int)cudaErrorInvalidValue;
   return (int)run(grid, smem, static_cast<cudaStream_t>(stream), q, k, v,
@@ -435,8 +446,10 @@ extern "C" int blocksparse_v2_dq(
   const int R = rows_of(block);
   const dim3 grid(seq / R, bh);
   const size_t smem = bwd_smem(R, head_dim);
-  auto run = dtype == 0   ? run_dq<float>
-             : dtype == 1 ? run_dq<__nv_bfloat16>
+  const bool am = tiles != nullptr;
+  auto run = dtype == 0   ? (am ? run_dq<float, true> : run_dq<float, false>)
+             : dtype == 1 ? (am ? run_dq<__nv_bfloat16, true>
+                                : run_dq<__nv_bfloat16, false>)
                           : nullptr;
   if (run == nullptr) return (int)cudaErrorInvalidValue;
   return (int)run(grid, smem, static_cast<cudaStream_t>(stream), q, k, v,
@@ -462,8 +475,10 @@ extern "C" int blocksparse_v2_dkv(
   const int R = rows_of(block);
   const dim3 grid(seq / R, bh);
   const size_t smem = bwd_smem(R, head_dim);
-  auto run = dtype == 0   ? run_dkv<float>
-             : dtype == 1 ? run_dkv<__nv_bfloat16>
+  const bool am = tiles != nullptr;
+  auto run = dtype == 0   ? (am ? run_dkv<float, true> : run_dkv<float, false>)
+             : dtype == 1 ? (am ? run_dkv<__nv_bfloat16, true>
+                                : run_dkv<__nv_bfloat16, false>)
                           : nullptr;
   if (run == nullptr) return (int)cudaErrorInvalidValue;
   return (int)run(grid, smem, static_cast<cudaStream_t>(stream), q, k, v,

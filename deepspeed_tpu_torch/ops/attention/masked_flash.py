@@ -86,19 +86,29 @@ CHUNK = 32
 #   and 128 (4480, 2112, 1024 and 256 tiles per (b, h), in 24.14, 39.37,
 #   78.98 and 79.79 ms); they compute every chunk of a walked tile, so a
 #   coarse walk of this layout computes 1.9-3.7x the fine walk's cells
-#   and the fine walk wins.
+#   and the fine walk wins;
+# - "banded" (K11-K13, banded.walk_cost picks their walk tiles; a tile is
+#   a walk step of the three kernels, a chunk min(bq, 32) x min(bkv, 32)
+#   cells they compute): the s8k BSLongformer layout (B 1, H 16, S 8192,
+#   block 128, window 3) at tiles (32, 32), (64, 64), (128, 128),
+#   (64, 128) and (128, 64) (5115 to 320 steps over 5024 chunks of 32 per
+#   (b, h), in 28.53, 27.83, 27.02, 27.97 and 27.36 ms); every tile pair
+#   computes the same chunks there, so the fit splits nothing between
+#   chunk and cell (K1-K3's constants were the start; both pick (128, 128)
+#   here and (16, 16) for sparse BERT's block 16).
 # Only ratios matter: the rules compare walks of one layout.
 WALK_COSTS = {
     # (us per tile, us per chunk, us per cell)
     "masked_flash": (9.075e-5, 5.554e-2, 1.7606e-4),
     "blocksparse_v2": (0.0, 5.885e-3, 1.4145e-4),
+    "banded": (1.49198e-2, 0.0, 3.32402e-4),
 }
 
 
 def walk_cost_us(kernels: str, tiles: int, chunks: int, chunk: int) -> float:
-    """Modeled cost of one walk of ``kernels`` ("masked_flash" or
-    "blocksparse_v2"): ``tiles`` walked tiles, ``chunks`` computed chunks
-    of ``chunk`` x ``chunk`` cells, per (batch, head)."""
+    """Modeled cost of one walk of ``kernels`` ("masked_flash",
+    "blocksparse_v2" or "banded"): ``tiles`` walked tiles, ``chunks``
+    computed chunks of ``chunk`` x ``chunk`` cells, per (batch, head)."""
     per_tile, per_chunk, per_cell = WALK_COSTS[kernels]
     return tiles * per_tile + chunks * (per_chunk + per_cell * chunk * chunk)
 

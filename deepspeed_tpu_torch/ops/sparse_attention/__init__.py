@@ -1,8 +1,9 @@
 """Block-sparse attention (the port of
 ``deepspeed_tpu/ops/sparse_attention``): sparsity layout configs, the
 block-sparse front end over the masked flash kernels K1-K3 and, with a
-user attention mask, the row-run kernels K8-K10, the attention modules,
-and the composable ``MatMul`` / ``Softmax`` ops."""
+user attention mask, the row-run kernels K8-K10, its legacy dispatch
+(the banded kernels K11-K13, the hybrid, K8-K10 without a mask), the
+attention modules, and the composable ``MatMul`` / ``Softmax`` ops."""
 
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (  # noqa
     SparsityConfig, DenseSparsityConfig, FixedSparsityConfig,

@@ -1,7 +1,9 @@
 """Block-sparse attention, the front end (the port of
 ``deepspeed_tpu/ops/sparse_attention/blocksparse.py``).
 
-Two routes, as in the JAX package:
+The routes of the JAX package, chosen by its five module flags
+(``USE_MASKED_FLASH``, ``USE_SPLASH_V2``, ``USE_BANDED``, ``USE_HYBRID``,
+``USE_COARSE``, with JAX's defaults):
 
 - without a user ``attn_mask`` (``USE_MASKED_FLASH``), a layout from
   ``sparsity_config.py`` (numpy ``(H, nb, nb)``, 1 = an attended
@@ -13,7 +15,17 @@ Two routes, as in the JAX package:
 - with an ``attn_mask``, the row-run kernels K8-K10
   (``blocksparse_v2.py``) over the layout's walk or a coarse one that
   :func:`_pick_coarse_block` picks, the ``(S, S)`` mask deduplicated into
-  unique tiles.
+  unique tiles;
+- the legacy dispatch without an ``attn_mask`` (``USE_MASKED_FLASH =
+  False``), in JAX's order: the banded kernels K11-K13 (``banded.py``) for
+  a global-prefix + band layout, the hybrid (``hybrid.py``: K11-K13 on the
+  band, K8-K10 without a mask tile on the residue), the row-run kernels
+  at the fine walk or a coarse one, and last K1-K3 ('masked-fallback').
+  ``USE_SPLASH_V2 = False`` would reach the v1 kernels K14-K16, which are
+  not ported: that route raises.
+
+Where JAX asks for ``block % 128 == 0`` or ``interpret``, the port asks
+for CPU tensors or a block the kernels take (``KERNEL_BLOCKS``).
 
 The port does not pre-block the masks (``_block_kpm`` / ``_block_am`` are
 a TPU lane rule), and has no dense-reference fallback for an
@@ -24,9 +36,7 @@ rpe added, then the key-padding mask and the attention mask applied —
 'add' mode adds the mask values; 'mul' mode maps zero entries to
 ``NEG_INF`` and nonzero ones to 0 (a hard keep/drop mask).
 
-Not here: the legacy dispatch behind the module flags (banded K11-K13,
-hybrid, v1 K14-K16). An ``rpe`` routes to the dense reference, as in
-JAX.
+An ``rpe`` routes to the dense reference, as in JAX.
 """
 
 import math
@@ -38,6 +48,7 @@ import torch
 from deepspeed_tpu_torch.ops.attention.masked_flash import (
     CHUNK, COARSE_WALK_BLOCKS, KERNEL_BLOCKS, BlockMask,
     masked_flash_attention, walk_cost_us)
+from deepspeed_tpu_torch.ops.sparse_attention import banded, hybrid
 from deepspeed_tpu_torch.ops.sparse_attention.blocksparse_v2 import (
     RowRunPlan, build_coarse_index, row_run_attention)
 
@@ -130,6 +141,19 @@ def block_sparse_attention_reference(q, k, v, layout, sm_scale=None,
 # dispatch
 # --------------------------------------------------------------------- #
 _FN_CACHE = {}
+
+# the masked flash kernels K1-K3 for every layout without a user attention
+# mask; flip off to reach the legacy dispatch (banded / hybrid / v2 / coarse)
+USE_MASKED_FLASH = True
+# the row-run kernels K8-K10 within the legacy dispatch; off reaches the
+# per-triple v1 kernels K14-K16, which the port has not ported (raises)
+USE_SPLASH_V2 = True
+# the banded kernels K11-K13 for global-prefix + sliding-window layouts
+USE_BANDED = True
+# the hybrid: K11-K13 on the banded sub-pattern, K8-K10 on the residue
+USE_HYBRID = True
+# coarse walks of K8-K10 (_pick_coarse_block)
+USE_COARSE = True
 # the coarse walk of the row-run kernels: None = the rule below, 0 = the
 # fine walk, N = force N
 _FORCE_COARSE_BLOCK = None
@@ -141,9 +165,11 @@ def _pick_coarse_block(layout: np.ndarray, block: int, has_am: bool):
     with this card's candidates and costs): coarsening must beat the fine
     walk's modeled cost (:func:`walk_cost_us`, "blocksparse_v2": they
     compute every chunk of a walked tile) by more than 10% and keep the
-    unique mask tiles under the byte budget. A fine block the kernels
-    cannot take costs the fine walk nothing finite, so any admitted coarse
-    tile is taken."""
+    unique mask tiles under the byte budget (per coordinate with a user
+    mask, by content without). A fine block the kernels cannot take costs
+    the fine walk nothing finite, so any admitted coarse tile is taken."""
+    if not USE_COARSE:
+        return None
     H, nq, nk = layout.shape
     if _FORCE_COARSE_BLOCK is not None:
         cb = _FORCE_COARSE_BLOCK
@@ -178,47 +204,87 @@ def _pick_coarse_block(layout: np.ndarray, block: int, has_am: bool):
     return best[1] if best else None
 
 
-def planned_kernel(layout, block, has_am=False) -> str:
+def planned_kernel(layout, block, has_am=False, cpu=False) -> str:
     """Which route :func:`block_sparse_attention` takes for this layout
-    (reporting only): ``'masked'`` (K1-K3 at the layout's block),
-    ``'masked-coarse<N>'`` (K1-K3 over a coarsened walk of N with
-    KIND_BAND tiles), and with a user attention mask ``'v2'`` (K8-K10 at
-    the layout's block) or ``'v2-coarse<N>'`` (K8-K10 over a walk of N,
-    the fine structure in the mask tiles)."""
+    (reporting only), JAX's names: ``'masked'`` / ``'masked-coarse<N>'``
+    (K1-K3, the default without a user mask), and under
+    ``USE_MASKED_FLASH = False`` ``'banded'`` (K11-K13), ``'hybrid'``
+    (K11-K13 and K8-K10), ``'v2'`` / ``'v2-coarse<N>'`` (K8-K10 at the
+    layout's block or over a walk of N, the fine structure in the tiles),
+    ``'masked-fallback'`` (K1-K3 where K8-K10 cannot walk) or ``'v1'``
+    (``USE_SPLASH_V2 = False``: raises when called). With a user attention
+    mask ``'v2'`` or ``'v2-coarse<N>'``. ``cpu``: the rule for CPU
+    tensors, in place of JAX's ``interpret``."""
     layout = np.asarray(layout)
-    if has_am:
-        coarse = _pick_coarse_block(layout, block, True)
+    if USE_MASKED_FLASH and not has_am:
+        bm = BlockMask.from_layout(layout, block)
+        return (f"masked-coarse{bm.block}" if bm.block != block
+                else "masked")
+    if USE_BANDED and not has_am:
+        if banded.plan(layout, block, cpu) is not None:
+            return "banded"
+        if USE_HYBRID and USE_SPLASH_V2 and \
+                hybrid.plan_hybrid(layout, block, cpu) is not None:
+            return "hybrid"
+    if not USE_SPLASH_V2:
+        return "v1"
+    coarse = _pick_coarse_block(layout, block, has_am)
+    if has_am or cpu or block in KERNEL_BLOCKS or coarse is not None:
         return f"v2-coarse{coarse}" if coarse else "v2"
-    bm = BlockMask.from_layout(layout, block)
-    return f"masked-coarse{bm.block}" if bm.block != block else "masked"
+    return "masked-fallback"
 
 
 def _sparse_attention_fn(layout: np.ndarray, block: int, sm_scale: float,
-                         has_am: bool):
-    """``f(q, k, v, key_mask[, attn_mask])`` for the layout (cached per
-    layout, block, scale, route and coarse-walk setting): over its
-    :class:`BlockMask`, or with ``has_am`` over its :class:`RowRunPlan`.
-    ``key_mask`` is the additive fp32 ``(B, S)`` key mask or None,
-    ``attn_mask`` the additive ``(S, S)`` mask."""
+                         has_am: bool, cpu: bool = False):
+    """``f(q, k, v, key_mask[, attn_mask])`` for the layout, cached per
+    layout, block, scale, route, device kind and every flag: the route
+    :func:`planned_kernel` names. ``key_mask`` is the additive fp32
+    ``(B, S)`` key mask or None, ``attn_mask`` the additive ``(S, S)``
+    mask."""
     key = (layout.shape, layout.tobytes(), block, float(sm_scale), has_am,
-           _FORCE_COARSE_BLOCK, _COARSE_TILE_BUDGET)
+           cpu, USE_MASKED_FLASH, USE_SPLASH_V2, USE_COARSE,
+           _FORCE_COARSE_BLOCK, _COARSE_TILE_BUDGET, USE_BANDED, USE_HYBRID,
+           banded._FORCE_BLOCKS)
     fn = _FN_CACHE.get(key)
-    if fn is None:
-        if has_am:
-            plan = RowRunPlan(layout, block,
-                              _pick_coarse_block(layout, block, True))
+    if fn is not None:
+        return fn
+    route = planned_kernel(layout, block, has_am, cpu)
+    if route in ("masked", "masked-fallback") or \
+            route.startswith("masked-coarse"):
+        bm = BlockMask.from_layout(layout, block)
 
+        def fn(q, k, v, key_mask):
+            return masked_flash_attention(q, k, v, bm, key_mask=key_mask,
+                                          sm_scale=sm_scale)
+    elif route == "banded":
+        params, blocks = banded.plan(layout, block, cpu)
+        fn = banded.build_banded_fn(layout.shape, block, params, sm_scale,
+                                    blocks)
+    elif route == "hybrid":
+        fn = hybrid.build_hybrid_fn(layout, block,
+                                    hybrid.plan_hybrid(layout, block, cpu),
+                                    sm_scale)
+    elif route == "v1":
+        raise NotImplementedError(
+            "USE_SPLASH_V2 = False routes to the v1 block-sparse kernels "
+            "K14-K16 (deepspeed_tpu/ops/sparse_attention/blocksparse.py "
+            "_bs_fwd_kernel, _bs_dq_kernel, _bs_dkv_kernel), which the port "
+            "has not ported yet")
+    else:
+        plan = RowRunPlan(layout, block,
+                          _pick_coarse_block(layout, block, has_am),
+                          per_coord=has_am)
+        if has_am:
             def fn(q, k, v, key_mask, attn_mask):
                 return row_run_attention(q, k, v, plan, attn_mask,
                                          key_mask=key_mask,
                                          sm_scale=sm_scale)
         else:
-            bm = BlockMask.from_layout(layout, block)
-
             def fn(q, k, v, key_mask):
-                return masked_flash_attention(q, k, v, bm, key_mask=key_mask,
-                                              sm_scale=sm_scale)
-        _FN_CACHE[key] = fn
+                return row_run_attention(q, k, v, plan, key_mask=key_mask,
+                                         sm_scale=sm_scale)
+        fn.kernel_kind = route
+    _FN_CACHE[key] = fn
     return fn
 
 
@@ -237,9 +303,10 @@ def block_sparse_attention(q, k, v, layout, sm_scale: Optional[float] = None,
     attn_mask: (S, S); modes per the reference's sparse softmax ('add'
     adds values, 'mul' drops zero entries). rpe (dense additive
     (B, H, S, S)) and ``force_reference`` route through the dense
-    reference. Otherwise the call runs the masked flash kernels K1-K3,
-    or with an ``attn_mask`` the row-run kernels K8-K10 (their plain
-    versions on CPU tensors).
+    reference. Otherwise the call runs the route :func:`planned_kernel`
+    names: the masked flash kernels K1-K3, or with an ``attn_mask`` the
+    row-run kernels K8-K10, or under ``USE_MASKED_FLASH = False`` the
+    legacy dispatch (their plain versions on CPU tensors).
     """
     B, H, S, D = q.shape
     layout = np.asarray(layout)
@@ -259,7 +326,8 @@ def block_sparse_attention(q, k, v, layout, sm_scale: Optional[float] = None,
     kpm = (None if key_padding_mask is None else
            _to_additive(key_padding_mask, key_padding_mask_mode))
     fn = _sparse_attention_fn(layout, block, float(sm_scale),
-                              attn_mask is not None)
+                              attn_mask is not None,
+                              cpu=q.device.type == "cpu")
     if attn_mask is None:
         return fn(q, k, v, kpm)
     return fn(q, k, v, kpm, _to_additive(attn_mask, attn_mask_mode).to(

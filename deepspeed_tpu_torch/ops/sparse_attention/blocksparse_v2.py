@@ -1,12 +1,16 @@
-"""Row-run block-sparse attention with a user attention mask (the port of
+"""Row-run block-sparse attention (the port of
 ``deepspeed_tpu/ops/sparse_attention/blocksparse_v2.py``).
 
-The route a user ``attn_mask`` takes through ``block_sparse_attention``:
-one walk per block row over its CSR column list, and per walked item a
-``(b, b)`` additive mask tile picked by a uid from the UNIQUE tiles of
-the head-union layout (masks are head-independent, so per-item tiles
-would multiply the bytes by H). Three kernels, each with a wrapper and a
-plain PyTorch version of the same function:
+The route a user ``attn_mask`` takes through ``block_sparse_attention``,
+and without one the v2 route of the legacy dispatch (``USE_MASKED_FLASH =
+False``) and the residue of the hybrid (``hybrid.py``): one walk per
+block row over its CSR column list. With an ``attn_mask``, per walked
+item a ``(b, b)`` additive mask tile picked by a uid from the UNIQUE
+tiles of the head-union layout (masks are head-independent, so per-item
+tiles would multiply the bytes by H); without one, no tile at the fine
+walk (``tiles=None``: the kernels read none, JAX's ``has_am=False``
+arity) and the structural tiles on a coarse walk. Three kernels, each
+with a wrapper and a plain PyTorch version of the same function:
 
 - :func:`blocksparse_v2_fwd` — K8, ``o`` and ``lse`` over the CSR walk
   (replaces ``_v2_fwd_kernel``);
@@ -24,11 +28,14 @@ the three.
 
 The walk is a :class:`RowRunPlan`: the fine layout at its block, or a
 coarse walk (``build_coarse_index``) whose unique tiles carry the fine
-structure as ``NEG_INF`` cells with the user's mask folded in per
-coordinate. The port gathers the unique ``(U, b, b)`` tiles straight
-from the ``(S, S)`` additive mask: JAX's ``_block_am`` / ``_block_kpm``
-pre-blocking is a TPU lane rule. Only the ``has_am`` arity is ported
-(the no-mask arity runs only behind JAX's legacy dispatch).
+structure as ``NEG_INF`` cells, with the user's mask folded in per
+coordinate (``per_coord``) or, without a mask, deduplicated by content.
+The port gathers the unique ``(U, b, b)`` tiles straight from the
+``(S, S)`` additive mask: JAX's ``_block_am`` / ``_block_kpm``
+pre-blocking is a TPU lane rule. JAX streams the structural tiles of a
+coarse walk without a mask in bf16; the port keeps fp32 tiles holding
+the bf16-rounded values (``NEG_INF`` becomes -1.0003e30), so every
+result is JAX's without a second tile dtype in the kernels.
 
 Semantics (JAX's kernels, rounding included): ``s = (q . k) * sm_scale``,
 then ``s += kpm[key]``, then ``s += tile`` in fp32; ``p = 0`` where
@@ -52,7 +59,7 @@ __all__ = ["NEG_INF", "VALID_THRESH", "build_row_runs", "build_am_index",
            "build_coarse_index", "RowRunPlan", "row_run_attention",
            "blocksparse_v2_fwd", "blocksparse_v2_dq", "blocksparse_v2_dkv",
            "blocksparse_v2_fwd_plain", "blocksparse_v2_dq_plain",
-           "blocksparse_v2_dkv_plain", "reset_launches"]
+           "blocksparse_v2_dkv_plain", "row_run_bwd", "reset_launches"]
 
 NEG_INF = -1e30
 VALID_THRESH = -1e29
@@ -164,22 +171,24 @@ def build_coarse_index(fine_layout: np.ndarray, fine_block: int,
 class RowRunPlan:
     """The walk of K8-K10 over one layout (H, nb, nb) of fine ``block``:
     at the fine block, or over ``coarse_block`` tiles with the fine
-    structure in the mask tiles. ``csr`` = (offs, cnts, cols, uids) over
-    rows h * nq + r, ``csc`` = (offs, cnts, rows, uids) over columns
-    h * nk + c; ``tile_rows`` / ``tile_cols`` the walk-block coordinates
-    of the unique tiles; ``struct`` the (U, cb, cb) structural tiles of a
-    coarse walk (None at the fine walk). Device copies are made once per
-    device."""
+    structure in the mask tiles, deduplicated per coordinate when
+    ``per_coord`` (a user mask folds in: JAX's ``per_coord=has_am``).
+    ``csr`` = (offs, cnts, cols, uids) over rows h * nq + r, ``csc`` =
+    (offs, cnts, rows, uids) over columns h * nk + c; ``tile_rows`` /
+    ``tile_cols`` the walk-block coordinates of the unique tiles;
+    ``struct`` the (U, cb, cb) structural tiles of a coarse walk (None at
+    the fine walk). Device copies are made once per device."""
 
     def __init__(self, layout: np.ndarray, block: int,
-                 coarse_block: Optional[int] = None):
+                 coarse_block: Optional[int] = None, per_coord: bool = True):
         layout = np.asarray(layout)
         self.fine_block = int(block)
+        self.per_coord = bool(per_coord)
         self.struct = None
         if coarse_block is not None:
             (layout, self.struct, csr_uids, csc_uids, qrows,
              kcols) = build_coarse_index(layout, block, coarse_block,
-                                         per_coord=True)
+                                         per_coord=per_coord)
             f = coarse_block // block
             self.tile_rows, self.tile_cols = qrows[:, 0] // f, \
                 kcols[:, 0] // f
@@ -213,12 +222,28 @@ class RowRunPlan:
             self._device[key] = got
         return got
 
+    def structural_tiles(self, device) -> Optional[torch.Tensor]:
+        """The tiles of a walk without a user mask: None at the fine walk
+        (the kernels read no tile), else the structural tiles holding the
+        bf16-rounded values JAX streams (0 and bf16(NEG_INF)), in fp32."""
+        if self.struct is None:
+            return None
+        key = ("struct_bf16", str(device))
+        got = self._device.get(key)
+        if got is None:
+            got = self.device("struct", device).to(torch.bfloat16).float()
+            self._device[key] = got
+        return got
+
     def mask_tiles(self, am: torch.Tensor) -> torch.Tensor:
         """The unique (U, b, b) fp32 tiles of the walk from the (S, S)
         additive attention mask: each tile's block of ``am`` at its
         coordinates, plus its structural tile on a coarse walk (JAX's
         ``_unique_am``)."""
         b, n = self.block, self.seq // self.block
+        if self.struct is not None and not self.per_coord:
+            raise ValueError("a coarse walk without per_coord has no tile "
+                             "per coordinate to fold an attention mask into")
         if tuple(am.shape) != (self.seq, self.seq):
             raise ValueError(f"attn_mask must be ({self.seq}, {self.seq}), "
                              f"got {tuple(am.shape)}")
@@ -248,13 +273,13 @@ def _steps(cnts):
         yield t, np.nonzero(cnts > t)[0]
 
 
-def _scores(qt, kt, sm_scale, kpm_t, tile):
-    """(q . k) * sm_scale, then the key mask's row, then the mask tile,
-    in fp32."""
+def _scores(qt, kt, sm_scale, kpm_t, tiles, uid):
+    """(q . k) * sm_scale, then the key mask's row, then the mask tile
+    (none when ``tiles`` is None), in fp32."""
     s = (qt @ kt.transpose(-1, -2)) * sm_scale
     if kpm_t is not None:
         s = s + kpm_t
-    return s + tile
+    return s if tiles is None else s + tiles[uid]
 
 
 def _walk_ids(plan: RowRunPlan, which, live, t, device):
@@ -275,7 +300,8 @@ def blocksparse_v2_fwd_plain(q, k, v, key_mask, tiles, plan: RowRunPlan,
     """K8's function in plain PyTorch: per walked item an fp32 online
     softmax step (no m_safe guard), p rounded to V's dtype before P.V.
     q, k, v (B, H, S, D); ``key_mask`` (B, S) fp32 or None; ``tiles``
-    (U, b, b) fp32 -> o (q's dtype), lse (B, H, S) fp32."""
+    (U, b, b) fp32 or None (no tile) -> o (q's dtype), lse (B, H, S)
+    fp32."""
     B, H, S, D = q.shape
     b = plan.block
     qb, kb, vb = (_blocks(x, b) for x in (q, k, v))
@@ -288,7 +314,7 @@ def blocksparse_v2_fwd_plain(q, k, v, key_mask, tiles, plan: RowRunPlan,
     for t, live in _steps(plan.csr[1]):
         li, kid, uid, col = _walk_ids(plan, "csr", live, t, q.device)
         s = _scores(qb[:, li].float(), kb[:, kid].float(), sm_scale,
-                    None if kpmb is None else kpmb[:, col], tiles[uid])
+                    None if kpmb is None else kpmb[:, col], tiles, uid)
         m_old = m[:, li]
         m_new = torch.maximum(m_old, s.amax(dim=-1))
         p = torch.where(s > VALID_THRESH, torch.exp(s - m_new[..., None]),
@@ -320,7 +346,7 @@ def blocksparse_v2_dq_plain(q, k, v, do, lse, delta, key_mask, tiles,
         li, kid, uid, col = _walk_ids(plan, "csr", live, t, q.device)
         kt = kb[:, kid].float()
         s = _scores(qb[:, li].float(), kt, sm_scale,
-                    None if kpmb is None else kpmb[:, col], tiles[uid])
+                    None if kpmb is None else kpmb[:, col], tiles, uid)
         p = torch.where(s > VALID_THRESH,
                         torch.exp(s - lseb[:, li, :, None]), 0.0)
         dp = dob[:, li].float() @ vb[:, kid].float().transpose(-1, -2)
@@ -349,7 +375,7 @@ def blocksparse_v2_dkv_plain(q, k, v, do, lse, delta, key_mask, tiles,
         qt, dot = qb[:, qid].float(), dob[:, qid].float()
         s = _scores(qt, kb[:, li].float(), sm_scale,
                     None if kpmb is None else kpmb[:, li % plan.nk],
-                    tiles[uid])
+                    tiles, uid)
         p = torch.where(s > VALID_THRESH,
                         torch.exp(s - lseb[:, qid, :, None]), 0.0)
         acc_v[:, li] += p.to(do.dtype).float().transpose(-1, -2) @ dot
@@ -379,7 +405,10 @@ def _check_args(q, k, v, key_mask, tiles, plan: RowRunPlan):
                          f"{S}) key mask, got {key_mask.dtype} "
                          f"{tuple(key_mask.shape)}")
     want = (plan.unique_tiles, plan.block, plan.block)
-    if tuple(tiles.shape) != want or tiles.dtype != torch.float32:
+    if tiles is None:
+        if plan.struct is not None:
+            raise ValueError("a coarse walk needs its mask tiles")
+    elif tuple(tiles.shape) != want or tiles.dtype != torch.float32:
         raise ValueError(f"the row-run kernels take fp32 mask tiles {want}, "
                          f"got {tiles.dtype} {tuple(tiles.shape)}")
 
@@ -518,13 +547,24 @@ reset_launches()
 
 
 # --------------------------------------------------------------------- #
-# autograd
+# the backward impl (JAX's bwd_impl) and autograd
 # --------------------------------------------------------------------- #
+def row_run_bwd(q, k, v, key_mask, tiles, plan: RowRunPlan, sm_scale, o, lse,
+                do):
+    """(dq, dk, dv) of K9 and K10 from the row statistics ``lse`` and the
+    output ``o`` (delta = sum(do * o) in fp32): K8's own, or the merged
+    ones of the hybrid."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    args = (key_mask, tiles, plan, sm_scale)
+    dq = blocksparse_v2_dq(q, k, v, do, lse, delta, *args)
+    dk, dv = blocksparse_v2_dkv(q, k, v, do, lse, delta, *args)
+    return dq, dk, dv
+
+
 class _RowRun(torch.autograd.Function):
-    """Forward K8, saving (q, k, v, key_mask, tiles, o, lse); backward
-    delta = sum(do * o) in fp32, then K9 and K10. The key mask and the
-    mask tiles take no gradient: zeros where asked for, as the JAX
-    package's vjp returns."""
+    """Forward K8, saving (q, k, v, key_mask, tiles, o, lse); backward K9
+    and K10. The key mask and the mask tiles take no gradient: zeros
+    where asked for, as the JAX package's vjp returns."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, tiles, plan, sm_scale):
@@ -537,25 +577,25 @@ class _RowRun(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, key_mask, tiles, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1)
-        args = (key_mask, tiles, ctx.plan, ctx.sm_scale)
-        dq = blocksparse_v2_dq(q, k, v, do, lse, delta, *args)
-        dk, dv = blocksparse_v2_dkv(q, k, v, do, lse, delta, *args)
+        dq, dk, dv = row_run_bwd(q, k, v, key_mask, tiles, ctx.plan,
+                                 ctx.sm_scale, o, lse, do.contiguous())
         zero = [torch.zeros_like(t) if t is not None and need else None
                 for t, need in ((key_mask, ctx.needs_input_grad[3]),
                                 (tiles, ctx.needs_input_grad[4]))]
         return dq, dk, dv, *zero, None, None
 
 
-def row_run_attention(q, k, v, plan: RowRunPlan, attn_mask,
+def row_run_attention(q, k, v, plan: RowRunPlan, attn_mask=None,
                       key_mask=None, sm_scale: Optional[float] = None):
     """Block-sparse attention over ``plan`` under the additive (S, S)
-    ``attn_mask`` and the optional additive (B, S) ``key_mask``, with the
-    custom backward: K8 forward, K9 and K10 backward."""
+    ``attn_mask`` (or none: the plan's structural tiles on a coarse walk,
+    no tile on the fine one) and the optional additive (B, S)
+    ``key_mask``, with the custom backward: K8 forward, K9 and K10
+    backward."""
     if sm_scale is None:
         sm_scale = float(q.shape[-1]) ** -0.5
-    tiles = plan.mask_tiles(attn_mask)
+    tiles = (plan.structural_tiles(q.device) if attn_mask is None
+             else plan.mask_tiles(attn_mask))
     if key_mask is not None:
         key_mask = key_mask.float().contiguous()
     return _RowRun.apply(q.contiguous(), k.contiguous(), v.contiguous(),

@@ -394,7 +394,9 @@ def test_port_imports_neither_jax_nor_deepspeed_tpu():
                    "ops/transformer/transformer.py",
                    "runtime/lr_schedules.py", "ops/optimizers.py",
                    "ops/sparse_attention/blocksparse_v2.py",
-                   "ops/sparse_attention/ops.py"):
+                   "ops/sparse_attention/ops.py",
+                   "ops/sparse_attention/banded.py",
+                   "ops/sparse_attention/hybrid.py"):
         assert REPO / "deepspeed_tpu_torch" / module in files
     for path in files:
         for name in _imports(path):
@@ -406,8 +408,8 @@ def test_port_imports_neither_jax_nor_deepspeed_tpu():
 def test_port_package_imports_without_jax():
     """Importing the port (serving and training entry points, the GPT-2,
     Llama and BERT families, the transformer layer, the schedules, the
-    kernels' modules, the row-run attention and the sparse ops) in a fresh
-    interpreter loads no jax module."""
+    kernels' modules, the row-run, banded and hybrid attention and the
+    sparse ops) in a fresh interpreter loads no jax module."""
     import subprocess
     import sys
     code = ("import sys; before = set(sys.modules); "
@@ -423,6 +425,8 @@ def test_port_package_imports_without_jax():
             "import deepspeed_tpu_torch.runtime.lr_schedules; "
             "import deepspeed_tpu_torch.ops.sparse_attention.blocksparse_v2; "
             "import deepspeed_tpu_torch.ops.sparse_attention.ops; "
+            "import deepspeed_tpu_torch.ops.sparse_attention.banded; "
+            "import deepspeed_tpu_torch.ops.sparse_attention.hybrid; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'deepspeed_tpu')]; "
             "assert not bad, bad")

@@ -43,7 +43,8 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
    (TRAIN_TOL), and at the training shapes a control: the plain versions
    with the bf16 rounding of p and ds left out must fail the same check.
 6. train_kernel_timing: K1, K2 and K3 timed at the training shapes (L2
-   flushed before each call) beside their bound, their plain versions and
+   flushed before each call) beside their bound (the FLOP of the causal
+   cells, not of the whole diagonal tiles), their plain versions and
    the library yardstick (scaled_dot_product_attention forward for K1,
    its backward for K2+K3 together).
 7. training: GPT-2 345M at full width (random weights from seed 0),
@@ -178,10 +179,42 @@ blocks, merged by their lse).
    under the legacy dispatch, 1 warm-up and 3 timed steps and a 2-step
    profile: 96, 96 and 144 launches of K11, K12, K13 per step and none of
    K1-K3; then phase 20's kernel-vs-plain check of it.
-28. the {"kernels": [...]} line (with the three key-mask, the three
-   band, the three row-run, the three banded and the three no-mask
-   row-run entries), the nvidia-smi line, and last
-   {"ok": true, "device": {...}}.
+Phases 28 to 31: the legacy dense flash route
+(set_attention_options(kernel="flash"), restored after), the kernels K5
+(forward), K6 (dq) and K7 (dk, dv), at the card's tiles (bq from seq_q, bk
+from seq_k, each the widest of 128, 64, 32, 16 that divides it).
+28. flash_kernel_check: K5-K7 against their plain versions on the card
+   (TRAIN_TOL), bf16 and fp32: the GPT-2 shape (B 8, H 16, S 1024, D 64,
+   causal) at dropout 0 and 0.1, BERT-large's padding mask at S 128 and
+   S 512 with a batch row of pads, GQA at the LLAMA_1B geometry (32 q
+   heads over 8 kv heads, S 1024, causal), causal with seq_q 512 < seq_k
+   1024 (the keys no query reaches take dk = dv = 0) and 1024 > 512 (the
+   capped walk; in fp32 also o against attention_reference), and tiles of
+   32 at head_dim 24. Controls: the plain versions without the rounding of
+   p and ds, without the key mask or without the causal clip must fail
+   the same check on every output.
+29. flash_kernel_timing: K5-K7 at the GPT-2 shape and at the s8k dense
+   geometry (B 1, H 16, S 8192, D 64, bf16, causal), each first held
+   against its plain versions on the inputs it is timed on (as in phase
+   28, with the rounding control), timed as in phase 6, beside the bound
+   (the causal cells' FLOP), the check's one timed plain call, SDPA
+   is_causal=True and K1-K3 on the default route; then flash_attention(causal=True) forward and backward
+   at the s8k geometry under the knob and under the default route (ms,
+   peak memory, launches), the dense side of JAX's
+   sparse_attention_speedup_s8k beside phase 26's legacy sparse calls.
+30. training_legacy: phase 7 under the knob (2 warm-up, 10 timed steps,
+   no profile): step ms, tokens/s, MFU, peak memory, exactly 24 launches
+   of each of K5-K7 per step and none of K1-K3, the losses beside phase
+   7's; then 3 steps at dropout 0.1 (training_dropout_legacy) and phase
+   9's kernel-vs-plain check (train_kernel_vs_plain_legacy).
+31. bert_training_legacy: phase 15 under the knob at seq 128, 1 warm-up
+   and 3 timed steps: K5-K7's key-mask arity, 48 launches of each per
+   step and none of K1-K3; then phase 16's kernel-vs-plain check
+   (bert_kernel_vs_plain_legacy).
+32. the {"kernels": [...]} line (with the three key-mask, the three
+   band, the three row-run, the three banded, the three no-mask
+   row-run and the three legacy flash entries), the nvidia-smi line, and
+   last {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -189,6 +222,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 
@@ -329,6 +363,20 @@ def time_ms(fn, calls, flush, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def timed_call(fn, flush):
+    """fn()'s result and the CUDA-event ms of that one call, the L2 cache
+    flushed before it."""
+    import torch
+    flush.zero_()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def context_sweep(kernel, args, page_size, flush, contexts=(16, 256, 1024)):
@@ -1147,6 +1195,13 @@ def train_kernel_check_phase():
     return main_row
 
 
+def causal_cells(seq_q, seq_k):
+    """The (query, key) cells causal attention computes per (batch,
+    head): key j of query i for j <= i, of the keys that exist."""
+    n = min(seq_q, seq_k)
+    return n * (n + 1) // 2 + (seq_q - n) * seq_k
+
+
 def train_kernel_timing_phase(smi):
     """Median CUDA-event ms of K1, K2 and K3 at the training shapes, the
     L2 flushed before each call, beside the bound, the plain version and
@@ -1203,12 +1258,13 @@ def train_kernel_timing_phase(smi):
             "deepspeed_tpu/ops/attention/masked_flash.py:604", sdpa_bwd_ms),
     }
     out = {}
-    hm = H if mask.heads == 1 else 1
     for name, (call, plain, dots, b_in, b_out, replaces, lib) in \
             specs.items():
         kernel_ms = time_ms(call, TIMED_CALLS, flush)
         plain_ms = time_ms(plain, 20, flush)
-        flops = mask.nnz * hm * B * dots * 2 * mask.block ** 2 * D
+        # the causal cells' products: what causal attention needs, not
+        # the masked-off half of each diagonal tile the kernels walk
+        flops = causal_cells(S, S) * H * B * dots * 2 * D
         nbytes = b_in + b_out + walks[
             "csc" if name == "masked_flash_dkv" else "csr"]
         bytes_ms = nbytes / bytes_per_s * 1e3
@@ -1217,7 +1273,8 @@ def train_kernel_timing_phase(smi):
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         emit({"phase": "train_kernel_timing", "kernel": name,
               "shape": dict(MAIN_SHAPE, dtype="bf16", mask="causal"),
-              "walked_tiles_per_bh": mask.nnz, "flops": flops,
+              "walked_tiles_per_bh": mask.nnz,
+              "causal_cells_per_bh": causal_cells(S, S), "flops": flops,
               "bytes": nbytes, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
               "library_ms": lib,
               "library": ("scaled_dot_product_attention forward"
@@ -1263,14 +1320,21 @@ def _reset_train_launches():
 
 
 def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
-                   steps=TRAIN_STEPS, warmup=TRAIN_WARMUP):
+                   steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, route=None,
+                   profile=True):
     """GPT-2 345M trained through initialize + train_batch on one
-    repeated batch. Returns the per-kernel launches of the timed steps."""
+    repeated batch. Returns the per-kernel launches of the timed steps
+    and their losses. The kernels of ``route`` (:class:`Route`, K1-K3 by
+    default) must launch ``per_call`` times per layer per step and no
+    other attention kernel at all: FLASH_ROUTE, called inside
+    :class:`_FlashKnob`, is training_legacy."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.gpt2 import (count_params, gpt2_loss_fn,
                                                  init_gpt2_params)
+    from deepspeed_tpu_torch.ops.attention import get_attention_options
     cfg = config or gpt2_345m_train_config()
+    route = route or MASKED_ROUTE
     on_cuda = torch.device(device).type == "cuda"
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = init_gpt2_params(cfg, gen)
@@ -1288,7 +1352,7 @@ def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
     if on_cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    _reset_train_launches()
+    _reset_all_launches()
     losses = []
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -1296,19 +1360,22 @@ def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
     if on_cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _train_launches()
+    launches, other = route.launches()
     losses = [float(x) for x in losses]
     L, H = cfg.num_layers, cfg.hidden_size
     flops_per_token = 6 * n_params + 12 * L * seq * H
     step_s = wall / steps
     tokens_per_s = batch * seq / step_s
-    row = {"phase": "training", "model": "gpt2-345m", "params": n_params,
+    row = {"phase": "training" + route.suffix,
+           "model": "gpt2-345m", "params": n_params,
            "batch": batch, "seq": seq, "dtype": "bf16 over fp32 masters",
            "optimizer": "Adam lr 1e-4", "zero_stage": 0,
            "warmup_steps": warmup, "steps": steps,
            "step_ms": step_s * 1e3, "tokens_per_s": tokens_per_s,
            "flops_per_token": flops_per_token, "losses": losses,
-           "kernel_launches": launches, "nvidia_smi": smi}
+           "kernel_launches": launches, "other_attention_launches": other,
+           "attention_kernel": get_attention_options().kernel,
+           "nvidia_smi": smi}
     if on_cuda:
         _, peak_flops = card_peaks(smi)
         row["mfu"] = flops_per_token * tokens_per_s / peak_flops
@@ -1320,13 +1387,16 @@ def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
         raise AssertionError(f"the repeated batch's loss did not fall: "
                              f"{losses}")
     for name, n in launches.items():
-        if n != L * steps:
+        if n != L * steps * route.per_call[name]:
             raise AssertionError(f"{name} launched {n} times in {steps} "
-                                 f"steps, want {L} per step")
-    if on_cuda:
+                                 f"steps, want {route.per_call[name]} per "
+                                 f"layer per step")
+    if any(other.values()):
+        raise AssertionError(f"other attention kernels launched: {other}")
+    if on_cuda and profile:
         train_profile_phase(engine, data, row["step_ms"])
         head_phase(engine, cfg, batch, seq, row["step_ms"])
-    return launches
+    return launches, losses
 
 
 def train_profile_phase(engine, data, step_ms, steps=2):
@@ -1401,11 +1471,12 @@ def head_phase(engine, cfg, batch, seq, step_ms, calls=5):
           "matmul": "fp32, TF32 off, bf16-rounded operands"})
 
 
-def training_dropout_phase(steps=3, batch=8, seq=1024):
+def training_dropout_phase(steps=3, batch=8, seq=1024, route=None):
     """The gpt2_train_mfu_dropout row's path: GPT-2 345M at dropout 0.1
-    (embedding, residual and attention dropout, the last inside K1-K3)
-    for a few train_batch steps; finite losses and every kernel launched
-    once per layer per step."""
+    (embedding, residual and attention dropout, the last inside the
+    kernels of ``route``, K1-K3 by default) for a few train_batch steps;
+    finite losses, every kernel of the route launched ``per_call`` times
+    per layer per step and no other attention kernel."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.gpt2 import gpt2_loss_fn, init_gpt2_params
@@ -1418,19 +1489,22 @@ def training_dropout_phase(steps=3, batch=8, seq=1024):
         config=dict(TRAIN_DS_CONFIG, train_micro_batch_size_per_gpu=batch))
     ids = np.random.RandomState(SEED).randint(
         0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
-    _reset_train_launches()
+    route = route or MASKED_ROUTE
+    _reset_all_launches()
     losses = [float(engine.train_batch(iter([{"input_ids": ids}])))
               for _ in range(steps)]
-    launches = _train_launches()
-    emit({"phase": "training_dropout", "model": "gpt2-345m",
+    launches, other = route.launches()
+    emit({"phase": "training_dropout" + route.suffix, "model": "gpt2-345m",
           "dropout": 0.1, "steps": steps, "losses": losses,
-          "kernel_launches": launches})
+          "kernel_launches": launches, "other_attention_launches": other})
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite dropout training loss: {losses}")
     for name, n in launches.items():
-        if n != cfg.num_layers * steps:
+        if n != cfg.num_layers * steps * route.per_call[name]:
             raise AssertionError(f"{name} launched {n} times in {steps} "
                                  f"dropout steps")
+    if any(other.values()):
+        raise AssertionError(f"other attention kernels launched: {other}")
 
 
 class _PlainMaskedFlash:
@@ -1453,9 +1527,11 @@ class _PlainMaskedFlash:
         return False
 
 
-def train_kernel_vs_plain_phase(device="cuda", batch=2, seq=1024):
+def train_kernel_vs_plain_phase(device="cuda", batch=2, seq=1024,
+                                route=None):
     """Loss and every grad of a 2-layer full-width GPT-2 in fp32, through
-    the kernels and through their plain versions."""
+    the kernels of ``route`` (K1-K3 by default) and through their plain
+    versions."""
     import torch
     from deepspeed_tpu_torch.models.gpt2 import gpt2_loss_fn, init_gpt2_params
     from deepspeed_tpu_torch.utils.tree import tree_leaves
@@ -1469,17 +1545,18 @@ def train_kernel_vs_plain_phase(device="cuda", batch=2, seq=1024):
         0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
     data = {"input_ids": torch.from_numpy(ids).to(device)}
     loss_fn = gpt2_loss_fn(cfg, dtype=torch.float32, deterministic=True)
+    route = route or MASKED_ROUTE
     results = {}
+
+    def launches():
+        return sum(route.launches()[0].values())
     for path in ("kernel", "plain"):
-        before = _train_launches()["masked_flash_fwd"]
-        if path == "plain":
-            with _PlainMaskedFlash():
-                loss = loss_fn(params, data, None)
-                grads = torch.autograd.grad(loss, leaves)
-        else:
+        before = launches()
+        with (route.plain() if path == "plain"
+              else contextlib.nullcontext()):
             loss = loss_fn(params, data, None)
             grads = torch.autograd.grad(loss, leaves)
-        ran_kernel = _train_launches()["masked_flash_fwd"] > before
+        ran_kernel = launches() > before
         if ran_kernel != (path == "kernel"):
             raise AssertionError(f"the {path} path ran the kernel: "
                                  f"{ran_kernel}")
@@ -1488,7 +1565,8 @@ def train_kernel_vs_plain_phase(device="cuda", batch=2, seq=1024):
     loss_rel = abs(lk - lp) / abs(lp)
     worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                 for a, b in zip(gk, gp))
-    emit({"phase": "train_kernel_vs_plain", "model": "gpt2-345m-width",
+    emit({"phase": "train_kernel_vs_plain" + route.suffix,
+          "model": "gpt2-345m-width",
           "layers": 2, "dtype": "fp32", "batch": batch, "seq": seq,
           "loss_kernel": lk, "loss_plain": lp, "loss_rel_err": loss_rel,
           "loss_rtol": TRAIN_MODEL_LOSS_RTOL, "grads": len(gk),
@@ -1994,11 +2072,6 @@ def _kpm_launches():
     return out
 
 
-def _reset_kpm_launches():
-    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
-    mf.reset_launches()
-
-
 def sparse_bert_setup(kind, ds_config, params, cfg, seq):
     """examples/bing_bert/train.py --mode sparse, with the reference's
     recipe for sequences past the position table: the SparsityConfig of
@@ -2025,35 +2098,38 @@ def sparse_bert_setup(kind, ds_config, params, cfg, seq):
 
 def bert_training_phase(smi, device="cuda", config=None, seq=128,
                         min_len=64, steps=BERT_STEPS, warmup=BERT_WARMUP,
-                        profile=True, sparse=None, legacy=False):
+                        profile=True, sparse=None, route=None):
     """BERT-large MLM trained through initialize + train_batch with the
     bing_bert config as the repo holds it (Lamb, WarmupLR, clipping 1.0,
     ZeRO 1, micro batch 8, ga 2, bf16 over fp32 masters, dropout 0.1).
     Checks finite losses, the lr of every step against WarmupLR.lr_at,
     the Lamb coefficients inside [min_coeff, max_coeff], and that K1, K2
-    and K3 launched their key-mask arity once per layer per micro batch
-    and their mask-free arity never. Returns the kpm launches.
+    and K3 (the kernels of ``route``, :class:`Route`) launched
+    ``per_call`` times per layer per micro batch and no other attention
+    kernel at all, and that every launch of K1-K3 and K5-K7 is of their
+    key-mask arity. Returns the route's launches.
 
     With ``sparse`` ("fixed" or "bslongformer") the phase is
     bert_sparse_training: ds_config_sparse.json and
     :func:`sparse_bert_setup`, and every launch of K1-K3 must be of the
     one arity the layout gives (``masked_flash.arity``: the key mask at
     walk 16 with 16 mask heads for the fixed per-head layouts, the key
-    mask and the band at walk 128 with one mask head for BSLongformer);
-    returns the launches of that arity. With ``legacy`` (called inside
-    :class:`_Legacy`) the phase is bert_sparse_training_legacy: the
-    BSLongformer layout runs the banded kernels, BANDED_PER_CALL launches
-    of each of K11-K13 per layer and micro batch and none of K1-K3 or
-    K8-K10; returns the launches of K11-K13."""
+    mask and the band at walk 128 with one mask head for BSLongformer).
+    BANDED_ROUTE (called inside :class:`_Legacy`) is
+    bert_sparse_training_legacy: the BSLongformer layout runs the banded
+    kernels; FLASH_ROUTE (dense, called inside :class:`_FlashKnob`) is
+    bert_training_legacy."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.bert import (BERT_LARGE,
                                                  bert_mlm_loss_fn,
                                                  count_params,
                                                  init_bert_params)
+    from deepspeed_tpu_torch.ops.attention import flash as tf
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
     from deepspeed_tpu_torch.runtime.lr_schedules import WarmupLR
     cfg = config or BERT_LARGE
+    route = route or MASKED_ROUTE
     on_cuda = torch.device(device).type == "cuda"
     ds_path = BERT_DS_CONFIG if sparse is None else SPARSE_DS_CONFIG
     with open(ds_path) as f:
@@ -2065,7 +2141,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
         sc, params, cfg, bmask, density = sparse_bert_setup(
             sparse, ds_config, params, cfg, seq)
         want_arity = mf.arity(True, bmask)
-        if config is None and not legacy and \
+        if config is None and route is MASKED_ROUTE and \
                 want_arity != SPARSE_ARITY[sparse]:
             raise AssertionError(f"{sparse} layout walks as {want_arity}, "
                                  f"not {SPARSE_ARITY[sparse]}")
@@ -2088,8 +2164,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
     if on_cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    _reset_kpm_launches()
-    _reset_legacy_launches()
+    _reset_all_launches()
     losses, lrs, trusts, zero_norms = [], [], [], []
     step0 = engine.global_steps
     t0 = time.perf_counter()
@@ -2101,9 +2176,10 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
     if on_cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    got, other = route.launches()
     launches = _kpm_launches()
-    legacy_launches = {**_banded_launches(), **_v2_launches()}
     arities = {n: dict(getattr(mf, n).arities) for n in KPM_NAMES}
+    flash_arities = {n: dict(getattr(tf, n).arities) for n in FLASH_NAMES}
     losses = [float(x) for x in losses]
     coeffs = torch.stack(trusts).float().cpu()
     zero_norm = torch.stack(zero_norms).cpu()
@@ -2116,9 +2192,8 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
     flops_per_token = 6 * n_params + 12 * L * seq * H
     step_s = wall / steps
     tokens_per_s = micro * ga * seq / step_s
-    row = {"phase": "bert_training" if sparse is None
-           else "bert_sparse_training_legacy" if legacy
-           else "bert_sparse_training",
+    row = {"phase": ("bert_training" if sparse is None
+                     else "bert_sparse_training") + route.suffix,
            "model": "bert-large" if config is None else "bert",
            "params": n_params, "config": ds_path,
            "micro_batch": micro, "grad_acc": ga, "seq": seq,
@@ -2139,6 +2214,8 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
            "kpm_launches": {n: c[0] for n, c in launches.items()},
            "mask_free_launches": {n: c[1] for n, c in launches.items()},
            "launches_by_arity": arities,
+           "route_launches": got, "other_attention_launches": other,
+           "flash_launches_by_arity": flash_arities,
            "nvidia_smi": smi}
     if sparse is not None:
         row.update(sparse=sparse,
@@ -2147,16 +2224,15 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
                    walk_block=bmask.block, mask_heads=bmask.heads,
                    band=None if bmask.band is None else list(bmask.band),
                    position_table=cfg.max_position_embeddings)
-    if legacy:
+    if sparse is not None and route.planned is not None:
         from deepspeed_tpu_torch.ops.sparse_attention import banded
         from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import \
             planned_kernel
         layout = sc.make_layout(seq)
-        route = planned_kernel(layout, sc.block)
         plan = banded.plan(layout, sc.block, False)
-        row.update(route=route, banded=None if plan is None else dict(
-            params=list(plan[0]), tiles=list(plan[1])),
-            legacy_launches=legacy_launches)
+        row.update(route=planned_kernel(layout, sc.block),
+                   banded=None if plan is None else dict(
+                       params=list(plan[0]), tiles=list(plan[1])))
         del row["arity"], row["walk_block"], row["mask_heads"], row["band"]
     if on_cuda:
         _, peak_flops = card_peaks(smi)
@@ -2180,40 +2256,36 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
             f"with ratios {coeffs[zero_norm].unique().tolist()} (want 1), "
             f"{len(clamped)} others in [{min(clamped, default=None)}, "
             f"{max(clamped, default=None)}] (want [{lo}, {hi}])")
-    want = L * ga * steps
-    if legacy:
-        want_legacy = {n: BANDED_PER_CALL.get(n, 0) * want
-                       for n in legacy_launches}
-        if row["route"] != "banded" or legacy_launches != want_legacy or \
-                any(sum(c) for c in launches.values()):
-            raise AssertionError(
-                f"the legacy dispatch: route {row['route']}, launches "
-                f"{legacy_launches} (want {want_legacy}) and K1-K3 "
-                f"{launches} (want none)")
-        if on_cuda and profile:
-            bert_profile_phase(engine, it, row["step_ms"],
-                               phase="bert_sparse_profile_legacy",
-                               attention="K11-K13 (banded)",
-                               kernels=("banded_fwd_kernel",
-                                        "banded_dq_kernel",
-                                        "banded_dkv_kernel"))
-        return {n: legacy_launches[n] for n in BANDED_NAMES}
+    calls = L * ga * steps
+    want = {n: k * calls for n, k in route.per_call.items()}
+    if got != want or any(other.values()):
+        raise AssertionError(f"the route's kernels launched {got} (want "
+                             f"{want}), the others {other} (want none)")
+    # BERT's attention is full with a key mask: K1-K3 and K5-K7 launch
+    # that arity only, and on a sparse layout K1-K3 the layout's
     for name, (kpm_n, free_n) in launches.items():
-        if kpm_n != want or free_n != 0:
+        if free_n != 0 or sparse is not None and \
+                set(arities[name]) - {want_arity}:
             raise AssertionError(
-                f"{name}: {kpm_n} key-mask launches in {steps} steps (want "
-                f"{L * ga} per step) and {free_n} mask-free ones (want 0)")
-        if sparse is not None and arities[name] != {want_arity: want}:
-            raise AssertionError(f"{name}: launches {arities[name]}, want "
-                                 f"{want} of {want_arity} only")
+                f"{name}: {kpm_n} key-mask launches and {free_n} mask-free "
+                f"ones (want 0), by arity {arities[name]}")
+    if any(set(a) - {"kpm full"} for a in flash_arities.values()):
+        raise AssertionError(f"K5-K7 launched another arity than the key "
+                             f"mask's: {flash_arities}")
+    if route.planned is not None and sparse is not None and \
+            row["route"] != route.planned:
+        raise AssertionError(f"the legacy dispatch planned {row['route']}, "
+                             f"want {route.planned}")
     if on_cuda and profile:
-        if sparse is None:
-            bert_profile_phase(engine, it, row["step_ms"])
-        else:
-            bert_profile_phase(engine, it, row["step_ms"],
-                               phase="bert_sparse_profile",
-                               attention=f"K1-K3 ({want_arity})")
-    return {n: c[0] for n, c in launches.items()}
+        attention = route.label
+        if sparse is not None and route is MASKED_ROUTE:
+            attention = f"K1-K3 ({want_arity})"
+        bert_profile_phase(
+            engine, it, row["step_ms"],
+            phase=("bert_profile" if sparse is None
+                   else "bert_sparse_profile") + route.suffix,
+            attention=attention, kernels=route.profiled)
+    return got
 
 
 def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
@@ -2264,7 +2336,7 @@ def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
 
 
 def bert_kernel_vs_plain_phase(device="cuda", batch=4, seq=128,
-                               sparse=None, config=None, legacy=False):
+                               sparse=None, config=None, route=None):
     """A 2-layer full-width BERT-large in fp32 on a padded batch, dropout
     0, through the kernels' key-mask arity and through their plain
     versions: the encoder (a fixed random linear function of its output,
@@ -2273,17 +2345,20 @@ def bert_kernel_vs_plain_phase(device="cuda", batch=4, seq=128,
     bf16 in an fp32 model too (matmul_bf16_accum_fp32, as in JAX), so a
     value the two paths carry a few fp32 ulps apart may round to
     neighbouring bf16 values there: the loss's grads are held to one bf16
-    ulp (BERT_HEAD_GRAD_TOL) of each grad's largest entry. With
+    ulp (BERT_HEAD_GRAD_TOL) of each grad's largest entry. The kernels
+    are those of ``route`` (:class:`Route`, K1-K3 by default). With
     ``sparse`` the layers' attention is block-sparse
-    (:func:`sparse_bert_setup`): bert_sparse_kernel_vs_plain; with
-    ``legacy`` through the legacy dispatch (K11-K13 against their plain
-    versions): bert_sparse_kernel_vs_plain_legacy."""
+    (:func:`sparse_bert_setup`): bert_sparse_kernel_vs_plain; BANDED_ROUTE
+    inside :class:`_Legacy` is bert_sparse_kernel_vs_plain_legacy;
+    FLASH_ROUTE (dense, inside :class:`_FlashKnob`)
+    bert_kernel_vs_plain_legacy."""
     import torch
     from deepspeed_tpu_torch.models.bert import (BERT_LARGE, bert_encoder,
                                                  bert_mlm_loss_fn,
                                                  init_bert_params)
     from deepspeed_tpu_torch.utils.tree import tree_leaves
     cfg = config or BERT_LARGE._replace(num_layers=2)
+    route = route or MASKED_ROUTE
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     params = init_bert_params(cfg, gen)
     sc, min_len = None, 40
@@ -2308,25 +2383,23 @@ def bert_kernel_vs_plain_phase(device="cuda", batch=4, seq=128,
         out = bert_encoder(p, cfg, data["input_ids"], data["attention_mask"],
                            dtype=torch.float32, sparsity_config=sc)
         return (out * r).sum()
-    row = {"phase": "bert_kernel_vs_plain" if sparse is None
-           else "bert_sparse_kernel_vs_plain_legacy" if legacy
-           else "bert_sparse_kernel_vs_plain",
+    row = {"phase": ("bert_kernel_vs_plain" if sparse is None
+                     else "bert_sparse_kernel_vs_plain") + route.suffix,
            "model": "bert-large-width", "layers": cfg.num_layers,
            "dtype": "fp32", "batch": batch, "seq": seq,
            "real_lengths": f"{min_len}-{seq}",
            "loss_rtol": TRAIN_MODEL_LOSS_RTOL}
-    if sparse is not None and not legacy:
+    if sparse is not None and route.planned is None:
         row.update(sparse=sparse, walk_block=bmask.block,
                    mask_heads=bmask.heads)
-    if legacy:
+    elif sparse is not None:
         from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import \
             planned_kernel
         row.update(sparse=sparse, route=planned_kernel(
             sc.make_layout(seq), sc.block))
 
     def kernel_launches():
-        return (_banded_launches()["banded_fwd"] if legacy
-                else _kpm_launches()["masked_flash_fwd"][0])
+        return sum(route.launches()[0].values())
     ok = True
     for name, fn, grad_tol in (
             ("encoder", encoder, TRAIN_MODEL_GRAD_TOL),
@@ -2334,8 +2407,7 @@ def bert_kernel_vs_plain_phase(device="cuda", batch=4, seq=128,
         results = {}
         for path in ("kernel", "plain"):
             before = kernel_launches()
-            plain_ctx = _PlainBanded() if legacy else _PlainMaskedFlash()
-            with (plain_ctx if path == "plain"
+            with (route.plain() if path == "plain"
                   else contextlib.nullcontext()):
                 loss = fn(params)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -3368,7 +3440,7 @@ def legacy_entry_point_phase(smi):
     and launches per call. BSLongformer must launch BANDED_PER_CALL of
     K11-K13 per call under the legacy dispatch and nothing else; BigBird
     the same and one of each of K8-K10; the default launches K1-K3 once
-    each. Returns the launches of the legacy runs."""
+    each. Returns the launches and the ms per call of the legacy runs."""
     import torch
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
     from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention
@@ -3379,7 +3451,7 @@ def legacy_entry_point_phase(smi):
     B, H, S, D = m["B"], m["H"], m["S"], m["D"]
     q, k, v, g = train_inputs(rng, B, H, H, S, D, torch.bfloat16)
     qkv = [t.requires_grad_() for t in (q, k, v)]
-    launches = {}
+    launches, ms = {}, {}
     for kind in ("lf", "bb"):
         ssa = SparseSelfAttention(s8k_config(kind, H))
         for legacy in (True, False):
@@ -3429,8 +3501,433 @@ def legacy_entry_point_phase(smi):
                 t.grad = None
             if legacy:
                 launches[kind] = got
-    return launches
+                ms[kind] = row["ms_per_fwd_bwd"]
+    return launches, ms
 
+
+# ---------------------------------------- the legacy dense flash route
+# set_attention_options(kernel="flash"): the per-path kernels K5 (forward),
+# K6 (dq) and K7 (dk, dv). JAX's BENCH_LEGACY_ATTN=1 A/B (bench.py:3011)
+# puts every dense attention of the GPT-2, Llama and BERT rows on them,
+# causal attention with seq_q != seq_k runs them on every route, and
+# sparse_attention_speedup_s8k (bench.py:546-590) times its dense side
+# with them
+FLASH_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
+FLASH_REPLACES = {
+    "flash_fwd": "deepspeed_tpu/ops/attention/flash.py:280 (_fwd_kernel)",
+    "flash_dq": "deepspeed_tpu/ops/attention/flash.py:361 (_bwd_dq_kernel)",
+    "flash_dkv": "deepspeed_tpu/ops/attention/flash.py:429 "
+                 "(_bwd_dkv_kernel)"}
+# the LLAMA_1B geometry's attention: 32 q heads over 8 kv heads of 64
+LLAMA_GQA_SHAPE = dict(B=2, H=32, Hkv=8, S=1024, D=64)
+BERT_LEGACY_STEPS, BERT_LEGACY_WARMUP = 3, 1
+
+
+def _flash_launches():
+    from deepspeed_tpu_torch.ops.attention import flash as tf
+    return {n: getattr(tf, n).launches for n in FLASH_NAMES}
+
+
+def _reset_flash_launches():
+    from deepspeed_tpu_torch.ops.attention import flash as tf
+    tf.reset_launches()
+
+
+class _FlashKnob:
+    """Within the block, set_attention_options(kernel="flash"); the
+    previous options are restored after."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops.attention import set_attention_options
+        self._saved = set_attention_options(kernel="flash")
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.ops.attention import set_attention_options
+        set_attention_options(kernel=self._saved.kernel)
+        return False
+
+
+class _PlainFlash:
+    """Within the block, the flash autograd Function calls K5-K7's plain
+    versions instead of their wrappers."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops.attention import flash as tf
+        self._saved = tuple(getattr(tf, n) for n in FLASH_NAMES)
+        for n in FLASH_NAMES:
+            setattr(tf, n, getattr(tf, n + "_plain"))
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.ops.attention import flash as tf
+        for n, fn in zip(FLASH_NAMES, self._saved):
+            setattr(tf, n, fn)
+        return False
+
+
+class Route(NamedTuple):
+    """An attention route as the training phases check it: the kernels it
+    launches and how many times each one attention call launches them, a
+    context in which they call their plain versions instead, the suffix
+    of the phases' names ("" on the default route), what a profile calls
+    them and their device function names, and the route
+    ``blocksparse.planned_kernel`` must name for a sparse layout on it
+    (None: not checked)."""
+    per_call: dict
+    plain: Callable[[], Any]
+    suffix: str
+    label: str
+    profiled: tuple
+    planned: Any = None
+
+    def launches(self):
+        """This route's kernels' launches, and every other attention
+        kernel's."""
+        every = _all_launches()
+        return ({n: every[n] for n in self.per_call},
+                {n: c for n, c in every.items() if n not in self.per_call})
+
+
+def _all_launches():
+    """The launches of every attention kernel of the port, by name."""
+    return {**_train_launches(), **_flash_launches(), **_banded_launches(),
+            **_v2_launches()}
+
+
+def _reset_all_launches():
+    _reset_train_launches()
+    _reset_flash_launches()
+    _reset_legacy_launches()
+
+
+MASKED_ROUTE = Route(dict.fromkeys(KPM_NAMES, 1), _PlainMaskedFlash, "",
+                     "K1-K3 (key-mask arity)",
+                     ("mf_fwd_kernel", "mf_dq_kernel", "mf_dkv_kernel"))
+FLASH_ROUTE = Route(dict.fromkeys(FLASH_NAMES, 1), _PlainFlash, "_legacy",
+                    "K5-K7 (key-mask arity)",
+                    ("flash_fwd_kernel", "flash_dq_kernel",
+                     "flash_dkv_kernel"))
+BANDED_ROUTE = Route(BANDED_PER_CALL, _PlainBanded, "_legacy",
+                     "K11-K13 (banded)",
+                     ("banded_fwd_kernel", "banded_dq_kernel",
+                      "banded_dkv_kernel"), planned="banded")
+
+
+def cross_inputs(rng, B, H, Hkv, sq, sk, D, dtype):
+    """q, do (B, H, sq, D) and k, v (B, Hkv, sk, D) on the card, from
+    numpy."""
+    import torch
+    arrs = [rng.randn(B, H, sq, D), rng.randn(B, Hkv, sk, D),
+            rng.randn(B, Hkv, sk, D), rng.randn(B, H, sq, D)]
+    return [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+            for a in arrs]
+
+
+def check_flash_kernels(name, args, causal, rate, key_mask=None,
+                        control=None, seed=-123457, reference=False,
+                        flush=None):
+    """K5, K6 and K7 against their plain versions on the same inputs, at
+    the card's tiles; the backward kernels get the plain forward's lse and
+    delta, so each kernel is held against its own plain version. With
+    causal seq_q < seq_k the keys no query reaches must get dk = dv = 0;
+    with ``reference`` (fp32) o must also equal attention_reference.
+    ``control``: what a plain version that has to fail the same check on
+    every output leaves out: "rounding" (fp32 copies of the inputs: no
+    rounding of p, pd and ds), "key mask" or "causal" (the clip). With
+    ``flush`` each plain call is timed as it runs (:func:`timed_call`),
+    under "plain_ms" in the returned row."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention import flash as tf
+    q, k, v, do = args
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    sq, sk = q.shape[2], k.shape[2]
+    blocks = tf._pick_blocks(sq, sk, q.device)
+    o, lse = tf.flash_fwd(q, k, v, causal, scale, rate, seed, key_mask)
+    torch.cuda.synchronize()
+
+    def plain(fn, *a):
+        if flush is None:
+            return fn(*a), None
+        return timed_call(lambda: fn(*a), flush)
+    (o_p, lse_p), fwd_ms = plain(tf.flash_fwd_plain, q, k, v, causal, scale,
+                                 rate, seed, key_mask)
+    delta = (do.float() * o_p.float()).sum(-1)
+    bwd = (q, k, v, do, lse_p, delta, causal, scale, rate, seed, key_mask)
+    dq = tf.flash_dq(*bwd)
+    dk, dv = tf.flash_dkv(*bwd)
+    torch.cuda.synchronize()
+    dq_p, dq_ms = plain(tf.flash_dq_plain, *bwd)
+    (dk_p, dv_p), dkv_ms = plain(tf.flash_dkv_plain, *bwd)
+    tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+    row = {"phase": "flash_kernel_check", "case": name,
+           "dtype": str(q.dtype), "shape_q": list(q.shape),
+           "shape_kv": list(k.shape), "causal": causal,
+           "tiles": list(blocks), "dropout": rate,
+           "key_mask": key_mask is not None, "tol": tol,
+           "lse_atol": LSE_ATOL}
+    if flush is not None:
+        row["plain_ms"] = {"flash_fwd": fwd_ms, "flash_dq": dq_ms,
+                           "flash_dkv": dkv_ms}
+    if key_mask is not None:
+        row["real_keys_per_row"] = [int(n) for n in
+                                    (key_mask == 0).sum(-1).tolist()]
+    refs = {"o": o_p, "dq": dq_p, "dk": dk_p, "dv": dv_p}
+    ok = True
+    for key, out in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+        ratio, rel_rms, err, good = compare(out, refs[key], **tol)
+        row[f"{key}_max_abs_err"] = err
+        row[f"{key}_worst_ratio"] = ratio
+        row[f"{key}_rel_rms"] = rel_rms
+        ok &= good
+    lse_err = float((lse - lse_p).abs().max())
+    row["lse_max_abs_err"] = lse_err
+    ok &= lse_err <= LSE_ATOL
+    if causal and sq < sk:
+        zero = bool((dk[:, :, sq:] == 0).all() and (dv[:, :, sq:] == 0).all())
+        row["unreached_keys_zero_grad"] = zero
+        ok &= zero
+    if reference:
+        want = tf.attention_reference(
+            q, k, v, mask=None if key_mask is None
+            else key_mask[:, None, None, :], causal=causal)
+        ratio, _, err, good = compare(o, want, **TRAIN_TOL["fp32"])
+        row["o_vs_attention_reference"] = {"max_abs_err": err,
+                                           "worst_ratio": ratio}
+        ok &= good
+    if control is not None:
+        c_args, c_key, c_causal = args, key_mask, causal
+        if control == "rounding":
+            c_args = [t.float() for t in args]
+        elif control == "key mask":
+            c_key = None
+        else:
+            c_causal = False
+        row["control"] = control + " left out"
+        c_bwd = (*c_args, lse_p, delta, c_causal, scale, rate, seed, c_key)
+        o_c, _ = tf.flash_fwd_plain(*c_args[:3], c_causal, scale, rate, seed,
+                                    c_key)
+        dq_c = tf.flash_dq_plain(*c_bwd)
+        dk_c, dv_c = tf.flash_dkv_plain(*c_bwd)
+        for key, out in (("o", o_c), ("dq", dq_c), ("dk", dk_c),
+                         ("dv", dv_c)):
+            ratio, rel_rms, _, good = compare(out.to(q.dtype), refs[key],
+                                              **tol)
+            row[f"control_{key}_worst_ratio"] = ratio
+            row[f"control_{key}_rel_rms"] = rel_rms
+            row[f"control_{key}_fails"] = not good
+            ok &= not good
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions on {name}, or the control passes "
+                             f"the check: {row}")
+    return row
+
+
+def flash_kernel_check_phase():
+    """Phase 28. Returns the main-path case's row at dropout 0."""
+    import torch
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(SEED + 20)
+    m = MAIN_SHAPE
+    main = train_inputs(rng, m["B"], m["H"], m["Hkv"], m["S"], m["D"], bf16)
+    main_row = check_flash_kernels("gpt2_345m_causal_bf16", main, True, 0.0,
+                                   control="rounding")
+    check_flash_kernels("gpt2_345m_causal_bf16_dropout0.1", main, True, 0.1,
+                        control="rounding")
+    del main
+    b = BERT_SHAPE
+    check_flash_kernels(
+        "bert_large_s128_key_mask_bf16",
+        train_inputs(rng, b["B"], b["H"], b["Hkv"], b["S"], b["D"], bf16),
+        False, 0.0, key_mask=bert_key_mask(rng, b["B"], b["S"], 64, (1,)),
+        control="key mask")
+    check_flash_kernels(
+        "bert_large_s512_key_mask_bf16_dropout0.1",
+        train_inputs(rng, 4, b["H"], b["Hkv"], 512, b["D"], bf16), False,
+        0.1, key_mask=bert_key_mask(rng, 4, 512, 256, (2,)),
+        control="key mask")
+    g = LLAMA_GQA_SHAPE
+    check_flash_kernels(
+        "llama_1b_gqa_h32_hkv8_causal_bf16_dropout0.1",
+        train_inputs(rng, g["B"], g["H"], g["Hkv"], g["S"], g["D"], bf16),
+        True, 0.1, control="rounding")
+    check_flash_kernels(
+        "causal_sq512_sk1024_bf16_dropout0.1",
+        cross_inputs(rng, 2, 16, 16, 512, 1024, 64, bf16), True, 0.1,
+        control="causal")
+    check_flash_kernels(
+        "causal_sq1024_sk512_bf16",
+        cross_inputs(rng, 2, 16, 16, 1024, 512, 64, bf16), True, 0.0,
+        control="causal")
+    check_flash_kernels(
+        "causal_sq1024_sk512_gqa2_key_mask_fp32",
+        cross_inputs(rng, 2, 4, 2, 1024, 512, 64, torch.float32), True, 0.0,
+        key_mask=bert_key_mask(rng, 2, 512, 200), control="key mask",
+        reference=True)
+    check_flash_kernels(
+        "full_fp32_seq96x160_hd24_dropout0.1",
+        cross_inputs(rng, 2, 4, 4, 96, 160, 24, torch.float32), False, 0.1)
+    return main_row
+
+
+def _walked_tiles(seq_q, seq_k, bq, bk, causal):
+    """The tiles K5's walk visits per (batch, head)."""
+    nk = seq_k // bk
+    if not causal:
+        return (seq_q // bq) * nk
+    return sum(min(-(-(qb * bq + bq) // bk), nk) for qb in range(seq_q // bq))
+
+
+def flash_kernel_timing_phase(smi, entry_ms):
+    """Phase 29: K5, K6 and K7 at the GPT-2 training shape and at the s8k
+    dense geometry (B 1, H 16, S 8192, D 64, bf16, causal), first held
+    against their plain versions on the inputs they are timed on
+    (:func:`check_flash_kernels`, the rounding control), then timed as
+    train_kernel_timing times them, each beside its bound (bytes moved
+    once, or the FLOP of the causal cells at the dense bf16 peak), the
+    check's one timed call of its plain version, SDPA is_causal=True
+    (forward for K5,
+    backward for K6 and K7 together: the library column) and K1-K3 on the
+    default route at the same shape. Then flash_attention(causal=True)
+    forward and backward at the s8k geometry under kernel="flash" and
+    under the default route (1 warm-up, V2_ITERS timed): ms, peak memory,
+    launches per call, and the speedup of phase 26's legacy sparse calls
+    over it (the dense side of sparse_attention_speedup_s8k). Returns the
+    GPT-2 shape's timings, with the s8k ones under "s8k"."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention import flash as tf
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    from deepspeed_tpu_torch.ops.attention.flash import (flash_attention,
+                                                         pick_block)
+    from deepspeed_tpu_torch.ops.attention.masked_flash import BlockMask
+    bytes_per_s, flops_per_s = card_peaks(smi)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for label, m, calls in (("gpt2", MAIN_SHAPE, TIMED_CALLS),
+                            ("s8k", S8K_SHAPE, SPARSE_TIMED_CALLS)):
+        B, H, S, D = m["B"], m["H"], m["S"], m["D"]
+        rng = np.random.RandomState(SEED + 21)
+        q, k, v, do = train_inputs(rng, B, H, H, S, D, torch.bfloat16)
+        checked = check_flash_kernels(f"{label}_causal_bf16_timed",
+                                      (q, k, v, do), True, 0.0,
+                                      control="rounding", flush=flush)
+        scale = 1.0 / float(np.sqrt(D))
+        bq, bk = tf._pick_blocks(S, S, q.device)
+        o, lse = tf.flash_fwd(q, k, v, True, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        mask = BlockMask.causal(S, pick_block(S, S))
+        o_m, lse_m = mf.masked_flash_fwd(q, k, v, mask, scale)
+        delta_m = (do.float() * o_m.float()).sum(-1)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        lib = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), calls, flush),
+            "bwd": time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qs, ks, vs), do, retain_graph=True), calls,
+                flush)}
+        del sdpa_out, qs, ks, vs
+        tile = B * H * S * D * 2
+        rowvec = B * H * S * 4
+        walked = _walked_tiles(S, S, bq, bk, True)
+        bwd = (q, k, v, do, lse, delta, True, scale)
+        bwd_m = (q, k, v, do, lse_m, delta_m, mask, scale)
+        specs = {
+            # name: (call, K1-K3's call, dots per cell, bytes in,
+            #        bytes out, library ms)
+            "flash_fwd": (lambda: tf.flash_fwd(q, k, v, True, scale),
+                          lambda: mf.masked_flash_fwd(q, k, v, mask, scale),
+                          2, 3 * tile, tile + rowvec, lib["fwd"]),
+            "flash_dq": (lambda: tf.flash_dq(*bwd),
+                         lambda: mf.masked_flash_dq(*bwd_m),
+                         3, 4 * tile + 2 * rowvec, tile, lib["bwd"]),
+            "flash_dkv": (lambda: tf.flash_dkv(*bwd),
+                          lambda: mf.masked_flash_dkv(*bwd_m),
+                          4, 4 * tile + 2 * rowvec, 2 * tile, lib["bwd"])}
+        rows = {}
+        # the causal cells' products: what causal attention needs, not the
+        # masked-off half of each diagonal tile the walk visits
+        cells = causal_cells(S, S)
+        for name, (call, masked, dots, b_in, b_out, lib_ms) in \
+                specs.items():
+            t = {"ms": time_ms(call, calls, flush),
+                 "plain_ms": checked["plain_ms"][name],
+                 "library_ms": lib_ms,
+                 "masked_route_ms": time_ms(masked, calls, flush),
+                 "replaces": FLASH_REPLACES[name],
+                 **_bounds(cells * B * H * dots * 2 * D, b_in, b_out,
+                           bytes_per_s, flops_per_s)}
+            emit({"phase": "flash_kernel_timing", "kernel": name,
+                  "geometry": label, "shape": dict(m, dtype="bf16",
+                                                   mask="causal"),
+                  "tiles": [bq, bk], "walked_tiles_per_bh": walked,
+                  "causal_cells_per_bh": cells,
+                  "kernel_ms": t["ms"], **t,
+                  "library": "scaled_dot_product_attention is_causal=True "
+                             + ("forward" if name == "flash_fwd" else
+                                "backward (dq, dk, dv together)"),
+                  "masked_route": f"K1-K3, BlockMask.causal walk "
+                                  f"{mask.block}",
+                  "achieved_tflop_per_s": t["flops"] / t["ms"] / 1e9,
+                  "nvidia_smi": smi})
+            rows[name] = t
+        out[label] = rows
+        del q, k, v, do, o, lse, delta, o_m, lse_m, delta_m
+    out["gpt2"]["s8k"] = out["s8k"]
+    # the dense side of sparse_attention_speedup_s8k, through the entry point
+    m = S8K_SHAPE
+    rng = np.random.RandomState(SEED + 22)
+    q, k, v, g = train_inputs(rng, m["B"], m["H"], m["H"], m["S"], m["D"],
+                              torch.bfloat16)
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    dense = {}
+    for route in ("flash", "masked"):
+        with (_FlashKnob() if route == "flash" else contextlib.nullcontext()):
+            def call():
+                o = flash_attention(*qkv, causal=True)
+                (o.float() * g.float()).sum().backward()
+                return o
+            call()
+            torch.cuda.synchronize()
+            for t in qkv:
+                t.grad = None
+            torch.cuda.reset_peak_memory_stats()
+            _reset_flash_launches()
+            mf.reset_launches()
+            t0 = time.perf_counter()
+            for _ in range(V2_ITERS):
+                o = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = {**_flash_launches(), **_train_launches()}
+        names = FLASH_NAMES if route == "flash" else KPM_NAMES
+        want = {n: V2_ITERS if n in names else 0 for n in got}
+        finite = bool(torch.isfinite(o).all()) and all(
+            bool(torch.isfinite(t.grad).all()) for t in qkv)
+        ms = wall / V2_ITERS * 1e3
+        row = {"phase": "flash_s8k_entry_point", "route": route,
+               "call": "flash_attention(q, k, v, causal=True), forward and "
+                       "backward", "shape": dict(m, dtype="bf16"),
+               "iters": V2_ITERS, "warmup": 1, "ms_per_fwd_bwd": ms,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "launches": got, "finite": finite, "nvidia_smi": smi}
+        if route == "flash":
+            row["sparse_speedup_over_this"] = {
+                f"{kind} legacy (phase 26)": ms / entry_ms[kind]
+                for kind in sorted(entry_ms)}
+            dense["ms_per_fwd_bwd"] = ms
+            dense["peak_memory_bytes"] = row["peak_memory_bytes"]
+        emit(row)
+        if got != want or not finite:
+            raise AssertionError(f"flash_attention at the s8k geometry: "
+                                 f"want launches {want}: {row}")
+        for t in qkv:
+            t.grad = None
+    out["gpt2"]["s8k_entry_point"] = dense
+    return out["gpt2"]
 
 def main() -> int:
     import torch
@@ -3473,7 +3970,7 @@ def main() -> int:
         inference_config={"paged_kv": {"kv_dtype": "int8"}}, requests=8)
     del engine, params
     llama_launches = llama_phase(smi)
-    train_launches = training_phase(smi)
+    train_launches, train_losses = training_phase(smi)
     training_dropout_phase()
     train_kernel_vs_plain_phase()
     bert_check = bert_kernel_check_phase()
@@ -3499,13 +3996,28 @@ def main() -> int:
     banded_check, banded_bert_check = banded_kernel_check_phase()
     nomask_check = v2_nomask_kernel_check_phase()
     legacy_timing = legacy_sparse_timing_phase(smi)
-    entry_launches = legacy_entry_point_phase(smi)
+    entry_launches, entry_ms = legacy_entry_point_phase(smi)
     with _Legacy():
         legacy_bert_launches = bert_training_phase(
             smi, seq=SPARSE_SEQ, min_len=SPARSE_MIN_LEN, steps=SPARSE_STEPS,
-            warmup=SPARSE_WARMUP, sparse="bslongformer", legacy=True)
+            warmup=SPARSE_WARMUP, sparse="bslongformer", route=BANDED_ROUTE)
         bert_kernel_vs_plain_phase(batch=2, seq=SPARSE_SEQ,
-                                   sparse="bslongformer", legacy=True)
+                                   sparse="bslongformer", route=BANDED_ROUTE)
+    flash_check = flash_kernel_check_phase()
+    flash_timing = flash_kernel_timing_phase(smi, entry_ms)
+    with _FlashKnob():
+        flash_launches, flash_losses = training_phase(
+            smi, route=FLASH_ROUTE, profile=False)
+        emit({"phase": "training_legacy_losses", "seed": SEED,
+               "legacy_route": flash_losses, "default_route": train_losses,
+               "max_rel_diff": max(abs(a - b) / abs(b) for a, b in
+                                   zip(flash_losses, train_losses))})
+        training_dropout_phase(route=FLASH_ROUTE)
+        train_kernel_vs_plain_phase(route=FLASH_ROUTE)
+        flash_bert_launches = bert_training_phase(
+            smi, steps=BERT_LEGACY_STEPS, warmup=BERT_LEGACY_WARMUP,
+            profile=False, route=FLASH_ROUTE)
+        bert_kernel_vs_plain_phase(route=FLASH_ROUTE)
 
     kernels = [dict(
         name="paged_decode", route="cuda",
@@ -3648,6 +4160,27 @@ def main() -> int:
             max_abs_err=nomask_errs[name], ms=t["ms"], kernel_ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    flash_errs = {"flash_fwd": flash_check["o_max_abs_err"],
+                  "flash_dq": flash_check["dq_max_abs_err"],
+                  "flash_dkv": max(flash_check["dk_max_abs_err"],
+                                   flash_check["dv_max_abs_err"])}
+    for name in FLASH_NAMES:
+        t = flash_timing[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="deepspeed_tpu_torch/csrc/flash.cu",
+            replaces=t["replaces"], launches=flash_launches[name],
+            launches_by_path={
+                f"gpt2-345m training, kernel='flash' ({TRAIN_STEPS} steps)":
+                    flash_launches[name],
+                f"bert-large seq 128, kernel='flash' ({BERT_LEGACY_STEPS} "
+                "steps, key-mask arity)": flash_bert_launches[name]},
+            max_abs_err=flash_errs[name], ms=t["ms"], kernel_ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            masked_route_ms=t["masked_route_ms"],
+            s8k={k: flash_timing["s8k"][name][k]
+                 for k in (*timing_keys, "masked_route_ms")}))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

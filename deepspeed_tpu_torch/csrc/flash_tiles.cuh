@@ -1,6 +1,7 @@
 // Tile helpers shared by the port's attention kernels (masked_flash.cu,
-// blocksparse_v2.cu): fp32 products of shared-memory tiles on the CUDA
-// cores, row staging, warp reductions and the launch wrapper. Every
+// flash.cu, blocksparse_v2.cu, banded.cu): fp32 products of shared-memory
+// tiles on the CUDA cores, row staging, warp reductions, the attention
+// dropout hash and the launch wrapper. Every
 // definition sits in an unnamed namespace, so each source that includes
 // this header holds its own copy.
 
@@ -8,6 +9,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -113,6 +115,38 @@ __device__ __forceinline__ void fill(float* dst, int n, float v) {
 // the rows a CTA owns for a walk block: R = min(blk, 32)
 __host__ __device__ inline int rows_of(int blk) {
   return blk < kRows ? blk : kRows;
+}
+
+// flash.dropout_keep_mask: a lowbias32-style hash of (seed, bh, q, k)
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+struct Dropout {
+  int on;              // 0: no dropout
+  uint32_t thresh;     // keep iff hash < thresh
+  float inv_keep;      // 1 / (1 - rate), rounded to fp32
+  uint32_t seed;       // the int32 seed's bits
+
+  // the two-round finalizer (flash._HASH_FINAL_ROUNDS == 2, which the
+  // wrappers require)
+  __device__ __forceinline__ bool keep(int bh, int qi, int ki) const {
+    const uint32_t row =
+        mix32((uint32_t)qi ^ ((uint32_t)bh * 0x9E3779B9u) ^ seed);
+    return mix32(row ^ (uint32_t)ki) < thresh;
+  }
+};
+
+inline Dropout make_dropout(int on, uint32_t thresh, float inv_keep,
+                            int seed) {
+  Dropout dr;
+  dr.on = on;
+  dr.thresh = thresh;
+  dr.inv_keep = inv_keep;
+  dr.seed = (uint32_t)seed;
+  return dr;
 }
 
 template <typename K>

@@ -74,28 +74,6 @@ constexpr float kValidThresh = -1e28f;  // masked_flash.VALID_THRESH
 constexpr int kKindCausal = 1;
 constexpr int kKindBand = 2;
 
-// flash.dropout_keep_mask: a lowbias32-style hash of (seed, bh, q, k)
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x = (x ^ (x >> 16)) * 0x7FEB352Du;
-  x = (x ^ (x >> 15)) * 0x846CA68Bu;
-  return x ^ (x >> 16);
-}
-
-struct Dropout {
-  int on;              // 0: no dropout
-  uint32_t thresh;     // keep iff hash < thresh
-  float inv_keep;      // 1 / (1 - rate), rounded to fp32
-  uint32_t seed;       // the int32 seed's bits
-
-  // the two-round finalizer (flash._HASH_FINAL_ROUNDS == 2, which the
-  // wrappers require)
-  __device__ __forceinline__ bool keep(int bh, int qi, int ki) const {
-    const uint32_t row =
-        mix32((uint32_t)qi ^ ((uint32_t)bh * 0x9E3779B9u) ^ seed);
-    return mix32(row ^ (uint32_t)ki) < thresh;
-  }
-};
-
 // The banded fine structure of KIND_BAND tiles, in fine blocks of fb
 // rows: keep a cell of query qi, key ki iff its fine row is a global row,
 // its fine column a global column, or they are at most w apart, then
@@ -513,15 +491,6 @@ bool bad_shape(int bh, int H, int Hkv, int Hm, int Sq, int Sk, int D,
 bool bad_band(const Band& bd) {
   return bd.fb < 0 ||
          (bd.fb > 0 && (bd.w < 0 || bd.g_r < 0 || bd.g_c < 0));
-}
-
-Dropout make_dropout(int on, uint32_t thresh, float inv_keep, int seed) {
-  Dropout dr;
-  dr.on = on;
-  dr.thresh = thresh;
-  dr.inv_keep = inv_keep;
-  dr.seed = (uint32_t)seed;
-  return dr;
 }
 
 template <typename T, bool KPM, bool BAND>

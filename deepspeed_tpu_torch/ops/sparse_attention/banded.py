@@ -62,6 +62,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.ops.attention.flash import ordered_dot as _dot
 from deepspeed_tpu_torch.ops.attention.masked_flash import (
     CHUNK, KERNEL_BLOCKS, MAX_HEAD_DIM, walk_cost_us)
 
@@ -445,21 +446,6 @@ def _key_tiles(key_mask, bkv, tiles):
     """The key mask's (B, 1, n, 1, bkv) rows of kv ``tiles``."""
     B, S = key_mask.shape
     return key_mask.reshape(B, S // bkv, bkv)[:, tiles][:, None, :, None, :]
-
-
-def _dot(a, b):
-    """``a @ b^T`` over the last dim in fp32, summed one term at a time
-    in the kernels' order (d = 0, 1, ...). With bf16 operands every
-    product is exact in fp32, so each sum is the kernels' chain of fused
-    multiply-adds bit for bit, whatever order a BLAS library would pick
-    for the batch at hand: the scores and dp decide where p and ds round
-    to bf16, and one flipped rounding of a large p moves a long sum of the
-    backward by more than its last bf16 digit."""
-    a, b = a.float(), b.float()
-    out = a[..., :, None, 0] * b[..., None, :, 0]
-    for d in range(1, a.shape[-1]):
-        out = out + a[..., :, None, d] * b[..., None, :, d]
-    return out
 
 
 def _scores(qt, kt, sm_scale, km, keep):

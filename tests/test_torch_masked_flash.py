@@ -459,7 +459,8 @@ def test_flash_attention_causal_matches_jax():
 def test_routing(monkeypatch):
     """seq % 16 != 0 takes the reference path; the masked route runs the
     masked kernels, with a (B, 1, 1, Sk) key-padding mask too; the legacy
-    route raises instead of falling back; KIND_BAND tiles run."""
+    route (kernel="flash", or causal with seq_q != seq_k) reaches the
+    K5-K7 wrappers and not K1-K3; KIND_BAND tiles run."""
     from deepspeed_tpu_torch.ops.attention import flash as tflash
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
     rng = np.random.RandomState(7)
@@ -476,13 +477,26 @@ def test_routing(monkeypatch):
     q2, k2, v2, _ = (torch.from_numpy(a) for a in _inputs(rng, 1, "fp32"))
     tflash.flash_attention(q2, k2, v2, causal=True)
     assert calls == [1]
-    with pytest.raises(NotImplementedError, match="K5-K7"):
-        tflash.flash_attention(q2, k2, v2, kernel="flash")
-    with pytest.raises(NotImplementedError, match="K5-K7"):
+    legacy = []
+    real_fwd = tflash.flash_fwd
+    monkeypatch.setattr(tflash, "flash_fwd", lambda *a, **kw: legacy.append(
+        a[0].shape[2:3] + a[1].shape[2:3]) or real_fwd(*a, **kw))
+    for kw in (dict(kernel="flash"), dict(kernel="flash", causal=True)):
+        torch.testing.assert_close(
+            tflash.flash_attention(q2, k2, v2, **kw),
+            tflash.attention_reference(q2, k2, v2, causal=bool(kw.get(
+                "causal"))), atol=FP32_ATOL, rtol=0)
+    torch.testing.assert_close(
         tflash.flash_attention(q2, k2[:, :, :32], v2[:, :, :32],
-                               causal=True)
+                               causal=True),
+        tflash.attention_reference(q2, k2[:, :, :32], v2[:, :, :32],
+                                   causal=True), atol=FP32_ATOL, rtol=0)
+    assert legacy == [(S, S), (S, S), (S, 32)]
+    assert calls == [1]
+    tflash.flash_attention(q2, k2, v2, causal=True)     # "masked", sq == sk
+    assert calls == [1, 1] and len(legacy) == 3
     tflash.flash_attention(q2, k2, v2, mask=torch.zeros(1, 1, 1, S))
-    assert calls == [1, 1]
+    assert calls == [1, 1, 1]
     with pytest.raises(ValueError, match="key mask"):
         mf.masked_flash_fwd(q2, k2, v2, mf.BlockMask.dense(S, S, 16), 0.25,
                             key_mask=torch.zeros(1, S, dtype=torch.float64))

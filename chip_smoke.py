@@ -211,10 +211,48 @@ from seq_k, each the widest of 128, 64, 32, 16 that divides it).
    and 3 timed steps: K5-K7's key-mask arity, 48 launches of each per
    step and none of K1-K3; then phase 16's kernel-vs-plain check
    (bert_kernel_vs_plain_legacy).
-32. the {"kernels": [...]} line (with the three key-mask, the three
+Phases 32 to 35: the v1 block-sparse kernels
+(blocksparse.USE_SPLASH_V2 = False, restored after), K14 (forward), K15
+(dq) and K16 (dk, dv), on JAX's three paths to them: a user attention
+mask (JAX's oracle for K8-K10), the legacy dispatch without a mask on the
+fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
+(no mask, USE_BANDED = False).
+32. v1_kernel_check: K14-K16 against their plain versions on the card
+   (TRAIN_TOL; lse within LSE_ATOL, NEG_INF on empty block rows in both):
+   (a) B 8, H 16, S 2048, D 64, bf16, the fixed layouts at block 16, the
+   sparse route's key mask and a 'mul' mask keeping 90%; (b) the same
+   without the attention mask; (c) the s8k geometry without masks,
+   BSLongformer (window 3) and BigBird at block 128, the plain calls of
+   (a)-(c) timed once; (d) at S 512, blocks 32, 64 and 128, bf16 and
+   fp32: 'add' masks of finite values, one row whose only keys sit at
+   -5e28, a hand-made layout with an empty block row and column, a batch
+   row of pads. Controls that must fail the same check on every output:
+   the plain versions with the attention mask left out (else the key
+   mask, else on fp32 inputs), and in (d) with the threshold at -1e29.
+33. v1_kernel_timing: the three at (a), (b) and both layouts of (c),
+   timed as in phase 6, beside the bound (bytes moved once, the mask's
+   once per distinct tile of the heads' union, or the layout's FLOP),
+   the plain call of phase 32, SDPA with the dense float (B, H, S, S)
+   mask and K8-K10 on the same inputs.
+34. v1_entry_point: SparseSelfAttention with the config's section, the
+   key mask and an (S, S) 'mul' mask under USE_SPLASH_V2 = False at (a),
+   forward and backward (1 warm-up, 3 timed): ms, peak memory, exactly
+   one launch of each of K14-K16 per call and no other attention kernel;
+   a 2-head fp32 call against the v1 plain path (TRAIN_TOL fp32) and the
+   default route's K8-K10 (JAX's v2-vs-v1 tolerance); then bench.py's v1
+   fallback at the s8k geometry for both layouts, beside phase 26's
+   legacy calls and phase 29's dense side.
+35. bert_sparse_training_v1: phase 19's fixed configuration under
+   USE_MASKED_FLASH = False and USE_SPLASH_V2 = False, 1 warm-up and 3
+   timed steps and a 2-step profile: 48 launches of each of K14-K16 per
+   step, all of the key-mask arity, and no other attention kernel; the
+   losses beside phase 19's; then phase 20's kernel-vs-plain check of it
+   at seq 2048.
+36. the {"kernels": [...]} line (with the three key-mask, the three
    band, the three row-run, the three banded, the three no-mask
-   row-run and the three legacy flash entries), the nvidia-smi line, and
-   last {"ok": true, "device": {...}}.
+   row-run, the three legacy flash entries and K14-K16 in each of their
+   three arities on the paths above), the nvidia-smi line, and last
+   {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -2107,7 +2145,8 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
     and K3 (the kernels of ``route``, :class:`Route`) launched
     ``per_call`` times per layer per micro batch and no other attention
     kernel at all, and that every launch of K1-K3 and K5-K7 is of their
-    key-mask arity. Returns the route's launches.
+    key-mask arity (of K14-K16 too). Returns the route's launches and the
+    losses.
 
     With ``sparse`` ("fixed" or "bslongformer") the phase is
     bert_sparse_training: ds_config_sparse.json and
@@ -2118,7 +2157,8 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
     BANDED_ROUTE (called inside :class:`_Legacy`) is
     bert_sparse_training_legacy: the BSLongformer layout runs the banded
     kernels; FLASH_ROUTE (dense, called inside :class:`_FlashKnob`) is
-    bert_training_legacy."""
+    bert_training_legacy; V1_ROUTE (inside :func:`_v1_flags`) is
+    bert_sparse_training_v1: the fixed layouts run K14-K16."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.bert import (BERT_LARGE,
@@ -2180,6 +2220,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
     launches = _kpm_launches()
     arities = {n: dict(getattr(mf, n).arities) for n in KPM_NAMES}
     flash_arities = {n: dict(getattr(tf, n).arities) for n in FLASH_NAMES}
+    v1_arities = _v1_arities()
     losses = [float(x) for x in losses]
     coeffs = torch.stack(trusts).float().cpu()
     zero_norm = torch.stack(zero_norms).cpu()
@@ -2216,7 +2257,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
            "launches_by_arity": arities,
            "route_launches": got, "other_attention_launches": other,
            "flash_launches_by_arity": flash_arities,
-           "nvidia_smi": smi}
+           "v1_launches_by_arity": v1_arities, "nvidia_smi": smi}
     if sparse is not None:
         row.update(sparse=sparse,
                    sparse_attention=engine._config.sparse_attention,
@@ -2272,6 +2313,9 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
     if any(set(a) - {"kpm full"} for a in flash_arities.values()):
         raise AssertionError(f"K5-K7 launched another arity than the key "
                              f"mask's: {flash_arities}")
+    if any(set(a) - {"kpm"} for a in v1_arities.values()):
+        raise AssertionError(f"K14-K16 launched another arity than the key "
+                             f"mask's: {v1_arities}")
     if route.planned is not None and sparse is not None and \
             row["route"] != route.planned:
         raise AssertionError(f"the legacy dispatch planned {row['route']}, "
@@ -2285,7 +2329,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
             phase=("bert_profile" if sparse is None
                    else "bert_sparse_profile") + route.suffix,
             attention=attention, kernels=route.profiled)
-    return got
+    return got, losses
 
 
 def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
@@ -3592,13 +3636,15 @@ class Route(NamedTuple):
 def _all_launches():
     """The launches of every attention kernel of the port, by name."""
     return {**_train_launches(), **_flash_launches(), **_banded_launches(),
-            **_v2_launches()}
+            **_v2_launches(), **_v1_launches()}
 
 
 def _reset_all_launches():
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse
     _reset_train_launches()
     _reset_flash_launches()
     _reset_legacy_launches()
+    blocksparse.reset_launches()
 
 
 MASKED_ROUTE = Route(dict.fromkeys(KPM_NAMES, 1), _PlainMaskedFlash, "",
@@ -3929,6 +3975,543 @@ def flash_kernel_timing_phase(smi, entry_ms):
     out["gpt2"]["s8k_entry_point"] = dense
     return out["gpt2"]
 
+
+# ---------------------------------------- the v1 block-sparse kernels
+# blocksparse.USE_SPLASH_V2 = False: the per-triple kernels K14 (forward),
+# K15 (dq) and K16 (dk, dv) on JAX's three paths to them: a user attention
+# mask (JAX's oracle for K8-K10, tests/unit/test_sparse_attention.py:267),
+# the legacy dispatch without a mask on a layout that is not banded
+# (sparse BERT-large with ds_config_sparse.json as held: the key-mask
+# arity) and the v1 fallback of the s8k row (bench.py:614-629: no mask,
+# USE_BANDED = False)
+V1_NAMES = ("bs_fwd", "bs_dq", "bs_dkv")
+V1_REPLACES = {
+    "bs_fwd": "deepspeed_tpu/ops/sparse_attention/blocksparse.py:181 "
+              "(_bs_fwd_kernel)",
+    "bs_dq": "deepspeed_tpu/ops/sparse_attention/blocksparse.py:226 "
+             "(_bs_dq_kernel)",
+    "bs_dkv": "deepspeed_tpu/ops/sparse_attention/blocksparse.py:261 "
+              "(_bs_dkv_kernel)"}
+# the row the (d) cases give keys at -5e28 only: v1's threshold (-1e28)
+# zeros it, the row-run kernels' (-1e29) would not
+V1_FAR_ROW, V1_FAR_VALUE = 77, -5e28
+
+
+def _v1_launches():
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
+    return {n: getattr(bs, n).launches for n in V1_NAMES}
+
+
+def _v1_arities():
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
+    return {n: dict(getattr(bs, n).arities) for n in V1_NAMES}
+
+
+@contextlib.contextmanager
+def _attrs(module, **values):
+    """Within the block, ``module``'s attributes hold ``values``; the old
+    ones are restored after."""
+    saved = {n: getattr(module, n) for n in values}
+    for n, value in values.items():
+        setattr(module, n, value)
+    try:
+        yield
+    finally:
+        for n, value in saved.items():
+            setattr(module, n, value)
+
+
+def _v1_flags(**flags):
+    """Within the block, ``blocksparse.USE_SPLASH_V2 = False`` and the
+    flags in ``flags`` (e.g. ``USE_MASKED_FLASH=False``; the function
+    cache keys on every flag)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse
+    return _attrs(blocksparse, USE_SPLASH_V2=False, **flags)
+
+
+def _plain_triples():
+    """Within the block, the v1 autograd Function calls K14-K16's plain
+    versions instead of their wrappers."""
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse
+    return _attrs(blocksparse, **{n: getattr(blocksparse, n + "_plain")
+                                  for n in V1_NAMES})
+
+
+def v1_plain_outputs(q, k, v, do, key_mask, am, plan, scale, plain=None):
+    """o, lse, dq, dk, dv of the plain K14-K16 (K15 and K16 fed the plain
+    forward's lse and delta); ``plain(kernel, fn, *args)`` runs each (by
+    default, calls it)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
+    plain = plain or (lambda _, fn, *a: fn(*a))
+    o, lse = plain("bs_fwd", bs.bs_fwd_plain, q, k, v, key_mask, am, plan,
+                   scale)
+    delta = (do.float() * o.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, key_mask, am, plan, scale)
+    dq = plain("bs_dq", bs.bs_dq_plain, *bwd)
+    dk, dv = plain("bs_dkv", bs.bs_dkv_plain, *bwd)
+    return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+
+def check_v1_kernels(name, plan, args, key_mask, am, flush=None,
+                     far_row=False, extra=None):
+    """K14, K15 and K16 against their plain versions on the same inputs
+    (K15 and K16 get the plain forward's lse and delta), under TRAIN_TOL;
+    lse within LSE_ATOL; an empty block row's lse exactly NEG_INF in
+    both. The controls, each of which must fail the same check on every
+    output (K15 and K16 fed the control forward's lse and delta): the
+    plain versions with the attention mask left out (where there is one),
+    else with the key mask left out, else on fp32 copies of the inputs
+    (no rounding of p and ds); with ``far_row`` also with the threshold
+    set to the row-run kernels' -1e29. With ``flush`` each plain call is
+    timed once (:func:`timed_once`). Returns the row."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
+    q, k, v, do = args
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    plain_ms = {}
+
+    def timed(kernel, fn, *a):
+        if flush is None:
+            return fn(*a)
+        out, plain_ms[kernel] = timed_once(lambda: fn(*a), flush)
+        return out
+
+    refs = v1_plain_outputs(q, k, v, do, key_mask, am, plan, scale, timed)
+    bs.reset_launches()
+    o, lse = bs.bs_fwd(q, k, v, key_mask, am, plan, scale)
+    bwd = (q, k, v, do, refs["lse"], (do.float() * refs["o"].float()).sum(-1),
+           key_mask, am, plan, scale)
+    dq = bs.bs_dq(*bwd)
+    dk, dv = bs.bs_dkv(*bwd)
+    torch.cuda.synchronize()
+    arity = bs.v1_arity(key_mask, am)
+    tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+    empty = [i for i, c in enumerate(np.diff(plan.rows[0]))
+             if c == 1 and plan.rows[2][plan.rows[0][i]] == 0]
+    row = {"phase": "v1_kernel_check", "case": name, "dtype": str(q.dtype),
+           "shape": list(q.shape), "block": plan.block,
+           "walked_tiles": plan.tiles_walked, "arity": arity,
+           "arities": _v1_arities(), "empty_block_rows": len(empty),
+           "rows_with_no_key": int((refs["lse"] <= bs.VALID_THRESH).sum()),
+           "tol": tol, "lse_atol": LSE_ATOL}
+    if plain_ms:
+        row["plain_ms"] = plain_ms
+    row.update(extra or {})
+    ok = row["arities"] == {n: {arity: 1} for n in V1_NAMES}
+    for key, out in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+        ratio, rel_rms, err, good = compare(out, refs[key], **tol)
+        row[f"{key}_max_abs_err"] = err
+        row[f"{key}_worst_ratio"] = ratio
+        row[f"{key}_rel_rms"] = rel_rms
+        ok &= good
+    row["lse_max_abs_err"] = float((lse - refs["lse"]).abs().max())
+    ok &= row["lse_max_abs_err"] <= LSE_ATOL
+    for i in empty:
+        h, r = divmod(i, plan.nq)
+        cells = slice(r * plan.block, (r + 1) * plan.block)
+        ok &= bool((lse[:, h, cells] == bs.NEG_INF).all()) and \
+            bool((refs["lse"][:, h, cells] == bs.NEG_INF).all())
+    controls = []
+    if am is not None:
+        controls.append(("the attention mask left out", args, key_mask,
+                         None, contextlib.nullcontext()))
+    elif key_mask is not None:
+        controls.append(("the key mask left out", args, None, None,
+                         contextlib.nullcontext()))
+    else:
+        controls.append(("fp32 inputs: no rounding of p and ds",
+                         [t.float() for t in args], None, None,
+                         contextlib.nullcontext()))
+    if far_row:
+        controls.append(("the threshold at -1e29", args, key_mask, am,
+                         _attrs(bs, VALID_THRESH=-1e29)))
+    row["controls"] = {}
+    for label, c_args, c_key, c_am, ctx in controls:
+        with ctx:
+            got = v1_plain_outputs(*c_args, c_key, c_am, plan, scale)
+        fails = {}
+        for key in ("o", "dq", "dk", "dv"):
+            ratio, _, _, good = compare(got[key].to(q.dtype), refs[key],
+                                        **tol)
+            fails[key] = {"worst_ratio": ratio, "fails": not good}
+            ok &= not good
+        row["controls"][label] = fails
+    row["ok"] = bool(ok)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"K14-K16 disagree with their plain versions "
+                             f"on {name}, or a control passes the check: "
+                             f"{row}")
+    return row
+
+
+def v1_far_mask(rng, layout, S, block):
+    """An 'add' (S, S) mask of finite N(0, 1) values whose row
+    V1_FAR_ROW keeps only three of head 0's walked keys, each at
+    V1_FAR_VALUE, and drops the others (-1e30)."""
+    import torch
+    am = rng.randn(S, S).astype(np.float32)
+    keys = np.nonzero(np.kron(layout[0, V1_FAR_ROW // block],
+                              np.ones(block)))[0][:3]
+    am[V1_FAR_ROW] = -1e30
+    am[V1_FAR_ROW, keys] = V1_FAR_VALUE
+    return torch.from_numpy(am).cuda()
+
+
+def v1_kernel_check_phase():
+    """Phase 32: K14, K15 and K16 against their plain versions on the
+    card: (a) the row-run main shape (B 8, H 16, S 2048, D 64, bf16, the
+    fixed layouts of ds_config_sparse.json at block 16, the sparse
+    route's key mask, a 'mul' mask keeping 90%), (b) the same without
+    the attention mask (BERT's arity), (c) the s8k geometry without
+    masks, BSLongformer (window 3) and BigBird at block 128, each plain
+    call timed once; then (d) at S 512: 'add' masks of finite values with
+    a row whose only keys sit at -5e28, a hand-made layout with an empty
+    block row and column, blocks 32, 64 and 128, fp32, a batch row of
+    pads. Returns the rows of (a), (b) and (c) by case."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import (
+        NEG_INF, TriplePlan, _to_additive)
+    rng = np.random.RandomState(SEED + 30)
+    m = V2_SHAPE
+    B, H, S, D = m["B"], m["H"], m["S"], m["D"]
+    bf16 = torch.bfloat16
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    plan = TriplePlan(sparse_config("fixed", heads=H).make_layout(S), 16)
+    main = train_inputs(rng, B, H, H, S, D, bf16)
+    kpm = bert_key_mask(rng, B, S, SPARSE_MIN_LEN, pad=NEG_INF)
+    am = _to_additive(v2_mask(rng, S), "mul")
+    rows = {"a": check_v1_kernels("bert_large_s2048_fixed_am_kpm", plan,
+                                  main, kpm, am, flush=flush),
+            "b": check_v1_kernels("bert_large_s2048_fixed_kpm", plan, main,
+                                  kpm, None, flush=flush)}
+    del main, kpm, am
+    s8 = S8K_SHAPE
+    args = train_inputs(rng, s8["B"], s8["H"], s8["H"], s8["S"], s8["D"],
+                        bf16)
+    for kind in ("lf", "bb"):
+        rows[kind] = check_v1_kernels(
+            f"s8k_{kind}_plain", TriplePlan(s8k_config(kind, s8["H"])
+                                            .make_layout(s8["S"]),
+                                            s8["block"]),
+            args, None, None, flush=flush)
+    del args, flush
+    b, h, s = 2, 4, 512
+    hand = (np.random.RandomState(SEED + 31).rand(h, 16, 16) < 0.4
+            ).astype(np.int32)
+    hand[0, 3] = 0                        # an empty block row
+    hand[1, :, 5] = 0                     # an empty block column
+    hand[0, V1_FAR_ROW // 32, :2] = 1     # walked keys for the far row
+    cases = [
+        # name, layout, block, dtype, key mask pad, far mask
+        ("far_row_hand_block32_fp32", hand, 32, torch.float32, -1e9, True),
+        ("far_row_hand_block32_bf16", hand, 32, bf16, NEG_INF, True),
+        ("bigbird_block64_bf16", BigBirdSparsityConfig(
+            num_heads=h, block=64).make_layout(s), 64, bf16, NEG_INF, False),
+        ("fixed_block128_fp32", sparse_config("fixed", heads=h)
+         .make_layout(s)[:, ::8, ::8], 128, torch.float32, NEG_INF, True),
+    ]
+    for name, lay, blk, dtype, pad, far in cases:
+        args = train_inputs(rng, b, h, h, s, 64, dtype)
+        key = bert_key_mask(rng, b, s, 200, all_pad_rows=(1,), pad=pad)
+        am = (v1_far_mask(rng, lay, s, blk) if far
+              else _to_additive(v2_mask(rng, s, "add"), "add"))
+        row = check_v1_kernels(name, TriplePlan(lay, blk), args, key, am,
+                               far_row=far)
+        if pad == NEG_INF and row["rows_with_no_key"] < h * s:
+            raise AssertionError(f"{name}: the pad row must be keyless: "
+                                 f"{row}")
+    return rows
+
+
+def v1_kernel_timing_phase(smi, check_rows):
+    """Phase 33: K14, K15 and K16 timed as train_kernel_timing times
+    them (L2 flushed) at (a) and (b) of phase 32 (the row-run main shape
+    with and without the attention mask) and (c) (the s8k geometry,
+    BSLongformer and BigBird, no masks), each beside its bound (the bytes
+    moved once, the mask's once per distinct (qb, kb) tile of the heads'
+    union, or the layout's FLOP at the dense bf16 peak), the plain
+    version's one call (phase 32), SDPA with the dense float (B, H, S, S)
+    mask (the library column: forward for K14, backward for K15 and K16
+    together) and K8-K10 on the same inputs (with the mask tiles at (a),
+    their no-mask arity at (b) and (c)). Returns the timings by case."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as v2
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        layout_additive_mask
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import (
+        NEG_INF, _to_additive)
+    rng = np.random.RandomState(SEED + 32)
+    bytes_per_s, flops_per_s = card_peaks(smi)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    m, s8 = V2_SHAPE, S8K_SHAPE
+    main = train_inputs(rng, m["B"], m["H"], m["H"], m["S"], m["D"],
+                        torch.bfloat16)
+    kpm = bert_key_mask(rng, m["B"], m["S"], SPARSE_MIN_LEN, pad=NEG_INF)
+    am = _to_additive(v2_mask(rng, m["S"]), "mul")
+    fixed = sparse_config("fixed", heads=m["H"]).make_layout(m["S"])
+    s8k_args = train_inputs(rng, s8["B"], s8["H"], s8["H"], s8["S"],
+                            s8["D"], torch.bfloat16)
+    cases = {  # case: (layout, block, inputs, key mask, attention mask)
+        "a": (fixed, 16, main, kpm, am), "b": (fixed, 16, main, kpm, None),
+        "lf": (s8k_config("lf", s8["H"]).make_layout(s8["S"]), 128,
+               s8k_args, None, None),
+        "bb": (s8k_config("bb", s8["H"]).make_layout(s8["S"]), 128,
+               s8k_args, None, None)}
+    out = {}
+    for case, (layout, blk, args, key, amask) in cases.items():
+        q, k, v, do = args
+        B, H, S, D = q.shape
+        scale = 1.0 / float(np.sqrt(D))
+        plan = bs.TriplePlan(layout, blk)
+        o, lse = bs.bs_fwd(q, k, v, key, amask, plan, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, key, amask, plan, scale)
+        rp = v2.RowRunPlan(layout, blk, None, per_coord=amask is not None)
+        tiles = None if amask is None else rp.mask_tiles(amask)
+        o2, lse2 = v2.blocksparse_v2_fwd(q, k, v, key, tiles, rp, scale)
+        bwd2 = (q, k, v, do, lse2, (do.float() * o2.float()).sum(-1), key,
+                tiles, rp, scale)
+        dense = torch.from_numpy(layout_additive_mask(layout, blk)).cuda(
+        )[None]
+        if key is not None:
+            dense = dense + key[:, None, None, :]
+        if amask is not None:
+            dense = dense + amask[None, None]
+        dense = dense.to(torch.bfloat16)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=dense)
+        lib = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=dense), SPARSE_TIMED_CALLS, flush),
+            "bwd": time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qs, ks, vs), do, retain_graph=True),
+                SPARSE_TIMED_CALLS, flush)}
+        del sdpa_out, qs, ks, vs, dense
+        tile = B * H * S * D * q.element_size()
+        rowvec = B * H * S * 4
+        union = int((layout.sum(0) > 0).sum())
+        masks = (0 if key is None else key.numel() * 4) + \
+            (0 if amask is None else union * blk * blk * 4)
+        walks = {w: sum(a.nbytes for a in getattr(plan, w))
+                 for w in ("rows", "cols")}
+        tiles_fine = int(layout.astype(bool).sum())
+        specs = {  # name: (call, K8-K10 call, dots, bytes in, bytes out)
+            "bs_fwd": (lambda: bs.bs_fwd(q, k, v, key, amask, plan, scale),
+                       lambda: v2.blocksparse_v2_fwd(q, k, v, key, tiles,
+                                                     rp, scale),
+                       2, 3 * tile + masks + walks["rows"], tile + rowvec),
+            "bs_dq": (lambda: bs.bs_dq(*bwd),
+                      lambda: v2.blocksparse_v2_dq(*bwd2), 3,
+                      4 * tile + 2 * rowvec + masks + walks["rows"], tile),
+            "bs_dkv": (lambda: bs.bs_dkv(*bwd),
+                       lambda: v2.blocksparse_v2_dkv(*bwd2), 4,
+                       4 * tile + 2 * rowvec + masks + walks["cols"],
+                       2 * tile)}
+        out[case] = {}
+        for name, (call, row_run, dots, b_in, b_out) in specs.items():
+            t = {"ms": time_ms(call, SPARSE_TIMED_CALLS, flush),
+                 "plain_ms": check_rows[case]["plain_ms"][name],
+                 "library_ms": lib["fwd" if name == "bs_fwd" else "bwd"],
+                 "row_run_ms": time_ms(row_run, SPARSE_TIMED_CALLS, flush),
+                 "replaces": V1_REPLACES[name],
+                 **_bounds(tiles_fine * B * dots * 2 * blk * blk * D,
+                           b_in, b_out, bytes_per_s, flops_per_s)}
+            emit({"phase": "v1_kernel_timing", "kernel": name, "case": case,
+                  "arity": bs.v1_arity(key, amask), "block": blk,
+                  "shape": [B, H, S, D], "dtype": "bf16",
+                  "walked_tiles": plan.tiles_walked, "union_tiles": union,
+                  "kernel_ms": t["ms"], **t,
+                  "library": "scaled_dot_product_attention "
+                             + ("forward" if name == "bs_fwd" else
+                                "backward (dq, dk, dv together)")
+                             + ", dense float (B, H, S, S) mask",
+                  "row_run": "K8-K10 " + ("with the mask tiles"
+                                          if amask is not None
+                                          else "without a mask tile")
+                             + f", walk {rp.block}",
+                  "achieved_tflop_per_s": t["flops"] / t["ms"] / 1e9,
+                  "nvidia_smi": smi})
+            out[case][name] = t
+        del o, lse, delta, bwd, o2, lse2, bwd2, tiles
+    return out
+
+
+def v1_entry_point_phase(smi, legacy_ms, dense_s8k):
+    """Phase 34: SparseSelfAttention under USE_SPLASH_V2 = False with the
+    config's sparse_attention section, the 'mul' key mask and an (S, S)
+    'mul' mask at the row-run main shape, forward and backward (1
+    warm-up, V2_ITERS timed): ms, peak memory, one launch of each of
+    K14-K16 per call in the "am kpm" arity and no other attention kernel.
+    Then a 2-head fp32 call, the v1 kernel path against its plain path
+    (TRAIN_TOL fp32) and against the default route's K8-K10 (JAX's
+    v2-vs-v1 tolerance). Then bench.py's v1 fallback at the s8k geometry
+    (USE_MASKED_FLASH, USE_SPLASH_V2 and USE_BANDED False) for
+    BSLongformer and BigBird, beside phase 26's legacy calls
+    (``legacy_ms``) and phase 29's dense side (``dense_s8k``). Returns
+    the launches by path."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        SparseSelfAttention, sparsity_config_from_dict)
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import \
+        planned_kernel
+    from deepspeed_tpu_torch.runtime.config import get_sparse_attention
+    rng = np.random.RandomState(SEED + 33)
+    m = V2_SHAPE
+    B, H, S, D = m["B"], m["H"], m["S"], m["D"]
+    with open(SPARSE_DS_CONFIG) as f:
+        sa = get_sparse_attention(json.load(f))
+    lengths = rng.randint(SPARSE_MIN_LEN, S + 1, size=B)
+    keep = torch.from_numpy((np.arange(S)[None, :] < lengths[:, None]
+                             ).astype(np.float32)).cuda()
+    am = v2_mask(rng, S)
+
+    def timed_calls(module, qkv, g, **kw):
+        def call():
+            o = module(*qkv, **kw)
+            (o.float() * g.float()).sum().backward()
+            return o
+        call()
+        torch.cuda.synchronize()
+        for t in qkv:
+            t.grad = None
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        for _ in range(V2_ITERS):
+            o = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        finite = bool(torch.isfinite(o).all()) and all(
+            bool(torch.isfinite(t.grad).all()) for t in qkv)
+        for t in qkv:
+            t.grad = None
+        return {"ms_per_fwd_bwd": wall / V2_ITERS * 1e3,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "finite": finite}
+
+    def check_launches(row, arity):
+        got, arities = _all_launches(), _v1_arities()
+        row.update(launches={n: got[n] for n in V1_NAMES},
+                   arities=arities,
+                   other_attention_launches={
+                       n: c for n, c in got.items() if n not in V1_NAMES})
+        emit(row)
+        if arities != {n: {arity: V2_ITERS} for n in V1_NAMES} or \
+                any(row["other_attention_launches"].values()) or \
+                not row["finite"]:
+            raise AssertionError(f"want {V2_ITERS} launches of each of "
+                                 f"K14-K16 in {arity!r} and no other: {row}")
+        return row["launches"]
+
+    launches = {}
+    q, k, v, g = train_inputs(rng, B, H, H, S, D, torch.bfloat16)
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    ssa = SparseSelfAttention(sparsity_config_from_dict(sa, num_heads=H),
+                              key_padding_mask_mode="mul")
+    with _v1_flags():
+        route = planned_kernel(ssa.get_layout(S), 16, has_am=True)
+        row = {"phase": "v1_entry_point", "path": "attn_mask",
+               "entry": "SparseSelfAttention(sparsity_config_from_dict("
+                        "ds_config_sparse.json), key_padding_mask_mode="
+                        "'mul')(q, k, v, key_padding_mask, attn_mask)",
+               "route": route, "shape": dict(m, dtype="bf16"),
+               "attn_mask": f"'mul', keeps {V2_KEEP}", "iters": V2_ITERS,
+               "warmup": 1, **timed_calls(ssa, qkv, g,
+                                          key_padding_mask=keep,
+                                          attn_mask=am),
+               "nvidia_smi": smi}
+    launches["attn_mask"] = check_launches(row, "am kpm")
+    del q, k, v, g, qkv
+
+    # 2 heads, fp32: the v1 kernel path against its plain path and
+    # against the default route's K8-K10
+    ssa2 = SparseSelfAttention(sparsity_config_from_dict(sa, num_heads=2),
+                               key_padding_mask_mode="mul")
+    q, k, v, g = train_inputs(rng, B, 2, 2, S, D, torch.float32)
+    results = {}
+    for path in ("v1 kernel", "v1 plain", "v2 kernel"):
+        qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = sum(_v1_launches().values())
+        with (_v1_flags() if path.startswith("v1") else
+              contextlib.nullcontext()), \
+                (_plain_triples() if path == "v1 plain"
+                 else contextlib.nullcontext()):
+            o = ssa2(*qkv, key_padding_mask=keep, attn_mask=am)
+            (o.float() * g.float()).sum().backward()
+        ran = sum(_v1_launches().values()) > before
+        if ran != (path == "v1 kernel"):
+            raise AssertionError(f"the {path} path ran K14-K16: {ran}")
+        results[path] = [o.detach()] + [t.grad for t in qkv]
+    tol = TRAIN_TOL["fp32"]
+    row = {"phase": "v1_entry_point_kernel_vs_plain", "heads": 2,
+           "dtype": "fp32", "tol": tol,
+           "v2_tol": {"o": [1e-5, 1e-5], "grads": [5e-5, 5e-4]}, "ok": True}
+    for key, a, p, r in zip(("o", "dq", "dk", "dv"), results["v1 kernel"],
+                            results["v1 plain"], results["v2 kernel"]):
+        ratio, _, err, good = compare(a, p, **tol)
+        atol, rtol = (1e-5, 1e-5) if key == "o" else (5e-5, 5e-4)
+        v2_ratio, _, v2_err, v2_good = compare(r, a, atol, rtol, None)
+        row.update({f"{key}_vs_plain_worst_ratio": ratio,
+                    f"{key}_vs_plain_max_abs_err": err,
+                    f"{key}_vs_v2_worst_ratio": v2_ratio,
+                    f"{key}_vs_v2_max_abs_err": v2_err})
+        row["ok"] &= good and v2_good
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"SparseSelfAttention on v1: the kernel path "
+                             f"differs from the plain path or K8-K10: {row}")
+    del q, k, v, g, results
+
+    # bench.py's v1 fallback of the s8k row
+    s8 = S8K_SHAPE
+    q, k, v, g = train_inputs(rng, s8["B"], s8["H"], s8["H"], s8["S"],
+                              s8["D"], torch.bfloat16)
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    for kind in ("lf", "bb"):
+        ssa = SparseSelfAttention(s8k_config(kind, s8["H"]))
+        with _v1_flags(USE_MASKED_FLASH=False, USE_BANDED=False):
+            route = planned_kernel(ssa.get_layout(s8["S"]), s8["block"])
+            row = {"phase": "v1_entry_point", "path": f"s8k {kind} fallback",
+                   "flags": "USE_MASKED_FLASH, USE_SPLASH_V2, USE_BANDED = "
+                            "False (bench.py:614-629)",
+                   "route": route, "shape": dict(s8, dtype="bf16"),
+                   "iters": V2_ITERS, "warmup": 1,
+                   **timed_calls(ssa, qkv, g), "nvidia_smi": smi}
+        row["legacy_dispatch_ms_phase26"] = legacy_ms[kind]
+        row["dense_flash_ms_phase29"] = dense_s8k["ms_per_fwd_bwd"]
+        launches[f"s8k {kind}"] = check_launches(row, "plain")
+    return launches
+
+
+V1_ROUTE = Route(dict.fromkeys(V1_NAMES, 1), _plain_triples, "_v1",
+                 "K14-K16 (v1, key-mask arity)",
+                 ("bs_fwd_kernel", "bs_dq_kernel", "bs_dkv_kernel"),
+                 planned="v1")
+
+
+def bert_sparse_training_v1_phase(smi, fixed_losses):
+    """Phase 35: phase 19's fixed configuration under USE_MASKED_FLASH =
+    False and USE_SPLASH_V2 = False (K14-K16 in the key-mask arity, 48
+    launches of each per step and no other attention kernel), 1 warm-up
+    and 3 timed steps and a 2-step profile, its losses beside phase 19's
+    (same seed and batches); then phase 20's kernel-vs-plain check of it
+    (2 layers, fp32, at seq 2048). Returns the launches."""
+    with _v1_flags(USE_MASKED_FLASH=False):
+        got, losses = bert_training_phase(
+            smi, seq=SPARSE_SEQ, min_len=SPARSE_MIN_LEN, steps=SPARSE_STEPS,
+            warmup=SPARSE_WARMUP, sparse="fixed", route=V1_ROUTE)
+        emit({"phase": "bert_sparse_training_v1_losses", "seed": SEED,
+              "v1_route": losses, "fixed_k1_k3_phase19": fixed_losses,
+              "max_rel_diff": max(abs(a - b) / abs(b) for a, b in
+                                  zip(losses, fixed_losses))})
+        bert_kernel_vs_plain_phase(batch=2, seq=SPARSE_SEQ, sparse="fixed",
+                                   route=V1_ROUTE)
+    return got
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3975,16 +4558,17 @@ def main() -> int:
     train_kernel_vs_plain_phase()
     bert_check = bert_kernel_check_phase()
     bert_timing = bert_kernel_timing_phase(smi)
-    bert_launches = bert_training_phase(smi)
-    bert_launches_512 = bert_training_phase(
+    bert_launches, _ = bert_training_phase(smi)
+    bert_launches_512, _ = bert_training_phase(
         smi, seq=512, min_len=256, steps=BERT_STEPS_512,
         profile=False)
     bert_kernel_vs_plain_phase()
     sparse_check = sparse_kernel_check_phase()
     sparse_timing, fixed_check = sparse_kernel_timing_phase(smi)
-    sparse_launches = {kind: bert_training_phase(
+    sparse_runs = {kind: bert_training_phase(
         smi, seq=SPARSE_SEQ, min_len=SPARSE_MIN_LEN, steps=SPARSE_STEPS,
         warmup=SPARSE_WARMUP, sparse=kind) for kind in SPARSE_KINDS}
+    sparse_launches = {kind: run[0] for kind, run in sparse_runs.items()}
     # the plain versions' per-tile walk of 16 per-head layouts at seq 2048
     # launches ~1e6 small kernels per call: the fixed config runs at 512
     bert_kernel_vs_plain_phase(batch=2, seq=512, sparse="fixed")
@@ -3998,7 +4582,7 @@ def main() -> int:
     legacy_timing = legacy_sparse_timing_phase(smi)
     entry_launches, entry_ms = legacy_entry_point_phase(smi)
     with _Legacy():
-        legacy_bert_launches = bert_training_phase(
+        legacy_bert_launches, _ = bert_training_phase(
             smi, seq=SPARSE_SEQ, min_len=SPARSE_MIN_LEN, steps=SPARSE_STEPS,
             warmup=SPARSE_WARMUP, sparse="bslongformer", route=BANDED_ROUTE)
         bert_kernel_vs_plain_phase(batch=2, seq=SPARSE_SEQ,
@@ -4014,10 +4598,16 @@ def main() -> int:
                                    zip(flash_losses, train_losses))})
         training_dropout_phase(route=FLASH_ROUTE)
         train_kernel_vs_plain_phase(route=FLASH_ROUTE)
-        flash_bert_launches = bert_training_phase(
+        flash_bert_launches, _ = bert_training_phase(
             smi, steps=BERT_LEGACY_STEPS, warmup=BERT_LEGACY_WARMUP,
             profile=False, route=FLASH_ROUTE)
         bert_kernel_vs_plain_phase(route=FLASH_ROUTE)
+    v1_check = v1_kernel_check_phase()
+    v1_timing = v1_kernel_timing_phase(smi, v1_check)
+    v1_launches = v1_entry_point_phase(smi, entry_ms,
+                                       flash_timing["s8k_entry_point"])
+    v1_launches["bert"] = bert_sparse_training_v1_phase(
+        smi, sparse_runs["fixed"][1])
 
     kernels = [dict(
         name="paged_decode", route="cuda",
@@ -4181,6 +4771,37 @@ def main() -> int:
             masked_route_ms=t["masked_route_ms"],
             s8k={k: flash_timing["s8k"][name][k]
                  for k in (*timing_keys, "masked_route_ms")}))
+    v1_paths = {  # arity: (phase 33's case, {path: launches})
+        "am kpm": ("a", {
+            f"SparseSelfAttention with attn_mask seq {SPARSE_SEQ}, v1 "
+            f"({V2_ITERS} forward and backward)": v1_launches["attn_mask"]}),
+        "kpm": ("b", {
+            f"bert-large sparse fixed seq {SPARSE_SEQ}, v1 ({SPARSE_STEPS} "
+            "steps)": v1_launches["bert"]}),
+        "plain": ("lf", {
+            f"SparseSelfAttention s8k {kind}, v1 fallback ({V2_ITERS} "
+            "forward and backward)": v1_launches[f"s8k {kind}"]
+            for kind in ("lf", "bb")})}
+    for arity, (case, paths) in v1_paths.items():
+        row = v1_check[case]
+        errs = {"bs_fwd": row["o_max_abs_err"], "bs_dq": row["dq_max_abs_err"],
+                "bs_dkv": max(row["dk_max_abs_err"], row["dv_max_abs_err"])}
+        for name in V1_NAMES:
+            t = v1_timing[case][name]
+            extra = {} if arity != "plain" else {"s8k_bigbird": {
+                k: v1_timing["bb"][name][k]
+                for k in (*timing_keys, "row_run_ms")}}
+            kernels.append(dict(
+                name=f"{name}_{arity.replace(' ', '_')}", route="cuda",
+                source="deepspeed_tpu_torch/csrc/blocksparse.cu",
+                replaces=f"{t['replaces']}, arity {arity!r}",
+                launches=sum(p[name] for p in paths.values()),
+                launches_by_path={label: p[name]
+                                  for label, p in paths.items()},
+                max_abs_err=errs[name], ms=t["ms"], kernel_ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t["library_ms"],
+                row_run_ms=t["row_run_ms"], **extra))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -468,23 +468,33 @@ def test_block_sparse_attention_legacy_matches_jax(legacy, case):
         _assert_close(g, w, dtype)
 
 
-def test_v1_route_raises(legacy):
-    """USE_SPLASH_V2 = False reaches JAX's v1 kernels K14-K16 for a
-    layout that is not banded; the port has not ported them and raises,
-    naming them. A banded layout still runs K11-K13, as in JAX."""
+def test_v1_route_runs(legacy):
+    """USE_SPLASH_V2 = False reaches the v1 kernels K14-K16 for a layout
+    that is not banded: the fixed layout plans 'v1' in both packages, and
+    the port's output, without and with an attention mask, equals JAX's
+    interpret-mode kernels. A banded layout still runs K11-K13, as in
+    JAX."""
+    import jax.numpy as jnp
     jbs, tbs = legacy
     tbs.USE_SPLASH_V2 = jbs.USE_SPLASH_V2 = False
     fixed, band = _front_layout("fixed"), _front_layout("bslongformer")
     assert tbs.planned_kernel(fixed, 32, cpu=True) == "v1" == \
         jbs.planned_kernel(fixed, 32, interpret=True)
-    q = torch.zeros(1, 2, 256, 16)
-    with pytest.raises(NotImplementedError, match="K14-K16"):
-        tbs.block_sparse_attention(q, q, q, fixed)
-    with pytest.raises(NotImplementedError, match="K14-K16"):
-        tbs.block_sparse_attention(q, q, q, fixed,
-                                   attn_mask=torch.ones(256, 256))
+    rng = np.random.RandomState(70)
+    q, k, v, _ = _inputs(rng, 1, 2, 256)
+    am = (rng.rand(256, 256) > 0.2).astype(np.float32)
+    for kw in ({}, {"attn_mask": am}):
+        want = np.asarray(jbs.block_sparse_attention(
+            *(jnp.asarray(a) for a in (q, k, v)), fixed, interpret=True,
+            **{n: jnp.asarray(a) for n, a in kw.items()}))
+        got = tbs.block_sparse_attention(
+            *(torch.from_numpy(a) for a in (q, k, v)), fixed,
+            **{n: torch.from_numpy(a) for n, a in kw.items()})
+        _assert_close(got.numpy(), want, "fp32")
     assert tbs.planned_kernel(band, 32, cpu=True) == "banded"
-    assert torch.isfinite(tbs.block_sparse_attention(q, q, q, band)).all()
+    zero = torch.zeros(1, 2, 256, 16)
+    assert torch.isfinite(tbs.block_sparse_attention(zero, zero, zero,
+                                                     band)).all()
 
 
 def test_card_rule_conditions(legacy):

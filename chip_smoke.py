@@ -7,7 +7,9 @@ Phases, each printing JSON objects one per line (any failure raises and
 exits non-zero; with no CUDA device it exits 2 before printing a result):
 
 1. device: the card as nvidia-smi names it, torch/CUDA versions; then
-   every kernel of the port is built with nvcc from csrc/ for sm_90a.
+   every kernel of the port is built with nvcc from csrc/ for sm_90a,
+   each kernel's registers and spills as ptxas -v reports them (a spill
+   in a tensor-core body fails the run).
 2. kernels: each kernel against its plain PyTorch version on the card
    (the GPT-2 and the Llama serving shapes, GQA, fp32, cache-position
    edges with an all-null row, NaN planted past the live pages), and the
@@ -39,9 +41,14 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
    K3 (dk, dv) against their plain versions on the card, at the training
    shapes (B 8, H 16, S 1024, D 64, bf16, causal, block 128) with
    dropout 0 and 0.1, and on a dense mask, GQA (Hkv 4, G 4, D 128), fp32,
-   and per-head layouts with empty rows at block 16. Element by element
+   and per-head layouts with empty rows at block 16; for K1's bf16
+   tensor-core body also causal walks of 16, 32 and 64 at head dims 64,
+   72 and 32, and GQA G 4 at head dim 40. Element by element
    (TRAIN_TOL), and at the training shapes a control: the plain versions
    with the bf16 rounding of p and ds left out must fail the same check.
+   Every check row names the body K1 ran ("body": "mma" in bf16, "fma"
+   in fp32), and a bf16 launch that ran another body fails it; every
+   timing row names each kernel's body.
 6. train_kernel_timing: K1, K2 and K3 timed at the training shapes (L2
    flushed before each call) beside their bound (the FLOP of the causal
    cells, not of the whole diagonal tiles), their plain versions and
@@ -51,8 +58,10 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
    bf16 over fp32 masters, Adam lr 1e-4, batch 8 x 1024 through
    deepspeed_tpu_torch.initialize: 2 warm-up and 10 timed train_batch
    steps on one repeated batch; step time, tokens/s, MFU, peak memory,
-   every loss. Checks finite, falling losses and that K1, K2 and K3 each
-   launched 24 times per step. Then a torch.profiler window over 2 more
+   every loss. Checks finite, falling losses, that K1, K2 and K3 each
+   launched 24 times per step, and that every launch of K1 ran its
+   tensor-core body (fwd_launches_by_body; so in every bf16 training
+   phase below, for K1 and K5). Then a torch.profiler window over 2 more
    steps (device time by kernel group, device idle share) and the tied
    LM head's forward and backward timed alone.
 8. training_dropout: the same model at dropout 0.1 for 3 steps (the
@@ -190,7 +199,11 @@ from seq_k, each the widest of 128, 64, 32, 16 that divides it).
    heads over 8 kv heads, S 1024, causal), causal with seq_q 512 < seq_k
    1024 (the keys no query reaches take dk = dv = 0) and 1024 > 512 (the
    capped walk; in fp32 also o against attention_reference), and tiles of
-   32 at head_dim 24. Controls: the plain versions without the rounding of
+   32 at head_dim 24; for K5's bf16 tensor-core body also tiles (64, 128)
+   with seq_q 320 < seq_k 1024, (128, 32) with 1024 > 160 at head dim 40
+   under GQA 4 and the key mask, tiles of 16 at head dim 32, of 32 at
+   head dim 72, and head dim 128 under GQA 4. Controls: the plain
+   versions without the rounding of
    p and ds, without the key mask or without the causal clip must fail
    the same check on every output.
 29. flash_kernel_timing: K5-K7 at the GPT-2 shape and at the s8k dense
@@ -251,8 +264,9 @@ fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
 36. the {"kernels": [...]} line (with the three key-mask, the three
    band, the three row-run, the three banded, the three no-mask
    row-run, the three legacy flash entries and K14-K16 in each of their
-   three arities on the paths above), the nvidia-smi line, and last
-   {"ok": true, "device": {...}}.
+   three arities on the paths above; K1-K3 and K5-K7 with their "body",
+   K1 with its s8k default-route time from phase 29), the nvidia-smi
+   line, and last {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -1126,8 +1140,10 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
         out, plain_ms[kernel] = timed_once(lambda: fn(*a), flush)
         return out
 
+    bodies = dict(mf.masked_flash_fwd.bodies)
     o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed, key_mask)
     torch.cuda.synchronize()
+    body = _body_ran(mf.masked_flash_fwd, bodies)
     o_p, lse_p = plain("masked_flash_fwd", mf.masked_flash_fwd_plain, q, k,
                        v, mask, scale, rate, seed, key_mask)
     delta = (do.float() * o_p.float()).sum(-1)
@@ -1137,10 +1153,12 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     torch.cuda.synchronize()
     dq_p = plain("masked_flash_dq", mf.masked_flash_dq_plain, *bwd)
     dk_p, dv_p = plain("masked_flash_dkv", mf.masked_flash_dkv_plain, *bwd)
-    tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+    dtype = "fp32" if q.dtype == torch.float32 else "bf16"
+    tol = TRAIN_TOL[dtype]
     row = {"phase": phase, "case": name,
            "dtype": str(q.dtype), "shape_q": list(q.shape),
            "shape_kv": list(k.shape), "block": mask.block,
+           "body": body[0] if len(body) == 1 else body,
            "mask_heads": mask.heads, "walked_tiles": mask.nnz,
            "dropout": rate, "key_mask": key_mask is not None,
            "tol": tol, "lse_atol": LSE_ATOL}
@@ -1165,6 +1183,7 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     lse_err = float((lse - lse_p).abs().max())
     row["lse_max_abs_err"] = lse_err
     ok &= lse_err <= LSE_ATOL
+    ok &= body == [kernel_body("masked_flash_fwd", dtype)]
     if control:
         c_mask, c_key = mask, None
         if control_mask is not None:
@@ -1218,6 +1237,17 @@ def train_kernel_check_phase():
                         BlockMask.causal(512, 128),
                         train_inputs(rng, 2, 16, 4, 512, 128,
                                      torch.bfloat16), 0.1)
+    # K1's tensor-core body at every walk block and at head dims off the
+    # mma's depth of 16 (zero-padded to it in shared memory)
+    for walk, d, rate in ((16, 64, 0.1), (32, 72, 0.0), (64, 32, 0.1)):
+        check_train_kernels(f"causal_bf16_walk{walk}_hd{d}_dropout{rate}",
+                            BlockMask.causal(512, walk),
+                            train_inputs(rng, 2, 8, 8, 512, d,
+                                         torch.bfloat16), rate)
+    check_train_kernels("gqa_hkv4_g4_causal_bf16_hd40",
+                        BlockMask.causal(512, 128),
+                        train_inputs(rng, 2, 16, 4, 512, 40, torch.bfloat16),
+                        0.0)
     check_train_kernels("fp32_causal_block64_dropout0.1",
                         BlockMask.causal(256, 64),
                         train_inputs(rng, 2, 4, 2, 256, 64, torch.float32),
@@ -1321,6 +1351,7 @@ def train_kernel_timing_phase(smi):
                           "(dq, dk, dv together)"),
               "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
               "bound_ms": bound_ms, "bound_by": bound_by,
+              "body": kernel_body(name),
               "achieved_tflop_per_s": flops / kernel_ms / 1e9,
               "nvidia_smi": smi})
         out[name] = {"ms": kernel_ms, "plain_ms": plain_ms,
@@ -1355,6 +1386,37 @@ def _train_launches():
 def _reset_train_launches():
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
     mf.reset_launches()
+
+
+def kernel_body(name, dtype="bf16"):
+    """The body a kernel of K1-K3 or K5-K7 runs on ``dtype`` inputs: K1
+    and K5 in bf16 on the tensor cores ("mma", csrc/mma_fwd.cuh), every
+    other on the CUDA cores ("fma")."""
+    fwd = name in ("masked_flash_fwd", "flash_fwd")
+    return "mma" if fwd and dtype == "bf16" else "fma"
+
+
+def _fwd_bodies():
+    """The launches of K1 and K5 since their counts were last reset, by
+    the body they ran."""
+    from deepspeed_tpu_torch.ops.attention import flash as tf
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    return {"masked_flash_fwd": dict(mf.masked_flash_fwd.bodies),
+            "flash_fwd": dict(tf.flash_fwd.bodies)}
+
+
+def _check_mma_bodies(phase, bodies):
+    """A bf16 run: every launch of K1 and K5 ran the tensor-core body."""
+    if any(b.get("fma", 0) for b in bodies.values()):
+        raise AssertionError(f"{phase}: a bf16 launch of K1 or K5 ran the "
+                             f"CUDA-core body: {bodies}")
+
+
+def _body_ran(wrapper, before):
+    """The bodies whose count in ``wrapper.bodies`` moved past
+    ``before``."""
+    return sorted(b for b, n in wrapper.bodies.items()
+                  if n != before.get(b, 0))
 
 
 def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
@@ -1399,6 +1461,7 @@ def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, other = route.launches()
+    bodies = _fwd_bodies()
     losses = [float(x) for x in losses]
     L, H = cfg.num_layers, cfg.hidden_size
     flops_per_token = 6 * n_params + 12 * L * seq * H
@@ -1412,6 +1475,7 @@ def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
            "step_ms": step_s * 1e3, "tokens_per_s": tokens_per_s,
            "flops_per_token": flops_per_token, "losses": losses,
            "kernel_launches": launches, "other_attention_launches": other,
+           "fwd_launches_by_body": bodies,
            "attention_kernel": get_attention_options().kernel,
            "nvidia_smi": smi}
     if on_cuda:
@@ -1431,6 +1495,7 @@ def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
                                  f"layer per step")
     if any(other.values()):
         raise AssertionError(f"other attention kernels launched: {other}")
+    _check_mma_bodies(row["phase"], bodies)
     if on_cuda and profile:
         train_profile_phase(engine, data, row["step_ms"])
         head_phase(engine, cfg, batch, seq, row["step_ms"])
@@ -1458,7 +1523,7 @@ def train_profile_phase(engine, data, step_ms, steps=2):
                and not getattr(e, "is_user_annotation", False)
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
-    groups = {"masked_flash_fwd": ("mf_fwd_kernel",),
+    groups = {"masked_flash_fwd": ("mf_fwd_",),
               "masked_flash_dq": ("mf_dq_kernel",),
               "masked_flash_dkv": ("mf_dkv_kernel",),
               "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas")}
@@ -1532,9 +1597,12 @@ def training_dropout_phase(steps=3, batch=8, seq=1024, route=None):
     losses = [float(engine.train_batch(iter([{"input_ids": ids}])))
               for _ in range(steps)]
     launches, other = route.launches()
+    bodies = _fwd_bodies()
     emit({"phase": "training_dropout" + route.suffix, "model": "gpt2-345m",
           "dropout": 0.1, "steps": steps, "losses": losses,
-          "kernel_launches": launches, "other_attention_launches": other})
+          "kernel_launches": launches, "other_attention_launches": other,
+          "fwd_launches_by_body": bodies})
+    _check_mma_bodies("training_dropout" + route.suffix, bodies)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite dropout training loss: {losses}")
     for name, n in launches.items():
@@ -1775,6 +1843,7 @@ def bert_kernel_timing_phase(smi):
                               "(dq, dk, dv together), float mask"),
                   "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by,
+                  "body": kernel_body(name),
                   "achieved_tflop_per_s": flops / kernel_ms / 1e9,
                   "nvidia_smi": smi})
             out.setdefault(name, {})[S] = {
@@ -2058,6 +2127,7 @@ def sparse_kernel_timing_phase(smi):
                                   "(dq, dk, dv together), float mask"),
                       "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
+                      "body": kernel_body(name),
                       "achieved_tflop_per_s": flops / kernel_ms / 1e9,
                       "nvidia_smi": smi})
                 out.setdefault(name, {})[label] = {
@@ -2217,6 +2287,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got, other = route.launches()
+    bodies = _fwd_bodies()
     launches = _kpm_launches()
     arities = {n: dict(getattr(mf, n).arities) for n in KPM_NAMES}
     flash_arities = {n: dict(getattr(tf, n).arities) for n in FLASH_NAMES}
@@ -2256,6 +2327,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
            "mask_free_launches": {n: c[1] for n, c in launches.items()},
            "launches_by_arity": arities,
            "route_launches": got, "other_attention_launches": other,
+           "fwd_launches_by_body": bodies,
            "flash_launches_by_arity": flash_arities,
            "v1_launches_by_arity": v1_arities, "nvidia_smi": smi}
     if sparse is not None:
@@ -2280,6 +2352,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
         row["mfu"] = flops_per_token * tokens_per_s / peak_flops
         row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     emit(row)
+    _check_mma_bodies(row["phase"], bodies)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite BERT loss: {losses}")
     if not np.allclose(lrs, want_lrs, rtol=1e-12, atol=0):
@@ -2334,7 +2407,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
 
 def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
                        attention="K1-K3 (key-mask arity)",
-                       kernels=("mf_fwd_kernel", "mf_dq_kernel",
+                       kernels=("mf_fwd_", "mf_dq_kernel",
                                 "mf_dkv_kernel")):
     """Where a BERT step's time goes: a torch.profiler window over
     ``steps`` train_batch calls, the kernels' device time per step by
@@ -3649,10 +3722,10 @@ def _reset_all_launches():
 
 MASKED_ROUTE = Route(dict.fromkeys(KPM_NAMES, 1), _PlainMaskedFlash, "",
                      "K1-K3 (key-mask arity)",
-                     ("mf_fwd_kernel", "mf_dq_kernel", "mf_dkv_kernel"))
+                     ("mf_fwd_", "mf_dq_kernel", "mf_dkv_kernel"))
 FLASH_ROUTE = Route(dict.fromkeys(FLASH_NAMES, 1), _PlainFlash, "_legacy",
                     "K5-K7 (key-mask arity)",
-                    ("flash_fwd_kernel", "flash_dq_kernel",
+                    ("flash_fwd_", "flash_dq_kernel",
                      "flash_dkv_kernel"))
 BANDED_ROUTE = Route(BANDED_PER_CALL, _PlainBanded, "_legacy",
                      "K11-K13 (banded)",
@@ -3689,8 +3762,10 @@ def check_flash_kernels(name, args, causal, rate, key_mask=None,
     scale = 1.0 / float(np.sqrt(q.shape[-1]))
     sq, sk = q.shape[2], k.shape[2]
     blocks = tf._pick_blocks(sq, sk, q.device)
+    bodies = dict(tf.flash_fwd.bodies)
     o, lse = tf.flash_fwd(q, k, v, causal, scale, rate, seed, key_mask)
     torch.cuda.synchronize()
+    body = _body_ran(tf.flash_fwd, bodies)
 
     def plain(fn, *a):
         if flush is None:
@@ -3705,10 +3780,12 @@ def check_flash_kernels(name, args, causal, rate, key_mask=None,
     torch.cuda.synchronize()
     dq_p, dq_ms = plain(tf.flash_dq_plain, *bwd)
     (dk_p, dv_p), dkv_ms = plain(tf.flash_dkv_plain, *bwd)
-    tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+    dtype = "fp32" if q.dtype == torch.float32 else "bf16"
+    tol = TRAIN_TOL[dtype]
     row = {"phase": "flash_kernel_check", "case": name,
            "dtype": str(q.dtype), "shape_q": list(q.shape),
            "shape_kv": list(k.shape), "causal": causal,
+           "body": body[0] if len(body) == 1 else body,
            "tiles": list(blocks), "dropout": rate,
            "key_mask": key_mask is not None, "tol": tol,
            "lse_atol": LSE_ATOL}
@@ -3729,6 +3806,7 @@ def check_flash_kernels(name, args, causal, rate, key_mask=None,
     lse_err = float((lse - lse_p).abs().max())
     row["lse_max_abs_err"] = lse_err
     ok &= lse_err <= LSE_ATOL
+    ok &= body == [kernel_body("flash_fwd", dtype)]
     if causal and sq < sk:
         zero = bool((dk[:, :, sq:] == 0).all() and (dv[:, :, sq:] == 0).all())
         row["unreached_keys_zero_grad"] = zero
@@ -3816,6 +3894,25 @@ def flash_kernel_check_phase():
     check_flash_kernels(
         "full_fp32_seq96x160_hd24_dropout0.1",
         cross_inputs(rng, 2, 4, 4, 96, 160, 24, torch.float32), False, 0.1)
+    # K5's tensor-core body: rectangular tiles (bq != bk) with seq_q !=
+    # seq_k, tiles of 16, head dims 32 to 128 (40 and 72 off the mma's
+    # depth of 16), GQA, dropout and the key mask
+    check_flash_kernels(
+        "causal_sq320_sk1024_tiles64x128_bf16_dropout0.1",
+        cross_inputs(rng, 2, 8, 8, 320, 1024, 64, bf16), True, 0.1)
+    check_flash_kernels(
+        "full_sq1024_sk160_tiles128x32_hd40_gqa4_key_mask_bf16",
+        cross_inputs(rng, 2, 8, 2, 1024, 160, 40, bf16), False, 0.0,
+        key_mask=bert_key_mask(rng, 2, 160, 60))
+    check_flash_kernels(
+        "causal_s208_tiles16_hd32_bf16_dropout0.1",
+        cross_inputs(rng, 2, 8, 8, 208, 208, 32, bf16), True, 0.1)
+    check_flash_kernels(
+        "full_seq96x160_tiles32_hd72_bf16",
+        cross_inputs(rng, 2, 4, 4, 96, 160, 72, bf16), False, 0.0)
+    check_flash_kernels(
+        "causal_s512_hd128_gqa4_bf16_dropout0.1",
+        cross_inputs(rng, 2, 16, 4, 512, 512, 128, bf16), True, 0.1)
     return main_row
 
 
@@ -3917,6 +4014,7 @@ def flash_kernel_timing_phase(smi, entry_ms):
                                 "backward (dq, dk, dv together)"),
                   "masked_route": f"K1-K3, BlockMask.causal walk "
                                   f"{mask.block}",
+                  "body": kernel_body(name),
                   "achieved_tflop_per_s": t["flops"] / t["ms"] / 1e9,
                   "nvidia_smi": smi})
             rows[name] = t
@@ -3960,6 +4058,8 @@ def flash_kernel_timing_phase(smi, entry_ms):
                "iters": V2_ITERS, "warmup": 1, "ms_per_fwd_bwd": ms,
                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                "launches": got, "finite": finite, "nvidia_smi": smi}
+        if route == "masked":
+            dense["masked_launches"] = got["masked_flash_fwd"]
         if route == "flash":
             row["sparse_speedup_over_this"] = {
                 f"{kind} legacy (phase 26)": ms / entry_ms[kind]
@@ -4531,11 +4631,18 @@ def main() -> int:
           "cuda": torch.version.cuda})
     t0 = time.perf_counter()
     built = _build.build_all()
+    ptxas = {n: _build.ptxas_summary(log)
+             for n, log in _build.build_logs.items()}
+    spills = [dict(f, source=n) for n, fs in ptxas.items() for f in fs
+              if f.get("spill_stores") or f.get("spill_loads")]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": sorted(built),
-          "ptxas": {n: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for n, log in _build.build_logs.items()}})
+          "libraries": sorted(built), "ptxas": ptxas,
+          "tensor_core_kernels": sum("_mma_kernel" in f["function"]
+                                     for fs in ptxas.values() for f in fs),
+          "spills": spills})
+    # the tensor-core bodies (K1 and K5 in bf16) may not spill
+    if any("_mma_kernel" in f["function"] for f in spills):
+        raise AssertionError(f"ptxas spills registers: {spills}")
 
     timing = kernel_phase(smi)
     int8_timing = int8_kernel_phase(smi)
@@ -4637,13 +4744,21 @@ def main() -> int:
             "masked_flash_dkv": max(train_check["dk_max_abs_err"],
                                     train_check["dv_max_abs_err"])}
     for name, t in train_timing.items():
+        extra = {}
+        if name == "masked_flash_fwd":
+            # K1 at the s8k dense geometry on the default route (phase 29)
+            s8k = flash_timing["s8k"]["flash_fwd"]
+            extra["s8k_default_route"] = dict(
+                ms=s8k["masked_route_ms"], bound_ms=s8k["bound_ms"],
+                bound_by=s8k["bound_by"], library_ms=s8k["library_ms"],
+                launches=flash_timing["s8k_entry_point"]["masked_launches"])
         kernels.append(dict(
-            name=name, route="cuda",
+            name=name, route="cuda", body=kernel_body(name),
             source="deepspeed_tpu_torch/csrc/masked_flash.cu",
             replaces=t["replaces"], launches=train_launches[name],
             max_abs_err=errs[name], ms=t["ms"], kernel_ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+            bound_by=t["bound_by"], library_ms=t["library_ms"], **extra))
     bert_errs, fixed_errs, band_errs = (
         {"masked_flash_fwd": row["o_max_abs_err"],
          "masked_flash_dq": row["dq_max_abs_err"],
@@ -4654,7 +4769,7 @@ def main() -> int:
     for name in KPM_NAMES:
         t128, t512 = bert_timing[name][128], bert_timing[name][512]
         kernels.append(dict(
-            name=f"{name}_kpm", route="cuda",
+            name=f"{name}_kpm", route="cuda", body=kernel_body(name),
             source="deepspeed_tpu_torch/csrc/masked_flash.cu",
             replaces=t128["replaces"], launches=bert_launches[name],
             launches_by_path={
@@ -4682,7 +4797,7 @@ def main() -> int:
     for name in KPM_NAMES:
         t = sparse_timing[name]["bslongformer walk128"]
         kernels.append(dict(
-            name=f"{name}_band", route="cuda",
+            name=f"{name}_band", route="cuda", body=kernel_body(name),
             source="deepspeed_tpu_torch/csrc/masked_flash.cu",
             replaces=t["replaces"],
             launches=band_launches[name],
@@ -4757,7 +4872,7 @@ def main() -> int:
     for name in FLASH_NAMES:
         t = flash_timing[name]
         kernels.append(dict(
-            name=name, route="cuda",
+            name=name, route="cuda", body=kernel_body(name),
             source="deepspeed_tpu_torch/csrc/flash.cu",
             replaces=t["replaces"], launches=flash_launches[name],
             launches_by_path={

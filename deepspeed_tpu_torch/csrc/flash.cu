@@ -36,19 +36,23 @@
 // What bounds it on an H100: operations. At the GPT-2 345M training
 // shapes (B 8, H 16, S 1024, D 64, causal) a walked 128 x 128 tile does
 // 2-4 products of 128 x 128 x 64 for 2 x 128 x 64 input values, well
-// above the ~295 flop/byte line. This first version is the simple design
-// of K1-K3 (masked_flash.cu) on the CUDA cores, no tensor cores: a CTA of
-// 128 threads owns R = min(bq, 32) query rows (K5, K6) or R = min(bk, 32)
-// key rows (K7); it stages its own rows once and the partner rows of each
-// walked tile in chunks of min(b, 32) rows into shared memory as fp32
-// (rows padded to D+1 words), and does every product with the 2x4
-// register micro-tile of flash_tiles.cuh's mm. K5 keeps a whole tile's
-// scores so that the running max moves once per walked tile of bk keys,
-// as in the Pallas kernel. JAX's streamed layout (K/V or q/do through
-// double-buffered DMA above STREAM_THRESHOLD) is a TPU VMEM layout: these
-// kernels stage through shared memory at every length and need no second
-// code path. Later work: mma/wgmma on the tensor cores, cp.async/TMA
-// staging, the CTA's rows in registers.
+// above the ~295 flop/byte line. K5 in bf16 runs K1's tensor-core body
+// (mma_fwd.cuh) over this walk: a CTA owns min(bq, 64) query rows of one
+// query block, 16 per warp, with Q, the scores and O in registers, and
+// streams the walked tiles of bk keys through a cp.async ring of bf16
+// chunks. The fp32 arity of K5, and K6 and K7 in both dtypes, are the
+// first, simple design of K1-K3 (masked_flash.cu) on the CUDA cores: a
+// CTA of 128 threads owns R = min(bq, 32) query rows (K5, K6) or R =
+// min(bk, 32) key rows (K7); it stages its own rows once and the partner
+// rows of each walked tile in chunks of min(b, 32) rows into shared
+// memory as fp32 (rows padded to D+1 words), and does every product with
+// the 2x4 register micro-tile of flash_tiles.cuh's mm. K5 keeps a whole
+// tile's scores so that the running max moves once per walked tile of bk
+// keys, as in the Pallas kernel. JAX's streamed layout (K/V or q/do
+// through double-buffered DMA above STREAM_THRESHOLD) is a TPU VMEM
+// layout: these kernels stage through shared memory at every length and
+// need no second code path. Later work: K6 and K7 on mma_tiles.cuh's
+// fragments.
 //
 // Built by deepspeed_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -58,6 +62,7 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
+#include "mma_fwd.cuh"
 
 namespace {
 
@@ -78,8 +83,8 @@ __device__ __forceinline__ int key_blocks(const Geo& g, int qb) {
 }
 
 // ------------------------------------------------------------------- K5
-// grid (Sq / R, B*H); R = min(bq, 32) query rows per CTA, key chunks of
-// C = min(bk, 32) rows.
+// fp32 (the CUDA-core body): grid (Sq / R, B*H); R = min(bq, 32) query
+// rows per CTA, key chunks of C = min(bk, 32) rows.
 template <typename T, bool KPM>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -186,6 +191,41 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = l_s[r];
     lse[(size_t)bh * g.Sq + r0 + r] = m_s[r] + logf(l == 0.f ? 1.f : l);
   }
+}
+
+// K5 in bf16 (the tensor-core body, mma_fwd.cuh): grid (Sq / R, B*H),
+// R = min(bq, 64) query rows of one query block per CTA, 16 per warp;
+// W = bk. A walked tile is CAUSAL (the clip) when causal and a key of it
+// lies past the CTA's first row r0, else FULL.
+struct BlockWalk {
+  int count, bk, causal, r0;
+  __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int2 tile(int t) const {
+    const int k0 = t * bk;
+    return make_int2(k0, causal && k0 + bk - 1 > r0 ? kKindCausal : 0);
+  }
+};
+
+template <int W, int DMAX, bool KPM>
+__global__ void __launch_bounds__(2 * kMmaMaxRows, 3)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const float* __restrict__ kpm, bf16* __restrict__ o,
+                     float* __restrict__ lse, Geo g, Dropout dr) {
+  const int R = blockDim.x / 2;
+  const int D = g.D;
+  const int bh = blockIdx.y;
+  const int h = bh % g.H;
+  const int b = bh / g.H;
+  // the last rows first: under a causal mask they walk the most tiles
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * R;
+  const BlockWalk walk{key_blocks(g, r0 / g.bq), W, g.causal, r0};
+  const size_t kvr = (size_t)b * g.Hkv + h / (g.H / g.Hkv);
+  const size_t row0 = (size_t)bh * g.Sq + r0;
+  const FwdRows rows{q + row0 * D, k + kvr * g.Sk * D, v + kvr * g.Sk * D,
+                     KPM ? kpm + (size_t)b * g.Sk : nullptr, o + row0 * D,
+                     lse + row0, r0, D, bh, g.sm_scale};
+  mma_fwd_body<W, DMAX, KPM, false, false>(rows, walk, NoBand{}, dr);
 }
 
 // ------------------------------------------------------------------- K6
@@ -394,6 +434,34 @@ cudaError_t run_fwd(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                 static_cast<T*>(o), static_cast<float*>(lse), g, dr);
 }
 
+template <int W, int DMAX, bool KPM>
+cudaError_t run_fwd_mma(dim3 grid, int threads, size_t smem, cudaStream_t s,
+                        const void* q, const void* k, const void* v,
+                        const void* kpm, void* o, void* lse, Geo g,
+                        Dropout dr) {
+  return launch_rows(flash_fwd_mma_kernel<W, DMAX, KPM>, grid, threads, smem,
+                     s, static_cast<const bf16*>(q),
+                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                     static_cast<const float*>(kpm), static_cast<bf16*>(o),
+                     static_cast<float*>(lse), g, dr);
+}
+
+using FwdMma = decltype(&run_fwd_mma<16, 64, false>);
+
+// the tensor-core instantiation of a key tile and key mask (the
+// bad_shape checks passed: bk is 16, 32, 64 or 128)
+template <int DMAX>
+FwdMma pick_fwd_mma(int bk, bool kpm) {
+  return bk == 16   ? (kpm ? run_fwd_mma<16, DMAX, true>
+                           : run_fwd_mma<16, DMAX, false>)
+         : bk == 32 ? (kpm ? run_fwd_mma<32, DMAX, true>
+                           : run_fwd_mma<32, DMAX, false>)
+         : bk == 64 ? (kpm ? run_fwd_mma<64, DMAX, true>
+                           : run_fwd_mma<64, DMAX, false>)
+                    : (kpm ? run_fwd_mma<128, DMAX, true>
+                           : run_fwd_mma<128, DMAX, false>);
+}
+
 template <typename T, bool KPM>
 cudaError_t run_dq(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                    const void* k, const void* v, const void* kpm,
@@ -424,6 +492,9 @@ cudaError_t run_dkv(dim3 grid, size_t smem, cudaStream_t s, const void* q,
 // mask, or null for none. block_q, block_k: the walk's tile (16, 32, 64
 // or 128 each). Each entry point returns the CUDA error of its launch (0
 // on success); it launches on `stream` and does not synchronise.
+// flash_fwd runs bf16 on the tensor-core body (q, k, v and o 16-byte
+// aligned, kpm 8: else cudaErrorInvalidValue) and fp32 on the CUDA-core
+// body.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kpm, void* o, void* lse, int dtype,
                          int bh, int heads, int kv_heads, int seq_q,
@@ -437,18 +508,22 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   const Geo g{heads, kv_heads, seq_q, seq_k, head_dim,
               block_q, block_k, causal != 0, sm_scale};
   const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
-  const int R = rows_of(block_q), C = rows_of(block_k);
-  const dim3 grid(seq_q / R, bh);
-  const size_t smem = fwd_smem(R, C, head_dim, block_k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool has_kpm = kpm != nullptr;
-  auto run = dtype == 0   ? (has_kpm ? run_fwd<float, true>
-                                     : run_fwd<float, false>)
-             : dtype == 1 ? (has_kpm ? run_fwd<__nv_bfloat16, true>
-                                     : run_fwd<__nv_bfloat16, false>)
-                          : nullptr;
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)run(grid, smem, s, q, k, v, kpm, o, lse, g, dr);
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    if (fwd_misaligned(q, k, v, o, kpm)) return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(block_q);
+    auto run = head_dim <= 64 ? pick_fwd_mma<64>(block_k, has_kpm)
+                              : pick_fwd_mma<128>(block_k, has_kpm);
+    return (int)run(dim3(seq_q / R, bh), 2 * R,
+                    mma_fwd_smem(R, block_k, head_dim), s, q, k, v, kpm, o,
+                    lse, g, dr);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(block_q), C = rows_of(block_k);  // fp32: CUDA cores
+  return (int)(has_kpm ? run_fwd<float, true> : run_fwd<float, false>)(
+      dim3(seq_q / R, bh), fwd_smem(R, C, head_dim, block_k), s, q, k, v,
+      kpm, o, lse, g, dr);
 }
 
 extern "C" int flash_dq(const void* q, const void* k, const void* v,

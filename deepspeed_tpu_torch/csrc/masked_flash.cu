@@ -30,11 +30,12 @@
 // m_safe keeps the row's max at 0 and s > VALID_THRESH gives p = 0, and
 // such a row adds exactly 0 to l, o, dq, dk and dv. A chunk of R rows by
 // R keys of a BAND tile in which Band::any finds no kept cell is skipped
-// (K1 skips the whole tile when every chunk of its rows is), so a coarse
-// walk computes the band's cells at the granularity of R, not of the
-// walk block; every output equals that of the walk without the skip bit
-// for bit. p is rounded to V's
-// dtype before P.V and ds to K/Q's dtype before its products; every sum
+// (K1 skips the whole tile when every chunk of its rows is; K1 in bf16
+// skips a tile the CTA's rows keep no cell of, and per warp each group
+// of 16 rows by 16 keys with no kept cell), so a coarse walk computes
+// the band's cells at the granularity of R, not of the walk block; every
+// output equals that of the walk without the skip bit for bit. p is
+// rounded to V's dtype before P.V and ds to K/Q's dtype before its products; every sum
 // accumulates in fp32. Dropout regenerates
 // the keep mask of flash.dropout_keep_mask from (seed, b*H + h, q, k) in
 // all three kernels; the forward scales o by 1/(1-rate) after the
@@ -46,18 +47,23 @@
 // What bounds it on an H100: operations. At the GPT-2 345M training
 // shapes (S 1024, D 64, block 128, causal) a walked tile does 2-4 small
 // products of 128 x 128 x 64 for 2 x 128 x 64 input values, well above the
-// ~295 flop/byte line. This first version is the simple design: no tensor
-// cores. A CTA of 128 threads owns 32 rows of a tile (q rows for K1/K2, k
-// rows for K3); it stages its own operand rows once and each walked tile's
-// partner rows in chunks of 32 into shared memory as fp32 (rows padded to
-// D+1 words, so the transposed reads are free of bank conflicts), and does
-// every product with a 2x4 register micro-tile of fp32 FMAs. The per-row
-// softmax state and the accumulators stay in shared memory beside the
-// operands. K1 keeps the whole tile's scores so the running max moves once
-// per walked tile, as in the Pallas kernel; K2 and K3 need no running max
-// (p = exp(s - lse)), so they go chunk by chunk. Later work: mma/wgmma on
-// the tensor cores, cp.async/TMA staging, keeping the CTA's rows in
-// registers.
+// ~295 flop/byte line. K1 in bf16 runs on the tensor cores (mma_fwd.cuh:
+// mma.sync m16n8k16 with bf16 operands and fp32 accumulators, Q, the
+// scores and O in registers, K and V staged as bf16 by cp.async into a
+// three-chunk ring, a CTA of min(blk, 64) rows of one block row sharing
+// each staged tile). The fp32 arity of K1, and K2 and K3 in both dtypes,
+// are the first, simple design on the CUDA cores: a CTA of 128 threads
+// owns 32 rows of a tile (q rows for K1/K2, k rows for K3); it stages its
+// own operand rows once and each walked tile's partner rows in chunks of
+// 32 into shared memory as fp32 (rows padded to D+1 words, so the
+// transposed reads are free of bank conflicts), and does every product
+// with a 2x4 register micro-tile of fp32 FMAs. The per-row softmax state
+// and the accumulators stay in shared memory beside the operands. K1
+// keeps the whole tile's scores so the running max moves once per walked
+// tile, as in the Pallas kernel; K2 and K3 need no running max (p =
+// exp(s - lse)), so they go chunk by chunk. The fp32 checks' tolerance
+// (1e-5) is tighter than TF32 holds, so fp32 stays on the CUDA cores.
+// Later work: K2 and K3 on mma_tiles.cuh's fragments.
 //
 // Built by deepspeed_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -67,12 +73,9 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
+#include "mma_fwd.cuh"
 
 namespace {
-
-constexpr float kValidThresh = -1e28f;  // masked_flash.VALID_THRESH
-constexpr int kKindCausal = 1;
-constexpr int kKindBand = 2;
 
 // The banded fine structure of KIND_BAND tiles, in fine blocks of fb
 // rows: keep a cell of query qi, key ki iff its fine row is a global row,
@@ -110,7 +113,8 @@ struct Shape {
 };
 
 // ------------------------------------------------------------------- K1
-// grid (Sq / R, B*H); R = min(blk, 32) q rows per CTA.
+// fp32 (the CUDA-core body): grid (Sq / R, B*H); R = min(blk, 32) q rows
+// per CTA.
 template <typename T, bool KPM, bool BAND>
 __global__ void __launch_bounds__(kThreads)
 mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -263,6 +267,49 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lse[(size_t)bh * sh.Sq + r0 + r] =
         l == 0.f ? kNegInf : (m <= kValidThresh ? 0.f : m) + logf(l);
   }
+}
+
+// K1 in bf16 (the tensor-core body, mma_fwd.cuh): grid (Sq / R, B*H),
+// R = min(blk, 64) q rows of one block row per CTA, 16 per warp; W = blk.
+struct CsrWalk {
+  const int32_t* cols;    // the block row's CSR columns and kinds
+  const int32_t* kinds;
+  int count, blk;
+  __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int2 tile(int t) const {
+    return make_int2(cols[t] * blk, kinds[t]);
+  }
+};
+
+template <int W, int DMAX, bool KPM, bool BAND>
+__global__ void __launch_bounds__(2 * kMmaMaxRows, 3)
+mf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const float* __restrict__ kpm,
+                  bf16* __restrict__ o, float* __restrict__ lse,
+                  const int32_t* __restrict__ offs,
+                  const int32_t* __restrict__ cnts,
+                  const int32_t* __restrict__ cols,
+                  const int32_t* __restrict__ kinds, Shape sh, Band bd,
+                  Dropout dr) {
+  const int R = blockDim.x / 2;
+  const int D = sh.D;
+  const int bh = blockIdx.y;
+  const int h = bh % sh.H;
+  const int b = bh / sh.H;
+  // the last rows first: under a causal mask they walk the most tiles
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * R;
+  const int mrow = (h % sh.Hm) * (sh.Sq / W) + r0 / W;
+  const int base = offs[mrow];
+  const CsrWalk walk{cols + base, kinds + base, cnts[mrow], W};
+  const size_t kvr = (size_t)b * sh.Hkv + h / (sh.H / sh.Hkv);
+  const size_t row0 = (size_t)bh * sh.Sq + r0;
+  const FwdRows rows{q + row0 * D, k + kvr * sh.Sk * D, v + kvr * sh.Sk * D,
+                     KPM ? kpm + (size_t)b * sh.Sk : nullptr, o + row0 * D,
+                     lse + row0, r0, D, bh, sh.sm_scale};
+  if constexpr (BAND)
+    mma_fwd_body<W, DMAX, KPM, true, true>(rows, walk, bd, dr);
+  else
+    mma_fwd_body<W, DMAX, KPM, false, true>(rows, walk, NoBand{}, dr);
 }
 
 // ------------------------------------------------------------------- K2
@@ -506,6 +553,40 @@ cudaError_t run_fwd(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                 sh, bd, dr);
 }
 
+template <int W, int DMAX, bool KPM, bool BAND>
+cudaError_t run_fwd_mma(dim3 grid, int threads, size_t smem, cudaStream_t s,
+                        const void* q, const void* k, const void* v,
+                        const void* kpm, void* o, void* lse,
+                        const int32_t* of, const int32_t* cn,
+                        const int32_t* co, const int32_t* ki, Shape sh,
+                        Band bd, Dropout dr) {
+  return launch_rows(mf_fwd_mma_kernel<W, DMAX, KPM, BAND>, grid, threads,
+                     smem, s, static_cast<const bf16*>(q),
+                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                     static_cast<const float*>(kpm), static_cast<bf16*>(o),
+                     static_cast<float*>(lse), of, cn, co, ki, sh, bd, dr);
+}
+
+using FwdMma = decltype(&run_fwd_mma<16, 64, false, false>);
+
+template <int W, int DMAX>
+FwdMma pick_fwd_mma(bool kpm, bool band) {
+  return kpm ? (band ? run_fwd_mma<W, DMAX, true, true>
+                     : run_fwd_mma<W, DMAX, true, false>)
+             : (band ? run_fwd_mma<W, DMAX, false, true>
+                     : run_fwd_mma<W, DMAX, false, false>);
+}
+
+// the tensor-core instantiation of a walk block, head dim, key mask and
+// band (the bad_shape checks passed: blk is 16, 32, 64 or 128, D <= 128)
+template <int DMAX>
+FwdMma pick_fwd_mma_blk(int blk, bool kpm, bool band) {
+  return blk == 16   ? pick_fwd_mma<16, DMAX>(kpm, band)
+         : blk == 32 ? pick_fwd_mma<32, DMAX>(kpm, band)
+         : blk == 64 ? pick_fwd_mma<64, DMAX>(kpm, band)
+                     : pick_fwd_mma<128, DMAX>(kpm, band);
+}
+
 template <typename T, bool KPM, bool BAND>
 cudaError_t run_dq(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                    const void* k, const void* v, const void* kpm,
@@ -561,7 +642,9 @@ auto pick_dkv(bool kpm, bool band) {
 // mask, or null for none. fine_block, band_w, band_g_r, band_g_c,
 // band_causal: the band of KIND_BAND tiles (fine_block 0 for none). Each
 // entry point returns the CUDA error of its launch (0 on success); it
-// launches on `stream` and does not synchronise.
+// launches on `stream` and does not synchronise. masked_flash_fwd runs
+// bf16 on the tensor-core body (q, k, v and o 16-byte aligned, kpm 8:
+// else cudaErrorInvalidValue) and fp32 on the CUDA-core body.
 extern "C" int masked_flash_fwd(
     const void* q, const void* k, const void* v, const void* kpm, void* o,
     void* lse, const void* offs, const void* cnts, const void* cols,
@@ -577,21 +660,26 @@ extern "C" int masked_flash_fwd(
   const Shape sh{heads, kv_heads, mask_heads, seq_q, seq_k,
                  head_dim, block, sm_scale};
   const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
-  const int R = rows_of(block);
-  const dim3 grid(seq_q / R, bh);
-  const size_t smem = fwd_smem(R, head_dim, block);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* of = static_cast<const int32_t*>(offs);
   const int32_t* cn = static_cast<const int32_t*>(cnts);
   const int32_t* co = static_cast<const int32_t*>(cols);
   const int32_t* ki = static_cast<const int32_t*>(kinds);
   const bool band = fine_block > 0, has_kpm = kpm != nullptr;
-  auto run = dtype == 0   ? pick_fwd<float>(has_kpm, band)
-             : dtype == 1 ? pick_fwd<__nv_bfloat16>(has_kpm, band)
-                          : nullptr;
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)run(grid, smem, s, q, k, v, kpm, o, lse, of, cn, co, ki, sh,
-                  bd, dr);
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    if (fwd_misaligned(q, k, v, o, kpm)) return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(block);
+    auto run = head_dim <= 64 ? pick_fwd_mma_blk<64>(block, has_kpm, band)
+                              : pick_fwd_mma_blk<128>(block, has_kpm, band);
+    return (int)run(dim3(seq_q / R, bh), 2 * R,
+                    mma_fwd_smem(R, block, head_dim), s, q, k, v, kpm, o,
+                    lse, of, cn, co, ki, sh, bd, dr);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(block);      // fp32: the CUDA-core body
+  return (int)pick_fwd<float>(has_kpm, band)(
+      dim3(seq_q / R, bh), fwd_smem(R, head_dim, block), s, q, k, v, kpm, o,
+      lse, of, cn, co, ki, sh, bd, dr);
 }
 
 extern "C" int masked_flash_dq(

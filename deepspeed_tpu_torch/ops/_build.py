@@ -15,9 +15,10 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -93,3 +94,27 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build_all([name])[name])
         _loaded[name] = lib
     return lib
+
+
+def ptxas_summary(log: str) -> List[dict]:
+    """Per kernel of one ``build_logs`` entry: its (mangled) name,
+    registers per thread, and the bytes of its stack frame, spill stores
+    and spill loads, as ``ptxas -v`` reports them."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out

@@ -576,18 +576,24 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float, rate: float = 0.0,
               seed: int = 0, key_mask=None, blocks=None):
     """K5: ``(o, lse)`` of :func:`flash_fwd_plain`. A CUDA ``q`` launches
     the sm_90a kernel (raising on any dtype, shape, device or launch
-    problem); a CPU ``q`` runs the plain version. Every launch counts in
-    ``launches`` and in ``arities`` under :func:`arity`."""
+    problem), K1's tensor-core body in bf16 and the CUDA-core body in
+    fp32 (``masked_flash.FWD_BODIES``); a CPU ``q`` runs the plain
+    version. Every launch counts in ``launches``, in ``arities`` under
+    :func:`arity` and in ``bodies`` under its body."""
     blocks = _prepare(q, k, v, key_mask, blocks, rate)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, sm_scale, rate, seed,
                                key_mask, blocks)
+    from deepspeed_tpu_torch.ops.attention.masked_flash import (
+        _check_fwd_aligned, _count_body)
     _check_cuda((q, k, v), key_mask, blocks)
+    _check_fwd_aligned(q, k, v, key_mask)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q, k, [q, k, v, key_mask, o, lse], [], causal,
             blocks, sm_scale, rate, seed)
     _count(flash_fwd, key_mask, causal)
+    _count_body(flash_fwd, q.dtype)
     return o, lse
 
 
@@ -634,6 +640,7 @@ def reset_launches():
     for w in (flash_fwd, flash_dq, flash_dkv):
         w.launches = 0
         w.arities = {}
+    flash_fwd.bodies = {}
 
 
 reset_launches()

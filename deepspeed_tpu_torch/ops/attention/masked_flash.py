@@ -15,7 +15,9 @@ each with a wrapper and a plain PyTorch version of the same tile walk:
 
 For CUDA tensors each wrapper launches its hand-written kernel in
 ``csrc/masked_flash.cu`` (built with nvcc for sm_90a at first use) or
-raises; it never falls back. For CPU tensors it runs the plain version
+raises; it never falls back. K1 in bf16 runs the tensor-core body of
+``csrc/mma_fwd.cuh`` (shared with K5), in fp32 the CUDA-core body
+(:data:`FWD_BODIES`). For CPU tensors it runs the plain version
 (``*_plain``). Each launch adds one to the wrapper's ``launches``.
 :func:`masked_flash_call` is the ``torch.autograd.Function`` over the
 three; :func:`masked_flash_attention` is the public entry.
@@ -58,6 +60,10 @@ KIND_CAUSAL = 1        # elementwise q_idx >= k_idx (diagonal tiles)
 KIND_BAND = 2          # banded fine structure (global prefix + window)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the body K1 and K5 run by input dtype: bf16 on the tensor cores
+# (csrc/mma_fwd.cuh), fp32 on the CUDA cores (fp32 FMAs: the fp32
+# checks' 1e-5 tolerance is tighter than TF32 holds)
+FWD_BODIES = {torch.bfloat16: "mma", torch.float32: "fma"}
 KERNEL_BLOCKS = (16, 32, 64, 128)
 MAX_HEAD_DIM = 128
 # the coarse walk tiles a banded layout may take (the kernels take walk
@@ -694,6 +700,20 @@ def _check_cuda(tensors, mask: BlockMask, key_mask=None):
                          f"{B * H}")
 
 
+def _check_fwd_aligned(q, k, v, key_mask=None):
+    """K1's and K5's tensor-core body (bf16) loads 16-byte rows from
+    16-byte aligned q, k and v, and the key mask in 8-byte pairs: raise
+    for an operand the C entry point would refuse."""
+    if FWD_BODIES[q.dtype] != "mma":
+        return
+    for name, t, align in (("q", q, 16), ("k", k, 16), ("v", v, 16),
+                           ("key_mask", key_mask, 8)):
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"the bf16 forward kernels take a {name} "
+                             f"aligned to {align} bytes, got address "
+                             f"{t.data_ptr():#x}")
+
+
 _fns = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # what every entry point takes after its pointers, dtype (and fp32_out):
@@ -770,16 +790,18 @@ def masked_flash_fwd(q, k, v, mask: BlockMask, sm_scale: float,
                      rate: float = 0.0, seed: int = 0, key_mask=None):
     """K1: ``(o, lse)`` of :func:`masked_flash_fwd_plain`. A CUDA ``q``
     launches the sm_90a kernel (raising on any dtype, shape, device or
-    launch problem); a CPU ``q`` runs the plain version. With a
-    ``key_mask`` the kernel's key-mask arity runs; with KIND_BAND tiles
-    its band arity. Every launch counts in ``launches`` and in
-    ``arities`` under :func:`arity`."""
+    launch problem), its tensor-core body in bf16 and its CUDA-core body
+    in fp32 (:data:`FWD_BODIES`); a CPU ``q`` runs the plain version.
+    With a ``key_mask`` the kernel's key-mask arity runs; with KIND_BAND
+    tiles its band arity. Every launch counts in ``launches``, in
+    ``arities`` under :func:`arity` and in ``bodies`` under its body."""
     _check_args(q, k, v, mask, key_mask)
     _check_hash_rounds(rate)
     if q.device.type == "cpu":
         return masked_flash_fwd_plain(q, k, v, mask, sm_scale, rate, seed,
                                       key_mask)
     _check_cuda((q, k, v), mask, key_mask)
+    _check_fwd_aligned(q, k, v, key_mask)
     B, H, Sq, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -792,6 +814,7 @@ def masked_flash_fwd(q, k, v, mask: BlockMask, sm_scale: float,
           _DTYPE_CODE[q.dtype], *_geometry(q, k, mask),
           *_dropout(sm_scale, rate, seed)])
     _count(masked_flash_fwd, key_mask, mask)
+    _count_body(masked_flash_fwd, q.dtype)
     return o, lse
 
 
@@ -870,11 +893,19 @@ def _count(wrapper, key_mask, mask: BlockMask):
     wrapper.arities[name] = wrapper.arities.get(name, 0) + 1
 
 
+def _count_body(wrapper, dtype):
+    """One launch of K1's or K5's ``wrapper``, counted in ``bodies`` by
+    the body it ran (:data:`FWD_BODIES`)."""
+    body = FWD_BODIES[dtype]
+    wrapper.bodies[body] = wrapper.bodies.get(body, 0) + 1
+
+
 def reset_launches():
     """Set every launch count of K1-K3 to 0."""
     for w in (masked_flash_fwd, masked_flash_dq, masked_flash_dkv):
         w.launches = 0
         w.arities = {}
+    masked_flash_fwd.bodies = {}
 
 
 reset_launches()

@@ -440,3 +440,45 @@ def test_cuda_kernels_match_plain(case):
             ratio, rel_rms, ok = _bf16_check(a, b, **BF16_TOL)
             assert ok, (ratio, rel_rms)
     assert float((lse - lse_p).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, H, Hkv, sq, sk, D, causal, key mask, rate, (bq, bk))
+    (2, 8, 8, 512, 512, 64, True, False, 0.0, (64, 128)),    # bq < bk
+    (2, 8, 8, 512, 512, 64, True, False, 0.1, (128, 32)),    # bq > bk
+    (2, 8, 8, 256, 512, 64, False, True, 0.0, (16, 64)),     # sq < sk
+    (2, 8, 4, 512, 256, 128, True, False, 0.1, (128, 64)),   # sq > sk, GQA
+    (2, 8, 2, 384, 384, 40, True, True, 0.1, (128, 128)),    # head dim 40
+    (2, 4, 4, 256, 256, 72, False, False, 0.0, (32, 16)),    # head dim 72
+    (2, 4, 4, 256, 256, 32, True, False, 0.0, (64, 64)),     # head dim 32
+])
+def test_cuda_fwd_tensor_core_body_matches_plain(case):
+    """K5's bf16 launches run K1's tensor-core body over rectangular
+    tiles (bq != bk), seq_q != seq_k, GQA, head dims 32 to 128 (40 and 72
+    are not multiples of the mma's depth of 16), dropout and the key mask,
+    and equal the plain version at the same tiles; each counts under body
+    "mma"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops.attention import flash as tf
+    B, H, Hkv, sq, sk, d, causal, km, rate, blocks = case
+    rng = np.random.RandomState(sq + sk + d + blocks[0])
+    q, k, v, _ = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in
+                  _inputs(rng, B, H, H // Hkv, sq, sk, d))
+    key_mask = None
+    if km:
+        key_mask = torch.from_numpy(_key_mask(rng, B, sk, (0,))).reshape(
+            B, sk).cuda()
+    scale, seed = 1.0 / np.sqrt(d), 4321
+    before = tf.flash_fwd.bodies.get("mma", 0)
+    o, lse = tf.flash_fwd(q, k, v, causal, scale, rate, seed, key_mask,
+                          blocks)
+    o_p, lse_p = tf.flash_fwd_plain(q, k, v, causal, scale, rate, seed,
+                                    key_mask, blocks)
+    torch.cuda.synchronize()
+    assert tf.flash_fwd.bodies.get("mma", 0) == before + 1
+    assert torch.isfinite(o).all()
+    _assert_close(o.float().cpu().numpy(), o_p.float().cpu().numpy(),
+                  "bf16")
+    assert float((lse - lse_p).abs().max()) <= 1e-3

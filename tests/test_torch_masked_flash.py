@@ -526,6 +526,55 @@ def test_routing(monkeypatch):
         tflash.flash_attention(q2, k2, v2, causal=True, dropout_rate=0.1)
 
 
+@pytest.mark.parametrize("dtype, body", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "fma")])
+def test_forward_body_by_dtype(dtype, body):
+    """K1 and K5 name the body a dtype runs: bf16 on the tensor cores,
+    fp32 on the CUDA cores; ``reset_launches`` zeroes their counts by
+    body."""
+    from deepspeed_tpu_torch.ops.attention import flash as tf
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    assert mf.FWD_BODIES[dtype] == body
+    for wrapper, reset in ((mf.masked_flash_fwd, mf.reset_launches),
+                           (tf.flash_fwd, tf.reset_launches)):
+        saved = dict(wrapper.bodies)
+        try:
+            mf._count_body(wrapper, dtype)
+            mf._count_body(wrapper, dtype)
+            assert wrapper.bodies[body] == saved.get(body, 0) + 2
+            reset()
+            assert wrapper.bodies == {}
+        finally:
+            wrapper.bodies = saved
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "key_mask"])
+def test_bf16_forward_refuses_misaligned_operands(operand):
+    """The tensor-core forward body loads 16-byte rows (q, k, v) and
+    8-byte key-mask pairs: a bf16 view that starts off those boundaries
+    raises before any launch, an aligned one and fp32 pass."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import \
+        _check_fwd_aligned
+    shape, n = (1, 2, 32, 16), 2 * 32 * 16
+
+    def operands(dtype, off=None):
+        ts = {name: torch.zeros(n + 8, dtype=dtype)[:n].view(shape)
+              for name in ("q", "k", "v")}
+        ts["key_mask"] = torch.zeros(33)[:32].view(1, 32)
+        if off is not None:
+            base = torch.zeros(n + 8, dtype=ts[off].dtype)
+            if off == "key_mask":
+                ts[off] = base[1:33].view(1, 32)
+            else:
+                ts[off] = base[4:4 + n].view(shape)
+        return ts
+
+    _check_fwd_aligned(**operands(torch.bfloat16))
+    _check_fwd_aligned(**operands(torch.float32, operand))
+    with pytest.raises(ValueError, match=f"{operand} aligned"):
+        _check_fwd_aligned(**operands(torch.bfloat16, operand))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     # (B, H, Hkv, S, D, mask, block, dtype, rate)
@@ -571,6 +620,50 @@ def test_cuda_kernels_match_plain(case):
         else:
             ratio, rel_rms, ok = _bf16_check(a, b, **BF16_TOL)
             assert ok, (ratio, rel_rms)
+    assert float((lse - lse_p).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, H, Hkv, S, D, mask, walk block, rate, key mask)
+    (2, 8, 8, 512, 64, "causal", 16, 0.0, False),
+    (2, 8, 8, 512, 64, "causal", 32, 0.1, False),
+    (2, 8, 8, 512, 64, "layout", 64, 0.0, True),     # per-head, empty rows
+    (2, 8, 8, 512, 64, "dense", 128, 0.1, True),
+    (2, 16, 4, 512, 64, "causal", 128, 0.0, False),  # GQA, G 4
+    (2, 8, 8, 256, 32, "causal", 64, 0.0, False),    # head dim 32
+    (2, 8, 8, 256, 128, "dense", 128, 0.1, True),    # head dim 128
+    (2, 8, 8, 256, 72, "causal", 32, 0.0, True),     # 72: not a multiple of 16
+    (2, 8, 8, 256, 40, "layout", 16, 0.1, False),    # 40: the zero tail
+])
+def test_cuda_fwd_tensor_core_body_matches_plain(case):
+    """K1's bf16 launches run the tensor-core body (csrc/mma_fwd.cuh) at
+    every walk block, GQA, head dims 32 to 128 (also not multiples of the
+    mma's depth of 16), dropout and the key mask, and equal the plain
+    version; each counts under body "mma"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    B, H, Hkv, s, d, kind, block, rate, km = case
+    rng = np.random.RandomState(s + d + block)
+    q, k, v, _ = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in
+                  _inputs(rng, H // Hkv, "bf16", B=B, H=H, s=s, d=d))
+    layout = (_random_layout(rng, heads=H, nb=s // block)
+              if kind == "layout" else None)
+    mask = _port_mask(kind, s=s, block=block, layout=layout)
+    kpm = (torch.from_numpy(_bert_key_mask(rng, B, s, s // 2, (1,))).cuda()
+           if km else None)
+    scale, seed = 1.0 / np.sqrt(d), 1234
+    before = mf.masked_flash_fwd.bodies.get("mma", 0)
+    o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed, kpm)
+    o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed,
+                                           kpm)
+    torch.cuda.synchronize()
+    assert mf.masked_flash_fwd.bodies.get("mma", 0) == before + 1
+    assert torch.isfinite(o).all()
+    ratio, rel_rms, ok = _bf16_check(o.float().cpu().numpy(),
+                                     o_p.float().cpu().numpy(), **BF16_TOL)
+    assert ok, (ratio, rel_rms)
     assert float((lse - lse_p).abs().max()) <= 1e-3
 
 

@@ -41,14 +41,16 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
    K3 (dk, dv) against their plain versions on the card, at the training
    shapes (B 8, H 16, S 1024, D 64, bf16, causal, block 128) with
    dropout 0 and 0.1, and on a dense mask, GQA (Hkv 4, G 4, D 128), fp32,
-   and per-head layouts with empty rows at block 16; for K1's bf16
-   tensor-core body also causal walks of 16, 32 and 64 at head dims 64,
-   72 and 32, and GQA G 4 at head dim 40. Element by element
-   (TRAIN_TOL), and at the training shapes a control: the plain versions
-   with the bf16 rounding of p and ds left out must fail the same check.
-   Every check row names the body K1 ran ("body": "mma" in bf16, "fma"
-   in fp32), and a bf16 launch that ran another body fails it; every
-   timing row names each kernel's body.
+   and per-head layouts with empty rows at block 16; for K1's and K3's
+   bf16 tensor-core bodies also causal walks of 16, 32 and 64 at head
+   dims 64, 72 and 32, and GQA G 4 at head dim 40. Element by element
+   (TRAIN_TOL), and at the training shapes and those walks a control:
+   the plain versions with the bf16 rounding of p and ds left out must
+   fail the same check. Every check row names the bodies K1 and K3 ran
+   ("body" and "dkv_body": "mma" in bf16, "fma" in fp32), and a bf16
+   launch that ran another body fails it; every timing row names each
+   kernel's body, and K3's and K7's rows the time of their former
+   CUDA-core bf16 body ("fma_body_ms").
 6. train_kernel_timing: K1, K2 and K3 timed at the training shapes (L2
    flushed before each call) beside their bound (the FLOP of the causal
    cells, not of the whole diagonal tiles), their plain versions and
@@ -59,11 +61,11 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
    deepspeed_tpu_torch.initialize: 2 warm-up and 10 timed train_batch
    steps on one repeated batch; step time, tokens/s, MFU, peak memory,
    every loss. Checks finite, falling losses, that K1, K2 and K3 each
-   launched 24 times per step, and that every launch of K1 ran its
-   tensor-core body (fwd_launches_by_body; so in every bf16 training
-   phase below, for K1 and K5). Then a torch.profiler window over 2 more
-   steps (device time by kernel group, device idle share) and the tied
-   LM head's forward and backward timed alone.
+   launched 24 times per step, and that every launch of K1 and K3 ran
+   its tensor-core body (launches_by_body; so in every bf16 training
+   phase below, for K1, K3, K5 and K7). Then a torch.profiler window
+   over 2 more steps (device time by kernel group, device idle share)
+   and the tied LM head's forward and backward timed alone.
 8. training_dropout: the same model at dropout 0.1 for 3 steps (the
    attention dropout inside K1-K3): finite losses, 24 launches per step.
 9. train_kernel_vs_plain: loss and every grad of a 2-layer full-width
@@ -199,11 +201,11 @@ from seq_k, each the widest of 128, 64, 32, 16 that divides it).
    heads over 8 kv heads, S 1024, causal), causal with seq_q 512 < seq_k
    1024 (the keys no query reaches take dk = dv = 0) and 1024 > 512 (the
    capped walk; in fp32 also o against attention_reference), and tiles of
-   32 at head_dim 24; for K5's bf16 tensor-core body also tiles (64, 128)
-   with seq_q 320 < seq_k 1024, (128, 32) with 1024 > 160 at head dim 40
-   under GQA 4 and the key mask, tiles of 16 at head dim 32, of 32 at
-   head dim 72, and head dim 128 under GQA 4. Controls: the plain
-   versions without the rounding of
+   32 at head_dim 24; for K5's and K7's bf16 tensor-core bodies also
+   tiles (64, 128) with seq_q 320 < seq_k 1024, (128, 32) with 1024 >
+   160 at head dim 40 under GQA 4 and the key mask, tiles of 16 at head
+   dim 32, of 32 at head dim 72, and head dim 128 under GQA 4. Controls
+   (on these cases too): the plain versions without the rounding of
    p and ds, without the key mask or without the causal clip must fail
    the same check on every output.
 29. flash_kernel_timing: K5-K7 at the GPT-2 shape and at the s8k dense
@@ -264,7 +266,8 @@ fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
 36. the {"kernels": [...]} line (with the three key-mask, the three
    band, the three row-run, the three banded, the three no-mask
    row-run, the three legacy flash entries and K14-K16 in each of their
-   three arities on the paths above; K1-K3 and K5-K7 with their "body",
+   three arities on the paths above; K1-K3 and K5-K7 with their "body"
+   ("mma" for K1, K3, K5 and K7),
    K1 with its s8k default-route time from phase 29), the nvidia-smi
    line, and last {"ok": true, "device": {...}}.
 """
@@ -285,6 +288,25 @@ BF16_ATOL = 2e-3     # summation order differs; p is rounded to bf16
 FP32_ATOL = 1e-5     # summation order differs
 MODEL_LOGIT_ATOL = 1e-3   # fp32, 24 layers of differently ordered sums
 TIMED_CALLS = 100
+# K3's and K7's times on their former CUDA-core bf16 body (these timing
+# phases on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6), printed
+# beside this run's as "fma_body_ms": (phase, kernel, case) -> ms
+FMA_BODY_DKV_MS = {
+    ("train_kernel_timing", "masked_flash_dkv", "gpt2"): 4.36955,
+    ("bert_kernel_timing", "masked_flash_dkv_kpm", "S128"): 0.25824,
+    ("bert_kernel_timing", "masked_flash_dkv_kpm", "S512"): 2.56090,
+    ("sparse_kernel_timing", "masked_flash_dkv", "fixed walk16"): 10.52250,
+    ("sparse_kernel_timing", "masked_flash_dkv",
+     "bslongformer walk128"): 3.73098,
+    ("sparse_kernel_timing", "masked_flash_dkv",
+     "bslongformer walk64"): 3.66483,
+    ("sparse_kernel_timing", "masked_flash_dkv",
+     "bslongformer walk32"): 3.82651,
+    ("sparse_kernel_timing", "masked_flash_dkv",
+     "bslongformer walk16"): 3.30699,
+    ("flash_kernel_timing", "flash_dkv", "gpt2"): 4.61899,
+    ("flash_kernel_timing", "flash_dkv", "s8k"): 30.46237,
+}
 # masked flash, kernel against plain version, element by element:
 # |a - b| <= atol + rtol * |b|, and in bf16 also over the whole tensor:
 # ||a - b|| <= rms * ||b||. In bf16 both sides round the same fp32
@@ -1144,6 +1166,7 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed, key_mask)
     torch.cuda.synchronize()
     body = _body_ran(mf.masked_flash_fwd, bodies)
+    dkv_bodies = dict(mf.masked_flash_dkv.bodies)
     o_p, lse_p = plain("masked_flash_fwd", mf.masked_flash_fwd_plain, q, k,
                        v, mask, scale, rate, seed, key_mask)
     delta = (do.float() * o_p.float()).sum(-1)
@@ -1151,6 +1174,7 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     dq = mf.masked_flash_dq(*bwd)
     dk, dv = mf.masked_flash_dkv(*bwd)
     torch.cuda.synchronize()
+    dkv_body = _body_ran(mf.masked_flash_dkv, dkv_bodies)
     dq_p = plain("masked_flash_dq", mf.masked_flash_dq_plain, *bwd)
     dk_p, dv_p = plain("masked_flash_dkv", mf.masked_flash_dkv_plain, *bwd)
     dtype = "fp32" if q.dtype == torch.float32 else "bf16"
@@ -1159,6 +1183,7 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
            "dtype": str(q.dtype), "shape_q": list(q.shape),
            "shape_kv": list(k.shape), "block": mask.block,
            "body": body[0] if len(body) == 1 else body,
+           "dkv_body": dkv_body[0] if len(dkv_body) == 1 else dkv_body,
            "mask_heads": mask.heads, "walked_tiles": mask.nnz,
            "dropout": rate, "key_mask": key_mask is not None,
            "tol": tol, "lse_atol": LSE_ATOL}
@@ -1184,6 +1209,7 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     row["lse_max_abs_err"] = lse_err
     ok &= lse_err <= LSE_ATOL
     ok &= body == [kernel_body("masked_flash_fwd", dtype)]
+    ok &= dkv_body == [kernel_body("masked_flash_dkv", dtype)]
     if control:
         c_mask, c_key = mask, None
         if control_mask is not None:
@@ -1237,17 +1263,19 @@ def train_kernel_check_phase():
                         BlockMask.causal(512, 128),
                         train_inputs(rng, 2, 16, 4, 512, 128,
                                      torch.bfloat16), 0.1)
-    # K1's tensor-core body at every walk block and at head dims off the
-    # mma's depth of 16 (zero-padded to it in shared memory)
+    # K1's and K3's tensor-core bodies at every walk block and at head
+    # dims off the mma's depth of 16 (zero-padded to it in shared
+    # memory), each with the rounding control
     for walk, d, rate in ((16, 64, 0.1), (32, 72, 0.0), (64, 32, 0.1)):
         check_train_kernels(f"causal_bf16_walk{walk}_hd{d}_dropout{rate}",
                             BlockMask.causal(512, walk),
                             train_inputs(rng, 2, 8, 8, 512, d,
-                                         torch.bfloat16), rate)
+                                         torch.bfloat16), rate,
+                            control=True)
     check_train_kernels("gqa_hkv4_g4_causal_bf16_hd40",
                         BlockMask.causal(512, 128),
                         train_inputs(rng, 2, 16, 4, 512, 40, torch.bfloat16),
-                        0.0)
+                        0.0, control=True)
     check_train_kernels("fp32_causal_block64_dropout0.1",
                         BlockMask.causal(256, 64),
                         train_inputs(rng, 2, 4, 2, 256, 64, torch.float32),
@@ -1340,6 +1368,8 @@ def train_kernel_timing_phase(smi):
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         emit({"phase": "train_kernel_timing", "kernel": name,
+              "fma_body_ms": FMA_BODY_DKV_MS.get(
+                  ("train_kernel_timing", name, "gpt2")),
               "shape": dict(MAIN_SHAPE, dtype="bf16", mask="causal"),
               "walked_tiles_per_bh": mask.nnz,
               "causal_cells_per_bh": causal_cells(S, S), "flops": flops,
@@ -1388,28 +1418,34 @@ def _reset_train_launches():
     mf.reset_launches()
 
 
+# the kernels of K1-K3 and K5-K7 with a tensor-core body in bf16: K1 and
+# K5 on csrc/mma_fwd.cuh, K3 and K7 on csrc/mma_dkv.cuh
+MMA_KERNELS = ("masked_flash_fwd", "flash_fwd", "masked_flash_dkv",
+               "flash_dkv")
+
+
 def kernel_body(name, dtype="bf16"):
-    """The body a kernel of K1-K3 or K5-K7 runs on ``dtype`` inputs: K1
-    and K5 in bf16 on the tensor cores ("mma", csrc/mma_fwd.cuh), every
-    other on the CUDA cores ("fma")."""
-    fwd = name in ("masked_flash_fwd", "flash_fwd")
-    return "mma" if fwd and dtype == "bf16" else "fma"
+    """The body a kernel of K1-K3 or K5-K7 runs on ``dtype`` inputs: K1,
+    K3, K5 and K7 in bf16 on the tensor cores ("mma"), every other on the
+    CUDA cores ("fma")."""
+    return "mma" if name in MMA_KERNELS and dtype == "bf16" else "fma"
 
 
-def _fwd_bodies():
-    """The launches of K1 and K5 since their counts were last reset, by
-    the body they ran."""
+def _mma_bodies():
+    """The launches of K1, K3, K5 and K7 since their counts were last
+    reset, by the body they ran."""
     from deepspeed_tpu_torch.ops.attention import flash as tf
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
-    return {"masked_flash_fwd": dict(mf.masked_flash_fwd.bodies),
-            "flash_fwd": dict(tf.flash_fwd.bodies)}
+    return {name: dict(getattr(mf if name.startswith("masked") else tf,
+                               name).bodies) for name in MMA_KERNELS}
 
 
 def _check_mma_bodies(phase, bodies):
-    """A bf16 run: every launch of K1 and K5 ran the tensor-core body."""
+    """A bf16 run: every launch of K1, K3, K5 and K7 ran the tensor-core
+    body."""
     if any(b.get("fma", 0) for b in bodies.values()):
-        raise AssertionError(f"{phase}: a bf16 launch of K1 or K5 ran the "
-                             f"CUDA-core body: {bodies}")
+        raise AssertionError(f"{phase}: a bf16 launch of K1, K3, K5 or K7 "
+                             f"ran the CUDA-core body: {bodies}")
 
 
 def _body_ran(wrapper, before):
@@ -1461,7 +1497,7 @@ def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, other = route.launches()
-    bodies = _fwd_bodies()
+    bodies = _mma_bodies()
     losses = [float(x) for x in losses]
     L, H = cfg.num_layers, cfg.hidden_size
     flops_per_token = 6 * n_params + 12 * L * seq * H
@@ -1475,7 +1511,7 @@ def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
            "step_ms": step_s * 1e3, "tokens_per_s": tokens_per_s,
            "flops_per_token": flops_per_token, "losses": losses,
            "kernel_launches": launches, "other_attention_launches": other,
-           "fwd_launches_by_body": bodies,
+           "launches_by_body": bodies,
            "attention_kernel": get_attention_options().kernel,
            "nvidia_smi": smi}
     if on_cuda:
@@ -1525,7 +1561,7 @@ def train_profile_phase(engine, data, step_ms, steps=2):
     kernels.sort(key=lambda k: -k[1])
     groups = {"masked_flash_fwd": ("mf_fwd_",),
               "masked_flash_dq": ("mf_dq_kernel",),
-              "masked_flash_dkv": ("mf_dkv_kernel",),
+              "masked_flash_dkv": ("mf_dkv_",),
               "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas")}
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
     for name, ms, _ in kernels:
@@ -1597,11 +1633,11 @@ def training_dropout_phase(steps=3, batch=8, seq=1024, route=None):
     losses = [float(engine.train_batch(iter([{"input_ids": ids}])))
               for _ in range(steps)]
     launches, other = route.launches()
-    bodies = _fwd_bodies()
+    bodies = _mma_bodies()
     emit({"phase": "training_dropout" + route.suffix, "model": "gpt2-345m",
           "dropout": 0.1, "steps": steps, "losses": losses,
           "kernel_launches": launches, "other_attention_launches": other,
-          "fwd_launches_by_body": bodies})
+          "launches_by_body": bodies})
     _check_mma_bodies("training_dropout" + route.suffix, bodies)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite dropout training loss: {losses}")
@@ -1735,6 +1771,13 @@ def bert_kernel_check_phase():
                                    control=True, key_mask=kpm)
     check_train_kernels("bert_large_s128_bf16_dropout0.1", dense, main, 0.1,
                         control=True, key_mask=kpm)
+    # an MLM step's dO: 0 on the pad queries and on the rows the loss does
+    # not reach, where K3's tensor-core body takes dp = 0 as exact
+    reach = torch.from_numpy(np.random.RandomState(SEED + 50).rand(
+        m["B"], 1, m["S"], 1) < 0.15).cuda()
+    mlm = [*main[:3], main[3] * (reach & (kpm == 0)[:, None, :, None])]
+    check_train_kernels("bert_large_s128_mlm_do_bf16_dropout0.1", dense, mlm,
+                        0.1, control=True, key_mask=kpm)
     cases = [
         # name, mask, (B, H, Hkv, S, D), dtype, rate, min_len, all-pad rows
         ("bert_large_s512_bf16_dropout0.1", BlockMask.dense(512, 512, 128),
@@ -1832,6 +1875,8 @@ def bert_kernel_timing_phase(smi):
             bound_ms = max(bytes_ms, ops_ms)
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
             emit({"phase": "bert_kernel_timing", "kernel": f"{name}_kpm",
+                  "fma_body_ms": FMA_BODY_DKV_MS.get(
+                      ("bert_kernel_timing", f"{name}_kpm", f"S{S}")),
                   "shape": dict(m, dtype="bf16", mask="dense",
                                 key_mask=f"lengths {min_len}-{S}"),
                   "flops": flops, "bytes": nbytes, "kernel_ms": kernel_ms,
@@ -2106,6 +2151,8 @@ def sparse_kernel_timing_phase(smi):
                 bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
                 emit({"phase": "sparse_kernel_timing", "kernel": name,
                       "case": label, "arity": mf.arity(kpm, mask),
+                      "fma_body_ms": FMA_BODY_DKV_MS.get(
+                          ("sparse_kernel_timing", name, label)),
                       "shape": dict(m, dtype="bf16", block=mask.block,
                                     fine_block=sc.block,
                                     mask_heads=mask.heads,
@@ -2287,7 +2334,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got, other = route.launches()
-    bodies = _fwd_bodies()
+    bodies = _mma_bodies()
     launches = _kpm_launches()
     arities = {n: dict(getattr(mf, n).arities) for n in KPM_NAMES}
     flash_arities = {n: dict(getattr(tf, n).arities) for n in FLASH_NAMES}
@@ -2327,7 +2374,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
            "mask_free_launches": {n: c[1] for n, c in launches.items()},
            "launches_by_arity": arities,
            "route_launches": got, "other_attention_launches": other,
-           "fwd_launches_by_body": bodies,
+           "launches_by_body": bodies,
            "flash_launches_by_arity": flash_arities,
            "v1_launches_by_arity": v1_arities, "nvidia_smi": smi}
     if sparse is not None:
@@ -2408,7 +2455,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
 def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
                        attention="K1-K3 (key-mask arity)",
                        kernels=("mf_fwd_", "mf_dq_kernel",
-                                "mf_dkv_kernel")):
+                                "mf_dkv_")):
     """Where a BERT step's time goes: a torch.profiler window over
     ``steps`` train_batch calls, the kernels' device time per step by
     group, and the device idle share left of the unprofiled step time.
@@ -3722,11 +3769,11 @@ def _reset_all_launches():
 
 MASKED_ROUTE = Route(dict.fromkeys(KPM_NAMES, 1), _PlainMaskedFlash, "",
                      "K1-K3 (key-mask arity)",
-                     ("mf_fwd_", "mf_dq_kernel", "mf_dkv_kernel"))
+                     ("mf_fwd_", "mf_dq_kernel", "mf_dkv_"))
 FLASH_ROUTE = Route(dict.fromkeys(FLASH_NAMES, 1), _PlainFlash, "_legacy",
                     "K5-K7 (key-mask arity)",
                     ("flash_fwd_", "flash_dq_kernel",
-                     "flash_dkv_kernel"))
+                     "flash_dkv_"))
 BANDED_ROUTE = Route(BANDED_PER_CALL, _PlainBanded, "_legacy",
                      "K11-K13 (banded)",
                      ("banded_fwd_kernel", "banded_dq_kernel",
@@ -3766,6 +3813,7 @@ def check_flash_kernels(name, args, causal, rate, key_mask=None,
     o, lse = tf.flash_fwd(q, k, v, causal, scale, rate, seed, key_mask)
     torch.cuda.synchronize()
     body = _body_ran(tf.flash_fwd, bodies)
+    dkv_bodies = dict(tf.flash_dkv.bodies)
 
     def plain(fn, *a):
         if flush is None:
@@ -3778,6 +3826,7 @@ def check_flash_kernels(name, args, causal, rate, key_mask=None,
     dq = tf.flash_dq(*bwd)
     dk, dv = tf.flash_dkv(*bwd)
     torch.cuda.synchronize()
+    dkv_body = _body_ran(tf.flash_dkv, dkv_bodies)
     dq_p, dq_ms = plain(tf.flash_dq_plain, *bwd)
     (dk_p, dv_p), dkv_ms = plain(tf.flash_dkv_plain, *bwd)
     dtype = "fp32" if q.dtype == torch.float32 else "bf16"
@@ -3786,6 +3835,7 @@ def check_flash_kernels(name, args, causal, rate, key_mask=None,
            "dtype": str(q.dtype), "shape_q": list(q.shape),
            "shape_kv": list(k.shape), "causal": causal,
            "body": body[0] if len(body) == 1 else body,
+           "dkv_body": dkv_body[0] if len(dkv_body) == 1 else dkv_body,
            "tiles": list(blocks), "dropout": rate,
            "key_mask": key_mask is not None, "tol": tol,
            "lse_atol": LSE_ATOL}
@@ -3807,6 +3857,7 @@ def check_flash_kernels(name, args, causal, rate, key_mask=None,
     row["lse_max_abs_err"] = lse_err
     ok &= lse_err <= LSE_ATOL
     ok &= body == [kernel_body("flash_fwd", dtype)]
+    ok &= dkv_body == [kernel_body("flash_dkv", dtype)]
     if causal and sq < sk:
         zero = bool((dk[:, :, sq:] == 0).all() and (dv[:, :, sq:] == 0).all())
         row["unreached_keys_zero_grad"] = zero
@@ -3894,25 +3945,30 @@ def flash_kernel_check_phase():
     check_flash_kernels(
         "full_fp32_seq96x160_hd24_dropout0.1",
         cross_inputs(rng, 2, 4, 4, 96, 160, 24, torch.float32), False, 0.1)
-    # K5's tensor-core body: rectangular tiles (bq != bk) with seq_q !=
-    # seq_k, tiles of 16, head dims 32 to 128 (40 and 72 off the mma's
-    # depth of 16), GQA, dropout and the key mask
+    # K5's and K7's tensor-core bodies: rectangular tiles (bq != bk) with
+    # seq_q != seq_k, tiles of 16, head dims 32 to 128 (40 and 72 off the
+    # mma's depth of 16), GQA, dropout and the key mask, each with its
+    # control
     check_flash_kernels(
         "causal_sq320_sk1024_tiles64x128_bf16_dropout0.1",
-        cross_inputs(rng, 2, 8, 8, 320, 1024, 64, bf16), True, 0.1)
+        cross_inputs(rng, 2, 8, 8, 320, 1024, 64, bf16), True, 0.1,
+        control="causal")
     check_flash_kernels(
         "full_sq1024_sk160_tiles128x32_hd40_gqa4_key_mask_bf16",
         cross_inputs(rng, 2, 8, 2, 1024, 160, 40, bf16), False, 0.0,
-        key_mask=bert_key_mask(rng, 2, 160, 60))
+        key_mask=bert_key_mask(rng, 2, 160, 60), control="key mask")
     check_flash_kernels(
         "causal_s208_tiles16_hd32_bf16_dropout0.1",
-        cross_inputs(rng, 2, 8, 8, 208, 208, 32, bf16), True, 0.1)
+        cross_inputs(rng, 2, 8, 8, 208, 208, 32, bf16), True, 0.1,
+        control="rounding")
     check_flash_kernels(
         "full_seq96x160_tiles32_hd72_bf16",
-        cross_inputs(rng, 2, 4, 4, 96, 160, 72, bf16), False, 0.0)
+        cross_inputs(rng, 2, 4, 4, 96, 160, 72, bf16), False, 0.0,
+        control="rounding")
     check_flash_kernels(
         "causal_s512_hd128_gqa4_bf16_dropout0.1",
-        cross_inputs(rng, 2, 16, 4, 512, 512, 128, bf16), True, 0.1)
+        cross_inputs(rng, 2, 16, 4, 512, 512, 128, bf16), True, 0.1,
+        control="rounding")
     return main_row
 
 
@@ -4006,6 +4062,8 @@ def flash_kernel_timing_phase(smi, entry_ms):
             emit({"phase": "flash_kernel_timing", "kernel": name,
                   "geometry": label, "shape": dict(m, dtype="bf16",
                                                    mask="causal"),
+                  "fma_body_ms": FMA_BODY_DKV_MS.get(
+                      ("flash_kernel_timing", name, label)),
                   "tiles": [bq, bk], "walked_tiles_per_bh": walked,
                   "causal_cells_per_bh": cells,
                   "kernel_ms": t["ms"], **t,
@@ -4640,7 +4698,7 @@ def main() -> int:
           "tensor_core_kernels": sum("_mma_kernel" in f["function"]
                                      for fs in ptxas.values() for f in fs),
           "spills": spills})
-    # the tensor-core bodies (K1 and K5 in bf16) may not spill
+    # the tensor-core bodies (K1, K3, K5 and K7 in bf16) may not spill
     if any("_mma_kernel" in f["function"] for f in spills):
         raise AssertionError(f"ptxas spills registers: {spills}")
 

@@ -40,8 +40,12 @@
 // (mma_fwd.cuh) over this walk: a CTA owns min(bq, 64) query rows of one
 // query block, 16 per warp, with Q, the scores and O in registers, and
 // streams the walked tiles of bk keys through a cp.async ring of bf16
-// chunks. The fp32 arity of K5, and K6 and K7 in both dtypes, are the
-// first, simple design of K1-K3 (masked_flash.cu) on the CUDA cores: a
+// chunks. K7 in bf16 runs K3's tensor-core body (mma_dkv.cuh) over its
+// walk of query tiles: a CTA owns min(bk, 64) key rows of one key tile,
+// 16 per warp, with dK and dV in registers, and streams Q and dO in
+// chunks of up to 32 query rows. The fp32 arity of K5 and K7, and K6 in
+// both dtypes, are the first, simple design of K1-K3 (masked_flash.cu)
+// on the CUDA cores: a
 // CTA of 128 threads owns R = min(bq, 32) query rows (K5, K6) or R =
 // min(bk, 32) key rows (K7); it stages its own rows once and the partner
 // rows of each walked tile in chunks of min(b, 32) rows into shared
@@ -51,7 +55,7 @@
 // keys, as in the Pallas kernel. JAX's streamed layout (K/V or q/do
 // through double-buffered DMA above STREAM_THRESHOLD) is a TPU VMEM
 // layout: these kernels stage through shared memory at every length and
-// need no second code path. Later work: K6 and K7 on mma_tiles.cuh's
+// need no second code path. Later work: K6 on mma_tiles.cuh's
 // fragments.
 //
 // Built by deepspeed_tpu_torch/ops/_build.py with
@@ -62,7 +66,7 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
-#include "mma_fwd.cuh"
+#include "mma_dkv.cuh"
 
 namespace {
 
@@ -304,16 +308,16 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------- K7
-// grid (Sk / R, B*H): one CTA per q head and R = min(bk, 32) key rows,
-// over the query blocks of its key block, chunk by chunk of C = min(bq, 32)
-// query rows. TO is T, or float for the per-q-head partials at G > 1.
-template <typename T, typename TO, bool KPM>
+// fp32 (the CUDA-core body): grid (Sk / R, B*H): one CTA per q head and
+// R = min(bk, 32) key rows, over the query blocks of its key block, chunk
+// by chunk of C = min(bq, 32) query rows.
+template <bool KPM>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ kpm,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, TO* __restrict__ dk,
-                 TO* __restrict__ dv, Geo g, Dropout dr) {
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ kpm,
+                 const float* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk,
+                 float* __restrict__ dv, Geo g, Dropout dr) {
   extern __shared__ float smem[];
   const int D = g.D;
   const int R = rows_of(g.bk);
@@ -326,8 +330,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // this key block
   const int first = g.causal ? (kr0 / g.bk) * g.bk / g.bq * g.bq : 0;
   const int kvr = b * g.Hkv + h / (g.H / g.Hkv);
-  const T* qg = q + (size_t)bh * g.Sq * D;
-  const T* dog = dout + (size_t)bh * g.Sq * D;
+  const float* qg = q + (size_t)bh * g.Sq * D;
+  const float* dog = dout + (size_t)bh * g.Sq * D;
 
   float* ks = smem;                 // R x (D+1)
   float* vs = ks + R * (D + 1);     // R x (D+1)
@@ -379,8 +383,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pd = kp ? p * dr.inv_keep : 0.f;
         dp = kp ? dp * dr.inv_keep : 0.f;
       }
-      ps[e] = round_to<T>(pd);
-      dps[e] = round_to<T>(p * (dp - dl_s[r]));
+      ps[e] = pd;
+      dps[e] = p * (dp - dl_s[r]);
     }
     __syncthreads();
     // dv += pd^T . do ; dk += ds^T . q
@@ -389,12 +393,58 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
-  TO* dkg = dk + ((size_t)bh * g.Sk + kr0) * D;
-  TO* dvg = dv + ((size_t)bh * g.Sk + kr0) * D;
+  float* dkg = dk + ((size_t)bh * g.Sk + kr0) * D;
+  float* dvg = dv + ((size_t)bh * g.Sk + kr0) * D;
   for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
-    dkg[e] = from_f<TO>(dks[e] * g.sm_scale);
-    dvg[e] = from_f<TO>(dvs[e]);
+    dkg[e] = dks[e] * g.sm_scale;
+    dvg[e] = dvs[e];
   }
+}
+
+// K7 in bf16 (the tensor-core body, mma_dkv.cuh): grid (Sk / R, B*H),
+// R = min(bk, 64) key rows of one key tile per CTA, 16 per warp, over
+// the query tiles of bq rows from JAX's first_qb on. A walked tile is
+// CAUSAL (the clip) when causal and one of its queries lies before the
+// CTA's last key, else FULL.
+struct QBlockWalk {
+  int first, count, bq, causal, klast;
+  __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int rows() const { return bq; }
+  __device__ __forceinline__ int2 tile(int t) const {
+    const int q0 = first + t * bq;
+    return make_int2(q0, causal && q0 < klast ? kKindCausal : 0);
+  }
+};
+
+template <int CH, int DMAX, bool KPM>
+__global__ void __launch_bounds__(2 * kMmaMaxRows, DMAX <= 64 ? 3 : 2)
+flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const float* __restrict__ kpm,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, void* dk, void* dv,
+                     Geo g, Dropout dr, int fp32_out) {
+  const int R = blockDim.x / 2;
+  const int D = g.D;
+  const int bh = blockIdx.y;
+  const int h = bh % g.H;
+  const int b = bh / g.H;
+  const int kr0 = blockIdx.x * R;   // the first keys walk the most tiles
+  const int first = g.causal ? (kr0 / g.bk) * g.bk / g.bq * g.bq : 0;
+  const int count = first < g.Sq ? (g.Sq - first) / g.bq : 0;
+  const QBlockWalk walk{first, count, g.bq, g.causal, kr0 + R - 1};
+  const size_t kvr = (size_t)b * g.Hkv + h / (g.H / g.Hkv);
+  const size_t qrow = (size_t)bh * g.Sq;
+  const size_t krow = kvr * g.Sk + kr0;
+  const size_t out0 = ((size_t)bh * g.Sk + kr0) * D * (fp32_out ? 4 : 2);
+  const DkvRows rows{q + qrow * D, k + krow * D, v + krow * D,
+                     dout + qrow * D, lse + qrow, delta + qrow,
+                     KPM ? kpm + (size_t)b * g.Sk : nullptr,
+                     static_cast<char*>(dk) + out0,
+                     static_cast<char*>(dv) + out0, fp32_out, kr0, D, bh,
+                     g.sm_scale};
+  mma_dkv_body<CH, DMAX, KPM, false, false>(rows, walk, NoBand{}, dr);
 }
 
 size_t fwd_smem(int R, int C, int D, int bk) {
@@ -474,27 +524,56 @@ cudaError_t run_dq(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                 dr);
 }
 
-template <typename T, typename TO, bool KPM>
+template <bool KPM>
 cudaError_t run_dkv(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                     const void* k, const void* v, const void* kpm,
                     const void* dout, const float* ls, const float* dl,
                     void* dk, void* dv, Geo g, Dropout dr) {
-  return launch(flash_dkv_kernel<T, TO, KPM>, grid, smem, s,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const float*>(kpm),
-                static_cast<const T*>(dout), ls, dl, static_cast<TO*>(dk),
-                static_cast<TO*>(dv), g, dr);
+  return launch(flash_dkv_kernel<KPM>, grid, smem, s,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(kpm),
+                static_cast<const float*>(dout), ls, dl,
+                static_cast<float*>(dk), static_cast<float*>(dv), g, dr);
 }
 
+template <int CH, int DMAX, bool KPM>
+cudaError_t run_dkv_mma(dim3 grid, int threads, size_t smem,
+                        cudaStream_t s, const void* q, const void* k,
+                        const void* v, const void* kpm, const void* dout,
+                        const float* ls, const float* dl, void* dk, void* dv,
+                        Geo g, Dropout dr, int fp32_out) {
+  return launch_rows(flash_dkv_mma_kernel<CH, DMAX, KPM>, grid, threads,
+                     smem, s, static_cast<const bf16*>(q),
+                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                     static_cast<const float*>(kpm),
+                     static_cast<const bf16*>(dout), ls, dl, dk, dv, g, dr,
+                     fp32_out);
+}
+
+using DkvMma = decltype(&run_dkv_mma<16, 64, false>);
+
+// the tensor-core instantiation of a query tile's chunk, head dim and key
+// mask (the bad_shape checks passed: D <= 128)
+DkvMma pick_dkv_mma(int bq, int D, bool kpm) {
+  const bool c16 = dkv_chunk(bq) == 16, wide = D > 64;
+  return c16 ? (wide ? (kpm ? run_dkv_mma<16, 128, true>
+                            : run_dkv_mma<16, 128, false>)
+                     : (kpm ? run_dkv_mma<16, 64, true>
+                            : run_dkv_mma<16, 64, false>))
+             : (wide ? (kpm ? run_dkv_mma<32, 128, true>
+                            : run_dkv_mma<32, 128, false>)
+                     : (kpm ? run_dkv_mma<32, 64, true>
+                            : run_dkv_mma<32, 64, false>));
+}
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. kpm: the (B, Sk) fp32 additive key
 // mask, or null for none. block_q, block_k: the walk's tile (16, 32, 64
 // or 128 each). Each entry point returns the CUDA error of its launch (0
 // on success); it launches on `stream` and does not synchronise.
-// flash_fwd runs bf16 on the tensor-core body (q, k, v and o 16-byte
-// aligned, kpm 8: else cudaErrorInvalidValue) and fp32 on the CUDA-core
-// body.
+// flash_fwd and flash_dkv run bf16 on their tensor-core bodies (q, k,
+// v, do and the outputs 16-byte aligned, kpm 8: else
+// cudaErrorInvalidValue) and fp32 on the CUDA-core bodies.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kpm, void* o, void* lse, int dtype,
                          int bh, int heads, int kv_heads, int seq_q,
@@ -571,22 +650,21 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
   const Geo g{heads, kv_heads, seq_q, seq_k, head_dim,
               block_q, block_k, causal != 0, sm_scale};
   const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
-  const int R = rows_of(block_k), C = rows_of(block_q);
-  const dim3 grid(seq_k / R, bh);
-  const size_t smem = dkv_smem(R, C, head_dim);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  using Bf = __nv_bfloat16;
   const bool has_kpm = kpm != nullptr;
-  auto run = dtype == 0 ? (has_kpm ? run_dkv<float, float, true>
-                                   : run_dkv<float, float, false>)
-             : dtype == 1 && fp32_out
-                 ? (has_kpm ? run_dkv<Bf, float, true>
-                            : run_dkv<Bf, float, false>)
-             : dtype == 1 ? (has_kpm ? run_dkv<Bf, Bf, true>
-                                     : run_dkv<Bf, Bf, false>)
-                          : nullptr;
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)run(grid, smem, s, q, k, v, kpm, dout, ls, dl, dk, dv, g, dr);
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    if (dkv_misaligned(q, k, v, dout, dk, dv, kpm))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(block_k);
+    return (int)pick_dkv_mma(block_q, head_dim, has_kpm)(
+        dim3(seq_k / R, bh), 2 * R, mma_dkv_smem(R, block_q, head_dim), s,
+        q, k, v, kpm, dout, ls, dl, dk, dv, g, dr, fp32_out != 0);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(block_k), C = rows_of(block_q);  // fp32: CUDA cores
+  return (int)(has_kpm ? run_dkv<true> : run_dkv<false>)(
+      dim3(seq_k / R, bh), dkv_smem(R, C, head_dim), s, q, k, v, kpm, dout,
+      ls, dl, dk, dv, g, dr);
 }

@@ -51,8 +51,12 @@
 // mma.sync m16n8k16 with bf16 operands and fp32 accumulators, Q, the
 // scores and O in registers, K and V staged as bf16 by cp.async into a
 // three-chunk ring, a CTA of min(blk, 64) rows of one block row sharing
-// each staged tile). The fp32 arity of K1, and K2 and K3 in both dtypes,
-// are the first, simple design on the CUDA cores: a CTA of 128 threads
+// each staged tile). K3 in bf16 runs on the tensor cores too
+// (mma_dkv.cuh: a CTA of min(blk, 64) key rows of one key block, 16 per
+// warp, dK and dV in registers, Q and dO streamed as bf16 through a
+// cp.async ring in chunks of up to 32 query rows). The fp32 arity of K1
+// and K3, and K2 in both dtypes, are the first, simple design on the
+// CUDA cores: a CTA of 128 threads
 // owns 32 rows of a tile (q rows for K1/K2, k rows for K3); it stages its
 // own operand rows once and each walked tile's partner rows in chunks of
 // 32 into shared memory as fp32 (rows padded to D+1 words, so the
@@ -63,7 +67,7 @@
 // tile, as in the Pallas kernel; K2 and K3 need no running max (p =
 // exp(s - lse)), so they go chunk by chunk. The fp32 checks' tolerance
 // (1e-5) is tighter than TF32 holds, so fp32 stays on the CUDA cores.
-// Later work: K2 and K3 on mma_tiles.cuh's fragments.
+// Later work: K2 on mma_tiles.cuh's fragments.
 //
 // Built by deepspeed_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -73,7 +77,7 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
-#include "mma_fwd.cuh"
+#include "mma_dkv.cuh"
 
 namespace {
 
@@ -403,17 +407,17 @@ mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------- K3
-// grid (Sk / R, B*H): one CTA per q head and R key rows, over the CSC
-// walk of the key block, chunk by chunk of R query rows. TO is T, or
-// float for the per-q-head partials at G > 1. With KPM the CTA's R key
-// rows' mask values are loaded once, beside the staged K and V rows.
-template <typename T, typename TO, bool KPM, bool BAND>
+// fp32 (the CUDA-core body): grid (Sk / R, B*H): one CTA per q head and
+// R key rows, over the CSC walk of the key block, chunk by chunk of R
+// query rows. With KPM the CTA's R key rows' mask values are loaded
+// once, beside the staged K and V rows.
+template <bool KPM, bool BAND>
 __global__ void __launch_bounds__(kThreads)
-mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const float* __restrict__ kpm,
-              const T* __restrict__ dout,
+mf_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ kpm,
+              const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              TO* __restrict__ dk, TO* __restrict__ dv,
+              float* __restrict__ dk, float* __restrict__ dv,
               const int32_t* __restrict__ coffs,
               const int32_t* __restrict__ ccnts,
               const int32_t* __restrict__ crows,
@@ -431,8 +435,8 @@ mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n = ccnts[col];
   const int base = coffs[col];
   const int kvr = b * sh.Hkv + h / (sh.H / sh.Hkv);
-  const T* qg = q + (size_t)bh * sh.Sq * D;
-  const T* dog = dout + (size_t)bh * sh.Sq * D;
+  const float* qg = q + (size_t)bh * sh.Sq * D;
+  const float* dog = dout + (size_t)bh * sh.Sq * D;
 
   float* ks = smem;                 // R x (D+1)
   float* vs = ks + R * (D + 1);     // R x (D+1)
@@ -494,8 +498,8 @@ mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           pd = kp ? p * dr.inv_keep : 0.f;
           dp = kp ? dp * dr.inv_keep : 0.f;
         }
-        ps[e] = round_to<T>(pd);
-        dps[e] = round_to<T>(p * (dp - dl_s[r]));
+        ps[e] = pd;
+        dps[e] = p * (dp - dl_s[r]);
       }
       __syncthreads();
       // dv += pd^T . do ; dk += ds^T . q
@@ -505,12 +509,63 @@ mf_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  TO* dkg = dk + ((size_t)bh * sh.Sk + kr0) * D;
-  TO* dvg = dv + ((size_t)bh * sh.Sk + kr0) * D;
+  float* dkg = dk + ((size_t)bh * sh.Sk + kr0) * D;
+  float* dvg = dv + ((size_t)bh * sh.Sk + kr0) * D;
   for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
-    dkg[e] = from_f<TO>(dks[e] * sh.sm_scale);
-    dvg[e] = from_f<TO>(dvs[e]);
+    dkg[e] = dks[e] * sh.sm_scale;
+    dvg[e] = dvs[e];
   }
+}
+
+// K3 in bf16 (the tensor-core body, mma_dkv.cuh): grid (Sk / R, B*H),
+// R = min(blk, 64) key rows of one key block per CTA, 16 per warp, over
+// the block's CSC column; CH = dkv_chunk(blk) query rows per chunk.
+struct CscWalk {
+  const int32_t* rws;     // the key block's CSC rows and kinds
+  const int32_t* kinds;
+  int count, blk;
+  __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int rows() const { return blk; }
+  __device__ __forceinline__ int2 tile(int t) const {
+    return make_int2(rws[t] * blk, kinds[t]);
+  }
+};
+
+template <int CH, int DMAX, bool KPM, bool BAND>
+__global__ void __launch_bounds__(2 * kMmaMaxRows, DMAX <= 64 ? 3 : 2)
+mf_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const float* __restrict__ kpm,
+                  const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, void* dk, void* dv,
+                  const int32_t* __restrict__ coffs,
+                  const int32_t* __restrict__ ccnts,
+                  const int32_t* __restrict__ crows,
+                  const int32_t* __restrict__ ckinds, Shape sh, Band bd,
+                  Dropout dr, int fp32_out) {
+  const int R = blockDim.x / 2;
+  const int D = sh.D;
+  const int bh = blockIdx.y;
+  const int h = bh % sh.H;
+  const int b = bh / sh.H;
+  const int kr0 = blockIdx.x * R;   // the first keys walk the most tiles
+  const int col = (h % sh.Hm) * (sh.Sk / sh.blk) + kr0 / sh.blk;
+  const int base = coffs[col];
+  const CscWalk walk{crows + base, ckinds + base, ccnts[col], sh.blk};
+  const size_t kvr = (size_t)b * sh.Hkv + h / (sh.H / sh.Hkv);
+  const size_t qrow = (size_t)bh * sh.Sq;
+  const size_t krow = kvr * sh.Sk + kr0;
+  const size_t out0 = ((size_t)bh * sh.Sk + kr0) * D * (fp32_out ? 4 : 2);
+  const DkvRows rows{q + qrow * D, k + krow * D, v + krow * D,
+                     dout + qrow * D, lse + qrow, delta + qrow,
+                     KPM ? kpm + (size_t)b * sh.Sk : nullptr,
+                     static_cast<char*>(dk) + out0,
+                     static_cast<char*>(dv) + out0, fp32_out, kr0, D, bh,
+                     sh.sm_scale};
+  if constexpr (BAND)
+    mma_dkv_body<CH, DMAX, KPM, true, true>(rows, walk, bd, dr);
+  else
+    mma_dkv_body<CH, DMAX, KPM, false, true>(rows, walk, NoBand{}, dr);
 }
 
 size_t fwd_smem(int R, int D, int blk) {
@@ -601,18 +656,19 @@ cudaError_t run_dq(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                 cn, co, ki, sh, bd, dr);
 }
 
-template <typename T, typename TO, bool KPM, bool BAND>
+template <bool KPM, bool BAND>
 cudaError_t run_dkv(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                     const void* k, const void* v, const void* kpm,
                     const void* dout, const float* ls, const float* dl,
                     void* dk, void* dv, const int32_t* of, const int32_t* cn,
                     const int32_t* ro, const int32_t* ki, Shape sh, Band bd,
                     Dropout dr) {
-  return launch(mf_dkv_kernel<T, TO, KPM, BAND>, grid, smem, s,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const float*>(kpm),
-                static_cast<const T*>(dout), ls, dl, static_cast<TO*>(dk),
-                static_cast<TO*>(dv), of, cn, ro, ki, sh, bd, dr);
+  return launch(mf_dkv_kernel<KPM, BAND>, grid, smem, s,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(kpm),
+                static_cast<const float*>(dout), ls, dl,
+                static_cast<float*>(dk), static_cast<float*>(dv), of, cn, ro,
+                ki, sh, bd, dr);
 }
 
 // the instantiation of one dtype for a call's key mask and band
@@ -628,12 +684,46 @@ auto pick_dq(bool kpm, bool band) {
              : (band ? run_dq<T, false, true> : run_dq<T, false, false>);
 }
 
-template <typename T, typename TO>
 auto pick_dkv(bool kpm, bool band) {
-  return kpm ? (band ? run_dkv<T, TO, true, true>
-                     : run_dkv<T, TO, true, false>)
-             : (band ? run_dkv<T, TO, false, true>
-                     : run_dkv<T, TO, false, false>);
+  return kpm ? (band ? run_dkv<true, true> : run_dkv<true, false>)
+             : (band ? run_dkv<false, true> : run_dkv<false, false>);
+}
+
+template <int CH, int DMAX, bool KPM, bool BAND>
+cudaError_t run_dkv_mma(dim3 grid, int threads, size_t smem,
+                        cudaStream_t s, const void* q, const void* k,
+                        const void* v, const void* kpm, const void* dout,
+                        const float* ls, const float* dl, void* dk, void* dv,
+                        const int32_t* of, const int32_t* cn,
+                        const int32_t* ro, const int32_t* ki, Shape sh,
+                        Band bd, Dropout dr, int fp32_out) {
+  return launch_rows(mf_dkv_mma_kernel<CH, DMAX, KPM, BAND>, grid, threads,
+                     smem, s, static_cast<const bf16*>(q),
+                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                     static_cast<const float*>(kpm),
+                     static_cast<const bf16*>(dout), ls, dl, dk, dv, of, cn,
+                     ro, ki, sh, bd, dr, fp32_out);
+}
+
+using DkvMma = decltype(&run_dkv_mma<16, 64, false, false>);
+
+template <int CH, int DMAX>
+DkvMma pick_dkv_mma(bool kpm, bool band) {
+  return kpm ? (band ? run_dkv_mma<CH, DMAX, true, true>
+                     : run_dkv_mma<CH, DMAX, true, false>)
+             : (band ? run_dkv_mma<CH, DMAX, false, true>
+                     : run_dkv_mma<CH, DMAX, false, false>);
+}
+
+// the tensor-core instantiation of a walk block's chunk, head dim, key
+// mask and band (the bad_shape checks passed: D <= 128)
+DkvMma pick_dkv_mma_blk(int blk, int D, bool kpm, bool band) {
+  const bool wide = D > 64;
+  return dkv_chunk(blk) == 16
+             ? (wide ? pick_dkv_mma<16, 128>(kpm, band)
+                     : pick_dkv_mma<16, 64>(kpm, band))
+             : (wide ? pick_dkv_mma<32, 128>(kpm, band)
+                     : pick_dkv_mma<32, 64>(kpm, band));
 }
 
 }  // namespace
@@ -642,9 +732,10 @@ auto pick_dkv(bool kpm, bool band) {
 // mask, or null for none. fine_block, band_w, band_g_r, band_g_c,
 // band_causal: the band of KIND_BAND tiles (fine_block 0 for none). Each
 // entry point returns the CUDA error of its launch (0 on success); it
-// launches on `stream` and does not synchronise. masked_flash_fwd runs
-// bf16 on the tensor-core body (q, k, v and o 16-byte aligned, kpm 8:
-// else cudaErrorInvalidValue) and fp32 on the CUDA-core body.
+// launches on `stream` and does not synchronise. masked_flash_fwd and
+// masked_flash_dkv run bf16 on their tensor-core bodies (q, k, v, do and
+// the outputs 16-byte aligned, kpm 8: else cudaErrorInvalidValue) and
+// fp32 on the CUDA-core bodies.
 extern "C" int masked_flash_fwd(
     const void* q, const void* k, const void* v, const void* kpm, void* o,
     void* lse, const void* offs, const void* cnts, const void* cols,
@@ -735,9 +826,6 @@ extern "C" int masked_flash_dkv(
   const Shape sh{heads, kv_heads, mask_heads, seq_q, seq_k,
                  head_dim, block, sm_scale};
   const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
-  const int R = rows_of(block);
-  const dim3 grid(seq_k / R, bh);
-  const size_t smem = bwd_smem(R, head_dim, kpm != nullptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -745,13 +833,19 @@ extern "C" int masked_flash_dkv(
   const int32_t* cn = static_cast<const int32_t*>(ccnts);
   const int32_t* ro = static_cast<const int32_t*>(crows);
   const int32_t* ki = static_cast<const int32_t*>(ckinds);
-  using Bf = __nv_bfloat16;
   const bool band = fine_block > 0, has_kpm = kpm != nullptr;
-  auto run = dtype == 0              ? pick_dkv<float, float>(has_kpm, band)
-             : dtype == 1 && fp32_out ? pick_dkv<Bf, float>(has_kpm, band)
-             : dtype == 1             ? pick_dkv<Bf, Bf>(has_kpm, band)
-                                      : nullptr;
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)run(grid, smem, s, q, k, v, kpm, dout, ls, dl, dk, dv, of, cn,
-                  ro, ki, sh, bd, dr);
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    if (dkv_misaligned(q, k, v, dout, dk, dv, kpm))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(block);
+    return (int)pick_dkv_mma_blk(block, head_dim, has_kpm, band)(
+        dim3(seq_k / R, bh), 2 * R, mma_dkv_smem(R, block, head_dim), s, q,
+        k, v, kpm, dout, ls, dl, dk, dv, of, cn, ro, ki, sh, bd, dr,
+        fp32_out != 0);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(block);      // fp32: the CUDA-core body
+  return (int)pick_dkv(has_kpm, band)(
+      dim3(seq_k / R, bh), bwd_smem(R, head_dim, has_kpm), s, q, k, v, kpm,
+      dout, ls, dl, dk, dv, of, cn, ro, ki, sh, bd, dr);
 }

@@ -616,14 +616,17 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
 def flash_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
               rate: float = 0.0, seed: int = 0, key_mask=None, blocks=None):
     """K7: ``(dk, dv)`` of :func:`flash_dkv_plain`; kernel on CUDA (fp32
-    per-q-head partials at G > 1, summed here), plain version on the
-    CPU."""
+    per-q-head partials at G > 1, summed here), K3's tensor-core body in
+    bf16 and the CUDA-core body in fp32 (``masked_flash.DKV_BODIES``,
+    counted in ``bodies``); plain version on the CPU."""
     blocks = _prepare(q, k, v, key_mask, blocks, rate)
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, do, lse, delta, causal, sm_scale,
                                rate, seed, key_mask, blocks)
-    from deepspeed_tpu_torch.ops.attention.masked_flash import _group_sum
+    from deepspeed_tpu_torch.ops.attention.masked_flash import (
+        DKV_BODIES, _check_dkv_aligned, _count_body, _group_sum)
     _check_cuda((q, k, v, do, lse, delta), key_mask, blocks)
+    _check_dkv_aligned(q, k, v, do, key_mask)
     B, H, _, D = q.shape
     G = H // k.shape[1]
     part = torch.float32 if G > 1 else k.dtype
@@ -632,6 +635,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
     _launch("flash_dkv", q, k, [q, k, v, key_mask, do, lse, delta, dk, dv],
             [int(G > 1)], causal, blocks, sm_scale, rate, seed)
     _count(flash_dkv, key_mask, causal)
+    _count_body(flash_dkv, q.dtype, DKV_BODIES)
     return _group_sum(dk, dv, k, v)
 
 
@@ -641,6 +645,7 @@ def reset_launches():
         w.launches = 0
         w.arities = {}
     flash_fwd.bodies = {}
+    flash_dkv.bodies = {}
 
 
 reset_launches()

@@ -16,11 +16,12 @@ each with a wrapper and a plain PyTorch version of the same tile walk:
 For CUDA tensors each wrapper launches its hand-written kernel in
 ``csrc/masked_flash.cu`` (built with nvcc for sm_90a at first use) or
 raises; it never falls back. K1 in bf16 runs the tensor-core body of
-``csrc/mma_fwd.cuh`` (shared with K5), in fp32 the CUDA-core body
-(:data:`FWD_BODIES`). For CPU tensors it runs the plain version
-(``*_plain``). Each launch adds one to the wrapper's ``launches``.
-:func:`masked_flash_call` is the ``torch.autograd.Function`` over the
-three; :func:`masked_flash_attention` is the public entry.
+``csrc/mma_fwd.cuh`` (shared with K5), K3 in bf16 that of
+``csrc/mma_dkv.cuh`` (shared with K7), in fp32 both the CUDA-core body
+(:data:`FWD_BODIES`, :data:`DKV_BODIES`). For CPU tensors it runs the
+plain version (``*_plain``). Each launch adds one to the wrapper's
+``launches``. :func:`masked_flash_call` is the ``torch.autograd.Function``
+over the three; :func:`masked_flash_attention` is the public entry.
 
 Ported arity: block kinds FULL, CAUSAL and BAND, GQA, mask heads 1 or
 H, dropout, fp32 and bf16, head_dim a multiple of 8 up to 128, walk
@@ -64,6 +65,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (csrc/mma_fwd.cuh), fp32 on the CUDA cores (fp32 FMAs: the fp32
 # checks' 1e-5 tolerance is tighter than TF32 holds)
 FWD_BODIES = {torch.bfloat16: "mma", torch.float32: "fma"}
+# the body K3 and K7 run by input dtype: bf16 on the tensor cores
+# (csrc/mma_dkv.cuh), fp32 on the CUDA cores
+DKV_BODIES = {torch.bfloat16: "mma", torch.float32: "fma"}
 KERNEL_BLOCKS = (16, 32, 64, 128)
 MAX_HEAD_DIM = 128
 # the coarse walk tiles a banded layout may take (the kernels take walk
@@ -700,18 +704,32 @@ def _check_cuda(tensors, mask: BlockMask, key_mask=None):
                          f"{B * H}")
 
 
-def _check_fwd_aligned(q, k, v, key_mask=None):
-    """K1's and K5's tensor-core body (bf16) loads 16-byte rows from
-    16-byte aligned q, k and v, and the key mask in 8-byte pairs: raise
-    for an operand the C entry point would refuse."""
-    if FWD_BODIES[q.dtype] != "mma":
+def _check_aligned(what, bodies, dtype, operands):
+    """A tensor-core body (bf16) loads 16-byte rows from 16-byte aligned
+    operands, and the key mask in 8-byte pairs: raise for an operand of
+    ``operands`` ((name, tensor or None), ...) the C entry point would
+    refuse."""
+    if bodies[dtype] != "mma":
         return
-    for name, t, align in (("q", q, 16), ("k", k, 16), ("v", v, 16),
-                           ("key_mask", key_mask, 8)):
+    for name, t in operands:
+        align = 8 if name == "key_mask" else 16
         if t is not None and t.data_ptr() % align:
-            raise ValueError(f"the bf16 forward kernels take a {name} "
+            raise ValueError(f"the bf16 {what} kernels take a {name} "
                              f"aligned to {align} bytes, got address "
                              f"{t.data_ptr():#x}")
+
+
+def _check_fwd_aligned(q, k, v, key_mask=None):
+    """K1's and K5's operands for their tensor-core body."""
+    _check_aligned("forward", FWD_BODIES, q.dtype,
+                   (("q", q), ("k", k), ("v", v), ("key_mask", key_mask)))
+
+
+def _check_dkv_aligned(q, k, v, do, key_mask=None):
+    """K3's and K7's operands for their tensor-core body."""
+    _check_aligned("dk/dv", DKV_BODIES, q.dtype,
+                   (("q", q), ("k", k), ("v", v), ("do", do),
+                    ("key_mask", key_mask)))
 
 
 _fns = {}
@@ -848,13 +866,16 @@ def masked_flash_dkv(q, k, v, do, lse, delta, mask: BlockMask,
                      key_mask=None):
     """K3: ``(dk, dv)`` of :func:`masked_flash_dkv_plain`; kernel on
     CUDA (fp32 per-q-head partials at G > 1, summed here; its key-mask
-    arity with a ``key_mask``), plain version on the CPU."""
+    arity with a ``key_mask``), its tensor-core body in bf16 and its
+    CUDA-core body in fp32 (:data:`DKV_BODIES`, counted in ``bodies``);
+    plain version on the CPU."""
     _check_args(q, k, v, mask, key_mask)
     _check_hash_rounds(rate)
     if q.device.type == "cpu":
         return masked_flash_dkv_plain(q, k, v, do, lse, delta, mask,
                                       sm_scale, rate, seed, key_mask)
     _check_cuda((q, k, v, do, lse, delta), mask, key_mask)
+    _check_dkv_aligned(q, k, v, do, key_mask)
     B, H, Sq, D = q.shape
     G = H // k.shape[1]
     part = torch.float32 if G > 1 else k.dtype
@@ -872,6 +893,7 @@ def masked_flash_dkv(q, k, v, do, lse, delta, mask: BlockMask,
           _DTYPE_CODE[q.dtype], int(G > 1), *_geometry(q, k, mask),
           *_dropout(sm_scale, rate, seed)])
     _count(masked_flash_dkv, key_mask, mask)
+    _count_body(masked_flash_dkv, q.dtype, DKV_BODIES)
     return _group_sum(dk, dv, k, v)
 
 
@@ -893,10 +915,11 @@ def _count(wrapper, key_mask, mask: BlockMask):
     wrapper.arities[name] = wrapper.arities.get(name, 0) + 1
 
 
-def _count_body(wrapper, dtype):
-    """One launch of K1's or K5's ``wrapper``, counted in ``bodies`` by
-    the body it ran (:data:`FWD_BODIES`)."""
-    body = FWD_BODIES[dtype]
+def _count_body(wrapper, dtype, bodies=FWD_BODIES):
+    """One launch of ``wrapper`` (K1, K3, K5 or K7), counted in its
+    ``bodies`` by the body it ran (``bodies``: :data:`FWD_BODIES` or
+    :data:`DKV_BODIES`)."""
+    body = bodies[dtype]
     wrapper.bodies[body] = wrapper.bodies.get(body, 0) + 1
 
 
@@ -906,6 +929,7 @@ def reset_launches():
         w.launches = 0
         w.arities = {}
     masked_flash_fwd.bodies = {}
+    masked_flash_dkv.bodies = {}
 
 
 reset_launches()

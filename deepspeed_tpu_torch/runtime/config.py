@@ -11,7 +11,10 @@ taken on a data-parallel world of one: the JAX engine then shards the
 masters, moments (and at stage 2 the grads) over a data axis of size 1,
 one shard, so the step is stage 0's. Settings whose runtime is not
 ported yet (ZeRO above a world of one, stage 3, offload, 1-bit Adam,
-pipeline, fp16) raise ``NotImplementedError`` naming them.
+pipeline, fp16, ``tensorboard.enabled: true``, a ``mesh`` axis above 1)
+raise ``NotImplementedError`` naming them; a ``mesh`` whose axes are all
+1 (or -1, one device) and a disabled ``tensorboard`` section are
+accepted.
 """
 
 import collections
@@ -274,6 +277,15 @@ class DeepSpeedConfig:
             unported.append(f"optimizer {self.optimizer_name} (1-bit Adam)")
         if C.PIPELINE in self._param_dict:
             unported.append("pipeline")
+        tb = self._param_dict.get(C.TENSORBOARD) or {}
+        if tb.get(C.TENSORBOARD_ENABLED, False):
+            unported.append("tensorboard.enabled (the training monitor, "
+                            "ROADMAP Queue 1 item 7)")
+        axes = (self._param_dict.get(C.MESH) or {}).get(C.MESH_AXES) or {}
+        wide = {a: n for a, n in axes.items() if n > 1}
+        if wide:
+            unported.append(f"mesh.axes {wide} (a device mesh, ROADMAP "
+                            "Queue 1 items 10 and 16)")
         if self.fp16_enabled:
             unported.append("fp16.enabled (fp16 and loss scaling)")
         if not self.bf16_master_weights:

@@ -58,6 +58,10 @@ WALL_CLOCK_BREAKDOWN_DEFAULT = False
 MEMORY_BREAKDOWN = "memory_breakdown"
 MEMORY_BREAKDOWN_DEFAULT = False
 PIPELINE = "pipeline"
+TENSORBOARD = "tensorboard"
+TENSORBOARD_ENABLED = "enabled"
+MESH = "mesh"
+MESH_AXES = "axes"
 
 #############################################
 # Sparse attention (runtime/config.py::get_sparse_attention)

@@ -422,6 +422,9 @@ def test_cuda_kernels_match_plain(case):
     scale, seed = 1.0 / np.sqrt(d), -42
     kernels = (tf.flash_fwd, tf.flash_dq, tf.flash_dkv)
     before = [f.launches for f in kernels]
+    from deepspeed_tpu_torch.ops.attention.masked_flash import DKV_BODIES
+    body = DKV_BODIES[td]
+    dkv_before = tf.flash_dkv.bodies.get(body, 0)
     o, lse = tf.flash_fwd(q, k, v, causal, scale, rate, seed, key_mask)
     o_p, lse_p = tf.flash_fwd_plain(q, k, v, causal, scale, rate, seed,
                                     key_mask)
@@ -430,6 +433,7 @@ def test_cuda_kernels_match_plain(case):
     got = [o, tf.flash_dq(*args), *tf.flash_dkv(*args)]
     torch.cuda.synchronize()
     assert [f.launches for f in kernels] == [n + 1 for n in before]
+    assert tf.flash_dkv.bodies.get(body, 0) == dkv_before + 1
     want = [o_p, tf.flash_dq_plain(*args), *tf.flash_dkv_plain(*args)]
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
@@ -482,3 +486,75 @@ def test_cuda_fwd_tensor_core_body_matches_plain(case):
     _assert_close(o.float().cpu().numpy(), o_p.float().cpu().numpy(),
                   "bf16")
     assert float((lse - lse_p).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, H, Hkv, sq, sk, D, causal, key mask, rate, (bq, bk))
+    (2, 8, 8, 320, 1024, 64, True, False, 0.1, (64, 128)),   # sq < sk
+    (2, 8, 2, 1024, 160, 40, False, True, 0.0, (128, 32)),   # GQA 4, hd 40
+    (2, 8, 8, 208, 208, 32, True, False, 0.1, (16, 16)),     # tiles of 16
+    (2, 16, 4, 512, 512, 128, True, False, 0.1, (128, 128)),  # hd 128, GQA
+    (2, 4, 4, 256, 256, 72, False, True, 0.0, (32, 64)),     # head dim 72
+    (2, 8, 4, 512, 256, 64, True, False, 0.0, (128, 64)),    # sq > sk
+])
+def test_cuda_dkv_tensor_core_body_matches_plain(case):
+    """K7's bf16 launches run K3's tensor-core dk/dv body over the query
+    tiles from JAX's first_qb on: rectangular tiles, seq_q != seq_k (the
+    keys no query reaches get dk = dv = 0), GQA, head dims 32 to 128,
+    dropout and the key mask; they equal the plain version at the same
+    tiles and count under body "mma"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops.attention import flash as tf
+    B, H, Hkv, sq, sk, d, causal, km, rate, blocks = case
+    rng = np.random.RandomState(sq + sk + d + blocks[1])
+    q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in
+                   _inputs(rng, B, H, H // Hkv, sq, sk, d))
+    key_mask = None
+    if km:
+        key_mask = torch.from_numpy(_key_mask(rng, B, sk, (0,))).reshape(
+            B, sk).cuda()
+    scale, seed = 1.0 / np.sqrt(d), 8642
+    o_p, lse_p = tf.flash_fwd_plain(q, k, v, causal, scale, rate, seed,
+                                    key_mask, blocks)
+    delta = (do.float() * o_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, causal, scale, rate, seed, key_mask,
+            blocks)
+    before = tf.flash_dkv.bodies.get("mma", 0)
+    dk, dv = tf.flash_dkv(*args)
+    torch.cuda.synchronize()
+    assert tf.flash_dkv.bodies.get("mma", 0) == before + 1
+    for a, b in zip((dk, dv), tf.flash_dkv_plain(*args)):
+        assert torch.isfinite(a).all()
+        _assert_close(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                      "bf16")
+    if causal and sq < sk:
+        assert (dk[:, :, sq:] == 0).all() and (dv[:, :, sq:] == 0).all()
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "do", "key_mask"])
+def test_bf16_dkv_refuses_misaligned_operands(operand):
+    """K3's and K7's tensor-core dk/dv body loads 16-byte rows (q, k, v,
+    do) and 8-byte key-mask pairs: a bf16 view that starts off those
+    boundaries raises before any launch, an aligned one and fp32 pass."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import \
+        _check_dkv_aligned
+    shape, n = (1, 2, 32, 16), 2 * 32 * 16
+
+    def operands(dtype, off=None):
+        ts = {name: torch.zeros(n + 8, dtype=dtype)[:n].view(shape)
+              for name in ("q", "k", "v", "do")}
+        ts["key_mask"] = torch.zeros(33)[:32].view(1, 32)
+        if off is not None:
+            base = torch.zeros(n + 8, dtype=ts[off].dtype)
+            if off == "key_mask":
+                ts[off] = base[1:33].view(1, 32)
+            else:
+                ts[off] = base[4:4 + n].view(shape)
+        return ts
+
+    _check_dkv_aligned(**operands(torch.bfloat16))
+    _check_dkv_aligned(**operands(torch.float32, operand))
+    with pytest.raises(ValueError, match=f"{operand} aligned"):
+        _check_dkv_aligned(**operands(torch.bfloat16, operand))

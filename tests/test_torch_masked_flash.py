@@ -548,6 +548,28 @@ def test_forward_body_by_dtype(dtype, body):
             wrapper.bodies = saved
 
 
+@pytest.mark.parametrize("dtype, body", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "fma")])
+def test_dkv_body_by_dtype(dtype, body):
+    """K3 and K7 name the body a dtype runs: bf16 on the tensor cores
+    (csrc/mma_dkv.cuh), fp32 on the CUDA cores; ``reset_launches``
+    zeroes their counts by body."""
+    from deepspeed_tpu_torch.ops.attention import flash as tf
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    assert mf.DKV_BODIES[dtype] == body
+    for wrapper, reset in ((mf.masked_flash_dkv, mf.reset_launches),
+                           (tf.flash_dkv, tf.reset_launches)):
+        saved = dict(wrapper.bodies)
+        try:
+            mf._count_body(wrapper, dtype, mf.DKV_BODIES)
+            mf._count_body(wrapper, dtype, mf.DKV_BODIES)
+            assert wrapper.bodies[body] == saved.get(body, 0) + 2
+            reset()
+            assert wrapper.bodies == {}
+        finally:
+            wrapper.bodies = saved
+
+
 @pytest.mark.parametrize("operand", ["q", "k", "v", "key_mask"])
 def test_bf16_forward_refuses_misaligned_operands(operand):
     """The tensor-core forward body loads 16-byte rows (q, k, v) and
@@ -602,6 +624,8 @@ def test_cuda_kernels_match_plain(case):
     scale, seed = 1.0 / np.sqrt(d), -42
     before = (mf.masked_flash_fwd.launches, mf.masked_flash_dq.launches,
               mf.masked_flash_dkv.launches)
+    body = mf.DKV_BODIES[td]
+    dkv_before = mf.masked_flash_dkv.bodies.get(body, 0)
     o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed)
     o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed)
     delta = (do.float() * o_p.float()).sum(-1)
@@ -610,6 +634,7 @@ def test_cuda_kernels_match_plain(case):
     torch.cuda.synchronize()
     assert (mf.masked_flash_fwd.launches, mf.masked_flash_dq.launches,
             mf.masked_flash_dkv.launches) == tuple(n + 1 for n in before)
+    assert mf.masked_flash_dkv.bodies.get(body, 0) == dkv_before + 1
     want = [o_p, mf.masked_flash_dq_plain(*args),
             *mf.masked_flash_dkv_plain(*args)]
     for a, b in zip(got, want):
@@ -669,6 +694,49 @@ def test_cuda_fwd_tensor_core_body_matches_plain(case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
+    # (B, H, Hkv, S, D, mask, walk block, rate, key mask)
+    (2, 8, 8, 512, 64, "causal", 16, 0.1, False),
+    (2, 8, 8, 512, 72, "causal", 32, 0.0, False),    # 72: not a multiple of 16
+    (2, 8, 8, 512, 32, "causal", 64, 0.1, True),     # head dim 32
+    (2, 16, 4, 512, 40, "causal", 128, 0.0, False),  # GQA, G 4; 40: zero tail
+    (2, 8, 8, 256, 128, "layout", 16, 0.1, True),    # per-head, empty rows
+])
+def test_cuda_dkv_tensor_core_body_matches_plain(case):
+    """K3's bf16 launches run the tensor-core dk/dv body
+    (csrc/mma_dkv.cuh) at every walk block, GQA (fp32 per-q-head
+    partials), head dims 32 to 128, dropout and the key mask, and equal
+    the plain version; each counts under body "mma"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    B, H, Hkv, s, d, kind, block, rate, km = case
+    rng = np.random.RandomState(s + d + block + 1)
+    q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in
+                   _inputs(rng, H // Hkv, "bf16", B=B, H=H, s=s, d=d))
+    layout = (_random_layout(rng, heads=H, nb=s // block)
+              if kind == "layout" else None)
+    mask = _port_mask(kind, s=s, block=block, layout=layout)
+    kpm = (torch.from_numpy(_bert_key_mask(rng, B, s, s // 2, (1,))).cuda()
+           if km else None)
+    scale, seed = 1.0 / np.sqrt(d), 2468
+    o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed,
+                                           kpm)
+    delta = (do.float() * o_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, mask, scale, rate, seed, kpm)
+    before = mf.masked_flash_dkv.bodies.get("mma", 0)
+    got = mf.masked_flash_dkv(*args)
+    torch.cuda.synchronize()
+    assert mf.masked_flash_dkv.bodies.get("mma", 0) == before + 1
+    for a, b in zip(got, mf.masked_flash_dkv_plain(*args)):
+        assert torch.isfinite(a).all()
+        ratio, rel_rms, ok = _bf16_check(a.float().cpu().numpy(),
+                                         b.float().cpu().numpy(),
+                                         **BF16_TOL)
+        assert ok, (ratio, rel_rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
     # (B, H, Hkv, S, D, mask, block, dtype, rate, min_len, all-pad rows)
     (8, 16, 16, 128, 64, "dense", 128, "bf16", 0.0, 64, ()),   # BERT-large
     (8, 16, 16, 128, 64, "dense", 128, "bf16", 0.1, 64, ()),
@@ -695,6 +763,8 @@ def test_cuda_key_mask_kernels_match_plain(case):
     name = mf.arity(kpm, mask)
     assert name.startswith("kpm ")
     before = [f.arities.get(name, 0) for f in kernels]
+    body = mf.DKV_BODIES[td]
+    dkv_before = mf.masked_flash_dkv.bodies.get(body, 0)
     o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed, kpm)
     o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed,
                                            kpm)
@@ -704,6 +774,7 @@ def test_cuda_key_mask_kernels_match_plain(case):
     torch.cuda.synchronize()
     assert [f.arities.get(name, 0) for f in kernels] == \
         [n + 1 for n in before]
+    assert mf.masked_flash_dkv.bodies.get(body, 0) == dkv_before + 1
     want = [o_p, mf.masked_flash_dq_plain(*args),
             *mf.masked_flash_dkv_plain(*args)]
     for a, b in zip(got, want):
@@ -768,6 +839,8 @@ def test_cuda_band_kernels_match_plain(case):
     name = mf.arity(kpm, mask)
     assert "band" in name
     before = [f.arities.get(name, 0) for f in kernels]
+    body = mf.DKV_BODIES[td]
+    dkv_before = mf.masked_flash_dkv.bodies.get(body, 0)
     o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed, kpm)
     o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed,
                                            kpm)
@@ -777,6 +850,7 @@ def test_cuda_band_kernels_match_plain(case):
     torch.cuda.synchronize()
     assert [f.arities.get(name, 0) for f in kernels] == \
         [n + 1 for n in before]
+    assert mf.masked_flash_dkv.bodies.get(body, 0) == dkv_before + 1
     want = [o_p, mf.masked_flash_dq_plain(*args),
             *mf.masked_flash_dkv_plain(*args)]
     for a, b in zip(got, want):

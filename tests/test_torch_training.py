@@ -342,6 +342,33 @@ def test_zero_beyond_one_shard_raises(stage, world, offload):
         assert cfg.zero_optimization_stage == ok
 
 
+@pytest.mark.parametrize("extra,word", [
+    ({"tensorboard": {"enabled": True, "output_path": "tb"}},
+     "tensorboard"),
+    ({"mesh": {"axes": {"data": 1, "model": 2}}}, "mesh"),
+    ({"mesh": {"axes": {"data": 2}}}, "mesh"),
+])
+def test_monitor_and_mesh_sections_raise(extra, word):
+    """The JAX engine opens the monitor and builds the mesh these
+    sections ask for; the port has neither yet, so it refuses them
+    through the config and through initialize, never training without."""
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    with pytest.raises(NotImplementedError, match=word):
+        DeepSpeedConfig(_ds_config(1, 0.0, **extra))
+    with pytest.raises(NotImplementedError, match=word):
+        _port_engine(1, 0.0, _jax_tree(), **extra)
+
+
+@pytest.mark.parametrize("extra", [
+    {"tensorboard": {"enabled": False, "output_path": "tb"}},
+    {"mesh": {"axes": {"data": 1, "model": 1}}},
+])
+def test_disabled_monitor_and_unit_mesh_train(extra):
+    engine, *_ = _port_engine(1, 0.0, _jax_tree(), **extra)
+    loss = float(engine.train_batch(iter(_ids(8))))
+    assert np.isfinite(loss) and engine.global_steps == 1
+
+
 def test_engine_needs_a_card_or_an_explicit_device(monkeypatch):
     import deepspeed_tpu_torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

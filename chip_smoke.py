@@ -9,7 +9,8 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
 1. device: the card as nvidia-smi names it, torch/CUDA versions; then
    every kernel of the port is built with nvcc from csrc/ for sm_90a,
    each kernel's registers and spills as ptxas -v reports them (a spill
-   in a tensor-core body fails the run).
+   in a tensor-core body, any "_mma_kernel" of K1-K3 and K5-K7, fails
+   the run).
 2. kernels: each kernel against its plain PyTorch version on the card
    (the GPT-2 and the Llama serving shapes, GQA, fp32, cache-position
    edges with an all-null row, NaN planted past the live pages), and the
@@ -41,29 +42,30 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
    K3 (dk, dv) against their plain versions on the card, at the training
    shapes (B 8, H 16, S 1024, D 64, bf16, causal, block 128) with
    dropout 0 and 0.1, and on a dense mask, GQA (Hkv 4, G 4, D 128), fp32,
-   and per-head layouts with empty rows at block 16; for K1's and K3's
-   bf16 tensor-core bodies also causal walks of 16, 32 and 64 at head
-   dims 64, 72 and 32, and GQA G 4 at head dim 40. Element by element
-   (TRAIN_TOL), and at the training shapes and those walks a control:
-   the plain versions with the bf16 rounding of p and ds left out must
-   fail the same check. Every check row names the bodies K1 and K3 ran
-   ("body" and "dkv_body": "mma" in bf16, "fma" in fp32), and a bf16
-   launch that ran another body fails it; every timing row names each
-   kernel's body, and K3's and K7's rows the time of their former
-   CUDA-core bf16 body ("fma_body_ms").
+   and per-head layouts with empty rows at block 16; for the bf16
+   tensor-core bodies of K1, K2 and K3 also causal walks of 16, 32 and
+   64 at head dims 64, 72 and 32, and GQA G 4 at head dim 40. Element by
+   element (TRAIN_TOL), and at the training shapes and those walks a
+   control: the plain versions with the bf16 rounding of p and ds left
+   out must fail the same check. Every check row names the bodies K1, K2
+   and K3 ran ("body", "dq_body" and "dkv_body": "mma" in bf16, "fma" in
+   fp32), and a bf16 launch that ran another body fails it; every timing
+   row names each kernel's body, and K2's, K3's, K6's and K7's rows the
+   time of their former CUDA-core bf16 body ("fma_body_ms").
 6. train_kernel_timing: K1, K2 and K3 timed at the training shapes (L2
    flushed before each call) beside their bound (the FLOP of the causal
    cells, not of the whole diagonal tiles), their plain versions and
    the library yardstick (scaled_dot_product_attention forward for K1,
-   its backward for K2+K3 together).
+   its backward for K2+K3 together), K2 and K3 beside their former
+   CUDA-core bf16 times.
 7. training: GPT-2 345M at full width (random weights from seed 0),
    bf16 over fp32 masters, Adam lr 1e-4, batch 8 x 1024 through
    deepspeed_tpu_torch.initialize: 2 warm-up and 10 timed train_batch
    steps on one repeated batch; step time, tokens/s, MFU, peak memory,
    every loss. Checks finite, falling losses, that K1, K2 and K3 each
-   launched 24 times per step, and that every launch of K1 and K3 ran
-   its tensor-core body (launches_by_body; so in every bf16 training
-   phase below, for K1, K3, K5 and K7). Then a torch.profiler window
+   launched 24 times per step, and that every launch of K1, K2 and K3
+   ran its tensor-core body (launches_by_body; so in every bf16 training
+   phase below, for K1-K3 and K5-K7). Then a torch.profiler window
    over 2 more steps (device time by kernel group, device idle share)
    and the tied LM head's forward and backward timed alone.
 8. training_dropout: the same model at dropout 0.1 for 3 steps (the
@@ -155,9 +157,10 @@ from the seed.
    config's sparse_attention section, forward and backward of a scalar
    loss (1 warm-up, 3 timed): ms, peak memory, one launch of each of
    K8-K10 per call and none of K1-K3; a 2-head fp32 call on the kernel
-   path against the plain path; and SparseSelfAttention under a
-   BSLongformer window of 5 blocks without an attn_mask, where the walk
-   rule coarsens to 128: K1-K3's band arity.
+   path against the plain path; and masked_flash_attention over the
+   mask of a BSLongformer window of 5 blocks at a walk of 128, asked for
+   through make_block_mask (the walk rule keeps the fine walk since
+   K1-K3 all run on the tensor cores): K1-K3's band arity.
 Phases 24 to 27: the legacy sparse dispatch (blocksparse.USE_MASKED_FLASH
 = False, restored after), which JAX's sparse_attention_speedup_s8k row
 pins, at its geometry (B 1, H 16, S 8192, D 64, bf16, fine block 128):
@@ -201,10 +204,12 @@ from seq_k, each the widest of 128, 64, 32, 16 that divides it).
    heads over 8 kv heads, S 1024, causal), causal with seq_q 512 < seq_k
    1024 (the keys no query reaches take dk = dv = 0) and 1024 > 512 (the
    capped walk; in fp32 also o against attention_reference), and tiles of
-   32 at head_dim 24; for K5's and K7's bf16 tensor-core bodies also
-   tiles (64, 128) with seq_q 320 < seq_k 1024, (128, 32) with 1024 >
-   160 at head dim 40 under GQA 4 and the key mask, tiles of 16 at head
-   dim 32, of 32 at head dim 72, and head dim 128 under GQA 4. Controls
+   32 at head_dim 24; for the bf16 tensor-core bodies of K5, K6 and K7
+   also tiles (64, 128) with seq_q 320 < seq_k 1024, (128, 32) with
+   1024 > 160 at head dim 40 under GQA 4 and the key mask, tiles of 16
+   at head dim 32, of 32 at head dim 72, and head dim 128 under GQA 4.
+   Each row names the three bodies ("body", "dq_body", "dkv_body"), and
+   a bf16 launch that ran another body than "mma" fails it. Controls
    (on these cases too): the plain versions without the rounding of
    p and ds, without the key mask or without the causal clip must fail
    the same check on every output.
@@ -213,7 +218,9 @@ from seq_k, each the widest of 128, 64, 32, 16 that divides it).
    against its plain versions on the inputs it is timed on (as in phase
    28, with the rounding control), timed as in phase 6, beside the bound
    (the causal cells' FLOP), the check's one timed plain call, SDPA
-   is_causal=True and K1-K3 on the default route; then flash_attention(causal=True) forward and backward
+   is_causal=True, K1-K3 on the default route and, for K6 and K7, their
+   former CUDA-core bf16 times; then flash_attention(causal=True)
+   forward and backward
    at the s8k geometry under the knob and under the default route (ms,
    peak memory, launches), the dense side of JAX's
    sparse_attention_speedup_s8k beside phase 26's legacy sparse calls.
@@ -267,7 +274,7 @@ fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
    band, the three row-run, the three banded, the three no-mask
    row-run, the three legacy flash entries and K14-K16 in each of their
    three arities on the paths above; K1-K3 and K5-K7 with their "body"
-   ("mma" for K1, K3, K5 and K7),
+   ("mma" for each in bf16),
    K1 with its s8k default-route time from phase 29), the nvidia-smi
    line, and last {"ok": true, "device": {...}}.
 """
@@ -288,10 +295,25 @@ BF16_ATOL = 2e-3     # summation order differs; p is rounded to bf16
 FP32_ATOL = 1e-5     # summation order differs
 MODEL_LOGIT_ATOL = 1e-3   # fp32, 24 layers of differently ordered sums
 TIMED_CALLS = 100
-# K3's and K7's times on their former CUDA-core bf16 body (these timing
-# phases on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6), printed
-# beside this run's as "fma_body_ms": (phase, kernel, case) -> ms
-FMA_BODY_DKV_MS = {
+# K2's, K3's, K6's and K7's times on their former CUDA-core bf16 bodies
+# (these timing phases on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+# section 6), printed beside this run's as "fma_body_ms": (phase, kernel,
+# case) -> ms
+FMA_BODY_MS = {
+    ("train_kernel_timing", "masked_flash_dq", "gpt2"): 4.14640,
+    ("bert_kernel_timing", "masked_flash_dq_kpm", "S128"): 0.20816,
+    ("bert_kernel_timing", "masked_flash_dq_kpm", "S512"): 2.00520,
+    ("sparse_kernel_timing", "masked_flash_dq", "fixed walk16"): 6.95846,
+    ("sparse_kernel_timing", "masked_flash_dq",
+     "bslongformer walk128"): 3.42058,
+    ("sparse_kernel_timing", "masked_flash_dq",
+     "bslongformer walk64"): 3.20027,
+    ("sparse_kernel_timing", "masked_flash_dq",
+     "bslongformer walk32"): 3.19542,
+    ("sparse_kernel_timing", "masked_flash_dq",
+     "bslongformer walk16"): 2.49768,
+    ("flash_kernel_timing", "flash_dq", "gpt2"): 3.28840,
+    ("flash_kernel_timing", "flash_dq", "s8k"): 20.72018,
     ("train_kernel_timing", "masked_flash_dkv", "gpt2"): 4.36955,
     ("bert_kernel_timing", "masked_flash_dkv_kpm", "S128"): 0.25824,
     ("bert_kernel_timing", "masked_flash_dkv_kpm", "S512"): 2.56090,
@@ -1166,6 +1188,7 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed, key_mask)
     torch.cuda.synchronize()
     body = _body_ran(mf.masked_flash_fwd, bodies)
+    dq_bodies = dict(mf.masked_flash_dq.bodies)
     dkv_bodies = dict(mf.masked_flash_dkv.bodies)
     o_p, lse_p = plain("masked_flash_fwd", mf.masked_flash_fwd_plain, q, k,
                        v, mask, scale, rate, seed, key_mask)
@@ -1174,6 +1197,7 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     dq = mf.masked_flash_dq(*bwd)
     dk, dv = mf.masked_flash_dkv(*bwd)
     torch.cuda.synchronize()
+    dq_body = _body_ran(mf.masked_flash_dq, dq_bodies)
     dkv_body = _body_ran(mf.masked_flash_dkv, dkv_bodies)
     dq_p = plain("masked_flash_dq", mf.masked_flash_dq_plain, *bwd)
     dk_p, dv_p = plain("masked_flash_dkv", mf.masked_flash_dkv_plain, *bwd)
@@ -1183,6 +1207,7 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
            "dtype": str(q.dtype), "shape_q": list(q.shape),
            "shape_kv": list(k.shape), "block": mask.block,
            "body": body[0] if len(body) == 1 else body,
+           "dq_body": dq_body[0] if len(dq_body) == 1 else dq_body,
            "dkv_body": dkv_body[0] if len(dkv_body) == 1 else dkv_body,
            "mask_heads": mask.heads, "walked_tiles": mask.nnz,
            "dropout": rate, "key_mask": key_mask is not None,
@@ -1209,6 +1234,7 @@ def check_train_kernels(name, mask, args, rate, seed=-123457,
     row["lse_max_abs_err"] = lse_err
     ok &= lse_err <= LSE_ATOL
     ok &= body == [kernel_body("masked_flash_fwd", dtype)]
+    ok &= dq_body == [kernel_body("masked_flash_dq", dtype)]
     ok &= dkv_body == [kernel_body("masked_flash_dkv", dtype)]
     if control:
         c_mask, c_key = mask, None
@@ -1368,7 +1394,7 @@ def train_kernel_timing_phase(smi):
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         emit({"phase": "train_kernel_timing", "kernel": name,
-              "fma_body_ms": FMA_BODY_DKV_MS.get(
+              "fma_body_ms": FMA_BODY_MS.get(
                   ("train_kernel_timing", name, "gpt2")),
               "shape": dict(MAIN_SHAPE, dtype="bf16", mask="causal"),
               "walked_tiles_per_bh": mask.nnz,
@@ -1418,21 +1444,22 @@ def _reset_train_launches():
     mf.reset_launches()
 
 
-# the kernels of K1-K3 and K5-K7 with a tensor-core body in bf16: K1 and
-# K5 on csrc/mma_fwd.cuh, K3 and K7 on csrc/mma_dkv.cuh
-MMA_KERNELS = ("masked_flash_fwd", "flash_fwd", "masked_flash_dkv",
-               "flash_dkv")
+# the kernels of K1-K3 and K5-K7, each with a tensor-core body in bf16:
+# K1 and K5 on csrc/mma_fwd.cuh, K2 and K6 on csrc/mma_dq.cuh, K3 and K7
+# on csrc/mma_dkv.cuh
+MMA_KERNELS = ("masked_flash_fwd", "flash_fwd", "masked_flash_dq",
+               "flash_dq", "masked_flash_dkv", "flash_dkv")
 
 
 def kernel_body(name, dtype="bf16"):
-    """The body a kernel of K1-K3 or K5-K7 runs on ``dtype`` inputs: K1,
-    K3, K5 and K7 in bf16 on the tensor cores ("mma"), every other on the
-    CUDA cores ("fma")."""
+    """The body a kernel of K1-K3 or K5-K7 runs on ``dtype`` inputs: in
+    bf16 on the tensor cores ("mma"), in fp32 on the CUDA cores
+    ("fma")."""
     return "mma" if name in MMA_KERNELS and dtype == "bf16" else "fma"
 
 
 def _mma_bodies():
-    """The launches of K1, K3, K5 and K7 since their counts were last
+    """The launches of K1-K3 and K5-K7 since their counts were last
     reset, by the body they ran."""
     from deepspeed_tpu_torch.ops.attention import flash as tf
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
@@ -1441,10 +1468,10 @@ def _mma_bodies():
 
 
 def _check_mma_bodies(phase, bodies):
-    """A bf16 run: every launch of K1, K3, K5 and K7 ran the tensor-core
+    """A bf16 run: every launch of K1-K3 and K5-K7 ran the tensor-core
     body."""
     if any(b.get("fma", 0) for b in bodies.values()):
-        raise AssertionError(f"{phase}: a bf16 launch of K1, K3, K5 or K7 "
+        raise AssertionError(f"{phase}: a bf16 launch of K1-K3 or K5-K7 "
                              f"ran the CUDA-core body: {bodies}")
 
 
@@ -1560,7 +1587,7 @@ def train_profile_phase(engine, data, step_ms, steps=2):
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     groups = {"masked_flash_fwd": ("mf_fwd_",),
-              "masked_flash_dq": ("mf_dq_kernel",),
+              "masked_flash_dq": ("mf_dq_",),
               "masked_flash_dkv": ("mf_dkv_",),
               "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas")}
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
@@ -1875,7 +1902,7 @@ def bert_kernel_timing_phase(smi):
             bound_ms = max(bytes_ms, ops_ms)
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
             emit({"phase": "bert_kernel_timing", "kernel": f"{name}_kpm",
-                  "fma_body_ms": FMA_BODY_DKV_MS.get(
+                  "fma_body_ms": FMA_BODY_MS.get(
                       ("bert_kernel_timing", f"{name}_kpm", f"S{S}")),
                   "shape": dict(m, dtype="bf16", mask="dense",
                                 key_mask=f"lengths {min_len}-{S}"),
@@ -2151,7 +2178,7 @@ def sparse_kernel_timing_phase(smi):
                 bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
                 emit({"phase": "sparse_kernel_timing", "kernel": name,
                       "case": label, "arity": mf.arity(kpm, mask),
-                      "fma_body_ms": FMA_BODY_DKV_MS.get(
+                      "fma_body_ms": FMA_BODY_MS.get(
                           ("sparse_kernel_timing", name, label)),
                       "shape": dict(m, dtype="bf16", block=mask.block,
                                     fine_block=sc.block,
@@ -2454,7 +2481,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
 
 def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
                        attention="K1-K3 (key-mask arity)",
-                       kernels=("mf_fwd_", "mf_dq_kernel",
+                       kernels=("mf_fwd_", "mf_dq_",
                                 "mf_dkv_")):
     """Where a BERT step's time goes: a torch.profiler window over
     ``steps`` train_batch calls, the kernels' device time per step by
@@ -2615,11 +2642,12 @@ V2_REPLACES = {
                          "blocksparse_v2.py:205 (_v2_dq_kernel, has_am)",
     "blocksparse_v2_dkv": "deepspeed_tpu/ops/sparse_attention/"
                           "blocksparse_v2.py:262 (_v2_dkv_kernel, has_am)"}
-# a BSLongformer layout whose band the K1-K3 walk rule coarsens (a window
-# of 5 blocks: most live 32 x 32 chunks are full): the entry point's
-# band arity
+# a BSLongformer layout whose band a coarse walk of K1-K3 holds in few
+# chunks (a window of 5 blocks: most live 32 x 32 chunks are full),
+# walked at 128: the band arity's main path
 BAND_PATH_SPARSE = {"mode": "bslongformer", "num_sliding_window_blocks": 5}
-BAND_PATH_ARITY = "kpm+band walk128 heads1"
+BAND_PATH_WALK = 128
+BAND_PATH_ARITY = f"kpm+band walk{BAND_PATH_WALK} heads1"
 
 
 def _v2_launches():
@@ -2965,9 +2993,9 @@ def sparse_self_attention_phase(smi):
     iterations. Checks finite outputs and grads, one launch of each of
     K8, K9 and K10 per iteration and none of K1-K3. Then a 2-head fp32
     call on the kernel path and on the plain path (outputs and grads,
-    TRAIN_TOL fp32), and the band path: SparseSelfAttention under
-    BAND_PATH_SPARSE without an attn_mask, once, which the walk rule
-    runs on K1-K3's band arity. Returns the launches of K8-K10 and of
+    TRAIN_TOL fp32), and the band path: masked_flash_attention over
+    BAND_PATH_SPARSE's make_block_mask at a walk of BAND_PATH_WALK, once,
+    which runs K1-K3's band arity. Returns the launches of K8-K10 and of
     the band arity."""
     import torch
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
@@ -3073,14 +3101,17 @@ def sparse_self_attention_phase(smi):
                              f"from its plain path: {row}")
     del qkv, g, o, results
 
-    # the band path: K1-K3's band arity where the walk rule coarsens
+    # the band path: K1-K3's band arity over the config's mask at a walk
+    # of 128, asked for through make_block_mask (the walk rule keeps the
+    # fine walk: K1-K3 pay per computed cell, masked_flash.WALK_COSTS)
     ds_band = dict(ds_config, sparse_attention=BAND_PATH_SPARSE)
-    band = SparseSelfAttention(sparsity_config_from_dict(
-        get_sparse_attention(ds_band), num_heads=H),
-        key_padding_mask_mode="mul")
+    band = sparsity_config_from_dict(get_sparse_attention(ds_band),
+                                     num_heads=H)
+    mask = band.make_block_mask(S, walk_block=BAND_PATH_WALK)
     qkv, g = inputs(H, torch.bfloat16)
     mf.reset_launches()
-    o = band(*qkv, key_padding_mask=keep)
+    o = mf.masked_flash_attention(
+        *qkv, mask, key_mask=torch.where(keep == 0, -1e30, 0.0))
     (o.float() * g.float()).sum().backward()
     torch.cuda.synchronize()
     arities = {n: dict(getattr(mf, n).arities) for n in KPM_NAMES}
@@ -3088,7 +3119,10 @@ def sparse_self_attention_phase(smi):
                      arities.items()}
     row = {"phase": "sparse_self_attention_band",
            "sparse_attention": BAND_PATH_SPARSE,
-           "route": planned_kernel(band.get_layout(S), 16),
+           "entry": f"masked_flash_attention(q, k, v, sparsity_config."
+                    f"make_block_mask({S}, walk_block={BAND_PATH_WALK}), "
+                    f"key_mask)",
+           "rule_route": planned_kernel(band.make_layout(S), 16),
            "launches_by_arity": arities, "nvidia_smi": smi}
     emit(row)
     if any(a != {BAND_PATH_ARITY: 1} for a in arities.values()) or \
@@ -3769,11 +3803,10 @@ def _reset_all_launches():
 
 MASKED_ROUTE = Route(dict.fromkeys(KPM_NAMES, 1), _PlainMaskedFlash, "",
                      "K1-K3 (key-mask arity)",
-                     ("mf_fwd_", "mf_dq_kernel", "mf_dkv_"))
+                     ("mf_fwd_", "mf_dq_", "mf_dkv_"))
 FLASH_ROUTE = Route(dict.fromkeys(FLASH_NAMES, 1), _PlainFlash, "_legacy",
                     "K5-K7 (key-mask arity)",
-                    ("flash_fwd_", "flash_dq_kernel",
-                     "flash_dkv_"))
+                    ("flash_fwd_", "flash_dq_", "flash_dkv_"))
 BANDED_ROUTE = Route(BANDED_PER_CALL, _PlainBanded, "_legacy",
                      "K11-K13 (banded)",
                      ("banded_fwd_kernel", "banded_dq_kernel",
@@ -3813,6 +3846,7 @@ def check_flash_kernels(name, args, causal, rate, key_mask=None,
     o, lse = tf.flash_fwd(q, k, v, causal, scale, rate, seed, key_mask)
     torch.cuda.synchronize()
     body = _body_ran(tf.flash_fwd, bodies)
+    dq_bodies = dict(tf.flash_dq.bodies)
     dkv_bodies = dict(tf.flash_dkv.bodies)
 
     def plain(fn, *a):
@@ -3826,6 +3860,7 @@ def check_flash_kernels(name, args, causal, rate, key_mask=None,
     dq = tf.flash_dq(*bwd)
     dk, dv = tf.flash_dkv(*bwd)
     torch.cuda.synchronize()
+    dq_body = _body_ran(tf.flash_dq, dq_bodies)
     dkv_body = _body_ran(tf.flash_dkv, dkv_bodies)
     dq_p, dq_ms = plain(tf.flash_dq_plain, *bwd)
     (dk_p, dv_p), dkv_ms = plain(tf.flash_dkv_plain, *bwd)
@@ -3835,6 +3870,7 @@ def check_flash_kernels(name, args, causal, rate, key_mask=None,
            "dtype": str(q.dtype), "shape_q": list(q.shape),
            "shape_kv": list(k.shape), "causal": causal,
            "body": body[0] if len(body) == 1 else body,
+           "dq_body": dq_body[0] if len(dq_body) == 1 else dq_body,
            "dkv_body": dkv_body[0] if len(dkv_body) == 1 else dkv_body,
            "tiles": list(blocks), "dropout": rate,
            "key_mask": key_mask is not None, "tol": tol,
@@ -3857,6 +3893,7 @@ def check_flash_kernels(name, args, causal, rate, key_mask=None,
     row["lse_max_abs_err"] = lse_err
     ok &= lse_err <= LSE_ATOL
     ok &= body == [kernel_body("flash_fwd", dtype)]
+    ok &= dq_body == [kernel_body("flash_dq", dtype)]
     ok &= dkv_body == [kernel_body("flash_dkv", dtype)]
     if causal and sq < sk:
         zero = bool((dk[:, :, sq:] == 0).all() and (dv[:, :, sq:] == 0).all())
@@ -4062,7 +4099,7 @@ def flash_kernel_timing_phase(smi, entry_ms):
             emit({"phase": "flash_kernel_timing", "kernel": name,
                   "geometry": label, "shape": dict(m, dtype="bf16",
                                                    mask="causal"),
-                  "fma_body_ms": FMA_BODY_DKV_MS.get(
+                  "fma_body_ms": FMA_BODY_MS.get(
                       ("flash_kernel_timing", name, label)),
                   "tiles": [bq, bk], "walked_tiles_per_bh": walked,
                   "causal_cells_per_bh": cells,
@@ -4698,7 +4735,7 @@ def main() -> int:
           "tensor_core_kernels": sum("_mma_kernel" in f["function"]
                                      for fs in ptxas.values() for f in fs),
           "spills": spills})
-    # the tensor-core bodies (K1, K3, K5 and K7 in bf16) may not spill
+    # the tensor-core bodies (K1-K3 and K5-K7 in bf16) may not spill
     if any("_mma_kernel" in f["function"] for f in spills):
         raise AssertionError(f"ptxas spills registers: {spills}")
 
@@ -4860,8 +4897,9 @@ def main() -> int:
             replaces=t["replaces"],
             launches=band_launches[name],
             launches_by_path={
-                f"SparseSelfAttention {BAND_PATH_SPARSE} seq {SPARSE_SEQ} "
-                "(one forward and backward)": band_launches[name]},
+                f"masked_flash_attention, {BAND_PATH_SPARSE} at walk "
+                f"{BAND_PATH_WALK}, seq {SPARSE_SEQ} (one forward and "
+                "backward)": band_launches[name]},
             max_abs_err=band_errs[name], ms=t["ms"], kernel_ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],

@@ -40,12 +40,14 @@
 // (mma_fwd.cuh) over this walk: a CTA owns min(bq, 64) query rows of one
 // query block, 16 per warp, with Q, the scores and O in registers, and
 // streams the walked tiles of bk keys through a cp.async ring of bf16
-// chunks. K7 in bf16 runs K3's tensor-core body (mma_dkv.cuh) over its
-// walk of query tiles: a CTA owns min(bk, 64) key rows of one key tile,
-// 16 per warp, with dK and dV in registers, and streams Q and dO in
-// chunks of up to 32 query rows. The fp32 arity of K5 and K7, and K6 in
-// both dtypes, are the first, simple design of K1-K3 (masked_flash.cu)
-// on the CUDA cores: a
+// chunks. K6 in bf16 runs K2's tensor-core body (mma_dq.cuh) over the
+// same walk: a CTA owns min(bq, 64) query rows, 16 per warp, with dQ in
+// registers, and streams K and V in chunks of up to 32 keys. K7 in bf16
+// runs K3's tensor-core body (mma_dkv.cuh) over its walk of query tiles:
+// a CTA owns min(bk, 64) key rows of one key tile, 16 per warp, with dK
+// and dV in registers, and streams Q and dO in chunks of up to 32 query
+// rows. The fp32 arity of K5-K7 is the first, simple design of K1-K3
+// (masked_flash.cu) on the CUDA cores: a
 // CTA of 128 threads owns R = min(bq, 32) query rows (K5, K6) or R =
 // min(bk, 32) key rows (K7); it stages its own rows once and the partner
 // rows of each walked tile in chunks of min(b, 32) rows into shared
@@ -55,8 +57,7 @@
 // keys, as in the Pallas kernel. JAX's streamed layout (K/V or q/do
 // through double-buffered DMA above STREAM_THRESHOLD) is a TPU VMEM
 // layout: these kernels stage through shared memory at every length and
-// need no second code path. Later work: K6 on mma_tiles.cuh's
-// fragments.
+// need no second code path.
 //
 // Built by deepspeed_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -66,7 +67,7 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
-#include "mma_dkv.cuh"
+#include "mma_dq.cuh"
 
 namespace {
 
@@ -197,13 +198,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// K5 in bf16 (the tensor-core body, mma_fwd.cuh): grid (Sq / R, B*H),
-// R = min(bq, 64) query rows of one query block per CTA, 16 per warp;
-// W = bk. A walked tile is CAUSAL (the clip) when causal and a key of it
-// lies past the CTA's first row r0, else FULL.
+// K5 and K6 in bf16 (the tensor-core bodies, mma_fwd.cuh and mma_dq.cuh):
+// grid (Sq / R, B*H), R = min(bq, 64) query rows of one query block per
+// CTA, 16 per warp; W = bk. A walked tile is CAUSAL (the clip) when
+// causal and a key of it lies past the CTA's first row r0, else FULL.
 struct BlockWalk {
   int count, bk, causal, r0;
   __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int keys() const { return bk; }
   __device__ __forceinline__ int2 tile(int t) const {
     const int k0 = t * bk;
     return make_int2(k0, causal && k0 + bk - 1 > r0 ? kKindCausal : 0);
@@ -233,14 +235,16 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------------------------------- K6
-// grid (Sq / R, B*H); per walked tile, chunk by chunk of C keys.
-template <typename T, bool KPM>
+// fp32 (the CUDA-core body): grid (Sq / R, B*H); per walked tile, chunk
+// by chunk of C keys.
+template <bool KPM>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ kpm,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, Geo g,
-                Dropout dr) {
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ kpm,
+                const float* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dq,
+                Geo g, Dropout dr) {
   extern __shared__ float smem[];
   const int D = g.D, bk = g.bk;
   const int R = rows_of(g.bq);
@@ -251,8 +255,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = blockIdx.x * R;
   const int nkb = key_blocks(g, r0 / g.bq);
   const int kvr = b * g.Hkv + h / (g.H / g.Hkv);
-  const T* kg = k + (size_t)kvr * g.Sk * D;
-  const T* vg = v + (size_t)kvr * g.Sk * D;
+  const float* kg = k + (size_t)kvr * g.Sk * D;
+  const float* vg = v + (size_t)kvr * g.Sk * D;
   const float* kpm_b = KPM ? kpm + (size_t)b * g.Sk : nullptr;
   const size_t row0 = (size_t)bh * g.Sq + r0;
 
@@ -294,7 +298,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = expf(s - lse_s[r]);
         float dp = dps[e];
         if (dr.on) dp = dr.keep(bh, qi, ki) ? dp * dr.inv_keep : 0.f;
-        ps[e] = round_to<T>(p * (dp - dl_s[r]));
+        ps[e] = p * (dp - dl_s[r]);
       }
       __syncthreads();
       mm(dqs, D, true, nullptr, ps, C, 1, ks, D + 1, 1, R, D, C);
@@ -302,9 +306,38 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqg = dq + row0 * D;
+  float* dqg = dq + row0 * D;
   for (int e = threadIdx.x; e < R * D; e += blockDim.x)
-    dqg[e] = from_f<T>(dqs[e] * g.sm_scale);
+    dqg[e] = dqs[e] * g.sm_scale;
+}
+
+// K6 in bf16 (the tensor-core body, mma_dq.cuh): grid (Sq / R, B*H),
+// R = min(bq, 64) query rows of one query block per CTA, 16 per warp,
+// over K5's walk of key tiles; CH = dq_chunk(bk) keys per chunk.
+template <int CH, int DMAX, bool KPM>
+__global__ void __launch_bounds__(2 * kMmaMaxRows, DMAX <= 64 ? 3 : 2)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const float* __restrict__ kpm,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    Geo g, Dropout dr) {
+  const int R = blockDim.x / 2;
+  const int D = g.D;
+  const int bh = blockIdx.y;
+  const int h = bh % g.H;
+  const int b = bh / g.H;
+  // the last rows first: under a causal mask they walk the most tiles
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * R;
+  const BlockWalk walk{key_blocks(g, r0 / g.bq), g.bk, g.causal, r0};
+  const size_t kvr = (size_t)b * g.Hkv + h / (g.H / g.Hkv);
+  const size_t row0 = (size_t)bh * g.Sq + r0;
+  const DqRows rows{q + row0 * D, dout + row0 * D, lse + row0,
+                    delta + row0, k + kvr * g.Sk * D, v + kvr * g.Sk * D,
+                    KPM ? kpm + (size_t)b * g.Sk : nullptr, dq + row0 * D,
+                    r0, D, bh, g.sm_scale};
+  mma_dq_body<CH, DMAX, KPM, false, false>(rows, walk, NoBand{}, dr);
 }
 
 // ------------------------------------------------------------------- K7
@@ -512,16 +545,45 @@ FwdMma pick_fwd_mma(int bk, bool kpm) {
                            : run_fwd_mma<128, DMAX, false>);
 }
 
-template <typename T, bool KPM>
+template <bool KPM>
 cudaError_t run_dq(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                    const void* k, const void* v, const void* kpm,
                    const void* dout, const float* ls, const float* dl,
                    void* dq, Geo g, Dropout dr) {
-  return launch(flash_dq_kernel<T, KPM>, grid, smem, s,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const float*>(kpm),
-                static_cast<const T*>(dout), ls, dl, static_cast<T*>(dq), g,
-                dr);
+  return launch(flash_dq_kernel<KPM>, grid, smem, s,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(kpm),
+                static_cast<const float*>(dout), ls, dl,
+                static_cast<float*>(dq), g, dr);
+}
+
+template <int CH, int DMAX, bool KPM>
+cudaError_t run_dq_mma(dim3 grid, int threads, size_t smem, cudaStream_t s,
+                       const void* q, const void* k, const void* v,
+                       const void* kpm, const void* dout, const float* ls,
+                       const float* dl, void* dq, Geo g, Dropout dr) {
+  return launch_rows(flash_dq_mma_kernel<CH, DMAX, KPM>, grid, threads,
+                     smem, s, static_cast<const bf16*>(q),
+                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                     static_cast<const float*>(kpm),
+                     static_cast<const bf16*>(dout), ls, dl,
+                     static_cast<bf16*>(dq), g, dr);
+}
+
+using DqMma = decltype(&run_dq_mma<16, 64, false>);
+
+// the tensor-core instantiation of a key tile's chunk, head dim and key
+// mask (the bad_shape checks passed: D <= 128)
+DqMma pick_dq_mma(int bk, int D, bool kpm) {
+  const bool c16 = dq_chunk(bk) == 16, wide = D > 64;
+  return c16 ? (wide ? (kpm ? run_dq_mma<16, 128, true>
+                            : run_dq_mma<16, 128, false>)
+                     : (kpm ? run_dq_mma<16, 64, true>
+                            : run_dq_mma<16, 64, false>))
+             : (wide ? (kpm ? run_dq_mma<32, 128, true>
+                            : run_dq_mma<32, 128, false>)
+                     : (kpm ? run_dq_mma<32, 64, true>
+                            : run_dq_mma<32, 64, false>));
 }
 
 template <bool KPM>
@@ -570,10 +632,10 @@ DkvMma pick_dkv_mma(int bq, int D, bool kpm) {
 // dtype: 0 = float32, 1 = bfloat16. kpm: the (B, Sk) fp32 additive key
 // mask, or null for none. block_q, block_k: the walk's tile (16, 32, 64
 // or 128 each). Each entry point returns the CUDA error of its launch (0
-// on success); it launches on `stream` and does not synchronise.
-// flash_fwd and flash_dkv run bf16 on their tensor-core bodies (q, k,
-// v, do and the outputs 16-byte aligned, kpm 8: else
-// cudaErrorInvalidValue) and fp32 on the CUDA-core bodies.
+// on success); it launches on `stream` and does not synchronise. Each
+// runs bf16 on its tensor-core body (q, k, v, do and the outputs 16-byte
+// aligned, kpm 8: else cudaErrorInvalidValue) and fp32 on its CUDA-core
+// body.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kpm, void* o, void* lse, int dtype,
                          int bh, int heads, int kv_heads, int seq_q,
@@ -618,20 +680,24 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
   const Geo g{heads, kv_heads, seq_q, seq_k, head_dim,
               block_q, block_k, causal != 0, sm_scale};
   const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
-  const int R = rows_of(block_q), C = rows_of(block_k);
-  const dim3 grid(seq_q / R, bh);
-  const size_t smem = dq_smem(R, C, head_dim);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const bool has_kpm = kpm != nullptr;
-  auto run = dtype == 0   ? (has_kpm ? run_dq<float, true>
-                                     : run_dq<float, false>)
-             : dtype == 1 ? (has_kpm ? run_dq<__nv_bfloat16, true>
-                                     : run_dq<__nv_bfloat16, false>)
-                          : nullptr;
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)run(grid, smem, s, q, k, v, kpm, dout, ls, dl, dq, g, dr);
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    // one output: dq stands for both of dk/dv's
+    if (dkv_misaligned(q, k, v, dout, dq, dq, kpm))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(block_q);
+    return (int)pick_dq_mma(block_k, head_dim, has_kpm)(
+        dim3(seq_q / R, bh), 2 * R, mma_dq_smem(R, block_k, head_dim), s, q,
+        k, v, kpm, dout, ls, dl, dq, g, dr);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(block_q), C = rows_of(block_k);  // fp32: CUDA cores
+  return (int)(has_kpm ? run_dq<true> : run_dq<false>)(
+      dim3(seq_q / R, bh), dq_smem(R, C, head_dim), s, q, k, v, kpm, dout,
+      ls, dl, dq, g, dr);
 }
 
 // fp32_out: 1 writes dk, dv as fp32 per-q-head partials (GQA), 0 in the

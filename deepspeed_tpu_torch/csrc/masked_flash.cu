@@ -51,12 +51,13 @@
 // mma.sync m16n8k16 with bf16 operands and fp32 accumulators, Q, the
 // scores and O in registers, K and V staged as bf16 by cp.async into a
 // three-chunk ring, a CTA of min(blk, 64) rows of one block row sharing
-// each staged tile). K3 in bf16 runs on the tensor cores too
-// (mma_dkv.cuh: a CTA of min(blk, 64) key rows of one key block, 16 per
-// warp, dK and dV in registers, Q and dO streamed as bf16 through a
-// cp.async ring in chunks of up to 32 query rows). The fp32 arity of K1
-// and K3, and K2 in both dtypes, are the first, simple design on the
-// CUDA cores: a CTA of 128 threads
+// each staged tile). K2 and K3 in bf16 run on the tensor cores too: K2 on
+// mma_dq.cuh (a CTA of min(blk, 64) query rows of one block row, 16 per
+// warp, dQ in registers, K and V streamed as bf16 through a cp.async ring
+// in chunks of up to 32 keys), K3 on mma_dkv.cuh (a CTA of min(blk, 64)
+// key rows of one key block, 16 per warp, dK and dV in registers, Q and
+// dO streamed in chunks of up to 32 query rows). The fp32 arity of K1-K3
+// is the first, simple design on the CUDA cores: a CTA of 128 threads
 // owns 32 rows of a tile (q rows for K1/K2, k rows for K3); it stages its
 // own operand rows once and each walked tile's partner rows in chunks of
 // 32 into shared memory as fp32 (rows padded to D+1 words, so the
@@ -67,7 +68,6 @@
 // tile, as in the Pallas kernel; K2 and K3 need no running max (p =
 // exp(s - lse)), so they go chunk by chunk. The fp32 checks' tolerance
 // (1e-5) is tighter than TF32 holds, so fp32 stays on the CUDA cores.
-// Later work: K2 on mma_tiles.cuh's fragments.
 //
 // Built by deepspeed_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -77,7 +77,7 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
-#include "mma_dkv.cuh"
+#include "mma_dq.cuh"
 
 namespace {
 
@@ -280,6 +280,7 @@ struct CsrWalk {
   const int32_t* kinds;
   int count, blk;
   __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int keys() const { return blk; }
   __device__ __forceinline__ int2 tile(int t) const {
     return make_int2(cols[t] * blk, kinds[t]);
   }
@@ -317,14 +318,15 @@ mf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------------------------------- K2
-// grid (Sq / R, B*H); per walked tile, chunk by chunk of R key rows.
-template <typename T, bool KPM, bool BAND>
+// fp32 (the CUDA-core body): grid (Sq / R, B*H); per walked tile, chunk
+// by chunk of R key rows.
+template <bool KPM, bool BAND>
 __global__ void __launch_bounds__(kThreads)
-mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const float* __restrict__ kpm,
-             const T* __restrict__ dout,
+mf_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ kpm,
+             const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, const int32_t* __restrict__ offs,
+             float* __restrict__ dq, const int32_t* __restrict__ offs,
              const int32_t* __restrict__ cnts,
              const int32_t* __restrict__ cols,
              const int32_t* __restrict__ kinds, Shape sh, Band bd,
@@ -341,8 +343,8 @@ mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n = cnts[mrow];
   const int base = offs[mrow];
   const int kvr = b * sh.Hkv + h / (sh.H / sh.Hkv);
-  const T* kg = k + (size_t)kvr * sh.Sk * D;
-  const T* vg = v + (size_t)kvr * sh.Sk * D;
+  const float* kg = k + (size_t)kvr * sh.Sk * D;
+  const float* vg = v + (size_t)kvr * sh.Sk * D;
   const float* kpm_b = KPM ? kpm + (size_t)b * sh.Sk : nullptr;
   const size_t row0 = (size_t)bh * sh.Sq + r0;
 
@@ -393,7 +395,7 @@ mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
         float dp = dps[e];
         if (dr.on) dp = dr.keep(bh, qi, ki) ? dp * dr.inv_keep : 0.f;
-        ps[e] = round_to<T>(p * (dp - dl_s[r]));
+        ps[e] = p * (dp - dl_s[r]);
       }
       __syncthreads();
       mm(dqs, D, true, nullptr, ps, R, 1, ks, D + 1, 1, R, D, R);
@@ -401,9 +403,46 @@ mf_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqg = dq + row0 * D;
+  float* dqg = dq + row0 * D;
   for (int e = threadIdx.x; e < R * D; e += blockDim.x)
-    dqg[e] = from_f<T>(dqs[e] * sh.sm_scale);
+    dqg[e] = dqs[e] * sh.sm_scale;
+}
+
+// K2 in bf16 (the tensor-core body, mma_dq.cuh): grid (Sq / R, B*H),
+// R = min(blk, 64) q rows of one block row per CTA, 16 per warp, over the
+// block row's CSR walk; CH = dq_chunk(blk) keys per chunk.
+template <int CH, int DMAX, bool KPM, bool BAND>
+__global__ void __launch_bounds__(2 * kMmaMaxRows, DMAX <= 64 ? 3 : 2)
+mf_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const float* __restrict__ kpm,
+                 const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dq,
+                 const int32_t* __restrict__ offs,
+                 const int32_t* __restrict__ cnts,
+                 const int32_t* __restrict__ cols,
+                 const int32_t* __restrict__ kinds, Shape sh, Band bd,
+                 Dropout dr) {
+  const int R = blockDim.x / 2;
+  const int D = sh.D;
+  const int bh = blockIdx.y;
+  const int h = bh % sh.H;
+  const int b = bh / sh.H;
+  // the last rows first: under a causal mask they walk the most tiles
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * R;
+  const int mrow = (h % sh.Hm) * (sh.Sq / sh.blk) + r0 / sh.blk;
+  const int base = offs[mrow];
+  const CsrWalk walk{cols + base, kinds + base, cnts[mrow], sh.blk};
+  const size_t kvr = (size_t)b * sh.Hkv + h / (sh.H / sh.Hkv);
+  const size_t row0 = (size_t)bh * sh.Sq + r0;
+  const DqRows rows{q + row0 * D, dout + row0 * D, lse + row0,
+                    delta + row0, k + kvr * sh.Sk * D, v + kvr * sh.Sk * D,
+                    KPM ? kpm + (size_t)b * sh.Sk : nullptr, dq + row0 * D,
+                    r0, D, bh, sh.sm_scale};
+  if constexpr (BAND)
+    mma_dq_body<CH, DMAX, KPM, true, true>(rows, walk, bd, dr);
+  else
+    mma_dq_body<CH, DMAX, KPM, false, true>(rows, walk, NoBand{}, dr);
 }
 
 // ------------------------------------------------------------------- K3
@@ -642,18 +681,54 @@ FwdMma pick_fwd_mma_blk(int blk, bool kpm, bool band) {
                      : pick_fwd_mma<128, DMAX>(kpm, band);
 }
 
-template <typename T, bool KPM, bool BAND>
+template <bool KPM, bool BAND>
 cudaError_t run_dq(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                    const void* k, const void* v, const void* kpm,
                    const void* dout, const float* ls, const float* dl,
                    void* dq, const int32_t* of, const int32_t* cn,
                    const int32_t* co, const int32_t* ki, Shape sh, Band bd,
                    Dropout dr) {
-  return launch(mf_dq_kernel<T, KPM, BAND>, grid, smem, s,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const float*>(kpm),
-                static_cast<const T*>(dout), ls, dl, static_cast<T*>(dq), of,
-                cn, co, ki, sh, bd, dr);
+  return launch(mf_dq_kernel<KPM, BAND>, grid, smem, s,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(kpm),
+                static_cast<const float*>(dout), ls, dl,
+                static_cast<float*>(dq), of, cn, co, ki, sh, bd, dr);
+}
+
+template <int CH, int DMAX, bool KPM, bool BAND>
+cudaError_t run_dq_mma(dim3 grid, int threads, size_t smem, cudaStream_t s,
+                       const void* q, const void* k, const void* v,
+                       const void* kpm, const void* dout, const float* ls,
+                       const float* dl, void* dq, const int32_t* of,
+                       const int32_t* cn, const int32_t* co,
+                       const int32_t* ki, Shape sh, Band bd, Dropout dr) {
+  return launch_rows(mf_dq_mma_kernel<CH, DMAX, KPM, BAND>, grid, threads,
+                     smem, s, static_cast<const bf16*>(q),
+                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                     static_cast<const float*>(kpm),
+                     static_cast<const bf16*>(dout), ls, dl,
+                     static_cast<bf16*>(dq), of, cn, co, ki, sh, bd, dr);
+}
+
+using DqMma = decltype(&run_dq_mma<16, 64, false, false>);
+
+template <int CH, int DMAX>
+DqMma pick_dq_mma(bool kpm, bool band) {
+  return kpm ? (band ? run_dq_mma<CH, DMAX, true, true>
+                     : run_dq_mma<CH, DMAX, true, false>)
+             : (band ? run_dq_mma<CH, DMAX, false, true>
+                     : run_dq_mma<CH, DMAX, false, false>);
+}
+
+// the tensor-core instantiation of a walk block's chunk, head dim, key
+// mask and band (the bad_shape checks passed: D <= 128)
+DqMma pick_dq_mma_blk(int blk, int D, bool kpm, bool band) {
+  const bool wide = D > 64;
+  return dq_chunk(blk) == 16
+             ? (wide ? pick_dq_mma<16, 128>(kpm, band)
+                     : pick_dq_mma<16, 64>(kpm, band))
+             : (wide ? pick_dq_mma<32, 128>(kpm, band)
+                     : pick_dq_mma<32, 64>(kpm, band));
 }
 
 template <bool KPM, bool BAND>
@@ -678,10 +753,9 @@ auto pick_fwd(bool kpm, bool band) {
              : (band ? run_fwd<T, false, true> : run_fwd<T, false, false>);
 }
 
-template <typename T>
 auto pick_dq(bool kpm, bool band) {
-  return kpm ? (band ? run_dq<T, true, true> : run_dq<T, true, false>)
-             : (band ? run_dq<T, false, true> : run_dq<T, false, false>);
+  return kpm ? (band ? run_dq<true, true> : run_dq<true, false>)
+             : (band ? run_dq<false, true> : run_dq<false, false>);
 }
 
 auto pick_dkv(bool kpm, bool band) {
@@ -732,10 +806,9 @@ DkvMma pick_dkv_mma_blk(int blk, int D, bool kpm, bool band) {
 // mask, or null for none. fine_block, band_w, band_g_r, band_g_c,
 // band_causal: the band of KIND_BAND tiles (fine_block 0 for none). Each
 // entry point returns the CUDA error of its launch (0 on success); it
-// launches on `stream` and does not synchronise. masked_flash_fwd and
-// masked_flash_dkv run bf16 on their tensor-core bodies (q, k, v, do and
-// the outputs 16-byte aligned, kpm 8: else cudaErrorInvalidValue) and
-// fp32 on the CUDA-core bodies.
+// launches on `stream` and does not synchronise. Each runs bf16 on its
+// tensor-core body (q, k, v, do and the outputs 16-byte aligned, kpm 8:
+// else cudaErrorInvalidValue) and fp32 on its CUDA-core body.
 extern "C" int masked_flash_fwd(
     const void* q, const void* k, const void* v, const void* kpm, void* o,
     void* lse, const void* offs, const void* cnts, const void* cols,
@@ -789,9 +862,6 @@ extern "C" int masked_flash_dq(
   const Shape sh{heads, kv_heads, mask_heads, seq_q, seq_k,
                  head_dim, block, sm_scale};
   const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
-  const int R = rows_of(block);
-  const dim3 grid(seq_q / R, bh);
-  const size_t smem = bwd_smem(R, head_dim, false);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -800,12 +870,20 @@ extern "C" int masked_flash_dq(
   const int32_t* co = static_cast<const int32_t*>(cols);
   const int32_t* ki = static_cast<const int32_t*>(kinds);
   const bool band = fine_block > 0, has_kpm = kpm != nullptr;
-  auto run = dtype == 0   ? pick_dq<float>(has_kpm, band)
-             : dtype == 1 ? pick_dq<__nv_bfloat16>(has_kpm, band)
-                          : nullptr;
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)run(grid, smem, s, q, k, v, kpm, dout, ls, dl, dq, of, cn, co,
-                  ki, sh, bd, dr);
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    // one output: dq stands for both of dk/dv's
+    if (dkv_misaligned(q, k, v, dout, dq, dq, kpm))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(block);
+    return (int)pick_dq_mma_blk(block, head_dim, has_kpm, band)(
+        dim3(seq_q / R, bh), 2 * R, mma_dq_smem(R, block, head_dim), s, q, k,
+        v, kpm, dout, ls, dl, dq, of, cn, co, ki, sh, bd, dr);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(block);      // fp32: the CUDA-core body
+  return (int)pick_dq(has_kpm, band)(
+      dim3(seq_q / R, bh), bwd_smem(R, head_dim, false), s, q, k, v, kpm,
+      dout, ls, dl, dq, of, cn, co, ki, sh, bd, dr);
 }
 
 // fp32_out: 1 writes dk, dv as fp32 per-q-head partials (GQA), 0 in the

@@ -164,6 +164,53 @@ __device__ __noinline__ float2 ordered_dot2(const bf16* a0, const bf16* b0,
   return make_float2(s0, s1);
 }
 
+// ud of the derivation above: how far ds may sit from the plain
+// versions' ds, in its fp32 ulps, from up (p's), the cell's dp term
+// (0 where the cell is dropped or its dp is exactly 0) and |t|
+__device__ __forceinline__ float ds_ulps(float up, float dterm, float ta) {
+  return fmaf(2.f, up, 8.f) + (dterm > 0.f ? dterm / ta : 0.f);
+}
+
+// A warp's cells at stake, summed again 32 a round, one a lane: the set
+// bits of each lane's `redo` (cell numbers below 32) are numbered across
+// the warp, lane by lane, and cell n of a round goes to lane n % 32.
+// sum(ol, i) gives the two ordered sums of lane ol's cell i on the lane
+// that takes it; apply(i, sums) hands them back to the lane that owns the
+// cell. `cell` and `sums` are the warp's 32-entry shared buffers.
+template <typename Sum, typename Apply>
+__device__ __forceinline__ void resum_spread(uint32_t redo, int lane,
+                                             int* cell, float2* sums,
+                                             const Sum& sum,
+                                             const Apply& apply) {
+  const int cnt = __popc(redo);
+  int off = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, off, o);
+    if (lane >= o) off += y;
+  }
+  const int total = __shfl_sync(0xffffffffu, off, 31);
+  off -= cnt;
+#pragma unroll 1
+  for (int base = 0; base < total; base += 32) {
+    int n0 = off;
+    for (uint32_t w = redo; w != 0u; w &= w - 1u, ++n0)
+      if (n0 >= base && n0 < base + 32)
+        cell[n0 - base] = lane << 5 | (__ffs((int)w) - 1);
+    __syncwarp();
+    if (base + lane < total) {
+      const int c = cell[lane];
+      sums[lane] = sum(c >> 5, c & 31);
+    }
+    __syncwarp();
+    n0 = off;
+    for (uint32_t w = redo; w != 0u; w &= w - 1u, ++n0)
+      if (n0 >= base && n0 < base + 32)
+        apply(__ffs((int)w) - 1, sums[n0 - base]);
+    __syncwarp();
+  }
+}
+
 // Walk: n() tiles, tile(t) = (first query, kind bits), rows() query rows
 // per tile (16, 32, 64, 128). CH = dkv_chunk(rows()); DMAX: 64 or 128.
 template <int CH, int DMAX, bool KPM, bool BAND, bool GUARD, typename Walk,
@@ -427,10 +474,9 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
           const float dterm = kept && !((dzero >> (4 * j + e)) & 1u)
                                   ? ud[r] + (dr.on ? 2.f * fabsf(dp) : 0.f)
                                   : 0.f;
-          const float uds =
-              fmaf(2.f, up, 8.f) + (dterm > 0.f ? dterm / ta : 0.f);
-          const bool tie = (p != 0.f) & (near_bf16_tie(pd, up + pd_ulps) |
-                                         near_bf16_tie(ds, uds));
+          const bool tie =
+              (p != 0.f) & (near_bf16_tie(pd, up + pd_ulps) |
+                            near_bf16_tie(ds, ds_ulps(up, dterm, ta)));
           redo |= (uint32_t)tie << (4 * j + e);
           s[j][e] = pd;
           dpv[j][e] = ds;
@@ -467,40 +513,15 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
         put(s, i, pd);
         put(dpv, i, p * (dp - dl[qc]));
       };
-      // the warp's cells at stake, 32 a round, one a lane: the k-th set
-      // bit of this lane's redo is the warp's cell number off + k
-      const int cnt = __popc(redo);
-      int off = cnt;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, off, o);
-        if (lane >= o) off += y;
-      }
-      const int total = __shfl_sync(0xffffffffu, off, 31);
-      off -= cnt;
-#pragma unroll 1
-      for (int base = 0; base < total; base += 32) {
-        int n0 = off;
-        for (uint32_t w = redo; w != 0u; w &= w - 1u, ++n0)
-          if (n0 >= base && n0 < base + 32)
-            redo_cell[n0 - base] = lane << 4 | (__ffs((int)w) - 1);
-        __syncwarp();
-        if (base + lane < total) {
-          const int c = redo_cell[lane], ol = c >> 4, i = c & 15;
-          const int qr = (8 * (i >> 2) + 2 * (ol & 3) + (i & 1)) * ld;
-          const int kr = (warp * 16 + (ol >> 2) + 8 * ((i & 3) >> 1)) * ld;
-          redo_sum[lane] =
-              ordered_dot2(qch + qr, ks + kr, dch + qr, vs + kr, D);
-        }
-        __syncwarp();
-        n0 = off;
-        for (uint32_t w = redo; w != 0u; w &= w - 1u, ++n0)
-          if (n0 >= base && n0 < base + 32) {
-            const float2 sd = redo_sum[n0 - base];
-            exact(__ffs((int)w) - 1, sd.x, sd.y);
-          }
-        __syncwarp();
-      }
+      // the warp's cells at stake, spread over its lanes
+      resum_spread(
+          redo, lane, redo_cell, redo_sum,
+          [&](int ol, int i) {
+            const int qr = (8 * (i >> 2) + 2 * (ol & 3) + (i & 1)) * ld;
+            const int kr = (warp * 16 + (ol >> 2) + 8 * ((i & 3) >> 1)) * ld;
+            return ordered_dot2(qch + qr, ks + kr, dch + qr, vs + kr, D);
+          },
+          [&](int i, float2 sd) { exact(i, sd.x, sd.y); });
 
       // dV += Pd^T dO and dK += dS^T Q, Pd^T and dS^T rounded to bf16 in
       // registers

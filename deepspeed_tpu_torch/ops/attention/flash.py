@@ -599,17 +599,23 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float, rate: float = 0.0,
 
 def flash_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
              rate: float = 0.0, seed: int = 0, key_mask=None, blocks=None):
-    """K6: ``dq`` of :func:`flash_dq_plain`; kernel on CUDA, plain version
-    on the CPU."""
+    """K6: ``dq`` of :func:`flash_dq_plain`; kernel on CUDA, K2's
+    tensor-core body in bf16 and the CUDA-core body in fp32
+    (``masked_flash.DQ_BODIES``, counted in ``bodies``); plain version on
+    the CPU."""
     blocks = _prepare(q, k, v, key_mask, blocks, rate)
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, do, lse, delta, causal, sm_scale,
                               rate, seed, key_mask, blocks)
+    from deepspeed_tpu_torch.ops.attention.masked_flash import (
+        DQ_BODIES, _check_dq_aligned, _count_body)
     _check_cuda((q, k, v, do, lse, delta), key_mask, blocks)
+    _check_dq_aligned(q, k, v, do, key_mask)
     dq = torch.empty_like(q)
     _launch("flash_dq", q, k, [q, k, v, key_mask, do, lse, delta, dq], [],
             causal, blocks, sm_scale, rate, seed)
     _count(flash_dq, key_mask, causal)
+    _count_body(flash_dq, q.dtype, DQ_BODIES)
     return dq
 
 
@@ -644,8 +650,7 @@ def reset_launches():
     for w in (flash_fwd, flash_dq, flash_dkv):
         w.launches = 0
         w.arities = {}
-    flash_fwd.bodies = {}
-    flash_dkv.bodies = {}
+        w.bodies = {}
 
 
 reset_launches()

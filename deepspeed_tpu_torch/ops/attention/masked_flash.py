@@ -16,9 +16,10 @@ each with a wrapper and a plain PyTorch version of the same tile walk:
 For CUDA tensors each wrapper launches its hand-written kernel in
 ``csrc/masked_flash.cu`` (built with nvcc for sm_90a at first use) or
 raises; it never falls back. K1 in bf16 runs the tensor-core body of
-``csrc/mma_fwd.cuh`` (shared with K5), K3 in bf16 that of
-``csrc/mma_dkv.cuh`` (shared with K7), in fp32 both the CUDA-core body
-(:data:`FWD_BODIES`, :data:`DKV_BODIES`). For CPU tensors it runs the
+``csrc/mma_fwd.cuh`` (shared with K5), K2 that of ``csrc/mma_dq.cuh``
+(shared with K6), K3 that of ``csrc/mma_dkv.cuh`` (shared with K7), in
+fp32 each the CUDA-core body (:data:`FWD_BODIES`, :data:`DQ_BODIES`,
+:data:`DKV_BODIES`). For CPU tensors it runs the
 plain version (``*_plain``). Each launch adds one to the wrapper's
 ``launches``. :func:`masked_flash_call` is the ``torch.autograd.Function``
 over the three; :func:`masked_flash_attention` is the public entry.
@@ -65,6 +66,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (csrc/mma_fwd.cuh), fp32 on the CUDA cores (fp32 FMAs: the fp32
 # checks' 1e-5 tolerance is tighter than TF32 holds)
 FWD_BODIES = {torch.bfloat16: "mma", torch.float32: "fma"}
+# the body K2 and K6 run by input dtype: bf16 on the tensor cores
+# (csrc/mma_dq.cuh), fp32 on the CUDA cores
+DQ_BODIES = {torch.bfloat16: "mma", torch.float32: "fma"}
 # the body K3 and K7 run by input dtype: bf16 on the tensor cores
 # (csrc/mma_dkv.cuh), fp32 on the CUDA cores
 DKV_BODIES = {torch.bfloat16: "mma", torch.float32: "fma"}
@@ -86,11 +90,12 @@ CHUNK = 32
 # (chip_smoke.fit_walk_costs) of a sweep of chip_smoke.py's sparse kernel
 # timing phases (medians of CUDA-event-timed calls, L2 flushed; B 8, H 16,
 # S 2048, D 64, bf16; NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6):
-# - "masked_flash" (K1-K3): the BSLongformer layout at walks 128, 64, 32
-#   and 16 (74, 154, 314 tiles over 314 live chunks of 32, and 634 tiles
-#   of 16, in 9.594, 9.308, 9.539 and 8.172 ms); the tiles cost nothing
-#   measurable, and a chunk of 16 x 16 costs 0.43 of one of 32 x 32, so
-#   the fine walk wins;
+# - "masked_flash" (K1-K3, all three in bf16 on their tensor-core
+#   bodies): the BSLongformer layout at walks 128, 64, 32 and 16 (74, 154,
+#   314 tiles over 314 live chunks of 32, and 634 tiles of 16, in 5.016,
+#   4.388, 4.468 and 2.267 ms); neither the tiles nor the chunks cost
+#   anything measurable beside their cells, so a coarse walk, which never
+#   computes fewer cells, never wins and the rule keeps the fine walk;
 # - "blocksparse_v2" (K8-K10): the fixed per-head layouts of
 #   ds_config_sparse.json under an (S, S) 'mul' mask at walks 16, 32, 64
 #   and 128 (4480, 2112, 1024 and 256 tiles per (b, h), in 24.14, 39.37,
@@ -109,7 +114,7 @@ CHUNK = 32
 # Only ratios matter: the rules compare walks of one layout.
 WALK_COSTS = {
     # (us per tile, us per chunk, us per cell)
-    "masked_flash": (9.075e-5, 5.554e-2, 1.7606e-4),
+    "masked_flash": (0.0, 0.0, 1.12099e-4),
     "blocksparse_v2": (0.0, 5.885e-3, 1.4145e-4),
     "banded": (1.49198e-2, 0.0, 3.32402e-4),
 }
@@ -725,6 +730,14 @@ def _check_fwd_aligned(q, k, v, key_mask=None):
                    (("q", q), ("k", k), ("v", v), ("key_mask", key_mask)))
 
 
+def _check_dq_aligned(q, k, v, do, key_mask=None):
+    """K2's and K6's operands for their tensor-core body (dq, allocated
+    by the wrapper, is aligned)."""
+    _check_aligned("dq", DQ_BODIES, q.dtype,
+                   (("q", q), ("k", k), ("v", v), ("do", do),
+                    ("key_mask", key_mask)))
+
+
 def _check_dkv_aligned(q, k, v, do, key_mask=None):
     """K3's and K7's operands for their tensor-core body."""
     _check_aligned("dk/dv", DKV_BODIES, q.dtype,
@@ -840,13 +853,16 @@ def masked_flash_dq(q, k, v, do, lse, delta, mask: BlockMask,
                     sm_scale: float, rate: float = 0.0, seed: int = 0,
                     key_mask=None):
     """K2: ``dq`` of :func:`masked_flash_dq_plain`; kernel on CUDA (its
-    key-mask arity with a ``key_mask``), plain version on the CPU."""
+    key-mask arity with a ``key_mask``), its tensor-core body in bf16 and
+    its CUDA-core body in fp32 (:data:`DQ_BODIES`, counted in
+    ``bodies``); plain version on the CPU."""
     _check_args(q, k, v, mask, key_mask)
     _check_hash_rounds(rate)
     if q.device.type == "cpu":
         return masked_flash_dq_plain(q, k, v, do, lse, delta, mask,
                                      sm_scale, rate, seed, key_mask)
     _check_cuda((q, k, v, do, lse, delta), mask, key_mask)
+    _check_dq_aligned(q, k, v, do, key_mask)
     dq = torch.empty_like(q)
     # q, k, v, kpm, do, lse, delta, dq, offs, cnts, cols, kinds; dtype
     fn = _kernel("masked_flash_dq", [_P] * 12 + [_I] + _GEOMETRY + _TAIL)
@@ -858,6 +874,7 @@ def masked_flash_dq(q, k, v, do, lse, delta, mask: BlockMask,
           _DTYPE_CODE[q.dtype], *_geometry(q, k, mask),
           *_dropout(sm_scale, rate, seed)])
     _count(masked_flash_dq, key_mask, mask)
+    _count_body(masked_flash_dq, q.dtype, DQ_BODIES)
     return dq
 
 
@@ -916,9 +933,9 @@ def _count(wrapper, key_mask, mask: BlockMask):
 
 
 def _count_body(wrapper, dtype, bodies=FWD_BODIES):
-    """One launch of ``wrapper`` (K1, K3, K5 or K7), counted in its
-    ``bodies`` by the body it ran (``bodies``: :data:`FWD_BODIES` or
-    :data:`DKV_BODIES`)."""
+    """One launch of ``wrapper`` (K1-K3 or K5-K7), counted in its
+    ``bodies`` by the body it ran (``bodies``: :data:`FWD_BODIES`,
+    :data:`DQ_BODIES` or :data:`DKV_BODIES`)."""
     body = bodies[dtype]
     wrapper.bodies[body] = wrapper.bodies.get(body, 0) + 1
 
@@ -928,8 +945,7 @@ def reset_launches():
     for w in (masked_flash_fwd, masked_flash_dq, masked_flash_dkv):
         w.launches = 0
         w.arities = {}
-    masked_flash_fwd.bodies = {}
-    masked_flash_dkv.bodies = {}
+        w.bodies = {}
 
 
 reset_launches()

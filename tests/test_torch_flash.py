@@ -533,6 +533,74 @@ def test_cuda_dkv_tensor_core_body_matches_plain(case):
         assert (dk[:, :, sq:] == 0).all() and (dv[:, :, sq:] == 0).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, H, Hkv, sq, sk, D, causal, key mask, rate, (bq, bk))
+    (2, 8, 8, 320, 1024, 64, True, False, 0.1, (64, 128)),   # sq < sk
+    (2, 8, 2, 1024, 160, 40, False, True, 0.0, (128, 32)),   # GQA 4, hd 40
+    (2, 8, 8, 208, 208, 32, True, False, 0.1, (16, 16)),     # tiles of 16
+    (2, 16, 4, 512, 512, 128, True, False, 0.1, (128, 128)),  # hd 128, GQA
+    (2, 4, 4, 256, 256, 72, False, True, 0.0, (32, 64)),     # head dim 72
+    (2, 8, 4, 512, 256, 64, True, True, 0.0, (128, 64)),     # sq > sk
+])
+def test_cuda_dq_tensor_core_body_matches_plain(case):
+    """K6's bf16 launches run K2's tensor-core dq body over K5's capped
+    walk of key tiles: rectangular tiles, seq_q != seq_k, GQA, head dims
+    32 to 128, dropout and the key mask; they equal the plain version at
+    the same tiles and count under body "mma"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops.attention import flash as tf
+    B, H, Hkv, sq, sk, d, causal, km, rate, blocks = case
+    rng = np.random.RandomState(sq + sk + d + blocks[0] + 1)
+    q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in
+                   _inputs(rng, B, H, H // Hkv, sq, sk, d))
+    key_mask = None
+    if km:
+        key_mask = torch.from_numpy(_key_mask(rng, B, sk, (0,))).reshape(
+            B, sk).cuda()
+    scale, seed = 1.0 / np.sqrt(d), 9753
+    o_p, lse_p = tf.flash_fwd_plain(q, k, v, causal, scale, rate, seed,
+                                    key_mask, blocks)
+    delta = (do.float() * o_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, causal, scale, rate, seed, key_mask,
+            blocks)
+    before = tf.flash_dq.bodies.get("mma", 0)
+    dq = tf.flash_dq(*args)
+    torch.cuda.synchronize()
+    assert tf.flash_dq.bodies.get("mma", 0) == before + 1
+    assert torch.isfinite(dq).all()
+    _assert_close(dq.float().cpu().numpy(),
+                  tf.flash_dq_plain(*args).float().cpu().numpy(), "bf16")
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "do", "key_mask"])
+def test_bf16_dq_refuses_misaligned_operands(operand):
+    """K2's and K6's tensor-core dq body loads 16-byte rows (q, k, v, do)
+    and 8-byte key-mask pairs: a bf16 view that starts off those
+    boundaries raises before any launch, an aligned one and fp32 pass."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import \
+        _check_dq_aligned
+    shape, n = (1, 2, 32, 16), 2 * 32 * 16
+
+    def operands(dtype, off=None):
+        ts = {name: torch.zeros(n + 8, dtype=dtype)[:n].view(shape)
+              for name in ("q", "k", "v", "do")}
+        ts["key_mask"] = torch.zeros(33)[:32].view(1, 32)
+        if off is not None:
+            base = torch.zeros(n + 8, dtype=ts[off].dtype)
+            if off == "key_mask":
+                ts[off] = base[1:33].view(1, 32)
+            else:
+                ts[off] = base[4:4 + n].view(shape)
+        return ts
+
+    _check_dq_aligned(**operands(torch.bfloat16))
+    _check_dq_aligned(**operands(torch.float32, operand))
+    with pytest.raises(ValueError, match=f"{operand} aligned"):
+        _check_dq_aligned(**operands(torch.bfloat16, operand))
+
+
 @pytest.mark.parametrize("operand", ["q", "k", "v", "do", "key_mask"])
 def test_bf16_dkv_refuses_misaligned_operands(operand):
     """K3's and K7's tensor-core dk/dv body loads 16-byte rows (q, k, v,

@@ -570,6 +570,28 @@ def test_dkv_body_by_dtype(dtype, body):
             wrapper.bodies = saved
 
 
+@pytest.mark.parametrize("dtype, body", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "fma")])
+def test_dq_body_by_dtype(dtype, body):
+    """K2 and K6 name the body a dtype runs: bf16 on the tensor cores
+    (csrc/mma_dq.cuh), fp32 on the CUDA cores; ``reset_launches``
+    zeroes their counts by body."""
+    from deepspeed_tpu_torch.ops.attention import flash as tf
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    assert mf.DQ_BODIES[dtype] == body
+    for wrapper, reset in ((mf.masked_flash_dq, mf.reset_launches),
+                           (tf.flash_dq, tf.reset_launches)):
+        saved = dict(wrapper.bodies)
+        try:
+            mf._count_body(wrapper, dtype, mf.DQ_BODIES)
+            mf._count_body(wrapper, dtype, mf.DQ_BODIES)
+            assert wrapper.bodies[body] == saved.get(body, 0) + 2
+            reset()
+            assert wrapper.bodies == {}
+        finally:
+            wrapper.bodies = saved
+
+
 @pytest.mark.parametrize("operand", ["q", "k", "v", "key_mask"])
 def test_bf16_forward_refuses_misaligned_operands(operand):
     """The tensor-core forward body loads 16-byte rows (q, k, v) and
@@ -733,6 +755,50 @@ def test_cuda_dkv_tensor_core_body_matches_plain(case):
                                          b.float().cpu().numpy(),
                                          **BF16_TOL)
         assert ok, (ratio, rel_rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, H, Hkv, S, D, mask, walk block, rate, key mask)
+    (2, 8, 8, 512, 64, "causal", 16, 0.1, False),
+    (2, 8, 8, 512, 72, "causal", 32, 0.0, True),     # 72: not a multiple of 16
+    (2, 8, 8, 512, 32, "causal", 64, 0.1, True),     # head dim 32
+    (2, 16, 4, 512, 40, "causal", 128, 0.1, False),  # GQA, G 4; 40: zero tail
+    (2, 16, 4, 512, 64, "dense", 128, 0.0, True),    # GQA, G 4, key mask
+    (2, 8, 8, 256, 128, "layout", 16, 0.1, True),    # per-head, empty rows
+    (2, 8, 8, 256, 96, "layout", 64, 0.0, False),    # head dim 96
+])
+def test_cuda_dq_tensor_core_body_matches_plain(case):
+    """K2's bf16 launches run the tensor-core dq body (csrc/mma_dq.cuh)
+    at every walk block, GQA, head dims 32 to 128 (also not multiples of
+    the mma's depth of 16), dropout and the key mask, and equal the plain
+    version; each counts under body "mma"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    B, H, Hkv, s, d, kind, block, rate, km = case
+    rng = np.random.RandomState(s + d + block + 2)
+    q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in
+                   _inputs(rng, H // Hkv, "bf16", B=B, H=H, s=s, d=d))
+    layout = (_random_layout(rng, heads=H, nb=s // block)
+              if kind == "layout" else None)
+    mask = _port_mask(kind, s=s, block=block, layout=layout)
+    kpm = (torch.from_numpy(_bert_key_mask(rng, B, s, s // 2, (1,))).cuda()
+           if km else None)
+    scale, seed = 1.0 / np.sqrt(d), 1357
+    o_p, lse_p = mf.masked_flash_fwd_plain(q, k, v, mask, scale, rate, seed,
+                                           kpm)
+    delta = (do.float() * o_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, mask, scale, rate, seed, kpm)
+    before = mf.masked_flash_dq.bodies.get("mma", 0)
+    got = mf.masked_flash_dq(*args)
+    torch.cuda.synchronize()
+    assert mf.masked_flash_dq.bodies.get("mma", 0) == before + 1
+    assert torch.isfinite(got).all()
+    ratio, rel_rms, ok = _bf16_check(
+        got.float().cpu().numpy(),
+        mf.masked_flash_dq_plain(*args).float().cpu().numpy(), **BF16_TOL)
+    assert ok, (ratio, rel_rms)
 
 
 @pytest.mark.cuda

@@ -306,17 +306,27 @@ def test_from_layout_auto_walk_and_errors(monkeypatch):
     from deepspeed_tpu_torch.ops.sparse_attention import \
         BSLongformerSparsityConfig
     layout = _walk_layouts()["bslongformer"]                 # S 256
-    # a window of 3 blocks of 16: a live 32 x 32 chunk holds 2-3 kept
-    # fine tiles, and a chunk of 16 costs 0.43 of one of 32: the fine walk
+    # K1-K3 on the tensor cores pay per computed cell alone (no cost per
+    # tile or chunk): a coarse walk never computes fewer cells, so the
+    # rule keeps the fine walk
     assert TBM.from_layout(layout, FB).block == FB
-    assert TBM.from_layout(layout[:, :6, :6], FB).block == 32     # S 96
+    assert TBM.from_layout(layout[:, :6, :6], FB).block == FB     # S 96
     assert TBM.from_layout(_band_layout(4), 128).block == 128     # fine
     # the main path's BSLongformer layout at S 2048: the fine walk
     main = BSLongformerSparsityConfig(num_heads=16, block=FB).make_layout(
         2048)
     assert TBM.from_layout(main, FB).block == FB
-    # a window of 5: most live chunks are full, walk 128 wins
     wide = _walk_layouts()["bslongformer_w2_g2"]
+    assert TBM.from_layout(wide, FB).block == FB
+    # a floor per computed chunk (the costs fitted while K2 ran on the
+    # CUDA cores) makes a coarse walk win where it saves chunks
+    monkeypatch.setitem(mf.WALK_COSTS, "masked_flash",
+                        (9.075e-5, 5.554e-2, 1.7606e-4))
+    # a window of 3 blocks of 16: a live 32 x 32 chunk holds 2-3 kept
+    # fine tiles, and a chunk of 16 costs 0.43 of one of 32: the fine walk
+    assert TBM.from_layout(layout, FB).block == FB
+    assert TBM.from_layout(layout[:, :6, :6], FB).block == 32     # S 96
+    # a window of 5: most live chunks are full, walk 128 wins
     assert TBM.from_layout(wide, FB).block == 128
     # a cost per cell alone: a coarse walk never computes fewer cells
     monkeypatch.setitem(mf.WALK_COSTS, "masked_flash", (0.0, 0.0, 1.0))
@@ -541,8 +551,15 @@ def test_front_end_routes(monkeypatch):
     assert tbs.planned_kernel(layout, FB, has_am=True) == "v2-coarse64"
     monkeypatch.setattr(tbs, "_FORCE_COARSE_BLOCK", None)
     assert tbs.planned_kernel(layout, FB) == "masked"
-    assert tbs.planned_kernel(_walk_layouts()["bslongformer_w2_g2"],
-                              FB) == "masked-coarse128"
+    # K1-K3 pay per computed cell: the rule keeps the fine walk, and a
+    # floor per chunk (the costs fitted while K2 ran on the CUDA cores)
+    # coarsens a band whose live chunks are full
+    wide = _walk_layouts()["bslongformer_w2_g2"]
+    assert tbs.planned_kernel(wide, FB) == "masked"
+    monkeypatch.setitem(mf.WALK_COSTS, "masked_flash",
+                        (9.075e-5, 5.554e-2, 1.7606e-4))
+    assert tbs.planned_kernel(wide, FB) == "masked-coarse128"
+    monkeypatch.undo()
     # the key mask reaches the kernels as the additive (B, S) row, not
     # pre-blocked as JAX's TPU lane rule has it; no mask, no key-mask arity
     seen = []

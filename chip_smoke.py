@@ -9,8 +9,8 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
 1. device: the card as nvidia-smi names it, torch/CUDA versions; then
    every kernel of the port is built with nvcc from csrc/ for sm_90a,
    each kernel's registers and spills as ptxas -v reports them (a spill
-   in a tensor-core body, any "_mma_kernel" of K1-K3 and K5-K7, fails
-   the run).
+   in a tensor-core body, any "_mma_kernel" of K1-K3, K5-K8 and K14,
+   fails the run).
 2. kernels: each kernel against its plain PyTorch version on the card
    (the GPT-2 and the Llama serving shapes, GQA, fp32, cache-position
    edges with an all-null row, NaN planted past the live pages), and the
@@ -148,15 +148,22 @@ from the seed.
    layout under a causal keep mask, fp32, forced coarse walks of 64 and
    128, and mask rows that drop every key beside a batch row of pads.
    Control: the plain versions with the mask tiles left out must fail
-   the same check on every output.
+   the same check on every output; at the main shape also the plain
+   forward with p's bf16 rounding left out (fp32 inputs) must fail it on
+   o. Every row names K8's body ("body": "mma" in bf16, on K1's
+   tensor-core forward body; "fma" in fp32), and a bf16 launch that ran
+   another body fails it (so in phases 23, 25 and 26 for K8, and 32-35
+   for K14).
 22. v2_kernel_timing: the three at the main shape at the fine walk and
    every coarse walk the tile budget admits, timed as in phase 6, beside
    the bound, the plain version and SDPA with the dense float
-   (B, H, S, S) mask; the sweep fitted to the walk cost model.
+   (B, H, S, S) mask, K8 beside its former CUDA-core bf16 time
+   ("fma_body_ms"); the sweep fitted to the walk cost model.
 23. sparse_self_attention: the entry point, SparseSelfAttention with the
    config's sparse_attention section, forward and backward of a scalar
    loss (1 warm-up, 3 timed): ms, peak memory, one launch of each of
-   K8-K10 per call and none of K1-K3; a 2-head fp32 call on the kernel
+   K8-K10 per call (K8's on its tensor-core body) and none of K1-K3; a
+   2-head fp32 call on the kernel
    path against the plain path; and masked_flash_attention over the
    mask of a BSLongformer window of 5 blocks at a walk of 128, asked for
    through make_block_mask (the walk rule keeps the fine walk since
@@ -184,7 +191,8 @@ blocks, merged by their lse).
    summed, timed as in phase 6, beside the bound, one plain call, SDPA
    with the dense float mask (the library column), SDPA is_causal=True
    (the dense baseline of JAX's row) and K1-K3 on the masked route; for
-   BigBird K8-K10 without a mask tile and the merge; a sweep of walk tiles
+   BigBird K8-K10 without a mask tile (K8 beside its former CUDA-core
+   bf16 time) and the merge; a sweep of walk tiles
    fitted to walk_cost_us (kernels "banded"). Then SparseSelfAttention
    forward and backward under the legacy and the default dispatch: ms,
    peak memory and launches per call (BSLongformer 2, 2, 3 of K11, K12,
@@ -250,16 +258,20 @@ fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
    -5e28, a hand-made layout with an empty block row and column, a batch
    row of pads. Controls that must fail the same check on every output:
    the plain versions with the attention mask left out (else the key
-   mask, else on fp32 inputs), and in (d) with the threshold at -1e29.
+   mask, else on fp32 inputs), in (d) with the threshold at -1e29, and
+   at (a) the plain forward with p's bf16 rounding left out (on o).
+   Every row names K14's body (as phase 21 does K8's).
 33. v1_kernel_timing: the three at (a), (b) and both layouts of (c),
    timed as in phase 6, beside the bound (bytes moved once, the mask's
    once per distinct tile of the heads' union, or the layout's FLOP),
    the plain call of phase 32, SDPA with the dense float (B, H, S, S)
-   mask and K8-K10 on the same inputs.
+   mask, K8-K10 on the same inputs and, for K14, its former CUDA-core
+   bf16 time.
 34. v1_entry_point: SparseSelfAttention with the config's section, the
    key mask and an (S, S) 'mul' mask under USE_SPLASH_V2 = False at (a),
    forward and backward (1 warm-up, 3 timed): ms, peak memory, exactly
-   one launch of each of K14-K16 per call and no other attention kernel;
+   one launch of each of K14-K16 per call (K14's on its tensor-core
+   body) and no other attention kernel;
    a 2-head fp32 call against the v1 plain path (TRAIN_TOL fp32) and the
    default route's K8-K10 (JAX's v2-vs-v1 tolerance); then bench.py's v1
    fallback at the s8k geometry for both layouts, beside phase 26's
@@ -267,14 +279,15 @@ fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
 35. bert_sparse_training_v1: phase 19's fixed configuration under
    USE_MASKED_FLASH = False and USE_SPLASH_V2 = False, 1 warm-up and 3
    timed steps and a 2-step profile: 48 launches of each of K14-K16 per
-   step, all of the key-mask arity, and no other attention kernel; the
+   step, all of the key-mask arity (K14's on its tensor-core body), and
+   no other attention kernel; the
    losses beside phase 19's; then phase 20's kernel-vs-plain check of it
    at seq 2048.
 36. the {"kernels": [...]} line (with the three key-mask, the three
    band, the three row-run, the three banded, the three no-mask
    row-run, the three legacy flash entries and K14-K16 in each of their
-   three arities on the paths above; K1-K3 and K5-K7 with their "body"
-   ("mma" for each in bf16),
+   three arities on the paths above; each with its "body": "mma" for
+   K1-K3, K5-K8 and K14 in bf16, "fma" for the rest),
    K1 with its s8k default-route time from phase 29), the nvidia-smi
    line, and last {"ok": true, "device": {...}}.
 """
@@ -295,10 +308,10 @@ BF16_ATOL = 2e-3     # summation order differs; p is rounded to bf16
 FP32_ATOL = 1e-5     # summation order differs
 MODEL_LOGIT_ATOL = 1e-3   # fp32, 24 layers of differently ordered sums
 TIMED_CALLS = 100
-# K2's, K3's, K6's and K7's times on their former CUDA-core bf16 bodies
-# (these timing phases on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
-# section 6), printed beside this run's as "fma_body_ms": (phase, kernel,
-# case) -> ms
+# K2's, K3's, K6's, K7's, K8's and K14's times on their former CUDA-core
+# bf16 bodies (these timing phases on an NVIDIA H100 80GB HBM3 at 700 W;
+# PERF.md section 6), printed beside this run's as "fma_body_ms":
+# (phase, kernel, case) -> ms
 FMA_BODY_MS = {
     ("train_kernel_timing", "masked_flash_dq", "gpt2"): 4.14640,
     ("bert_kernel_timing", "masked_flash_dq_kpm", "S128"): 0.20816,
@@ -328,6 +341,15 @@ FMA_BODY_MS = {
      "bslongformer walk16"): 3.30699,
     ("flash_kernel_timing", "flash_dkv", "gpt2"): 4.61899,
     ("flash_kernel_timing", "flash_dkv", "s8k"): 30.46237,
+    ("v2_kernel_timing", "blocksparse_v2_fwd", "fixed walk16"): 7.28334,
+    ("v2_kernel_timing", "blocksparse_v2_fwd", "fixed walk32"): 8.16910,
+    ("v2_kernel_timing", "blocksparse_v2_fwd", "fixed walk64"): 15.15061,
+    ("v2_kernel_timing", "blocksparse_v2_fwd", "fixed walk128"): 16.35938,
+    ("legacy_sparse_timing", "blocksparse_v2_fwd", "bb residue"): 0.54816,
+    ("v1_kernel_timing", "bs_fwd", "a"): 6.73406,
+    ("v1_kernel_timing", "bs_fwd", "b"): 6.59600,
+    ("v1_kernel_timing", "bs_fwd", "lf"): 5.28358,
+    ("v1_kernel_timing", "bs_fwd", "bb"): 5.46877,
 }
 # masked flash, kernel against plain version, element by element:
 # |a - b| <= atol + rtol * |b|, and in bf16 also over the whole tensor:
@@ -1444,35 +1466,45 @@ def _reset_train_launches():
     mf.reset_launches()
 
 
-# the kernels of K1-K3 and K5-K7, each with a tensor-core body in bf16:
-# K1 and K5 on csrc/mma_fwd.cuh, K2 and K6 on csrc/mma_dq.cuh, K3 and K7
-# on csrc/mma_dkv.cuh
+# the kernels with a tensor-core body in bf16: K1, K5, K8 and K14 on
+# csrc/mma_fwd.cuh, K2 and K6 on csrc/mma_dq.cuh, K3 and K7 on
+# csrc/mma_dkv.cuh
 MMA_KERNELS = ("masked_flash_fwd", "flash_fwd", "masked_flash_dq",
-               "flash_dq", "masked_flash_dkv", "flash_dkv")
+               "flash_dq", "masked_flash_dkv", "flash_dkv",
+               "blocksparse_v2_fwd", "bs_fwd")
 
 
 def kernel_body(name, dtype="bf16"):
-    """The body a kernel of K1-K3 or K5-K7 runs on ``dtype`` inputs: in
-    bf16 on the tensor cores ("mma"), in fp32 on the CUDA cores
-    ("fma")."""
+    """The body a kernel runs on ``dtype`` inputs: those of MMA_KERNELS
+    in bf16 on the tensor cores ("mma"), the rest and fp32 on the CUDA
+    cores ("fma")."""
     return "mma" if name in MMA_KERNELS and dtype == "bf16" else "fma"
 
 
-def _mma_bodies():
-    """The launches of K1-K3 and K5-K7 since their counts were last
-    reset, by the body they ran."""
+def _mma_wrapper(name):
+    """The wrapper of one of MMA_KERNELS."""
     from deepspeed_tpu_torch.ops.attention import flash as tf
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
-    return {name: dict(getattr(mf if name.startswith("masked") else tf,
-                               name).bodies) for name in MMA_KERNELS}
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as v2
+    module = (mf if name.startswith("masked") else tf
+              if name.startswith("flash") else v2
+              if name.startswith("blocksparse_v2") else bs)
+    return getattr(module, name)
+
+
+def _mma_bodies(names=MMA_KERNELS):
+    """The launches of ``names`` (of MMA_KERNELS) since their counts were
+    last reset, by the body they ran."""
+    return {name: dict(_mma_wrapper(name).bodies) for name in names}
 
 
 def _check_mma_bodies(phase, bodies):
-    """A bf16 run: every launch of K1-K3 and K5-K7 ran the tensor-core
-    body."""
+    """A bf16 run: every launch of K1-K3, K5-K8 and K14 ran the
+    tensor-core body."""
     if any(b.get("fma", 0) for b in bodies.values()):
-        raise AssertionError(f"{phase}: a bf16 launch of K1-K3 or K5-K7 "
-                             f"ran the CUDA-core body: {bodies}")
+        raise AssertionError(f"{phase}: a bf16 launch of K1-K3, K5-K8 or "
+                             f"K14 ran the CUDA-core body: {bodies}")
 
 
 def _body_ran(wrapper, before):
@@ -2680,17 +2712,20 @@ def v2_plan(layout, block, walk=None):
 
 
 def check_v2_kernels(name, plan, args, key_mask, am_add, flush=None,
-                     extra=None, phase="v2_kernel_check"):
+                     extra=None, phase="v2_kernel_check",
+                     rounding_control=False):
     """K8, K9 and K10 against their plain versions on the same inputs (K9
     and K10 get the plain forward's lse and delta), under TRAIN_TOL; lse
     within LSE_ATOL (a row with no valid key carries its max, <=
-    VALID_THRESH, in both). With ``am_add`` None the no-mask arity runs:
-    no tile at the fine walk, the structural tiles on a coarse one. The
-    control, which must fail the same check on every output (K9 and K10
-    fed the control forward's lse and delta): the plain versions with the
-    mask tiles left out (all 0); where there is none, without the key
-    mask; where there is neither, on fp32 copies of the inputs, which
-    leaves out the rounding of p and ds. With ``flush`` each plain call is
+    VALID_THRESH, in both); K8 on the body its dtype runs ("body"). With
+    ``am_add`` None the no-mask arity runs: no tile at the fine walk, the
+    structural tiles on a coarse one. The control, which must fail the
+    same check on every output (K9 and K10 fed the control forward's lse
+    and delta): the plain versions with the mask tiles left out (all 0);
+    where there is none, without the key mask; where there is neither, on
+    fp32 copies of the inputs, which leaves out the rounding of p and ds.
+    With ``rounding_control`` also the plain forward on fp32 copies (p not
+    rounded to bf16) must fail it on o. With ``flush`` each plain call is
     timed once (:func:`timed_once`)."""
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as v2
@@ -2706,8 +2741,10 @@ def check_v2_kernels(name, plan, args, key_mask, am_add, flush=None,
         out, plain_ms[kernel] = timed_once(lambda: fn(*a), flush)
         return out
 
+    bodies = dict(v2.blocksparse_v2_fwd.bodies)
     o, lse = v2.blocksparse_v2_fwd(q, k, v, key_mask, tiles, plan, scale)
     torch.cuda.synchronize()
+    body = _body_ran(v2.blocksparse_v2_fwd, bodies)
     o_p, lse_p = plain("blocksparse_v2_fwd", v2.blocksparse_v2_fwd_plain,
                        q, k, v, key_mask, tiles, plan, scale)
     delta = (do.float() * o_p.float()).sum(-1)
@@ -2718,8 +2755,10 @@ def check_v2_kernels(name, plan, args, key_mask, am_add, flush=None,
     dq_p = plain("blocksparse_v2_dq", v2.blocksparse_v2_dq_plain, *bwd)
     dk_p, dv_p = plain("blocksparse_v2_dkv", v2.blocksparse_v2_dkv_plain,
                        *bwd)
-    tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+    dtype = "fp32" if q.dtype == torch.float32 else "bf16"
+    tol = TRAIN_TOL[dtype]
     row = {"phase": phase, "case": name, "dtype": str(q.dtype),
+           "body": body[0] if len(body) == 1 else body,
            "shape": list(q.shape), "fine_block": plan.fine_block,
            "walk_block": plan.block, "walked_tiles": plan.tiles_walked,
            "unique_tiles": plan.unique_tiles, "tiles": tiles is not None,
@@ -2740,6 +2779,16 @@ def check_v2_kernels(name, plan, args, key_mask, am_add, flush=None,
     lse_err = float((lse - lse_p).abs().max())
     row["lse_max_abs_err"] = lse_err
     ok &= lse_err <= LSE_ATOL
+    ok &= body == [kernel_body("blocksparse_v2_fwd", dtype)]
+    if rounding_control:
+        o_r, _ = v2.blocksparse_v2_fwd_plain(*[t.float() for t in args[:3]],
+                                             key_mask, tiles, plan, scale)
+        ratio, rel_rms, _, good = compare(o_r.to(q.dtype), o_p, **tol)
+        row["rounding_control"] = {
+            "control": "the plain forward on fp32 inputs: p not rounded "
+                       "to bf16", "o_worst_ratio": ratio,
+            "o_rel_rms": rel_rms, "o_fails": not good}
+        ok &= not good
     c_args, c_key, c_tiles = args, key_mask, tiles
     if tiles is not None:
         row["control"] = "the mask tiles left out"
@@ -2795,7 +2844,8 @@ def v2_kernel_check_phase():
     plan = v2_plan(layout, 16)
     main_row = check_v2_kernels(
         f"bert_large_s2048_fixed_mul_walk{plan.block}", plan, main, kpm,
-        _to_additive(v2_mask(rng, S), "mul"), flush=flush)
+        _to_additive(v2_mask(rng, S), "mul"), flush=flush,
+        rounding_control=True)
     del main, flush
     b, h, s = 2, 4, 512
     small = sparse_config("fixed", heads=h).make_layout(s)
@@ -2890,7 +2940,10 @@ def v2_kernel_timing_phase(smi, main_row):
     for walk in walks:
         plan = v2_plan(layout, 16, walk)
         tiles = plan.mask_tiles(am_add)
+        v2.reset_launches()
         o, lse = v2.blocksparse_v2_fwd(q, k, v, kpm, tiles, plan, scale)
+        body = _mma_bodies(["blocksparse_v2_fwd"])
+        _check_mma_bodies("v2_kernel_timing", body)
         delta = (do.float() * o.float()).sum(-1)
         bwd = (q, k, v, do, lse, delta, kpm, tiles, plan, scale)
         meta = {"csr": sum(a.nbytes for a in plan.csr),
@@ -2926,8 +2979,12 @@ def v2_kernel_timing_phase(smi, main_row):
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
             main = plan.block == rule_walk
             plain_ms = main_row["plain_ms"][name] if main else None
+            case = f"fixed walk{plan.block}"
             emit({"phase": "v2_kernel_timing", "kernel": name,
-                  "case": f"fixed walk{plan.block}", "rule_walk": main,
+                  "case": case, "rule_walk": main,
+                  "body": kernel_body(name),
+                  "fma_body_ms": FMA_BODY_MS.get(
+                      ("v2_kernel_timing", name, case)),
                   "shape": dict(m, dtype="bf16", block=plan.block,
                                 fine_block=16, mask="'mul', keeps "
                                 f"{V2_KEEP}", key_mask=f"lengths "
@@ -2950,7 +3007,9 @@ def v2_kernel_timing_phase(smi, main_row):
                 out[name] = {"ms": kernel_ms, "plain_ms": plain_ms,
                              "library_ms": lib_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by,
-                             "replaces": V2_REPLACES[name]}
+                             "replaces": V2_REPLACES[name],
+                             "fma_body_ms": FMA_BODY_MS.get(
+                                 ("v2_kernel_timing", name, case))}
         r = min(plan.block, CHUNK)
         per_bh = B * H
         sweep.append((plan.tiles_walked * B / per_bh,
@@ -3034,8 +3093,7 @@ def sparse_self_attention_phase(smi):
     for t in qkv:
         t.grad = None
     torch.cuda.reset_peak_memory_stats()
-    blocksparse_v2.reset_launches()
-    mf.reset_launches()
+    _reset_all_launches()
     t0 = time.perf_counter()
     for _ in range(V2_ITERS):
         o = call(ssa, qkv, g)
@@ -3043,6 +3101,7 @@ def sparse_self_attention_phase(smi):
     wall = time.perf_counter() - t0
     launches = _v2_launches()
     k1_k3 = _train_launches()
+    bodies = _mma_bodies(["blocksparse_v2_fwd"])
     layout = ssa.get_layout(S)
     row = {"phase": "sparse_self_attention",
            "entry": "SparseSelfAttention(sparsity_config_from_dict("
@@ -3056,7 +3115,7 @@ def sparse_self_attention_phase(smi):
            "ms_per_fwd_bwd": wall / V2_ITERS * 1e3,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches, "k1_k3_launches": k1_k3,
-           "nvidia_smi": smi}
+           "launches_by_body": bodies, "nvidia_smi": smi}
     finite = bool(torch.isfinite(o).all()) and all(
         t.grad is not None and bool(torch.isfinite(t.grad).all())
         for t in qkv)
@@ -3067,6 +3126,7 @@ def sparse_self_attention_phase(smi):
     if any(n != V2_ITERS for n in launches.values()) or any(k1_k3.values()):
         raise AssertionError(f"want {V2_ITERS} launches of each of K8-K10 "
                              f"and none of K1-K3: {row}")
+    _check_mma_bodies(row["phase"], bodies)
     del qkv, g, o
 
     # the kernel path against the plain path: 2 heads, fp32
@@ -3565,7 +3625,10 @@ def legacy_sparse_timing_phase(smi):
             continue
         # the hybrid's residue on K8-K10 without a mask tile, and the merge
         rp = v2.RowRunPlan(hp.residual, fb, None, per_coord=False)
+        v2.reset_launches()
         o_r, lse_r = v2.blocksparse_v2_fwd(q, k, v, None, None, rp, scale)
+        _check_mma_bodies("legacy_sparse_timing",
+                          _mma_bodies(["blocksparse_v2_fwd"]))
         o_b, lse_b, lse_g = banded.banded_fwd_impl(q, k, v, None, bp, scale)
         merge_ms = time_ms(lambda: hybrid.merge(o_b, lse_b, lse_g, o_r,
                                                 lse_r), SPARSE_TIMED_CALLS,
@@ -3591,10 +3654,13 @@ def legacy_sparse_timing_phase(smi):
                  "library_ms": lib["fwd" if name.endswith("fwd")
                                    else "bwd"],
                  "replaces": NOMASK_REPLACES[name],
+                 "fma_body_ms": FMA_BODY_MS.get(
+                     ("legacy_sparse_timing", name, "bb residue")),
                  **_bounds(res_blocks * B * dots * 2 * fb * fb * D,
                            b_in + walk, b_out, bytes_per_s, flops_per_s)}
             emit({"phase": "legacy_sparse_timing", "kernel": name,
                   "arity": "no mask tile", "layout": "bb residue",
+                  "body": kernel_body(name),
                   "shape": dict(m, dtype="bf16"),
                   "residual_blocks": res_blocks, "kernel_ms": t["ms"], **t,
                   "library": "scaled_dot_product_attention with the whole "
@@ -4248,17 +4314,20 @@ def v1_plain_outputs(q, k, v, do, key_mask, am, plan, scale, plain=None):
 
 
 def check_v1_kernels(name, plan, args, key_mask, am, flush=None,
-                     far_row=False, extra=None):
+                     far_row=False, extra=None, rounding_control=False):
     """K14, K15 and K16 against their plain versions on the same inputs
     (K15 and K16 get the plain forward's lse and delta), under TRAIN_TOL;
     lse within LSE_ATOL; an empty block row's lse exactly NEG_INF in
-    both. The controls, each of which must fail the same check on every
-    output (K15 and K16 fed the control forward's lse and delta): the
-    plain versions with the attention mask left out (where there is one),
-    else with the key mask left out, else on fp32 copies of the inputs
-    (no rounding of p and ds); with ``far_row`` also with the threshold
-    set to the row-run kernels' -1e29. With ``flush`` each plain call is
-    timed once (:func:`timed_once`). Returns the row."""
+    both; K14 on the body its dtype runs ("body"). The controls, each of
+    which must fail the same check on every output (K15 and K16 fed the
+    control forward's lse and delta): the plain versions with the
+    attention mask left out (where there is one), else with the key mask
+    left out, else on fp32 copies of the inputs (no rounding of p and
+    ds); with ``far_row`` also with the threshold set to the row-run
+    kernels' -1e29. With ``rounding_control`` also the plain forward on
+    fp32 copies (p not rounded to bf16) must fail it on o. With ``flush``
+    each plain call is timed once (:func:`timed_once`). Returns the
+    row."""
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
     q, k, v, do = args
@@ -4280,10 +4349,13 @@ def check_v1_kernels(name, plan, args, key_mask, am, flush=None,
     dk, dv = bs.bs_dkv(*bwd)
     torch.cuda.synchronize()
     arity = bs.v1_arity(key_mask, am)
-    tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+    dtype = "fp32" if q.dtype == torch.float32 else "bf16"
+    tol = TRAIN_TOL[dtype]
+    body = sorted(bs.bs_fwd.bodies)
     empty = [i for i, c in enumerate(np.diff(plan.rows[0]))
              if c == 1 and plan.rows[2][plan.rows[0][i]] == 0]
     row = {"phase": "v1_kernel_check", "case": name, "dtype": str(q.dtype),
+           "body": body[0] if len(body) == 1 else body,
            "shape": list(q.shape), "block": plan.block,
            "walked_tiles": plan.tiles_walked, "arity": arity,
            "arities": _v1_arities(), "empty_block_rows": len(empty),
@@ -4293,6 +4365,7 @@ def check_v1_kernels(name, plan, args, key_mask, am, flush=None,
         row["plain_ms"] = plain_ms
     row.update(extra or {})
     ok = row["arities"] == {n: {arity: 1} for n in V1_NAMES}
+    ok &= body == [kernel_body("bs_fwd", dtype)]
     for key, out in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
         ratio, rel_rms, err, good = compare(out, refs[key], **tol)
         row[f"{key}_max_abs_err"] = err
@@ -4320,6 +4393,15 @@ def check_v1_kernels(name, plan, args, key_mask, am, flush=None,
     if far_row:
         controls.append(("the threshold at -1e29", args, key_mask, am,
                          _attrs(bs, VALID_THRESH=-1e29)))
+    if rounding_control:
+        o_r, _ = bs.bs_fwd_plain(*[t.float() for t in args[:3]], key_mask,
+                                 am, plan, scale)
+        ratio, rel_rms, _, good = compare(o_r.to(q.dtype), refs["o"], **tol)
+        row["rounding_control"] = {
+            "control": "the plain forward on fp32 inputs: p not rounded "
+                       "to bf16", "o_worst_ratio": ratio,
+            "o_rel_rms": rel_rms, "o_fails": not good}
+        ok &= not good
     row["controls"] = {}
     for label, c_args, c_key, c_am, ctx in controls:
         with ctx:
@@ -4378,7 +4460,8 @@ def v1_kernel_check_phase():
     kpm = bert_key_mask(rng, B, S, SPARSE_MIN_LEN, pad=NEG_INF)
     am = _to_additive(v2_mask(rng, S), "mul")
     rows = {"a": check_v1_kernels("bert_large_s2048_fixed_am_kpm", plan,
-                                  main, kpm, am, flush=flush),
+                                  main, kpm, am, flush=flush,
+                                  rounding_control=True),
             "b": check_v1_kernels("bert_large_s2048_fixed_kpm", plan, main,
                                   kpm, None, flush=flush)}
     del main, kpm, am
@@ -4462,7 +4545,9 @@ def v1_kernel_timing_phase(smi, check_rows):
         B, H, S, D = q.shape
         scale = 1.0 / float(np.sqrt(D))
         plan = bs.TriplePlan(layout, blk)
+        bs.reset_launches()
         o, lse = bs.bs_fwd(q, k, v, key, amask, plan, scale)
+        _check_mma_bodies("v1_kernel_timing", _mma_bodies(["bs_fwd"]))
         delta = (do.float() * o.float()).sum(-1)
         bwd = (q, k, v, do, lse, delta, key, amask, plan, scale)
         rp = v2.RowRunPlan(layout, blk, None, per_coord=amask is not None)
@@ -4512,10 +4597,13 @@ def v1_kernel_timing_phase(smi, check_rows):
                  "library_ms": lib["fwd" if name == "bs_fwd" else "bwd"],
                  "row_run_ms": time_ms(row_run, SPARSE_TIMED_CALLS, flush),
                  "replaces": V1_REPLACES[name],
+                 "fma_body_ms": FMA_BODY_MS.get(
+                     ("v1_kernel_timing", name, case)),
                  **_bounds(tiles_fine * B * dots * 2 * blk * blk * D,
                            b_in, b_out, bytes_per_s, flops_per_s)}
             emit({"phase": "v1_kernel_timing", "kernel": name, "case": case,
                   "arity": bs.v1_arity(key, amask), "block": blk,
+                  "body": kernel_body(name),
                   "shape": [B, H, S, D], "dtype": "bf16",
                   "walked_tiles": plan.tiles_walked, "union_tiles": union,
                   "kernel_ms": t["ms"], **t,
@@ -4590,7 +4678,7 @@ def v1_entry_point_phase(smi, legacy_ms, dense_s8k):
     def check_launches(row, arity):
         got, arities = _all_launches(), _v1_arities()
         row.update(launches={n: got[n] for n in V1_NAMES},
-                   arities=arities,
+                   arities=arities, launches_by_body=_mma_bodies(["bs_fwd"]),
                    other_attention_launches={
                        n: c for n, c in got.items() if n not in V1_NAMES})
         emit(row)
@@ -4599,6 +4687,7 @@ def v1_entry_point_phase(smi, legacy_ms, dense_s8k):
                 not row["finite"]:
             raise AssertionError(f"want {V2_ITERS} launches of each of "
                                  f"K14-K16 in {arity!r} and no other: {row}")
+        _check_mma_bodies(row["phase"], row["launches_by_body"])
         return row["launches"]
 
     launches = {}
@@ -4683,7 +4772,7 @@ def v1_entry_point_phase(smi, legacy_ms, dense_s8k):
 
 V1_ROUTE = Route(dict.fromkeys(V1_NAMES, 1), _plain_triples, "_v1",
                  "K14-K16 (v1, key-mask arity)",
-                 ("bs_fwd_kernel", "bs_dq_kernel", "bs_dkv_kernel"),
+                 ("bs_fwd_", "bs_dq_kernel", "bs_dkv_kernel"),
                  planned="v1")
 
 
@@ -4914,7 +5003,7 @@ def main() -> int:
     for name in V2_NAMES:
         t = v2_timing[name]
         kernels.append(dict(
-            name=name, route="cuda",
+            name=name, route="cuda", body=kernel_body(name),
             source="deepspeed_tpu_torch/csrc/blocksparse_v2.cu",
             replaces=t["replaces"], launches=v2_launches[name],
             launches_by_path={
@@ -4931,7 +5020,7 @@ def main() -> int:
     for name in BANDED_NAMES:
         t = legacy_timing[name]
         kernels.append(dict(
-            name=name, route="cuda",
+            name=name, route="cuda", body=kernel_body(name),
             source="deepspeed_tpu_torch/csrc/banded.cu",
             replaces=t["replaces"], launches=legacy_bert_launches[name],
             launches_by_path={
@@ -4952,7 +5041,7 @@ def main() -> int:
     for name in V2_NAMES:
         t = legacy_timing[f"{name}_nomask"]
         kernels.append(dict(
-            name=f"{name}_nomask", route="cuda",
+            name=f"{name}_nomask", route="cuda", body=kernel_body(name),
             source="deepspeed_tpu_torch/csrc/blocksparse_v2.cu",
             replaces=t["replaces"], launches=entry_launches["bb"][name],
             launches_by_path={
@@ -5004,6 +5093,7 @@ def main() -> int:
                 for k in (*timing_keys, "row_run_ms")}}
             kernels.append(dict(
                 name=f"{name}_{arity.replace(' ', '_')}", route="cuda",
+                body=kernel_body(name),
                 source="deepspeed_tpu_torch/csrc/blocksparse.cu",
                 replaces=f"{t['replaces']}, arity {arity!r}",
                 launches=sum(p[name] for p in paths.values()),

@@ -34,9 +34,17 @@
 // What bounds it on an H100: operations. At the main path's shape (B 8,
 // H 16, S 2048, D 64, the fixed per-head layouts of ds_config_sparse.json
 // at block 16) a walked 16 x 16 tile does 2-4 products of 16 x 16 x 64
-// over 2 x 16 x 64 staged values and 256 mask values. This first version
-// is the simple design of the row-run kernels (blocksparse_v2.cu, over
-// flash_tiles.cuh): fp32 FMAs on the CUDA cores, no tensor cores. A CTA
+// over 2 x 16 x 64 staged values and 256 mask values. K14 in bf16 runs
+// on the tensor cores, on K1's forward body (mma_fwd.cuh: mma.sync
+// m16n8k16, Q, the scores and O in registers, K and V staged as bf16 by
+// cp.async into a ring of chunks) over the block row's real triples (an
+// empty row's dummy is not walked: o = 0, lse = NEG_INF), each score
+// plus its cell of the (S, S) mask read in place per 8-key fragment (the
+// mask sits in L2), and TripleRule (-1e28; lse = m where l == 0). A CTA
+// owns R = min(blk, 64) rows of a block row. The rest (K14 in fp32, K15
+// and K16) is the simple design of the row-run kernels (blocksparse_v2.cu,
+// over flash_tiles.cuh): fp32 FMAs on the CUDA cores, no tensor cores
+// (TF32 would fail the fp32 checks). A CTA
 // of 128 threads owns R = min(blk, 32) rows of a block row (K14, K15) or
 // column (K16) and walks its triples in a loop, which takes the place of
 // JAX's sequential grid axis and its scratch reset on tfirst and flush on
@@ -44,8 +52,8 @@
 // chunks of R into shared memory as fp32, reads each mask cell straight
 // from global memory once per CTA, and keeps the softmax state and the
 // accumulators in shared memory. Every CTA stores its rows, so empty rows
-// and columns write their zeros. Later work: mma/wgmma, cp.async/TMA
-// staging.
+// and columns write their zeros. Later work: the backward on the tensor
+// cores, wgmma, TMA staging.
 //
 // Built by deepspeed_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -55,10 +63,12 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
+#include "mma_fwd.cuh"
 
 namespace {
 
-constexpr float kValidThresh = -1e28f;  // blocksparse.VALID_THRESH
+// blocksparse.VALID_THRESH (TripleRule's in the tensor-core body)
+constexpr float kTripleThresh = -1e28f;
 
 struct Shape {
   int H, S, D, blk;  // heads, sequence length, head dim, block
@@ -73,7 +83,8 @@ struct Walk {
 };
 
 // ------------------------------------------------------------------ K14
-// grid (S / R, B*H); R = min(blk, 32) q rows per CTA.
+// fp32 (the CUDA-core body): grid (S / R, B*H); R = min(blk, 32) q rows
+// per CTA.
 template <typename T, bool HAS_AM, bool HAS_KPM>
 __global__ void __launch_bounds__(kThreads)
 bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -143,7 +154,7 @@ bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < kMaxBlk / 32; ++u) {
         const int c = lane + 32 * u;
         if (c < blk) {
-          const float p = sv[u] > kValidThresh ? expf(sv[u] - m_new) : 0.f;
+          const float p = sv[u] > kTripleThresh ? expf(sv[u] - m_new) : 0.f;
           sum += p;
           ss[r * blk + c] = round_to<T>(p);
         }
@@ -176,6 +187,49 @@ bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = l_s[r];
     lse[(size_t)bh * sh.S + r0 + r] = m_s[r] + logf(l == 0.f ? 1.f : l);
   }
+}
+
+// K14 in bf16 (the tensor-core body, mma_fwd.cuh): grid (S / R, B*H), R =
+// min(blk, 64) q rows of one block row per CTA, 16 per warp; W = blk.
+struct TripleWalk {
+  const int32_t* partner;  // the block row's partner blocks
+  const float* am;         // (S, S) at the CTA's first row, or null
+  int count, blk, S;       // real triples, block, mask row stride
+  __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int2 tile(int t) const {
+    return make_int2(partner[t] * blk, 0);
+  }
+  __device__ __forceinline__ const float* mask(int t) const {
+    return am + partner[t] * blk;
+  }
+  __device__ __forceinline__ int mask_ld() const { return S; }
+};
+
+template <int W, int DMAX, bool KPM, bool AM>
+__global__ void __launch_bounds__(2 * kMmaMaxRows,
+                                  mma_fwd_min_ctas(W, DMAX, AM))
+bs_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const float* __restrict__ kpm,
+                  const float* __restrict__ am, bf16* __restrict__ o,
+                  float* __restrict__ lse, Walk w, Shape sh) {
+  const int R = blockDim.x / 2;
+  const int D = sh.D;
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H;
+  const int r0 = blockIdx.x * R;
+  const int item = (bh % sh.H) * (sh.S / W) + r0 / W;
+  const int begin = w.offs[item];
+  // an empty block row holds one dummy triple, a walked one none
+  const int n = w.valid[begin] ? w.offs[item + 1] - begin : 0;
+  const TripleWalk walk{w.partner + begin,
+                        AM ? am + (size_t)r0 * sh.S : nullptr, n, W, sh.S};
+  const size_t row0 = (size_t)bh * sh.S + r0;
+  const size_t kv0 = (size_t)bh * sh.S * D;
+  const FwdRows rows{q + row0 * D, k + kv0, v + kv0,
+                     KPM ? kpm + (size_t)b * sh.S : nullptr, o + row0 * D,
+                     lse + row0, r0, D, bh, sh.sm_scale};
+  mma_fwd_body<W, DMAX, KPM, false, AM, TripleRule>(rows, walk, NoBand{},
+                                                    Dropout{});
 }
 
 // ------------------------------------------------------------------ K15
@@ -235,7 +289,7 @@ bs_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s = ps[e] * sh.sm_scale;
         if (HAS_KPM) s += kpm_b[k0 + c0 + c];
         if (HAS_AM) s += am[(size_t)(r0 + r) * sh.S + k0 + c0 + c];
-        const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
+        const float p = s > kTripleThresh ? expf(s - lse_s[r]) : 0.f;
         ps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
       }
       __syncthreads();
@@ -312,7 +366,7 @@ bs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s = ps[e] * sh.sm_scale;
         if (HAS_KPM) s += km_s[c];
         if (HAS_AM) s += am[(size_t)(q0 + c0 + r) * sh.S + kr0 + c];
-        const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
+        const float p = s > kTripleThresh ? expf(s - lse_s[r]) : 0.f;
         ps[e] = round_to<T>(p);
         dps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
       }
@@ -365,6 +419,41 @@ auto pick(int dtype, bool am, bool kpm)
               : (kpm ? &Kern<__nv_bfloat16, false, true>::run
                      : &Kern<__nv_bfloat16, false, false>::run);
   return nullptr;
+}
+
+template <int W, int DMAX, bool KPM, bool AM>
+cudaError_t run_fwd_mma(dim3 grid, int threads, size_t smem, cudaStream_t s,
+                        const void* q, const void* k, const void* v,
+                        const float* kpm, const float* am, void* o,
+                        float* lse, Walk w, Shape sh) {
+  return launch_rows(bs_fwd_mma_kernel<W, DMAX, KPM, AM>, grid, threads,
+                     smem, s, static_cast<const bf16*>(q),
+                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                     kpm, am, static_cast<bf16*>(o), lse, w, sh);
+}
+
+using FwdMma = decltype(&run_fwd_mma<16, 64, false, false>);
+
+template <int W, int DMAX>
+FwdMma pick_fwd_mma(bool kpm, bool am) {
+  return kpm ? (am ? run_fwd_mma<W, DMAX, true, true>
+                   : run_fwd_mma<W, DMAX, true, false>)
+             : (am ? run_fwd_mma<W, DMAX, false, true>
+                   : run_fwd_mma<W, DMAX, false, false>);
+}
+
+// the tensor-core instantiation of a block, head dim and the masks given
+// (the bad_shape checks passed: blk is 16, 32, 64 or 128, D <= 128)
+FwdMma pick_fwd_mma_blk(int blk, int D, bool kpm, bool am) {
+  if (D <= 64)
+    return blk == 16   ? pick_fwd_mma<16, 64>(kpm, am)
+           : blk == 32 ? pick_fwd_mma<32, 64>(kpm, am)
+           : blk == 64 ? pick_fwd_mma<64, 64>(kpm, am)
+                       : pick_fwd_mma<128, 64>(kpm, am);
+  return blk == 16   ? pick_fwd_mma<16, 128>(kpm, am)
+         : blk == 32 ? pick_fwd_mma<32, 128>(kpm, am)
+         : blk == 64 ? pick_fwd_mma<64, 128>(kpm, am)
+                     : pick_fwd_mma<128, 128>(kpm, am);
 }
 
 template <typename T, bool AM, bool KPM>
@@ -422,7 +511,10 @@ Walk walk_of(const void* offs, const void* partner, const void* valid) {
 // null for none. offs (items + 1), partner, valid: int32 triples of the
 // row walk (bs_fwd, bs_dq) or the column walk (bs_dkv). Each entry point
 // returns the CUDA error of its launch (0 on success); it launches on
-// `stream` and does not synchronise.
+// `stream` and does not synchronise. bs_fwd runs bf16 on the tensor-core
+// body (q, k, v and o 16-byte aligned, kpm and am 8: else
+// cudaErrorInvalidValue) and fp32 on the CUDA-core body; the backward
+// runs the CUDA-core bodies in both.
 extern "C" int bs_fwd(const void* q, const void* k, const void* v,
                       const void* kpm, const void* am, void* o, void* lse,
                       const void* offs, const void* partner,
@@ -431,15 +523,28 @@ extern "C" int bs_fwd(const void* q, const void* k, const void* v,
                       void* stream) {
   if (bad_shape(bh, heads, seq, head_dim, block))
     return (int)cudaErrorInvalidValue;
-  auto run = pick<Fwd>(dtype, am != nullptr, kpm != nullptr);
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  const int R = rows_of(block);
-  return (int)run(dim3(seq / R, bh), fwd_smem(R, head_dim, block),
-                  static_cast<cudaStream_t>(stream), q, k, v,
-                  static_cast<const float*>(kpm),
-                  static_cast<const float*>(am), o,
-                  static_cast<float*>(lse), walk_of(offs, partner, valid),
-                  Shape{heads, seq, head_dim, block, sm_scale});
+  const Shape sh{heads, seq, head_dim, block, sm_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* km = static_cast<const float*>(kpm);
+  const float* mk = static_cast<const float*>(am);
+  const Walk w = walk_of(offs, partner, valid);
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    if (fwd_misaligned(q, k, v, o, kpm, am))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(block);
+    return (int)pick_fwd_mma_blk(block, head_dim, kpm != nullptr,
+                                 am != nullptr)(
+        dim3(seq / R, bh), 2 * R, mma_fwd_smem(R, block, head_dim), s, q, k,
+        v, km, mk, o, static_cast<float*>(lse), w, sh);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(block);      // fp32: the CUDA-core body
+  auto run = am != nullptr ? (kpm != nullptr ? &Fwd<float, true, true>::run
+                                             : &Fwd<float, true, false>::run)
+                           : (kpm != nullptr ? &Fwd<float, false, true>::run
+                                             : &Fwd<float, false, false>::run);
+  return (int)run(dim3(seq / R, bh), fwd_smem(R, head_dim, block), s, q, k,
+                  v, km, mk, o, static_cast<float*>(lse), w, sh);
 }
 
 extern "C" int bs_dq(const void* q, const void* k, const void* v,

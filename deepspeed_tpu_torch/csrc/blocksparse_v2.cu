@@ -29,16 +29,26 @@
 // What bounds it on an H100: operations. At the main path's shape (B 8,
 // H 16, S 2048, D 64, the fixed per-head layouts of ds_config_sparse.json
 // at block 16) a walked 16 x 16 tile does 2-4 products of 16 x 16 x 64
-// over 2 x 16 x 64 staged values and 256 mask values. This first version
-// is the simple design of masked_flash.cu (flash_tiles.cuh): fp32 FMAs
-// on the CUDA cores, no tensor cores. A CTA of 128 threads owns R =
+// over 2 x 16 x 64 staged values and 256 mask values. K8 in bf16 runs
+// on the tensor cores, on K1's forward body (mma_fwd.cuh: mma.sync
+// m16n8k16, Q, the scores and O in registers, K and V staged as bf16 by
+// cp.async into a ring of chunks) over the CSR walk of a block row, its
+// tiles all FULL, with the walked item's mask tile added to each score
+// (read per 8-key fragment straight from global memory, where the few
+// distinct tiles sit in L2) and RowRunRule (-1e29; lse = m where l ==
+// 0). A CTA owns R = min(blk, 64) rows of a block row, so at walk 128
+// two CTAs share one block row and its tiles (tr0 = r0 % blk). The rest
+// (K8 in fp32, K9 and K10) is the first, simple design of masked_flash.cu
+// (flash_tiles.cuh): fp32 FMAs on the CUDA cores, no tensor cores (TF32
+// would fail the fp32 checks). A CTA of 128 threads owns R =
 // min(blk, 32) rows of a walked block row (K8, K9) or column (K10); it
 // stages its own rows once and each walked item's partner rows in chunks
 // of R into shared memory as fp32, reads the mask tile's cells straight
 // from global memory (each once per CTA), and keeps the softmax state and
 // the accumulators in shared memory. The Pallas design's double-buffered
 // DMA of transposed (D, block) tiles is a Mosaic lane rule and is not
-// carried over. Later work: mma/wgmma, cp.async/TMA staging.
+// carried over. Later work: the backward on the tensor cores, wgmma,
+// TMA staging.
 //
 // Built by deepspeed_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -48,10 +58,12 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
+#include "mma_fwd.cuh"
 
 namespace {
 
-constexpr float kValidThresh = -1e29f;  // blocksparse_v2.VALID_THRESH
+// blocksparse_v2.VALID_THRESH (RowRunRule's in the tensor-core body)
+constexpr float kRowRunThresh = -1e29f;
 
 struct Shape {
   int H, S, D, blk;  // heads, sequence length, head dim, walk block
@@ -59,7 +71,8 @@ struct Shape {
 };
 
 // ------------------------------------------------------------------- K8
-// grid (S / R, B*H); R = min(blk, 32) q rows per CTA.
+// fp32 (the CUDA-core body): grid (S / R, B*H); R = min(blk, 32) q rows
+// per CTA.
 template <typename T, bool HAS_AM>
 __global__ void __launch_bounds__(kThreads)
 v2_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -136,7 +149,7 @@ v2_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < kMaxBlk / 32; ++u) {
         const int c = lane + 32 * u;
         if (c < blk) {
-          const float p = sv[u] > kValidThresh ? expf(sv[u] - m_new) : 0.f;
+          const float p = sv[u] > kRowRunThresh ? expf(sv[u] - m_new) : 0.f;
           sum += p;
           ss[r * blk + c] = round_to<T>(p);
         }
@@ -169,6 +182,51 @@ v2_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = l_s[r];
     lse[(size_t)bh * sh.S + r0 + r] = m_s[r] + logf(l == 0.f ? 1.f : l);
   }
+}
+
+// K8 in bf16 (the tensor-core body, mma_fwd.cuh): grid (S / R, B*H), R =
+// min(blk, 64) q rows of one block row per CTA, 16 per warp; W = blk.
+struct RowRunWalk {
+  const int32_t* cols;    // the block row's CSR columns and mask uids
+  const int32_t* uids;
+  const float* tiles;     // (U, blk, blk), or null (AM = false)
+  int count, blk, tr0;    // tr0: the CTA's first row within a tile
+  __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int2 tile(int t) const {
+    return make_int2(cols[t] * blk, 0);
+  }
+  __device__ __forceinline__ const float* mask(int t) const {
+    return tiles + ((size_t)uids[t] * blk + tr0) * blk;
+  }
+  __device__ __forceinline__ int mask_ld() const { return blk; }
+};
+
+template <int W, int DMAX, bool KPM, bool AM>
+__global__ void __launch_bounds__(2 * kMmaMaxRows,
+                                  mma_fwd_min_ctas(W, DMAX, AM))
+v2_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const float* __restrict__ kpm,
+                  const float* __restrict__ tiles, bf16* __restrict__ o,
+                  float* __restrict__ lse, const int32_t* __restrict__ offs,
+                  const int32_t* __restrict__ cnts,
+                  const int32_t* __restrict__ cols,
+                  const int32_t* __restrict__ uids, Shape sh) {
+  const int R = blockDim.x / 2;
+  const int D = sh.D;
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H;
+  const int r0 = blockIdx.x * R;
+  const int mrow = (bh % sh.H) * (sh.S / W) + r0 / W;
+  const int base = offs[mrow];
+  const RowRunWalk walk{cols + base, uids + base, tiles, cnts[mrow], W,
+                        r0 % W};
+  const size_t row0 = (size_t)bh * sh.S + r0;
+  const size_t kv0 = (size_t)bh * sh.S * D;
+  const FwdRows rows{q + row0 * D, k + kv0, v + kv0,
+                     KPM ? kpm + (size_t)b * sh.S : nullptr, o + row0 * D,
+                     lse + row0, r0, D, bh, sh.sm_scale};
+  mma_fwd_body<W, DMAX, KPM, false, AM, RowRunRule>(rows, walk, NoBand{},
+                                                    Dropout{});
 }
 
 // ------------------------------------------------------------------- K9
@@ -236,7 +294,7 @@ v2_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s = ps[e] * sh.sm_scale;
         if (kpm_b) s += kpm_b[k0 + c0 + c];
         if (HAS_AM) s += tile[r * blk + c0 + c];
-        const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
+        const float p = s > kRowRunThresh ? expf(s - lse_s[r]) : 0.f;
         ps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
       }
       __syncthreads();
@@ -321,7 +379,7 @@ v2_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s = ps[e] * sh.sm_scale;
         if (kpm) s += km_s[c];
         if (HAS_AM) s += tile[(size_t)(c0 + r) * blk + c];
-        const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
+        const float p = s > kRowRunThresh ? expf(s - lse_s[r]) : 0.f;
         ps[e] = round_to<T>(p);
         dps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
       }
@@ -358,16 +416,54 @@ bool bad_shape(int bh, int H, int S, int D, int blk) {
          S % blk != 0;
 }
 
-template <typename T, bool HAS_AM>
+template <bool HAS_AM>
 cudaError_t run_fwd(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                     const void* k, const void* v, const float* kpm,
                     const float* tiles, void* o, float* lse,
                     const int32_t* of, const int32_t* cn, const int32_t* co,
                     const int32_t* ui, Shape sh) {
-  return launch(v2_fwd_kernel<T, HAS_AM>, grid, smem, s,
-                static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v), kpm,
-                tiles, static_cast<T*>(o), lse, of, cn, co, ui, sh);
+  return launch(v2_fwd_kernel<float, HAS_AM>, grid, smem, s,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), kpm, tiles,
+                static_cast<float*>(o), lse, of, cn, co, ui, sh);
+}
+
+template <int W, int DMAX, bool KPM, bool AM>
+cudaError_t run_fwd_mma(dim3 grid, int threads, size_t smem, cudaStream_t s,
+                        const void* q, const void* k, const void* v,
+                        const float* kpm, const float* tiles, void* o,
+                        float* lse, const int32_t* of, const int32_t* cn,
+                        const int32_t* co, const int32_t* ui, Shape sh) {
+  return launch_rows(v2_fwd_mma_kernel<W, DMAX, KPM, AM>, grid, threads,
+                     smem, s, static_cast<const bf16*>(q),
+                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                     kpm, tiles, static_cast<bf16*>(o), lse, of, cn, co, ui,
+                     sh);
+}
+
+using FwdMma = decltype(&run_fwd_mma<16, 64, false, false>);
+
+template <int W, int DMAX>
+FwdMma pick_fwd_mma(bool kpm, bool am) {
+  return kpm ? (am ? run_fwd_mma<W, DMAX, true, true>
+                   : run_fwd_mma<W, DMAX, true, false>)
+             : (am ? run_fwd_mma<W, DMAX, false, true>
+                   : run_fwd_mma<W, DMAX, false, false>);
+}
+
+// the tensor-core instantiation of a walk block, head dim, key mask and
+// mask tiles (the bad_shape checks passed: blk is 16, 32, 64 or 128, D
+// <= 128)
+FwdMma pick_fwd_mma_blk(int blk, int D, bool kpm, bool am) {
+  if (D <= 64)
+    return blk == 16   ? pick_fwd_mma<16, 64>(kpm, am)
+           : blk == 32 ? pick_fwd_mma<32, 64>(kpm, am)
+           : blk == 64 ? pick_fwd_mma<64, 64>(kpm, am)
+                       : pick_fwd_mma<128, 64>(kpm, am);
+  return blk == 16   ? pick_fwd_mma<16, 128>(kpm, am)
+         : blk == 32 ? pick_fwd_mma<32, 128>(kpm, am)
+         : blk == 64 ? pick_fwd_mma<64, 128>(kpm, am)
+                     : pick_fwd_mma<128, 128>(kpm, am);
 }
 
 template <typename T, bool HAS_AM>
@@ -406,7 +502,10 @@ cudaError_t run_dkv(dim3 grid, size_t smem, cudaStream_t s, const void* q,
 // null for none (then uids are not read).
 // offs, cnts, cols (rows for dkv), uids: int32 CSR (CSC) walk metadata.
 // Each entry point returns the CUDA error of its launch (0 on success);
-// it launches on `stream` and does not synchronise.
+// it launches on `stream` and does not synchronise. blocksparse_v2_fwd
+// runs bf16 on the tensor-core body (q, k, v and o 16-byte aligned, kpm
+// and tiles 8: else cudaErrorInvalidValue) and fp32 on the CUDA-core
+// body; the backward runs the CUDA-core bodies in both.
 extern "C" int blocksparse_v2_fwd(
     const void* q, const void* k, const void* v, const void* kpm,
     const void* tiles, void* o, void* lse, const void* offs,
@@ -416,22 +515,27 @@ extern "C" int blocksparse_v2_fwd(
   if (bad_shape(bh, heads, seq, head_dim, block))
     return (int)cudaErrorInvalidValue;
   const Shape sh{heads, seq, head_dim, block, sm_scale};
-  const int R = rows_of(block);
-  const dim3 grid(seq / R, bh);
-  const size_t smem = fwd_smem(R, head_dim, block);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* km = static_cast<const float*>(kpm);
+  const float* tl = static_cast<const float*>(tiles);
+  const int32_t* of = static_cast<const int32_t*>(offs);
+  const int32_t* cn = static_cast<const int32_t*>(cnts);
+  const int32_t* co = static_cast<const int32_t*>(cols);
+  const int32_t* ui = static_cast<const int32_t*>(uids);
   const bool am = tiles != nullptr;
-  auto run = dtype == 0   ? (am ? run_fwd<float, true> : run_fwd<float, false>)
-             : dtype == 1 ? (am ? run_fwd<__nv_bfloat16, true>
-                                : run_fwd<__nv_bfloat16, false>)
-                          : nullptr;
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)run(grid, smem, static_cast<cudaStream_t>(stream), q, k, v,
-                  static_cast<const float*>(kpm),
-                  static_cast<const float*>(tiles), o,
-                  static_cast<float*>(lse), static_cast<const int32_t*>(offs),
-                  static_cast<const int32_t*>(cnts),
-                  static_cast<const int32_t*>(cols),
-                  static_cast<const int32_t*>(uids), sh);
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    if (fwd_misaligned(q, k, v, o, kpm, tiles))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(block);
+    return (int)pick_fwd_mma_blk(block, head_dim, kpm != nullptr, am)(
+        dim3(seq / R, bh), 2 * R, mma_fwd_smem(R, block, head_dim), s, q, k,
+        v, km, tl, o, static_cast<float*>(lse), of, cn, co, ui, sh);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(block);      // fp32: the CUDA-core body
+  return (int)(am ? run_fwd<true> : run_fwd<false>)(
+      dim3(seq / R, bh), fwd_smem(R, head_dim, block), s, q, k, v, km, tl, o,
+      static_cast<float*>(lse), of, cn, co, ui, sh);
 }
 
 extern "C" int blocksparse_v2_dq(

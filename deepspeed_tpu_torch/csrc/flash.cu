@@ -213,7 +213,8 @@ struct BlockWalk {
 };
 
 template <int W, int DMAX, bool KPM>
-__global__ void __launch_bounds__(2 * kMmaMaxRows, 3)
+__global__ void __launch_bounds__(2 * kMmaMaxRows,
+                                  mma_fwd_min_ctas(W, DMAX, false))
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const float* __restrict__ kpm, bf16* __restrict__ o,
@@ -231,7 +232,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const FwdRows rows{q + row0 * D, k + kvr * g.Sk * D, v + kvr * g.Sk * D,
                      KPM ? kpm + (size_t)b * g.Sk : nullptr, o + row0 * D,
                      lse + row0, r0, D, bh, g.sm_scale};
-  mma_fwd_body<W, DMAX, KPM, false, false>(rows, walk, NoBand{}, dr);
+  mma_fwd_body<W, DMAX, KPM, false, false, FlashRule>(rows, walk, NoBand{},
+                                                     dr);
 }
 
 // ------------------------------------------------------------------- K6

@@ -287,7 +287,8 @@ struct CsrWalk {
 };
 
 template <int W, int DMAX, bool KPM, bool BAND>
-__global__ void __launch_bounds__(2 * kMmaMaxRows, 3)
+__global__ void __launch_bounds__(2 * kMmaMaxRows,
+                                  mma_fwd_min_ctas(W, DMAX, false))
 mf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const float* __restrict__ kpm,
                   bf16* __restrict__ o, float* __restrict__ lse,
@@ -312,9 +313,11 @@ mf_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      KPM ? kpm + (size_t)b * sh.Sk : nullptr, o + row0 * D,
                      lse + row0, r0, D, bh, sh.sm_scale};
   if constexpr (BAND)
-    mma_fwd_body<W, DMAX, KPM, true, true>(rows, walk, bd, dr);
+    mma_fwd_body<W, DMAX, KPM, true, false, MaskedFlashRule>(rows, walk, bd,
+                                                          dr);
   else
-    mma_fwd_body<W, DMAX, KPM, false, true>(rows, walk, NoBand{}, dr);
+    mma_fwd_body<W, DMAX, KPM, false, false, MaskedFlashRule>(
+        rows, walk, NoBand{}, dr);
 }
 
 // ------------------------------------------------------------------- K2

@@ -1,9 +1,11 @@
-// The bf16 forward body of K1 (masked_flash.cu) and K5 (flash.cu) on the
-// tensor cores: one online-softmax walk over key tiles of W keys for a
-// CTA of 16 query rows per warp, on mma_tiles.cuh's fragments.
+// The bf16 forward body of K1 (masked_flash.cu), K5 (flash.cu), K8
+// (blocksparse_v2.cu) and K14 (blocksparse.cu) on the tensor cores: one
+// online-softmax walk over key tiles of W keys for a CTA of 16 query rows
+// per warp, on mma_tiles.cuh's fragments.
 //
 // A CTA owns R = 16 * warps query rows of one walk (one block row of
-// K1's mask, one query block of K5), R = min(block rows, 64). Each warp
+// K1's mask, one query block of K5, one block row of K8's or K14's
+// layout), R = min(block rows, 64). Each warp
 // keeps its 16 rows' Q fragments, the tile's scores (then P) and the O
 // accumulator in registers; the row max and sum run over the quad that
 // holds a fragment row. K and V stream through a ring of shared chunks
@@ -14,15 +16,19 @@
 // tile (the running max moves once per tile), then the V chunks (O =
 // O * alpha + P V, P rounded to bf16 first).
 //
-// The function is the CUDA-core bodies' (masked_flash.cu, flash.cu):
-// s = (q.k) * sm_scale, + kpm[key] in fp32, then the causal clip of a
-// CAUSAL tile and the band predicate of a BAND tile set NEG_INF; with
-// GUARD (K1) a cell at or below VALID_THRESH has p = 0 and m_safe = 0
-// while the running max is masked, and a row with no valid entry writes
-// o = 0 and lse = NEG_INF; without it (K5) p = exp(s - m_new) and lse =
-// m + log(l). l sums the unrounded, undropped p; dropout drops p after
-// it, keyed on (bh, q, k) from the fragment's coordinates; o = acc / l,
-// then scaled by 1/(1-rate).
+// The function is the CUDA-core bodies' (masked_flash.cu, flash.cu,
+// blocksparse_v2.cu, blocksparse.cu): s = (q.k) * sm_scale, + kpm[key],
+// then with AM + the walk's additive mask cell (K8's tile, K14's (S, S)
+// mask read in place), each rounded in fp32; then the causal clip of a
+// CAUSAL tile and the band predicate of a BAND tile set NEG_INF. The
+// kernel's Rule sets the rest: with a threshold (K1 -1e28, K8 -1e29, K14
+// -1e28) a cell at or below it has p = 0, else (K5) p = exp(s - m_new);
+// a row with l == 0 writes o = 0 and lse = NEG_INF (K1) or m + log(1) =
+// m (K5, K8, K14: NEG_INF too for a row that walks no tile). A running
+// max at or below the threshold leaves every p of its row 0, so K1's
+// m_safe changes no p and the body needs none. l sums the unrounded,
+// undropped p; dropout drops p after it, keyed on (bh, q, k) from the
+// fragment's coordinates; o = acc / l, then scaled by 1/(1-rate).
 //
 // The rounding of p. The plain versions sum q.k one term at a time in
 // fp32 (d = 0, 1, ...), and p rounds to bf16 from their scores: one
@@ -34,7 +40,8 @@
 // score that could hold the row's max, or whose p lies within that
 // distance of a bf16 rounding midpoint, is summed again in their order
 // from the staged Q and K rows (ordered_dot) and its p taken with their
-// expf. The others round p as theirs do.
+// expf. The others round p as theirs do. The additive mask's sum is one
+// more fp32 rounding on the way to p, which both bounds count.
 //
 // Skips, each leaving every output as the walk without it: a BAND tile
 // in which no cell of the CTA's rows is kept (no load, no state change),
@@ -61,6 +68,30 @@ constexpr int kMmaMaxRows = 64;         // query rows a CTA owns, at most
 // it for random signs. Each other fp32 rounding on the way to p (the
 // scale, the key mask, x - m) counts kSumErr of its value.
 constexpr float kSumErr = 4.f / 16777216.f;
+
+// The softmax rule of a kernel on this body: with kGuard, p = 0 for a
+// score at or below kValid; with kEmptyNegInf, a row with l == 0 writes
+// lse = NEG_INF, else m + log(1).
+struct MaskedFlashRule {                 // K1
+  static constexpr bool kGuard = true;
+  static constexpr float kValid = kValidThresh;
+  static constexpr bool kEmptyNegInf = true;
+};
+struct FlashRule {                       // K5
+  static constexpr bool kGuard = false;
+  static constexpr float kValid = 0.f;
+  static constexpr bool kEmptyNegInf = false;
+};
+struct RowRunRule {                      // K8
+  static constexpr bool kGuard = true;
+  static constexpr float kValid = -1e29f;  // blocksparse_v2.VALID_THRESH
+  static constexpr bool kEmptyNegInf = false;
+};
+struct TripleRule {                      // K14
+  static constexpr bool kGuard = true;
+  static constexpr float kValid = -1e28f;  // blocksparse.VALID_THRESH
+  static constexpr bool kEmptyNegInf = false;
+};
 
 // chunks in flight; the ring holds them beside a tile's K chunks, which
 // stay until its softmax (which may sum scores again from them) is done
@@ -91,6 +122,16 @@ struct FwdRows {
   float sm_scale;
 };
 
+// the second __launch_bounds__ argument of a forward kernel's CTAs of 2 *
+// kMmaMaxRows threads: 3 to an SM, at most 168 registers. At W 16 a CTA
+// is one warp, which the SM's registers bound: at 128 registers 16 fit,
+// at 130 (allocated as 136) 15, so without the mask (AM), where the body
+// sits at that edge, 4 (128 registers) keep the 16.
+__host__ __device__ constexpr int mma_fwd_min_ctas(int W, int DMAX,
+                                                   bool AM) {
+  return W == 16 && DMAX == 64 && !AM ? 4 : 3;
+}
+
 // the rows a CTA of the forward body owns for walk blocks of `rows`
 __host__ __device__ inline int mma_rows(int rows) {
   return rows < kMmaMaxRows ? rows : kMmaMaxRows;
@@ -104,14 +145,16 @@ inline size_t mma_fwd_smem(int R, int W, int D) {
 }
 
 // whether the body's loads would be misaligned: 16-byte rows (D % 8 ==
-// 0) need 16-byte aligned bases, the key mask's pairs 8-byte ones
+// 0) need 16-byte aligned bases, the key mask's and the additive mask's
+// pairs 8-byte ones
 inline bool fwd_misaligned(const void* q, const void* k, const void* v,
-                           const void* o, const void* kpm) {
+                           const void* o, const void* kpm,
+                           const void* am = nullptr) {
   auto off = [](const void* p, uintptr_t a) {
     return reinterpret_cast<uintptr_t>(p) % a != 0;
   };
   return off(q, 16) || off(k, 16) || off(v, 16) || off(o, 16) ||
-         (kpm != nullptr && off(kpm, 8));
+         (kpm != nullptr && off(kpm, 8)) || (am != nullptr && off(am, 8));
 }
 
 // sum_d q[d] k[d] over shared bf16 rows, one term at a time in the
@@ -138,10 +181,12 @@ __device__ __noinline__ float ordered_dot(const bf16* q, const bf16* k,
   return acc;
 }
 
-// Walk: n() tiles, tile(t) = (first key, kind bits). W: keys per tile
-// (16, 32, 64, 128); DMAX: 64 or 128, head dims up to it.
-template <int W, int DMAX, bool KPM, bool BAND, bool GUARD, typename Walk,
-          typename BandT>
+// Walk: n() tiles, tile(t) = (first key, kind bits); with AM, mask(t)
+// the tile's additive fp32 mask at the CTA's first row (row stride
+// mask_ld(), even, 8-byte aligned). W: keys per tile (16, 32, 64, 128);
+// DMAX: 64 or 128, head dims up to it; Rule: the kernel's softmax rule.
+template <int W, int DMAX, bool KPM, bool BAND, bool AM, typename Rule,
+          typename Walk, typename BandT>
 __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
                                              const Walk& walk,
                                              const BandT& bd,
@@ -242,6 +287,13 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
   for (int t = next_live(0); t < n; t = next_live(t + 1)) {
     const int2 tr = walk.tile(t);
     const int k0 = tr.x, kind = tr.y;
+    // AM: this lane's mask row (row g; row g + 8 lies 8 * mld past it)
+    const float* amr = nullptr;
+    int mld = 0;
+    if constexpr (AM) {
+      mld = walk.mask_ld();
+      amr = walk.mask(t) + (warp * 16 + g) * mld + 2 * tq;
+    }
     // BAND: bit j, whether the warp's rows keep a cell of keys 16j..16j+15
     // CAUSAL: the groups past the warp's last row hold no kept cell
     unsigned live = ~0u;
@@ -310,9 +362,21 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
 
     // the online softmax of the tile: this lane's rows wr0 + g (e < 2)
     // and wr0 + g + 8 (e >= 2), keys k0 + 8j + 2tq + (e & 1)
-    auto score = [&](float raw, float km) {
+    auto score = [&](float raw, float km, float am) {
       const float x = __fmul_rn(raw, a.sm_scale);
-      return KPM ? __fadd_rn(x, km) : x;
+      const float y = KPM ? __fadd_rn(x, km) : x;
+      return AM ? __fadd_rn(y, am) : y;
+    };
+    // AM: the mask's pairs at keys 8j + 2tq of rows g (.x) and g + 8
+    auto mask_pair = [&](int j) {
+      float4 am = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (AM) {
+        const float2 a0 = *reinterpret_cast<const float2*>(amr + 8 * j);
+        const float2 a1 =
+            *reinterpret_cast<const float2*>(amr + 8 * mld + 8 * j);
+        am = make_float4(a0.x, a0.y, a1.x, a1.y);
+      }
+      return am;
     };
     // score (j, e) summed in the plain versions' order, from the staged
     // Q row and K row, 8 values per shared load
@@ -321,9 +385,10 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
       const int kt = 8 * j + 2 * tq + (e & 1);      // the key in the tile
       const bf16* kr = (c == 0 ? kch[0] : kch[NC - 1]) + (kt - c * CH) * ld;
       const bf16* qr = qs + (warp * 16 + g + (e >> 1) * 8) * ld;
-      float km = 0.f;
+      float km = 0.f, am = 0.f;
       if constexpr (KPM) km = a.kpm[k0 + kt];
-      return score(ordered_dot(qr, kr, D), km);
+      if constexpr (AM) am = amr[(e >> 1) * 8 * mld + kt - 2 * tq];
+      return score(ordered_dot(qr, kr, D), km, am);
     };
     // s[j][e] = v for a (j, e) known only at run time, in registers
     auto put = [&](int idx, float v) {
@@ -342,14 +407,21 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       eps[r] = kSumErr * sqrtf((float)D) * bnd[r] * a.sm_scale;
+    // AM: the largest |mask| of a cell above the threshold, per row
+    float amx[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       float2 km = make_float2(0.f, 0.f);
       if constexpr (KPM)
         km = *reinterpret_cast<const float2*>(a.kpm + k0 + 8 * j + 2 * tq);
+      const float4 am = mask_pair(j);
+      const float av[4] = {am.x, am.y, am.z, am.w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[j][e] = score(s[j][e], (e & 1) ? km.y : km.x);
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = score(s[j][e], (e & 1) ? km.y : km.x, av[e]);
+        if (AM && s[j][e] > Rule::kValid)
+          amx[e >> 1] = fmaxf(amx[e >> 1], fabsf(av[e]));
+      }
     }
     if (kind & kKindCausal) {
       // query wr0 + g + 8r drops key k0 + 8j + 2tq + (e & 1) past it
@@ -375,14 +447,21 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
 #pragma unroll
     for (int i = 0; i < NT * 4; ++i)
       mx[(i & 3) >> 1] = fmaxf(mx[(i & 3) >> 1], s[i >> 2][i & 3]);
-    // the row's max: every score within 2 eps of the tensor cores' max
-    // is summed again (the others lie below the max in either order)
+    // the row's max: every score within 2 er of the tensor cores' max
+    // is summed again (the others lie below the max in either order); er
+    // is eps, with AM plus one rounding each of the mask's sum (at the
+    // max) and of the sums before it (at most |mask| off the max)
     {
-      // (a score below the running max by more than eps stays below it)
+      // (a score below the running max by more than er stays below it)
       uint64_t redo = 0;
-      const float top[2] = {
-          fmaxf(quad_max(mx[0]) - 2.f * eps[0], m_r[0] - eps[0]),
-          fmaxf(quad_max(mx[1]) - 2.f * eps[1], m_r[1] - eps[1])};
+      float top[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float qm = quad_max(mx[r]);
+        const float er =
+            AM ? eps[r] + kSumErr * (fabsf(qm) + amx[r]) : eps[r];
+        top[r] = fmaxf(qm - 2.f * er, m_r[r] - er);
+      }
       if (mx[0] >= top[0] || mx[1] >= top[1]) {
 #pragma unroll
         for (int i = 0; i < NT * 4; ++i) {
@@ -402,40 +481,49 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
           mx[(i & 3) >> 1] = fmaxf(mx[(i & 3) >> 1], s[i >> 2][i & 3]);
       }
     }
-    float m_new[2], m_sub[2], sum[2] = {0.f, 0.f};
+    // (with a threshold, a max at or below it leaves every p 0)
+    float m_new[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m_new[r] = fmaxf(m_r[r], quad_max(mx[r]));
-      m_sub[r] = GUARD && m_new[r] <= kValidThresh ? 0.f : m_new[r];
-    }
+    for (int r = 0; r < 2; ++r) m_new[r] = fmaxf(m_r[r], quad_max(mx[r]));
     float slack[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      slack[r] = 16777216.f * eps[r] + 4.f * fabsf(m_sub[r]) + 4.f;
+      slack[r] = 16777216.f * eps[r] + (AM ? 8.f : 4.f) * fabsf(m_new[r]) +
+                 4.f;
     uint64_t tie = 0;
 #pragma unroll
-    for (int i = 0; i < NT * 4; ++i) {
-      const float x = s[i >> 2][i & 3];
-      const float m = m_sub[(i & 3) >> 1];
-      // ex2.approx here; the plain versions' expf where the rounding of p
-      // is at stake
-      const float p = (!GUARD || x > kValidThresh) ? __expf(x - m) : 0.f;
-      // how far p may sit from theirs, in fp32 ulps of p: 2^24 times the
-      // score's error eps, 4 |x| + 4 |x - m| for one more rounding each
-      // of the scale, the key mask and x - m, and 4 + 1.25 |x - m| for
-      // __expf's and expf's own errors; with |x| <= |m| + (m - x), at
-      // most slack + 9.25 (m - x)
-      if (p != 0.f && x != kNegInf &&
-          near_bf16_tie(p, fmaf(9.25f, m - x, slack[(i & 3) >> 1])))
-        tie |= 1ull << i;
-      s[i >> 2][i & 3] = p;
+    for (int j = 0; j < NT; ++j) {
+      const float4 am = mask_pair(j);
+      const float av[4] = {am.x, am.y, am.z, am.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float m = m_new[e >> 1];
+        // ex2.approx here; the plain versions' expf where the rounding of
+        // p is at stake
+        const float p =
+            (!Rule::kGuard || x > Rule::kValid) ? __expf(x - m) : 0.f;
+        // how far p may sit from theirs, in fp32 ulps of p: 2^24 times
+        // the score's error eps, 4 |x| + 4 |x - m| for one more rounding
+        // each of the scale, the key mask and x - m, and 4 + 1.25 |x - m|
+        // for __expf's and expf's own errors; with |x| <= |m| + (m - x),
+        // at most slack + 9.25 (m - x). AM: 4 |x| more for the mask's
+        // sum, and 4 |mask| for the sums before it, which may lie that
+        // far above |x|: slack + 13.25 (m - x) + 4 |mask|
+        float ulps = fmaf(AM ? 13.25f : 9.25f, m - x, slack[e >> 1]);
+        if constexpr (AM) ulps = fmaf(4.f, fabsf(av[e]), ulps);
+        if (p != 0.f && x != kNegInf && near_bf16_tie(p, ulps))
+          tie |= 1ull << (4 * j + e);
+        s[j][e] = p;
+      }
     }
 #pragma unroll 1
     for (uint64_t w = tie; w != 0; w &= w - 1) {
       const int i = __ffsll((long long)w) - 1;
       const float x = exact_score(i >> 2, i & 3);
-      put(i, (!GUARD || x > kValidThresh) ? expf(x - m_sub[(i & 3) >> 1])
-                                          : 0.f);
+      put(i, (!Rule::kGuard || x > Rule::kValid)
+                 ? expf(x - m_new[(i & 3) >> 1])
+                 : 0.f);
     }
 #pragma unroll
     for (int i = 0; i < NT * 4; ++i) sum[(i & 3) >> 1] += s[i >> 2][i & 3];
@@ -506,10 +594,7 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
     }
     if (tq == 0) {
       const float m = m_r[r];
-      a.lse[lr] = !GUARD ? m + logf(ls)
-                  : l == 0.f
-                      ? kNegInf
-                      : (m <= kValidThresh ? 0.f : m) + logf(l);
+      a.lse[lr] = Rule::kEmptyNegInf && l == 0.f ? kNegInf : m + logf(ls);
     }
   }
 }

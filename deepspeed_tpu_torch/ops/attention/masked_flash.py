@@ -62,7 +62,7 @@ KIND_CAUSAL = 1        # elementwise q_idx >= k_idx (diagonal tiles)
 KIND_BAND = 2          # banded fine structure (global prefix + window)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the body K1 and K5 run by input dtype: bf16 on the tensor cores
+# the body K1, K5, K8 and K14 run by input dtype: bf16 on the tensor cores
 # (csrc/mma_fwd.cuh), fp32 on the CUDA cores (fp32 FMAs: the fp32
 # checks' 1e-5 tolerance is tighter than TF32 holds)
 FWD_BODIES = {torch.bfloat16: "mma", torch.float32: "fma"}
@@ -709,15 +709,20 @@ def _check_cuda(tensors, mask: BlockMask, key_mask=None):
                          f"{B * H}")
 
 
+# the fp32 operands a tensor-core body reads in 8-byte pairs: the key
+# mask, and the additive mask of K8 (its tiles) and K14 (the (S, S) mask)
+_PAIR_OPERANDS = ("key_mask", "tiles", "attn_mask")
+
+
 def _check_aligned(what, bodies, dtype, operands):
     """A tensor-core body (bf16) loads 16-byte rows from 16-byte aligned
-    operands, and the key mask in 8-byte pairs: raise for an operand of
+    operands, and the fp32 masks in 8-byte pairs: raise for an operand of
     ``operands`` ((name, tensor or None), ...) the C entry point would
     refuse."""
     if bodies[dtype] != "mma":
         return
     for name, t in operands:
-        align = 8 if name == "key_mask" else 16
+        align = 8 if name in _PAIR_OPERANDS else 16
         if t is not None and t.data_ptr() % align:
             raise ValueError(f"the bf16 {what} kernels take a {name} "
                              f"aligned to {align} bytes, got address "
@@ -933,7 +938,7 @@ def _count(wrapper, key_mask, mask: BlockMask):
 
 
 def _count_body(wrapper, dtype, bodies=FWD_BODIES):
-    """One launch of ``wrapper`` (K1-K3 or K5-K7), counted in its
+    """One launch of ``wrapper`` (K1-K3, K5-K7, K8 or K14), counted in its
     ``bodies`` by the body it ran (``bodies``: :data:`FWD_BODIES`,
     :data:`DQ_BODIES` or :data:`DKV_BODIES`)."""
     body = bodies[dtype]

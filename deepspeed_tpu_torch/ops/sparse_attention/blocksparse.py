@@ -30,9 +30,12 @@ The routes of the JAX package, chosen by its five module flags
   ``_bs_dq_kernel``) and :func:`bs_dkv` (K16, dk and dv over the column
   triples; ``_bs_dkv_kernel``) launch the hand-written kernels of
   ``csrc/blocksparse.cu`` (built with nvcc for sm_90a at first use) on
-  CUDA tensors or raise, and run their plain versions (``bs_*_plain``)
-  on CPU tensors; each launch adds one to the wrapper's ``launches`` and
-  to ``arities`` under :func:`v1_arity`. :func:`triple_attention` is the
+  CUDA tensors or raise (K14 in bf16 on K1's tensor-core forward body,
+  ``csrc/mma_fwd.cuh``, in fp32 and K15 and K16 on the CUDA cores:
+  :data:`FWD_BODIES`), and run their plain versions (``bs_*_plain``) on
+  CPU tensors; each launch adds one to the wrapper's ``launches`` and to
+  ``arities`` under :func:`v1_arity`, and K14's to ``bodies`` under the
+  body it ran. :func:`triple_attention` is the
   ``torch.autograd.Function`` entry over the three. Their semantics are
   JAX's, threshold included: ``p = 0`` where ``s <= VALID_THRESH``
   (-1e28, not the -1e29 of K8-K10), and a row with no valid key writes
@@ -65,9 +68,11 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.attention.flash import ordered_dot
+# FWD_BODIES: K14 runs K1's forward bodies, by dtype as K1 does
 from deepspeed_tpu_torch.ops.attention.masked_flash import (
-    CHUNK, COARSE_WALK_BLOCKS, KERNEL_BLOCKS, MAX_HEAD_DIM, BlockMask,
-    masked_flash_attention, walk_cost_us)
+    CHUNK, COARSE_WALK_BLOCKS, FWD_BODIES, KERNEL_BLOCKS, MAX_HEAD_DIM,
+    BlockMask, _check_aligned, _count_body, masked_flash_attention,
+    walk_cost_us)
 from deepspeed_tpu_torch.ops.sparse_attention import banded, hybrid
 from deepspeed_tpu_torch.ops.sparse_attention.blocksparse_v2 import (
     RowRunPlan, build_coarse_index, row_run_attention)
@@ -77,7 +82,7 @@ __all__ = ["NEG_INF", "VALID_THRESH", "block_sparse_attention",
            "build_col_luts", "layout_additive_mask", "planned_kernel",
            "build_triples", "TriplePlan", "triple_attention", "bs_fwd",
            "bs_dq", "bs_dkv", "bs_fwd_plain", "bs_dq_plain",
-           "bs_dkv_plain", "v1_arity", "reset_launches"]
+           "bs_dkv_plain", "v1_arity", "reset_launches", "FWD_BODIES"]
 
 NEG_INF = -1e30
 # scores below this are structurally masked: several -1e30 mask terms may
@@ -420,6 +425,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _v1_fns = {}
 
 
+def _v1_check_fwd_aligned(q, k, v, key_mask=None, attn_mask=None):
+    """K14's operands for its tensor-core body (o, allocated by the
+    wrapper, is aligned)."""
+    _check_aligned("v1 forward", FWD_BODIES, q.dtype,
+                   (("q", q), ("k", k), ("v", v), ("key_mask", key_mask),
+                    ("attn_mask", attn_mask)))
+
+
 def _v1_launch(name, q, ptrs, plan: TriplePlan, sm_scale):
     """Launch ``name`` of ``csrc/blocksparse.cu`` (built and typed at
     first use) on q's device and current stream; raise on a refused
@@ -452,17 +465,21 @@ def _v1_count(wrapper, key_mask, attn_mask):
 
 def bs_fwd(q, k, v, key_mask, attn_mask, plan: TriplePlan, sm_scale: float):
     """K14: ``(o, lse)`` of :func:`bs_fwd_plain`. A CUDA ``q`` launches
-    the sm_90a kernel (raising on any dtype, shape, device or launch
-    problem); a CPU ``q`` runs the plain version."""
+    the sm_90a kernel (raising on any dtype, shape, device, alignment or
+    launch problem), its tensor-core body in bf16 and its CUDA-core body
+    in fp32 (:data:`FWD_BODIES`, counted in ``bodies``); a CPU ``q`` runs
+    the plain version."""
     _v1_check(q, k, v, key_mask, attn_mask, plan)
     if q.device.type == "cpu":
         return bs_fwd_plain(q, k, v, key_mask, attn_mask, plan, sm_scale)
+    _v1_check_fwd_aligned(q, k, v, key_mask, attn_mask)
     B, H, S, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _v1_launch("bs_fwd", q, [q, k, v, key_mask, attn_mask, o, lse,
                              *plan.device("rows", q.device)], plan, sm_scale)
     _v1_count(bs_fwd, key_mask, attn_mask)
+    _count_body(bs_fwd, q.dtype, FWD_BODIES)
     return o, lse
 
 
@@ -500,10 +517,11 @@ def bs_dkv(q, k, v, do, lse, delta, key_mask, attn_mask, plan: TriplePlan,
 
 
 def reset_launches():
-    """Set every launch count of K14-K16 to 0."""
+    """Set every launch count of K14-K16 to 0, and K14's by body."""
     for w in (bs_fwd, bs_dq, bs_dkv):
         w.launches = 0
         w.arities = {}
+    bs_fwd.bodies = {}
 
 
 reset_launches()

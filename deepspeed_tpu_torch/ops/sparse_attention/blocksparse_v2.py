@@ -21,8 +21,12 @@ with a wrapper and a plain PyTorch version of the same function:
 
 For CUDA tensors each wrapper launches its hand-written kernel in
 ``csrc/blocksparse_v2.cu`` (built with nvcc for sm_90a at first use) or
-raises; it never falls back. For CPU tensors it runs the plain version
-(``*_plain``). Each launch adds one to the wrapper's ``launches``.
+raises; it never falls back. K8 runs bf16 on K1's tensor-core forward
+body (``csrc/mma_fwd.cuh``) and fp32 on the CUDA cores
+(:data:`FWD_BODIES`); K9 and K10 run the CUDA-core bodies in both. For
+CPU tensors each wrapper runs the plain version (``*_plain``). Each
+launch adds one to the wrapper's ``launches``, and K8's to ``bodies``
+under the body it ran.
 :func:`row_run_attention` is the ``torch.autograd.Function`` entry over
 the three.
 
@@ -52,14 +56,16 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.attention.masked_flash import (KERNEL_BLOCKS,
-                                                            MAX_HEAD_DIM)
+# FWD_BODIES: K8 runs K1's forward bodies, by dtype as K1 does
+from deepspeed_tpu_torch.ops.attention.masked_flash import (
+    FWD_BODIES, KERNEL_BLOCKS, MAX_HEAD_DIM, _check_aligned, _count_body)
 
 __all__ = ["NEG_INF", "VALID_THRESH", "build_row_runs", "build_am_index",
            "build_coarse_index", "RowRunPlan", "row_run_attention",
            "blocksparse_v2_fwd", "blocksparse_v2_dq", "blocksparse_v2_dkv",
            "blocksparse_v2_fwd_plain", "blocksparse_v2_dq_plain",
-           "blocksparse_v2_dkv_plain", "row_run_bwd", "reset_launches"]
+           "blocksparse_v2_dkv_plain", "row_run_bwd", "reset_launches",
+           "FWD_BODIES"]
 
 NEG_INF = -1e30
 VALID_THRESH = -1e29
@@ -449,6 +455,14 @@ def _check_cuda(operands, fp32, plan: RowRunPlan):
                          f"{B * H}")
 
 
+def _check_fwd_aligned(q, k, v, key_mask=None, tiles=None):
+    """K8's operands for its tensor-core body (o, allocated by the
+    wrapper, is aligned)."""
+    _check_aligned("row-run forward", FWD_BODIES, q.dtype,
+                   (("q", q), ("k", k), ("v", v), ("key_mask", key_mask),
+                    ("tiles", tiles)))
+
+
 _fns = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # after the pointers: dtype, bh, heads, seq, head_dim, block, sm_scale,
@@ -485,13 +499,16 @@ def _launch(name, q, ptrs, plan: RowRunPlan, sm_scale):
 def blocksparse_v2_fwd(q, k, v, key_mask, tiles, plan: RowRunPlan,
                        sm_scale: float):
     """K8: ``(o, lse)`` of :func:`blocksparse_v2_fwd_plain`. A CUDA ``q``
-    launches the sm_90a kernel (raising on any dtype, shape, device or
-    launch problem); a CPU ``q`` runs the plain version."""
+    launches the sm_90a kernel (raising on any dtype, shape, device,
+    alignment or launch problem), its tensor-core body in bf16 and its
+    CUDA-core body in fp32 (:data:`FWD_BODIES`, counted in ``bodies``);
+    a CPU ``q`` runs the plain version."""
     _check_args(q, k, v, key_mask, tiles, plan)
     if q.device.type == "cpu":
         return blocksparse_v2_fwd_plain(q, k, v, key_mask, tiles, plan,
                                         sm_scale)
     _check_cuda((q, k, v), (key_mask, tiles), plan)
+    _check_fwd_aligned(q, k, v, key_mask, tiles)
     B, H, S, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -499,6 +516,7 @@ def blocksparse_v2_fwd(q, k, v, key_mask, tiles, plan: RowRunPlan,
             [q, k, v, key_mask, tiles, o, lse,
              *plan.device("csr", q.device)], plan, sm_scale)
     blocksparse_v2_fwd.launches += 1
+    _count_body(blocksparse_v2_fwd, q.dtype, FWD_BODIES)
     return o, lse
 
 
@@ -538,9 +556,10 @@ def blocksparse_v2_dkv(q, k, v, do, lse, delta, key_mask, tiles,
 
 
 def reset_launches():
-    """Set every launch count of K8-K10 to 0."""
+    """Set every launch count of K8-K10 to 0, and K8's by body."""
     for w in (blocksparse_v2_fwd, blocksparse_v2_dq, blocksparse_v2_dkv):
         w.launches = 0
+    blocksparse_v2_fwd.bodies = {}
 
 
 reset_launches()

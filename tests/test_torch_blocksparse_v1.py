@@ -299,6 +299,55 @@ def test_empty_rows_and_the_v1_threshold(v1):
     assert (o2[:, 0, row] != 0).any()
 
 
+@pytest.mark.parametrize("dtype, body", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "fma")])
+def test_forward_body_by_dtype(dtype, body):
+    """K14 names the body a dtype runs: bf16 on K1's tensor-core forward
+    body (csrc/mma_fwd.cuh), fp32 on the CUDA cores; ``reset_launches``
+    zeroes its counts by body."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import _count_body
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as tbs
+    assert tbs.FWD_BODIES[dtype] == body
+    saved = dict(tbs.bs_fwd.bodies)
+    try:
+        _count_body(tbs.bs_fwd, dtype, tbs.FWD_BODIES)
+        _count_body(tbs.bs_fwd, dtype, tbs.FWD_BODIES)
+        assert tbs.bs_fwd.bodies[body] == saved.get(body, 0) + 2
+        tbs.reset_launches()
+        assert tbs.bs_fwd.bodies == {}
+    finally:
+        tbs.bs_fwd.bodies = saved
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "key_mask",
+                                     "attn_mask"])
+def test_bf16_forward_refuses_misaligned_operands(operand):
+    """K14's tensor-core body loads 16-byte rows (q, k, v) and 8-byte
+    pairs of the key mask and the (S, S) attention mask: a bf16 call
+    whose operand starts off those boundaries raises before any launch,
+    an aligned one and fp32 pass."""
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import \
+        _v1_check_fwd_aligned
+    shape, n = (1, 2, 32, 16), 2 * 32 * 16
+
+    def operands(dtype, off=None):
+        ts = {name: torch.zeros(n + 8, dtype=dtype)[:n].view(shape)
+              for name in ("q", "k", "v")}
+        ts["key_mask"] = torch.zeros(33)[:32].view(1, 32)
+        ts["attn_mask"] = torch.zeros(32 * 32 + 2)[:1024].view(32, 32)
+        if off is not None:
+            base = torch.zeros(n + 8, dtype=ts[off].dtype)
+            ts[off] = base[1:1 + ts[off].numel()].view(ts[off].shape) \
+                if ts[off].dtype == torch.float32 else \
+                base[4:4 + n].view(shape)
+        return ts
+
+    _v1_check_fwd_aligned(**operands(torch.bfloat16))
+    _v1_check_fwd_aligned(**operands(torch.float32, operand))
+    with pytest.raises(ValueError, match=f"{operand} aligned"):
+        _v1_check_fwd_aligned(**operands(torch.bfloat16, operand))
+
+
 def test_v1_matches_v2(v1):
     """The port's mirror of JAX's test_masked_path_v2_matches_v1: the
     BSLongformer layout under a 'mul' attention mask, output and grads of
@@ -432,6 +481,14 @@ CUDA_CASES = [
     (2, 4, 512, 64, "empty_row_and_column", 32, "add", "add", "fp32"),
     (2, 4, 512, 32, "bigbird", 64, None, "mul", "bf16"),
     (2, 4, 512, 128, "fixed_main", 16, "add", None, "fp32"),
+    # K14's tensor-core body: blocks 16-128, head dims 64, 72, 128, each
+    # mask alone and both, an empty block row, a row whose only keys sit
+    # at -5e28 ("far": p = 0 under -1e28, so o = 0 and lse = -5e28)
+    (2, 4, 512, 72, "bslongformer", 32, "mul", "mul", "bf16"),
+    (2, 4, 512, 128, "bigbird", 128, None, "add", "bf16"),
+    (2, 4, 512, 64, "empty_row_and_column", 64, "add", None, "bf16"),
+    (2, 4, 512, 64, "fixed_main", 16, "mul", "far", "bf16"),
+    (2, 4, 512, 72, "empty_row_and_column", 16, None, "mul", "bf16"),
 ]
 
 
@@ -462,7 +519,8 @@ def test_cuda_kernels_match_plain(case):
     """K14, K15 and K16 on the card against their plain versions on the
     same inputs (K15 and K16 take the plain forward's lse), one launch
     each counted under its arity: the three paths' shapes and S 512 cases
-    with an empty block row and column, blocks 16-128, fp32."""
+    with an empty block row and column, blocks 16-128, fp32; K14 runs its
+    tensor-core body in bf16, its CUDA-core body in fp32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as tbs
@@ -471,13 +529,19 @@ def test_cuda_kernels_match_plain(case):
     td = torch.bfloat16 if dtype == "bf16" else torch.float32
     q, k, v, do = (torch.from_numpy(a).to("cuda", td)
                    for a in _inputs(rng, B, H, s, d))
+    layout = _cuda_layout(name, H, s, fb)
     kpm = _key_mask(rng, B, s, kpm_mode)
-    am = _attn_mask(rng, s, am_mode)
+    am = _attn_mask(rng, s, "add" if am_mode == "far" else am_mode)
+    far = 70                       # "far": its walked keys sit at -5e28
+    if am_mode == "far":
+        am[far] = -1e30
+        am[far, np.nonzero(np.kron(layout[0, far // fb],
+                                   np.ones(fb)))[0][:3]] = -5e28
     key = None if kpm is None else tbs._to_additive(
         torch.from_numpy(kpm), kpm_mode).cuda()
     amt = None if am is None else tbs._to_additive(
-        torch.from_numpy(am), am_mode).cuda()
-    plan = tbs.TriplePlan(_cuda_layout(name, H, s, fb), fb)
+        torch.from_numpy(am), "add" if am_mode == "far" else am_mode).cuda()
+    plan = tbs.TriplePlan(layout, fb)
     scale = 1.0 / np.sqrt(d)
     tbs.reset_launches()
     o, lse = tbs.bs_fwd(q, k, v, key, amt, plan, scale)
@@ -500,3 +564,10 @@ def test_cuda_kernels_match_plain(case):
             assert ok, (ratio, rel_rms)
     assert torch.equal(lse == -1e30, lse_p == -1e30)
     assert float((lse - lse_p).abs().max()) <= 1e-3
+    assert tbs.bs_fwd.bodies == {tbs.FWD_BODIES[td]: 1}
+    if name == "empty_row_and_column":
+        assert (o[:, 0, 3 * fb:4 * fb] == 0).all()
+        assert (lse[:, 0, 3 * fb:4 * fb] == -1e30).all()
+    if am_mode == "far":
+        assert (o[0, 0, far] == 0).all()
+        assert (lse[0, 0, far] == np.float32(-5e28)).all()

@@ -266,6 +266,79 @@ def test_plain_versions_without_the_mask_tiles_fail():
             _assert_close(g, w, "fp32")
 
 
+def test_plain_k8_keeps_a_row_at_minus_5e28():
+    """K8's threshold is -1e29: a row whose only unmasked keys sit at
+    -5e28 ('add') attends over them, in the port's plain K8 as in JAX's
+    interpret-mode K8 (o != 0, lse = -5e28 in both), where K14's -1e28
+    gives p = 0 (test_torch_blocksparse_v1.py)."""
+    layout = _layouts()["fixed_per_head"]
+    rng = np.random.RandomState(12)
+    B, H, s, row = 2, 2, 128, 70
+    q, k, v, do = _inputs(rng, B, H, s)
+    kpm = np.zeros((B, s), np.float32)
+    am = rng.randn(s, s).astype(np.float32)
+    am[row] = -1e30
+    keys = np.nonzero(np.kron(layout[0, row // FB], np.ones(FB)))[0][:3]
+    am[row, keys] = -5e28
+    want = _jax_v2(layout, None, q, k, v, do, kpm, am, "fp32")
+    got = _port_v2(layout, None, q, k, v, do, kpm, am, "fp32",
+                   o=want[0], lse=want[4])
+    for g, w in zip(got[:4], want[:4]):
+        _assert_close(g, w, "fp32")
+    np.testing.assert_allclose(got[4], want[4], rtol=1e-6, atol=FP32_ATOL)
+    assert (got[0][:, 0, row] != 0).any() and (want[0][:, 0, row] != 0).any()
+    assert (got[4][:, 0, row] == np.float32(-5e28)).all()
+
+
+@pytest.mark.parametrize("dtype, body", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "fma")])
+def test_forward_body_by_dtype(dtype, body):
+    """K8 names the body a dtype runs: bf16 on K1's tensor-core forward
+    body (csrc/mma_fwd.cuh), fp32 on the CUDA cores; ``reset_launches``
+    zeroes its counts by body."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import _count_body
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as tv2
+    assert tv2.FWD_BODIES[dtype] == body
+    wrapper = tv2.blocksparse_v2_fwd
+    saved = dict(wrapper.bodies)
+    try:
+        _count_body(wrapper, dtype, tv2.FWD_BODIES)
+        _count_body(wrapper, dtype, tv2.FWD_BODIES)
+        assert wrapper.bodies[body] == saved.get(body, 0) + 2
+        tv2.reset_launches()
+        assert wrapper.bodies == {}
+    finally:
+        wrapper.bodies = saved
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "key_mask", "tiles"])
+def test_bf16_forward_refuses_misaligned_operands(operand):
+    """K8's tensor-core body loads 16-byte rows (q, k, v) and 8-byte
+    pairs of the key mask and the mask tiles: a bf16 call whose operand
+    starts off those boundaries raises before any launch, an aligned one
+    and fp32 pass."""
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse_v2 import \
+        _check_fwd_aligned
+    shape, n = (1, 2, 32, 16), 2 * 32 * 16
+
+    def operands(dtype, off=None):
+        ts = {name: torch.zeros(n + 8, dtype=dtype)[:n].view(shape)
+              for name in ("q", "k", "v")}
+        ts["key_mask"] = torch.zeros(33)[:32].view(1, 32)
+        ts["tiles"] = torch.zeros(2 * 16 * 16 + 2)[:512].view(2, 16, 16)
+        if off is not None:
+            base = torch.zeros(n + 8, dtype=ts[off].dtype)
+            ts[off] = base[1:1 + ts[off].numel()].view(ts[off].shape) \
+                if ts[off].dtype == torch.float32 else \
+                base[4:4 + n].view(shape)
+        return ts
+
+    _check_fwd_aligned(**operands(torch.bfloat16))
+    _check_fwd_aligned(**operands(torch.float32, operand))
+    with pytest.raises(ValueError, match=f"{operand} aligned"):
+        _check_fwd_aligned(**operands(torch.bfloat16, operand))
+
+
 # ------------------------------------------------------- the front end
 FRONT_CASES = [
     # (mode, config kwargs, attn mask kind, key mask mode, dtype)
@@ -628,12 +701,24 @@ def test_ops_errors_match_jax():
 
 # ------------------------------------------------------- on the card
 CUDA_CASES = [
-    # (B, H, S, D, layout, coarse, mask mode, dtype)
-    (8, 16, 2048, 64, "fixed_main", None, "mul", "bf16"),   # main path
-    (2, 4, 512, 64, "fixed_main", 64, "mul", "bf16"),
-    (2, 4, 512, 64, "bigbird", None, "add", "bf16"),
-    (2, 4, 512, 32, "bslongformer", 128, "mul", "fp32"),
-    (2, 4, 512, 128, "fixed_main", 32, "add", "fp32"),
+    # (B, H, S, D, layout, coarse, mask mode, key mask, dtype); mask mode
+    # None: no tile at the fine walk, the structural tiles on a coarse
+    # one; "far": 'add' with one row whose only keys sit at -5e28
+    (8, 16, 2048, 64, "fixed_main", None, "mul", True, "bf16"),  # main path
+    (2, 4, 512, 64, "fixed_main", 64, "mul", True, "bf16"),
+    (2, 4, 512, 64, "bigbird", None, "add", True, "bf16"),
+    (2, 4, 512, 32, "bslongformer", 128, "mul", True, "fp32"),
+    (2, 4, 512, 128, "fixed_main", 32, "add", True, "fp32"),
+    # K8's tensor-core body: walks 16-128, head dims 64, 72, 128, each
+    # mask alone and both, structural tiles, empty block rows, the -5e28
+    # row
+    (2, 4, 512, 72, "fixed_main", 32, "mul", True, "bf16"),
+    (2, 4, 512, 72, "bigbird", 128, "add", True, "bf16"),
+    (2, 4, 512, 128, "bslongformer", None, "mul", False, "bf16"),
+    (2, 4, 512, 64, "fixed_main", None, None, True, "bf16"),
+    (2, 4, 512, 128, "bslongformer", 64, None, False, "bf16"),
+    (2, 4, 512, 72, "empty_rows", None, "mul", True, "bf16"),
+    (2, 4, 512, 64, "fixed_main", None, "far", True, "bf16"),
 ]
 
 
@@ -651,7 +736,13 @@ def _cuda_layout(name, H, s):
         return sparsity_config_from_dict(raw, num_heads=H).make_layout(s)
     if name == "bigbird":
         return BigBirdSparsityConfig(num_heads=H, block=FB).make_layout(s)
-    return BSLongformerSparsityConfig(num_heads=H, block=FB).make_layout(s)
+    if name == "bslongformer":
+        return BSLongformerSparsityConfig(num_heads=H,
+                                          block=FB).make_layout(s)
+    n = s // FB                    # "empty_rows": block rows 3 and 9 empty
+    lay = (np.random.RandomState(4).rand(H, n, n) < 0.3).astype(np.int32)
+    lay[:, [3, 9]] = 0
+    return lay
 
 
 @pytest.mark.cuda
@@ -659,22 +750,32 @@ def _cuda_layout(name, H, s):
 def test_cuda_kernels_match_plain(case):
     """K8, K9 and K10 on the card against their plain versions on the
     same inputs (K9 and K10 take the plain forward's lse), with a key
-    mask holding a batch row of pads and mask rows that drop every key."""
+    mask holding a batch row of pads and mask rows that drop every key;
+    K8 runs its tensor-core body in bf16, its CUDA-core body in fp32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as tv2
-    B, H, s, d, name, coarse, mode, dtype = case
+    B, H, s, d, name, coarse, mode, with_kpm, dtype = case
     rng = np.random.RandomState(s + d)
     td = torch.bfloat16 if dtype == "bf16" else torch.float32
     q, k, v, do = (torch.from_numpy(a).to("cuda", td)
                    for a in _inputs(rng, B, H, s, d))
-    kpm, am = _masks(rng, B, s, mode)
+    layout = _cuda_layout(name, H, s)
+    kpm, am = _masks(rng, B, s, "mul" if mode == "far" else mode or "mul")
     am_add = np.where(am == 0, -1e30, 0.0).astype(np.float32) \
         if mode == "mul" else am
-    plan = tv2.RowRunPlan(_cuda_layout(name, H, s), FB, coarse)
-    tiles = plan.mask_tiles(torch.from_numpy(am_add).cuda())
-    key = torch.from_numpy(kpm).cuda()
+    far = 70                       # "far": its walked keys sit at -5e28
+    if mode == "far":
+        am_add = rng.randn(s, s).astype(np.float32)
+        am_add[far] = -1e30
+        am_add[far, np.nonzero(np.kron(layout[0, far // FB],
+                                       np.ones(FB)))[0][:3]] = -5e28
+    plan = tv2.RowRunPlan(layout, FB, coarse)
+    tiles = (plan.structural_tiles("cuda") if mode is None
+             else plan.mask_tiles(torch.from_numpy(am_add).cuda()))
+    key = torch.from_numpy(kpm).cuda() if with_kpm else None
     scale = 1.0 / np.sqrt(d)
+    tv2.reset_launches()
     before = [w.launches for w in (tv2.blocksparse_v2_fwd,
                                    tv2.blocksparse_v2_dq,
                                    tv2.blocksparse_v2_dkv)]
@@ -701,4 +802,12 @@ def test_cuda_kernels_match_plain(case):
             assert ok, (ratio, rel_rms)
     assert torch.equal(lse.isfinite(), lse_p.isfinite())
     assert float((lse - lse_p).abs().max()) <= 1e-3
-    assert (o[-1] == 0).all()
+    assert tv2.blocksparse_v2_fwd.bodies == {tv2.FWD_BODIES[td]: 1}
+    if with_kpm:
+        assert (o[-1] == 0).all()
+    if name == "empty_rows":
+        assert (o[:, :, 3 * FB:4 * FB] == 0).all()
+        assert (lse[:, :, 3 * FB:4 * FB] == -1e30).all()
+    if mode == "far":
+        assert (o[0, 0, far] != 0).any()
+        assert (lse[0, 0, far] == np.float32(-5e28)).all()

@@ -9,7 +9,7 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
 1. device: the card as nvidia-smi names it, torch/CUDA versions; then
    every kernel of the port is built with nvcc from csrc/ for sm_90a,
    each kernel's registers and spills as ptxas -v reports them (a spill
-   in a tensor-core body, any "_mma_kernel" of K1-K3, K5-K8 and K14,
+   in a tensor-core body, any "_mma_kernel" of K1-K3, K5-K8 and K14-K16,
    fails the run).
 2. kernels: each kernel against its plain PyTorch version on the card
    (the GPT-2 and the Llama serving shapes, GQA, fp32, cache-position
@@ -259,35 +259,40 @@ fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
    row of pads. Controls that must fail the same check on every output:
    the plain versions with the attention mask left out (else the key
    mask, else on fp32 inputs), in (d) with the threshold at -1e29, and
-   at (a) the plain forward with p's bf16 rounding left out (on o).
-   Every row names K14's body (as phase 21 does K8's).
+   at (a) and (b) the plain forward with p's bf16 rounding left out (on
+   o) and the plain backward on fp32 copies, neither ds nor K16's p
+   rounded to bf16 (on dq and dk). Every row names the three kernels'
+   bodies (as phase 21 does K8's) and the cells K15's and K16's
+   tensor-core bodies summed again (their count and share of the walked
+   cells).
 33. v1_kernel_timing: the three at (a), (b) and both layouts of (c),
    timed as in phase 6, beside the bound (bytes moved once, the mask's
    once per distinct tile of the heads' union, or the layout's FLOP),
    the plain call of phase 32, SDPA with the dense float (B, H, S, S)
-   mask, K8-K10 on the same inputs and, for K14, its former CUDA-core
+   mask, K8-K10 on the same inputs and each kernel's former CUDA-core
    bf16 time.
 34. v1_entry_point: SparseSelfAttention with the config's section, the
    key mask and an (S, S) 'mul' mask under USE_SPLASH_V2 = False at (a),
    forward and backward (1 warm-up, 3 timed): ms, peak memory, exactly
-   one launch of each of K14-K16 per call (K14's on its tensor-core
-   body) and no other attention kernel;
+   one launch of each of K14-K16 per call (each on its tensor-core body)
+   and no other attention kernel;
    a 2-head fp32 call against the v1 plain path (TRAIN_TOL fp32) and the
    default route's K8-K10 (JAX's v2-vs-v1 tolerance); then bench.py's v1
    fallback at the s8k geometry for both layouts, beside phase 26's
    legacy calls and phase 29's dense side.
 35. bert_sparse_training_v1: phase 19's fixed configuration under
    USE_MASKED_FLASH = False and USE_SPLASH_V2 = False, 1 warm-up and 3
-   timed steps and a 2-step profile: 48 launches of each of K14-K16 per
-   step, all of the key-mask arity (K14's on its tensor-core body), and
-   no other attention kernel; the
+   timed steps and a 2-step profile (K14-K16's ms per launch there beside
+   phase 33's (b) times on randn inputs): 48 launches of each of K14-K16
+   per step, all of the key-mask arity and on their tensor-core bodies,
+   and no other attention kernel; the
    losses beside phase 19's; then phase 20's kernel-vs-plain check of it
    at seq 2048.
 36. the {"kernels": [...]} line (with the three key-mask, the three
    band, the three row-run, the three banded, the three no-mask
    row-run, the three legacy flash entries and K14-K16 in each of their
    three arities on the paths above; each with its "body": "mma" for
-   K1-K3, K5-K8 and K14 in bf16, "fma" for the rest),
+   K1-K3, K5-K8 and K14-K16 in bf16, "fma" for the rest),
    K1 with its s8k default-route time from phase 29), the nvidia-smi
    line, and last {"ok": true, "device": {...}}.
 """
@@ -308,7 +313,7 @@ BF16_ATOL = 2e-3     # summation order differs; p is rounded to bf16
 FP32_ATOL = 1e-5     # summation order differs
 MODEL_LOGIT_ATOL = 1e-3   # fp32, 24 layers of differently ordered sums
 TIMED_CALLS = 100
-# K2's, K3's, K6's, K7's, K8's and K14's times on their former CUDA-core
+# K2's, K3's, K6's, K7's, K8's and K14-K16's times on their former CUDA-core
 # bf16 bodies (these timing phases on an NVIDIA H100 80GB HBM3 at 700 W;
 # PERF.md section 6), printed beside this run's as "fma_body_ms":
 # (phase, kernel, case) -> ms
@@ -350,6 +355,14 @@ FMA_BODY_MS = {
     ("v1_kernel_timing", "bs_fwd", "b"): 6.59600,
     ("v1_kernel_timing", "bs_fwd", "lf"): 5.28358,
     ("v1_kernel_timing", "bs_fwd", "bb"): 5.46877,
+    ("v1_kernel_timing", "bs_dq", "a"): 7.21648,
+    ("v1_kernel_timing", "bs_dq", "b"): 6.97048,
+    ("v1_kernel_timing", "bs_dq", "lf"): 6.94032,
+    ("v1_kernel_timing", "bs_dq", "bb"): 7.60243,
+    ("v1_kernel_timing", "bs_dkv", "a"): 9.99971,
+    ("v1_kernel_timing", "bs_dkv", "b"): 9.84358,
+    ("v1_kernel_timing", "bs_dkv", "lf"): 7.76722,
+    ("v1_kernel_timing", "bs_dkv", "bb"): 8.34845,
 }
 # masked flash, kernel against plain version, element by element:
 # |a - b| <= atol + rtol * |b|, and in bf16 also over the whole tensor:
@@ -1467,11 +1480,11 @@ def _reset_train_launches():
 
 
 # the kernels with a tensor-core body in bf16: K1, K5, K8 and K14 on
-# csrc/mma_fwd.cuh, K2 and K6 on csrc/mma_dq.cuh, K3 and K7 on
+# csrc/mma_fwd.cuh, K2, K6 and K15 on csrc/mma_dq.cuh, K3, K7 and K16 on
 # csrc/mma_dkv.cuh
 MMA_KERNELS = ("masked_flash_fwd", "flash_fwd", "masked_flash_dq",
                "flash_dq", "masked_flash_dkv", "flash_dkv",
-               "blocksparse_v2_fwd", "bs_fwd")
+               "blocksparse_v2_fwd", "bs_fwd", "bs_dq", "bs_dkv")
 
 
 def kernel_body(name, dtype="bf16"):
@@ -1500,11 +1513,11 @@ def _mma_bodies(names=MMA_KERNELS):
 
 
 def _check_mma_bodies(phase, bodies):
-    """A bf16 run: every launch of K1-K3, K5-K8 and K14 ran the
+    """A bf16 run: every launch of K1-K3, K5-K8 and K14-K16 ran the
     tensor-core body."""
     if any(b.get("fma", 0) for b in bodies.values()):
         raise AssertionError(f"{phase}: a bf16 launch of K1-K3, K5-K8 or "
-                             f"K14 ran the CUDA-core body: {bodies}")
+                             f"K14-K16 ran the CUDA-core body: {bodies}")
 
 
 def _body_ran(wrapper, before):
@@ -2312,7 +2325,8 @@ def sparse_bert_setup(kind, ds_config, params, cfg, seq):
 
 def bert_training_phase(smi, device="cuda", config=None, seq=128,
                         min_len=64, steps=BERT_STEPS, warmup=BERT_WARMUP,
-                        profile=True, sparse=None, route=None):
+                        profile=True, sparse=None, route=None,
+                        randn_ms=None):
     """BERT-large MLM trained through initialize + train_batch with the
     bing_bert config as the repo holds it (Lamb, WarmupLR, clipping 1.0,
     ZeRO 1, micro batch 8, ga 2, bf16 over fp32 masters, dropout 0.1).
@@ -2507,20 +2521,23 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
             engine, it, row["step_ms"],
             phase=("bert_profile" if sparse is None
                    else "bert_sparse_profile") + route.suffix,
-            attention=attention, kernels=route.profiled)
+            attention=attention, kernels=route.profiled, randn_ms=randn_ms)
     return got, losses
 
 
 def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
                        attention="K1-K3 (key-mask arity)",
                        kernels=("mf_fwd_", "mf_dq_",
-                                "mf_dkv_")):
+                                "mf_dkv_"), randn_ms=None):
     """Where a BERT step's time goes: a torch.profiler window over
     ``steps`` train_batch calls, the kernels' device time per step by
     group, and the device idle share left of the unprofiled step time.
     The MLM head's vocab GEMMs are the fp32 ones (TF32 off) and its
     log-softmax; Lamb, the accumulation and the clipping are the
-    multi-tensor (foreach) kernels and the norms."""
+    multi-tensor (foreach) kernels and the norms. With ``randn_ms``
+    ({name prefix of ``kernels``: ms}), each of those kernels' device ms
+    per launch in the window beside that time (the kernel timed on
+    random inputs)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2549,7 +2566,16 @@ def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
                       if any(k in low for k in keys)), "other")
         by_group[group] += ms
     busy_ms = sum(k[1] for k in kernels)
+    per_launch = {}
+    for prefix, ms in (randn_ms or {}).items():
+        hits = [k for k in kernels if prefix in k[0]]
+        calls = sum(k[2] for k in hits)
+        mean = sum(k[1] for k in hits) / calls if calls else None
+        per_launch[prefix] = {"ms_per_launch": mean,
+                              "launches_per_step": calls, "randn_ms": ms,
+                              "ratio": mean / ms if calls else None}
     emit({"phase": phase, "steps": steps, "step_ms": step_ms,
+          **({"kernel_ms_per_launch": per_launch} if per_launch else {}),
           "device_busy_ms_per_step": busy_ms,
           "device_idle_share": 1 - busy_ms / step_ms,
           "ms_per_step_by_group": by_group,
@@ -4318,16 +4344,20 @@ def check_v1_kernels(name, plan, args, key_mask, am, flush=None,
     """K14, K15 and K16 against their plain versions on the same inputs
     (K15 and K16 get the plain forward's lse and delta), under TRAIN_TOL;
     lse within LSE_ATOL; an empty block row's lse exactly NEG_INF in
-    both; K14 on the body its dtype runs ("body"). The controls, each of
-    which must fail the same check on every output (K15 and K16 fed the
-    control forward's lse and delta): the plain versions with the
-    attention mask left out (where there is one), else with the key mask
-    left out, else on fp32 copies of the inputs (no rounding of p and
-    ds); with ``far_row`` also with the threshold set to the row-run
-    kernels' -1e29. With ``rounding_control`` also the plain forward on
-    fp32 copies (p not rounded to bf16) must fail it on o. With ``flush``
-    each plain call is timed once (:func:`timed_once`). Returns the
-    row."""
+    both; each kernel on the body its dtype runs ("body", "dq_body",
+    "dkv_body"), K15's and K16's tensor-core bodies with the count of
+    the cells they summed again ("resummed_cells", and their share of
+    the walked cells). The controls, each of which must fail the same
+    check on every output (K15 and K16 fed the control forward's lse and
+    delta): the plain versions with the attention mask left out (where
+    there is one), else with the key mask left out, else on fp32 copies
+    of the inputs (no rounding of p and ds); with ``far_row`` also with
+    the threshold set to the row-run kernels' -1e29. With
+    ``rounding_control`` also the plain forward on fp32 copies (p not
+    rounded to bf16) must fail it on o, and the plain backward on fp32
+    copies (fed the same lse and delta: neither ds nor K16's p rounded to
+    bf16) on dq and dk. With ``flush`` each plain call is timed once
+    (:func:`timed_once`). Returns the row."""
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
     q, k, v, do = args
@@ -4345,17 +4375,24 @@ def check_v1_kernels(name, plan, args, key_mask, am, flush=None,
     o, lse = bs.bs_fwd(q, k, v, key_mask, am, plan, scale)
     bwd = (q, k, v, do, refs["lse"], (do.float() * refs["o"].float()).sum(-1),
            key_mask, am, plan, scale)
-    dq = bs.bs_dq(*bwd)
-    dk, dv = bs.bs_dkv(*bwd)
+    tally = {n: torch.zeros(1, dtype=torch.int64, device=q.device)
+             for n in ("bs_dq", "bs_dkv")}
+    dq = bs.bs_dq(*bwd, tally=tally["bs_dq"])
+    dk, dv = bs.bs_dkv(*bwd, tally=tally["bs_dkv"])
     torch.cuda.synchronize()
     arity = bs.v1_arity(key_mask, am)
     dtype = "fp32" if q.dtype == torch.float32 else "bf16"
     tol = TRAIN_TOL[dtype]
-    body = sorted(bs.bs_fwd.bodies)
+    bodies = {n: sorted(getattr(bs, n).bodies) for n in V1_NAMES}
     empty = [i for i, c in enumerate(np.diff(plan.rows[0]))
              if c == 1 and plan.rows[2][plan.rows[0][i]] == 0]
+    walked = plan.tiles_walked * q.shape[0] * plan.block ** 2
+    resummed = {n: int(t.item()) for n, t in tally.items()}
     row = {"phase": "v1_kernel_check", "case": name, "dtype": str(q.dtype),
-           "body": body[0] if len(body) == 1 else body,
+           **{key: b[0] if len(b) == 1 else b for key, b in zip(
+               ("body", "dq_body", "dkv_body"), bodies.values())},
+           "resummed_cells": resummed, "walked_cells": walked,
+           "resummed_share": {n: c / walked for n, c in resummed.items()},
            "shape": list(q.shape), "block": plan.block,
            "walked_tiles": plan.tiles_walked, "arity": arity,
            "arities": _v1_arities(), "empty_block_rows": len(empty),
@@ -4365,7 +4402,7 @@ def check_v1_kernels(name, plan, args, key_mask, am, flush=None,
         row["plain_ms"] = plain_ms
     row.update(extra or {})
     ok = row["arities"] == {n: {arity: 1} for n in V1_NAMES}
-    ok &= body == [kernel_body("bs_fwd", dtype)]
+    ok &= bodies == {n: [kernel_body(n, dtype)] for n in V1_NAMES}
     for key, out in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
         ratio, rel_rms, err, good = compare(out, refs[key], **tol)
         row[f"{key}_max_abs_err"] = err
@@ -4394,14 +4431,26 @@ def check_v1_kernels(name, plan, args, key_mask, am, flush=None,
         controls.append(("the threshold at -1e29", args, key_mask, am,
                          _attrs(bs, VALID_THRESH=-1e29)))
     if rounding_control:
-        o_r, _ = bs.bs_fwd_plain(*[t.float() for t in args[:3]], key_mask,
-                                 am, plan, scale)
+        fp32 = [t.float() for t in args]
+        o_r, _ = bs.bs_fwd_plain(*fp32[:3], key_mask, am, plan, scale)
         ratio, rel_rms, _, good = compare(o_r.to(q.dtype), refs["o"], **tol)
         row["rounding_control"] = {
             "control": "the plain forward on fp32 inputs: p not rounded "
                        "to bf16", "o_worst_ratio": ratio,
             "o_rel_rms": rel_rms, "o_fails": not good}
         ok &= not good
+        bwd_r = (*fp32, *bwd[4:])
+        got = {"dq": bs.bs_dq_plain(*bwd_r), "dk": bs.bs_dkv_plain(*bwd_r)[0]}
+        control = {"control": "the plain backward on fp32 inputs: neither "
+                              "ds nor K16's p rounded to bf16"}
+        for key, out in got.items():
+            ratio, rel_rms, _, good = compare(out.to(q.dtype), refs[key],
+                                              **tol)
+            control.update({f"{key}_worst_ratio": ratio,
+                            f"{key}_rel_rms": rel_rms,
+                            f"{key}_fails": not good})
+            ok &= not good
+        row["backward_rounding_control"] = control
     row["controls"] = {}
     for label, c_args, c_key, c_am, ctx in controls:
         with ctx:
@@ -4463,7 +4512,8 @@ def v1_kernel_check_phase():
                                   main, kpm, am, flush=flush,
                                   rounding_control=True),
             "b": check_v1_kernels("bert_large_s2048_fixed_kpm", plan, main,
-                                  kpm, None, flush=flush)}
+                                  kpm, None, flush=flush,
+                                  rounding_control=True)}
     del main, kpm, am
     s8 = S8K_SHAPE
     args = train_inputs(rng, s8["B"], s8["H"], s8["H"], s8["S"], s8["D"],
@@ -4547,7 +4597,6 @@ def v1_kernel_timing_phase(smi, check_rows):
         plan = bs.TriplePlan(layout, blk)
         bs.reset_launches()
         o, lse = bs.bs_fwd(q, k, v, key, amask, plan, scale)
-        _check_mma_bodies("v1_kernel_timing", _mma_bodies(["bs_fwd"]))
         delta = (do.float() * o.float()).sum(-1)
         bwd = (q, k, v, do, lse, delta, key, amask, plan, scale)
         rp = v2.RowRunPlan(layout, blk, None, per_coord=amask is not None)
@@ -4618,6 +4667,7 @@ def v1_kernel_timing_phase(smi, check_rows):
                   "achieved_tflop_per_s": t["flops"] / t["ms"] / 1e9,
                   "nvidia_smi": smi})
             out[case][name] = t
+        _check_mma_bodies("v1_kernel_timing", _mma_bodies(V1_NAMES))
         del o, lse, delta, bwd, o2, lse2, bwd2, tiles
     return out
 
@@ -4678,7 +4728,8 @@ def v1_entry_point_phase(smi, legacy_ms, dense_s8k):
     def check_launches(row, arity):
         got, arities = _all_launches(), _v1_arities()
         row.update(launches={n: got[n] for n in V1_NAMES},
-                   arities=arities, launches_by_body=_mma_bodies(["bs_fwd"]),
+                   arities=arities,
+                   launches_by_body=_mma_bodies(V1_NAMES),
                    other_attention_launches={
                        n: c for n, c in got.items() if n not in V1_NAMES})
         emit(row)
@@ -4772,21 +4823,24 @@ def v1_entry_point_phase(smi, legacy_ms, dense_s8k):
 
 V1_ROUTE = Route(dict.fromkeys(V1_NAMES, 1), _plain_triples, "_v1",
                  "K14-K16 (v1, key-mask arity)",
-                 ("bs_fwd_", "bs_dq_kernel", "bs_dkv_kernel"),
-                 planned="v1")
+                 ("bs_fwd_", "bs_dq_", "bs_dkv_"), planned="v1")
 
 
-def bert_sparse_training_v1_phase(smi, fixed_losses):
+def bert_sparse_training_v1_phase(smi, fixed_losses, randn_ms):
     """Phase 35: phase 19's fixed configuration under USE_MASKED_FLASH =
     False and USE_SPLASH_V2 = False (K14-K16 in the key-mask arity, 48
     launches of each per step and no other attention kernel), 1 warm-up
-    and 3 timed steps and a 2-step profile, its losses beside phase 19's
-    (same seed and batches); then phase 20's kernel-vs-plain check of it
-    (2 layers, fp32, at seq 2048). Returns the launches."""
+    and 3 timed steps and a 2-step profile (K14-K16's ms per launch there
+    beside ``randn_ms``, phase 33's (b) times by kernel), its losses
+    beside phase 19's (same seed and batches); then phase 20's
+    kernel-vs-plain check of it (2 layers, fp32, at seq 2048). Returns the
+    launches."""
     with _v1_flags(USE_MASKED_FLASH=False):
         got, losses = bert_training_phase(
             smi, seq=SPARSE_SEQ, min_len=SPARSE_MIN_LEN, steps=SPARSE_STEPS,
-            warmup=SPARSE_WARMUP, sparse="fixed", route=V1_ROUTE)
+            warmup=SPARSE_WARMUP, sparse="fixed", route=V1_ROUTE,
+            randn_ms=dict(zip(V1_ROUTE.profiled,
+                              (randn_ms[n]["ms"] for n in V1_NAMES))))
         emit({"phase": "bert_sparse_training_v1_losses", "seed": SEED,
               "v1_route": losses, "fixed_k1_k3_phase19": fixed_losses,
               "max_rel_diff": max(abs(a - b) / abs(b) for a, b in
@@ -4898,7 +4952,7 @@ def main() -> int:
     v1_launches = v1_entry_point_phase(smi, entry_ms,
                                        flash_timing["s8k_entry_point"])
     v1_launches["bert"] = bert_sparse_training_v1_phase(
-        smi, sparse_runs["fixed"][1])
+        smi, sparse_runs["fixed"][1], v1_timing["b"])
 
     kernels = [dict(
         name="paged_decode", route="cuda",

@@ -34,26 +34,30 @@
 // What bounds it on an H100: operations. At the main path's shape (B 8,
 // H 16, S 2048, D 64, the fixed per-head layouts of ds_config_sparse.json
 // at block 16) a walked 16 x 16 tile does 2-4 products of 16 x 16 x 64
-// over 2 x 16 x 64 staged values and 256 mask values. K14 in bf16 runs
-// on the tensor cores, on K1's forward body (mma_fwd.cuh: mma.sync
-// m16n8k16, Q, the scores and O in registers, K and V staged as bf16 by
-// cp.async into a ring of chunks) over the block row's real triples (an
-// empty row's dummy is not walked: o = 0, lse = NEG_INF), each score
-// plus its cell of the (S, S) mask read in place per 8-key fragment (the
-// mask sits in L2), and TripleRule (-1e28; lse = m where l == 0). A CTA
-// owns R = min(blk, 64) rows of a block row. The rest (K14 in fp32, K15
-// and K16) is the simple design of the row-run kernels (blocksparse_v2.cu,
-// over flash_tiles.cuh): fp32 FMAs on the CUDA cores, no tensor cores
-// (TF32 would fail the fp32 checks). A CTA
-// of 128 threads owns R = min(blk, 32) rows of a block row (K14, K15) or
-// column (K16) and walks its triples in a loop, which takes the place of
-// JAX's sequential grid axis and its scratch reset on tfirst and flush on
-// tlast; it stages its own rows once and each triple's partner rows in
-// chunks of R into shared memory as fp32, reads each mask cell straight
-// from global memory once per CTA, and keeps the softmax state and the
-// accumulators in shared memory. Every CTA stores its rows, so empty rows
-// and columns write their zeros. Later work: the backward on the tensor
-// cores, wgmma, TMA staging.
+// over 2 x 16 x 64 staged values and 256 mask values. In bf16 the three
+// run on the tensor cores (mma.sync m16n8k16, the scores and accumulators
+// in registers, the partner rows staged as bf16 by cp.async into a ring
+// of chunks), each over its block row's or column's real triples (an
+// empty row's or column's dummy is not walked: o = 0, lse = NEG_INF, dq =
+// 0, dk = dv = 0), each score plus its cell of the (S, S) mask read in
+// place from global memory (the mask sits in L2), with v1's -1e28
+// threshold: K14 on K1's forward body (mma_fwd.cuh, TripleRule: lse = m
+// where l == 0, the mask per 8-key fragment), K15 on K2's dq body
+// (mma_dq.cuh, float2 mask pairs per 8-key fragment), K16 on K3's dk/dv
+// body (mma_dkv.cuh, which holds S^T: one scalar mask load per cell, S
+// apart). A CTA owns R = min(blk, 64) rows of a block row (K14, K15) or
+// keys of a block column (K16), 16 per warp. In fp32 the three keep the
+// simple design of the row-run kernels (blocksparse_v2.cu, over
+// flash_tiles.cuh): fp32 FMAs on the CUDA cores (TF32 would fail the fp32
+// checks). A CTA of 128 threads owns R = min(blk, 32) rows of a block row
+// (K14, K15) or column (K16) and walks its triples in a loop, which takes
+// the place of JAX's sequential grid axis and its scratch reset on tfirst
+// and flush on tlast; it stages its own rows once and each triple's
+// partner rows in chunks of R into shared memory as fp32, reads each mask
+// cell straight from global memory once per CTA, and keeps the softmax
+// state and the accumulators in shared memory. Every CTA stores its rows,
+// so empty rows and columns write their zeros. Later work: wgmma, TMA
+// staging.
 //
 // Built by deepspeed_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -63,7 +67,7 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
-#include "mma_fwd.cuh"
+#include "mma_dq.cuh"
 
 namespace {
 
@@ -85,11 +89,11 @@ struct Walk {
 // ------------------------------------------------------------------ K14
 // fp32 (the CUDA-core body): grid (S / R, B*H); R = min(blk, 32) q rows
 // per CTA.
-template <typename T, bool HAS_AM, bool HAS_KPM>
+template <bool HAS_AM, bool HAS_KPM>
 __global__ void __launch_bounds__(kThreads)
-bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const float* __restrict__ kpm,
-              const float* __restrict__ am, T* __restrict__ o,
+bs_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ kpm,
+              const float* __restrict__ am, float* __restrict__ o,
               float* __restrict__ lse, Walk w, Shape sh) {
   extern __shared__ float smem[];
   const int D = sh.D, blk = sh.blk;
@@ -99,8 +103,8 @@ bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = blockIdx.x * R;
   const int item = (bh % sh.H) * (sh.S / blk) + r0 / blk;
   const int begin = w.offs[item], end = w.offs[item + 1];
-  const T* kg = k + (size_t)bh * sh.S * D;
-  const T* vg = v + (size_t)bh * sh.S * D;
+  const float* kg = k + (size_t)bh * sh.S * D;
+  const float* vg = v + (size_t)bh * sh.S * D;
   const float* kpm_b = HAS_KPM ? kpm + (size_t)b * sh.S : nullptr;
 
   float* qs = smem;                       // R x (D+1)
@@ -156,7 +160,7 @@ bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (c < blk) {
           const float p = sv[u] > kTripleThresh ? expf(sv[u] - m_new) : 0.f;
           sum += p;
-          ss[r * blk + c] = round_to<T>(p);
+          ss[r * blk + c] = p;
         }
       }
       sum = warp_sum(sum);
@@ -178,10 +182,10 @@ bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* og = o + ((size_t)bh * sh.S + r0) * D;
+  float* og = o + ((size_t)bh * sh.S + r0) * D;
   for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
     const float l = l_s[e / D];
-    og[e] = from_f<T>(os[e] / (l == 0.f ? 1.f : l));
+    og[e] = os[e] / (l == 0.f ? 1.f : l);
   }
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
     const float l = l_s[r];
@@ -189,13 +193,15 @@ bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// K14 in bf16 (the tensor-core body, mma_fwd.cuh): grid (S / R, B*H), R =
-// min(blk, 64) q rows of one block row per CTA, 16 per warp; W = blk.
+// K14 and K15 in bf16 (the tensor-core bodies, mma_fwd.cuh and
+// mma_dq.cuh): grid (S / R, B*H), R = min(blk, 64) q rows of one block row
+// per CTA, 16 per warp, over the block row's real triples.
 struct TripleWalk {
   const int32_t* partner;  // the block row's partner blocks
   const float* am;         // (S, S) at the CTA's first row, or null
   int count, blk, S;       // real triples, block, mask row stride
   __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int keys() const { return blk; }
   __device__ __forceinline__ int2 tile(int t) const {
     return make_int2(partner[t] * blk, 0);
   }
@@ -204,6 +210,13 @@ struct TripleWalk {
   }
   __device__ __forceinline__ int mask_ld() const { return S; }
 };
+
+// the real triples of item `item` (an empty block row or column holds one
+// dummy triple, a walked one none): their first index and count
+__device__ __forceinline__ int2 real_triples(const Walk& w, int item) {
+  const int begin = w.offs[item];
+  return make_int2(begin, w.valid[begin] ? w.offs[item + 1] - begin : 0);
+}
 
 template <int W, int DMAX, bool KPM, bool AM>
 __global__ void __launch_bounds__(2 * kMmaMaxRows,
@@ -217,12 +230,9 @@ bs_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / sh.H;
   const int r0 = blockIdx.x * R;
-  const int item = (bh % sh.H) * (sh.S / W) + r0 / W;
-  const int begin = w.offs[item];
-  // an empty block row holds one dummy triple, a walked one none
-  const int n = w.valid[begin] ? w.offs[item + 1] - begin : 0;
-  const TripleWalk walk{w.partner + begin,
-                        AM ? am + (size_t)r0 * sh.S : nullptr, n, W, sh.S};
+  const int2 tr = real_triples(w, (bh % sh.H) * (sh.S / W) + r0 / W);
+  const TripleWalk walk{w.partner + tr.x,
+                        AM ? am + (size_t)r0 * sh.S : nullptr, tr.y, W, sh.S};
   const size_t row0 = (size_t)bh * sh.S + r0;
   const size_t kv0 = (size_t)bh * sh.S * D;
   const FwdRows rows{q + row0 * D, k + kv0, v + kv0,
@@ -233,14 +243,15 @@ bs_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ K15
-// grid (S / R, B*H); per walked triple, chunk by chunk of R key rows.
-template <typename T, bool HAS_AM, bool HAS_KPM>
+// fp32 (the CUDA-core body): grid (S / R, B*H); per walked triple, chunk
+// by chunk of R key rows.
+template <bool HAS_AM, bool HAS_KPM>
 __global__ void __launch_bounds__(kThreads)
-bs_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              const float* __restrict__ kpm, const float* __restrict__ am,
-             T* __restrict__ dq, Walk w, Shape sh) {
+             float* __restrict__ dq, Walk w, Shape sh) {
   extern __shared__ float smem[];
   const int D = sh.D, blk = sh.blk;
   const int R = rows_of(blk);
@@ -249,8 +260,8 @@ bs_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = blockIdx.x * R;
   const int item = (bh % sh.H) * (sh.S / blk) + r0 / blk;
   const int begin = w.offs[item], end = w.offs[item + 1];
-  const T* kg = k + (size_t)bh * sh.S * D;
-  const T* vg = v + (size_t)bh * sh.S * D;
+  const float* kg = k + (size_t)bh * sh.S * D;
+  const float* vg = v + (size_t)bh * sh.S * D;
   const float* kpm_b = HAS_KPM ? kpm + (size_t)b * sh.S : nullptr;
   const size_t row0 = (size_t)bh * sh.S + r0;
 
@@ -290,7 +301,7 @@ bs_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (HAS_KPM) s += kpm_b[k0 + c0 + c];
         if (HAS_AM) s += am[(size_t)(r0 + r) * sh.S + k0 + c0 + c];
         const float p = s > kTripleThresh ? expf(s - lse_s[r]) : 0.f;
-        ps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
+        ps[e] = p * (dps[e] - dl_s[r]);
       }
       __syncthreads();
       mm(dqs, D, true, nullptr, ps, R, 1, ks, D + 1, 1, R, D, R);
@@ -298,22 +309,54 @@ bs_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqg = dq + row0 * D;
+  float* dqg = dq + row0 * D;
   for (int e = threadIdx.x; e < R * D; e += blockDim.x)
-    dqg[e] = from_f<T>(dqs[e] * sh.sm_scale);
+    dqg[e] = dqs[e] * sh.sm_scale;
+}
+
+// K15 in bf16 (the tensor-core body, mma_dq.cuh): grid (S / R, B*H), R =
+// min(blk, 64) q rows of one block row per CTA, over its TripleWalk; CH =
+// dq_chunk(blk) keys per chunk. `tally`: see DqRows.
+template <int CH, int DMAX, bool KPM, bool AM>
+__global__ void __launch_bounds__(2 * kMmaMaxRows, DMAX <= 64 ? 3 : 2)
+bs_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ kpm, const float* __restrict__ am,
+                 bf16* __restrict__ dq, unsigned long long* tally, Walk w,
+                 Shape sh) {
+  const int R = blockDim.x / 2;
+  const int D = sh.D;
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H;
+  const int r0 = blockIdx.x * R;
+  const int2 tr = real_triples(w, (bh % sh.H) * (sh.S / sh.blk) + r0 / sh.blk);
+  const TripleWalk walk{w.partner + tr.x,
+                        AM ? am + (size_t)r0 * sh.S : nullptr, tr.y, sh.blk,
+                        sh.S};
+  const size_t row0 = (size_t)bh * sh.S + r0;
+  const size_t kv0 = (size_t)bh * sh.S * D;
+  const DqRows rows{q + row0 * D, dout + row0 * D, lse + row0, delta + row0,
+                    k + kv0, v + kv0, KPM ? kpm + (size_t)b * sh.S : nullptr,
+                    dq + row0 * D, r0, D, bh, sh.sm_scale, tally};
+  mma_dq_body<CH, DMAX, KPM, false, true, AM>(rows, walk, NoBand{},
+                                              Dropout{});
 }
 
 // ------------------------------------------------------------------ K16
-// grid (S / R, B*H): one CTA per head and R key rows, over the column
-// triples of the key block, chunk by chunk of R query rows. The CTA's R
-// key rows' key-mask values are loaded once, beside the staged K and V.
-template <typename T, bool HAS_AM, bool HAS_KPM>
+// fp32 (the CUDA-core body): grid (S / R, B*H): one CTA per head and R
+// key rows, over the column triples of the key block, chunk by chunk of R
+// query rows. The CTA's R key rows' key-mask values are loaded once,
+// beside the staged K and V.
+template <bool HAS_AM, bool HAS_KPM>
 __global__ void __launch_bounds__(kThreads)
-bs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+bs_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const float* __restrict__ kpm, const float* __restrict__ am,
-              T* __restrict__ dk, T* __restrict__ dv, Walk w, Shape sh) {
+              float* __restrict__ dk, float* __restrict__ dv, Walk w,
+              Shape sh) {
   extern __shared__ float smem[];
   const int D = sh.D, blk = sh.blk;
   const int R = rows_of(blk);
@@ -322,8 +365,8 @@ bs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kr0 = blockIdx.x * R;
   const int item = (bh % sh.H) * (sh.S / blk) + kr0 / blk;
   const int begin = w.offs[item], end = w.offs[item + 1];
-  const T* qg = q + (size_t)bh * sh.S * D;
-  const T* dog = dout + (size_t)bh * sh.S * D;
+  const float* qg = q + (size_t)bh * sh.S * D;
+  const float* dog = dout + (size_t)bh * sh.S * D;
 
   float* ks = smem;                 // R x (D+1)
   float* vs = ks + R * (D + 1);     // R x (D+1)
@@ -367,8 +410,8 @@ bs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (HAS_KPM) s += km_s[c];
         if (HAS_AM) s += am[(size_t)(q0 + c0 + r) * sh.S + kr0 + c];
         const float p = s > kTripleThresh ? expf(s - lse_s[r]) : 0.f;
-        ps[e] = round_to<T>(p);
-        dps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
+        ps[e] = p;
+        dps[e] = p * (dps[e] - dl_s[r]);
       }
       __syncthreads();
       // dv += p^T . do ; dk += ds^T . q
@@ -378,12 +421,58 @@ bs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkg = dk + ((size_t)bh * sh.S + kr0) * D;
-  T* dvg = dv + ((size_t)bh * sh.S + kr0) * D;
+  float* dkg = dk + ((size_t)bh * sh.S + kr0) * D;
+  float* dvg = dv + ((size_t)bh * sh.S + kr0) * D;
   for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
-    dkg[e] = from_f<T>(dks[e] * sh.sm_scale);
-    dvg[e] = from_f<T>(dvs[e]);
+    dkg[e] = dks[e] * sh.sm_scale;
+    dvg[e] = dvs[e];
   }
+}
+
+// K16 in bf16 (the tensor-core body, mma_dkv.cuh): grid (S / R, B*H), R =
+// min(blk, 64) key rows of one block column per CTA, 16 per warp, over
+// the column's real triples; CH = dkv_chunk(blk) query rows per chunk.
+struct ColWalk {
+  const int32_t* partner;  // the block column's partner (query) blocks
+  const float* am;         // (S, S) at the CTA's first key, or null
+  int count, blk, S;       // real triples, block, mask row stride
+  __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int rows() const { return blk; }
+  __device__ __forceinline__ int2 tile(int t) const {
+    return make_int2(partner[t] * blk, 0);
+  }
+  __device__ __forceinline__ const float* mask(int t) const {
+    return am + (size_t)partner[t] * blk * S;
+  }
+  __device__ __forceinline__ int mask_ld() const { return S; }
+};
+
+template <int CH, int DMAX, bool KPM, bool AM>
+__global__ void __launch_bounds__(2 * kMmaMaxRows, DMAX <= 64 ? 3 : 2)
+bs_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  const float* __restrict__ kpm, const float* __restrict__ am,
+                  bf16* __restrict__ dk, bf16* __restrict__ dv,
+                  unsigned long long* tally, Walk w, Shape sh) {
+  const int R = blockDim.x / 2;
+  const int D = sh.D;
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H;
+  const int kr0 = blockIdx.x * R;
+  const int2 tr =
+      real_triples(w, (bh % sh.H) * (sh.S / sh.blk) + kr0 / sh.blk);
+  const ColWalk walk{w.partner + tr.x, AM ? am + kr0 : nullptr, tr.y, sh.blk,
+                     sh.S};
+  const size_t q0 = (size_t)bh * sh.S;
+  const size_t krow = q0 + kr0;
+  const DkvRows rows{q + q0 * D, k + krow * D, v + krow * D, dout + q0 * D,
+                     lse + q0, delta + q0,
+                     KPM ? kpm + (size_t)b * sh.S : nullptr, dk + krow * D,
+                     dv + krow * D, 0, kr0, D, bh, sh.sm_scale, tally};
+  mma_dkv_body<CH, DMAX, KPM, false, true, AM>(rows, walk, NoBand{},
+                                               Dropout{});
 }
 
 size_t fwd_smem(int R, int D, int blk) {
@@ -403,22 +492,12 @@ bool bad_shape(int bh, int H, int S, int D, int blk) {
          S % blk != 0;
 }
 
-// one of the eight instantiations of `Kern<T, HAS_AM, HAS_KPM>` by dtype
-// (0 = float32, 1 = bfloat16) and the masks given; null for a bad dtype
-template <template <typename, bool, bool> class Kern>
-auto pick(int dtype, bool am, bool kpm)
-    -> decltype(&Kern<float, false, false>::run) {
-  if (dtype == 0)
-    return am ? (kpm ? &Kern<float, true, true>::run
-                     : &Kern<float, true, false>::run)
-              : (kpm ? &Kern<float, false, true>::run
-                     : &Kern<float, false, false>::run);
-  if (dtype == 1)
-    return am ? (kpm ? &Kern<__nv_bfloat16, true, true>::run
-                     : &Kern<__nv_bfloat16, true, false>::run)
-              : (kpm ? &Kern<__nv_bfloat16, false, true>::run
-                     : &Kern<__nv_bfloat16, false, false>::run);
-  return nullptr;
+// the instantiation of `Kern<HAS_AM, HAS_KPM>` (an fp32 CUDA-core body)
+// for the masks given
+template <template <bool, bool> class Kern>
+auto pick_fp32(bool am, bool kpm) -> decltype(&Kern<false, false>::run) {
+  return am ? (kpm ? &Kern<true, true>::run : &Kern<true, false>::run)
+            : (kpm ? &Kern<false, true>::run : &Kern<false, false>::run);
 }
 
 template <int W, int DMAX, bool KPM, bool AM>
@@ -456,45 +535,114 @@ FwdMma pick_fwd_mma_blk(int blk, int D, bool kpm, bool am) {
                      : pick_fwd_mma<128, 128>(kpm, am);
 }
 
-template <typename T, bool AM, bool KPM>
+template <int CH, int DMAX, bool KPM, bool AM>
+cudaError_t run_dq_mma(dim3 grid, int threads, size_t smem, cudaStream_t s,
+                       const void* q, const void* k, const void* v,
+                       const void* dout, const float* ls, const float* dl,
+                       const float* kpm, const float* am, void* dq,
+                       unsigned long long* tally, Walk w, Shape sh) {
+  return launch_rows(bs_dq_mma_kernel<CH, DMAX, KPM, AM>, grid, threads,
+                     smem, s, static_cast<const bf16*>(q),
+                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                     static_cast<const bf16*>(dout), ls, dl, kpm, am,
+                     static_cast<bf16*>(dq), tally, w, sh);
+}
+
+template <int CH, int DMAX, bool KPM, bool AM>
+cudaError_t run_dkv_mma(dim3 grid, int threads, size_t smem,
+                        cudaStream_t s, const void* q, const void* k,
+                        const void* v, const void* dout, const float* ls,
+                        const float* dl, const float* kpm, const float* am,
+                        void* dk, void* dv, unsigned long long* tally, Walk w,
+                        Shape sh) {
+  return launch_rows(bs_dkv_mma_kernel<CH, DMAX, KPM, AM>, grid, threads,
+                     smem, s, static_cast<const bf16*>(q),
+                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                     static_cast<const bf16*>(dout), ls, dl, kpm, am,
+                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), tally, w,
+                     sh);
+}
+
+using DqMma = decltype(&run_dq_mma<16, 64, false, false>);
+using DkvMma = decltype(&run_dkv_mma<16, 64, false, false>);
+
+template <int CH, int DMAX>
+DqMma pick_dq_mma(bool kpm, bool am) {
+  return kpm ? (am ? run_dq_mma<CH, DMAX, true, true>
+                   : run_dq_mma<CH, DMAX, true, false>)
+             : (am ? run_dq_mma<CH, DMAX, false, true>
+                   : run_dq_mma<CH, DMAX, false, false>);
+}
+
+template <int CH, int DMAX>
+DkvMma pick_dkv_mma(bool kpm, bool am) {
+  return kpm ? (am ? run_dkv_mma<CH, DMAX, true, true>
+                   : run_dkv_mma<CH, DMAX, true, false>)
+             : (am ? run_dkv_mma<CH, DMAX, false, true>
+                   : run_dkv_mma<CH, DMAX, false, false>);
+}
+
+// the tensor-core instantiations of a block, head dim and the masks given:
+// chunks of 16 keys (K15) or query rows (K16) at block 16, else 32 (the
+// bad_shape checks passed: D <= 128)
+DqMma pick_dq_mma_blk(int blk, int D, bool kpm, bool am) {
+  const bool wide = D > 64;
+  return dq_chunk(blk) == 16
+             ? (wide ? pick_dq_mma<16, 128>(kpm, am)
+                     : pick_dq_mma<16, 64>(kpm, am))
+             : (wide ? pick_dq_mma<32, 128>(kpm, am)
+                     : pick_dq_mma<32, 64>(kpm, am));
+}
+
+DkvMma pick_dkv_mma_blk(int blk, int D, bool kpm, bool am) {
+  const bool wide = D > 64;
+  return dkv_chunk(blk) == 16
+             ? (wide ? pick_dkv_mma<16, 128>(kpm, am)
+                     : pick_dkv_mma<16, 64>(kpm, am))
+             : (wide ? pick_dkv_mma<32, 128>(kpm, am)
+                     : pick_dkv_mma<32, 64>(kpm, am));
+}
+
+template <bool AM, bool KPM>
 struct Fwd {
   static cudaError_t run(dim3 grid, size_t smem, cudaStream_t s,
                          const void* q, const void* k, const void* v,
                          const float* kpm, const float* am, void* o,
                          float* lse, Walk w, Shape sh) {
-    return launch(bs_fwd_kernel<T, AM, KPM>, grid, smem, s,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), kpm, am, static_cast<T*>(o), lse,
-                  w, sh);
+    return launch(bs_fwd_kernel<AM, KPM>, grid, smem, s,
+                  static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), kpm, am,
+                  static_cast<float*>(o), lse, w, sh);
   }
 };
 
-template <typename T, bool AM, bool KPM>
+template <bool AM, bool KPM>
 struct Dq {
   static cudaError_t run(dim3 grid, size_t smem, cudaStream_t s,
                          const void* q, const void* k, const void* v,
                          const void* dout, const float* ls, const float* dl,
                          const float* kpm, const float* am, void* dq, Walk w,
                          Shape sh) {
-    return launch(bs_dq_kernel<T, AM, KPM>, grid, smem, s,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(dout), ls,
-                  dl, kpm, am, static_cast<T*>(dq), w, sh);
+    return launch(bs_dq_kernel<AM, KPM>, grid, smem, s,
+                  static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v),
+                  static_cast<const float*>(dout), ls, dl, kpm, am,
+                  static_cast<float*>(dq), w, sh);
   }
 };
 
-template <typename T, bool AM, bool KPM>
+template <bool AM, bool KPM>
 struct Dkv {
   static cudaError_t run(dim3 grid, size_t smem, cudaStream_t s,
                          const void* q, const void* k, const void* v,
                          const void* dout, const float* ls, const float* dl,
                          const float* kpm, const float* am, void* dk,
                          void* dv, Walk w, Shape sh) {
-    return launch(bs_dkv_kernel<T, AM, KPM>, grid, smem, s,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(dout), ls,
-                  dl, kpm, am, static_cast<T*>(dk), static_cast<T*>(dv), w,
-                  sh);
+    return launch(bs_dkv_kernel<AM, KPM>, grid, smem, s,
+                  static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v),
+                  static_cast<const float*>(dout), ls, dl, kpm, am,
+                  static_cast<float*>(dk), static_cast<float*>(dv), w, sh);
   }
 };
 
@@ -511,10 +659,11 @@ Walk walk_of(const void* offs, const void* partner, const void* valid) {
 // null for none. offs (items + 1), partner, valid: int32 triples of the
 // row walk (bs_fwd, bs_dq) or the column walk (bs_dkv). Each entry point
 // returns the CUDA error of its launch (0 on success); it launches on
-// `stream` and does not synchronise. bs_fwd runs bf16 on the tensor-core
-// body (q, k, v and o 16-byte aligned, kpm and am 8: else
-// cudaErrorInvalidValue) and fp32 on the CUDA-core body; the backward
-// runs the CUDA-core bodies in both.
+// `stream` and does not synchronise. Each runs bf16 on its tensor-core
+// body (q, k, v, do and the outputs 16-byte aligned, kpm and am 8: else
+// cudaErrorInvalidValue) and fp32 on its CUDA-core body. tally (bs_dq,
+// bs_dkv): null, or a uint64 to which the tensor-core body adds the
+// cells it sums again (a measurement; the fp32 bodies add nothing).
 extern "C" int bs_fwd(const void* q, const void* k, const void* v,
                       const void* kpm, const void* am, void* o, void* lse,
                       const void* offs, const void* partner,
@@ -539,54 +688,74 @@ extern "C" int bs_fwd(const void* q, const void* k, const void* v,
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const int R = rows_of(block);      // fp32: the CUDA-core body
-  auto run = am != nullptr ? (kpm != nullptr ? &Fwd<float, true, true>::run
-                                             : &Fwd<float, true, false>::run)
-                           : (kpm != nullptr ? &Fwd<float, false, true>::run
-                                             : &Fwd<float, false, false>::run);
-  return (int)run(dim3(seq / R, bh), fwd_smem(R, head_dim, block), s, q, k,
-                  v, km, mk, o, static_cast<float*>(lse), w, sh);
+  return (int)pick_fp32<Fwd>(am != nullptr, kpm != nullptr)(
+      dim3(seq / R, bh), fwd_smem(R, head_dim, block), s, q, k, v, km, mk, o,
+      static_cast<float*>(lse), w, sh);
 }
 
 extern "C" int bs_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
-                     const void* kpm, const void* am, void* dq,
+                     const void* kpm, const void* am, void* dq, void* tally,
                      const void* offs, const void* partner,
                      const void* valid, int dtype, int bh, int heads,
                      int seq, int head_dim, int block, float sm_scale,
                      void* stream) {
   if (bad_shape(bh, heads, seq, head_dim, block))
     return (int)cudaErrorInvalidValue;
-  auto run = pick<Dq>(dtype, am != nullptr, kpm != nullptr);
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  const int R = rows_of(block);
-  return (int)run(dim3(seq / R, bh), bwd_smem(R, head_dim),
-                  static_cast<cudaStream_t>(stream), q, k, v, dout,
-                  static_cast<const float*>(lse),
-                  static_cast<const float*>(delta),
-                  static_cast<const float*>(kpm),
-                  static_cast<const float*>(am), dq,
-                  walk_of(offs, partner, valid),
-                  Shape{heads, seq, head_dim, block, sm_scale});
+  const Shape sh{heads, seq, head_dim, block, sm_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const float* km = static_cast<const float*>(kpm);
+  const float* mk = static_cast<const float*>(am);
+  const Walk w = walk_of(offs, partner, valid);
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    // one output: dq stands for both of dk/dv's
+    if (dkv_misaligned(q, k, v, dout, dq, dq, kpm, am))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(block);
+    return (int)pick_dq_mma_blk(block, head_dim, kpm != nullptr,
+                                am != nullptr)(
+        dim3(seq / R, bh), 2 * R, mma_dq_smem(R, block, head_dim), s, q, k,
+        v, dout, ls, dl, km, mk, dq,
+        static_cast<unsigned long long*>(tally), w, sh);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(block);      // fp32: the CUDA-core body
+  return (int)pick_fp32<Dq>(am != nullptr, kpm != nullptr)(
+      dim3(seq / R, bh), bwd_smem(R, head_dim), s, q, k, v, dout, ls, dl, km,
+      mk, dq, w, sh);
 }
 
 extern "C" int bs_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       const void* kpm, const void* am, void* dk, void* dv,
-                      const void* offs, const void* partner,
+                      void* tally, const void* offs, const void* partner,
                       const void* valid, int dtype, int bh, int heads,
                       int seq, int head_dim, int block, float sm_scale,
                       void* stream) {
   if (bad_shape(bh, heads, seq, head_dim, block))
     return (int)cudaErrorInvalidValue;
-  auto run = pick<Dkv>(dtype, am != nullptr, kpm != nullptr);
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  const int R = rows_of(block);
-  return (int)run(dim3(seq / R, bh), bwd_smem(R, head_dim),
-                  static_cast<cudaStream_t>(stream), q, k, v, dout,
-                  static_cast<const float*>(lse),
-                  static_cast<const float*>(delta),
-                  static_cast<const float*>(kpm),
-                  static_cast<const float*>(am), dk, dv,
-                  walk_of(offs, partner, valid),
-                  Shape{heads, seq, head_dim, block, sm_scale});
+  const Shape sh{heads, seq, head_dim, block, sm_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const float* km = static_cast<const float*>(kpm);
+  const float* mk = static_cast<const float*>(am);
+  const Walk w = walk_of(offs, partner, valid);
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    if (dkv_misaligned(q, k, v, dout, dk, dv, kpm, am))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(block);
+    return (int)pick_dkv_mma_blk(block, head_dim, kpm != nullptr,
+                                 am != nullptr)(
+        dim3(seq / R, bh), 2 * R, mma_dkv_smem(R, block, head_dim), s, q, k,
+        v, dout, ls, dl, km, mk, dk, dv,
+        static_cast<unsigned long long*>(tally), w, sh);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(block);      // fp32: the CUDA-core body
+  return (int)pick_fp32<Dkv>(am != nullptr, kpm != nullptr)(
+      dim3(seq / R, bh), bwd_smem(R, head_dim), s, q, k, v, dout, ls, dl, km,
+      mk, dk, dv, w, sh);
 }

@@ -1,9 +1,10 @@
-// The bf16 dk/dv body of K3 (masked_flash.cu) and K7 (flash.cu) on the
-// tensor cores: one walk over tiles of query rows for a CTA of 16 key
-// rows per warp, on mma_tiles.cuh's fragments.
+// The bf16 dk/dv body of K3 (masked_flash.cu), K7 (flash.cu) and K16
+// (blocksparse.cu) on the tensor cores: one walk over tiles of query rows
+// for a CTA of 16 key rows per warp, on mma_tiles.cuh's fragments.
 //
 // A CTA owns R = 16 * warps key rows of one q head's kv row (one key
-// block of K3's CSC walk, one key tile of K7), R = min(key block, 64).
+// block of K3's CSC walk, one key tile of K7, one key block of K16's
+// column triples), R = min(key block, 64).
 // Each warp keeps the dK and dV accumulators of its 16 keys in
 // registers and reads its K and V fragments from the CTA's staged K and
 // V rows at each step. Q and dO stream through a ring of shared
@@ -17,10 +18,12 @@
 // identity of mma_tiles.cuh) and dO and Q as B operands through
 // ldmatrix.trans. Nothing goes back to shared memory.
 //
-// The function is the CUDA-core bodies' (mf_dkv_kernel, flash_dkv_kernel):
-// s = (q.k) * sm_scale, + kpm[key] in fp32, then the causal clip of a
-// CAUSAL tile and the band predicate of a BAND tile set NEG_INF; p =
-// exp(s - lse[q]) (with GUARD, K3: 0 where s <= VALID_THRESH); under
+// The function is the CUDA-core bodies' (mf_dkv_kernel, flash_dkv_kernel,
+// bs_dkv_kernel): s = (q.k) * sm_scale, + kpm[key], then with AM (K16) +
+// the walk's additive mask cell am[q, key] (the (S, S) mask read in
+// place), each rounded in fp32; then the causal clip of a CAUSAL tile and
+// the band predicate of a BAND tile set NEG_INF; p = exp(s - lse[q])
+// (with GUARD, K3 and K16: 0 where s <= VALID_THRESH, -1e28); under
 // dropout, keyed on (bh, q, k), pd = p / (1 - rate) and dp = dp / (1 -
 // rate) where kept, both 0 where dropped; ds = p (dp - delta[q]). pd and
 // ds round to bf16 before their products; dK is scaled by sm_scale at
@@ -42,7 +45,11 @@
 //     so with u(x) = 2^24 |x|, up = u(eps_s) + 4 |lse| + 4 + 9.25 |a|
 //     (mma_fwd.cuh's count, the row max m replaced by lse: one rounding
 //     each of the scale, the key mask and s - lse, __expf's and expf's
-//     errors); pd = p / (1 - rate) adds one rounding: up + 2.
+//     errors); with AM the mask's sum is one more rounding, 4 |s| <=
+//     4 |lse| + 4 |a| more, and the sums before it may lie |mask| above
+//     |s|, 4 |mask| more: up = u(eps_s) + 8 |lse| + 4 + 13.25 |a| +
+//     4 |mask| (mma_fwd.cuh counts the same); pd = p / (1 - rate) adds
+//     one rounding: up + 2.
 //   ds = p t, t = dp' - delta (dp' = dp, or dp / (1 - rate)): dds <=
 //     dp |t| + p dt + 2 ulps of the two roundings, with dp <= up ulps of
 //     p and dt <= eps_d / (1 - rate) + |dp'| 2^-23 (the scaling's
@@ -61,7 +68,9 @@
 // buffer: a lane re-sums a cell of any lane, so the warp runs
 // ceil(flagged / 32) rounds, not the most one lane holds. lse is given,
 // so no running max is at stake here (K1's max re-sum has no
-// counterpart).
+// counterpart). A cell whose p is 0 (the guard's, a masked or pad key's:
+// 0 in both, and so are pd and ds) is never at stake, whatever its
+// bounds, which are huge there.
 //
 // Skips, each leaving every output as the walk without it: a chunk in
 // which no cell of the CTA's keys is kept (a CAUSAL tile's chunk wholly
@@ -98,6 +107,9 @@ struct DkvRows {
   int k0;               // the first key index of the CTA
   int D, bh;
   float sm_scale;
+  // where given (K16's measurement), the body adds the cells it sums
+  // again; left out (null) by the kernels that count none
+  unsigned long long* tally;
 };
 
 // query rows per staged chunk for a walk of tiles of `rows` query rows
@@ -114,16 +126,18 @@ inline size_t mma_dkv_smem(int R, int rows, int D) {
          sizeof(float) * kDkvStages * 2 * ch + (size_t)(R / 16) * kRedoBytes;
 }
 
-// whether the body's loads or stores would be misaligned: 16-byte rows
-// of q, k, v, do (and the outputs), the key mask's 8-byte pairs
+// whether the backward bodies' loads or stores would be misaligned:
+// 16-byte rows of q, k, v, do (and the outputs), the key mask's and the
+// additive mask's 8-byte pairs
 inline bool dkv_misaligned(const void* q, const void* k, const void* v,
                            const void* dout, const void* dk, const void* dv,
-                           const void* kpm) {
+                           const void* kpm, const void* am = nullptr) {
   auto off = [](const void* p, uintptr_t a) {
     return reinterpret_cast<uintptr_t>(p) % a != 0;
   };
   return off(q, 16) || off(k, 16) || off(v, 16) || off(dout, 16) ||
-         off(dk, 16) || off(dv, 16) || (kpm != nullptr && off(kpm, 8));
+         off(dk, 16) || off(dv, 16) || (kpm != nullptr && off(kpm, 8)) ||
+         (am != nullptr && off(am, 8));
 }
 
 // one fp32 value into shared memory (lse, delta), asynchronously
@@ -176,10 +190,12 @@ __device__ __forceinline__ float ds_ulps(float up, float dterm, float ta) {
 // the warp, lane by lane, and cell n of a round goes to lane n % 32.
 // sum(ol, i) gives the two ordered sums of lane ol's cell i on the lane
 // that takes it; apply(i, sums) hands them back to the lane that owns the
-// cell. `cell` and `sums` are the warp's 32-entry shared buffers.
+// cell. `cell` and `sums` are the warp's 32-entry shared buffers. Where
+// `tally` is given, lane 0 adds the warp's count of cells to it.
 template <typename Sum, typename Apply>
 __device__ __forceinline__ void resum_spread(uint32_t redo, int lane,
                                              int* cell, float2* sums,
+                                             unsigned long long* tally,
                                              const Sum& sum,
                                              const Apply& apply) {
   const int cnt = __popc(redo);
@@ -190,6 +206,8 @@ __device__ __forceinline__ void resum_spread(uint32_t redo, int lane,
     if (lane >= o) off += y;
   }
   const int total = __shfl_sync(0xffffffffu, off, 31);
+  if (tally != nullptr && lane == 0 && total > 0)
+    atomicAdd(tally, (unsigned long long)total);
   off -= cnt;
 #pragma unroll 1
   for (int base = 0; base < total; base += 32) {
@@ -212,9 +230,11 @@ __device__ __forceinline__ void resum_spread(uint32_t redo, int lane,
 }
 
 // Walk: n() tiles, tile(t) = (first query, kind bits), rows() query rows
-// per tile (16, 32, 64, 128). CH = dkv_chunk(rows()); DMAX: 64 or 128.
-template <int CH, int DMAX, bool KPM, bool BAND, bool GUARD, typename Walk,
-          typename BandT>
+// per tile (16, 32, 64, 128); with AM, mask(t) the tile's additive fp32
+// mask at its first query and the CTA's first key (query stride
+// mask_ld()). CH = dkv_chunk(rows()); DMAX: 64 or 128.
+template <int CH, int DMAX, bool KPM, bool BAND, bool GUARD, bool AM = false,
+          typename Walk, typename BandT>
 __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
                                              const Walk& walk,
                                              const BandT& bd,
@@ -332,6 +352,14 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
     const bf16* dch = qch + CH * ld;
     const float* ls = reinterpret_cast<const float*>(dch + CH * ld);
     const float* dl = ls + CH;
+    // AM: the mask at the chunk's first query and this lane's key wk0 + g
+    // (key + 8 lies 8 past it, query + 1 mld past it)
+    const float* amr = nullptr;
+    int mld = 0;
+    if constexpr (AM) {
+      mld = walk.mask_ld();
+      amr = walk.mask(ct) + (size_t)cc * CH * mld + warp * 16 + g;
+    }
     // bit j: whether the warp's keys keep a cell of queries 16j..16j+15
     unsigned live = (1u << NG) - 1u;
     if (kind & kKindCausal) {
@@ -423,9 +451,10 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
         us[r] = 16777216.f * kSumErr * sq * bs[r] * a.sm_scale;
         ud[r] = 16777216.f * kSumErr * sq * bd2[r] * inv;
       }
-      auto score = [&](float raw, int r) {
+      auto score = [&](float raw, int r, float am) {
         const float x = __fmul_rn(raw, a.sm_scale);
-        return KPM ? __fadd_rn(x, km[r]) : x;
+        const float y = KPM ? __fadd_rn(x, km[r]) : x;
+        return AM ? __fadd_rn(y, am) : y;
       };
       // whether the cell (query qi, key ki) of score tile j is masked:
       // its group skipped, the causal clip, the band
@@ -445,16 +474,27 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
         const int qc = 8 * j + 2 * tq;
         const float2 lq = *reinterpret_cast<const float2*>(ls + qc);
         const float2 dq = *reinterpret_cast<const float2*>(dl + qc);
-        // up's part of each query: 4 |lse| + 4
-        const float2 lu = make_float2(fmaf(4.f, fabsf(lq.x), 4.f),
-                                      fmaf(4.f, fabsf(lq.y), 4.f));
+        // up's part of each query: 4 |lse| + 4 (AM: 8 |lse| + 4)
+        constexpr float kLse = AM ? 8.f : 4.f;
+        const float2 lu = make_float2(fmaf(kLse, fabsf(lq.x), 4.f),
+                                      fmaf(kLse, fabsf(lq.y), 4.f));
+        // AM: cell e's mask value, query qc + (e & 1), key g + 8 (e >> 1)
+        float av[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (AM) {
+          const float* m0 = amr + qc * mld;
+          av[0] = m0[0];
+          av[1] = m0[mld];
+          av[2] = m0[8];
+          av[3] = m0[mld + 8];
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
           const int qi = q0 + qc + (e & 1), ki = wk0 + g + 8 * r;
           const float lse_q = (e & 1) ? lq.y : lq.x;
           const float dlt = (e & 1) ? dq.y : dq.x;
-          const float x = masked(j, qi, ki) ? kNegInf : score(s[j][e], r);
+          const float x =
+              masked(j, qi, ki) ? kNegInf : score(s[j][e], r, av[e]);
           const float arg = x - lse_q;
           // ex2.approx here; the plain versions' expf where a rounding
           // is at stake
@@ -468,8 +508,9 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
           }
           const float t = dp - dlt, ta = fabsf(t);
           const float ds = p * t;
-          const float up =
-              us[r] + ((e & 1) ? lu.y : lu.x) + 9.25f * fabsf(arg);
+          float up = us[r] + ((e & 1) ? lu.y : lu.x) +
+                     (AM ? 13.25f : 9.25f) * fabsf(arg);
+          if constexpr (AM) up = fmaf(4.f, fabsf(av[e]), up);
           // dp's part of ud (t = 0 makes it infinite: at stake)
           const float dterm = kept && !((dzero >> (4 * j + e)) & 1u)
                                   ? ud[r] + (dr.on ? 2.f * fabsf(dp) : 0.f)
@@ -501,7 +542,9 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
       auto exact = [&](int i, float raw, float dp) {
         const int qc = 8 * (i >> 2) + 2 * tq + (i & 1), r = (i & 3) >> 1;
         const int qi = q0 + qc, ki = wk0 + g + 8 * r;
-        const float x = masked(i >> 2, qi, ki) ? kNegInf : score(raw, r);
+        const float x = masked(i >> 2, qi, ki)
+                            ? kNegInf
+                            : score(raw, r, AM ? amr[qc * mld + 8 * r] : 0.f);
         const float p =
             (!GUARD || x > kValidThresh) ? expf(x - ls[qc]) : 0.f;
         float pd = p;
@@ -515,7 +558,7 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
       };
       // the warp's cells at stake, spread over its lanes
       resum_spread(
-          redo, lane, redo_cell, redo_sum,
+          redo, lane, redo_cell, redo_sum, a.tally,
           [&](int ol, int i) {
             const int qr = (8 * (i >> 2) + 2 * (ol & 3) + (i & 1)) * ld;
             const int kr = (warp * 16 + (ol >> 2) + 8 * ((i & 3) >> 1)) * ld;

@@ -1,40 +1,44 @@
-// The bf16 dq body of K2 (masked_flash.cu) and K6 (flash.cu) on the
-// tensor cores: one walk over key tiles for a CTA of 16 query rows per
-// warp, on mma_tiles.cuh's fragments.
+// The bf16 dq body of K2 (masked_flash.cu), K6 (flash.cu) and K15
+// (blocksparse.cu) on the tensor cores: one walk over key tiles for a CTA
+// of 16 query rows per warp, on mma_tiles.cuh's fragments.
 //
 // A CTA owns R = 16 * warps query rows of one q head (one block row of
-// K2's CSR walk, one query tile of K6), R = min(tile rows, 64). Its Q
-// and dO rows are staged once as bf16; each lane holds the lse and delta
-// of its two rows, and each warp the dQ accumulator of its 16 rows in
-// registers. K and V stream through a ring of shared chunks of CH =
-// min(tile keys, 32) keys in bf16, loaded with cp.async, kDqAhead chunks
-// in flight ahead of the one computing, one barrier per chunk. Per chunk
-// and warp: S = Q K^T and dP = dO V^T (16 queries x CH keys; each
-// 16-wide step an mma from zero whose partial is added in fp32, K and V
-// as B operands by ldmatrix), the cells' p and ds in registers, then
-// dQ += dS K with dS as the A operand straight from the score fragments
-// (the C-to-A identity of mma_tiles.cuh) and K as the B operand through
-// ldmatrix.trans. Nothing goes back to shared memory but the descriptors
-// of the cells summed again.
+// K2's CSR walk, one query tile of K6, one block row of K15's row
+// triples), R = min(tile rows, 64). Its Q and dO rows are staged once as
+// bf16; each lane holds the lse and delta of its two rows, and each warp
+// the dQ accumulator of its 16 rows in registers. K and V stream through
+// a ring of shared chunks of CH = min(tile keys, 32) keys in bf16, loaded
+// with cp.async, kDqAhead chunks in flight ahead of the one computing, one
+// barrier per chunk. Per chunk and warp: S = Q K^T and dP = dO V^T (16
+// queries x CH keys; each 16-wide step an mma from zero whose partial is
+// added in fp32, K and V as B operands by ldmatrix), the cells' p and ds
+// in registers, then dQ += dS K with dS as the A operand straight from the
+// score fragments (the C-to-A identity of mma_tiles.cuh) and K as the B
+// operand through ldmatrix.trans. Nothing goes back to shared memory but
+// the descriptors of the cells summed again.
 //
-// The function is the CUDA-core bodies' (mf_dq_kernel, flash_dq_kernel)
-// and masked_flash_dq_plain's: s = (q.k) * sm_scale, + kpm[key] in fp32,
-// then the causal clip of a CAUSAL tile and the band predicate of a BAND
-// tile set NEG_INF; p = exp(s - lse[q]) (with GUARD, K2: 0 where s <=
-// VALID_THRESH); under dropout, keyed on (bh, q, k), dp = dp / (1 - rate)
-// where kept and 0 where dropped; ds = p (dp - delta[q]), rounded to bf16
-// before dQ += dS K; dq is scaled by sm_scale once at the end and written
-// in bf16 (dq is per q head: no GQA partials).
+// The function is the CUDA-core bodies' (mf_dq_kernel, flash_dq_kernel,
+// bs_dq_kernel) and their plain versions': s = (q.k) * sm_scale, +
+// kpm[key], then with AM (K15) + the walk's additive mask cell am[q, key]
+// (the (S, S) mask read in place, float2 pairs per 8-key fragment), each
+// rounded in fp32; then the causal clip of a CAUSAL tile and the band
+// predicate of a BAND tile set NEG_INF; p = exp(s - lse[q]) (with GUARD,
+// K2 and K15: 0 where s <= VALID_THRESH, -1e28); under dropout, keyed on
+// (bh, q, k), dp = dp / (1 - rate) where kept and 0 where dropped; ds = p
+// (dp - delta[q]), rounded to bf16 before dQ += dS K; dq is scaled by
+// sm_scale once at the end and written in bf16 (dq is per q head: no GQA
+// partials).
 //
 // The rounding of ds is held to the plain versions' as mma_dkv.cuh holds
 // it (its derivation of up and ud, with pd left out: dq rounds ds only).
 // Beside S the body takes sum_d |q_d k_d| and beside dP sum_d |do_d v_d|
 // (the mmas of |Q| and |K|, of |dO| and |V|); their largest over a
 // lane's cells of one query row bounds how far its score and dp can part
-// from theirs. A cell whose ds lies within ud ulps of a bf16 rounding
-// midpoint is summed again in their order from the staged rows
-// (ordered_dot2: its s and its dp) and its p taken with their expf; the
-// warp spreads its flagged cells over its lanes (resum_spread).
+// from theirs (with AM, up counts the mask's sum as mma_dkv.cuh does). A
+// cell whose ds lies within ud ulps of a bf16 rounding midpoint is summed
+// again in their order from the staged rows (ordered_dot2: its s and its
+// dp) and its p taken with their expf; the warp spreads its flagged cells
+// over its lanes (resum_spread).
 //
 // Skips, each leaving every output as the walk without it: a chunk in
 // which no cell of the CTA's rows is kept (a CAUSAL tile's chunk wholly
@@ -66,6 +70,9 @@ struct DqRows {
   int r0;               // the first query index of the CTA
   int D, bh;
   float sm_scale;
+  // where given (K15's measurement), the body adds the cells it sums
+  // again; left out (null) by the kernels that count none
+  unsigned long long* tally;
 };
 
 // keys per staged chunk for a walk of tiles of `keys` keys
@@ -83,9 +90,11 @@ inline size_t mma_dq_smem(int R, int keys, int D) {
 }
 
 // Walk: n() tiles, tile(t) = (first key, kind bits), keys() keys per
-// tile (16, 32, 64, 128). CH = dq_chunk(keys()); DMAX: 64 or 128.
-template <int CH, int DMAX, bool KPM, bool BAND, bool GUARD, typename Walk,
-          typename BandT>
+// tile (16, 32, 64, 128); with AM, mask(t) the tile's additive fp32 mask
+// at the CTA's first row (row stride mask_ld(), even, 8-byte aligned).
+// CH = dq_chunk(keys()); DMAX: 64 or 128.
+template <int CH, int DMAX, bool KPM, bool BAND, bool GUARD, bool AM = false,
+          typename Walk, typename BandT>
 __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
                                             const BandT& bd,
                                             const Dropout& dr) {
@@ -162,14 +171,14 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
   // slower at head dims up to 64, PERF.md section 6)
   const int arow = (warp * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
   // this lane's rows wr0 + g and wr0 + g + 8: lse, delta, and up's part
-  // of each (4 |lse| + 4)
+  // of each (4 |lse| + 4; AM: 8 |lse| + 4)
   float lse_r[2], dl_r[2], lu[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int lr = warp * 16 + g + 8 * r;
     lse_r[r] = a.lse[lr];
     dl_r[r] = a.delta[lr];
-    lu[r] = fmaf(4.f, fabsf(lse_r[r]), 4.f);
+    lu[r] = fmaf(AM ? 8.f : 4.f, fabsf(lse_r[r]), 4.f);
   }
 
   int step = 0;
@@ -201,6 +210,14 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
     const int k0 = tr.x + cc * CH, kind = tr.y;
     const bf16* kch = advance();
     const bf16* vch = kch + CH * ld;
+    // AM: this lane's mask row g at the chunk's key 2tq (row g + 8 lies
+    // 8 mld past it)
+    const float* amr = nullptr;
+    int mld = 0;
+    if constexpr (AM) {
+      mld = walk.mask_ld();
+      amr = walk.mask(ct) + (warp * 16 + g) * mld + cc * CH + 2 * tq;
+    }
     // bit j: whether the warp's rows keep a cell of keys 16j..16j+15
     unsigned live = (1u << NG) - 1u;
     if (kind & kKindCausal) {
@@ -292,10 +309,12 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
         us[r] = 16777216.f * kSumErr * sq * bs[r] * a.sm_scale;
         ud[r] = 16777216.f * kSumErr * sq * bd2[r] * inv;
       }
-      // the scaled score plus the key mask's value km of its key
-      auto score = [&](float raw, float km) {
+      // the scaled score plus the key mask's value km of its key, then
+      // with AM the mask's value am of its cell
+      auto score = [&](float raw, float km, float am) {
         const float x = __fmul_rn(raw, a.sm_scale);
-        return KPM ? __fadd_rn(x, km) : x;
+        const float y = KPM ? __fadd_rn(x, km) : x;
+        return AM ? __fadd_rn(y, am) : y;
       };
       // whether the cell (query qi, key ki) of score tile j is masked:
       // its group skipped, the causal clip, the band
@@ -314,13 +333,21 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
         const int kc = k0 + 8 * j + 2 * tq;
         float2 km = make_float2(0.f, 0.f);
         if constexpr (KPM) km = *reinterpret_cast<const float2*>(a.kpm + kc);
+        // AM: the mask's pairs at keys 8j + 2tq of rows g and g + 8
+        float2 am0 = make_float2(0.f, 0.f), am1 = am0;
+        if constexpr (AM) {
+          am0 = *reinterpret_cast<const float2*>(amr + 8 * j);
+          am1 = *reinterpret_cast<const float2*>(amr + 8 * mld + 8 * j);
+        }
+        const float av[4] = {am0.x, am0.y, am1.x, am1.y};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
           const int qi = wr0 + g + 8 * r, ki = kc + (e & 1);
-          const float x = masked(j, qi, ki)
-                              ? kNegInf
-                              : score(s[j][e], (e & 1) ? km.y : km.x);
+          const float x =
+              masked(j, qi, ki)
+                  ? kNegInf
+                  : score(s[j][e], (e & 1) ? km.y : km.x, av[e]);
           const float arg = x - lse_r[r];
           // ex2.approx here; the plain versions' expf where the rounding
           // of ds is at stake
@@ -333,7 +360,8 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
           }
           const float t = dp - dl_r[r], ta = fabsf(t);
           const float ds = p * t;
-          const float up = us[r] + lu[r] + 9.25f * fabsf(arg);
+          float up = us[r] + lu[r] + (AM ? 13.25f : 9.25f) * fabsf(arg);
+          if constexpr (AM) up = fmaf(4.f, fabsf(av[e]), up);
           // dp's part of ud (t = 0 makes it infinite: at stake)
           const float dterm = kept && !((dzero >> (4 * j + e)) & 1u)
                                   ? ud[r] + (dr.on ? 2.f * fabsf(dp) : 0.f)
@@ -361,7 +389,7 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
       // order from the staged rows, spread over its lanes; cell i's ds
       // from its score and dp summed so
       resum_spread(
-          redo, lane, redo_cell, redo_sum,
+          redo, lane, redo_cell, redo_sum, a.tally,
           [&](int ol, int i) {
             const int qr = (warp * 16 + (ol >> 2) + 8 * ((i & 3) >> 1)) * ld;
             const int kr = (8 * (i >> 2) + 2 * (ol & 3) + (i & 1)) * ld;
@@ -371,9 +399,11 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
             const int r = (i & 3) >> 1;
             const int qi = wr0 + g + 8 * r;
             const int ki = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+            const float am =
+                AM ? amr[r * 8 * mld + 8 * (i >> 2) + (i & 1)] : 0.f;
             const float x = masked(i >> 2, qi, ki)
                                 ? kNegInf
-                                : score(sd.x, KPM ? a.kpm[ki] : 0.f);
+                                : score(sd.x, KPM ? a.kpm[ki] : 0.f, am);
             const float p =
                 (!GUARD || x > kValidThresh) ? expf(x - lse_r[r]) : 0.f;
             float dp = sd.y;

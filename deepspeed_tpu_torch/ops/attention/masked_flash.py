@@ -710,7 +710,8 @@ def _check_cuda(tensors, mask: BlockMask, key_mask=None):
 
 
 # the fp32 operands a tensor-core body reads in 8-byte pairs: the key
-# mask, and the additive mask of K8 (its tiles) and K14 (the (S, S) mask)
+# mask, and the additive mask of K8 (its tiles) and K14-K16 (the (S, S)
+# mask)
 _PAIR_OPERANDS = ("key_mask", "tiles", "attn_mask")
 
 
@@ -938,7 +939,7 @@ def _count(wrapper, key_mask, mask: BlockMask):
 
 
 def _count_body(wrapper, dtype, bodies=FWD_BODIES):
-    """One launch of ``wrapper`` (K1-K3, K5-K7, K8 or K14), counted in its
+    """One launch of ``wrapper`` (K1-K3, K5-K8 or K14-K16), counted in its
     ``bodies`` by the body it ran (``bodies``: :data:`FWD_BODIES`,
     :data:`DQ_BODIES` or :data:`DKV_BODIES`)."""
     body = bodies[dtype]

@@ -30,12 +30,14 @@ The routes of the JAX package, chosen by its five module flags
   ``_bs_dq_kernel``) and :func:`bs_dkv` (K16, dk and dv over the column
   triples; ``_bs_dkv_kernel``) launch the hand-written kernels of
   ``csrc/blocksparse.cu`` (built with nvcc for sm_90a at first use) on
-  CUDA tensors or raise (K14 in bf16 on K1's tensor-core forward body,
-  ``csrc/mma_fwd.cuh``, in fp32 and K15 and K16 on the CUDA cores:
-  :data:`FWD_BODIES`), and run their plain versions (``bs_*_plain``) on
-  CPU tensors; each launch adds one to the wrapper's ``launches`` and to
-  ``arities`` under :func:`v1_arity`, and K14's to ``bodies`` under the
-  body it ran. :func:`triple_attention` is the
+  CUDA tensors or raise (in bf16 on the tensor cores: K14 on K1's forward
+  body, ``csrc/mma_fwd.cuh``, K15 on K2's dq body, ``csrc/mma_dq.cuh``,
+  K16 on K3's dk/dv body, ``csrc/mma_dkv.cuh``; in fp32 on the CUDA
+  cores: :data:`FWD_BODIES`, :data:`DQ_BODIES`, :data:`DKV_BODIES`), and
+  run their plain versions (``bs_*_plain``) on CPU tensors; each launch
+  adds one to the wrapper's ``launches``, to ``arities`` under
+  :func:`v1_arity` and to ``bodies`` under the body it ran.
+  :func:`triple_attention` is the
   ``torch.autograd.Function`` entry over the three. Their semantics are
   JAX's, threshold included: ``p = 0`` where ``s <= VALID_THRESH``
   (-1e28, not the -1e29 of K8-K10), and a row with no valid key writes
@@ -68,11 +70,12 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.attention.flash import ordered_dot
-# FWD_BODIES: K14 runs K1's forward bodies, by dtype as K1 does
+# FWD_BODIES, DQ_BODIES, DKV_BODIES: K14, K15 and K16 run K1's, K2's and
+# K3's bodies, by dtype as those do
 from deepspeed_tpu_torch.ops.attention.masked_flash import (
-    CHUNK, COARSE_WALK_BLOCKS, FWD_BODIES, KERNEL_BLOCKS, MAX_HEAD_DIM,
-    BlockMask, _check_aligned, _count_body, masked_flash_attention,
-    walk_cost_us)
+    CHUNK, COARSE_WALK_BLOCKS, DKV_BODIES, DQ_BODIES, FWD_BODIES,
+    KERNEL_BLOCKS, MAX_HEAD_DIM, BlockMask, _check_aligned, _count_body,
+    masked_flash_attention, walk_cost_us)
 from deepspeed_tpu_torch.ops.sparse_attention import banded, hybrid
 from deepspeed_tpu_torch.ops.sparse_attention.blocksparse_v2 import (
     RowRunPlan, build_coarse_index, row_run_attention)
@@ -82,7 +85,8 @@ __all__ = ["NEG_INF", "VALID_THRESH", "block_sparse_attention",
            "build_col_luts", "layout_additive_mask", "planned_kernel",
            "build_triples", "TriplePlan", "triple_attention", "bs_fwd",
            "bs_dq", "bs_dkv", "bs_fwd_plain", "bs_dq_plain",
-           "bs_dkv_plain", "v1_arity", "reset_launches", "FWD_BODIES"]
+           "bs_dkv_plain", "v1_arity", "reset_launches", "FWD_BODIES",
+           "DQ_BODIES", "DKV_BODIES"]
 
 NEG_INF = -1e30
 # scores below this are structurally masked: several -1e30 mask terms may
@@ -433,6 +437,15 @@ def _v1_check_fwd_aligned(q, k, v, key_mask=None, attn_mask=None):
                     ("attn_mask", attn_mask)))
 
 
+def _v1_check_bwd_aligned(q, k, v, do, key_mask=None, attn_mask=None):
+    """K15's and K16's operands for their tensor-core bodies, which take
+    the same operands and the same alignment (dq, dk and dv, allocated by
+    the wrappers, are aligned)."""
+    _check_aligned("v1 backward", DQ_BODIES, q.dtype,
+                   (("q", q), ("k", k), ("v", v), ("do", do),
+                    ("key_mask", key_mask), ("attn_mask", attn_mask)))
+
+
 def _v1_launch(name, q, ptrs, plan: TriplePlan, sm_scale):
     """Launch ``name`` of ``csrc/blocksparse.cu`` (built and typed at
     first use) on q's device and current stream; raise on a refused
@@ -483,45 +496,67 @@ def bs_fwd(q, k, v, key_mask, attn_mask, plan: TriplePlan, sm_scale: float):
     return o, lse
 
 
+def _v1_check_tally(tally, q):
+    """``tally``: None, or one int64 on q's device (the cells the
+    tensor-core body sums again are added to it)."""
+    if tally is not None and (tally.dtype != torch.int64
+                              or tally.numel() != 1
+                              or tally.device != q.device):
+        raise ValueError(f"a tally is one int64 on {q.device}, got "
+                         f"{tally.dtype} {tuple(tally.shape)} on "
+                         f"{tally.device}")
+
+
 def bs_dq(q, k, v, do, lse, delta, key_mask, attn_mask, plan: TriplePlan,
-          sm_scale: float):
-    """K15: ``dq`` of :func:`bs_dq_plain`; kernel on CUDA, plain version
-    on the CPU."""
+          sm_scale: float, tally=None):
+    """K15: ``dq`` of :func:`bs_dq_plain`. A CUDA ``q`` launches the sm_90a
+    kernel (raising on any dtype, shape, device, alignment or launch
+    problem), its tensor-core body in bf16 and its CUDA-core body in fp32
+    (:data:`DQ_BODIES`, counted in ``bodies``); a CPU ``q`` runs the plain
+    version. ``tally`` (a measurement): None, or one int64 on q's device
+    to which the tensor-core body adds the cells it sums again in the
+    plain order."""
     _v1_check(q, k, v, key_mask, attn_mask, plan, (do, lse, delta))
     if q.device.type == "cpu":
         return bs_dq_plain(q, k, v, do, lse, delta, key_mask, attn_mask,
                            plan, sm_scale)
+    _v1_check_bwd_aligned(q, k, v, do, key_mask, attn_mask)
+    _v1_check_tally(tally, q)
     dq = torch.empty_like(q)
     _v1_launch("bs_dq", q, [q, k, v, do, lse, delta, key_mask, attn_mask,
-                            dq, *plan.device("rows", q.device)], plan,
+                            dq, tally, *plan.device("rows", q.device)], plan,
                sm_scale)
     _v1_count(bs_dq, key_mask, attn_mask)
+    _count_body(bs_dq, q.dtype, DQ_BODIES)
     return dq
 
 
 def bs_dkv(q, k, v, do, lse, delta, key_mask, attn_mask, plan: TriplePlan,
-           sm_scale: float):
-    """K16: ``(dk, dv)`` of :func:`bs_dkv_plain`; kernel on CUDA, plain
-    version on the CPU."""
+           sm_scale: float, tally=None):
+    """K16: ``(dk, dv)`` of :func:`bs_dkv_plain`; on CUDA as :func:`bs_dq`
+    (:data:`DKV_BODIES`), plain version on the CPU."""
     _v1_check(q, k, v, key_mask, attn_mask, plan, (do, lse, delta))
     if q.device.type == "cpu":
         return bs_dkv_plain(q, k, v, do, lse, delta, key_mask, attn_mask,
                             plan, sm_scale)
+    _v1_check_bwd_aligned(q, k, v, do, key_mask, attn_mask)
+    _v1_check_tally(tally, q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _v1_launch("bs_dkv", q, [q, k, v, do, lse, delta, key_mask, attn_mask,
-                             dk, dv, *plan.device("cols", q.device)], plan,
-               sm_scale)
+                             dk, dv, tally, *plan.device("cols", q.device)],
+               plan, sm_scale)
     _v1_count(bs_dkv, key_mask, attn_mask)
+    _count_body(bs_dkv, q.dtype, DKV_BODIES)
     return dk, dv
 
 
 def reset_launches():
-    """Set every launch count of K14-K16 to 0, and K14's by body."""
+    """Set every launch count of K14-K16 to 0, also by body."""
     for w in (bs_fwd, bs_dq, bs_dkv):
         w.launches = 0
         w.arities = {}
-    bs_fwd.bodies = {}
+        w.bodies = {}
 
 
 reset_launches()

@@ -348,6 +348,63 @@ def test_bf16_forward_refuses_misaligned_operands(operand):
         _v1_check_fwd_aligned(**operands(torch.bfloat16, operand))
 
 
+@pytest.mark.parametrize("dtype, body", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "fma")])
+@pytest.mark.parametrize("kernel, table", [("bs_dq", "DQ_BODIES"),
+                                           ("bs_dkv", "DKV_BODIES")])
+def test_backward_body_by_dtype(kernel, table, dtype, body):
+    """K15 and K16 name the body a dtype runs: bf16 on K2's and K3's
+    tensor-core bodies (csrc/mma_dq.cuh, csrc/mma_dkv.cuh), fp32 on the
+    CUDA cores; ``reset_launches`` zeroes the counts by body of all three
+    kernels."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import _count_body
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as tbs
+    bodies, wrapper = getattr(tbs, table), getattr(tbs, kernel)
+    assert bodies[dtype] == body
+    saved = {n: dict(getattr(tbs, n).bodies)
+             for n in ("bs_fwd", "bs_dq", "bs_dkv")}
+    try:
+        _count_body(wrapper, dtype, bodies)
+        _count_body(wrapper, dtype, bodies)
+        _count_body(tbs.bs_fwd, dtype, tbs.FWD_BODIES)
+        assert wrapper.bodies[body] == saved[kernel].get(body, 0) + 2
+        tbs.reset_launches()
+        assert [tbs.bs_fwd.bodies, tbs.bs_dq.bodies, tbs.bs_dkv.bodies] == \
+            [{}, {}, {}]
+    finally:
+        for n, b in saved.items():
+            getattr(tbs, n).bodies = b
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "do", "key_mask",
+                                     "attn_mask"])
+def test_bf16_backward_refuses_misaligned_operands(operand):
+    """K15's and K16's tensor-core bodies load 16-byte rows (q, k, v, do)
+    and 8-byte pairs of the key mask and the (S, S) attention mask: a
+    bf16 call whose operand starts off those boundaries raises before any
+    launch, an aligned one and fp32 pass."""
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import \
+        _v1_check_bwd_aligned
+    shape, n = (1, 2, 32, 16), 2 * 32 * 16
+
+    def operands(dtype, off=None):
+        ts = {name: torch.zeros(n + 8, dtype=dtype)[:n].view(shape)
+              for name in ("q", "k", "v", "do")}
+        ts["key_mask"] = torch.zeros(33)[:32].view(1, 32)
+        ts["attn_mask"] = torch.zeros(32 * 32 + 2)[:1024].view(32, 32)
+        if off is not None:
+            base = torch.zeros(n + 8, dtype=ts[off].dtype)
+            ts[off] = base[1:1 + ts[off].numel()].view(ts[off].shape) \
+                if ts[off].dtype == torch.float32 else \
+                base[4:4 + n].view(shape)
+        return ts
+
+    _v1_check_bwd_aligned(**operands(torch.bfloat16))
+    _v1_check_bwd_aligned(**operands(torch.float32, operand))
+    with pytest.raises(ValueError, match=f"{operand} aligned"):
+        _v1_check_bwd_aligned(**operands(torch.bfloat16, operand))
+
+
 def test_v1_matches_v2(v1):
     """The port's mirror of JAX's test_masked_path_v2_matches_v1: the
     BSLongformer layout under a 'mul' attention mask, output and grads of
@@ -489,6 +546,9 @@ CUDA_CASES = [
     (2, 4, 512, 64, "empty_row_and_column", 64, "add", None, "bf16"),
     (2, 4, 512, 64, "fixed_main", 16, "mul", "far", "bf16"),
     (2, 4, 512, 72, "empty_row_and_column", 16, None, "mul", "bf16"),
+    # K15's and K16's tensor-core bodies under an 'add' mask of finite
+    # values with the -5e28 row, at block 64 (two chunks a tile)
+    (2, 4, 512, 128, "bslongformer", 64, "add", "far", "bf16"),
 ]
 
 
@@ -519,8 +579,8 @@ def test_cuda_kernels_match_plain(case):
     """K14, K15 and K16 on the card against their plain versions on the
     same inputs (K15 and K16 take the plain forward's lse), one launch
     each counted under its arity: the three paths' shapes and S 512 cases
-    with an empty block row and column, blocks 16-128, fp32; K14 runs its
-    tensor-core body in bf16, its CUDA-core body in fp32."""
+    with an empty block row and column, blocks 16-128, fp32; each kernel
+    runs its tensor-core body in bf16, its CUDA-core body in fp32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as tbs
@@ -564,7 +624,9 @@ def test_cuda_kernels_match_plain(case):
             assert ok, (ratio, rel_rms)
     assert torch.equal(lse == -1e30, lse_p == -1e30)
     assert float((lse - lse_p).abs().max()) <= 1e-3
-    assert tbs.bs_fwd.bodies == {tbs.FWD_BODIES[td]: 1}
+    assert [tbs.bs_fwd.bodies, tbs.bs_dq.bodies, tbs.bs_dkv.bodies] == [
+        {tbs.FWD_BODIES[td]: 1}, {tbs.DQ_BODIES[td]: 1},
+        {tbs.DKV_BODIES[td]: 1}]
     if name == "empty_row_and_column":
         assert (o[:, 0, 3 * fb:4 * fb] == 0).all()
         assert (lse[:, 0, 3 * fb:4 * fb] == -1e30).all()

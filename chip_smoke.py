@@ -9,7 +9,7 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
 1. device: the card as nvidia-smi names it, torch/CUDA versions; then
    every kernel of the port is built with nvcc from csrc/ for sm_90a,
    each kernel's registers and spills as ptxas -v reports them (a spill
-   in a tensor-core body, any "_mma_kernel" of K1-K3, K5-K8 and K14-K16,
+   in a tensor-core body, any "_mma_kernel" of K1-K3, K5-K10 and K14-K16,
    fails the run).
 2. kernels: each kernel against its plain PyTorch version on the card
    (the GPT-2 and the Llama serving shapes, GQA, fp32, cache-position
@@ -146,23 +146,32 @@ from the seed.
    (TRAIN_TOL) at that shape and the walk the rule picks (the plain calls
    timed once), then at S 512: 'add' mode with finite values, the BigBird
    layout under a causal keep mask, fp32, forced coarse walks of 64 and
-   128, and mask rows that drop every key beside a batch row of pads.
-   Control: the plain versions with the mask tiles left out must fail
-   the same check on every output; at the main shape also the plain
-   forward with p's bf16 rounding left out (fp32 inputs) must fail it on
-   o. Every row names K8's body ("body": "mma" in bf16, on K1's
-   tensor-core forward body; "fma" in fp32), and a bf16 launch that ran
-   another body fails it (so in phases 23, 25 and 26 for K8, and 32-35
-   for K14).
+   128, mask rows that drop every key beside a batch row of pads, a
+   bf16 walk of 128 at head dim 128 (two CTAs share each tile), and a
+   row whose only keys sit at -5e28. Control: the plain versions with the
+   mask tiles left out must fail the same check on every output; at the
+   main shape also the plain forward with p's bf16 rounding left out
+   (fp32 inputs) must fail it on o, and the plain backward on fp32
+   copies (neither ds nor K10's p rounded to bf16) on dq and dk; on the
+   -5e28 row the plain backward with v1's threshold of -1e28 on dq and
+   dk. Every row names the three kernels' bodies ("body", "dq_body",
+   "dkv_body": "mma" in bf16, on K1's, K2's and K3's tensor-core bodies;
+   "fma" in fp32) and the cells K9's and K10's tensor-core bodies summed
+   again (their count and share of the walked cells), and a bf16 launch
+   that ran another body fails it (so in phases 22, 23, 25 and 26 for
+   K8-K10, and 32-35 for K14-K16).
 22. v2_kernel_timing: the three at the main shape at the fine walk and
    every coarse walk the tile budget admits, timed as in phase 6, beside
    the bound, the plain version and SDPA with the dense float
-   (B, H, S, S) mask, K8 beside its former CUDA-core bf16 time
-   ("fma_body_ms"); the sweep fitted to the walk cost model.
+   (B, H, S, S) mask, each beside its former CUDA-core bf16 time
+   ("fma_body_ms"); the sweep fitted to the walk cost model. Then
+   v2_walk_picks: the three together on six small layouts (S 128-512)
+   whose walk hangs on the costs, at every admitted walk, beside the
+   rule's pick.
 23. sparse_self_attention: the entry point, SparseSelfAttention with the
    config's sparse_attention section, forward and backward of a scalar
    loss (1 warm-up, 3 timed): ms, peak memory, one launch of each of
-   K8-K10 per call (K8's on its tensor-core body) and none of K1-K3; a
+   K8-K10 per call (each on its tensor-core body) and none of K1-K3; a
    2-head fp32 call on the kernel
    path against the plain path; and masked_flash_attention over the
    mask of a BSLongformer window of 5 blocks at a walk of 128, asked for
@@ -191,12 +200,13 @@ blocks, merged by their lse).
    summed, timed as in phase 6, beside the bound, one plain call, SDPA
    with the dense float mask (the library column), SDPA is_causal=True
    (the dense baseline of JAX's row) and K1-K3 on the masked route; for
-   BigBird K8-K10 without a mask tile (K8 beside its former CUDA-core
+   BigBird K8-K10 without a mask tile (each beside its former CUDA-core
    bf16 time) and the merge; a sweep of walk tiles
    fitted to walk_cost_us (kernels "banded"). Then SparseSelfAttention
    forward and backward under the legacy and the default dispatch: ms,
    peak memory and launches per call (BSLongformer 2, 2, 3 of K11, K12,
-   K13 and nothing else; BigBird the same and one of each of K8-K10).
+   K13 and nothing else; BigBird the same and one of each of K8-K10, on
+   their tensor-core bodies).
 27. bert_sparse_training_legacy: phase 19's BSLongformer configuration
    under the legacy dispatch, 1 warm-up and 3 timed steps and a 2-step
    profile: 96, 96 and 144 launches of K11, K12, K13 per step and none of
@@ -292,7 +302,7 @@ fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
    band, the three row-run, the three banded, the three no-mask
    row-run, the three legacy flash entries and K14-K16 in each of their
    three arities on the paths above; each with its "body": "mma" for
-   K1-K3, K5-K8 and K14-K16 in bf16, "fma" for the rest),
+   K1-K3, K5-K10 and K14-K16 in bf16, "fma" for the rest),
    K1 with its s8k default-route time from phase 29), the nvidia-smi
    line, and last {"ok": true, "device": {...}}.
 """
@@ -313,9 +323,9 @@ BF16_ATOL = 2e-3     # summation order differs; p is rounded to bf16
 FP32_ATOL = 1e-5     # summation order differs
 MODEL_LOGIT_ATOL = 1e-3   # fp32, 24 layers of differently ordered sums
 TIMED_CALLS = 100
-# K2's, K3's, K6's, K7's, K8's and K14-K16's times on their former CUDA-core
-# bf16 bodies (these timing phases on an NVIDIA H100 80GB HBM3 at 700 W;
-# PERF.md section 6), printed beside this run's as "fma_body_ms":
+# K2's, K3's, K6's, K7's, K8-K10's and K14-K16's times on their former
+# CUDA-core bf16 bodies (these timing phases on an NVIDIA H100 80GB HBM3 at
+# 700 W; PERF.md section 6), printed beside this run's as "fma_body_ms":
 # (phase, kernel, case) -> ms
 FMA_BODY_MS = {
     ("train_kernel_timing", "masked_flash_dq", "gpt2"): 4.14640,
@@ -351,6 +361,16 @@ FMA_BODY_MS = {
     ("v2_kernel_timing", "blocksparse_v2_fwd", "fixed walk64"): 15.15061,
     ("v2_kernel_timing", "blocksparse_v2_fwd", "fixed walk128"): 16.35938,
     ("legacy_sparse_timing", "blocksparse_v2_fwd", "bb residue"): 0.54816,
+    ("v2_kernel_timing", "blocksparse_v2_dq", "fixed walk16"): 7.36739,
+    ("v2_kernel_timing", "blocksparse_v2_dq", "fixed walk32"): 15.21290,
+    ("v2_kernel_timing", "blocksparse_v2_dq", "fixed walk64"): 30.38771,
+    ("v2_kernel_timing", "blocksparse_v2_dq", "fixed walk128"): 30.11758,
+    ("legacy_sparse_timing", "blocksparse_v2_dq", "bb residue"): 0.94062,
+    ("v2_kernel_timing", "blocksparse_v2_dkv", "fixed walk16"): 9.56698,
+    ("v2_kernel_timing", "blocksparse_v2_dkv", "fixed walk32"): 16.56102,
+    ("v2_kernel_timing", "blocksparse_v2_dkv", "fixed walk64"): 33.39506,
+    ("v2_kernel_timing", "blocksparse_v2_dkv", "fixed walk128"): 33.34456,
+    ("legacy_sparse_timing", "blocksparse_v2_dkv", "bb residue"): 1.19162,
     ("v1_kernel_timing", "bs_fwd", "a"): 6.73406,
     ("v1_kernel_timing", "bs_fwd", "b"): 6.59600,
     ("v1_kernel_timing", "bs_fwd", "lf"): 5.28358,
@@ -1480,11 +1500,12 @@ def _reset_train_launches():
 
 
 # the kernels with a tensor-core body in bf16: K1, K5, K8 and K14 on
-# csrc/mma_fwd.cuh, K2, K6 and K15 on csrc/mma_dq.cuh, K3, K7 and K16 on
-# csrc/mma_dkv.cuh
+# csrc/mma_fwd.cuh, K2, K6, K9 and K15 on csrc/mma_dq.cuh, K3, K7, K10 and
+# K16 on csrc/mma_dkv.cuh
 MMA_KERNELS = ("masked_flash_fwd", "flash_fwd", "masked_flash_dq",
                "flash_dq", "masked_flash_dkv", "flash_dkv",
-               "blocksparse_v2_fwd", "bs_fwd", "bs_dq", "bs_dkv")
+               "blocksparse_v2_fwd", "blocksparse_v2_dq",
+               "blocksparse_v2_dkv", "bs_fwd", "bs_dq", "bs_dkv")
 
 
 def kernel_body(name, dtype="bf16"):
@@ -1513,10 +1534,10 @@ def _mma_bodies(names=MMA_KERNELS):
 
 
 def _check_mma_bodies(phase, bodies):
-    """A bf16 run: every launch of K1-K3, K5-K8 and K14-K16 ran the
+    """A bf16 run: every launch of K1-K3, K5-K10 and K14-K16 ran the
     tensor-core body."""
     if any(b.get("fma", 0) for b in bodies.values()):
-        raise AssertionError(f"{phase}: a bf16 launch of K1-K3, K5-K8 or "
+        raise AssertionError(f"{phase}: a bf16 launch of K1-K3, K5-K10 or "
                              f"K14-K16 ran the CUDA-core body: {bodies}")
 
 
@@ -2739,20 +2760,27 @@ def v2_plan(layout, block, walk=None):
 
 def check_v2_kernels(name, plan, args, key_mask, am_add, flush=None,
                      extra=None, phase="v2_kernel_check",
-                     rounding_control=False):
+                     rounding_control=False, far_row=False):
     """K8, K9 and K10 against their plain versions on the same inputs (K9
     and K10 get the plain forward's lse and delta), under TRAIN_TOL; lse
     within LSE_ATOL (a row with no valid key carries its max, <=
-    VALID_THRESH, in both); K8 on the body its dtype runs ("body"). With
-    ``am_add`` None the no-mask arity runs: no tile at the fine walk, the
-    structural tiles on a coarse one. The control, which must fail the
-    same check on every output (K9 and K10 fed the control forward's lse
-    and delta): the plain versions with the mask tiles left out (all 0);
-    where there is none, without the key mask; where there is neither, on
-    fp32 copies of the inputs, which leaves out the rounding of p and ds.
-    With ``rounding_control`` also the plain forward on fp32 copies (p not
-    rounded to bf16) must fail it on o. With ``flush`` each plain call is
-    timed once (:func:`timed_once`)."""
+    VALID_THRESH, in both); each kernel on the body its dtype runs
+    ("body", "dq_body", "dkv_body"), K9's and K10's tensor-core bodies
+    with the count of the cells they summed again ("resummed_cells", and
+    their share of the walked cells). With ``am_add`` None the no-mask
+    arity runs: no tile at the fine walk, the structural tiles on a
+    coarse one. The control, which must fail the same check on every
+    output (K9 and K10 fed the control forward's lse and delta): the
+    plain versions with the mask tiles left out (all 0); where there is
+    none, without the key mask; where there is neither, on fp32 copies of
+    the inputs, which leaves out the rounding of p and ds. With
+    ``rounding_control`` also the plain forward on fp32 copies (p not
+    rounded to bf16) must fail it on o, and the plain backward on fp32
+    copies (fed the same lse and delta: neither ds nor K10's p rounded to
+    bf16) on dq and dk. With ``far_row`` also the plain backward with the
+    threshold at v1's -1e28 (fed the same lse and delta: the far row's
+    cells at -5e28 drop) must fail it on dq and dk. With ``flush`` each
+    plain call is timed once (:func:`timed_once`)."""
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as v2
     q, k, v, do = args
@@ -2767,24 +2795,31 @@ def check_v2_kernels(name, plan, args, key_mask, am_add, flush=None,
         out, plain_ms[kernel] = timed_once(lambda: fn(*a), flush)
         return out
 
-    bodies = dict(v2.blocksparse_v2_fwd.bodies)
+    before = _mma_bodies(V2_NAMES)
     o, lse = v2.blocksparse_v2_fwd(q, k, v, key_mask, tiles, plan, scale)
     torch.cuda.synchronize()
-    body = _body_ran(v2.blocksparse_v2_fwd, bodies)
     o_p, lse_p = plain("blocksparse_v2_fwd", v2.blocksparse_v2_fwd_plain,
                        q, k, v, key_mask, tiles, plan, scale)
     delta = (do.float() * o_p.float()).sum(-1)
     bwd = (q, k, v, do, lse_p, delta, key_mask, tiles, plan, scale)
-    dq = v2.blocksparse_v2_dq(*bwd)
-    dk, dv = v2.blocksparse_v2_dkv(*bwd)
+    tally = {n: torch.zeros(1, dtype=torch.int64, device=q.device)
+             for n in V2_NAMES[1:]}
+    dq = v2.blocksparse_v2_dq(*bwd, tally=tally["blocksparse_v2_dq"])
+    dk, dv = v2.blocksparse_v2_dkv(*bwd, tally=tally["blocksparse_v2_dkv"])
     torch.cuda.synchronize()
+    bodies = {n: _body_ran(_mma_wrapper(n), before[n]) for n in V2_NAMES}
     dq_p = plain("blocksparse_v2_dq", v2.blocksparse_v2_dq_plain, *bwd)
     dk_p, dv_p = plain("blocksparse_v2_dkv", v2.blocksparse_v2_dkv_plain,
                        *bwd)
     dtype = "fp32" if q.dtype == torch.float32 else "bf16"
     tol = TRAIN_TOL[dtype]
+    walked = plan.tiles_walked * q.shape[0] * plan.block ** 2
+    resummed = {n: int(t.item()) for n, t in tally.items()}
     row = {"phase": phase, "case": name, "dtype": str(q.dtype),
-           "body": body[0] if len(body) == 1 else body,
+           **{key: b[0] if len(b) == 1 else b for key, b in zip(
+               ("body", "dq_body", "dkv_body"), bodies.values())},
+           "resummed_cells": resummed, "walked_cells": walked,
+           "resummed_share": {n: c / walked for n, c in resummed.items()},
            "shape": list(q.shape), "fine_block": plan.fine_block,
            "walk_block": plan.block, "walked_tiles": plan.tiles_walked,
            "unique_tiles": plan.unique_tiles, "tiles": tiles is not None,
@@ -2805,16 +2840,43 @@ def check_v2_kernels(name, plan, args, key_mask, am_add, flush=None,
     lse_err = float((lse - lse_p).abs().max())
     row["lse_max_abs_err"] = lse_err
     ok &= lse_err <= LSE_ATOL
-    ok &= body == [kernel_body("blocksparse_v2_fwd", dtype)]
+    ok &= bodies == {n: [kernel_body(n, dtype)] for n in V2_NAMES}
+
+    def backward_control(label, bwd_c, ctx=contextlib.nullcontext()):
+        """The plain dq and dk of ``bwd_c`` must fail the check."""
+        with ctx:
+            got = {"dq": v2.blocksparse_v2_dq_plain(*bwd_c),
+                   "dk": v2.blocksparse_v2_dkv_plain(*bwd_c)[0]}
+        control = {"control": label}
+        good_any = False
+        for key, out in got.items():
+            ratio, rel_rms, _, good = compare(out.to(q.dtype), refs[key],
+                                              **tol)
+            control.update({f"{key}_worst_ratio": ratio,
+                            f"{key}_rel_rms": rel_rms,
+                            f"{key}_fails": not good})
+            good_any |= good
+        return control, not good_any
+
     if rounding_control:
-        o_r, _ = v2.blocksparse_v2_fwd_plain(*[t.float() for t in args[:3]],
-                                             key_mask, tiles, plan, scale)
+        fp32 = [t.float() for t in args]
+        o_r, _ = v2.blocksparse_v2_fwd_plain(*fp32[:3], key_mask, tiles,
+                                             plan, scale)
         ratio, rel_rms, _, good = compare(o_r.to(q.dtype), o_p, **tol)
         row["rounding_control"] = {
             "control": "the plain forward on fp32 inputs: p not rounded "
                        "to bf16", "o_worst_ratio": ratio,
             "o_rel_rms": rel_rms, "o_fails": not good}
         ok &= not good
+        row["backward_rounding_control"], fails = backward_control(
+            "the plain backward on fp32 inputs: neither ds nor K10's p "
+            "rounded to bf16", (*fp32, *bwd[4:]))
+        ok &= fails
+    if far_row:
+        row["threshold_control"], fails = backward_control(
+            "the plain backward with the threshold at -1e28", bwd,
+            _attrs(v2, VALID_THRESH=-1e28))
+        ok &= fails
     c_args, c_key, c_tiles = args, key_mask, tiles
     if tiles is not None:
         row["control"] = "the mask tiles left out"
@@ -2837,11 +2899,11 @@ def check_v2_kernels(name, plan, args, key_mask, am_add, flush=None,
         row[f"control_{key}_rel_rms"] = rel_rms
         row[f"control_{key}_fails"] = not good
         ok &= not good
-    row["ok"] = ok
+    row["ok"] = bool(ok)
     emit(row)
     if not ok:
         raise AssertionError(f"the row-run kernels disagree with their "
-                             f"plain versions on {name}, or the control "
+                             f"plain versions on {name}, or a control "
                              f"passes the check: {row}")
     return row
 
@@ -2902,6 +2964,19 @@ def v2_kernel_check_phase():
         if pads and row["rows_with_no_key"] < h * s + 3 * (b - 1) * h:
             raise AssertionError(f"{name}: expected the pad row and the "
                                  f"dropped rows keyless: {row}")
+    # K9's and K10's bf16 bodies at a walk of 128 (two CTAs share each
+    # tile) and head dim 128, and the row whose only keys sit at -5e28,
+    # which -1e29 keeps and v1's -1e28 would drop
+    check_v2_kernels(
+        "forced_walk128_d128_s512_bf16", v2_plan(small, 16, 128),
+        train_inputs(rng, b, h, h, s, 128, bf16),
+        bert_key_mask(rng, b, s, 200, pad=NEG_INF),
+        _to_additive(v2_mask(rng, s, "add"), "add"))
+    check_v2_kernels(
+        "far_row_s512_bf16", v2_plan(small, 16, 0),
+        train_inputs(rng, b, h, h, s, 64, bf16),
+        bert_key_mask(rng, b, s, 200, pad=NEG_INF),
+        v1_far_mask(rng, small, s, 16), far_row=True)
     return main_row
 
 
@@ -2968,8 +3043,6 @@ def v2_kernel_timing_phase(smi, main_row):
         tiles = plan.mask_tiles(am_add)
         v2.reset_launches()
         o, lse = v2.blocksparse_v2_fwd(q, k, v, kpm, tiles, plan, scale)
-        body = _mma_bodies(["blocksparse_v2_fwd"])
-        _check_mma_bodies("v2_kernel_timing", body)
         delta = (do.float() * o.float()).sum(-1)
         bwd = (q, k, v, do, lse, delta, kpm, tiles, plan, scale)
         meta = {"csr": sum(a.nbytes for a in plan.csr),
@@ -3036,6 +3109,7 @@ def v2_kernel_timing_phase(smi, main_row):
                              "replaces": V2_REPLACES[name],
                              "fma_body_ms": FMA_BODY_MS.get(
                                  ("v2_kernel_timing", name, case))}
+        _check_mma_bodies("v2_kernel_timing", _mma_bodies(V2_NAMES))
         r = min(plan.block, CHUNK)
         per_bh = B * H
         sweep.append((plan.tiles_walked * B / per_bh,
@@ -3048,7 +3122,95 @@ def v2_kernel_timing_phase(smi, main_row):
           "units": "per (batch, head); fit in us per tile, chunk, cell",
           "fit": fit, "committed": list(WALK_COSTS["blocksparse_v2"]),
           "rule_walk": rule_walk, "nvidia_smi": smi})
+    v2_walk_picks(smi)
     return out
+
+
+def _v2_pick_layouts():
+    """Layouts (H 16, block 16) on which the walk rule's pick hangs on the
+    costs: a fit of the main layout's sweep alone (walk_cost_fit) would
+    coarsen each of them; the committed costs walk the pure global one at
+    32, the dense one at 128 and the others fine."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, BSLongformerSparsityConfig,
+        DenseSparsityConfig, FixedSparsityConfig)
+    H, b = V2_SHAPE["H"], 16
+    glob = ((np.arange(8)[:, None] < 2) | (np.arange(8)[None, :] < 2))
+    return {
+        "fixed per head S128": FixedSparsityConfig(
+            num_heads=H, block=b, num_local_blocks=2,
+            different_layout_per_head=True,
+            num_different_global_patterns=2).make_layout(128),
+        "bigbird S128": BigBirdSparsityConfig(
+            num_heads=H, block=b, num_random_blocks=1).make_layout(128),
+        "pure global S128": np.broadcast_to(glob.astype(np.int32),
+                                            (H, 8, 8)).copy(),
+        "bslongformer w5 g0-2 S256": BSLongformerSparsityConfig(
+            num_heads=H, block=b, num_sliding_window_blocks=5,
+            global_block_indices=[0],
+            global_block_end_indices=[2]).make_layout(256),
+        "bslongformer w15 S512": BSLongformerSparsityConfig(
+            num_heads=H, block=b,
+            num_sliding_window_blocks=15).make_layout(512),
+        "dense S512": DenseSparsityConfig(num_heads=H,
+                                          block=b).make_layout(512),
+    }
+
+
+def v2_walk_picks(smi):
+    """The end of phase 22: K8, K9 and K10 together (bf16, B 8, H 16,
+    D 64, a key mask and a 'mul' mask as at the main shape) on each of
+    _v2_pick_layouts at the fine walk and every coarse walk the tile
+    budget admits, beside the walk the committed costs pick and their
+    modeled us per (batch, head) for each walk."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention.masked_flash import (
+        CHUNK, walk_cost_us)
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as v2
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import (
+        NEG_INF, _to_additive)
+    B, D = V2_SHAPE["B"], V2_SHAPE["D"]
+    scale = 1.0 / float(np.sqrt(D))
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    rng = np.random.RandomState(SEED + 12)
+    for name, layout in _v2_pick_layouts().items():
+        H, S = layout.shape[0], layout.shape[1] * 16
+        q, k, v, do = train_inputs(rng, B, H, H, S, D, torch.bfloat16)
+        kpm = bert_key_mask(rng, B, S, S // 2, pad=NEG_INF)
+        am_add = _to_additive(v2_mask(rng, S), "mul")
+        walks = [0] + [cb for cb in (32, 64, 128) if S % cb == 0
+                       and bs.build_coarse_index(
+                           layout, 16, cb, per_coord=True,
+                           count_only=True)[1] * cb * cb * 4
+                       <= bs._COARSE_TILE_BUDGET]
+        ms, model_us = {}, {}
+        for walk in walks:
+            plan = v2_plan(layout, 16, walk)
+            tiles = plan.mask_tiles(am_add)
+            o, lse = v2.blocksparse_v2_fwd(q, k, v, kpm, tiles, plan, scale)
+            delta = (do.float() * o.float()).sum(-1)
+            bwd = (q, k, v, do, lse, delta, kpm, tiles, plan, scale)
+
+            def step():
+                v2.blocksparse_v2_fwd(q, k, v, kpm, tiles, plan, scale)
+                v2.blocksparse_v2_dq(*bwd)
+                v2.blocksparse_v2_dkv(*bwd)
+            ms[plan.block] = time_ms(step, SPARSE_TIMED_CALLS, flush)
+            r = min(plan.block, CHUNK)
+            n = plan.tiles_walked / H
+            model_us[plan.block] = walk_cost_us(
+                "blocksparse_v2", n, n * (plan.block // r) ** 2, r)
+        _check_mma_bodies("v2_walk_picks", _mma_bodies(V2_NAMES))
+        emit({"phase": "v2_walk_picks", "layout": name,
+              "shape": dict(B=B, H=H, S=S, D=D, dtype="bf16",
+                            fine_block=16, mask="'mul', keeps "
+                            f"{V2_KEEP}", key_mask=f"lengths {S // 2}-{S}"),
+              "fine_tiles": int(layout.astype(bool).sum()),
+              "ms_by_walk": ms,
+              "committed_model_us_per_bh_by_walk": model_us,
+              "rule_walk": bs._pick_coarse_block(layout, 16, True) or 16,
+              "fastest_walk": min(ms, key=ms.get), "nvidia_smi": smi})
 
 
 class _PlainRowRun:
@@ -3127,7 +3289,7 @@ def sparse_self_attention_phase(smi):
     wall = time.perf_counter() - t0
     launches = _v2_launches()
     k1_k3 = _train_launches()
-    bodies = _mma_bodies(["blocksparse_v2_fwd"])
+    bodies = _mma_bodies(V2_NAMES)
     layout = ssa.get_layout(S)
     row = {"phase": "sparse_self_attention",
            "entry": "SparseSelfAttention(sparsity_config_from_dict("
@@ -3653,8 +3815,6 @@ def legacy_sparse_timing_phase(smi):
         rp = v2.RowRunPlan(hp.residual, fb, None, per_coord=False)
         v2.reset_launches()
         o_r, lse_r = v2.blocksparse_v2_fwd(q, k, v, None, None, rp, scale)
-        _check_mma_bodies("legacy_sparse_timing",
-                          _mma_bodies(["blocksparse_v2_fwd"]))
         o_b, lse_b, lse_g = banded.banded_fwd_impl(q, k, v, None, bp, scale)
         merge_ms = time_ms(lambda: hybrid.merge(o_b, lse_b, lse_g, o_r,
                                                 lse_r), SPARSE_TIMED_CALLS,
@@ -3693,6 +3853,7 @@ def legacy_sparse_timing_phase(smi):
                              "BigBird layout's dense float mask",
                   "nvidia_smi": smi})
             out[f"{name}_nomask"] = t
+        _check_mma_bodies("legacy_sparse_timing", _mma_bodies(V2_NAMES))
         emit({"phase": "legacy_sparse_timing", "kernel": "hybrid merge",
               "layout": kind, "ms": merge_ms,
               "coverage": hp.coverage, "nvidia_smi": smi})
@@ -3782,11 +3943,14 @@ def legacy_entry_point_phase(smi):
                    "iters": V2_ITERS, "warmup": 1,
                    "ms_per_fwd_bwd": wall / V2_ITERS * 1e3,
                    "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-                   "launches": got, "finite": finite, "nvidia_smi": smi}
+                   "launches": got,
+                   "launches_by_body": _mma_bodies(V2_NAMES),
+                   "finite": finite, "nvidia_smi": smi}
             emit(row)
             if got != want or not finite:
                 raise AssertionError(f"SparseSelfAttention at the s8k "
                                      f"geometry: want launches {want}: {row}")
+            _check_mma_bodies(row["phase"], row["launches_by_body"])
             for t in qkv:
                 t.grad = None
             if legacy:

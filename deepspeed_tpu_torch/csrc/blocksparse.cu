@@ -340,8 +340,8 @@ bs_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const DqRows rows{q + row0 * D, dout + row0 * D, lse + row0, delta + row0,
                     k + kv0, v + kv0, KPM ? kpm + (size_t)b * sh.S : nullptr,
                     dq + row0 * D, r0, D, bh, sh.sm_scale, tally};
-  mma_dq_body<CH, DMAX, KPM, false, true, AM>(rows, walk, NoBand{},
-                                              Dropout{});
+  mma_dq_body<CH, DMAX, KPM, false, TripleRule, AM>(rows, walk, NoBand{},
+                                                    Dropout{});
 }
 
 // ------------------------------------------------------------------ K16
@@ -471,8 +471,8 @@ bs_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      lse + q0, delta + q0,
                      KPM ? kpm + (size_t)b * sh.S : nullptr, dk + krow * D,
                      dv + krow * D, 0, kr0, D, bh, sh.sm_scale, tally};
-  mma_dkv_body<CH, DMAX, KPM, false, true, AM>(rows, walk, NoBand{},
-                                               Dropout{});
+  mma_dkv_body<CH, DMAX, KPM, false, TripleRule, AM>(rows, walk, NoBand{},
+                                                     Dropout{});
 }
 
 size_t fwd_smem(int R, int D, int blk) {
@@ -535,73 +535,40 @@ FwdMma pick_fwd_mma_blk(int blk, int D, bool kpm, bool am) {
                      : pick_fwd_mma<128, 128>(kpm, am);
 }
 
+// the tensor-core backward launchers of one instantiation (pick_bwd_mma)
 template <int CH, int DMAX, bool KPM, bool AM>
-cudaError_t run_dq_mma(dim3 grid, int threads, size_t smem, cudaStream_t s,
-                       const void* q, const void* k, const void* v,
-                       const void* dout, const float* ls, const float* dl,
-                       const float* kpm, const float* am, void* dq,
-                       unsigned long long* tally, Walk w, Shape sh) {
-  return launch_rows(bs_dq_mma_kernel<CH, DMAX, KPM, AM>, grid, threads,
-                     smem, s, static_cast<const bf16*>(q),
-                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                     static_cast<const bf16*>(dout), ls, dl, kpm, am,
-                     static_cast<bf16*>(dq), tally, w, sh);
-}
+struct DqMma {
+  static cudaError_t run(dim3 grid, int threads, size_t smem, cudaStream_t s,
+                         const void* q, const void* k, const void* v,
+                         const void* dout, const float* ls, const float* dl,
+                         const float* kpm, const float* am, void* dq,
+                         unsigned long long* tally, Walk w, Shape sh) {
+    return launch_rows(bs_dq_mma_kernel<CH, DMAX, KPM, AM>, grid, threads,
+                       smem, s, static_cast<const bf16*>(q),
+                       static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v),
+                       static_cast<const bf16*>(dout), ls, dl, kpm, am,
+                       static_cast<bf16*>(dq), tally, w, sh);
+  }
+};
 
 template <int CH, int DMAX, bool KPM, bool AM>
-cudaError_t run_dkv_mma(dim3 grid, int threads, size_t smem,
-                        cudaStream_t s, const void* q, const void* k,
-                        const void* v, const void* dout, const float* ls,
-                        const float* dl, const float* kpm, const float* am,
-                        void* dk, void* dv, unsigned long long* tally, Walk w,
-                        Shape sh) {
-  return launch_rows(bs_dkv_mma_kernel<CH, DMAX, KPM, AM>, grid, threads,
-                     smem, s, static_cast<const bf16*>(q),
-                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                     static_cast<const bf16*>(dout), ls, dl, kpm, am,
-                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), tally, w,
-                     sh);
-}
-
-using DqMma = decltype(&run_dq_mma<16, 64, false, false>);
-using DkvMma = decltype(&run_dkv_mma<16, 64, false, false>);
-
-template <int CH, int DMAX>
-DqMma pick_dq_mma(bool kpm, bool am) {
-  return kpm ? (am ? run_dq_mma<CH, DMAX, true, true>
-                   : run_dq_mma<CH, DMAX, true, false>)
-             : (am ? run_dq_mma<CH, DMAX, false, true>
-                   : run_dq_mma<CH, DMAX, false, false>);
-}
-
-template <int CH, int DMAX>
-DkvMma pick_dkv_mma(bool kpm, bool am) {
-  return kpm ? (am ? run_dkv_mma<CH, DMAX, true, true>
-                   : run_dkv_mma<CH, DMAX, true, false>)
-             : (am ? run_dkv_mma<CH, DMAX, false, true>
-                   : run_dkv_mma<CH, DMAX, false, false>);
-}
-
-// the tensor-core instantiations of a block, head dim and the masks given:
-// chunks of 16 keys (K15) or query rows (K16) at block 16, else 32 (the
-// bad_shape checks passed: D <= 128)
-DqMma pick_dq_mma_blk(int blk, int D, bool kpm, bool am) {
-  const bool wide = D > 64;
-  return dq_chunk(blk) == 16
-             ? (wide ? pick_dq_mma<16, 128>(kpm, am)
-                     : pick_dq_mma<16, 64>(kpm, am))
-             : (wide ? pick_dq_mma<32, 128>(kpm, am)
-                     : pick_dq_mma<32, 64>(kpm, am));
-}
-
-DkvMma pick_dkv_mma_blk(int blk, int D, bool kpm, bool am) {
-  const bool wide = D > 64;
-  return dkv_chunk(blk) == 16
-             ? (wide ? pick_dkv_mma<16, 128>(kpm, am)
-                     : pick_dkv_mma<16, 64>(kpm, am))
-             : (wide ? pick_dkv_mma<32, 128>(kpm, am)
-                     : pick_dkv_mma<32, 64>(kpm, am));
-}
+struct DkvMma {
+  static cudaError_t run(dim3 grid, int threads, size_t smem,
+                         cudaStream_t s, const void* q, const void* k,
+                         const void* v, const void* dout, const float* ls,
+                         const float* dl, const float* kpm, const float* am,
+                         void* dk, void* dv, unsigned long long* tally,
+                         Walk w, Shape sh) {
+    return launch_rows(bs_dkv_mma_kernel<CH, DMAX, KPM, AM>, grid, threads,
+                       smem, s, static_cast<const bf16*>(q),
+                       static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v),
+                       static_cast<const bf16*>(dout), ls, dl, kpm, am,
+                       static_cast<bf16*>(dk), static_cast<bf16*>(dv), tally,
+                       w, sh);
+  }
+};
 
 template <bool AM, bool KPM>
 struct Fwd {
@@ -714,8 +681,8 @@ extern "C" int bs_dq(const void* q, const void* k, const void* v,
     if (dkv_misaligned(q, k, v, dout, dq, dq, kpm, am))
       return (int)cudaErrorInvalidValue;
     const int R = mma_rows(block);
-    return (int)pick_dq_mma_blk(block, head_dim, kpm != nullptr,
-                                am != nullptr)(
+    return (int)pick_bwd_mma<DqMma>(dq_chunk(block), head_dim,
+                                    kpm != nullptr, am != nullptr)(
         dim3(seq / R, bh), 2 * R, mma_dq_smem(R, block, head_dim), s, q, k,
         v, dout, ls, dl, km, mk, dq,
         static_cast<unsigned long long*>(tally), w, sh);
@@ -747,8 +714,8 @@ extern "C" int bs_dkv(const void* q, const void* k, const void* v,
     if (dkv_misaligned(q, k, v, dout, dk, dv, kpm, am))
       return (int)cudaErrorInvalidValue;
     const int R = mma_rows(block);
-    return (int)pick_dkv_mma_blk(block, head_dim, kpm != nullptr,
-                                 am != nullptr)(
+    return (int)pick_bwd_mma<DkvMma>(dkv_chunk(block), head_dim,
+                                     kpm != nullptr, am != nullptr)(
         dim3(seq / R, bh), 2 * R, mma_dkv_smem(R, block, head_dim), s, q, k,
         v, dout, ls, dl, km, mk, dk, dv,
         static_cast<unsigned long long*>(tally), w, sh);

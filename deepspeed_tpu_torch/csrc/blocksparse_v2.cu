@@ -29,26 +29,31 @@
 // What bounds it on an H100: operations. At the main path's shape (B 8,
 // H 16, S 2048, D 64, the fixed per-head layouts of ds_config_sparse.json
 // at block 16) a walked 16 x 16 tile does 2-4 products of 16 x 16 x 64
-// over 2 x 16 x 64 staged values and 256 mask values. K8 in bf16 runs
-// on the tensor cores, on K1's forward body (mma_fwd.cuh: mma.sync
-// m16n8k16, Q, the scores and O in registers, K and V staged as bf16 by
-// cp.async into a ring of chunks) over the CSR walk of a block row, its
-// tiles all FULL, with the walked item's mask tile added to each score
-// (read per 8-key fragment straight from global memory, where the few
-// distinct tiles sit in L2) and RowRunRule (-1e29; lse = m where l ==
-// 0). A CTA owns R = min(blk, 64) rows of a block row, so at walk 128
-// two CTAs share one block row and its tiles (tr0 = r0 % blk). The rest
-// (K8 in fp32, K9 and K10) is the first, simple design of masked_flash.cu
-// (flash_tiles.cuh): fp32 FMAs on the CUDA cores, no tensor cores (TF32
-// would fail the fp32 checks). A CTA of 128 threads owns R =
-// min(blk, 32) rows of a walked block row (K8, K9) or column (K10); it
-// stages its own rows once and each walked item's partner rows in chunks
-// of R into shared memory as fp32, reads the mask tile's cells straight
-// from global memory (each once per CTA), and keeps the softmax state and
-// the accumulators in shared memory. The Pallas design's double-buffered
-// DMA of transposed (D, block) tiles is a Mosaic lane rule and is not
-// carried over. Later work: the backward on the tensor cores, wgmma,
-// TMA staging.
+// over 2 x 16 x 64 staged values and 256 mask values. In bf16 the three
+// run on the tensor cores (mma.sync m16n8k16, the scores and accumulators
+// in registers, the partner rows staged as bf16 by cp.async into a ring
+// of chunks) with RowRunRule (-1e29), each score plus its cell of the
+// walked item's mask tile, read straight from global memory (the few
+// distinct tiles sit in L2): K8 on K1's forward body (mma_fwd.cuh, the
+// mask per 8-key fragment; lse = m where l == 0) over the CSR walk of a
+// block row, K9 on K2's dq body (mma_dq.cuh, float2 mask pairs per 8-key
+// fragment) over the same walk, K10 on K3's dk/dv body (mma_dkv.cuh,
+// which holds S^T: four scalar mask loads per 8-query tile, the cells of
+// a key row blk apart in the row-major tile) over the CSC walk of a
+// block column; every walked tile is FULL. A CTA owns R = min(blk, 64)
+// rows of a block row (K8, K9) or keys of a block column (K10), 16 per
+// warp, so at walk 128 two CTAs share one block row's or column's tiles
+// (tr0 = r0 % blk, tc0 = kr0 % blk); an empty row or column walks
+// nothing and writes zeros. In fp32 the three keep the first, simple
+// design of masked_flash.cu (flash_tiles.cuh): fp32 FMAs on the CUDA
+// cores, no tensor cores (TF32 would fail the fp32 checks). A CTA of 128
+// threads owns R = min(blk, 32) rows of a walked block row (K8, K9) or
+// column (K10); it stages its own rows once and each walked item's
+// partner rows in chunks of R into shared memory as fp32, reads the mask
+// tile's cells straight from global memory (each once per CTA), and keeps
+// the softmax state and the accumulators in shared memory. The Pallas
+// design's double-buffered DMA of transposed (D, block) tiles is a Mosaic
+// lane rule and is not carried over. Later work: wgmma, TMA staging.
 //
 // Built by deepspeed_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -58,7 +63,7 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
-#include "mma_fwd.cuh"
+#include "mma_dq.cuh"
 
 namespace {
 
@@ -184,14 +189,16 @@ v2_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// K8 in bf16 (the tensor-core body, mma_fwd.cuh): grid (S / R, B*H), R =
-// min(blk, 64) q rows of one block row per CTA, 16 per warp; W = blk.
+// K8 and K9 in bf16 (the tensor-core bodies, mma_fwd.cuh and mma_dq.cuh):
+// grid (S / R, B*H), R = min(blk, 64) q rows of one block row per CTA, 16
+// per warp; K8's W = blk.
 struct RowRunWalk {
   const int32_t* cols;    // the block row's CSR columns and mask uids
   const int32_t* uids;
   const float* tiles;     // (U, blk, blk), or null (AM = false)
   int count, blk, tr0;    // tr0: the CTA's first row within a tile
   __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int keys() const { return blk; }
   __device__ __forceinline__ int2 tile(int t) const {
     return make_int2(cols[t] * blk, 0);
   }
@@ -230,14 +237,15 @@ v2_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------------------------------- K9
-// grid (S / R, B*H); per walked item, chunk by chunk of R key rows.
-template <typename T, bool HAS_AM>
+// fp32 (the CUDA-core body): grid (S / R, B*H); R = min(blk, 32) q rows
+// per CTA; per walked item, chunk by chunk of R key rows.
+template <bool HAS_AM>
 __global__ void __launch_bounds__(kThreads)
-v2_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+v2_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              const float* __restrict__ kpm, const float* __restrict__ tiles,
-             T* __restrict__ dq, const int32_t* __restrict__ offs,
+             float* __restrict__ dq, const int32_t* __restrict__ offs,
              const int32_t* __restrict__ cnts,
              const int32_t* __restrict__ cols,
              const int32_t* __restrict__ uids, Shape sh) {
@@ -251,8 +259,8 @@ v2_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int mrow = h * (sh.S / blk) + r0 / blk;
   const int n = cnts[mrow];
   const int base = offs[mrow];
-  const T* kg = k + (size_t)bh * sh.S * D;
-  const T* vg = v + (size_t)bh * sh.S * D;
+  const float* kg = k + (size_t)bh * sh.S * D;
+  const float* vg = v + (size_t)bh * sh.S * D;
   const float* kpm_b = kpm ? kpm + (size_t)b * sh.S : nullptr;
   const size_t row0 = (size_t)bh * sh.S + r0;
   const int tr0 = r0 % blk;
@@ -295,7 +303,7 @@ v2_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (kpm_b) s += kpm_b[k0 + c0 + c];
         if (HAS_AM) s += tile[r * blk + c0 + c];
         const float p = s > kRowRunThresh ? expf(s - lse_s[r]) : 0.f;
-        ps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
+        ps[e] = p * (dps[e] - dl_s[r]);
       }
       __syncthreads();
       mm(dqs, D, true, nullptr, ps, R, 1, ks, D + 1, 1, R, D, R);
@@ -303,22 +311,56 @@ v2_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqg = dq + row0 * D;
+  float* dqg = dq + row0 * D;
   for (int e = threadIdx.x; e < R * D; e += blockDim.x)
-    dqg[e] = from_f<T>(dqs[e] * sh.sm_scale);
+    dqg[e] = dqs[e] * sh.sm_scale;
+}
+
+// K9 in bf16 (the tensor-core body, mma_dq.cuh): grid (S / R, B*H), R =
+// min(blk, 64) q rows of one block row per CTA, over its RowRunWalk; CH =
+// dq_chunk(blk) keys per chunk. `tally`: see DqRows.
+template <int CH, int DMAX, bool KPM, bool AM>
+__global__ void __launch_bounds__(2 * kMmaMaxRows, DMAX <= 64 ? 3 : 2)
+v2_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ kpm,
+                 const float* __restrict__ tiles, bf16* __restrict__ dq,
+                 unsigned long long* tally, const int32_t* __restrict__ offs,
+                 const int32_t* __restrict__ cnts,
+                 const int32_t* __restrict__ cols,
+                 const int32_t* __restrict__ uids, Shape sh) {
+  const int R = blockDim.x / 2;
+  const int D = sh.D;
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H;
+  const int r0 = blockIdx.x * R;
+  const int mrow = (bh % sh.H) * (sh.S / sh.blk) + r0 / sh.blk;
+  const int base = offs[mrow];
+  const RowRunWalk walk{cols + base, uids + base, tiles, cnts[mrow], sh.blk,
+                        r0 % sh.blk};
+  const size_t row0 = (size_t)bh * sh.S + r0;
+  const size_t kv0 = (size_t)bh * sh.S * D;
+  const DqRows rows{q + row0 * D, dout + row0 * D, lse + row0, delta + row0,
+                    k + kv0, v + kv0, KPM ? kpm + (size_t)b * sh.S : nullptr,
+                    dq + row0 * D, r0, D, bh, sh.sm_scale, tally};
+  mma_dq_body<CH, DMAX, KPM, false, RowRunRule, AM>(rows, walk, NoBand{},
+                                                    Dropout{});
 }
 
 // ------------------------------------------------------------------ K10
-// grid (S / R, B*H): one CTA per head and R key rows, over the CSC walk of
-// the key block, chunk by chunk of R query rows. The CTA's R key rows'
+// fp32 (the CUDA-core body): grid (S / R, B*H): one CTA per head and R =
+// min(blk, 32) key rows, over the CSC walk of the key block, chunk by
+// chunk of R query rows. The CTA's R key rows'
 // mask values are loaded once, beside the staged K and V rows.
-template <typename T, bool HAS_AM>
+template <bool HAS_AM>
 __global__ void __launch_bounds__(kThreads)
-v2_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+v2_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const float* __restrict__ kpm, const float* __restrict__ tiles,
-              T* __restrict__ dk, T* __restrict__ dv,
+              float* __restrict__ dk, float* __restrict__ dv,
               const int32_t* __restrict__ coffs,
               const int32_t* __restrict__ ccnts,
               const int32_t* __restrict__ crows,
@@ -333,15 +375,15 @@ v2_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int col = h * (sh.S / blk) + kr0 / blk;
   const int n = ccnts[col];
   const int base = coffs[col];
-  const T* qg = q + (size_t)bh * sh.S * D;
-  const T* dog = dout + (size_t)bh * sh.S * D;
+  const float* qg = q + (size_t)bh * sh.S * D;
+  const float* dog = dout + (size_t)bh * sh.S * D;
   const int tc0 = kr0 % blk;              // this CTA's first key in a tile
 
   float* ks = smem;                 // R x (D+1)
   float* vs = ks + R * (D + 1);     // R x (D+1)
   float* qs = vs + R * (D + 1);     // R x (D+1)
   float* dos = qs + R * (D + 1);    // R x (D+1)
-  float* ps = dos + R * (D + 1);    // R(q) x R(k): s, then p rounded
+  float* ps = dos + R * (D + 1);    // R(q) x R(k): s, then p
   float* dps = ps + R * R;          // R(q) x R(k): dp, then ds
   float* dks = dps + R * R;         // R x D
   float* dvs = dks + R * D;         // R x D
@@ -380,8 +422,8 @@ v2_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (kpm) s += km_s[c];
         if (HAS_AM) s += tile[(size_t)(c0 + r) * blk + c];
         const float p = s > kRowRunThresh ? expf(s - lse_s[r]) : 0.f;
-        ps[e] = round_to<T>(p);
-        dps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
+        ps[e] = p;
+        dps[e] = p * (dps[e] - dl_s[r]);
       }
       __syncthreads();
       // dv += p^T . do ; dk += ds^T . q
@@ -391,12 +433,65 @@ v2_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkg = dk + ((size_t)bh * sh.S + kr0) * D;
-  T* dvg = dv + ((size_t)bh * sh.S + kr0) * D;
+  float* dkg = dk + ((size_t)bh * sh.S + kr0) * D;
+  float* dvg = dv + ((size_t)bh * sh.S + kr0) * D;
   for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
-    dkg[e] = from_f<T>(dks[e] * sh.sm_scale);
-    dvg[e] = from_f<T>(dvs[e]);
+    dkg[e] = dks[e] * sh.sm_scale;
+    dvg[e] = dvs[e];
   }
+}
+
+// K10 in bf16 (the tensor-core body, mma_dkv.cuh): grid (S / R, B*H), R =
+// min(blk, 64) key rows of one block column per CTA, 16 per warp, over
+// the column's CSC walk; CH = dkv_chunk(blk) query rows per chunk. The
+// tiles are row-major (query, key), so a key row's cells lie blk apart
+// and the CTA's keys start tc0 = kr0 % blk into each.
+struct ColRunWalk {
+  const int32_t* crows;   // the block column's CSC rows and mask uids
+  const int32_t* uids;
+  const float* tiles;     // (U, blk, blk), or null (AM = false)
+  int count, blk, tc0;    // tc0: the CTA's first key within a tile
+  __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int rows() const { return blk; }
+  __device__ __forceinline__ int2 tile(int t) const {
+    return make_int2(crows[t] * blk, 0);
+  }
+  __device__ __forceinline__ const float* mask(int t) const {
+    return tiles + (size_t)uids[t] * blk * blk + tc0;
+  }
+  __device__ __forceinline__ int mask_ld() const { return blk; }
+};
+
+template <int CH, int DMAX, bool KPM, bool AM>
+__global__ void __launch_bounds__(2 * kMmaMaxRows, DMAX <= 64 ? 3 : 2)
+v2_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  const float* __restrict__ kpm,
+                  const float* __restrict__ tiles, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, unsigned long long* tally,
+                  const int32_t* __restrict__ coffs,
+                  const int32_t* __restrict__ ccnts,
+                  const int32_t* __restrict__ crows,
+                  const int32_t* __restrict__ uids, Shape sh) {
+  const int R = blockDim.x / 2;
+  const int D = sh.D;
+  const int bh = blockIdx.y;
+  const int b = bh / sh.H;
+  const int kr0 = blockIdx.x * R;
+  const int col = (bh % sh.H) * (sh.S / sh.blk) + kr0 / sh.blk;
+  const int base = coffs[col];
+  const ColRunWalk walk{crows + base, uids + base, tiles, ccnts[col], sh.blk,
+                        kr0 % sh.blk};
+  const size_t q0 = (size_t)bh * sh.S;
+  const size_t krow = q0 + kr0;
+  const DkvRows rows{q + q0 * D, k + krow * D, v + krow * D, dout + q0 * D,
+                     lse + q0, delta + q0,
+                     KPM ? kpm + (size_t)b * sh.S : nullptr, dk + krow * D,
+                     dv + krow * D, 0, kr0, D, bh, sh.sm_scale, tally};
+  mma_dkv_body<CH, DMAX, KPM, false, RowRunRule, AM>(rows, walk, NoBand{},
+                                                     Dropout{});
 }
 
 size_t fwd_smem(int R, int D, int blk) {
@@ -466,34 +561,73 @@ FwdMma pick_fwd_mma_blk(int blk, int D, bool kpm, bool am) {
                      : pick_fwd_mma<128, 128>(kpm, am);
 }
 
-template <typename T, bool HAS_AM>
+template <bool HAS_AM>
 cudaError_t run_dq(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                    const void* k, const void* v, const void* dout,
                    const float* ls, const float* dl, const float* kpm,
                    const float* tiles, void* dq, const int32_t* of,
                    const int32_t* cn, const int32_t* co, const int32_t* ui,
                    Shape sh) {
-  return launch(v2_dq_kernel<T, HAS_AM>, grid, smem, s,
-                static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), ls, dl, kpm, tiles,
-                static_cast<T*>(dq), of, cn, co, ui, sh);
+  return launch(v2_dq_kernel<HAS_AM>, grid, smem, s,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v),
+                static_cast<const float*>(dout), ls, dl, kpm, tiles,
+                static_cast<float*>(dq), of, cn, co, ui, sh);
 }
 
-template <typename T, bool HAS_AM>
+template <bool HAS_AM>
 cudaError_t run_dkv(dim3 grid, size_t smem, cudaStream_t s, const void* q,
                     const void* k, const void* v, const void* dout,
                     const float* ls, const float* dl, const float* kpm,
                     const float* tiles, void* dk, void* dv, const int32_t* of,
                     const int32_t* cn, const int32_t* ro, const int32_t* ui,
                     Shape sh) {
-  return launch(v2_dkv_kernel<T, HAS_AM>, grid, smem, s,
-                static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), ls, dl, kpm, tiles,
-                static_cast<T*>(dk), static_cast<T*>(dv), of, cn, ro, ui,
-                sh);
+  return launch(v2_dkv_kernel<HAS_AM>, grid, smem, s,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v),
+                static_cast<const float*>(dout), ls, dl, kpm, tiles,
+                static_cast<float*>(dk), static_cast<float*>(dv), of, cn, ro,
+                ui, sh);
 }
+
+// the tensor-core backward launchers of one instantiation (pick_bwd_mma)
+template <int CH, int DMAX, bool KPM, bool AM>
+struct DqMma {
+  static cudaError_t run(dim3 grid, int threads, size_t smem, cudaStream_t s,
+                         const void* q, const void* k, const void* v,
+                         const void* dout, const float* ls, const float* dl,
+                         const float* kpm, const float* tiles, void* dq,
+                         unsigned long long* tally, const int32_t* of,
+                         const int32_t* cn, const int32_t* co,
+                         const int32_t* ui, Shape sh) {
+    return launch_rows(v2_dq_mma_kernel<CH, DMAX, KPM, AM>, grid, threads,
+                       smem, s, static_cast<const bf16*>(q),
+                       static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v),
+                       static_cast<const bf16*>(dout), ls, dl, kpm, tiles,
+                       static_cast<bf16*>(dq), tally, of, cn, co, ui, sh);
+  }
+};
+
+template <int CH, int DMAX, bool KPM, bool AM>
+struct DkvMma {
+  static cudaError_t run(dim3 grid, int threads, size_t smem,
+                         cudaStream_t s, const void* q, const void* k,
+                         const void* v, const void* dout, const float* ls,
+                         const float* dl, const float* kpm,
+                         const float* tiles, void* dk, void* dv,
+                         unsigned long long* tally, const int32_t* of,
+                         const int32_t* cn, const int32_t* ro,
+                         const int32_t* ui, Shape sh) {
+    return launch_rows(v2_dkv_mma_kernel<CH, DMAX, KPM, AM>, grid, threads,
+                       smem, s, static_cast<const bf16*>(q),
+                       static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v),
+                       static_cast<const bf16*>(dout), ls, dl, kpm, tiles,
+                       static_cast<bf16*>(dk), static_cast<bf16*>(dv), tally,
+                       of, cn, ro, ui, sh);
+  }
+};
 
 }  // namespace
 
@@ -502,10 +636,12 @@ cudaError_t run_dkv(dim3 grid, size_t smem, cudaStream_t s, const void* q,
 // null for none (then uids are not read).
 // offs, cnts, cols (rows for dkv), uids: int32 CSR (CSC) walk metadata.
 // Each entry point returns the CUDA error of its launch (0 on success);
-// it launches on `stream` and does not synchronise. blocksparse_v2_fwd
-// runs bf16 on the tensor-core body (q, k, v and o 16-byte aligned, kpm
-// and tiles 8: else cudaErrorInvalidValue) and fp32 on the CUDA-core
-// body; the backward runs the CUDA-core bodies in both.
+// it launches on `stream` and does not synchronise. Each runs bf16 on its
+// tensor-core body (q, k, v, do and the outputs 16-byte aligned, kpm and
+// tiles 8: else cudaErrorInvalidValue) and fp32 on its CUDA-core body.
+// tally (blocksparse_v2_dq, blocksparse_v2_dkv): null, or a uint64 to
+// which the tensor-core body adds the cells it sums again (a measurement;
+// the fp32 bodies add nothing).
 extern "C" int blocksparse_v2_fwd(
     const void* q, const void* k, const void* v, const void* kpm,
     const void* tiles, void* o, void* lse, const void* offs,
@@ -541,57 +677,72 @@ extern "C" int blocksparse_v2_fwd(
 extern "C" int blocksparse_v2_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* kpm, const void* tiles,
-    void* dq, const void* offs, const void* cnts, const void* cols,
-    const void* uids, int dtype, int bh, int heads, int seq, int head_dim,
-    int block, float sm_scale, void* stream) {
+    void* dq, void* tally, const void* offs, const void* cnts,
+    const void* cols, const void* uids, int dtype, int bh, int heads,
+    int seq, int head_dim, int block, float sm_scale, void* stream) {
   if (bad_shape(bh, heads, seq, head_dim, block))
     return (int)cudaErrorInvalidValue;
   const Shape sh{heads, seq, head_dim, block, sm_scale};
-  const int R = rows_of(block);
-  const dim3 grid(seq / R, bh);
-  const size_t smem = bwd_smem(R, head_dim);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const float* km = static_cast<const float*>(kpm);
+  const float* tl = static_cast<const float*>(tiles);
+  const int32_t* of = static_cast<const int32_t*>(offs);
+  const int32_t* cn = static_cast<const int32_t*>(cnts);
+  const int32_t* co = static_cast<const int32_t*>(cols);
+  const int32_t* ui = static_cast<const int32_t*>(uids);
   const bool am = tiles != nullptr;
-  auto run = dtype == 0   ? (am ? run_dq<float, true> : run_dq<float, false>)
-             : dtype == 1 ? (am ? run_dq<__nv_bfloat16, true>
-                                : run_dq<__nv_bfloat16, false>)
-                          : nullptr;
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)run(grid, smem, static_cast<cudaStream_t>(stream), q, k, v,
-                  dout, static_cast<const float*>(lse),
-                  static_cast<const float*>(delta),
-                  static_cast<const float*>(kpm),
-                  static_cast<const float*>(tiles), dq,
-                  static_cast<const int32_t*>(offs),
-                  static_cast<const int32_t*>(cnts),
-                  static_cast<const int32_t*>(cols),
-                  static_cast<const int32_t*>(uids), sh);
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    // one output: dq stands for both of dk/dv's
+    if (dkv_misaligned(q, k, v, dout, dq, dq, kpm, tiles))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(block);
+    return (int)pick_bwd_mma<DqMma>(dq_chunk(block), head_dim,
+                                    kpm != nullptr, am)(
+        dim3(seq / R, bh), 2 * R, mma_dq_smem(R, block, head_dim), s, q, k,
+        v, dout, ls, dl, km, tl, dq, static_cast<unsigned long long*>(tally),
+        of, cn, co, ui, sh);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(block);      // fp32: the CUDA-core body
+  return (int)(am ? run_dq<true> : run_dq<false>)(
+      dim3(seq / R, bh), bwd_smem(R, head_dim), s, q, k, v, dout, ls, dl, km,
+      tl, dq, of, cn, co, ui, sh);
 }
 
 extern "C" int blocksparse_v2_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* kpm, const void* tiles,
-    void* dk, void* dv, const void* coffs, const void* ccnts,
+    void* dk, void* dv, void* tally, const void* coffs, const void* ccnts,
     const void* crows, const void* uids, int dtype, int bh, int heads,
     int seq, int head_dim, int block, float sm_scale, void* stream) {
   if (bad_shape(bh, heads, seq, head_dim, block))
     return (int)cudaErrorInvalidValue;
   const Shape sh{heads, seq, head_dim, block, sm_scale};
-  const int R = rows_of(block);
-  const dim3 grid(seq / R, bh);
-  const size_t smem = bwd_smem(R, head_dim);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const float* km = static_cast<const float*>(kpm);
+  const float* tl = static_cast<const float*>(tiles);
+  const int32_t* of = static_cast<const int32_t*>(coffs);
+  const int32_t* cn = static_cast<const int32_t*>(ccnts);
+  const int32_t* ro = static_cast<const int32_t*>(crows);
+  const int32_t* ui = static_cast<const int32_t*>(uids);
   const bool am = tiles != nullptr;
-  auto run = dtype == 0   ? (am ? run_dkv<float, true> : run_dkv<float, false>)
-             : dtype == 1 ? (am ? run_dkv<__nv_bfloat16, true>
-                                : run_dkv<__nv_bfloat16, false>)
-                          : nullptr;
-  if (run == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)run(grid, smem, static_cast<cudaStream_t>(stream), q, k, v,
-                  dout, static_cast<const float*>(lse),
-                  static_cast<const float*>(delta),
-                  static_cast<const float*>(kpm),
-                  static_cast<const float*>(tiles), dk, dv,
-                  static_cast<const int32_t*>(coffs),
-                  static_cast<const int32_t*>(ccnts),
-                  static_cast<const int32_t*>(crows),
-                  static_cast<const int32_t*>(uids), sh);
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    if (dkv_misaligned(q, k, v, dout, dk, dv, kpm, tiles))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(block);
+    return (int)pick_bwd_mma<DkvMma>(dkv_chunk(block), head_dim,
+                                     kpm != nullptr, am)(
+        dim3(seq / R, bh), 2 * R, mma_dkv_smem(R, block, head_dim), s, q, k,
+        v, dout, ls, dl, km, tl, dk, dv,
+        static_cast<unsigned long long*>(tally), of, cn, ro, ui, sh);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(block);      // fp32: the CUDA-core body
+  return (int)(am ? run_dkv<true> : run_dkv<false>)(
+      dim3(seq / R, bh), bwd_smem(R, head_dim), s, q, k, v, dout, ls, dl, km,
+      tl, dk, dv, of, cn, ro, ui, sh);
 }

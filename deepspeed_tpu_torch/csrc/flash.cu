@@ -339,7 +339,8 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     delta + row0, k + kvr * g.Sk * D, v + kvr * g.Sk * D,
                     KPM ? kpm + (size_t)b * g.Sk : nullptr, dq + row0 * D,
                     r0, D, bh, g.sm_scale};
-  mma_dq_body<CH, DMAX, KPM, false, false>(rows, walk, NoBand{}, dr);
+  mma_dq_body<CH, DMAX, KPM, false, FlashRule>(rows, walk, NoBand{},
+                                                dr);
 }
 
 // ------------------------------------------------------------------- K7
@@ -479,7 +480,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      static_cast<char*>(dk) + out0,
                      static_cast<char*>(dv) + out0, fp32_out, kr0, D, bh,
                      g.sm_scale};
-  mma_dkv_body<CH, DMAX, KPM, false, false>(rows, walk, NoBand{}, dr);
+  mma_dkv_body<CH, DMAX, KPM, false, FlashRule>(rows, walk, NoBand{},
+                                                 dr);
 }
 
 size_t fwd_smem(int R, int C, int D, int bk) {

@@ -443,9 +443,10 @@ mf_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     KPM ? kpm + (size_t)b * sh.Sk : nullptr, dq + row0 * D,
                     r0, D, bh, sh.sm_scale};
   if constexpr (BAND)
-    mma_dq_body<CH, DMAX, KPM, true, true>(rows, walk, bd, dr);
+    mma_dq_body<CH, DMAX, KPM, true, MaskedFlashRule>(rows, walk, bd, dr);
   else
-    mma_dq_body<CH, DMAX, KPM, false, true>(rows, walk, NoBand{}, dr);
+    mma_dq_body<CH, DMAX, KPM, false, MaskedFlashRule>(rows, walk,
+                                                       NoBand{}, dr);
 }
 
 // ------------------------------------------------------------------- K3
@@ -605,9 +606,11 @@ mf_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      static_cast<char*>(dv) + out0, fp32_out, kr0, D, bh,
                      sh.sm_scale};
   if constexpr (BAND)
-    mma_dkv_body<CH, DMAX, KPM, true, true>(rows, walk, bd, dr);
+    mma_dkv_body<CH, DMAX, KPM, true, MaskedFlashRule>(rows, walk, bd,
+                                                       dr);
   else
-    mma_dkv_body<CH, DMAX, KPM, false, true>(rows, walk, NoBand{}, dr);
+    mma_dkv_body<CH, DMAX, KPM, false, MaskedFlashRule>(rows, walk,
+                                                        NoBand{}, dr);
 }
 
 size_t fwd_smem(int R, int D, int blk) {

@@ -1,10 +1,11 @@
-// The bf16 dk/dv body of K3 (masked_flash.cu), K7 (flash.cu) and K16
-// (blocksparse.cu) on the tensor cores: one walk over tiles of query rows
-// for a CTA of 16 key rows per warp, on mma_tiles.cuh's fragments.
+// The bf16 dk/dv body of K3 (masked_flash.cu), K7 (flash.cu), K10
+// (blocksparse_v2.cu) and K16 (blocksparse.cu) on the tensor cores: one
+// walk over tiles of query rows for a CTA of 16 key rows per warp, on
+// mma_tiles.cuh's fragments.
 //
 // A CTA owns R = 16 * warps key rows of one q head's kv row (one key
-// block of K3's CSC walk, one key tile of K7, one key block of K16's
-// column triples), R = min(key block, 64).
+// block of K3's or K10's CSC walk, one key tile of K7, one key block of
+// K16's column triples), R = min(key block, 64).
 // Each warp keeps the dK and dV accumulators of its 16 keys in
 // registers and reads its K and V fragments from the CTA's staged K and
 // V rows at each step. Q and dO stream through a ring of shared
@@ -19,14 +20,16 @@
 // ldmatrix.trans. Nothing goes back to shared memory.
 //
 // The function is the CUDA-core bodies' (mf_dkv_kernel, flash_dkv_kernel,
-// bs_dkv_kernel): s = (q.k) * sm_scale, + kpm[key], then with AM (K16) +
-// the walk's additive mask cell am[q, key] (the (S, S) mask read in
-// place), each rounded in fp32; then the causal clip of a CAUSAL tile and
-// the band predicate of a BAND tile set NEG_INF; p = exp(s - lse[q])
-// (with GUARD, K3 and K16: 0 where s <= VALID_THRESH, -1e28); under
-// dropout, keyed on (bh, q, k), pd = p / (1 - rate) and dp = dp / (1 -
-// rate) where kept, both 0 where dropped; ds = p (dp - delta[q]). pd and
-// ds round to bf16 before their products; dK is scaled by sm_scale at
+// v2_dkv_kernel, bs_dkv_kernel): s = (q.k) * sm_scale, + kpm[key], then
+// with AM (K10, K16) + the walk's additive mask cell am[q, key] (K10's
+// tile by uid, K16's (S, S) mask read in place; S^T puts the cells of a
+// key row mask_ld() apart), each rounded in fp32; then the causal clip of
+// a CAUSAL tile and the band predicate of a BAND tile set NEG_INF; p =
+// exp(s - lse[q]), and the kernel's Rule (mma_fwd.cuh) sets the guard: p
+// = 0 where s <= its threshold (K3 and K16 -1e28, K10 -1e29; K7 none);
+// under dropout, keyed on (bh, q, k), pd = p / (1 - rate) and dp = dp /
+// (1 - rate) where kept, both 0 where dropped; ds = p (dp - delta[q]). pd
+// and ds round to bf16 before their products; dK is scaled by sm_scale at
 // the end, dV is not; outputs in bf16, or fp32 per-q-head partials
 // (fp32_out, GQA).
 //
@@ -232,9 +235,10 @@ __device__ __forceinline__ void resum_spread(uint32_t redo, int lane,
 // Walk: n() tiles, tile(t) = (first query, kind bits), rows() query rows
 // per tile (16, 32, 64, 128); with AM, mask(t) the tile's additive fp32
 // mask at its first query and the CTA's first key (query stride
-// mask_ld()). CH = dkv_chunk(rows()); DMAX: 64 or 128.
-template <int CH, int DMAX, bool KPM, bool BAND, bool GUARD, bool AM = false,
-          typename Walk, typename BandT>
+// mask_ld()). CH = dkv_chunk(rows()); DMAX: 64 or 128; Rule: the
+// kernel's softmax rule (mma_fwd.cuh; its kGuard and kValid).
+template <int CH, int DMAX, bool KPM, bool BAND, typename Rule,
+          bool AM = false, typename Walk, typename BandT>
 __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
                                              const Walk& walk,
                                              const BandT& bd,
@@ -498,7 +502,8 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
           const float arg = x - lse_q;
           // ex2.approx here; the plain versions' expf where a rounding
           // is at stake
-          const float p = (!GUARD || x > kValidThresh) ? __expf(arg) : 0.f;
+          const float p =
+              (!Rule::kGuard || x > Rule::kValid) ? __expf(arg) : 0.f;
           float dp = dpv[j][e], pd = p;
           bool kept = true;
           if (dr.on) {
@@ -546,7 +551,7 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
                             ? kNegInf
                             : score(raw, r, AM ? amr[qc * mld + 8 * r] : 0.f);
         const float p =
-            (!GUARD || x > kValidThresh) ? expf(x - ls[qc]) : 0.f;
+            (!Rule::kGuard || x > Rule::kValid) ? expf(x - ls[qc]) : 0.f;
         float pd = p;
         if (dr.on) {
           const bool kept = dr.keep(a.bh, qi, ki);

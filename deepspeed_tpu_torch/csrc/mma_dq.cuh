@@ -1,9 +1,10 @@
-// The bf16 dq body of K2 (masked_flash.cu), K6 (flash.cu) and K15
-// (blocksparse.cu) on the tensor cores: one walk over key tiles for a CTA
-// of 16 query rows per warp, on mma_tiles.cuh's fragments.
+// The bf16 dq body of K2 (masked_flash.cu), K6 (flash.cu), K9
+// (blocksparse_v2.cu) and K15 (blocksparse.cu) on the tensor cores: one
+// walk over key tiles for a CTA of 16 query rows per warp, on
+// mma_tiles.cuh's fragments.
 //
 // A CTA owns R = 16 * warps query rows of one q head (one block row of
-// K2's CSR walk, one query tile of K6, one block row of K15's row
+// K2's or K9's CSR walk, one query tile of K6, one block row of K15's row
 // triples), R = min(tile rows, 64). Its Q and dO rows are staged once as
 // bf16; each lane holds the lse and delta of its two rows, and each warp
 // the dQ accumulator of its 16 rows in registers. K and V stream through
@@ -18,16 +19,17 @@
 // the descriptors of the cells summed again.
 //
 // The function is the CUDA-core bodies' (mf_dq_kernel, flash_dq_kernel,
-// bs_dq_kernel) and their plain versions': s = (q.k) * sm_scale, +
-// kpm[key], then with AM (K15) + the walk's additive mask cell am[q, key]
-// (the (S, S) mask read in place, float2 pairs per 8-key fragment), each
-// rounded in fp32; then the causal clip of a CAUSAL tile and the band
-// predicate of a BAND tile set NEG_INF; p = exp(s - lse[q]) (with GUARD,
-// K2 and K15: 0 where s <= VALID_THRESH, -1e28); under dropout, keyed on
-// (bh, q, k), dp = dp / (1 - rate) where kept and 0 where dropped; ds = p
-// (dp - delta[q]), rounded to bf16 before dQ += dS K; dq is scaled by
-// sm_scale once at the end and written in bf16 (dq is per q head: no GQA
-// partials).
+// v2_dq_kernel, bs_dq_kernel) and their plain versions': s = (q.k) *
+// sm_scale, + kpm[key], then with AM (K9, K15) + the walk's additive mask
+// cell am[q, key] (K9's tile by uid, K15's (S, S) mask read in place;
+// float2 pairs per 8-key fragment), each rounded in fp32; then the causal
+// clip of a CAUSAL tile and the band predicate of a BAND tile set NEG_INF;
+// p = exp(s - lse[q]), and the kernel's Rule (mma_fwd.cuh) sets the guard:
+// p = 0 where s <= its threshold (K2 and K15 -1e28, K9 -1e29; K6 none);
+// under dropout, keyed on (bh, q, k), dp = dp / (1 - rate) where kept and
+// 0 where dropped; ds = p (dp - delta[q]), rounded to bf16 before dQ +=
+// dS K; dq is scaled by sm_scale once at the end and written in bf16 (dq
+// is per q head: no GQA partials).
 //
 // The rounding of ds is held to the plain versions' as mma_dkv.cuh holds
 // it (its derivation of up and ud, with pd left out: dq rounds ds only).
@@ -80,6 +82,30 @@ __host__ __device__ inline int dq_chunk(int keys) {
   return keys < kDqChunk ? keys : kDqChunk;
 }
 
+// the tensor-core backward instantiation of a call (the dq or the dk/dv
+// body of any walk): `Run<CH, DMAX, A, B>::run` launches one, with CH the
+// walk's chunk (16 or 32: dq_chunk / dkv_chunk of its tiles), DMAX 64 for
+// head dims up to 64 and 128 above (the bad_shape checks passed: D <= 128),
+// A the key mask and B the kernel's other flag (a band, or mask tiles)
+template <template <int, int, bool, bool> class Run, int CH, int DMAX>
+auto pick_bwd_mma_flags(bool a, bool b)
+    -> decltype(&Run<CH, DMAX, false, false>::run) {
+  return a ? (b ? &Run<CH, DMAX, true, true>::run
+                : &Run<CH, DMAX, true, false>::run)
+           : (b ? &Run<CH, DMAX, false, true>::run
+                : &Run<CH, DMAX, false, false>::run);
+}
+
+template <template <int, int, bool, bool> class Run>
+auto pick_bwd_mma(int chunk, int D, bool a, bool b)
+    -> decltype(&Run<16, 64, false, false>::run) {
+  const bool wide = D > 64;
+  return chunk == 16 ? (wide ? pick_bwd_mma_flags<Run, 16, 128>(a, b)
+                             : pick_bwd_mma_flags<Run, 16, 64>(a, b))
+                     : (wide ? pick_bwd_mma_flags<Run, 32, 128>(a, b)
+                             : pick_bwd_mma_flags<Run, 32, 64>(a, b));
+}
+
 // shared bytes of the dq body: Q and dO rows, the ring of K and V chunks,
 // and each warp's re-sum buffer
 inline size_t mma_dq_smem(int R, int keys, int D) {
@@ -92,9 +118,10 @@ inline size_t mma_dq_smem(int R, int keys, int D) {
 // Walk: n() tiles, tile(t) = (first key, kind bits), keys() keys per
 // tile (16, 32, 64, 128); with AM, mask(t) the tile's additive fp32 mask
 // at the CTA's first row (row stride mask_ld(), even, 8-byte aligned).
-// CH = dq_chunk(keys()); DMAX: 64 or 128.
-template <int CH, int DMAX, bool KPM, bool BAND, bool GUARD, bool AM = false,
-          typename Walk, typename BandT>
+// CH = dq_chunk(keys()); DMAX: 64 or 128; Rule: the kernel's softmax rule
+// (mma_fwd.cuh; its kGuard and kValid).
+template <int CH, int DMAX, bool KPM, bool BAND, typename Rule,
+          bool AM = false, typename Walk, typename BandT>
 __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
                                             const BandT& bd,
                                             const Dropout& dr) {
@@ -351,7 +378,8 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
           const float arg = x - lse_r[r];
           // ex2.approx here; the plain versions' expf where the rounding
           // of ds is at stake
-          const float p = (!GUARD || x > kValidThresh) ? __expf(arg) : 0.f;
+          const float p =
+              (!Rule::kGuard || x > Rule::kValid) ? __expf(arg) : 0.f;
           float dp = dpv[j][e];
           bool kept = true;
           if (dr.on) {
@@ -404,8 +432,9 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
             const float x = masked(i >> 2, qi, ki)
                                 ? kNegInf
                                 : score(sd.x, KPM ? a.kpm[ki] : 0.f, am);
-            const float p =
-                (!GUARD || x > kValidThresh) ? expf(x - lse_r[r]) : 0.f;
+            const float p = (!Rule::kGuard || x > Rule::kValid)
+                                ? expf(x - lse_r[r])
+                                : 0.f;
             float dp = sd.y;
             if (dr.on) dp = dr.keep(a.bh, qi, ki) ? dp * dr.inv_keep : 0.f;
             put(i, p * (dp - dl_r[r]));

@@ -69,25 +69,26 @@ constexpr int kMmaMaxRows = 64;         // query rows a CTA owns, at most
 // scale, the key mask, x - m) counts kSumErr of its value.
 constexpr float kSumErr = 4.f / 16777216.f;
 
-// The softmax rule of a kernel on this body: with kGuard, p = 0 for a
-// score at or below kValid; with kEmptyNegInf, a row with l == 0 writes
-// lse = NEG_INF, else m + log(1).
-struct MaskedFlashRule {                 // K1
+// The softmax rule of a kernel on this body and of its backward on the
+// dq and dk/dv bodies (mma_dq.cuh, mma_dkv.cuh: kGuard and kValid): with
+// kGuard, p = 0 for a score at or below kValid; with kEmptyNegInf, a row
+// with l == 0 writes lse = NEG_INF, else m + log(1).
+struct MaskedFlashRule {                 // K1, K2, K3
   static constexpr bool kGuard = true;
   static constexpr float kValid = kValidThresh;
   static constexpr bool kEmptyNegInf = true;
 };
-struct FlashRule {                       // K5
+struct FlashRule {                       // K5, K6, K7
   static constexpr bool kGuard = false;
   static constexpr float kValid = 0.f;
   static constexpr bool kEmptyNegInf = false;
 };
-struct RowRunRule {                      // K8
+struct RowRunRule {                      // K8, K9, K10
   static constexpr bool kGuard = true;
   static constexpr float kValid = -1e29f;  // blocksparse_v2.VALID_THRESH
   static constexpr bool kEmptyNegInf = false;
 };
-struct TripleRule {                      // K14
+struct TripleRule {                      // K14, K15, K16
   static constexpr bool kGuard = true;
   static constexpr float kValid = -1e28f;  // blocksparse.VALID_THRESH
   static constexpr bool kEmptyNegInf = false;

@@ -99,9 +99,15 @@ CHUNK = 32
 # - "blocksparse_v2" (K8-K10): the fixed per-head layouts of
 #   ds_config_sparse.json under an (S, S) 'mul' mask at walks 16, 32, 64
 #   and 128 (4480, 2112, 1024 and 256 tiles per (b, h), in 24.14, 39.37,
-#   78.98 and 79.79 ms); they compute every chunk of a walked tile, so a
-#   coarse walk of this layout computes 1.9-3.7x the fine walk's cells
-#   and the fine walk wins;
+#   78.98 and 79.79 ms, K9 and K10 on the CUDA cores); they compute every
+#   chunk of a walked tile, so a coarse walk of this layout computes
+#   1.9-3.7x the fine walk's cells and the fine walk wins. Kept since K9
+#   and K10 run the tensor-core bodies: that sweep alone (6.961, 9.453,
+#   12.370 and 14.135 ms) fits a floor per tile and none per chunk, which
+#   would walk small layouts of S 128 at 128, off JAX's fine walk (bf16
+#   outputs then part from JAX's beyond the tests' tolerance), where three
+#   small launches take 0.1-0.2 ms and no walk wins in every run
+#   (chip_smoke.v2_walk_picks; PERF.md section 6);
 # - "banded" (K11-K13, banded.walk_cost picks their walk tiles; a tile is
 #   a walk step of the three kernels, a chunk min(bq, 32) x min(bkv, 32)
 #   cells they compute): the s8k BSLongformer layout (B 1, H 16, S 8192,

@@ -78,7 +78,7 @@ from deepspeed_tpu_torch.ops.attention.masked_flash import (
     masked_flash_attention, walk_cost_us)
 from deepspeed_tpu_torch.ops.sparse_attention import banded, hybrid
 from deepspeed_tpu_torch.ops.sparse_attention.blocksparse_v2 import (
-    RowRunPlan, build_coarse_index, row_run_attention)
+    RowRunPlan, _check_tally, build_coarse_index, row_run_attention)
 
 __all__ = ["NEG_INF", "VALID_THRESH", "block_sparse_attention",
            "block_sparse_attention_reference", "build_row_luts",
@@ -496,17 +496,6 @@ def bs_fwd(q, k, v, key_mask, attn_mask, plan: TriplePlan, sm_scale: float):
     return o, lse
 
 
-def _v1_check_tally(tally, q):
-    """``tally``: None, or one int64 on q's device (the cells the
-    tensor-core body sums again are added to it)."""
-    if tally is not None and (tally.dtype != torch.int64
-                              or tally.numel() != 1
-                              or tally.device != q.device):
-        raise ValueError(f"a tally is one int64 on {q.device}, got "
-                         f"{tally.dtype} {tuple(tally.shape)} on "
-                         f"{tally.device}")
-
-
 def bs_dq(q, k, v, do, lse, delta, key_mask, attn_mask, plan: TriplePlan,
           sm_scale: float, tally=None):
     """K15: ``dq`` of :func:`bs_dq_plain`. A CUDA ``q`` launches the sm_90a
@@ -521,7 +510,7 @@ def bs_dq(q, k, v, do, lse, delta, key_mask, attn_mask, plan: TriplePlan,
         return bs_dq_plain(q, k, v, do, lse, delta, key_mask, attn_mask,
                            plan, sm_scale)
     _v1_check_bwd_aligned(q, k, v, do, key_mask, attn_mask)
-    _v1_check_tally(tally, q)
+    _check_tally(tally, q)
     dq = torch.empty_like(q)
     _v1_launch("bs_dq", q, [q, k, v, do, lse, delta, key_mask, attn_mask,
                             dq, tally, *plan.device("rows", q.device)], plan,
@@ -540,7 +529,7 @@ def bs_dkv(q, k, v, do, lse, delta, key_mask, attn_mask, plan: TriplePlan,
         return bs_dkv_plain(q, k, v, do, lse, delta, key_mask, attn_mask,
                             plan, sm_scale)
     _v1_check_bwd_aligned(q, k, v, do, key_mask, attn_mask)
-    _v1_check_tally(tally, q)
+    _check_tally(tally, q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _v1_launch("bs_dkv", q, [q, k, v, do, lse, delta, key_mask, attn_mask,

@@ -21,12 +21,13 @@ with a wrapper and a plain PyTorch version of the same function:
 
 For CUDA tensors each wrapper launches its hand-written kernel in
 ``csrc/blocksparse_v2.cu`` (built with nvcc for sm_90a at first use) or
-raises; it never falls back. K8 runs bf16 on K1's tensor-core forward
-body (``csrc/mma_fwd.cuh``) and fp32 on the CUDA cores
-(:data:`FWD_BODIES`); K9 and K10 run the CUDA-core bodies in both. For
-CPU tensors each wrapper runs the plain version (``*_plain``). Each
-launch adds one to the wrapper's ``launches``, and K8's to ``bodies``
-under the body it ran.
+raises; it never falls back. In bf16 K8 runs K1's tensor-core forward
+body (``csrc/mma_fwd.cuh``, :data:`FWD_BODIES`), K9 K2's dq body
+(``csrc/mma_dq.cuh``, :data:`DQ_BODIES`) and K10 K3's dk/dv body
+(``csrc/mma_dkv.cuh``, :data:`DKV_BODIES`); in fp32 all three run on
+the CUDA cores. For CPU tensors each wrapper runs the plain version
+(``*_plain``). Each launch adds one to the wrapper's ``launches`` and to
+its ``bodies`` under the body it ran.
 :func:`row_run_attention` is the ``torch.autograd.Function`` entry over
 the three.
 
@@ -56,16 +57,18 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-# FWD_BODIES: K8 runs K1's forward bodies, by dtype as K1 does
+# FWD_BODIES, DQ_BODIES, DKV_BODIES: K8, K9 and K10 run K1's, K2's and
+# K3's bodies, by dtype as those do
 from deepspeed_tpu_torch.ops.attention.masked_flash import (
-    FWD_BODIES, KERNEL_BLOCKS, MAX_HEAD_DIM, _check_aligned, _count_body)
+    DKV_BODIES, DQ_BODIES, FWD_BODIES, KERNEL_BLOCKS, MAX_HEAD_DIM,
+    _check_aligned, _count_body)
 
 __all__ = ["NEG_INF", "VALID_THRESH", "build_row_runs", "build_am_index",
            "build_coarse_index", "RowRunPlan", "row_run_attention",
            "blocksparse_v2_fwd", "blocksparse_v2_dq", "blocksparse_v2_dkv",
            "blocksparse_v2_fwd_plain", "blocksparse_v2_dq_plain",
            "blocksparse_v2_dkv_plain", "row_run_bwd", "reset_launches",
-           "FWD_BODIES"]
+           "FWD_BODIES", "DQ_BODIES", "DKV_BODIES"]
 
 NEG_INF = -1e30
 VALID_THRESH = -1e29
@@ -463,6 +466,26 @@ def _check_fwd_aligned(q, k, v, key_mask=None, tiles=None):
                     ("tiles", tiles)))
 
 
+def _check_bwd_aligned(q, k, v, do, key_mask=None, tiles=None):
+    """K9's and K10's operands for their tensor-core bodies, which take
+    the same operands and the same alignment (dq, dk and dv, allocated by
+    the wrappers, are aligned)."""
+    _check_aligned("row-run backward", DQ_BODIES, q.dtype,
+                   (("q", q), ("k", k), ("v", v), ("do", do),
+                    ("key_mask", key_mask), ("tiles", tiles)))
+
+
+def _check_tally(tally, q):
+    """``tally``: None, or one int64 on q's device (the cells the
+    tensor-core body sums again are added to it)."""
+    if tally is not None and (tally.dtype != torch.int64
+                              or tally.numel() != 1
+                              or tally.device != q.device):
+        raise ValueError(f"a tally is one int64 on {q.device}, got "
+                         f"{tally.dtype} {tuple(tally.shape)} on "
+                         f"{tally.device}")
+
+
 _fns = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # after the pointers: dtype, bh, heads, seq, head_dim, block, sm_scale,
@@ -521,45 +544,57 @@ def blocksparse_v2_fwd(q, k, v, key_mask, tiles, plan: RowRunPlan,
 
 
 def blocksparse_v2_dq(q, k, v, do, lse, delta, key_mask, tiles,
-                      plan: RowRunPlan, sm_scale: float):
-    """K9: ``dq`` of :func:`blocksparse_v2_dq_plain`; kernel on CUDA,
-    plain version on the CPU."""
+                      plan: RowRunPlan, sm_scale: float, tally=None):
+    """K9: ``dq`` of :func:`blocksparse_v2_dq_plain`. A CUDA ``q``
+    launches the sm_90a kernel (raising on any dtype, shape, device,
+    alignment or launch problem), its tensor-core body in bf16 and its
+    CUDA-core body in fp32 (:data:`DQ_BODIES`, counted in ``bodies``); a
+    CPU ``q`` runs the plain version. ``tally`` (a measurement): None, or
+    one int64 on q's device to which the tensor-core body adds the cells
+    it sums again in the plain order."""
     _check_args(q, k, v, key_mask, tiles, plan)
     if q.device.type == "cpu":
         return blocksparse_v2_dq_plain(q, k, v, do, lse, delta, key_mask,
                                        tiles, plan, sm_scale)
     _check_cuda((q, k, v, do), (lse, delta, key_mask, tiles), plan)
+    _check_bwd_aligned(q, k, v, do, key_mask, tiles)
+    _check_tally(tally, q)
     dq = torch.empty_like(q)
     _launch("blocksparse_v2_dq", q,
-            [q, k, v, do, lse, delta, key_mask, tiles, dq,
+            [q, k, v, do, lse, delta, key_mask, tiles, dq, tally,
              *plan.device("csr", q.device)], plan, sm_scale)
     blocksparse_v2_dq.launches += 1
+    _count_body(blocksparse_v2_dq, q.dtype, DQ_BODIES)
     return dq
 
 
 def blocksparse_v2_dkv(q, k, v, do, lse, delta, key_mask, tiles,
-                       plan: RowRunPlan, sm_scale: float):
-    """K10: ``(dk, dv)`` of :func:`blocksparse_v2_dkv_plain`; kernel on
-    CUDA, plain version on the CPU."""
+                       plan: RowRunPlan, sm_scale: float, tally=None):
+    """K10: ``(dk, dv)`` of :func:`blocksparse_v2_dkv_plain`; on CUDA as
+    :func:`blocksparse_v2_dq` (:data:`DKV_BODIES`), plain version on the
+    CPU."""
     _check_args(q, k, v, key_mask, tiles, plan)
     if q.device.type == "cpu":
         return blocksparse_v2_dkv_plain(q, k, v, do, lse, delta, key_mask,
                                         tiles, plan, sm_scale)
     _check_cuda((q, k, v, do), (lse, delta, key_mask, tiles), plan)
+    _check_bwd_aligned(q, k, v, do, key_mask, tiles)
+    _check_tally(tally, q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("blocksparse_v2_dkv", q,
-            [q, k, v, do, lse, delta, key_mask, tiles, dk, dv,
+            [q, k, v, do, lse, delta, key_mask, tiles, dk, dv, tally,
              *plan.device("csc", q.device)], plan, sm_scale)
     blocksparse_v2_dkv.launches += 1
+    _count_body(blocksparse_v2_dkv, q.dtype, DKV_BODIES)
     return dk, dv
 
 
 def reset_launches():
-    """Set every launch count of K8-K10 to 0, and K8's by body."""
+    """Set every launch count of K8-K10 to 0, also by body."""
     for w in (blocksparse_v2_fwd, blocksparse_v2_dq, blocksparse_v2_dkv):
         w.launches = 0
-    blocksparse_v2_fwd.bodies = {}
+        w.bodies = {}
 
 
 reset_launches()

@@ -339,6 +339,103 @@ def test_bf16_forward_refuses_misaligned_operands(operand):
         _check_fwd_aligned(**operands(torch.bfloat16, operand))
 
 
+def _body_by_dtype(kernel, table, dtype, body):
+    """``kernel`` of K9/K10 names the body ``dtype`` runs by ``table``;
+    ``reset_launches`` zeroes the counts by body of all three kernels."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import _count_body
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as tv2
+    bodies, wrapper = getattr(tv2, table), getattr(tv2, kernel)
+    assert bodies[dtype] == body
+    names = ("blocksparse_v2_fwd", "blocksparse_v2_dq", "blocksparse_v2_dkv")
+    saved = {n: dict(getattr(tv2, n).bodies) for n in names}
+    try:
+        _count_body(wrapper, dtype, bodies)
+        _count_body(wrapper, dtype, bodies)
+        _count_body(tv2.blocksparse_v2_fwd, dtype, tv2.FWD_BODIES)
+        assert wrapper.bodies[body] == saved[kernel].get(body, 0) + 2
+        tv2.reset_launches()
+        assert [getattr(tv2, n).bodies for n in names] == [{}, {}, {}]
+    finally:
+        for n, b in saved.items():
+            getattr(tv2, n).bodies = b
+
+
+@pytest.mark.parametrize("dtype, body", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "fma")])
+def test_dq_body_by_dtype(dtype, body):
+    """K9 names the body a dtype runs: bf16 on K2's tensor-core dq body
+    (csrc/mma_dq.cuh), fp32 on the CUDA cores; ``reset_launches`` zeroes
+    the counts by body of K8-K10."""
+    _body_by_dtype("blocksparse_v2_dq", "DQ_BODIES", dtype, body)
+
+
+@pytest.mark.parametrize("dtype, body", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "fma")])
+def test_dkv_body_by_dtype(dtype, body):
+    """K10 names the body a dtype runs: bf16 on K3's tensor-core dk/dv
+    body (csrc/mma_dkv.cuh), fp32 on the CUDA cores; ``reset_launches``
+    zeroes the counts by body of K8-K10."""
+    _body_by_dtype("blocksparse_v2_dkv", "DKV_BODIES", dtype, body)
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "do", "key_mask",
+                                     "tiles"])
+def test_bf16_backward_refuses_misaligned_operands(operand):
+    """K9's and K10's tensor-core bodies load 16-byte rows (q, k, v, do)
+    and 8-byte pairs of the key mask and the mask tiles: a bf16 call
+    whose operand starts off those boundaries raises before any launch,
+    an aligned one and fp32 pass."""
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse_v2 import \
+        _check_bwd_aligned
+    shape, n = (1, 2, 32, 16), 2 * 32 * 16
+
+    def operands(dtype, off=None):
+        ts = {name: torch.zeros(n + 8, dtype=dtype)[:n].view(shape)
+              for name in ("q", "k", "v", "do")}
+        ts["key_mask"] = torch.zeros(33)[:32].view(1, 32)
+        ts["tiles"] = torch.zeros(2 * 16 * 16 + 2)[:512].view(2, 16, 16)
+        if off is not None:
+            base = torch.zeros(n + 8, dtype=ts[off].dtype)
+            ts[off] = base[1:1 + ts[off].numel()].view(ts[off].shape) \
+                if ts[off].dtype == torch.float32 else \
+                base[4:4 + n].view(shape)
+        return ts
+
+    _check_bwd_aligned(**operands(torch.bfloat16))
+    _check_bwd_aligned(**operands(torch.float32, operand))
+    with pytest.raises(ValueError, match=f"{operand} aligned"):
+        _check_bwd_aligned(**operands(torch.bfloat16, operand))
+
+
+def test_backward_tally_argument():
+    """K9's and K10's ``tally`` is None or one int64 on q's device: any
+    other dtype, size or device raises before a launch; the CPU path
+    runs the plain versions, which count no cell, and leaves it as it
+    was."""
+    from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as tv2
+    q = torch.zeros(1, 2, 32, 16)
+    tv2._check_tally(None, q)
+    tv2._check_tally(torch.zeros(1, dtype=torch.int64), q)
+    for bad in (torch.zeros(1, dtype=torch.int32),
+                torch.zeros(2, dtype=torch.int64),
+                torch.zeros(1, dtype=torch.int64, device="meta")):
+        with pytest.raises(ValueError, match="a tally is one int64"):
+            tv2._check_tally(bad, q)
+    layout = _layouts()["fixed_per_head"][:, :2, :2]
+    rng = np.random.RandomState(9)
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(rng, 1, 2, 32, 16))
+    plan = tv2.RowRunPlan(layout, FB)
+    lse = torch.zeros(1, 2, 32)
+    tally = torch.full((1,), 7, dtype=torch.int64)
+    args = (q, k, v, do, lse, lse, None, None, plan, 0.25)
+    dq = tv2.blocksparse_v2_dq(*args, tally=tally)
+    dk, dv = tv2.blocksparse_v2_dkv(*args, tally=tally)
+    torch.testing.assert_close(dq, tv2.blocksparse_v2_dq_plain(*args))
+    for got, want in zip((dk, dv), tv2.blocksparse_v2_dkv_plain(*args)):
+        torch.testing.assert_close(got, want)
+    assert int(tally) == 7
+
+
 # ------------------------------------------------------- the front end
 FRONT_CASES = [
     # (mode, config kwargs, attn mask kind, key mask mode, dtype)
@@ -369,12 +466,12 @@ def _front_masks(rng, kind, kpm_mode, B, s):
     return am, mode, kpm
 
 
-@pytest.mark.parametrize("case", range(len(FRONT_CASES)))
-def test_block_sparse_attention_with_attn_mask_matches_jax(case):
-    """block_sparse_attention with an (S, S) attention mask (and a key
-    mask): output and q/k/v grads against JAX's dispatch in interpret
-    mode (its v2 route, coarse by its own rule) and the port's dense
-    reference."""
+def _front_case(case, force=None):
+    """FRONT_CASES[case] through block_sparse_attention: the port's output
+    and q/k/v grads, JAX's dispatch in interpret mode on the same inputs,
+    and the port's dense reference in fp32 on the same (rounded) inputs.
+    ``force``: None, both rules pick their walk; else both walk it (0:
+    the fine walk)."""
     import jax
     import jax.numpy as jnp
     from deepspeed_tpu.ops.sparse_attention import blocksparse as jbs
@@ -403,21 +500,62 @@ def test_block_sparse_attention_with_attn_mask_matches_jax(case):
     def jf(a, b, c):
         return jbs.block_sparse_attention(a, b, c, layout, interpret=True,
                                           **kw_j)
-    jo, vjp = jax.vjp(jf, *(jnp.asarray(a).astype(jd) for a in (q, k, v)))
-    want = [np.asarray(x.astype(jnp.float32))
-            for x in (jo, *vjp(jnp.asarray(do).astype(jd)))]
-    args = [torch.from_numpy(a).to(td).requires_grad_() for a in (q, k, v)]
-    o = tbs.block_sparse_attention(*args, layout, **kw_t)
-    got = [o.detach().float().numpy()] + [
-        g.float().numpy() for g in torch.autograd.grad(
-            o, args, torch.from_numpy(do).to(td))]
+    old = (jbs._FORCE_COARSE_BLOCK, tbs._FORCE_COARSE_BLOCK)
+    jbs._FORCE_COARSE_BLOCK = tbs._FORCE_COARSE_BLOCK = force
+    try:
+        jo, vjp = jax.vjp(jf, *(jnp.asarray(a).astype(jd)
+                                for a in (q, k, v)))
+        want = [np.asarray(x.astype(jnp.float32))
+                for x in (jo, *vjp(jnp.asarray(do).astype(jd)))]
+        args = [torch.from_numpy(a).to(td).requires_grad_()
+                for a in (q, k, v)]
+        o = tbs.block_sparse_attention(*args, layout, **kw_t)
+        got = [o.detach().float().numpy()] + [
+            g.float().numpy() for g in torch.autograd.grad(
+                o, args, torch.from_numpy(do).to(td))]
+    finally:
+        jbs._FORCE_COARSE_BLOCK, tbs._FORCE_COARSE_BLOCK = old
+    args = [torch.from_numpy(a).to(td).float().requires_grad_()
+            for a in (q, k, v)]
+    o = tbs.block_sparse_attention_reference(*args, layout, **kw_t)
+    ref = [o.detach().numpy()] + [g.numpy() for g in torch.autograd.grad(
+        o, args, torch.from_numpy(do).to(td).float())]
+    return got, want, ref, dtype
+
+
+@pytest.mark.parametrize("case", range(len(FRONT_CASES)))
+def test_block_sparse_attention_with_attn_mask_matches_jax(case):
+    """block_sparse_attention with an (S, S) attention mask (and a key
+    mask): output and q/k/v grads against JAX's dispatch in interpret
+    mode (its v2 route, coarse by its own rule) and the port's dense
+    reference."""
+    got, want, ref, dtype = _front_case(case)
     for g, w in zip(got, want):
         assert np.isfinite(g).all()
         _assert_close(g, w, dtype)
     if dtype == "fp32":
-        ref = tbs.block_sparse_attention_reference(
-            *(torch.from_numpy(a) for a in (q, k, v)), layout, **kw_t)
-        np.testing.assert_allclose(ref.numpy(), got[0], atol=FP32_ATOL)
+        np.testing.assert_allclose(ref[0], got[0], atol=FP32_ATOL)
+
+
+# a bf16 output's rms error against the fp32 dense reference: its own
+# rounding (2^-9 relative) and the bf16 inputs' products
+BF16_REF_RMS = 2.0**-8
+
+
+@pytest.mark.parametrize("force", [0, 128])
+def test_bf16_walks_match_jax_and_dense_reference(force):
+    """FRONT_CASES' bf16 case at the fine walk and at a walk of 128 (one
+    tile per head): each agrees with JAX's dispatch forced to the same
+    walk, and lands within BF16_REF_RMS of the fp32 dense reference. The
+    two walks round other fp32 values to bf16 and differ from each other
+    beyond BF16_TOL, so the automatic comparison above holds only while
+    the port's rule walks this layout as JAX's does (fine)."""
+    case = next(i for i, c in enumerate(FRONT_CASES) if c[-1] == "bf16")
+    got, want, ref, _ = _front_case(case, force)
+    for g, w, r in zip(got, want, ref):
+        assert np.isfinite(g).all()
+        _assert_close(g, w, "bf16")
+        assert np.linalg.norm(g - r) / np.linalg.norm(r) <= BF16_REF_RMS
 
 
 def test_sparse_self_attention_with_attn_mask_matches_jax():
@@ -719,6 +857,12 @@ CUDA_CASES = [
     (2, 4, 512, 128, "bslongformer", 64, None, False, "bf16"),
     (2, 4, 512, 72, "empty_rows", None, "mul", True, "bf16"),
     (2, 4, 512, 64, "fixed_main", None, "far", True, "bf16"),
+    # K9's and K10's tensor-core bodies: an empty block column as well as
+    # empty rows (K10's empty CSC walk), and a walk of 128 whose two CTAs
+    # share each tile (tr0, tc0 = 64) under an 'add' mask and the key
+    # mask at head dim 128
+    (2, 4, 512, 64, "empty_rows_cols", None, "mul", True, "bf16"),
+    (2, 4, 512, 128, "bigbird", 128, "add", True, "bf16"),
 ]
 
 
@@ -740,8 +884,14 @@ def _cuda_layout(name, H, s):
         return BSLongformerSparsityConfig(num_heads=H,
                                           block=FB).make_layout(s)
     n = s // FB                    # "empty_rows": block rows 3 and 9 empty
-    lay = (np.random.RandomState(4).rand(H, n, n) < 0.3).astype(np.int32)
+    if name == "empty_rows":
+        lay = (np.random.RandomState(4).rand(H, n, n) < 0.3).astype(np.int32)
+        lay[:, [3, 9]] = 0
+        return lay
+    # "empty_rows_cols": block rows 3 and 9 and block columns 5 and 20
+    lay = (np.random.RandomState(5).rand(H, n, n) < 0.3).astype(np.int32)
     lay[:, [3, 9]] = 0
+    lay[:, :, [5, 20]] = 0
     return lay
 
 
@@ -751,7 +901,9 @@ def test_cuda_kernels_match_plain(case):
     """K8, K9 and K10 on the card against their plain versions on the
     same inputs (K9 and K10 take the plain forward's lse), with a key
     mask holding a batch row of pads and mask rows that drop every key;
-    K8 runs its tensor-core body in bf16, its CUDA-core body in fp32."""
+    each runs its tensor-core body in bf16, its CUDA-core body in fp32;
+    an empty block row's dq and an empty block column's dk and dv are
+    0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as tv2
@@ -803,6 +955,14 @@ def test_cuda_kernels_match_plain(case):
     assert torch.equal(lse.isfinite(), lse_p.isfinite())
     assert float((lse - lse_p).abs().max()) <= 1e-3
     assert tv2.blocksparse_v2_fwd.bodies == {tv2.FWD_BODIES[td]: 1}
+    assert tv2.blocksparse_v2_dq.bodies == {tv2.DQ_BODIES[td]: 1}
+    assert tv2.blocksparse_v2_dkv.bodies == {tv2.DKV_BODIES[td]: 1}
+    for h in range(H):
+        for r in np.nonzero(~layout[h].any(axis=1))[0]:
+            assert (got[1][:, h, r * FB:(r + 1) * FB] == 0).all()
+        for c in np.nonzero(~layout[h].any(axis=0))[0]:
+            assert (got[2][:, h, c * FB:(c + 1) * FB] == 0).all()
+            assert (got[3][:, h, c * FB:(c + 1) * FB] == 0).all()
     if with_kpm:
         assert (o[-1] == 0).all()
     if name == "empty_rows":

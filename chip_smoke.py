@@ -10,13 +10,18 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
    every kernel of the port is built with nvcc from csrc/ for sm_90a,
    each kernel's registers and spills as ptxas -v reports them (a spill
    in a tensor-core body, any "_mma_kernel" of K1-K3, K5-K10 and K14-K16,
-   fails the run).
+   or in any paged_decode function of K4 and K4q, fails the run).
 2. kernels: each kernel against its plain PyTorch version on the card
    (the GPT-2 and the Llama serving shapes, GQA, fp32, cache-position
-   edges with an all-null row, NaN planted past the live pages), and the
+   edges with an all-null row, NaN planted past the live pages, a null
+   page inside a live split and a whole split of null pages): the
+   kernels split the table (split_plan's pages per split) and are held
+   to the plain version split alike, and to its one walk at
+   UNSPLIT_ATOL. Then the
    kernel, plain version
    and one-library-call yardstick timed at the serving shapes (median of
-   CUDA-event-timed calls, L2 flushed before each) beside the bound.
+   CUDA-event-timed calls, L2 flushed before each) beside the bound and
+   the former body's time, and the kernel at PPS_SWEEP's pages per split.
    The same for the paged-decode kernel's int8-pool arity at the Llama
    serving shapes (9 rows, 8 kv heads, groups of 4, head_dim 64, page
    16, 64-page tables, one scale per token row, bf16 q), at the GPT-2
@@ -27,7 +32,9 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
    by element (INT8_TOL), with controls that must fail the same check:
    the plain version with the scales left out, and the dense arity's
    habits (bf16 values, probabilities rounded to bf16). Both arities'
-   time against context length (all rows at 16, 256, 1024 tokens).
+   time against context length (all rows at 16, 256, 1024 tokens), at
+   split_plan's split and at each of PPS_SWEEP, the ms per walked page
+   beside the former body's.
 3. serving: GPT-2 345M at full width (random weights from seed 0), bf16,
    default inference config: warmup, then 16 greedy requests of 64 new
    tokens with prompts of 20-250 tokens, 8 sharing one 64-token prefix.
@@ -84,7 +91,8 @@ Phases 10 to 12 run after phase 4, before the training phases.
    and 3 decode steps with the kernel and with the plain gather
    attention, over the fp32 pool (logits compared) and over the int8
    pool (logits and pools compared).
-12. GPT-2 345M over the int8 pool, 8 requests (G 1 on the main path).
+12. GPT-2 345M over the int8 pool, 8 requests (G 1 on the main path),
+   then a decode profile as in phase 3.
 Phases 13 to 17 run after phase 9.
 13. bert_kernel_check: K1, K2 and K3 in their key-mask arity (BERT's
    additive padding mask, -1e9 on the pads) against their plain versions
@@ -322,6 +330,21 @@ SHARED_PREFIX = 64
 BF16_ATOL = 2e-3     # summation order differs; p is rounded to bf16
 FP32_ATOL = 1e-5     # summation order differs
 MODEL_LOGIT_ATOL = 1e-3   # fp32, 24 layers of differently ordered sums
+# the split paged-decode kernels against the plain version's one walk of
+# the table (JAX's): each split restarts the running max, so in bf16 p
+# rounds against another max on the split's pages (the CPU tests hold the
+# split plain version to JAX at this tolerance)
+UNSPLIT_ATOL = 2e-2
+# K4's and K4q's former one-block-per-(row, kv head) body, which walked
+# its pages one after another (PERF.md section 6, its context sweep;
+# chip_smoke.py runs on an NVIDIA H100 80GB HBM3 at 700 W): ms at the
+# serving shapes and ms per walked page, printed beside this run's
+FORMER_PAGED = {"paged_decode": {"kernel_ms": 0.15987,
+                                 "ms_per_walked_page": 0.00293},
+                "paged_decode_int8": {"kernel_ms": 0.48296,
+                                      "ms_per_walked_page": 0.00842}}
+# pages per split timed beside split_plan's (64 = the whole 64-page table)
+PPS_SWEEP = (1, 2, 4, 8, 16, 64)
 TIMED_CALLS = 100
 # K2's, K3's, K6's, K7's, K8-K10's and K14-K16's times on their former
 # CUDA-core bf16 bodies (these timing phases on an NVIDIA H100 80GB HBM3 at
@@ -476,36 +499,68 @@ def to_device(case, dtype):
             torch.from_numpy(tables).cuda(), torch.from_numpy(pos).cuda())
 
 
+def split_of(args):
+    """(pages per split, splits) of the paged-decode kernels for these
+    arguments (q, kpool, vpool, tables, ...), by split_plan."""
+    from deepspeed_tpu_torch.ops.attention.paged import split_plan
+    q, kpool, tables = args[0], args[1], args[3]
+    B, H, hd = q.shape
+    _, KH, ps, _ = kpool.shape
+    P = tables.shape[1]
+    pps = split_plan(B, KH, H // KH, hd, ps, P)
+    return pps, -(-P // pps)
+
+
 def check_kernel(name, args, atol, null_rows=()):
+    """The dense kernel against its plain version split alike (``atol``)
+    and against the plain version's one walk (UNSPLIT_ATOL)."""
     import torch
     from deepspeed_tpu_torch.ops.attention.paged import (
         paged_decode_attention, paged_decode_plain)
     out = paged_decode_attention(*args)
     torch.cuda.synchronize()
-    ref = paged_decode_plain(*args)
+    pps, splits = split_of(args)
+    ref = paged_decode_plain(*args, pages_per_split=pps)
+    whole = paged_decode_plain(*args)
     err = float((out.float() - ref.float()).abs().max())
+    err_whole = float((out.float() - whole.float()).abs().max())
     finite = bool(torch.isfinite(out).all())
     nulls_zero = all(bool((out[b] == 0).all()) for b in null_rows)
     emit({"phase": "kernel_check", "case": name,
           "dtype": str(args[0].dtype), "shape_q": list(args[0].shape),
-          "shape_pool": list(args[1].shape), "max_abs_err": err,
-          "atol": atol, "finite": finite, "null_rows_zero": nulls_zero})
-    if not (finite and nulls_zero and err <= atol):
+          "shape_pool": list(args[1].shape), "pages_per_split": pps,
+          "splits": splits, "max_abs_err": err, "atol": atol,
+          "max_abs_err_unsplit": err_whole, "atol_unsplit": UNSPLIT_ATOL,
+          "finite": finite, "null_rows_zero": nulls_zero})
+    if not (finite and nulls_zero and err <= atol and
+            err_whole <= UNSPLIT_ATOL):
         raise AssertionError(f"paged decode kernel disagrees on {name}: "
-                             f"err {err} (atol {atol}), finite {finite}, "
-                             f"null rows zero {nulls_zero}")
+                             f"err {err} (atol {atol}), against the one "
+                             f"walk {err_whole} (atol {UNSPLIT_ATOL}), "
+                             f"finite {finite}, null rows zero {nulls_zero}")
     return err
 
 
-def time_ms(fn, calls, flush, warmup=3):
+# cycles the card spins (~0.2 ms) while the host enqueues a held call
+HOLD_CYCLES = 400_000
+
+
+def time_ms(fn, calls, flush, warmup=3, hold=False):
     """Median ms of ``calls`` CUDA-event-timed calls after ``warmup``
-    calls, the L2 cache flushed before each."""
+    calls, the L2 cache flushed before each. ``hold`` keeps the card busy
+    (``torch.cuda._sleep``) past the flush while the host enqueues the
+    call, so a host slower than the flush adds no idle time to the
+    window: for calls whose device time is a fraction of their host time
+    (the paged-decode kernels: ~0.03 ms on the card, ~0.05 ms of Python
+    and launch on the host)."""
     import torch
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(calls):
         flush.zero_()
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -530,27 +585,84 @@ def timed_call(fn, flush):
     return out, start.elapsed_time(end)
 
 
-def context_sweep(kernel, args, page_size, flush, contexts=(16, 256, 1024)):
-    """The kernel's time against context length: every live row of
-    ``args`` (inputs at the main-path shape whose rows are written up to
-    the table's extent; element 4 holds the positions) set to the same
-    context, L2 flushed before each call."""
+CONTEXTS = (16, 256, 1024)
+
+
+def at_context(args, n):
+    """``args`` (inputs at the main-path shape whose rows are written up
+    to the table's extent; element 4 holds the positions) with every
+    live row at context ``n``."""
     import torch
-    from deepspeed_tpu_torch.ops.attention.paged import \
-        paged_decode_attention
     args = list(args)
     live = args[3][:, 0] != 0
+    args[4] = torch.where(live, n - 1, 0).to(torch.int32)
+    return args
+
+
+def context_sweep(args, page_size, flush, pages_per_split=None):
+    """The kernel's time against context length (CONTEXTS), every live
+    row at the same context, L2 flushed before each call; returns the
+    rows and the ms per walked page (the slope between the ends)."""
+    from deepspeed_tpu_torch.ops.attention.paged import \
+        paged_decode_attention
     rows = []
-    for n in contexts:
-        args[4] = torch.where(live, n - 1, 0).to(torch.int32)
-        ms = time_ms(lambda: paged_decode_attention(*args), 50, flush)
+    for n in CONTEXTS:
+        ctx = at_context(args, n)
+        ms = time_ms(lambda: paged_decode_attention(
+            *ctx, pages_per_split=pages_per_split), 50, flush, hold=True)
         rows.append({"context_tokens": n, "pages": n // page_size,
                      "kernel_ms": ms})
     per_page = ((rows[-1]["kernel_ms"] - rows[0]["kernel_ms"])
                 / (rows[-1]["pages"] - rows[0]["pages"]))
+    return rows, per_page
+
+
+def split_sweep(kernel, serving, full, page_size, flush, smi):
+    """K4's or K4q's time at the serving inputs and over the context
+    sweep at each of PPS_SWEEP pages per split and at split_plan's, and
+    the context sweep at split_plan's (its ms per walked page beside the
+    former body's). Returns split_plan's row."""
+    from deepspeed_tpu_torch.ops.attention.paged import \
+        paged_decode_attention
+    plan, splits = split_of(serving)
+    rows = []
+    for pps in sorted(set(PPS_SWEEP) | {plan}):
+        ctx_rows, per_page = context_sweep(full, page_size, flush, pps)
+        rows.append({"pages_per_split": pps,
+                     "splits": -(-serving[3].shape[1] // pps),
+                     "serving_ms": time_ms(lambda: paged_decode_attention(
+                         *serving, pages_per_split=pps), 50, flush,
+                         hold=True),
+                     "context_ms": {r["context_tokens"]: r["kernel_ms"]
+                                    for r in ctx_rows},
+                     "ms_per_walked_page": per_page})
+    ctx_rows, per_page = context_sweep(full, page_size, flush)
+    former = FORMER_PAGED[kernel]["ms_per_walked_page"]
     emit({"phase": "kernel_context_sweep", "kernel": kernel,
-          "live_rows": int(live.sum()), "rows": rows,
-          "ms_per_walked_page": per_page})
+          "pages_per_split": plan, "splits": splits,
+          "live_rows": int((full[3][:, 0] != 0).sum()), "rows": ctx_rows,
+          "ms_per_walked_page": per_page,
+          "former_ms_per_walked_page": former, "nvidia_smi": smi})
+    emit({"phase": "kernel_split_sweep", "kernel": kernel,
+          "split_plan": plan, "rows": rows, "nvidia_smi": smi})
+    return {"ms_per_walked_page": per_page,
+            "former_ms_per_walked_page": former}
+
+
+def null_split_case(rng, B, KH, G, hd, ps, P):
+    """pool_case at these shapes with every live row at the table's end
+    and, at split_plan's split of pps pages, a null page inside a live
+    split (row 0, entry pps + 1; with pps 1 that split is null too) and
+    a whole split of null pages (row 1, entries pps .. 2 pps - 1); the
+    last row is all-null."""
+    from deepspeed_tpu_torch.ops.attention.paged import split_plan
+    pps = split_plan(B, KH, G, hd, ps, P)
+    case = pool_case(rng, B, KH, G, hd, ps, P, [P * ps - 1] * (B - 1) + [0],
+                     null_rows=(B - 1,))
+    tables = case[3]
+    tables[0, min(pps + 1, P - 1)] = 0
+    tables[1, pps:2 * pps] = 0
+    return case
 
 
 def kernel_phase(smi):
@@ -586,12 +698,17 @@ def kernel_phase(smi):
                  to_device(pool_case(rng, 4, 4, 2, 64, 128, 4,
                                      [0, 127, 128, 511], null_rows=(3,)),
                            torch.float32), FP32_ATOL, null_rows=(3,))
+    check_kernel("null_page_in_live_split_and_null_split_bf16",
+                 to_device(null_split_case(rng, B, KH, G, hd, ps, P),
+                           torch.bfloat16), BF16_ATOL, null_rows=(B - 1,))
 
     # timing at the serving shapes; the pool's K/V would sit in the 50 MB
     # L2 across back-to-back calls, which a decode step (23 other layers
     # between two reads of one layer's pool) never sees: flush it
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     kernel_ms = time_ms(lambda: paged_decode_attention(*serving),
+                        TIMED_CALLS, flush, hold=True)
+    unheld_ms = time_ms(lambda: paged_decode_attention(*serving),
                         TIMED_CALLS, flush)
     plain_ms = time_ms(lambda: paged_decode_plain(*serving), 50, flush)
     q, kpool, vpool, tables, positions = serving
@@ -606,7 +723,7 @@ def kernel_phase(smi):
     q4 = q[:, :, None, :]
     library_ms = time_ms(
         lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask),
-        TIMED_CALLS, flush)
+        TIMED_CALLS, flush, hold=True)
     live = [int(p) for p, t in zip(positions.tolist(), tables.tolist())
             if t[0] != 0]
     # what the kernel must move: K and V of each live row's positions
@@ -623,15 +740,21 @@ def kernel_phase(smi):
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     full = [P * ps - 1] * (B - 1) + [0]
-    context_sweep("paged_decode",
-                  to_device(pool_case(rng, B, KH, G, hd, ps, P, full,
-                                      null_rows=(B - 1,), poison=False),
-                            torch.bfloat16), ps, flush)
+    sweep = split_sweep(
+        "paged_decode", serving,
+        to_device(pool_case(rng, B, KH, G, hd, ps, P, full,
+                            null_rows=(B - 1,), poison=False),
+                  torch.bfloat16), ps, flush, smi)
+    pps, splits = split_of(serving)
     row = {"phase": "kernel_timing", "kernel": "paged_decode",
            "shape": {"B": B, "H": KH * G, "KH": KH, "hd": hd,
                      "page_size": ps, "P": P, "dtype": "bf16"},
            "positions": [int(p) for p in positions.tolist()],
+           "pages_per_split": pps, "splits": splits,
            "bytes": kv_bytes + other, "flops": flops, "kernel_ms": kernel_ms,
+           "kernel_ms_unheld": unheld_ms,
+           "former_kernel_ms": FORMER_PAGED["paged_decode"]["kernel_ms"],
+           **sweep,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -640,7 +763,7 @@ def kernel_phase(smi):
     emit(row)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "pages_per_split": pps}
 
 
 def int8_pool_case(rng, batch, kv_heads, group, hd, page_size,
@@ -698,7 +821,10 @@ def check_int8_kernel(name, args, null_rows=(), identical_rows=None):
     q, kq, vq, tables, pos, _, ks, vs = args
     out = paged_decode_attention(*args)
     torch.cuda.synchronize()
-    ref = paged_decode_plain(*args)
+    pps, splits = split_of(args)
+    ref = paged_decode_plain(*args, pages_per_split=pps)
+    err_whole = float((out.float() - paged_decode_plain(*args).float()
+                       ).abs().max())
     tol = INT8_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
     ratio, _, err, ok = compare(out, ref, **tol)
     nulls_zero = all(bool((out[b] == 0).all()) for b in null_rows)
@@ -707,18 +833,20 @@ def check_int8_kernel(name, args, null_rows=(), identical_rows=None):
     controls = {
         "scales_left_out": paged_decode_plain(
             q, kq, vq, tables, pos, None, torch.ones_like(ks),
-            torch.ones_like(vs)),
+            torch.ones_like(vs), pages_per_split=pps),
         "dense_habits": paged_decode_plain(
             q, torch.nan_to_num(dequantize_pool(kq, ks)).bfloat16(),
             torch.nan_to_num(dequantize_pool(vq, vs)).bfloat16(), tables,
-            pos),
+            pos, pages_per_split=pps),
     }
     row = {"phase": "int8_kernel_check", "case": name,
            "dtype": str(q.dtype), "shape_q": list(q.shape),
            "shape_pool": list(kq.shape), "scale_blocks": ks.shape[-1],
+           "pages_per_split": pps, "splits": splits,
            "tol": tol, "max_abs_err": err, "worst_ratio": ratio,
+           "max_abs_err_unsplit": err_whole, "atol_unsplit": UNSPLIT_ATOL,
            "null_rows_zero": nulls_zero, "shared_rows_identical": same}
-    ok = ok and nulls_zero and same
+    ok = ok and nulls_zero and same and err_whole <= UNSPLIT_ATOL
     for cname, cout in controls.items():
         c_ratio, _, _, c_ok = compare(cout, ref, **tol)
         row[f"control_{cname}_worst_ratio"] = c_ratio
@@ -746,7 +874,8 @@ def int8_kernel_phase(smi):
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.attention.paged import (
-        dequantize_pool, paged_decode_attention, paged_decode_plain)
+        dequantize_pool, paged_decode_attention, paged_decode_plain,
+        split_plan)
     rng = np.random.RandomState(SEED + 4)
     m = INT8_MAIN
     B, KH, G, hd, ps, P, nb = (m[k] for k in ("B", "KH", "G", "hd", "ps",
@@ -794,9 +923,21 @@ def int8_kernel_phase(smi):
     check_int8_kernel("shared_prefix_pages_fp32",
                       int8_to_device(shared, torch.float32),
                       identical_rows=(0, 1))
+    # a null page inside a live split (row 0) and a whole split of null
+    # pages (row 1) at split_plan's split of the Llama serving shapes
+    nulls = int8_pool_case(rng, B, KH, G, hd, ps, P, nb,
+                           [P * ps - 1] * (B - 1) + [0], null_rows=(B - 1,))
+    plan = split_plan(B, KH, G, hd, ps, P)
+    nulls[5][0, min(plan + 1, P - 1)] = 0
+    nulls[5][1, plan:2 * plan] = 0
+    check_int8_kernel("null_page_in_live_split_and_null_split_bf16",
+                      int8_to_device(nulls, torch.bfloat16),
+                      null_rows=(B - 1,))
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     kernel_ms = time_ms(lambda: paged_decode_attention(*main), TIMED_CALLS,
+                        flush, hold=True)
+    unheld_ms = time_ms(lambda: paged_decode_attention(*main), TIMED_CALLS,
                         flush)
     plain_ms = time_ms(lambda: paged_decode_plain(*main), 50, flush)
     q, kq, vq, tables, positions, _, ks, vs = main
@@ -814,7 +955,7 @@ def int8_kernel_phase(smi):
     q4 = q[:, :, None, :]
     library_ms = time_ms(
         lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask),
-        TIMED_CALLS, flush)
+        TIMED_CALLS, flush, hold=True)
     live = [int(p) for p, t in zip(positions.tolist(), tables.tolist())
             if t[0] != 0]
     # what the kernel must move: the int8 K and V of each live row's
@@ -832,14 +973,20 @@ def int8_kernel_phase(smi):
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     full = [P * ps - 1] * (B - 1) + [0]
-    context_sweep("paged_decode_int8",
-                  int8_to_device(int8_pool_case(rng, B, KH, G, hd, ps, P, nb,
-                                                full, null_rows=(B - 1,)),
-                                 torch.bfloat16), ps, flush)
+    sweep = split_sweep(
+        "paged_decode_int8", main,
+        int8_to_device(int8_pool_case(rng, B, KH, G, hd, ps, P, nb, full,
+                                      null_rows=(B - 1,)), torch.bfloat16),
+        ps, flush, smi)
+    pps, splits = split_of(main)
     emit({"phase": "int8_kernel_timing", "kernel": "paged_decode_int8",
           "shape": dict(m, H=KH * G, dtype_q="bf16"),
           "positions": [int(p) for p in positions.tolist()],
+          "pages_per_split": pps, "splits": splits,
           "bytes": kv_bytes + other, "flops": flops, "kernel_ms": kernel_ms,
+          "kernel_ms_unheld": unheld_ms,
+          "former_kernel_ms": FORMER_PAGED["paged_decode_int8"]["kernel_ms"],
+          **sweep,
           "plain_ms": plain_ms, "library_ms": library_ms,
           "library": "scaled_dot_product_attention over pre-gathered, "
                      "pre-dequantized bf16 stripes expanded to 32 heads: "
@@ -851,7 +998,7 @@ def int8_kernel_phase(smi):
           "nvidia_smi": smi})
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "pages_per_split": pps}
 
 
 # ------------------------------------------------------------- serving
@@ -5042,8 +5189,10 @@ def main() -> int:
           "tensor_core_kernels": sum("_mma_kernel" in f["function"]
                                      for fs in ptxas.values() for f in fs),
           "spills": spills})
-    # the tensor-core bodies (K1-K3 and K5-K7 in bf16) may not spill
-    if any("_mma_kernel" in f["function"] for f in spills):
+    # the tensor-core bodies (K1-K3 and K5-K7 in bf16) and every
+    # paged_decode function (K4 and K4q) may not spill
+    if any("_mma_kernel" in f["function"] or "paged_decode" in f["function"]
+           for f in spills):
         raise AssertionError(f"ptxas spills registers: {spills}")
 
     timing = kernel_phase(smi)
@@ -5060,6 +5209,7 @@ def main() -> int:
     gpt2_int8_launches, _, engine, _ = serving_phase(
         GPT2_MEDIUM, params, "cuda", smi,
         inference_config={"paged_kv": {"kv_dtype": "int8"}}, requests=8)
+    profile_phase(engine, prompts)
     del engine, params
     llama_launches = llama_phase(smi)
     train_launches, train_losses = training_phase(smi)
@@ -5128,7 +5278,8 @@ def main() -> int:
         max_abs_err=timing["max_abs_err"],
         ms=timing["ms"], kernel_ms=timing["ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-        bound_by=timing["bound_by"], library_ms=timing["library_ms"]),
+        bound_by=timing["bound_by"], library_ms=timing["library_ms"],
+        pages_per_split=timing["pages_per_split"]),
         dict(
         name="paged_decode_int8", route="cuda",
         source="deepspeed_tpu_torch/csrc/paged_decode.cu",
@@ -5140,7 +5291,8 @@ def main() -> int:
         max_abs_err=int8_timing["max_abs_err"], ms=int8_timing["ms"],
         kernel_ms=int8_timing["ms"], plain_ms=int8_timing["plain_ms"],
         bound_ms=int8_timing["bound_ms"], bound_by=int8_timing["bound_by"],
-        library_ms=int8_timing["library_ms"])]
+        library_ms=int8_timing["library_ms"],
+        pages_per_split=int8_timing["pages_per_split"])]
     errs = {"masked_flash_fwd": train_check["o_max_abs_err"],
             "masked_flash_dq": train_check["dq_max_abs_err"],
             "masked_flash_dkv": max(train_check["dk_max_abs_err"],

@@ -17,7 +17,12 @@ pool arities).
   page in fp32), so it reproduces the kernel's semantics: the page-0
   mask, and a zero row where nothing is visible. The dense arity rounds
   the probabilities to the pool dtype before the P.V product; the int8
-  arity dequantizes each walked tile to fp32 and rounds nothing.
+  arity dequantizes each walked tile to fp32 and rounds nothing. With
+  ``pages_per_split`` it walks each split of the table on its own and
+  merges the splits in order, as the kernels do.
+- :func:`split_plan` — the kernels' pages per split, from the shapes
+  alone: the grid is (splits, kv heads, rows), and the split of a row
+  that arrives last merges the row's splits.
 - :func:`quantize_kv` / :func:`dequantize_pool` — the int8 pool's write
   and read math: symmetric absmax int8 per token row, in ``nb`` blocks
   along head_dim, with fp32 scales.
@@ -34,7 +39,7 @@ from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["paged_decode_attention", "paged_decode_plain",
+__all__ = ["paged_decode_attention", "paged_decode_plain", "split_plan",
            "decode_read_bytes", "live_pages", "quantize_kv",
            "dequantize_pool"]
 
@@ -44,6 +49,34 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_PAGE_SIZE = 128
 MAX_GROUP = 8
+# the kernels' limits on a split: pages, and token rows (pps * page_size)
+MAX_PAGES_PER_SPLIT = 64
+MAX_SPLIT_ROWS = 1024
+# split_plan's rule: halve the split while the grid has fewer than
+# SPLIT_TARGET_BLOCKS blocks and a split keeps more than SPLIT_MIN_ROWS
+# token rows
+SPLIT_TARGET_BLOCKS = 1056
+SPLIT_MIN_ROWS = 32
+
+
+def split_plan(batch: int, kv_heads: int, group: int, head_dim: int,
+               page_size: int, pages_per_seq: int) -> int:
+    """Pages per split of the paged-decode kernels for a call of these
+    shapes: the most the kernels take (``MAX_PAGES_PER_SPLIT`` pages,
+    ``MAX_SPLIT_ROWS`` token rows, the table's width), halved while the
+    grid (splits x kv heads x rows) has fewer than
+    ``SPLIT_TARGET_BLOCKS`` blocks and a split would keep more than
+    ``SPLIT_MIN_ROWS`` rows. It reads shapes only, so every call of a
+    shape splits alike and needs no device sync; ``group`` and
+    ``head_dim`` are taken for rules that weigh them."""
+    del group, head_dim
+    pps = max(1, min(pages_per_seq, MAX_PAGES_PER_SPLIT,
+                     MAX_SPLIT_ROWS // max(page_size, 1)))
+    pairs = max(batch, 1) * kv_heads
+    while pps > 1 and (pps // 2) * page_size >= SPLIT_MIN_ROWS and \
+            pairs * -(-pages_per_seq // pps) < SPLIT_TARGET_BLOCKS:
+        pps //= 2
+    return pps
 
 
 def live_pages(cache_position, page_size: int):
@@ -97,40 +130,19 @@ def dequantize_pool(pool: torch.Tensor, scales: torch.Tensor):
     return pool.float() * scales.repeat_interleave(hd // nb, dim=-1)
 
 
-def paged_decode_plain(q, kpool, vpool, block_tables, cache_position,
-                       sm_scale: Optional[float] = None, k_scales=None,
-                       v_scales=None) -> torch.Tensor:
-    """Plain PyTorch paged decode attention with the kernels' semantics.
-
-    q: (B, H, hd); kpool/vpool: (num_pages, KH, page_size, hd) with
-    H % KH == 0; block_tables: (B, P) int; cache_position: (B,) int —
-    the position of the already-written current token. Row b attends
-    positions ``<= cache_position[b]`` over its first
-    ``min(cache_position // page_size + 1, P)`` table entries; entries
-    that are the null page 0 (or outside ``[1, num_pages)``) are masked,
-    and a row with nothing visible returns 0. With ``k_scales`` and
-    ``v_scales`` ((num_pages, KH, page_size, nb) fp32) the pools are
-    int8: each walked tile is dequantized to fp32 and every product
-    stays fp32. Returns (B, H, hd) in q's dtype."""
-    B, H, hd = q.shape
-    N, KH, ps, _ = kpool.shape
-    G = H // KH
-    P = block_tables.shape[1]
+def _walk_pages(qg, kpool, vpool, tables, pos, num_pg, first, last,
+                sm_scale, k_scales, v_scales):
+    """Online softmax over table entries ``first .. last-1`` from a fresh
+    state, page by page as the Pallas kernel walks: (m, l, acc)."""
+    B, KH, G, hd = qg.shape
+    N, _, ps, _ = kpool.shape
     quantized = k_scales is not None
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(hd)
-    tables = block_tables.long()
-    pos = cache_position.long()
-    num_pg = torch.where(pos < 0, torch.zeros_like(pos),
-                         torch.clamp(pos // ps + 1, max=P))
-    qg = q.reshape(B, KH, G, hd).float()
-    m = torch.full((B, KH, G), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, KH, G), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KH, G, hd), dtype=torch.float32, device=q.device)
-    offs = torch.arange(ps, device=q.device)
-    walk = int(num_pg.max()) if B else 0
-    for i in range(walk):
+    dev = qg.device
+    m = torch.full((B, KH, G), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KH, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KH, G, hd), dtype=torch.float32, device=dev)
+    offs = torch.arange(ps, device=dev)
+    for i in range(first, last):
         page = tables[:, i]
         live = (i < num_pg) & (page > 0) & (page < N)            # (B,)
         safe = torch.where(live, page, torch.zeros_like(page))
@@ -154,6 +166,64 @@ def paged_decode_plain(q, kpool, vpool, block_tables, cache_position,
             p = p.to(vpool.dtype).float()
         acc = acc * alpha[..., None] + torch.einsum("bkgt,bktd->bkgd", p, vt)
         m = m_new
+    return m, l, acc
+
+
+def paged_decode_plain(q, kpool, vpool, block_tables, cache_position,
+                       sm_scale: Optional[float] = None, k_scales=None,
+                       v_scales=None,
+                       pages_per_split: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch paged decode attention with the kernels' semantics.
+
+    q: (B, H, hd); kpool/vpool: (num_pages, KH, page_size, hd) with
+    H % KH == 0; block_tables: (B, P) int; cache_position: (B,) int —
+    the position of the already-written current token. Row b attends
+    positions ``<= cache_position[b]`` over its first
+    ``min(cache_position // page_size + 1, P)`` table entries; entries
+    that are the null page 0 (or outside ``[1, num_pages)``) are masked,
+    and a row with nothing visible returns 0. With ``k_scales`` and
+    ``v_scales`` ((num_pages, KH, page_size, nb) fp32) the pools are
+    int8: each walked tile is dequantized to fp32 and every product
+    stays fp32. ``pages_per_split`` None walks the pages as one online
+    softmax, as JAX does; an integer walks each split of that many
+    table entries from a fresh state (the dense arity's rounding of p
+    then follows the split's running max) and merges the splits in
+    order: m = max m_j, l = sum l_j e^(m_j - m), acc = sum acc_j
+    e^(m_j - m). Returns (B, H, hd) in q's dtype."""
+    B, H, hd = q.shape
+    N, KH, ps, _ = kpool.shape
+    G = H // KH
+    P = block_tables.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    tables = block_tables.long()
+    pos = cache_position.long()
+    num_pg = torch.where(pos < 0, torch.zeros_like(pos),
+                         torch.clamp(pos // ps + 1, max=P))
+    qg = q.reshape(B, KH, G, hd).float()
+    walk = int(num_pg.max()) if B else 0
+    args = (qg, kpool, vpool, tables, pos, num_pg)
+    scales = (sm_scale, k_scales, v_scales)
+    if pages_per_split is None:
+        m, l, acc = _walk_pages(*args, 0, walk, *scales)
+    else:
+        if pages_per_split < 1:
+            raise ValueError(f"pages_per_split must be >= 1, got "
+                             f"{pages_per_split}")
+        parts = [_walk_pages(*args, j, min(j + pages_per_split, walk),
+                             *scales)
+                 for j in range(0, walk, pages_per_split)]
+        m = torch.full((B, KH, G), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        for m_j, _, _ in parts:
+            m = torch.maximum(m, m_j)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KH, G, hd), dtype=torch.float32,
+                          device=q.device)
+        for m_j, l_j, acc_j in parts:
+            f = torch.exp(m_j - m)
+            l = l + l_j * f
+            acc = acc + acc_j * f[..., None]
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l_safe[..., None]).to(q.dtype).reshape(B, H, hd)
 
@@ -228,6 +298,19 @@ def _check_cuda_args(q, kpool, vpool, tables, positions, k_scales,
 
 
 _kernel_fns = {}
+_arrivals = {}
+
+
+def _arrival_counts(device, stream, n):
+    """The kernels' per-(row, kv head) arrival counters on this device and
+    stream: int32, zero between launches (the split that arrives last
+    sets its count back), so they are zeroed once, when made or grown."""
+    key = (device.index, stream)
+    buf = _arrivals.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _arrivals[key] = buf
+    return buf
 
 
 def _kernel(quantized: bool):
@@ -238,11 +321,11 @@ def _kernel(quantized: bool):
         lib = load("paged_decode.cu")
         if quantized:
             fn = lib.paged_decode_int8
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + \
                 [ctypes.c_float, ctypes.c_void_p]
         else:
             fn = lib.paged_decode
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
                 [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _kernel_fns[quantized] = fn
@@ -251,14 +334,18 @@ def _kernel(quantized: bool):
 
 def paged_decode_attention(q, kpool, vpool, block_tables, cache_position,
                            sm_scale: Optional[float] = None, k_scales=None,
-                           v_scales=None) -> torch.Tensor:
+                           v_scales=None,
+                           pages_per_split: Optional[int] = None
+                           ) -> torch.Tensor:
     """Decode attention straight from the page pool — O(live tokens).
 
     Shapes and semantics as :func:`paged_decode_plain`;
     ``k_scales``/``v_scales`` (both or neither) select the int8-pool
-    arity. A CUDA ``q`` launches the arity's sm_90a kernel (raising on
-    any dtype, shape, device or launch problem); a CPU ``q`` runs the
-    plain version."""
+    arity. A CUDA ``q`` launches the arity's sm_90a kernels, split over
+    ``pages_per_split`` pages (None: :func:`split_plan`'s), raising on
+    any dtype, shape, device or launch problem; a CPU ``q`` runs the
+    plain version with ``pages_per_split`` as given (None: one walk, as
+    JAX)."""
     if q.dim() != 3 or kpool.dim() != 4:
         raise ValueError(f"paged decode takes (B, H, hd) queries and "
                          f"(N, KH, page_size, hd) pools, got "
@@ -269,7 +356,7 @@ def paged_decode_attention(q, kpool, vpool, block_tables, cache_position,
     if q.device.type == "cpu":
         return paged_decode_plain(q, kpool, vpool, block_tables,
                                   cache_position, sm_scale, k_scales,
-                                  v_scales)
+                                  v_scales, pages_per_split)
     if q.device.type != "cuda":
         raise ValueError(f"paged decode runs on cuda or cpu, not "
                          f"{q.device}")
@@ -280,24 +367,41 @@ def paged_decode_attention(q, kpool, vpool, block_tables, cache_position,
     N, KH, ps, _ = kpool.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(hd)
+    P = tables.shape[1]
+    G = H // KH
+    if pages_per_split is None:
+        pps = split_plan(B, KH, G, hd, ps, P)
+    else:
+        pps = min(int(pages_per_split), P)
+        if pps < 1 or pps > MAX_PAGES_PER_SPLIT or \
+                pps * ps > MAX_SPLIT_ROWS:
+            raise ValueError(
+                f"paged decode kernel takes 1 to {MAX_PAGES_PER_SPLIT} "
+                f"pages per split and at most {MAX_SPLIT_ROWS} token rows "
+                f"per split, got {pages_per_split} pages of {ps}")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    splits = -(-P // pps)
+    # the splits' partials (acc, then m and l), merged by the last split
+    ws = torch.empty(B * KH * splits * G * (hd + 2) if splits > 1 else 0,
+                     dtype=torch.float32, device=q.device)
     fn = _kernel(quantized)
 
     def launch():
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        arrivals = _arrival_counts(q.device, stream, B * KH)
         if quantized:
             return fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
                       k_scales.data_ptr(), v_scales.data_ptr(),
                       tables.data_ptr(), positions.data_ptr(),
-                      out.data_ptr(), _DTYPE_CODE[q.dtype], B, N, KH, ps, hd,
-                      H // KH, tables.shape[1], k_scales.shape[-1],
-                      float(sm_scale), stream)
+                      out.data_ptr(), ws.data_ptr(), arrivals.data_ptr(),
+                      _DTYPE_CODE[q.dtype], B, N, KH, ps, hd, G, P,
+                      k_scales.shape[-1], pps, float(sm_scale), stream)
         return fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
                   tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-                  _DTYPE_CODE[q.dtype], B, N, KH, ps, hd, H // KH,
-                  tables.shape[1], float(sm_scale), stream)
+                  ws.data_ptr(), arrivals.data_ptr(), _DTYPE_CODE[q.dtype],
+                  B, N, KH, ps, hd, G, P, pps, float(sm_scale), stream)
 
     if q.device.index == torch.cuda.current_device():
         err = launch()

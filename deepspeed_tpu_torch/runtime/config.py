@@ -11,10 +11,17 @@ taken on a data-parallel world of one: the JAX engine then shards the
 masters, moments (and at stage 2 the grads) over a data axis of size 1,
 one shard, so the step is stage 0's. Settings whose runtime is not
 ported yet (ZeRO above a world of one, stage 3, offload, 1-bit Adam,
-pipeline, fp16, ``tensorboard.enabled: true``, a ``mesh`` axis above 1)
-raise ``NotImplementedError`` naming them; a ``mesh`` whose axes are all
-1 (or -1, one device) and a disabled ``tensorboard`` section are
-accepted.
+pipeline, fp16, ``tensorboard.enabled: true``, a ``mesh`` axis above 1,
+the training ``observability`` switches: ``enabled``, ``trace.enabled``
+or the legacy ``profiler.enabled``, ``health.enabled``) raise
+``NotImplementedError`` naming them; a ``mesh`` whose axes are all 1 (or
+-1, one device), disabled ``tensorboard`` and ``observability``
+sections and ``observability.serve`` are accepted. Before those refusals
+the values of ``bf16.stochastic_rounding``, ``quantized_comm`` (and its
+legacy alias ``compressed_allreduce``), ``comm_autotune``,
+``async_pipeline`` and the training ``observability`` keys get the JAX
+package's checks and its ``DeepSpeedConfigError``, though the port runs
+none of those sections yet.
 """
 
 import collections
@@ -144,6 +151,197 @@ def get_sparse_attention(param_dict):
                for k in keys}}
 
 
+def get_quantized_comm_config(param_dict):
+    """The ``quantized_comm`` section, with the legacy
+    ``compressed_allreduce: {enabled, block}`` seeding its defaults (an
+    explicit ``quantized_comm`` key wins). ``hierarchical: true`` is
+    refused: the intra-slice size is a topology fact."""
+    legacy = param_dict.get(C.COMPRESSED_ALLREDUCE, {})
+    sub = param_dict.get(C.QUANTIZED_COMM, {})
+    hierarchical = sub.get(C.QUANTIZED_COMM_HIERARCHICAL,
+                           C.QUANTIZED_COMM_HIERARCHICAL_DEFAULT)
+    if hierarchical is True:
+        raise DeepSpeedConfigError(
+            "quantized_comm.hierarchical must be the intra-slice size "
+            "(an int >= 2), not true — the split is a topology fact the "
+            "engine cannot guess")
+    return {
+        "enabled": sub.get(
+            C.QUANTIZED_COMM_ENABLED,
+            legacy.get(C.COMPRESSED_ALLREDUCE_ENABLED,
+                       C.QUANTIZED_COMM_ENABLED_DEFAULT)),
+        "algo": sub.get(C.QUANTIZED_COMM_ALGO,
+                        C.QUANTIZED_COMM_ALGO_DEFAULT),
+        "block": sub.get(
+            C.QUANTIZED_COMM_BLOCK,
+            legacy.get(C.COMPRESSED_ALLREDUCE_BLOCK,
+                       C.QUANTIZED_COMM_BLOCK_DEFAULT)),
+        "hierarchical": int(hierarchical or 0),
+        "quantize_weights": sub.get(
+            C.QUANTIZED_COMM_QUANTIZE_WEIGHTS,
+            C.QUANTIZED_COMM_QUANTIZE_WEIGHTS_DEFAULT),
+        "secondary_partition": sub.get(
+            C.QUANTIZED_COMM_SECONDARY_PARTITION,
+            C.QUANTIZED_COMM_SECONDARY_PARTITION_DEFAULT),
+    }
+
+
+def get_comm_autotune_config(param_dict):
+    """The ``comm_autotune`` section. JSON 0/1 for ``overlap`` mean
+    false/true; a value that does not coerce gets the section's error."""
+    sub = param_dict.get(C.COMM_AUTOTUNE, {})
+    overlap = sub.get(C.COMM_AUTOTUNE_OVERLAP,
+                      C.COMM_AUTOTUNE_OVERLAP_DEFAULT)
+    if isinstance(overlap, int) and not isinstance(overlap, bool):
+        overlap = bool(overlap)
+    try:
+        return {
+            "enabled": sub.get(C.COMM_AUTOTUNE_ENABLED,
+                               C.COMM_AUTOTUNE_ENABLED_DEFAULT),
+            "overlap": overlap,
+            "calibrate": sub.get(C.COMM_AUTOTUNE_CALIBRATE,
+                                 C.COMM_AUTOTUNE_CALIBRATE_DEFAULT),
+            "intra_size": int(sub.get(C.COMM_AUTOTUNE_INTRA_SIZE,
+                                      C.COMM_AUTOTUNE_INTRA_SIZE_DEFAULT)
+                              or 0),
+            "intra_gbps": float(sub.get(C.COMM_AUTOTUNE_INTRA_GBPS,
+                                        C.COMM_AUTOTUNE_INTRA_GBPS_DEFAULT)),
+            "inter_gbps": float(sub.get(C.COMM_AUTOTUNE_INTER_GBPS,
+                                        C.COMM_AUTOTUNE_INTER_GBPS_DEFAULT)),
+            "intra_latency_us": float(sub.get(
+                C.COMM_AUTOTUNE_INTRA_LATENCY_US,
+                C.COMM_AUTOTUNE_INTRA_LATENCY_US_DEFAULT)),
+            "inter_latency_us": float(sub.get(
+                C.COMM_AUTOTUNE_INTER_LATENCY_US,
+                C.COMM_AUTOTUNE_INTER_LATENCY_US_DEFAULT)),
+            "block_candidates": list(sub.get(
+                C.COMM_AUTOTUNE_BLOCK_CANDIDATES,
+                C.COMM_AUTOTUNE_BLOCK_CANDIDATES_DEFAULT)),
+        }
+    except (TypeError, ValueError) as e:
+        raise DeepSpeedConfigError(
+            f"comm_autotune: malformed value ({e}); intra_size and "
+            "latencies/bandwidths must be numbers, block_candidates a "
+            "list of ints")
+
+
+def get_async_pipeline_config(param_dict):
+    """The ``async_pipeline`` section: every knob has its default."""
+    sub = param_dict.get(C.ASYNC_PIPELINE, {})
+    return {
+        "fused_accumulation": sub.get(C.ASYNC_FUSED_ACCUMULATION,
+                                      C.ASYNC_FUSED_ACCUMULATION_DEFAULT),
+        "prefetch_depth": sub.get(C.ASYNC_PREFETCH_DEPTH,
+                                  C.ASYNC_PREFETCH_DEPTH_DEFAULT),
+        "sync_loss_every_step": sub.get(
+            C.ASYNC_SYNC_LOSS_EVERY_STEP,
+            C.ASYNC_SYNC_LOSS_EVERY_STEP_DEFAULT),
+    }
+
+
+def _health_config(sub):
+    """``observability.health``, with the JAX package's checks."""
+    hl = sub.get(C.OBS_HEALTH, {}) or {}
+    det = hl.get(C.OBS_HEALTH_DETECTORS, {}) or {}
+    health = {
+        "enabled": bool(hl.get(C.OBS_HEALTH_ENABLED,
+                               C.OBS_HEALTH_ENABLED_DEFAULT)),
+        "ring_events": int(hl.get(C.OBS_HEALTH_RING_EVENTS,
+                                  C.OBS_HEALTH_RING_EVENTS_DEFAULT)),
+        "stall_timeout_s": float(hl.get(
+            C.OBS_HEALTH_STALL_TIMEOUT_S,
+            C.OBS_HEALTH_STALL_TIMEOUT_S_DEFAULT)),
+        "on_stall": str(hl.get(C.OBS_HEALTH_ON_STALL,
+                               C.OBS_HEALTH_ON_STALL_DEFAULT)),
+        "flight_path": str(hl.get(C.OBS_HEALTH_FLIGHT_PATH,
+                                  C.OBS_HEALTH_FLIGHT_PATH_DEFAULT)),
+        "detectors": {
+            "enabled": bool(det.get(C.OBS_HEALTH_DET_ENABLED,
+                                    C.OBS_HEALTH_DET_ENABLED_DEFAULT)),
+            "nonfinite_streak": int(det.get(
+                C.OBS_HEALTH_DET_NONFINITE_STREAK,
+                C.OBS_HEALTH_DET_NONFINITE_STREAK_DEFAULT)),
+            "spike_zscore": float(det.get(
+                C.OBS_HEALTH_DET_SPIKE_ZSCORE,
+                C.OBS_HEALTH_DET_SPIKE_ZSCORE_DEFAULT)),
+            "spike_window": int(det.get(
+                C.OBS_HEALTH_DET_SPIKE_WINDOW,
+                C.OBS_HEALTH_DET_SPIKE_WINDOW_DEFAULT)),
+            "grad_norm_max": float(det.get(
+                C.OBS_HEALTH_DET_GRAD_NORM_MAX,
+                C.OBS_HEALTH_DET_GRAD_NORM_MAX_DEFAULT)),
+            "scale_collapse_below": float(det.get(
+                C.OBS_HEALTH_DET_SCALE_COLLAPSE_BELOW,
+                C.OBS_HEALTH_DET_SCALE_COLLAPSE_BELOW_DEFAULT)),
+            "recompile_storm_count": int(det.get(
+                C.OBS_HEALTH_DET_RECOMPILE_STORM_COUNT,
+                C.OBS_HEALTH_DET_RECOMPILE_STORM_COUNT_DEFAULT)),
+            "recompile_storm_window": int(det.get(
+                C.OBS_HEALTH_DET_RECOMPILE_STORM_WINDOW,
+                C.OBS_HEALTH_DET_RECOMPILE_STORM_WINDOW_DEFAULT)),
+        },
+    }
+    if health["ring_events"] < 1:
+        raise DeepSpeedConfigError(
+            "observability.health.ring_events must be >= 1, got "
+            f"{health['ring_events']}")
+    if health["stall_timeout_s"] < 0:
+        raise DeepSpeedConfigError(
+            "observability.health.stall_timeout_s must be >= 0 (0 "
+            f"disables the watchdog), got {health['stall_timeout_s']}")
+    if health["on_stall"] not in ("warn", "exit"):
+        raise DeepSpeedConfigError(
+            "observability.health.on_stall must be 'warn' or 'exit', "
+            f"got {health['on_stall']!r}")
+    _det = health["detectors"]
+    if _det["nonfinite_streak"] < 1 or _det["spike_window"] < 2 or \
+            _det["recompile_storm_count"] < 1 or \
+            _det["recompile_storm_window"] < 1:
+        raise DeepSpeedConfigError(
+            "observability.health.detectors window/streak/count knobs "
+            f"must be positive, got {_det}")
+    if _det["spike_zscore"] <= 0 or _det["grad_norm_max"] <= 0 or \
+            _det["scale_collapse_below"] <= 0:
+        raise DeepSpeedConfigError(
+            "observability.health.detectors thresholds must be > 0, "
+            f"got {_det}")
+    return health
+
+
+def get_training_observability_config(param_dict):
+    """The training part of the ``observability`` section: the switch,
+    ``events_dir``, the profiler knobs, ``health`` and the ``trace``
+    window, with the legacy top-level ``profiler`` section seeding
+    ``trace`` (an explicit ``observability.trace`` key wins)."""
+    legacy_trace = param_dict.get(C.PROFILER, {})
+    sub = param_dict.get(C.OBSERVABILITY, {})
+    tr = sub.get(C.OBS_TRACE, {})
+
+    def trace_key(key, default):
+        return tr.get(key, legacy_trace.get(key, default))
+    return {
+        "enabled": sub.get(C.OBS_ENABLED, C.OBS_ENABLED_DEFAULT),
+        "events_dir": sub.get(C.OBS_EVENTS_DIR, C.OBS_EVENTS_DIR_DEFAULT),
+        "flops_profiler": sub.get(C.OBS_FLOPS_PROFILER,
+                                  C.OBS_FLOPS_PROFILER_DEFAULT),
+        "memory_watermarks": sub.get(C.OBS_MEMORY_WATERMARKS,
+                                     C.OBS_MEMORY_WATERMARKS_DEFAULT),
+        "recompile_warn_after": sub.get(C.OBS_RECOMPILE_WARN_AFTER,
+                                        C.OBS_RECOMPILE_WARN_AFTER_DEFAULT),
+        "health": _health_config(sub),
+        "trace": {
+            "enabled": trace_key(C.PROFILER_ENABLED,
+                                 C.PROFILER_ENABLED_DEFAULT),
+            "output_path": trace_key(C.PROFILER_OUTPUT_PATH,
+                                     C.PROFILER_OUTPUT_PATH_DEFAULT),
+            "start_step": trace_key(C.PROFILER_START_STEP,
+                                    C.PROFILER_START_STEP_DEFAULT),
+            "num_steps": trace_key(C.PROFILER_NUM_STEPS,
+                                   C.PROFILER_NUM_STEPS_DEFAULT),
+        },
+    }
+
+
 class DeepSpeedZeroConfig:
     """The ``zero_optimization`` section's stage and offload switch (the
     legacy boolean form means stage 1)."""
@@ -198,6 +396,11 @@ class DeepSpeedConfig:
         self.bf16_master_weights = get_scalar_param(
             _sub(d, C.BF16), C.BF16_MASTER_WEIGHTS,
             C.BF16_MASTER_WEIGHTS_DEFAULT)
+        self.bf16_stochastic_rounding = get_scalar_param(
+            _sub(d, C.BF16), C.BF16_STOCHASTIC_ROUNDING,
+            C.BF16_STOCHASTIC_ROUNDING_DEFAULT)
+        self.sparse_gradients_enabled = get_scalar_param(
+            d, C.SPARSE_GRADIENTS, C.SPARSE_GRADIENTS_DEFAULT)
         self.optimizer_name = get_optimizer_name(d)
         if self.optimizer_name is not None and \
                 self.optimizer_name.lower() in C.DEEPSPEED_OPTIMIZERS:
@@ -210,6 +413,10 @@ class DeepSpeedConfig:
         self.memory_breakdown = get_scalar_param(
             d, C.MEMORY_BREAKDOWN, C.MEMORY_BREAKDOWN_DEFAULT)
         self.sparse_attention = get_sparse_attention(d)
+        self.quantized_comm_config = get_quantized_comm_config(d)
+        self.comm_autotune_config = get_comm_autotune_config(d)
+        self.async_pipeline_config = get_async_pipeline_config(d)
+        self.observability_config = get_training_observability_config(d)
 
     def _set_batch_related_parameters(self):
         """Solve the batch triangle from the keys given."""
@@ -259,10 +466,7 @@ class DeepSpeedConfig:
         if self.fp16_enabled and self.bf16_enabled:
             raise DeepSpeedConfigError(
                 "fp16 and bf16 cannot both be enabled; pick one")
-        if not self.bf16_master_weights and not self.bf16_enabled:
-            raise DeepSpeedConfigError(
-                "bf16.master_weights=false requires bf16.enabled=true "
-                "(params are held in bf16 end-to-end)")
+        self._value_checks()
         unported = []
         stage = self.zero_optimization_stage
         if stage > 2 or (stage > 0 and self.world_size > 1):
@@ -281,6 +485,18 @@ class DeepSpeedConfig:
         if tb.get(C.TENSORBOARD_ENABLED, False):
             unported.append("tensorboard.enabled (the training monitor, "
                             "ROADMAP Queue 1 item 7)")
+        obs = self.observability_config
+        if obs["enabled"]:
+            unported.append("observability.enabled (the training Observer "
+                            "and its events.jsonl, ROADMAP Queue 1 item 5)")
+        if obs["trace"]["enabled"]:
+            unported.append("observability.trace.enabled or "
+                            "profiler.enabled (the trace window, ROADMAP "
+                            "Queue 1 item 7)")
+        if obs["health"]["enabled"]:
+            unported.append("observability.health.enabled (the flight "
+                            "recorder and watchdog, ROADMAP Queue 1 item "
+                            "15)")
         axes = (self._param_dict.get(C.MESH) or {}).get(C.MESH_AXES) or {}
         wide = {a: n for a, n in axes.items() if n > 1}
         if wide:
@@ -295,6 +511,106 @@ class DeepSpeedConfig:
             raise NotImplementedError(
                 "not ported to deepspeed_tpu_torch yet: "
                 + ", ".join(unported))
+
+    def _value_checks(self):
+        """The JAX package's value checks (deepspeed_tpu/runtime/config.py
+        ``_do_error_check``), run before the refusals of what is not
+        ported, so a bad value gets its DeepSpeedConfigError."""
+        if not self.bf16_master_weights:
+            if not self.bf16_enabled:
+                raise DeepSpeedConfigError(
+                    "bf16.master_weights=false requires bf16.enabled=true "
+                    "(params are held in bf16 end-to-end)")
+            if not self.bf16_stochastic_rounding:
+                raise DeepSpeedConfigError(
+                    "bf16.master_weights=false requires "
+                    "bf16.stochastic_rounding=true: RNE-cast bf16 updates "
+                    "silently drop sub-ulp steps (set it explicitly to "
+                    "acknowledge the rounding-mode change)")
+        if self.bf16_stochastic_rounding and not self.bf16_enabled:
+            raise DeepSpeedConfigError(
+                "bf16.stochastic_rounding=true requires bf16.enabled=true")
+        if not self.bf16_master_weights and \
+                self.zero_optimization_stage > 0 and \
+                self.zero_config.cpu_offload:
+            raise DeepSpeedConfigError(
+                "bf16.master_weights=false contradicts ZeRO-Offload: the "
+                "offloaded host fp32 copy IS a master copy (drop one of "
+                "the two)")
+        qc = self.quantized_comm_config
+        if qc["algo"] not in C.QUANTIZED_ALGOS:
+            raise DeepSpeedConfigError(
+                f"quantized_comm.algo must be one of {C.QUANTIZED_ALGOS}, "
+                f"got {qc['algo']!r}")
+        if qc["block"] < 8:
+            raise DeepSpeedConfigError(
+                f"quantized_comm.block must be >= 8, got {qc['block']}")
+        if qc["hierarchical"] == 1 or qc["hierarchical"] < 0:
+            raise DeepSpeedConfigError(
+                "quantized_comm.hierarchical must be 0 (off) or the "
+                f"intra-slice size >= 2, got {qc['hierarchical']}")
+        if qc["secondary_partition"] and not qc["hierarchical"]:
+            raise DeepSpeedConfigError(
+                "quantized_comm.secondary_partition (hpZ) needs "
+                "quantized_comm.hierarchical >= 2: the secondary shard IS "
+                "the intra-slice copy")
+        if qc["enabled"] and qc["hierarchical"]:
+            if qc["algo"] != "twohop":
+                raise DeepSpeedConfigError(
+                    "quantized_comm.hierarchical requires algo='twohop' "
+                    f"(got {qc['algo']!r}: the legacy allgather exchange "
+                    "has no 2D form)")
+            if self.sparse_gradients_enabled:
+                raise DeepSpeedConfigError(
+                    "quantized_comm.hierarchical does not compose with "
+                    "sparse_gradients (the CSR exchange is written "
+                    "against the flat 'data' axis)")
+            if self.optimizer_name and \
+                    "onebit" in self.optimizer_name.lower().replace("_", ""):
+                raise DeepSpeedConfigError(
+                    "quantized_comm.hierarchical does not compose with "
+                    "OnebitAdam (its compressed exchange is written "
+                    "against the flat 'data' axis)")
+        ca = self.comm_autotune_config
+        if ca["overlap"] not in (True, False, "auto"):
+            raise DeepSpeedConfigError(
+                "comm_autotune.overlap must be true, false or \"auto\", "
+                f"got {ca['overlap']!r}")
+        if ca["intra_size"] == 1 or ca["intra_size"] < 0:
+            raise DeepSpeedConfigError(
+                "comm_autotune.intra_size must be 0 (infer) or the "
+                f"fast-wire extent >= 2, got {ca['intra_size']}")
+        if ca["intra_gbps"] <= 0 or ca["inter_gbps"] <= 0:
+            raise DeepSpeedConfigError(
+                "comm_autotune bandwidths must be > 0 GBit/s, got "
+                f"intra={ca['intra_gbps']} inter={ca['inter_gbps']}")
+        if ca["intra_latency_us"] < 0 or ca["inter_latency_us"] < 0:
+            raise DeepSpeedConfigError(
+                "comm_autotune latencies must be >= 0 us")
+        if not ca["block_candidates"] or \
+                any(int(b) < 8 for b in ca["block_candidates"]):
+            raise DeepSpeedConfigError(
+                "comm_autotune.block_candidates must be a non-empty "
+                f"list of ints >= 8, got {ca['block_candidates']}")
+        ap = self.async_pipeline_config
+        if not isinstance(ap["prefetch_depth"], int) or \
+                ap["prefetch_depth"] < 0:
+            raise DeepSpeedConfigError(
+                "async_pipeline.prefetch_depth must be an int >= 0 "
+                f"(0 disables prefetching), got {ap['prefetch_depth']!r}")
+        obs = self.observability_config
+        if int(obs["recompile_warn_after"]) < 0:
+            raise DeepSpeedConfigError(
+                "observability.recompile_warn_after must be >= 0, got "
+                f"{obs['recompile_warn_after']}")
+        if obs["enabled"] and not isinstance(obs["events_dir"], str):
+            raise DeepSpeedConfigError(
+                "observability.events_dir must be a path string, got "
+                f"{type(obs['events_dir']).__name__}")
+        if obs["trace"]["enabled"] and int(obs["trace"]["num_steps"]) < 1:
+            raise DeepSpeedConfigError(
+                "observability.trace.num_steps must be >= 1 when the "
+                "trace window is enabled")
 
 
 def get_observability_config(param_dict):

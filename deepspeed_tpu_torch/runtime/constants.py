@@ -51,6 +51,8 @@ BF16_ENABLED = "enabled"
 BF16_ENABLED_DEFAULT = False
 BF16_MASTER_WEIGHTS = "master_weights"
 BF16_MASTER_WEIGHTS_DEFAULT = True
+BF16_STOCHASTIC_ROUNDING = "stochastic_rounding"
+BF16_STOCHASTIC_ROUNDING_DEFAULT = False
 GRADIENT_CLIPPING = "gradient_clipping"
 GRADIENT_CLIPPING_DEFAULT = 0.0
 WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
@@ -58,6 +60,8 @@ WALL_CLOCK_BREAKDOWN_DEFAULT = False
 MEMORY_BREAKDOWN = "memory_breakdown"
 MEMORY_BREAKDOWN_DEFAULT = False
 PIPELINE = "pipeline"
+SPARSE_GRADIENTS = "sparse_gradients"
+SPARSE_GRADIENTS_DEFAULT = False
 TENSORBOARD = "tensorboard"
 TENSORBOARD_ENABLED = "enabled"
 MESH = "mesh"
@@ -109,9 +113,108 @@ ZERO_OPTIMIZATION_CPU_OFFLOAD = "cpu_offload"
 ZERO_OPTIMIZATION_CPU_OFFLOAD_DEFAULT = False
 
 #############################################
-# Observability (serving subset)
+# Compressed comms, the async step pipeline and the training trace
+# window (read for their value checks only: ROADMAP Queue 1 items 5, 7
+# and 13 port their runtime)
+#############################################
+COMPRESSED_ALLREDUCE = "compressed_allreduce"
+COMPRESSED_ALLREDUCE_ENABLED = "enabled"
+COMPRESSED_ALLREDUCE_BLOCK = "block"
+QUANTIZED_COMM = "quantized_comm"
+QUANTIZED_COMM_ENABLED = "enabled"
+QUANTIZED_COMM_ENABLED_DEFAULT = False
+QUANTIZED_COMM_ALGO = "algo"
+QUANTIZED_COMM_ALGO_DEFAULT = "twohop"
+QUANTIZED_COMM_BLOCK = "block"
+QUANTIZED_COMM_BLOCK_DEFAULT = 256
+QUANTIZED_COMM_HIERARCHICAL = "hierarchical"
+QUANTIZED_COMM_HIERARCHICAL_DEFAULT = 0
+QUANTIZED_COMM_QUANTIZE_WEIGHTS = "quantize_weights"
+QUANTIZED_COMM_QUANTIZE_WEIGHTS_DEFAULT = False
+QUANTIZED_COMM_SECONDARY_PARTITION = "secondary_partition"
+QUANTIZED_COMM_SECONDARY_PARTITION_DEFAULT = False
+# the exchanges of runtime/quantized_collectives.py
+QUANTIZED_ALGOS = ("twohop", "allgather")
+COMM_AUTOTUNE = "comm_autotune"
+COMM_AUTOTUNE_ENABLED = "enabled"
+COMM_AUTOTUNE_ENABLED_DEFAULT = False
+COMM_AUTOTUNE_OVERLAP = "overlap"
+COMM_AUTOTUNE_OVERLAP_DEFAULT = "auto"
+COMM_AUTOTUNE_CALIBRATE = "calibrate"
+COMM_AUTOTUNE_CALIBRATE_DEFAULT = False
+COMM_AUTOTUNE_INTRA_SIZE = "intra_size"
+COMM_AUTOTUNE_INTRA_SIZE_DEFAULT = 0
+COMM_AUTOTUNE_INTRA_GBPS = "intra_gbps"
+COMM_AUTOTUNE_INTRA_GBPS_DEFAULT = 75.0
+COMM_AUTOTUNE_INTER_GBPS = "inter_gbps"
+COMM_AUTOTUNE_INTER_GBPS_DEFAULT = 12.5
+COMM_AUTOTUNE_INTRA_LATENCY_US = "intra_latency_us"
+COMM_AUTOTUNE_INTRA_LATENCY_US_DEFAULT = 1.0
+COMM_AUTOTUNE_INTER_LATENCY_US = "inter_latency_us"
+COMM_AUTOTUNE_INTER_LATENCY_US_DEFAULT = 10.0
+COMM_AUTOTUNE_BLOCK_CANDIDATES = "block_candidates"
+COMM_AUTOTUNE_BLOCK_CANDIDATES_DEFAULT = (64, 128, 256)
+ASYNC_PIPELINE = "async_pipeline"
+ASYNC_FUSED_ACCUMULATION = "fused_accumulation"
+ASYNC_FUSED_ACCUMULATION_DEFAULT = True
+ASYNC_PREFETCH_DEPTH = "prefetch_depth"
+ASYNC_PREFETCH_DEPTH_DEFAULT = 2
+ASYNC_SYNC_LOSS_EVERY_STEP = "sync_loss_every_step"
+ASYNC_SYNC_LOSS_EVERY_STEP_DEFAULT = False
+# the legacy top-level trace window, aliased into observability.trace
+PROFILER = "profiler"
+PROFILER_ENABLED = "enabled"
+PROFILER_ENABLED_DEFAULT = False
+PROFILER_OUTPUT_PATH = "output_path"
+PROFILER_OUTPUT_PATH_DEFAULT = "/tmp/deepspeed_tpu_trace"
+PROFILER_START_STEP = "start_step"
+PROFILER_START_STEP_DEFAULT = 2
+PROFILER_NUM_STEPS = "num_steps"
+PROFILER_NUM_STEPS_DEFAULT = 3
+
+#############################################
+# Observability (the serving part, and the training part's keys)
 #############################################
 OBSERVABILITY = "observability"
+OBS_ENABLED = "enabled"
+OBS_ENABLED_DEFAULT = False
+OBS_EVENTS_DIR = "events_dir"
+OBS_EVENTS_DIR_DEFAULT = "/tmp/deepspeed_tpu_obs"
+OBS_FLOPS_PROFILER = "flops_profiler"
+OBS_FLOPS_PROFILER_DEFAULT = True
+OBS_MEMORY_WATERMARKS = "memory_watermarks"
+OBS_MEMORY_WATERMARKS_DEFAULT = True
+OBS_RECOMPILE_WARN_AFTER = "recompile_warn_after"
+OBS_RECOMPILE_WARN_AFTER_DEFAULT = 1
+OBS_TRACE = "trace"
+OBS_HEALTH = "health"
+OBS_HEALTH_ENABLED = "enabled"
+OBS_HEALTH_ENABLED_DEFAULT = False
+OBS_HEALTH_RING_EVENTS = "ring_events"
+OBS_HEALTH_RING_EVENTS_DEFAULT = 256
+OBS_HEALTH_STALL_TIMEOUT_S = "stall_timeout_s"
+OBS_HEALTH_STALL_TIMEOUT_S_DEFAULT = 0.0
+OBS_HEALTH_ON_STALL = "on_stall"
+OBS_HEALTH_ON_STALL_DEFAULT = "warn"
+OBS_HEALTH_FLIGHT_PATH = "flight_path"
+OBS_HEALTH_FLIGHT_PATH_DEFAULT = ""
+OBS_HEALTH_DETECTORS = "detectors"
+OBS_HEALTH_DET_ENABLED = "enabled"
+OBS_HEALTH_DET_ENABLED_DEFAULT = True
+OBS_HEALTH_DET_NONFINITE_STREAK = "nonfinite_streak"
+OBS_HEALTH_DET_NONFINITE_STREAK_DEFAULT = 3
+OBS_HEALTH_DET_SPIKE_ZSCORE = "spike_zscore"
+OBS_HEALTH_DET_SPIKE_ZSCORE_DEFAULT = 6.0
+OBS_HEALTH_DET_SPIKE_WINDOW = "spike_window"
+OBS_HEALTH_DET_SPIKE_WINDOW_DEFAULT = 32
+OBS_HEALTH_DET_GRAD_NORM_MAX = "grad_norm_max"
+OBS_HEALTH_DET_GRAD_NORM_MAX_DEFAULT = 1.0e4
+OBS_HEALTH_DET_SCALE_COLLAPSE_BELOW = "scale_collapse_below"
+OBS_HEALTH_DET_SCALE_COLLAPSE_BELOW_DEFAULT = 2.0
+OBS_HEALTH_DET_RECOMPILE_STORM_COUNT = "recompile_storm_count"
+OBS_HEALTH_DET_RECOMPILE_STORM_COUNT_DEFAULT = 3
+OBS_HEALTH_DET_RECOMPILE_STORM_WINDOW = "recompile_storm_window"
+OBS_HEALTH_DET_RECOMPILE_STORM_WINDOW_DEFAULT = 16
 OBS_CHROME_TRACE_PATH = "chrome_trace_path"
 OBS_CHROME_TRACE_PATH_DEFAULT = ""
 # size-based events.jsonl rotation (0 = off): the live file atomically

@@ -9,10 +9,18 @@ kernel to against its oracle: the sums run in another order) and 2e-2 in
 bf16 (q.K is exact in fp32 either way, but the probabilities are rounded
 to bf16 before P.V and the sums run in another order).
 
-The CUDA kernel itself runs only on a card: its test is marked ``cuda``
-and skips here.
+The plain version also walks the table split by split
+(``pages_per_split``), as the CUDA kernels do, and merges the splits in
+order: each split restarts JAX's running max, so in bf16 the rounding of
+p follows the split's pages, within the same tolerances of JAX's one
+walk. Each case's JAX output is computed once (``_sweep_case`` caches the
+sweeps) and held against every split.
+
+The CUDA kernels themselves run only on a card: their tests are marked
+``cuda`` and skip here.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -70,13 +78,34 @@ def _case(rng, kv_heads, gqa, page_size, pages_per_seq, hd=16, batch=5,
     return q, kpool, vpool, tables
 
 
-def _both(args, dtype):
+def _both(args, dtype, pages_per_split=None):
     """(plain, wrapper-on-CPU) outputs of the port as fp32 numpy."""
     from deepspeed_tpu_torch.ops.attention.paged import (
         paged_decode_attention, paged_decode_plain)
     t = _torch_args(*args, dtype)
-    return (paged_decode_plain(*t).float().numpy(),
-            paged_decode_attention(*t).float().numpy())
+    return (paged_decode_plain(*t, pages_per_split=pages_per_split
+                               ).float().numpy(),
+            paged_decode_attention(*t, pages_per_split=pages_per_split
+                                   ).float().numpy())
+
+
+SPLITS = [1, 2, 3]    # pages per split of the split twins
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_case(page_size, gqa, dtype):
+    """The sweep's inputs (page_size x GQA, the cache-position edges in
+    one batch: position 0, the last slot of page 0, the first slot of
+    page 1, the slot after it, the table's final position) and K4's
+    output on them, computed once per case."""
+    rng = np.random.RandomState(page_size + gqa)
+    P = 3
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=gqa,
+                                    page_size=page_size, pages_per_seq=P)
+    pos = np.asarray([0, page_size - 1, page_size, page_size + 1,
+                      P * page_size - 1], np.int32)
+    ref = _jax_decode(q, kpool, vpool, tables, pos, dtype)
+    return (q, kpool, vpool, tables, pos), ref
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
@@ -87,16 +116,41 @@ def test_matches_jax_kernel_sweep(page_size, gqa, dtype):
     position 0, the last slot of page 0 (page-aligned context), the
     first slot of page 1 (one past a page), the slot after it, and the
     table's final position."""
-    rng = np.random.RandomState(page_size + gqa)
-    P = 3
-    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=gqa,
-                                    page_size=page_size, pages_per_seq=P)
-    pos = np.asarray([0, page_size - 1, page_size, page_size + 1,
-                      P * page_size - 1], np.int32)
-    ref = _jax_decode(q, kpool, vpool, tables, pos, dtype)
+    args, ref = _sweep_case(page_size, gqa, dtype)
     atol = BF16_ATOL if dtype == "bf16" else FP32_ATOL
-    for out in _both((q, kpool, vpool, tables, pos), dtype):
+    for out in _both(args, dtype):
         np.testing.assert_allclose(out, ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("pps", SPLITS)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("gqa", [1, 4])
+@pytest.mark.parametrize("page_size", [8, 16, 128])
+def test_split_matches_jax_kernel_sweep(page_size, gqa, dtype, pps):
+    """The sweep's split twin: the plain version walking 1, 2 or 3 pages
+    per split (of the 3-page tables) against K4's one walk."""
+    args, ref = _sweep_case(page_size, gqa, dtype)
+    atol = BF16_ATOL if dtype == "bf16" else FP32_ATOL
+    for out in _both(args, dtype, pps):
+        np.testing.assert_allclose(out, ref, atol=atol, rtol=0)
+
+
+def test_split_plan_reads_shapes_only():
+    """split_plan takes shapes, not tensors, and gives the same split on
+    every call; pps is at least 1 and within the kernels' limits (pages,
+    token rows, the table's width). At the serving shapes (9 rows, page
+    16, 64-page tables) it splits the table."""
+    from deepspeed_tpu_torch.ops.attention import paged as tp
+    for B, KH, G, hd, ps, P in [(9, 16, 1, 64, 16, 64), (9, 8, 4, 64, 16, 64),
+                                (1, 1, 1, 8, 1, 1), (64, 32, 1, 128, 16, 64),
+                                (2, 2, 8, 256, 128, 4), (5, 2, 1, 64, 1, 500)]:
+        pps = tp.split_plan(B, KH, G, hd, ps, P)
+        assert pps == tp.split_plan(B, KH, G, hd, ps, P)
+        assert isinstance(pps, int) and 1 <= pps <= min(
+            P, tp.MAX_PAGES_PER_SPLIT)
+        assert pps * ps <= tp.MAX_SPLIT_ROWS
+    for shape in ((9, 16, 1, 64, 16, 64), (9, 8, 4, 64, 16, 64)):
+        assert tp.split_plan(*shape) < 64
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
@@ -138,6 +192,43 @@ def test_all_null_rows_are_zero(dtype):
         np.testing.assert_allclose(out, ref, atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("pps", SPLITS)
+def test_split_all_null_rows_are_zero(pps):
+    """The all-null rows' split twin: every split of a null row is null,
+    and the row stays exactly 0."""
+    rng = np.random.RandomState(1)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=1, page_size=8,
+                                    pages_per_seq=3, batch=3)
+    tables[1] = 0
+    tables[2] = 0
+    pos = np.asarray([20, 0, 23], np.int32)
+    ref = _jax_decode(q, kpool, vpool, tables, pos, "fp32")
+    for out in _both((q, kpool, vpool, tables, pos), "fp32", pps):
+        np.testing.assert_array_equal(out[1:], 0.0)
+        np.testing.assert_allclose(out, ref, atol=FP32_ATOL, rtol=0)
+
+
+def test_split_of_null_pages_and_live_pages_only_in_the_last_split():
+    """Null entries inside live pages, split: row 0 has a whole split of
+    null pages (entries 2 and 3 at 2 pages per split, each its own split
+    at 1), and row 1's only live pages lie in its last split (entries 0-4
+    null). The null splits leave the merge untouched."""
+    rng = np.random.RandomState(13)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=2, page_size=8,
+                                    pages_per_seq=6, batch=3)
+    tables[0, 2:4] = 0
+    tables[1, :5] = 0
+    tables[2, 1] = 0
+    pos = np.asarray([47, 47, 30], np.int32)
+    for dtype in ("fp32", "bf16"):
+        ref = _jax_decode(q, kpool, vpool, tables, pos, dtype)
+        atol = BF16_ATOL if dtype == "bf16" else FP32_ATOL
+        for pps in SPLITS:
+            for out in _both((q, kpool, vpool, tables, pos), dtype, pps):
+                assert np.isfinite(out).all()
+                np.testing.assert_allclose(out, ref, atol=atol, rtol=0)
+
+
 def test_null_entry_inside_live_pages_is_masked():
     """A null entry among a row's live pages masks that page only."""
     rng = np.random.RandomState(3)
@@ -167,6 +258,41 @@ def test_nan_past_live_pages_does_not_leak():
     for out in _both((q, kp, vp, tables, pos), "fp32"):
         assert np.isfinite(out).all()
         np.testing.assert_allclose(out, ref, atol=FP32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("pps", SPLITS)
+def test_split_nan_past_live_pages_and_position_does_not_leak(pps):
+    """The NaN pins' split twin: NaN in every page past each row's live
+    count and in the rows past its position inside its last live page
+    must not reach the output of any split."""
+    rng = np.random.RandomState(2)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=2, page_size=8,
+                                    pages_per_seq=4, batch=2)
+    pos = np.asarray([20, 3], np.int32)       # live pages: 3 and 1
+    ref = _jax_decode(q, kpool, vpool, tables, pos, "fp32")
+    kp, vp = kpool.copy(), vpool.copy()
+    for b, live in ((0, 3), (1, 1)):
+        for page in tables[b, live:]:
+            kp[page] = vp[page] = np.nan
+        first = pos[b] % 8 + 1
+        kp[tables[b, live - 1], :, first:] = np.nan
+        vp[tables[b, live - 1], :, first:] = np.nan
+    for out in _both((q, kp, vp, tables, pos), "fp32", pps):
+        assert np.isfinite(out).all()
+        np.testing.assert_allclose(out, ref, atol=FP32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("pps", SPLITS)
+def test_split_position_past_the_table_walks_the_table_only(pps):
+    from deepspeed_tpu_torch.ops.attention.paged import paged_decode_plain
+    rng = np.random.RandomState(6)
+    case = _case(rng, kv_heads=2, gqa=2, page_size=8, pages_per_seq=3,
+                 batch=2)
+    last = _torch_args(*case, np.asarray([23, 23], np.int32), "fp32")
+    past = _torch_args(*case, np.asarray([24, 90], np.int32), "fp32")
+    torch.testing.assert_close(
+        paged_decode_plain(*past, pages_per_split=pps),
+        paged_decode_plain(*last, pages_per_split=pps), atol=0, rtol=0)
 
 
 def test_cpu_wrapper_counts_no_launch():
@@ -209,21 +335,27 @@ def test_read_bytes_and_live_pages_match_jax():
     ("bf16", 2, 4, 128, 16),      # GQA
     ("fp32", 4, 2, 64, 128),      # fp32, wide pages
     ("bf16", 2, 8, 256, 8),       # widest head, largest group
+    ("bf16", 2, 2, 256, 128),     # bf16 pages of 128 at the widest head
 ])
 def test_cuda_kernel_matches_plain(dtype, kv_heads, gqa, hd, page_size):
-    """The sm_90a kernel against its plain version on the card, with the
-    cache-position edges, an all-null row and NaN past the live pages."""
+    """The sm_90a kernels against their plain version on the card, with
+    the cache-position edges, an all-null row, a null entry inside live
+    pages and NaN past the live pages: at split_plan's split and at 1 and
+    3 pages per split, each against the plain version with the same
+    split, and in bf16 also within BF16_ATOL of the one walk (JAX's).
+    Two calls give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from deepspeed_tpu_torch.ops.attention.paged import (
-        paged_decode_attention, paged_decode_plain)
+        paged_decode_attention, paged_decode_plain, split_plan)
     rng = np.random.RandomState(hd + gqa)
     P = 4
     q, kpool, vpool, tables = _case(rng, kv_heads, gqa, page_size, P, hd=hd,
-                                    batch=6)
+                                    batch=7)
     tables[5] = 0
+    tables[6, 1] = 0
     pos = np.asarray([0, page_size - 1, page_size, page_size + 1,
-                      P * page_size - 1, 7], np.int32)
+                      P * page_size - 1, 7, P * page_size - 2], np.int32)
     for b in range(5):
         for page in tables[b, pos[b] // page_size + 1:]:
             kpool[page] = np.nan
@@ -234,12 +366,23 @@ def test_cuda_kernel_matches_plain(dtype, kv_heads, gqa, hd, page_size):
     out = paged_decode_attention(*args)
     torch.cuda.synchronize()
     assert paged_decode_attention.launches == before + 1
-    ref = paged_decode_plain(*args)
-    assert torch.isfinite(out).all()
-    assert (out[5] == 0).all()
     atol, rtol = (CUDA_BF16_ATOL, CUDA_BF16_RTOL) if dtype == "bf16" \
         else (1e-5, 0)
-    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    whole = paged_decode_plain(*args)
+    plan = split_plan(7, kv_heads, gqa, hd, page_size, P)
+    for pps in (plan, 1, 3):
+        got = out if pps == plan else \
+            paged_decode_attention(*args, pages_per_split=pps)
+        ref = paged_decode_plain(*args, pages_per_split=pps)
+        assert torch.isfinite(got).all()
+        assert (got[5] == 0).all()
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(
+            got.float(), whole.float(),
+            atol=BF16_ATOL if dtype == "bf16" else atol, rtol=0)
+    again = paged_decode_attention(*args)
+    assert torch.equal(again, out)
     assert math.isfinite(float(out.float().abs().max()))
 
 
@@ -303,7 +446,7 @@ def _jax_decode_int8(q, kq, vq, ks, vs, tables, pos, dtype):
     return np.asarray(out.astype(jnp.float32))
 
 
-def _both_int8(q, kq, vq, ks, vs, tables, pos, dtype):
+def _both_int8(q, kq, vq, ks, vs, tables, pos, dtype, pages_per_split=None):
     """(plain, wrapper-on-CPU) outputs of the port's int8 arity."""
     from deepspeed_tpu_torch.ops.attention.paged import (
         paged_decode_attention, paged_decode_plain)
@@ -311,7 +454,8 @@ def _both_int8(q, kq, vq, ks, vs, tables, pos, dtype):
     t = (torch.from_numpy(q).to(td), torch.from_numpy(kq),
          torch.from_numpy(vq), torch.from_numpy(np.asarray(tables, np.int32)),
          torch.from_numpy(np.asarray(pos, np.int32)))
-    kw = dict(k_scales=torch.from_numpy(ks), v_scales=torch.from_numpy(vs))
+    kw = dict(k_scales=torch.from_numpy(ks), v_scales=torch.from_numpy(vs),
+              pages_per_split=pages_per_split)
     return (paged_decode_plain(*t, **kw).float().numpy(),
             paged_decode_attention(*t, **kw).float().numpy())
 
@@ -348,6 +492,26 @@ def test_quantize_kv_bitwise_equal_jax(dtype, nb):
         np.asarray(jp.dequantize_pool(jq, js)))
 
 
+@functools.lru_cache(maxsize=None)
+def _int8_sweep_case(page_size, gqa, nb, dtype):
+    """The int8 sweep's inputs (the cache-position edges in one batch)
+    and K4's int8 output on them, computed once per case."""
+    rng = np.random.RandomState(page_size + gqa + nb)
+    P = 3
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=gqa,
+                                    page_size=page_size, pages_per_seq=P)
+    kq, vq, ks, vs = _quantized(kpool, vpool, nb)
+    pos = np.asarray([0, page_size - 1, page_size, page_size + 1,
+                      P * page_size - 1], np.int32)
+    ref = _jax_decode_int8(q, kq, vq, ks, vs, tables, pos, dtype)
+    return (q, kq, vq, ks, vs, tables, pos), ref
+
+
+def _int8_tol(dtype):
+    return ((INT8_BF16_ATOL, INT8_BF16_RTOL) if dtype == "bf16"
+            else (FP32_ATOL, 0))
+
+
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("nb", [1, 2])
 @pytest.mark.parametrize("gqa", [1, 4])
@@ -359,17 +523,23 @@ def test_int8_matches_jax_kernel_sweep(page_size, gqa, nb, dtype):
     the dense arity does would miss it by orders); bf16 q adds only the
     output's rounding, which may land one bf16 ulp apart
     (INT8_BF16_ATOL + INT8_BF16_RTOL |ref|)."""
-    rng = np.random.RandomState(page_size + gqa + nb)
-    P = 3
-    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=gqa,
-                                    page_size=page_size, pages_per_seq=P)
-    kq, vq, ks, vs = _quantized(kpool, vpool, nb)
-    pos = np.asarray([0, page_size - 1, page_size, page_size + 1,
-                      P * page_size - 1], np.int32)
-    ref = _jax_decode_int8(q, kq, vq, ks, vs, tables, pos, dtype)
-    atol, rtol = ((INT8_BF16_ATOL, INT8_BF16_RTOL) if dtype == "bf16"
-                  else (FP32_ATOL, 0))
-    for out in _both_int8(q, kq, vq, ks, vs, tables, pos, dtype):
+    args, ref = _int8_sweep_case(page_size, gqa, nb, dtype)
+    atol, rtol = _int8_tol(dtype)
+    for out in _both_int8(*args, dtype):
+        np.testing.assert_allclose(out, ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("pps", SPLITS)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("nb", [1, 2])
+@pytest.mark.parametrize("gqa", [1, 4])
+@pytest.mark.parametrize("page_size", [8, 16])
+def test_int8_split_matches_jax_kernel_sweep(page_size, gqa, nb, dtype, pps):
+    """The int8 sweep's split twin: nothing is rounded, so the merged
+    splits hold the same tolerances as the one walk."""
+    args, ref = _int8_sweep_case(page_size, gqa, nb, dtype)
+    atol, rtol = _int8_tol(dtype)
+    for out in _both_int8(*args, dtype, pps):
         np.testing.assert_allclose(out, ref, atol=atol, rtol=rtol)
 
 
@@ -453,6 +623,49 @@ def test_int8_position_past_the_table_walks_the_table_only():
     np.testing.assert_array_equal(past, last)
 
 
+@pytest.mark.parametrize("pps", SPLITS)
+def test_int8_split_null_rows_null_splits_and_poison(pps):
+    """The int8 pins' split twin: an all-null row is exactly 0; a whole
+    split of null pages (row 0, entries 2-3), a row whose live pages lie
+    only in its last split (row 1) and garbage payload under NaN scales
+    in every row past each position do not reach the output."""
+    rng = np.random.RandomState(17)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=2, page_size=8,
+                                    pages_per_seq=6, batch=4)
+    kq, vq, ks, vs = _quantized(kpool, vpool, 2)
+    tables[0, 2:4] = 0
+    tables[1, :5] = 0
+    tables[3] = 0
+    pos = np.asarray([44, 47, 20, 9], np.int32)
+    ref = _jax_decode_int8(q, kq, vq, ks, vs, tables, pos, "fp32")
+    np.testing.assert_array_equal(ref[3], 0.0)
+    for b in range(3):
+        last = pos[b] // 8
+        for i in range(last, 6):
+            dead = pos[b] % 8 + 1 if i == last else 0
+            page = tables[b, i]
+            if page:
+                kq[page, :, dead:] = vq[page, :, dead:] = -128
+                ks[page, :, dead:] = vs[page, :, dead:] = np.nan
+    for out in _both_int8(q, kq, vq, ks, vs, tables, pos, "fp32", pps):
+        assert np.isfinite(out).all()
+        np.testing.assert_array_equal(out[3], 0.0)
+        np.testing.assert_allclose(out, ref, atol=FP32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("pps", SPLITS)
+def test_int8_split_position_past_the_table_walks_the_table_only(pps):
+    rng = np.random.RandomState(16)
+    q, kpool, vpool, tables = _case(rng, kv_heads=2, gqa=2, page_size=8,
+                                    pages_per_seq=3, batch=2)
+    quant = _quantized(kpool, vpool, 2)
+    last = _both_int8(q, *quant, tables, np.asarray([23, 23]), "fp32",
+                      pps)[0]
+    past = _both_int8(q, *quant, tables, np.asarray([24, 70]), "fp32",
+                      pps)[0]
+    np.testing.assert_array_equal(past, last)
+
+
 def test_int8_wrapper_wants_both_scales_and_counts_no_cpu_launch():
     from deepspeed_tpu_torch.ops.attention.paged import \
         paged_decode_attention
@@ -506,7 +719,7 @@ def test_cuda_int8_kernel_matches_plain(dtype, kv_heads, gqa, hd, page_size,
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from deepspeed_tpu_torch.ops.attention.paged import (
-        paged_decode_attention, paged_decode_plain, quantize_kv)
+        paged_decode_attention, paged_decode_plain, quantize_kv, split_plan)
     rng = np.random.RandomState(hd + gqa + nb)
     P = 4
     q, kpool, vpool, tables = _case(rng, kv_heads, gqa, page_size, P, hd=hd,
@@ -534,11 +747,19 @@ def test_cuda_int8_kernel_matches_plain(dtype, kv_heads, gqa, hd, page_size,
     assert (paged_decode_attention.launches,
             paged_decode_attention.launches_int8) == (before[0],
                                                       before[1] + 1)
-    ref = paged_decode_plain(*args, **kw)
-    assert torch.isfinite(out).all()
-    assert (out[5] == 0).all()
-    torch.testing.assert_close(out.float(), ref.float(),
-                               **CUDA_INT8_TOL[dtype])
+    whole = paged_decode_plain(*args, **kw)
+    plan = split_plan(7, kv_heads, gqa, hd, page_size, P)
+    for pps in (plan, 1, 3):
+        got = out if pps == plan else \
+            paged_decode_attention(*args, pages_per_split=pps, **kw)
+        ref = paged_decode_plain(*args, pages_per_split=pps, **kw)
+        assert torch.isfinite(got).all()
+        assert (got[5] == 0).all()
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **CUDA_INT8_TOL[dtype])
+        torch.testing.assert_close(got.float(), whole.float(),
+                                   **CUDA_INT8_TOL[dtype])
+    assert torch.equal(paged_decode_attention(*args, **kw), out)
 
 
 @pytest.mark.cuda

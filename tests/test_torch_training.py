@@ -347,6 +347,13 @@ def test_zero_beyond_one_shard_raises(stage, world, offload):
      "tensorboard"),
     ({"mesh": {"axes": {"data": 1, "model": 2}}}, "mesh"),
     ({"mesh": {"axes": {"data": 2}}}, "mesh"),
+    ({"observability": {"enabled": True, "events_dir": "obs"}},
+     "observability.enabled"),
+    ({"observability": {"trace": {"enabled": True, "num_steps": 2}}},
+     "trace window"),
+    ({"observability": {"health": {"enabled": True}}},
+     "observability.health"),
+    ({"profiler": {"enabled": True}}, "profiler.enabled"),
 ])
 def test_monitor_and_mesh_sections_raise(extra, word):
     """The JAX engine opens the monitor and builds the mesh these
@@ -362,11 +369,75 @@ def test_monitor_and_mesh_sections_raise(extra, word):
 @pytest.mark.parametrize("extra", [
     {"tensorboard": {"enabled": False, "output_path": "tb"}},
     {"mesh": {"axes": {"data": 1, "model": 1}}},
+    {"observability": {"enabled": False, "events_dir": "obs"}},
+    {"observability": {"trace": {"enabled": False, "num_steps": 2}}},
+    {"observability": {"health": {"enabled": False}}},
+    {"profiler": {"enabled": False}},
+    {"observability": {"serve": {"enabled": True, "sample_rate": 0.5}}},
 ])
 def test_disabled_monitor_and_unit_mesh_train(extra):
+    """Disabled monitor and observability sections, a mesh of one device
+    and the serving engine's ``observability.serve`` train."""
     engine, *_ = _port_engine(1, 0.0, _jax_tree(), **extra)
     loss = float(engine.train_batch(iter(_ids(8))))
     assert np.isfinite(loss) and engine.global_steps == 1
+
+
+@pytest.mark.parametrize("extra", [
+    {"bf16": {"enabled": False, "stochastic_rounding": True}},
+    {"quantized_comm": {"algo": "nope"}},
+    {"quantized_comm": {"block": 4}},
+    {"comm_autotune": {"overlap": "sometimes"}},
+    {"async_pipeline": {"prefetch_depth": -1}},
+    {"observability": {"recompile_warn_after": -1}},
+    {"observability": {"trace": {"enabled": True, "num_steps": 0}}},
+    {"compressed_allreduce": {"block": 2}},
+    {"quantized_comm": {"hierarchical": True}},
+    {"profiler": {"enabled": True, "num_steps": 0}},
+])
+def test_config_value_checks_match_jax(extra):
+    """Values the JAX package refuses get its DeepSpeedConfigError from
+    the port too, ahead of any refusal of a section that is not ported."""
+    from deepspeed_tpu.runtime.config import DeepSpeedConfig as JConfig
+    from deepspeed_tpu.runtime.config import \
+        DeepSpeedConfigError as JConfigError
+
+    from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
+                                                    DeepSpeedConfigError)
+    raw = _ds_config(1, 0.0, **extra)
+    with pytest.raises(JConfigError):
+        JConfig(dict(raw))
+    with pytest.raises(DeepSpeedConfigError):
+        DeepSpeedConfig(dict(raw))
+
+
+def test_config_values_both_packages_accept():
+    """Valid values of those sections build in both packages, and the
+    port reads them as the JAX package does."""
+    from deepspeed_tpu.runtime.config import DeepSpeedConfig as JConfig
+
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    raw = _ds_config(
+        1, 0.0, bf16={"enabled": True, "stochastic_rounding": True},
+        compressed_allreduce={"enabled": True, "block": 64},
+        quantized_comm={"algo": "allgather"},
+        comm_autotune={"overlap": 0, "block_candidates": [64, 128]},
+        async_pipeline={"prefetch_depth": 0},
+        profiler={"output_path": "trace", "num_steps": 0},
+        observability={"recompile_warn_after": 0,
+                       "trace": {"start_step": 5},
+                       "health": {"ring_events": 8, "on_stall": "exit"},
+                       "serve": {"sample_rate": 1.0}})
+    j, t = JConfig(dict(raw)), DeepSpeedConfig(dict(raw))
+    assert t.bf16_stochastic_rounding is j.bf16_stochastic_rounding is True
+    for key in ("enabled", "algo", "block", "hierarchical",
+                "quantize_weights", "secondary_partition"):
+        assert t.quantized_comm_config[key] == j.quantized_comm_config[key]
+    for key, value in t.comm_autotune_config.items():
+        assert value == j.comm_autotune_config[key], key
+    assert t.async_pipeline_config == j.async_pipeline_config
+    for key, value in t.observability_config.items():
+        assert value == j.observability_config[key], key
 
 
 def test_engine_needs_a_card_or_an_explicit_device(monkeypatch):

@@ -9,7 +9,7 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
 1. device: the card as nvidia-smi names it, torch/CUDA versions; then
    every kernel of the port is built with nvcc from csrc/ for sm_90a,
    each kernel's registers and spills as ptxas -v reports them (a spill
-   in a tensor-core body, any "_mma_kernel" of K1-K3, K5-K10 and K14-K16,
+   in a tensor-core body, any "_mma_kernel" of K1-K3, K5-K11 and K14-K16,
    or in any paged_decode function of K4 and K4q, fails the run).
 2. kernels: each kernel against its plain PyTorch version on the card
    (the GPT-2 and the Llama serving shapes, GQA, fp32, cache-position
@@ -189,16 +189,21 @@ Phases 24 to 27: the legacy sparse dispatch (blocksparse.USE_MASKED_FLASH
 = False, restored after), which JAX's sparse_attention_speedup_s8k row
 pins, at its geometry (B 1, H 16, S 8192, D 64, bf16, fine block 128):
 BSLongformer with a window of 3 blocks runs the banded kernels K11
-(forward), K12 (dq) and K13 (dk, dv); BigBird's defaults run the hybrid
-(K11-K13 on the band, K8-K10 without a mask tile on the 928 residual
-blocks, merged by their lse).
+(forward; in bf16 on K1's tensor-core body, its global-rows instance
+split over its kv tiles, gr_split_plan), K12 (dq) and K13 (dk, dv);
+BigBird's defaults run the hybrid (K11-K13 on the band, K8-K10 without a
+mask tile on the 928 residual blocks, merged by their lse).
 24. banded_kernel_check: K11-K13, every instance, against their plain
    versions on the card (TRAIN_TOL): the s8k BSLongformer layout at the
    rule's tiles, sparse BERT's BSLongformer (B 8, H 16, S 2048, block 16)
    with its key mask, and JAX's eight geometries at S 512 at tiles
-   (64, 128) and (128, 64), bf16 and fp32, with batch rows of pads.
-   Control: the plain versions with the keep predicate dropped must fail
-   every output.
+   (64, 128) and (128, 64), bf16 and fp32, with batch rows of pads; then
+   K11's gr walk at forced splits (BANDED_SPLIT_CASES: one kv tile a
+   split, an uneven last split, a causal walk, global rows wider than a
+   q tile, with and without a key mask). K11's gr instance is held to the
+   plain version split as the kernel splits it, and in bf16 its global
+   rows also to the one walk's within SPLIT_TOL. Control: the plain
+   versions with the keep predicate dropped must fail every output.
 25. v2_nomask_kernel_check: K8-K10 without a mask tile against their
    plain versions: the BigBird residue at the s8k geometry, and the fixed
    layouts of ds_config_sparse.json at S 2048, fine and at a forced coarse
@@ -209,16 +214,20 @@ blocks, merged by their lse).
    with the dense float mask (the library column), SDPA is_causal=True
    (the dense baseline of JAX's row) and K1-K3 on the masked route; for
    BigBird K8-K10 without a mask tile (each beside its former CUDA-core
-   bf16 time) and the merge; a sweep of walk tiles
-   fitted to walk_cost_us (kernels "banded"). Then SparseSelfAttention
+   bf16 time) and the merge; K11 beside its former CUDA-core time per
+   instance (FORMER_BANDED_FWD); a sweep of walk tiles
+   fitted to walk_cost_us (kernels "banded"); K11's gr instance at the
+   kv tiles per split of KPS_SWEEP and gr_split_plan's, at the s8k and
+   sparse BERT's shapes. Then SparseSelfAttention
    forward and backward under the legacy and the default dispatch: ms,
    peak memory and launches per call (BSLongformer 2, 2, 3 of K11, K12,
    K13 and nothing else; BigBird the same and one of each of K8-K10, on
    their tensor-core bodies).
 27. bert_sparse_training_legacy: phase 19's BSLongformer configuration
    under the legacy dispatch, 1 warm-up and 3 timed steps and a 2-step
-   profile: 96, 96 and 144 launches of K11, K12, K13 per step and none of
-   K1-K3; then phase 20's kernel-vs-plain check of it.
+   profile (each of K11-K13's ms per step in it): 96, 96 and 144
+   launches of K11, K12, K13 per step (K11's on its tensor-core body) and
+   none of K1-K3; then phase 20's kernel-vs-plain check of it.
 Phases 28 to 31: the legacy dense flash route
 (set_attention_options(kernel="flash"), restored after), the kernels K5
 (forward), K6 (dq) and K7 (dk, dv), at the card's tiles (bq from seq_q, bk
@@ -310,7 +319,8 @@ fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
    band, the three row-run, the three banded, the three no-mask
    row-run, the three legacy flash entries and K14-K16 in each of their
    three arities on the paths above; each with its "body": "mma" for
-   K1-K3, K5-K10 and K14-K16 in bf16, "fma" for the rest),
+   K1-K3, K5-K11 and K14-K16 in bf16, "fma" for the rest; K11 with its
+   former CUDA-core time, its split and the split sweep),
    K1 with its s8k default-route time from phase 29), the nvidia-smi
    line, and last {"ok": true, "device": {...}}.
 """
@@ -431,6 +441,15 @@ INT8_TOL = {"bf16": dict(atol=1e-4, rtol=2.0**-7, rms=None),
 INT8_POOL_FLIP_SHARE = 1e-5
 INT8_POOL_SCALE_RTOL = 1e-5
 LSE_ATOL = 1e-3           # lse is fp32 in both: differently ordered sums
+# K11's split gr walk against the plain one walk on the global rows, bf16:
+# per element |a - b| <= atol + rtol * (max |v| + |b|), and the relative
+# RMS error of those rows within rms. Each split rounds p to bf16 under
+# its own running max, so a p may round to the other neighbour (2**-7 of
+# p at most) and o = sum p v / l part by 2**-7 max |v|, beside o's own
+# rounding; two independent roundings of p part by 3.2e-3 of p in RMS,
+# and o by about as much of o (tests/test_torch_banded_split.py holds the
+# split plain version to JAX's one walk so, and measures 1.3e-3 to 2.8e-3)
+SPLIT_TOL = dict(atol=1e-4, rtol=2.0**-7, rms=2.0**-7)
 # the fp32 2-layer model, kernel path against plain path: loss relative
 # error and each grad's error relative to the grad's largest entry
 TRAIN_MODEL_LOSS_RTOL = 1e-5
@@ -1646,13 +1665,14 @@ def _reset_train_launches():
     mf.reset_launches()
 
 
-# the kernels with a tensor-core body in bf16: K1, K5, K8 and K14 on
+# the kernels with a tensor-core body in bf16: K1, K5, K8, K11 and K14 on
 # csrc/mma_fwd.cuh, K2, K6, K9 and K15 on csrc/mma_dq.cuh, K3, K7, K10 and
 # K16 on csrc/mma_dkv.cuh
 MMA_KERNELS = ("masked_flash_fwd", "flash_fwd", "masked_flash_dq",
                "flash_dq", "masked_flash_dkv", "flash_dkv",
                "blocksparse_v2_fwd", "blocksparse_v2_dq",
-               "blocksparse_v2_dkv", "bs_fwd", "bs_dq", "bs_dkv")
+               "blocksparse_v2_dkv", "bs_fwd", "bs_dq", "bs_dkv",
+               "banded_fwd")
 
 
 def kernel_body(name, dtype="bf16"):
@@ -1666,11 +1686,13 @@ def _mma_wrapper(name):
     """The wrapper of one of MMA_KERNELS."""
     from deepspeed_tpu_torch.ops.attention import flash as tf
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    from deepspeed_tpu_torch.ops.sparse_attention import banded as tb
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as v2
     module = (mf if name.startswith("masked") else tf
               if name.startswith("flash") else v2
-              if name.startswith("blocksparse_v2") else bs)
+              if name.startswith("blocksparse_v2") else tb
+              if name.startswith("banded") else bs)
     return getattr(module, name)
 
 
@@ -1681,10 +1703,10 @@ def _mma_bodies(names=MMA_KERNELS):
 
 
 def _check_mma_bodies(phase, bodies):
-    """A bf16 run: every launch of K1-K3, K5-K10 and K14-K16 ran the
+    """A bf16 run: every launch of K1-K3, K5-K11 and K14-K16 ran the
     tensor-core body."""
     if any(b.get("fma", 0) for b in bodies.values()):
-        raise AssertionError(f"{phase}: a bf16 launch of K1-K3, K5-K10 or "
+        raise AssertionError(f"{phase}: a bf16 launch of K1-K3, K5-K11 or "
                              f"K14-K16 ran the CUDA-core body: {bodies}")
 
 
@@ -2734,6 +2756,12 @@ def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
                       if any(k in low for k in keys)), "other")
         by_group[group] += ms
     busy_ms = sum(k[1] for k in kernels)
+    # each attention kernel's device ms and launches per step
+    by_kernel = {prefix: {"ms_per_step": sum(k[1] for k in kernels
+                                             if prefix in k[0]),
+                          "launches_per_step": sum(k[2] for k in kernels
+                                                   if prefix in k[0])}
+                 for prefix in groups[attention]}
     per_launch = {}
     for prefix, ms in (randn_ms or {}).items():
         hits = [k for k in kernels if prefix in k[0]]
@@ -2747,6 +2775,7 @@ def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
           "device_busy_ms_per_step": busy_ms,
           "device_idle_share": 1 - busy_ms / step_ms,
           "ms_per_step_by_group": by_group,
+          "attention_by_kernel": by_kernel,
           "kernel_launches_per_step": sum(k[2] for k in kernels),
           "top_kernels": [{"name": k[0][:90], "ms_per_step": k[1],
                            "calls_per_step": k[2]} for k in kernels[:15]]})
@@ -3555,6 +3584,22 @@ BANDED_GEOMETRIES = [(1, 1, 1, False), (2, 2, 2, True), (0, 0, 1, False),
                      (0, 0, 2, True), (3, 3, 1, False), (2, 0, 1, False),
                      (0, 2, 1, True), (1, 1, 0, True)]
 BANDED_SWEEP = ((32, 32), (64, 64), (128, 128), (64, 128), (128, 64))
+# K11's split gr walk at forced splits, bf16 at S 512 (B 2, H 4, D 64):
+# (name, fine block, geometry, tiles, kv tiles per split, a key mask with
+# a batch row of pads or none)
+BANDED_SPLIT_CASES = [
+    ("one_tile_per_split", 32, (1, 1, 1, False), (64, 64), 1, True),
+    ("uneven_last_split", 32, (1, 1, 1, False), (32, 32), 3, False),
+    ("causal_gr", 32, (3, 3, 1, True), (64, 32), 2, True),
+    ("g_r_wider_than_a_tile", 16, (6, 2, 1, False), (64, 32), 5, False)]
+# K11 on its former CUDA-core body in bf16 at the s8k geometry (PERF.md
+# section 6; these timing phases on an NVIDIA H100 80GB HBM3 at 700 W): ms
+# per instance and summed, by layout, printed beside this run's
+FORMER_BANDED_FWD = {"lf": {"band": 2.30258, "gr": 5.76622, "ms": 8.06880},
+                     "bb": {"ms": 8.08898}}
+# kv tiles per split of K11's gr walk timed beside gr_split_plan's, at the
+# s8k geometry (64 kv tiles) and sparse BERT's (128)
+KPS_SWEEP = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
 def s8k_config(kind, heads=16):
@@ -3634,25 +3679,33 @@ class _NoPredicate:
         return False
 
 
-def check_banded_kernels(name, bp, args, key_mask, extra=None):
+def check_banded_kernels(name, bp, args, key_mask, extra=None, kps=None):
     """K11, K12 and K13 against their plain versions on the same inputs,
-    launch by launch: each instance of each kernel, the backward ones fed
-    the plain forward's lse of their rows and delta of its combined
-    output, under TRAIN_TOL (the worst instance per output); lse within
-    LSE_ATOL. The combination of the instances is the same PyTorch on
-    both sides. The control: the plain versions with the keep predicate
-    dropped (every walked cell kept; the backward fed that forward's lses
-    and delta) must fail the same check on every output."""
+    launch by launch: each instance of each kernel (K11's gr instance in
+    bf16 split as the kernel splits it: ``kps`` kv tiles a split, None
+    for fwd_split's), the backward ones fed the plain forward's lse of
+    their rows and delta of its combined output, under TRAIN_TOL (the
+    worst instance per output); lse within LSE_ATOL. The combination of
+    the instances is the same PyTorch on both sides. The control: the
+    plain versions with the keep predicate dropped (every walked cell
+    kept; the backward fed that forward's lses and delta) must fail the
+    same check on every output. In bf16 the global rows of the kernel's
+    split gr instance must also lie within SPLIT_TOL of the plain one
+    walk's."""
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import banded as tb
     q, k, v, do = args
     scale = 1.0 / float(np.sqrt(q.shape[-1]))
     tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+    splits = {kind: kps if kind == "gr" and kps else
+              tb.fwd_split(q, bp, kind) for kind in bp.instances["row"]}
+
     def plain_forward():
         """Each row instance's plain (o, lse), and the lses of each
         instance's rows and delta of the combined o, the backward's
         inputs."""
-        fwd = {kind: tb.banded_fwd_plain(q, k, v, key_mask, bp, kind, scale)
+        fwd = {kind: tb.banded_fwd_plain(q, k, v, key_mask, bp, kind, scale,
+                                         kv_tiles_per_split=splits[kind])
                for kind in bp.instances["row"]}
         o = fwd["band"][0]
         if "gr" in fwd:
@@ -3667,8 +3720,23 @@ def check_banded_kernels(name, bp, args, key_mask, extra=None):
     # output -> [(instance, kernel, plain, control)]
     outs = {"o": [], "dq": [], "dk": [], "dv": []}
     lse_err = 0.0
+    one_walk = {}
     for kind in bp.instances["row"]:
-        o, lse = tb.banded_fwd(q, k, v, key_mask, bp, kind, scale)
+        o, lse = tb.banded_fwd(q, k, v, key_mask, bp, kind, scale,
+                               kv_tiles_per_split=kps if kind == "gr"
+                               else None)
+        if splits[kind]:
+            # the global rows alone (the instance's other rows keep nothing)
+            rows = bp.params[0] * bp.fine_block
+            want = tb.banded_fwd_plain(q, k, v, key_mask, bp, kind,
+                                       scale)[0][:, :, :rows].float()
+            diff = (o[:, :, :rows].float() - want).abs()
+            bound = SPLIT_TOL["atol"] + SPLIT_TOL["rtol"] * (
+                v.float().abs().max() + want.abs())
+            one_walk = {"max_abs_err": float(diff.max()),
+                        "worst_ratio": float((diff / bound).max()),
+                        "rel_rms": float(diff.norm() /
+                                         want.norm().clamp_min(1e-30))}
         a = (q, k, v, do, lses[kind], delta, key_mask, bp, kind, scale)
         dq = tb.banded_dq(*a)
         torch.cuda.synchronize()
@@ -3696,6 +3764,11 @@ def check_banded_kernels(name, bp, args, key_mask, extra=None):
            "instances": {w: sorted(i) for w, i in bp.instances.items()},
            "key_mask": key_mask is not None,
            "rows_with_no_key": int((lses["band"] <= tb.VALID_THRESH).sum()),
+           "body": kernel_body("banded_fwd", "bf16" if q.dtype ==
+                               torch.bfloat16 else "fp32"),
+           "kv_tiles_per_split": splits.get("gr"),
+           "gr_kv_tiles": bp.GRK,
+           "gr_vs_one_walk": one_walk or None,
            "tol": tol, "lse_atol": LSE_ATOL, **(extra or {}),
            "control": "the keep predicate dropped: every walked cell kept"}
     ok = True
@@ -3714,6 +3787,8 @@ def check_banded_kernels(name, bp, args, key_mask, extra=None):
         ok &= row[f"control_{key}_fails"]
     row["lse_max_abs_err"] = lse_err
     ok &= lse_err <= LSE_ATOL
+    ok &= not one_walk or (one_walk["worst_ratio"] <= 1.0 and
+                           one_walk["rel_rms"] <= SPLIT_TOL["rms"])
     row["ok"] = ok
     emit(row)
     if not ok:
@@ -3741,8 +3816,9 @@ def banded_kernel_check_phase():
     BSLongformer (B 8, H 16, S 2048, block 16) with its key mask (lengths
     1024-2048, -1e30 on the pads); JAX's eight geometries at S 512, fine
     block 32, at tiles (64, 128) and (128, 64) (wider than the fine
-    block), bf16 and fp32, with a batch row of pads. Returns the s8k and
-    the BERT rows."""
+    block), bf16 and fp32, with a batch row of pads; K11's gr walk at the
+    forced splits of BANDED_SPLIT_CASES. Returns the s8k and the BERT
+    rows."""
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import banded as tb
     from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import NEG_INF
@@ -3773,6 +3849,14 @@ def banded_kernel_check_phase():
             train_inputs(rng, 2, 4, 4, 512, 64, dtype),
             bert_key_mask(rng, 2, 512, 200, all_pad_rows=pads, pad=NEG_INF),
             extra={"all_pad_rows": list(pads)})
+    for case, fb, geom, tiles, kps, kpm in BANDED_SPLIT_CASES:
+        check_banded_kernels(
+            f"split_{case}_kps{kps}_bf16",
+            tb.BandedPlan(4, 512, fb, tb.BandedParams(*geom), *tiles),
+            train_inputs(rng, 2, 4, 4, 512, 64, bf16),
+            bert_key_mask(rng, 2, 512, 200, all_pad_rows=(1,), pad=NEG_INF)
+            if kpm else None, kps=kps,
+            extra={"all_pad_rows": [1] if kpm else []})
     return main_row, bert_row
 
 
@@ -3938,12 +4022,17 @@ def legacy_sparse_timing_phase(smi):
                              b_in + meta, b_out, bytes_per_s, flops_per_s))
             t["library_ms"] = lib["fwd" if name == "banded_fwd" else "bwd"]
             t["replaces"] = BANDED_REPLACES[name]
+            if name == "banded_fwd":
+                t["fma_body_ms"] = FORMER_BANDED_FWD[kind]
+                t["kv_tiles_per_split"] = banded.fwd_split(q, bp, "gr")
+                t["gr_kv_tiles"] = bp.GRK
             emit({"phase": "legacy_sparse_timing", "kernel": name,
                   "layout": kind, "shape": dict(m, dtype="bf16"),
                   "tiles": [bp.bq, bp.bkv], "params": list(bp.params),
                   "banded_blocks": band_blocks,
                   "layout_blocks": int(layout.sum()),
                   "kernel_ms": t["ms"], **t,
+                  "body": kernel_body(name),
                   "library": "scaled_dot_product_attention "
                              + ("forward" if name == "banded_fwd" else
                                 "backward (dq, dk, dv together)")
@@ -4028,7 +4117,58 @@ def legacy_sparse_timing_phase(smi):
           "fit": fit_walk_costs(sweep),
           "committed": list(mf.WALK_COSTS["banded"]), "rule_tiles": rule,
           "nvidia_smi": smi})
+    out["gr_split_sweep"] = gr_split_sweep(smi, args, flush)
     return out
+
+
+def gr_split_sweep(smi, s8k_args, flush):
+    """The end of phase 26: K11's gr instance timed (as train_kernel_timing
+    times) at the kv tiles per split of KPS_SWEEP and at gr_split_plan's,
+    at the s8k BSLongformer geometry (``s8k_args``, no key mask) and at
+    sparse BERT's (B 8, H 16, S 2048, block 16, its key mask), each beside
+    the one walk (every kv tile in one split). Returns {shape: {kv tiles
+    per split: ms}}."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import banded as tb
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import NEG_INF
+    rng = np.random.RandomState(SEED + 21)
+    m, sm = S8K_SHAPE, SPARSE_SHAPE
+    sc = sparse_config("bslongformer")
+    shapes = {
+        "s8k bslongformer": (
+            _banded_plan(s8k_config("lf", m["H"]).make_layout(m["S"]),
+                         m["block"]), s8k_args, None),
+        "sparse bert bslongformer": (
+            _banded_plan(sc.make_layout(sm["S"]), sc.block),
+            train_inputs(rng, sm["B"], sm["H"], sm["H"], sm["S"], sm["D"],
+                         torch.bfloat16),
+            bert_key_mask(rng, sm["B"], sm["S"], SPARSE_MIN_LEN,
+                          pad=NEG_INF))}
+    result = {}
+    for label, (bp, args, kpm) in shapes.items():
+        q, k, v, _ = args
+        scale = 1.0 / float(np.sqrt(q.shape[-1]))
+        rule = tb.fwd_split(q, bp, "gr")
+        ms = {}
+        for kps in sorted({*(n for n in KPS_SWEEP if n <= bp.GRK), rule,
+                           bp.GRK}):
+            ms[kps] = time_ms(lambda: tb.banded_fwd(
+                q, k, v, kpm, bp, "gr", scale, kv_tiles_per_split=kps),
+                SPARSE_TIMED_CALLS, flush)
+        rows = bp.GQ * bp.bq
+        emit({"phase": "legacy_sparse_timing", "kernel": "banded_fwd gr "
+              "split sweep", "layout": label,
+              "shape": {"B": q.shape[0], "H": q.shape[1], "S": q.shape[2],
+                        "D": q.shape[3], "block": bp.fine_block},
+              "tiles": [bp.bq, bp.bkv], "gr_kv_tiles": bp.GRK,
+              "row_blocks": q.shape[0] * q.shape[1] * rows //
+              min(bp.bq, tb.MMA_ROWS),
+              "key_mask": kpm is not None, "rule_kv_tiles_per_split": rule,
+              "ms_by_kv_tiles_per_split": ms, "one_walk_ms": ms[bp.GRK],
+              "rule_ms": ms[rule], "best": min(ms, key=ms.get),
+              "nvidia_smi": smi})
+        result[label] = ms
+    return result
 
 
 def legacy_entry_point_phase(smi):
@@ -4212,7 +4352,7 @@ FLASH_ROUTE = Route(dict.fromkeys(FLASH_NAMES, 1), _PlainFlash, "_legacy",
                     ("flash_fwd_", "flash_dq_", "flash_dkv_"))
 BANDED_ROUTE = Route(BANDED_PER_CALL, _PlainBanded, "_legacy",
                      "K11-K13 (banded)",
-                     ("banded_fwd_kernel", "banded_dq_kernel",
+                     ("banded_fwd_", "banded_dq_kernel",
                       "banded_dkv_kernel"), planned="banded")
 
 
@@ -4967,6 +5107,7 @@ def v1_kernel_timing_phase(smi, check_rows):
                   "shape": [B, H, S, D], "dtype": "bf16",
                   "walked_tiles": plan.tiles_walked, "union_tiles": union,
                   "kernel_ms": t["ms"], **t,
+                  "body": kernel_body(name),
                   "library": "scaled_dot_product_attention "
                              + ("forward" if name == "bs_fwd" else
                                 "backward (dq, dk, dv together)")
@@ -5403,7 +5544,10 @@ def main() -> int:
             max_abs_err=banded_errs[name], ms=t["ms"], kernel_ms=t["ms"],
             ms_by_instance=t["instances"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"]))
+            library_ms=t["library_ms"],
+            **({} if name != "banded_fwd" else dict(
+                kv_tiles_per_split=t["kv_tiles_per_split"],
+                gr_split_sweep_ms=legacy_timing["gr_split_sweep"]))))
     nomask_errs = {"blocksparse_v2_fwd": nomask_check["o_max_abs_err"],
                    "blocksparse_v2_dq": nomask_check["dq_max_abs_err"],
                    "blocksparse_v2_dkv": max(nomask_check["dk_max_abs_err"],

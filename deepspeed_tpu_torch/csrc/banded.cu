@@ -41,15 +41,50 @@
 //
 // What bounds it on an H100: operations. At the s8k geometry (B 1, H 16,
 // S 8192, D 64, BSLongformer block 128, window 3) a walked 128 x 128 tile
-// does 2-4 products of 128 x 128 x 64. This first version is the simple
-// design of masked_flash.cu and blocksparse_v2.cu (flash_tiles.cuh): fp32
-// FMAs on the CUDA cores, no tensor cores. A CTA of 128 threads owns R =
+// does 2-4 products of 128 x 128 x 64.
+//
+// K11 in bf16 runs K1's tensor-core forward body (mma_fwd.cuh, mma.sync,
+// BandedRule: the -1e28 threshold, lse = m where l == 0): a CTA owns R =
+// min(bq, 64) rows of a q tile, 16 per warp, and walks its instance's
+// steps (BandedWalk: the band instance's GT global-column steps, then
+// min(start[i] + j - GT, end[i]); the gr instance's kv tiles). Each
+// step's predicate rides in the walked tile's kind bits (kKindBand | pred
+// << kPredShift), and BandedKeep evaluates it on block indices in
+// registers, per cell and per rectangle (the body skips a tile, and a
+// warp's 16-key group, that keeps nothing, as the CUDA-core body skips a
+// chunk); a repeat step clamped past end[i] keeps nothing. The score
+// order is K1's key-mask order (s * sm_scale, + kpm, then the
+// predicate), so the body's rounding repair sees the plain version's
+// roundings.
+//
+// The global-rows walk split over the keys (bf16). At s8k the gr instance
+// is one q tile of 128 rows per (b, h) walking all 64 kv tiles: 32 CTAs of
+// 64 rows on 132 SMs, each walking 8192 keys in series. Its grid gets a
+// third axis, the splits of kv_tiles_per_split kv tiles
+// (banded.gr_split_plan, from the shapes alone). Each CTA walks its
+// split from a fresh state and writes its fp32 partial (the unnormalised
+// accumulator, m and l) to a workspace, counts its arrival on its row
+// block's int32 counter, and the CTA that arrives last merges the row
+// block's splits in split order (m = max m_z, l = sum l_z e^(m_z - m),
+// acc = sum acc_z e^(m_z - m), each product and sum rounded on its own),
+// writes o = acc / l in bf16 and lse = m + log l, and sets the counter
+// back to 0. No float atomics and a fixed order: the bits do not change
+// from run to run. A split that keeps nothing has m = NEG_INF and l = 0,
+// so an empty row still writes o = 0 and lse = m. p rounds to bf16 under
+// its split's running max, not the whole walk's: the split plain version
+// (banded_fwd_plain(kv_tiles_per_split=...)) walks alike. With one split
+// the CTA writes o and lse itself, as the one walk.
+//
+// K11 in fp32 and K12, K13 keep the first design, that of
+// masked_flash.cu and blocksparse_v2.cu (flash_tiles.cuh): fp32 FMAs on
+// the CUDA cores, no tensor cores. A CTA of 128 threads owns R =
 // min(bq, 32) query rows of a q tile (K11, K12) or R = min(bkv, 32) key
 // rows of a kv tile (K13); it stages its own rows once and each walked
 // tile's partner rows in chunks of min(tile, 32) into shared memory as
 // fp32, and keeps the softmax state and the accumulators in shared
 // memory. The Pallas grid's sequential walk axis becomes a loop inside
-// the CTA. Later work: mma/wgmma, cp.async/TMA staging.
+// the CTA. Later work: K12 and K13 on the tensor-core dq and dk/dv
+// bodies, over this row walk and split.
 //
 // Built by deepspeed_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -59,12 +94,16 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
+#include "mma_fwd.cuh"
 
 namespace {
 
-constexpr float kValidThresh = -1e28f;  // banded.VALID_THRESH
+// kValidThresh (mma_fwd.cuh, -1e28) is banded.VALID_THRESH too
 
 enum Pred { kNone, kBandCells, kGlobalCols, kGlobalRows };
+// a step's predicate in the tensor-core body's kind bits: kKindBand |
+// pred << kPredShift
+constexpr int kPredShift = 2;
 enum Kind { kBand = 0, kGlobalRowsInst = 1, kGlobalColsInst = 2 };
 
 struct Geo {
@@ -78,7 +117,7 @@ struct Geo {
 };
 
 // whether the cell of block indices (rb, cb) is kept under predicate p
-__device__ __forceinline__ bool keep(Pred p, int rb, int cb, const Geo& g) {
+__device__ __forceinline__ bool kept(Pred p, int rb, int cb, const Geo& g) {
   bool k;
   if (p == kBandCells)
     k = rb >= g.g_r && cb >= g.g_c && rb - cb <= g.w &&
@@ -136,7 +175,7 @@ __device__ bool mark_live(int* live, Pred p, int r0, int nr, int rstep,
       const int lo_r = r0 + c * rstep, lo_c = c0 + c * cstep;
       const int rb = lo_r / g.fb + rr, cb = lo_c / g.fb + cc;
       if (rb <= (lo_r + nr - 1) / g.fb && cb <= (lo_c + nc - 1) / g.fb &&
-          keep(p, rb, cb, g))
+          kept(p, rb, cb, g))
         live[c] = 1;
     }
   }
@@ -147,8 +186,8 @@ __device__ bool mark_live(int* live, Pred p, int r0, int nr, int rstep,
 }
 
 // ------------------------------------------------------------------ K11
-// grid (tiles * bq / R, B*H); R = min(bq, 32) q rows per CTA, keys in
-// chunks of C = min(bkv, 32).
+// fp32 (the CUDA-core body): grid (tiles * bq / R, B*H); R = min(bq, 32)
+// q rows per CTA, keys in chunks of C = min(bkv, 32).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 banded_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -209,7 +248,7 @@ banded_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < kMaxBlk / 32; ++u) {
         const int c = lane + 32 * u;
         float s = kNegInf;
-        if (c < bkv && keep(st.pred, rb, (k0 + c) / g.fb, g)) {
+        if (c < bkv && kept(st.pred, rb, (k0 + c) / g.fb, g)) {
           s = __fmul_rn(ss[r * bkv + c], g.sm_scale);
           if (kpm_b) s += kpm_b[k0 + c];
         }
@@ -260,6 +299,185 @@ banded_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = l_s[r];
     lse[(size_t)bh * out_rows + r0 + r] = m_s[r] + logf(l == 0.f ? 1.f : l);
   }
+}
+
+// K11 in bf16 on the tensor-core body. BandedKeep: the predicate of the
+// walked step (its kind bits) on the fine blocks of a query and a key;
+// any(): whether a rectangle of queries [qa, qb] x keys [ka, kb] keeps a
+// cell, exactly (the body skips what keeps none).
+struct BandedKeep {
+  Geo g;
+  int shift;  // log2(fb) where fb is a power of two, else -1
+
+  __device__ __forceinline__ int blk(int x) const {
+    return shift >= 0 ? x >> shift : x / g.fb;
+  }
+  __device__ __forceinline__ bool keep(int kind, int qi, int ki) const {
+    return kept(Pred(kind >> kPredShift), blk(qi), blk(ki), g);
+  }
+  __device__ __forceinline__ bool any(int kind, int qa, int qb, int ka,
+                                      int kb) const {
+    const int r0 = blk(qa), r1 = blk(qb), c0 = blk(ka), c1 = blk(kb);
+    switch (Pred(kind >> kPredShift)) {
+      case kGlobalRows:
+        return r0 < g.g_r && (!g.causal || c0 <= min(r1, g.g_r - 1));
+      case kGlobalCols:
+        return r1 >= g.g_r && c0 < g.g_c && (!g.causal || c0 <= r1);
+      case kBandCells: {
+        // rb - cb takes every value in [R0 - c1, r1 - C0]; kept ones lie
+        // in [-(causal ? 0 : w), w]
+        const int R0 = max(r0, g.g_r), C0 = max(c0, g.g_c);
+        return R0 <= r1 && C0 <= c1 && R0 - c1 <= g.w &&
+               C0 - r1 <= (g.causal ? 0 : g.w);
+      }
+      default:
+        return false;
+    }
+  }
+};
+
+// the steps of one CTA's row walk: the band instance's (GT global-column
+// steps, then the band steps over [start, end], clamped past it and
+// keeping nothing there: row_step), or `count` kv tiles of the gr
+// instance from `first` (one split)
+struct BandedWalk {
+  int gr, first, count, gt, start, end, bkv;
+  __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int2 tile(int t) const {
+    int part, pred;
+    if (gr) {
+      part = first + t;
+      pred = kGlobalRows;
+    } else if (t < gt) {
+      part = t;
+      pred = kGlobalCols;
+    } else {
+      const int s = start + (t - gt);
+      part = min(s, end);
+      pred = s <= end ? kBandCells : kNone;
+    }
+    return make_int2(part * bkv, kKindBand | pred << kPredShift);
+  }
+};
+
+// grid (tiles * bq / R, B*H, splits), R = min(bq, 64) q rows per CTA, 16
+// per warp; splits > 1 only for the gr instance, each of
+// kv_tiles_per_split kv tiles (the last may hold fewer). ws: splits x B*H
+// x rows x D fp32 partial accumulators, then splits x B*H x rows x (m, l);
+// arrivals: B*H x (tiles * bq / R) int32, 0 before the launch and after.
+template <int W, int DMAX, bool KPM>
+__global__ void __launch_bounds__(2 * kMmaMaxRows,
+                                  mma_fwd_min_ctas(W, DMAX, false))
+banded_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const float* __restrict__ kpm, bf16* __restrict__ o,
+                      float* __restrict__ lse,
+                      const int32_t* __restrict__ start,
+                      const int32_t* __restrict__ end, float* ws,
+                      int* arrivals, Geo g, int shift, int kps) {
+  const int R = blockDim.x / 2;
+  const int D = g.D;
+  const int bh = blockIdx.y;
+  const int b = bh / g.H;
+  const int r0 = blockIdx.x * R;
+  const int i = r0 / g.bq;
+  const int rows = gridDim.x * R;        // the instance's output rows
+  const int split = blockIdx.z, splits = gridDim.z;
+  BandedWalk walk{g.kind == kGlobalRowsInst, 0, g.steps, g.gt, 0, 0, g.bkv};
+  if (walk.gr) {
+    walk.first = split * kps;
+    walk.count = min(kps, g.steps - walk.first);
+  } else {
+    walk.start = start[i];
+    walk.end = end[i];
+  }
+  const size_t kv0 = (size_t)bh * g.S * D;
+  const size_t out0 = (size_t)bh * rows + r0;
+  const FwdRows a{q + (kv0 + (size_t)r0 * D), k + kv0, v + kv0,
+                  KPM ? kpm + (size_t)b * g.S : nullptr, o + out0 * D,
+                  lse + out0, r0, D, bh, g.sm_scale};
+  FwdState<DMAX> st;
+  mma_fwd_walk<W, DMAX, KPM, true, false, BandedRule>(
+      a, walk, BandedKeep{g, shift}, Dropout{}, st);
+  if (splits == 1) {
+    mma_fwd_store<DMAX, BandedRule>(a, Dropout{}, st);
+    return;
+  }
+
+  // this split's partial: rows of a slice of B*H x rows, this CTA's from
+  // out0 on
+  const size_t slice = (size_t)gridDim.y * rows;
+  float* ws_ml = ws + (size_t)splits * slice * D;
+  {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const size_t row = split * slice + out0 + warp * 16 + gq + 8 * r;
+      float* dst = ws + row * D;
+#pragma unroll
+      for (int j = 0; j < DMAX / 8; ++j)
+        if (8 * j < D)
+          *reinterpret_cast<float2*>(dst + 8 * j + 2 * tq) =
+              make_float2(st.acc[j][2 * r], st.acc[j][2 * r + 1]);
+      if (tq == 0)
+        *reinterpret_cast<float2*>(ws_ml + row * 2) =
+            make_float2(st.m[r], st.l[r]);
+    }
+  }
+  // the CTA that arrives last merges the row block's splits, in split
+  // order, and sets the count back to 0 for the next launch
+  __shared__ int last_s;
+  __threadfence();
+  __syncthreads();
+  int* arrived = arrivals + (size_t)bh * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0) last_s = atomicAdd(arrived, 1) == splits - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  // two threads a row, each half of the head dim in fp32x4
+  const int lr = threadIdx.x >> 1;
+  const int half = D / 2;
+  const int c0 = (threadIdx.x & 1) * half;
+  const size_t rix = out0 + lr;
+  float m = kNegInf;
+  for (int z = 0; z < splits; ++z)
+    m = fmaxf(m, __ldcg(ws_ml + (z * slice + rix) * 2));
+  float l = 0.f;
+  float4 acc[DMAX / 8];
+#pragma unroll
+  for (int c = 0; c < DMAX / 8; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int z = 0; z < splits; ++z) {
+    const float2 ml =
+        __ldcg(reinterpret_cast<const float2*>(ws_ml + (z * slice + rix) * 2));
+    const float f = expf(ml.x - m);
+    l = __fadd_rn(l, __fmul_rn(ml.y, f));
+    const float4* src =
+        reinterpret_cast<const float4*>(ws + (z * slice + rix) * D + c0);
+#pragma unroll
+    for (int c = 0; c < DMAX / 8; ++c) {
+      if (4 * c < half) {
+        const float4 x = __ldcg(src + c);
+        acc[c].x = __fadd_rn(acc[c].x, __fmul_rn(x.x, f));
+        acc[c].y = __fadd_rn(acc[c].y, __fmul_rn(x.y, f));
+        acc[c].z = __fadd_rn(acc[c].z, __fmul_rn(x.z, f));
+        acc[c].w = __fadd_rn(acc[c].w, __fmul_rn(x.w, f));
+      }
+    }
+  }
+  const float ls = l == 0.f ? 1.f : l;
+  bf16* orow = a.o + (size_t)lr * D + c0;
+#pragma unroll
+  for (int c = 0; c < DMAX / 8; ++c) {
+    if (4 * c < half) {
+      auto* dst = reinterpret_cast<__nv_bfloat162*>(orow + 4 * c);
+      dst[0] = __floats2bfloat162_rn(acc[c].x / ls, acc[c].y / ls);
+      dst[1] = __floats2bfloat162_rn(acc[c].z / ls, acc[c].w / ls);
+    }
+  }
+  if (c0 == 0) a.lse[lr] = m + logf(ls);
+  if (threadIdx.x == 0) *arrived = 0;
 }
 
 // ------------------------------------------------------------------ K12
@@ -325,7 +543,7 @@ banded_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = e / C;
         const int cc = e - r * C;
         float p = 0.f;
-        if (keep(st.pred, (r0 + r) / g.fb, (kc + cc) / g.fb, g)) {
+        if (kept(st.pred, (r0 + r) / g.fb, (kc + cc) / g.fb, g)) {
           float s = __fmul_rn(ps[e], g.sm_scale);
           if (kpm_b) s += kpm_b[kc + cc];
           p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
@@ -410,7 +628,7 @@ banded_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = e / R;            // query row in the chunk
         const int cc = e - r * R;       // key row of this CTA
         float p = 0.f;
-        if (keep(st.pred, (qc + r) / g.fb, (kr0 + cc) / g.fb, g)) {
+        if (kept(st.pred, (qc + r) / g.fb, (kr0 + cc) / g.fb, g)) {
           float s = __fmul_rn(ps[e], g.sm_scale);
           if (kpm) s += km_s[cc];
           p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
@@ -471,6 +689,40 @@ Geo make_geo(int heads, int seq, int head_dim, int bq, int bkv, int fb,
              kind, steps, gt, q0, lse_rows, sm_scale};
 }
 
+template <int W, int DMAX, bool KPM>
+cudaError_t run_fwd_mma(dim3 grid, int threads, size_t smem, cudaStream_t s,
+                        const void* q, const void* k, const void* v,
+                        const float* kpm, void* o, float* lse,
+                        const int32_t* start, const int32_t* end, float* ws,
+                        int* arrivals, Geo g, int shift, int kps) {
+  return launch_rows(banded_fwd_mma_kernel<W, DMAX, KPM>, grid, threads,
+                     smem, s, static_cast<const bf16*>(q),
+                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                     kpm, static_cast<bf16*>(o), lse, start, end, ws,
+                     arrivals, g, shift, kps);
+}
+
+using FwdMma = decltype(&run_fwd_mma<16, 64, false>);
+
+template <int DMAX>
+FwdMma pick_fwd_mma(int bkv, bool kpm) {
+  return bkv == 16   ? (kpm ? run_fwd_mma<16, DMAX, true>
+                            : run_fwd_mma<16, DMAX, false>)
+         : bkv == 32 ? (kpm ? run_fwd_mma<32, DMAX, true>
+                            : run_fwd_mma<32, DMAX, false>)
+         : bkv == 64 ? (kpm ? run_fwd_mma<64, DMAX, true>
+                            : run_fwd_mma<64, DMAX, false>)
+                     : (kpm ? run_fwd_mma<128, DMAX, true>
+                            : run_fwd_mma<128, DMAX, false>);
+}
+
+// log2(fb) where fb is a power of two, else -1
+int fb_shift(int fb) {
+  int sh = 0;
+  while ((1 << sh) < fb) ++sh;
+  return (1 << sh) == fb ? sh : -1;
+}
+
 }  // namespace
 
 #define GEO_ARGS                                                            \
@@ -489,33 +741,49 @@ Geo make_geo(int heads, int seq, int head_dim, int bq, int bkv, int fb,
 // the rows per (b, h) of the lse that banded_dq and banded_dkv read.
 // Each entry point returns the CUDA error of its launch (0 on success);
 // it launches on `stream` and does not synchronise.
+//
+// banded_fwd in bf16 runs the tensor-core body (q, k, v and o 16-byte
+// aligned, kpm 8: else cudaErrorInvalidValue), and splits the gr
+// instance (kind 1) into ceil(steps / kv_tiles_per_split) splits of its
+// kv tiles; with more than one, ws holds splits * bh * rows * (head_dim +
+// 2) fp32 (rows = tiles * bq) and arrivals bh * rows / min(bq, 64) int32,
+// 0 before the launch (and 0 again after it). The band instance (kind 0)
+// and fp32 walk one split; kv_tiles_per_split, ws and arrivals are then
+// not read.
 extern "C" int banded_fwd(const void* q, const void* k, const void* v,
-                          const void* kpm, void* o, void* lse,
-                          const void* start, const void* end, GEO_ARGS) {
+                          const void* kpm, void* o, void* lse, void* ws,
+                          void* arrivals, const void* start, const void* end,
+                          int kv_tiles_per_split, GEO_ARGS) {
   const Geo g = GEO;
   if (bad_geo(bh, g, tiles, bq)) return (int)cudaErrorInvalidValue;
-  const int R = rows_of(bq), C = rows_of(bkv);
-  const dim3 grid(tiles * bq / R, bh);
-  const size_t smem = fwd_smem(R, C, head_dim, bkv);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* kp = static_cast<const float*>(kpm);
   const auto* st = static_cast<const int32_t*>(start);
   const auto* en = static_cast<const int32_t*>(end);
-  if (dtype == 0)
-    return (int)launch(banded_fwd_kernel<float>, grid, smem, s,
-                       static_cast<const float*>(q),
-                       static_cast<const float*>(k),
-                       static_cast<const float*>(v), kp,
-                       static_cast<float*>(o), static_cast<float*>(lse), st,
-                       en, g);
-  if (dtype == 1)
-    return (int)launch(banded_fwd_kernel<__nv_bfloat16>, grid, smem, s,
-                       static_cast<const __nv_bfloat16*>(q),
-                       static_cast<const __nv_bfloat16*>(k),
-                       static_cast<const __nv_bfloat16*>(v), kp,
-                       static_cast<__nv_bfloat16*>(o),
-                       static_cast<float*>(lse), st, en, g);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    if (fwd_misaligned(q, k, v, o, kpm)) return (int)cudaErrorInvalidValue;
+    const int kps = kind == kGlobalRowsInst ? kv_tiles_per_split : steps;
+    if (kps <= 0 || steps <= 0) return (int)cudaErrorInvalidValue;
+    const int splits = (steps + kps - 1) / kps;
+    if (splits > 65535 || (splits > 1 && (!ws || !arrivals)))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(bq);
+    return (int)(head_dim <= 64 ? pick_fwd_mma<64>(bkv, kp != nullptr)
+                                : pick_fwd_mma<128>(bkv, kp != nullptr))(
+        dim3(tiles * bq / R, bh, splits), 2 * R,
+        mma_fwd_smem(R, bkv, head_dim), s, q, k, v, kp, o,
+        static_cast<float*>(lse), st, en, static_cast<float*>(ws),
+        static_cast<int*>(arrivals), g, fb_shift(fb), kps);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(bq), C = rows_of(bkv);   // fp32: the CUDA cores
+  return (int)launch(banded_fwd_kernel<float>, dim3(tiles * bq / R, bh),
+                     fwd_smem(R, C, head_dim, bkv), s,
+                     static_cast<const float*>(q),
+                     static_cast<const float*>(k),
+                     static_cast<const float*>(v), kp,
+                     static_cast<float*>(o), static_cast<float*>(lse), st,
+                     en, g);
 }
 
 extern "C" int banded_dq(const void* q, const void* k, const void* v,

@@ -84,7 +84,10 @@ namespace {
 // The banded fine structure of KIND_BAND tiles, in fine blocks of fb
 // rows: keep a cell of query qi, key ki iff its fine row is a global row,
 // its fine column a global column, or they are at most w apart, then
-// (clip) the layout's causal clip.
+// (clip) the layout's causal clip. The forward body passes the tile's
+// kind first, the backward bodies not. TODO: the kind-free keep / any go
+// once the dq and dk/dv bodies pass the tile's kind (ROADMAP.md, "After
+// the queue", K12 + K13).
 struct Band {
   int fb, w, g_r, g_c, clip;
 
@@ -107,6 +110,16 @@ struct Band {
     ok = ok || (q0 < g_r && (!clip || k0 <= min(q1, g_r - 1)));
     ok = ok || (k0 < g_c && (!clip || k0 <= q1));
     return ok;
+  }
+
+  // the forward body's calls, which pass the walked tile's kind first
+  // (every KIND_BAND tile keeps one predicate)
+  __device__ __forceinline__ bool keep(int, int qi, int ki) const {
+    return keep(qi, ki);
+  }
+  __device__ __forceinline__ bool any(int, int qa, int qb, int ka,
+                                      int kb) const {
+    return any(qa, qb, ka, kb);
   }
 };
 

@@ -1,7 +1,7 @@
 // The bf16 forward body of K1 (masked_flash.cu), K5 (flash.cu), K8
-// (blocksparse_v2.cu) and K14 (blocksparse.cu) on the tensor cores: one
-// online-softmax walk over key tiles of W keys for a CTA of 16 query rows
-// per warp, on mma_tiles.cuh's fragments.
+// (blocksparse_v2.cu), K11 (banded.cu) and K14 (blocksparse.cu) on the
+// tensor cores: one online-softmax walk over key tiles of W keys for a CTA
+// of 16 query rows per warp, on mma_tiles.cuh's fragments.
 //
 // A CTA owns R = 16 * warps query rows of one walk (one block row of
 // K1's mask, one query block of K5, one block row of K8's or K14's
@@ -21,10 +21,13 @@
 // then with AM + the walk's additive mask cell (K8's tile, K14's (S, S)
 // mask read in place), each rounded in fp32; then the causal clip of a
 // CAUSAL tile and the band predicate of a BAND tile set NEG_INF. The
-// kernel's Rule sets the rest: with a threshold (K1 -1e28, K8 -1e29, K14
-// -1e28) a cell at or below it has p = 0, else (K5) p = exp(s - m_new);
-// a row with l == 0 writes o = 0 and lse = NEG_INF (K1) or m + log(1) =
-// m (K5, K8, K14: NEG_INF too for a row that walks no tile). A running
+// kernel's Rule sets the rest: with a threshold (K1 -1e28, K8 -1e29, K11
+// and K14 -1e28) a cell at or below it has p = 0, else (K5) p = exp(s -
+// m_new); a row with l == 0 writes o = 0 and lse = NEG_INF (K1) or m +
+// log(1) = m (K5, K8, K11, K14: NEG_INF too for a row that walks no
+// tile). The band predicate is the BandT's keep(kind, q, k), given the
+// walked tile's kind bits: K1's band ignores them, K11's reads its
+// step's predicate from them. A running
 // max at or below the threshold leaves every p of its row 0, so K1's
 // m_safe changes no p and the body needs none. l sums the unrounded,
 // undropped p; dropout drops p after it, keyed on (bh, q, k) from the
@@ -42,6 +45,11 @@
 // from the staged Q and K rows (ordered_dot) and its p taken with their
 // expf. The others round p as theirs do. The additive mask's sum is one
 // more fp32 rounding on the way to p, which both bounds count.
+//
+// mma_fwd_walk leaves a CTA's state in registers (FwdState: the
+// unnormalised O accumulator, each row's running max and sum), and
+// mma_fwd_store writes o and lse from it; mma_fwd_body is the two. K11's
+// split walks keep the state of each split and merge it (banded.cu).
 //
 // Skips, each leaving every output as the walk without it: a BAND tile
 // in which no cell of the CTA's rows is kept (no load, no state change),
@@ -93,6 +101,9 @@ struct TripleRule {                      // K14, K15, K16
   static constexpr float kValid = -1e28f;  // blocksparse.VALID_THRESH
   static constexpr bool kEmptyNegInf = false;
 };
+// K11 (and K12, K13 on the backward bodies): TripleRule's constants
+// (banded.VALID_THRESH is blocksparse's -1e28; lse = m where l == 0)
+using BandedRule = TripleRule;
 
 // chunks in flight; the ring holds them beside a tile's K chunks, which
 // stay until its softmax (which may sum scores again from them) is done
@@ -102,10 +113,17 @@ __host__ __device__ constexpr int ring_stages() {
   return NC + kAhead;
 }
 
-// the walk without a band (K5, and K1's BAND = false instantiations)
+// the walk without a band (K5, and K1's BAND = false instantiations);
+// the forward body passes the tile's kind first, the backward bodies not.
+// TODO: the kind-free keep / any go once the dq and dk/dv bodies pass the
+// tile's kind (ROADMAP.md, "After the queue", K12 + K13).
 struct NoBand {
   __device__ __forceinline__ bool keep(int, int) const { return true; }
+  __device__ __forceinline__ bool keep(int, int, int) const { return true; }
   __device__ __forceinline__ bool any(int, int, int, int) const {
+    return true;
+  }
+  __device__ __forceinline__ bool any(int, int, int, int, int) const {
     return true;
   }
 };
@@ -182,16 +200,29 @@ __device__ __noinline__ float ordered_dot(const bf16* q, const bf16* k,
   return acc;
 }
 
+// what a CTA's walk leaves in registers: this lane's fragments of the
+// unnormalised O accumulator, and the running max and sum of its rows g
+// ([0]) and g + 8 ([1]) of its warp's 16
+template <int DMAX>
+struct FwdState {
+  float acc[DMAX / 8][4];
+  float m[2], l[2];
+};
+
 // Walk: n() tiles, tile(t) = (first key, kind bits); with AM, mask(t)
 // the tile's additive fp32 mask at the CTA's first row (row stride
 // mask_ld(), even, 8-byte aligned). W: keys per tile (16, 32, 64, 128);
 // DMAX: 64 or 128, head dims up to it; Rule: the kernel's softmax rule.
+// BAND: the tiles with kKindBand in their kind keep the cells of
+// bd.keep(kind, q, k) (bd.any(kind, q0, q1, k0, k1): whether any cell of
+// a rectangle is kept).
 template <int W, int DMAX, bool KPM, bool BAND, bool AM, typename Rule,
           typename Walk, typename BandT>
-__device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
+__device__ __forceinline__ void mma_fwd_walk(const FwdRows& a,
                                              const Walk& walk,
                                              const BandT& bd,
-                                             const Dropout& dr) {
+                                             const Dropout& dr,
+                                             FwdState<DMAX>& st) {
   constexpr int CH = W < 64 ? W : 64;   // keys per staged chunk
   constexpr int NC = W / CH;            // K (and V) chunks per tile
   constexpr int NT = W / 8;             // 8-key score tiles per warp
@@ -222,7 +253,7 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
       for (; t < n; ++t) {
         const int2 tr = walk.tile(t);
         if (!(tr.y & kKindBand) ||
-            bd.any(a.r0, a.r0 + R - 1, tr.x, tr.x + W - 1))
+            bd.any(tr.y, a.r0, a.r0 + R - 1, tr.x, tr.x + W - 1))
           break;
       }
     }
@@ -273,11 +304,14 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
     return ring + (step++ % kStages) * stage;
   };
 
-  float acc[DMAX / 8][4];
+  float(&acc)[DMAX / 8][4] = st.acc;
 #pragma unroll
   for (int j = 0; j < DMAX / 8; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  float(&m_r)[2] = st.m;
+  float(&l_r)[2] = st.l;
+  m_r[0] = m_r[1] = kNegInf;
+  l_r[0] = l_r[1] = 0.f;
   // ldmatrix row and column of this lane: K (keys as B columns) and V
   // (keys as B rows, transposed on the load)
   const int krow = (lane & 7) + ((lane >> 4) << 3);
@@ -307,7 +341,7 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
         unsigned band = 0u;
 #pragma unroll
         for (int j = 0; j < W / 16; ++j)
-          if (bd.any(wr0, wr0 + 15, k0 + 16 * j, k0 + 16 * j + 15))
+          if (bd.any(kind, wr0, wr0 + 15, k0 + 16 * j, k0 + 16 * j + 15))
             band |= 1u << j;
         live &= band;
       }
@@ -439,7 +473,7 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (!bd.keep(wr0 + g + (e >> 1) * 8,
+            if (!bd.keep(kind, wr0 + g + (e >> 1) * 8,
                          k0 + 8 * j + 2 * tq + (e & 1)))
               s[j][e] = kNegInf;
       }
@@ -574,11 +608,23 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
     }
   }
   cp_async_wait<0>();
+}
 
+// o = acc / l (0 where l == 0) and lse of the CTA's rows from its walk's
+// state
+template <int DMAX, typename Rule>
+__device__ __forceinline__ void mma_fwd_store(const FwdRows& a,
+                                              const Dropout& dr,
+                                              const FwdState<DMAX>& st) {
+  const int D = a.D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const float(&acc)[DMAX / 8][4] = st.acc;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int lr = warp * 16 + g + 8 * r;   // the row within the CTA
-    const float l = l_r[r];
+    const float l = st.l[r];
     const float ls = l == 0.f ? 1.f : l;
     bf16* orow = a.o + (size_t)lr * D;
 #pragma unroll
@@ -594,10 +640,21 @@ __device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
       }
     }
     if (tq == 0) {
-      const float m = m_r[r];
+      const float m = st.m[r];
       a.lse[lr] = Rule::kEmptyNegInf && l == 0.f ? kNegInf : m + logf(ls);
     }
   }
+}
+
+template <int W, int DMAX, bool KPM, bool BAND, bool AM, typename Rule,
+          typename Walk, typename BandT>
+__device__ __forceinline__ void mma_fwd_body(const FwdRows& a,
+                                             const Walk& walk,
+                                             const BandT& bd,
+                                             const Dropout& dr) {
+  FwdState<DMAX> st;
+  mma_fwd_walk<W, DMAX, KPM, BAND, AM, Rule>(a, walk, bd, dr, st);
+  mma_fwd_store<DMAX, Rule>(a, dr, st);
 }
 
 }  // namespace

@@ -8,7 +8,8 @@ build happens at first use, from the checkout's sources only, into
 name carries a hash of the source, the shared headers and the flags, so
 an edited source or header builds anew and an unchanged one loads what
 is there. :func:`build_all` starts
-one ``nvcc`` per source, all at once.
+one ``nvcc`` per source, all at once. :func:`arrival_counts` keeps the
+counters of the kernels whose splits merge in the same launch.
 """
 
 import ctypes
@@ -28,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}   # source name -> nvcc's output (ptxas -v)
+_arrivals: dict = {}   # (owner, device index, stream) -> int32 counters
 
 
 def _nvcc() -> str:
@@ -94,6 +96,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build_all([name])[name])
         _loaded[name] = lib
     return lib
+
+
+def arrival_counts(owner: str, device, stream: int, n: int):
+    """At least ``n`` int32 arrival counters of ``owner``'s split kernel on
+    ``device`` and ``stream``: the CTA of a split that arrives last merges
+    and sets its count back to zero, so the counters are zero between
+    launches and are zeroed once, when made or grown."""
+    import torch
+    key = (owner, device.index, stream)
+    buf = _arrivals.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _arrivals[key] = buf
+    return buf
 
 
 def ptxas_summary(log: str) -> List[dict]:

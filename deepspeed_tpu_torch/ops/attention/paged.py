@@ -39,6 +39,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from deepspeed_tpu_torch.ops._build import arrival_counts
+
 __all__ = ["paged_decode_attention", "paged_decode_plain", "split_plan",
            "decode_read_bytes", "live_pages", "quantize_kv",
            "dequantize_pool"]
@@ -298,19 +300,6 @@ def _check_cuda_args(q, kpool, vpool, tables, positions, k_scales,
 
 
 _kernel_fns = {}
-_arrivals = {}
-
-
-def _arrival_counts(device, stream, n):
-    """The kernels' per-(row, kv head) arrival counters on this device and
-    stream: int32, zero between launches (the split that arrives last
-    sets its count back), so they are zeroed once, when made or grown."""
-    key = (device.index, stream)
-    buf = _arrivals.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _arrivals[key] = buf
-    return buf
 
 
 def _kernel(quantized: bool):
@@ -390,7 +379,8 @@ def paged_decode_attention(q, kpool, vpool, block_tables, cache_position,
 
     def launch():
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        arrivals = _arrival_counts(q.device, stream, B * KH)
+        # one counter per (row, kv head)
+        arrivals = arrival_counts("paged_decode", q.device, stream, B * KH)
         if quantized:
             return fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
                       k_scales.data_ptr(), v_scales.data_ptr(),

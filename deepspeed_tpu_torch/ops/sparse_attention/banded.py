@@ -26,14 +26,16 @@ Three kernels, each with a wrapper and a plain PyTorch version of the
 same function, called once per instance:
 
 - :func:`banded_fwd` — K11, ``o`` and ``lse`` of one instance (replaces
-  ``_fwd_body``);
+  ``_fwd_body``); in bf16 on the tensor cores, the global-rows ("gr")
+  instance split over its kv tiles (:func:`gr_split_plan`);
 - :func:`banded_dq` — K12, ``dq`` (replaces ``_dq_body``);
 - :func:`banded_dkv` — K13, ``dk`` and ``dv`` (replaces ``_dkv_body``).
 
 For CUDA tensors each wrapper launches its hand-written kernel in
 ``csrc/banded.cu`` (built with nvcc for sm_90a at first use) or raises;
 it never falls back. For CPU tensors it runs the plain version
-(``*_plain``). Each launch adds one to the wrapper's ``launches``.
+(``*_plain``). Each launch adds one to the wrapper's ``launches``, and
+K11's also to ``bodies`` under the body it ran (:data:`FWD_BODIES`).
 :func:`banded_fwd_impl` and :func:`banded_bwd_impl` combine the
 instances as JAX does; :func:`build_banded_fn` is the
 ``torch.autograd.Function`` entry over them.
@@ -46,6 +48,13 @@ where ``s <= VALID_THRESH`` (-1e28 here, not the -1e29 of K8-K10); no
 is rounded to V's (K13: do's) dtype before its product and ``ds`` to K's
 (K13: q's) dtype; dq and dk are scaled by ``sm_scale`` at the end, dv is
 not.
+
+The split of K11's gr instance (bf16 on the card): each split of
+``kv_tiles_per_split`` kv tiles walks from a fresh state, and the splits
+merge in order (``m = max m_z``, ``l = sum l_z e^(m_z - m)``, ``acc =
+sum acc_z e^(m_z - m)``). p rounds to bf16 under its split's running max,
+not the whole walk's: ``banded_fwd_plain(kv_tiles_per_split=n)`` walks
+so; with None it is JAX's one walk.
 
 The walk tiles: on CPU tensors JAX's interpret-mode rule (the fine block,
 halved until it divides S); on the card the (bq, bkv) pair of
@@ -62,13 +71,15 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.ops._build import arrival_counts
 from deepspeed_tpu_torch.ops.attention.flash import ordered_dot as _dot
 from deepspeed_tpu_torch.ops.attention.masked_flash import (
-    CHUNK, KERNEL_BLOCKS, MAX_HEAD_DIM, walk_cost_us)
+    CHUNK, FWD_BODIES, KERNEL_BLOCKS, MAX_HEAD_DIM, _check_aligned,
+    _count_body, walk_cost_us)
 
 __all__ = ["NEG_INF", "VALID_THRESH", "BandedParams", "BandedPlan",
            "detect_banded", "pick_blocks", "walk_stats", "walk_counts",
-           "walk_cost", "plan",
+           "walk_cost", "plan", "gr_split_plan", "fwd_split",
            "banded_fwd", "banded_dq", "banded_dkv", "banded_fwd_plain",
            "banded_dq_plain", "banded_dkv_plain", "banded_fwd_impl",
            "banded_bwd_impl", "build_banded_fn", "reset_launches"]
@@ -79,6 +90,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # test/autotune override for the walk tile sizes; None = pick automatically
 _FORCE_BLOCKS: Optional[Tuple[int, int]] = None
+# K11's tensor-core body: a CTA owns min(bq, MMA_ROWS) rows of a q tile
+MMA_ROWS = 64
+# gr_split_plan's rule: halve the gr walk's split while its grid has
+# fewer than GR_SPLIT_TARGET_WARPS warps (16 rows each) and the halved
+# split keeps GR_SPLIT_MIN_KEYS keys. Phase 26's sweep on an H100 80GB
+# HBM3 put the best split at 1024 warps at the s8k geometry (4 warps a
+# CTA) and at 1024-2048 at sparse BERT's (one warp a CTA)
+GR_SPLIT_TARGET_WARPS = 1024
+GR_SPLIT_MIN_KEYS = 256
 
 
 class BandedParams(NamedTuple):
@@ -399,6 +419,33 @@ def pick_blocks(S: int, fine_block: int, params: BandedParams,
     return best[1] if best else None
 
 
+def gr_split_plan(batch: int, heads: int, gq: int, bq: int, bkv: int,
+                  grk: int) -> int:
+    """KV tiles per split of K11's tensor-core gr walk for a call of these
+    shapes (``gq`` q tiles of ``bq`` rows walking ``grk`` kv tiles of
+    ``bkv`` keys, per (batch, head)): the whole walk, halved (rounding
+    up) while the grid (splits x batch x heads x the rows' warps of 16)
+    has fewer than ``GR_SPLIT_TARGET_WARPS`` warps and the halved split
+    keeps ``GR_SPLIT_MIN_KEYS`` keys or more. Shapes only: every call of
+    a shape splits alike, with no device sync."""
+    warps = batch * heads * gq * bq // 16
+    kps = max(int(grk), 1)
+    while kps > 1 and _ceil_div(kps, 2) * bkv >= GR_SPLIT_MIN_KEYS and \
+            warps * _ceil_div(grk, kps) < GR_SPLIT_TARGET_WARPS:
+        kps = _ceil_div(kps, 2)
+    return kps
+
+
+def fwd_split(q, bp: BandedPlan, kind: str) -> Optional[int]:
+    """The kv tiles per split K11's kernel walks instance ``kind`` in for
+    inputs like ``q`` ((B, H, S, D)): :func:`gr_split_plan`'s for the gr
+    instance in bf16, None (one walk) for the band instance and fp32."""
+    if kind != "gr" or q.dtype != torch.bfloat16:
+        return None
+    return gr_split_plan(q.shape[0], bp.heads, bp.GQ, bp.bq, bp.bkv,
+                         bp.GRK)
+
+
 def plan(layout, fine_block: int, cpu: bool):
     """THE banded-dispatch decision, shared by _sparse_attention_fn and
     planned_kernel: (params, (bq, bkv)) when the banded path will run,
@@ -457,23 +504,18 @@ def _scores(qt, kt, sm_scale, km, keep):
     return torch.where(keep, s, NEG_INF)
 
 
-def banded_fwd_plain(q, k, v, key_mask, bp: BandedPlan, kind: str,
-                     sm_scale: float):
-    """K11's function in plain PyTorch for instance ``kind`` ("band" or
-    "gr"): per walk step an fp32 online softmax (no m_safe), p rounded to
-    V's dtype before P.V. q, k, v (B, H, S, D); ``key_mask`` (B, S) fp32
-    or None -> o (q's dtype), lse fp32 over the instance's n * bq rows."""
-    B, H, S, D = q.shape
-    n, steps = bp.instances["row"][kind]
-    qt = _tiles(q, n, bp.bq).float()
-    kt, vt = (x.reshape(B, H, S // bp.bkv, bp.bkv, D) for x in (k, v))
-    m = torch.full((B, H, n, bp.bq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
+def _fwd_walk(qt, kt, vt, key_mask, bp: BandedPlan, kind: str,
+              sm_scale: float, steps):
+    """K11's online softmax over walk ``steps`` of instance ``kind`` from
+    a fresh state: (m, l, acc) in fp32."""
+    B, H, n, bq, D = qt.shape
+    m = torch.full((B, H, n, bq), NEG_INF, dtype=torch.float32,
+                   device=qt.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((B, H, n, bp.bq, D), dtype=torch.float32,
-                      device=q.device)
-    for j in range(steps):
-        part, keep = _step_cells(bp, "row", kind, j, q.device)
+    acc = torch.zeros((B, H, n, bq, D), dtype=torch.float32,
+                      device=qt.device)
+    for j in steps:
+        part, keep = _step_cells(bp, "row", kind, j, qt.device)
         km = None if key_mask is None else _key_tiles(key_mask, bp.bkv, part)
         s = _scores(qt, kt[:, :, part].float(), sm_scale, km, keep)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -482,8 +524,46 @@ def banded_fwd_plain(q, k, v, key_mask, bp: BandedPlan, kind: str,
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + \
-            p.to(v.dtype).float() @ vt[:, :, part].float()
+            p.to(vt.dtype).float() @ vt[:, :, part].float()
         m = m_new
+    return m, l, acc
+
+
+def banded_fwd_plain(q, k, v, key_mask, bp: BandedPlan, kind: str,
+                     sm_scale: float,
+                     kv_tiles_per_split: Optional[int] = None):
+    """K11's function in plain PyTorch for instance ``kind`` ("band" or
+    "gr"): per walk step an fp32 online softmax (no m_safe), p rounded to
+    V's dtype before P.V. q, k, v (B, H, S, D); ``key_mask`` (B, S) fp32
+    or None -> o (q's dtype), lse fp32 over the instance's n * bq rows.
+    ``kv_tiles_per_split`` None walks the steps as one online softmax, as
+    JAX does; an integer walks each split of that many steps (the gr
+    instance's kv tiles) from a fresh state and merges the splits in
+    order, as the kernel's split gr walk: m = max m_z, l = sum l_z e^(m_z
+    - m), acc = sum acc_z e^(m_z - m)."""
+    B, H, S, D = q.shape
+    n, steps = bp.instances["row"][kind]
+    qt = _tiles(q, n, bp.bq).float()
+    kt, vt = (x.reshape(B, H, S // bp.bkv, bp.bkv, D) for x in (k, v))
+    walk = (qt, kt, vt, key_mask, bp, kind, sm_scale)
+    if kv_tiles_per_split is None:
+        m, l, acc = _fwd_walk(*walk, range(steps))
+    else:
+        if kv_tiles_per_split < 1:
+            raise ValueError(f"kv_tiles_per_split must be >= 1, got "
+                             f"{kv_tiles_per_split}")
+        parts = [_fwd_walk(*walk, range(j, min(j + kv_tiles_per_split,
+                                                steps)))
+                 for j in range(0, steps, kv_tiles_per_split)]
+        m = torch.full_like(parts[0][0], NEG_INF)
+        for m_z, _, _ in parts:
+            m = torch.maximum(m, m_z)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(parts[0][2])
+        for m_z, l_z, acc_z in parts:
+            f = torch.exp(m_z - m)
+            l = l + l_z * f
+            acc = acc + acc_z * f[..., None]
     l_safe = torch.where(l == 0.0, 1.0, l)
     o = (acc / l_safe[..., None]).to(q.dtype).reshape(B, H, n * bp.bq, D)
     return o, (m + torch.log(l_safe)).reshape(B, H, n * bp.bq)
@@ -622,13 +702,13 @@ def _check_cuda(operands, fp32, bp: BandedPlan):
 
 _fns = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# after the pointers: dtype, bh, heads, seq, head_dim, bq, bkv, fine block,
-# g_r, g_c, w, causal, kind, tiles, steps, GT, gc_q0, lse rows, sm_scale,
-# stream
+# after the pointers (and banded_fwd's kv tiles per split): dtype, bh,
+# heads, seq, head_dim, bq, bkv, fine block, g_r, g_c, w, causal, kind,
+# tiles, steps, GT, gc_q0, lse rows, sm_scale, stream
 _TAIL = [_I] * 18 + [_F, _P]
 
 
-def _kernel(name: str, n_ptrs: int):
+def _kernel(name: str, n_ptrs: int, n_ints: int = 0):
     """One of the library's C entry points, built and typed at first
     use."""
     fn = _fns.get(name)
@@ -636,24 +716,24 @@ def _kernel(name: str, n_ptrs: int):
         from deepspeed_tpu_torch.ops._build import load
         fn = getattr(load("banded.cu"), name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [_P] * n_ptrs + _TAIL
+        fn.argtypes = [_P] * n_ptrs + [_I] * n_ints + _TAIL
         _fns[name] = fn
     return fn
 
 
-def _launch(name, q, ptrs, bp: BandedPlan, walk, kind, lse_rows, sm_scale):
+def _launch(name, q, ptrs, bp: BandedPlan, walk, kind, lse_rows, sm_scale,
+            ints=()):
     """Launch ``name`` for instance ``kind`` of ``walk`` on q's device and
-    current stream; raise on a refused launch."""
+    current stream; raise on a refused launch. ``ptrs`` end with the
+    walk's start and end; ``ints`` follow them."""
     B, H, S, D = q.shape
     n, steps = bp.instances[walk][kind]
     g_r, g_c, w, causal = bp.params
-    fn = _kernel(name, len(ptrs) + 2)
-    start, end = bp.bounds(walk, q.device)
+    fn = _kernel(name, len(ptrs), len(ints))
     args = [None if t is None else t.data_ptr() for t in ptrs] + [
-        start.data_ptr(), end.data_ptr(), _DTYPE_CODE[q.dtype], B * H, H, S,
-        D, bp.bq, bp.bkv, bp.fine_block, g_r, g_c, w, int(causal),
-        _KIND_CODE[kind], n, steps, bp.GT, bp.gc_q0, lse_rows,
-        float(sm_scale)]
+        *ints, _DTYPE_CODE[q.dtype], B * H, H, S, D, bp.bq, bp.bkv,
+        bp.fine_block, g_r, g_c, w, int(causal), _KIND_CODE[kind], n, steps,
+        bp.GT, bp.gc_q0, lse_rows, float(sm_scale)]
     with torch.cuda.device(q.device):
         err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -661,22 +741,53 @@ def _launch(name, q, ptrs, bp: BandedPlan, walk, kind, lse_rows, sm_scale):
 
 
 def banded_fwd(q, k, v, key_mask, bp: BandedPlan, kind: str,
-               sm_scale: float):
+               sm_scale: float, kv_tiles_per_split: Optional[int] = None):
     """K11: ``(o, lse)`` of :func:`banded_fwd_plain` for instance
     ``kind``. A CUDA ``q`` launches the sm_90a kernel (raising on any
-    dtype, shape, device or launch problem); a CPU ``q`` runs the plain
-    version."""
+    dtype, shape, device or launch problem): in bf16 the tensor-core
+    body, which walks the gr instance in splits of ``kv_tiles_per_split``
+    kv tiles (None: :func:`fwd_split`'s) merged in the same launch; in
+    fp32 the CUDA-core body, one walk. A CPU ``q`` runs the plain version
+    with the split given (None: JAX's one walk)."""
     _check_args(q, k, v, key_mask, bp, "row", kind)
     if q.device.type == "cpu":
-        return banded_fwd_plain(q, k, v, key_mask, bp, kind, sm_scale)
+        return banded_fwd_plain(q, k, v, key_mask, bp, kind, sm_scale,
+                                kv_tiles_per_split)
     _check_cuda((q, k, v), (key_mask,), bp)
+    _check_aligned("banded forward", FWD_BODIES, q.dtype,
+                   (("q", q), ("k", k), ("v", v), ("key_mask", key_mask)))
     B, H, _, D = q.shape
-    rows = bp.instances["row"][kind][0] * bp.bq
+    n, steps = bp.instances["row"][kind]
+    kps = fwd_split(q, bp, kind)
+    if kv_tiles_per_split is not None:
+        if kps is None:
+            raise ValueError(f"the {q.dtype} {kind!r} walk of the banded "
+                             f"forward kernel is not split: got "
+                             f"kv_tiles_per_split={kv_tiles_per_split}")
+        kps = int(kv_tiles_per_split)
+        if kps < 1:
+            raise ValueError(f"kv_tiles_per_split must be >= 1, got {kps}")
+    kps = min(kps or steps, steps)
+    splits = _ceil_div(steps, kps)
+    rows = n * bp.bq
     o = torch.empty((B, H, rows, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, rows), dtype=torch.float32, device=q.device)
-    _launch("banded_fwd", q, [q, k, v, key_mask, o, lse], bp, "row", kind,
-            rows, sm_scale)
+    # the splits' partials (acc, then m and l), merged by the last split
+    ws, arrivals = None, None
+    if splits > 1:
+        ws = torch.empty(splits * B * H * rows * (D + 2),
+                         dtype=torch.float32, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        # one counter per (b, h, row block)
+        arrivals = arrival_counts(
+            "banded_fwd", q.device, stream,
+            B * H * (rows // min(bp.bq, MMA_ROWS)))
+    start, end = bp.bounds("row", q.device)
+    _launch("banded_fwd", q, [q, k, v, key_mask, o, lse, ws, arrivals,
+                              start, end], bp, "row", kind, rows, sm_scale,
+            ints=(kps,))
     banded_fwd.launches += 1
+    _count_body(banded_fwd, q.dtype, FWD_BODIES)
     return o, lse
 
 
@@ -693,8 +804,9 @@ def banded_dq(q, k, v, do, lse, delta, key_mask, bp: BandedPlan, kind: str,
     B, H, _, D = q.shape
     rows = bp.instances["row"][kind][0] * bp.bq
     dq = torch.empty((B, H, rows, D), dtype=q.dtype, device=q.device)
-    _launch("banded_dq", q, [q, k, v, do, lse, delta, key_mask, dq], bp,
-            "row", kind, lse.shape[-1], sm_scale)
+    start, end = bp.bounds("row", q.device)
+    _launch("banded_dq", q, [q, k, v, do, lse, delta, key_mask, dq, start,
+                             end], bp, "row", kind, lse.shape[-1], sm_scale)
     banded_dq.launches += 1
     return dq
 
@@ -713,16 +825,19 @@ def banded_dkv(q, k, v, do, lse, delta, key_mask, bp: BandedPlan, kind: str,
     rows = bp.instances["col"][kind][0] * bp.bkv
     dk = torch.empty((B, H, rows, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, H, rows, D), dtype=v.dtype, device=q.device)
-    _launch("banded_dkv", q, [q, k, v, do, lse, delta, key_mask, dk, dv], bp,
-            "col", kind, lse.shape[-1], sm_scale)
+    start, end = bp.bounds("col", q.device)
+    _launch("banded_dkv", q, [q, k, v, do, lse, delta, key_mask, dk, dv,
+                              start, end], bp, "col", kind, lse.shape[-1],
+            sm_scale)
     banded_dkv.launches += 1
     return dk, dv
 
 
 def reset_launches():
-    """Set every launch count of K11-K13 to 0."""
+    """Set every launch count of K11-K13 to 0, K11's also by body."""
     for w in (banded_fwd, banded_dq, banded_dkv):
         w.launches = 0
+    banded_fwd.bodies = {}
 
 
 reset_launches()

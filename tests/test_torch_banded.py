@@ -591,13 +591,19 @@ def test_mlm_loss_legacy_dispatch_matches_jax(legacy):
 
 # ------------------------------------------------------- on the card
 CUDA_CASES = [
-    # (B, H, S, D, fine block, geometry, tiles, key mask, dtype)
-    (1, 16, 8192, 64, 128, (1, 1, 1, False), None, None, "bf16"),
-    (8, 16, 2048, 64, 16, (1, 1, 1, False), None, "mul", "bf16"),
-    (2, 4, 512, 64, 32, (2, 2, 2, True), (64, 128), "add", "fp32"),
-    (2, 4, 512, 64, 32, (3, 3, 1, False), (128, 64), "mul", "bf16"),
-    (2, 4, 512, 32, 16, (0, 2, 1, True), (16, 32), None, "fp32"),
-    (2, 4, 512, 128, 32, (1, 1, 0, True), (32, 16), "mul", "bf16"),
+    # (B, H, S, D, fine block, geometry, tiles, key mask, dtype, kv tiles
+    # per split of K11's gr walk: None = the kernel's own, fwd_split)
+    (1, 16, 8192, 64, 128, (1, 1, 1, False), None, None, "bf16", None),
+    (8, 16, 2048, 64, 16, (1, 1, 1, False), None, "mul", "bf16", None),
+    (2, 4, 512, 64, 32, (2, 2, 2, True), (64, 128), "add", "fp32", None),
+    (2, 4, 512, 64, 32, (3, 3, 1, False), (128, 64), "mul", "bf16", None),
+    (2, 4, 512, 32, 16, (0, 2, 1, True), (16, 32), None, "fp32", None),
+    (2, 4, 512, 128, 32, (1, 1, 0, True), (32, 16), "mul", "bf16", None),
+    # K11's split gr walk: one kv tile a split, an uneven last split, a
+    # causal walk whose global rows are wider than a q tile
+    (2, 4, 512, 64, 32, (1, 1, 1, False), (64, 64), "mul", "bf16", 1),
+    (2, 4, 512, 64, 32, (1, 1, 1, False), (32, 32), "add", "bf16", 3),
+    (2, 4, 512, 64, 32, (3, 3, 1, True), (64, 32), None, "bf16", 2),
 ]
 
 
@@ -605,14 +611,15 @@ CUDA_CASES = [
 @pytest.mark.parametrize("case", CUDA_CASES)
 def test_cuda_kernels_match_plain(case):
     """K11, K12 and K13 on the card, every instance, against their plain
-    versions on the same inputs (K12 and K13 take the plain forward's
-    lses): the s8k BSLongformer geometry at the rule's tiles, sparse
-    BERT's BSLongformer with its key mask, and JAX's geometries at
-    asymmetric tiles."""
+    versions on the same inputs (K11's gr instance against the plain
+    version split as the kernel splits it; K12 and K13 take the plain
+    forward's lses): the s8k BSLongformer geometry at the rule's tiles,
+    sparse BERT's BSLongformer with its key mask, JAX's geometries at
+    asymmetric tiles, and forced splits of the gr walk."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from deepspeed_tpu_torch.ops.sparse_attention import banded as tb
-    B, H, s, d, fb, geom, blocks, mode, dtype = case
+    B, H, s, d, fb, geom, blocks, mode, dtype, kps = case
     params = tb.BandedParams(*geom)
     blocks = blocks or tb.pick_blocks(s, fb, params, False)
     bp = tb.BandedPlan(H, s, fb, params, *blocks)
@@ -625,9 +632,12 @@ def test_cuda_kernels_match_plain(case):
     scale = 1.0 / np.sqrt(d)
     lses, outs = {}, {}
     for kind in bp.instances["row"]:
-        o, lse = tb.banded_fwd(q, k, v, key, bp, kind, scale)
-        outs[kind], lses[kind] = tb.banded_fwd_plain(q, k, v, key, bp, kind,
-                                                     scale)
+        split = kps if kind == "gr" else None
+        o, lse = tb.banded_fwd(q, k, v, key, bp, kind, scale,
+                               kv_tiles_per_split=split)
+        outs[kind], lses[kind] = tb.banded_fwd_plain(
+            q, k, v, key, bp, kind, scale,
+            kv_tiles_per_split=split or tb.fwd_split(q, bp, kind))
         assert float((lse - lses[kind]).abs().max()) <= 1e-3
         _check_pairs([(o, outs[kind])], dtype)
     o = outs["band"]

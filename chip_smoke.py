@@ -189,21 +189,26 @@ Phases 24 to 27: the legacy sparse dispatch (blocksparse.USE_MASKED_FLASH
 = False, restored after), which JAX's sparse_attention_speedup_s8k row
 pins, at its geometry (B 1, H 16, S 8192, D 64, bf16, fine block 128):
 BSLongformer with a window of 3 blocks runs the banded kernels K11
-(forward; in bf16 on K1's tensor-core body, its global-rows instance
-split over its kv tiles, gr_split_plan), K12 (dq) and K13 (dk, dv);
-BigBird's defaults run the hybrid (K11-K13 on the band, K8-K10 without a
-mask tile on the 928 residual blocks, merged by their lse).
+(forward), K12 (dq) and K13 (dk, dv), in bf16 on K1's, K2's and K3's
+tensor-core bodies, their serial walks split (K11's and K12's
+global-rows instances over their kv tiles, gr_split_plan; K13's
+global-columns instance over its q tiles, dkv_split); BigBird's
+defaults run the hybrid (K11-K13 on the band, K8-K10 without a mask tile
+on the 928 residual blocks, merged by their lse).
 24. banded_kernel_check: K11-K13, every instance, against their plain
    versions on the card (TRAIN_TOL): the s8k BSLongformer layout at the
    rule's tiles, sparse BERT's BSLongformer (B 8, H 16, S 2048, block 16)
    with its key mask, and JAX's eight geometries at S 512 at tiles
    (64, 128) and (128, 64), bf16 and fp32, with batch rows of pads; then
-   K11's gr walk at forced splits (BANDED_SPLIT_CASES: one kv tile a
-   split, an uneven last split, a causal walk, global rows wider than a
-   q tile, with and without a key mask). K11's gr instance is held to the
-   plain version split as the kernel splits it, and in bf16 its global
-   rows also to the one walk's within SPLIT_TOL. Control: the plain
-   versions with the keep predicate dropped must fail every output.
+   the split walks at forced splits (BANDED_SPLIT_CASES: one tile a
+   split, uneven last splits, a causal walk, global rows and columns
+   wider than a tile, one warp a CTA, with and without a key mask). The
+   split instances are held to the plain versions split as the kernels
+   split them; in bf16 K11's global rows also to the one walk's within
+   SPLIT_TOL, each kernel must run its tensor-core body, and K12 and K13
+   must sum again as many cells split as in one walk (their tallies).
+   Control: the plain versions with the keep predicate dropped must fail
+   every output.
 25. v2_nomask_kernel_check: K8-K10 without a mask tile against their
    plain versions: the BigBird residue at the s8k geometry, and the fixed
    layouts of ds_config_sparse.json at S 2048, fine and at a forced coarse
@@ -212,22 +217,23 @@ mask tile on the 928 residual blocks, merged by their lse).
 26. legacy_sparse_timing: at both layouts, K11-K13 per instance and
    summed, timed as in phase 6, beside the bound, one plain call, SDPA
    with the dense float mask (the library column), SDPA is_causal=True
-   (the dense baseline of JAX's row) and K1-K3 on the masked route; for
+   (the dense baseline of JAX's row), K1-K3 on the masked route, and
+   each kernel's former CUDA-core time per instance (FORMER_BANDED); for
    BigBird K8-K10 without a mask tile (each beside its former CUDA-core
-   bf16 time) and the merge; K11 beside its former CUDA-core time per
-   instance (FORMER_BANDED_FWD); a sweep of walk tiles
-   fitted to walk_cost_us (kernels "banded"); K11's gr instance at the
-   kv tiles per split of KPS_SWEEP and gr_split_plan's, at the s8k and
-   sparse BERT's shapes. Then SparseSelfAttention
-   forward and backward under the legacy and the default dispatch: ms,
-   peak memory and launches per call (BSLongformer 2, 2, 3 of K11, K12,
-   K13 and nothing else; BigBird the same and one of each of K8-K10, on
-   their tensor-core bodies).
+   bf16 time) and the merge; the split walks (K11's and K12's gr, K13's
+   gc) at the tiles per split of KPS_SWEEP and their plans', at the s8k
+   and sparse BERT's shapes; a sweep of walk tiles at both shapes,
+   fitted to walk_cost_us (kernels "banded"), with the refit's picks
+   timed beside the rule's. Then SparseSelfAttention forward and backward
+   under the legacy and the default dispatch: ms, peak memory and
+   launches per call (BSLongformer 2, 2, 3 of K11, K12, K13 and nothing
+   else; BigBird the same and one of each of K8-K10, all on their
+   tensor-core bodies).
 27. bert_sparse_training_legacy: phase 19's BSLongformer configuration
    under the legacy dispatch, 1 warm-up and 3 timed steps and a 2-step
    profile (each of K11-K13's ms per step in it): 96, 96 and 144
-   launches of K11, K12, K13 per step (K11's on its tensor-core body) and
-   none of K1-K3; then phase 20's kernel-vs-plain check of it.
+   launches of K11, K12, K13 per step (all on their tensor-core bodies)
+   and none of K1-K3; then phase 20's kernel-vs-plain check of it.
 Phases 28 to 31: the legacy dense flash route
 (set_attention_options(kernel="flash"), restored after), the kernels K5
 (forward), K6 (dq) and K7 (dk, dv), at the card's tiles (bq from seq_q, bk
@@ -1666,13 +1672,13 @@ def _reset_train_launches():
 
 
 # the kernels with a tensor-core body in bf16: K1, K5, K8, K11 and K14 on
-# csrc/mma_fwd.cuh, K2, K6, K9 and K15 on csrc/mma_dq.cuh, K3, K7, K10 and
-# K16 on csrc/mma_dkv.cuh
+# csrc/mma_fwd.cuh, K2, K6, K9, K12 and K15 on csrc/mma_dq.cuh, K3, K7,
+# K10, K13 and K16 on csrc/mma_dkv.cuh
 MMA_KERNELS = ("masked_flash_fwd", "flash_fwd", "masked_flash_dq",
                "flash_dq", "masked_flash_dkv", "flash_dkv",
                "blocksparse_v2_fwd", "blocksparse_v2_dq",
                "blocksparse_v2_dkv", "bs_fwd", "bs_dq", "bs_dkv",
-               "banded_fwd")
+               "banded_fwd", "banded_dq", "banded_dkv")
 
 
 def kernel_body(name, dtype="bf16"):
@@ -1703,11 +1709,11 @@ def _mma_bodies(names=MMA_KERNELS):
 
 
 def _check_mma_bodies(phase, bodies):
-    """A bf16 run: every launch of K1-K3, K5-K11 and K14-K16 ran the
-    tensor-core body."""
+    """A bf16 run: every launch of K1-K3 and K5-K16 ran the tensor-core
+    body."""
     if any(b.get("fma", 0) for b in bodies.values()):
-        raise AssertionError(f"{phase}: a bf16 launch of K1-K3, K5-K11 or "
-                             f"K14-K16 ran the CUDA-core body: {bodies}")
+        raise AssertionError(f"{phase}: a bf16 launch of K1-K3 or K5-K16 "
+                             f"ran the CUDA-core body: {bodies}")
 
 
 def _body_ran(wrapper, before):
@@ -3584,22 +3590,35 @@ BANDED_GEOMETRIES = [(1, 1, 1, False), (2, 2, 2, True), (0, 0, 1, False),
                      (0, 0, 2, True), (3, 3, 1, False), (2, 0, 1, False),
                      (0, 2, 1, True), (1, 1, 0, True)]
 BANDED_SWEEP = ((32, 32), (64, 64), (128, 128), (64, 128), (128, 64))
-# K11's split gr walk at forced splits, bf16 at S 512 (B 2, H 4, D 64):
-# (name, fine block, geometry, tiles, kv tiles per split, a key mask with
-# a batch row of pads or none)
+# The split walks at forced splits, bf16 at S 512 (B 2, H 4, D 64): (name,
+# fine block, geometry, tiles, kv tiles per split of K11's and K12's gr
+# walks, q tiles per split of K13's gc walk, a key mask with a batch row
+# of pads or none)
 BANDED_SPLIT_CASES = [
-    ("one_tile_per_split", 32, (1, 1, 1, False), (64, 64), 1, True),
-    ("uneven_last_split", 32, (1, 1, 1, False), (32, 32), 3, False),
-    ("causal_gr", 32, (3, 3, 1, True), (64, 32), 2, True),
-    ("g_r_wider_than_a_tile", 16, (6, 2, 1, False), (64, 32), 5, False)]
-# K11 on its former CUDA-core body in bf16 at the s8k geometry (PERF.md
-# section 6; these timing phases on an NVIDIA H100 80GB HBM3 at 700 W): ms
-# per instance and summed, by layout, printed beside this run's
-FORMER_BANDED_FWD = {"lf": {"band": 2.30258, "gr": 5.76622, "ms": 8.06880},
-                     "bb": {"ms": 8.08898}}
-# kv tiles per split of K11's gr walk timed beside gr_split_plan's, at the
-# s8k geometry (64 kv tiles) and sparse BERT's (128)
+    ("one_tile_per_split", 32, (1, 1, 1, False), (64, 64), 1, 1, True),
+    ("uneven_last_split", 32, (1, 1, 1, False), (32, 32), 3, 5, False),
+    ("causal_gr", 32, (3, 3, 1, True), (64, 32), 2, 3, True),
+    ("g_r_wider_than_a_tile", 16, (6, 2, 1, False), (64, 32), 5, 2, False),
+    ("one_warp_a_cta", 16, (2, 1, 1, False), (16, 16), 4, 7, True)]
+# K11-K13 on their former CUDA-core bodies in bf16 at the s8k geometry
+# (PERF.md section 6; these timing phases on an NVIDIA H100 80GB HBM3 at
+# 700 W): ms per instance and summed, by layout, printed beside this run's
+# in phase 26's rows
+FORMER_BANDED = {
+    "banded_fwd": {"lf": {"band": 2.30258, "gr": 5.76622, "ms": 8.06880},
+                   "bb": {"ms": 8.08898}},
+    "banded_dq": {"lf": {"band": 2.78848, "gr": 5.83379, "ms": 8.62227},
+                  "bb": {"ms": 8.47062}},
+    "banded_dkv": {"lf": {"band": 3.47158, "gc": 6.92750, "gr": 1.22008,
+                          "ms": 11.61917},
+                   "bb": {"ms": 11.14240}}}
+# tiles per split of the split walks (K11's and K12's gr walks over kv
+# tiles, K13's gc walk over q tiles) timed beside the plans', at the s8k
+# geometry (64 kv tiles, 63 q tiles) and sparse BERT's (128, 127)
 KPS_SWEEP = (1, 2, 4, 8, 16, 32, 64, 128)
+# the walk tiles of K11-K13 timed at sparse BERT's BSLongformer (block 16)
+# beside BANDED_SWEEP's at s8k, for the walk-cost fit
+BANDED_BERT_SWEEP = ((16, 16), (32, 32), (16, 32), (32, 16), (64, 64))
 
 
 def s8k_config(kind, heads=16):
@@ -3679,26 +3698,42 @@ class _NoPredicate:
         return False
 
 
-def check_banded_kernels(name, bp, args, key_mask, extra=None, kps=None):
+def check_banded_kernels(name, bp, args, key_mask, extra=None, kps=None,
+                         qps=None):
     """K11, K12 and K13 against their plain versions on the same inputs,
-    launch by launch: each instance of each kernel (K11's gr instance in
-    bf16 split as the kernel splits it: ``kps`` kv tiles a split, None
-    for fwd_split's), the backward ones fed the plain forward's lse of
-    their rows and delta of its combined output, under TRAIN_TOL (the
-    worst instance per output); lse within LSE_ATOL. The combination of
-    the instances is the same PyTorch on both sides. The control: the
-    plain versions with the keep predicate dropped (every walked cell
-    kept; the backward fed that forward's lses and delta) must fail the
-    same check on every output. In bf16 the global rows of the kernel's
-    split gr instance must also lie within SPLIT_TOL of the plain one
-    walk's."""
+    launch by launch: each instance of each kernel, the split walks in
+    bf16 held to the plain versions split as the kernels split them
+    (K11's and K12's gr instances: ``kps`` kv tiles a split, K13's gc
+    instance: ``qps`` q tiles a split; None for fwd_split's and
+    dkv_split's), the backward ones fed the plain forward's lse of their
+    rows and delta of its combined output, under TRAIN_TOL (the worst
+    instance per output); lse within LSE_ATOL. The combination of the
+    instances is the same PyTorch on both sides. The control: the plain
+    versions with the keep predicate dropped (every walked cell kept; the
+    backward fed that forward's lses and delta) must fail the same check
+    on every output. In bf16 the global rows of the kernel's split gr
+    instance must also lie within SPLIT_TOL of the plain one walk's; each
+    kernel must run the body of its dtype (body, dq_body, dkv_body); and
+    K12's and K13's tensor-core bodies must sum again as many cells with
+    their walks split as in one walk (their tallies): ds depends on p, dp
+    and delta alone, which the split leaves as they were."""
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import banded as tb
     q, k, v, do = args
     scale = 1.0 / float(np.sqrt(q.shape[-1]))
-    tol = TRAIN_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+    bf16 = q.dtype == torch.bfloat16
+    dtype = "bf16" if bf16 else "fp32"
+    tol = TRAIN_TOL[dtype]
     splits = {kind: kps if kind == "gr" and kps else
               tb.fwd_split(q, bp, kind) for kind in bp.instances["row"]}
+    forced = {"banded_dq": {"gr": kps}, "banded_dkv": {"gc": qps}}
+    bwd_splits = {
+        "banded_dq": {kind: kps if kind == "gr" and kps else
+                      tb.fwd_split(q, bp, kind)
+                      for kind in bp.instances["row"]},
+        "banded_dkv": {kind: qps if kind == "gc" and qps else
+                       tb.dkv_split(q, bp, kind)
+                       for kind in bp.instances["col"]}}
 
     def plain_forward():
         """Each row instance's plain (o, lse), and the lses of each
@@ -3717,10 +3752,32 @@ def check_banded_kernels(name, bp, args, key_mask, extra=None, kps=None):
     fwd_plain, lses, delta = plain_forward()
     with _NoPredicate():
         fwd_c, lses_c, delta_c = plain_forward()
+    before = {n: dict(getattr(tb, n).bodies) for n in BANDED_NAMES}
     # output -> [(instance, kernel, plain, control)]
     outs = {"o": [], "dq": [], "dk": [], "dv": []}
     lse_err = 0.0
     one_walk = {}
+    # re-summed cells by kernel and instance, and of the split walks
+    # again in one walk
+    resummed, resummed_one_walk = {}, {}
+
+    def tallied(name, fn, kind, a, steps):
+        """``fn``'s outputs for instance ``kind`` (its split forced where
+        the case forces it) and, in bf16, the cells its body summed again,
+        also with the walk in one split where it splits."""
+        arg = ("kv_tiles_per_split" if name == "banded_dq"
+               else "q_tiles_per_split")
+        tally = torch.zeros(1, dtype=torch.int64, device=q.device) \
+            if bf16 else None
+        out = fn(*a, **{arg: forced[name].get(kind)}, tally=tally)
+        if bf16:
+            resummed[f"{name} {kind}"] = int(tally.item())
+            if (bwd_splits[name][kind] or steps) < steps:
+                one = torch.zeros_like(tally)
+                fn(*a, **{arg: steps}, tally=one)
+                resummed_one_walk[f"{name} {kind}"] = int(one.item())
+        return out
+
     for kind in bp.instances["row"]:
         o, lse = tb.banded_fwd(q, k, v, key_mask, bp, kind, scale,
                                kv_tiles_per_split=kps if kind == "gr"
@@ -3738,25 +3795,29 @@ def check_banded_kernels(name, bp, args, key_mask, extra=None, kps=None):
                         "rel_rms": float(diff.norm() /
                                          want.norm().clamp_min(1e-30))}
         a = (q, k, v, do, lses[kind], delta, key_mask, bp, kind, scale)
-        dq = tb.banded_dq(*a)
+        dq = tallied("banded_dq", tb.banded_dq, kind, a,
+                     bp.instances["row"][kind][1])
         torch.cuda.synchronize()
         lse_err = max(lse_err, float((lse - lses[kind]).abs().max()))
         with _NoPredicate():
             dq_c = tb.banded_dq_plain(q, k, v, do, lses_c[kind], delta_c,
                                       key_mask, bp, kind, scale)
         outs["o"].append((kind, o, fwd_plain[kind][0], fwd_c[kind][0]))
-        outs["dq"].append((kind, dq, tb.banded_dq_plain(*a), dq_c))
+        outs["dq"].append((kind, dq, tb.banded_dq_plain(
+            *a, bwd_splits["banded_dq"][kind]), dq_c))
     for kind in bp.instances["col"]:
         a = (q, k, v, do, lses[kind], delta, key_mask, bp, kind, scale)
-        dk, dv = tb.banded_dkv(*a)
+        dk, dv = tallied("banded_dkv", tb.banded_dkv, kind, a,
+                         bp.instances["col"][kind][1])
         torch.cuda.synchronize()
-        dk_p, dv_p = tb.banded_dkv_plain(*a)
+        dk_p, dv_p = tb.banded_dkv_plain(*a, bwd_splits["banded_dkv"][kind])
         with _NoPredicate():
             dk_c, dv_c = tb.banded_dkv_plain(q, k, v, do, lses_c[kind],
                                              delta_c, key_mask, bp, kind,
                                              scale)
         outs["dk"].append((kind, dk, dk_p, dk_c))
         outs["dv"].append((kind, dv, dv_p, dv_c))
+    ran = {n: _body_ran(getattr(tb, n), before[n]) for n in BANDED_NAMES}
     row = {"phase": "banded_kernel_check", "case": name,
            "dtype": str(q.dtype), "shape": list(q.shape),
            "fine_block": bp.fine_block, "params": list(bp.params),
@@ -3764,14 +3825,20 @@ def check_banded_kernels(name, bp, args, key_mask, extra=None, kps=None):
            "instances": {w: sorted(i) for w, i in bp.instances.items()},
            "key_mask": key_mask is not None,
            "rows_with_no_key": int((lses["band"] <= tb.VALID_THRESH).sum()),
-           "body": kernel_body("banded_fwd", "bf16" if q.dtype ==
-                               torch.bfloat16 else "fp32"),
+           "body": ran["banded_fwd"], "dq_body": ran["banded_dq"],
+           "dkv_body": ran["banded_dkv"],
            "kv_tiles_per_split": splits.get("gr"),
            "gr_kv_tiles": bp.GRK,
+           "dq_kv_tiles_per_split": bwd_splits["banded_dq"].get("gr"),
+           "dkv_q_tiles_per_split": bwd_splits["banded_dkv"].get("gc"),
+           "gc_q_tiles": bp.instances["col"].get("gc", (0, 0))[1],
            "gr_vs_one_walk": one_walk or None,
+           "resummed_cells": resummed or None,
+           "resummed_cells_one_walk": resummed_one_walk or None,
            "tol": tol, "lse_atol": LSE_ATOL, **(extra or {}),
            "control": "the keep predicate dropped: every walked cell kept"}
-    ok = True
+    ok = all(r == [kernel_body(n, dtype)] for n, r in ran.items())
+    ok &= all(resummed[key] == n for key, n in resummed_one_walk.items())
     for key, items in outs.items():
         checks = [(kind, compare(out, ref, **tol)) for kind, out, ref, _
                   in items]
@@ -3793,8 +3860,8 @@ def check_banded_kernels(name, bp, args, key_mask, extra=None, kps=None):
     emit(row)
     if not ok:
         raise AssertionError(f"the banded kernels disagree with their plain "
-                             f"versions on {name}, or the control passes "
-                             f"the check: {row}")
+                             f"versions on {name}, ran another body, or the "
+                             f"control passes the check: {row}")
     return row
 
 
@@ -3849,13 +3916,13 @@ def banded_kernel_check_phase():
             train_inputs(rng, 2, 4, 4, 512, 64, dtype),
             bert_key_mask(rng, 2, 512, 200, all_pad_rows=pads, pad=NEG_INF),
             extra={"all_pad_rows": list(pads)})
-    for case, fb, geom, tiles, kps, kpm in BANDED_SPLIT_CASES:
+    for case, fb, geom, tiles, kps, qps, kpm in BANDED_SPLIT_CASES:
         check_banded_kernels(
-            f"split_{case}_kps{kps}_bf16",
+            f"split_{case}_kps{kps}_qps{qps}_bf16",
             tb.BandedPlan(4, 512, fb, tb.BandedParams(*geom), *tiles),
             train_inputs(rng, 2, 4, 4, 512, 64, bf16),
             bert_key_mask(rng, 2, 512, 200, all_pad_rows=(1,), pad=NEG_INF)
-            if kpm else None, kps=kps,
+            if kpm else None, kps=kps, qps=qps,
             extra={"all_pad_rows": [1] if kpm else []})
     return main_row, bert_row
 
@@ -4022,9 +4089,14 @@ def legacy_sparse_timing_phase(smi):
                              b_in + meta, b_out, bytes_per_s, flops_per_s))
             t["library_ms"] = lib["fwd" if name == "banded_fwd" else "bwd"]
             t["replaces"] = BANDED_REPLACES[name]
-            if name == "banded_fwd":
-                t["fma_body_ms"] = FORMER_BANDED_FWD[kind]
-                t["kv_tiles_per_split"] = banded.fwd_split(q, bp, "gr")
+            t["fma_body_ms"] = FORMER_BANDED[name][kind]
+            if name == "banded_dkv":
+                t["q_tiles_per_split"] = banded.dkv_split(q, bp, "gc")
+                t["gc_q_tiles"] = bp.instances["col"].get("gc", (0, 0))[1]
+            else:
+                t["kv_tiles_per_split"] = (
+                    banded.fwd_split if name == "banded_fwd"
+                    else banded.fwd_split)(q, bp, "gr")
                 t["gr_kv_tiles"] = bp.GRK
             emit({"phase": "legacy_sparse_timing", "kernel": name,
                   "layout": kind, "shape": dict(m, dtype="bf16"),
@@ -4093,81 +4165,166 @@ def legacy_sparse_timing_phase(smi):
         emit({"phase": "legacy_sparse_timing", "kernel": "hybrid merge",
               "layout": kind, "ms": merge_ms,
               "coverage": hp.coverage, "nvidia_smi": smi})
-    # the walk tiles of K11-K13 at BSLongformer, fitted to walk_cost_us
-    layout = s8k_config("lf", H).make_layout(S)
-    params = banded.detect_banded(layout)
-    rule = list(banded.pick_blocks(S, fb, params, False))
-    sweep = []
-    for tiles in BANDED_SWEEP:
-        bp = banded.BandedPlan(H, S, fb, params, *tiles)
-        t = _banded_timing(bp, args, None, flush, plain=False)
-        total = sum(t[n]["ms"] for n in BANDED_NAMES)
-        counts = banded.walk_counts(S, fb, params, *tiles)
-        sweep.append((*counts, total / (B * H)))
-        emit({"phase": "legacy_sparse_timing", "kernel": "K11-K13 sweep",
-              "layout": "lf", "tiles": list(tiles),
-              "ms": {n: t[n]["ms"] for n in BANDED_NAMES}, "total_ms": total,
-              "modeled_us_per_bh": banded.walk_cost(S, fb, params, *tiles),
-              "rule_tiles": rule, "nvidia_smi": smi})
-    emit({"phase": "walk_cost_fit", "kernels": "banded",
-          "layout": "s8k bslongformer", "sweep": [
-              dict(zip(("tiles", "chunks", "chunk", "ms"), w))
-              for w in sweep],
-          "units": "per (batch, head); fit in us per tile, chunk, cell",
-          "fit": fit_walk_costs(sweep),
-          "committed": list(mf.WALK_COSTS["banded"]), "rule_tiles": rule,
-          "nvidia_smi": smi})
-    out["gr_split_sweep"] = gr_split_sweep(smi, args, flush)
+    sweeps = split_sweeps(smi, args, flush)
+    out["split_sweeps"] = sweeps
+    out["walk_tiles"] = walk_tile_sweep(smi, args, flush)
     return out
 
 
-def gr_split_sweep(smi, s8k_args, flush):
-    """The end of phase 26: K11's gr instance timed (as train_kernel_timing
-    times) at the kv tiles per split of KPS_SWEEP and at gr_split_plan's,
-    at the s8k BSLongformer geometry (``s8k_args``, no key mask) and at
-    sparse BERT's (B 8, H 16, S 2048, block 16, its key mask), each beside
-    the one walk (every kv tile in one split). Returns {shape: {kv tiles
-    per split: ms}}."""
+def _bert_banded_case(rng):
+    """Sparse BERT's BSLongformer at phase 19's shape (B 8, H 16, S 2048,
+    D 64, block 16), bf16: its layout, block, inputs and key mask."""
     import torch
-    from deepspeed_tpu_torch.ops.sparse_attention import banded as tb
     from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import NEG_INF
+    sc, sm = sparse_config("bslongformer"), SPARSE_SHAPE
+    return (sc.make_layout(sm["S"]), sc.block,
+            train_inputs(rng, sm["B"], sm["H"], sm["H"], sm["S"], sm["D"],
+                         torch.bfloat16),
+            bert_key_mask(rng, sm["B"], sm["S"], SPARSE_MIN_LEN, pad=NEG_INF))
+
+
+def walk_tile_sweep(smi, s8k_args, flush):
+    """The end of phase 26: K11-K13 together (every instance, as
+    train_kernel_timing times) at the walk tiles of BANDED_SWEEP on the
+    s8k BSLongformer layout and of BANDED_BERT_SWEEP on sparse BERT's
+    (with its key mask), each shape's rule tiles (banded.pick_blocks) timed
+    first and again last (the spread of one point), fitted to walk_cost_us
+    (kernels "banded") over both sweeps; the refit's picks, timed where
+    the sweep did not reach them. Returns {shape: {tiles: ms}}."""
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    from deepspeed_tpu_torch.ops.sparse_attention import banded
+    rng = np.random.RandomState(SEED + 22)
+    m = S8K_SHAPE
+    shapes = {"s8k bslongformer": (
+        s8k_config("lf", m["H"]).make_layout(m["S"]), m["block"], s8k_args,
+        None, BANDED_SWEEP),
+        "sparse bert bslongformer": (*_bert_banded_case(rng),
+                                     BANDED_BERT_SWEEP)}
+
+    def total_ms(layout, fb, args, kpm, tiles):
+        H, nb, _ = layout.shape
+        bp = banded.BandedPlan(H, nb * fb, fb, banded.detect_banded(layout),
+                               *tiles)
+        t = _banded_timing(bp, args, kpm, flush, plain=False)
+        return sum(t[n]["ms"] for n in BANDED_NAMES), t
+
+    sweep, measured, rules, repeat = [], {}, {}, {}
+    for label, (layout, fb, args, kpm, pairs) in shapes.items():
+        B, H, S = args[0].shape[:3]
+        params = banded.detect_banded(layout)
+        rules[label] = banded.pick_blocks(S, fb, params, False)
+        measured[label] = {}
+        for tiles in dict.fromkeys((rules[label], *pairs)):
+            total, t = total_ms(layout, fb, args, kpm, tiles)
+            measured[label][tiles] = total
+            sweep.append((*banded.walk_counts(S, fb, params, *tiles),
+                          total / (B * H)))
+            emit({"phase": "legacy_sparse_timing", "kernel": "K11-K13 sweep",
+                  "layout": label, "tiles": list(tiles),
+                  "ms": {n: t[n]["ms"] for n in BANDED_NAMES},
+                  "total_ms": total,
+                  "modeled_us_per_bh": banded.walk_cost(S, fb, params,
+                                                        *tiles),
+                  "rule_tiles": list(rules[label]), "nvidia_smi": smi})
+        repeat[label] = total_ms(layout, fb, args, kpm, rules[label])[0]
+    fit = fit_walk_costs(sweep)
+    committed = mf.WALK_COSTS["banded"]
+    picks = {}
+    try:
+        mf.WALK_COSTS["banded"] = tuple(fit)
+        for label, (layout, fb, args, *_) in shapes.items():
+            picks[label] = banded.pick_blocks(
+                args[0].shape[2], fb, banded.detect_banded(layout), False)
+    finally:
+        mf.WALK_COSTS["banded"] = committed
+    compared = {}
+    for label, (layout, fb, args, kpm, _) in shapes.items():
+        got = measured[label]
+        if picks[label] not in got:
+            got[picks[label]] = total_ms(layout, fb, args, kpm,
+                                         picks[label])[0]
+        rule_ms = got[rules[label]]
+        compared[label] = {
+            "rule_tiles": list(rules[label]), "rule_ms": rule_ms,
+            "rule_ms_again": repeat[label],
+            "spread": abs(repeat[label] - rule_ms) / min(repeat[label],
+                                                         rule_ms),
+            "refit_tiles": list(picks[label]),
+            "refit_ms": got[picks[label]],
+            "refit_gain": rule_ms / got[picks[label]] - 1.0,
+            "ms_by_tiles": {f"{a}x{b}": x for (a, b), x in got.items()}}
+    emit({"phase": "walk_cost_fit", "kernels": "banded",
+          "layout": "s8k and sparse bert bslongformer", "sweep": [
+              dict(zip(("tiles", "chunks", "chunk", "ms"), w))
+              for w in sweep],
+          "units": "per (batch, head); fit in us per tile, chunk, cell",
+          "fit": fit, "committed": list(committed), "picks": compared,
+          "nvidia_smi": smi})
+    return measured
+
+
+def split_sweeps(smi, s8k_args, flush):
+    """The end of phase 26: the split walks timed (as train_kernel_timing
+    times) at the tiles per split of KPS_SWEEP and at their plans', at
+    the s8k BSLongformer geometry (``s8k_args``, no key mask) and at sparse
+    BERT's (B 8, H 16, S 2048, block 16, its key mask), each beside the
+    one walk (every tile in one split): K11's and K12's gr instances over
+    their kv tiles (gr_split_plan), K13's gc instance over its q tiles
+    (dkv_split). Returns {kernel: {shape: {tiles per split: ms}}}."""
+    from deepspeed_tpu_torch.ops.sparse_attention import banded as tb
     rng = np.random.RandomState(SEED + 21)
-    m, sm = S8K_SHAPE, SPARSE_SHAPE
-    sc = sparse_config("bslongformer")
+    m = S8K_SHAPE
+    layout, block, bert_args, bert_kpm = _bert_banded_case(rng)
     shapes = {
         "s8k bslongformer": (
             _banded_plan(s8k_config("lf", m["H"]).make_layout(m["S"]),
                          m["block"]), s8k_args, None),
-        "sparse bert bslongformer": (
-            _banded_plan(sc.make_layout(sm["S"]), sc.block),
-            train_inputs(rng, sm["B"], sm["H"], sm["H"], sm["S"], sm["D"],
-                         torch.bfloat16),
-            bert_key_mask(rng, sm["B"], sm["S"], SPARSE_MIN_LEN,
-                          pad=NEG_INF))}
-    result = {}
+        "sparse bert bslongformer": (_banded_plan(layout, block), bert_args,
+                                     bert_kpm)}
+    result = {n: {} for n in BANDED_NAMES}
     for label, (bp, args, kpm) in shapes.items():
-        q, k, v, _ = args
+        q, k, v, do = args
         scale = 1.0 / float(np.sqrt(q.shape[-1]))
-        rule = tb.fwd_split(q, bp, "gr")
-        ms = {}
-        for kps in sorted({*(n for n in KPS_SWEEP if n <= bp.GRK), rule,
-                           bp.GRK}):
-            ms[kps] = time_ms(lambda: tb.banded_fwd(
-                q, k, v, kpm, bp, "gr", scale, kv_tiles_per_split=kps),
-                SPARSE_TIMED_CALLS, flush)
-        rows = bp.GQ * bp.bq
-        emit({"phase": "legacy_sparse_timing", "kernel": "banded_fwd gr "
-              "split sweep", "layout": label,
-              "shape": {"B": q.shape[0], "H": q.shape[1], "S": q.shape[2],
-                        "D": q.shape[3], "block": bp.fine_block},
-              "tiles": [bp.bq, bp.bkv], "gr_kv_tiles": bp.GRK,
-              "row_blocks": q.shape[0] * q.shape[1] * rows //
-              min(bp.bq, tb.MMA_ROWS),
-              "key_mask": kpm is not None, "rule_kv_tiles_per_split": rule,
-              "ms_by_kv_tiles_per_split": ms, "one_walk_ms": ms[bp.GRK],
-              "rule_ms": ms[rule], "best": min(ms, key=ms.get),
-              "nvidia_smi": smi})
-        result[label] = ms
+        o, lse_b, lse_g = tb.banded_fwd_impl(q, k, v, kpm, bp, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        gr_rows = bp.GQ * bp.bq
+        gt_rows = bp.GT * bp.bkv
+        # kernel: (instance, its walk's tiles, plan, call at n a split,
+        # the instance's rows, rows a CTA)
+        walks = {
+            "banded_fwd": ("gr", bp.GRK, tb.fwd_split(q, bp, "gr"),
+                           lambda n: tb.banded_fwd(
+                               q, k, v, kpm, bp, "gr", scale,
+                               kv_tiles_per_split=n),
+                           gr_rows, min(bp.bq, tb.MMA_ROWS)),
+            "banded_dq": ("gr", bp.GRK, tb.fwd_split(q, bp, "gr"),
+                          lambda n: tb.banded_dq(
+                              q, k, v, do, lse_g, delta, kpm, bp, "gr",
+                              scale, kv_tiles_per_split=n),
+                          gr_rows, min(bp.bq, tb.MMA_ROWS)),
+            "banded_dkv": ("gc", bp.instances["col"]["gc"][1],
+                           tb.dkv_split(q, bp, "gc"),
+                           lambda n: tb.banded_dkv(
+                               q, k, v, do, lse_b, delta, kpm, bp, "gc",
+                               scale, q_tiles_per_split=n),
+                           gt_rows, min(bp.bkv, tb.MMA_ROWS))}
+        for name, (kind, steps, rule, call, rows, cta) in walks.items():
+            ms = {}
+            for n in sorted({*(x for x in KPS_SWEEP if x <= steps), rule,
+                             steps}):
+                ms[n] = time_ms(lambda: call(n), SPARSE_TIMED_CALLS, flush)
+            emit({"phase": "legacy_sparse_timing",
+                  "kernel": f"{name} {kind} split sweep", "layout": label,
+                  "shape": {"B": q.shape[0], "H": q.shape[1], "S": q.shape[2],
+                            "D": q.shape[3], "block": bp.fine_block},
+                  "tiles": [bp.bq, bp.bkv], "walk_tiles": steps,
+                  "row_blocks": q.shape[0] * q.shape[1] * rows // cta,
+                  "key_mask": kpm is not None,
+                  "rule_tiles_per_split": rule,
+                  "ms_by_tiles_per_split": ms, "one_walk_ms": ms[steps],
+                  "rule_ms": ms[rule], "best": min(ms, key=ms.get),
+                  "nvidia_smi": smi})
+            result[name][label] = ms
     return result
 
 
@@ -4231,7 +4388,8 @@ def legacy_entry_point_phase(smi):
                    "ms_per_fwd_bwd": wall / V2_ITERS * 1e3,
                    "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                    "launches": got,
-                   "launches_by_body": _mma_bodies(V2_NAMES),
+                   "launches_by_body": _mma_bodies((*V2_NAMES,
+                                                    *BANDED_NAMES)),
                    "finite": finite, "nvidia_smi": smi}
             emit(row)
             if got != want or not finite:
@@ -4352,8 +4510,8 @@ FLASH_ROUTE = Route(dict.fromkeys(FLASH_NAMES, 1), _PlainFlash, "_legacy",
                     ("flash_fwd_", "flash_dq_", "flash_dkv_"))
 BANDED_ROUTE = Route(BANDED_PER_CALL, _PlainBanded, "_legacy",
                      "K11-K13 (banded)",
-                     ("banded_fwd_", "banded_dq_kernel",
-                      "banded_dkv_kernel"), planned="banded")
+                     ("banded_fwd_", "banded_dq_", "banded_dkv_"),
+                     planned="banded")
 
 
 def cross_inputs(rng, B, H, Hkv, sq, sk, D, dtype):
@@ -5545,9 +5703,11 @@ def main() -> int:
             ms_by_instance=t["instances"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"],
-            **({} if name != "banded_fwd" else dict(
-                kv_tiles_per_split=t["kv_tiles_per_split"],
-                gr_split_sweep_ms=legacy_timing["gr_split_sweep"]))))
+            **({"q_tiles_per_split": t["q_tiles_per_split"],
+                "gc_split_sweep_ms": legacy_timing["split_sweeps"][name]}
+               if name == "banded_dkv" else
+               {"kv_tiles_per_split": t["kv_tiles_per_split"],
+                "gr_split_sweep_ms": legacy_timing["split_sweeps"][name]})))
     nomask_errs = {"blocksparse_v2_fwd": nomask_check["o_max_abs_err"],
                    "blocksparse_v2_dq": nomask_check["dq_max_abs_err"],
                    "blocksparse_v2_dkv": max(nomask_check["dk_max_abs_err"],

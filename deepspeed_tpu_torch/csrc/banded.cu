@@ -75,16 +75,33 @@
 // (banded_fwd_plain(kv_tiles_per_split=...)) walks alike. With one split
 // the CTA writes o and lse itself, as the one walk.
 //
-// K11 in fp32 and K12, K13 keep the first design, that of
-// masked_flash.cu and blocksparse_v2.cu (flash_tiles.cuh): fp32 FMAs on
-// the CUDA cores, no tensor cores. A CTA of 128 threads owns R =
-// min(bq, 32) query rows of a q tile (K11, K12) or R = min(bkv, 32) key
-// rows of a kv tile (K13); it stages its own rows once and each walked
-// tile's partner rows in chunks of min(tile, 32) into shared memory as
-// fp32, and keeps the softmax state and the accumulators in shared
-// memory. The Pallas grid's sequential walk axis becomes a loop inside
-// the CTA. Later work: K12 and K13 on the tensor-core dq and dk/dv
-// bodies, over this row walk and split.
+// K12 and K13 in bf16 run K2's dq and K3's dk/dv tensor-core bodies
+// (mma_dq.cuh, mma_dkv.cuh; BandedRule) over the same walks: K12 over
+// BandedWalk (a CTA of min(bq, 64) q rows), K13 over BandedColWalk (a CTA
+// of min(bkv, 64) key rows walking q tiles: col_step's steps, the
+// predicate in the kind bits), both with BandedKeep. The score order is
+// K2's and K3's key-mask order, so the bodies' rounding repair of ds (and
+// of K13's p) sees the plain versions' roundings. Their serial walks
+// split as K11's gr walk does: K12's gr instance over its kv tiles, K13's
+// gc instance (one kv tile per (b, h) at s8k, walking 63 q tiles) over
+// its q tiles (banded.fwd_split / dkv_split, from the shapes alone). Each
+// CTA writes its split's fp32 sums (dq; dk and dv), unscaled, to a
+// workspace; the last to arrive on its row block's counter adds them in
+// split order from 0, scales dq and dk by sm_scale and rounds once to
+// bf16. dq, dk and dv are sums with no running max, so the split moves
+// only the fp32 order of a sum, never a bf16 rounding of p or ds; a split
+// that keeps no cell writes zeros. The band instances and K13's gr
+// instance walk one split.
+//
+// In fp32 the three keep the first design, that of masked_flash.cu and
+// blocksparse_v2.cu (flash_tiles.cuh): fp32 FMAs on the CUDA cores, no
+// tensor cores (TF32 would fail the fp32 checks). A CTA of 128 threads
+// owns R = min(bq, 32) query rows of a q tile (K11, K12) or R = min(bkv,
+// 32) key rows of a kv tile (K13); it stages its own rows once and each
+// walked tile's partner rows in chunks of min(tile, 32) into shared
+// memory as fp32, and keeps the softmax state and the accumulators in
+// shared memory. The Pallas grid's sequential walk axis becomes a loop
+// inside the CTA.
 //
 // Built by deepspeed_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -94,7 +111,7 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
-#include "mma_fwd.cuh"
+#include "mma_dq.cuh"
 
 namespace {
 
@@ -188,11 +205,10 @@ __device__ bool mark_live(int* live, Pred p, int r0, int nr, int rstep,
 // ------------------------------------------------------------------ K11
 // fp32 (the CUDA-core body): grid (tiles * bq / R, B*H); R = min(bq, 32)
 // q rows per CTA, keys in chunks of C = min(bkv, 32).
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-banded_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const float* __restrict__ kpm,
-                  T* __restrict__ o, float* __restrict__ lse,
+banded_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ kpm,
+                  float* __restrict__ o, float* __restrict__ lse,
                   const int32_t* __restrict__ start,
                   const int32_t* __restrict__ end, Geo g) {
   extern __shared__ float smem[];
@@ -205,8 +221,8 @@ banded_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = blockIdx.x * R;
   const int i = r0 / g.bq;
   const int out_rows = gridDim.x * R;
-  const T* kg = k + (size_t)bh * g.S * D;
-  const T* vg = v + (size_t)bh * g.S * D;
+  const float* kg = k + (size_t)bh * g.S * D;
+  const float* vg = v + (size_t)bh * g.S * D;
   const float* kpm_b = kpm ? kpm + (size_t)b * g.S : nullptr;
 
   float* qs = smem;                       // R x (D+1)
@@ -265,7 +281,7 @@ banded_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (c < bkv) {
           const float p = sv[u] > kValidThresh ? expf(sv[u] - m_new) : 0.f;
           sum += p;
-          ss[r * bkv + c] = round_to<T>(p);
+          ss[r * bkv + c] = p;
         }
       }
       sum = warp_sum(sum);
@@ -290,10 +306,10 @@ banded_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* og = o + ((size_t)bh * out_rows + r0) * D;
+  float* og = o + ((size_t)bh * out_rows + r0) * D;
   for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
     const float l = l_s[e / D];
-    og[e] = from_f<T>(os[e] / (l == 0.f ? 1.f : l));
+    og[e] = os[e] / (l == 0.f ? 1.f : l);
   }
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
     const float l = l_s[r];
@@ -343,6 +359,7 @@ struct BandedKeep {
 struct BandedWalk {
   int gr, first, count, gt, start, end, bkv;
   __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int keys() const { return bkv; }
   __device__ __forceinline__ int2 tile(int t) const {
     int part, pred;
     if (gr) {
@@ -359,6 +376,83 @@ struct BandedWalk {
     return make_int2(part * bkv, kKindBand | pred << kPredShift);
   }
 };
+
+// The splits of a serial walk (K11's gr, K12's gr, K13's gc): each CTA
+// writes its split's fp32 partial, then counts its arrival on its row
+// block's int32 counter; the CTA that arrives last sees every split's
+// partial, merges them in split order and sets the counter back to 0
+// for the next launch (0 before the launch and after it).
+__device__ __forceinline__ bool arrive_last(int* arrived, int splits) {
+  __shared__ int last_s;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last_s = atomicAdd(arrived, 1) == splits - 1;
+  __syncthreads();
+  if (!last_s) return false;
+  __threadfence();
+  if (threadIdx.x == 0) *arrived = 0;
+  return true;
+}
+
+// this lane's fragments of a CTA's accumulator (rows g and g + 8 of its
+// warp's 16) as fp32 rows of stride D, the CTA's first at dst
+template <int DMAX>
+__device__ __forceinline__ void store_partial(float* dst,
+                                              const float (&acc)[DMAX / 8][4],
+                                              int D) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* row = dst + (size_t)(warp * 16 + g + 8 * r) * D;
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j)
+      if (8 * j < D)
+        *reinterpret_cast<float2*>(row + 8 * j + 2 * tq) =
+            make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+  }
+}
+
+// The last CTA's merge of a row block's sums (dq, dk, dv): out row lr =
+// (the splits' partials of that row added in split order, from 0) *
+// scale, rounded to bf16 once. part: split 0's first row of the CTA, rows
+// of stride D; the splits lie `stride` floats apart. Two threads a row,
+// each half of the head dim in fp32x4.
+template <int DMAX>
+__device__ __forceinline__ void merge_sums(const float* part, size_t stride,
+                                           int splits, int D, float scale,
+                                           bf16* out) {
+  const int lr = threadIdx.x >> 1;
+  const int half = D / 2;
+  const int c0 = (threadIdx.x & 1) * half;
+  float4 acc[DMAX / 8];
+#pragma unroll
+  for (int c = 0; c < DMAX / 8; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int z = 0; z < splits; ++z) {
+    const float4* src = reinterpret_cast<const float4*>(
+        part + z * stride + (size_t)lr * D + c0);
+#pragma unroll
+    for (int c = 0; c < DMAX / 8; ++c) {
+      if (4 * c < half) {
+        const float4 x = __ldcg(src + c);
+        acc[c].x = __fadd_rn(acc[c].x, x.x);
+        acc[c].y = __fadd_rn(acc[c].y, x.y);
+        acc[c].z = __fadd_rn(acc[c].z, x.z);
+        acc[c].w = __fadd_rn(acc[c].w, x.w);
+      }
+    }
+  }
+  bf16* orow = out + (size_t)lr * D + c0;
+#pragma unroll
+  for (int c = 0; c < DMAX / 8; ++c) {
+    if (4 * c < half) {
+      auto* dst = reinterpret_cast<__nv_bfloat162*>(orow + 4 * c);
+      dst[0] = __floats2bfloat162_rn(acc[c].x * scale, acc[c].y * scale);
+      dst[1] = __floats2bfloat162_rn(acc[c].z * scale, acc[c].w * scale);
+    }
+  }
+}
 
 // grid (tiles * bq / R, B*H, splits), R = min(bq, 64) q rows per CTA, 16
 // per warp; splits > 1 only for the gr instance, each of
@@ -427,15 +521,9 @@ banded_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   // the CTA that arrives last merges the row block's splits, in split
-  // order, and sets the count back to 0 for the next launch
-  __shared__ int last_s;
-  __threadfence();
-  __syncthreads();
-  int* arrived = arrivals + (size_t)bh * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0) last_s = atomicAdd(arrived, 1) == splits - 1;
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
+  // order
+  if (!arrive_last(arrivals + (size_t)bh * gridDim.x + blockIdx.x, splits))
+    return;
   // two threads a row, each half of the head dim in fp32x4
   const int lr = threadIdx.x >> 1;
   const int half = D / 2;
@@ -477,18 +565,17 @@ banded_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   if (c0 == 0) a.lse[lr] = m + logf(ls);
-  if (threadIdx.x == 0) *arrived = 0;
 }
 
 // ------------------------------------------------------------------ K12
-// grid (tiles * bq / R, B*H); per walk step, chunk by chunk of C keys.
-template <typename T>
+// fp32 (the CUDA-core body): grid (tiles * bq / R, B*H); per walk step,
+// chunk by chunk of C keys.
 __global__ void __launch_bounds__(kThreads)
-banded_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+banded_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
-                 const float* __restrict__ kpm, T* __restrict__ dq,
+                 const float* __restrict__ kpm, float* __restrict__ dq,
                  const int32_t* __restrict__ start,
                  const int32_t* __restrict__ end, Geo g) {
   extern __shared__ float smem[];
@@ -501,8 +588,8 @@ banded_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = blockIdx.x * R;
   const int i = r0 / g.bq;
   const int out_rows = gridDim.x * R;
-  const T* kg = k + (size_t)bh * g.S * D;
-  const T* vg = v + (size_t)bh * g.S * D;
+  const float* kg = k + (size_t)bh * g.S * D;
+  const float* vg = v + (size_t)bh * g.S * D;
   const float* kpm_b = kpm ? kpm + (size_t)b * g.S : nullptr;
   const size_t row0 = (size_t)bh * g.S + r0;
 
@@ -548,7 +635,7 @@ banded_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (kpm_b) s += kpm_b[kc + cc];
           p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
         }
-        ps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
+        ps[e] = p * (dps[e] - dl_s[r]);
       }
       __syncthreads();
       mm(dqs, D, true, nullptr, ps, C, 1, ks, D + 1, 1, R, D, C);
@@ -556,22 +643,22 @@ banded_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqg = dq + ((size_t)bh * out_rows + r0) * D;
+  float* dqg = dq + ((size_t)bh * out_rows + r0) * D;
   for (int e = threadIdx.x; e < R * D; e += blockDim.x)
-    dqg[e] = from_f<T>(dqs[e] * g.sm_scale);
+    dqg[e] = dqs[e] * g.sm_scale;
 }
 
 // ------------------------------------------------------------------ K13
-// grid (tiles * bkv / R, B*H): R = min(bkv, 32) key rows of a kv tile per
+// fp32 (the CUDA-core body): grid (tiles * bkv / R, B*H): R = min(bkv,
+// 32) key rows of a kv tile per
 // CTA; per walk step, chunk by chunk of C = min(bq, 32) query rows.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-banded_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
+banded_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
-                  const float* __restrict__ kpm, T* __restrict__ dk,
-                  T* __restrict__ dv, const int32_t* __restrict__ start,
+                  const float* __restrict__ kpm, float* __restrict__ dk,
+                  float* __restrict__ dv, const int32_t* __restrict__ start,
                   const int32_t* __restrict__ end, Geo g) {
   extern __shared__ float smem[];
   const int D = g.D, bq = g.bq;
@@ -583,8 +670,8 @@ banded_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kr0 = blockIdx.x * R;
   const int t = kr0 / g.bkv;
   const int out_rows = gridDim.x * R;
-  const T* qg = q + (size_t)bh * g.S * D;
-  const T* dog = dout + (size_t)bh * g.S * D;
+  const float* qg = q + (size_t)bh * g.S * D;
+  const float* dog = dout + (size_t)bh * g.S * D;
 
   float* ks = smem;                 // R x (D+1)
   float* vs = ks + R * (D + 1);     // R x (D+1)
@@ -633,8 +720,8 @@ banded_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (kpm) s += km_s[cc];
           p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
         }
-        ps[e] = round_to<T>(p);
-        dps[e] = round_to<T>(p * (dps[e] - dl_s[r]));
+        ps[e] = p;
+        dps[e] = p * (dps[e] - dl_s[r]);
       }
       __syncthreads();
       // dv += p^T . do ; dk += ds^T . q
@@ -644,12 +731,157 @@ banded_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkg = dk + ((size_t)bh * out_rows + kr0) * D;
-  T* dvg = dv + ((size_t)bh * out_rows + kr0) * D;
+  float* dkg = dk + ((size_t)bh * out_rows + kr0) * D;
+  float* dvg = dv + ((size_t)bh * out_rows + kr0) * D;
   for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
-    dkg[e] = from_f<T>(dks[e] * g.sm_scale);
-    dvg[e] = from_f<T>(dvs[e]);
+    dkg[e] = dks[e] * g.sm_scale;
+    dvg[e] = dvs[e];
   }
+}
+
+// K12 in bf16 on K2's tensor-core dq body (mma_dq.cuh): grid (tiles * bq
+// / R, B*H, splits), R = min(bq, 64) q rows per CTA, 16 per warp, over
+// K11's BandedWalk and BandedKeep; CH = dq_chunk(bkv) keys per chunk.
+// splits > 1 only for the gr instance, each of kv_tiles_per_split kv
+// tiles (the last may hold fewer). ws: splits x B*H x rows x D fp32
+// partials (dq before its scale); arrivals: B*H x (tiles * bq / R) int32.
+// `tally`: see DqRows.
+template <int CH, int DMAX, bool KPM>
+__global__ void __launch_bounds__(2 * kMmaMaxRows, DMAX <= 64 ? 3 : 2)
+banded_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const float* __restrict__ kpm, bf16* __restrict__ dq,
+                     const int32_t* __restrict__ start,
+                     const int32_t* __restrict__ end, float* ws,
+                     int* arrivals, unsigned long long* tally, Geo g,
+                     int shift, int kps) {
+  const int R = blockDim.x / 2;
+  const int D = g.D;
+  const int bh = blockIdx.y;
+  const int b = bh / g.H;
+  const int r0 = blockIdx.x * R;
+  const int i = r0 / g.bq;
+  const int rows = gridDim.x * R;        // the instance's output rows
+  const int split = blockIdx.z, splits = gridDim.z;
+  BandedWalk walk{g.kind == kGlobalRowsInst, 0, g.steps, g.gt, 0, 0, g.bkv};
+  if (walk.gr) {
+    walk.first = split * kps;
+    walk.count = min(kps, g.steps - walk.first);
+  } else {
+    walk.start = start[i];
+    walk.end = end[i];
+  }
+  const size_t kv0 = (size_t)bh * g.S * D;
+  const size_t row0 = (size_t)bh * g.S + r0;
+  const size_t out0 = (size_t)bh * rows + r0;
+  const DqRows a{q + row0 * D, dout + row0 * D,
+                 lse + (size_t)bh * g.lse_rows + r0, delta + row0, k + kv0,
+                 v + kv0, KPM ? kpm + (size_t)b * g.S : nullptr,
+                 dq + out0 * D, r0, D, bh, g.sm_scale, tally};
+  DqState<DMAX> st;
+  mma_dq_walk<CH, DMAX, KPM, true, BandedRule>(a, walk, BandedKeep{g, shift},
+                                               Dropout{}, st);
+  if (splits == 1) {
+    mma_dq_store<DMAX>(a, st);
+    return;
+  }
+  const size_t slice = (size_t)gridDim.y * rows;
+  store_partial<DMAX>(ws + (split * slice + out0) * D, st.acc, D);
+  if (!arrive_last(arrivals + (size_t)bh * gridDim.x + blockIdx.x, splits))
+    return;
+  merge_sums<DMAX>(ws + out0 * D, slice * D, splits, D, g.sm_scale, a.dq);
+}
+
+// the steps of one CTA's column walk (col_step's, the predicate in the
+// tile's kind bits as BandedWalk's): the band instance's q tiles over
+// [start, end], clamped past it and keeping nothing there; `count` q
+// tiles of the gc instance from q tile q0 + first (one split); the gr
+// instance's q tiles from 0
+struct BandedColWalk {
+  int kind, first, count, q0, start, end, bq;
+  __device__ __forceinline__ int n() const { return count; }
+  __device__ __forceinline__ int rows() const { return bq; }
+  __device__ __forceinline__ int2 tile(int t) const {
+    int part, pred;
+    if (kind == kGlobalRowsInst) {
+      part = t;
+      pred = kGlobalRows;
+    } else if (kind == kGlobalColsInst) {
+      part = q0 + first + t;
+      pred = kGlobalCols;
+    } else {
+      const int s = start + t;
+      part = min(s, end);
+      pred = s <= end ? kBandCells : kNone;
+    }
+    return make_int2(part * bq, kKindBand | pred << kPredShift);
+  }
+};
+
+// K13 in bf16 on K3's tensor-core dk/dv body (mma_dkv.cuh): grid (tiles *
+// bkv / R, B*H, splits), R = min(bkv, 64) key rows per CTA, 16 per warp,
+// over BandedColWalk and BandedKeep; CH = dkv_chunk(bq) query rows per
+// chunk. splits > 1 only for the gc instance, each of q_tiles_per_split q
+// tiles (the last may hold fewer). ws: splits x B*H x rows x D fp32 dk
+// partials (before the scale), then as many dv partials; arrivals: B*H x
+// (tiles * bkv / R) int32. `tally`: see DkvRows.
+template <int CH, int DMAX, bool KPM>
+__global__ void __launch_bounds__(2 * kMmaMaxRows, DMAX <= 64 ? 3 : 2)
+banded_dkv_mma_kernel(const bf16* __restrict__ q,
+                      const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const float* __restrict__ kpm, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv,
+                      const int32_t* __restrict__ start,
+                      const int32_t* __restrict__ end, float* ws,
+                      int* arrivals, unsigned long long* tally, Geo g,
+                      int shift, int qps) {
+  const int R = blockDim.x / 2;
+  const int D = g.D;
+  const int bh = blockIdx.y;
+  const int b = bh / g.H;
+  const int kr0 = blockIdx.x * R;
+  const int t = kr0 / g.bkv;
+  const int rows = gridDim.x * R;        // the instance's output rows
+  const int split = blockIdx.z, splits = gridDim.z;
+  BandedColWalk walk{g.kind, 0, g.steps, g.q0, 0, 0, g.bq};
+  if (g.kind == kGlobalColsInst) {
+    walk.first = split * qps;
+    walk.count = min(qps, g.steps - walk.first);
+  } else if (g.kind == kBand) {
+    walk.start = start[t];
+    walk.end = end[t];
+  }
+  const size_t q0 = (size_t)bh * g.S;
+  const size_t krow = q0 + kr0;
+  const size_t out0 = (size_t)bh * rows + kr0;
+  const DkvRows a{q + q0 * D, k + krow * D, v + krow * D, dout + q0 * D,
+                  lse + (size_t)bh * g.lse_rows, delta + q0,
+                  KPM ? kpm + (size_t)b * g.S : nullptr, dk + out0 * D,
+                  dv + out0 * D, 0, kr0, D, bh, g.sm_scale, tally};
+  DkvState<DMAX> st;
+  mma_dkv_walk<CH, DMAX, KPM, true, BandedRule>(
+      a, walk, BandedKeep{g, shift}, Dropout{}, st);
+  if (splits == 1) {
+    mma_dkv_store<DMAX>(a, st);
+    return;
+  }
+  const size_t slice = (size_t)gridDim.y * rows;
+  float* ws_v = ws + splits * slice * D;
+  store_partial<DMAX>(ws + (split * slice + out0) * D, st.k, D);
+  store_partial<DMAX>(ws_v + (split * slice + out0) * D, st.v, D);
+  if (!arrive_last(arrivals + (size_t)bh * gridDim.x + blockIdx.x, splits))
+    return;
+  merge_sums<DMAX>(ws + out0 * D, slice * D, splits, D, g.sm_scale,
+                   dk + out0 * D);
+  merge_sums<DMAX>(ws_v + out0 * D, slice * D, splits, D, 1.f,
+                   dv + out0 * D);
 }
 
 size_t fwd_smem(int R, int C, int D, int bkv) {
@@ -716,6 +948,67 @@ FwdMma pick_fwd_mma(int bkv, bool kpm) {
                             : run_fwd_mma<128, DMAX, false>);
 }
 
+// the tensor-core backward launchers of one instantiation (pick_bwd)
+template <int CH, int DMAX, bool KPM>
+struct DqMma {
+  static cudaError_t run(dim3 grid, int threads, size_t smem,
+                         cudaStream_t s, const void* q, const void* k,
+                         const void* v, const void* dout, const float* lse,
+                         const float* delta, const float* kpm, void* dq,
+                         const int32_t* start, const int32_t* end, float* ws,
+                         int* arrivals, unsigned long long* tally, Geo g,
+                         int shift, int kps) {
+    return launch_rows(banded_dq_mma_kernel<CH, DMAX, KPM>, grid, threads,
+                       smem, s, static_cast<const bf16*>(q),
+                       static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v),
+                       static_cast<const bf16*>(dout), lse, delta, kpm,
+                       static_cast<bf16*>(dq), start, end, ws, arrivals,
+                       tally, g, shift, kps);
+  }
+};
+
+template <int CH, int DMAX, bool KPM>
+struct DkvMma {
+  static cudaError_t run(dim3 grid, int threads, size_t smem,
+                         cudaStream_t s, const void* q, const void* k,
+                         const void* v, const void* dout, const float* lse,
+                         const float* delta, const float* kpm, void* dk,
+                         void* dv, const int32_t* start, const int32_t* end,
+                         float* ws, int* arrivals,
+                         unsigned long long* tally, Geo g, int shift,
+                         int qps) {
+    return launch_rows(banded_dkv_mma_kernel<CH, DMAX, KPM>, grid, threads,
+                       smem, s, static_cast<const bf16*>(q),
+                       static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v),
+                       static_cast<const bf16*>(dout), lse, delta, kpm,
+                       static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                       start, end, ws, arrivals, tally, g, shift, qps);
+  }
+};
+
+// Run<CH, DMAX, KPM>::run for a walk's chunk (16 or 32), head dim (DMAX
+// 64 up to 64, else 128) and key mask
+template <template <int, int, bool> class Run>
+auto pick_bwd(int chunk, int D, bool kpm)
+    -> decltype(&Run<16, 64, false>::run) {
+  if (chunk == 16)
+    return D <= 64 ? (kpm ? &Run<16, 64, true>::run : &Run<16, 64, false>::run)
+                   : (kpm ? &Run<16, 128, true>::run
+                          : &Run<16, 128, false>::run);
+  return D <= 64 ? (kpm ? &Run<32, 64, true>::run : &Run<32, 64, false>::run)
+                 : (kpm ? &Run<32, 128, true>::run : &Run<32, 128, false>::run);
+}
+
+// the splits of a walk of `steps` steps in splits of `per` (all of them
+// where per is 0: the instance is not split), or 0 for a refused split
+int splits_of(int steps, int per) {
+  if (steps <= 0 || per < 0) return 0;
+  const int n = per == 0 ? 1 : (steps + per - 1) / per;
+  return n > 65535 ? 0 : n;
+}
+
 // log2(fb) where fb is a power of two, else -1
 int fb_shift(int fb) {
   int sh = 0;
@@ -777,7 +1070,7 @@ extern "C" int banded_fwd(const void* q, const void* k, const void* v,
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const int R = rows_of(bq), C = rows_of(bkv);   // fp32: the CUDA cores
-  return (int)launch(banded_fwd_kernel<float>, dim3(tiles * bq / R, bh),
+  return (int)launch(banded_fwd_kernel, dim3(tiles * bq / R, bh),
                      fwd_smem(R, C, head_dim, bkv), s,
                      static_cast<const float*>(q),
                      static_cast<const float*>(k),
@@ -786,69 +1079,94 @@ extern "C" int banded_fwd(const void* q, const void* k, const void* v,
                      en, g);
 }
 
+// banded_dq and banded_dkv in bf16 run the tensor-core bodies (q, k, v,
+// do and the outputs 16-byte aligned, kpm 8: else cudaErrorInvalidValue)
+// and split one instance each: banded_dq the gr instance (kind 1) into
+// ceil(steps / tiles_per_split) splits of its kv tiles, banded_dkv the gc
+// instance (kind 2) into splits of its q tiles. With more than one, ws
+// holds splits * bh * rows * head_dim fp32 (banded_dkv twice that; rows =
+// tiles * bq, or tiles * bkv) and arrivals bh * rows / min(bq, 64) (or
+// min(bkv, 64)) int32, 0 before the launch (and 0 again after it); the
+// other instances and fp32 walk one split, and tiles_per_split, ws and
+// arrivals are then not read. tally: null, or one uint64 to which the
+// bf16 bodies add the cells they sum again.
 extern "C" int banded_dq(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
-                         const void* kpm, void* dq, const void* start,
-                         const void* end, GEO_ARGS) {
+                         const void* kpm, void* dq, void* ws, void* arrivals,
+                         void* tally, const void* start, const void* end,
+                         int kv_tiles_per_split, GEO_ARGS) {
   const Geo g = GEO;
   if (bad_geo(bh, g, tiles, bq)) return (int)cudaErrorInvalidValue;
-  const int R = rows_of(bq), C = rows_of(bkv);
-  const dim3 grid(tiles * bq / R, bh);
-  const size_t smem = dq_smem(R, C, head_dim, bkv / C);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ls = static_cast<const float*>(lse);
   const auto* dl = static_cast<const float*>(delta);
   const auto* kp = static_cast<const float*>(kpm);
   const auto* st = static_cast<const int32_t*>(start);
   const auto* en = static_cast<const int32_t*>(end);
-  if (dtype == 0)
-    return (int)launch(banded_dq_kernel<float>, grid, smem, s,
-                       static_cast<const float*>(q),
-                       static_cast<const float*>(k),
-                       static_cast<const float*>(v),
-                       static_cast<const float*>(dout), ls, dl, kp,
-                       static_cast<float*>(dq), st, en, g);
-  if (dtype == 1)
-    return (int)launch(banded_dq_kernel<__nv_bfloat16>, grid, smem, s,
-                       static_cast<const __nv_bfloat16*>(q),
-                       static_cast<const __nv_bfloat16*>(k),
-                       static_cast<const __nv_bfloat16*>(v),
-                       static_cast<const __nv_bfloat16*>(dout), ls, dl, kp,
-                       static_cast<__nv_bfloat16*>(dq), st, en, g);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    // one output: dq stands for both of dk/dv's
+    if (dkv_misaligned(q, k, v, dout, dq, dq, kpm))
+      return (int)cudaErrorInvalidValue;
+    const int kps = kind == kGlobalRowsInst ? kv_tiles_per_split : 0;
+    const int splits = splits_of(steps, kps);
+    if (splits == 0 || (splits > 1 && (!ws || !arrivals)))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(bq);
+    return (int)pick_bwd<DqMma>(dq_chunk(bkv), head_dim, kp != nullptr)(
+        dim3(tiles * bq / R, bh, splits), 2 * R,
+        mma_dq_smem(R, bkv, head_dim), s, q, k, v, dout, ls, dl, kp, dq, st,
+        en, static_cast<float*>(ws), static_cast<int*>(arrivals),
+        static_cast<unsigned long long*>(tally), g, fb_shift(fb),
+        kps ? kps : steps);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(bq), C = rows_of(bkv);   // fp32: the CUDA cores
+  return (int)launch(banded_dq_kernel, dim3(tiles * bq / R, bh),
+                     dq_smem(R, C, head_dim, bkv / C), s,
+                     static_cast<const float*>(q),
+                     static_cast<const float*>(k),
+                     static_cast<const float*>(v),
+                     static_cast<const float*>(dout), ls, dl, kp,
+                     static_cast<float*>(dq), st, en, g);
 }
 
 extern "C" int banded_dkv(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, const void* kpm, void* dk,
-                          void* dv, const void* start, const void* end,
-                          GEO_ARGS) {
+                          void* dv, void* ws, void* arrivals, void* tally,
+                          const void* start, const void* end,
+                          int q_tiles_per_split, GEO_ARGS) {
   const Geo g = GEO;
   if (bad_geo(bh, g, tiles, bkv)) return (int)cudaErrorInvalidValue;
-  const int R = rows_of(bkv), C = rows_of(bq);
-  const dim3 grid(tiles * bkv / R, bh);
-  const size_t smem = dkv_smem(R, C, head_dim, bq / C);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ls = static_cast<const float*>(lse);
   const auto* dl = static_cast<const float*>(delta);
   const auto* kp = static_cast<const float*>(kpm);
   const auto* st = static_cast<const int32_t*>(start);
   const auto* en = static_cast<const int32_t*>(end);
-  if (dtype == 0)
-    return (int)launch(banded_dkv_kernel<float>, grid, smem, s,
-                       static_cast<const float*>(q),
-                       static_cast<const float*>(k),
-                       static_cast<const float*>(v),
-                       static_cast<const float*>(dout), ls, dl, kp,
-                       static_cast<float*>(dk), static_cast<float*>(dv), st,
-                       en, g);
-  if (dtype == 1)
-    return (int)launch(banded_dkv_kernel<__nv_bfloat16>, grid, smem, s,
-                       static_cast<const __nv_bfloat16*>(q),
-                       static_cast<const __nv_bfloat16*>(k),
-                       static_cast<const __nv_bfloat16*>(v),
-                       static_cast<const __nv_bfloat16*>(dout), ls, dl, kp,
-                       static_cast<__nv_bfloat16*>(dk),
-                       static_cast<__nv_bfloat16*>(dv), st, en, g);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {           // bf16: the tensor-core body, or an error
+    if (dkv_misaligned(q, k, v, dout, dk, dv, kpm))
+      return (int)cudaErrorInvalidValue;
+    const int qps = kind == kGlobalColsInst ? q_tiles_per_split : 0;
+    const int splits = splits_of(steps, qps);
+    if (splits == 0 || (splits > 1 && (!ws || !arrivals)))
+      return (int)cudaErrorInvalidValue;
+    const int R = mma_rows(bkv);
+    return (int)pick_bwd<DkvMma>(dkv_chunk(bq), head_dim, kp != nullptr)(
+        dim3(tiles * bkv / R, bh, splits), 2 * R,
+        mma_dkv_smem(R, bq, head_dim), s, q, k, v, dout, ls, dl, kp, dk, dv,
+        st, en, static_cast<float*>(ws), static_cast<int*>(arrivals),
+        static_cast<unsigned long long*>(tally), g, fb_shift(fb),
+        qps ? qps : steps);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const int R = rows_of(bkv), C = rows_of(bq);   // fp32: the CUDA cores
+  return (int)launch(banded_dkv_kernel, dim3(tiles * bkv / R, bh),
+                     dkv_smem(R, C, head_dim, bq / C), s,
+                     static_cast<const float*>(q),
+                     static_cast<const float*>(k),
+                     static_cast<const float*>(v),
+                     static_cast<const float*>(dout), ls, dl, kp,
+                     static_cast<float*>(dk), static_cast<float*>(dv), st,
+                     en, g);
 }

@@ -84,14 +84,12 @@ namespace {
 // The banded fine structure of KIND_BAND tiles, in fine blocks of fb
 // rows: keep a cell of query qi, key ki iff its fine row is a global row,
 // its fine column a global column, or they are at most w apart, then
-// (clip) the layout's causal clip. The forward body passes the tile's
-// kind first, the backward bodies not. TODO: the kind-free keep / any go
-// once the dq and dk/dv bodies pass the tile's kind (ROADMAP.md, "After
-// the queue", K12 + K13).
+// (clip) the layout's causal clip. Every body passes the walked tile's
+// kind first; every KIND_BAND tile keeps this one predicate.
 struct Band {
   int fb, w, g_r, g_c, clip;
 
-  __device__ __forceinline__ bool keep(int qi, int ki) const {
+  __device__ __forceinline__ bool keep(int, int qi, int ki) const {
     const int qf = qi / fb;
     const int kf = ki / fb;
     const int d = qf - kf;
@@ -103,23 +101,14 @@ struct Band {
   // whether keep() holds for any cell of queries [qa, qb] x keys [ka, kb]
   // (inclusive): a chunk of a BAND tile for which it does not adds
   // exactly 0 to every output, so the kernels skip it
-  __device__ __forceinline__ bool any(int qa, int qb, int ka, int kb) const {
+  __device__ __forceinline__ bool any(int, int qa, int qb, int ka,
+                                      int kb) const {
     const int q0 = qa / fb, q1 = qb / fb, k0 = ka / fb, k1 = kb / fb;
     // the window: qf - kf in [-w, w] ([0, w] under the clip)
     bool ok = q0 - k1 <= w && k0 - q1 <= (clip ? 0 : w);
     ok = ok || (q0 < g_r && (!clip || k0 <= min(q1, g_r - 1)));
     ok = ok || (k0 < g_c && (!clip || k0 <= q1));
     return ok;
-  }
-
-  // the forward body's calls, which pass the walked tile's kind first
-  // (every KIND_BAND tile keeps one predicate)
-  __device__ __forceinline__ bool keep(int, int qi, int ki) const {
-    return keep(qi, ki);
-  }
-  __device__ __forceinline__ bool any(int, int qa, int qb, int ka,
-                                      int kb) const {
-    return any(qa, qb, ka, kb);
   }
 };
 
@@ -186,7 +175,8 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (kind & kKindBand) {
         live = 0u;
         for (int c0 = 0; c0 < blk; c0 += R)
-          if (bd.any(r0, r0 + R - 1, k0 + c0, k0 + c0 + R - 1))
+          if (bd.any(kind, r0, r0 + R - 1, k0 + c0,
+                     k0 + c0 + R - 1))
             live |= 1u << (c0 / R);
         if (live == 0u) continue;
       }
@@ -216,7 +206,8 @@ mf_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if constexpr (KPM) s += kpm_b[k0 + c];
           if ((kind & kKindCausal) && qi < k0 + c) s = kNegInf;
           if constexpr (BAND)
-            if ((kind & kKindBand) && !bd.keep(qi, k0 + c)) s = kNegInf;
+            if ((kind & kKindBand) && !bd.keep(kind, qi, k0 + c))
+              s = kNegInf;
         }
         sv[u] = s;
         mx = fmaxf(mx, s);
@@ -390,7 +381,7 @@ mf_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // a chunk of a BAND tile with no kept cell adds 0 to dq
       if constexpr (BAND)
         if ((kind & kKindBand) &&
-            !bd.any(r0, r0 + R - 1, k0 + c0, k0 + c0 + R - 1))
+            !bd.any(kind, r0, r0 + R - 1, k0 + c0, k0 + c0 + R - 1))
           continue;
       stage_rows(ks, kg + (size_t)(k0 + c0) * D, R, D);
       stage_rows(vs, vg + (size_t)(k0 + c0) * D, R, D);
@@ -407,7 +398,7 @@ mf_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if constexpr (KPM) s += kpm_b[ki];
         if ((kind & kKindCausal) && qi < ki) s = kNegInf;
         if constexpr (BAND)
-          if ((kind & kKindBand) && !bd.keep(qi, ki)) s = kNegInf;
+          if ((kind & kKindBand) && !bd.keep(kind, qi, ki)) s = kNegInf;
         const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
         float dp = dps[e];
         if (dr.on) dp = dr.keep(bh, qi, ki) ? dp * dr.inv_keep : 0.f;
@@ -523,7 +514,7 @@ mf_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // a chunk of a BAND tile with no kept cell adds 0 to dk and dv
       if constexpr (BAND)
         if ((kind & kKindBand) &&
-            !bd.any(q0 + c0, q0 + c0 + R - 1, kr0, kr0 + R - 1))
+            !bd.any(kind, q0 + c0, q0 + c0 + R - 1, kr0, kr0 + R - 1))
           continue;
       const size_t qrow = (size_t)bh * sh.Sq + q0 + c0;
       stage_rows(qs, qg + (size_t)(q0 + c0) * D, R, D);
@@ -545,7 +536,7 @@ mf_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if constexpr (KPM) s += km_s[c];
         if ((kind & kKindCausal) && qi < ki) s = kNegInf;
         if constexpr (BAND)
-          if ((kind & kKindBand) && !bd.keep(qi, ki)) s = kNegInf;
+          if ((kind & kKindBand) && !bd.keep(kind, qi, ki)) s = kNegInf;
         const float p = s > kValidThresh ? expf(s - lse_s[r]) : 0.f;
         float dp = dps[e];
         float pd = p;

@@ -1,11 +1,11 @@
 // The bf16 dk/dv body of K3 (masked_flash.cu), K7 (flash.cu), K10
-// (blocksparse_v2.cu) and K16 (blocksparse.cu) on the tensor cores: one
-// walk over tiles of query rows for a CTA of 16 key rows per warp, on
-// mma_tiles.cuh's fragments.
+// (blocksparse_v2.cu), K13 (banded.cu) and K16 (blocksparse.cu) on the
+// tensor cores: one walk over tiles of query rows for a CTA of 16 key
+// rows per warp, on mma_tiles.cuh's fragments.
 //
 // A CTA owns R = 16 * warps key rows of one q head's kv row (one key
-// block of K3's or K10's CSC walk, one key tile of K7, one key block of
-// K16's column triples), R = min(key block, 64).
+// block of K3's or K10's CSC walk, one key tile of K7 or K13, one key
+// block of K16's column triples), R = min(key block, 64).
 // Each warp keeps the dK and dV accumulators of its 16 keys in
 // registers and reads its K and V fragments from the CTA's staged K and
 // V rows at each step. Q and dO stream through a ring of shared
@@ -26,12 +26,16 @@
 // key row mask_ld() apart), each rounded in fp32; then the causal clip of
 // a CAUSAL tile and the band predicate of a BAND tile set NEG_INF; p =
 // exp(s - lse[q]), and the kernel's Rule (mma_fwd.cuh) sets the guard: p
-// = 0 where s <= its threshold (K3 and K16 -1e28, K10 -1e29; K7 none);
+// = 0 where s <= its threshold (K3, K13 and K16 -1e28, K10 -1e29; K7
+// none);
 // under dropout, keyed on (bh, q, k), pd = p / (1 - rate) and dp = dp /
 // (1 - rate) where kept, both 0 where dropped; ds = p (dp - delta[q]). pd
 // and ds round to bf16 before their products; dK is scaled by sm_scale at
 // the end, dV is not; outputs in bf16, or fp32 per-q-head partials
-// (fp32_out, GQA).
+// (fp32_out, GQA). mma_dkv_walk leaves the accumulators in registers
+// (DkvState) and mma_dkv_store writes dk and dv from them; mma_dkv_body
+// is the two. K13's split walks keep each split's sums and add them
+// (banded.cu).
 //
 // The rounding of pd and ds. The plain versions sum q.k and do.v one
 // term at a time in fp32 (flash.ordered_dot; cuBLAS's fp32 products at
@@ -75,12 +79,12 @@
 // 0 in both, and so are pd and ds) is never at stake, whatever its
 // bounds, which are huge there.
 //
-// Skips, each leaving every output as the walk without it: a chunk in
-// which no cell of the CTA's keys is kept (a CAUSAL tile's chunk wholly
-// before the CTA's first key, a BAND tile's chunk Band::any rejects: no
-// load, no product), and per warp each 16-query group of a CAUSAL or
-// BAND chunk its 16 keys keep no cell of (p = 0 there, and pd = ds = 0
-// add nothing to dK and dV).
+// Skips, each leaving every output as the walk without it: a chunk in which
+// no cell of the CTA's keys is kept (a CAUSAL tile's chunk wholly before
+// the CTA's first key, a BAND tile's chunk the band's any() rejects: no
+// load, no product), and per warp each 16-query group of a CAUSAL or BAND
+// chunk its 16 keys keep no cell of (p = 0 there, and pd = ds = 0 add
+// nothing to dK and dV).
 
 #pragma once
 
@@ -232,17 +236,29 @@ __device__ __forceinline__ void resum_spread(uint32_t redo, int lane,
   }
 }
 
+// what a CTA's walk leaves in registers: this lane's fragments of the dK
+// (not yet scaled) and dV accumulators of its keys g and g + 8 of its
+// warp's 16
+template <int DMAX>
+struct DkvState {
+  float k[DMAX / 8][4], v[DMAX / 8][4];
+};
+
 // Walk: n() tiles, tile(t) = (first query, kind bits), rows() query rows
 // per tile (16, 32, 64, 128); with AM, mask(t) the tile's additive fp32
 // mask at its first query and the CTA's first key (query stride
 // mask_ld()). CH = dkv_chunk(rows()); DMAX: 64 or 128; Rule: the
-// kernel's softmax rule (mma_fwd.cuh; its kGuard and kValid).
+// kernel's softmax rule (mma_fwd.cuh; its kGuard and kValid). BAND: the
+// tiles with kKindBand in their kind keep the cells of bd.keep(kind, q,
+// k) (bd.any(kind, q0, q1, k0, k1): whether any cell of a rectangle is
+// kept).
 template <int CH, int DMAX, bool KPM, bool BAND, typename Rule,
           bool AM = false, typename Walk, typename BandT>
-__device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
+__device__ __forceinline__ void mma_dkv_walk(const DkvRows& a,
                                              const Walk& walk,
                                              const BandT& bd,
-                                             const Dropout& dr) {
+                                             const Dropout& dr,
+                                             DkvState<DMAX>& st) {
   constexpr int NT = CH / 8;        // 8-query score tiles per warp
   constexpr int NG = CH / 16;       // 16-query groups (mma k-steps)
   constexpr int KD = DMAX / 16;     // 16-wide steps over the head dim
@@ -273,7 +289,7 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
     const int qa = tr.x + c * CH, qb = qa + CH - 1;
     if ((tr.y & kKindCausal) && qb < a.k0) return false;
     if constexpr (BAND) {
-      if ((tr.y & kKindBand) && !bd.any(qa, qb, a.k0, a.k0 + R - 1))
+      if ((tr.y & kKindBand) && !bd.any(tr.y, qa, qb, a.k0, a.k0 + R - 1))
         return false;
     }
     return true;
@@ -333,7 +349,8 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
     return ring + (step++ % kDkvStages) * stage;
   };
 
-  float acck[DMAX / 8][4], accv[DMAX / 8][4];
+  float(&acck)[DMAX / 8][4] = st.k;
+  float(&accv)[DMAX / 8][4] = st.v;
 #pragma unroll
   for (int j = 0; j < DMAX / 8; ++j)
 #pragma unroll
@@ -375,7 +392,7 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
       if (kind & kKindBand) {
 #pragma unroll
         for (int j = 0; j < NG; ++j)
-          if (!bd.any(q0 + 16 * j, q0 + 16 * j + 15, wk0, wk0 + 15))
+          if (!bd.any(kind, q0 + 16 * j, q0 + 16 * j + 15, wk0, wk0 + 15))
             live &= ~(1u << j);
       }
     }
@@ -466,7 +483,7 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
         bool m = !((live >> (j >> 1)) & 1u) ||
                  ((kind & kKindCausal) && qi < ki);
         if constexpr (BAND)
-          m = m || ((kind & kKindBand) && !bd.keep(qi, ki));
+          m = m || ((kind & kKindBand) && !bd.keep(kind, qi, ki));
         return m;
       };
       // the flags are set without a branch: a branch per cell costs
@@ -605,7 +622,19 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
     next_live(ct, cc);
   }
   cp_async_wait<0>();
+}
 
+// dk = acck * sm_scale and dv = accv for the CTA's keys, in bf16 or as
+// fp32 partials (fp32_out), from its walk's state
+template <int DMAX>
+__device__ __forceinline__ void mma_dkv_store(const DkvRows& a,
+                                              const DkvState<DMAX>& st) {
+  const int D = a.D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const float(&acck)[DMAX / 8][4] = st.k;
+  const float(&accv)[DMAX / 8][4] = st.v;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const size_t row = (size_t)(warp * 16 + g + 8 * r) * D;
@@ -631,6 +660,17 @@ __device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
       }
     }
   }
+}
+
+template <int CH, int DMAX, bool KPM, bool BAND, typename Rule,
+          bool AM = false, typename Walk, typename BandT>
+__device__ __forceinline__ void mma_dkv_body(const DkvRows& a,
+                                             const Walk& walk,
+                                             const BandT& bd,
+                                             const Dropout& dr) {
+  DkvState<DMAX> st;
+  mma_dkv_walk<CH, DMAX, KPM, BAND, Rule, AM>(a, walk, bd, dr, st);
+  mma_dkv_store<DMAX>(a, st);
 }
 
 }  // namespace

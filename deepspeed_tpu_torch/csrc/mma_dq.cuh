@@ -1,19 +1,19 @@
 // The bf16 dq body of K2 (masked_flash.cu), K6 (flash.cu), K9
-// (blocksparse_v2.cu) and K15 (blocksparse.cu) on the tensor cores: one
-// walk over key tiles for a CTA of 16 query rows per warp, on
-// mma_tiles.cuh's fragments.
+// (blocksparse_v2.cu), K12 (banded.cu) and K15 (blocksparse.cu) on the
+// tensor cores: one walk over key tiles for a CTA of 16 query rows per
+// warp, on mma_tiles.cuh's fragments.
 //
-// A CTA owns R = 16 * warps query rows of one q head (one block row of
-// K2's or K9's CSR walk, one query tile of K6, one block row of K15's row
+// A CTA owns R = 16 * warps query rows of one q head (one block row of K2's
+// or K9's CSR walk, one query tile of K6 or K12, one block row of K15's row
 // triples), R = min(tile rows, 64). Its Q and dO rows are staged once as
 // bf16; each lane holds the lse and delta of its two rows, and each warp
-// the dQ accumulator of its 16 rows in registers. K and V stream through
-// a ring of shared chunks of CH = min(tile keys, 32) keys in bf16, loaded
+// the dQ accumulator of its 16 rows in registers. K and V stream through a
+// ring of shared chunks of CH = min(tile keys, 32) keys in bf16, loaded
 // with cp.async, kDqAhead chunks in flight ahead of the one computing, one
 // barrier per chunk. Per chunk and warp: S = Q K^T and dP = dO V^T (16
 // queries x CH keys; each 16-wide step an mma from zero whose partial is
-// added in fp32, K and V as B operands by ldmatrix), the cells' p and ds
-// in registers, then dQ += dS K with dS as the A operand straight from the
+// added in fp32, K and V as B operands by ldmatrix), the cells' p and ds in
+// registers, then dQ += dS K with dS as the A operand straight from the
 // score fragments (the C-to-A identity of mma_tiles.cuh) and K as the B
 // operand through ldmatrix.trans. Nothing goes back to shared memory but
 // the descriptors of the cells summed again.
@@ -25,11 +25,15 @@
 // float2 pairs per 8-key fragment), each rounded in fp32; then the causal
 // clip of a CAUSAL tile and the band predicate of a BAND tile set NEG_INF;
 // p = exp(s - lse[q]), and the kernel's Rule (mma_fwd.cuh) sets the guard:
-// p = 0 where s <= its threshold (K2 and K15 -1e28, K9 -1e29; K6 none);
+// p = 0 where s <= its threshold (K2, K12 and K15 -1e28, K9 -1e29; K6
+// none);
 // under dropout, keyed on (bh, q, k), dp = dp / (1 - rate) where kept and
 // 0 where dropped; ds = p (dp - delta[q]), rounded to bf16 before dQ +=
 // dS K; dq is scaled by sm_scale once at the end and written in bf16 (dq
-// is per q head: no GQA partials).
+// is per q head: no GQA partials). mma_dq_walk leaves the unscaled
+// accumulator in registers (DqState) and mma_dq_store writes dq from it;
+// mma_dq_body is the two. K12's split walks keep each split's sum and
+// add them (banded.cu).
 //
 // The rounding of ds is held to the plain versions' as mma_dkv.cuh holds
 // it (its derivation of up and ud, with pd left out: dq rounds ds only).
@@ -42,12 +46,11 @@
 // dp) and its p taken with their expf; the warp spreads its flagged cells
 // over its lanes (resum_spread).
 //
-// Skips, each leaving every output as the walk without it: a chunk in
-// which no cell of the CTA's rows is kept (a CAUSAL tile's chunk wholly
-// past the CTA's last row, a BAND tile's chunk Band::any rejects: no
-// load, no product), and per warp each 16-key group of a CAUSAL or BAND
-// chunk its 16 rows keep no cell of (p = 0 there, and ds = 0 adds
-// nothing to dQ).
+// Skips, each leaving every output as the walk without it: a chunk in which
+// no cell of the CTA's rows is kept (a CAUSAL tile's chunk wholly past the
+// CTA's last row, a BAND tile's chunk the band's any() rejects: no load, no
+// product), and per warp each 16-key group of a CAUSAL or BAND chunk its 16
+// rows keep no cell of (p = 0 there, and ds = 0 adds nothing to dQ).
 
 #pragma once
 
@@ -115,16 +118,26 @@ inline size_t mma_dq_smem(int R, int keys, int D) {
          (size_t)(R / 16) * kRedoBytes;
 }
 
+// what a CTA's walk leaves in registers: this lane's fragments of the
+// dQ accumulator of its rows g and g + 8 of its warp's 16, not yet scaled
+template <int DMAX>
+struct DqState {
+  float acc[DMAX / 8][4];
+};
+
 // Walk: n() tiles, tile(t) = (first key, kind bits), keys() keys per
 // tile (16, 32, 64, 128); with AM, mask(t) the tile's additive fp32 mask
 // at the CTA's first row (row stride mask_ld(), even, 8-byte aligned).
 // CH = dq_chunk(keys()); DMAX: 64 or 128; Rule: the kernel's softmax rule
-// (mma_fwd.cuh; its kGuard and kValid).
+// (mma_fwd.cuh; its kGuard and kValid). BAND: the tiles with kKindBand in
+// their kind keep the cells of bd.keep(kind, q, k) (bd.any(kind, q0, q1,
+// k0, k1): whether any cell of a rectangle is kept).
 template <int CH, int DMAX, bool KPM, bool BAND, typename Rule,
           bool AM = false, typename Walk, typename BandT>
-__device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
+__device__ __forceinline__ void mma_dq_walk(const DqRows& a, const Walk& walk,
                                             const BandT& bd,
-                                            const Dropout& dr) {
+                                            const Dropout& dr,
+                                            DqState<DMAX>& st) {
   constexpr int NT = CH / 8;        // 8-key score tiles per warp
   constexpr int NG = CH / 16;       // 16-key groups (mma k-steps of dQ)
   constexpr int KD = DMAX / 16;     // 16-wide steps over the head dim
@@ -155,7 +168,8 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
     const int ka = tr.x + c * CH, kb = ka + CH - 1;
     if ((tr.y & kKindCausal) && ka > rlast) return false;
     if constexpr (BAND) {
-      if ((tr.y & kKindBand) && !bd.any(a.r0, rlast, ka, kb)) return false;
+      if ((tr.y & kKindBand) && !bd.any(tr.y, a.r0, rlast, ka, kb))
+        return false;
     }
     return true;
   };
@@ -216,7 +230,7 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
     return ring + (step++ % kDqStages) * stage;
   };
 
-  float acc[DMAX / 8][4];
+  float(&acc)[DMAX / 8][4] = st.acc;
 #pragma unroll
   for (int j = 0; j < DMAX / 8; ++j)
 #pragma unroll
@@ -256,7 +270,7 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
       if (kind & kKindBand) {
 #pragma unroll
         for (int j = 0; j < NG; ++j)
-          if (!bd.any(wr0, wr0 + 15, k0 + 16 * j, k0 + 16 * j + 15))
+          if (!bd.any(kind, wr0, wr0 + 15, k0 + 16 * j, k0 + 16 * j + 15))
             live &= ~(1u << j);
       }
     }
@@ -349,7 +363,7 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
         bool m = !((live >> (j >> 1)) & 1u) ||
                  ((kind & kKindCausal) && qi < ki);
         if constexpr (BAND)
-          m = m || ((kind & kKindBand) && !bd.keep(qi, ki));
+          m = m || ((kind & kKindBand) && !bd.keep(kind, qi, ki));
         return m;
       };
       // the flags are set without a branch: a branch per cell costs
@@ -464,7 +478,17 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
     next_live(ct, cc);
   }
   cp_async_wait<0>();
+}
 
+// dq = acc * sm_scale in bf16 for the CTA's rows, from its walk's state
+template <int DMAX>
+__device__ __forceinline__ void mma_dq_store(const DqRows& a,
+                                             const DqState<DMAX>& st) {
+  const int D = a.D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const float(&acc)[DMAX / 8][4] = st.acc;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     bf16* row = a.dq + (size_t)(warp * 16 + g + 8 * r) * D;
@@ -476,6 +500,16 @@ __device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
                                   acc[j][2 * r + 1] * a.sm_scale);
     }
   }
+}
+
+template <int CH, int DMAX, bool KPM, bool BAND, typename Rule,
+          bool AM = false, typename Walk, typename BandT>
+__device__ __forceinline__ void mma_dq_body(const DqRows& a, const Walk& walk,
+                                            const BandT& bd,
+                                            const Dropout& dr) {
+  DqState<DMAX> st;
+  mma_dq_walk<CH, DMAX, KPM, BAND, Rule, AM>(a, walk, bd, dr, st);
+  mma_dq_store<DMAX>(a, st);
 }
 
 }  // namespace

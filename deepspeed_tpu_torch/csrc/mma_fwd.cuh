@@ -113,16 +113,10 @@ __host__ __device__ constexpr int ring_stages() {
   return NC + kAhead;
 }
 
-// the walk without a band (K5, and K1's BAND = false instantiations);
-// the forward body passes the tile's kind first, the backward bodies not.
-// TODO: the kind-free keep / any go once the dq and dk/dv bodies pass the
-// tile's kind (ROADMAP.md, "After the queue", K12 + K13).
+// the walk without a band (K5, and the BAND = false instantiations);
+// every body passes the walked tile's kind first
 struct NoBand {
-  __device__ __forceinline__ bool keep(int, int) const { return true; }
   __device__ __forceinline__ bool keep(int, int, int) const { return true; }
-  __device__ __forceinline__ bool any(int, int, int, int) const {
-    return true;
-  }
   __device__ __forceinline__ bool any(int, int, int, int, int) const {
     return true;
   }

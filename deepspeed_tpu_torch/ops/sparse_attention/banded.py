@@ -28,14 +28,19 @@ same function, called once per instance:
 - :func:`banded_fwd` — K11, ``o`` and ``lse`` of one instance (replaces
   ``_fwd_body``); in bf16 on the tensor cores, the global-rows ("gr")
   instance split over its kv tiles (:func:`gr_split_plan`);
-- :func:`banded_dq` — K12, ``dq`` (replaces ``_dq_body``);
-- :func:`banded_dkv` — K13, ``dk`` and ``dv`` (replaces ``_dkv_body``).
+- :func:`banded_dq` — K12, ``dq`` (replaces ``_dq_body``); in bf16 on
+  the tensor cores, the gr instance split over its kv tiles as K11's
+  (:func:`fwd_split`);
+- :func:`banded_dkv` — K13, ``dk`` and ``dv`` (replaces ``_dkv_body``);
+  in bf16 on the tensor cores, the global-columns ("gc") instance split
+  over its q tiles (:func:`dkv_split`).
 
 For CUDA tensors each wrapper launches its hand-written kernel in
 ``csrc/banded.cu`` (built with nvcc for sm_90a at first use) or raises;
 it never falls back. For CPU tensors it runs the plain version
-(``*_plain``). Each launch adds one to the wrapper's ``launches``, and
-K11's also to ``bodies`` under the body it ran (:data:`FWD_BODIES`).
+(``*_plain``). Each launch adds one to the wrapper's ``launches`` and to
+its ``bodies`` under the body it ran (:data:`FWD_BODIES`,
+:data:`DQ_BODIES`, :data:`DKV_BODIES`: "mma" in bf16, "fma" in fp32).
 :func:`banded_fwd_impl` and :func:`banded_bwd_impl` combine the
 instances as JAX does; :func:`build_banded_fn` is the
 ``torch.autograd.Function`` entry over them.
@@ -54,7 +59,14 @@ The split of K11's gr instance (bf16 on the card): each split of
 merge in order (``m = max m_z``, ``l = sum l_z e^(m_z - m)``, ``acc =
 sum acc_z e^(m_z - m)``). p rounds to bf16 under its split's running max,
 not the whole walk's: ``banded_fwd_plain(kv_tiles_per_split=n)`` walks
-so; with None it is JAX's one walk.
+so; with None it is JAX's one walk. The splits of K12's gr walk and
+K13's gc walk each sum their partial dq (dk and dv) from zero, and the
+partials add in split order before dq and dk take ``sm_scale``: dq, dk
+and dv are sums with no running max, so that split moves only the fp32
+order of a sum, never a bf16 rounding of p or ds.
+``banded_dq_plain(kv_tiles_per_split=n)`` and
+``banded_dkv_plain(q_tiles_per_split=n)`` sum so; with None each is JAX's
+one walk.
 
 The walk tiles: on CPU tensors JAX's interpret-mode rule (the fine block,
 halved until it divides S); on the card the (bq, bkv) pair of
@@ -74,12 +86,15 @@ import torch
 from deepspeed_tpu_torch.ops._build import arrival_counts
 from deepspeed_tpu_torch.ops.attention.flash import ordered_dot as _dot
 from deepspeed_tpu_torch.ops.attention.masked_flash import (
-    CHUNK, FWD_BODIES, KERNEL_BLOCKS, MAX_HEAD_DIM, _check_aligned,
-    _count_body, walk_cost_us)
+    CHUNK, DKV_BODIES, DQ_BODIES, FWD_BODIES, KERNEL_BLOCKS, MAX_HEAD_DIM,
+    _check_aligned, _count_body, walk_cost_us)
+from deepspeed_tpu_torch.ops.sparse_attention.blocksparse_v2 import \
+    _check_tally
 
 __all__ = ["NEG_INF", "VALID_THRESH", "BandedParams", "BandedPlan",
            "detect_banded", "pick_blocks", "walk_stats", "walk_counts",
-           "walk_cost", "plan", "gr_split_plan", "fwd_split",
+           "walk_cost", "plan", "walk_split_plan", "gr_split_plan",
+           "fwd_split", "dkv_split",
            "banded_fwd", "banded_dq", "banded_dkv", "banded_fwd_plain",
            "banded_dq_plain", "banded_dkv_plain", "banded_fwd_impl",
            "banded_bwd_impl", "build_banded_fn", "reset_launches"]
@@ -90,13 +105,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # test/autotune override for the walk tile sizes; None = pick automatically
 _FORCE_BLOCKS: Optional[Tuple[int, int]] = None
-# K11's tensor-core body: a CTA owns min(bq, MMA_ROWS) rows of a q tile
+# the tensor-core bodies: a CTA owns min(bq, MMA_ROWS) rows of a q tile
+# (K11, K12) or min(bkv, MMA_ROWS) key rows of a kv tile (K13)
 MMA_ROWS = 64
-# gr_split_plan's rule: halve the gr walk's split while its grid has
+# walk_split_plan's rule: halve a serial walk's split while its grid has
 # fewer than GR_SPLIT_TARGET_WARPS warps (16 rows each) and the halved
-# split keeps GR_SPLIT_MIN_KEYS keys. Phase 26's sweep on an H100 80GB
-# HBM3 put the best split at 1024 warps at the s8k geometry (4 warps a
-# CTA) and at 1024-2048 at sparse BERT's (one warp a CTA)
+# split keeps GR_SPLIT_MIN_KEYS keys (or queries). Phase 26's sweep of
+# K11's gr walk on an H100 80GB HBM3 put the best split at 1024 warps at
+# the s8k geometry (4 warps a CTA) and at 1024-2048 at sparse BERT's (one
+# warp a CTA); its sweeps of K12's gr and K13's gc walks find this rule's
+# split the best at sparse BERT's and within 2-10% of the best (2 to 8
+# tiles a split, which part by as much from run to run) at s8k
 GR_SPLIT_TARGET_WARPS = 1024
 GR_SPLIT_MIN_KEYS = 256
 
@@ -419,31 +438,53 @@ def pick_blocks(S: int, fine_block: int, params: BandedParams,
     return best[1] if best else None
 
 
+def walk_split_plan(batch: int, heads: int, rows: int, tile: int,
+                    steps: int) -> int:
+    """Steps per split of a serial tensor-core walk for a call of these
+    shapes (``rows`` output rows per (batch, head), each walking
+    ``steps`` tiles of ``tile`` keys or queries): the whole walk, halved
+    (rounding up) while the grid (splits x batch x heads x the rows'
+    warps of 16) has fewer than ``GR_SPLIT_TARGET_WARPS`` warps and the
+    halved split keeps ``GR_SPLIT_MIN_KEYS`` keys (queries) or more.
+    Shapes only: every call of a shape splits alike, with no device
+    sync."""
+    warps = batch * heads * rows // 16
+    per = max(int(steps), 1)
+    while per > 1 and _ceil_div(per, 2) * tile >= GR_SPLIT_MIN_KEYS and \
+            warps * _ceil_div(steps, per) < GR_SPLIT_TARGET_WARPS:
+        per = _ceil_div(per, 2)
+    return per
+
+
 def gr_split_plan(batch: int, heads: int, gq: int, bq: int, bkv: int,
                   grk: int) -> int:
-    """KV tiles per split of K11's tensor-core gr walk for a call of these
-    shapes (``gq`` q tiles of ``bq`` rows walking ``grk`` kv tiles of
-    ``bkv`` keys, per (batch, head)): the whole walk, halved (rounding
-    up) while the grid (splits x batch x heads x the rows' warps of 16)
-    has fewer than ``GR_SPLIT_TARGET_WARPS`` warps and the halved split
-    keeps ``GR_SPLIT_MIN_KEYS`` keys or more. Shapes only: every call of
-    a shape splits alike, with no device sync."""
-    warps = batch * heads * gq * bq // 16
-    kps = max(int(grk), 1)
-    while kps > 1 and _ceil_div(kps, 2) * bkv >= GR_SPLIT_MIN_KEYS and \
-            warps * _ceil_div(grk, kps) < GR_SPLIT_TARGET_WARPS:
-        kps = _ceil_div(kps, 2)
-    return kps
+    """KV tiles per split of the tensor-core gr walk of K11 and K12 (one
+    shape: ``gq`` q tiles of ``bq`` rows walking ``grk`` kv tiles of
+    ``bkv`` keys, per (batch, head)): :func:`walk_split_plan`'s."""
+    return walk_split_plan(batch, heads, gq * bq, bkv, grk)
 
 
 def fwd_split(q, bp: BandedPlan, kind: str) -> Optional[int]:
-    """The kv tiles per split K11's kernel walks instance ``kind`` in for
-    inputs like ``q`` ((B, H, S, D)): :func:`gr_split_plan`'s for the gr
-    instance in bf16, None (one walk) for the band instance and fp32."""
+    """The kv tiles per split K11's and K12's kernels walk instance
+    ``kind`` in for inputs like ``q`` ((B, H, S, D)): their gr walks have
+    one shape, so :func:`gr_split_plan`'s for the gr instance in bf16;
+    None (one walk) for the band instance and fp32."""
     if kind != "gr" or q.dtype != torch.bfloat16:
         return None
     return gr_split_plan(q.shape[0], bp.heads, bp.GQ, bp.bq, bp.bkv,
                          bp.GRK)
+
+
+def dkv_split(q, bp: BandedPlan, kind: str) -> Optional[int]:
+    """The q tiles per split K13's kernel walks instance ``kind`` in for
+    inputs like ``q``: for the gc instance in bf16 (``GT`` kv tiles of
+    ``bkv`` key rows walking its q tiles of ``bq`` queries, per (batch,
+    head)) :func:`walk_split_plan`'s; None (one walk) for the band and gr
+    instances and fp32."""
+    if kind != "gc" or q.dtype != torch.bfloat16:
+        return None
+    return walk_split_plan(q.shape[0], bp.heads, bp.GT * bp.bkv, bp.bq,
+                           bp.instances["col"]["gc"][1])
 
 
 def plan(layout, fine_block: int, cpu: bool):
@@ -569,22 +610,33 @@ def banded_fwd_plain(q, k, v, key_mask, bp: BandedPlan, kind: str,
     return o, (m + torch.log(l_safe)).reshape(B, H, n * bp.bq)
 
 
-def banded_dq_plain(q, k, v, do, lse, delta, key_mask, bp: BandedPlan,
-                    kind: str, sm_scale: float):
-    """K12's function in plain PyTorch for instance ``kind``: p
-    recomputed from ``lse`` (the instance's rows), ds = p * (dp - delta)
-    rounded to K's dtype, dq scaled by sm_scale at the end; dq over the
-    instance's n * bq rows."""
-    B, H, S, D = q.shape
-    n, steps = bp.instances["row"][kind]
-    qt, dot = (_tiles(x, n, bp.bq).float() for x in (q, do))
-    lse_t = lse.reshape(B, H, -1, bp.bq)[:, :, :n]
-    dl_t = delta.reshape(B, H, S // bp.bq, bp.bq)[:, :, :n]
-    kt, vt = (x.reshape(B, H, S // bp.bkv, bp.bkv, D) for x in (k, v))
-    acc = torch.zeros((B, H, n, bp.bq, D), dtype=torch.float32,
-                      device=q.device)
-    for j in range(steps):
-        part, keep = _step_cells(bp, "row", kind, j, q.device)
+def _split_sum(walk, steps: int, per: Optional[int]):
+    """``walk(range(steps))``, the one walk, for ``per`` None; else the
+    sums ``walk`` returns (a tensor or a tuple of them) of each split of
+    ``per`` steps, each from zero, added in split order from zero: the
+    kernels' split walks and their merge."""
+    if per is None:
+        return walk(range(steps))
+    if per < 1:
+        raise ValueError(f"tiles per split must be >= 1, got {per}")
+    parts = [walk(range(j, min(j + per, steps)))
+             for j in range(0, steps, per)] or [walk(range(0))]
+    one = isinstance(parts[0], torch.Tensor)
+    acc = [torch.zeros_like(x) for x in ((parts[0],) if one else parts[0])]
+    for part in parts:
+        acc = [a + x for a, x in zip(acc, (part,) if one else part)]
+    return acc[0] if one else tuple(acc)
+
+
+def _dq_walk(qt, dot, lse_t, dl_t, kt, vt, key_mask, bp: BandedPlan,
+             kind: str, sm_scale: float, k_dtype, steps):
+    """K12's dq sum (before its scale) over walk ``steps`` of instance
+    ``kind``, from zero, in fp32."""
+    B, H, n, bq, D = qt.shape
+    acc = torch.zeros((B, H, n, bq, D), dtype=torch.float32,
+                      device=qt.device)
+    for j in steps:
+        part, keep = _step_cells(bp, "row", kind, j, qt.device)
         km = None if key_mask is None else _key_tiles(key_mask, bp.bkv, part)
         kj = kt[:, :, part].float()
         s = _scores(qt, kj, sm_scale, km, keep)
@@ -592,18 +644,66 @@ def banded_dq_plain(q, k, v, do, lse, delta, key_mask, bp: BandedPlan,
                         0.0)
         dp = _dot(dot, vt[:, :, part])
         ds = p * (dp - dl_t[..., None])
-        acc = acc + ds.to(k.dtype).float() @ kj
+        acc = acc + ds.to(k_dtype).float() @ kj
+    return acc
+
+
+def banded_dq_plain(q, k, v, do, lse, delta, key_mask, bp: BandedPlan,
+                    kind: str, sm_scale: float,
+                    kv_tiles_per_split: Optional[int] = None):
+    """K12's function in plain PyTorch for instance ``kind``: p
+    recomputed from ``lse`` (the instance's rows), ds = p * (dp - delta)
+    rounded to K's dtype, dq scaled by sm_scale at the end; dq over the
+    instance's n * bq rows. ``kv_tiles_per_split`` None sums the walk in
+    one, as JAX does; an integer sums each split of that many steps (the
+    gr instance's kv tiles) from zero and adds the splits in order before
+    the scale, as the kernel's split gr walk."""
+    B, H, S, D = q.shape
+    n, steps = bp.instances["row"][kind]
+    qt, dot = (_tiles(x, n, bp.bq).float() for x in (q, do))
+    lse_t = lse.reshape(B, H, -1, bp.bq)[:, :, :n]
+    dl_t = delta.reshape(B, H, S // bp.bq, bp.bq)[:, :, :n]
+    kt, vt = (x.reshape(B, H, S // bp.bkv, bp.bkv, D) for x in (k, v))
+    acc = _split_sum(lambda js: _dq_walk(qt, dot, lse_t, dl_t, kt, vt,
+                                         key_mask, bp, kind, sm_scale,
+                                         k.dtype, js),
+                     steps, kv_tiles_per_split)
     return (acc * sm_scale).to(q.dtype).reshape(B, H, n * bp.bq, D)
 
 
+def _dkv_walk(qt, dot, kt, vt, lse_t, dl_t, km, bp: BandedPlan, kind: str,
+              sm_scale: float, q_dtype, do_dtype, steps):
+    """K13's dk (before its scale) and dv sums over walk ``steps`` of
+    instance ``kind``, from zero, in fp32."""
+    B, H, n, bkv, D = kt.shape
+    acc_k = torch.zeros((B, H, n, bkv, D), dtype=torch.float32,
+                        device=kt.device)
+    acc_v = torch.zeros_like(acc_k)
+    for j in steps:
+        part, keep = _step_cells(bp, "col", kind, j, kt.device)
+        qj, doj = qt[:, :, part].float(), dot[:, :, part].float()
+        s = _scores(qj, kt, sm_scale, km, keep)               # (.., bq, bkv)
+        p = torch.where(s > VALID_THRESH,
+                        torch.exp(s - lse_t[:, :, part, :, None]), 0.0)
+        acc_v = acc_v + p.to(do_dtype).float().transpose(-1, -2) @ doj
+        dp = _dot(doj, vt)
+        ds = p * (dp - dl_t[:, :, part, :, None])
+        acc_k = acc_k + ds.to(q_dtype).float().transpose(-1, -2) @ qj
+    return acc_k, acc_v
+
+
 def banded_dkv_plain(q, k, v, do, lse, delta, key_mask, bp: BandedPlan,
-                     kind: str, sm_scale: float):
+                     kind: str, sm_scale: float,
+                     q_tiles_per_split: Optional[int] = None):
     """K13's function in plain PyTorch for instance ``kind`` ("band",
     "gc" or "gr"): per kv tile the transposed walk over q tiles, p from
     ``lse`` (the rows the instance reads: all S, or the global rows' for
     "gr"), dv from p rounded to do's dtype, dk from ds rounded to q's
     dtype and scaled by sm_scale at the end; dk, dv over the instance's
-    n * bkv rows."""
+    n * bkv rows. ``q_tiles_per_split`` None sums the walk in one, as JAX
+    does; an integer sums each split of that many steps (the gc
+    instance's q tiles) from zero and adds the splits in order before
+    dk's scale, as the kernel's split gc walk."""
     B, H, S, D = q.shape
     n, steps = bp.instances["col"][kind]
     kt, vt = (_tiles(x, n, bp.bkv).float() for x in (k, v))
@@ -612,19 +712,10 @@ def banded_dkv_plain(q, k, v, do, lse, delta, key_mask, bp: BandedPlan,
     dl_t = delta.reshape(B, H, S // bp.bq, bp.bq)
     km = None if key_mask is None else _key_tiles(
         key_mask, bp.bkv, torch.arange(n, device=q.device))
-    acc_k = torch.zeros((B, H, n, bp.bkv, D), dtype=torch.float32,
-                        device=q.device)
-    acc_v = torch.zeros_like(acc_k)
-    for j in range(steps):
-        part, keep = _step_cells(bp, "col", kind, j, q.device)
-        qj, doj = qt[:, :, part].float(), dot[:, :, part].float()
-        s = _scores(qj, kt, sm_scale, km, keep)               # (.., bq, bkv)
-        p = torch.where(s > VALID_THRESH,
-                        torch.exp(s - lse_t[:, :, part, :, None]), 0.0)
-        acc_v = acc_v + p.to(do.dtype).float().transpose(-1, -2) @ doj
-        dp = _dot(doj, vt)
-        ds = p * (dp - dl_t[:, :, part, :, None])
-        acc_k = acc_k + ds.to(q.dtype).float().transpose(-1, -2) @ qj
+    acc_k, acc_v = _split_sum(
+        lambda js: _dkv_walk(qt, dot, kt, vt, lse_t, dl_t, km, bp, kind,
+                             sm_scale, q.dtype, do.dtype, js),
+        steps, q_tiles_per_split)
     rows = n * bp.bkv
     return ((acc_k * sm_scale).to(k.dtype).reshape(B, H, rows, D),
             acc_v.to(v.dtype).reshape(B, H, rows, D))
@@ -702,7 +793,7 @@ def _check_cuda(operands, fp32, bp: BandedPlan):
 
 _fns = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# after the pointers (and banded_fwd's kv tiles per split): dtype, bh,
+# after the pointers (and the kernel's tiles per split): dtype, bh,
 # heads, seq, head_dim, bq, bkv, fine block, g_r, g_c, w, causal, kind,
 # tiles, steps, GT, gc_q0, lse rows, sm_scale, stream
 _TAIL = [_I] * 18 + [_F, _P]
@@ -740,6 +831,33 @@ def _launch(name, q, ptrs, bp: BandedPlan, walk, kind, lse_rows, sm_scale,
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def _tiles_per_split(rule: Optional[int], given: Optional[int], q,
+                     kind: str, what: str, name: str, steps: int) -> int:
+    """The steps per split a kernel walks instance ``kind`` in: ``given``
+    where not None (an error where the kernel does not split that walk:
+    ``rule`` None), else ``rule``'s, else the whole walk (one split)."""
+    if given is not None:
+        if rule is None:
+            raise ValueError(f"the {q.dtype} {kind!r} walk of the banded "
+                             f"{what} kernel is not split: got "
+                             f"{name}={given}")
+        rule = int(given)
+        if rule < 1:
+            raise ValueError(f"{name} must be >= 1, got {rule}")
+    return min(rule or steps, steps)
+
+
+def _split_buffers(owner: str, q, splits: int, floats: int, blocks: int):
+    """The workspace of a split walk's partials (``floats`` fp32 a split)
+    and the arrival counters of its ``blocks`` row blocks, or (None,
+    None) for one split."""
+    if splits == 1:
+        return None, None
+    ws = torch.empty(splits * floats, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return ws, arrival_counts(owner, q.device, stream, blocks)
+
+
 def banded_fwd(q, k, v, key_mask, bp: BandedPlan, kind: str,
                sm_scale: float, kv_tiles_per_split: Optional[int] = None):
     """K11: ``(o, lse)`` of :func:`banded_fwd_plain` for instance
@@ -758,30 +876,16 @@ def banded_fwd(q, k, v, key_mask, bp: BandedPlan, kind: str,
                    (("q", q), ("k", k), ("v", v), ("key_mask", key_mask)))
     B, H, _, D = q.shape
     n, steps = bp.instances["row"][kind]
-    kps = fwd_split(q, bp, kind)
-    if kv_tiles_per_split is not None:
-        if kps is None:
-            raise ValueError(f"the {q.dtype} {kind!r} walk of the banded "
-                             f"forward kernel is not split: got "
-                             f"kv_tiles_per_split={kv_tiles_per_split}")
-        kps = int(kv_tiles_per_split)
-        if kps < 1:
-            raise ValueError(f"kv_tiles_per_split must be >= 1, got {kps}")
-    kps = min(kps or steps, steps)
-    splits = _ceil_div(steps, kps)
+    kps = _tiles_per_split(fwd_split(q, bp, kind), kv_tiles_per_split, q,
+                           kind, "forward", "kv_tiles_per_split", steps)
     rows = n * bp.bq
     o = torch.empty((B, H, rows, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, rows), dtype=torch.float32, device=q.device)
-    # the splits' partials (acc, then m and l), merged by the last split
-    ws, arrivals = None, None
-    if splits > 1:
-        ws = torch.empty(splits * B * H * rows * (D + 2),
-                         dtype=torch.float32, device=q.device)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        # one counter per (b, h, row block)
-        arrivals = arrival_counts(
-            "banded_fwd", q.device, stream,
-            B * H * (rows // min(bp.bq, MMA_ROWS)))
+    # the splits' partials (acc, then m and l), merged by the last split;
+    # one counter per (b, h, row block)
+    ws, arrivals = _split_buffers(
+        "banded_fwd", q, _ceil_div(steps, kps), B * H * rows * (D + 2),
+        B * H * (rows // min(bp.bq, MMA_ROWS)))
     start, end = bp.bounds("row", q.device)
     _launch("banded_fwd", q, [q, k, v, key_mask, o, lse, ws, arrivals,
                               start, end], bp, "row", kind, rows, sm_scale,
@@ -791,53 +895,95 @@ def banded_fwd(q, k, v, key_mask, bp: BandedPlan, kind: str,
     return o, lse
 
 
+def _check_bwd_aligned(q, k, v, do, key_mask=None):
+    """K12's and K13's operands for their tensor-core bodies (dq, dk and
+    dv, allocated by the wrappers, are aligned)."""
+    _check_aligned("banded backward", DQ_BODIES, q.dtype,
+                   (("q", q), ("k", k), ("v", v), ("do", do),
+                    ("key_mask", key_mask)))
+
+
 def banded_dq(q, k, v, do, lse, delta, key_mask, bp: BandedPlan, kind: str,
-              sm_scale: float):
-    """K12: ``dq`` of :func:`banded_dq_plain` for instance ``kind``;
-    kernel on CUDA, plain version on the CPU."""
+              sm_scale: float, kv_tiles_per_split: Optional[int] = None,
+              tally=None):
+    """K12: ``dq`` of :func:`banded_dq_plain` for instance ``kind``. A
+    CUDA ``q`` launches the sm_90a kernel (raising on any dtype, shape,
+    device, alignment or launch problem): in bf16 the tensor-core dq
+    body, which walks the gr instance in splits of ``kv_tiles_per_split``
+    kv tiles (None: :func:`fwd_split`'s) summed in the same launch; in fp32
+    the CUDA-core body, one walk. A CPU ``q`` runs the plain version with
+    the split given (None: JAX's one walk). ``tally`` (a measurement):
+    None, or one int64 on q's device to which the tensor-core body adds
+    the cells it sums again in the plain order."""
     _check_args(q, k, v, key_mask, bp, "row", kind)
     _check_stats(q, lse, delta, bp, kind)
     if q.device.type == "cpu":
         return banded_dq_plain(q, k, v, do, lse, delta, key_mask, bp, kind,
-                               sm_scale)
+                               sm_scale, kv_tiles_per_split)
     _check_cuda((q, k, v, do), (lse, delta, key_mask), bp)
+    _check_bwd_aligned(q, k, v, do, key_mask)
+    _check_tally(tally, q)
     B, H, _, D = q.shape
-    rows = bp.instances["row"][kind][0] * bp.bq
+    n, steps = bp.instances["row"][kind]
+    kps = _tiles_per_split(fwd_split(q, bp, kind), kv_tiles_per_split, q,
+                           kind, "dq", "kv_tiles_per_split", steps)
+    rows = n * bp.bq
     dq = torch.empty((B, H, rows, D), dtype=q.dtype, device=q.device)
+    ws, arrivals = _split_buffers(
+        "banded_dq", q, _ceil_div(steps, kps), B * H * rows * D,
+        B * H * (rows // min(bp.bq, MMA_ROWS)))
     start, end = bp.bounds("row", q.device)
-    _launch("banded_dq", q, [q, k, v, do, lse, delta, key_mask, dq, start,
-                             end], bp, "row", kind, lse.shape[-1], sm_scale)
+    _launch("banded_dq", q, [q, k, v, do, lse, delta, key_mask, dq, ws,
+                             arrivals, tally, start, end], bp, "row", kind,
+            lse.shape[-1], sm_scale, ints=(kps,))
     banded_dq.launches += 1
+    _count_body(banded_dq, q.dtype, DQ_BODIES)
     return dq
 
 
 def banded_dkv(q, k, v, do, lse, delta, key_mask, bp: BandedPlan, kind: str,
-               sm_scale: float):
+               sm_scale: float, q_tiles_per_split: Optional[int] = None,
+               tally=None):
     """K13: ``(dk, dv)`` of :func:`banded_dkv_plain` for instance
-    ``kind``; kernel on CUDA, plain version on the CPU."""
+    ``kind``. A CUDA ``q`` launches the sm_90a kernel as
+    :func:`banded_dq` does: in bf16 the tensor-core dk/dv body, which
+    walks the gc instance in splits of ``q_tiles_per_split`` q tiles
+    (None: :func:`dkv_split`'s) summed in the same launch; in fp32 the
+    CUDA-core body, one walk. A CPU ``q`` runs the plain version with the
+    split given (None: JAX's one walk). ``tally``: as :func:`banded_dq`'s."""
     _check_args(q, k, v, key_mask, bp, "col", kind)
     _check_stats(q, lse, delta, bp, kind)
     if q.device.type == "cpu":
         return banded_dkv_plain(q, k, v, do, lse, delta, key_mask, bp, kind,
-                                sm_scale)
+                                sm_scale, q_tiles_per_split)
     _check_cuda((q, k, v, do), (lse, delta, key_mask), bp)
+    _check_bwd_aligned(q, k, v, do, key_mask)
+    _check_tally(tally, q)
     B, H, _, D = q.shape
-    rows = bp.instances["col"][kind][0] * bp.bkv
+    n, steps = bp.instances["col"][kind]
+    qps = _tiles_per_split(dkv_split(q, bp, kind), q_tiles_per_split, q,
+                           kind, "dk/dv", "q_tiles_per_split", steps)
+    rows = n * bp.bkv
     dk = torch.empty((B, H, rows, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, H, rows, D), dtype=v.dtype, device=q.device)
+    # the splits' dk partials, then their dv partials
+    ws, arrivals = _split_buffers(
+        "banded_dkv", q, _ceil_div(steps, qps), 2 * B * H * rows * D,
+        B * H * (rows // min(bp.bkv, MMA_ROWS)))
     start, end = bp.bounds("col", q.device)
     _launch("banded_dkv", q, [q, k, v, do, lse, delta, key_mask, dk, dv,
-                              start, end], bp, "col", kind, lse.shape[-1],
-            sm_scale)
+                              ws, arrivals, tally, start, end], bp, "col",
+            kind, lse.shape[-1], sm_scale, ints=(qps,))
     banded_dkv.launches += 1
+    _count_body(banded_dkv, q.dtype, DKV_BODIES)
     return dk, dv
 
 
 def reset_launches():
-    """Set every launch count of K11-K13 to 0, K11's also by body."""
+    """Set every launch count of K11-K13 to 0, also by body."""
     for w in (banded_fwd, banded_dq, banded_dkv):
         w.launches = 0
-    banded_fwd.bodies = {}
+        w.bodies = {}
 
 
 reset_launches()

@@ -592,18 +592,28 @@ def test_mlm_loss_legacy_dispatch_matches_jax(legacy):
 # ------------------------------------------------------- on the card
 CUDA_CASES = [
     # (B, H, S, D, fine block, geometry, tiles, key mask, dtype, kv tiles
-    # per split of K11's gr walk: None = the kernel's own, fwd_split)
-    (1, 16, 8192, 64, 128, (1, 1, 1, False), None, None, "bf16", None),
-    (8, 16, 2048, 64, 16, (1, 1, 1, False), None, "mul", "bf16", None),
-    (2, 4, 512, 64, 32, (2, 2, 2, True), (64, 128), "add", "fp32", None),
-    (2, 4, 512, 64, 32, (3, 3, 1, False), (128, 64), "mul", "bf16", None),
-    (2, 4, 512, 32, 16, (0, 2, 1, True), (16, 32), None, "fp32", None),
-    (2, 4, 512, 128, 32, (1, 1, 0, True), (32, 16), "mul", "bf16", None),
-    # K11's split gr walk: one kv tile a split, an uneven last split, a
-    # causal walk whose global rows are wider than a q tile
-    (2, 4, 512, 64, 32, (1, 1, 1, False), (64, 64), "mul", "bf16", 1),
-    (2, 4, 512, 64, 32, (1, 1, 1, False), (32, 32), "add", "bf16", 3),
-    (2, 4, 512, 64, 32, (3, 3, 1, True), (64, 32), None, "bf16", 2),
+    # per split of K11's and K12's gr walks, q tiles per split of K13's gc
+    # walk: None = the kernels' own, fwd_split / dkv_split)
+    (1, 16, 8192, 64, 128, (1, 1, 1, False), None, None, "bf16", None,
+     None),
+    (8, 16, 2048, 64, 16, (1, 1, 1, False), None, "mul", "bf16", None,
+     None),
+    (2, 4, 512, 64, 32, (2, 2, 2, True), (64, 128), "add", "fp32", None,
+     None),
+    (2, 4, 512, 64, 32, (3, 3, 1, False), (128, 64), "mul", "bf16", None,
+     None),
+    (2, 4, 512, 32, 16, (0, 2, 1, True), (16, 32), None, "fp32", None,
+     None),
+    (2, 4, 512, 128, 32, (1, 1, 0, True), (32, 16), "mul", "bf16", None,
+     None),
+    # the split walks: one tile a split, uneven last splits, a causal walk
+    # whose global rows and columns are wider than a tile, one warp a CTA
+    # at bq != bkv, head dim 128
+    (2, 4, 512, 64, 32, (1, 1, 1, False), (64, 64), "mul", "bf16", 1, 1),
+    (2, 4, 512, 64, 32, (1, 1, 1, False), (32, 32), "add", "bf16", 3, 5),
+    (2, 4, 512, 64, 32, (3, 3, 1, True), (64, 32), None, "bf16", 2, 3),
+    (2, 4, 512, 64, 16, (2, 1, 1, False), (16, 32), "mul", "bf16", 4, 7),
+    (2, 4, 512, 128, 32, (2, 3, 1, True), (128, 64), "add", "bf16", 3, 2),
 ]
 
 
@@ -611,15 +621,16 @@ CUDA_CASES = [
 @pytest.mark.parametrize("case", CUDA_CASES)
 def test_cuda_kernels_match_plain(case):
     """K11, K12 and K13 on the card, every instance, against their plain
-    versions on the same inputs (K11's gr instance against the plain
-    version split as the kernel splits it; K12 and K13 take the plain
-    forward's lses): the s8k BSLongformer geometry at the rule's tiles,
-    sparse BERT's BSLongformer with its key mask, JAX's geometries at
-    asymmetric tiles, and forced splits of the gr walk."""
+    versions on the same inputs (K11's and K12's gr instances and K13's
+    gc instance against the plain versions split as the kernels split
+    them; K12 and K13 take the plain forward's lses): the s8k
+    BSLongformer geometry at the rule's tiles, sparse BERT's BSLongformer
+    with its key mask, JAX's geometries at asymmetric tiles, and forced
+    splits of the gr and gc walks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from deepspeed_tpu_torch.ops.sparse_attention import banded as tb
-    B, H, s, d, fb, geom, blocks, mode, dtype, kps = case
+    B, H, s, d, fb, geom, blocks, mode, dtype, kps, qps = case
     params = tb.BandedParams(*geom)
     blocks = blocks or tb.pick_blocks(s, fb, params, False)
     bp = tb.BandedPlan(H, s, fb, params, *blocks)
@@ -647,12 +658,19 @@ def test_cuda_kernels_match_plain(case):
     lses["gc"] = lses["band"]
     for kind in bp.instances["row"]:
         args = (q, k, v, do, lses[kind], delta, key, bp, kind, scale)
-        _check_pairs([(tb.banded_dq(*args), tb.banded_dq_plain(*args))],
+        split = kps if kind == "gr" else None
+        _check_pairs([(tb.banded_dq(*args, kv_tiles_per_split=split),
+                       tb.banded_dq_plain(
+                           *args, split or tb.fwd_split(q, bp, kind)))],
                      dtype)
     for kind in bp.instances["col"]:
         args = (q, k, v, do, lses[kind], delta, key, bp, kind, scale)
-        _check_pairs(list(zip(tb.banded_dkv(*args),
-                              tb.banded_dkv_plain(*args))), dtype)
+        split = qps if kind == "gc" else None
+        _check_pairs(list(zip(tb.banded_dkv(*args, q_tiles_per_split=split),
+                              tb.banded_dkv_plain(
+                                  *args, split or tb.dkv_split(q, bp,
+                                                               kind)))),
+                     dtype)
     torch.cuda.synchronize()
 
 

@@ -93,7 +93,35 @@ Phases 10 to 12 run after phase 4, before the training phases.
    pool (logits and pools compared).
 12. GPT-2 345M over the int8 pool, 8 requests (G 1 on the main path),
    then a decode profile as in phase 3.
-Phases 13 to 17 run after phase 9.
+Phases 36 to 38 run after phase 9, before phase 13: Llama training,
+K1-K3 at G 4 (32 q heads over 8 kv heads) on the training path.
+36. llama_train_kernel_vs_plain: the LLAMA_1B widths at 2 layers, fp32,
+   seq 1024, batch 2: llama_loss_fn's loss and every grad through K1-K3
+   against their plain versions, then with remat=True against the
+   non-remat kernel path (loss rtol 1e-5, grads 1e-4 of each grad's
+   max); K1-K3's launches in both modes (remat: K1 twice per layer),
+   each on the fp32 body.
+37. llama_training: LLAMA_1B (16 layers, nothing cut, random weights from
+   seed 0) with examples/llama/ds_config_zero2.json as held (micro batch
+   8, bf16 over fp32 masters, Adam betas 0.9/0.95, weight decay 0.1,
+   WarmupLR, clipping 1.0, ZeRO 2) at seq 1024 and
+   observability.enabled (events_dir in a temporary directory), the
+   example's synthetic ids: 2 warm-up and 10 timed steps (step ms,
+   tokens/s, peak memory, K1-K3's launches per step, all on the
+   tensor-core body, MFU by PERF.md's formula and by the Observer's
+   counted FLOPs, side by side); a profile of 2 more (idle share, time
+   by group, the optimizer's foreach passes apart) and the fp32 head
+   alone; tools/obs_report.py's summary of the events log must give the
+   step count, a step time, an MFU, the FLOPs per step and the peak
+   memory; then 2 steps of the trained weights under remat=True
+   (launches per step, step ms).
+38. llama_gqa_kernel_timing: K1, K2 and K3 alone at the Llama step's
+   shape (B 8, H 32, kv heads 8, S 1024, D 64, bf16, causal, block 128),
+   held against their plain versions (TRAIN_TOL, with the rounding
+   control), then timed as in phase 6 beside the bound, one plain call,
+   SDPA with enable_gqa=True, and K3's group sum of its fp32 per-q-head
+   partials on its own line.
+Phases 13 to 17 run after phase 38.
 13. bert_kernel_check: K1, K2 and K3 in their key-mask arity (BERT's
    additive padding mask, -1e9 on the pads) against their plain versions
    on the card: BERT-large's attention (B 8, H 16, S 128, D 64, bf16,
@@ -321,7 +349,9 @@ fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
    and no other attention kernel; the
    losses beside phase 19's; then phase 20's kernel-vs-plain check of it
    at seq 2048.
-36. the {"kernels": [...]} line (with the three key-mask, the three
+39. the {"kernels": [...]} line (K1-K3 with their launches on the GPT-2
+   and the Llama training paths and their Llama-shape times of phase 38,
+   with the three key-mask, the three
    band, the three row-run, the three banded, the three no-mask
    row-run, the three legacy flash entries and K14-K16 in each of their
    three arities on the paths above; each with its "body": "mma" for
@@ -1806,12 +1836,14 @@ def training_phase(smi, device="cuda", config=None, batch=8, seq=1024,
     return launches, losses
 
 
-def train_profile_phase(engine, data, step_ms, steps=2):
+def train_profile_phase(engine, data, step_ms, steps=2,
+                        phase="train_profile", extra_groups=None):
     """Where a training step's time goes: a torch.profiler window over
     ``steps`` train_batch calls, the kernels' own device time per step
     (one stream, so kernels do not overlap), grouped into the three
-    masked-flash kernels, GEMMs and the rest; the device idle share is
-    what the kernels leave of the unprofiled step time."""
+    masked-flash kernels, GEMMs, ``extra_groups`` ({group: name keys})
+    and the rest; the device idle share is what the kernels leave of the
+    unprofiled step time. Returns the row."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1831,6 +1863,7 @@ def train_profile_phase(engine, data, step_ms, steps=2):
               "masked_flash_dq": ("mf_dq_",),
               "masked_flash_dkv": ("mf_dkv_",),
               "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas")}
+    groups.update(extra_groups or {})
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
     for name, ms, _ in kernels:
         low = name.lower()
@@ -1838,16 +1871,19 @@ def train_profile_phase(engine, data, step_ms, steps=2):
                       if any(k in low for k in keys)), "other")
         by_group[group] += ms
     busy_ms = sum(k[1] for k in kernels)
-    emit({"phase": "train_profile", "steps": steps, "step_ms": step_ms,
-          "device_busy_ms_per_step": busy_ms,
-          "device_idle_share": 1 - busy_ms / step_ms,
-          "ms_per_step_by_group": by_group,
-          "kernel_launches_per_step": sum(k[2] for k in kernels),
-          "top_kernels": [{"name": k[0][:90], "ms_per_step": k[1],
-                           "calls_per_step": k[2]} for k in kernels[:15]]})
+    row = {"phase": phase, "steps": steps, "step_ms": step_ms,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": 1 - busy_ms / step_ms,
+           "ms_per_step_by_group": by_group,
+           "kernel_launches_per_step": sum(k[2] for k in kernels),
+           "top_kernels": [{"name": k[0][:90], "ms_per_step": k[1],
+                            "calls_per_step": k[2]} for k in kernels[:15]]}
+    emit(row)
+    return row
 
 
-def head_phase(engine, cfg, batch, seq, step_ms, calls=5):
+def head_phase(engine, cfg, batch, seq, step_ms, calls=5, head="wte",
+               phase="train_head"):
     """What the tied LM head and cross entropy cost at the training
     shapes: forward and backward of the chunked head, whose (tokens,
     vocab) GEMMs run in fp32 with TF32 off on bf16-rounded operands
@@ -1858,7 +1894,7 @@ def head_phase(engine, cfg, batch, seq, step_ms, calls=5):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     x = torch.randn((batch, seq, cfg.hidden_size), generator=gen,
                     device="cuda").to(torch.bfloat16).requires_grad_()
-    wte = engine.module_params["wte"].detach().to(
+    wte = engine.module_params[head].detach().to(
         torch.bfloat16).requires_grad_()
     targets = torch.randint(0, cfg.vocab_size, (batch, seq), device="cuda",
                             generator=gen)
@@ -1871,11 +1907,13 @@ def head_phase(engine, cfg, batch, seq, step_ms, calls=5):
     # four (tokens x vocab x hidden) GEMMs: logits, their recompute in the
     # backward, dx and dwte
     flops = 4 * 2 * batch * seq * cfg.vocab_size * cfg.hidden_size
-    emit({"phase": "train_head", "tokens": batch * seq,
-          "vocab": cfg.vocab_size, "hidden": cfg.hidden_size,
-          "fwd_bwd_ms": ms, "share_of_step": ms / step_ms, "flops": flops,
-          "achieved_tflop_per_s": flops / ms / 1e9,
-          "matmul": "fp32, TF32 off, bf16-rounded operands"})
+    row = {"phase": phase, "tokens": batch * seq,
+           "vocab": cfg.vocab_size, "hidden": cfg.hidden_size,
+           "fwd_bwd_ms": ms, "share_of_step": ms / step_ms, "flops": flops,
+           "achieved_tflop_per_s": flops / ms / 1e9,
+           "matmul": "fp32, TF32 off, bf16-rounded operands"}
+    emit(row)
+    return row
 
 
 def training_dropout_phase(steps=3, batch=8, seq=1024, route=None):
@@ -5460,6 +5498,385 @@ def bert_sparse_training_v1_phase(smi, fixed_losses, randn_ms):
     return got
 
 
+# --------------------------------------------------------------- Llama
+LLAMA_DS_CONFIG = "examples/llama/ds_config_zero2.json"
+LLAMA_SEQ = 1024
+LLAMA_GQA_TRAIN_SHAPE = dict(B=8, H=32, Hkv=8, S=LLAMA_SEQ, D=64, block=128)
+# device groups of the Llama step's profile beside K1-K3 and the GEMMs:
+# the optimizer's torch._foreach_* passes (Adam, the clipping's scale)
+LLAMA_PROFILE_GROUPS = {"optimizer": ("multi_tensor_apply",)}
+
+
+def _check_bodies(phase, bodies, dtype):
+    """Every launch of K1-K3 in ``bodies`` ran ``dtype``'s body."""
+    want = kernel_body("masked_flash_fwd", dtype)
+    if any(set(b) - {want} for b in bodies.values()):
+        raise AssertionError(f"{phase}: a {dtype} launch of K1-K3 ran "
+                             f"another body than {want!r}: {bodies}")
+
+
+def llama_train_kernel_vs_plain_phase(device="cuda", batch=2, seq=LLAMA_SEQ,
+                                      config=None):
+    """The LLAMA_1B widths at 2 layers in fp32: llama_loss_fn's loss and
+    every grad through K1-K3 at G 4 against their plain versions, then
+    with remat=True against the non-remat kernel path, each at
+    TRAIN_MODEL_LOSS_RTOL and TRAIN_MODEL_GRAD_TOL; K1-K3's launches per
+    loss and backward in both modes, every one on the fp32 body. Returns
+    {mode: launches}."""
+    import torch
+    from deepspeed_tpu_torch.models.llama import (init_llama_params,
+                                                  llama_loss_fn)
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    cfg = (config or llama_1b_config())._replace(num_layers=2)
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    params = init_llama_params(cfg, gen)
+    leaves = list(tree_leaves(params))
+    for t in leaves:
+        t.requires_grad_()
+    ids = np.random.RandomState(SEED + 4).randint(
+        0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+    data = {"input_ids": torch.from_numpy(ids).to(device)}
+    results = {}
+    for path, remat in (("kernel", False), ("plain", False),
+                        ("kernel_remat", True)):
+        _reset_all_launches()
+        with (MASKED_ROUTE.plain() if path == "plain"
+              else contextlib.nullcontext()):
+            loss = llama_loss_fn(cfg, dtype=torch.float32, remat=remat)(
+                params, data, None)
+            grads = torch.autograd.grad(loss, leaves)
+        launches, other = MASKED_ROUTE.launches()
+        bodies = _mma_bodies(KPM_NAMES)
+        if any(other.values()):
+            raise AssertionError(f"other attention kernels launched: "
+                                 f"{other}")
+        _check_bodies(f"llama_train_kernel_vs_plain {path}", bodies, "fp32")
+        results[path] = (float(loss.detach()), grads, launches)
+
+    def differ(a, b):
+        (la, ga, _), (lb, gb, _) = results[a], results[b]
+        worst = max(float((x - y).abs().max())
+                    / max(float(y.abs().max()), 1e-30)
+                    for x, y in zip(ga, gb))
+        return abs(la - lb) / abs(lb), worst
+    want = {"kernel": dict.fromkeys(KPM_NAMES, cfg.num_layers),
+            "plain": dict.fromkeys(KPM_NAMES, 0),
+            "kernel_remat": {"masked_flash_fwd": 2 * cfg.num_layers,
+                             "masked_flash_dq": cfg.num_layers,
+                             "masked_flash_dkv": cfg.num_layers}}
+    row = {"phase": "llama_train_kernel_vs_plain", "model": "llama-1b-width",
+           "layers": cfg.num_layers, "dtype": "fp32", "batch": batch,
+           "seq": seq, "group": cfg.num_heads // cfg.kv_heads,
+           "loss_rtol": TRAIN_MODEL_LOSS_RTOL,
+           "grad_tol": TRAIN_MODEL_GRAD_TOL, "grads": len(leaves),
+           "launches": {p: r[2] for p, r in results.items()},
+           "launches_want": want}
+    ok = all(results[p][2] == want[p] for p in want)
+    for name, (a, b) in (("kernel_vs_plain", ("kernel", "plain")),
+                         ("remat_vs_kernel", ("kernel_remat", "kernel"))):
+        loss_rel, worst = differ(a, b)
+        row[name] = {"loss_a": results[a][0], "loss_b": results[b][0],
+                     "loss_rel_err": loss_rel, "worst_grad_rel_err": worst}
+        ok &= loss_rel <= TRAIN_MODEL_LOSS_RTOL and \
+            worst <= TRAIN_MODEL_GRAD_TOL
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        raise AssertionError(f"llama kernel path differs from the plain "
+                             f"path or from its remat, or launched other "
+                             f"counts: {row}")
+    return {p: r[2] for p, r in results.items()}
+
+
+def _obs_report():
+    """tools/obs_report.py (stdlib only), loaded from the checkout."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "obs_report.py")
+    spec = importlib.util.spec_from_file_location("obs_report", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def llama_training_phase(smi, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP,
+                         remat_steps=2, device="cuda", config=None,
+                         seq=LLAMA_SEQ, batch=None):
+    """LLAMA_1B (16 layers, nothing cut) trained through initialize +
+    train_batch with examples/llama/ds_config_zero2.json as held (micro
+    batch 8, bf16 over fp32 masters, Adam betas 0.9/0.95 and weight decay
+    0.1, WarmupLR, clipping 1.0, ZeRO 2 on one device) at seq 1024, with
+    observability.enabled into a temporary events_dir; synthetic ids as
+    the example makes them (a fresh batch each step from RandomState(0)).
+    ``warmup`` then ``steps`` timed steps: step ms, tokens/s, peak memory,
+    K1-K3's launches per step (all on the tensor-core body), MFU by
+    PERF.md's formula and by the Observer's counted FLOPs; a profile of 2
+    more steps (idle share, time by group) and the fp32 head alone; then
+    ``remat_steps`` steps under remat=True (launches per step, step ms).
+    The events log must give tools/obs_report.py's summary a step count,
+    step time, MFU, FLOPs per step and peak memory. Returns the timed
+    steps' launches. ``device``, ``config``, ``seq`` and ``batch`` (the
+    micro batch) let a CPU run rehearse it at a tiny size (no profile,
+    no head timing, no peak memory there)."""
+    import shutil
+    import tempfile
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import (count_params,
+                                                  init_llama_params,
+                                                  llama_loss_fn)
+    on_cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize()
+    cfg = config or llama_1b_config()
+    with open(LLAMA_DS_CONFIG) as f:
+        ds_config = json.load(f)
+    if batch is not None:
+        ds_config["train_micro_batch_size_per_gpu"] = batch
+    events_dir = tempfile.mkdtemp(prefix="llama_obs_")
+    ds_config["observability"] = {"enabled": True, "events_dir": events_dir}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_llama_params(cfg, gen)
+    n_params = count_params(params)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=llama_loss_fn(cfg), model_parameters=params, config=ds_config,
+        device=device)
+    del params
+    batch = engine.train_micro_batch_size_per_gpu()
+    rng = np.random.RandomState(SEED)
+
+    def micro_batches():
+        while True:
+            yield {"input_ids": rng.randint(
+                0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)}
+    it = micro_batches()
+    for _ in range(warmup):
+        engine.train_batch(it)
+    sync()
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(engine.train_batch(it))
+    sync()
+    wall = time.perf_counter() - t0
+    launches, other = MASKED_ROUTE.launches()
+    bodies = _mma_bodies(KPM_NAMES)
+    losses = [float(x) for x in losses]
+    L, H = cfg.num_layers, cfg.hidden_size
+    step_s = wall / steps
+    tokens_per_s = batch * seq / step_s
+    _, peak_flops = card_peaks(smi)
+    flops_per_token = 6 * n_params + 12 * L * seq * H
+    prof = engine.observability.flops_profiles["micro_step"]
+    mfu_formula = flops_per_token * tokens_per_s / peak_flops
+    mfu_counted = prof.flops / step_s / peak_flops
+    row = {"phase": "llama_training", "model": "llama-1b",
+           "params": n_params, "config": LLAMA_DS_CONFIG, "batch": batch,
+           "seq": seq, "group": cfg.num_heads // cfg.kv_heads,
+           "dtype": "bf16 over fp32 masters", "warmup_steps": warmup,
+           "steps": steps, "step_ms": step_s * 1e3,
+           "tokens_per_s": tokens_per_s, "losses": losses,
+           "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                 if on_cuda else None),
+           "kernel_launches": launches,
+           "kernel_launches_per_step": {n: c / steps
+                                        for n, c in launches.items()},
+           "other_attention_launches": other, "launches_by_body": bodies,
+           "flops_per_token_formula": flops_per_token,
+           "flops_per_step_formula": flops_per_token * batch * seq,
+           "flops_per_step_counted": prof.flops,
+           "counted_kernel_flops": prof.kernel_flops,
+           "counted_over_formula": prof.flops / (flops_per_token * batch
+                                                 * seq),
+           "mfu_formula": mfu_formula, "mfu_counted": mfu_counted,
+           "mfu_counted_over_formula": mfu_counted / mfu_formula,
+           "nvidia_smi": smi}
+    emit(row)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite llama training loss: {losses}")
+    for name, n in launches.items():
+        if n != L * steps:
+            raise AssertionError(f"{name} launched {n} times in {steps} "
+                                 f"llama steps, want {L} per step")
+    if any(other.values()):
+        raise AssertionError(f"other attention kernels launched: {other}")
+    _check_mma_bodies("llama_training", bodies)
+    if prof.uncounted or not prof.flops > 0:
+        raise AssertionError(f"the Observer counted no FLOPs: {prof}")
+    profile, head = {}, {}
+    if on_cuda:
+        profile = train_profile_phase(engine, next(it), row["step_ms"],
+                                      phase="llama_train_profile",
+                                      extra_groups=LLAMA_PROFILE_GROUPS)
+        head = head_phase(engine, cfg, batch, seq, row["step_ms"],
+                          head="lm_head", phase="llama_train_head")
+    engine.close()
+    summary = _obs_report().summarize(events_dir)
+    shutil.rmtree(events_dir, ignore_errors=True)
+    # the trained weights again under remat: K1 twice per layer
+    del ds_config["observability"]
+    trained = engine.module_params
+    del engine
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=llama_loss_fn(cfg, remat=True), model_parameters=trained,
+        config=ds_config, device=device)
+    del trained
+    engine.train_batch(it)
+    sync()
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    for _ in range(remat_steps):
+        engine.train_batch(it)
+    sync()
+    remat_ms = (time.perf_counter() - t0) / remat_steps * 1e3
+    remat_launches, other = MASKED_ROUTE.launches()
+    remat_bodies = _mma_bodies(KPM_NAMES)
+    del engine
+    obs = {"steps": summary["steps"],
+           "step_time_ms_p50": summary["step_time_ms"]["p50"],
+           "samples_per_sec_last": summary["samples_per_sec"]["last"],
+           "mfu_best": summary["mfu"]["best"],
+           "flops_per_step": summary["flops_per_step"],
+           "bytes_accessed": summary["bytes_accessed"],
+           "peak_bytes_in_use": summary["memory"]["peak_bytes_in_use"],
+           "loss_first": summary["loss"]["first"],
+           "loss_last": summary["loss"]["last"]}
+    want_remat = {"masked_flash_fwd": 2 * L, "masked_flash_dq": L,
+                  "masked_flash_dkv": L}
+    emit({"phase": "llama_training_remat", "steps": remat_steps,
+          "step_ms": remat_ms, "over_no_remat": remat_ms / row["step_ms"],
+          "kernel_launches_per_step": {n: c / remat_steps
+                                       for n, c in remat_launches.items()},
+          "launches_by_body": remat_bodies, "nvidia_smi": smi})
+    emit({"phase": "llama_training_obs_report", **obs,
+          "device_idle_share": profile.get("device_idle_share"),
+          "head_fwd_bwd_ms": head.get("fwd_bwd_ms")})
+    if any(remat_launches[n] != want_remat[n] * remat_steps
+           for n in want_remat) or any(other.values()):
+        raise AssertionError(f"remat launches {remat_launches} (other "
+                             f"{other}), want {want_remat} per step")
+    _check_mma_bodies("llama_training_remat", remat_bodies)
+    if not (obs["steps"] >= 1 and (obs["step_time_ms_p50"] or 0) > 0
+            and (obs["mfu_best"] or 0) > 0
+            and (obs["flops_per_step"] or 0) > 0
+            and (obs["peak_bytes_in_use"] or 0) > 0):
+        raise AssertionError(f"obs_report's summary of the run lacks a "
+                             f"number: {obs}")
+    return launches
+
+
+def llama_gqa_kernel_timing_phase(smi):
+    """K1, K2 and K3 alone at the Llama step's shape (B 8, 32 q heads over
+    8 kv heads, S 1024, D 64, bf16, causal, block 128): held against
+    their plain versions (TRAIN_TOL, with the rounding control; one timed
+    plain call each), then timed as phase 6 times them beside the bound
+    (the causal cells' FLOP or the bytes moved once), SDPA with
+    enable_gqa=True (forward; backward for dq, dk and dv together) and,
+    on its own line, K3's group sum of the fp32 per-q-head partials.
+    Returns {kernel: row} for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    from deepspeed_tpu_torch.ops.attention.masked_flash import BlockMask
+    m = LLAMA_GQA_TRAIN_SHAPE
+    B, H, Hkv, S, D = m["B"], m["H"], m["Hkv"], m["S"], m["D"]
+    rng = np.random.RandomState(SEED + 5)
+    q, k, v, do = train_inputs(rng, B, H, Hkv, S, D, torch.bfloat16)
+    mask = BlockMask.causal(S, m["block"])
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    check = check_train_kernels("llama_1b_gqa_g4_causal_bf16", mask,
+                                (q, k, v, do), 0.0, control=True,
+                                phase="llama_gqa_kernel_check", flush=flush)
+    scale = 1.0 / float(np.sqrt(D))
+    o, lse = mf.masked_flash_fwd(q, k, v, mask, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    bytes_per_s, flops_per_s = card_peaks(smi)
+    qtile, kvtile, rowvec = B * H * S * D * 2, B * Hkv * S * D * 2, \
+        B * H * S * 4
+    walks = {"csr": sum(a.nbytes for a in mask.csr()),
+             "csc": sum(a.nbytes for a in mask.csc())}
+    qs = q.detach().clone().requires_grad_()
+    ks = k.detach().clone().requires_grad_()
+    vs = v.detach().clone().requires_grad_()
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                              enable_gqa=True)
+    sdpa_out = sdpa(qs, ks, vs)
+    sdpa_fwd_ms = time_ms(lambda: sdpa(q, k, v), TIMED_CALLS, flush)
+    sdpa_bwd_ms = time_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do,
+                                    retain_graph=True), TIMED_CALLS, flush)
+    specs = {
+        # name: (call, dots per cell, bytes in, bytes out, walk, library)
+        "masked_flash_fwd": (
+            lambda: mf.masked_flash_fwd(q, k, v, mask, scale), mf.FWD_DOTS,
+            qtile + 2 * kvtile, qtile + rowvec, "csr", sdpa_fwd_ms),
+        "masked_flash_dq": (
+            lambda: mf.masked_flash_dq(q, k, v, do, lse, delta, mask, scale),
+            mf.DQ_DOTS, 2 * qtile + 2 * kvtile + 2 * rowvec, qtile, "csr",
+            sdpa_bwd_ms),
+        "masked_flash_dkv": (
+            lambda: mf.masked_flash_dkv(q, k, v, do, lse, delta, mask,
+                                        scale),
+            mf.DKV_DOTS, 2 * qtile + 2 * kvtile + 2 * rowvec, 2 * kvtile,
+            "csc", sdpa_bwd_ms)}
+    errs = {"masked_flash_fwd": check["o_max_abs_err"],
+            "masked_flash_dq": check["dq_max_abs_err"],
+            "masked_flash_dkv": max(check["dk_max_abs_err"],
+                                    check["dv_max_abs_err"])}
+    out = {}
+    for name, (call, dots, b_in, b_out, walk, lib) in specs.items():
+        kernel_ms = time_ms(call, TIMED_CALLS, flush)
+        flops = causal_cells(S, S) * H * B * dots * 2 * D
+        nbytes = b_in + b_out + walks[walk]
+        bytes_ms = nbytes / bytes_per_s * 1e3
+        ops_ms = flops / flops_per_s * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        row = {"phase": "llama_gqa_kernel_timing", "kernel": name,
+               "shape": dict(m, dtype="bf16", mask="causal"),
+               "flops": flops, "bytes": nbytes, "kernel_ms": kernel_ms,
+               "plain_ms": check["plain_ms"][name], "library_ms": lib,
+               "library": ("scaled_dot_product_attention forward, "
+                           "enable_gqa" if name == "masked_flash_fwd" else
+                           "scaled_dot_product_attention backward, "
+                           "enable_gqa (dq, dk, dv together)"),
+               "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+               "bound_ms": bound_ms,
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "body": kernel_body(name), "max_abs_err": errs[name],
+               "achieved_tflop_per_s": flops / kernel_ms / 1e9,
+               "nvidia_smi": smi}
+        if name == "masked_flash_dkv":
+            # the fp32 per-q-head partials K3 writes at G > 1, summed per
+            # group outside the kernel: read 2 x (B, H, S, D) fp32, write
+            # dk, dv in bf16
+            part = torch.randn((B, H, S, D), device="cuda")
+            part_v = torch.randn((B, H, S, D), device="cuda")
+            sum_ms = time_ms(lambda: mf._group_sum(part, part_v, k, v),
+                             TIMED_CALLS, flush)
+            sum_bytes = 2 * B * H * S * D * 4 + 2 * kvtile
+            row["group_sum"] = {
+                "ms": sum_ms, "share_of_kernel": sum_ms / kernel_ms,
+                "bytes": sum_bytes,
+                "bound_ms": sum_bytes / bytes_per_s * 1e3,
+                "partials_bytes": 2 * B * H * S * D * 4}
+        emit(row)
+        out[name] = {k_: row[k_] for k_ in ("plain_ms", "library_ms",
+                                            "bound_ms", "bound_by",
+                                            "max_abs_err")}
+        out[name]["ms"] = kernel_ms
+        if "group_sum" in row:
+            out[name]["group_sum_ms"] = row["group_sum"]["ms"]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5514,6 +5931,9 @@ def main() -> int:
     train_launches, train_losses = training_phase(smi)
     training_dropout_phase()
     train_kernel_vs_plain_phase()
+    llama_train_kernel_vs_plain_phase()
+    llama_train_launches = llama_training_phase(smi)
+    llama_gqa = llama_gqa_kernel_timing_phase(smi)
     bert_check = bert_kernel_check_phase()
     bert_timing = bert_kernel_timing_phase(smi)
     bert_launches, _ = bert_training_phase(smi)
@@ -5608,10 +6028,18 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", body=kernel_body(name),
             source="deepspeed_tpu_torch/csrc/masked_flash.cu",
-            replaces=t["replaces"], launches=train_launches[name],
-            max_abs_err=errs[name], ms=t["ms"], kernel_ms=t["ms"],
+            replaces=t["replaces"],
+            launches=train_launches[name] + llama_train_launches[name],
+            launches_by_path={
+                f"gpt2-345m training ({TRAIN_STEPS} steps)":
+                    train_launches[name],
+                f"llama-1b training, G 4 ({TRAIN_STEPS} steps)":
+                    llama_train_launches[name]},
+            max_abs_err=max(errs[name], llama_gqa[name]["max_abs_err"]),
+            ms=t["ms"], kernel_ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"], **extra))
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            llama_1b_gqa=llama_gqa[name], **extra))
     bert_errs, fixed_errs, band_errs = (
         {"masked_flash_fwd": row["o_max_abs_err"],
          "masked_flash_dq": row["dq_max_abs_err"],

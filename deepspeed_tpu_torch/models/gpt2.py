@@ -202,20 +202,33 @@ def _embed(wte, wpe, ids, dtype):
     return (wte[ids] + wpe[pos]).to(dtype)
 
 
+def _checkpointed(block: Callable) -> Callable:
+    """``block`` under activation checkpointing: its activations are
+    recomputed in the backward instead of kept (``jax.checkpoint`` in the
+    JAX models). The blocks' dropouts hash a counter under an int seed,
+    so the recompute draws the same keep masks."""
+    from torch.utils.checkpoint import checkpoint
+
+    def run(*args, **kwargs):
+        return checkpoint(block, *args, use_reentrant=False, **kwargs)
+    return run
+
+
 def _gpt2_trunk(params, config: GPT2Config, input_ids,
                 seed: Optional[int] = None, deterministic: bool = True,
-                dtype=torch.bfloat16) -> torch.Tensor:
-    """Final hidden states (B, S, hidden) after ln_f (no LM head), the
-    non-remat path. ``seed`` is the step's int32 dropout seed (None: no
-    dropout)."""
+                dtype=torch.bfloat16, remat: bool = False) -> torch.Tensor:
+    """Final hidden states (B, S, hidden) after ln_f (no LM head).
+    ``seed`` is the step's int32 dropout seed (None: no dropout);
+    ``remat`` checkpoints each block (:func:`_checkpointed`)."""
     x = _embed(params["wte"], params["wpe"], input_ids, dtype)
     if seed is not None:
         x = dropout(x, config.embd_dropout, fold_seed(seed, 0),
                     deterministic)
+    block = _checkpointed(gpt2_block) if remat else gpt2_block
     for i in range(config.num_layers):
-        x = gpt2_block(params[f"h_{i}"], config, x, dtype,
-                       seed=None if seed is None else fold_seed(seed, i + 1),
-                       deterministic=deterministic)
+        x = block(params[f"h_{i}"], config, x, dtype,
+                  seed=None if seed is None else fold_seed(seed, i + 1),
+                  deterministic=deterministic)
     return layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"],
                       config.layer_norm_eps)
 
@@ -278,15 +291,17 @@ def _tied_xent_chunked(x, wte, targets, dtype, chunk_tokens: int = 2048,
 
 
 def gpt2_loss_fn(config: GPT2Config, dtype=torch.bfloat16,
-                 deterministic: bool = False):
+                 remat: bool = False, deterministic: bool = False):
     """Engine-contract loss: ``batch = {"input_ids": (B, S+1) int}``,
     next-token cross entropy on the shifted ids; ``seed`` is the step's
-    int32 dropout seed (None: no dropout)."""
+    int32 dropout seed (None: no dropout); ``remat`` checkpoints each
+    block."""
     def loss_fn(params, batch, seed):
         ids = batch["input_ids"]
         inputs, targets = ids[:, :-1], ids[:, 1:]
         x = _gpt2_trunk(params, config, inputs, seed=seed,
-                        deterministic=deterministic, dtype=dtype)
+                        deterministic=deterministic, dtype=dtype,
+                        remat=remat)
         return _tied_xent_chunked(x, params["wte"], targets, dtype)
     return loss_fn
 

@@ -11,15 +11,18 @@ JAX tree across through numpy.
 
 Without a cache the blocks run causal
 :func:`~deepspeed_tpu_torch.ops.attention.flash.flash_attention`, whose
-kernels serve GQA natively. With a paged cache they run
+kernels serve GQA natively. Training: :func:`llama_loss_fn` is the
+engine's loss contract, with per-block activation checkpointing under
+``remat``; the stacked layout's leaves take their gradients through the
+per-block views. With a paged cache they run
 ``models.gpt2._paged_cache_attention`` (the JAX package's
 ``_gqa_paged_cache_attention``): K/V go into the kv_heads-sized pool,
 dense or int8, and seq-1 queries read it through the paged-decode
 kernel, the q heads of a group sharing their kv head's pages.
 
 Not ported yet: the dense slot cache (``_gqa_offset_cache_attention``),
-``llama_generate``, ``llama_param_specs``, ``llama_loss_fn``, remat and
-the ring-prefill branch of the paged attention.
+``llama_generate``, ``llama_param_specs`` and the ring-prefill branch of
+the paged attention.
 """
 
 import math
@@ -29,9 +32,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.models.gpt2 import (_paged_cache_attention,
-                                             _tied_logits, count_params,
-                                             params_from_jax,
+from deepspeed_tpu_torch.models.gpt2 import (_checkpointed,
+                                             _paged_cache_attention,
+                                             _tied_logits,
+                                             _tied_xent_chunked,
+                                             count_params, params_from_jax,
                                              tied_head_weight)
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention
 from deepspeed_tpu_torch.ops.functional import ieee_fp32_matmul, rms_norm
@@ -39,7 +44,7 @@ from deepspeed_tpu_torch.utils.tree import tree_map
 
 __all__ = ["LlamaConfig", "init_llama_params", "llama_params_from_jax",
            "count_params", "rope_cos_sin", "apply_rope", "llama_block",
-           "llama_forward"]
+           "llama_forward", "llama_loss_fn"]
 
 
 class LlamaConfig(NamedTuple):
@@ -204,9 +209,10 @@ def _emb_rows(tok_emb: torch.Tensor, ids: torch.Tensor, dtype):
 
 
 def _llama_trunk(params, config: LlamaConfig, input_ids,
-                 dtype=torch.bfloat16) -> torch.Tensor:
-    """Final hidden states (B, S, hidden) after ln_f (no LM head), the
-    non-remat path."""
+                 dtype=torch.bfloat16, remat: bool = False) -> torch.Tensor:
+    """Final hidden states (B, S, hidden) after ln_f (no LM head).
+    ``remat`` recomputes each block's activations in the backward
+    instead of keeping them (``jax.checkpoint`` per block in JAX)."""
     B, S = input_ids.shape
     if S > config.max_position_embeddings:
         raise ValueError(
@@ -215,10 +221,27 @@ def _llama_trunk(params, config: LlamaConfig, input_ids,
     x = _emb_rows(params["tok_emb"], input_ids, dtype)
     cos, sin = rope_cos_sin(S, config.head_dim, config.rope_theta,
                             device=x.device)
+    block = _checkpointed(llama_block) if remat else llama_block
     for i in range(config.num_layers):
-        x = llama_block(layer_params(params, i), config, x, cos,
-                        sin, dtype)
+        x = block(layer_params(params, i), config, x, cos, sin, dtype)
     return rms_norm(x, params["ln_f"]["w"], config.rms_norm_eps)
+
+
+def llama_loss_fn(config: LlamaConfig, dtype=torch.bfloat16,
+                  remat: bool = False, deterministic: bool = True):
+    """Engine-contract loss: ``batch = {"input_ids": (B, S+1) int}``,
+    next-token cross entropy on the shifted ids through the chunked fp32
+    head over the untied ``lm_head``. The family has no dropout, so
+    ``deterministic`` and the step's seed are accepted and ignored."""
+    del deterministic
+
+    def loss_fn(params, batch, seed):
+        del seed
+        ids = batch["input_ids"]
+        inputs, targets = ids[:, :-1], ids[:, 1:]
+        x = _llama_trunk(params, config, inputs, dtype=dtype, remat=remat)
+        return _tied_xent_chunked(x, params["lm_head"], targets, dtype)
+    return loss_fn
 
 
 # the JAX package's name for the paged attention_fn of this family; the

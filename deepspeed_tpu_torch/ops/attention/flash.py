@@ -63,6 +63,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from deepspeed_tpu_torch.profiling.flops import counted_flops
 from deepspeed_tpu_torch.utils.logging import log_once
 
 __all__ = ["NEG_INF", "STREAM_THRESHOLD", "AttentionOptions",
@@ -572,6 +573,25 @@ def _prepare(q, k, v, key_mask, blocks, rate):
     return blocks
 
 
+def causal_cells(seq_q: int, seq_k: int) -> int:
+    """The (query, key) cells causal attention computes per (batch,
+    head): key j of query i for j <= i, of the keys that exist."""
+    n = min(seq_q, seq_k)
+    return n * (n + 1) // 2 + (seq_q - n) * seq_k
+
+
+def walk_flops(q, k, causal: bool, dots: int) -> int:
+    """FLOPs of one K5-K7 call: two per product, ``dots`` products of
+    length D (``masked_flash.FWD_DOTS`` ...) per computed cell, the
+    causal cells only under ``causal``; key-mask pads count."""
+    B, H, sq, D = q.shape
+    sk = k.shape[2]
+    cells = causal_cells(sq, sk) if causal else sq * sk
+    return cells * B * H * dots * 2 * D
+
+
+@counted_flops("flash_fwd", lambda q, k, v, causal, *a, **kw:
+               walk_flops(q, k, causal, 2))
 def flash_fwd(q, k, v, causal: bool, sm_scale: float, rate: float = 0.0,
               seed: int = 0, key_mask=None, blocks=None):
     """K5: ``(o, lse)`` of :func:`flash_fwd_plain`. A CUDA ``q`` launches
@@ -597,6 +617,8 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float, rate: float = 0.0,
     return o, lse
 
 
+@counted_flops("flash_dq", lambda q, k, v, do, lse, delta, causal, *a,
+               **kw: walk_flops(q, k, causal, 3))
 def flash_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
              rate: float = 0.0, seed: int = 0, key_mask=None, blocks=None):
     """K6: ``dq`` of :func:`flash_dq_plain`; kernel on CUDA, K2's
@@ -619,6 +641,8 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
     return dq
 
 
+@counted_flops("flash_dkv", lambda q, k, v, do, lse, delta, causal, *a,
+               **kw: walk_flops(q, k, causal, 4))
 def flash_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
               rate: float = 0.0, seed: int = 0, key_mask=None, blocks=None):
     """K7: ``(dk, dv)`` of :func:`flash_dkv_plain`; kernel on CUDA (fp32

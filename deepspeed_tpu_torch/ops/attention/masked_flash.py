@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.attention import flash as _flash
+from deepspeed_tpu_torch.profiling.flops import counted_flops
 from deepspeed_tpu_torch.ops.attention.flash import (NEG_INF,
                                                      dropout_keep_mask,
                                                      dropout_mask_reference,
@@ -658,6 +659,48 @@ def _group_sum(dk, dv, k, v):
 
 
 # --------------------------------------------------------------------- #
+# the work a walk does, for the FLOP counter
+# --------------------------------------------------------------------- #
+# products per computed (query, key) cell: K1 q.k and p.v; K2 q.k again,
+# do.v and ds.k; K3 q.k, do.v, p^T.do and ds^T.q
+FWD_DOTS, DQ_DOTS, DKV_DOTS = 2, 3, 4
+
+
+def walked_cells(mask: BlockMask) -> int:
+    """The cells the kernels compute over every mask head of ``mask``:
+    a FULL tile's every cell, a CAUSAL tile's lower triangle, a BAND
+    tile's kept cells (never the masked-off part of a tile). Key-mask
+    pads count: the kernels compute them. Cached on the mask."""
+    cells = getattr(mask, "_walked_cells", None)
+    if cells is not None:
+        return cells
+    b = mask.block
+    kinds = mask.kinds[mask.active]
+    cells = int((kinds == KIND_FULL).sum()) * b * b
+    hs, rs, cs = np.nonzero(mask.active & (mask.kinds != KIND_FULL))
+    span = np.arange(b)
+    for r, c, kind in zip(rs, cs, mask.kinds[hs, rs, cs]):
+        qi = r * b + span[:, None]
+        ki = c * b + span[None, :]
+        keep = np.ones((b, b), bool)
+        if kind & KIND_CAUSAL:
+            keep &= qi >= ki
+        if kind & KIND_BAND:
+            keep &= _band_keep(mask.band, qi, ki)
+        cells += int(keep.sum())
+    mask._walked_cells = cells
+    return cells
+
+
+def walk_flops(q, mask: BlockMask, dots: int) -> int:
+    """FLOPs of one kernel call on (B, H, S, D) ``q``: two per product,
+    ``dots`` products of length D per walked cell."""
+    B, H, _, D = q.shape
+    per_head = H if mask.heads == 1 else 1
+    return walked_cells(mask) * B * per_head * dots * 2 * D
+
+
+# --------------------------------------------------------------------- #
 # the kernels' wrappers
 # --------------------------------------------------------------------- #
 def _check_args(q, k, v, mask: BlockMask, key_mask=None):
@@ -829,6 +872,8 @@ def _run(name, fn, q, args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+@counted_flops("masked_flash_fwd", lambda q, k, v, mask, *a, **kw:
+               walk_flops(q, mask, FWD_DOTS))
 def masked_flash_fwd(q, k, v, mask: BlockMask, sm_scale: float,
                      rate: float = 0.0, seed: int = 0, key_mask=None):
     """K1: ``(o, lse)`` of :func:`masked_flash_fwd_plain`. A CUDA ``q``
@@ -861,6 +906,8 @@ def masked_flash_fwd(q, k, v, mask: BlockMask, sm_scale: float,
     return o, lse
 
 
+@counted_flops("masked_flash_dq", lambda q, k, v, do, lse, delta, mask,
+               *a, **kw: walk_flops(q, mask, DQ_DOTS))
 def masked_flash_dq(q, k, v, do, lse, delta, mask: BlockMask,
                     sm_scale: float, rate: float = 0.0, seed: int = 0,
                     key_mask=None):
@@ -890,6 +937,8 @@ def masked_flash_dq(q, k, v, do, lse, delta, mask: BlockMask,
     return dq
 
 
+@counted_flops("masked_flash_dkv", lambda q, k, v, do, lse, delta, mask,
+               *a, **kw: walk_flops(q, mask, DKV_DOTS))
 def masked_flash_dkv(q, k, v, do, lse, delta, mask: BlockMask,
                      sm_scale: float, rate: float = 0.0, seed: int = 0,
                      key_mask=None):

@@ -83,6 +83,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.profiling.flops import counted_flops, uncounted
 from deepspeed_tpu_torch.ops._build import arrival_counts
 from deepspeed_tpu_torch.ops.attention.flash import ordered_dot as _dot
 from deepspeed_tpu_torch.ops.attention.masked_flash import (
@@ -858,6 +859,7 @@ def _split_buffers(owner: str, q, splits: int, floats: int, blocks: int):
     return ws, arrival_counts(owner, q.device, stream, blocks)
 
 
+@counted_flops("banded_fwd", uncounted)
 def banded_fwd(q, k, v, key_mask, bp: BandedPlan, kind: str,
                sm_scale: float, kv_tiles_per_split: Optional[int] = None):
     """K11: ``(o, lse)`` of :func:`banded_fwd_plain` for instance
@@ -903,6 +905,7 @@ def _check_bwd_aligned(q, k, v, do, key_mask=None):
                     ("key_mask", key_mask)))
 
 
+@counted_flops("banded_dq", uncounted)
 def banded_dq(q, k, v, do, lse, delta, key_mask, bp: BandedPlan, kind: str,
               sm_scale: float, kv_tiles_per_split: Optional[int] = None,
               tally=None):
@@ -941,6 +944,7 @@ def banded_dq(q, k, v, do, lse, delta, key_mask, bp: BandedPlan, kind: str,
     return dq
 
 
+@counted_flops("banded_dkv", uncounted)
 def banded_dkv(q, k, v, do, lse, delta, key_mask, bp: BandedPlan, kind: str,
                sm_scale: float, q_tiles_per_split: Optional[int] = None,
                tally=None):

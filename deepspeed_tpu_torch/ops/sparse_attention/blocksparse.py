@@ -69,6 +69,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.profiling.flops import counted_flops, uncounted
 from deepspeed_tpu_torch.ops.attention.flash import ordered_dot
 # FWD_BODIES, DQ_BODIES, DKV_BODIES: K14, K15 and K16 run K1's, K2's and
 # K3's bodies, by dtype as those do
@@ -476,6 +477,7 @@ def _v1_count(wrapper, key_mask, attn_mask):
     wrapper.arities[name] = wrapper.arities.get(name, 0) + 1
 
 
+@counted_flops("bs_fwd", uncounted)
 def bs_fwd(q, k, v, key_mask, attn_mask, plan: TriplePlan, sm_scale: float):
     """K14: ``(o, lse)`` of :func:`bs_fwd_plain`. A CUDA ``q`` launches
     the sm_90a kernel (raising on any dtype, shape, device, alignment or
@@ -496,6 +498,7 @@ def bs_fwd(q, k, v, key_mask, attn_mask, plan: TriplePlan, sm_scale: float):
     return o, lse
 
 
+@counted_flops("bs_dq", uncounted)
 def bs_dq(q, k, v, do, lse, delta, key_mask, attn_mask, plan: TriplePlan,
           sm_scale: float, tally=None):
     """K15: ``dq`` of :func:`bs_dq_plain`. A CUDA ``q`` launches the sm_90a
@@ -520,6 +523,7 @@ def bs_dq(q, k, v, do, lse, delta, key_mask, attn_mask, plan: TriplePlan,
     return dq
 
 
+@counted_flops("bs_dkv", uncounted)
 def bs_dkv(q, k, v, do, lse, delta, key_mask, attn_mask, plan: TriplePlan,
            sm_scale: float, tally=None):
     """K16: ``(dk, dv)`` of :func:`bs_dkv_plain`; on CUDA as :func:`bs_dq`

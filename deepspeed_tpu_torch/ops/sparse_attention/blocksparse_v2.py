@@ -59,6 +59,7 @@ import torch
 
 # FWD_BODIES, DQ_BODIES, DKV_BODIES: K8, K9 and K10 run K1's, K2's and
 # K3's bodies, by dtype as those do
+from deepspeed_tpu_torch.profiling.flops import counted_flops, uncounted
 from deepspeed_tpu_torch.ops.attention.masked_flash import (
     DKV_BODIES, DQ_BODIES, FWD_BODIES, KERNEL_BLOCKS, MAX_HEAD_DIM,
     _check_aligned, _count_body)
@@ -519,6 +520,7 @@ def _launch(name, q, ptrs, plan: RowRunPlan, sm_scale):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+@counted_flops("blocksparse_v2_fwd", uncounted)
 def blocksparse_v2_fwd(q, k, v, key_mask, tiles, plan: RowRunPlan,
                        sm_scale: float):
     """K8: ``(o, lse)`` of :func:`blocksparse_v2_fwd_plain`. A CUDA ``q``
@@ -543,6 +545,7 @@ def blocksparse_v2_fwd(q, k, v, key_mask, tiles, plan: RowRunPlan,
     return o, lse
 
 
+@counted_flops("blocksparse_v2_dq", uncounted)
 def blocksparse_v2_dq(q, k, v, do, lse, delta, key_mask, tiles,
                       plan: RowRunPlan, sm_scale: float, tally=None):
     """K9: ``dq`` of :func:`blocksparse_v2_dq_plain`. A CUDA ``q``
@@ -568,6 +571,7 @@ def blocksparse_v2_dq(q, k, v, do, lse, delta, key_mask, tiles,
     return dq
 
 
+@counted_flops("blocksparse_v2_dkv", uncounted)
 def blocksparse_v2_dkv(q, k, v, do, lse, delta, key_mask, tiles,
                        plan: RowRunPlan, sm_scale: float, tally=None):
     """K10: ``(dk, dv)`` of :func:`blocksparse_v2_dkv_plain`; on CUDA as

@@ -3,20 +3,19 @@
 :class:`DeepSpeedConfig` (the batch triangle, ``bf16``, ``fp16``,
 ``optimizer``, ``scheduler``, ``gradient_clipping``,
 ``zero_optimization.stage``, ``steps_per_print``,
-``sparse_attention``),
-``get_inference_config`` and the serving part of
+``sparse_attention``, ``tensorboard``, the training ``observability``
+switch), ``get_inference_config`` and the serving part of
 ``get_observability_config``. The same dict resolves to the same fields
 and raises the same errors as the JAX package. ZeRO stages 1 and 2 are
 taken on a data-parallel world of one: the JAX engine then shards the
 masters, moments (and at stage 2 the grads) over a data axis of size 1,
 one shard, so the step is stage 0's. Settings whose runtime is not
 ported yet (ZeRO above a world of one, stage 3, offload, 1-bit Adam,
-pipeline, fp16, ``tensorboard.enabled: true``, a ``mesh`` axis above 1,
-the training ``observability`` switches: ``enabled``, ``trace.enabled``
-or the legacy ``profiler.enabled``, ``health.enabled``) raise
-``NotImplementedError`` naming them; a ``mesh`` whose axes are all 1 (or
--1, one device), disabled ``tensorboard`` and ``observability``
-sections and ``observability.serve`` are accepted. Before those refusals
+pipeline, fp16, a ``mesh`` axis above 1, the training ``observability``
+switches ``trace.enabled`` or the legacy ``profiler.enabled`` and
+``health.enabled``) raise ``NotImplementedError`` naming them; a ``mesh``
+whose axes are all 1 (or -1, one device), ``tensorboard``,
+``observability.enabled`` and ``observability.serve`` are accepted. Before those refusals
 the values of ``bf16.stochastic_rounding``, ``quantized_comm`` (and its
 legacy alias ``compressed_allreduce``), ``comm_autotune``,
 ``async_pipeline`` and the training ``observability`` keys get the JAX
@@ -328,6 +327,10 @@ def get_training_observability_config(param_dict):
                                      C.OBS_MEMORY_WATERMARKS_DEFAULT),
         "recompile_warn_after": sub.get(C.OBS_RECOMPILE_WARN_AFTER,
                                         C.OBS_RECOMPILE_WARN_AFTER_DEFAULT),
+        "chrome_trace_path": sub.get(C.OBS_CHROME_TRACE_PATH,
+                                     C.OBS_CHROME_TRACE_PATH_DEFAULT),
+        "events_max_mb": float(sub.get(C.OBS_EVENTS_MAX_MB,
+                                       C.OBS_EVENTS_MAX_MB_DEFAULT)),
         "health": _health_config(sub),
         "trace": {
             "enabled": trace_key(C.PROFILER_ENABLED,
@@ -417,6 +420,13 @@ class DeepSpeedConfig:
         self.comm_autotune_config = get_comm_autotune_config(d)
         self.async_pipeline_config = get_async_pipeline_config(d)
         self.observability_config = get_training_observability_config(d)
+        tb = _sub(d, C.TENSORBOARD)
+        self.tensorboard_enabled = get_scalar_param(
+            tb, C.TENSORBOARD_ENABLED, C.TENSORBOARD_ENABLED_DEFAULT)
+        self.tensorboard_output_path = get_scalar_param(
+            tb, C.TENSORBOARD_OUTPUT_PATH, C.TENSORBOARD_OUTPUT_PATH_DEFAULT)
+        self.tensorboard_job_name = get_scalar_param(
+            tb, C.TENSORBOARD_JOB_NAME, C.TENSORBOARD_JOB_NAME_DEFAULT)
 
     def _set_batch_related_parameters(self):
         """Solve the batch triangle from the keys given."""
@@ -481,14 +491,7 @@ class DeepSpeedConfig:
             unported.append(f"optimizer {self.optimizer_name} (1-bit Adam)")
         if C.PIPELINE in self._param_dict:
             unported.append("pipeline")
-        tb = self._param_dict.get(C.TENSORBOARD) or {}
-        if tb.get(C.TENSORBOARD_ENABLED, False):
-            unported.append("tensorboard.enabled (the training monitor, "
-                            "ROADMAP Queue 1 item 7)")
         obs = self.observability_config
-        if obs["enabled"]:
-            unported.append("observability.enabled (the training Observer "
-                            "and its events.jsonl, ROADMAP Queue 1 item 5)")
         if obs["trace"]["enabled"]:
             unported.append("observability.trace.enabled or "
                             "profiler.enabled (the trace window, ROADMAP "

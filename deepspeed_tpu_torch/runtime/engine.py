@@ -31,23 +31,38 @@ place. Entry points run on the current CUDA device unless the caller
 passes ``device="cpu"``; without a card and without ``device`` they
 raise.
 
+Telemetry follows the JAX engine: a ``tensorboard`` section opens the
+monitor, ``observability.enabled`` the :class:`Observer` (spans, the
+micro-step's FLOP count, memory watermarks, events.jsonl). Loss, lr and
+loss scale are queued per step and written at flush barriers (every
+``steps_per_print`` steps, at the ring cap, on :meth:`last_loss`,
+:meth:`eval_batch` and :meth:`close`); a barrier at a step boundary
+synchronises the card and writes each step of the window the window's
+wall time over its steps (the first step of a run, which builds the
+kernels, keeps its own time), with samples/s and MFU.
+
 Not ported yet: ZeRO across devices and offload, fp16 and loss scaling,
-pipeline and multi-GPU data parallelism, checkpoints, the async pipeline
-and the observability layers.
+pipeline and multi-GPU data parallelism, checkpoints, the async pipeline,
+the trace window and the health plane.
 """
 
+import atexit
 import inspect
+import time
+import weakref
 from typing import Any, Callable, Optional
 
 import torch
 
 from deepspeed_tpu_torch.ops.optimizers import Optimizer, build_optimizer
+from deepspeed_tpu_torch.profiling import Observer
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader,
                                                     to_device)
 from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_schedule
 from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.monitor import TensorBoardMonitor
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer)
 from deepspeed_tpu_torch.utils.tree import (tree_leaves, tree_map,
@@ -149,6 +164,36 @@ class DeepSpeedEngine:
         self._cached_loss = None
         self._pending_grads = None
         self._last_loss = None
+
+        # -- telemetry: the monitor, then the Observer that mirrors it --
+        self.monitor = TensorBoardMonitor(
+            enabled=self._config.tensorboard_enabled,
+            output_path=self._config.tensorboard_output_path,
+            job_name=self._config.tensorboard_job_name)
+        self.summary_writer = self.monitor.writer
+        self.observability = Observer(
+            self._config.observability_config, monitor=self.monitor,
+            device=self.device, num_devices=self.dp_world_size)
+        self._monitor_ring = []          # queued loss/lr records
+        self._window_anchor = None       # flush-to-flush wall-clock base
+        self._last_step_time_ms = None   # host time of the last step
+        self._host_gap_ms = None         # of it, outside the step's work
+        self._host_sync_count = 0        # forced syncs by telemetry
+        # the ring's tail at process exit; the hook holds a weakref only,
+        # and is registered after the Observer's, so (LIFO) it runs while
+        # the event log is open
+        self_ref = weakref.ref(self)
+
+        def _exit_flush(ref=self_ref):
+            eng = ref()
+            if eng is not None and eng._monitor_ring:
+                try:
+                    eng._flush_monitor()
+                except Exception:
+                    pass
+
+        self._atexit_flush_hook = _exit_flush
+        atexit.register(_exit_flush)
         log_dist(f"DeepSpeedEngine initialized: device={self.device} "
                  f"zero_stage={self.zero_stage} "
                  f"dtype={self.compute_dtype or torch.float32} "
@@ -238,12 +283,20 @@ class DeepSpeedEngine:
     def _compute_loss_and_grads(self, batch, seed):
         """One micro batch: the loss and the fp32 grads of
         ``loss / gradient_accumulation_steps`` w.r.t. the masters, in
-        sorted-leaf order."""
+        sorted-leaf order. The first call of an observed run counts its
+        FLOPs."""
+        return self.observability.maybe_profile_flops(
+            "micro_step", self._micro_step, (batch, seed))
+
+    def _micro_step(self, batch, seed):
         batch = to_device(batch, self.device)
-        loss = self._call_loss(self._cast_for_loss(self.params), batch, seed)
+        with self.observability.span("forward"):
+            loss = self._call_loss(self._cast_for_loss(self.params), batch,
+                                   seed)
         scaled = loss.float() / self.gradient_accumulation_steps
         masters = list(tree_leaves(self.params))
-        grads = torch.autograd.grad(scaled, masters, allow_unused=True)
+        with self.observability.span("backward"):
+            grads = torch.autograd.grad(scaled, masters, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g.float()
                  for p, g in zip(masters, grads)]
         return loss.detach(), grads
@@ -306,13 +359,17 @@ class DeepSpeedEngine:
             self.timers("step").start()
         if self.accum_grads is not None:
             if self.is_gradient_accumulation_boundary():
-                self._apply_update(self.accum_grads)
+                with self.observability.span("step"):
+                    self._apply_update(self.accum_grads)
                 self._report_progress()
+                self._write_monitor(self._cached_loss)
         else:
             if self._pending_grads is None:
                 raise RuntimeError("step() must follow backward()")
-            self._apply_update(self._pending_grads)
+            with self.observability.span("step"):
+                self._apply_update(self._pending_grads)
             self._report_progress()
+            self._write_monitor(self._cached_loss)
         self._host_micro_step += 1
         if self.wall_clock_breakdown_enabled:
             self.timers("step").stop()
@@ -335,24 +392,70 @@ class DeepSpeedEngine:
         if data_iter is None:
             data_iter = self._ensure_train_iter()
         self.tput_timer.start()
+        t_step0 = time.perf_counter()
+        if self._window_anchor is None:
+            # the telemetry window opens at the first step after a
+            # (re)anchor, so flush-time averages never include idle time
+            self._window_anchor = t_step0
+        t_work = 0.0
         total = None
-        for _ in range(self.gradient_accumulation_steps):
-            loss, grads = self._compute_loss_and_grads(next(data_iter),
-                                                       self._next_seed())
-            self._accumulate(grads)
-            total = loss if total is None else total + loss
-        self._apply_update(self.accum_grads if self.accum_grads is not None
-                           else self._pending_grads)
+        with self.observability.span("train_batch"):
+            for _ in range(self.gradient_accumulation_steps):
+                with self.observability.span("data"):
+                    batch = to_device(next(data_iter), self.device)
+                t0 = time.perf_counter()
+                loss, grads = self._compute_loss_and_grads(
+                    batch, self._next_seed())
+                self._accumulate(grads)
+                t_work += time.perf_counter() - t0
+                total = loss if total is None else total + loss
+            t0 = time.perf_counter()
+            with self.observability.span("step"):
+                self._apply_update(self.accum_grads
+                                   if self.accum_grads is not None
+                                   else self._pending_grads)
+            t_work += time.perf_counter() - t0
         self.tput_timer.stop()
+        if self.global_step == 1 and (self.monitor.enabled
+                                      or self.observability.enabled):
+            # the run's first step builds the kernels and counts its
+            # FLOPs: one sync makes its time its own (_flush_monitor)
+            t0 = time.perf_counter()
+            self._sync()
+            t_work += time.perf_counter() - t0
+        # otherwise host time per dispatch, not device time: used for
+        # the host gap only
+        self._last_step_time_ms = (time.perf_counter() - t_step0) * 1e3
+        self._host_gap_ms = max(self._last_step_time_ms - t_work * 1e3, 0.0)
         self._host_micro_step += self.gradient_accumulation_steps
         self._report_progress()
         self._last_loss = total / self.gradient_accumulation_steps
+        self._write_monitor(self._last_loss)
         return self._last_loss
 
     def last_loss(self):
         """Python float of the latest ``train_batch`` mean loss (a sync
-        point); None before the first step."""
-        return None if self._last_loss is None else float(self._last_loss)
+        point, which also flushes the telemetry ring); None before the
+        first step."""
+        if self._last_loss is None:
+            return None
+        if self._monitor_ring:
+            self._flush_monitor()
+        else:
+            self._host_sync_count += 1
+        return float(self._last_loss)
+
+    def loss_scale(self) -> float:
+        """1.0: bf16 and fp32 train unscaled (fp16 is not ported)."""
+        return 1.0
+
+    def close(self):
+        """Flush the telemetry ring and seal the Observer's event log
+        (idempotent)."""
+        if self._monitor_ring:
+            self._flush_monitor()
+        atexit.unregister(self._atexit_flush_hook)
+        self.observability.close()
 
     @torch.no_grad()
     def eval_batch(self, batch):
@@ -370,12 +473,88 @@ class DeepSpeedEngine:
             micros = [batch]
         if not micros:
             raise ValueError("eval_batch: empty micro-batch iterator")
+        if self._monitor_ring:
+            self._flush_monitor()   # eval is an explicit sync point
         total = None
         for m in micros:
             loss = self._call_loss(self._cast_for_loss(self.params),
                                    to_device(m, self.device), None)
             total = loss if total is None else total + loss
         return total / len(micros)
+
+    # past this many unflushed steps the ring flushes whatever
+    # steps_per_print says (the JAX engine's cap)
+    _MONITOR_RING_CAP = 512
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _write_monitor(self, loss):
+        """The step's telemetry, with the JAX engine's x-axis (cumulative
+        samples): the loss is queued and written at the next flush
+        barrier; the host counters and memory watermarks now."""
+        if not (self.monitor.enabled or self.observability.enabled):
+            return
+        samples = self.global_step * self.train_batch_size()
+        self.observability.record_flops(samples)
+        self._monitor_ring.append(
+            {"samples": samples, "host_step": self.global_step,
+             "loss": loss, "raw_step_ms": self._last_step_time_ms})
+        if (self.global_step % self._config.steps_per_print == 0
+                or len(self._monitor_ring) >= self._MONITOR_RING_CAP):
+            self._flush_monitor(at_step_boundary=True)
+        self.observability.on_step(samples, host_gap_ms=self._host_gap_ms,
+                                   host_syncs=self._host_sync_count)
+
+    def _flush_monitor(self, at_step_boundary: bool = False):
+        """Write the queued loss/lr records after synchronising the card,
+        and at a step boundary the window's step time, samples/s and MFU:
+        the wall time since the previous boundary over the window's
+        steps, which is the card's step time however far the host ran
+        ahead. The run's first step (kernel builds, allocator growth, the
+        FLOP count; synchronised at its end) keeps its own time and
+        leaves the average: the JAX engine pins its compiles to their
+        step the same way. An out-of-band flush (last_loss, eval, close)
+        writes no step time: arbitrary idle time may have passed."""
+        ring, self._monitor_ring = self._monitor_ring, []
+        if not ring:
+            return
+        self._host_sync_count += 1
+        self._sync()
+        avg_ms = first_ms = None
+        if at_step_boundary:
+            now = time.perf_counter()
+            if self._window_anchor is not None:
+                window_ms = (now - self._window_anchor) * 1e3
+                if ring[0]["host_step"] == 1 and len(ring) > 1:
+                    first_ms = ring[0]["raw_step_ms"]
+                avg_ms = max(window_ms - (first_ms or 0.0), 0.0) / \
+                    (len(ring) - (first_ms is not None))
+            self._window_anchor = now
+        else:
+            self._window_anchor = None   # re-anchor at the next step
+        scale = self.loss_scale()
+        for rec in ring:
+            self.monitor.write_train_metrics(
+                loss=(float(rec["loss"]) if rec["loss"] is not None
+                      else None),
+                lr=self._lr_at(rec["host_step"]), loss_scale=scale,
+                samples=rec["samples"], flush=False)
+            if avg_ms is not None:
+                step_ms = (first_ms if rec["host_step"] == 1 and first_ms
+                           is not None else avg_ms)
+                self.monitor.write_timer_values(
+                    {"step_time_ms": step_ms}, rec["samples"])
+                if step_ms > 0:
+                    self.monitor.write_scalar(
+                        "Train/Samples/samples_per_sec",
+                        self.train_batch_size() / (step_ms / 1e3),
+                        rec["samples"])
+        self.observability.write_mfu(
+            avg_ms, ring[-1]["samples"],
+            micro_steps_per_step=self.gradient_accumulation_steps)
+        self.monitor.flush()
 
     def _report_progress(self):
         step = self.global_step

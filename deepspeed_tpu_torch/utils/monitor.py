@@ -1,11 +1,11 @@
-"""Serving metrics monitor (the port of ``deepspeed_tpu/utils/monitor.py``,
-serving half).
+"""Metrics monitor (the port of ``deepspeed_tpu/utils/monitor.py``): the
+training writers (loss, lr, loss scale and timer values under
+``Train/Samples/*``) and the serving ones (``Serve/*``).
 
-Keeps the JAX package's ``Serve/*`` tags and its events.jsonl schema —
-scalar rows ``{"tag", "value", "step"}``, structured rows
-``{"event", ..., "t"}`` — so ``tools/obs_report.py --serve`` reads a
-port run unchanged. The training writers (loss, checkpoint, comm,
-timers) arrive with the training slice.
+Keeps the JAX package's tags and its events.jsonl schema — scalar rows
+``{"tag", "value", "step"}``, structured rows ``{"event", ..., "t"}`` —
+so ``tools/obs_report.py`` reads a port run unchanged. The checkpoint,
+elastic and comm writers are not ported yet.
 """
 
 import json
@@ -244,6 +244,32 @@ class TensorBoardMonitor:
             self.writer.add_scalar(tag, float(value), int(step))
         if self.mirror is not None:
             self.mirror.add_scalar(tag, float(value), int(step))
+
+    def write_train_metrics(self, *, loss=None, lr=None, loss_scale=None,
+                            samples: int = 0, flush: bool = True):
+        """The per-step training scalars; the x-axis is cumulative
+        samples. ``flush=False`` lets the engine's telemetry ring write a
+        window of records and flush once at the end."""
+        if not self._writes():
+            return
+        if loss is not None:
+            self.write_scalar("Train/Samples/train_loss", loss, samples)
+        if lr is not None:
+            self.write_scalar("Train/Samples/lr", lr, samples)
+        if loss_scale is not None:
+            self.write_scalar("Train/Samples/loss_scale", loss_scale,
+                              samples)
+        if flush:
+            self.flush()
+
+    def write_timer_values(self, timer_values: dict, samples: int = 0):
+        """Per-timer milliseconds, one ``Train/Samples/<name>`` scalar
+        each."""
+        if not self._writes():
+            return
+        for name, ms in timer_values.items():
+            self.write_scalar(f"Train/Samples/{name}", ms, samples)
+        self.flush()
 
     def write_serving_metrics(self, *, ttft_ms=None, token_latency_ms=None,
                               tokens_per_sec=None, queue_depth=None,

@@ -77,12 +77,26 @@ class SynchronizedWallClockTimer:
         return self.timers[name]
 
     @staticmethod
+    def memory_stats() -> Optional[dict]:
+        """Structured device-memory sample: ``{"bytes_in_use",
+        "peak_bytes_in_use", "source"}`` (``source: "host"`` = the RSS
+        fallback off the card), or None when nothing is readable
+        (profiling/memory.py owns the sampling)."""
+        try:
+            from deepspeed_tpu_torch.profiling.memory import memory_snapshot
+            return memory_snapshot()
+        except Exception:
+            return None
+
+    @staticmethod
     def memory_usage() -> str:
-        if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        stats = SynchronizedWallClockTimer.memory_stats()
+        if stats is None:
             return "mem stats unavailable"
-        in_use = torch.cuda.memory_allocated() / (1024**3)
-        peak = torch.cuda.max_memory_allocated() / (1024**3)
-        return f"mem in_use={in_use:.2f} GB peak={peak:.2f} GB"
+        in_use = stats["bytes_in_use"] / (1024**3)
+        peak = stats["peak_bytes_in_use"] / (1024**3)
+        src = "" if stats["source"] == "device" else f" ({stats['source']})"
+        return f"mem in_use={in_use:.2f} GB peak={peak:.2f} GB{src}"
 
     def log(self, names: List[str], normalizer: float = 1.0,
             reset: bool = True, ranks: Optional[List[int]] = None,

@@ -619,6 +619,76 @@ def test_bf16_forward_refuses_misaligned_operands(operand):
         _check_fwd_aligned(**operands(torch.bfloat16, operand))
 
 
+def _bwd_operands(dtype, off=None):
+    """q, k, v, do and a key mask, each at an aligned start, or the one
+    named ``off`` started off its boundary (4 elements, or one fp32 for
+    the key mask's 8-byte pairs)."""
+    shape, n = (1, 2, 32, 16), 2 * 32 * 16
+    ts = {name: torch.zeros(n + 8, dtype=dtype)[:n].view(shape)
+          for name in ("q", "k", "v", "do")}
+    ts["key_mask"] = torch.zeros(33)[:32].view(1, 32)
+    if off is not None:
+        base = torch.zeros(n + 8, dtype=ts[off].dtype)
+        if off == "key_mask":
+            ts[off] = base[1:33].view(1, 32)
+        else:
+            ts[off] = base[4:4 + n].view(shape)
+    return ts
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "do", "key_mask"])
+def test_bf16_dq_refuses_misaligned_operands(operand):
+    """K2's tensor-core dq body loads 16-byte rows (q, k, v, do) and
+    8-byte key-mask pairs: a bf16 view that starts off those boundaries
+    raises before any launch, an aligned one and fp32 pass."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import \
+        _check_dq_aligned
+    _check_dq_aligned(**_bwd_operands(torch.bfloat16))
+    _check_dq_aligned(**_bwd_operands(torch.float32, operand))
+    with pytest.raises(ValueError, match=f"{operand} aligned"):
+        _check_dq_aligned(**_bwd_operands(torch.bfloat16, operand))
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "do", "key_mask"])
+def test_bf16_dkv_refuses_misaligned_operands(operand):
+    """K3's tensor-core dk/dv body loads 16-byte rows (q, k, v, do) and
+    8-byte key-mask pairs: a bf16 view that starts off those boundaries
+    raises before any launch, an aligned one and fp32 pass."""
+    from deepspeed_tpu_torch.ops.attention.masked_flash import \
+        _check_dkv_aligned
+    _check_dkv_aligned(**_bwd_operands(torch.bfloat16))
+    _check_dkv_aligned(**_bwd_operands(torch.float32, operand))
+    with pytest.raises(ValueError, match=f"{operand} aligned"):
+        _check_dkv_aligned(**_bwd_operands(torch.bfloat16, operand))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["q", "k", "v", "do", "key_mask"])
+def test_cuda_dq_and_dkv_wrappers_refuse_misaligned_operands(operand):
+    """masked_flash_dq and masked_flash_dkv themselves, on the card: a
+    misaligned bf16 operand raises and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    ts = {n: t.cuda() for n, t in _bwd_operands(torch.bfloat16).items()}
+    base = torch.zeros(ts[operand].numel() + 8, dtype=ts[operand].dtype,
+                       device="cuda")
+    step = 1 if operand == "key_mask" else 4
+    ts[operand] = base[step:step + ts[operand].numel()].view(
+        ts[operand].shape)
+    q = ts["q"]
+    lse = torch.zeros(q.shape[:3], device="cuda")
+    mask = mf.BlockMask.causal(q.shape[2], 16)
+    args = (ts["q"], ts["k"], ts["v"], ts["do"], lse, torch.zeros_like(lse),
+            mask, 0.25)
+    before = (mf.masked_flash_dq.launches, mf.masked_flash_dkv.launches)
+    for wrapper in (mf.masked_flash_dq, mf.masked_flash_dkv):
+        with pytest.raises(ValueError, match=f"{operand} aligned"):
+            wrapper(*args, key_mask=ts["key_mask"])
+    assert (mf.masked_flash_dq.launches,
+            mf.masked_flash_dkv.launches) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     # (B, H, Hkv, S, D, mask, block, dtype, rate)

@@ -343,12 +343,8 @@ def test_zero_beyond_one_shard_raises(stage, world, offload):
 
 
 @pytest.mark.parametrize("extra,word", [
-    ({"tensorboard": {"enabled": True, "output_path": "tb"}},
-     "tensorboard"),
     ({"mesh": {"axes": {"data": 1, "model": 2}}}, "mesh"),
     ({"mesh": {"axes": {"data": 2}}}, "mesh"),
-    ({"observability": {"enabled": True, "events_dir": "obs"}},
-     "observability.enabled"),
     ({"observability": {"trace": {"enabled": True, "num_steps": 2}}},
      "trace window"),
     ({"observability": {"health": {"enabled": True}}},
@@ -356,9 +352,11 @@ def test_zero_beyond_one_shard_raises(stage, world, offload):
     ({"profiler": {"enabled": True}}, "profiler.enabled"),
 ])
 def test_monitor_and_mesh_sections_raise(extra, word):
-    """The JAX engine opens the monitor and builds the mesh these
-    sections ask for; the port has neither yet, so it refuses them
-    through the config and through initialize, never training without."""
+    """The JAX engine opens the trace window, the health plane and the
+    mesh these sections ask for; the port has none of them yet, so it
+    refuses them through the config and through initialize, never
+    training without. (``tensorboard.enabled`` and
+    ``observability.enabled`` train: tests/test_torch_observability.py.)"""
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     with pytest.raises(NotImplementedError, match=word):
         DeepSpeedConfig(_ds_config(1, 0.0, **extra))

@@ -349,8 +349,38 @@ fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
    and no other attention kernel; the
    losses beside phase 19's; then phase 20's kernel-vs-plain check of it
    at seq 2048.
+Phases 40 to 42 run after phase 38, before phase 13: checkpoints, in a
+temporary directory deleted at the end (its free space and file system
+printed first; too little space fails the run).
+40. checkpoint_resume: GPT-2 345M (all 24 layers, dropout 0.1) with
+   examples/megatron_gpt2/ds_config_zero2.json as held (micro batch 8,
+   bf16 over fp32 masters, Adam, WarmupLR, clipping 1.0, ZeRO 2), seq
+   1024, observed, on 6 batches of ids from seed 0. Run A takes them
+   straight under the trace window (observability.trace at steps 2-3:
+   the Chrome trace must hold their train_batch labels only and 48
+   launches of each of K1-K3); run A2 again, for the spread. Run B takes
+   3 and saves; a new engine from other weights and another seed loads
+   the directory (every param and moment bitwise B's at the save), takes
+   3 more (losses equal to A's bitwise, or within A's spread against A2)
+   and saves again. K1-K3 launch 24 times a step, all "mma"; the port's
+   verify CLI passes both tags; obs_report reads 2 saves, 1 load and 1
+   resume. The tag's bytes, the snapshot, write, CRC-verify and load
+   times, the step time.
+41. serve_from_checkpoint: InferenceEngine.from_checkpoint of
+   global_step3 over the bf16 pool serves 4 greedy requests (prompts of
+   128, 32 new tokens): tokens and the first decode step's logits bitwise
+   those of an engine of run B's in-memory params at step 3; then
+   swap_params to global_step6: the same against the step-6 params, at
+   weight_version global_step6, ordinal 1; K4 once per layer per decode
+   step, none of K4q.
+42. checkpoint_fallback: a bit flipped in global_step6's model shard: the
+   CRC32 check names it, a swap to it raises and the engine keeps serving
+   global_step6's weights (the same tokens), and a new engine's
+   load_checkpoint() falls back to global_step3 (bitwise B's params at
+   step 3) with a fallback row that obs_report counts.
 39. the {"kernels": [...]} line (K1-K3 with their launches on the GPT-2
-   and the Llama training paths and their Llama-shape times of phase 38,
+   and the Llama training paths (and phase 40's) and their Llama-shape
+   times of phase 38, K4 with phase 41's,
    with the three key-mask, the three
    band, the three row-run, the three banded, the three no-mask
    row-run, the three legacy flash entries and K14-K16 in each of their
@@ -363,8 +393,10 @@ fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
 
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Any, Callable, NamedTuple
 
@@ -502,7 +534,14 @@ CARD_PEAKS = (("H200", 4.8e12, 989e12, 67e12),
               ("H100", 3.35e12, 989e12, 67e12))
 
 
+# main()'s start: each phase row carries the seconds since it ("t_s"),
+# so a run's log shows where the script's time limit goes
+_START = None
+
+
 def emit(obj):
+    if _START is not None and "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - _START, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -1180,6 +1219,33 @@ def serving_phase(model_config, params, device, smi, model="gpt2-345m",
     return counts[ran], prompts, engine, [f.tokens for f in finished]
 
 
+def device_kernels(run, steps, cpu=False):
+    """A torch.profiler window over ``run()`` (``steps`` steps) and a
+    synchronise, after one before it: each device kernel's (name, ms per
+    step, launches per step), the longest first, user annotation ranges
+    left out. CUDA activity alone unless ``cpu``: the profile phases read
+    the kernels' device time only, and CPU events take about 4x as long
+    to process (:func:`profile_activity_probe` holds the two against each
+    other)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if cpu else [])
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3 / steps,
+                e.count / steps)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.self_device_time_total > 0]
+    kernels.sort(key=lambda k: -k[1])
+    return kernels
+
+
 def profile_phase(engine, prompts, steps=8, model="gpt2-345m"):
     """Where a decode step's time goes, with 8 requests in flight: the
     wall time of ``steps`` decode-only steps (host clock, synchronised),
@@ -1188,8 +1254,6 @@ def profile_phase(engine, prompts, steps=8, model="gpt2-345m"):
     annotation ranges are left out). The device idle share is what the
     kernels leave of the unprofiled wall time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch.inference import Request
     for i, p in enumerate(prompts[:8]):
         engine.submit(Request(prompt=p, max_new_tokens=2 * steps + 4,
@@ -1202,19 +1266,9 @@ def profile_phase(engine, prompts, steps=8, model="gpt2-345m"):
         engine.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
+    kernels = device_kernels(lambda: [engine.step() for _ in range(steps)],
+                             steps)
     engine.run()                        # drain what is left
-    kernels = [(e.key, e.self_device_time_total / 1e3 / steps,
-                e.count / steps)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and e.self_device_time_total > 0]
-    kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     emit({"phase": "decode_profile", "model": model,
           "kv_dtype": engine.debug_state()["quantization"]["kv_dtype"],
@@ -1844,21 +1898,9 @@ def train_profile_phase(engine, data, step_ms, steps=2,
     masked-flash kernels, GEMMs, ``extra_groups`` ({group: name keys})
     and the rest; the device idle share is what the kernels leave of the
     unprofiled step time. Returns the row."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.train_batch(iter([data]))
-        torch.cuda.synchronize()
-    kernels = [(e.key, e.self_device_time_total / 1e3 / steps,
-                e.count / steps)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and e.self_device_time_total > 0]
-    kernels.sort(key=lambda k: -k[1])
+    kernels = device_kernels(
+        lambda: [engine.train_batch(iter([data])) for _ in range(steps)],
+        steps)
     groups = {"masked_flash_fwd": ("mf_fwd_",),
               "masked_flash_dq": ("mf_dq_",),
               "masked_flash_dkv": ("mf_dkv_",),
@@ -2772,27 +2814,14 @@ def bert_profile_phase(engine, it, step_ms, steps=2, phase="bert_profile",
     ({name prefix of ``kernels``: ms}), each of those kernels' device ms
     per launch in the window beside that time (the kernel timed on
     random inputs)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.train_batch(it)
-        torch.cuda.synchronize()
     groups = {attention: kernels,
               "mlm head (fp32 GEMMs, log-softmax)": ("sgemm", "f32f32",
                                                      "softmax"),
               "gemm (bf16)": ("gemm", "nvjet", "xmma", "cutlass", "cublas"),
               "lamb, accumulation, clipping (foreach, norms)": (
                   "multi_tensor", "foreach", "norm_kernel", "reduce_kernel")}
-    kernels = [(e.key, e.self_device_time_total / 1e3 / steps,
-                e.count / steps)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and e.self_device_time_total > 0]
-    kernels.sort(key=lambda k: -k[1])
+    kernels = device_kernels(
+        lambda: [engine.train_batch(it) for _ in range(steps)], steps)
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
     for name, ms, _ in kernels:
         low = name.lower()
@@ -5877,7 +5906,481 @@ def llama_gqa_kernel_timing_phase(smi):
     return out
 
 
+CKPT_DS_CONFIG = "examples/megatron_gpt2/ds_config_zero2.json"
+CKPT_HALF = 3             # steps before the save, and after the resume
+CKPT_TRACE = dict(start_step=2, num_steps=2)
+CKPT_SERVE_PROMPT, CKPT_SERVE_NEW, CKPT_SERVE_REQUESTS = 128, 32, 4
+# two tags of ~12 bytes per parameter (fp32 masters and two moments),
+# and the headroom of a staging dir's small files
+CKPT_SPACE_FACTOR = 2 * 12 * 1.05
+
+
+def fs_of(path):
+    """(mount point, file system type) that holds ``path``, from
+    /proc/mounts (read only)."""
+    import os
+    path = os.path.realpath(path)
+    best = ("", "unknown")
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                _, mnt, typ = line.split()[:3]
+                inside = path == mnt or path.startswith(
+                    mnt.rstrip("/") + "/")
+                if inside and len(mnt) >= len(best[0]):
+                    best = (mnt, typ)
+    except OSError:
+        pass
+    return best
+
+
+def _host_copy(tree):
+    """A CPU copy of a tensor tree (a snapshot the engine's in-place
+    updates do not move)."""
+    from deepspeed_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+
+def _engine_state(engine):
+    """The params and both moments of a training engine, as one list."""
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    st = engine.opt_state
+    return [t for tree in (engine.params, st.exp_avg, st.exp_avg_sq)
+            for t in tree_leaves(tree)]
+
+
+def _tag_bytes(tag_dir):
+    import os
+    return sum(os.path.getsize(os.path.join(tag_dir, f))
+               for f in os.listdir(tag_dir))
+
+
+def _scalars(events_dir, tag):
+    import os
+    rows = []
+    with open(os.path.join(events_dir, "events.jsonl")) as f:
+        for line in f:
+            row = json.loads(line)
+            if row.get("tag") == tag:
+                rows.append(row["value"])
+    return rows
+
+
+def _trace_contents(path, kernels):
+    """The ``train_batch#<step>`` labels of a Chrome trace and the count
+    of device kernels whose name holds each of ``kernels``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sorted({int(e["name"].split("#")[1]) for e in events
+                    if str(e.get("name", "")).startswith("train_batch#")})
+    counts = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                     and k in str(e.get("name", ""))) for k in kernels}
+    return steps, counts
+
+
+def checkpoint_resume_phase(smi, root, device="cuda", config=None,
+                            seq=1024, batch=None, half=CKPT_HALF):
+    """GPT-2 345M (all 24 layers, dropout 0.1 as the config has it) with
+    examples/megatron_gpt2/ds_config_zero2.json as held (micro batch 8,
+    bf16 over fp32 masters, Adam, WarmupLR, clipping 1.0, ZeRO 2 on one
+    device) at seq 1024, observed, on 2 * ``half`` batches of synthetic
+    ids from seed 0:
+
+    - run A takes them straight, under the trace window at steps 2-3
+      (the trace must hold K1-K3's kernels of those 2 steps only and
+      their ``train_batch#`` labels), and run A2 again without it: their
+      spread;
+    - run B takes ``half`` steps and saves; a new engine, made from
+      other weights and another seed, loads the directory: every param
+      and moment equals B's at the save bitwise; it takes ``half`` more
+      steps, whose losses must equal A's (bitwise, or within A's spread
+      against A2), and saves again;
+    - every K1-K3 launch of B's runs is counted (on the tensor-core
+      body), both tags pass the port's verify CLI, obs_report reads 2
+      saves, 1 load and 1 resume.
+
+    Prints the tag's bytes, the snapshot, write, CRC-verify and load
+    times beside the step time, with the file system. Everything is
+    written under ``root``, which the caller deletes. Returns the state
+    the serving and fallback phases read."""
+    import os
+    import shutil
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2_MEDIUM, count_params,
+                                                 gpt2_loss_fn,
+                                                 init_gpt2_params)
+    from deepspeed_tpu_torch.runtime import checkpoint as ckpt
+    cfg = config or GPT2_MEDIUM
+    on_cuda = torch.device(device).type == "cuda"
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, CKPT_DS_CONFIG)) as f:
+        ds = json.load(f)
+    if batch is not None:
+        ds["train_micro_batch_size_per_gpu"] = batch
+    batch = ds["train_micro_batch_size_per_gpu"]
+    save_dir = os.path.join(root, "ckpt")
+    mount, fstype = fs_of(root)
+    free = shutil.disk_usage(root).free
+    rng = np.random.RandomState(SEED)
+    data = [{"input_ids": rng.randint(0, cfg.vocab_size, (batch, seq + 1))
+             .astype(np.int32)} for _ in range(2 * half)]
+
+    def engine(seed, name, trace=None):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = init_gpt2_params(cfg, gen)
+        events = os.path.join(root, f"events_{name}")
+        obs = {"enabled": True, "events_dir": events}
+        if trace is not None:
+            obs["trace"] = trace
+        conf = dict(ds, observability=obs)
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=gpt2_loss_fn(cfg), model_parameters=params, config=conf,
+            device=device, seed=seed)
+        return eng, events
+
+    def steps(eng, batches):
+        out = [eng.train_batch(iter([b])) for b in batches]
+        return [float(x) for x in out]
+
+    state = {"root": root, "save_dir": save_dir, "config": cfg,
+             "train_engine": engine}
+    # -- A: straight, under the trace window; A2: straight again --
+    eng_a, _ = engine(SEED, "a", trace=dict(
+        CKPT_TRACE, enabled=True, output_path=os.path.join(root, "trace")))
+    n_params = count_params(eng_a.params)
+    need = int(n_params * CKPT_SPACE_FACTOR)
+    emit({"phase": "checkpoint_disk", "dir": root, "mount": mount,
+          "fs_type": fstype, "free_bytes": free, "need_bytes": need})
+    if free < need:
+        raise AssertionError(
+            f"checkpoint_resume: {root} ({fstype} at {mount}) has "
+            f"{free} bytes free, the two tags need about {need}")
+    losses_a = steps(eng_a, data)
+    eng_a.close()
+    trace_steps, trace_kernels = _trace_contents(
+        eng_a.trace_path, ("mf_fwd_mma_kernel", "mf_dq_mma_kernel",
+                           "mf_dkv_mma_kernel"))
+    trace = {"path": os.path.basename(eng_a.trace_path),
+             "bytes": os.path.getsize(eng_a.trace_path),
+             "steps": trace_steps, "kernels": trace_kernels}
+    del eng_a
+    eng_a2, _ = engine(SEED, "a2")
+    losses_a2 = steps(eng_a2, data[:1])
+    if on_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses_a2 += steps(eng_a2, data[1:])      # float() syncs each step
+    step_ms = (time.perf_counter() - t0) * 1e3 / (len(data) - 1)
+    eng_a2.close()
+    del eng_a2
+    spread = [abs(x - y) for x, y in zip(losses_a, losses_a2)]
+
+    # -- B: half the steps, save; a new engine loads and runs the rest --
+    if on_cuda:
+        torch.cuda.synchronize()
+    _reset_all_launches()
+    eng_b, events_b = engine(SEED, "b")
+    losses_b = steps(eng_b, data[:half])
+    t0 = time.perf_counter()
+    tag3 = eng_b.save_checkpoint(save_dir)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    at_save = [t.detach().clone() for t in _engine_state(eng_b)]
+    state["params3"] = _host_copy(eng_b.params)
+    t0 = time.perf_counter()
+    ok, problems = ckpt.verify_checkpoint_dir(tag3)
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    if not ok:
+        raise AssertionError(f"checkpoint_resume: {tag3}: {problems}")
+    eng_b.close()
+    del eng_b
+    eng_c, _ = engine(SEED + 1, "b")      # other weights, another seed
+    if all(torch.equal(x, y) for x, y in zip(_engine_state(eng_c),
+                                              at_save)):
+        raise AssertionError("checkpoint_resume: the new engine starts "
+                             "with B's state: the load proves nothing")
+    t0 = time.perf_counter()
+    path, _ = eng_c.load_checkpoint(save_dir)
+    if on_cuda:
+        torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    loaded = _engine_state(eng_c)
+    unequal = sum(not torch.equal(x, y) for x, y in zip(loaded, at_save))
+    del at_save, loaded
+    if path != tag3 or eng_c.global_steps != half or unequal:
+        raise AssertionError(
+            f"checkpoint_resume: loaded {path} at step "
+            f"{eng_c.global_steps}; {unequal} params or moments differ "
+            "from B's at the save")
+    losses_c = steps(eng_c, data[half:])
+    tag6 = eng_c.save_checkpoint(save_dir)
+    state["params6"] = _host_copy(eng_c.params)
+    eng_c.close()
+    del eng_c
+    launches, other = MASKED_ROUTE.launches()
+    bodies = _mma_bodies(KPM_NAMES)
+
+    # -- the verify CLI on both tags, obs_report on the events --
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.tools.verify_checkpoint",
+         save_dir, "--all", "--expect-step", str(2 * half)],
+        capture_output=True, text=True, cwd=here, timeout=600)
+    cli_s = time.perf_counter() - t0
+    summary = _obs_report().summarize(events_b)
+    snapshot_ms = _scalars(events_b, "Checkpoint/snapshot_ms")
+    write_ms = _scalars(events_b, "Checkpoint/write_ms")
+    tag_bytes = _tag_bytes(tag3)
+    resumed = losses_a[half:]
+    worst = max(spread[half:])
+    row = {"phase": "checkpoint_resume", "model": "gpt2-345m",
+           "params": n_params, "batch": batch, "seq": seq,
+           "ds_config": CKPT_DS_CONFIG, "dropout": cfg.attn_dropout,
+           "losses_a": losses_a, "losses_a2": losses_a2,
+           "straight_spread": spread, "losses_b": losses_b,
+           "losses_resumed": losses_c,
+           "resumed_bitwise": losses_c == resumed,
+           "resumed_max_abs_diff": max(abs(x - y) for x, y in
+                                       zip(losses_c, resumed)),
+           "tags": [os.path.basename(tag3), os.path.basename(tag6)],
+           "tag_bytes": tag_bytes, "step_ms": step_ms,
+           "save_ms": save_ms, "snapshot_ms": snapshot_ms,
+           "write_ms": write_ms,
+           "write_gb_per_s": tag_bytes / (write_ms[0] / 1e3) / 1e9,
+           "crc_verify_ms": verify_ms,
+           "crc_verify_gb_per_s": tag_bytes / (verify_ms / 1e3) / 1e9,
+           "load_ms": load_ms, "verify_cli_s": cli_s,
+           "verify_cli_rc": cli.returncode,
+           "fs_type": fstype, "mount": mount,
+           "trace": trace,
+           "obs_report": summary["checkpoints"],
+           "resumes": summary["elastic"]["resumes"],
+           "kernel_launches": launches, "other_attention_launches": other,
+           "launches_by_body": bodies, "nvidia_smi": smi}
+    emit(row)
+    if not all(np.isfinite(losses_a + losses_c)):
+        raise AssertionError(f"checkpoint_resume: non-finite losses {row}")
+    if losses_b != losses_a[:half] and \
+            max(abs(x - y) for x, y in zip(losses_b, losses_a)) > \
+            max(spread[:half]):
+        raise AssertionError("checkpoint_resume: run B's first steps left "
+                             f"run A's spread: {losses_b} vs {losses_a}")
+    if any(abs(x - y) > worst for x, y in zip(losses_c, resumed)):
+        raise AssertionError(
+            f"checkpoint_resume: the resumed losses {losses_c} differ from "
+            f"the straight run's {resumed} beyond its own spread {worst}")
+    if trace_steps != list(range(CKPT_TRACE["start_step"],
+                                 CKPT_TRACE["start_step"]
+                                 + CKPT_TRACE["num_steps"])):
+        raise AssertionError(f"checkpoint_resume: the trace holds steps "
+                             f"{trace_steps}, want 2 and 3")
+    want = cfg.num_layers * CKPT_TRACE["num_steps"]
+    if on_cuda and any(n != want for n in trace_kernels.values()):
+        raise AssertionError(f"checkpoint_resume: the trace holds K1-K3 "
+                             f"kernels {trace_kernels}, want {want} each")
+    for name, n in launches.items():
+        if n != cfg.num_layers * 2 * half:
+            raise AssertionError(f"checkpoint_resume: {name} launched {n} "
+                                 f"times in run B's {2 * half} steps")
+    if any(other.values()):
+        raise AssertionError(f"checkpoint_resume: other attention kernels "
+                             f"launched: {other}")
+    if on_cuda:
+        _check_mma_bodies("checkpoint_resume", bodies)
+    if cli.returncode != 0:
+        raise AssertionError(f"checkpoint_resume: the verify CLI exited "
+                             f"{cli.returncode}:\n{cli.stdout[-2000:]}"
+                             f"\n{cli.stderr[-2000:]}")
+    ck = summary["checkpoints"]
+    if (ck["saves"], ck["loads"], summary["elastic"]["resumes"]) != \
+            (2, 1, 1):
+        raise AssertionError(f"checkpoint_resume: obs_report read {ck} and "
+                             f"{summary['elastic']['resumes']} resumes, "
+                             "want 2 saves, 1 load, 1 resume")
+    state.update(launches=launches, tag3=tag3, tag6=tag6)
+    return state
+
+
+def _first_decode_logits(engine):
+    """Record the logits of the engine's first decode dispatch from here
+    on (``rec["logits"]``, fp32 on the host), by wrapping its sampler."""
+    rec = {"in_decode": False}
+    decode, sample = engine._decode_paged_impl, engine._sample_tokens
+
+    def sample_rec(logits, *args):
+        if rec["in_decode"] and "logits" not in rec:
+            rec["logits"] = logits.detach().float().cpu()
+        return sample(logits, *args)
+
+    def decode_rec(*args):
+        rec["in_decode"] = True
+        try:
+            return decode(*args)
+        finally:
+            rec["in_decode"] = False
+    engine._sample_tokens = sample_rec
+    engine._decode_paged_impl = decode_rec
+    return rec
+
+
+def _serve_checked(engine, prompts, new_tokens):
+    """Warm up, then serve ``prompts`` greedily: (tokens per request, the
+    first decode step's logits, K4's launches, decode dispatches)."""
+    from deepspeed_tpu_torch.inference import Request
+    from deepspeed_tpu_torch.ops.attention.paged import \
+        paged_decode_attention
+    engine.warmup()
+    rec = _first_decode_logits(engine)
+    decode0 = engine.dispatches["decode"]
+    paged_decode_attention.launches = 0
+    paged_decode_attention.launches_int8 = 0
+    uids = [engine.submit(Request(prompt=p, max_new_tokens=new_tokens,
+                                  temperature=0.0, seed=i))
+            for i, p in enumerate(prompts)]
+    done = {f.uid: f for f in engine.run()}
+    out = [done[u].tokens for u in uids]
+    if any(len(t) != new_tokens for t in out):
+        raise AssertionError(f"serve_from_checkpoint: lengths "
+                             f"{[len(t) for t in out]}")
+    return (out, rec["logits"], paged_decode_attention.launches,
+            paged_decode_attention.launches_int8,
+            engine.dispatches["decode"] - decode0)
+
+
+def serve_from_checkpoint_phase(smi, state, device="cuda",
+                                prompt_len=CKPT_SERVE_PROMPT,
+                                new_tokens=CKPT_SERVE_NEW,
+                                requests=CKPT_SERVE_REQUESTS):
+    """InferenceEngine.from_checkpoint(d, GPT2_MEDIUM, tag="global_step3")
+    over the bf16 paged pool serves ``requests`` greedy requests of
+    ``prompt_len`` tokens: its tokens, and its first decode step's logits
+    bitwise, equal those of an engine built from run B's in-memory params
+    at step 3; then swap_params(d, "global_step6") between requests: the
+    same against an engine of the step-6 params, at weight_version
+    global_step6, ordinal 1. K4 runs once per layer per decode step.
+    Returns K4's launches on this path by tag served (each count set to
+    0 just before its requests)."""
+    import torch
+    from deepspeed_tpu_torch import InferenceEngine
+    cfg, save_dir = state["config"], state["save_dir"]
+    rng = np.random.RandomState(SEED + 3)
+    prompts = [rng.randint(0, cfg.vocab_size, size=prompt_len).tolist()
+               for _ in range(requests)]
+
+    def reference(params):
+        eng = InferenceEngine(cfg, params, {}, dtype=torch.bfloat16,
+                              device=device)
+        got = _serve_checked(eng, prompts, new_tokens)
+        del eng
+        return got
+
+    ref3, ref6 = reference(state["params3"]), reference(state["params6"])
+    t0 = time.perf_counter()
+    engine = InferenceEngine.from_checkpoint(
+        save_dir, cfg, tag="global_step3", dtype=torch.bfloat16,
+        device=device)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    got3 = _serve_checked(engine, prompts, new_tokens)
+    version3 = engine.debug_state()["weight_version"]
+    t0 = time.perf_counter()
+    engine.swap_params(save_dir, tag="global_step6")
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    st = engine.debug_state()
+    got6 = _serve_checked(engine, prompts, new_tokens)
+    layers = cfg.num_layers
+    rows = {"global_step3": (got3, ref3), "global_step6": (got6, ref6)}
+    row = {"phase": "serve_from_checkpoint", "model": "gpt2-345m",
+           "kv_dtype": "bfloat16", "requests": requests,
+           "prompt_len": prompt_len, "new_tokens": new_tokens,
+           "from_checkpoint_ms": load_ms, "swap_ms": swap_ms,
+           "versions": [version3, st["weight_version"]],
+           "weight_ordinal": st["weight_ordinal"],
+           "tokens_equal": {t: g[0] == r[0] for t, (g, r) in rows.items()},
+           "logits_bitwise": {t: bool(torch.equal(g[1], r[1]))
+                              for t, (g, r) in rows.items()},
+           "logits_max_abs_diff": {
+               t: float((g[1] - r[1]).abs().max()) for t, (g, r) in
+               rows.items()},
+           "kernel_launches": {t: g[2] for t, (g, _) in rows.items()},
+           "int8_launches": {t: g[3] for t, (g, _) in rows.items()},
+           "decode_dispatches": {t: g[4] for t, (g, _) in rows.items()},
+           "nvidia_smi": smi}
+    emit(row)
+    if (version3, st["weight_version"], st["weight_ordinal"]) != \
+            ("global_step3", "global_step6", 1):
+        raise AssertionError(f"serve_from_checkpoint: versions {row}")
+    for tag, (g, r) in rows.items():
+        if g[0] != r[0] or not torch.equal(g[1], r[1]):
+            raise AssertionError(f"serve_from_checkpoint: {tag}'s tokens "
+                                 "or first decode logits differ from the "
+                                 "in-memory params' engine")
+        if g[3] or g[2] != g[4] * layers or g[2] <= 0:
+            raise AssertionError(
+                f"serve_from_checkpoint: {tag}: K4 launched {g[2]} times "
+                f"(int8 {g[3]}) for {g[4]} decode steps x {layers} layers")
+    state["engine"], state["prompts"] = engine, prompts
+    state["tokens6"], state["new_tokens"] = got6[0], new_tokens
+    return {t: g[2] for t, (g, _) in rows.items()}
+
+
+def checkpoint_fallback_phase(smi, state):
+    """After serving used it, a bit flipped in global_step6's model shard:
+    verify_checkpoint_dir names the CRC32 mismatch; the serving engine's
+    swap to it raises and it keeps serving global_step6's weights (the
+    same tokens); a new training engine's load_checkpoint(tag=None) falls
+    back to global_step3 (its params equal B's at step 3 bitwise) and
+    writes a fallback row that obs_report counts."""
+    import os
+    import torch
+    from deepspeed_tpu_torch.runtime import checkpoint as ckpt
+    from deepspeed_tpu_torch.runtime import fault
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    save_dir, engine = state["save_dir"], state.pop("engine")
+    victim = os.path.join(state["tag6"], "model_states.shard_0.npz")
+    offset = fault.flip_byte(victim)
+    ok, problems = ckpt.verify_checkpoint_dir(state["tag6"])
+    if ok or not any("CRC32" in p for p in problems):
+        raise AssertionError(f"checkpoint_fallback: the flipped tag "
+                             f"verified: {problems}")
+    try:
+        engine.swap_params(save_dir, tag="global_step6")
+        swapped = True
+    except FileNotFoundError:
+        swapped = False
+    out = _serve_checked(engine, state["prompts"], state["new_tokens"])[0]
+    still = (engine.weight_version, engine.weight_ordinal)
+    del engine
+    eng, events = state["train_engine"](SEED + 2, "fallback")
+    path, _ = eng.load_checkpoint(save_dir)
+    equal = all(torch.equal(x.cpu(), y) for x, y in zip(
+        tree_leaves(eng.params), tree_leaves(state["params3"])))
+    step = eng.global_steps
+    eng.close()
+    del eng
+    summary = _obs_report().summarize(events)["checkpoints"]
+    row = {"phase": "checkpoint_fallback", "flipped": os.path.basename(
+        victim), "offset": offset, "problems": problems,
+           "corrupt_swap_raised": not swapped, "serving_after": still,
+           "tokens_unchanged": out == state["tokens6"],
+           "loaded": os.path.basename(path or ""), "step": step,
+           "params_equal_step3": equal, "obs_report": summary,
+           "nvidia_smi": smi}
+    emit(row)
+    if swapped or still != ("global_step6", 1) or \
+            out != state["tokens6"]:
+        raise AssertionError(f"checkpoint_fallback: the swap to the "
+                             f"corrupt tag did not roll back: {row}")
+    if path != state["tag3"] or step != CKPT_HALF or not equal:
+        raise AssertionError(f"checkpoint_fallback: loaded {path} at step "
+                             f"{step}, params equal {equal}")
+    if (summary["fallbacks"], summary["loads"]) != (1, 1):
+        raise AssertionError(f"checkpoint_fallback: obs_report read "
+                             f"{summary}, want 1 fallback and 1 load")
+
+
 def main() -> int:
+    global _START
+    _START = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -5934,6 +6437,15 @@ def main() -> int:
     llama_train_kernel_vs_plain_phase()
     llama_train_launches = llama_training_phase(smi)
     llama_gqa = llama_gqa_kernel_timing_phase(smi)
+    ckpt_root = tempfile.mkdtemp(prefix="ckpt_resume_")
+    try:
+        ckpt_state = checkpoint_resume_phase(smi, ckpt_root)
+        ckpt_train_launches = ckpt_state["launches"]
+        ckpt_serve_launches = serve_from_checkpoint_phase(smi, ckpt_state)
+        checkpoint_fallback_phase(smi, ckpt_state)
+        del ckpt_state
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     bert_check = bert_kernel_check_phase()
     bert_timing = bert_kernel_timing_phase(smi)
     bert_launches, _ = bert_training_phase(smi)
@@ -5991,9 +6503,12 @@ def main() -> int:
         name="paged_decode", route="cuda",
         source="deepspeed_tpu_torch/csrc/paged_decode.cu",
         replaces="deepspeed_tpu/ops/attention/paged.py:217",
-        launches=launches + llama_launches["bf16"],
+        launches=(launches + llama_launches["bf16"]
+                  + sum(ckpt_serve_launches.values())),
         launches_by_path={"gpt2-345m bf16 pool": launches,
-                          "llama-1b bf16 pool": llama_launches["bf16"]},
+                          "llama-1b bf16 pool": llama_launches["bf16"],
+                          **{f"gpt2-345m from_checkpoint {tag}, bf16 pool":
+                             n for tag, n in ckpt_serve_launches.items()}},
         max_abs_err=timing["max_abs_err"],
         ms=timing["ms"], kernel_ms=timing["ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
@@ -6029,12 +6544,16 @@ def main() -> int:
             name=name, route="cuda", body=kernel_body(name),
             source="deepspeed_tpu_torch/csrc/masked_flash.cu",
             replaces=t["replaces"],
-            launches=train_launches[name] + llama_train_launches[name],
+            launches=(train_launches[name] + llama_train_launches[name]
+                      + ckpt_train_launches[name]),
             launches_by_path={
                 f"gpt2-345m training ({TRAIN_STEPS} steps)":
                     train_launches[name],
                 f"llama-1b training, G 4 ({TRAIN_STEPS} steps)":
-                    llama_train_launches[name]},
+                    llama_train_launches[name],
+                f"gpt2-345m checkpoint save and resume ({CKPT_HALF} + "
+                f"{CKPT_HALF} steps, {CKPT_DS_CONFIG})":
+                    ckpt_train_launches[name]},
             max_abs_err=max(errs[name], llama_gqa[name]["max_abs_err"]),
             ms=t["ms"], kernel_ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -6212,5 +6731,94 @@ def main() -> int:
     return 0
 
 
+def profile_activity_probe(pairs=2, steps=2, decode_steps=8):
+    """The profile phases' windows (:func:`device_kernels`) with CUDA
+    activity alone against CPU and CUDA activity, in turns on the same
+    engines: GPT-2 345M's training step (TRAIN_DS_CONFIG, micro batch 8,
+    seq 1024) and its bf16 decode step with 8 requests in flight. One
+    row per window (its seconds, busy ms and launches per step, every
+    kernel), then one per two windows: whether they name the same
+    kernels, the kernels whose launches differ, and the largest change
+    of a kernel's ms per step (of those over 0.05 ms) between them,
+    which the windows of one kind give as the spread.
+
+        python3 chip_smoke.py --profile-probe
+    """
+    import itertools
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import InferenceEngine
+    from deepspeed_tpu_torch.inference import Request
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2_MEDIUM, gpt2_loss_fn,
+                                                 init_gpt2_params)
+    from deepspeed_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "device", "nvidia_smi": nvidia_smi_line()})
+    _build.build_all()
+
+    def windows(path, run, n):
+        got = []
+        for i in range(pairs):
+            for cpu in (True, False):
+                t0 = time.perf_counter()
+                kernels = device_kernels(run, n, cpu=cpu)
+                got.append({"phase": "profile_probe", "path": path,
+                            "window": len(got),
+                            "activities": "cpu+cuda" if cpu else "cuda",
+                            "seconds": time.perf_counter() - t0,
+                            "busy_ms_per_step": sum(k[1] for k in kernels),
+                            "launches_per_step": sum(k[2] for k in kernels),
+                            "kernels": {k: [ms, calls]
+                                        for k, ms, calls in kernels}})
+                emit(got[-1])
+        for a, b in itertools.combinations(got, 2):
+            ka, kb = a["kernels"], b["kernels"]
+            both = set(ka) & set(kb)
+            emit({"phase": "profile_probe_pair", "path": path,
+                  "windows": [a["window"], b["window"]],
+                  "activities": [a["activities"], b["activities"]],
+                  "same_kernels": set(ka) == set(kb),
+                  "only_in_first": sorted(set(ka) - set(kb)),
+                  "only_in_second": sorted(set(kb) - set(ka)),
+                  "launch_differences": {k: [ka[k][1], kb[k][1]]
+                                         for k in sorted(both)
+                                         if ka[k][1] != kb[k][1]},
+                  "busy_ratio": b["busy_ms_per_step"]
+                  / a["busy_ms_per_step"],
+                  "max_kernel_ms_change": max(
+                      (abs(kb[k][0] / ka[k][0] - 1) for k in both
+                       if ka[k][0] > 0.05), default=None)})
+
+    cfg = gpt2_345m_train_config()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=gpt2_loss_fn(cfg, dtype=torch.bfloat16, deterministic=True),
+        model_parameters=init_gpt2_params(cfg, gen),
+        config=dict(TRAIN_DS_CONFIG, train_micro_batch_size_per_gpu=8))
+    data = {"input_ids": np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (8, 1025)).astype(np.int32)}
+    for _ in range(TRAIN_WARMUP):
+        engine.train_batch(iter([data]))
+    windows("gpt2-345m train_batch", lambda: [
+        engine.train_batch(iter([data])) for _ in range(steps)], steps)
+    del engine
+    torch.cuda.empty_cache()
+    serve = InferenceEngine(GPT2_MEDIUM, init_gpt2_params(GPT2_MEDIUM, gen),
+                            {}, dtype=torch.bfloat16)
+    for i, p in enumerate(make_prompts(GPT2_MEDIUM.vocab_size)[:8]):
+        serve.submit(Request(prompt=p, seed=i,
+                             max_new_tokens=2 * pairs * decode_steps + 4))
+    serve.step()                        # prefill + one decode
+    serve.step()
+    windows("gpt2-345m decode step", lambda: [
+        serve.step() for _ in range(decode_steps)], decode_steps)
+    serve.run()
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profile_activity_probe() if sys.argv[1:] == ["--profile-probe"]
+             else main())

@@ -17,7 +17,13 @@ This package imports torch and numpy, never jax and nothing of
   block-sparse, banded layouts in the kernels' KIND_BAND arity;
 - paged serving of GPT-2 and Llama (GQA) models: ``InferenceEngine``
   over the paged KV pool, bf16 or int8, with decode attention in
-  hand-written CUDA kernels (``ops/attention/paged.py``).
+  hand-written CUDA kernels (``ops/attention/paged.py``);
+- checkpoints in the JAX package's tag layout, so tags pass between the
+  packages: ``DeepSpeedEngine.save_checkpoint`` / ``load_checkpoint``
+  (atomic commit, verification, fallback; ``runtime/checkpoint.py``),
+  ``InferenceEngine.from_checkpoint`` / ``swap_params``, and ``python -m
+  deepspeed_tpu_torch.tools.verify_checkpoint``; the training trace
+  window (``observability.trace``) records a ``torch.profiler`` trace.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -25,6 +25,10 @@ families).
   and the pool view go through the monitor into ``events.jsonl`` with
   the JAX package's ``Serve/*`` tags; the request trail, latency
   decomposition and SLO split come from ``inference/tracing.py``.
+- **From a training tag.** :meth:`InferenceEngine.from_checkpoint` serves
+  the ``model_states`` group of a committed tag (of either package), and
+  :meth:`InferenceEngine.swap_params` moves a running engine to a newer
+  tag, atomically or not at all; ``weight_version`` names the tag served.
 
 Where the JAX engine donates the cache to each compiled program, the
 port's programs update the pool tensors in place
@@ -35,6 +39,7 @@ bucket shape once. Configurations outside this slice raise
 """
 
 import functools
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -52,11 +57,15 @@ from deepspeed_tpu_torch.inference.scheduler import (FinishedRequest,
                                                      Request, Scheduler)
 from deepspeed_tpu_torch.inference.tracing import ServeTracer
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, _gpt2_trunk_cached,
-                                             _tied_logits, tied_head_weight)
+                                             _tied_logits, init_gpt2_params,
+                                             tied_head_weight)
 from deepspeed_tpu_torch.models.llama import (LlamaConfig,
                                               _llama_trunk_cached,
+                                              init_llama_params,
                                               rope_cos_sin)
 from deepspeed_tpu_torch.ops.attention.paged import NEG_INF
+from deepspeed_tpu_torch.runtime import checkpoint as ckptlib
+from deepspeed_tpu_torch.runtime import fault
 from deepspeed_tpu_torch.profiling.spans import (ChromeTraceRecorder,
                                                  trace_span)
 from deepspeed_tpu_torch.runtime.config import (get_inference_config,
@@ -82,11 +91,11 @@ def _llama_trunk(config, max_len, device):
 
 
 # config class -> (family name, (config, max_len, device) -> cached trunk,
-# the LM head's weight leaf)
+# the LM head's weight leaf, the param init)
 _FAMILIES = {
     GPT2Config: ("gpt2", lambda config, max_len, device: _gpt2_trunk_cached,
-                 "wte"),
-    LlamaConfig: ("llama", _llama_trunk, "lm_head"),
+                 "wte", init_gpt2_params),
+    LlamaConfig: ("llama", _llama_trunk, "lm_head", init_llama_params),
 }
 
 
@@ -110,6 +119,27 @@ def _resolve_device(device) -> torch.device:
             "pass device='cpu' to serve on the CPU with the kernels' plain "
             "versions")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def _resolve_committed_tag(load_dir: str, tag: Optional[str],
+                           verify_integrity: bool) -> str:
+    """The pre-flight every serving load shares (``from_checkpoint``,
+    ``swap_params``): with ``tag`` None the newest committed tag wins,
+    and a corrupt, uncommitted or weightless tag is skipped with a
+    warning. Returns the chosen tag's directory."""
+    candidates = [tag] if tag is not None else \
+        ckptlib.candidate_tags(load_dir)
+    for t in candidates:
+        d = os.path.join(load_dir, t)
+        ok, problems = ckptlib.verify_checkpoint_dir(
+            d, check_crc=verify_integrity)
+        if ok and ckptlib.state_groups(d)["model_states"]:
+            return d
+        logger.warning(f"serving checkpoint pre-flight: skipping {d}: "
+                       f"{problems or 'no model_states group'}")
+    raise FileNotFoundError(
+        f"no loadable committed checkpoint with model_states "
+        f"under {load_dir} (tag={tag!r})")
 
 
 def _refuse_unported(cfg: Dict[str, Any]) -> None:
@@ -143,7 +173,8 @@ class InferenceEngine:
     def __init__(self, model_config, params, inference_config=None,
                  dtype=torch.bfloat16, monitor: Optional[Any] = None,
                  observability_config=None, device=None):
-        self.family, make_trunk, head_leaf = _family_of(model_config)
+        self.family, make_trunk, head_leaf, _ = _family_of(model_config)
+        self._head_leaf = head_leaf
         self.device = _resolve_device(device)
         self.model_config = model_config
         self.dtype = dtype
@@ -228,7 +259,9 @@ class InferenceEngine:
                                    allocator=allocator,
                                    lookahead=cfg["admit_lookahead"],
                                    tracer=self._tracer)
-        self.scheduler.weight_version = "initial"
+        self._weight_version = "initial"
+        self._weight_ordinal = 0
+        self.scheduler.weight_version = self._weight_version
 
         logger.info(
             f"inference decode attention: {self._decode_attn_path} "
@@ -613,16 +646,99 @@ class InferenceEngine:
             "prefill_shapes": dict(self.prefill_shapes),
             "page_pool": pool,
             "slo": self._tracer.snapshot(),
-            "weight_version": "initial",
-            "weight_ordinal": 0,
+            "weight_version": self._weight_version,
+            "weight_ordinal": self._weight_ordinal,
         }
 
+    # ----------------------------------------- checkpoint -> serving
+    @property
+    def weight_version(self) -> str:
+        """The tag served ("initial": the constructor's params)."""
+        return self._weight_version
+
+    @property
+    def weight_ordinal(self) -> int:
+        """Committed swaps (the ``Serve/weight_version`` scalar: 0 is the
+        weights the engine started with)."""
+        return self._weight_ordinal
+
     @classmethod
-    def from_checkpoint(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "InferenceEngine.from_checkpoint (serving a committed training "
-            "checkpoint) is a feature of the JAX engine that the port does "
-            "not serve yet")
+    def from_checkpoint(cls, load_dir: str, model_config,
+                        tag: Optional[str] = None, inference_config=None,
+                        dtype=torch.bfloat16, monitor: Optional[Any] = None,
+                        quantize_weights=None, verify_integrity: bool = True,
+                        observability_config=None, device=None):
+        """A serving engine from a committed training tag. Loads the
+        ``model_states`` group only (never the optimizer state), into a
+        template made on the ``meta`` device, so the weights are held
+        once on the host; the constructor casts them to ``dtype``. With
+        ``tag=None`` the newest committed and verified tag wins, corrupt
+        or uncommitted ones skipped."""
+        if quantize_weights:    # the rest of the config: the constructor
+            _refuse_unported(get_inference_config({"inference": dict(
+                inference_config or {}, quantize_weights=quantize_weights)}))
+        chosen = _resolve_committed_tag(load_dir, tag, verify_integrity)
+        init = _family_of(model_config)[3]
+        template = init(model_config, None, device="meta")
+        params = ckptlib.load_params_only(chosen, template)
+        engine = cls(model_config, params, inference_config, dtype=dtype,
+                     monitor=monitor,
+                     observability_config=observability_config,
+                     device=device)
+        engine._weight_version = os.path.basename(chosen)
+        engine.scheduler.weight_version = engine._weight_version
+        if engine._log is not None:
+            engine._log.add_event("serve_load", checkpoint=chosen,
+                                  quantize_weights=False)
+        logger.info(f"inference engine loaded params from {chosen}")
+        return engine
+
+    def swap_params(self, load_dir: str, tag: Optional[str] = None,
+                    verify_integrity: bool = True) -> str:
+        """Move the running engine to a committed tag's weights, between
+        :meth:`step` calls. The tag loads against the live params as the
+        template and is placed on the device before anything is
+        assigned, so a failure (a bad tag, an I/O error, the
+        ``serve.swap_load`` fault point) leaves the engine serving the
+        old weights. In-flight requests switch at their next dispatch;
+        their KV prefix stays valid (same geometry). Returns the new
+        version (the tag's name)."""
+        t0 = time.perf_counter()
+        try:
+            chosen = _resolve_committed_tag(load_dir, tag, verify_integrity)
+            version = os.path.basename(chosen)
+            fault.fire("serve.swap_load", path=chosen, version=version)
+            new_params = self._place_params(
+                ckptlib.load_params_only(chosen, self.params))
+            new_head = tied_head_weight(new_params[self._head_leaf],
+                                        self.dtype)
+        except BaseException as e:
+            if self._log is not None:
+                self._log.add_event(
+                    "fleet_swap", ok=False, tag=tag, load_dir=str(load_dir),
+                    error=str(e) or type(e).__name__,
+                    weight_version=self._weight_version,
+                    weight_ordinal=self._weight_ordinal)
+            logger.warning(f"swap_params: load failed ({e!r}); still "
+                           f"serving weight_version={self._weight_version}")
+            raise
+        # commit: every dispatch from here on sees the new weights
+        self.params, self._head_w = new_params, new_head
+        self._weight_version = version
+        self._weight_ordinal += 1
+        self.scheduler.weight_version = version
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if self._log is not None:
+            self._log.add_event(
+                "fleet_swap", ok=True, checkpoint=chosen,
+                weight_version=version, weight_ordinal=self._weight_ordinal,
+                wall_ms=round(wall_ms, 3))
+        self.monitor.write_serving_metrics(
+            weight_version=self._weight_ordinal,
+            tokens=self.scheduler.total_tokens)
+        logger.info(f"swap_params: now serving {version} (ordinal "
+                    f"{self._weight_ordinal}, {wall_ms:.1f} ms)")
+        return version
 
     def close(self):
         if self._log is not None:

@@ -75,18 +75,23 @@ GPT2_XL = GPT2Config(hidden_size=1600, num_layers=48,
 
 
 def init_gpt2_params(config: GPT2Config,
-                     generator: torch.Generator) -> Dict[str, Any]:
+                     generator: Optional[torch.Generator],
+                     device=None) -> Dict[str, Any]:
     """Random fp32 parameters with the JAX init's distributions (normal
     weights at ``initializer_range``, output projections scaled by
     ``1/sqrt(2 * num_layers)``, zero biases, unit LayerNorm gains), on
     the generator's device. The numbers differ from ``jax.random``'s;
-    use :func:`params_from_jax` for the same weights in both packages."""
+    use :func:`params_from_jax` for the same weights in both packages.
+    ``device="meta"`` (``generator`` None) gives the tree's shapes and
+    dtypes without memory: a checkpoint loader's template."""
     h, inter = config.hidden_size, config.inter
     rng = config.initializer_range
     out_rng = rng / math.sqrt(2.0 * config.num_layers)
-    dev = generator.device
+    dev = torch.device(device) if device is not None else generator.device
 
     def normal(shape, std):
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=torch.float32, device=dev)
         return torch.randn(shape, generator=generator, device=dev,
                            dtype=torch.float32) * std
 

@@ -77,20 +77,25 @@ class LlamaConfig(NamedTuple):
 
 
 def init_llama_params(config: LlamaConfig,
-                      generator: torch.Generator) -> Dict[str, Any]:
+                      generator: Optional[torch.Generator],
+                      device=None) -> Dict[str, Any]:
     """Random fp32 parameters with the JAX init's distributions (normal
     weights at ``initializer_range``, ``wo`` and ``w_down`` scaled by
     ``1/sqrt(2 * num_layers)``, unit RMSNorm gains), on the generator's
     device, in the layout ``config.scan_layers`` names. The numbers
     differ from ``jax.random``'s; use :func:`llama_params_from_jax` for
-    the same weights in both packages."""
+    the same weights in both packages. ``device="meta"`` (``generator``
+    None) gives the tree's shapes and dtypes without memory: a checkpoint
+    loader's template."""
     h, hd = config.hidden_size, config.head_dim
     hkv, inter = config.kv_heads, config.inter
     rng = config.initializer_range
     out_rng = rng / math.sqrt(2.0 * config.num_layers)
-    dev = generator.device
+    dev = torch.device(device) if device is not None else generator.device
 
     def normal(shape, std):
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=torch.float32, device=dev)
         return torch.randn(shape, generator=generator, device=dev,
                            dtype=torch.float32) * std
 

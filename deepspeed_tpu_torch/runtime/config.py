@@ -12,10 +12,14 @@ masters, moments (and at stage 2 the grads) over a data axis of size 1,
 one shard, so the step is stage 0's. Settings whose runtime is not
 ported yet (ZeRO above a world of one, stage 3, offload, 1-bit Adam,
 pipeline, fp16, a ``mesh`` axis above 1, the training ``observability``
-switches ``trace.enabled`` or the legacy ``profiler.enabled`` and
-``health.enabled``) raise ``NotImplementedError`` naming them; a ``mesh``
-whose axes are all 1 (or -1, one device), ``tensorboard``,
-``observability.enabled`` and ``observability.serve`` are accepted. Before those refusals
+switch ``health.enabled``, and the ``checkpoint`` section's
+``async_save`` and ``drain_on_preemption``) raise ``NotImplementedError``
+naming them; a ``mesh`` whose axes are all 1 (or -1, one device),
+``tensorboard``, ``observability.enabled``, the trace window
+(``observability.trace`` or the legacy ``profiler``) and
+``observability.serve`` are accepted. The ``checkpoint`` section is read
+by :func:`get_checkpoint_config` with the JAX package's checks (its
+``supervisor`` is checked and left to a launcher). Before those refusals
 the values of ``bf16.stochastic_rounding``, ``quantized_comm`` (and its
 legacy alias ``compressed_allreduce``), ``comm_autotune``,
 ``async_pipeline`` and the training ``observability`` keys get the JAX
@@ -345,6 +349,52 @@ def get_training_observability_config(param_dict):
     }
 
 
+def get_checkpoint_config(param_dict):
+    """The ``checkpoint`` section: atomic commit, verification, retention
+    and I/O retries (``runtime/checkpoint.py``), with the JAX package's
+    three checks. ``async_save`` and ``drain_on_preemption`` parse here
+    and are refused by :class:`DeepSpeedConfig`; ``supervisor`` is the
+    launcher's, checked and not used by the engine."""
+    sub = param_dict.get(C.CHECKPOINT, {})
+    sup = sub.get(C.CHECKPOINT_SUPERVISOR, {}) or {}
+    cfg = {
+        "verify_checksums": sub.get(C.CHECKPOINT_VERIFY_CHECKSUMS,
+                                    C.CHECKPOINT_VERIFY_CHECKSUMS_DEFAULT),
+        "keep_n": sub.get(C.CHECKPOINT_KEEP_N, C.CHECKPOINT_KEEP_N_DEFAULT),
+        "io_retries": sub.get(C.CHECKPOINT_IO_RETRIES,
+                              C.CHECKPOINT_IO_RETRIES_DEFAULT),
+        "io_retry_backoff": sub.get(C.CHECKPOINT_IO_RETRY_BACKOFF,
+                                    C.CHECKPOINT_IO_RETRY_BACKOFF_DEFAULT),
+        "async_save": bool(sub.get(C.CHECKPOINT_ASYNC_SAVE,
+                                   C.CHECKPOINT_ASYNC_SAVE_DEFAULT)),
+        "drain_on_preemption": bool(sub.get(
+            C.CHECKPOINT_DRAIN_ON_PREEMPTION,
+            C.CHECKPOINT_DRAIN_ON_PREEMPTION_DEFAULT)),
+        "save_dir": sub.get(C.CHECKPOINT_SAVE_DIR,
+                            C.CHECKPOINT_SAVE_DIR_DEFAULT),
+        "supervisor": {
+            "max_restarts": int(sup.get(
+                C.CHECKPOINT_SUPERVISOR_MAX_RESTARTS,
+                C.CHECKPOINT_SUPERVISOR_MAX_RESTARTS_DEFAULT)),
+            "backoff": float(sup.get(
+                C.CHECKPOINT_SUPERVISOR_BACKOFF,
+                C.CHECKPOINT_SUPERVISOR_BACKOFF_DEFAULT)),
+        },
+    }
+    if cfg["supervisor"]["max_restarts"] < 0:
+        raise DeepSpeedConfigError(
+            "checkpoint.supervisor.max_restarts must be >= 0, got "
+            f"{cfg['supervisor']['max_restarts']}")
+    if cfg["supervisor"]["backoff"] < 0:
+        raise DeepSpeedConfigError(
+            "checkpoint.supervisor.backoff must be >= 0, got "
+            f"{cfg['supervisor']['backoff']}")
+    if cfg["save_dir"] is not None and not isinstance(cfg["save_dir"], str):
+        raise DeepSpeedConfigError(
+            "checkpoint.save_dir must be a path string or null")
+    return cfg
+
+
 class DeepSpeedZeroConfig:
     """The ``zero_optimization`` section's stage and offload switch (the
     legacy boolean form means stage 1)."""
@@ -420,6 +470,8 @@ class DeepSpeedConfig:
         self.comm_autotune_config = get_comm_autotune_config(d)
         self.async_pipeline_config = get_async_pipeline_config(d)
         self.observability_config = get_training_observability_config(d)
+        self.profiler_config = self.observability_config["trace"]
+        self.checkpoint_config = get_checkpoint_config(d)
         tb = _sub(d, C.TENSORBOARD)
         self.tensorboard_enabled = get_scalar_param(
             tb, C.TENSORBOARD_ENABLED, C.TENSORBOARD_ENABLED_DEFAULT)
@@ -492,10 +544,6 @@ class DeepSpeedConfig:
         if C.PIPELINE in self._param_dict:
             unported.append("pipeline")
         obs = self.observability_config
-        if obs["trace"]["enabled"]:
-            unported.append("observability.trace.enabled or "
-                            "profiler.enabled (the trace window, ROADMAP "
-                            "Queue 1 item 7)")
         if obs["health"]["enabled"]:
             unported.append("observability.health.enabled (the flight "
                             "recorder and watchdog, ROADMAP Queue 1 item "
@@ -505,6 +553,13 @@ class DeepSpeedConfig:
         if wide:
             unported.append(f"mesh.axes {wide} (a device mesh, ROADMAP "
                             "Queue 1 items 10 and 16)")
+        ck = self.checkpoint_config
+        if ck["async_save"]:
+            unported.append("checkpoint.async_save (the async checkpoint "
+                            "writer, ROADMAP Queue 1 item 15)")
+        if ck["drain_on_preemption"]:
+            unported.append("checkpoint.drain_on_preemption (the "
+                            "preemption drain, ROADMAP Queue 1 item 15)")
         if self.fp16_enabled:
             unported.append("fp16.enabled (fp16 and loss scaling)")
         if not self.bf16_master_weights:

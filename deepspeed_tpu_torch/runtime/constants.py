@@ -508,3 +508,28 @@ INF_FLEET_AS_DOWN_PATIENCE = "scale_down_patience"
 INF_FLEET_AS_DOWN_PATIENCE_DEFAULT = 64
 INF_FLEET_AS_COOLDOWN_STEPS = "cooldown_steps"
 INF_FLEET_AS_COOLDOWN_STEPS_DEFAULT = 16
+
+#############################################
+# Checkpoints (atomic commit, verification, retention; the async writer,
+# the preemption drain and the supervisor are the JAX package's only)
+#############################################
+CHECKPOINT = "checkpoint"
+CHECKPOINT_VERIFY_CHECKSUMS = "verify_checksums"
+CHECKPOINT_VERIFY_CHECKSUMS_DEFAULT = True
+CHECKPOINT_KEEP_N = "keep_n"
+CHECKPOINT_KEEP_N_DEFAULT = 0
+CHECKPOINT_IO_RETRIES = "io_retries"
+CHECKPOINT_IO_RETRIES_DEFAULT = 3
+CHECKPOINT_IO_RETRY_BACKOFF = "io_retry_backoff"
+CHECKPOINT_IO_RETRY_BACKOFF_DEFAULT = 0.05
+CHECKPOINT_ASYNC_SAVE = "async_save"
+CHECKPOINT_ASYNC_SAVE_DEFAULT = False
+CHECKPOINT_DRAIN_ON_PREEMPTION = "drain_on_preemption"
+CHECKPOINT_DRAIN_ON_PREEMPTION_DEFAULT = False
+CHECKPOINT_SAVE_DIR = "save_dir"
+CHECKPOINT_SAVE_DIR_DEFAULT = None
+CHECKPOINT_SUPERVISOR = "supervisor"
+CHECKPOINT_SUPERVISOR_MAX_RESTARTS = "max_restarts"
+CHECKPOINT_SUPERVISOR_MAX_RESTARTS_DEFAULT = 3
+CHECKPOINT_SUPERVISOR_BACKOFF = "backoff"
+CHECKPOINT_SUPERVISOR_BACKOFF_DEFAULT = 1.0

@@ -41,32 +41,63 @@ synchronises the card and writes each step of the window the window's
 wall time over its steps (the first step of a run, which builds the
 kernels, keeps its own time), with samples/s and MFU.
 
+Checkpoints follow the JAX engine's protocol and layout
+(``runtime/checkpoint.py``): :meth:`save_checkpoint` stages a tag, seals
+it with the ``COMMITTED`` marker, renames it into place and repoints
+``latest``; :meth:`load_checkpoint` verifies a tag before it restores
+it, and with no tag falls back to the newest committed one that
+verifies. A tag of either package loads in the other. The trace window
+(``observability.trace``, or the legacy ``profiler`` section) records a
+``torch.profiler`` trace of the steps ``[start_step, start_step +
+num_steps)`` into a Chrome trace under ``output_path``.
+
 Not ported yet: ZeRO across devices and offload, fp16 and loss scaling,
-pipeline and multi-GPU data parallelism, checkpoints, the async pipeline,
-the trace window and the health plane.
+pipeline and multi-GPU data parallelism, the async checkpoint writer and
+the preemption drain, the async pipeline and the health plane.
 """
 
 import atexit
 import inspect
+import os
+import shutil
 import time
 import weakref
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.optimizers import Optimizer, build_optimizer
 from deepspeed_tpu_torch.profiling import Observer
+from deepspeed_tpu_torch.runtime import checkpoint as ckpt
+from deepspeed_tpu_torch.runtime import fault
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader,
                                                     to_device)
 from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_schedule
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.monitor import TensorBoardMonitor
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer)
 from deepspeed_tpu_torch.utils.tree import (tree_leaves, tree_map,
                                             tree_unflatten)
+
+
+class LossScaleState(NamedTuple):
+    """The JAX engine's loss-scale group, which a checkpoint carries as
+    ``loss_scale/{scale,good_steps,hysteresis}``."""
+    scale: Any
+    good_steps: Any
+    hysteresis: Any
+
+
+# what the JAX engine's static scaler of 1.0 holds for bf16 and fp32 (the
+# port has no loss scaling): written into every tag, checked on load
+STATIC_LOSS_SCALE = LossScaleState(np.float32(1.0), np.int32(0),
+                                   np.int32(1))
+# meta.json key of the port's own generator state (JAX reads "rng")
+TORCH_RNG_KEY = "torch_rng_state"
 
 
 def resolve_device(device) -> torch.device:
@@ -141,6 +172,11 @@ class DeepSpeedEngine:
                                 for p in tree_leaves(self.params)]
         self.gradient_clipping = self._config.gradient_clipping
         self._generator = torch.Generator().manual_seed(seed)
+        self._ckpt_cfg = self._config.checkpoint_config
+        self._profiler_cfg = self._config.profiler_config
+        self._profiler = None        # the open trace window
+        self._trace_first = None     # its first step
+        self.trace_path = None       # the last window's Chrome trace
 
         # -- data --
         self.training_dataloader = None
@@ -391,6 +427,14 @@ class DeepSpeedEngine:
         :meth:`last_loss`, syncs)."""
         if data_iter is None:
             data_iter = self._ensure_train_iter()
+        self._maybe_profile_step()
+        if self._profiler is not None:
+            with torch.profiler.record_function(
+                    f"train_batch#{self.global_step}"):
+                return self._train_batch(data_iter)
+        return self._train_batch(data_iter)
+
+    def _train_batch(self, data_iter):
         self.tput_timer.start()
         t_step0 = time.perf_counter()
         if self._window_anchor is None:
@@ -450,8 +494,10 @@ class DeepSpeedEngine:
         return 1.0
 
     def close(self):
-        """Flush the telemetry ring and seal the Observer's event log
-        (idempotent)."""
+        """Stop an open trace window, flush the telemetry ring and seal
+        the Observer's event log (idempotent)."""
+        if self._profiler is not None:
+            self._stop_trace()
         if self._monitor_ring:
             self._flush_monitor()
         atexit.unregister(self._atexit_flush_hook)
@@ -560,3 +606,348 @@ class DeepSpeedEngine:
         step = self.global_step
         if step > 0 and step % self._config.steps_per_print == 0:
             log_dist(f"step={step} lr={self.get_lr()[0]:.3e}", ranks=[0])
+
+    # ------------------------------------------------------------------ #
+    # the trace window (the JAX engine's _maybe_profile_step)
+    # ------------------------------------------------------------------ #
+    def _maybe_profile_step(self):
+        """Open a ``torch.profiler`` window at ``start_step`` and close it
+        at ``start_step + num_steps``, at the top of ``train_batch`` as the
+        JAX engine does; each step inside it is labelled
+        ``train_batch#<global_step>``."""
+        cfg = self._profiler_cfg
+        if not cfg["enabled"]:
+            return
+        step = self.global_step
+        start = int(cfg["start_step"])
+        stop = start + int(cfg["num_steps"])
+        if self._profiler is None and step == start:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=acts)
+            self._profiler.start()
+            self._trace_first = step
+            log_dist(f"profiler: trace started at step {step} -> "
+                     f"{cfg['output_path']}", ranks=[0])
+        elif self._profiler is not None and step >= stop:
+            self._stop_trace()
+
+    def _stop_trace(self):
+        """Close the window and write its Chrome trace under
+        ``output_path`` (``trace_path``)."""
+        self._sync()
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        out = self._profiler_cfg["output_path"]
+        os.makedirs(out, exist_ok=True)
+        self.trace_path = os.path.join(
+            out, f"train_steps_{self._trace_first}-{self.global_step - 1}"
+            ".pt.trace.json")
+        prof.export_chrome_trace(self.trace_path)
+        log_dist(f"profiler: trace stopped at step {self.global_step} -> "
+                 f"{self.trace_path}", ranks=[0])
+
+    # ------------------------------------------------------------------ #
+    # checkpoints (the JAX engine's save_checkpoint / load_checkpoint)
+    # ------------------------------------------------------------------ #
+    def _optim_tree(self, opt_state=None) -> Dict[str, Any]:
+        """The ``optim_states`` group: the optimizer state with its step
+        as the JAX engine's int32, and the loss-scale constants."""
+        opt_state = self.opt_state if opt_state is None else opt_state
+        if hasattr(opt_state, "_fields") and "step" in opt_state._fields:
+            opt_state = opt_state._replace(step=np.int32(opt_state.step))
+        return {"opt_state": opt_state, "loss_scale": STATIC_LOSS_SCALE}
+
+    def _rng_words(self):
+        """Two uint32 words for ``meta["rng"]`` (the JAX engine's key
+        layout), drawn from a copy of the generator so that saving does
+        not move the port's own stream."""
+        g = torch.Generator()
+        g.set_state(self._generator.get_state())
+        return [int(w) for w in torch.randint(0, 2**32, (2,), generator=g,
+                                               dtype=torch.int64)]
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict] = None,
+                        async_: Optional[bool] = None):
+        """Atomic-commit save, blocking: the shards land in
+        ``<tag>.tmp/``, the ``COMMITTED`` marker (every file's size and
+        CRC32) seals it, the directory is renamed to its tag, then
+        ``latest`` is repointed. A crash at any point leaves the previous
+        checkpoint intact or the new one committed. ``tag`` defaults to
+        ``global_step<N>``. Returns the tag's directory."""
+        if async_ or self._ckpt_cfg["async_save"]:
+            raise NotImplementedError(
+                "save_checkpoint(async_=True) needs the async checkpoint "
+                "writer, not ported to deepspeed_tpu_torch yet (ROADMAP "
+                "Queue 1 item 15)")
+        if self._monitor_ring:
+            self._flush_monitor()   # a save is a sync point
+        ckpt.set_retry_policy(self._ckpt_cfg["io_retries"],
+                              self._ckpt_cfg["io_retry_backoff"])
+        t0 = time.time()
+        snap_model, snap_optim, meta = self._snapshot_train_state(
+            client_state)
+        if tag is None:
+            tag = f"global_step{meta['global_step']}"
+        snapshot_ms = (time.time() - t0) * 1000.0
+        samples = self.global_step * self.train_batch_size()
+        self.monitor.write_elastic_metrics(
+            snapshot_ms=snapshot_ms, pending_saves=0, samples=samples,
+            flush=False)
+        return self._write_checkpoint_job(save_dir, tag, snap_model,
+                                          snap_optim, meta, samples)
+
+    def _snapshot_train_state(self, client_state=None):
+        """The trees and meta a checkpoint carries, at the step boundary.
+        The live tensors pass straight through (the JAX engine's
+        ``copy=False`` path of a blocking save): each leaf is copied to
+        the host as its shard is written."""
+        fault.fire("ckpt.snapshot")
+        meta = {
+            "global_step": int(self.global_step),
+            "micro_step": int(self.micro_step),
+            "skipped_steps": 0,
+            "rng": self._rng_words(),
+            "lr_scheduler": (self.lr_scheduler.state_dict()
+                             if self.lr_scheduler is not None and
+                             hasattr(self.lr_scheduler, "state_dict")
+                             else None),
+            "dp_world_size": self.dp_world_size,
+            "zero_stage": self.zero_stage,
+            "client_state": client_state or {},
+            TORCH_RNG_KEY: self._generator.get_state().numpy()
+            .tobytes().hex(),
+        }
+        return self.params, self._optim_tree(), meta
+
+    def _write_checkpoint_job(self, save_dir, tag, snap_model, snap_optim,
+                              meta, samples):
+        """The stage/commit protocol, with the JAX engine's order and
+        fault points."""
+        t0 = time.time()
+        final_dir = os.path.join(save_dir, tag)
+        tmp_dir = final_dir + ckpt.TMP_SUFFIX
+        if os.path.isdir(tmp_dir):      # staging left by a crashed save
+            shutil.rmtree(tmp_dir)
+        os.makedirs(tmp_dir, exist_ok=True)
+        ckpt.save_tree_sharded(tmp_dir, "model_states", snap_model)
+        fault.fire("ckpt.after_shard", name="model_states", dir=tmp_dir)
+        ckpt.save_tree_sharded(tmp_dir, "optim_states", snap_optim)
+        fault.fire("ckpt.after_shard", name="optim_states", dir=tmp_dir)
+        self._save_checkpoint_extras(tmp_dir)
+        ckpt.write_meta(tmp_dir, meta)
+        fault.fire("ckpt.before_marker", dir=tmp_dir)
+        ckpt.write_commit_marker(tmp_dir, process_count=1)
+        fault.fire("ckpt.before_rename", dir=tmp_dir)
+        # re-saving a tag: the old committed copy is renamed aside, not
+        # deleted, so a crash between the two renames leaves
+        # '<tag>.old', which list_tags still offers
+        old_dir = final_dir + ckpt.OLD_SUFFIX
+        if os.path.isdir(final_dir):
+            if os.path.isdir(old_dir):
+                shutil.rmtree(old_dir)
+            os.rename(final_dir, old_dir)
+        os.replace(tmp_dir, final_dir)
+        ckpt._fsync_dir(save_dir)
+        if os.path.isdir(old_dir):
+            shutil.rmtree(old_dir)
+        ckpt.write_latest(save_dir, tag)
+        keep_n = int(self._ckpt_cfg["keep_n"] or 0)
+        if keep_n > 0:
+            dropped = ckpt.gc_old_tags(save_dir, keep_n)
+            if dropped:
+                log_dist(f"checkpoint retention (keep_n={keep_n}): "
+                         f"removed {dropped}", ranks=[0])
+        write_ms = (time.time() - t0) * 1000.0
+        self.monitor.write_elastic_metrics(
+            write_ms=write_ms, pending_saves=0, samples=samples,
+            flush=False)
+        self.monitor.write_checkpoint_event(
+            action="save", ok=True, duration_ms=write_ms, samples=samples)
+        log_dist(f"saved checkpoint {final_dir} "
+                 f"(committed in {write_ms:.0f}ms)", ranks=[0])
+        return final_dir
+
+    def wait_pending_saves(self):
+        """The JAX engine's async-save barrier. Saves here are blocking,
+        so there is never one pending: it returns."""
+
+    def _save_checkpoint_extras(self, ckpt_dir: str) -> None:
+        """Subclass hook: files written here, into the staging dir, are
+        sealed by the COMMITTED marker with the shards."""
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True,
+                        verify_integrity: Optional[bool] = None):
+        """Verified load with fallback. An explicit ``tag`` must verify
+        (marker, sizes and CRC32 unless ``verify_integrity=False``) or
+        this raises; with ``tag=None`` the newest committed tag that
+        verifies and loads is restored, a ``fallback`` row written for
+        each tag skipped. Returns ``(tag_dir, client_state)``, or
+        ``(None, {})`` when nothing loaded."""
+        if self._monitor_ring:
+            self._flush_monitor()
+        ckpt.set_retry_policy(self._ckpt_cfg["io_retries"],
+                              self._ckpt_cfg["io_retry_backoff"])
+        t0 = time.time()
+        if verify_integrity is None:
+            verify_integrity = bool(self._ckpt_cfg["verify_checksums"])
+        samples = self.global_step * self.train_batch_size()
+
+        def loaded(ckpt_dir, result):
+            self.monitor.write_checkpoint_event(
+                action="load", ok=True,
+                duration_ms=(time.time() - t0) * 1000.0, samples=samples)
+            self._record_resume(ckpt_dir)
+            return result
+
+        if tag is not None:
+            ckpt_dir = os.path.join(load_dir, tag)
+            ok, problems = ckpt.verify_checkpoint_dir(
+                ckpt_dir, check_crc=verify_integrity)
+            if not ok:
+                raise RuntimeError(
+                    f"checkpoint {ckpt_dir} failed integrity verification: "
+                    f"{'; '.join(problems)}")
+            return loaded(ckpt_dir, self._load_checkpoint_dir(
+                ckpt_dir, load_optimizer_states, load_lr_scheduler_states))
+
+        latest = ckpt.read_latest(load_dir)
+        candidates = ckpt.candidate_tags(load_dir)
+        if not candidates:
+            logger.warning(f"no loadable checkpoint tags in {load_dir}; "
+                           "nothing loaded")
+            return None, {}
+        for cand in candidates:
+            cand_dir = os.path.join(load_dir, cand)
+            ok, problems = ckpt.verify_checkpoint_dir(
+                cand_dir, check_crc=verify_integrity)
+            if not ok:
+                logger.warning(
+                    f"skipping checkpoint {cand_dir}: "
+                    f"{'; '.join(problems)}; falling back to an older tag")
+                self.monitor.write_checkpoint_event(
+                    action="fallback", ok=False, samples=samples)
+                continue
+            try:
+                result = self._load_checkpoint_dir(
+                    cand_dir, load_optimizer_states,
+                    load_lr_scheduler_states)
+            except fault.InjectedCrash:
+                raise
+            except Exception as e:
+                logger.warning(f"failed to load checkpoint {cand_dir} "
+                               f"({e!r}); falling back to an older tag")
+                self.monitor.write_checkpoint_event(
+                    action="fallback", ok=False, samples=samples)
+                continue
+            if latest is not None and cand != latest:
+                logger.warning(
+                    f"'latest' names {latest!r} but the newest committed "
+                    f"and verified checkpoint is {cand!r}; resumed from it "
+                    "(torn pointer or interrupted save)")
+            return loaded(cand_dir, result)
+        logger.warning(f"no committed and verified checkpoint in "
+                       f"{load_dir}; nothing loaded")
+        return None, {}
+
+    def _record_resume(self, ckpt_dir: str) -> None:
+        """The ``resume`` event row and the restart-count scalar after a
+        restore (restarts stay 0: no supervisor relaunches the port)."""
+        samples = self.global_step * self.train_batch_size()
+        self.observability.event(
+            "resume", step=self.global_step,
+            tag=os.path.basename(ckpt_dir), restarts=0,
+            preempted=ckpt.is_preemption_tag(ckpt_dir))
+        self.monitor.write_elastic_metrics(restarts=0, samples=samples)
+
+    def _load_checkpoint_dir(self, ckpt_dir: str,
+                             load_optimizer_states: bool = True,
+                             load_lr_scheduler_states: bool = True):
+        """Restore the engine from one verified tag directory. Everything
+        is read and checked on the host first, so a tag that fails leaves
+        the engine as it was; then the params and moments are copied into
+        the engine's live tensors, which the optimizer updates in place."""
+        meta = ckpt.read_meta(ckpt_dir)
+        missing = [k for k in ("global_step", "micro_step",
+                               "skipped_steps", "rng") if k not in meta]
+        if missing:
+            raise KeyError(f"meta.json in {ckpt_dir} missing {missing}")
+        if int(meta["skipped_steps"]):
+            raise ValueError(
+                f"checkpoint {ckpt_dir} skipped {meta['skipped_steps']} "
+                "steps on overflow: an fp16 run, which the port does not "
+                "train")
+        words = np.asarray(meta["rng"], dtype=np.uint32)
+        sharded = ckpt.sharded_exists(ckpt_dir, "model_states")
+
+        def load(name, template):
+            if sharded:
+                return ckpt.load_tree_sharded(ckpt_dir, name, template)
+            return ckpt.load_tree(os.path.join(ckpt_dir, f"{name}.npz"),
+                                  template)
+        params = load("model_states", self.params)
+        opt = None
+        if load_optimizer_states:
+            opt = load("optim_states", self._optim_tree())
+            got = tuple(float(v) for v in opt["loss_scale"])
+            if got != tuple(float(v) for v in STATIC_LOSS_SCALE):
+                raise ValueError(
+                    f"checkpoint {ckpt_dir} holds loss_scale {got}, not the "
+                    f"static scale of bf16 and fp32 {STATIC_LOSS_SCALE}: "
+                    "loss scaling (fp16) is not ported")
+        saved_dp = meta.get("dp_world_size")
+        if saved_dp is not None and saved_dp != self.dp_world_size:
+            logger.warning(
+                f"checkpoint {ckpt_dir} was saved at dp_world_size="
+                f"{saved_dp}, resuming at {self.dp_world_size} (elastic "
+                "repartition)")
+        saved_stage = meta.get("zero_stage")
+        if saved_stage is not None and saved_stage != self.zero_stage:
+            logger.warning(f"checkpoint {ckpt_dir} was saved at "
+                           f"zero_stage={saved_stage}, resuming at "
+                           f"{self.zero_stage}")
+
+        # -- from here on the engine changes --
+        live = list(tree_leaves(self.params))
+        with torch.no_grad():
+            torch._foreach_copy_(live, [t.to(self.device) for t in
+                                        tree_leaves(params)])
+            moments = [list(tree_leaves(self.opt_state.exp_avg)),
+                       list(tree_leaves(self.opt_state.exp_avg_sq))]
+            if opt is not None:
+                st = opt["opt_state"]
+                for dst, src in zip(moments, (st.exp_avg, st.exp_avg_sq)):
+                    torch._foreach_copy_(dst, [t.to(self.device) for t in
+                                               tree_leaves(src)])
+                self.opt_state = self.opt_state._replace(step=int(st.step))
+            else:   # fresh moments at step 0
+                for dst in moments:
+                    torch._foreach_zero_(dst)
+                self.opt_state = self.opt_state._replace(step=0)
+            if self.accum_grads is not None:
+                torch._foreach_zero_(self.accum_grads)
+        self._pending_grads = self._cached_grads = None
+        if load_lr_scheduler_states and self.lr_scheduler is not None and \
+                meta.get("lr_scheduler") is not None and \
+                hasattr(self.lr_scheduler, "load_state_dict"):
+            self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
+        if TORCH_RNG_KEY in meta:
+            self._generator.set_state(torch.frombuffer(
+                bytearray.fromhex(meta[TORCH_RNG_KEY]), dtype=torch.uint8))
+        else:   # a JAX tag: the generator is seeded from the key's words
+            self._generator.manual_seed(
+                (int(words[0]) << 32) | int(words[1]))
+        self.global_step = int(meta["global_step"])
+        self.micro_step = int(meta["micro_step"])
+        self._host_micro_step = (self.global_step *
+                                 self.gradient_accumulation_steps +
+                                 self.micro_step)
+        self._window_anchor = None
+        log_dist(f"loaded checkpoint {ckpt_dir} (step={self.global_step}, "
+                 f"saved at dp={saved_dp}, now dp={self.dp_world_size})",
+                 ranks=[0])
+        return ckpt_dir, meta.get("client_state", {})

@@ -1,11 +1,13 @@
 """Metrics monitor (the port of ``deepspeed_tpu/utils/monitor.py``): the
 training writers (loss, lr, loss scale and timer values under
-``Train/Samples/*``) and the serving ones (``Serve/*``).
+``Train/Samples/*``), the checkpoint ones (save, load and fallback rows,
+the snapshot and write times under ``Checkpoint/*``) and the serving
+ones (``Serve/*``).
 
 Keeps the JAX package's tags and its events.jsonl schema — scalar rows
 ``{"tag", "value", "step"}``, structured rows ``{"event", ..., "t"}`` —
-so ``tools/obs_report.py`` reads a port run unchanged. The checkpoint,
-elastic and comm writers are not ported yet.
+so ``tools/obs_report.py`` reads a port run unchanged. The comm writers
+are not ported yet.
 """
 
 import json
@@ -41,6 +43,13 @@ TAG_SERVE_GOODPUT = "Serve/goodput_tokens_per_s"    # within-SLO tokens/s
 TAG_SERVE_KV_POOL_BPT = "Serve/kv_pool_bytes_per_token"
 TAG_SERVE_QUANT_LOGIT_ERR = "Serve/quant_logit_err"
 TAG_SERVE_TBT_MAX = "Serve/tbt_max_ms"              # per decode dispatch
+TAG_SERVE_WEIGHT_VERSION = "Serve/weight_version"   # committed swap
+#                                                     ordinal
+# checkpoint tags (x-axis = cumulative samples)
+TAG_CKPT_SNAPSHOT_MS = "Checkpoint/snapshot_ms"     # state capture
+TAG_CKPT_WRITE_MS = "Checkpoint/write_ms"           # stage/commit protocol
+TAG_CKPT_PENDING = "Checkpoint/pending_saves"       # async writer backlog
+TAG_CKPT_RESTARTS = "Checkpoint/restarts"           # supervisor relaunches
 
 
 class Histogram:
@@ -271,6 +280,37 @@ class TensorBoardMonitor:
             self.write_scalar(f"Train/Samples/{name}", ms, samples)
         self.flush()
 
+    def write_checkpoint_event(self, *, action: str, ok: bool = True,
+                               duration_ms=None, samples: int = 0):
+        """A checkpoint ``save``/``load`` (with its duration) or a
+        ``fallback`` (a tag skipped as uncommitted or corrupt), on the
+        samples x-axis of the loss."""
+        if not self._writes():
+            return
+        if duration_ms is not None:
+            self.write_scalar(f"Train/Samples/checkpoint_{action}_ms",
+                              duration_ms, samples)
+        self.write_scalar(f"Train/Samples/checkpoint_{action}_ok",
+                          1.0 if ok else 0.0, samples)
+        self.flush()
+
+    def write_elastic_metrics(self, *, snapshot_ms=None, write_ms=None,
+                              pending_saves=None, restarts=None,
+                              samples: int = 0, flush: bool = True):
+        """A save's snapshot and write times, the async writer's backlog
+        (0: saves are blocking) and the restart count (0: no supervisor
+        relaunches the port), on the samples x-axis."""
+        if not self._writes():
+            return
+        for tag, value in ((TAG_CKPT_SNAPSHOT_MS, snapshot_ms),
+                           (TAG_CKPT_WRITE_MS, write_ms),
+                           (TAG_CKPT_PENDING, pending_saves),
+                           (TAG_CKPT_RESTARTS, restarts)):
+            if value is not None:
+                self.write_scalar(tag, value, samples)
+        if flush:
+            self.flush()
+
     def write_serving_metrics(self, *, ttft_ms=None, token_latency_ms=None,
                               tokens_per_sec=None, queue_depth=None,
                               batch_occupancy=None, kv_pages_in_use=None,
@@ -280,13 +320,15 @@ class TensorBoardMonitor:
                               goodput_tokens_per_s=None,
                               kv_pool_bytes_per_token=None,
                               quant_logit_err=None, tbt_max_ms=None,
-                              tokens: int = 0, flush: bool = True):
+                              weight_version=None, tokens: int = 0,
+                              flush: bool = True):
         """Serving telemetry: TTFT per admitted request, per-decode-step
         token latency, cumulative tokens/s, queue depth and slot
         occupancy, the paged-pool view (pages in use, live cache tokens,
         prefix hit rate, which decode attention ran), and the
         request-granular plane (queue wait, TBT, SLO attainment,
-        goodput). The x-axis is cumulative generated tokens."""
+        goodput), and the ordinal of the weights served (after a
+        ``swap_params``). The x-axis is cumulative generated tokens."""
         if not self._writes():
             return
         for tag, value in (
@@ -305,7 +347,8 @@ class TensorBoardMonitor:
                 (TAG_SERVE_SLO, slo_attainment),
                 (TAG_SERVE_GOODPUT, goodput_tokens_per_s),
                 (TAG_SERVE_KV_POOL_BPT, kv_pool_bytes_per_token),
-                (TAG_SERVE_QUANT_LOGIT_ERR, quant_logit_err)):
+                (TAG_SERVE_QUANT_LOGIT_ERR, quant_logit_err),
+                (TAG_SERVE_WEIGHT_VERSION, weight_version)):
             if value is not None:
                 self.write_scalar(tag, value, tokens)
         if flush:

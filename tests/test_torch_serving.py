@@ -352,7 +352,10 @@ def test_unported_features_raise(override, feature):
 def test_unported_model_and_checkpoint_raise():
     """A config outside the family table is refused with the JAX
     engine's error: the JAX package's own LlamaConfig is such a class
-    to the port, which serves its own."""
+    to the port, which serves its own. ``from_checkpoint`` of a directory
+    without a committed tag raises JAX's error, and with
+    ``quantize_weights`` the constructor's refusal (serving from a tag:
+    tests/test_torch_checkpoint.py)."""
     from deepspeed_tpu.inference import InferenceEngine as JaxEngine
     from deepspeed_tpu.models.bert import BertConfig
     from deepspeed_tpu.models.llama import LlamaConfig as JaxLlamaConfig
@@ -365,8 +368,17 @@ def test_unported_model_and_checkpoint_raise():
     assert str(terr.value) == str(jerr.value)
     with pytest.raises(TypeError, match="unsupported model config"):
         InferenceEngine(JaxLlamaConfig(), {}, device="cpu")
-    with pytest.raises(NotImplementedError, match="from_checkpoint"):
-        InferenceEngine.from_checkpoint("/nonexistent", None)
+    cfg, _ = tiny_gpt2()
+    with pytest.raises(FileNotFoundError) as jerr:
+        JaxEngine.from_checkpoint("/nonexistent", cfg)
+    with pytest.raises(FileNotFoundError) as terr:
+        InferenceEngine.from_checkpoint("/nonexistent", _port_config(cfg),
+                                        device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    with pytest.raises(NotImplementedError, match="quantize_weights"):
+        InferenceEngine.from_checkpoint("/nonexistent", _port_config(cfg),
+                                        quantize_weights="int8",
+                                        device="cpu")
 
 
 def test_engine_without_device_raises_without_cuda():
@@ -396,7 +408,9 @@ def test_port_imports_neither_jax_nor_deepspeed_tpu():
                    "ops/sparse_attention/blocksparse_v2.py",
                    "ops/sparse_attention/ops.py",
                    "ops/sparse_attention/banded.py",
-                   "ops/sparse_attention/hybrid.py"):
+                   "ops/sparse_attention/hybrid.py",
+                   "runtime/checkpoint.py", "runtime/fault.py",
+                   "tools/verify_checkpoint.py"):
         assert REPO / "deepspeed_tpu_torch" / module in files
     for path in files:
         for name in _imports(path):
@@ -427,6 +441,8 @@ def test_port_package_imports_without_jax():
             "import deepspeed_tpu_torch.ops.sparse_attention.ops; "
             "import deepspeed_tpu_torch.ops.sparse_attention.banded; "
             "import deepspeed_tpu_torch.ops.sparse_attention.hybrid; "
+            "import deepspeed_tpu_torch.runtime.checkpoint; "
+            "import deepspeed_tpu_torch.tools.verify_checkpoint; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'deepspeed_tpu')]; "
             "assert not bad, bad")

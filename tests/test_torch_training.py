@@ -345,18 +345,16 @@ def test_zero_beyond_one_shard_raises(stage, world, offload):
 @pytest.mark.parametrize("extra,word", [
     ({"mesh": {"axes": {"data": 1, "model": 2}}}, "mesh"),
     ({"mesh": {"axes": {"data": 2}}}, "mesh"),
-    ({"observability": {"trace": {"enabled": True, "num_steps": 2}}},
-     "trace window"),
     ({"observability": {"health": {"enabled": True}}},
      "observability.health"),
-    ({"profiler": {"enabled": True}}, "profiler.enabled"),
 ])
 def test_monitor_and_mesh_sections_raise(extra, word):
-    """The JAX engine opens the trace window, the health plane and the
-    mesh these sections ask for; the port has none of them yet, so it
-    refuses them through the config and through initialize, never
-    training without. (``tensorboard.enabled`` and
-    ``observability.enabled`` train: tests/test_torch_observability.py.)"""
+    """The JAX engine opens the health plane and the mesh these sections
+    ask for; the port has neither yet, so it refuses them through the
+    config and through initialize, never training without.
+    (``tensorboard.enabled`` and ``observability.enabled`` train:
+    tests/test_torch_observability.py; the trace window:
+    tests/test_torch_checkpoint_durability.py.)"""
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     with pytest.raises(NotImplementedError, match=word):
         DeepSpeedConfig(_ds_config(1, 0.0, **extra))

@@ -36,10 +36,14 @@ exits non-zero; with no CUDA device it exits 2 before printing a result):
    split_plan's split and at each of PPS_SWEEP, the ms per walked page
    beside the former body's.
 3. serving: GPT-2 345M at full width (random weights from seed 0), bf16,
-   default inference config: warmup, then 16 greedy requests of 64 new
-   tokens with prompts of 20-250 tokens, 8 sharing one 64-token prefix.
-   Checks every output and that the paged-decode kernel ran once per
-   layer per decode dispatch.
+   default inference config: warmup (the engine's program set captured
+   as CUDA graphs), then 16 greedy requests of 64 new tokens with
+   prompts of 20-250 tokens, 8 sharing one 64-token prefix. Checks every
+   output, that the paged-decode kernel ran once per layer per decode
+   dispatch (counted through the graphs' replays), that a graph holds
+   every program and that none was built after warmup
+   (``steady_state_recompiles`` 0; phases 4, 10-12, 41 and 43-45 check
+   and print the same, each program with its dispatches and replays).
    Then a torch.profiler window over 8 decode steps: device busy and
    idle share per step, and the kernels that take the time.
 4. kernel path against plain path through the model: an fp32 engine of
@@ -93,6 +97,27 @@ Phases 10 to 12 run after phase 4, before the training phases.
    pool (logits and pools compared).
 12. GPT-2 345M over the int8 pool, 8 requests (G 1 on the main path),
    then a decode profile as in phase 3.
+Phases 43 to 45 run after phase 12 on GPT-2 345M, and 43 and 44 again
+at the end of phase 10 on Llama-1B: the serving levers.
+43. graph_vs_eager: a bf16 engine with every program kind (prefill,
+   decode at table widths 16, 32 and 64, verify at width 5, chunk of
+   128 tokens), on live serving state: one dispatch of each replayed
+   from its CUDA graph, then run eagerly from a copy of the pool as it
+   was; the live rows' logits and the pool past the null page bitwise
+   equal, K4's launches counted alike (GPT-2 over the bf16 pool, Llama
+   over the int8 pool).
+44. spec_decode_serving: phase 3's requests with spec_decode (n-gram,
+   k 4). In fp32 (GPT-2) greedy tokens equal the spec-off run's but at a
+   near-tie (TIE_GAP, each divergence printed with the gap); in bf16 the
+   acceptance rate, proposed and accepted drafts, verify and decode
+   dispatches, decode tokens/s and TTFT beside phase 3's (10's) row and
+   the share of tokens equal to it; zero accepted drafts fails; K4 once
+   per layer per plain decode dispatch.
+45. chunked_prefill_serving: GPT-2 345M in fp32, 256-token chunks, 8
+   prompts of 600-900 tokens (past the largest prompt bucket, 256): first
+   tokens and logits (MODEL_LOGIT_ATOL) against an engine prefilling whole
+   prompts at a 1024 bucket, tokens equal but at near-ties; then with
+   speculation too. Chunk dispatches and TTFT.
 Phases 36 to 38 run after phase 9, before phase 13: Llama training,
 K1-K3 at G 4 (32 q heads over 8 kv heads) on the training path.
 36. llama_train_kernel_vs_plain: the LLAMA_1B widths at 2 layers, fp32,
@@ -380,7 +405,8 @@ printed first; too little space fails the run).
    step 3) with a fallback row that obs_report counts.
 39. the {"kernels": [...]} line (K1-K3 with their launches on the GPT-2
    and the Llama training paths (and phase 40's) and their Llama-shape
-   times of phase 38, K4 with phase 41's,
+   times of phase 38, K4 with phase 41's and phase 44's plain decode
+   dispatches,
    with the three key-mask, the three
    band, the three row-run, the three banded, the three no-mask
    row-run, the three legacy flash entries and K14-K16 in each of their
@@ -408,6 +434,17 @@ SHARED_PREFIX = 64
 BF16_ATOL = 2e-3     # summation order differs; p is rounded to bf16
 FP32_ATOL = 1e-5     # summation order differs
 MODEL_LOGIT_ATOL = 1e-3   # fp32, 24 layers of differently ordered sums
+# speculation and chunked prefill against their plain runs in fp32: a
+# greedy token may differ only where the plain run's top two logits were
+# closer than this (the verify and chunk dispatches run the gather
+# attention, the plain decode the paged-decode kernel: other sums)
+TIE_GAP = 1e-3
+SPEC_DECODE = {"spec_decode": {"enabled": True, "k": 4}}
+# chunked_prefill_serving: 8 prompts past the largest default prompt
+# bucket (256), served through 256-token chunks
+CHUNK_LENGTHS = (600, 645, 690, 735, 780, 825, 870, 900)
+CHUNK_NEW_TOKENS = 16
+CHUNKED = {"chunked_prefill": {"enabled": True, "chunk_tokens": 256}}
 # the split paged-decode kernels against the plain version's one walk of
 # the table (JAX's): each split restarts the running max, so in bf16 p
 # rounds against another max on the split's pages (the CPU tests hold the
@@ -539,9 +576,15 @@ CARD_PEAKS = (("H200", 4.8e12, 989e12, 67e12),
 _START = None
 
 
+# every phase row emitted so far (later phases print earlier ones' numbers)
+ROWS = []
+
+
 def emit(obj):
     if _START is not None and "phase" in obj:
         obj = dict(obj, t_s=round(time.perf_counter() - _START, 1))
+    if "phase" in obj:
+        ROWS.append(obj)
     print(json.dumps(obj), flush=True)
 
 
@@ -1117,14 +1160,17 @@ def make_prompts(vocab):
 
 
 def serve(engine, prompts, new_tokens):
-    """Warm up, serve ``prompts`` greedily until idle; return the finished
-    requests by submission order and the main path's counts."""
+    """Warm up (the program set captured as CUDA graphs), serve
+    ``prompts`` greedily until idle; return the finished requests by
+    submission order and the main path's counts: the paged-decode
+    launches, each program kind's dispatches and seconds
+    (``<kind>_dispatches``, ``<kind>_secs``), the wall time, the warm
+    program count and ``steady_state_recompiles`` after the run."""
     from deepspeed_tpu_torch.inference import Request
     from deepspeed_tpu_torch.ops.attention.paged import \
         paged_decode_attention
-    engine.warmup()
-    decode0 = engine.dispatches["decode"]
-    secs0 = dict(engine.dispatch_secs)
+    warm = engine.warmup()
+    disp0, secs0 = dict(engine.dispatches), dict(engine.dispatch_secs)
     uids = [engine.submit(Request(prompt=p, max_new_tokens=new_tokens,
                                   temperature=0.0, seed=i))
             for i, p in enumerate(prompts)]
@@ -1135,12 +1181,35 @@ def serve(engine, prompts, new_tokens):
     wall = time.perf_counter() - t0
     counts = {"launches": paged_decode_attention.launches,
               "launches_int8": paged_decode_attention.launches_int8,
-              "decode_dispatches": engine.dispatches["decode"] - decode0,
-              "decode_secs": engine.dispatch_secs["decode"] - secs0["decode"],
-              "prefill_secs": (engine.dispatch_secs["prefill"]
-                               - secs0["prefill"]),
-              "wall_secs": wall}
+              "wall_secs": wall, "programs_warm": warm,
+              "steady_state_recompiles": engine.steady_state_recompiles}
+    for name in engine.dispatches:
+        counts[f"{name}_dispatches"] = engine.dispatches[name] - disp0[name]
+        counts[f"{name}_secs"] = engine.dispatch_secs[name] - secs0[name]
     return [done[u] for u in uids], counts
+
+
+def program_rows(engine):
+    """The engine's program set as printed: per program its dispatches,
+    replays, whether a CUDA graph holds it and the paged-decode launches
+    a replay adds; and ``steady_state_recompiles``."""
+    state = engine.debug_state()
+    return {"programs": state["program_set"],
+            "steady_state_recompiles": state["steady_state_recompiles"]}
+
+
+def check_graphs(phase, engine):
+    """Fail unless none of the engine's programs was built after warmup
+    and, on the card, a CUDA graph holds every one (on the CPU, where a
+    phase is rehearsed, they run eagerly)."""
+    rows = program_rows(engine)
+    eager = [k for k, p in rows["programs"].items() if not p["graph"]] \
+        if engine.device.type == "cuda" else []
+    if rows["steady_state_recompiles"] != 0 or eager:
+        raise AssertionError(f"{phase}: steady_state_recompiles "
+                             f"{rows['steady_state_recompiles']}, programs "
+                             f"without a graph {eager}")
+    return rows
 
 
 def serving_phase(model_config, params, device, smi, model="gpt2-345m",
@@ -1176,6 +1245,7 @@ def serving_phase(model_config, params, device, smi, model="gpt2-345m",
             f"paged decode kernel {ran} {counts[ran]} != decode dispatches "
             f"{counts['decode_dispatches']} x {layers} layers, or the other "
             f"arity's kernel ran ({other} {counts[other]})")
+    graphs = check_graphs("serving", engine)
     state = engine.debug_state()
     shapes = state["prefill_shapes"]
     hits = state["page_pool"]["prefix_cache"]["hit_requests"]
@@ -1212,7 +1282,9 @@ def serving_phase(model_config, params, device, smi, model="gpt2-345m",
            "decode_dispatches": counts["decode_dispatches"],
            "kernel": "paged_decode_int8" if quantized else "paged_decode",
            "kernel_launches": counts[ran],
-           "other_arity_launches": counts[other], "nvidia_smi": smi}
+           "other_arity_launches": counts[other],
+           "programs_warm": counts["programs_warm"], **graphs,
+           "nvidia_smi": smi}
     if on_cuda:
         row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     emit(row)
@@ -1269,8 +1341,9 @@ def profile_phase(engine, prompts, steps=8, model="gpt2-345m"):
     kernels = device_kernels(lambda: [engine.step() for _ in range(steps)],
                              steps)
     engine.run()                        # drain what is left
+    graphs = check_graphs("decode_profile", engine)
     busy_ms = sum(k[1] for k in kernels)
-    emit({"phase": "decode_profile", "model": model,
+    emit({"phase": "decode_profile", "model": model, **graphs,
           "kv_dtype": engine.debug_state()["quantization"]["kv_dtype"],
           "steps": steps, "rows": 8,
           "wall_ms_per_step": wall_ms,
@@ -1299,6 +1372,7 @@ def model_path_phase(model_config, params, device, prompts, forward,
     from deepspeed_tpu_torch.inference import Request
     engine = InferenceEngine(model_config, params, inference_config or {},
                              dtype=torch.float32, device=device)
+    engine.warmup()
     for i, p in enumerate(prompts[:8]):
         engine.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS, seed=i))
     engine.step()                       # prefill + one decode
@@ -1336,7 +1410,8 @@ def model_path_phase(model_config, params, device, prompts, forward,
            "kv_dtype": engine.debug_state()["quantization"]["kv_dtype"],
            "rows": len(sids), "decode_steps": decode_steps,
            "max_abs_logit_err": err, "atol": MODEL_LOGIT_ATOL,
-           "argmax_match_share": match}
+           "argmax_match_share": match,
+           **check_graphs("model_kernel_vs_plain", engine)}
     ok = err <= MODEL_LOGIT_ATOL
     if engine.paged_spec.quantized:
         (kk, vk, ksk, vsk), (kg, vg, ksg, vsg) = (caches["kernel"],
@@ -1369,6 +1444,323 @@ def model_path_phase(model_config, params, device, prompts, forward,
     if not ok:
         raise AssertionError(f"the kernel path differs from the plain "
                              f"path: {row}")
+
+
+def record_samples(engine, keep=()):
+    """Wrap the engine's sampler: the gap between the top two logits of
+    every sampled row, by (request seed, position of the sampled token),
+    and the fp32 logits of the rows whose key is in ``keep``. ``serve``
+    seeds request i with i and samples its j-th token at position
+    len(prompt) + j; pad rows sit at positions below every prompt's."""
+    import torch
+    gaps, kept = {}, {}
+    sample = engine._sample_tokens
+
+    def rec(logits, seeds, sample_pos, temps):
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1]).cpu().numpy()
+        for i, key in enumerate(zip(seeds.tolist(), sample_pos.tolist())):
+            gaps[key] = float(gap[i])
+            if key in keep:
+                kept[key] = logits[i].float().cpu()
+        return sample(logits, seeds, sample_pos, temps)
+    engine._sample_tokens = rec
+    return gaps, kept
+
+
+def divergences(ref, got, prompts, gaps):
+    """Per request whose greedy tokens differ from ``ref``'s: the first
+    diverging index, its position and the reference run's top-two gap
+    there (``gaps`` of :func:`record_samples`)."""
+    rows = []
+    for i, (a, b, p) in enumerate(zip(ref, got, prompts)):
+        if a == b:
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        rows.append({"request": i, "index": j, "position": len(p) + j,
+                     "gap": gaps.get((i, len(p) + j))})
+    return rows, all(r["gap"] is not None and r["gap"] < TIE_GAP
+                     for r in rows)
+
+
+def _live_cases(engine, prompts):
+    """Realistic dispatches of every program kind on a serving engine:
+    ((key, host arrays, rows compared), ...). Two requests prefill and
+    decode once; then a decode at each table width and a verify at each
+    width over their state, a prefill of a third request and the first
+    chunk of a fourth past the largest prompt bucket."""
+    from deepspeed_tpu_torch.inference import Request
+    sched, rows = engine.scheduler, engine._rows
+    pps = engine.paged_spec.pages_per_seq
+    for i, p in enumerate(prompts[:2]):
+        engine.submit(Request(prompt=p, max_new_tokens=8, seed=i))
+    engine.step()
+    sids, toks, poss, _, _ = sched.decode_state()
+    t = np.zeros((rows,), np.int32)
+    pos = np.zeros((rows,), np.int32)
+    t[sids], pos[sids] = toks, poss
+    cases = []
+    for w in engine._decode_page_buckets:
+        cases.append((("decode", w), {"toks": t, "positions": pos,
+                                      "tables": sched.block_table_rows(
+                                          rows, w)}, list(sids)))
+    for v in engine._verify_widths:
+        vt = np.zeros((rows, v), np.int32)
+        vt[:, 0] = t
+        vt[sids, 1:] = np.asarray(toks)[:, None]
+        cases.append((("verify", v), {
+            "toks": vt, "positions": pos,
+            "tables": sched.block_table_rows(rows, pps)},
+            [s * v + j for s in sids for j in range(v)]))
+    engine.submit(Request(prompt=prompts[2], max_new_tokens=8, seed=2))
+    (batch,) = sched.admit()
+    bb, sb = batch.batch_bucket, batch.prompt_bucket
+    host, _, _ = engine._prefill_host(bb, sb)
+    pl, pages = batch.prefix_lens[0], batch.page_tables[0]
+    suffix = prompts[2][pl:]
+    host["ids"][0, :len(suffix)] = suffix
+    host["lengths"][0] = len(suffix)
+    host["positions"][0] = pl
+    host["tables"][0, :len(pages)] = pages
+    cases.append((engine._program("prefill", bb, sb)[0], host, [0]))
+    rng = np.random.RandomState(SEED + 7)
+    long = rng.randint(0, engine.model_config.vocab_size,
+                       size=max(engine.config["prompt_buckets"]) + 100)
+    engine.submit(Request(prompt=long.tolist(), max_new_tokens=8, seed=3))
+    if sched.admit():
+        raise AssertionError("the long prompt was not admitted to chunk")
+    (sid,) = sched.chunk_batch(cap=1)
+    start, n = sched.chunk_span(sid)
+    ct = engine._chunk_tokens
+    host, _, _ = engine._prefill_host(1, ct)
+    host["ids"][0, :n] = long[start:start + n]
+    host["lengths"][0] = n
+    host["positions"][0] = start
+    slot_pages = sched.slots[sid].pages
+    host["tables"][0, :len(slot_pages)] = slot_pages
+    cases.append((engine._program("chunk", 1, ct)[0], host, [0]))
+    return cases
+
+
+def graph_vs_eager_phase(smi, model_config, params, model, kv_dtype=None,
+                         device="cuda"):
+    """43. Each program kind (prefill, decode at each table width, verify,
+    chunk) of a bf16 engine at full width, on live serving state: one
+    dispatch replayed from its CUDA graph, then the same program run
+    eagerly from a copy of the pool as it was before. The live rows'
+    logits and the pool past the null page (pad rows write there, in no
+    fixed order) must be bitwise equal, and the paged-decode launches
+    counted through the replay must equal the eager run's."""
+    import torch
+    from deepspeed_tpu_torch import InferenceEngine
+    from deepspeed_tpu_torch.inference.programs import key_name
+    from deepspeed_tpu_torch.ops.attention.paged import \
+        paged_decode_attention as k4
+    pk = {"decode_page_buckets": [16, 32]}
+    if kv_dtype:
+        pk["kv_dtype"] = kv_dtype
+    icfg = dict(SPEC_DECODE, paged_kv=pk,
+                chunked_prefill={"enabled": True, "chunk_tokens": 128})
+    engine = InferenceEngine(model_config, params, icfg,
+                             dtype=torch.bfloat16, device=device)
+    warm = engine.warmup()
+    cases = _live_cases(engine, make_prompts(model_config.vocab_size)[1:])
+    rows, ok = [], True
+    for key, host, live in cases:
+        prog = engine.programs.programs[key]
+        pool0 = [c.clone() for c in engine._cache]
+        before = (k4.launches, k4.launches_int8)
+        got = engine.programs.dispatch(key, prog.body, host).clone()
+        graph_k4 = (k4.launches - before[0], k4.launches_int8 - before[1])
+        pool_g = [c.clone() for c in engine._cache]
+        for c, c0 in zip(engine._cache, pool0):
+            c.copy_(c0)
+        before = (k4.launches, k4.launches_int8)
+        want = engine.programs.run_eager(key, host)
+        eager_k4 = (k4.launches - before[0], k4.launches_int8 - before[1])
+        logits_equal = bool(torch.equal(got[live], want[live]))
+        pool_equal = all(bool(torch.equal(a[:, 1:], b[:, 1:]))
+                         for a, b in zip(pool_g, engine._cache))
+        want_k4 = model_config.num_layers if key[0] == "decode" else 0
+        row = {"program": key_name(key), "rows": len(live),
+               "logits_bitwise": logits_equal, "pool_bitwise": pool_equal,
+               "logits_max_abs_diff": float((got[live].float()
+                                             - want[live].float())
+                                            .abs().max()),
+               "k4_launches_replay": sum(graph_k4),
+               "k4_launches_eager": sum(eager_k4),
+               "replays": prog.replays}
+        rows.append(row)
+        ok = ok and logits_equal and pool_equal and \
+            graph_k4 == eager_k4 and sum(graph_k4) == want_k4
+        del pool0, pool_g
+    kinds = {r["program"].split("/")[0] for r in rows}
+    ok = ok and kinds == {"prefill", "decode", "verify", "chunk"} and \
+        engine.steady_state_recompiles == 0
+    emit({"phase": "graph_vs_eager", "model": model, "dtype": "bf16",
+          "kv_dtype": engine.debug_state()["quantization"]["kv_dtype"],
+          "programs_warm": warm, "cases": rows,
+          "steady_state_recompiles": engine.steady_state_recompiles,
+          "ok": ok, "nvidia_smi": smi})
+    if not ok:
+        raise AssertionError(f"graph_vs_eager {model}: a replay differs "
+                             f"from its eager run: {rows}")
+    del engine
+
+
+def last_row(phase, **match):
+    """The last row emitted for ``phase`` whose fields hold ``match``."""
+    for row in reversed(ROWS):
+        if row.get("phase") == phase and all(row.get(k) == v
+                                             for k, v in match.items()):
+            return row
+    return None
+
+
+def _serving_numbers(finished, counts, kinds=("decode", "verify")):
+    ttft = [f.ttft_ms for f in finished]
+    tokens = sum(len(f.tokens) - 1 for f in finished)
+    secs = sum(counts.get(f"{k}_secs", 0.0) for k in kinds)
+    return {"decode_tokens": tokens, "decode_tokens_per_s": tokens / secs,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p95": float(np.percentile(ttft, 95))}
+
+
+def spec_decode_serving_phase(smi, model_config, params, model,
+                              plain_tokens, fp32_check=True, device="cuda"):
+    """44. Speculative decoding (n-gram drafter, k 4) on the 16 requests
+    of phase 3. In fp32 (as phase 4 runs), greedy tokens with it equal
+    those without it, but at a near-tie (TIE_GAP; each divergence row
+    names its position and the spec-off run's gap). In bf16, the
+    acceptance rate, proposed and accepted drafts, verify and decode
+    dispatches, decode tokens/s and TTFT beside the spec-off serving
+    row, and the share of tokens equal to it; fails on zero accepted
+    drafts. The paged-decode kernel runs once per layer per plain decode
+    dispatch (verify dispatches run the gather attention). Returns the
+    kernel's launches of the bf16 run."""
+    import torch
+    from deepspeed_tpu_torch import InferenceEngine
+    prompts = make_prompts(model_config.vocab_size)
+    layers = model_config.num_layers
+    if fp32_check:
+        ref_engine = InferenceEngine(model_config, params, {},
+                                     dtype=torch.float32, device=device)
+        gaps, _ = record_samples(ref_engine)
+        ref, _ = serve(ref_engine, prompts, NEW_TOKENS)
+        del ref_engine
+        engine = InferenceEngine(model_config, params, SPEC_DECODE,
+                                 dtype=torch.float32, device=device)
+        got, counts = serve(engine, prompts, NEW_TOKENS)
+        div, ok = divergences([f.tokens for f in ref],
+                              [f.tokens for f in got], prompts, gaps)
+        row = {"phase": "spec_decode_fp32", "model": model, "dtype": "fp32",
+               "requests": len(prompts), "new_tokens": NEW_TOKENS,
+               "greedy_equal_requests": len(prompts) - len(div),
+               "divergences": div, "tie_gap": TIE_GAP,
+               "verify_dispatches": counts["verify_dispatches"],
+               "decode_dispatches": counts["decode_dispatches"],
+               "accepted": sum(f.draft_accepted for f in got),
+               "proposed": sum(f.draft_proposed for f in got),
+               **check_graphs("spec_decode_fp32", engine), "ok": ok,
+               "nvidia_smi": smi}
+        emit(row)
+        del engine
+        if not ok:
+            raise AssertionError(f"spec_decode fp32 {model}: greedy tokens "
+                                 f"diverge away from a near-tie: {div}")
+    engine = InferenceEngine(model_config, params, SPEC_DECODE,
+                             dtype=torch.bfloat16, device=device)
+    got, counts = serve(engine, prompts, NEW_TOKENS)
+    graphs = check_graphs("spec_decode_serving", engine)
+    proposed = sum(f.draft_proposed for f in got)
+    accepted = sum(f.draft_accepted for f in got)
+    pairs = [(a, b) for f, ref in zip(got, plain_tokens)
+             for a, b in zip(f.tokens, ref)]
+    plain = last_row("serving", model=model, kv_dtype="bfloat16") or {}
+    row = {"phase": "spec_decode_serving", "model": model, "dtype": "bf16",
+           "kv_dtype": "bfloat16", "requests": len(prompts),
+           "new_tokens": NEW_TOKENS, "k": 4,
+           "proposed": proposed, "accepted": accepted,
+           "accept_rate": accepted / proposed if proposed else None,
+           "verify_dispatches": counts["verify_dispatches"],
+           "decode_dispatches": counts["decode_dispatches"],
+           **_serving_numbers(got, counts),
+           "token_share_equal_spec_off": float(np.mean([a == b for a, b
+                                                        in pairs])),
+           "spec_off": {k: plain.get(k) for k in (
+               "decode_dispatches", "decode_tokens_per_s", "ttft_ms_p50",
+               "ttft_ms_p95", "decode_step_ms_mean")},
+           "kernel_launches": counts["launches"],
+           "programs_warm": counts["programs_warm"], **graphs,
+           "nvidia_smi": smi}
+    emit(row)
+    if accepted == 0 or counts["launches"] != \
+            counts["decode_dispatches"] * layers or counts["launches_int8"]:
+        raise AssertionError(
+            f"spec_decode_serving {model}: {accepted} drafts accepted, or "
+            f"K4 launched {counts['launches']} times (int8 "
+            f"{counts['launches_int8']}) for {counts['decode_dispatches']} "
+            f"plain decode dispatches x {layers} layers")
+    del engine
+    return counts["launches"]
+
+
+def chunked_prefill_serving_phase(smi, model_config, params,
+                                  model="gpt2-345m", device="cuda"):
+    """45. Chunked prefill (256-token chunks, max_seq_len 1024) in fp32 on
+    8 prompts of 600-900 tokens, past the largest default prompt bucket:
+    only chunking serves them. Each first token and its logits (within
+    MODEL_LOGIT_ATOL) equal those of an unchunked engine whose prompt
+    buckets reach 1024; tokens may differ only at a near-tie (TIE_GAP),
+    checked at each request's first divergence. Then the same with
+    speculative decoding on. Prints the chunk dispatches and TTFT."""
+    import torch
+    from deepspeed_tpu_torch import InferenceEngine
+    rng = np.random.RandomState(SEED + 5)
+    prompts = [rng.randint(0, model_config.vocab_size, size=n).tolist()
+               for n in CHUNK_LENGTHS]
+    firsts = {(i, len(p)) for i, p in enumerate(prompts)}
+    ref_engine = InferenceEngine(model_config, params,
+                                 {"prompt_buckets": [64, 256, 1024]},
+                                 dtype=torch.float32, device=device)
+    gaps, ref_first = record_samples(ref_engine, keep=firsts)
+    ref, ref_counts = serve(ref_engine, prompts, CHUNK_NEW_TOKENS)
+    ref_numbers = _serving_numbers(ref, ref_counts, ("decode",))
+    del ref_engine
+    for label, extra in (("chunked", CHUNKED),
+                         ("chunked+spec", dict(CHUNKED, **SPEC_DECODE))):
+        engine = InferenceEngine(model_config, params, extra,
+                                 dtype=torch.float32, device=device)
+        _, first = record_samples(engine, keep=firsts)
+        got, counts = serve(engine, prompts, CHUNK_NEW_TOKENS)
+        err = max(float((first[k] - ref_first[k]).abs().max())
+                  for k in firsts)
+        first_equal = [f.tokens[0] == r.tokens[0] for f, r in zip(got, ref)]
+        div, tie_ok = divergences([f.tokens for f in ref],
+                                  [f.tokens for f in got], prompts, gaps)
+        ok = err <= MODEL_LOGIT_ATOL and tie_ok and \
+            len(first) == len(firsts) and counts["chunk_dispatches"] > 0
+        row = {"phase": "chunked_prefill_serving", "model": model,
+               "variant": label, "dtype": "fp32", "chunk_tokens": 256,
+               "prompt_lengths": list(CHUNK_LENGTHS),
+               "new_tokens": CHUNK_NEW_TOKENS,
+               "first_tokens_equal": sum(first_equal),
+               "first_logits_max_abs_diff": err, "atol": MODEL_LOGIT_ATOL,
+               "greedy_equal_requests": len(prompts) - len(div),
+               "divergences": div, "tie_gap": TIE_GAP,
+               "chunk_dispatches": counts["chunk_dispatches"],
+               "chunk_secs": counts["chunk_secs"],
+               "decode_dispatches": counts["decode_dispatches"],
+               "verify_dispatches": counts.get("verify_dispatches", 0),
+               **_serving_numbers(got, counts),
+               "unchunked": ref_numbers,
+               **check_graphs("chunked_prefill_serving", engine),
+               "ok": ok, "nvidia_smi": smi}
+        emit(row)
+        del engine
+        if not ok:
+            raise AssertionError(f"chunked_prefill_serving {label}: {row}")
 
 
 def llama_1b_config():
@@ -1406,6 +1798,9 @@ def llama_phase(smi):
         runs[kv] = (launches, tokens, engine.debug_state()["quantization"][
             "kv_pool_bytes_per_token"])
         del engine
+    spec_launches = spec_decode_serving_phase(
+        smi, cfg, params, "llama-1b", runs["bf16"][1], fp32_check=False)
+    graph_vs_eager_phase(smi, cfg, params, "llama-1b", kv_dtype="int8")
     pairs = [(a, b) for ta, tb in zip(runs["bf16"][1], runs["int8"][1])
              for a, b in zip(ta, tb)]
     # printed, not asserted: with random weights a near-tie may flip, and
@@ -1425,7 +1820,7 @@ def llama_phase(smi):
         model_path_phase(shallow, shallow_params, "cuda", prompts,
                          llama_forward, model="llama-1b-width",
                          inference_config=icfg, decode_steps=3)
-    return {kv: r[0] for kv, r in runs.items()}
+    return dict({kv: r[0] for kv, r in runs.items()}, spec=spec_launches)
 
 
 # ------------------------------------------------------------ training
@@ -6205,27 +6600,28 @@ def _first_decode_logits(engine):
     """Record the logits of the engine's first decode dispatch from here
     on (``rec["logits"]``, fp32 on the host), by wrapping its sampler."""
     rec = {"in_decode": False}
-    decode, sample = engine._decode_paged_impl, engine._sample_tokens
+    dispatch, sample = engine._dispatch, engine._sample_tokens
 
     def sample_rec(logits, *args):
         if rec["in_decode"] and "logits" not in rec:
             rec["logits"] = logits.detach().float().cpu()
         return sample(logits, *args)
 
-    def decode_rec(*args):
-        rec["in_decode"] = True
+    def dispatch_rec(name, *args):
+        rec["in_decode"] = name == "decode"
         try:
-            return decode(*args)
+            return dispatch(name, *args)
         finally:
             rec["in_decode"] = False
     engine._sample_tokens = sample_rec
-    engine._decode_paged_impl = decode_rec
+    engine._dispatch = dispatch_rec
     return rec
 
 
 def _serve_checked(engine, prompts, new_tokens):
     """Warm up, then serve ``prompts`` greedily: (tokens per request, the
-    first decode step's logits, K4's launches, decode dispatches)."""
+    first decode step's logits, K4's launches, decode dispatches, the
+    program set's rows)."""
     from deepspeed_tpu_torch.inference import Request
     from deepspeed_tpu_torch.ops.attention.paged import \
         paged_decode_attention
@@ -6244,7 +6640,8 @@ def _serve_checked(engine, prompts, new_tokens):
                              f"{[len(t) for t in out]}")
     return (out, rec["logits"], paged_decode_attention.launches,
             paged_decode_attention.launches_int8,
-            engine.dispatches["decode"] - decode0)
+            engine.dispatches["decode"] - decode0,
+            check_graphs("serve_from_checkpoint", engine))
 
 
 def serve_from_checkpoint_phase(smi, state, device="cuda",
@@ -6304,6 +6701,10 @@ def serve_from_checkpoint_phase(smi, state, device="cuda",
            "kernel_launches": {t: g[2] for t, (g, _) in rows.items()},
            "int8_launches": {t: g[3] for t, (g, _) in rows.items()},
            "decode_dispatches": {t: g[4] for t, (g, _) in rows.items()},
+           "programs": {t: g[5]["programs"] for t, (g, _) in rows.items()},
+           "steady_state_recompiles": {
+               t: g[5]["steady_state_recompiles"]
+               for t, (g, _) in rows.items()},
            "nvidia_smi": smi}
     emit(row)
     if (version3, st["weight_version"], st["weight_ordinal"]) != \
@@ -6420,8 +6821,8 @@ def main() -> int:
     train_timing = train_kernel_timing_phase(smi)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_gpt2_params(GPT2_MEDIUM, gen)
-    launches, prompts, engine, _ = serving_phase(GPT2_MEDIUM, params,
-                                                 "cuda", smi)
+    launches, prompts, engine, gpt2_tokens = serving_phase(
+        GPT2_MEDIUM, params, "cuda", smi)
     profile_phase(engine, prompts)
     del engine
     model_path_phase(GPT2_MEDIUM, params, "cuda", prompts, gpt2_forward)
@@ -6429,7 +6830,12 @@ def main() -> int:
         GPT2_MEDIUM, params, "cuda", smi,
         inference_config={"paged_kv": {"kv_dtype": "int8"}}, requests=8)
     profile_phase(engine, prompts)
-    del engine, params
+    del engine
+    graph_vs_eager_phase(smi, GPT2_MEDIUM, params, "gpt2-345m")
+    gpt2_spec_launches = spec_decode_serving_phase(
+        smi, GPT2_MEDIUM, params, "gpt2-345m", gpt2_tokens)
+    chunked_prefill_serving_phase(smi, GPT2_MEDIUM, params)
+    del params
     llama_launches = llama_phase(smi)
     train_launches, train_losses = training_phase(smi)
     training_dropout_phase()
@@ -6503,10 +6909,15 @@ def main() -> int:
         name="paged_decode", route="cuda",
         source="deepspeed_tpu_torch/csrc/paged_decode.cu",
         replaces="deepspeed_tpu/ops/attention/paged.py:217",
-        launches=(launches + llama_launches["bf16"]
+        launches=(launches + llama_launches["bf16"] + gpt2_spec_launches
+                  + llama_launches["spec"]
                   + sum(ckpt_serve_launches.values())),
         launches_by_path={"gpt2-345m bf16 pool": launches,
                           "llama-1b bf16 pool": llama_launches["bf16"],
+                          "gpt2-345m bf16 pool, spec_decode k 4 (plain "
+                          "decode dispatches)": gpt2_spec_launches,
+                          "llama-1b bf16 pool, spec_decode k 4 (plain "
+                          "decode dispatches)": llama_launches["spec"],
                           **{f"gpt2-345m from_checkpoint {tag}, bf16 pool":
                              n for tag, n in ckpt_serve_launches.items()}},
         max_abs_err=timing["max_abs_err"],

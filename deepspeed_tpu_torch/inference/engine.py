@@ -25,17 +25,29 @@ families).
   and the pool view go through the monitor into ``events.jsonl`` with
   the JAX package's ``Serve/*`` tags; the request trail, latency
   decomposition and SLO split come from ``inference/tracing.py``.
+- **Speculative decoding** (``inference.spec_decode``): a host drafter
+  (``inference/draft.py``) proposes up to ``k`` tokens per slot and one
+  seq-``v`` verify dispatch keeps the longest matching prefix plus one.
+- **Chunked prefill** (``inference.chunked_prefill``): a prompt prefills
+  in ``chunk_tokens`` slices, at most one chunk dispatch per step after
+  the decode; prompts past the largest prompt bucket are served only
+  this way.
 - **From a training tag.** :meth:`InferenceEngine.from_checkpoint` serves
   the ``model_states`` group of a committed tag (of either package), and
   :meth:`InferenceEngine.swap_params` moves a running engine to a newer
   tag, atomically or not at all; ``weight_version`` names the tag served.
 
-Where the JAX engine donates the cache to each compiled program, the
-port's programs update the pool tensors in place
-(``models/gpt2.write_paged_kv_cache``). PyTorch runs eagerly, so there
-is no compile tracker and no recompile count; :meth:`warmup` runs every
-bucket shape once. Configurations outside this slice raise
-``NotImplementedError`` naming the JAX feature.
+The programs form a fixed set (``inference/programs.py``): one per
+prefill (batch bucket, prompt bucket), decode table width, verify width
+and chunk batch bucket, each captured as a CUDA graph at :meth:`warmup`
+and replayed at every dispatch; :attr:`steady_state_recompiles` counts
+the programs first built after warmup, as the JAX engine counts
+compiles. Where the JAX engine donates the cache to each compiled
+program, the port's programs update the pool tensors in place
+(``models/gpt2.write_paged_kv_cache``), and a weight swap copies into
+the live parameter tensors, whose addresses the graphs hold.
+Configurations outside this slice raise ``NotImplementedError`` naming
+the JAX feature.
 """
 
 import functools
@@ -46,13 +58,16 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.inference.buckets import (pad_prompts, pick_bucket,
+from deepspeed_tpu_torch.inference.buckets import (chunk_warmup_plan,
+                                                   pad_prompts, pick_bucket,
                                                    warmup_plan)
+from deepspeed_tpu_torch.inference.draft import make_drafter
 from deepspeed_tpu_torch.inference.kv_cache import (PageAllocator,
                                                     init_paged_kv_cache,
                                                     paged_kv_bytes,
                                                     paged_spec_for,
                                                     pages_for)
+from deepspeed_tpu_torch.inference.programs import ProgramSet
 from deepspeed_tpu_torch.inference.scheduler import (FinishedRequest,
                                                      Request, Scheduler)
 from deepspeed_tpu_torch.inference.tracing import ServeTracer
@@ -149,11 +164,8 @@ def _refuse_unported(cfg: Dict[str, Any]) -> None:
          "slot x max_len KV cache)"),
         (bool(cfg["mesh"]["axes"]), "inference.mesh (tensor-parallel "
          "serving over a device mesh)"),
-        (cfg["spec_decode"]["enabled"], "inference.spec_decode "
-         "(speculative decoding)"),
         (cfg["disagg"]["enabled"], "inference.disagg (disaggregated "
          "prefill/decode)"),
-        (cfg["chunked_prefill"]["enabled"], "inference.chunked_prefill"),
         (bool(cfg["quantize_weights"]), "inference.quantize_weights (qwZ "
          "int8 weights)"),
     ]
@@ -166,13 +178,15 @@ def _refuse_unported(cfg: Dict[str, Any]) -> None:
 
 class InferenceEngine:
     """Paged bucketed prefill/decode serving of a GPT-2 or Llama model
-    over a continuous-batching scheduler. ``device`` defaults to CUDA (and
-    raises without a card); pass ``device="cpu"`` to run the kernels'
-    plain versions on the CPU."""
+    over a continuous-batching scheduler, from a fixed program set
+    (CUDA graphs on the card). ``device`` defaults to CUDA (and raises
+    without a card); pass ``device="cpu"`` to run the kernels' plain
+    versions on the CPU, eagerly. ``draft_fn`` is the drafter of
+    ``spec_decode.method: "callable"``."""
 
     def __init__(self, model_config, params, inference_config=None,
                  dtype=torch.bfloat16, monitor: Optional[Any] = None,
-                 observability_config=None, device=None):
+                 observability_config=None, device=None, draft_fn=None):
         self.family, make_trunk, head_leaf, _ = _family_of(model_config)
         self._head_leaf = head_leaf
         self.device = _resolve_device(device)
@@ -200,6 +214,44 @@ class InferenceEngine:
         self.max_len = max_len
         self._vocab = model_config.vocab_size
         self._top_k = min(cfg["top_k"], self._vocab)
+
+        # ------------------------------------------ chunked prefill
+        # a long prompt becomes k fixed-size chunk dispatches that
+        # interleave with the decode cadence: chunk state is just the
+        # cache position advancing over pages the request already owns,
+        # and the chunk program is the prefill program at ids shape
+        # (batch_bucket, chunk_tokens). Prompts longer than the largest
+        # prompt bucket can only be served this way. Context-parallel
+        # chunks need a serving mesh (inference.mesh, refused above), so
+        # every chunk runs on one device.
+        ck = cfg["chunked_prefill"]
+        self.chunked = bool(ck["enabled"])
+        self._chunk_tokens = min(int(ck["chunk_tokens"]), max_len) \
+            if self.chunked else 0
+        self._cp_threshold = int(ck["cp_threshold_tokens"]) \
+            if self.chunked else 0
+        self._cp_shards = 1
+        self._cp_reason = (
+            "chunked prefill off" if not self.chunked else
+            "no serving mesh (inference.mesh unset)" if self._cp_threshold
+            > 0 else "cp_threshold_tokens unset")
+        self._chunk_dispatches = 0
+
+        # --------------------------------------- speculative decoding
+        sd = cfg["spec_decode"]
+        self.spec = bool(sd["enabled"])
+        self._spec_k = int(sd["k"]) if self.spec else 0
+        self._verify_widths = ()
+        self._drafter = None
+        if self.spec:
+            # one verify program per width; default a single seq-(k+1)
+            # program (config validation keeps widths >= 2: width 1 is
+            # the plain decode program)
+            widths = tuple(int(w) for w in sd["verify_widths"]) or \
+                (self._spec_k + 1,)
+            self._verify_widths = tuple(sorted(set(widths)))
+            self._drafter = make_drafter(sd, draft_fn)
+
         self.params = self._place_params(params)
         self._head_w = tied_head_weight(self.params[head_leaf], dtype)
         self._trunk = make_trunk(model_config, max_len, self.device)
@@ -229,8 +281,13 @@ class InferenceEngine:
         self._state_event_every = 64       # serve_state cadence (steps)
         # per-program dispatch counts and wall seconds (host clock around
         # work that ends in a device->host copy of the sampled tokens)
-        self.dispatches = {"prefill": 0, "decode": 0}
-        self.dispatch_secs = {"prefill": 0.0, "decode": 0.0}
+        names = ["prefill", "decode"] + (["verify"] if self.spec else []) \
+            + (["chunk"] if self.chunked else [])
+        self.dispatches = dict.fromkeys(names, 0)
+        self.dispatch_secs = dict.fromkeys(names, 0.0)
+        # the fixed program set: CUDA graphs on the card, eager on the CPU
+        self.programs = ProgramSet(self.device)
+        self._warm_programs: Optional[int] = None
         # served prefill batches by "<batch bucket>x<prompt bucket>"
         self.prefill_shapes: Dict[str, int] = {}
 
@@ -258,7 +315,10 @@ class InferenceEngine:
                                    cfg["batch_buckets"], max_len,
                                    allocator=allocator,
                                    lookahead=cfg["admit_lookahead"],
-                                   tracer=self._tracer)
+                                   tracer=self._tracer,
+                                   drafter=self._drafter,
+                                   spec_k=self._spec_k,
+                                   chunk_tokens=self._chunk_tokens)
         self._weight_version = "initial"
         self._weight_ordinal = 0
         self.scheduler.weight_version = self._weight_version
@@ -272,6 +332,22 @@ class InferenceEngine:
                 "decode_attn_path", path=self._decode_attn_path,
                 reason="configured", requested=pk["attn_kernel"],
                 decode_page_buckets=list(self._decode_page_buckets))
+        if self.chunked and self._cp_threshold > 0:
+            logger.info(f"inference context-parallel prefill: off "
+                        f"({self._cp_reason}; threshold "
+                        f"{self._cp_threshold} tokens)")
+            if self._log is not None:
+                self._log.add_event(
+                    "chunked_prefill_path", chunk_tokens=self._chunk_tokens,
+                    cp_shards=self._cp_shards, cp_reason=self._cp_reason,
+                    cp_threshold_tokens=self._cp_threshold)
+        notes = ""
+        if self.spec:
+            notes += (f", spec_decode k={self._spec_k} verify_widths="
+                      f"{list(self._verify_widths)} "
+                      f"({type(self._drafter).__name__})")
+        if self.chunked:
+            notes += f", chunked prefill {self._chunk_tokens} tokens"
         logger.info(
             f"inference engine: {self.family} on {self.device}, "
             f"{self.num_slots} slots, max_len {max_len}, prompt buckets "
@@ -280,7 +356,7 @@ class InferenceEngine:
             f"({cache_bytes / 2**20:.1f} MiB, {kv_dtype}"
             f"{' + fp32 scales' if self.paged_spec.quantized else ''}), "
             f"prefix cache "
-            f"{'on' if pk['prefix_cache'] else 'off'}")
+            f"{'on' if pk['prefix_cache'] else 'off'}{notes}")
 
     def _place_params(self, params) -> Dict[str, Any]:
         """Params on the engine's device. The block matmul weights and
@@ -333,42 +409,54 @@ class InferenceEngine:
                 out[r] = torch.multinomial(probs[j], 1, generator=gen)[0]
         return out.cpu().numpy().astype(np.int32)
 
-    def _prefill_paged_impl(self, ids, lengths, positions, tables, seeds,
-                            temps) -> np.ndarray:
-        """One bucketed paged prefill: run each row's un-prefixed prompt
-        suffix (``ids``, true lengths ``lengths``) through the cached
-        forward from its ``positions`` offset (tokens covered by shared
-        prefix pages), scattering K/V into the pool through ``tables``
-        (pad rows carry all-null tables, so their writes land in the
-        null page). Samples each row's first token from its last true
-        prompt position; the LM head runs on those rows only."""
-        dev = self.device
-        ids_t = torch.as_tensor(ids, device=dev)
-        pos_t = torch.as_tensor(positions, device=dev)
-        x = self._trunk(
-            self.params, self.model_config, ids_t, self._cache, pos_t,
-            self.dtype, torch.as_tensor(tables, device=dev),
-            self._decode_attn_path)
-        last = x[torch.arange(len(lengths), device=dev),
-                 torch.as_tensor(lengths - 1, device=dev)]
-        logits = _tied_logits(last, self._head_w, self.dtype)
-        return self._sample_tokens(logits, seeds, positions + lengths, temps)
+    def _prefill_paged_impl(self, ids, lengths, positions,
+                            tables) -> torch.Tensor:
+        """The prefill program's body, over its static device inputs:
+        run each row's un-prefixed prompt suffix (``ids``, true lengths
+        ``lengths``) through the cached forward from its ``positions``
+        offset (tokens covered by shared prefix pages), scattering K/V
+        into the pool through ``tables`` (pad rows carry all-null tables,
+        so their writes land in the null page). Returns the fp32 logits
+        of each row's last true prompt position; the LM head runs on
+        those rows only. A chunk dispatch is this body at ids shape
+        (batch bucket, chunk_tokens)."""
+        x = self._trunk(self.params, self.model_config, ids, self._cache,
+                        positions, self.dtype, tables,
+                        self._decode_attn_path)
+        last = x[torch.arange(ids.shape[0], device=ids.device),
+                 lengths.long() - 1]
+        return _tied_logits(last, self._head_w, self.dtype)
 
-    def _decode_paged_impl(self, toks, positions, tables, seeds,
-                           temps) -> np.ndarray:
-        """One paged decode step over the full slot table: each slot's
-        pending token scatters into its page at its own position, then
-        attention runs off the pool — the paged-decode kernel walks only
-        each row's live pages (or the gather path assembles the stripe).
-        Inactive rows carry all-null tables: their output is discarded."""
-        dev = self.device
-        x = self._trunk(
-            self.params, self.model_config,
-            torch.as_tensor(toks, device=dev)[:, None], self._cache,
-            torch.as_tensor(positions, device=dev), self.dtype,
-            torch.as_tensor(tables, device=dev), self._decode_attn_path)
-        logits = _tied_logits(x[:, 0], self._head_w, self.dtype)
-        return self._sample_tokens(logits, seeds, positions + 1, temps)
+    def _decode_paged_impl(self, toks, positions, tables) -> torch.Tensor:
+        """The decode program's body: one paged decode step over the full
+        slot table. Each slot's pending token scatters into its page at
+        its own position, then attention runs off the pool: the
+        paged-decode kernel walks only each row's live pages (or the
+        gather path assembles the stripe). Inactive rows carry all-null
+        tables: their logits are discarded. Returns (rows, vocab) fp32
+        logits."""
+        x = self._trunk(self.params, self.model_config, toks[:, None],
+                        self._cache, positions, self.dtype, tables,
+                        self._decode_attn_path)
+        return _tied_logits(x[:, 0], self._head_w, self.dtype)
+
+    def _verify_paged_impl(self, toks, positions, tables) -> torch.Tensor:
+        """The verify program's body: ``toks[i] = [pending, d_1 ..
+        d_{v-1}]``, each row's pending token plus its draft proposals
+        (zero-padded), runs as a seq-``v`` pass through the same paged
+        cached forward as decode (the gather attention, as JAX's
+        ``q_len > 1`` path), writing all ``v`` positions. Returns
+        ``(rows * v, vocab)`` fp32 logits: row ``i * v + j`` is what the
+        plain decode would have seen after position ``positions[i] + j``.
+        Rejected positions' K/V sit beyond the causal cache mask and are
+        overwritten by later contiguous writes before any query attends
+        them. Tables ride at full width (one program per verify
+        width)."""
+        B, V = toks.shape
+        x = self._trunk(self.params, self.model_config, toks, self._cache,
+                        positions, self.dtype, tables,
+                        self._decode_attn_path)
+        return _tied_logits(x.reshape(B * V, -1), self._head_w, self.dtype)
 
     # ----------------------------------------------------------- serving
     def submit(self, request: Request) -> int:
@@ -376,35 +464,63 @@ class InferenceEngine:
         admission)."""
         return self.scheduler.submit(request)
 
-    def _dispatch(self, name: str, fn, *args) -> np.ndarray:
+    def _program(self, name: str, *shape):
+        """(key, body) of a dispatch: a chunk at a prefill shape is that
+        prefill program, as one jit serves both in the JAX engine."""
+        if name == "chunk" and shape[1] in self.config["prompt_buckets"]:
+            name = "prefill"
+        body = {"prefill": self._prefill_paged_impl,
+                "chunk": self._prefill_paged_impl,
+                "decode": self._decode_paged_impl,
+                "verify": self._verify_paged_impl}[name]
+        return (name,) + tuple(int(d) for d in shape), body
+
+    def _dispatch(self, name: str, shape, host: Dict[str, np.ndarray],
+                  seeds: np.ndarray, sample_pos: np.ndarray,
+                  temps: np.ndarray) -> np.ndarray:
+        """Run the program of ``name`` at ``shape`` on ``host``'s arrays
+        and sample one token per output row (the sampling runs outside
+        the program and ends in a device->host copy)."""
         t0 = time.perf_counter()
-        out = fn(*args)          # ends in a device->host copy
+        key, body = self._program(name, *shape)
+        logits = self.programs.dispatch(key, body, host)
+        out = self._sample_tokens(logits, seeds, sample_pos, temps)
         self.dispatch_secs[name] += time.perf_counter() - t0
         self.dispatches[name] += 1
         return out
+
+    def _prefill_host(self, bb: int, width: int):
+        """Zeroed host inputs of a prefill or chunk dispatch of ``bb``
+        rows of ``width`` tokens (lengths 1, all-null full-width tables)
+        and its sampling arrays."""
+        pps = self.paged_spec.pages_per_seq
+        return ({"ids": np.zeros((bb, width), np.int32),
+                 "lengths": np.ones((bb,), np.int32),
+                 "positions": np.zeros((bb,), np.int32),
+                 "tables": np.zeros((bb, pps), np.int32)},
+                np.zeros((bb,), np.int64), np.zeros((bb,), np.float32))
 
     def _run_prefill(self, batch) -> np.ndarray:
         bb = batch.batch_bucket
         shape = f"{bb}x{batch.prompt_bucket}"
         self.prefill_shapes[shape] = self.prefill_shapes.get(shape, 0) + 1
-        seeds = np.zeros((bb,), np.int64)
-        temps = np.zeros((bb,), np.float32)
+        host, seeds, temps = self._prefill_host(bb, batch.prompt_bucket)
         for i, req in enumerate(batch.requests):
             seeds[i] = req.seed
             temps[i] = req.temperature
         suffixes = [r.prompt[pl:] for r, pl in
                     zip(batch.requests, batch.prefix_lens)]
-        ids, lengths = pad_prompts(suffixes, batch.prompt_bucket, bb)
-        positions = np.zeros((bb,), np.int32)
-        tables = np.zeros((bb, self.paged_spec.pages_per_seq), np.int32)
+        host["ids"], host["lengths"] = pad_prompts(
+            suffixes, batch.prompt_bucket, bb)
         for i, (pl, pages) in enumerate(zip(batch.prefix_lens,
                                             batch.page_tables)):
-            positions[i] = pl
-            tables[i, :len(pages)] = pages
+            host["positions"][i] = pl
+            host["tables"][i, :len(pages)] = pages
         with trace_span("serve/prefill", recorder=self._recorder,
                         batch=bb, prompt=batch.prompt_bucket):
-            return self._dispatch("prefill", self._prefill_paged_impl, ids,
-                                  lengths, positions, tables, seeds, temps)
+            return self._dispatch(
+                "prefill", (bb, batch.prompt_bucket), host, seeds,
+                host["positions"] + host["lengths"], temps)
 
     def _drain_request_metrics(self):
         """Per-admitted-request scalar writes (TTFT / queue wait) pulled
@@ -437,9 +553,67 @@ class InferenceEngine:
             self._drain_request_metrics()
         self._serve_secs += time.perf_counter() - t0
 
+    def _chunk_phase(self, finished: List[FinishedRequest]) -> None:
+        """At most one chunk dispatch per engine step, the pinned TBT
+        bound: a decode dispatch never waits behind more than one
+        ``chunk_tokens``-sized prefill slice, however long the prompt.
+        The dispatch is the prefill program at ids shape (batch_bucket,
+        chunk_tokens): ``positions`` is each slot's absolute prefilled
+        offset, ``tables`` its full page list, K/V scatter straight into
+        the pool. Intermediate chunks' sampled tokens are discarded on
+        the host; the final chunk samples at ``positions + lengths``, the
+        position a whole-prompt prefill samples at, so the first token is
+        the one whole-prompt prefill would have produced."""
+        if not self.chunked:
+            return
+        sched = self.scheduler
+        cand = sched.chunk_batch(cap=max(self.config["batch_buckets"]))
+        if not cand:
+            return
+        t0 = time.perf_counter()
+        bb = pick_bucket(len(cand), self.config["batch_buckets"])
+        ct = self._chunk_tokens
+        host, seeds, temps = self._prefill_host(bb, ct)
+        spans = []
+        for i, sid in enumerate(cand):
+            slot = sched.slots[sid]
+            req = slot.request
+            start, n = sched.chunk_span(sid)
+            spans.append((sid, req, start, n,
+                          (start - slot.prefix_len) // ct))
+            host["ids"][i, :n] = req.prompt[start:start + n]
+            host["lengths"][i] = n
+            host["positions"][i] = start
+            host["tables"][i, :len(slot.pages)] = slot.pages
+            seeds[i] = req.seed
+            temps[i] = req.temperature
+        t_c = time.perf_counter()
+        with trace_span("serve/chunk", recorder=self._recorder,
+                        batch=bb, chunk=ct, cp_shards=1):
+            first = self._dispatch("chunk", (bb, ct), host, seeds,
+                                   host["positions"] + host["lengths"],
+                                   temps)
+        wall_ms = (time.perf_counter() - t_c) * 1e3
+        self._chunk_dispatches += 1
+        released: Dict[int, int] = {}
+        for i, (sid, req, start, n, k) in enumerate(spans):
+            self._tracer.on_prefill_chunk(req.uid, sid, k, n, wall_ms,
+                                          cp_shards=1)
+            if sched.record_chunk(sid, n):
+                released[sid] = int(first[i])
+        if released:
+            finished.extend(sched.record_tokens(released))
+        self.monitor.write_serving_metrics(
+            chunk_dispatches=self._chunk_dispatches,
+            tokens=sched.total_tokens, flush=False)
+        self._drain_request_metrics()
+        self._serve_secs += time.perf_counter() - t0
+
     def _decode_phase(self, finished: List[FinishedRequest]) -> bool:
-        """Advance every in-flight sequence one token with a plain decode
-        dispatch. Returns whether anything dispatched."""
+        """Advance every in-flight sequence: a plain one-token decode
+        dispatch, or, with speculation and live draft proposals, one
+        seq-``v`` verify dispatch that emits ``accepted + 1`` tokens per
+        row. Returns whether anything dispatched."""
         sched = self.scheduler
         sids, toks, poss, temps, seeds = sched.decode_state()
         if not sids:
@@ -456,20 +630,81 @@ class InferenceEngine:
             poss_a[sid] = pos
             temps_a[sid] = temp
             seeds_a[sid] = seed
+        props: Dict[int, List[int]] = {}
+        if self.spec:
+            props = sched.draft_proposals(
+                cap=max(self._verify_widths) - 1)
+        spec_kw = {}
+        runs: Dict[int, List[int]] = {}
+        draft_stats = None
         t_d = time.perf_counter()
-        with trace_span("serve/decode", recorder=self._recorder,
-                        active=len(sids)):
-            # the table width is the batch's live-page bucket: the gather
-            # path's stripe scales with tokens in flight too
-            width = pick_bucket(
-                min(sched.max_live_pages(), self.paged_spec.pages_per_seq),
-                self._decode_page_buckets)
-            tables = sched.block_table_rows(self._rows, width)
-            nxt = self._dispatch("decode", self._decode_paged_impl, toks_a,
-                                 poss_a, tables, seeds_a, temps_a)
-        runs = {sid: [int(nxt[sid])] for sid in sids}
+        if props:
+            dmax = max(len(p) for p in props.values())
+            v = pick_bucket(dmax + 1, self._verify_widths)
+            vt = np.zeros((self._rows, v), np.int32)
+            vt[:, 0] = toks_a
+            for sid, p in props.items():
+                vt[sid, 1:1 + len(p)] = p
+            # verify tables ride at full width: one program per verify
+            # width, not per width x page bucket
+            tables = sched.block_table_rows(
+                self._rows, self.paged_spec.pages_per_seq)
+            # row i's j-th sample is at the position plain decode would
+            # sample it at, with that position's generator
+            sample_pos = (poss_a[:, None] + 1 + np.arange(v)[None, :])
+            with trace_span("serve/verify", recorder=self._recorder,
+                            active=len(sids), width=v):
+                out = self._dispatch(
+                    "verify", (v,),
+                    {"toks": vt, "positions": poss_a, "tables": tables},
+                    np.repeat(seeds_a, v), sample_pos.reshape(-1),
+                    np.repeat(temps_a, v)).reshape(self._rows, v)
+            draft_stats = {}
+            proposed_total = accepted_total = 0
+            for sid in sids:
+                p = props.get(sid)
+                if not p:
+                    # rode the verify program with zero drafts: a draft
+                    # stall, traced once per request
+                    runs[sid] = [int(out[sid, 0])]
+                    self._tracer.on_defer(sched.slots[sid].request.uid,
+                                          "draft_stall")
+                    continue
+                m = 0
+                while m < len(p) and p[m] == int(out[sid, m]):
+                    m += 1
+                runs[sid] = [int(t) for t in out[sid, :m + 1]]
+                draft_stats[sid] = (len(p), m)
+                self._tracer.on_spec(sched.slots[sid].request.uid, len(p),
+                                     m)
+                proposed_total += len(p)
+                accepted_total += m
+            if proposed_total:
+                spec_kw["spec_accept_rate"] = (accepted_total
+                                               / proposed_total)
+        else:
+            with trace_span("serve/decode", recorder=self._recorder,
+                            active=len(sids)):
+                # the table width is the batch's live-page bucket: the
+                # gather path's stripe scales with tokens in flight too
+                width = pick_bucket(
+                    min(sched.max_live_pages(),
+                        self.paged_spec.pages_per_seq),
+                    self._decode_page_buckets)
+                tables = sched.block_table_rows(self._rows, width)
+                nxt = self._dispatch(
+                    "decode", (width,),
+                    {"toks": toks_a, "positions": poss_a, "tables": tables},
+                    seeds_a, poss_a + 1, temps_a)
+            runs = {sid: [int(nxt[sid])] for sid in sids}
+            if self.spec:
+                # speculation on, the drafter had nothing anywhere: the
+                # whole dispatch was a plain decode
+                for sid in sids:
+                    self._tracer.on_defer(sched.slots[sid].request.uid,
+                                          "draft_stall")
         tok_ms = (time.perf_counter() - t_d) * 1e3
-        finished.extend(sched.record_token_runs(runs, None))
+        finished.extend(sched.record_token_runs(runs, draft_stats))
         self._serve_secs += time.perf_counter() - t0
         tps = (sched.total_tokens / self._serve_secs
                if self._serve_secs > 0 else 0.0)
@@ -499,18 +734,26 @@ class InferenceEngine:
             decode_attn_path=(1.0 if self._decode_attn_path == "kernel"
                               else 0.0),
             kv_pool_bytes_per_token=self._kv_bpt,
-            quant_logit_err=self.quant_logit_err, **slo_kw)
+            quant_logit_err=self.quant_logit_err, **slo_kw, **spec_kw)
         return True
 
     def step(self) -> List[FinishedRequest]:
         """One serving iteration: admit waiting requests into free slots
         (bucketed prefill, first token released), then advance every
-        in-flight sequence one decode dispatch. Returns requests that
-        finished this iteration."""
+        in-flight sequence one decode (or speculative verify) dispatch.
+        Chunked prefill makes every step decode-first and slips at most
+        one chunk dispatch between the decode and admission phases:
+        decode -> chunk -> prefill. Returns requests that finished this
+        iteration."""
         finished: List[FinishedRequest] = []
         finished.extend(self.scheduler.drain_rejects())
-        self._prefill_phase(finished)
-        self._decode_phase(finished)
+        if self.chunked:
+            self._decode_phase(finished)
+            self._chunk_phase(finished)
+            self._prefill_phase(finished)
+        else:
+            self._prefill_phase(finished)
+            self._decode_phase(finished)
         self.monitor.flush()
         self._steps += 1
         if self._log is not None and self._state_event_every and \
@@ -553,41 +796,70 @@ class InferenceEngine:
         return [finished[u].prompt + finished[u].tokens for u in uids]
 
     def warmup(self) -> int:
-        """Run every steady-state shape once against scratch state (the
-        null page): one prefill per (batch bucket, prompt bucket) pair
-        and one decode per decode table-width bucket. Builds the kernels
-        and warms the device allocator before the first request. Must
-        run while no requests are in flight; returns the number of
-        shapes run."""
+        """Build the steady-state program set against scratch state (the
+        null page): one prefill per (batch bucket, prompt bucket), one
+        chunk per batch bucket with chunked prefill, one decode per
+        decode table width and one verify per verify width with
+        speculation. Each program runs once eagerly and, on the card, is
+        captured as a CUDA graph. Must run while no requests are in
+        flight; returns the number of programs, as the JAX engine
+        returns its compiles. After this, :attr:`steady_state_recompiles`
+        staying 0 is the serving contract."""
         if not self.scheduler.idle():
             raise RuntimeError("warmup with requests in flight")
-        shapes = 0
         pps = self.paged_spec.pages_per_seq
-        for bb, sb in warmup_plan(self.config["batch_buckets"],
-                                  self.config["prompt_buckets"]):
-            self._dispatch("prefill", self._prefill_paged_impl,
-                           np.zeros((bb, sb), np.int32),
-                           np.ones((bb,), np.int32),
-                           np.zeros((bb,), np.int32),
-                           np.zeros((bb, pps), np.int32),
-                           np.zeros((bb,), np.int64),
-                           np.zeros((bb,), np.float32))
-            shapes += 1
+        plan = [("prefill", bb, sb) for bb, sb in warmup_plan(
+            self.config["batch_buckets"], self.config["prompt_buckets"])]
+        if self.chunked:
+            plan += [("chunk", bb, ct) for bb, ct in chunk_warmup_plan(
+                self.config["batch_buckets"], self._chunk_tokens)]
+        for name, bb, width in plan:
+            host, seeds, temps = self._prefill_host(bb, width)
+            self._dispatch(name, (bb, width), host, seeds,
+                           np.ones((bb,), np.int32), temps)
         rows = self._rows
+        zeros = np.zeros((rows,), np.int32)
         for w in self._decode_page_buckets:
-            self._dispatch("decode", self._decode_paged_impl,
-                           np.zeros((rows,), np.int32),
-                           np.zeros((rows,), np.int32),
-                           np.zeros((rows, w), np.int32),
-                           np.zeros((rows,), np.int64),
+            self._dispatch("decode", (w,),
+                           {"toks": zeros, "positions": zeros,
+                            "tables": np.zeros((rows, w), np.int32)},
+                           np.zeros((rows,), np.int64), zeros,
                            np.zeros((rows,), np.float32))
-            shapes += 1
+        for v in self._verify_widths:
+            self._dispatch("verify", (v,),
+                           {"toks": np.zeros((rows, v), np.int32),
+                            "positions": zeros,
+                            "tables": np.zeros((rows, pps), np.int32)},
+                           np.zeros((rows * v,), np.int64),
+                           np.zeros((rows * v,), np.int32),
+                           np.zeros((rows * v,), np.float32))
+        programs = self.programs.mark_warm()
         if self._log is not None:
-            self._log.add_event("serve_warmup", programs=shapes,
+            self._log.add_event("serve_warmup", programs=programs,
                                 batch_buckets=self.config["batch_buckets"],
                                 prompt_buckets=self.config["prompt_buckets"],
-                                paged=True)
-        return shapes
+                                paged=True,
+                                verify_widths=list(self._verify_widths),
+                                disagg=False,
+                                chunk_tokens=self._chunk_tokens,
+                                cp_shards=self._cp_shards)
+        return programs
+
+    @property
+    def steady_state_recompiles(self) -> int:
+        """Programs first built since :meth:`warmup` (0 is the serving
+        contract: no capture on the clock); -1 before warmup ran."""
+        return self.programs.steady_state_recompiles
+
+    def set_speculation(self, on: bool) -> bool:
+        """Toggle speculative decoding without touching the program set
+        (the plain decode program is part of the warmed set, so turning
+        drafting off builds nothing). Returns False, and does nothing, on
+        an engine built without spec_decode."""
+        if not self.spec:
+            return False
+        self.scheduler.spec_k = self._spec_k if on else 0
+        return True
 
     def record_quant_logit_err(self, err: float) -> None:
         """Record an offline quantized-vs-fp max-logit-error probe (a
@@ -602,7 +874,9 @@ class InferenceEngine:
         occupancy and prefix-cache accounting, the slot table, queue
         depth by prompt bucket, per-program dispatch counts, and the
         tracer's SLO/latency histograms — the JAX engine's
-        ``serve_state`` layout, less its compile counts."""
+        ``serve_state`` layout; a program's "compiles" are the programs
+        of its kind built (graphs captured, on the card), and
+        ``program_set`` lists each program's dispatches and replays."""
         sched = self.scheduler
         slots = []
         for sid in sched.active_slots():
@@ -613,6 +887,7 @@ class InferenceEngine:
                           "prefix_tokens": s.prefix_len,
                           "pages": len(s.pages)})
         programs = {n: {"dispatches": d,
+                        "compiles": self.programs.count(n),
                         "seconds": round(self.dispatch_secs[n], 6)}
                     for n, d in sorted(self.dispatches.items())}
         pool = sched.allocator.debug_state()
@@ -634,7 +909,7 @@ class InferenceEngine:
             "kv_pool_bytes_per_token": round(self._kv_bpt, 3),
             "quant_logit_err": self.quant_logit_err,
         }
-        return {
+        state = {
             "family": self.family,
             "steps": self._steps,
             "quantization": quant,
@@ -643,12 +918,30 @@ class InferenceEngine:
             "occupancy": round(sched.occupancy, 4),
             "slots": slots,
             "programs": programs,
+            "program_set": self.programs.debug_state(),
+            "steady_state_recompiles": self.steady_state_recompiles,
             "prefill_shapes": dict(self.prefill_shapes),
             "page_pool": pool,
             "slo": self._tracer.snapshot(),
             "weight_version": self._weight_version,
             "weight_ordinal": self._weight_ordinal,
         }
+        if self.spec:
+            state["spec_decode"] = {
+                "k": self._spec_k,
+                "verify_widths": list(self._verify_widths),
+                "drafter": type(self._drafter).__name__,
+            }
+        if self.chunked:
+            state["chunked_prefill"] = {
+                "chunk_tokens": self._chunk_tokens,
+                "dispatches": self._chunk_dispatches,
+                "chunking_slots": len(sched.chunking_slots()),
+                "cp_shards": self._cp_shards,
+                "cp_threshold_tokens": self._cp_threshold,
+                "cp_reason": self._cp_reason,
+            }
+        return state
 
     # ----------------------------------------- checkpoint -> serving
     @property
@@ -667,7 +960,8 @@ class InferenceEngine:
                         tag: Optional[str] = None, inference_config=None,
                         dtype=torch.bfloat16, monitor: Optional[Any] = None,
                         quantize_weights=None, verify_integrity: bool = True,
-                        observability_config=None, device=None):
+                        observability_config=None, device=None,
+                        draft_fn=None):
         """A serving engine from a committed training tag. Loads the
         ``model_states`` group only (never the optimizer state), into a
         template made on the ``meta`` device, so the weights are held
@@ -684,7 +978,7 @@ class InferenceEngine:
         engine = cls(model_config, params, inference_config, dtype=dtype,
                      monitor=monitor,
                      observability_config=observability_config,
-                     device=device)
+                     device=device, draft_fn=draft_fn)
         engine._weight_version = os.path.basename(chosen)
         engine.scheduler.weight_version = engine._weight_version
         if engine._log is not None:
@@ -700,9 +994,11 @@ class InferenceEngine:
         template and is placed on the device before anything is
         assigned, so a failure (a bad tag, an I/O error, the
         ``serve.swap_load`` fault point) leaves the engine serving the
-        old weights. In-flight requests switch at their next dispatch;
-        their KV prefix stays valid (same geometry). Returns the new
-        version (the tag's name)."""
+        old weights. Once the load succeeded, the new weights are copied
+        into the live parameter tensors in place: the program set's
+        graphs hold those tensors' addresses. In-flight requests switch
+        at their next dispatch; their KV prefix stays valid (same
+        geometry). Returns the new version (the tag's name)."""
         t0 = time.perf_counter()
         try:
             chosen = _resolve_committed_tag(load_dir, tag, verify_integrity)
@@ -722,8 +1018,12 @@ class InferenceEngine:
             logger.warning(f"swap_params: load failed ({e!r}); still "
                            f"serving weight_version={self._weight_version}")
             raise
-        # commit: every dispatch from here on sees the new weights
-        self.params, self._head_w = new_params, new_head
+        # commit, in place: every dispatch from here on (a graph replay
+        # included) reads the new weights
+        with torch.no_grad():
+            _copy_into(self.params, new_params)
+            self._head_w.copy_(new_head)
+        del new_params, new_head
         self._weight_version = version
         self._weight_ordinal += 1
         self.scheduler.weight_version = version
@@ -761,3 +1061,12 @@ def _tensors(tree):
             yield from _tensors(v)
     else:
         yield tree
+
+
+def _copy_into(live, new):
+    """Copy the tree ``new`` into the tree ``live`` leaf by leaf, by key."""
+    if isinstance(live, dict):
+        for k, v in live.items():
+            _copy_into(v, new[k])
+    else:
+        live.copy_(new)

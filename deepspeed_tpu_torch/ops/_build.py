@@ -102,11 +102,19 @@ def arrival_counts(owner: str, device, stream: int, n: int):
     """At least ``n`` int32 arrival counters of ``owner``'s split kernel on
     ``device`` and ``stream``: the CTA of a split that arrives last merges
     and sets its count back to zero, so the counters are zero between
-    launches and are zeroed once, when made or grown."""
+    launches and are zeroed once, when made or grown. They must exist
+    before a CUDA graph captures a launch on ``stream`` (the program
+    set's eager pass makes them): zeroing them inside a capture would put
+    a memset into the graph, so that raises."""
     import torch
     key = (owner, device.index, stream)
     buf = _arrivals.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{owner}: arrival counters for stream {stream} made inside "
+                f"a CUDA graph capture; run the launch once before "
+                f"capturing it")
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _arrivals[key] = buf
     return buf

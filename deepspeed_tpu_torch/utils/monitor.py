@@ -45,6 +45,8 @@ TAG_SERVE_QUANT_LOGIT_ERR = "Serve/quant_logit_err"
 TAG_SERVE_TBT_MAX = "Serve/tbt_max_ms"              # per decode dispatch
 TAG_SERVE_WEIGHT_VERSION = "Serve/weight_version"   # committed swap
 #                                                     ordinal
+TAG_SERVE_SPEC_ACCEPT = "Serve/spec_accept_rate"    # accepted/proposed
+TAG_SERVE_CHUNK_DISPATCHES = "Serve/chunk_dispatches"  # cumulative
 # checkpoint tags (x-axis = cumulative samples)
 TAG_CKPT_SNAPSHOT_MS = "Checkpoint/snapshot_ms"     # state capture
 TAG_CKPT_WRITE_MS = "Checkpoint/write_ms"           # stage/commit protocol
@@ -320,15 +322,18 @@ class TensorBoardMonitor:
                               goodput_tokens_per_s=None,
                               kv_pool_bytes_per_token=None,
                               quant_logit_err=None, tbt_max_ms=None,
-                              weight_version=None, tokens: int = 0,
+                              weight_version=None, spec_accept_rate=None,
+                              chunk_dispatches=None, tokens: int = 0,
                               flush: bool = True):
         """Serving telemetry: TTFT per admitted request, per-decode-step
         token latency, cumulative tokens/s, queue depth and slot
         occupancy, the paged-pool view (pages in use, live cache tokens,
         prefix hit rate, which decode attention ran), and the
         request-granular plane (queue wait, TBT, SLO attainment,
-        goodput), and the ordinal of the weights served (after a
-        ``swap_params``). The x-axis is cumulative generated tokens."""
+        goodput), the ordinal of the weights served (after a
+        ``swap_params``), a verify dispatch's draft acceptance rate and
+        the cumulative chunked-prefill dispatches. The x-axis is
+        cumulative generated tokens."""
         if not self._writes():
             return
         for tag, value in (
@@ -344,8 +349,10 @@ class TensorBoardMonitor:
                 (TAG_SERVE_QUEUE_WAIT, queue_wait_ms),
                 (TAG_SERVE_TBT, tbt_ms),
                 (TAG_SERVE_TBT_MAX, tbt_max_ms),
+                (TAG_SERVE_CHUNK_DISPATCHES, chunk_dispatches),
                 (TAG_SERVE_SLO, slo_attainment),
                 (TAG_SERVE_GOODPUT, goodput_tokens_per_s),
+                (TAG_SERVE_SPEC_ACCEPT, spec_accept_rate),
                 (TAG_SERVE_KV_POOL_BPT, kv_pool_bytes_per_token),
                 (TAG_SERVE_QUANT_LOGIT_ERR, quant_logit_err),
                 (TAG_SERVE_WEIGHT_VERSION, weight_version)):

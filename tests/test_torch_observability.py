@@ -253,33 +253,58 @@ def test_tensorboard_enabled_run_writes_the_train_scalars(tmp_path):
     assert os.listdir(tmp_path / "t" / "llama")
 
 
-def test_flush_barrier_averages_the_window(tmp_path):
+def test_flush_barrier_averages_the_window(tmp_path, monkeypatch):
     """With steps_per_print 4 the barrier at step 4 writes 4 step times:
     the first step's own (it builds and counts, and is synchronised at
     its end), the window's rest divided evenly over the other three;
-    together they are the window's wall time."""
+    together they are the window's wall time.
+
+    The first step's synchronisation stalls the engine's clock by
+    STALL_MS, so the first step is the longest by construction, whatever
+    the load on the host does to the others' real times; the wall-time
+    check holds on the real part of the window."""
     import time
+    import types
 
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.llama import LlamaConfig, llama_loss_fn
+    from deepspeed_tpu_torch.runtime import engine as engine_mod
+    STALL_MS = 600e3
+    stalled = [0.0]
+    clock = types.SimpleNamespace(
+        perf_counter=lambda: time.perf_counter() + stalled[0],
+        time=time.time)
+    monkeypatch.setattr(engine_mod, "time", clock)
     eng, *_ = deepspeed_tpu_torch.initialize(
         model=llama_loss_fn(LlamaConfig(**LLAMA_TINY), dtype=torch.float32),
         model_parameters=_np_tree(_jax_tree()),
         config=_zero2_config(**dict(_observed(tmp_path),
                                     steps_per_print=4)),
         device="cpu")
+    sync, syncs = eng._sync, []
+
+    def stall_first_sync():
+        if not syncs:
+            stalled[0] += STALL_MS / 1e3
+        syncs.append(1)
+        sync()
+    eng._sync = stall_first_sync
     it = iter(_ids(6, 4))
-    t0 = time.perf_counter()
-    for _ in range(4):
+    t0 = clock.perf_counter()
+    eng.train_batch(it)
+    first_own_ms = eng._last_step_time_ms
+    assert len(syncs) == 1          # the stall sits inside step 1's time
+    for _ in range(3):
         eng.train_batch(it)
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms = (clock.perf_counter() - t0) * 1e3
     eng.close()
     _, tags = _events(tmp_path / "events.jsonl")
     rows = tags["Train/Samples/step_time_ms"]
     assert [s for s, _ in rows] == [2, 4, 6, 8]
     first, *rest = [v for _, v in rows]
+    assert first == first_own_ms and first >= STALL_MS
     assert len(set(rest)) == 1 and 0 < rest[0] < first
-    assert abs(first + sum(rest) - wall_ms) <= 0.05 * wall_ms
+    assert abs(first + sum(rest) - wall_ms) <= 0.05 * (wall_ms - STALL_MS)
     (mfu,) = tags["Observability/mfu"]
     flops = tags["Observability/flops_per_step"][0][1]
     assert mfu[1] == pytest.approx(flops / (rest[0] / 1e3) / 1e11)

@@ -13,6 +13,8 @@ Llama, float and int8 KV pools) against the JAX package on the CPU.
   path and the gather path (the Llama model itself is held against JAX
   in tests/test_torch_llama.py);
 - config parsing resolves the same fields and raises the same errors;
+- ``swap_params`` copies into the live parameter tensors (the CUDA
+  graphs of the program set hold their addresses);
 - nothing in the port, nor chip_smoke.py, imports jax or deepspeed_tpu.
 """
 
@@ -333,10 +335,7 @@ def test_observability_serve_section_like_jax(obs):
 @pytest.mark.parametrize("override,feature", [
     ({"paged_kv": {"enabled": False}}, "paged_kv.enabled"),
     ({"mesh": {"axes": {"model": 2}}}, "inference.mesh"),
-    ({"spec_decode": {"enabled": True}}, "spec_decode"),
     ({"disagg": {"enabled": True}}, "disagg"),
-    ({"chunked_prefill": {"enabled": True, "chunk_tokens": 8}},
-     "chunked_prefill"),
     ({"quantize_weights": True}, "quantize_weights"),      # the bf16 alias
     ({"quantize_weights": "int8"}, "quantize_weights"),
 ])
@@ -347,6 +346,64 @@ def test_unported_features_raise(override, feature):
         InferenceEngine(_port_config(cfg), _port_params(params),
                         dict(PAGED_INF, **override), dtype=torch.float32,
                         device="cpu")
+
+
+def test_swap_params_copies_into_the_live_tensors(tmp_path):
+    """swap_params copies the tag's weights into the tensors the engine
+    serves from (the program set's CUDA graphs hold their addresses):
+    every param keeps its data_ptr, and the engine then serves the
+    logits, bitwise, of an engine built fresh from the tag."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import InferenceEngine
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_loss_fn
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    cfg, params = tiny_gpt2()
+    tcfg = _port_config(cfg)
+    train, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2_loss_fn(tcfg, dtype=torch.float32),
+        model_parameters=jax.tree_util.tree_map(np.asarray, params),
+        config={"train_micro_batch_size_per_gpu": 2,
+                "steps_per_print": 1000,
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-2}}},
+        device="cpu")
+    rng = np.random.RandomState(5)
+    for _ in range(2):
+        train.train_batch(iter([{"input_ids": rng.randint(
+            0, cfg.vocab_size, (2, 17)).astype(np.int32)}]))
+        train.save_checkpoint(str(tmp_path))
+    (old, new) = ("global_step1", "global_step2")
+
+    def served(eng):
+        logits, sample = [], eng._sample_tokens
+
+        def rec(lg, *args):
+            logits.append(lg.clone())
+            return sample(lg, *args)
+        eng._sample_tokens = rec
+        out = eng.generate(PROMPTS, max_new_tokens=4)
+        eng._sample_tokens = sample
+        return out, logits
+
+    eng = InferenceEngine.from_checkpoint(
+        str(tmp_path), tcfg, tag=old, inference_config=PAGED_INF,
+        dtype=torch.float32, device="cpu")
+    eng.warmup()
+    ptrs = [t.data_ptr() for t in tree_leaves(eng.params)]
+    head = eng._head_w.data_ptr()
+    before = served(eng)
+    assert eng.swap_params(str(tmp_path), tag=new) == new
+    assert [t.data_ptr() for t in tree_leaves(eng.params)] == ptrs
+    assert eng._head_w.data_ptr() == head
+    got = served(eng)
+    fresh = InferenceEngine.from_checkpoint(
+        str(tmp_path), tcfg, tag=new, inference_config=PAGED_INF,
+        dtype=torch.float32, device="cpu")
+    fresh.warmup()
+    want = served(fresh)
+    assert got[0] == want[0] and got[0] != before[0]
+    assert len(got[1]) == len(want[1])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    assert eng.steady_state_recompiles == 0
 
 
 def test_unported_model_and_checkpoint_raise():

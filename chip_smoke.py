@@ -118,6 +118,40 @@ at the end of phase 10 on Llama-1B: the serving levers.
    tokens and logits (MODEL_LOGIT_ATOL) against an engine prefilling whole
    prompts at a 1024 bucket, tokens equal but at near-ties; then with
    speculation too. Chunk dispatches and TTFT.
+Phases 46 to 49 run after phase 45 on GPT-2 345M, and 47 and 49 again at
+the end of phase 10 on Llama-1B: the rest of the serving engine. Each
+prints its programs with their dispatches and replays and fails unless a
+CUDA graph holds each and steady_state_recompiles is 0.
+46. disagg_serving: phase 3's requests under inference.disagg over the
+   shared pool, over separate pools (a handoff_export/handoff_import
+   migration per request) and over separate pools with spec_decode. In
+   fp32 the tokens equal the plain engine's but at a near-tie (TIE_GAP),
+   every handoff is claimed, only the live prompt pages move, the
+   dispatch trace puts no decode behind a prefill and both pools drain
+   exactly; in bf16 TTFT p50/p95 and its handoff part, the handoff queue
+   and transfer ms, bytes moved, decode tokens/s and K4's launches beside
+   phase 3's row.
+47. quantized_weights_serving: quantize_weights "int8" in bf16 over the
+   bf16 and the int8 pool, 8 of phase 3's requests: tokens and the first
+   decode step's logits bitwise those of the same engine served the
+   dequantized tree; the quantized forward's max logit error against the
+   unquantized tree recorded through record_quant_logit_err;
+   weight_bytes beside weight_bytes_dense and the bf16 weights' bytes,
+   decode tokens/s and step ms beside phase 3's (10's) and 12's rows;
+   K4 (K4q) once per layer per decode dispatch. After phase 41,
+   quantized_from_checkpoint: from_checkpoint of global_step3 with
+   quantize_weights "bf16" and "int8" serves phase 41's requests bitwise
+   as an engine of run B's step-3 params shipped alike.
+48. dense_cache_serving: paged_kv.enabled false (one max_len row per slot
+   and a scratch row) on phase 3's requests: in fp32 tokens equal the
+   paged engine's but at a near-tie, no K4 launch (the dense decode
+   attends in plain fp32, as JAX's does); in bf16 the KV bytes, decode
+   step ms, decode tokens/s and TTFT beside phase 3's row.
+49. generate: gpt2_generate / llama_generate, 8 prompts of 128 tokens,
+   64 new tokens, greedy: K1 once per layer per call (24 and 16, on its
+   tensor-core body in bf16) and no other attention kernel; in fp32 the
+   tokens equal the serving engine's greedy tokens for the same prompts
+   but at a near-tie; ms per token in bf16.
 Phases 36 to 38 run after phase 9, before phase 13: Llama training,
 K1-K3 at G 4 (32 q heads over 8 kv heads) on the training path.
 36. llama_train_kernel_vs_plain: the LLAMA_1B widths at 2 layers, fp32,
@@ -405,8 +439,9 @@ printed first; too little space fails the run).
    step 3) with a fallback row that obs_report counts.
 39. the {"kernels": [...]} line (K1-K3 with their launches on the GPT-2
    and the Llama training paths (and phase 40's) and their Llama-shape
-   times of phase 38, K4 with phase 41's and phase 44's plain decode
-   dispatches,
+   times of phase 38, K1 with phase 49's calls, K4 with phase 41's,
+   phase 44's and phase 46's plain decode dispatches and K4 and K4q with
+   phase 47's,
    with the three key-mask, the three
    band, the three row-run, the three banded, the three no-mask
    row-run, the three legacy flash entries and K14-K16 in each of their
@@ -606,6 +641,18 @@ def card_peaks(name: str, ops: str = "bf16"):
 
 
 # ------------------------------------------------------------- kernels
+def dense_layout_mask(layout, block):
+    """``blocksparse.layout_additive_mask(layout, block)`` as an fp32
+    (H, S, S) tensor on the card, expanded there (the same values: 0
+    where the layout keeps a block, NEG_INF elsewhere); at the s8k
+    geometry the host's expansion takes seconds and 4 GB."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import NEG_INF
+    keep = torch.from_numpy(np.asarray(layout) != 0).cuda()
+    keep = keep.repeat_interleave(block, -2).repeat_interleave(block, -1)
+    return torch.where(keep, 0.0, NEG_INF).float()
+
+
 def pool_case(rng, batch, kv_heads, group, hd, page_size, pages_per_seq,
               positions, null_rows=(), poison=True):
     """Numpy inputs of one paged-decode call: distinct non-null pages per
@@ -1159,17 +1206,20 @@ def make_prompts(vocab):
     return prompts
 
 
-def serve(engine, prompts, new_tokens):
-    """Warm up (the program set captured as CUDA graphs), serve
-    ``prompts`` greedily until idle; return the finished requests by
-    submission order and the main path's counts: the paged-decode
-    launches, each program kind's dispatches and seconds
-    (``<kind>_dispatches``, ``<kind>_secs``), the wall time, the warm
-    program count and ``steady_state_recompiles`` after the run."""
+def serve(engine, prompts, new_tokens, after_warmup=None):
+    """Warm up (the program set captured as CUDA graphs), call
+    ``after_warmup(engine)`` if given, serve ``prompts`` greedily until
+    idle; return the finished requests by submission order and the main
+    path's counts: the paged-decode launches, each program kind's
+    dispatches and seconds (``<kind>_dispatches``, ``<kind>_secs``), the
+    wall time, the warm program count and ``steady_state_recompiles``
+    after the run."""
     from deepspeed_tpu_torch.inference import Request
     from deepspeed_tpu_torch.ops.attention.paged import \
         paged_decode_attention
     warm = engine.warmup()
+    if after_warmup is not None:
+        after_warmup(engine)
     disp0, secs0 = dict(engine.dispatches), dict(engine.dispatch_secs)
     uids = [engine.submit(Request(prompt=p, max_new_tokens=new_tokens,
                                   temperature=0.0, seed=i))
@@ -1628,7 +1678,7 @@ def _serving_numbers(finished, counts, kinds=("decode", "verify")):
 
 
 def spec_decode_serving_phase(smi, model_config, params, model,
-                              plain_tokens, fp32_check=True, device="cuda"):
+                              plain_tokens, ref=None, device="cuda"):
     """44. Speculative decoding (n-gram drafter, k 4) on the 16 requests
     of phase 3. In fp32 (as phase 4 runs), greedy tokens with it equal
     those without it, but at a near-tie (TIE_GAP; each divergence row
@@ -1637,23 +1687,20 @@ def spec_decode_serving_phase(smi, model_config, params, model,
     dispatches, decode tokens/s and TTFT beside the spec-off serving
     row, and the share of tokens equal to it; fails on zero accepted
     drafts. The paged-decode kernel runs once per layer per plain decode
-    dispatch (verify dispatches run the gather attention). Returns the
-    kernel's launches of the bf16 run."""
+    dispatch (verify dispatches run the gather attention). ``ref`` is
+    the plain fp32 run of :func:`fp32_reference` (None: no fp32 check).
+    Returns the kernel's launches of the bf16 run."""
     import torch
     from deepspeed_tpu_torch import InferenceEngine
     prompts = make_prompts(model_config.vocab_size)
     layers = model_config.num_layers
-    if fp32_check:
-        ref_engine = InferenceEngine(model_config, params, {},
-                                     dtype=torch.float32, device=device)
-        gaps, _ = record_samples(ref_engine)
-        ref, _ = serve(ref_engine, prompts, NEW_TOKENS)
-        del ref_engine
+    if ref is not None:
+        ref_tokens, gaps = ref
         engine = InferenceEngine(model_config, params, SPEC_DECODE,
                                  dtype=torch.float32, device=device)
         got, counts = serve(engine, prompts, NEW_TOKENS)
-        div, ok = divergences([f.tokens for f in ref],
-                              [f.tokens for f in got], prompts, gaps)
+        div, ok = divergences(ref_tokens, [f.tokens for f in got], prompts,
+                              gaps)
         row = {"phase": "spec_decode_fp32", "model": model, "dtype": "fp32",
                "requests": len(prompts), "new_tokens": NEW_TOKENS,
                "greedy_equal_requests": len(prompts) - len(div),
@@ -1763,6 +1810,418 @@ def chunked_prefill_serving_phase(smi, model_config, params,
             raise AssertionError(f"chunked_prefill_serving {label}: {row}")
 
 
+DISAGG = {"disagg": {"enabled": True}}
+SEPARATE = {"disagg": {"enabled": True, "separate_pools": True}}
+DISAGG_VARIANTS = (("shared_pool", DISAGG), ("separate_pools", SEPARATE),
+                   ("separate_pools+spec", dict(SEPARATE, **SPEC_DECODE)))
+INT8_WEIGHTS = {"quantize_weights": "int8"}
+DENSE_CACHE = {"paged_kv": {"enabled": False}}
+# generate: prompts of GEN_PROMPT tokens, GEN_BATCH of them, greedy
+GEN_BATCH = 8
+GEN_PROMPT = 128
+GEN_NEW = 64
+
+
+def _check_k4(phase, counts, layers, int8=False):
+    """K4 (or K4q over an int8 pool), and only it, ran once per layer per
+    plain decode dispatch."""
+    ran, other = (("launches_int8", "launches") if int8
+                  else ("launches", "launches_int8"))
+    if counts[ran] <= 0 or counts[other] or \
+            counts[ran] != counts["decode_dispatches"] * layers:
+        raise AssertionError(
+            f"{phase}: {ran} {counts[ran]} for "
+            f"{counts['decode_dispatches']} decode dispatches x {layers} "
+            f"layers, {other} {counts[other]}")
+    return counts[ran]
+
+
+def fp32_reference(model_config, params, prompts, device="cuda"):
+    """The plain (paged, not disaggregated) engine in fp32 on
+    ``prompts``: (its greedy tokens, the top-two gap of every sampled
+    row), the reference phases 44, 46 and 48 hold their fp32 runs to."""
+    import torch
+    from deepspeed_tpu_torch import InferenceEngine
+    engine = InferenceEngine(model_config, params, {}, dtype=torch.float32,
+                             device=device)
+    gaps, _ = record_samples(engine)
+    ref, _ = serve(engine, prompts, NEW_TOKENS)
+    del engine
+    return [f.tokens for f in ref], gaps
+
+
+def _record_handoffs(engine):
+    """The queue plus transfer ms of every handoff the engine claims from
+    here on (a list filled as they are claimed)."""
+    out = []
+    record = engine._handoff_stats.record
+
+    def rec(queue_ms, transfer_ms, pages, nbytes):
+        out.append(queue_ms + transfer_ms)
+        record(queue_ms, transfer_ms, pages, nbytes)
+    engine._handoff_stats.record = rec
+    return out
+
+
+def disagg_serving_phase(smi, model_config, params, ref, model="gpt2-345m",
+                         device="cuda"):
+    """46. Phase 3's 16 requests under ``disagg``: over the shared pool,
+    over separate pools (a migration per request through the
+    handoff_export and handoff_import programs), and over separate pools
+    with speculation. In fp32 the tokens equal the plain engine's
+    (``ref`` of :func:`fp32_reference`) but at a near-tie (TIE_GAP), every
+    handoff is claimed, a migration moves only the live prompt pages,
+    the dispatch trace puts no decode behind a prefill and both pools
+    drain exactly. In bf16 the TTFT p50/p95 with its handoff part, the
+    handoff queue and transfer ms, the bytes moved, decode tokens/s and
+    K4's launches, beside phase 3's row. Returns K4's launches of the
+    bf16 runs."""
+    import torch
+    from deepspeed_tpu_torch import InferenceEngine
+    from deepspeed_tpu_torch.inference.kv_cache import pages_for
+    prompts = make_prompts(model_config.vocab_size)
+    layers = model_config.num_layers
+    ref_tokens, gaps = ref
+    live_pages = None
+    launches = 0
+    plain = last_row("serving", model=model, kv_dtype="bfloat16") or {}
+    for label, icfg in DISAGG_VARIANTS:
+        spec = "spec_decode" in icfg
+        rows = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            engine = InferenceEngine(model_config, params, icfg, dtype=dtype,
+                                     device=device)
+            handoff_ms = _record_handoffs(engine)
+            got, counts = serve(engine, prompts, NEW_TOKENS)
+            st = engine.debug_state()
+            dg = st["disagg"]
+            ps = engine.paged_spec.page_size
+            live_pages = sum(pages_for(len(p), ps) for p in prompts)
+            moved = dg["handoff"]["pages_moved"]
+            checks = {
+                "claimed": dg["queue"]["handoffs"] == len(prompts)
+                and dg["queue"]["depth"] == 0
+                and dg["queue"]["dropped"] == 0,
+                "live_pages_only": moved == (
+                    live_pages if engine._separate_pools else 0),
+                "decode_first": dg["decode_first_fraction"] == 1.0,
+                "pools_drained": st["page_pool"]["pages_in_use"] == 0
+                and (not engine._separate_pools
+                     or dg["prefill_pool"]["pages_in_use"] == 0)}
+            if dtype == torch.float32:
+                div, tie_ok = divergences(ref_tokens,
+                                          [f.tokens for f in got], prompts,
+                                          gaps)
+                checks["greedy_equal_but_near_ties"] = tie_ok
+            graphs = check_graphs("disagg_serving", engine)
+            rows[dtype] = dict(
+                checks=checks, graphs=graphs, counts=counts, dg=dg,
+                numbers=_serving_numbers(got, counts),
+                divergences=div if dtype == torch.float32 else None,
+                handoff_ms_p50=float(np.percentile(handoff_ms, 50)),
+                handoff_ms_p95=float(np.percentile(handoff_ms, 95)),
+                ttft_ms=[f.ttft_ms for f in got])
+            if not spec:
+                _check_k4(f"disagg_serving {label}", counts, layers)
+            del engine
+        fp, bf = rows[torch.float32], rows[torch.bfloat16]
+        ok = all(fp["checks"].values()) and all(bf["checks"].values())
+        launches += bf["counts"]["launches"]
+        row = {"phase": "disagg_serving", "model": model, "variant": label,
+               "requests": len(prompts), "new_tokens": NEW_TOKENS,
+               "fp32_checks": fp["checks"], "bf16_checks": bf["checks"],
+               "fp32_greedy_equal_requests":
+                   len(prompts) - len(fp["divergences"]),
+               "fp32_divergences": fp["divergences"], "tie_gap": TIE_GAP,
+               "live_prompt_pages": live_pages,
+               "dtype": "bf16", **bf["numbers"],
+               "handoff_ms_p50": bf["handoff_ms_p50"],
+               "handoff_ms_p95": bf["handoff_ms_p95"],
+               "handoff": bf["dg"]["handoff"], "queue": bf["dg"]["queue"],
+               "decode_first_fraction": bf["dg"]["decode_first_fraction"],
+               "decode_dispatches": bf["counts"]["decode_dispatches"],
+               "verify_dispatches": bf["counts"].get("verify_dispatches", 0),
+               "handoff_dispatches": bf["counts"].get(
+                   "handoff_import_dispatches", 0),
+               "decode_step_ms_mean": (bf["counts"]["decode_secs"] * 1e3
+                                       / bf["counts"]["decode_dispatches"]),
+               "kernel_launches": bf["counts"]["launches"],
+               "kernel_launches_int8": bf["counts"]["launches_int8"],
+               "programs_warm": bf["counts"]["programs_warm"],
+               **bf["graphs"],
+               "not_disaggregated": {k: plain.get(k) for k in (
+                   "decode_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
+                   "decode_step_ms_mean")},
+               "ok": ok, "nvidia_smi": smi}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"disagg_serving {label}: {row}")
+    return launches
+
+
+def _bf16_weight_bytes(params):
+    """Bytes of ``params`` with every leaf of two or more dims in bf16
+    and the rest as held: what a bf16-resident engine's weights cost."""
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    return sum(t.numel() * (2 if t.dim() >= 2 else t.element_size())
+               for t in tree_leaves(params))
+
+
+def quant_logit_err(model_config, params, forward, device="cuda"):
+    """The max |logit| difference between ``forward`` over the int8-
+    resident tree and over ``params`` in bf16, on two rows of 64 tokens
+    (the offline probe ``record_quant_logit_err`` takes)."""
+    import torch
+    from deepspeed_tpu_torch.runtime.quantized_params import \
+        quantize_param_tree
+    rng = np.random.RandomState(SEED + 11)
+    ids = torch.tensor(rng.randint(0, model_config.vocab_size, (2, 64)),
+                       dtype=torch.int32, device=device)
+    with torch.no_grad():
+        fp = forward(params, model_config, ids, dtype=torch.bfloat16)
+        q = forward(quantize_param_tree(params, 256), model_config, ids,
+                    dtype=torch.bfloat16)
+    return float((q - fp).abs().max())
+
+
+def quantized_weights_serving_phase(smi, model_config, params, model,
+                                    forward, requests=8, device="cuda"):
+    """47. ``quantize_weights: "int8"`` in bf16 over the bf16 and the int8
+    pool, ``requests`` of phase 3's requests: the tokens and the first
+    decode step's logits bitwise those of the same engine served the
+    dequantized tree (the weights the int8 blocks stand for), K4 (K4q)
+    once per layer per decode dispatch, every program a graph.
+    :func:`quant_logit_err` against the unquantized tree goes through
+    record_quant_logit_err. Prints weight_bytes against weight_bytes_dense
+    and the bf16 weights' bytes, decode tokens/s and step ms beside phase
+    3's and phase 10's rows (serving phases of the unquantized weights).
+    Returns K4's and K4q's launches."""
+    import torch
+    from deepspeed_tpu_torch import InferenceEngine
+    from deepspeed_tpu_torch.runtime.quantized_params import (
+        dequantize_param_tree, quantize_param_tree)
+    prompts = make_prompts(model_config.vocab_size)[:requests]
+    layers = model_config.num_layers
+    err = quant_logit_err(model_config, params, forward, device)
+    launches = {"bf16": 0, "int8": 0}
+    for kv, pool in (("bf16", {}), ("int8", {"kv_dtype": "int8"})):
+        icfg = {"paged_kv": pool} if pool else {}
+        ran = {}
+        for name, extra in (("int8_weights", INT8_WEIGHTS),
+                            ("dequantized", {})):
+            tree = params if extra else dequantize_param_tree(
+                quantize_param_tree(params, 256))
+            engine = InferenceEngine(model_config, tree, dict(icfg, **extra),
+                                     dtype=torch.bfloat16, device=device)
+            del tree
+            engine.record_quant_logit_err(err)
+            rec = {}
+            finished, counts = serve(
+                engine, prompts, NEW_TOKENS,
+                after_warmup=lambda e: rec.update(
+                    first=_first_decode_logits(e)))
+            ran[name] = dict(tokens=[f.tokens for f in finished],
+                             logits=rec["first"]["logits"], counts=counts,
+                             graphs=check_graphs("quantized_weights_serving",
+                                                 engine),
+                             numbers=_serving_numbers(finished, counts),
+                             quant=engine.debug_state()["quantization"])
+            del engine
+        q, d = ran["int8_weights"], ran["dequantized"]
+        quant = q["quant"]
+        bitwise = q["tokens"] == d["tokens"] and \
+            bool(torch.equal(q["logits"], d["logits"]))
+        launches[kv] = _check_k4(f"quantized_weights_serving {model} {kv}",
+                                 q["counts"], layers, int8=kv == "int8")
+        bf16_bytes = _bf16_weight_bytes(params)
+        served = last_row("serving", model=model,
+                          kv_dtype="bfloat16" if kv == "bf16" else "int8") \
+            or {}
+        row = {"phase": "quantized_weights_serving", "model": model,
+               "dtype": "bf16", "kv_dtype": quant["kv_dtype"],
+               "requests": len(prompts), "new_tokens": NEW_TOKENS,
+               "weights_resident": quant["weights_resident"],
+               "weight_bytes": quant["weight_bytes"],
+               "weight_bytes_dense": quant["weight_bytes_dense"],
+               "weight_bytes_bf16": bf16_bytes,
+               "int8_over_bf16_bytes": quant["weight_bytes"] / bf16_bytes,
+               "quant_logit_err": quant["quant_logit_err"],
+               "bitwise_dequantized_tree": bitwise,
+               **q["numbers"],
+               "decode_step_ms_mean": (q["counts"]["decode_secs"] * 1e3
+                                       / q["counts"]["decode_dispatches"]),
+               "serving_row": {k: served.get(k) for k in (
+                   "requests", "decode_tokens_per_s", "decode_step_ms_mean",
+                   "ttft_ms_p50")},
+               "kernel": "paged_decode_int8" if kv == "int8"
+               else "paged_decode",
+               "kernel_launches": launches[kv],
+               "programs_warm": q["counts"]["programs_warm"], **q["graphs"],
+               "ok": bitwise, "nvidia_smi": smi}
+        emit(row)
+        if not bitwise:
+            raise AssertionError(
+                f"quantized_weights_serving {model} {kv}: the int8-resident "
+                "engine's tokens or first decode logits differ from the "
+                "dequantized tree's")
+    return launches
+
+
+def quantized_from_checkpoint_phase(smi, state, device="cuda"):
+    """47 (the tag). InferenceEngine.from_checkpoint of phase 40's
+    global_step3 with quantize_weights "bf16" (the wire-only mode) and
+    "int8": phase 41's requests, tokens and the first decode step's
+    logits bitwise those of an engine of run B's in-memory step-3 params
+    shipped alike (qwz_distribute_params); K4 once per layer per decode
+    step. Returns K4's launches by mode."""
+    import torch
+    from deepspeed_tpu_torch import InferenceEngine
+    from deepspeed_tpu_torch.inference.engine import qwz_distribute_params
+    cfg, save_dir = state["config"], state["save_dir"]
+    prompts, new_tokens = state["prompts"], state["new_tokens"]
+    out, rows = {}, {}
+    for mode in ("bf16", "int8"):
+        ref = InferenceEngine(
+            cfg, qwz_distribute_params(state["params3"], 256, mode),
+            {"quantize_weights": mode}, dtype=torch.bfloat16, device=device)
+        want = _serve_checked(ref, prompts, new_tokens)
+        del ref
+        t0 = time.perf_counter()
+        engine = InferenceEngine.from_checkpoint(
+            save_dir, cfg, tag="global_step3", dtype=torch.bfloat16,
+            quantize_weights=mode, device=device)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        got = _serve_checked(engine, prompts, new_tokens)
+        quant = engine.debug_state()["quantization"]
+        del engine
+        ok = got[0] == want[0] and bool(torch.equal(got[1], want[1])) and \
+            not got[3] and got[2] == got[4] * cfg.num_layers
+        out[mode] = got[2]
+        rows[mode] = {"from_checkpoint_ms": load_ms,
+                      "weights_resident": quant["weights_resident"],
+                      "weight_bytes": quant["weight_bytes"],
+                      "tokens_equal": got[0] == want[0],
+                      "logits_bitwise": bool(torch.equal(got[1], want[1])),
+                      "kernel_launches": got[2],
+                      "decode_dispatches": got[4],
+                      "steady_state_recompiles":
+                          got[5]["steady_state_recompiles"], "ok": ok}
+    emit({"phase": "quantized_from_checkpoint", "model": "gpt2-345m",
+          "tag": "global_step3", "modes": rows, "nvidia_smi": smi})
+    if not all(r["ok"] for r in rows.values()):
+        raise AssertionError(f"quantized_from_checkpoint: {rows}")
+    return out
+
+
+def dense_cache_serving_phase(smi, model_config, params, ref,
+                              model="gpt2-345m", device="cuda"):
+    """48. ``paged_kv.enabled: false``, the dense slot cache (one max_len
+    row per slot plus the scratch row), on phase 3's requests: in fp32
+    the tokens equal the paged engine's (``ref``) but at a near-tie; in
+    bf16 the KV bytes, decode step ms, decode tokens/s and TTFT beside
+    phase 3's row. No paged-decode kernel runs: the dense decode attends
+    in plain fp32, as JAX's does."""
+    import torch
+    from deepspeed_tpu_torch import InferenceEngine
+    prompts = make_prompts(model_config.vocab_size)
+    ref_tokens, gaps = ref
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        engine = InferenceEngine(model_config, params, DENSE_CACHE,
+                                 dtype=dtype, device=device)
+        got, counts = serve(engine, prompts, NEW_TOKENS)
+        st = engine.debug_state()
+        rows[dtype] = dict(tokens=[f.tokens for f in got], counts=counts,
+                           numbers=_serving_numbers(got, counts),
+                           graphs=check_graphs("dense_cache_serving",
+                                               engine),
+                           kv_bytes=engine._kv_bpt * engine._rows
+                           * engine.max_len, quant=st["quantization"])
+        del engine
+    fp, bf = rows[torch.float32], rows[torch.bfloat16]
+    div, tie_ok = divergences(ref_tokens, fp["tokens"], prompts, gaps)
+    no_k4 = all(r["counts"]["launches"] == 0
+                and r["counts"]["launches_int8"] == 0 for r in rows.values())
+    plain = last_row("serving", model=model, kv_dtype="bfloat16") or {}
+    ok = tie_ok and no_k4
+    row = {"phase": "dense_cache_serving", "model": model, "dtype": "bf16",
+           "requests": len(prompts), "new_tokens": NEW_TOKENS,
+           "fp32_greedy_equal_requests": len(prompts) - len(div),
+           "fp32_divergences": div, "tie_gap": TIE_GAP,
+           "kv_cache_bytes": bf["kv_bytes"],
+           "kv_bytes_per_token": bf["quant"]["kv_pool_bytes_per_token"],
+           **bf["numbers"],
+           "decode_step_ms_mean": (bf["counts"]["decode_secs"] * 1e3
+                                   / bf["counts"]["decode_dispatches"]),
+           "decode_dispatches": bf["counts"]["decode_dispatches"],
+           "paged": {k: plain.get(k) for k in (
+               "kv_pool_bytes_per_token", "decode_tokens_per_s",
+               "decode_step_ms_mean", "ttft_ms_p50", "ttft_ms_p95")},
+           "k4_launches": 0 if no_k4 else "nonzero",
+           "programs_warm": bf["counts"]["programs_warm"], **bf["graphs"],
+           "ok": ok, "nvidia_smi": smi}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"dense_cache_serving: {row}")
+
+
+def generate_phase(smi, model_config, params, model, generate,
+                   device="cuda"):
+    """49. ``gpt2_generate`` / ``llama_generate``: GEN_BATCH prompts of
+    GEN_PROMPT tokens, GEN_NEW new tokens, greedy. The prefill runs K1
+    (``masked_flash_fwd``, on its tensor-core body in bf16) once per
+    layer a call. In fp32 the tokens equal the serving engine's greedy
+    tokens for the same prompts but at a near-tie; in bf16 the ms per
+    token. Returns K1's launches of the bf16 call."""
+    import torch
+    from deepspeed_tpu_torch import InferenceEngine
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    rng = np.random.RandomState(SEED + 9)
+    prompts = [rng.randint(0, model_config.vocab_size,
+                           size=GEN_PROMPT).tolist() for _ in range(GEN_BATCH)]
+    engine = InferenceEngine(model_config, params, {}, dtype=torch.float32,
+                             device=device)
+    gaps, _ = record_samples(engine)
+    ref = [f.tokens for f in serve(engine, prompts, GEN_NEW)[0]]
+    del engine
+    ids = torch.tensor(prompts, dtype=torch.int32, device=device)
+    layers = model_config.num_layers
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        _reset_train_launches()
+        if ids.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(params, model_config, ids, GEN_NEW, dtype=dtype)
+        out_host = out.cpu()
+        secs = time.perf_counter() - t0
+        rows[dtype] = dict(tokens=out_host[:, GEN_PROMPT:].tolist(),
+                           secs=secs, k1=mf.masked_flash_fwd.launches,
+                           bodies=dict(mf.masked_flash_fwd.bodies),
+                           other=mf.masked_flash_dq.launches
+                           + mf.masked_flash_dkv.launches)
+    fp, bf = rows[torch.float32], rows[torch.bfloat16]
+    div, tie_ok = divergences(ref, fp["tokens"], prompts, gaps)
+    launches_ok = all(r["k1"] == layers and r["other"] == 0
+                      for r in rows.values()) and \
+        bf["bodies"].get("mma", 0) == layers
+    ok = tie_ok and launches_ok
+    row = {"phase": "generate", "model": model, "batch": GEN_BATCH,
+           "prompt": GEN_PROMPT, "new_tokens": GEN_NEW,
+           "fp32_greedy_equal_rows": GEN_BATCH - len(div),
+           "fp32_divergences": div, "tie_gap": TIE_GAP,
+           "k1_launches": {"fp32": fp["k1"], "bf16": bf["k1"]},
+           "k1_bodies_bf16": bf["bodies"],
+           "bf16_secs": bf["secs"],
+           "bf16_ms_per_token": bf["secs"] * 1e3 / GEN_NEW,
+           "fp32_ms_per_token": fp["secs"] * 1e3 / GEN_NEW,
+           "ok": ok, "nvidia_smi": smi}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"generate {model}: {row}")
+    return bf["k1"]
+
+
 def llama_1b_config():
     from deepspeed_tpu_torch import LlamaConfig
     # the LLAMA_1B geometry of examples/llama/train.py: head_dim 64,
@@ -1780,7 +2239,8 @@ def llama_phase(smi):
     import torch
     from deepspeed_tpu_torch.models.llama import (count_params,
                                                   init_llama_params,
-                                                  llama_forward)
+                                                  llama_forward,
+                                                  llama_generate)
     cfg = llama_1b_config()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_llama_params(cfg, gen)
@@ -1799,7 +2259,7 @@ def llama_phase(smi):
             "kv_pool_bytes_per_token"])
         del engine
     spec_launches = spec_decode_serving_phase(
-        smi, cfg, params, "llama-1b", runs["bf16"][1], fp32_check=False)
+        smi, cfg, params, "llama-1b", runs["bf16"][1])
     graph_vs_eager_phase(smi, cfg, params, "llama-1b", kv_dtype="int8")
     pairs = [(a, b) for ta, tb in zip(runs["bf16"][1], runs["int8"][1])
              for a, b in zip(ta, tb)]
@@ -1820,7 +2280,12 @@ def llama_phase(smi):
         model_path_phase(shallow, shallow_params, "cuda", prompts,
                          llama_forward, model="llama-1b-width",
                          inference_config=icfg, decode_steps=3)
-    return dict({kv: r[0] for kv, r in runs.items()}, spec=spec_launches)
+    del shallow_params
+    quant = quantized_weights_serving_phase(smi, cfg, params, "llama-1b",
+                                            llama_forward)
+    generated = generate_phase(smi, cfg, params, "llama-1b", llama_generate)
+    return dict({kv: r[0] for kv, r in runs.items()}, spec=spec_launches,
+                quant=quant, generate=generated)
 
 
 # ------------------------------------------------------------ training
@@ -2790,8 +3255,6 @@ def sparse_kernel_timing_phase(smi):
     from deepspeed_tpu_torch.ops.attention import masked_flash as mf
     from deepspeed_tpu_torch.ops.attention.masked_flash import (NEG_INF,
                                                                 BlockMask)
-    from deepspeed_tpu_torch.ops.sparse_attention import \
-        layout_additive_mask
     rng = np.random.RandomState(SEED + 9)
     m = SPARSE_SHAPE
     B, H, S, D = m["B"], m["H"], m["S"], m["D"]
@@ -2818,8 +3281,8 @@ def sparse_kernel_timing_phase(smi):
         sc = sparse_config(kind, heads=H)
         layout = sc.make_layout(S)
         fine_tiles = int(layout.astype(bool).sum())      # over all H heads
-        am = (torch.from_numpy(layout_additive_mask(layout, sc.block))
-              .cuda()[None] + kpm[:, None, None, :]).to(torch.bfloat16)
+        am = (dense_layout_mask(layout, sc.block)[None]
+              + kpm[:, None, None, :]).to(torch.bfloat16)
         qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am)
         lib = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
@@ -3650,8 +4113,6 @@ def v2_kernel_timing_phase(smi, main_row):
                                                                 WALK_COSTS)
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as v2
-    from deepspeed_tpu_torch.ops.sparse_attention import \
-        layout_additive_mask
     from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import (
         NEG_INF, _to_additive)
     rng = np.random.RandomState(SEED + 11)
@@ -3665,8 +4126,8 @@ def v2_kernel_timing_phase(smi, main_row):
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     layout = sparse_config("fixed", heads=H).make_layout(S)
     fine_tiles = int(layout.astype(bool).sum())          # over all H heads
-    dense = (torch.from_numpy(layout_additive_mask(layout, 16)).cuda()[None]
-             + kpm[:, None, None, :] + am_add[None, None]).to(torch.bfloat16)
+    dense = (dense_layout_mask(layout, 16)[None] + kpm[:, None, None, :]
+             + am_add[None, None]).to(torch.bfloat16)
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=dense)
     lib = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
@@ -5639,8 +6100,6 @@ def v1_kernel_timing_phase(smi, check_rows):
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse as bs
     from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_v2 as v2
-    from deepspeed_tpu_torch.ops.sparse_attention import \
-        layout_additive_mask
     from deepspeed_tpu_torch.ops.sparse_attention.blocksparse import (
         NEG_INF, _to_additive)
     rng = np.random.RandomState(SEED + 32)
@@ -5675,8 +6134,7 @@ def v1_kernel_timing_phase(smi, check_rows):
         o2, lse2 = v2.blocksparse_v2_fwd(q, k, v, key, tiles, rp, scale)
         bwd2 = (q, k, v, do, lse2, (do.float() * o2.float()).sum(-1), key,
                 tiles, rp, scale)
-        dense = torch.from_numpy(layout_additive_mask(layout, blk)).cuda(
-        )[None]
+        dense = dense_layout_mask(layout, blk)[None]
         if key is not None:
             dense = dense + key[:, None, None, :]
         if amask is not None:
@@ -6787,6 +7245,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
     from deepspeed_tpu_torch.models.gpt2 import (GPT2_MEDIUM, gpt2_forward,
+                                                 gpt2_generate,
                                                  init_gpt2_params)
     from deepspeed_tpu_torch.ops import _build
 
@@ -6832,10 +7291,19 @@ def main() -> int:
     profile_phase(engine, prompts)
     del engine
     graph_vs_eager_phase(smi, GPT2_MEDIUM, params, "gpt2-345m")
+    gpt2_ref = fp32_reference(GPT2_MEDIUM, params,
+                              make_prompts(GPT2_MEDIUM.vocab_size))
     gpt2_spec_launches = spec_decode_serving_phase(
-        smi, GPT2_MEDIUM, params, "gpt2-345m", gpt2_tokens)
+        smi, GPT2_MEDIUM, params, "gpt2-345m", gpt2_tokens, ref=gpt2_ref)
     chunked_prefill_serving_phase(smi, GPT2_MEDIUM, params)
-    del params
+    disagg_launches = disagg_serving_phase(smi, GPT2_MEDIUM, params,
+                                           gpt2_ref)
+    gpt2_quant_launches = quantized_weights_serving_phase(
+        smi, GPT2_MEDIUM, params, "gpt2-345m", gpt2_forward)
+    dense_cache_serving_phase(smi, GPT2_MEDIUM, params, gpt2_ref)
+    gpt2_generate_launches = generate_phase(smi, GPT2_MEDIUM, params,
+                                            "gpt2-345m", gpt2_generate)
+    del params, gpt2_ref
     llama_launches = llama_phase(smi)
     train_launches, train_losses = training_phase(smi)
     training_dropout_phase()
@@ -6848,6 +7316,8 @@ def main() -> int:
         ckpt_state = checkpoint_resume_phase(smi, ckpt_root)
         ckpt_train_launches = ckpt_state["launches"]
         ckpt_serve_launches = serve_from_checkpoint_phase(smi, ckpt_state)
+        ckpt_quant_launches = quantized_from_checkpoint_phase(smi,
+                                                              ckpt_state)
         checkpoint_fallback_phase(smi, ckpt_state)
         del ckpt_state
     finally:
@@ -6911,7 +7381,10 @@ def main() -> int:
         replaces="deepspeed_tpu/ops/attention/paged.py:217",
         launches=(launches + llama_launches["bf16"] + gpt2_spec_launches
                   + llama_launches["spec"]
-                  + sum(ckpt_serve_launches.values())),
+                  + sum(ckpt_serve_launches.values()) + disagg_launches
+                  + gpt2_quant_launches["bf16"]
+                  + llama_launches["quant"]["bf16"]
+                  + sum(ckpt_quant_launches.values())),
         launches_by_path={"gpt2-345m bf16 pool": launches,
                           "llama-1b bf16 pool": llama_launches["bf16"],
                           "gpt2-345m bf16 pool, spec_decode k 4 (plain "
@@ -6919,7 +7392,17 @@ def main() -> int:
                           "llama-1b bf16 pool, spec_decode k 4 (plain "
                           "decode dispatches)": llama_launches["spec"],
                           **{f"gpt2-345m from_checkpoint {tag}, bf16 pool":
-                             n for tag, n in ckpt_serve_launches.items()}},
+                             n for tag, n in ckpt_serve_launches.items()},
+                          "gpt2-345m disagg (shared pool, separate pools, "
+                          "separate pools + spec; plain decode "
+                          "dispatches)": disagg_launches,
+                          "gpt2-345m int8-resident weights, bf16 pool":
+                              gpt2_quant_launches["bf16"],
+                          "llama-1b int8-resident weights, bf16 pool":
+                              llama_launches["quant"]["bf16"],
+                          **{f"gpt2-345m from_checkpoint global_step3, "
+                             f"quantize_weights {mode}, bf16 pool": n
+                             for mode, n in ckpt_quant_launches.items()}},
         max_abs_err=timing["max_abs_err"],
         ms=timing["ms"], kernel_ms=timing["ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
@@ -6930,14 +7413,22 @@ def main() -> int:
         source="deepspeed_tpu_torch/csrc/paged_decode.cu",
         replaces="deepspeed_tpu/ops/attention/paged.py:217 "
                  "(quantized=True, the int8-pool arity)",
-        launches=llama_launches["int8"] + gpt2_int8_launches,
+        launches=(llama_launches["int8"] + gpt2_int8_launches
+                  + gpt2_quant_launches["int8"]
+                  + llama_launches["quant"]["int8"]),
         launches_by_path={"llama-1b int8 pool": llama_launches["int8"],
-                          "gpt2-345m int8 pool": gpt2_int8_launches},
+                          "gpt2-345m int8 pool": gpt2_int8_launches,
+                          "gpt2-345m int8-resident weights, int8 pool":
+                              gpt2_quant_launches["int8"],
+                          "llama-1b int8-resident weights, int8 pool":
+                              llama_launches["quant"]["int8"]},
         max_abs_err=int8_timing["max_abs_err"], ms=int8_timing["ms"],
         kernel_ms=int8_timing["ms"], plain_ms=int8_timing["plain_ms"],
         bound_ms=int8_timing["bound_ms"], bound_by=int8_timing["bound_by"],
         library_ms=int8_timing["library_ms"],
         pages_per_split=int8_timing["pages_per_split"])]
+    generate_launches = {"masked_flash_fwd": gpt2_generate_launches
+                         + llama_launches["generate"]}
     errs = {"masked_flash_fwd": train_check["o_max_abs_err"],
             "masked_flash_dq": train_check["dq_max_abs_err"],
             "masked_flash_dkv": max(train_check["dk_max_abs_err"],
@@ -6956,7 +7447,8 @@ def main() -> int:
             source="deepspeed_tpu_torch/csrc/masked_flash.cu",
             replaces=t["replaces"],
             launches=(train_launches[name] + llama_train_launches[name]
-                      + ckpt_train_launches[name]),
+                      + ckpt_train_launches[name]
+                      + generate_launches.get(name, 0)),
             launches_by_path={
                 f"gpt2-345m training ({TRAIN_STEPS} steps)":
                     train_launches[name],
@@ -6964,7 +7456,14 @@ def main() -> int:
                     llama_train_launches[name],
                 f"gpt2-345m checkpoint save and resume ({CKPT_HALF} + "
                 f"{CKPT_HALF} steps, {CKPT_DS_CONFIG})":
-                    ckpt_train_launches[name]},
+                    ckpt_train_launches[name],
+                **({f"gpt2_generate, gpt2-345m (one bf16 call, B "
+                    f"{GEN_BATCH}, prompts of {GEN_PROMPT})":
+                    gpt2_generate_launches,
+                    f"llama_generate, llama-1b (one bf16 call, B "
+                    f"{GEN_BATCH}, prompts of {GEN_PROMPT})":
+                    llama_launches["generate"]}
+                   if name == "masked_flash_fwd" else {})},
             max_abs_err=max(errs[name], llama_gqa[name]["max_abs_err"]),
             ms=t["ms"], kernel_ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

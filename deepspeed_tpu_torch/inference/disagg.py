@@ -1,0 +1,299 @@
+"""Host-side bookkeeping for disaggregated prefill/decode serving (a copy
+of ``deepspeed_tpu/inference/disagg.py``).
+
+Prefill is compute-bound (one batched pass over the prompt), decode is
+bandwidth-bound (one token per request per dispatch). Interleaving them
+in one loop makes every prefill dispatch stall every in-flight request's
+next token. Disaggregation runs them as separate phases of the engine's
+step, a *prefill* phase fed by admission and a *decode* phase that owns
+token generation, joined by a **page handoff**: a completed prefill's KV
+state moves to the decode side by moving block-table ownership.
+
+Two handoff modes (the engine picks per config):
+
+- **shared pool**: the pages already live where decode reads them, so
+  the handoff is a zero-copy host bookkeeping move. Cost: queue time
+  only.
+- **separate pools**: only the LIVE pages (``ceil(prompt /
+  page_size)``, never the full reservation) are exported from the
+  prefill pool and scattered into the decode pool (the device half lives
+  in ``inference/engine.py``). The wire cost is priced per hop by a link
+  model (:func:`price_handoff` duck-types it).
+
+This module is the host-side half: the handoff queue, transfer records,
+wire pricing, and the dispatch interleaving trace that pins "no decode
+dispatch waits behind a prefill dispatch" (the decode phase of every
+engine step runs first). It imports neither torch nor jax, like
+``scheduler.py`` and ``draft.py``.
+"""
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+__all__ = ["HandoffRecord", "HandoffQueue", "HandoffStats",
+           "DispatchTrace", "MigrationRecord", "price_handoff"]
+
+
+@dataclass
+class HandoffRecord:
+    """One completed prefill awaiting decode-side adoption.
+
+    ``first_token`` is the token the prefill dispatch sampled — it is
+    NOT released to the request until the decode worker claims the
+    handoff (TTFT honestly includes handoff wait). ``live_pages`` is
+    the page count actually holding prompt K/V (what a cross-pool
+    transfer must move); the slot's full reservation never travels.
+    """
+    uid: int
+    slot: int
+    first_token: int
+    live_pages: int
+    prompt_tokens: int
+    t_ready: float
+    attempts: int = 0
+
+
+class HandoffQueue:
+    """FIFO of completed prefills between the worker loops.
+
+    The decode worker drains it at the START of its phase; a claim can
+    fail (decode pool can't reserve the request's lifetime pages yet)
+    and the record is then re-queued — decode-side memory pressure
+    backpressures the handoff, never the prefill loop. Counters feed
+    ``engine.debug_state()`` and the ``serve_handoff`` trail rows.
+    """
+
+    def __init__(self, clock=time.perf_counter):
+        self._clock = clock
+        self._q: List[HandoffRecord] = []
+        self.total_handoffs = 0       # claims completed
+        self.total_requeues = 0       # claims bounced (pool pressure)
+        self.total_dropped = 0        # records voided by eviction
+        self.peak_depth = 0
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    def push(self, rec: HandoffRecord) -> None:
+        self._q.append(rec)
+        self.peak_depth = max(self.peak_depth, len(self._q))
+
+    def drain(self) -> List[HandoffRecord]:
+        """Take every waiting record (the decode phase claims them in
+        arrival order; unclaimable ones come back via :meth:`requeue`)."""
+        out, self._q = self._q, []
+        return out
+
+    def requeue(self, rec: HandoffRecord) -> None:
+        """Put a record back at the FRONT (its arrival order survives a
+        bounced claim — the retry next step precedes newer handoffs)."""
+        rec.attempts += 1
+        self._q.insert(0, rec)
+        self.total_requeues += 1
+
+    def claimed(self, rec: HandoffRecord) -> float:
+        """Account one completed claim; returns the record's total
+        queue wait in ms."""
+        self.total_handoffs += 1
+        return (self._clock() - rec.t_ready) * 1e3
+
+    def dropped(self, rec: HandoffRecord) -> None:
+        """The request was evicted while its handoff waited — the
+        record is void (its pages were already freed by the
+        scheduler's eviction path)."""
+        self.total_dropped += 1
+
+    def pop(self, uid: int) -> Optional[HandoffRecord]:
+        """Remove and return the queued record for ``uid`` (None if no
+        record waits). Cancellation uses this: a record left in the
+        queue after its slot is evicted would sit as a phantom entry
+        until the next claim drain — or forever, if the eviction made
+        the scheduler idle and the serving loop exits."""
+        for i, rec in enumerate(self._q):
+            if rec.uid == uid:
+                del self._q[i]
+                return rec
+        return None
+
+    def debug_state(self) -> Dict[str, int]:
+        return {"depth": len(self._q), "peak_depth": self.peak_depth,
+                "handoffs": self.total_handoffs,
+                "requeues": self.total_requeues,
+                "dropped": self.total_dropped}
+
+
+def price_handoff(n_pages: int, page_bytes: int, link,
+                  axis: str = "inter", hops: int = 1) -> float:
+    """Modeled wire cost (ms) of moving ``n_pages`` pages across
+    ``hops`` links, priced by a link model (``inference.engine.LinkModel``)
+    (duck-typed: anything with ``bytes_per_us(axis)`` /
+    ``latency_us(axis)``). Same-pool handoffs cost 0 — no bytes move.
+    The priced figure rides the ``serve_handoff`` event row next to
+    the measured wall time, so a handoff that costs more than the
+    model predicts is visible per request."""
+    if n_pages <= 0 or hops <= 0:
+        return 0.0
+    bytes_moved = float(n_pages) * float(page_bytes)
+    us = hops * (link.latency_us(axis)
+                 + bytes_moved / link.bytes_per_us(axis))
+    return us / 1e3
+
+
+@dataclass
+class MigrationRecord:
+    """One in-flight request's complete portable state: everything a
+    destination engine needs to resume decode at the same
+    ``cache_position`` with bitwise-identical outputs (live KV
+    migration: the cross-*replica* sibling of the cross-pool
+    :class:`HandoffRecord`).
+
+    ``kslab``/``vslab`` are the live pages' K/V contents gathered by
+    the warmup-compiled export program, trimmed to ``live_pages``
+    (shape ``(layers, live_pages, kv_heads, page_size, head_dim)``,
+    host numpy — they ship as the raw binary segment of an RPC frame).
+    Quantized (int8) pools additionally carry
+    ``kscale_slab``/``vscale_slab`` — the per-token-row fp32 scales,
+    shape ``(layers, live_pages, kv_heads, page_size, scale_blocks)``
+    — so migrated pages stay int8 on the wire and the destination
+    scatters payload + scales as one leaf-generic import. An fp-pool
+    record leaves them None; the destination engine rejects any
+    payload/scale combination its own pool geometry can't hold.
+    Resume is bitwise because sampling keys derive from
+    ``(request seed, absolute position)`` — never from batch
+    composition or wall clock — and clocks are shipped as *elapsed*
+    durations (``elapsed_ms`` since submit, ``queue_wait_ms``,
+    ``ttft_ms``), not absolute host times, because source and
+    destination perf counters share no epoch.
+    """
+    uid: int
+    prompt: List[int]
+    max_new_tokens: int
+    temperature: float
+    seed: int
+    eos_id: Optional[int]
+    priority: int
+    position: int                 # next write position (cache rows
+    pending_tok: int              # 0..position-1 are live content)
+    tokens: List[int]             # generated so far (incl. pending)
+    live_pages: int               # pages with real content
+    page_bytes: int               # source pool page size (pricing)
+    ttft_ms: Optional[float]
+    queue_wait_ms: float
+    elapsed_ms: float             # clock() - t_submit at export time
+    draft_proposed: int = 0
+    draft_accepted: int = 0
+    weight_version: Optional[str] = None
+    # distributed-trace context: the router-stamped trace id
+    # and the hop ordinal AT EXPORT TIME ride the record so the
+    # destination's ``serve_migrate_in`` row (hop + 1) links to the
+    # source's ``serve_migrate_out`` — request lineage survives replica
+    # death. Durations-not-absolute-times doctrine unchanged: trace ids
+    # are opaque strings, alignment stays in ``clock_sync`` rows.
+    trace_id: Optional[str] = None
+    hop: int = 0
+    kslab: Optional[object] = None    # numpy (layers, live, kvh, ps, hd)
+    vslab: Optional[object] = None
+    kscale_slab: Optional[object] = None  # fp32 (layers, live, kvh, ps, nb)
+    vscale_slab: Optional[object] = None  # (int8 pools only)
+
+    def to_header(self) -> Dict:
+        """The JSON-able half (slabs ride the frame's binary segment —
+        see rpc.migration_to_wire)."""
+        return {
+            "uid": self.uid, "prompt": list(self.prompt),
+            "max_new_tokens": self.max_new_tokens,
+            "temperature": self.temperature, "seed": self.seed,
+            "eos_id": self.eos_id, "priority": self.priority,
+            "position": self.position, "pending_tok": self.pending_tok,
+            "tokens": list(self.tokens),
+            "live_pages": self.live_pages,
+            "page_bytes": self.page_bytes, "ttft_ms": self.ttft_ms,
+            "queue_wait_ms": self.queue_wait_ms,
+            "elapsed_ms": self.elapsed_ms,
+            "draft_proposed": self.draft_proposed,
+            "draft_accepted": self.draft_accepted,
+            "weight_version": self.weight_version,
+            "trace_id": self.trace_id, "hop": self.hop,
+        }
+
+    @property
+    def nbytes(self) -> int:
+        return sum(int(getattr(s, "nbytes", 0)) for s in (
+            self.kslab, self.vslab, self.kscale_slab, self.vscale_slab))
+
+
+class DispatchTrace:
+    """The interleaving trace of device dispatches under disaggregated
+    serving: (step, kind) per dispatch, kind in {"decode", "verify",
+    "prefill", "handoff", "chunk"}. The structural serving guarantee —
+    no decode dispatch ever waits behind a prefill dispatch — is
+    checkable as pure ordering: within every step, all decode/verify
+    ordinals precede all prefill ordinals (the engine's disagg step
+    runs its decode phase first; chunked prefill slips its at-most-one
+    "chunk" dispatch between them, after every decode of the step).
+    Bounded (ring of ``cap`` entries) so a serving daemon can leave it
+    on."""
+
+    DECODE_KINDS = ("decode", "verify", "handoff")
+
+    def __init__(self, cap: int = 4096):
+        self.cap = int(cap)
+        self._rows: List[Tuple[int, str]] = []
+        self.total = 0
+
+    def record(self, step: int, kind: str) -> None:
+        self._rows.append((int(step), str(kind)))
+        self.total += 1
+        if len(self._rows) > self.cap:
+            del self._rows[:len(self._rows) - self.cap]
+
+    def rows(self) -> List[Tuple[int, str]]:
+        return list(self._rows)
+
+    def decode_first_fraction(self) -> Optional[float]:
+        """Fraction of traced steps where every decode-phase dispatch
+        precedes every prefill dispatch of the same step (1.0 = the
+        never-blocked-behind-prefill pin holds; None = no step mixed
+        both phases, nothing to measure)."""
+        by_step: Dict[int, List[str]] = {}
+        for step, kind in self._rows:
+            by_step.setdefault(step, []).append(kind)
+        mixed = ok = 0
+        for kinds in by_step.values():
+            if "prefill" not in kinds or not any(
+                    k in self.DECODE_KINDS for k in kinds):
+                continue
+            mixed += 1
+            first_prefill = kinds.index("prefill")
+            if all(k == "prefill" for k in kinds[first_prefill:]):
+                ok += 1
+        return (ok / mixed) if mixed else None
+
+
+@dataclass
+class HandoffStats:
+    """Rolling same-process aggregates for ``debug_state()`` (the
+    event rows carry per-request detail; this is the cheap live
+    view)."""
+    count: int = 0
+    queue_ms_sum: float = 0.0
+    transfer_ms_sum: float = 0.0
+    bytes_moved: int = 0
+    pages_moved: int = 0
+
+    def record(self, queue_ms: float, transfer_ms: float,
+               pages: int, nbytes: int) -> None:
+        self.count += 1
+        self.queue_ms_sum += queue_ms
+        self.transfer_ms_sum += transfer_ms
+        self.pages_moved += pages
+        self.bytes_moved += nbytes
+
+    def snapshot(self) -> Dict[str, float]:
+        n = max(self.count, 1)
+        return {"handoffs": self.count,
+                "queue_ms_mean": round(self.queue_ms_sum / n, 3),
+                "transfer_ms_mean": round(self.transfer_ms_sum / n, 3),
+                "pages_moved": self.pages_moved,
+                "bytes_moved": self.bytes_moved}

@@ -32,6 +32,20 @@ families).
   in ``chunk_tokens`` slices, at most one chunk dispatch per step after
   the decode; prompts past the largest prompt bucket are served only
   this way.
+- **Disaggregated prefill/decode** (``inference.disagg``): a completed
+  prefill parks its first token in a handoff queue
+  (``inference/disagg.py``) and the decode phase, which runs first in
+  every step, claims it: a host bookkeeping move over a shared pool, or
+  over separate pools an export/import of the live prompt pages (the
+  ``handoff_export`` / ``handoff_import`` programs), priced by a link
+  model.
+- **int8-resident weights** (``inference.quantize_weights: "int8"``):
+  the matmul weights and embeddings stay int8 with per-block fp32 scales
+  (``runtime/quantized_params.py``) and every program dequantizes them
+  at each use; ``"bf16"`` (or ``True``) quantizes only the weights
+  :meth:`InferenceEngine.from_checkpoint` ships.
+- **Dense slot cache** (``paged_kv.enabled: false``): one ``max_len``
+  row per slot plus a scratch row, the JAX package's parity baseline.
 - **From a training tag.** :meth:`InferenceEngine.from_checkpoint` serves
   the ``model_states`` group of a committed tag (of either package), and
   :meth:`InferenceEngine.swap_params` moves a running engine to a newer
@@ -39,21 +53,21 @@ families).
 
 The programs form a fixed set (``inference/programs.py``): one per
 prefill (batch bucket, prompt bucket), decode table width, verify width
-and chunk batch bucket, each captured as a CUDA graph at :meth:`warmup`
-and replayed at every dispatch; :attr:`steady_state_recompiles` counts
+and chunk batch bucket, and the two handoff programs, each captured as
+a CUDA graph at :meth:`warmup` and replayed at every dispatch; :attr:`steady_state_recompiles` counts
 the programs first built after warmup, as the JAX engine counts
 compiles. Where the JAX engine donates the cache to each compiled
 program, the port's programs update the pool tensors in place
 (``models/gpt2.write_paged_kv_cache``), and a weight swap copies into
 the live parameter tensors, whose addresses the graphs hold.
-Configurations outside this slice raise ``NotImplementedError`` naming
-the JAX feature.
+A serving mesh (``inference.mesh``, ``disagg.decode_mesh``) raises
+``NotImplementedError`` naming the JAX feature.
 """
 
 import functools
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,9 +75,17 @@ import torch
 from deepspeed_tpu_torch.inference.buckets import (chunk_warmup_plan,
                                                    pad_prompts, pick_bucket,
                                                    warmup_plan)
+from deepspeed_tpu_torch.inference.disagg import (DispatchTrace,
+                                                  HandoffQueue,
+                                                  HandoffRecord,
+                                                  HandoffStats,
+                                                  price_handoff)
 from deepspeed_tpu_torch.inference.draft import make_drafter
 from deepspeed_tpu_torch.inference.kv_cache import (PageAllocator,
+                                                    cache_spec_for,
+                                                    init_kv_cache,
                                                     init_paged_kv_cache,
+                                                    kv_cache_bytes,
                                                     paged_kv_bytes,
                                                     paged_spec_for,
                                                     pages_for)
@@ -81,6 +103,9 @@ from deepspeed_tpu_torch.models.llama import (LlamaConfig,
 from deepspeed_tpu_torch.ops.attention.paged import NEG_INF
 from deepspeed_tpu_torch.runtime import checkpoint as ckptlib
 from deepspeed_tpu_torch.runtime import fault
+from deepspeed_tpu_torch.runtime.quantized_params import (
+    QuantizedParam, dequantize_param_tree, is_quantized_tree,
+    quantize_param_tree, quantized_tree_bytes)
 from deepspeed_tpu_torch.profiling.spans import (ChromeTraceRecorder,
                                                  trace_span)
 from deepspeed_tpu_torch.runtime.config import (get_inference_config,
@@ -89,7 +114,7 @@ from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.monitor import (TensorBoardMonitor,
                                                _JsonlWriter)
 
-__all__ = ["InferenceEngine"]
+__all__ = ["InferenceEngine", "LinkModel", "qwz_distribute_params"]
 
 # engine-local name of each decode attention path; the config keeps the
 # JAX schema's values ("pallas" selects the paged-decode kernel)
@@ -158,22 +183,55 @@ def _resolve_committed_tag(load_dir: str, tag: Optional[str],
 
 
 def _refuse_unported(cfg: Dict[str, Any]) -> None:
-    pk = cfg["paged_kv"]
     unported = [
-        (not pk["enabled"], "inference.paged_kv.enabled: false (the dense "
-         "slot x max_len KV cache)"),
         (bool(cfg["mesh"]["axes"]), "inference.mesh (tensor-parallel "
          "serving over a device mesh)"),
-        (cfg["disagg"]["enabled"], "inference.disagg (disaggregated "
-         "prefill/decode)"),
-        (bool(cfg["quantize_weights"]), "inference.quantize_weights (qwZ "
-         "int8 weights)"),
+        (bool(cfg["disagg"]["decode_mesh"]["axes"]),
+         "inference.disagg.decode_mesh (decode workers on a mesh of their "
+         "own)"),
     ]
     for hit, what in unported:
         if hit:
             raise NotImplementedError(
                 f"{what} is a feature of the JAX engine that the port does "
                 f"not serve yet")
+
+
+class LinkModel(NamedTuple):
+    """The per-axis latency and bandwidth terms that price a handoff
+    (``inference.disagg.price_handoff``): the defaults of the JAX
+    package's ``runtime/comm_autotune.LinkModel``, which a disaggregated
+    engine builds as they stand."""
+    intra_gbps: float = 75.0
+    inter_gbps: float = 12.5
+    intra_latency_us: float = 1.0
+    inter_latency_us: float = 10.0
+
+    def bytes_per_us(self, axis: str) -> float:
+        gbps = self.intra_gbps if axis == "intra" else self.inter_gbps
+        return gbps * 1e9 / 8 / 1e6       # GBit/s -> bytes/us
+
+    def latency_us(self, axis: str) -> float:
+        return (self.intra_latency_us if axis == "intra"
+                else self.inter_latency_us)
+
+
+def qwz_distribute_params(params, block: int = 256, resident: str = "bf16"):
+    """Ship params through the qwZ int8 block format: every floating
+    leaf of two or more dims crosses as int8 blocks and fp32 scales.
+    ``resident`` picks what the engine keeps: ``"bf16"`` dequantizes
+    back to each leaf's own dtype at once (the saving is on the wire
+    only), ``"int8"`` keeps the blocks and scales as the live weights
+    (a tree of ``QuantizedParam`` leaves), which the programs dequantize
+    at each use. 1-D leaves (biases, norms) stay dense either way."""
+    qtree = quantize_param_tree(params, block)
+    if resident == "int8":
+        return qtree
+    if resident != "bf16":
+        raise ValueError(
+            f"qwz_distribute_params resident must be 'bf16' or 'int8', "
+            f"got {resident!r}")
+    return dequantize_param_tree(qtree)
 
 
 class InferenceEngine:
@@ -201,6 +259,7 @@ class InferenceEngine:
 
         self.num_slots = cfg["max_batch_size"]
         self._rows = self.num_slots + 1          # +1 scratch row
+        self._scratch = self.num_slots
         max_len = min(cfg["max_seq_len"],
                       model_config.max_position_embeddings)
         if max_len < cfg["max_seq_len"]:
@@ -252,8 +311,24 @@ class InferenceEngine:
             self._verify_widths = tuple(sorted(set(widths)))
             self._drafter = make_drafter(sd, draft_fn)
 
+        # -------------------------------------- int8-resident weights
+        # quantize_weights: False | "bf16" (wire only: from_checkpoint
+        # ships the weights quantized) | "int8" (the qwZ blocks and
+        # scales stay the live weights; the programs dequantize them at
+        # each use, models/gpt2._wd)
+        qw = cfg["quantize_weights"]
+        self.weights_resident = "int8" if qw == "int8" else (
+            "bf16" if qw else "off")
+        self._weight_block = int(cfg["quantize_block"])
+        if qw == "int8":
+            # a tree from_checkpoint already quantized passes through
+            params = quantize_param_tree(params, self._weight_block)
         self.params = self._place_params(params)
-        self._head_w = tied_head_weight(self.params[head_leaf], dtype)
+        # the LM head's fp32 operand, made once over dense weights; an
+        # int8-resident head is dequantized inside each program
+        self._head_w = None if isinstance(self.params[head_leaf],
+                                          QuantizedParam) else \
+            tied_head_weight(self.params[head_leaf], dtype)
         self._trunk = make_trunk(model_config, max_len, self.device)
         # an offline quantized-vs-fp probe's max logit error, recorded by
         # record_quant_logit_err: serving itself never pays for an oracle
@@ -291,31 +366,101 @@ class InferenceEngine:
         # served prefill batches by "<batch bucket>x<prompt bucket>"
         self.prefill_shapes: Dict[str, int] = {}
 
+        # ------------------------------------------ disaggregation
+        dg = cfg["disagg"]
+        self.disagg = bool(dg["enabled"])
+        # a distinct decode mesh would force separate pools; it is
+        # refused above, so only the config's own choice counts
+        self._separate_pools = bool(self.disagg and dg["separate_pools"])
+        self._handoff_q = HandoffQueue() if self.disagg else None
+        self._handoff_stats = HandoffStats() if self.disagg else None
+        # chunked engines keep the trace too: the TBT bound is the
+        # ordering pin "at most one chunk dispatch per step, after every
+        # decode of that step"
+        self._dispatch_trace = DispatchTrace() \
+            if (self.disagg or self.chunked) else None
+        self._link = LinkModel() if self._separate_pools else None
+        if self._separate_pools:
+            self.dispatches.update(handoff_export=0, handoff_import=0)
+            self.dispatch_secs.update(handoff_export=0.0,
+                                      handoff_import=0.0)
+
         # ------------------------------------------------- KV cache
         pk = cfg["paged_kv"]
-        ps = pk["page_size"]
-        num_pages = pk["num_pages"] or (
-            self.num_slots * pages_for(max_len, ps) + 1)
-        kv_dtype = {"bf16": torch.bfloat16, "int8": torch.int8}.get(
-            pk["kv_dtype"], dtype)
-        self.paged_spec = paged_spec_for(
-            model_config, num_pages, ps, max_len, dtype=kv_dtype,
-            kv_quant_block=pk["kv_quant_block"])
-        self._cache = init_paged_kv_cache(self.paged_spec, self.device)
-        cache_bytes = paged_kv_bytes(self.paged_spec)
-        # static pool cost per token of capacity, scales included
-        self._kv_bpt = cache_bytes / float(num_pages * ps)
-        allocator = PageAllocator(num_pages, ps,
-                                  prefix_cache=pk["prefix_cache"])
-        self._decode_attn_path = _ATTN_PATHS[pk["attn_kernel"]]
-        pps = self.paged_spec.pages_per_seq
-        self._decode_page_buckets = tuple(
-            int(b) for b in pk["decode_page_buckets"] if b < pps) + (pps,)
+        self.paged = bool(pk["enabled"])
+        allocator = admit_allocator = None
+        self._decode_attn_path = "gather"
+        self._decode_page_buckets = ()
+        self.paged_spec = self.paged_spec_prefill = self.cache_spec = None
+        self._cache_prefill = None
+        self._page_bytes = 0
+        if self.paged:
+            ps = pk["page_size"]
+            num_pages = pk["num_pages"] or (
+                self.num_slots * pages_for(max_len, ps) + 1)
+            kv_dtype = {"bf16": torch.bfloat16, "int8": torch.int8}.get(
+                pk["kv_dtype"], dtype)
+            self.paged_spec = paged_spec_for(
+                model_config, num_pages, ps, max_len, dtype=kv_dtype,
+                kv_quant_block=pk["kv_quant_block"])
+            self._cache = init_paged_kv_cache(self.paged_spec, self.device)
+            cache_bytes = paged_kv_bytes(self.paged_spec)
+            self._page_bytes = cache_bytes // num_pages
+            # static pool cost per token of capacity, scales included
+            self._kv_bpt = cache_bytes / float(num_pages * ps)
+            allocator = PageAllocator(num_pages, ps,
+                                      prefix_cache=pk["prefix_cache"])
+            if self._separate_pools:
+                # the prefill side's own pool, prompts only (a request's
+                # decode pages are reserved from the main pool at its
+                # claim); it holds the prefix cache. Chunked prefill keeps
+                # whole long prompts here until the last chunk hands off,
+                # so the pool and the handoff width are sized by max_len
+                max_prompt = max_len if self.chunked \
+                    else max(cfg["prompt_buckets"])
+                ppages = dg["prefill_pages"] or (
+                    self.num_slots * pages_for(max_prompt, ps) + 1)
+                self.paged_spec_prefill = paged_spec_for(
+                    model_config, ppages, ps, max_prompt, dtype=kv_dtype,
+                    kv_quant_block=pk["kv_quant_block"])
+                self._cache_prefill = init_paged_kv_cache(
+                    self.paged_spec_prefill, self.device)
+                admit_allocator = PageAllocator(
+                    ppages, ps, prefix_cache=pk["prefix_cache"])
+                cache_bytes += paged_kv_bytes(self.paged_spec_prefill)
+            self._decode_attn_path = _ATTN_PATHS[pk["attn_kernel"]]
+            pps = self.paged_spec.pages_per_seq
+            self._decode_page_buckets = tuple(
+                int(b) for b in pk["decode_page_buckets"] if b < pps) + \
+                (pps,)
+        else:
+            self.cache_spec = cache_spec_for(model_config, self._rows,
+                                             max_len, dtype=dtype)
+            self._cache = init_kv_cache(self.cache_spec, self.device)
+            cache_bytes = kv_cache_bytes(self.cache_spec)
+            self._kv_bpt = cache_bytes / float(self._rows * max_len)
+        # pages_per_seq of the pool the prefill program scatters into
+        self._prefill_pps = 0 if not self.paged else (
+            self.paged_spec_prefill.pages_per_seq if self._separate_pools
+            else self.paged_spec.pages_per_seq)
+        # the width of one handoff migration: every live prompt page fits
+        # and pad entries (0) land in the null page, so the shape stays
+        # static; the slab the pages cross in is allocated once
+        self._handoff_width = self._prefill_pps \
+            if self._separate_pools else 0
+        self._slab = None
+        if self._separate_pools:
+            self._slab = tuple(
+                torch.empty((c.shape[0], self._handoff_width)
+                            + tuple(c.shape[2:]), dtype=c.dtype,
+                            device=self.device)
+                for c in self._cache_prefill)
         self.scheduler = Scheduler(self.num_slots, cfg["prompt_buckets"],
                                    cfg["batch_buckets"], max_len,
                                    allocator=allocator,
                                    lookahead=cfg["admit_lookahead"],
                                    tracer=self._tracer,
+                                   admit_allocator=admit_allocator,
                                    drafter=self._drafter,
                                    spec_k=self._spec_k,
                                    chunk_tokens=self._chunk_tokens)
@@ -323,15 +468,16 @@ class InferenceEngine:
         self._weight_ordinal = 0
         self.scheduler.weight_version = self._weight_version
 
-        logger.info(
-            f"inference decode attention: {self._decode_attn_path} "
-            f"(configured {pk['attn_kernel']!r}; page walk widths "
-            f"{list(self._decode_page_buckets)})")
-        if self._log is not None:
-            self._log.add_event(
-                "decode_attn_path", path=self._decode_attn_path,
-                reason="configured", requested=pk["attn_kernel"],
-                decode_page_buckets=list(self._decode_page_buckets))
+        if self.paged:
+            logger.info(
+                f"inference decode attention: {self._decode_attn_path} "
+                f"(configured {pk['attn_kernel']!r}; page walk widths "
+                f"{list(self._decode_page_buckets)})")
+            if self._log is not None:
+                self._log.add_event(
+                    "decode_attn_path", path=self._decode_attn_path,
+                    reason="configured", requested=pk["attn_kernel"],
+                    decode_page_buckets=list(self._decode_page_buckets))
         if self.chunked and self._cp_threshold > 0:
             logger.info(f"inference context-parallel prefill: off "
                         f"({self._cp_reason}; threshold "
@@ -348,15 +494,25 @@ class InferenceEngine:
                       f"({type(self._drafter).__name__})")
         if self.chunked:
             notes += f", chunked prefill {self._chunk_tokens} tokens"
+        if self.disagg:
+            notes += (", disagg (separate pools)" if self._separate_pools
+                      else ", disagg (shared pool)")
+        if qw:
+            notes += f", weights {self.weights_resident}-resident"
+        if self.paged:
+            geom = (f"paged KV cache: {self.paged_spec.num_pages} pages x "
+                    f"{self.paged_spec.page_size} tokens "
+                    f"({cache_bytes / 2**20:.1f} MiB, {self.paged_spec.dtype}"
+                    f"{' + fp32 scales' if self.paged_spec.quantized else ''}"
+                    f"), prefix cache "
+                    f"{'on' if pk['prefix_cache'] else 'off'}")
+        else:
+            geom = f"dense KV cache {cache_bytes / 2**20:.1f} MiB"
         logger.info(
             f"inference engine: {self.family} on {self.device}, "
             f"{self.num_slots} slots, max_len {max_len}, prompt buckets "
             f"{cfg['prompt_buckets']}, batch buckets {cfg['batch_buckets']}, "
-            f"paged KV cache: {num_pages} pages x {ps} tokens "
-            f"({cache_bytes / 2**20:.1f} MiB, {kv_dtype}"
-            f"{' + fp32 scales' if self.paged_spec.quantized else ''}), "
-            f"prefix cache "
-            f"{'on' if pk['prefix_cache'] else 'off'}{notes}")
+            f"{geom}{notes}")
 
     def _place_params(self, params) -> Dict[str, Any]:
         """Params on the engine's device. The block matmul weights and
@@ -364,11 +520,14 @@ class InferenceEngine:
         casts the same fp32 values at every use, so the operands are
         identical. Embeddings, an untied ``lm_head`` and the norm
         parameters stay as given, since the JAX model reads them in
-        fp32. Blocks come as one ``h_{i}`` per block or stacked under
-        ``h``."""
+        fp32. An int8-resident leaf (``QuantizedParam``) moves as it is:
+        it is dequantized at each use. Blocks come as one ``h_{i}`` per
+        block or stacked under ``h``."""
         def place(tree, cast):
             if isinstance(tree, dict):
                 return {k: place(v, cast) for k, v in tree.items()}
+            if isinstance(tree, QuantizedParam):
+                return tree.to(self.device)
             t = torch.as_tensor(tree)
             return t.to(self.device, dtype=self.dtype) if cast else \
                 t.to(self.device)
@@ -409,6 +568,43 @@ class InferenceEngine:
                 out[r] = torch.multinomial(probs[j], 1, generator=gen)[0]
         return out.cpu().numpy().astype(np.int32)
 
+    def _head(self) -> torch.Tensor:
+        """The LM head's fp32 operand: made once over dense weights,
+        dequantized here, inside the program, over int8-resident ones."""
+        if self._head_w is not None:
+            return self._head_w
+        return tied_head_weight(self.params[self._head_leaf], self.dtype)
+
+    def _prefill_impl(self, ids, lengths, slots) -> torch.Tensor:
+        """The dense prefill program's body: the padded prompt batch runs
+        through the cached forward against a fresh (bucket-batch-sized)
+        cache from position 0, whose rows then scatter into the slot
+        cache at ``slots`` (pad rows target the scratch row). Returns
+        the fp32 logits of each row's last true prompt position."""
+        spec = self.cache_spec
+        bb = ids.shape[0]
+        shape = (spec.num_layers, bb) + spec.shape[2:]
+        tmp = tuple(torch.zeros(shape, dtype=spec.dtype, device=ids.device)
+                    for _ in range(2))
+        x = self._trunk(self.params, self.model_config, ids, tmp,
+                        torch.zeros((bb,), dtype=torch.int32,
+                                    device=ids.device),
+                        self.dtype, None)
+        rows = slots.long()
+        for c, t in zip(self._cache, tmp):
+            c[:, rows] = t
+        last = x[torch.arange(bb, device=ids.device), lengths.long() - 1]
+        return _tied_logits(last, self._head(), self.dtype)
+
+    def _decode_impl(self, toks, positions) -> torch.Tensor:
+        """The dense decode program's body: one step over the whole slot
+        table, each slot's pending token written at its own position and
+        attention over its whole ``max_len`` row. Inactive rows compute
+        logits the host discards. Returns (rows, vocab) fp32 logits."""
+        x = self._trunk(self.params, self.model_config, toks[:, None],
+                        self._cache, positions, self.dtype, None)
+        return _tied_logits(x[:, 0], self._head(), self.dtype)
+
     def _prefill_paged_impl(self, ids, lengths, positions,
                             tables) -> torch.Tensor:
         """The prefill program's body, over its static device inputs:
@@ -419,13 +615,15 @@ class InferenceEngine:
         so their writes land in the null page). Returns the fp32 logits
         of each row's last true prompt position; the LM head runs on
         those rows only. A chunk dispatch is this body at ids shape
-        (batch bucket, chunk_tokens)."""
-        x = self._trunk(self.params, self.model_config, ids, self._cache,
+        (batch bucket, chunk_tokens). With separate pools the prompt's
+        K/V go into the prefill side's pool."""
+        cache = self._cache_prefill if self._separate_pools else self._cache
+        x = self._trunk(self.params, self.model_config, ids, cache,
                         positions, self.dtype, tables,
                         self._decode_attn_path)
         last = x[torch.arange(ids.shape[0], device=ids.device),
                  lengths.long() - 1]
-        return _tied_logits(last, self._head_w, self.dtype)
+        return _tied_logits(last, self._head(), self.dtype)
 
     def _decode_paged_impl(self, toks, positions, tables) -> torch.Tensor:
         """The decode program's body: one paged decode step over the full
@@ -438,7 +636,7 @@ class InferenceEngine:
         x = self._trunk(self.params, self.model_config, toks[:, None],
                         self._cache, positions, self.dtype, tables,
                         self._decode_attn_path)
-        return _tied_logits(x[:, 0], self._head_w, self.dtype)
+        return _tied_logits(x[:, 0], self._head(), self.dtype)
 
     def _verify_paged_impl(self, toks, positions, tables) -> torch.Tensor:
         """The verify program's body: ``toks[i] = [pending, d_1 ..
@@ -456,7 +654,24 @@ class InferenceEngine:
         x = self._trunk(self.params, self.model_config, toks, self._cache,
                         positions, self.dtype, tables,
                         self._decode_attn_path)
-        return _tied_logits(x.reshape(B * V, -1), self._head_w, self.dtype)
+        return _tied_logits(x.reshape(B * V, -1), self._head(), self.dtype)
+
+    def _export_pages_impl(self, idx) -> torch.Tensor:
+        """The ``handoff_export`` program's body: gather ``idx``'s pages
+        (a request's live prompt pages, padded with the null page) out
+        of the prefill pool into the slab, leaf by leaf, so an int8
+        pool's scale pools ride along. The pool keeps serving."""
+        for c, s in zip(self._cache_prefill, self._slab):
+            torch.index_select(c, 1, idx.long(), out=s)
+        return self._slab[0]
+
+    def _import_pages_impl(self, idx) -> torch.Tensor:
+        """The ``handoff_import`` program's body: scatter the slab into
+        the decode pool at ``idx`` (pad entries land in the null page),
+        in place."""
+        for c, s in zip(self._cache, self._slab):
+            c.index_copy_(1, idx.long(), s)
+        return self._cache[0]
 
     # ----------------------------------------------------------- serving
     def submit(self, request: Request) -> int:
@@ -464,15 +679,35 @@ class InferenceEngine:
         admission)."""
         return self.scheduler.submit(request)
 
+    def cancel(self, uid: int, reason: str = "evicted"
+               ) -> Optional[FinishedRequest]:
+        """Evict ``uid``, queued or in flight: its pages free at once, a
+        ``serve_evict`` row lands in the trail, and the returned
+        FinishedRequest carries ``ttft_ms=None`` when no first token was
+        released. None for an unknown or finished uid. Call between
+        :meth:`step` calls. Under disaggregation a request whose prefill
+        is done may wait in the handoff queue: its record is taken out
+        and counted ``dropped`` first, so the queue never holds it after
+        its slot is gone."""
+        if self._handoff_q is not None:
+            rec = self._handoff_q.pop(uid)
+            if rec is not None:
+                self._handoff_q.dropped(rec)
+        return self.scheduler.evict(uid, reason=reason)
+
     def _program(self, name: str, *shape):
         """(key, body) of a dispatch: a chunk at a prefill shape is that
         prefill program, as one jit serves both in the JAX engine."""
         if name == "chunk" and shape[1] in self.config["prompt_buckets"]:
             name = "prefill"
-        body = {"prefill": self._prefill_paged_impl,
+        body = {"prefill": self._prefill_paged_impl if self.paged
+                else self._prefill_impl,
                 "chunk": self._prefill_paged_impl,
-                "decode": self._decode_paged_impl,
-                "verify": self._verify_paged_impl}[name]
+                "decode": self._decode_paged_impl if self.paged
+                else self._decode_impl,
+                "verify": self._verify_paged_impl,
+                "handoff_export": self._export_pages_impl,
+                "handoff_import": self._import_pages_impl}[name]
         return (name,) + tuple(int(d) for d in shape), body
 
     def _dispatch(self, name: str, shape, host: Dict[str, np.ndarray],
@@ -489,16 +724,28 @@ class InferenceEngine:
         self.dispatches[name] += 1
         return out
 
+    def _run_handoff(self, name: str, idx: np.ndarray) -> None:
+        """One ``handoff_export`` or ``handoff_import`` dispatch over the
+        page indices ``idx`` (no sampling follows it)."""
+        t0 = time.perf_counter()
+        key, body = self._program(name, self._handoff_width)
+        self.programs.dispatch(key, body, {"idx": idx})
+        self.dispatch_secs[name] += time.perf_counter() - t0
+        self.dispatches[name] += 1
+
     def _prefill_host(self, bb: int, width: int):
         """Zeroed host inputs of a prefill or chunk dispatch of ``bb``
-        rows of ``width`` tokens (lengths 1, all-null full-width tables)
+        rows of ``width`` tokens (lengths 1; paged: all-null tables of
+        the prefill pool's width; dense: every row at the scratch slot)
         and its sampling arrays."""
-        pps = self.paged_spec.pages_per_seq
-        return ({"ids": np.zeros((bb, width), np.int32),
-                 "lengths": np.ones((bb,), np.int32),
-                 "positions": np.zeros((bb,), np.int32),
-                 "tables": np.zeros((bb, pps), np.int32)},
-                np.zeros((bb,), np.int64), np.zeros((bb,), np.float32))
+        host = {"ids": np.zeros((bb, width), np.int32),
+                "lengths": np.ones((bb,), np.int32)}
+        if self.paged:
+            host["positions"] = np.zeros((bb,), np.int32)
+            host["tables"] = np.zeros((bb, self._prefill_pps), np.int32)
+        else:
+            host["slots"] = np.full((bb,), self._scratch, np.int32)
+        return host, np.zeros((bb,), np.int64), np.zeros((bb,), np.float32)
 
     def _run_prefill(self, batch) -> np.ndarray:
         bb = batch.batch_bucket
@@ -508,19 +755,26 @@ class InferenceEngine:
         for i, req in enumerate(batch.requests):
             seeds[i] = req.seed
             temps[i] = req.temperature
-        suffixes = [r.prompt[pl:] for r, pl in
-                    zip(batch.requests, batch.prefix_lens)]
-        host["ids"], host["lengths"] = pad_prompts(
-            suffixes, batch.prompt_bucket, bb)
-        for i, (pl, pages) in enumerate(zip(batch.prefix_lens,
-                                            batch.page_tables)):
-            host["positions"][i] = pl
-            host["tables"][i, :len(pages)] = pages
+        if self.paged:
+            suffixes = [r.prompt[pl:] for r, pl in
+                        zip(batch.requests, batch.prefix_lens)]
+            host["ids"], host["lengths"] = pad_prompts(
+                suffixes, batch.prompt_bucket, bb)
+            for i, (pl, pages) in enumerate(zip(batch.prefix_lens,
+                                                batch.page_tables)):
+                host["positions"][i] = pl
+                host["tables"][i, :len(pages)] = pages
+            sample_pos = host["positions"] + host["lengths"]
+        else:
+            host["ids"], host["lengths"] = pad_prompts(
+                [r.prompt for r in batch.requests], batch.prompt_bucket, bb)
+            host["slots"][:len(batch.slot_ids)] = batch.slot_ids
+            sample_pos = host["lengths"]
         with trace_span("serve/prefill", recorder=self._recorder,
                         batch=bb, prompt=batch.prompt_bucket):
             return self._dispatch(
                 "prefill", (bb, batch.prompt_bucket), host, seeds,
-                host["positions"] + host["lengths"], temps)
+                sample_pos, temps)
 
     def _drain_request_metrics(self):
         """Per-admitted-request scalar writes (TTFT / queue wait) pulled
@@ -534,22 +788,40 @@ class InferenceEngine:
                 queue_wait_ms=qwait, tokens=sched.total_tokens,
                 flush=False)
 
+    def _hand_off(self, sid: int, req, first: int, now: float) -> None:
+        """Park a completed prefill's first token in the handoff queue:
+        the decode phase claims it, so TTFT includes the handoff."""
+        self._handoff_q.push(HandoffRecord(
+            uid=req.uid, slot=sid, first_token=first,
+            live_pages=pages_for(len(req.prompt),
+                                 self.paged_spec.page_size),
+            prompt_tokens=len(req.prompt), t_ready=now))
+
     def _prefill_phase(self, finished: List[FinishedRequest]) -> None:
-        """Admission + bucketed prefill dispatches; each first token is
-        released to its request at once."""
+        """Admission + bucketed prefill dispatches. Each first token is
+        released to its request at once, or under disaggregation parked
+        in the handoff queue for the decode phase to claim."""
         sched = self.scheduler
         t0 = time.perf_counter()
         for batch in sched.admit():
             t_p = time.perf_counter()
             first = self._run_prefill(batch)
             prefill_ms = (time.perf_counter() - t_p) * 1e3
+            if self._dispatch_trace is not None:
+                self._dispatch_trace.record(self._steps, "prefill")
             for sid, req in zip(batch.slot_ids, batch.requests):
                 self._tracer.on_prefill(
                     req.uid, sid, prefill_ms, batch.prompt_bucket,
                     batch.batch_bucket, len(batch.requests))
-            finished.extend(sched.record_tokens(
-                {sid: int(first[i])
-                 for i, sid in enumerate(batch.slot_ids)}))
+            if self.disagg:
+                now = time.perf_counter()
+                for i, (sid, req) in enumerate(zip(batch.slot_ids,
+                                                   batch.requests)):
+                    self._hand_off(sid, req, int(first[i]), now)
+            else:
+                finished.extend(sched.record_tokens(
+                    {sid: int(first[i])
+                     for i, sid in enumerate(batch.slot_ids)}))
             self._drain_request_metrics()
         self._serve_secs += time.perf_counter() - t0
 
@@ -594,12 +866,19 @@ class InferenceEngine:
                                    host["positions"] + host["lengths"],
                                    temps)
         wall_ms = (time.perf_counter() - t_c) * 1e3
+        if self._dispatch_trace is not None:
+            self._dispatch_trace.record(self._steps, "chunk")
         self._chunk_dispatches += 1
+        now = time.perf_counter()
         released: Dict[int, int] = {}
         for i, (sid, req, start, n, k) in enumerate(spans):
             self._tracer.on_prefill_chunk(req.uid, sid, k, n, wall_ms,
                                           cp_shards=1)
-            if sched.record_chunk(sid, n):
+            if not sched.record_chunk(sid, n):
+                continue                    # mid-prompt, keep chunking
+            if self.disagg:
+                self._hand_off(sid, req, int(first[i]), now)
+            else:
                 released[sid] = int(first[i])
         if released:
             finished.extend(sched.record_tokens(released))
@@ -607,6 +886,68 @@ class InferenceEngine:
             chunk_dispatches=self._chunk_dispatches,
             tokens=sched.total_tokens, flush=False)
         self._drain_request_metrics()
+        self._serve_secs += time.perf_counter() - t0
+
+    def _claim_phase(self, finished: List[FinishedRequest]) -> None:
+        """The decode side's intake under disaggregation: claim completed
+        prefills off the handoff queue in arrival order. Over a shared
+        pool the claim moves page ownership on the host only; over
+        separate pools it reserves the request's lifetime pages in the
+        decode pool and migrates only the live prompt pages (export,
+        import, then one synchronize per claim so the measured time
+        covers the copy), priced by the link model beside the measured
+        time. A claim the decode pool cannot fund yet goes back to the
+        front of the queue with a "handoff" defer. Each claim releases
+        the request's first token."""
+        sched = self.scheduler
+        q = self._handoff_q
+        tracer = self._tracer
+        t0 = time.perf_counter()
+        for rec in q.drain():
+            slot = sched.slots[rec.slot]
+            if slot is None or slot.request.uid != rec.uid:
+                q.dropped(rec)     # evicted while the handoff waited
+                continue
+            transfer_ms = priced = 0.0
+            pages = nbytes = 0
+            mode = "shared_pool"
+            if self._separate_pools:
+                req = slot.request
+                need = pages_for(len(req.prompt) + req.max_new_tokens,
+                                 self.paged_spec.page_size)
+                new_pages = sched.allocator.alloc(need)
+                if new_pages is None:
+                    q.requeue(rec)
+                    tracer.on_defer(rec.uid, "handoff")
+                    continue
+                mode = "migrate"
+                t_m = time.perf_counter()
+                src = np.zeros((self._handoff_width,), np.int32)
+                dst = np.zeros((self._handoff_width,), np.int32)
+                live = slot.pages[:rec.live_pages]
+                src[:len(live)] = live
+                dst[:len(live)] = new_pages[:len(live)]
+                self._run_handoff("handoff_export", src)
+                self._run_handoff("handoff_import", dst)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                transfer_ms = (time.perf_counter() - t_m) * 1e3
+                pages = len(live)
+                nbytes = pages * self._page_bytes
+                priced = price_handoff(pages, self._page_bytes, self._link,
+                                       axis="intra")
+                sched.adopt_pages(rec.slot, new_pages)
+                self._dispatch_trace.record(self._steps, "handoff")
+            queue_ms = q.claimed(rec)
+            tracer.on_handoff(rec.uid, queue_ms, transfer_ms, pages,
+                              nbytes, mode, priced)
+            self._handoff_stats.record(queue_ms, transfer_ms, pages, nbytes)
+            self.monitor.write_serving_metrics(
+                handoff_ms=queue_ms + transfer_ms,
+                tokens=sched.total_tokens, flush=False)
+            finished.extend(sched.record_tokens(
+                {rec.slot: rec.first_token}))
+            self._drain_request_metrics()
         self._serve_secs += time.perf_counter() - t0
 
     def _decode_phase(self, finished: List[FinishedRequest]) -> bool:
@@ -631,7 +972,7 @@ class InferenceEngine:
             temps_a[sid] = temp
             seeds_a[sid] = seed
         props: Dict[int, List[int]] = {}
-        if self.spec:
+        if self.spec and self.paged:
             props = sched.draft_proposals(
                 cap=max(self._verify_widths) - 1)
         spec_kw = {}
@@ -659,6 +1000,8 @@ class InferenceEngine:
                     {"toks": vt, "positions": poss_a, "tables": tables},
                     np.repeat(seeds_a, v), sample_pos.reshape(-1),
                     np.repeat(temps_a, v)).reshape(self._rows, v)
+            if self._dispatch_trace is not None:
+                self._dispatch_trace.record(self._steps, "verify")
             draft_stats = {}
             proposed_total = accepted_total = 0
             for sid in sids:
@@ -685,17 +1028,24 @@ class InferenceEngine:
         else:
             with trace_span("serve/decode", recorder=self._recorder,
                             active=len(sids)):
-                # the table width is the batch's live-page bucket: the
-                # gather path's stripe scales with tokens in flight too
-                width = pick_bucket(
-                    min(sched.max_live_pages(),
-                        self.paged_spec.pages_per_seq),
-                    self._decode_page_buckets)
-                tables = sched.block_table_rows(self._rows, width)
-                nxt = self._dispatch(
-                    "decode", (width,),
-                    {"toks": toks_a, "positions": poss_a, "tables": tables},
-                    seeds_a, poss_a + 1, temps_a)
+                if self.paged:
+                    # the table width is the batch's live-page bucket:
+                    # the gather path's stripe scales with tokens in
+                    # flight too
+                    width = pick_bucket(
+                        min(sched.max_live_pages(),
+                            self.paged_spec.pages_per_seq),
+                        self._decode_page_buckets)
+                    host = {"toks": toks_a, "positions": poss_a,
+                            "tables": sched.block_table_rows(self._rows,
+                                                             width)}
+                else:
+                    width = self.max_len
+                    host = {"toks": toks_a, "positions": poss_a}
+                nxt = self._dispatch("decode", (width,), host, seeds_a,
+                                     poss_a + 1, temps_a)
+            if self._dispatch_trace is not None:
+                self._dispatch_trace.record(self._steps, "decode")
             runs = {sid: [int(nxt[sid])] for sid in sids}
             if self.spec:
                 # speculation on, the drafter had nothing anywhere: the
@@ -708,8 +1058,18 @@ class InferenceEngine:
         self._serve_secs += time.perf_counter() - t0
         tps = (sched.total_tokens / self._serve_secs
                if self._serve_secs > 0 else 0.0)
-        alloc = sched.allocator
-        seen = alloc.prefix_hit_tokens + alloc.prefix_miss_tokens
+        paged_kw = {}
+        if self.paged:
+            hit = sched.admit_allocator       # holds the prefix cache
+            seen = hit.prefix_hit_tokens + hit.prefix_miss_tokens
+            paged_kw = dict(
+                kv_pages_in_use=sched.allocator.pages_in_use,
+                tokens_in_flight=sched.tokens_in_flight,
+                prefix_hit_rate=(hit.prefix_hit_tokens / seen
+                                 if seen else 0.0),
+                decode_attn_path=(1.0 if self._decode_attn_path == "kernel"
+                                  else 0.0),
+                kv_pool_bytes_per_token=self._kv_bpt)
         slo_kw = {}
         tracer = self._tracer
         if tracer.enabled:
@@ -727,27 +1087,29 @@ class InferenceEngine:
             token_latency_ms=tok_ms, tokens_per_sec=tps,
             queue_depth=sched.queue_depth, batch_occupancy=occupancy,
             tokens=sched.total_tokens, flush=False,
-            kv_pages_in_use=alloc.pages_in_use,
-            tokens_in_flight=sched.tokens_in_flight,
-            prefix_hit_rate=(alloc.prefix_hit_tokens / seen
-                             if seen else 0.0),
-            decode_attn_path=(1.0 if self._decode_attn_path == "kernel"
-                              else 0.0),
-            kv_pool_bytes_per_token=self._kv_bpt,
-            quant_logit_err=self.quant_logit_err, **slo_kw, **spec_kw)
+            quant_logit_err=self.quant_logit_err, **paged_kw, **slo_kw,
+            **spec_kw)
         return True
 
     def step(self) -> List[FinishedRequest]:
         """One serving iteration: admit waiting requests into free slots
         (bucketed prefill, first token released), then advance every
         in-flight sequence one decode (or speculative verify) dispatch.
-        Chunked prefill makes every step decode-first and slips at most
-        one chunk dispatch between the decode and admission phases:
-        decode -> chunk -> prefill. Returns requests that finished this
-        iteration."""
+        Disaggregated, the decode side runs first (handoff claims, then
+        the decode or verify dispatch) and the prefill side after it, so
+        no decode dispatch waits behind a prefill dispatch (pinned by
+        the dispatch trace). Chunked prefill makes every step
+        decode-first and slips at most one chunk dispatch between the
+        decode and admission phases: claim? -> decode -> chunk ->
+        prefill. Returns requests that finished this iteration."""
         finished: List[FinishedRequest] = []
         finished.extend(self.scheduler.drain_rejects())
-        if self.chunked:
+        if self.disagg:
+            self._claim_phase(finished)
+            self._decode_phase(finished)
+            self._chunk_phase(finished)
+            self._prefill_phase(finished)
+        elif self.chunked:
             self._decode_phase(finished)
             self._chunk_phase(finished)
             self._prefill_phase(finished)
@@ -797,20 +1159,21 @@ class InferenceEngine:
 
     def warmup(self) -> int:
         """Build the steady-state program set against scratch state (the
-        null page): one prefill per (batch bucket, prompt bucket), one
-        chunk per batch bucket with chunked prefill, one decode per
-        decode table width and one verify per verify width with
-        speculation. Each program runs once eagerly and, on the card, is
-        captured as a CUDA graph. Must run while no requests are in
-        flight; returns the number of programs, as the JAX engine
-        returns its compiles. After this, :attr:`steady_state_recompiles`
-        staying 0 is the serving contract."""
+        null page, or the dense cache's scratch row): one prefill per
+        (batch bucket, prompt bucket), one chunk per batch bucket with
+        chunked prefill, one decode per decode table width (one dense
+        decode), one verify per verify width with speculation and the
+        two handoff programs over separate pools. Each program runs once
+        eagerly and, on the card, is captured as a CUDA graph. Must run
+        while no requests are in flight; returns the number of programs,
+        as the JAX engine returns its compiles. After this,
+        :attr:`steady_state_recompiles` staying 0 is the serving
+        contract."""
         if not self.scheduler.idle():
             raise RuntimeError("warmup with requests in flight")
-        pps = self.paged_spec.pages_per_seq
         plan = [("prefill", bb, sb) for bb, sb in warmup_plan(
             self.config["batch_buckets"], self.config["prompt_buckets"])]
-        if self.chunked:
+        if self.chunked and self.paged:
             plan += [("chunk", bb, ct) for bb, ct in chunk_warmup_plan(
                 self.config["batch_buckets"], self._chunk_tokens)]
         for name, bb, width in plan:
@@ -819,13 +1182,19 @@ class InferenceEngine:
                            np.ones((bb,), np.int32), temps)
         rows = self._rows
         zeros = np.zeros((rows,), np.int32)
+        greedy = (np.zeros((rows,), np.int64), zeros,
+                  np.zeros((rows,), np.float32))
+        if not self.paged:
+            # every row at position 0: the live rows are empty at warmup
+            self._dispatch("decode", (self.max_len,),
+                           {"toks": zeros, "positions": zeros}, *greedy)
         for w in self._decode_page_buckets:
             self._dispatch("decode", (w,),
                            {"toks": zeros, "positions": zeros,
                             "tables": np.zeros((rows, w), np.int32)},
-                           np.zeros((rows,), np.int64), zeros,
-                           np.zeros((rows,), np.float32))
-        for v in self._verify_widths:
+                           *greedy)
+        for v in self._verify_widths if self.paged else ():
+            pps = self.paged_spec.pages_per_seq
             self._dispatch("verify", (v,),
                            {"toks": np.zeros((rows, v), np.int32),
                             "positions": zeros,
@@ -833,14 +1202,20 @@ class InferenceEngine:
                            np.zeros((rows * v,), np.int64),
                            np.zeros((rows * v,), np.int32),
                            np.zeros((rows * v,), np.float32))
+        if self._separate_pools:
+            # both handoff programs against the null page, so the first
+            # claim builds nothing on the clock
+            idx = np.zeros((self._handoff_width,), np.int32)
+            self._run_handoff("handoff_export", idx)
+            self._run_handoff("handoff_import", idx)
         programs = self.programs.mark_warm()
         if self._log is not None:
             self._log.add_event("serve_warmup", programs=programs,
                                 batch_buckets=self.config["batch_buckets"],
                                 prompt_buckets=self.config["prompt_buckets"],
-                                paged=True,
+                                paged=self.paged,
                                 verify_widths=list(self._verify_widths),
-                                disagg=False,
+                                disagg=self.disagg,
                                 chunk_tokens=self._chunk_tokens,
                                 cp_shards=self._cp_shards)
         return programs
@@ -890,22 +1265,24 @@ class InferenceEngine:
                         "compiles": self.programs.count(n),
                         "seconds": round(self.dispatch_secs[n], 6)}
                     for n, d in sorted(self.dispatches.items())}
-        pool = sched.allocator.debug_state()
-        used_tokens = pool["pages_in_use"] * pool["page_size"]
-        pool["tokens_in_flight"] = sched.tokens_in_flight
-        pool["internal_fragmentation"] = round(
-            1.0 - sched.tokens_in_flight / used_tokens, 4) \
-            if used_tokens else 0.0
-        pool["decode_attn_path"] = self._decode_attn_path
-        wbytes = sum(t.numel() * t.element_size()
-                     for sub in self.params.values()
-                     for t in _tensors(sub))
+        pool = None
+        if self.paged:
+            pool = sched.allocator.debug_state()
+            used_tokens = pool["pages_in_use"] * pool["page_size"]
+            pool["tokens_in_flight"] = sched.tokens_in_flight
+            pool["internal_fragmentation"] = round(
+                1.0 - sched.tokens_in_flight / used_tokens, 4) \
+                if used_tokens else 0.0
+            pool["decode_attn_path"] = self._decode_attn_path
+        wq, wd = quantized_tree_bytes(self.params)
+        kv_spec = self.paged_spec if self.paged else self.cache_spec
         quant = {
-            "weights_resident": "off",
-            "weight_bytes": wbytes,
-            "weight_bytes_dense": wbytes,
-            "kv_dtype": str(self.paged_spec.dtype).replace("torch.", ""),
-            "kv_quant_block": self.paged_spec.quant_block,
+            "weights_resident": self.weights_resident,
+            "weight_bytes": wq,
+            "weight_bytes_dense": wd,
+            "kv_dtype": str(kv_spec.dtype).replace("torch.", ""),
+            "kv_quant_block": (self.paged_spec.quant_block if self.paged
+                               else 0),
             "kv_pool_bytes_per_token": round(self._kv_bpt, 3),
             "quant_logit_err": self.quant_logit_err,
         }
@@ -932,6 +1309,16 @@ class InferenceEngine:
                 "verify_widths": list(self._verify_widths),
                 "drafter": type(self._drafter).__name__,
             }
+        if self.disagg:
+            dff = self._dispatch_trace.decode_first_fraction()
+            dg = {"separate_pools": self._separate_pools,
+                  "queue": self._handoff_q.debug_state(),
+                  "handoff": self._handoff_stats.snapshot(),
+                  "decode_first_fraction": (round(dff, 4)
+                                            if dff is not None else None)}
+            if self._separate_pools:
+                dg["prefill_pool"] = sched.admit_allocator.debug_state()
+            state["disagg"] = dg
         if self.chunked:
             state["chunked_prefill"] = {
                 "chunk_tokens": self._chunk_tokens,
@@ -967,14 +1354,31 @@ class InferenceEngine:
         template made on the ``meta`` device, so the weights are held
         once on the host; the constructor casts them to ``dtype``. With
         ``tag=None`` the newest committed and verified tag wins, corrupt
-        or uncommitted ones skipped."""
-        if quantize_weights:    # the rest of the config: the constructor
-            _refuse_unported(get_inference_config({"inference": dict(
-                inference_config or {}, quantize_weights=quantize_weights)}))
+        or uncommitted ones skipped. ``quantize_weights`` (default: the
+        config's ``inference.quantize_weights``; ``True`` is ``"bf16"``)
+        ships the weights through the qwZ int8 block format
+        (:func:`qwz_distribute_params`): ``"bf16"`` dequantizes them at
+        once, ``"int8"`` keeps them int8-resident."""
+        cfg = get_inference_config({"inference": dict(inference_config
+                                                      or {})})
         chosen = _resolve_committed_tag(load_dir, tag, verify_integrity)
         init = _family_of(model_config)[3]
         template = init(model_config, None, device="meta")
         params = ckptlib.load_params_only(chosen, template)
+        if quantize_weights is None:
+            quantize_weights = cfg["quantize_weights"]
+        elif quantize_weights is True:
+            quantize_weights = "bf16"
+        if quantize_weights:
+            params = qwz_distribute_params(params, cfg["quantize_block"],
+                                           resident=quantize_weights)
+            # the engine's view follows what shipped (an explicit
+            # argument overrides the config)
+            inference_config = dict(inference_config or {},
+                                    quantize_weights=quantize_weights)
+            logger.info(f"from_checkpoint: params distributed via qwZ int8 "
+                        f"(block {cfg['quantize_block']}, resident "
+                        f"{quantize_weights})")
         engine = cls(model_config, params, inference_config, dtype=dtype,
                      monitor=monitor,
                      observability_config=observability_config,
@@ -983,7 +1387,7 @@ class InferenceEngine:
         engine.scheduler.weight_version = engine._weight_version
         if engine._log is not None:
             engine._log.add_event("serve_load", checkpoint=chosen,
-                                  quantize_weights=False)
+                                  quantize_weights=quantize_weights or False)
         logger.info(f"inference engine loaded params from {chosen}")
         return engine
 
@@ -994,20 +1398,29 @@ class InferenceEngine:
         template and is placed on the device before anything is
         assigned, so a failure (a bad tag, an I/O error, the
         ``serve.swap_load`` fault point) leaves the engine serving the
-        old weights. Once the load succeeded, the new weights are copied
-        into the live parameter tensors in place: the program set's
-        graphs hold those tensors' addresses. In-flight requests switch
-        at their next dispatch; their KV prefix stays valid (same
-        geometry). Returns the new version (the tag's name)."""
+        old weights. An int8-resident engine loads the tag's floating
+        weights against a dense template and requantizes them into the
+        same layout. Once the load succeeded, the new weights are copied
+        into the live parameter tensors in place (payload and scales of
+        a quantized leaf): the program set's graphs hold those tensors'
+        addresses. In-flight requests switch at their next dispatch;
+        their KV prefix stays valid (same geometry). Returns the new
+        version (the tag's name)."""
         t0 = time.perf_counter()
         try:
             chosen = _resolve_committed_tag(load_dir, tag, verify_integrity)
             version = os.path.basename(chosen)
             fault.fire("serve.swap_load", path=chosen, version=version)
-            new_params = self._place_params(
-                ckptlib.load_params_only(chosen, self.params))
-            new_head = tied_head_weight(new_params[self._head_leaf],
-                                        self.dtype)
+            if is_quantized_tree(self.params):
+                init = _family_of(self.model_config)[3]
+                loaded = quantize_param_tree(ckptlib.load_params_only(
+                    chosen, init(self.model_config, None, device="meta")),
+                    self._weight_block)
+            else:
+                loaded = ckptlib.load_params_only(chosen, self.params)
+            new_params = self._place_params(loaded)
+            new_head = None if self._head_w is None else \
+                tied_head_weight(new_params[self._head_leaf], self.dtype)
         except BaseException as e:
             if self._log is not None:
                 self._log.add_event(
@@ -1022,7 +1435,8 @@ class InferenceEngine:
         # included) reads the new weights
         with torch.no_grad():
             _copy_into(self.params, new_params)
-            self._head_w.copy_(new_head)
+            if new_head is not None:
+                self._head_w.copy_(new_head)
         del new_params, new_head
         self._weight_version = version
         self._weight_ordinal += 1
@@ -1055,18 +1469,14 @@ class InferenceEngine:
         self._tracer.writer = None
 
 
-def _tensors(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    else:
-        yield tree
-
-
 def _copy_into(live, new):
-    """Copy the tree ``new`` into the tree ``live`` leaf by leaf, by key."""
+    """Copy the tree ``new`` into the tree ``live`` leaf by leaf, by key
+    (a quantized leaf's payload and scales alike)."""
     if isinstance(live, dict):
         for k, v in live.items():
             _copy_into(v, new[k])
+    elif isinstance(live, QuantizedParam):
+        live.q.copy_(new.q)
+        live.scale.copy_(new.scale)
     else:
         live.copy_(new)

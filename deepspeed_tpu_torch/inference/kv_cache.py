@@ -1,10 +1,16 @@
-"""Paged KV-cache geometry, allocation and accounting (the port of the
-paged half of ``deepspeed_tpu/inference/kv_cache.py``).
+"""KV-cache geometry, allocation and accounting (the port of
+``deepspeed_tpu/inference/kv_cache.py``). Two geometries:
 
-A fixed pool of ``num_pages`` pages, each ``(kv_heads, page_size,
-head_dim)``, held as one pair of tensors shaped ``(layers, num_pages,
-kv_heads, page_size, head_dim)`` on the engine's device, plus the
-host-side :class:`PageAllocator`. Page 0 is the reserved *null page*:
+**Dense** (``paged_kv.enabled: false``): one preallocated pair of tensors
+``(kc, vc)``, each ``(layers, batch_rows, kv_heads, max_len, head_dim)``:
+every serving slot owns a whole ``max_len`` row. ``batch_rows`` is
+``max_batch_size + 1``: the extra row is the *scratch slot*, where the
+padding rows of a partly filled prefill bucket write.
+
+**Paged** (the default): a fixed pool of ``num_pages`` pages, each
+``(kv_heads, page_size, head_dim)``, held as one pair of tensors shaped
+``(layers, num_pages, kv_heads, page_size, head_dim)`` on the engine's
+device, plus the host-side :class:`PageAllocator`. Page 0 is the reserved *null page*:
 unallocated block-table entries and padding-row writes land there, and
 nothing ever reads it unmasked. An int8 pool carries two more tensors,
 the fp32 per-token-row scale pools ``(layers, num_pages, kv_heads,
@@ -12,7 +18,8 @@ page_size, scale_blocks)``, addressed by the same block tables: the
 allocator knows nothing of them.
 
 Writes happen inside the model forward
-(:func:`deepspeed_tpu_torch.models.gpt2.write_paged_kv_cache`), in
+(:func:`deepspeed_tpu_torch.models.gpt2.write_kv_cache`,
+:func:`~deepspeed_tpu_torch.models.gpt2.write_paged_kv_cache`), in
 place: where the JAX engine donates the pool to each compiled program
 and gets a new one back, the port's programs update these tensors
 directly and never reallocate them.
@@ -25,8 +32,56 @@ import torch
 
 from deepspeed_tpu_torch.inference.paging import PageAllocator, pages_for
 
-__all__ = ["PagedKVSpec", "paged_spec_for", "init_paged_kv_cache",
-           "paged_kv_bytes", "pages_for", "PageAllocator"]
+__all__ = ["KVCacheSpec", "cache_spec_for", "init_kv_cache",
+           "kv_cache_bytes", "PagedKVSpec", "paged_spec_for",
+           "init_paged_kv_cache", "paged_kv_bytes", "pages_for",
+           "PageAllocator"]
+
+
+class KVCacheSpec(NamedTuple):
+    """Static geometry of the dense serving KV cache."""
+    num_layers: int
+    batch_rows: int      # serving slots + 1 scratch row
+    kv_heads: int        # GQA: the cache stays kv_heads-sized
+    max_len: int
+    head_dim: int
+    dtype: Any = torch.bfloat16
+
+    @property
+    def shape(self) -> Tuple[int, int, int, int, int]:
+        return (self.num_layers, self.batch_rows, self.kv_heads,
+                self.max_len, self.head_dim)
+
+
+def cache_spec_for(model_config, batch_rows: int, max_len: int,
+                   dtype=torch.bfloat16) -> KVCacheSpec:
+    """Dense cache geometry from a model config: kv_heads-sized for the
+    GQA family."""
+    kv_heads, head_dim = _model_kv_geometry(model_config)
+    if max_len > model_config.max_position_embeddings:
+        raise ValueError(
+            f"kv cache max_len {max_len} exceeds the model's "
+            f"max_position_embeddings {model_config.max_position_embeddings}")
+    return KVCacheSpec(num_layers=model_config.num_layers,
+                       batch_rows=batch_rows, kv_heads=kv_heads,
+                       max_len=max_len, head_dim=head_dim, dtype=dtype)
+
+
+def init_kv_cache(spec: KVCacheSpec, device) -> Tuple[torch.Tensor, ...]:
+    """The zeroed ``(kc, vc)`` pair on ``device``."""
+    return tuple(torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+                 for _ in range(2))
+
+
+def _pair_bytes(spec) -> int:
+    """Bytes of a (kc, vc) pair of ``spec.shape`` and ``spec.dtype``."""
+    return 2 * math.prod(spec.shape) * \
+        torch.empty((), dtype=spec.dtype).element_size()
+
+
+def kv_cache_bytes(spec: KVCacheSpec) -> int:
+    """Total bytes of the dense (kc, vc) pair."""
+    return _pair_bytes(spec)
 
 
 class PagedKVSpec(NamedTuple):
@@ -126,8 +181,7 @@ def init_paged_kv_cache(spec: PagedKVSpec, device) -> Tuple[torch.Tensor,
 def paged_kv_bytes(spec: PagedKVSpec) -> int:
     """Total bytes of the pool tree: the payload pair, and the fp32
     scale pools when int8."""
-    total = 2 * math.prod(spec.shape) * \
-        torch.empty((), dtype=spec.dtype).element_size()
+    total = _pair_bytes(spec)
     if spec.quantized:
         total += 2 * math.prod(spec.scale_shape) * 4
     return total

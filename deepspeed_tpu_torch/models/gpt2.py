@@ -17,7 +17,15 @@ dtype at their use site; the engine hands the loss its compute-dtype
 copy of the fp32 masters, as the JAX engine does.
 
 Serving: one token of decode or a padded prompt of prefill, with K/V
-written into the paged pool and attention read back from it.
+written into the paged pool or the dense slot cache and attention read
+back from it. Under int8-resident weights (``QuantizedParam`` leaves,
+``runtime/quantized_params.py``) every weight use dequantizes per block
+(:func:`_wd`, :func:`_emb_rows`), inside the serving program.
+
+Generation: :func:`gpt2_generate` prefills the prompt through causal
+flash attention (K1 on the card), capturing each layer's K/V into a
+dense cache, then decodes one token a step in a Python loop over the
+dense cached attention (the JAX package's ``lax.scan``).
 """
 
 import math
@@ -34,13 +42,17 @@ from deepspeed_tpu_torch.ops.attention.paged import (NEG_INF,
                                                      quantize_kv)
 from deepspeed_tpu_torch.ops.functional import (dropout, fold_seed,
                                                 ieee_fp32_matmul, layer_norm)
+from deepspeed_tpu_torch.runtime.quantized_params import (QuantizedParam,
+                                                          dequantize_param)
 from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["GPT2Config", "GPT2_SMALL", "GPT2_MEDIUM", "GPT2_LARGE",
            "GPT2_XL", "init_gpt2_params", "params_from_jax",
            "trainable_params_from_jax", "count_params", "gpt2_block",
            "gpt2_forward", "gpt2_loss_fn", "causal_cache_mask",
-           "write_paged_kv_cache", "gather_paged_kv", "paged_decode_ctx"]
+           "write_kv_cache", "write_paged_kv_cache", "gather_paged_kv",
+           "paged_decode_ctx", "make_token_sampler", "run_decode_scan",
+           "gpt2_generate"]
 
 
 class GPT2Config(NamedTuple):
@@ -152,6 +164,28 @@ def count_params(params) -> int:
     return sum(int(t.numel()) for t in tree_leaves(params))
 
 
+def _wd(leaf, dtype) -> torch.Tensor:
+    """A weight at its use: an int8-resident leaf (``QuantizedParam``)
+    dequantizes per block here, inside the program, so the resident copy
+    stays int8; a dense leaf is cast."""
+    if isinstance(leaf, QuantizedParam):
+        return dequantize_param(leaf, dtype)
+    return leaf.to(dtype)
+
+
+def _emb_rows(leaf, ids: torch.Tensor, dtype) -> torch.Tensor:
+    """Embedding rows of a dense or int8-resident table. A quantized
+    table gathers its int8 rows and their per-block scales and
+    dequantizes only those rows. Ids are clamped into the table, as a
+    JAX gather clamps."""
+    ids = ids.long().clamp(0, leaf.shape[0] - 1)
+    if isinstance(leaf, QuantizedParam):
+        q = leaf.q[ids]
+        s = torch.repeat_interleave(leaf.scale[ids], leaf.block, dim=-1)
+        return (q.float() * s[..., :q.shape[-1]]).to(dtype)
+    return leaf[ids].to(dtype)
+
+
 def gpt2_block(block_params, config: GPT2Config, x: torch.Tensor, dtype,
                attention_fn: Optional[Callable] = None,
                seed: Optional[int] = None,
@@ -163,8 +197,10 @@ def gpt2_block(block_params, config: GPT2Config, x: torch.Tensor, dtype,
     residual dropouts outside when ``deterministic`` is False and a
     ``seed`` (this block's int32 seed) is given. ``attention_fn(q, k, v)``
     replaces it with an attention over (B, heads, S, hd) tensors: the
-    serving paths pass the paged cache attention of
-    :func:`_paged_cache_attention`."""
+    serving paths pass the cache attentions of
+    :func:`_paged_cache_attention` and :func:`_offset_cache_attention`.
+    Weights go through :func:`_wd`, so int8-resident blocks dequantize
+    at each use."""
     B, S, h = x.shape
     heads = config.num_heads
     hd = h // heads
@@ -172,7 +208,7 @@ def gpt2_block(block_params, config: GPT2Config, x: torch.Tensor, dtype,
     a_in = layer_norm(x, block_params["ln_1"]["w"], block_params["ln_1"]["b"],
                       config.layer_norm_eps)
     ap = block_params["attn"]
-    qkv = a_in @ ap["qkvw"].to(dtype) + ap["qkvb"].to(dtype)
+    qkv = a_in @ _wd(ap["qkvw"], dtype) + _wd(ap["qkvb"], dtype)
     q, k, v = qkv.split(h, dim=-1)
     q = q.reshape(B, S, heads, hd).transpose(1, 2)
     k = k.reshape(B, S, heads, hd).transpose(1, 2)
@@ -185,24 +221,28 @@ def gpt2_block(block_params, config: GPT2Config, x: torch.Tensor, dtype,
                               dropout_seed=fold_seed(seed, 1) if drop > 0.0
                               else None)
     ctx = ctx.transpose(1, 2).reshape(B, S, h)
-    attn_out = ctx @ ap["ow"].to(dtype) + ap["ob"].to(dtype)
+    attn_out = ctx @ _wd(ap["ow"], dtype) + _wd(ap["ob"], dtype)
     x = x + dropout(attn_out, config.resid_dropout,
                     fold_seed(seed, 0) if train else None, deterministic)
 
     m_in = layer_norm(x, block_params["ln_2"]["w"], block_params["ln_2"]["b"],
                       config.layer_norm_eps)
     mp = block_params["mlp"]
-    hmid = m_in @ mp["fc_w"].to(dtype) + mp["fc_b"].to(dtype)
+    hmid = m_in @ _wd(mp["fc_w"], dtype) + _wd(mp["fc_b"], dtype)
     hmid = F.gelu(hmid, approximate="tanh")
-    m_out = hmid @ mp["proj_w"].to(dtype) + mp["proj_b"].to(dtype)
+    m_out = hmid @ _wd(mp["proj_w"], dtype) + _wd(mp["proj_b"], dtype)
     return x + dropout(m_out, config.resid_dropout,
                        fold_seed(seed, 2) if train else None, deterministic)
 
 
 def _embed(wte, wpe, ids, dtype):
-    """Token + position embedding, summed in the tables' dtype, then
-    cast. Ids are clamped into the table, as a JAX gather clamps."""
+    """Token + position embedding, summed in the tables' dtype (in fp32
+    over int8-resident tables), then cast. Ids are clamped into the
+    table, as a JAX gather clamps."""
     pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+    if isinstance(wte, QuantizedParam) or isinstance(wpe, QuantizedParam):
+        return (_emb_rows(wte, ids, torch.float32)
+                + _emb_rows(wpe, pos, torch.float32)).to(dtype)
     ids = ids.long().clamp(0, wte.shape[0] - 1)
     return (wte[ids] + wpe[pos]).to(dtype)
 
@@ -311,11 +351,13 @@ def gpt2_loss_fn(config: GPT2Config, dtype=torch.bfloat16,
     return loss_fn
 
 
-def tied_head_weight(wte: torch.Tensor, dtype) -> torch.Tensor:
+def tied_head_weight(wte, dtype) -> torch.Tensor:
     """The LM head's weight operand: ``wte`` rounded to ``dtype`` and
     held in fp32 (see :func:`_tied_logits`). A serving engine makes it
-    once rather than casting the whole embedding at every step."""
-    return wte.to(dtype).float()
+    once rather than casting the whole embedding at every step; over an
+    int8-resident table it is made inside each program, from the
+    dequantized table."""
+    return _wd(wte, dtype).float()
 
 
 def _tied_logits(x: torch.Tensor, head_w: torch.Tensor,
@@ -339,6 +381,64 @@ def causal_cache_mask(cache_position: torch.Tensor, q_len: int,
         torch.arange(q_len, device=dev)[None, :]
     k_idx = torch.arange(kv_len, device=dev)
     return k_idx[None, None, None, :] <= q_pos[:, None, :, None]
+
+
+def write_kv_cache(cache: torch.Tensor, new: torch.Tensor,
+                   cache_position: torch.Tensor) -> torch.Tensor:
+    """Write ``new`` (B, heads, S, hd) into the dense cache (B, heads,
+    max_len, hd) IN PLACE, row b from ``cache_position[b]`` on (each
+    serving slot at its own offset). The start is clamped so the S
+    positions fit, as ``lax.dynamic_update_slice`` clamps it. Returns
+    ``cache``."""
+    B, _, S, _ = new.shape
+    start = cache_position.long().clamp(0, cache.shape[2] - S)
+    t = start[:, None] + torch.arange(S, device=cache.device)[None, :]
+    rows = torch.arange(B, device=cache.device)[:, None]
+    cache[rows, :, t] = new.to(cache.dtype).transpose(1, 2)
+    return cache
+
+
+def _attend_cache(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                  cache_position: torch.Tensor) -> torch.Tensor:
+    """The plain cached attention of every serving path but the kernel:
+    q (B, H, S, hd) against a (B, kv_heads, L, hd) stripe, in fp32 under
+    :func:`causal_cache_mask`, group-wise (q head h reads kv head h //
+    G), cast back to q's dtype."""
+    B, H, S, hd = q.shape
+    KH, L = kc.shape[1], kc.shape[2]
+    G = H // KH
+    # fold each group into its kv head's rows, so K/V never expand to
+    # the full head count
+    qg = q.reshape(B, KH, G * S, hd).float()
+    scores = (qg @ kc.float().transpose(-1, -2)) / math.sqrt(hd)
+    mask = causal_cache_mask(cache_position, S, L)[:, :, None]
+    scores = torch.where(mask, scores.reshape(B, KH, G, S, L), NEG_INF)
+    probs = torch.softmax(scores, dim=-1).reshape(B, KH, G * S, L)
+    return (probs @ vc.float()).reshape(B, H, S, hd).to(q.dtype)
+
+
+def _offset_cache_attention(kcache: torch.Tensor, vcache: torch.Tensor,
+                            cache_position: torch.Tensor):
+    """attention_fn for the dense cached forward of both families
+    (prefill into the cache and decode alike): write this call's K/V
+    into the (B, kv_heads, max_len, hd) cache at each row's offset, in
+    place, then attend every query to all cache slots <= its absolute
+    position, reading the whole ``max_len`` row in fp32."""
+    def attn(q, k, v):
+        write_kv_cache(kcache, k, cache_position)
+        write_kv_cache(vcache, v, cache_position)
+        return _attend_cache(q, kcache, vcache, cache_position)
+    return attn
+
+
+def _cached_attention(kcache: torch.Tensor, vcache: torch.Tensor,
+                      pos: int):
+    """The one-position decode hook of :func:`gpt2_generate`: every row
+    writes and attends at the same position ``pos``."""
+    B = kcache.shape[0]
+    return _offset_cache_attention(
+        kcache, vcache, torch.full((B,), pos, dtype=torch.int32,
+                                   device=kcache.device))
 
 
 def write_paged_kv_cache(pool: torch.Tensor, new: torch.Tensor,
@@ -431,17 +531,7 @@ def _paged_cache_attention(kpool, vpool, block_table, cache_position,
                                                      block_table))
             vc = dequantize_pool(vc, gather_paged_kv(vscale_pool,
                                                      block_table))
-        B, H, S, hd = q.shape
-        KH, L = kc.shape[1], kc.shape[2]
-        G = H // KH
-        # q head h reads kv head h // G: fold each group into its kv
-        # head's rows, so K/V never expand to the full head count
-        qg = q.reshape(B, KH, G * S, hd).float()
-        scores = (qg @ kc.float().transpose(-1, -2)) / math.sqrt(hd)
-        mask = causal_cache_mask(cache_position, S, L)[:, :, None]
-        scores = torch.where(mask, scores.reshape(B, KH, G, S, L), NEG_INF)
-        probs = torch.softmax(scores, dim=-1).reshape(B, KH, G * S, L)
-        return (probs @ vc.float()).reshape(B, H, S, hd).to(q.dtype)
+        return _attend_cache(q, kc, vc, cache_position)
     return attn
 
 
@@ -449,28 +539,26 @@ def _gpt2_trunk_cached(params, config: GPT2Config, input_ids, kv_cache,
                        cache_position, dtype, block_tables,
                        paged_attn_kernel: str = "gather") -> torch.Tensor:
     """Run ``input_ids`` (B, S) through every block with attention over
-    the paged pools ``kv_cache``: ``(kc, vc)``, each (layers, num_pages,
-    heads, page_size, hd), or the int8 pool's ``(kc, vc, kscale,
-    vscale)``. This call's K/V are written at each row's
-    ``cache_position`` offset in place. Returns the hidden states after
-    ``ln_f``. Serves prefill (S = padded prompt) and decode (S = 1) with
-    one code path."""
-    if block_tables is None:
-        raise NotImplementedError(
-            "the dense (B, heads, max_len, hd) KV cache of the JAX package "
-            "(inference.paged_kv.enabled: false) is not ported; pass "
-            "block_tables over a paged pool")
+    ``kv_cache``: with ``block_tables``, the paged pools ``(kc, vc)``,
+    each (layers, num_pages, heads, page_size, hd), or the int8 pool's
+    ``(kc, vc, kscale, vscale)``; without, the dense slot cache ``(kc,
+    vc)``, each (layers, B, heads, max_len, hd). This call's K/V are
+    written at each row's ``cache_position`` offset in place. Returns the
+    hidden states after ``ln_f``. Serves prefill (S = padded prompt) and
+    decode (S = 1) with one code path."""
     B, S = input_ids.shape
     dev = input_ids.device
     pos = cache_position.long()[:, None] + torch.arange(S, device=dev)[None, :]
-    # jnp gathers clamp out-of-range indices; so do these
-    pos = pos.clamp(0, config.max_position_embeddings - 1)
-    ids = input_ids.long().clamp(0, config.vocab_size - 1)
-    x = (params["wte"][ids].float() + params["wpe"][pos].float()).to(dtype)
+    x = (_emb_rows(params["wte"], input_ids, torch.float32)
+         + _emb_rows(params["wpe"], pos, torch.float32)).to(dtype)
     for i in range(config.num_layers):
         kc, vc, *scales = (c[i] for c in kv_cache)
-        attn = _paged_cache_attention(kc, vc, block_tables, cache_position,
-                                      paged_attn_kernel, *scales)
+        if block_tables is None:
+            attn = _offset_cache_attention(kc, vc, cache_position)
+        else:
+            attn = _paged_cache_attention(kc, vc, block_tables,
+                                          cache_position, paged_attn_kernel,
+                                          *scales)
         x = gpt2_block(params[f"h_{i}"], config, x, dtype, attention_fn=attn)
     return layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"],
                       config.layer_norm_eps)
@@ -485,8 +573,9 @@ def gpt2_forward(params, config: GPT2Config, input_ids, dtype=torch.bfloat16,
     Without ``kv_cache`` this is the training forward (causal flash
     attention, dropouts under ``seed`` unless ``deterministic``).
     Serving: ``kv_cache`` is the paged pool tree, ``(kc, vc)`` or the
-    int8 pool's ``(kc, vc, kscale, vscale)``, updated in place (the same
-    tensors come back with the logits);
+    int8 pool's ``(kc, vc, kscale, vscale)``, or without
+    ``block_tables`` the dense slot cache ``(kc, vc)``, updated in place
+    (the same tensors come back with the logits);
     ``cache_position`` ((B,) int) is each row's first query position;
     ``block_tables`` ((B, pages_per_seq) int) maps logical pages to pool
     pages; ``paged_attn_kernel`` is ``"kernel"`` (the paged-decode kernel
@@ -505,3 +594,137 @@ def gpt2_forward(params, config: GPT2Config, input_ids, dtype=torch.bfloat16,
                            paged_attn_kernel)
     return _tied_logits(x, tied_head_weight(params["wte"], dtype),
                         dtype), kv_cache
+
+
+def make_token_sampler(vocab_size: int, temperature: float, top_k: int,
+                       greedy: bool):
+    """The decode-step sampler of :func:`gpt2_generate` and
+    ``llama_generate``: ``sample(logits, generator)`` takes the argmax
+    (first index on ties), or samples ``softmax(logits / temperature)``
+    restricted to the ``top_k`` largest (all when 0) with
+    ``torch.multinomial`` from ``generator``. The draws are the port's
+    own, reproducible for one generator state, not ``jax.random``'s."""
+    eff_k = min(top_k, vocab_size)
+
+    def sample(logits: torch.Tensor, generator) -> torch.Tensor:
+        if greedy:
+            return logits.argmax(dim=-1).to(torch.int32)
+        t = logits.float() / max(temperature, 1e-6)
+        if eff_k > 0:
+            kth = torch.topk(t, eff_k, dim=-1).values[:, -1:]
+            t = torch.where(t < kth, NEG_INF, t)
+        return torch.multinomial(torch.softmax(t, dim=-1), 1,
+                                 generator=generator)[:, 0].to(torch.int32)
+    return sample
+
+
+def run_decode_scan(step_logits: Callable, sample: Callable, first_tok,
+                    caches, max_new_tokens: int, generator):
+    """The decode loop of both generate functions:
+    ``step_logits(tok, t, caches) -> (logits, caches)`` for t in
+    ``range(max_new_tokens - 1)`` (``first_tok`` was sampled from the
+    prefill's logits), each step's token sampled from ``generator``.
+    Returns (B, max_new_tokens) int32."""
+    toks = []
+    tok = first_tok
+    for t in range(max_new_tokens - 1):
+        logits, caches = step_logits(tok, t, caches)
+        toks.append(tok)
+        tok = sample(logits, generator)
+    return torch.stack(toks + [tok], dim=1)
+
+
+def _generator_for(generator, device):
+    """``generator`` as a ``torch.Generator`` on ``device``: an int is a
+    seed."""
+    if generator is None or isinstance(generator, torch.Generator):
+        return generator
+    return torch.Generator(device=device).manual_seed(int(generator))
+
+
+def _generate_blocks(params, num_layers: int, dtype):
+    """Each block's params with the matmul leaves cast to ``dtype`` once
+    for the whole call: the operands every step would cast again."""
+    from deepspeed_tpu_torch.models.llama import layer_params
+    out = []
+    for i in range(num_layers):
+        lp = layer_params(params, i)
+        out.append({k: ({n: _wd(w, dtype) for n, w in v.items()}
+                        if k in ("attn", "mlp") else v)
+                    for k, v in lp.items()})
+    return out
+
+
+def gpt2_generate(params, config: GPT2Config, prompt_ids: torch.Tensor,
+                  max_new_tokens: int, generator=None,
+                  temperature: float = 1.0, top_k: int = 0,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """Autoregressive sampling with a dense KV cache, on the device of
+    ``prompt_ids`` (B, P) int. Returns (B, P + max_new_tokens) int32.
+
+    ``temperature=0`` or ``generator=None`` decodes greedily; else
+    ``generator`` (a ``torch.Generator`` on that device, or an int seed)
+    draws the samples, restricted to the ``top_k`` most likely tokens
+    when ``top_k > 0``. The prefill is one forward over the prompt with
+    causal :func:`flash_attention` (K1 on the card: one launch per
+    layer), its K/V captured into the cache; each decoded token is one
+    forward through the same :func:`gpt2_block` over the dense cached
+    attention. Dense GPT-2 family only."""
+    B, P = prompt_ids.shape
+    if max_new_tokens <= 0:
+        return prompt_ids
+    L = P + max_new_tokens
+    if L > config.max_position_embeddings:
+        raise ValueError(f"prompt + new tokens ({L}) exceed "
+                         f"max_position_embeddings "
+                         f"({config.max_position_embeddings})")
+    nl = config.num_layers
+    for i in range(nl):
+        mlp = params["h"]["mlp"] if "h" in params else \
+            params[f"h_{i}"]["mlp"]
+        if "fc_w" not in mlp:
+            raise ValueError(
+                "gpt2_generate supports the dense GPT-2 family only; "
+                f"block h_{i} carries MoE expert params")
+    heads = config.num_heads
+    hd = config.hidden_size // heads
+    greedy = generator is None or temperature == 0.0
+    dev = prompt_ids.device
+    generator = _generator_for(generator, dev)
+    sample = make_token_sampler(config.vocab_size, temperature, top_k,
+                                greedy)
+    with torch.no_grad():
+        blocks = _generate_blocks(params, nl, dtype)
+        head_w = tied_head_weight(params["wte"], dtype)
+        # prefill: one forward over the prompt, the attention hook
+        # capturing each layer's K/V into the cache
+        x = _embed(params["wte"], params["wpe"], prompt_ids, dtype)
+        kc = torch.zeros((nl, B, heads, L, hd), dtype=dtype, device=dev)
+        vc = torch.zeros_like(kc)
+        for i in range(nl):
+            def capture(q, k, v, i=i):
+                kc[i, :, :, :P] = k
+                vc[i, :, :, :P] = v
+                return flash_attention(q, k, v, causal=True)
+            x = gpt2_block(blocks[i], config, x, dtype,
+                           attention_fn=capture)
+        x = layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"],
+                       config.layer_norm_eps)
+        first_tok = sample(_tied_logits(x[:, -1], head_w, dtype), generator)
+
+        def step_logits(tok, t, caches):
+            kc, vc = caches
+            pos = P + t                   # position of `tok` in the stream
+            x = (params["wte"][tok.long()[:, None]]
+                 + params["wpe"][pos][None, None]).to(dtype)
+            for i in range(nl):
+                x = gpt2_block(blocks[i], config, x, dtype,
+                               attention_fn=_cached_attention(
+                                   kc[i], vc[i], pos))
+            x = layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"],
+                           config.layer_norm_eps)
+            return _tied_logits(x[:, 0], head_w, dtype), caches
+
+        gen = run_decode_scan(step_logits, sample, first_tok, (kc, vc),
+                              max_new_tokens, generator)
+    return torch.cat([prompt_ids.to(torch.int32), gen], dim=1)

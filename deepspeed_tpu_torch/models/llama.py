@@ -18,11 +18,15 @@ per-block views. With a paged cache they run
 ``models.gpt2._paged_cache_attention`` (the JAX package's
 ``_gqa_paged_cache_attention``): K/V go into the kv_heads-sized pool,
 dense or int8, and seq-1 queries read it through the paged-decode
-kernel, the q heads of a group sharing their kv head's pages.
+kernel, the q heads of a group sharing their kv head's pages. With the
+dense slot cache they run ``models.gpt2._offset_cache_attention`` (the
+JAX package's ``_gqa_offset_cache_attention``). Weights go through
+``models.gpt2._wd``, so int8-resident blocks dequantize at each use.
+:func:`llama_generate` prefills through causal flash attention (K1 on
+the card) and decodes over a kv_heads-sized dense cache.
 
-Not ported yet: the dense slot cache (``_gqa_offset_cache_attention``),
-``llama_generate``, ``llama_param_specs`` and the ring-prefill branch of
-the paged attention.
+Not ported yet: ``llama_param_specs`` and the ring-prefill branch of the
+paged attention (they need a serving mesh).
 """
 
 import math
@@ -32,11 +36,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.models.gpt2 import (_checkpointed,
+from deepspeed_tpu_torch.models.gpt2 import (_checkpointed, _emb_rows,
+                                             _generate_blocks,
+                                             _generator_for,
+                                             _offset_cache_attention,
                                              _paged_cache_attention,
                                              _tied_logits,
-                                             _tied_xent_chunked,
-                                             count_params, params_from_jax,
+                                             _tied_xent_chunked, _wd,
+                                             count_params,
+                                             make_token_sampler,
+                                             params_from_jax,
+                                             run_decode_scan,
                                              tied_head_weight)
 from deepspeed_tpu_torch.ops.attention.flash import flash_attention
 from deepspeed_tpu_torch.ops.functional import ieee_fp32_matmul, rms_norm
@@ -44,7 +54,7 @@ from deepspeed_tpu_torch.utils.tree import tree_map
 
 __all__ = ["LlamaConfig", "init_llama_params", "llama_params_from_jax",
            "count_params", "rope_cos_sin", "apply_rope", "llama_block",
-           "llama_forward", "llama_loss_fn"]
+           "llama_forward", "llama_loss_fn", "llama_generate"]
 
 
 class LlamaConfig(NamedTuple):
@@ -187,9 +197,9 @@ def llama_block(block_params, config: LlamaConfig, x: torch.Tensor, cos,
     H, hkv, hd = config.num_heads, config.kv_heads, config.head_dim
     a_in = rms_norm(x, block_params["ln_1"]["w"], config.rms_norm_eps)
     ap = block_params["attn"]
-    q = (a_in @ ap["wq"].to(dtype)).reshape(B, S, H, hd)
-    k = (a_in @ ap["wk"].to(dtype)).reshape(B, S, hkv, hd)
-    v = (a_in @ ap["wv"].to(dtype)).reshape(B, S, hkv, hd)
+    q = (a_in @ _wd(ap["wq"], dtype)).reshape(B, S, H, hd)
+    k = (a_in @ _wd(ap["wk"], dtype)).reshape(B, S, hkv, hd)
+    v = (a_in @ _wd(ap["wv"], dtype)).reshape(B, S, hkv, hd)
     q = apply_rope(q.transpose(1, 2), cos, sin)
     k = apply_rope(k.transpose(1, 2), cos, sin)
     v = v.transpose(1, 2)
@@ -198,19 +208,13 @@ def llama_block(block_params, config: LlamaConfig, x: torch.Tensor, cos,
     else:
         ctx = flash_attention(q, k, v, causal=True)      # native GQA
     ctx = ctx.transpose(1, 2).reshape(B, S, h)
-    x = x + ctx @ ap["wo"].to(dtype)
+    x = x + ctx @ _wd(ap["wo"], dtype)
 
     m_in = rms_norm(x, block_params["ln_2"]["w"], config.rms_norm_eps)
     mp = block_params["mlp"]
-    gate = F.silu(m_in @ mp["w_gate"].to(dtype))
-    up = m_in @ mp["w_up"].to(dtype)
-    return x + (gate * up) @ mp["w_down"].to(dtype)
-
-
-def _emb_rows(tok_emb: torch.Tensor, ids: torch.Tensor, dtype):
-    """Embedding rows in ``dtype``; ids clamped into the table, as a JAX
-    gather clamps."""
-    return tok_emb[ids.long().clamp(0, tok_emb.shape[0] - 1)].to(dtype)
+    gate = F.silu(m_in @ _wd(mp["w_gate"], dtype))
+    up = m_in @ _wd(mp["w_up"], dtype)
+    return x + (gate * up) @ _wd(mp["w_down"], dtype)
 
 
 def _llama_trunk(params, config: LlamaConfig, input_ids,
@@ -249,9 +253,11 @@ def llama_loss_fn(config: LlamaConfig, dtype=torch.bfloat16,
     return loss_fn
 
 
-# the JAX package's name for the paged attention_fn of this family; the
-# port's gpt2 one attends group-wise already, so both families share it
+# the JAX package's names for the cache attention_fns of this family;
+# the port's gpt2 ones attend group-wise already, so both families share
+# them
 _gqa_paged_cache_attention = _paged_cache_attention
+_gqa_offset_cache_attention = _offset_cache_attention
 
 
 def _llama_trunk_cached(params, config: LlamaConfig, input_ids, kv_cache,
@@ -259,25 +265,21 @@ def _llama_trunk_cached(params, config: LlamaConfig, input_ids, kv_cache,
                         paged_attn_kernel: str = "gather",
                         rope=None) -> torch.Tensor:
     """Cache-carrying trunk (see ``gpt2._gpt2_trunk_cached``): one code
-    path for prefill into the pages and decode, through the same
+    path for prefill into the cache and decode, through the same
     :func:`llama_block` as the plain forward. ``kv_cache`` is the paged
     pool tree, ``(kc, vc)`` (each (layers, num_pages, kv_heads,
-    page_size, hd)) or the int8 pool's ``(kc, vc, kscale, vscale)``,
-    updated in place. RoPE angles are gathered per row at each token's
-    absolute position from ``rope``, the ``(cos, sin)`` tables of
-    :func:`rope_cos_sin` (made here over the table's extent when None; a
-    serving engine makes them once). Returns the hidden states after
-    ln_f."""
-    if block_tables is None:
-        raise NotImplementedError(
-            "the dense (B, kv_heads, max_len, hd) KV cache of the JAX "
-            "package (_gqa_offset_cache_attention, inference.paged_kv."
-            "enabled: false) is not ported; pass block_tables over a paged "
-            "pool")
+    page_size, hd)) or the int8 pool's ``(kc, vc, kscale, vscale)``, or
+    without ``block_tables`` the dense slot cache ``(kc, vc)`` (each
+    (layers, B, kv_heads, max_len, hd)), updated in place. RoPE angles
+    are gathered per row at each token's absolute position from
+    ``rope``, the ``(cos, sin)`` tables of :func:`rope_cos_sin` (made
+    here over the cache's extent when None; a serving engine makes them
+    once). Returns the hidden states after ln_f."""
     B, S = input_ids.shape
     dev = input_ids.device
     if rope is None:
-        max_len = block_tables.shape[1] * kv_cache[0].shape[3]
+        max_len = kv_cache[0].shape[3] if block_tables is None else \
+            block_tables.shape[1] * kv_cache[0].shape[3]
         rope = rope_cos_sin(max_len, config.head_dim, config.rope_theta,
                             device=dev)
     cos_full, sin_full = rope
@@ -288,9 +290,12 @@ def _llama_trunk_cached(params, config: LlamaConfig, input_ids, kv_cache,
     x = _emb_rows(params["tok_emb"], input_ids, dtype)
     for i in range(config.num_layers):
         kc, vc, *scales = (c[i] for c in kv_cache)
-        attn = _gqa_paged_cache_attention(kc, vc, block_tables,
-                                          cache_position, paged_attn_kernel,
-                                          *scales)
+        if block_tables is None:
+            attn = _gqa_offset_cache_attention(kc, vc, cache_position)
+        else:
+            attn = _gqa_paged_cache_attention(kc, vc, block_tables,
+                                              cache_position,
+                                              paged_attn_kernel, *scales)
         x = llama_block(layer_params(params, i), config, x, cos_b,
                         sin_b, dtype, attention_fn=attn)
     return rms_norm(x, params["ln_f"]["w"], config.rms_norm_eps)
@@ -301,8 +306,9 @@ def llama_forward(params, config: LlamaConfig, input_ids,
                   block_tables=None, paged_attn_kernel: str = "gather"):
     """Logits (B, S, vocab) in fp32, through the untied ``lm_head``.
 
-    Serving: with ``kv_cache`` (the paged pool tree, updated in place;
-    the same tensors come back with the logits), ``cache_position``
+    Serving: with ``kv_cache`` (the paged pool tree, or without
+    ``block_tables`` the dense slot cache, updated in place; the same
+    tensors come back with the logits), ``cache_position``
     ((B,) int, each row's first query position) and ``block_tables``
     ((B, pages_per_seq) int) — the contract of
     :func:`deepspeed_tpu_torch.models.gpt2.gpt2_forward`, including
@@ -319,3 +325,64 @@ def llama_forward(params, config: LlamaConfig, input_ids,
                             cache_position, dtype, block_tables,
                             paged_attn_kernel)
     return _tied_logits(x, head_w, dtype), kv_cache
+
+
+def llama_generate(params, config: LlamaConfig, prompt_ids: torch.Tensor,
+                   max_new_tokens: int, generator=None,
+                   temperature: float = 1.0, top_k: int = 0,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """Autoregressive sampling with a kv_heads-sized dense KV cache:
+    the contract of :func:`deepspeed_tpu_torch.models.gpt2.gpt2_generate`.
+    The prefill runs causal :func:`flash_attention` (native GQA, K1 on
+    the card) and captures the post-RoPE K/V; each decoded token is one
+    forward over the dense cached attention, group-wise."""
+    B, Pl = prompt_ids.shape
+    if max_new_tokens <= 0:
+        return prompt_ids
+    L = Pl + max_new_tokens
+    if L > config.max_position_embeddings:
+        raise ValueError(f"prompt + new tokens ({L}) exceed "
+                         f"max_position_embeddings "
+                         f"({config.max_position_embeddings})")
+    hkv, hd = config.kv_heads, config.head_dim
+    nl = config.num_layers
+    greedy = generator is None or temperature == 0.0
+    dev = prompt_ids.device
+    generator = _generator_for(generator, dev)
+    sample = make_token_sampler(config.vocab_size, temperature, top_k,
+                                greedy)
+    with torch.no_grad():
+        blocks = _generate_blocks(params, nl, dtype)
+        head_w = tied_head_weight(params["lm_head"], dtype)
+        cos_full, sin_full = rope_cos_sin(L, hd, config.rope_theta,
+                                          device=dev)
+        # prefill: one forward over the prompt, capturing post-RoPE K/V
+        x = _emb_rows(params["tok_emb"], prompt_ids, dtype)
+        kc = torch.zeros((nl, B, hkv, L, hd), dtype=dtype, device=dev)
+        vc = torch.zeros_like(kc)
+        for i in range(nl):
+            def capture(q, k, v, i=i):
+                kc[i, :, :, :Pl] = k
+                vc[i, :, :, :Pl] = v
+                return flash_attention(q, k, v, causal=True)
+            x = llama_block(blocks[i], config, x, cos_full[:Pl],
+                            sin_full[:Pl], dtype, attention_fn=capture)
+        x = rms_norm(x, params["ln_f"]["w"], config.rms_norm_eps)
+        first_tok = sample(_tied_logits(x[:, -1], head_w, dtype), generator)
+
+        def step_logits(tok, t, caches):
+            kc, vc = caches
+            pos = Pl + t                  # position of `tok` in the stream
+            x = _emb_rows(params["tok_emb"], tok[:, None], dtype)
+            cos_t, sin_t = cos_full[pos:pos + 1], sin_full[pos:pos + 1]
+            posv = torch.full((B,), pos, dtype=torch.int32, device=dev)
+            for i in range(nl):
+                x = llama_block(blocks[i], config, x, cos_t, sin_t, dtype,
+                                attention_fn=_gqa_offset_cache_attention(
+                                    kc[i], vc[i], posv))
+            x = rms_norm(x, params["ln_f"]["w"], config.rms_norm_eps)
+            return _tied_logits(x[:, 0], head_w, dtype), caches
+
+        gen = run_decode_scan(step_logits, sample, first_tok, (kc, vc),
+                              max_new_tokens, generator)
+    return torch.cat([prompt_ids.to(torch.int32), gen], dim=1)

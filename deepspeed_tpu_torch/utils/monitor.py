@@ -47,6 +47,8 @@ TAG_SERVE_WEIGHT_VERSION = "Serve/weight_version"   # committed swap
 #                                                     ordinal
 TAG_SERVE_SPEC_ACCEPT = "Serve/spec_accept_rate"    # accepted/proposed
 TAG_SERVE_CHUNK_DISPATCHES = "Serve/chunk_dispatches"  # cumulative
+TAG_SERVE_HANDOFF = "Serve/handoff_ms"              # per claimed handoff
+#                                                     (queue + transfer)
 # checkpoint tags (x-axis = cumulative samples)
 TAG_CKPT_SNAPSHOT_MS = "Checkpoint/snapshot_ms"     # state capture
 TAG_CKPT_WRITE_MS = "Checkpoint/write_ms"           # stage/commit protocol
@@ -323,7 +325,8 @@ class TensorBoardMonitor:
                               kv_pool_bytes_per_token=None,
                               quant_logit_err=None, tbt_max_ms=None,
                               weight_version=None, spec_accept_rate=None,
-                              chunk_dispatches=None, tokens: int = 0,
+                              chunk_dispatches=None, handoff_ms=None,
+                              tokens: int = 0,
                               flush: bool = True):
         """Serving telemetry: TTFT per admitted request, per-decode-step
         token latency, cumulative tokens/s, queue depth and slot
@@ -331,9 +334,10 @@ class TensorBoardMonitor:
         prefix hit rate, which decode attention ran), and the
         request-granular plane (queue wait, TBT, SLO attainment,
         goodput), the ordinal of the weights served (after a
-        ``swap_params``), a verify dispatch's draft acceptance rate and
-        the cumulative chunked-prefill dispatches. The x-axis is
-        cumulative generated tokens."""
+        ``swap_params``), a verify dispatch's draft acceptance rate, the
+        cumulative chunked-prefill dispatches and a claimed handoff's
+        queue plus transfer time. The x-axis is cumulative generated
+        tokens."""
         if not self._writes():
             return
         for tag, value in (
@@ -353,6 +357,7 @@ class TensorBoardMonitor:
                 (TAG_SERVE_SLO, slo_attainment),
                 (TAG_SERVE_GOODPUT, goodput_tokens_per_s),
                 (TAG_SERVE_SPEC_ACCEPT, spec_accept_rate),
+                (TAG_SERVE_HANDOFF, handoff_ms),
                 (TAG_SERVE_KV_POOL_BPT, kv_pool_bytes_per_token),
                 (TAG_SERVE_QUANT_LOGIT_ERR, quant_logit_err),
                 (TAG_SERVE_WEIGHT_VERSION, weight_version)):

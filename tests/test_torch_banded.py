@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
+
 FP32_ATOL = 2e-5
 BF16_TOL = dict(atol=1e-4, rtol=2.0**-7, rms=1e-3)
 REPO = pathlib.Path(__file__).resolve().parents[1]

@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
+
 FP32_ATOL = 2e-5
 BF16_TOL = dict(atol=1e-4, rtol=2.0**-7, rms=1e-3)
 COARSE_TOL = dict(o=(1e-5, 1e-5), grads=(5e-5, 5e-4))

@@ -42,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 from tests.unit.test_inference import TINY_INF, tiny_gpt2
 
 REPO = pathlib.Path(__file__).resolve().parents[1]

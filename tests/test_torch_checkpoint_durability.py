@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
+
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.runtime import checkpoint as ckpt
 from deepspeed_tpu_torch.runtime import fault

@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
+
 LONG = [1, 2, 3, 4] * 5                       # 20 tokens
 PROMPTS = [LONG, [5, 6, 7], LONG[:8] + [9, 10], [8, 9, 8, 9, 8, 9]]
 CHUNKED_INF = {"max_batch_size": 3, "prompt_buckets": [4],

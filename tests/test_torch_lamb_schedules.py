@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
+
 from deepspeed_tpu.ops import optimizers as jopt
 from deepspeed_tpu.runtime import lr_schedules as jls
 

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 from tests.unit.test_inference import TINY_INF, tiny_gpt2, tiny_llama
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -319,13 +320,26 @@ def test_int8_prefill_reads_the_dequantized_pool():
 
 
 def test_dense_cache_raises():
+    """The dense slot cache (no block tables), refused until it was
+    ported, now serves: the same call as before returns JAX's logits
+    (its own atol 2e-4) and writes JAX's cache (the dense cases proper:
+    tests/test_torch_generate.py)."""
+    from deepspeed_tpu.models.llama import llama_forward as jax_forward
+
     from deepspeed_tpu_torch.models.llama import llama_forward
     cfg, params = tiny_llama()
     tcfg, tparams = _port(cfg, params)
     cache = tuple(torch.zeros((2, 1, 2, 32, 8)) for _ in range(2))
-    with pytest.raises(NotImplementedError, match="dense"):
-        llama_forward(tparams, tcfg, torch.tensor([[1, 2]]),
-                      dtype=torch.float32, kv_cache=cache)
+    logits, got = llama_forward(tparams, tcfg, torch.tensor([[1, 2]]),
+                                dtype=torch.float32, kv_cache=cache)
+    jcache = tuple(jnp.zeros((2, 1, 2, 32, 8)) for _ in range(2))
+    want, jgot = jax_forward(params, cfg, jnp.asarray([[1, 2]]),
+                             dtype=jnp.float32, kv_cache=jcache)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=0)
+    for t, j in zip(got, jgot):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=2e-4,
+                                   rtol=0)
 
 
 @pytest.mark.parametrize("block,nb", [(0, 1), (4, 2), (8, 1), (2, 4)])

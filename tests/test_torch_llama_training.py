@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 LLAMA_TINY = dict(vocab_size=512, hidden_size=64, num_layers=4,
                   num_heads=4, num_kv_heads=2, max_position_embeddings=128)

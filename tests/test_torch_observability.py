@@ -42,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 from tests.test_torch_llama_training import (LLAMA_TINY, _ids, _jax_tree,
                                              _np_tree, _zero2_config)
 

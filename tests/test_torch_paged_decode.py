@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
+
 FP32_ATOL = 2e-5
 BF16_ATOL = 2e-2
 # the CUDA kernel against the plain version on the card: the same p

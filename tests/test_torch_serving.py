@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
 from tests.unit.test_inference import TINY_INF, tiny_gpt2, tiny_llama
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -333,13 +334,15 @@ def test_observability_serve_section_like_jax(obs):
 
 
 @pytest.mark.parametrize("override,feature", [
-    ({"paged_kv": {"enabled": False}}, "paged_kv.enabled"),
     ({"mesh": {"axes": {"model": 2}}}, "inference.mesh"),
-    ({"disagg": {"enabled": True}}, "disagg"),
-    ({"quantize_weights": True}, "quantize_weights"),      # the bf16 alias
-    ({"quantize_weights": "int8"}, "quantize_weights"),
+    ({"disagg": {"enabled": True, "decode_mesh": {"axes": {"model": 2}}}},
+     "disagg.decode_mesh"),
 ])
 def test_unported_features_raise(override, feature):
+    """The serving meshes are refused until ported. The dense cache,
+    disaggregation and quantized weights, refused before, are served:
+    tests/test_torch_disagg.py, test_torch_quantized_serving.py and
+    test_torch_generate.py hold them against the JAX engine."""
     from deepspeed_tpu_torch import InferenceEngine
     cfg, params = tiny_gpt2()
     with pytest.raises(NotImplementedError, match=feature):
@@ -410,9 +413,9 @@ def test_unported_model_and_checkpoint_raise():
     """A config outside the family table is refused with the JAX
     engine's error: the JAX package's own LlamaConfig is such a class
     to the port, which serves its own. ``from_checkpoint`` of a directory
-    without a committed tag raises JAX's error, and with
-    ``quantize_weights`` the constructor's refusal (serving from a tag:
-    tests/test_torch_checkpoint.py)."""
+    without a committed tag raises JAX's error, with ``quantize_weights``
+    too (serving from a tag: tests/test_torch_checkpoint.py and
+    tests/test_torch_quantized_serving.py)."""
     from deepspeed_tpu.inference import InferenceEngine as JaxEngine
     from deepspeed_tpu.models.bert import BertConfig
     from deepspeed_tpu.models.llama import LlamaConfig as JaxLlamaConfig
@@ -432,10 +435,14 @@ def test_unported_model_and_checkpoint_raise():
         InferenceEngine.from_checkpoint("/nonexistent", _port_config(cfg),
                                         device="cpu")
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="quantize_weights"):
+    with pytest.raises(FileNotFoundError) as jerr:
+        JaxEngine.from_checkpoint("/nonexistent", cfg,
+                                  quantize_weights="int8")
+    with pytest.raises(FileNotFoundError) as terr:
         InferenceEngine.from_checkpoint("/nonexistent", _port_config(cfg),
                                         quantize_weights="int8",
                                         device="cpu")
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_engine_without_device_raises_without_cuda():
@@ -467,7 +474,8 @@ def test_port_imports_neither_jax_nor_deepspeed_tpu():
                    "ops/sparse_attention/banded.py",
                    "ops/sparse_attention/hybrid.py",
                    "runtime/checkpoint.py", "runtime/fault.py",
-                   "tools/verify_checkpoint.py"):
+                   "tools/verify_checkpoint.py", "inference/disagg.py",
+                   "runtime/quantized_params.py"):
         assert REPO / "deepspeed_tpu_torch" / module in files
     for path in files:
         for name in _imports(path):
@@ -500,6 +508,8 @@ def test_port_package_imports_without_jax():
             "import deepspeed_tpu_torch.ops.sparse_attention.hybrid; "
             "import deepspeed_tpu_torch.runtime.checkpoint; "
             "import deepspeed_tpu_torch.tools.verify_checkpoint; "
+            "import deepspeed_tpu_torch.inference.disagg; "
+            "import deepspeed_tpu_torch.runtime.quantized_params; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'deepspeed_tpu')]; "
             "assert not bad, bad")

@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
+
 # examples/llama/train.py's LLAMA_TINY; jax is imported inside the tests
 # that use it, so the cuda cases collect on a machine without it
 LLAMA_TINY = dict(vocab_size=512, hidden_size=64, num_layers=4,

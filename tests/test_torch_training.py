@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (torch threads per xdist worker)
+
 V, S, B = 256, 32, 2
 MODEL = dict(vocab_size=V, max_position_embeddings=S, hidden_size=64,
              num_layers=2, num_heads=2, embd_dropout=0.0, attn_dropout=0.0,

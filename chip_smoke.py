@@ -152,6 +152,33 @@ CUDA graph holds each and steady_state_recompiles is 0.
    tensor-core body in bf16) and no other attention kernel; in fp32 the
    tokens equal the serving engine's greedy tokens for the same prompts
    but at a near-tie; ms per token in bf16.
+Phases 50 and 52 run after phase 49 on GPT-2 345M (all 24 layers, seed
+0), phase 51 after phase 41 on its tags: the serving fleet.
+50. fleet_serving: two in-process fp32 replicas (default config,
+   warm_migration) behind a prefix_affinity FleetRouter; phase 3's first
+   8 requests, one router step, replica 1 drained twice (one episode),
+   then the other 8. Every uid answers once, at least one request
+   migrates alive (migrate_export, migrate_import), the pages each
+   import wrote are bitwise the exported slabs, greedy tokens equal the
+   fp32 reference's but at a near-tie, nothing shed, no program built
+   after warmup, K4 once per layer per decode dispatch; decode tokens/s
+   and TTFT beside phase 3's, migrations, bytes, ms export-to-import.
+51. fleet_swap: two bf16 replicas of run B's step-3 params;
+   swap_weights(d, "global_step6"): both report global_step6 and so does
+   every later FinishedRequest, their live parameters are bitwise the
+   step-6 params, phase 41's requests give its step-6 tokens but at a
+   near-tie; the swap ms of each replica.
+52. fleet_process: two replica_worker children on the card (fp32,
+   init_seed 0, health plane on), child 0 armed with
+   DSTPU_FAULT_ARM=serve.replica_kill:crash:1, a process-mode router
+   (max_restarts 1): 8 requests of 32 new tokens, half sampled at 0.7.
+   Child 0 exits 85 mid-decode, its deathbed exports are imported by
+   child 1, it relaunches under a new pid, its flight file is salvaged;
+   every uid once; greedy tokens equal the fp32 reference's but at a
+   near-tie, sampled ones the parent's own fp32 engine's; each child's
+   K4 launches (its own count, from its state) equal its decode
+   dispatches x 24. Spawn-to-hello and death-to-relaunch seconds, peak
+   memory per child, migration bytes and ms from the deathbed frame.
 Phases 36 to 38 run after phase 9, before phase 13: Llama training,
 K1-K3 at G 4 (32 q heads over 8 kv heads) on the training path.
 36. llama_train_kernel_vs_plain: the LLAMA_1B widths at 2 layers, fp32,
@@ -227,7 +254,7 @@ mask head, the walk rule's pick, masked_flash.walk_cost_us).
 19. bert_sparse_training: each configuration, 1 warm-up and 3 timed
    train_batch steps on padded synthetic MLM batches (step ms,
    samples/s, real tokens/s, MFU beside the layout's density, peak
-   memory, losses, lrs), then a profile of 2 more. Checks finite losses,
+   memory, losses, lrs), then a profile of 1 more. Checks finite losses,
    the lrs, the Lamb coefficients, and 48 launches per step of each
    kernel, all in the one arity the layout gives (printed).
 20. bert_sparse_kernel_vs_plain: phase 16 with sparse attention, the
@@ -317,7 +344,7 @@ on the 928 residual blocks, merged by their lse).
    else; BigBird the same and one of each of K8-K10, all on their
    tensor-core bodies).
 27. bert_sparse_training_legacy: phase 19's BSLongformer configuration
-   under the legacy dispatch, 1 warm-up and 3 timed steps and a 2-step
+   under the legacy dispatch, 1 warm-up and 3 timed steps and a 1-step
    profile (each of K11-K13's ms per step in it): 96, 96 and 144
    launches of K11, K12, K13 per step (all on their tensor-core bodies)
    and none of K1-K3; then phase 20's kernel-vs-plain check of it.
@@ -402,7 +429,7 @@ fixed layouts (sparse BERT's key mask), and the s8k row's v1 fallback
    legacy calls and phase 29's dense side.
 35. bert_sparse_training_v1: phase 19's fixed configuration under
    USE_MASKED_FLASH = False and USE_SPLASH_V2 = False, 1 warm-up and 3
-   timed steps and a 2-step profile (K14-K16's ms per launch there beside
+   timed steps and a 1-step profile (K14-K16's ms per launch there beside
    phase 33's (b) times on randn inputs): 48 launches of each of K14-K16
    per step, all of the key-mask arity and on their tensor-core bodies,
    and no other attention kernel; the
@@ -2222,6 +2249,489 @@ def generate_phase(smi, model_config, params, model, generate,
     return bf["k1"]
 
 
+# --------------------------------------------------- the serving fleet
+FLEET_REQUESTS = 8        # phase 52: requests, every other one sampled
+FLEET_NEW_TOKENS = 32     # phase 52: new tokens a request
+FLEET_TEMPERATURE = 0.7   # phase 52: the sampled requests' temperature
+FLEET_KILL = "serve.replica_kill:crash:1"   # child 0's DSTPU_FAULT_ARM
+
+
+class _TimedEvents:
+    """An in-memory router writer: every row, stamped with the host clock
+    at its write (``t_host``)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add_event(self, kind, **fields):
+        self.rows.append(dict(fields, event=kind,
+                              t_host=time.perf_counter()))
+
+    def of(self, kind):
+        return [r for r in self.rows if r["event"] == kind]
+
+
+def _watch_migrations(engines):
+    """Wrap the in-process engines' migration pair: right after an
+    import's replay, the pages it wrote are compared with the slabs the
+    export shipped (bitwise, every leaf), and the ms from the start of
+    the export to the end of the import go into a list. Returns (the
+    comparisons, the ms)."""
+    import torch
+    started, equal, ms = {}, [], []
+    for eng in engines:
+        def export(uid, _f=eng.export_request):
+            started[uid] = time.perf_counter()
+            return _f(uid)
+
+        def import_(rec, _f=eng.import_request, _eng=eng):
+            sid = _f(rec)
+            if sid is None:
+                return sid
+            if _eng.device.type == "cuda":
+                torch.cuda.synchronize(_eng.device)
+            if rec.uid in started:
+                ms.append((time.perf_counter() - started.pop(rec.uid)) * 1e3)
+            idx = torch.as_tensor(
+                _eng.scheduler.slots[sid].pages[:rec.live_pages],
+                device=_eng.device)
+            slabs = [rec.kslab, rec.vslab] + (
+                [rec.kscale_slab, rec.vscale_slab]
+                if rec.kscale_slab is not None else [])
+            equal.append(all(torch.equal(c.index_select(1, idx).cpu(), s)
+                             for c, s in zip(_eng._cache, slabs)))
+            return sid
+        eng.export_request, eng.import_request = export, import_
+    return equal, ms
+
+
+def _fleet_numbers(finished, wall_secs, decode_secs=None):
+    """Decode tokens (all but each request's first), per second of the
+    replicas' decode dispatches (in-process replicas, phase 3's measure)
+    and per second of the serving loop's wall time; TTFT p50 and p95."""
+    ttft = [f.ttft_ms for f in finished if f.ttft_ms is not None]
+    tokens = sum(max(len(f.tokens) - 1, 0) for f in finished)
+    out = {"decode_tokens": tokens,
+           "decode_tokens_per_s_wall": tokens / wall_secs,
+           "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_p95": float(np.percentile(ttft, 95))}
+    if decode_secs:
+        out["decode_tokens_per_s"] = tokens / decode_secs
+    return out
+
+
+def fleet_serving_phase(smi, model_config, params, ref, model="gpt2-345m",
+                        device="cuda"):
+    """50. Two in-process fp32 replicas (the default ``inference`` config,
+    migration warmed) behind a ``prefix_affinity`` FleetRouter serve phase
+    3's 16 requests: the first 8, one router step, replica 1 drained
+    twice, another step, then the other 8 (submitted at once, 16 would
+    fill both replicas' 8 slots and leave no room to migrate into). Every
+    uid answers once; at least one request migrates alive
+    (``migrate_export`` on replica 1, ``migrate_import`` on replica 0);
+    the pages each import wrote are bitwise the exported slabs; greedy
+    tokens equal ``ref``'s (:func:`fp32_reference`) but at a near-tie;
+    the second drain is a no-op; no program is built after warmup and
+    K4 runs once per layer per decode dispatch. Prints the fleet's
+    decode tokens/s and TTFT beside phase 3's, the migrations, their
+    bytes and ms, the shed counts. Returns K4's launches."""
+    import torch
+    from deepspeed_tpu_torch.inference import (FleetRouter, InferenceEngine,
+                                               Request)
+    from deepspeed_tpu_torch.ops.attention.paged import \
+        paged_decode_attention
+    prompts = make_prompts(model_config.vocab_size)
+    ref_tokens, gaps = ref
+    layers = model_config.num_layers
+    engines = []
+    for _ in range(2):
+        eng = InferenceEngine(model_config, params, {}, dtype=torch.float32,
+                              device=device)
+        eng.warmup()
+        eng.warm_migration()
+        engines.append(eng)
+    imports, mig_ms = _watch_migrations(engines)
+    ev = _TimedEvents()
+    router = FleetRouter(engines, {"replicas": 2,
+                                   "routing": "prefix_affinity"}, writer=ev)
+    disp0 = [dict(e.dispatches) for e in engines]
+    secs0 = [dict(e.dispatch_secs) for e in engines]
+    paged_decode_attention.launches = 0
+    paged_decode_attention.launches_int8 = 0
+    reqs = [Request(prompt=p, max_new_tokens=NEW_TOKENS, temperature=0.0,
+                    seed=i) for i, p in enumerate(prompts)]
+    half = len(reqs) // 2
+    t0 = time.perf_counter()
+    # half the requests first: after one step each replica holds some in
+    # flight with slots to spare, so replica 0 can take replica 1's alive
+    uids = [router.submit(r) for r in reqs[:half]]
+    finished = router.step()
+    router.drain(1, reason="fleet_serving")
+    router.drain(1, reason="fleet_serving")      # must be a no-op
+    finished += router.step()
+    uids += [router.submit(r) for r in reqs[half:]]
+    finished += router.run()
+    wall = time.perf_counter() - t0
+    counts = {"launches": paged_decode_attention.launches,
+              "launches_int8": paged_decode_attention.launches_int8,
+              "decode_dispatches": sum(e.dispatches["decode"] - d["decode"]
+                                       for e, d in zip(engines, disp0))}
+    decode_secs = sum(e.dispatch_secs["decode"] - s["decode"]
+                      for e, s in zip(engines, secs0))
+    by_uid = {}
+    for f in finished:
+        by_uid.setdefault(f.uid, []).append(f)
+    once = sorted(by_uid) == sorted(uids) and \
+        all(len(v) == 1 for v in by_uid.values())
+    got = [by_uid[u][0].tokens for u in uids] if once else []
+    div, tie_ok = divergences(ref_tokens, got, prompts, gaps) \
+        if once else ([], False)
+    begins = [r for r in ev.of("fleet_drain") if r["phase"] == "begin"]
+    dbg = router.debug_state()
+    graphs = [check_graphs("fleet_serving", e) for e in engines]
+    checks = {"every_uid_once": once,
+              "migrated_alive": router.total_migrated >= 1,
+              "imports_bitwise": bool(imports) and all(imports),
+              "greedy_equal_but_near_ties": tie_ok,
+              "one_drain_episode": len(begins) == 1
+              and dbg["replicas"][1]["status"] == "retired",
+              "steady_state_recompiles_0": all(
+                  e.steady_state_recompiles == 0 for e in engines),
+              "nothing_shed": router.total_shed == 0}
+    k4 = _check_k4("fleet_serving", counts, layers)
+    plain = last_row("serving", model=model, kv_dtype="bfloat16") or {}
+    row = {"phase": "fleet_serving", "model": model, "dtype": "fp32",
+           "replicas": 2, "routing": "prefix_affinity",
+           "requests": len(prompts), "new_tokens": NEW_TOKENS,
+           "checks": checks, "greedy_equal_requests":
+               len(prompts) - len(div) if once else 0,
+           "divergences": div, "tie_gap": TIE_GAP,
+           **_fleet_numbers(finished, wall, decode_secs),
+           "wall_secs": wall,
+           "single_engine_bf16_phase3": {k: plain.get(k) for k in (
+               "decode_tokens_per_s", "ttft_ms_p50", "ttft_ms_p95")},
+           "migrations": dbg["migrations"], "migration_ms": mig_ms,
+           "imports_checked": len(imports),
+           "routed": [r["routed"] for r in dbg["replicas"]],
+           "redistributed": dbg["redistributed"], "shed": dbg["shed"],
+           "decode_dispatches": counts["decode_dispatches"],
+           "kernel_launches": k4, "programs": [g["programs"]
+                                               for g in graphs],
+           "steady_state_recompiles": [e.steady_state_recompiles
+                                       for e in engines],
+           "ok": all(checks.values()), "nvidia_smi": smi}
+    emit(row)
+    router.close()
+    del engines, router
+    if not row["ok"]:
+        raise AssertionError(f"fleet_serving: {checks}")
+    return k4
+
+
+def fleet_swap_phase(smi, state, device="cuda"):
+    """51. Two bf16 replicas made from run B's in-memory step-3 params
+    (phase 40), then ``router.swap_weights(d, "global_step6")``: both
+    report global_step6, and so does every FinishedRequest after it; each
+    replica's live parameter tensors are bitwise the step-6 params placed
+    as an engine places them; phase 41's requests give phase 41's step-6
+    tokens but at a near-tie; K4 once per layer per decode dispatch.
+    Prints the swap ms of each replica. Writes no tag. Returns K4's
+    launches."""
+    import torch
+    from deepspeed_tpu_torch.inference import (FleetRouter, InferenceEngine,
+                                               Request)
+    from deepspeed_tpu_torch.ops.attention.paged import \
+        paged_decode_attention
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    cfg, save_dir = state["config"], state["save_dir"]
+    prompts, new_tokens = state["prompts"], state["new_tokens"]
+    engines, gaps, swap_ms = [], {}, {}
+    for i in range(2):
+        eng = InferenceEngine(cfg, state["params3"], {},
+                              dtype=torch.bfloat16, device=device)
+        eng.warmup()
+        gaps[i], _ = record_samples(eng)
+
+        def timed(*a, _f=eng.swap_params, _i=i, **kw):
+            t0 = time.perf_counter()
+            out = _f(*a, **kw)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            swap_ms[_i] = (time.perf_counter() - t0) * 1e3
+            return out
+        eng.swap_params = timed
+        engines.append(eng)
+    router = FleetRouter(engines, {"replicas": 2}, writer=_TimedEvents())
+    versions = router.swap_weights(save_dir, tag="global_step6")
+    want = engines[0]._place_params(state["params6"])
+    bitwise = [all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(e.params), tree_leaves(want))) for e in engines]
+    del want
+    disp0 = [e.dispatches["decode"] for e in engines]
+    paged_decode_attention.launches = 0
+    paged_decode_attention.launches_int8 = 0
+    uids = [router.submit(Request(prompt=p, max_new_tokens=new_tokens,
+                                  temperature=0.0, seed=i))
+            for i, p in enumerate(prompts)]
+    finished = router.run()
+    by_uid = {f.uid: f for f in finished}
+    once = sorted(by_uid) == sorted(uids) and len(finished) == len(uids)
+    got = [by_uid[u].tokens for u in uids] if once else []
+    merged = {**gaps[0], **gaps[1]}
+    div, tie_ok = divergences(state["tokens6"], got, prompts, merged) \
+        if once else ([], False)
+    counts = {"launches": paged_decode_attention.launches,
+              "launches_int8": paged_decode_attention.launches_int8,
+              "decode_dispatches": sum(e.dispatches["decode"] - d
+                                       for e, d in zip(engines, disp0))}
+    k4 = _check_k4("fleet_swap", counts, cfg.num_layers)
+    graphs = [check_graphs("fleet_swap", e) for e in engines]
+    checks = {"versions": versions == {0: "global_step6",
+                                       1: "global_step6"}
+              and all(e.weight_version == "global_step6" for e in engines)
+              and all(f.weight_version == "global_step6"
+                      for f in finished),
+              "live_params_bitwise_step6": all(bitwise),
+              "every_uid_once": once,
+              "tokens_equal_phase41_but_near_ties": tie_ok}
+    row = {"phase": "fleet_swap", "model": "gpt2-345m", "dtype": "bf16",
+           "replicas": 2, "tag": "global_step6", "versions": versions,
+           "swap_ms": [swap_ms.get(i) for i in range(2)],
+           "checks": checks, "requests": len(prompts),
+           "new_tokens": new_tokens,
+           "equal_requests": len(prompts) - len(div) if once else 0,
+           "divergences": div, "tie_gap": TIE_GAP,
+           "decode_dispatches": counts["decode_dispatches"],
+           "kernel_launches": k4,
+           "steady_state_recompiles": [g["steady_state_recompiles"]
+                                       for g in graphs],
+           "ok": all(checks.values()), "nvidia_smi": smi}
+    emit(row)
+    router.close()
+    del engines, router
+    if not row["ok"]:
+        raise AssertionError(f"fleet_swap: {checks}")
+    return k4
+
+
+def _fleet_requests(vocab):
+    """Phase 52's requests: the first FLEET_REQUESTS prompts of
+    make_prompts, request i seeded i; those with i % 4 in (1, 2) sampled
+    at FLEET_TEMPERATURE, so each replica of a least-loaded pair holds
+    greedy and sampled ones."""
+    from deepspeed_tpu_torch.inference import Request
+    prompts = make_prompts(vocab)[:FLEET_REQUESTS]
+    return prompts, [Request(prompt=p, max_new_tokens=FLEET_NEW_TOKENS,
+                             temperature=FLEET_TEMPERATURE
+                             if i % 4 in (1, 2) else 0.0,
+                             seed=i, uid=5000 + i)
+                     for i, p in enumerate(prompts)]
+
+
+def fleet_process_phase(smi, model_config, params, ref, model="gpt2-345m",
+                        device="cuda"):
+    """52. Two ``replica_worker`` children on the card, in fp32, each
+    warmed for migration, their weights from ``init_seed`` 0 through the
+    port's generator (the parent's ``params``), the health plane on with
+    a flight file each; child 0 armed with ``DSTPU_FAULT_ARM=`` FLEET_KILL.
+    A process-mode router (``max_restarts`` 1, no backoff) serves
+    FLEET_REQUESTS requests of FLEET_NEW_TOKENS, half greedy, half sampled
+    at FLEET_TEMPERATURE with per-request seeds. Child 0 exits 85
+    mid-decode, its deathbed exports are imported by child 1, it is
+    relaunched under a new pid and its flight file salvaged; every uid
+    answers once; greedy tokens equal ``ref``'s but at a near-tie, sampled
+    tokens the parent's own fp32 engine's on the same requests. K4's
+    launches are each child's own count, read from its state, and equal
+    its decode dispatches x layers. Prints the seconds from spawn to hello
+    and from death to the relaunched hello, each child's peak memory, the
+    migration bytes and ms from the deathbed frame to the import, and
+    the fleet's decode tokens/s. Returns the children's K4 launches."""
+    import gc
+    import os
+    import torch
+    from deepspeed_tpu_torch.inference import (FleetRouter, InferenceEngine,
+                                               ReplicaProcess,
+                                               launch_replica_processes)
+    from deepspeed_tpu_torch.inference.rpc import request_from_wire, \
+        request_to_wire
+    layers = model_config.num_layers
+    prompts, reqs = _fleet_requests(model_config.vocab_size)
+    # the sampled reference: the parent's own engine on the same requests
+    engine = InferenceEngine(model_config, params, {}, dtype=torch.float32,
+                             device=device)
+    engine.warmup()
+    for r in reqs:
+        engine.submit(request_from_wire(request_to_wire(r)))
+    own = {f.uid: f.tokens for f in engine.run()}
+    del engine
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()    # leave the card's memory to the children
+    tmp = tempfile.mkdtemp(prefix="fleet_process_")
+    ready_at = {}
+    wait_ready = ReplicaProcess.wait_ready
+
+    def stamped(self):
+        wait_ready(self)
+        ready_at.setdefault(self.name, []).append(time.perf_counter())
+    spec = {"family": "gpt2", "model_config": model_config._asdict(),
+            "init_seed": SEED, "dtype": "float32", "device": device,
+            "inference": {}, "warm_migration": True}
+    flights = [os.path.join(tmp, f"flight_r{i}.json") for i in range(2)]
+    ReplicaProcess.wait_ready = stamped
+    t_spawn = time.perf_counter()
+    try:
+        reps = launch_replica_processes(
+            spec, 2, env_by_replica={0: {"DSTPU_FAULT_ARM": FLEET_KILL}},
+            spec_by_replica={i: {"observability": {"health": {
+                "enabled": True, "flight_path": flights[i]}}}
+                for i in range(2)}, log_dir=tmp)
+    except BaseException:
+        ReplicaProcess.wait_ready = wait_ready
+        _print_logs(tmp)
+        raise
+    ev = _TimedEvents()
+    router = None
+    try:
+        # the armed kill fires once: the relaunched child comes up unarmed
+        reps[0]._env.pop("DSTPU_FAULT_ARM", None)
+        pid0 = reps[0].pid
+        router = FleetRouter(reps, {"process_mode": {
+            "enabled": True, "max_restarts": 1, "restart_backoff_s": 0.0}},
+            writer=ev)
+        frame_at = []
+        on_death = router._on_replica_death
+
+        def death(r, err):
+            frame_at.append(time.perf_counter())
+            return on_death(r, err)
+        router._on_replica_death = death
+        seen = {}           # (replica, pid) -> (first state, last state)
+
+        def look():
+            for i, r in enumerate(reps):
+                st = dict(r.last_state)
+                first = seen.get((i, r.pid), (st, st))[0]
+                seen[(i, r.pid)] = (first, st)
+        look()
+        t0 = time.perf_counter()
+        uids = [router.submit(r) for r in reqs]
+        finished = []
+        while not router.idle():
+            finished += router.step()
+            look()
+        wall = time.perf_counter() - t0
+        dbg = router.debug_state()
+        r0 = router.replicas[0]
+        by_uid = {}
+        for f in finished:
+            by_uid.setdefault(f.uid, []).append(f)
+        once = sorted(by_uid) == sorted(uids) and \
+            all(len(v) == 1 for v in by_uid.values())
+        greedy = [i for i, r in enumerate(reqs) if r.temperature == 0]
+        sampled = [i for i in range(len(reqs)) if i not in greedy]
+        ref_tokens, gaps = ref
+        div, tie_ok = divergences(
+            [ref_tokens[i][:FLEET_NEW_TOKENS] for i in greedy],
+            [by_uid[uids[i]][0].tokens for i in greedy] if once else [],
+            [prompts[i] for i in greedy], {}) if once else ([], False)
+        # divergences numbers rows by their place in the list: map back
+        for d in div:
+            i = greedy[d["request"]]
+            d["request"] = i
+            d["gap"] = gaps.get((i, len(prompts[i]) + d["index"]))
+        tie_ok = all(d["gap"] is not None and d["gap"] < TIE_GAP
+                     for d in div)
+        sampled_equal = once and all(
+            by_uid[uids[i]][0].tokens == own[uids[i]] for i in sampled)
+        migs = ev.of("serve_migration")
+        deaths = ev.of("fleet_replica_death")
+        restarts = ev.of("fleet_replica_restart")
+        salvage = ev.of("fleet_flight_salvage")
+        k4, k4_by_child, k4_ok = 0, {}, True
+        for (i, pid), (first, last) in seen.items():
+            dd = last.get("decode_dispatches", 0) - \
+                first.get("decode_dispatches", 0)
+            dense = last["k4_launches"][0] - first["k4_launches"][0]
+            int8 = last["k4_launches"][1] - first["k4_launches"][1]
+            k4_ok &= dense == dd * layers and int8 == 0
+            k4_by_child[f"replica {i} pid {pid}"] = {
+                "decode_dispatches": dd, "k4_launches": dense,
+                "peak_memory_bytes": last.get("peak_memory_bytes")}
+            k4 += dense
+        checks = {
+            "every_uid_once": once,
+            "child0_exit_85": r0.last_exit_code == 85
+            and bool(deaths) and deaths[0]["replica"] == 0,
+            "deathbed_exports_imported_by_child1": bool(deaths)
+            and deaths[0]["exports"] >= 1 and any(
+                m["src"] == 0 and m["dst"] == 1 for m in migs),
+            "relaunched_new_pid": r0.status == "live" and r0.restarts == 1
+            and reps[0].pid != pid0 and bool(restarts)
+            and restarts[0]["decision"] == "restarted",
+            "flight_salvaged": len(salvage) == 1
+            and salvage[0]["trigger"] == "replica_death",
+            "greedy_equal_but_near_ties": once and tie_ok,
+            "sampled_equal_parent_engine": sampled_equal,
+            "k4_launches_equal_decode_dispatches_x_layers": k4_ok and k4 > 0,
+            "steady_state_recompiles_0": all(
+                r.steady_state_recompiles == 0 for r in reps)}
+        ready = {name: [t - t_spawn for t in ts]
+                 for name, ts in ready_at.items()}
+        row = {"phase": "fleet_process", "model": model, "dtype": "fp32",
+               "replicas": 2, "requests": len(reqs),
+               "new_tokens": FLEET_NEW_TOKENS, "greedy": len(greedy),
+               "sampled": len(sampled), "temperature": FLEET_TEMPERATURE,
+               "kill": FLEET_KILL, "checks": checks,
+               "spawn_to_hello_s": {n: v[0] for n, v in ready.items()},
+               "death_to_relaunched_hello_s": (
+                   ready_at["r0"][1] - frame_at[0]
+                   if len(ready_at.get("r0", [])) > 1 and frame_at
+                   else None),
+               "frame_to_import_ms": [(m["t_host"] - frame_at[0]) * 1e3
+                                      for m in migs if m["src"] == 0]
+               if frame_at else [],
+               "migrations": dbg["migrations"],
+               "migration_rows": [{k: m[k] for k in (
+                   "uid", "src", "dst", "pages", "nbytes", "position",
+                   "transfer_ms", "priced_ms")} for m in migs],
+               "exit_code": r0.last_exit_code,
+               "pids": {"child0_before": pid0, "child0_after": reps[0].pid,
+                        "child1": reps[1].pid},
+               "children": k4_by_child, "kernel_launches": k4,
+               "counted": "each child's paged_decode_attention counts from "
+                          "its state, since its hello",
+               "divergences": div, "tie_gap": TIE_GAP,
+               **_fleet_numbers(finished, wall), "wall_secs": wall,
+               "ok": all(checks.values()), "nvidia_smi": smi}
+        emit(row)
+    except BaseException:
+        _print_logs(tmp)
+        raise
+    finally:
+        ReplicaProcess.wait_ready = wait_ready
+        if router is not None:
+            router.close()
+        else:
+            for r in reps:
+                r.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not row["ok"]:
+        raise AssertionError(f"fleet_process: {checks}")
+    return k4
+
+
+def _print_logs(d):
+    """The tail of every replica child's log under ``d``, to stderr."""
+    import glob
+    import os
+    for path in sorted(glob.glob(os.path.join(d, "replica_*.log"))):
+        with open(path, "rb") as f:
+            tail = f.read()[-6000:].decode("utf-8", "replace")
+        print(f"--- {path}\n{tail}", file=sys.stderr, flush=True)
+
+
+
 def llama_1b_config():
     from deepspeed_tpu_torch import LlamaConfig
     # the LLAMA_1B geometry of examples/llama/train.py: head_dim 64,
@@ -2943,6 +3453,9 @@ KPM_NAMES = ("masked_flash_fwd", "masked_flash_dq", "masked_flash_dkv")
 SPARSE_DS_CONFIG = "examples/bing_bert/ds_config_sparse.json"
 SPARSE_SEQ, SPARSE_MIN_LEN = 2048, 1024
 SPARSE_STEPS, SPARSE_WARMUP = 3, 1
+# the torch.profiler window over a seq-2048 sparse BERT step (fixed,
+# BSLongformer, legacy, v1): one step (two until the fleet phases came)
+SPARSE_PROFILE_STEPS = 1
 SPARSE_KINDS = ("fixed", "bslongformer")
 # the arity each configuration's layout runs K1-K3 in at seq 2048
 SPARSE_ARITY = {"fixed": "kpm walk16 heads16",
@@ -3653,6 +4166,7 @@ def bert_training_phase(smi, device="cuda", config=None, seq=128,
             attention = f"K1-K3 ({want_arity})"
         bert_profile_phase(
             engine, it, row["step_ms"],
+            steps=2 if sparse is None else SPARSE_PROFILE_STEPS,
             phase=("bert_profile" if sparse is None
                    else "bert_sparse_profile") + route.suffix,
             attention=attention, kernels=route.profiled, randn_ms=randn_ms)
@@ -6360,7 +6874,7 @@ def bert_sparse_training_v1_phase(smi, fixed_losses, randn_ms):
     """Phase 35: phase 19's fixed configuration under USE_MASKED_FLASH =
     False and USE_SPLASH_V2 = False (K14-K16 in the key-mask arity, 48
     launches of each per step and no other attention kernel), 1 warm-up
-    and 3 timed steps and a 2-step profile (K14-K16's ms per launch there
+    and 3 timed steps and a 1-step profile (K14-K16's ms per launch there
     beside ``randn_ms``, phase 33's (b) times by kernel), its losses
     beside phase 19's (same seed and batches); then phase 20's
     kernel-vs-plain check of it (2 layers, fp32, at seq 2048). Returns the
@@ -7303,6 +7817,9 @@ def main() -> int:
     dense_cache_serving_phase(smi, GPT2_MEDIUM, params, gpt2_ref)
     gpt2_generate_launches = generate_phase(smi, GPT2_MEDIUM, params,
                                             "gpt2-345m", gpt2_generate)
+    fleet_launches = fleet_serving_phase(smi, GPT2_MEDIUM, params, gpt2_ref)
+    fleet_child_launches = fleet_process_phase(smi, GPT2_MEDIUM, params,
+                                               gpt2_ref)
     del params, gpt2_ref
     llama_launches = llama_phase(smi)
     train_launches, train_losses = training_phase(smi)
@@ -7318,6 +7835,7 @@ def main() -> int:
         ckpt_serve_launches = serve_from_checkpoint_phase(smi, ckpt_state)
         ckpt_quant_launches = quantized_from_checkpoint_phase(smi,
                                                               ckpt_state)
+        fleet_swap_launches = fleet_swap_phase(smi, ckpt_state)
         checkpoint_fallback_phase(smi, ckpt_state)
         del ckpt_state
     finally:
@@ -7384,7 +7902,8 @@ def main() -> int:
                   + sum(ckpt_serve_launches.values()) + disagg_launches
                   + gpt2_quant_launches["bf16"]
                   + llama_launches["quant"]["bf16"]
-                  + sum(ckpt_quant_launches.values())),
+                  + sum(ckpt_quant_launches.values())
+                  + fleet_launches + fleet_swap_launches),
         launches_by_path={"gpt2-345m bf16 pool": launches,
                           "llama-1b bf16 pool": llama_launches["bf16"],
                           "gpt2-345m bf16 pool, spec_decode k 4 (plain "
@@ -7402,7 +7921,18 @@ def main() -> int:
                               llama_launches["quant"]["bf16"],
                           **{f"gpt2-345m from_checkpoint global_step3, "
                              f"quantize_weights {mode}, bf16 pool": n
-                             for mode, n in ckpt_quant_launches.items()}},
+                             for mode, n in ckpt_quant_launches.items()},
+                          "gpt2-345m fleet, 2 in-process fp32 replicas, "
+                          "drain with live migration (phase 50)":
+                              fleet_launches,
+                          "gpt2-345m fleet swap_weights to global_step6, 2 "
+                          "bf16 replicas (phase 51)": fleet_swap_launches,
+                          "gpt2-345m fleet, 2 replica_worker children fp32, "
+                          "kill and relaunch (phase 52; counted in the "
+                          "children: each child's own count from its "
+                          "state, equal to its decode dispatches x 24 "
+                          "layers; not in launches, this process's "
+                          "count)": fleet_child_launches},
         max_abs_err=timing["max_abs_err"],
         ms=timing["ms"], kernel_ms=timing["ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],

@@ -50,16 +50,27 @@ families).
   the ``model_states`` group of a committed tag (of either package), and
   :meth:`InferenceEngine.swap_params` moves a running engine to a newer
   tag, atomically or not at all; ``weight_version`` names the tag served.
+- **Live KV migration** (:meth:`InferenceEngine.warm_migration`): an
+  in-flight request's live pages leave the decode pool through the
+  ``migrate_export`` program (:meth:`InferenceEngine.export_request`) and
+  enter another engine's through ``migrate_import``
+  (:meth:`InferenceEngine.import_request`), which resumes decode at the
+  same position; the serving fleet (``inference/fleet.py``) drives it.
+- **Health plane** (``observability.health``): a flight recorder over the
+  monitor's mirror and a stall watchdog beaten at each phase (prefill,
+  chunk_prefill, handoff_claim, decode), ``utils/health.py``.
 
 The programs form a fixed set (``inference/programs.py``): one per
 prefill (batch bucket, prompt bucket), decode table width, verify width
 and chunk batch bucket, and the two handoff programs, each captured as
-a CUDA graph at :meth:`warmup` and replayed at every dispatch; :attr:`steady_state_recompiles` counts
-the programs first built after warmup, as the JAX engine counts
-compiles. Where the JAX engine donates the cache to each compiled
-program, the port's programs update the pool tensors in place
-(``models/gpt2.write_paged_kv_cache``), and a weight swap copies into
-the live parameter tensors, whose addresses the graphs hold.
+a CUDA graph at :meth:`warmup` and replayed at every dispatch (the two
+migration programs at :meth:`warm_migration`);
+:attr:`steady_state_recompiles` counts the programs first built after
+warmup, as the JAX engine counts compiles. Where the JAX engine donates
+the cache to each compiled program, the port's programs update the pool
+tensors in place (``models/gpt2.write_paged_kv_cache``), and a weight
+swap copies into the live parameter tensors, whose addresses the graphs
+hold.
 A serving mesh (``inference.mesh``, ``disagg.decode_mesh``) raises
 ``NotImplementedError`` naming the JAX feature.
 """
@@ -79,6 +90,7 @@ from deepspeed_tpu_torch.inference.disagg import (DispatchTrace,
                                                   HandoffQueue,
                                                   HandoffRecord,
                                                   HandoffStats,
+                                                  MigrationRecord,
                                                   price_handoff)
 from deepspeed_tpu_torch.inference.draft import make_drafter
 from deepspeed_tpu_torch.inference.kv_cache import (PageAllocator,
@@ -110,6 +122,7 @@ from deepspeed_tpu_torch.profiling.spans import (ChromeTraceRecorder,
                                                  trace_span)
 from deepspeed_tpu_torch.runtime.config import (get_inference_config,
                                                 get_observability_config)
+from deepspeed_tpu_torch.utils.health import HealthPlane
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.monitor import (TensorBoardMonitor,
                                                _JsonlWriter)
@@ -351,6 +364,11 @@ class InferenceEngine:
             self._recorder = ChromeTraceRecorder()
         self._tracer = ServeTracer(serve_obs, writer=self._log,
                                    recorder=self._recorder)
+        # the postmortem plane: a flight ring over the mirror and a stall
+        # watchdog beaten at each phase (host threads only)
+        self.health = HealthPlane(
+            self.obs_config["health"], monitor=self.monitor, rank=0,
+            component="serve", events_dir=cfg["events_dir"] or None)
         self._steps = 0
         self._serve_secs = 0.0
         self._state_event_every = 64       # serve_state cadence (steps)
@@ -449,6 +467,10 @@ class InferenceEngine:
         self._handoff_width = self._prefill_pps \
             if self._separate_pools else 0
         self._slab = None
+        # the cross-replica migration programs' slab, over the decode
+        # pool at the full table width: made by warm_migration()
+        self._mig_width = 0
+        self._mig_slab = None
         if self._separate_pools:
             self._slab = tuple(
                 torch.empty((c.shape[0], self._handoff_width)
@@ -522,15 +544,21 @@ class InferenceEngine:
         parameters stay as given, since the JAX model reads them in
         fp32. An int8-resident leaf (``QuantizedParam``) moves as it is:
         it is dequantized at each use. Blocks come as one ``h_{i}`` per
-        block or stacked under ``h``."""
+        block or stacked under ``h``. Every leaf is a copy the engine
+        owns, even where device and dtype already match:
+        :meth:`swap_params` writes into these tensors in place, and must
+        reach neither the caller's tree nor another engine's."""
         def place(tree, cast):
             if isinstance(tree, dict):
                 return {k: place(v, cast) for k, v in tree.items()}
             if isinstance(tree, QuantizedParam):
-                return tree.to(self.device)
+                return QuantizedParam(
+                    tree.q.to(self.device, copy=True),
+                    tree.scale.to(self.device, copy=True),
+                    tree.orig_dtype, tree.block)
             t = torch.as_tensor(tree)
-            return t.to(self.device, dtype=self.dtype) if cast else \
-                t.to(self.device)
+            return t.to(self.device, dtype=self.dtype if cast else t.dtype,
+                        copy=True)
         out = {}
         for name, sub in params.items():
             if name == "h" or name.startswith("h_"):
@@ -673,6 +701,24 @@ class InferenceEngine:
             c.index_copy_(1, idx.long(), s)
         return self._cache[0]
 
+    def _migrate_export_impl(self, idx) -> torch.Tensor:
+        """The ``migrate_export`` program's body: gather ``idx``'s pages
+        (an in-flight request's live pages, padded with the null page)
+        out of the decode pool into the migration slab, leaf by leaf (an
+        int8 pool's scale pools ride along). The pool keeps serving."""
+        for c, s in zip(self._cache, self._mig_slab):
+            torch.index_select(c, 1, idx.long(), out=s)
+        return self._mig_slab[0]
+
+    def _migrate_import_impl(self, idx) -> torch.Tensor:
+        """The ``migrate_import`` program's body: scatter the migration
+        slab into the decode pool at ``idx``, in place, into the tensors
+        whose addresses the decode graphs hold (pad entries land in the
+        null page)."""
+        for c, s in zip(self._cache, self._mig_slab):
+            c.index_copy_(1, idx.long(), s)
+        return self._cache[0]
+
     # ----------------------------------------------------------- serving
     def submit(self, request: Request) -> int:
         """Queue one request; returns its uid (FIFO with bounded-lookahead
@@ -695,6 +741,134 @@ class InferenceEngine:
                 self._handoff_q.dropped(rec)
         return self.scheduler.evict(uid, reason=reason)
 
+    # ------------------------------------------------- live KV migration
+    def export_request(self, uid: int) -> Optional[MigrationRecord]:
+        """Export one in-flight request's portable state: a
+        :class:`~.disagg.MigrationRecord` whose slabs hold its live pages
+        (CPU tensors, trimmed to the live pages), gathered by the
+        ``migrate_export`` program; the request is then evicted here
+        (reason "migrate", a row the router drops). None when it cannot
+        leave from here: unknown uid, migration not warmed, no token
+        sampled yet, or its pages still in the prefill pool. Call between
+        :meth:`step` calls: the export replays after the step's programs
+        on the same stream, and the slab reaches the host before this
+        returns."""
+        if self._mig_slab is None:
+            return None
+        sched = self.scheduler
+        for sid in sched.active_slots():
+            slot = sched.slots[sid]
+            if slot.request.uid != uid:
+                continue
+            if slot.pending_tok is None:
+                return None
+            if self._separate_pools and slot.pool == "admit":
+                return None
+            live = min(pages_for(slot.position, self.paged_spec.page_size),
+                       len(slot.pages))
+            idx = np.zeros((self._mig_width,), np.int32)
+            idx[:live] = slot.pages[:live]
+            self._run_handoff("migrate_export", idx)
+            # the wire carries the live pages, never the reservation; an
+            # int8 pool exports four slabs (payload and fp32 scales)
+            slabs = tuple(t[:, :live].to("cpu", copy=True)
+                          for t in self._mig_slab)
+            req = slot.request
+            rec = MigrationRecord(
+                uid=uid, prompt=list(req.prompt),
+                max_new_tokens=req.max_new_tokens,
+                temperature=req.temperature, seed=req.seed,
+                eos_id=req.eos_id, priority=getattr(req, "priority", 0),
+                position=slot.position, pending_tok=slot.pending_tok,
+                tokens=list(slot.tokens), live_pages=live,
+                page_bytes=self._page_bytes, ttft_ms=slot.ttft_ms,
+                queue_wait_ms=slot.queue_wait_ms,
+                elapsed_ms=(sched._clock() - slot.t_submit) * 1e3,
+                draft_proposed=slot.draft_proposed,
+                draft_accepted=slot.draft_accepted,
+                weight_version=self._weight_version,
+                trace_id=getattr(req, "trace_id", None),
+                hop=getattr(req, "hop", 0),
+                kslab=slabs[0], vslab=slabs[1],
+                kscale_slab=slabs[2] if len(slabs) == 4 else None,
+                vscale_slab=slabs[3] if len(slabs) == 4 else None)
+            # the lineage row before the eviction below pops the trace:
+            # the destination's serve_migrate_in shares its trace id
+            self._tracer.on_migrate_out(uid, position=rec.position,
+                                        pages=rec.live_pages,
+                                        nbytes=rec.nbytes)
+            sched.evict(uid, reason="migrate")
+            return rec
+        return None
+
+    def import_request(self, rec: MigrationRecord) -> Optional[int]:
+        """Resume a migrated request here: reserve its full-lifetime
+        pages, copy its slabs into the migration slab, scatter them into
+        the pool at the same logical positions (the ``migrate_import``
+        program, in place) and install the slot at the same position.
+        Decode continues as it would have at the source, since sampling
+        draws from (seed, position) alone. Returns the slot, or None,
+        with nothing allocated, when this engine cannot take it: not
+        warmed, no free slot, the pool exhausted, or slabs whose geometry
+        or dtype differ from this pool's (payload and scales alike)."""
+        if self._mig_slab is None:
+            return None
+        live = int(rec.live_pages)
+        slabs = [rec.kslab, rec.vslab]
+        if getattr(rec, "kscale_slab", None) is not None or \
+                getattr(rec, "vscale_slab", None) is not None:
+            slabs += [rec.kscale_slab, rec.vscale_slab]
+        if len(slabs) != len(self._cache) or live > self._mig_width or \
+                any(x is None for x in slabs):
+            return None      # an int8-pool record into a dense pool, or back
+        for x, leaf in zip(slabs, self._cache):
+            if not isinstance(x, torch.Tensor) or \
+                    tuple(x.shape) != (leaf.shape[0], live) + \
+                    tuple(leaf.shape[2:]) or x.dtype != leaf.dtype:
+                return None
+        sched = self.scheduler
+        if not sched.free_slots():
+            return None
+        spec = self.paged_spec
+        need = pages_for(len(rec.prompt) + rec.max_new_tokens,
+                         spec.page_size)
+        pages = sched.allocator.alloc(max(need, live))
+        if pages is None:
+            return None
+        idx = np.zeros((self._mig_width,), np.int32)
+        idx[:live] = pages[:live]
+        # pad entries scatter zeros into the null page
+        for dst, src in zip(self._mig_slab, slabs):
+            dst.zero_()
+            dst[:, :live].copy_(src)
+        self._run_handoff("migrate_import", idx)
+        req = Request(prompt=list(rec.prompt),
+                      max_new_tokens=rec.max_new_tokens,
+                      temperature=rec.temperature, seed=rec.seed,
+                      eos_id=rec.eos_id, priority=rec.priority,
+                      uid=rec.uid, trace_id=getattr(rec, "trace_id", None),
+                      hop=int(getattr(rec, "hop", 0)) + 1)
+        sid = sched.install_slot(
+            req, position=rec.position, pending_tok=rec.pending_tok,
+            tokens=rec.tokens, pages=pages, ttft_ms=rec.ttft_ms,
+            queue_wait_ms=rec.queue_wait_ms, elapsed_ms=rec.elapsed_ms,
+            draft_proposed=rec.draft_proposed,
+            draft_accepted=rec.draft_accepted, pool="main")
+        if sid is None:
+            sched.allocator.free(pages)
+            return None
+        # the destination half of the lineage pair: the original trace id
+        # with the hop bumped
+        self._tracer.on_migrate_in(
+            rec.uid, trace_id=req.trace_id, hop=req.hop,
+            position=rec.position, pages=live, nbytes=rec.nbytes,
+            queue_wait_ms=rec.queue_wait_ms, ttft_ms=rec.ttft_ms,
+            elapsed_ms=rec.elapsed_ms, tokens=len(rec.tokens))
+        if self._log is not None:
+            self._log.add_event("serve_resume", uid=rec.uid, slot=sid,
+                                position=rec.position, live_pages=live)
+        return sid
+
     def _program(self, name: str, *shape):
         """(key, body) of a dispatch: a chunk at a prefill shape is that
         prefill program, as one jit serves both in the JAX engine."""
@@ -707,7 +881,9 @@ class InferenceEngine:
                 else self._decode_impl,
                 "verify": self._verify_paged_impl,
                 "handoff_export": self._export_pages_impl,
-                "handoff_import": self._import_pages_impl}[name]
+                "handoff_import": self._import_pages_impl,
+                "migrate_export": self._migrate_export_impl,
+                "migrate_import": self._migrate_import_impl}[name]
         return (name,) + tuple(int(d) for d in shape), body
 
     def _dispatch(self, name: str, shape, host: Dict[str, np.ndarray],
@@ -725,10 +901,12 @@ class InferenceEngine:
         return out
 
     def _run_handoff(self, name: str, idx: np.ndarray) -> None:
-        """One ``handoff_export`` or ``handoff_import`` dispatch over the
-        page indices ``idx`` (no sampling follows it)."""
+        """One dispatch of a page-moving program (``handoff_export``,
+        ``handoff_import``, ``migrate_export``, ``migrate_import``) over
+        the page indices ``idx``, whose length is the program's width (no
+        sampling follows it)."""
         t0 = time.perf_counter()
-        key, body = self._program(name, self._handoff_width)
+        key, body = self._program(name, len(idx))
         self.programs.dispatch(key, body, {"idx": idx})
         self.dispatch_secs[name] += time.perf_counter() - t0
         self.dispatches[name] += 1
@@ -802,6 +980,7 @@ class InferenceEngine:
         released to its request at once, or under disaggregation parked
         in the handoff queue for the decode phase to claim."""
         sched = self.scheduler
+        self.health.heartbeat("prefill")
         t0 = time.perf_counter()
         for batch in sched.admit():
             t_p = time.perf_counter()
@@ -842,6 +1021,7 @@ class InferenceEngine:
         cand = sched.chunk_batch(cap=max(self.config["batch_buckets"]))
         if not cand:
             return
+        self.health.heartbeat("chunk_prefill")
         t0 = time.perf_counter()
         bb = pick_bucket(len(cand), self.config["batch_buckets"])
         ct = self._chunk_tokens
@@ -902,6 +1082,7 @@ class InferenceEngine:
         sched = self.scheduler
         q = self._handoff_q
         tracer = self._tracer
+        self.health.heartbeat("handoff_claim")
         t0 = time.perf_counter()
         for rec in q.drain():
             slot = sched.slots[rec.slot]
@@ -956,6 +1137,7 @@ class InferenceEngine:
         seq-``v`` verify dispatch that emits ``accepted + 1`` tokens per
         row. Returns whether anything dispatched."""
         sched = self.scheduler
+        self.health.heartbeat("decode")
         sids, toks, poss, temps, seeds = sched.decode_state()
         if not sids:
             return False
@@ -1226,6 +1408,49 @@ class InferenceEngine:
         contract: no capture on the clock); -1 before warmup ran."""
         return self.programs.steady_state_recompiles
 
+    @property
+    def can_migrate(self) -> bool:
+        """True once :meth:`warm_migration` built the migration programs
+        (the router's capability probe)."""
+        return self._mig_slab is not None
+
+    def warm_migration(self) -> int:
+        """Build the cross-replica live-migration programs:
+        ``migrate_export`` gathers an in-flight request's live pages out
+        of the decode pool into a slab, ``migrate_import`` scatters a
+        slab into the pool in place. They are the handoff pair's bodies
+        pointed at the decode pool, at the full table width
+        (``pages_per_seq``: any in-flight request fits, the shape stays
+        fixed), over one slab allocated here. Both run once against the
+        null page (on the card: captured as CUDA graphs). Call after
+        :meth:`warmup`; the warm set is re-anchored, so
+        :attr:`steady_state_recompiles` stays 0 with migration armed.
+        Returns the number of programs built."""
+        if not self.paged:
+            raise RuntimeError("live migration requires the paged KV pool "
+                               "(inference.paged_kv.enabled)")
+        if self.steady_state_recompiles < 0:
+            raise RuntimeError("warm_migration() before warmup()")
+        if self._mig_slab is not None:
+            return 0
+        self._mig_width = self.paged_spec.pages_per_seq
+        self._mig_slab = tuple(
+            torch.empty((c.shape[0], self._mig_width) + tuple(c.shape[2:]),
+                        dtype=c.dtype, device=self.device)
+            for c in self._cache)
+        self.dispatches.update(migrate_export=0, migrate_import=0)
+        self.dispatch_secs.update(migrate_export=0.0, migrate_import=0.0)
+        before = len(self.programs)
+        idx = np.zeros((self._mig_width,), np.int32)
+        self._run_handoff("migrate_export", idx)
+        self._run_handoff("migrate_import", idx)
+        built = len(self.programs) - before
+        self.programs.mark_warm()
+        if self._log is not None:
+            self._log.add_event("serve_warm_migration", programs=built,
+                                width=self._mig_width)
+        return built
+
     def set_speculation(self, on: bool) -> bool:
         """Toggle speculative decoding without touching the program set
         (the plain decode program is part of the warmed set, so turning
@@ -1455,6 +1680,9 @@ class InferenceEngine:
         return version
 
     def close(self):
+        # health first: untapping restores the raw mirror, so the
+        # identity check below still finds the engine's own writer
+        self.health.close()
         if self._log is not None:
             # seal the run with a final pool/SLO snapshot
             self._log.add_event("serve_state", step=self._steps,

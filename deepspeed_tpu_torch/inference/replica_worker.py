@@ -1,0 +1,337 @@
+"""One serving replica as a child process (the port of
+``deepspeed_tpu/inference/replica_worker.py``).
+
+``python -m deepspeed_tpu_torch.inference.replica_worker --port P --spec F``
+builds one :class:`~.engine.InferenceEngine` from the JSON spec at ``F``,
+connects back to the router's loopback listener on ``P``, announces
+readiness (pid, flight recorder path, state), and serves the :mod:`~.rpc`
+methods until told to shut down. The engine, its program set (CUDA
+graphs on the card, in this process's own CUDA context), its flight
+recorder and its watchdog live in one failure domain: a crash, or the
+watchdog's ``os._exit(87)``, takes down one replica, not the fleet.
+
+Spec grammar (everything the child needs)::
+
+    {"family": "gpt2",
+     "model_config": {...GPT2Config kwargs...},
+     "init_seed": 3,                  # params from the port's generator
+                                      #   on the device, seeded so, OR
+     "checkpoint_dir": "...", "tag": "...",   # a committed tag
+     "inference": {...inference config...},
+     "observability": {...},          # health.enabled gives the child
+     "dtype": "float32",              #   its own flight_serve.json
+     "device": "cuda",                # the default; "cpu" serves on the
+                                      #   CPU with the kernels' plain
+                                      #   versions
+     "warm_migration": true}
+
+``device`` is the port's one addition to the JAX grammar. A child asked
+for ``"cuda"`` on a host without a card raises, as the engine does; it
+never drifts to the CPU. On the card the child loads the kernels the
+parent built (``ops/_build.py`` names each library by a hash of its
+sources and builds under a file lock), and ``init_seed`` draws the same
+weights as a parent's ``init_gpt2_params(cfg, torch.Generator(
+device="cuda").manual_seed(seed))``.
+
+Death protocol: a preemption (SIGTERM through the installed
+:class:`~deepspeed_tpu_torch.runtime.elastic.PreemptionGuard`, or an
+env-armed ``serve.replica_kill`` injection, fired only while a request is
+mid-decode) is answered with a *deathbed frame*: after the device
+finished the last step, every in-flight request's live pages are
+exported through the ``migrate_export`` program, copied to host memory
+and shipped in the reply (``{"dying": true, "exports": [...]}`` plus the
+slab payload); the flight recorder dumps, and the process exits
+``RESUMABLE_EXIT_CODE`` (85) so the supervisor knows the death is
+restart-eligible. The router imports the exports into survivors, where
+decode resumes at the same position with no re-prefill. A handler that
+fails leaves the replica alive (an ``ok: false`` reply); only an uncaught
+crash in the serve loop exits otherwise.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+from dataclasses import asdict
+from typing import Any, Dict, Tuple
+
+import torch
+
+from deepspeed_tpu_torch.inference import rpc
+from deepspeed_tpu_torch.inference.rpc import (request_from_wire,
+                                               request_to_wire)
+from deepspeed_tpu_torch.ops.attention.paged import paged_decode_attention
+from deepspeed_tpu_torch.runtime import fault
+from deepspeed_tpu_torch.runtime.elastic import (RESUMABLE_EXIT_CODE,
+                                                 Preempted, PreemptionGuard)
+from deepspeed_tpu_torch.utils.logging import logger
+
+__all__ = ["main", "ReplicaWorker", "request_from_wire",
+           "request_to_wire"]
+
+
+class _Death(Exception):
+    """Internal: the worker must die gracefully (deathbed frame)."""
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
+
+
+class ReplicaWorker:
+    """The dispatch table around one engine. The methods mirror the
+    engine's host API; every reply carries a ``state`` snapshot, so the
+    router's routing and drain decisions need no extra round trips."""
+
+    def __init__(self, engine, guard: PreemptionGuard):
+        self.engine = engine
+        self.guard = guard
+        self.exit_code = 0
+        self._handlers = {
+            "submit": self._h_submit, "cancel": self._h_cancel,
+            "step": self._h_step, "state": self._h_state,
+            "export_request": self._h_export,
+            "import_request": self._h_import,
+            "swap_params": self._h_swap,
+            "set_speculation": self._h_spec,
+            "clock_ping": self._h_clock_ping,
+            "shutdown": self._h_shutdown,
+        }
+
+    # ------------------------------------------------------------ state
+    def state(self) -> Dict[str, Any]:
+        eng = self.engine
+        sched = eng.scheduler
+        active = [(s, sched.slots[s]) for s in sched.active_slots()]
+        alloc = getattr(sched, "allocator", None)
+        q = getattr(eng, "_handoff_q", None)
+        return {
+            "pid": os.getpid(),
+            "queue_depth": sched.queue_depth,
+            "queued_uids": [r.uid for r in sched.queue],
+            "active_uids": [s.request.uid for _, s in active],
+            "mid_decode_uids": [s.request.uid for _, s in active
+                                if s.pending_tok is not None],
+            "occupancy": sched.occupancy,
+            "total_tokens": sched.total_tokens,
+            "pages_in_use": (alloc.pages_in_use
+                             if alloc is not None else None),
+            "idle": sched.idle() and (q is None or len(q) == 0),
+            "weight_version": eng.weight_version,
+            "weight_ordinal": eng.weight_ordinal,
+            "steady_state_recompiles": eng.steady_state_recompiles,
+            "can_migrate": getattr(eng, "can_migrate", False),
+            # cumulative program dispatches, and the decode ones (each
+            # runs the paged-decode kernel once per layer): host ints
+            "dispatches": sum(eng.dispatches.values()),
+            "decode_dispatches": eng.dispatches.get("decode", 0),
+            # the paged-decode kernel's launch counts in this process
+            # (dense and int8-pool arities; graph replays included)
+            "k4_launches": [paged_decode_attention.launches,
+                            paged_decode_attention.launches_int8],
+            # the caching allocator's peak on the card (a host read)
+            "peak_memory_bytes": (
+                torch.cuda.max_memory_allocated(eng.device)
+                if eng.device.type == "cuda" else None),
+        }
+
+    def hello(self) -> Dict[str, Any]:
+        health = getattr(self.engine, "health", None)
+        return {"pid": os.getpid(),
+                "flight_path": getattr(health, "flight_path", None),
+                "events_dir": self.engine.config.get("events_dir"),
+                "state": self.state()}
+
+    # --------------------------------------------------------- handlers
+    def _h_submit(self, params, payload):
+        uid = self.engine.submit(request_from_wire(params["request"]))
+        return {"uid": uid, "state": self.state()}, b""
+
+    def _h_cancel(self, params, payload):
+        fin = self.engine.cancel(int(params["uid"]),
+                                 reason=params.get("reason", "evicted"))
+        return {"fin": None if fin is None else asdict(fin),
+                "state": self.state()}, b""
+
+    def _h_step(self, params, payload):
+        sched = self.engine.scheduler
+        if any(sched.slots[s].pending_tok is not None
+               for s in sched.active_slots()):
+            # the kill test's hook: armed via DSTPU_FAULT_ARM, this
+            # fires only while a request is mid-decode — death at the
+            # worst moment, generated tokens and live pages at stake
+            fault.fire("serve.replica_kill", pid=os.getpid())
+        if self.guard.preempted:
+            raise _Death(self.guard.reason or "preempted")
+        fins = self.engine.step()
+        return {"fins": [asdict(f) for f in fins],
+                "state": self.state()}, b""
+
+    def _h_state(self, params, payload):
+        return {"state": self.state()}, b""
+
+    def _h_export(self, params, payload):
+        rec = self.engine.export_request(int(params["uid"]))
+        if rec is None:
+            return {"header": None, "state": self.state()}, b""
+        head, slab = rpc.migration_to_wire(rec)
+        return {"header": head, "state": self.state()}, slab
+
+    def _h_import(self, params, payload):
+        rec = rpc.migration_from_wire(params["header"], payload)
+        sid = self.engine.import_request(rec)
+        return {"slot": sid, "state": self.state()}, b""
+
+    def _h_swap(self, params, payload):
+        version = self.engine.swap_params(
+            params["load_dir"], tag=params.get("tag"),
+            verify_integrity=bool(params.get("verify_integrity", True)))
+        return {"weight_version": version, "state": self.state()}, b""
+
+    def _h_spec(self, params, payload):
+        changed = self.engine.set_speculation(bool(params["on"]))
+        return {"changed": changed, "state": self.state()}, b""
+
+    def _h_clock_ping(self, params, payload):
+        # clock-alignment probe: reply with this process's
+        # wall clock and NOTHING else — no state snapshot, so the reply
+        # is as small (and the midpoint estimate as tight) as the
+        # channel allows. The router brackets the call with its own
+        # t0/t1 and estimates offset = t_child - (t0 + t1) / 2 with
+        # uncertainty (t1 - t0) / 2.
+        return {"t_child": time.time()}, b""
+
+    def _h_shutdown(self, params, payload):
+        raise rpc.ServerExit(result={"bye": True,
+                                     "state": self.state()})
+
+    # --------------------------------------------------------- dispatch
+    def dispatch(self, method: str, params: Dict[str, Any],
+                 payload: bytes) -> Tuple[Any, bytes]:
+        handler = self._handlers.get(method)
+        if handler is None:
+            raise KeyError(f"unknown rpc method {method!r}")
+        try:
+            return handler(params, payload)
+        except (fault.InjectedCrash, Preempted, _Death) as e:
+            raise self._deathbed(getattr(e, "reason", None)
+                                 or f"{type(e).__name__}: {e}")
+
+    def _deathbed(self, reason: str) -> rpc.ServerExit:
+        """Export every in-flight request's live pages, dump the flight
+        recorder, and hand the serve loop a reply-then-exit frame."""
+        eng = self.engine
+        if eng.device.type == "cuda":
+            # the export reads the pool the last replay wrote
+            torch.cuda.synchronize(eng.device)
+        sched = eng.scheduler
+        uids = [sched.slots[s].request.uid for s in sched.active_slots()]
+        exports = []
+        for uid in uids:
+            try:
+                rec = eng.export_request(uid)
+            except Exception as e:  # noqa: BLE001 — salvage the rest
+                logger.warning(f"replica worker: deathbed export of "
+                               f"uid {uid} failed ({e!r})")
+                continue
+            if rec is not None:
+                exports.append(rec)
+        headers, slabs = [], []
+        for rec in exports:
+            h, p = rpc.migration_to_wire(rec)
+            headers.append(h)
+            slabs.append(p)
+        health = getattr(eng, "health", None)
+        if health is not None and getattr(health, "enabled", False):
+            health.dump("replica_death", reason=reason,
+                        exports=len(exports))
+        logger.warning(
+            f"replica worker {os.getpid()}: dying ({reason}); "
+            f"{len(exports)} in-flight requests exported for "
+            f"migration")
+        self.exit_code = RESUMABLE_EXIT_CODE
+        return rpc.ServerExit(
+            result={"dying": True, "reason": reason,
+                    "exit_code": RESUMABLE_EXIT_CODE,
+                    "exports": headers,
+                    "queued": [request_to_wire(r)
+                               for r in sched.queue]},
+            payload=b"".join(slabs))
+
+
+def _build_engine(spec: Dict[str, Any]):
+    """The heavy half, after the socket connect: the model build and
+    warmup run while the router already holds the accepted connection
+    and waits for the ready frame."""
+    from deepspeed_tpu_torch.inference.engine import (InferenceEngine,
+                                                      _resolve_device)
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, init_gpt2_params
+
+    family = spec.get("family", "gpt2")
+    if family != "gpt2":
+        raise ValueError(f"replica_worker: unsupported model family "
+                         f"{family!r}")
+    mcfg = GPT2Config(**spec["model_config"])
+    dtype = getattr(torch, spec.get("dtype", "bfloat16"))
+    # "cuda" resolves as the engine resolves it: without a card it raises
+    requested = spec.get("device", "cuda")
+    device = _resolve_device(None if requested == "cuda" else requested)
+    if spec.get("checkpoint_dir"):
+        engine = InferenceEngine.from_checkpoint(
+            spec["checkpoint_dir"], mcfg, tag=spec.get("tag"),
+            inference_config=spec.get("inference"), dtype=dtype,
+            observability_config=spec.get("observability"), device=device)
+    else:
+        gen = torch.Generator(device=device).manual_seed(
+            int(spec.get("init_seed", 0)))
+        params = init_gpt2_params(mcfg, gen)
+        engine = InferenceEngine(
+            mcfg, params, spec.get("inference"), dtype=dtype,
+            observability_config=spec.get("observability"), device=device)
+    engine.warmup()
+    if spec.get("warm_migration", True) and engine.paged:
+        engine.warm_migration()
+    return engine
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="replica_worker")
+    ap.add_argument("--port", type=int, required=True,
+                    help="router loopback port to connect back to")
+    ap.add_argument("--spec", required=True,
+                    help="path to the replica spec JSON")
+    ap.add_argument("--connect_timeout_s", type=float, default=60.0)
+    args = ap.parse_args(argv)
+    with open(args.spec) as f:
+        spec = json.load(f)
+    # connect FIRST (cheap) so the router's accept() returns while the
+    # expensive engine build runs; the ready frame closes the gap
+    sock = rpc.connect_local(args.port,
+                             timeout_s=args.connect_timeout_s)
+    sock.settimeout(None)
+    # env-armed faults (DSTPU_FAULT_ARM) — the kill tests arm
+    # serve.replica_kill in exactly one child's environment
+    fault.arm_from_env()
+    guard = PreemptionGuard()
+    guard.install()
+    try:
+        engine = _build_engine(spec)
+    except Exception as e:  # noqa: BLE001 — tell the router, then die
+        rpc.send_frame(sock, {"ok": False, "error": {
+            "kind": "remote",
+            "message": f"engine build failed: {type(e).__name__}: {e}"}})
+        raise
+    worker = ReplicaWorker(engine, guard)
+    rpc.send_frame(sock, {"ok": True, "result": worker.hello()})
+    rpc.RpcServer(sock).serve(worker.dispatch)
+    try:
+        engine.close()
+    except Exception as e:  # noqa: BLE001 — exit code already decided
+        logger.warning(f"replica worker: close failed ({e!r})")
+    guard.uninstall()
+    return worker.exit_code
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,416 @@
+"""The serving fleet's process-boundary RPC (the port of
+``deepspeed_tpu/inference/rpc.py``).
+
+One replica per child process gives independent failure domains: a
+watchdog ``os._exit(87)`` or a crash takes down one engine, not the
+service. This module is the wire between :class:`~.fleet.FleetRouter`
+(the parent) and ``replica_worker`` children (each hosting one
+:class:`~.engine.InferenceEngine`): length-prefixed JSON frames with an
+optional raw binary segment (KV page slabs ride there as raw bytes,
+never as JSON floats) over a loopback socket. The frames are byte for
+byte the JAX package's, so either package's router can talk to either
+package's replica.
+
+Frame layout (both directions)::
+
+    !II header   = (json_len, bin_len), network byte order
+    json_len     UTF-8 JSON object
+    bin_len      raw payload (page slabs; b"" for control traffic)
+
+Requests are ``{"method": str, "params": {...}}``; replies are
+``{"ok": true, "result": ...}`` or ``{"ok": false, "error": {"kind",
+"message"}}``. Calls are synchronous and in order: the router is
+single-threaded, so one call is outstanding per replica.
+
+Arrays: a slab's metadata (``dtype`` name, ``shape``, ``nbytes``) rides
+in the header and its bytes in the payload. A ``torch.bfloat16`` tensor
+crosses as its 16-bit pattern under numpy's name for the type,
+``"bfloat16"``, which is what the JAX package writes for an ``ml_dtypes``
+array; decoding reads the pattern back through an ``int16`` view, so the
+port needs no ``ml_dtypes``. Decoded arrays are CPU torch tensors.
+
+Error taxonomy (each kind is its own ``runtime/fault.py`` point):
+
+``transport`` (:class:`RpcTransportError`, point ``rpc.transport``)
+    a transient channel fault; the client retries with bounded
+    exponential backoff before escalating.
+``timeout`` (:class:`RpcTimeoutError`, point ``rpc.timeout``)
+    no reply within the per-call deadline. Not retried: the request may
+    have been applied, and not every method is idempotent.
+``replica_dead`` (:class:`ReplicaDeadError`, point ``rpc.replica_dead``)
+    the peer closed the channel (EOF) or announced its own death (a
+    deathbed frame carrying migration exports). Terminal for this
+    connection; the router salvages, migrates and maybe relaunches.
+
+Standard library, numpy and torch's CPU tensors only: no device work.
+"""
+
+import json
+import socket
+import struct
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.runtime import fault
+from deepspeed_tpu_torch.utils.logging import logger
+
+__all__ = [
+    "RpcError", "RpcTransportError", "RpcTimeoutError",
+    "ReplicaDeadError", "RpcRemoteError", "RpcClient", "RpcServer",
+    "ServerExit", "send_frame", "recv_frame", "encode_arrays",
+    "decode_arrays", "decode_migrations", "migration_to_wire",
+    "migration_from_wire", "request_to_wire", "request_from_wire",
+    "listen_local", "connect_local",
+]
+
+#: frame header: (json_len, bin_len), network byte order
+_HEADER = struct.Struct("!II")
+#: refuse absurd frames (a desynced stream reads garbage lengths)
+MAX_FRAME_BYTES = 1 << 30
+
+
+# --------------------------------------------------------------- errors
+class RpcError(Exception):
+    """Base of the pinned taxonomy; ``kind`` is the wire/router key."""
+    kind = "transport"
+
+    def __init__(self, message: str, method: Optional[str] = None):
+        super().__init__(message)
+        self.method = method
+
+
+class RpcTransportError(RpcError):
+    """Transient channel fault — retried with backoff by the client."""
+    kind = "transport"
+
+
+class RpcTimeoutError(RpcError):
+    """Per-call deadline exceeded — never retried (not idempotent)."""
+    kind = "timeout"
+
+
+class ReplicaDeadError(RpcError):
+    """The peer is gone: EOF, or a deathbed frame. ``exports`` carries
+    any :class:`~.disagg.MigrationRecord` the dying replica shipped
+    out with its last breath (live KV pages of in-flight requests)."""
+    kind = "replica_dead"
+
+    def __init__(self, message: str, method: Optional[str] = None,
+                 exports: Optional[List[Any]] = None,
+                 reason: Optional[str] = None):
+        super().__init__(message, method=method)
+        self.exports = list(exports or [])
+        self.reason = reason
+
+
+class RpcRemoteError(RpcError):
+    """The replica's handler raised: the engine survived, the call
+    failed. Application-level, outside the transport taxonomy."""
+    kind = "remote"
+
+
+# -------------------------------------------------------------- framing
+def send_frame(sock, header: Dict[str, Any],
+               payload: bytes = b"") -> None:
+    """One length-prefixed frame: JSON header + raw binary segment."""
+    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    sock.sendall(_HEADER.pack(len(blob), len(payload)))
+    sock.sendall(blob)
+    if payload:
+        sock.sendall(payload)
+
+
+def _recv_exact(sock, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(min(n - len(buf), 1 << 20))
+        if not chunk:
+            raise ReplicaDeadError(
+                f"peer closed the channel mid-frame "
+                f"({len(buf)}/{n} bytes)")
+        buf += chunk
+    return bytes(buf)
+
+
+def recv_frame(sock) -> Tuple[Dict[str, Any], bytes]:
+    jlen, plen = _HEADER.unpack(_recv_exact(sock, _HEADER.size))
+    if jlen > MAX_FRAME_BYTES or plen > MAX_FRAME_BYTES:
+        raise RpcTransportError(
+            f"frame header implausible ({jlen}/{plen} bytes) — "
+            f"stream desynced")
+    header = json.loads(_recv_exact(sock, jlen).decode("utf-8"))
+    payload = _recv_exact(sock, plen) if plen else b""
+    return header, payload
+
+
+# ----------------------------------------------------------- slab codec
+#: numpy's name for bfloat16 (an ml_dtypes type), which the JAX package
+#: writes into a slab's metadata
+_BF16 = "bfloat16"
+
+
+def _to_bytes(a) -> Tuple[str, List[int], bytes]:
+    """(dtype name, shape, raw bytes) of a torch tensor or numpy array."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().to("cpu").contiguous()
+        if t.dtype == torch.bfloat16:
+            return _BF16, list(t.shape), t.view(torch.int16).numpy().tobytes()
+        a = t.numpy()
+    a = np.ascontiguousarray(a)
+    return a.dtype.name, list(a.shape), a.tobytes()
+
+
+def encode_arrays(arrays: Sequence[Any]
+                  ) -> Tuple[List[Dict[str, Any]], bytes]:
+    """Tensors or numpy arrays -> (JSON-able metadata, concatenated raw
+    bytes): the binary segment of a frame; dtype and shape ride in the
+    header."""
+    metas, parts = [], []
+    for a in arrays:
+        name, shape, blob = _to_bytes(a)
+        metas.append({"dtype": name, "shape": shape, "nbytes": len(blob)})
+        parts.append(blob)
+    return metas, b"".join(parts)
+
+
+def decode_arrays(metas: Sequence[Dict[str, Any]],
+                  payload: bytes) -> List[torch.Tensor]:
+    """The inverse of :func:`encode_arrays`, as CPU torch tensors (a
+    ``"bfloat16"`` slab through an ``int16`` view of its bytes)."""
+    out, off = [], 0
+    for m in metas:
+        bf16 = m["dtype"] == _BF16
+        dt = np.dtype(np.int16 if bf16 else m["dtype"])
+        n = int(m["nbytes"])
+        arr = np.frombuffer(payload, dtype=dt, offset=off,
+                            count=n // dt.itemsize).reshape(m["shape"])
+        t = torch.from_numpy(arr.copy())
+        out.append(t.view(torch.bfloat16) if bf16 else t)
+        off += n
+    return out
+
+
+def migration_to_wire(rec) -> Tuple[Dict[str, Any], bytes]:
+    """:class:`~.disagg.MigrationRecord` -> (header dict, slab bytes).
+    Quantized (int8-pool) records append their fp32 scale slabs as
+    arrays 3 and 4 — the payload stays int8 on the wire; the array
+    count in the header is what the decoder branches on."""
+    slabs = [rec.kslab, rec.vslab]
+    if getattr(rec, "kscale_slab", None) is not None:
+        slabs += [rec.kscale_slab, rec.vscale_slab]
+    metas, payload = encode_arrays(slabs)
+    head = rec.to_header()
+    head["arrays"] = metas
+    return head, payload
+
+
+def migration_from_wire(head: Dict[str, Any], payload: bytes):
+    from deepspeed_tpu_torch.inference.disagg import MigrationRecord
+    arrays = decode_arrays(head["arrays"], payload)
+    kscale = vscale = None
+    if len(arrays) == 4:
+        kscale, vscale = arrays[2], arrays[3]
+    fields = {k: v for k, v in head.items() if k != "arrays"}
+    return MigrationRecord(kslab=arrays[0], vslab=arrays[1],
+                           kscale_slab=kscale, vscale_slab=vscale,
+                           **fields)
+
+
+def decode_migrations(headers: Sequence[Dict[str, Any]],
+                      payload: bytes) -> List[Any]:
+    """Unpack N concatenated migration records from one frame (the
+    deathbed shape: every in-flight request in a single reply)."""
+    out, off = [], 0
+    for h in headers:
+        n = sum(int(m["nbytes"]) for m in h["arrays"])
+        out.append(migration_from_wire(h, payload[off:off + n]))
+        off += n
+    return out
+
+
+def request_to_wire(req) -> Dict[str, Any]:
+    """:class:`~.scheduler.Request` -> JSON dict. The uid ships
+    explicitly: requests originate in the router process, so one uid
+    space spans the fleet regardless of which child answers."""
+    return {"prompt": list(req.prompt),
+            "max_new_tokens": req.max_new_tokens,
+            "temperature": req.temperature, "seed": req.seed,
+            "eos_id": req.eos_id,
+            "priority": getattr(req, "priority", 0), "uid": req.uid,
+            # distributed-trace context: the router's stamp rides every
+            # frame, so the replica-side tracer rows correlate across
+            # the process boundary (None/0 for unstamped requests)
+            "trace_id": getattr(req, "trace_id", None),
+            "hop": getattr(req, "hop", 0)}
+
+
+def request_from_wire(d: Dict[str, Any]):
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    return Request(prompt=list(d["prompt"]),
+                   max_new_tokens=int(d.get("max_new_tokens", 16)),
+                   temperature=float(d.get("temperature", 0.0)),
+                   seed=int(d.get("seed", 0)), eos_id=d.get("eos_id"),
+                   priority=int(d.get("priority", 0)),
+                   uid=int(d["uid"]),
+                   trace_id=d.get("trace_id"),
+                   hop=int(d.get("hop", 0)))
+
+
+# --------------------------------------------------------------- client
+class RpcClient:
+    """The router's end of one replica channel: synchronous calls with
+    a per-call timeout and bounded exponential-backoff retry on
+    transient transport faults (timeouts and EOF are terminal — a
+    retried non-idempotent call could double-apply)."""
+
+    def __init__(self, sock, timeout_s: float = 60.0, retries: int = 2,
+                 backoff_s: float = 0.05, sleep: Callable = time.sleep,
+                 name: str = "replica"):
+        self._sock = sock
+        self.timeout_s = float(timeout_s)
+        self.retries = int(retries)
+        self.backoff_s = float(backoff_s)
+        self._sleep = sleep
+        self.name = name
+        self.calls = 0
+        self.retried = 0
+
+    def _inject(self, method: str) -> None:
+        # the taxonomy's three fault hooks, each its own point so a
+        # test (or DSTPU_FAULT_ARM) targets exactly one failure mode
+        try:
+            fault.fire("rpc.transport", method=method, name=self.name)
+        except (fault.InjectedCrash, OSError) as e:
+            raise RpcTransportError(
+                f"injected transport fault: {e!r}", method=method)
+        try:
+            fault.fire("rpc.timeout", method=method, name=self.name)
+        except (fault.InjectedCrash, OSError) as e:
+            raise RpcTimeoutError(
+                f"injected timeout: {e!r}", method=method)
+        try:
+            fault.fire("rpc.replica_dead", method=method,
+                       name=self.name)
+        except (fault.InjectedCrash, OSError) as e:
+            raise ReplicaDeadError(
+                f"injected replica death: {e!r}", method=method)
+
+    def _call_once(self, method, params, payload, timeout_s
+                   ) -> Tuple[Any, bytes]:
+        deadline = self.timeout_s if timeout_s is None else timeout_s
+        self._inject(method)
+        try:
+            self._sock.settimeout(deadline)
+            send_frame(self._sock, {"method": method,
+                                    "params": params or {}}, payload)
+            header, out = recv_frame(self._sock)
+        except socket.timeout as e:
+            raise RpcTimeoutError(
+                f"{method}: no reply within {deadline:g}s",
+                method=method) from e
+        except ReplicaDeadError as e:
+            e.method = e.method or method
+            raise
+        except OSError as e:
+            raise RpcTransportError(f"{method}: {e!r}",
+                                    method=method) from e
+        if not header.get("ok"):
+            err = header.get("error") or {}
+            raise RpcRemoteError(
+                f"{method}: remote {err.get('kind', '?')}: "
+                f"{err.get('message', '')}", method=method)
+        return header.get("result"), out
+
+    def call(self, method: str, params: Optional[Dict] = None,
+             payload: bytes = b"", timeout_s: Optional[float] = None
+             ) -> Tuple[Any, bytes]:
+        """Returns ``(result, reply_payload)``; raises the taxonomy."""
+        self.calls += 1
+        for attempt in range(self.retries + 1):
+            try:
+                return self._call_once(method, params, payload,
+                                       timeout_s)
+            except RpcTransportError as e:
+                if attempt >= self.retries:
+                    raise
+                delay = self.backoff_s * (2 ** attempt)
+                self.retried += 1
+                logger.warning(
+                    f"rpc [{self.name}] {method}: transient transport "
+                    f"fault ({e}); retry {attempt + 1}/"
+                    f"{self.retries} in {delay:.3f}s")
+                self._sleep(delay)
+        raise AssertionError("unreachable")
+
+    def close(self) -> None:
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+# --------------------------------------------------------------- server
+class ServerExit(Exception):
+    """A handler's way to reply-then-stop: the server sends ``result``
+    (+ ``payload``) as a normal ok frame and returns from serve().
+    The worker's deathbed frame (dying=True + exports) rides this."""
+
+    def __init__(self, result: Any = None, payload: bytes = b""):
+        super().__init__("server exit")
+        self.result = result
+        self.payload = payload
+
+
+class RpcServer:
+    """The replica child's end: a blocking dispatch loop. ``dispatch``
+    is ``(method, params, payload) -> (result, reply_payload)``;
+    raising :class:`ServerExit` replies then stops the loop, any other
+    exception becomes an ``{"ok": false}`` reply (the engine keeps
+    serving)."""
+
+    def __init__(self, sock):
+        self._sock = sock
+
+    def serve(self, dispatch: Callable) -> None:
+        while True:
+            try:
+                header, payload = recv_frame(self._sock)
+            except (ReplicaDeadError, OSError):
+                return  # the router went away; nothing left to serve
+            method = header.get("method", "")
+            try:
+                result, out = dispatch(method,
+                                       header.get("params") or {},
+                                       payload)
+            except ServerExit as e:
+                send_frame(self._sock, {"ok": True, "result": e.result},
+                           e.payload)
+                return
+            except Exception as e:  # noqa: BLE001 — reply, keep serving
+                send_frame(self._sock, {"ok": False, "error": {
+                    "kind": "remote",
+                    "message": f"{type(e).__name__}: {e}"}})
+                continue
+            send_frame(self._sock, {"ok": True, "result": result},
+                       out or b"")
+
+
+# ------------------------------------------------------------ transport
+def listen_local() -> Tuple[socket.socket, int]:
+    """Loopback listener on an ephemeral port (the child connects back
+    with the port from its argv)."""
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(8)
+    return srv, srv.getsockname()[1]
+
+
+def connect_local(port: int, timeout_s: float = 30.0) -> socket.socket:
+    sock = socket.create_connection(("127.0.0.1", port),
+                                    timeout=timeout_s)
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    return sock

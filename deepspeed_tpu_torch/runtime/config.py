@@ -675,7 +675,8 @@ def get_observability_config(param_dict):
     """The serving part of the ``observability`` section: the ``serve``
     sub-section (request trail, SLO thresholds, sampling, rotation,
     replica id), the top-level ``events_max_mb`` rotation cap it
-    inherits, and ``chrome_trace_path``."""
+    inherits, ``chrome_trace_path`` and ``health`` (the serving engine's
+    flight recorder and watchdog)."""
     sub = param_dict.get(C.OBSERVABILITY, {})
     srv = sub.get(C.OBS_SERVE, {}) or {}
     slo = srv.get(C.OBS_SERVE_SLO, {}) or {}
@@ -731,6 +732,7 @@ def get_observability_config(param_dict):
         "chrome_trace_path": sub.get(C.OBS_CHROME_TRACE_PATH,
                                      C.OBS_CHROME_TRACE_PATH_DEFAULT),
         "serve": serve,
+        "health": _health_config(sub),
     }
 
 

@@ -21,20 +21,53 @@ package's names:
                                 yet run: the torn-pointer window
 - ``serve.swap_load``         : in ``InferenceEngine.swap_params``, after
                                 the tag's pre-flight and before the load
+- ``serve.replica_preempt``   : once per live replica per router step
+                                (ctx: ``replica``): a raised injection
+                                preempts that replica
+- ``serve.dispatch``          : in the router's dispatch of one request to
+                                its chosen replica (ctx: ``replica``,
+                                ``uid``): the request is rerouted
+- ``rpc.transport``           : at the top of every RPC call attempt
+                                (ctx: ``method``, ``name``): surfaces as
+                                ``RpcTransportError``, retried
+- ``rpc.timeout``             : same site, surfaces as ``RpcTimeoutError``
+- ``rpc.replica_dead``        : same site, surfaces as ``ReplicaDeadError``
+- ``serve.replica_kill``      : in the replica worker's step handler, only
+                                while a request is mid-decode (ctx:
+                                ``pid``): ``crash`` runs the deathbed
+                                (export live pages, dump the flight
+                                recorder, exit 85)
 
 ``retry_io`` retries ``OSError`` with exponential backoff, never
 ``InjectedCrash``: a simulated process death must kill the save.
-``DSTPU_FAULT_ARM`` (arming a relaunched process from its environment)
-is not ported: its signal actions belong to the preemption drain.
+
+Env-armed injections (``DSTPU_FAULT_ARM``): a relaunched process, which
+no in-process test can reach, arms itself from its environment (a
+replica worker at start, a fleet router at construction). Grammar
+(comma-separated)::
+
+    point:action[:times][@once_file]
+
+with actions ``crash`` (raise InjectedCrash), ``oserror`` (raise
+OSError), ``sigterm`` (deliver a real SIGTERM to this process),
+``preempt`` (flag the installed PreemptionGuards through
+``elastic.request_preemption``) and ``stall`` (sleep
+``DSTPU_FAULT_STALL_S`` seconds, default 30, inside the fault point,
+wedging the caller past the health watchdog's timeout). ``@once_file``
+makes the arm one-shot across processes: the spec arms only while the
+file exists and the first fire deletes it.
 """
 
 import os
 import time
 import zlib
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 __all__ = ["InjectedCrash", "FaultInjector", "get_injector", "fire", "arm",
-           "reset", "retry_io", "flip_byte", "truncate_file", "crc32_file"]
+           "reset", "retry_io", "flip_byte", "truncate_file", "crc32_file",
+           "arm_from_env", "ENV_ARM"]
+
+ENV_ARM = "DSTPU_FAULT_ARM"
 
 
 class InjectedCrash(Exception):
@@ -123,6 +156,94 @@ def retry_io(fn: Callable[[], Any], *, retries: int = 3,
                 raise
             sleep(backoff * (2 ** attempt))
             attempt += 1
+
+
+# ---------------------------------------------------------------------
+# env-armed injections: fault a process reachable only by its environment
+# ---------------------------------------------------------------------
+
+def _env_action(name: str, point: str) -> Callable[..., None]:
+    if name == "crash":
+        def act(**ctx):
+            raise InjectedCrash(point)
+    elif name == "oserror":
+        def act(**ctx):
+            raise OSError(f"injected transient failure at {point}")
+    elif name == "sigterm":
+        def act(**ctx):
+            import signal
+            os.kill(os.getpid(), signal.SIGTERM)
+    elif name == "preempt":
+        def act(**ctx):
+            from deepspeed_tpu_torch.runtime import elastic
+            elastic.request_preemption(f"env-armed fault at {point}")
+    elif name == "stall":
+        def act(**ctx):
+            # wedge the caller itself (not a side thread): the health
+            # watchdog must see a silent step loop
+            time.sleep(float(os.environ.get("DSTPU_FAULT_STALL_S",
+                                            "30")))
+    else:
+        raise ValueError(
+            f"{ENV_ARM}: unknown action {name!r} (want crash | oserror "
+            f"| sigterm | preempt | stall)")
+    return act
+
+
+# the process-wide latch of the no-argument call: arming is per process,
+# not per component (a second arming would reset the fired count and
+# turn a `times:1` spec into once per component). reset() keeps it.
+_ENV_ARMED = False
+
+
+def arm_from_env(env=None) -> List[str]:
+    """Arm fault points from ``DSTPU_FAULT_ARM`` (module docstring).
+
+    With ``env=None`` (the production call) it arms at most once per
+    process. Returns the points armed (empty when the variable is unset
+    or the process already armed). A malformed spec raises
+    ``ValueError``: a silently ignored arm would let a fault test pass
+    without its fault."""
+    global _ENV_ARMED
+    if env is None:
+        if _ENV_ARMED:
+            return []
+        _ENV_ARMED = True
+    env = os.environ if env is None else env
+    raw = env.get(ENV_ARM, "").strip()
+    if not raw:
+        return []
+    armed: List[str] = []
+    for spec in raw.split(","):
+        spec = spec.strip()
+        if not spec:
+            continue
+        once_file = None
+        if "@" in spec:
+            spec, once_file = spec.split("@", 1)
+        parts = spec.split(":")
+        if len(parts) < 2:
+            raise ValueError(
+                f"{ENV_ARM}: bad spec {spec!r} (want "
+                "point:action[:times][@once_file])")
+        point, action = parts[0], parts[1]
+        times = int(parts[2]) if len(parts) > 2 else 1
+        if once_file is not None and not os.path.exists(once_file):
+            continue  # one-shot already used by an earlier process
+        act = _env_action(action, point)
+
+        def callback(_act=act, _once=once_file, **ctx):
+            if _once is not None:
+                try:
+                    os.remove(_once)
+                except OSError:
+                    pass
+            _act(**ctx)
+
+        _INJECTOR.arm(point, callback=callback,
+                      times=None if times <= 0 else times)
+        armed.append(point)
+    return armed
 
 
 def crc32_file(path: str, chunk_bytes: int = 1 << 20) -> int:

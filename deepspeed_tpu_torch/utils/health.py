@@ -1,0 +1,598 @@
+"""The health plane (the port of ``deepspeed_tpu/utils/health.py``):
+flight recorder, stall watchdog and numeric anomaly detectors.
+
+The in-band telemetry (the serve tracer, the fleet rows) explains a run
+while it is healthy; this module explains it when it dies or wedges.
+Four pieces, all host side:
+
+- :class:`FlightRecorder`: a bounded in-memory ring of the last N
+  telemetry rows, fed by tapping the monitor's mirror writer (the stream
+  ``events.jsonl`` gets). No steady-state I/O; on an uncaught exception,
+  a replica's death, a watchdog trip or an armed fault the ring is
+  dumped atomically to ``flight.json`` (tmp + ``os.replace``).
+- :class:`Watchdog`: a daemon thread fed :meth:`HealthPlane.heartbeat`
+  at every phase boundary (the pinned :data:`HEALTH_PHASES`).
+  ``stall_timeout_s`` without a beat dumps every thread's stack and the
+  flight ring, writes a ``stall_detected`` row naming the last phase,
+  then warns or exits with :data:`STALL_EXIT_CODE`. The thread reads
+  host clocks and Python frames only; it never touches the device, so
+  it can report a process wedged inside a CUDA call.
+- :class:`NumericHealth`: detectors over values the caller already holds
+  on the host (never an added device sync): nonfinite-loss streaks,
+  loss-spike z-scores, grad-norm explosions, loss-scale collapse,
+  recompile storms. Alerts are ``health`` rows with a reason from
+  :data:`HEALTH_REASONS` and a cumulative ``Health/alerts`` scalar.
+- :class:`HealthPlane`: the facade the serving engine and the fleet
+  build; construction always succeeds and every method is a no-op when
+  disabled.
+
+Standard library only. Config: ``observability.health`` (checked by
+``runtime/config.py``); ``tools/obs_report.py --health`` renders the
+postmortem.
+"""
+
+import json
+import os
+import sys
+import tempfile
+import threading
+import time
+import traceback
+from collections import deque
+from typing import Any, Callable, Dict, Optional
+
+from deepspeed_tpu_torch.utils.logging import logger
+
+__all__ = [
+    "HEALTH_PHASES", "HEALTH_REASONS", "STALL_EXIT_CODE",
+    "FlightRecorder", "Watchdog", "NumericHealth", "HealthPlane",
+    "load_flight",
+]
+
+#: Pinned heartbeat phase vocabulary — one name per dispatch/phase
+#: boundary wired through the engines (tests pin the set; an unknown
+#: phase raises so a new boundary must be added HERE, where obs_report
+#: and the docs can see it).
+HEALTH_PHASES = (
+    "train_batch",        # engine.train_batch / pipe train_batch window
+    "prefill",            # inference prefill phase
+    "decode",             # inference decode/verify phase
+    "handoff_claim",      # disagg decode-worker handoff intake
+    "chunk_prefill",      # chunked-prefill chunk dispatch
+    "checkpoint_commit",  # save snapshot/commit stages
+    "fleet_step",         # FleetRouter scheduling round
+    "bench_metric",       # bench.py ladder child metric body
+    "rpc_call",           # router-side blocking RPC wait on a replica
+)
+
+#: Pinned numeric-anomaly reason vocabulary (``health`` event rows).
+HEALTH_REASONS = (
+    "nan_loss",             # nonfinite-loss streak
+    "loss_spike",           # rolling-window z-score blowout
+    "grad_norm_explosion",  # grad norm above the configured ceiling
+    "loss_scale_collapse",  # dynamic loss scale ground into the floor
+    "recompile_storm",      # steady-state recompiles in a short window
+)
+
+# Distinguished "watchdog tripped and on_stall=exit" code: 85 is the
+# elastic resumable-preemption code, 143 an uncaught SIGTERM — a
+# supervisor (or bench parent) can tell a diagnosed stall from both.
+STALL_EXIT_CODE = 87
+
+
+def _atomic_write_json(path: str, payload: dict) -> None:
+    """tmp + fsync + os.replace: a crash mid-dump leaves either the
+    previous flight.json or the new one, never a torn file."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f, indent=2, default=str)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def load_flight(path) -> Optional[dict]:
+    """Salvage a flight recorder dump (the black box a dead process
+    left behind): returns the parsed payload, or None when the file is
+    missing/unreadable/torn. The fleet router uses this to fold a dead
+    replica's last moments into ITS OWN event trail
+    (``fleet_flight_salvage`` rows) — the atomic dump protocol means a
+    readable file is always a complete one."""
+    if not path:
+        return None
+    try:
+        with open(path) as f:
+            payload = json.load(f)
+    except (OSError, ValueError):
+        return None
+    return payload if isinstance(payload, dict) else None
+
+
+def _all_thread_stacks() -> Dict[str, Any]:
+    """Formatted stacks of every live thread (the wedge diagnosis)."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    stacks = {}
+    for ident, frame in sys._current_frames().items():
+        label = f"{names.get(ident, '?')} ({ident})"
+        stacks[label] = traceback.format_stack(frame)
+    return stacks
+
+
+class _MirrorTap:
+    """Transparent tee in front of a monitor mirror (`_JsonlWriter`
+    duck type): forwards every row to the inner writer unchanged AND
+    copies it into the flight ring. Installing/removing the tap can
+    never change what lands in events.jsonl — the zero-perturbation
+    contract."""
+
+    def __init__(self, inner, ring: "FlightRecorder"):
+        self.inner = inner
+        self._ring = ring
+
+    def add_scalar(self, tag, value, step):
+        self._ring.record({"tag": str(tag), "value": float(value),
+                           "step": int(step)})
+        if self.inner is not None:
+            self.inner.add_scalar(tag, value, step)
+
+    def add_event(self, kind, **fields):
+        row = {"event": str(kind)}
+        row.update(fields)
+        self._ring.record(row)
+        if self.inner is not None:
+            self.inner.add_event(kind, **fields)
+
+    def flush(self):
+        if self.inner is not None:
+            self.inner.flush()
+
+    def close(self):
+        if self.inner is not None:
+            self.inner.close()
+
+
+class FlightRecorder:
+    """Bounded ring of the last ``ring_events`` telemetry rows, dumped
+    atomically to ``flight.json`` on demand. Steady state is an
+    O(1) deque append per row — no I/O, no growth."""
+
+    def __init__(self, flight_path: str, ring_events: int = 256):
+        self.flight_path = flight_path
+        self.ring: deque = deque(maxlen=max(1, int(ring_events)))
+        self._lock = threading.Lock()
+        self._taps = []            # (monitor, tap) pairs installed
+        self._prev_excepthook = None
+        self.dumps = 0
+
+    # ------------------------------------------------------------- feed
+    def record(self, row: dict) -> None:
+        with self._lock:
+            self.ring.append(row)
+
+    def tap(self, monitor) -> None:
+        """Interpose on ``monitor.mirror`` so every mirrored scalar/
+        event row is copied into the ring on its way to events.jsonl.
+        Works with ``mirror=None`` too (ring-only)."""
+        tap = _MirrorTap(getattr(monitor, "mirror", None), self)
+        monitor.mirror = tap
+        self._taps.append((monitor, tap))
+
+    def untap(self) -> None:
+        """Restore every tapped monitor's original mirror (engine
+        close path — the profiling Observer's identity check on its own
+        writer must see the raw mirror again)."""
+        for monitor, tap in self._taps:
+            if getattr(monitor, "mirror", None) is tap:
+                monitor.mirror = tap.inner
+        self._taps.clear()
+
+    # ---------------------------------------------------------- dumping
+    def dump(self, trigger: str, extra: Optional[dict] = None,
+             stacks: bool = False) -> Optional[str]:
+        """Write the black box. Returns the path, or None on failure
+        (best-effort by design: the dump runs on crash paths where
+        raising would mask the original error)."""
+        with self._lock:
+            rows = list(self.ring)
+        payload = {
+            "trigger": str(trigger),
+            "pid": os.getpid(),
+            "time_unix": time.time(),
+            "ring_events": self.ring.maxlen,
+            "rows": rows,
+        }
+        if stacks:
+            payload["stacks"] = _all_thread_stacks()
+        if extra:
+            payload.update(extra)
+        try:
+            _atomic_write_json(self.flight_path, payload)
+        except Exception as e:
+            logger.warning(f"health: flight dump failed ({e!r})")
+            return None
+        self.dumps += 1
+        return self.flight_path
+
+    # ------------------------------------------- uncaught-exception hook
+    def install_excepthook(self) -> None:
+        """Chain onto ``sys.excepthook``: an uncaught exception dumps
+        the flight ring (with the exception identity) before the
+        previous hook prints the traceback."""
+        if self._prev_excepthook is not None:
+            return
+        self._prev_excepthook = sys.excepthook
+
+        def hook(exc_type, exc, tb):
+            try:
+                self.dump("exception", extra={
+                    "exception": {
+                        "type": getattr(exc_type, "__name__",
+                                        str(exc_type)),
+                        "value": str(exc),
+                        "traceback": traceback.format_exception(
+                            exc_type, exc, tb),
+                    }}, stacks=True)
+            except Exception:
+                pass
+            prev = self._prev_excepthook or sys.__excepthook__
+            prev(exc_type, exc, tb)
+
+        sys.excepthook = hook
+        self._hook = hook
+
+    def uninstall_excepthook(self) -> None:
+        if self._prev_excepthook is None:
+            return
+        if sys.excepthook is getattr(self, "_hook", None):
+            sys.excepthook = self._prev_excepthook
+        self._prev_excepthook = None
+
+
+class Watchdog:
+    """Daemon thread that trips when ``stall_timeout_s`` passes without
+    a heartbeat. The trip collects every thread's stack, dumps the
+    flight ring, reports through ``on_trip(phase, silent_s, stacks)``,
+    then either warns (and re-arms) or exits the process with
+    :data:`STALL_EXIT_CODE`."""
+
+    def __init__(self, stall_timeout_s: float, on_stall: str = "warn",
+                 on_trip: Optional[Callable[..., None]] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.stall_timeout_s = float(stall_timeout_s)
+        self.on_stall = on_stall
+        self._on_trip = on_trip
+        self._clock = clock
+        self._last_beat = clock()
+        self._last_phase: Optional[str] = None
+        self._last_detail: Optional[str] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.trips = 0
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._last_beat = self._clock()
+        self._thread = threading.Thread(
+            target=self._run, name="dstpu-health-watchdog", daemon=True)
+        self._thread.start()
+
+    def beat(self, phase: str, detail: Optional[str] = None) -> None:
+        # plain assignments: atomic under the GIL, no lock on the hot
+        # path (the poll thread tolerates a torn phase/beat pair — it
+        # only costs one poll interval of slack). ``detail`` names the
+        # specific thing this phase is waiting on (e.g. which replica a
+        # blocking rpc_call targets) so a trip can report it.
+        self._last_phase = phase
+        self._last_detail = detail
+        self._last_beat = self._clock()
+
+    def _run(self) -> None:
+        poll = max(min(self.stall_timeout_s / 4.0, 1.0), 0.01)
+        while not self._stop.wait(poll):
+            silent = self._clock() - self._last_beat
+            if silent < self.stall_timeout_s:
+                continue
+            self.trips += 1
+            phase = self._last_phase or "(no heartbeat yet)"
+            detail = self._last_detail
+            stacks = _all_thread_stacks()
+            logger.error(
+                f"health: watchdog tripped — {silent:.1f}s without a "
+                f"heartbeat (last phase {phase!r}"
+                + (f" [{detail}]" if detail else "")
+                + f", timeout {self.stall_timeout_s:.1f}s)")
+            if self._on_trip is not None:
+                try:
+                    self._on_trip(phase=phase, silent_s=silent,
+                                  stacks=stacks, detail=detail)
+                except Exception as e:
+                    logger.warning(f"health: on_trip failed ({e!r})")
+            if self.on_stall == "exit":
+                # os._exit, not sys.exit: the main thread is wedged
+                # (that is WHY we tripped) and cannot unwind
+                os._exit(STALL_EXIT_CODE)
+            self.beat(phase, detail)   # warn mode: re-arm, don't spam
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+
+
+class NumericHealth:
+    """Anomaly detectors over already-host-side telemetry values.
+
+    Each ``observe_*`` method takes plain Python floats the engine
+    materialized at its own flush barriers — calling them never forces
+    a device sync. Alerts fire through ``on_alert(reason, step,
+    detail)`` once per *episode* (entering the bad state), not once
+    per sample, so a 10k-step NaN run emits one row, not 10k."""
+
+    def __init__(self, cfg: Dict[str, Any],
+                 on_alert: Optional[Callable[..., None]] = None):
+        self.cfg = cfg
+        self._on_alert = on_alert
+        self.alerts_total = 0
+        self.alerts_by_reason: Dict[str, int] = {}
+        self._nonfinite_run = 0
+        self._nan_active = False
+        self._window: deque = deque(
+            maxlen=max(2, int(cfg.get("spike_window", 32))))
+        self._spike_active = False
+        self._grad_active = False
+        self._scale_active = False
+        self._recompile_marks: deque = deque()   # steps of recent compiles
+        self._last_recompiles: Optional[float] = None
+        self._storm_active = False
+
+    # ------------------------------------------------------------ alerts
+    def _alert(self, reason: str, step: int, **detail) -> None:
+        assert reason in HEALTH_REASONS, reason
+        self.alerts_total += 1
+        self.alerts_by_reason[reason] = \
+            self.alerts_by_reason.get(reason, 0) + 1
+        logger.warning(f"health: {reason} at step {step} ({detail})")
+        if self._on_alert is not None:
+            self._on_alert(reason=reason, step=step, detail=detail)
+
+    # --------------------------------------------------------- detectors
+    def observe_loss(self, loss: Optional[float], step: int) -> None:
+        if loss is None:
+            return
+        loss = float(loss)
+        finite = loss == loss and abs(loss) != float("inf")
+        if not finite:
+            self._nonfinite_run += 1
+            streak = int(self.cfg.get("nonfinite_streak", 3))
+            if self._nonfinite_run >= streak and not self._nan_active:
+                self._nan_active = True
+                self._alert("nan_loss", step,
+                            streak=self._nonfinite_run)
+            return
+        self._nonfinite_run = 0
+        self._nan_active = False
+        # rolling-window z-score spike (finite values only)
+        w = self._window
+        if len(w) >= max(8, w.maxlen // 4):
+            mean = sum(w) / len(w)
+            var = sum((v - mean) ** 2 for v in w) / len(w)
+            sd = var ** 0.5
+            z = (loss - mean) / sd if sd > 0 else 0.0
+            zmax = float(self.cfg.get("spike_zscore", 6.0))
+            if z > zmax:
+                if not self._spike_active:
+                    self._spike_active = True
+                    self._alert("loss_spike", step, z=round(z, 2),
+                                loss=loss, window_mean=round(mean, 6))
+            else:
+                self._spike_active = False
+        w.append(loss)
+
+    def observe_grad_norm(self, norm: Optional[float], step: int) -> None:
+        if norm is None:
+            return
+        norm = float(norm)
+        ceiling = float(self.cfg.get("grad_norm_max", 1e4))
+        bad = not (norm == norm) or norm > ceiling
+        if bad and not self._grad_active:
+            self._grad_active = True
+            self._alert("grad_norm_explosion", step, grad_norm=norm,
+                        ceiling=ceiling)
+        elif not bad:
+            self._grad_active = False
+
+    def observe_loss_scale(self, scale: Optional[float],
+                           step: int) -> None:
+        if scale is None:
+            return
+        scale = float(scale)
+        floor = float(self.cfg.get("scale_collapse_below", 2.0))
+        if scale < floor:
+            if not self._scale_active:
+                self._scale_active = True
+                self._alert("loss_scale_collapse", step,
+                            loss_scale=scale, floor=floor)
+        else:
+            self._scale_active = False
+
+    def observe_recompiles(self, total: Optional[float],
+                           step: int) -> None:
+        """Feed the *cumulative* compile counter (the Observability/
+        recompiles scalar the tracker already keeps host-side)."""
+        if total is None:
+            return
+        total = float(total)
+        if self._last_recompiles is None:
+            self._last_recompiles = total
+            return
+        fresh = int(total - self._last_recompiles)
+        self._last_recompiles = total
+        for _ in range(max(fresh, 0)):
+            self._recompile_marks.append(step)
+        window = int(self.cfg.get("recompile_storm_window", 16))
+        while self._recompile_marks and \
+                self._recompile_marks[0] < step - window:
+            self._recompile_marks.popleft()
+        count = int(self.cfg.get("recompile_storm_count", 3))
+        if len(self._recompile_marks) >= count:
+            if not self._storm_active:
+                self._storm_active = True
+                self._alert("recompile_storm", step,
+                            recompiles=len(self._recompile_marks),
+                            window_steps=window)
+        else:
+            self._storm_active = False
+
+
+class HealthPlane:
+    """Engine-facing facade: flight ring + watchdog + detectors behind
+    one validated config dict (``observability.health``). Construction
+    always succeeds; when ``enabled`` is false every method is a no-op,
+    so the engines wire it unconditionally.
+
+    ``monitor`` (optional): its mirror gets tapped for the flight ring
+    and ``Health/alerts`` scalars go through ``write_scalar``.
+    ``events_dir`` anchors the default ``flight.json`` location (next
+    to events.jsonl; without it, ``deepspeed_tpu_obs`` under the
+    temporary directory); ``flight_path`` in the config overrides it.
+    """
+
+    def __init__(self, cfg: Optional[Dict[str, Any]], monitor=None,
+                 rank: int = 0, component: str = "train",
+                 events_dir: Optional[str] = None):
+        self.cfg = dict(cfg or {})
+        self.component = component
+        self.enabled = bool(self.cfg.get("enabled")) and rank == 0
+        self.monitor = monitor
+        self.recorder: Optional[FlightRecorder] = None
+        self.watchdog: Optional[Watchdog] = None
+        self.detectors: Optional[NumericHealth] = None
+        self._closed = False
+        if not self.enabled:
+            return
+        flight_path = self.cfg.get("flight_path") or os.path.join(
+            events_dir or os.path.join(tempfile.gettempdir(),
+                                       "deepspeed_tpu_obs"),
+            f"flight_{component}.json" if component != "train"
+            else "flight.json")
+        self.flight_path = flight_path
+        self.recorder = FlightRecorder(
+            flight_path, ring_events=int(self.cfg.get("ring_events", 256)))
+        if monitor is not None:
+            self.recorder.tap(monitor)
+        self.recorder.install_excepthook()
+        det = self.cfg.get("detectors") or {}
+        if det.get("enabled", True):
+            self.detectors = NumericHealth(det, on_alert=self._on_alert)
+        timeout = float(self.cfg.get("stall_timeout_s", 0.0) or 0.0)
+        if timeout > 0:
+            self.watchdog = Watchdog(
+                timeout, on_stall=str(self.cfg.get("on_stall", "warn")),
+                on_trip=self._on_trip)
+            self.watchdog.start()
+        logger.info(
+            f"health plane enabled ({component}): flight ring "
+            f"{self.recorder.ring.maxlen} rows -> {flight_path}"
+            + (f", watchdog {timeout:.1f}s ({self.watchdog.on_stall})"
+               if self.watchdog else ", watchdog off"))
+
+    # ------------------------------------------------------------- sinks
+    def _event(self, kind: str, **fields) -> None:
+        """One structured row through the (tapped) mirror: it lands in
+        the flight ring AND events.jsonl in one write."""
+        mirror = getattr(self.monitor, "mirror", None) \
+            if self.monitor is not None else None
+        if mirror is not None:
+            mirror.add_event(kind, **fields)
+            mirror.flush()
+        elif self.recorder is not None:
+            self.recorder.record({"event": kind, **fields})
+
+    def _on_alert(self, reason: str, step: int, detail: dict) -> None:
+        self._event("health", reason=reason, step=step,
+                    component=self.component, **detail)
+        if self.monitor is not None:
+            from deepspeed_tpu_torch.utils.monitor import \
+                TAG_HEALTH_ALERTS
+            self.monitor.write_scalar(
+                TAG_HEALTH_ALERTS,
+                self.detectors.alerts_total if self.detectors else 0,
+                step)
+
+    def _on_trip(self, phase: str, silent_s: float, stacks: dict,
+                 detail: Optional[str] = None) -> None:
+        path = None
+        if self.recorder is not None:
+            path = self.recorder.dump(
+                "watchdog", extra={"stall": {
+                    "phase": phase, "detail": detail,
+                    "silent_s": round(silent_s, 3),
+                    "timeout_s": self.watchdog.stall_timeout_s,
+                    "component": self.component,
+                }, "stacks": stacks})
+        self._event("stall_detected", phase=phase, detail=detail,
+                    silent_s=round(silent_s, 3),
+                    timeout_s=self.watchdog.stall_timeout_s,
+                    component=self.component, flight=path)
+
+    # ----------------------------------------------------------- surface
+    def heartbeat(self, phase: str, detail: Optional[str] = None) -> None:
+        """One liveness beat from a pinned phase boundary. Unknown
+        phases raise — the vocabulary is the contract obs_report and
+        the stall postmortem render, not free text. ``detail`` is free
+        text naming what the phase waits on (e.g. ``"replica 2"`` for
+        an ``rpc_call`` beat) — a trip reports it so a hung replica
+        call names its target."""
+        if phase not in HEALTH_PHASES:
+            raise ValueError(
+                f"health: unknown heartbeat phase {phase!r} "
+                f"(pinned vocabulary: {HEALTH_PHASES})")
+        if self.watchdog is not None:
+            self.watchdog.beat(phase, detail)
+
+    def observe_loss(self, loss, step: int) -> None:
+        if self.detectors is not None:
+            self.detectors.observe_loss(loss, step)
+
+    def observe_grad_norm(self, norm, step: int) -> None:
+        if self.detectors is not None:
+            self.detectors.observe_grad_norm(norm, step)
+
+    def observe_loss_scale(self, scale, step: int) -> None:
+        if self.detectors is not None:
+            self.detectors.observe_loss_scale(scale, step)
+
+    def observe_recompiles(self, total, step: int) -> None:
+        if self.detectors is not None:
+            self.detectors.observe_recompiles(total, step)
+
+    def dump(self, trigger: str, **extra) -> Optional[str]:
+        """Explicit black-box dump (preemption drain, armed fault)."""
+        if self.recorder is None:
+            return None
+        path = self.recorder.dump(trigger, extra=extra or None,
+                                  stacks=True)
+        self._event("flight_dump", trigger=trigger, flight=path,
+                    component=self.component)
+        return path
+
+    @property
+    def alerts_total(self) -> int:
+        return self.detectors.alerts_total if self.detectors else 0
+
+    def close(self) -> None:
+        """Stop the watchdog, restore the mirror, drop the excepthook.
+        Idempotent; the engines call it before Observer.close() so the
+        Observer's mirror-identity check sees its own writer again."""
+        if self._closed or not self.enabled:
+            return
+        self._closed = True
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        if self.recorder is not None:
+            self.recorder.uninstall_excepthook()
+            self.recorder.untap()

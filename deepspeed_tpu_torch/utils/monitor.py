@@ -54,6 +54,14 @@ TAG_CKPT_SNAPSHOT_MS = "Checkpoint/snapshot_ms"     # state capture
 TAG_CKPT_WRITE_MS = "Checkpoint/write_ms"           # stage/commit protocol
 TAG_CKPT_PENDING = "Checkpoint/pending_saves"       # async writer backlog
 TAG_CKPT_RESTARTS = "Checkpoint/restarts"           # supervisor relaunches
+# the serving fleet (inference/fleet.py): the shed ladder's rate, the
+# summed replica queues, live KV migrations and supervised relaunches
+TAG_SERVE_SHED_RATE = "Serve/shed_rate"             # shed / submitted
+TAG_SERVE_FLEET_QDEPTH = "Serve/fleet_queue_depth"  # sum of replica queues
+TAG_SERVE_MIGRATIONS = "Serve/migrations"           # live requests moved
+TAG_SERVE_REPLICA_RESTARTS = "Serve/replica_restarts"  # supervised
+# the health plane (utils/health.py): cumulative numeric-anomaly alerts
+TAG_HEALTH_ALERTS = "Health/alerts"                 # cumulative alerts
 
 
 class Histogram:
@@ -326,6 +334,8 @@ class TensorBoardMonitor:
                               quant_logit_err=None, tbt_max_ms=None,
                               weight_version=None, spec_accept_rate=None,
                               chunk_dispatches=None, handoff_ms=None,
+                              shed_rate=None, fleet_queue_depth=None,
+                              migrations=None, replica_restarts=None,
                               tokens: int = 0,
                               flush: bool = True):
         """Serving telemetry: TTFT per admitted request, per-decode-step
@@ -335,9 +345,10 @@ class TensorBoardMonitor:
         request-granular plane (queue wait, TBT, SLO attainment,
         goodput), the ordinal of the weights served (after a
         ``swap_params``), a verify dispatch's draft acceptance rate, the
-        cumulative chunked-prefill dispatches and a claimed handoff's
-        queue plus transfer time. The x-axis is cumulative generated
-        tokens."""
+        cumulative chunked-prefill dispatches, a claimed handoff's
+        queue plus transfer time, and the fleet's shed rate, summed queue
+        depth, live migrations and replica relaunches. The x-axis is
+        cumulative generated tokens."""
         if not self._writes():
             return
         for tag, value in (
@@ -358,6 +369,10 @@ class TensorBoardMonitor:
                 (TAG_SERVE_GOODPUT, goodput_tokens_per_s),
                 (TAG_SERVE_SPEC_ACCEPT, spec_accept_rate),
                 (TAG_SERVE_HANDOFF, handoff_ms),
+                (TAG_SERVE_SHED_RATE, shed_rate),
+                (TAG_SERVE_FLEET_QDEPTH, fleet_queue_depth),
+                (TAG_SERVE_MIGRATIONS, migrations),
+                (TAG_SERVE_REPLICA_RESTARTS, replica_restarts),
                 (TAG_SERVE_KV_POOL_BPT, kv_pool_bytes_per_token),
                 (TAG_SERVE_QUANT_LOGIT_ERR, quant_logit_err),
                 (TAG_SERVE_WEIGHT_VERSION, weight_version)):

@@ -475,7 +475,10 @@ def test_port_imports_neither_jax_nor_deepspeed_tpu():
                    "ops/sparse_attention/hybrid.py",
                    "runtime/checkpoint.py", "runtime/fault.py",
                    "tools/verify_checkpoint.py", "inference/disagg.py",
-                   "runtime/quantized_params.py"):
+                   "runtime/quantized_params.py", "inference/fleet.py",
+                   "inference/rpc.py", "inference/replica_worker.py",
+                   "runtime/elastic.py", "utils/health.py",
+                   "launcher/runner.py"):
         assert REPO / "deepspeed_tpu_torch" / module in files
     for path in files:
         for name in _imports(path):
@@ -510,6 +513,10 @@ def test_port_package_imports_without_jax():
             "import deepspeed_tpu_torch.tools.verify_checkpoint; "
             "import deepspeed_tpu_torch.inference.disagg; "
             "import deepspeed_tpu_torch.runtime.quantized_params; "
+            "import deepspeed_tpu_torch.inference.fleet; "
+            "import deepspeed_tpu_torch.inference.replica_worker; "
+            "import deepspeed_tpu_torch.runtime.elastic; "
+            "import deepspeed_tpu_torch.launcher.runner; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'deepspeed_tpu')]; "
             "assert not bad, bad")

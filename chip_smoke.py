@@ -179,6 +179,40 @@ Phases 50 and 52 run after phase 49 on GPT-2 345M (all 24 layers, seed
    K4 launches (its own count, from its state) equal its decode
    dispatches x 24. Spawn-to-hello and death-to-relaunch seconds, peak
    memory per child, migration bytes and ms from the deathbed frame.
+Phases 53 and 54 run after phase 52, on GPT-2 345M as the megatron
+example builds it (vocab 50304, dropout 0, all 24 layers, seed 0, seq
+1024): ZeRO-Offload, and ZeRO 2 over a process group made by the port's
+launcher (multi-rank ZeRO cannot run on one card: NCCL refuses two ranks
+on one device; the CPU tests hold dp 2 on gloo against JAX).
+53. zero_offload_train: examples/megatron_gpt2/ds_config_offload.json
+   (stage 2, cpu_offload, micro batch 4, bf16, Adam, WarmupLR, clipping
+   1.0) on 4 batches: (a) with overlap_comm false against the stage-0
+   device Adam of the same optimizer, schedule and clipping (the losses
+   of steps 0-1 bitwise, step 2's within OFFLOAD_LOSS_ATOL; the host
+   masters after 3 steps: every entry within OFFLOAD_TOL's atol of
+   2 x the lrs, the share beyond the fp32 tolerance and each leaf's
+   update against the device Adam's, each beside what a host Adam that
+   updates nothing or steps the wrong way would read), the masters on
+   the host and no Adam moment on the card, the fourth step split into
+   device fwd/bwd, grad D2H, host prep, the C++ Adam and the param H2D;
+   (b) as held (overlap_comm): after windows 1-3 the params are bitwise
+   the initial ones, (a)'s after its step 1 and (a)'s after its step 2
+   (which differ from its after steps 1 and 3), and synchronize()
+   applies every update. Step ms of the three runs, peak memory against
+   the stage-0 run, the host Adam's GB/s, SIMD width and OpenMP threads;
+   K1-K3 24 launches a step, all "mma".
+54. zero_launch: python -m deepspeed_tpu_torch.launcher.runner
+   --num_gpus 1 --supervise --max_restarts 1 --restart_backoff 0
+   chip_smoke.py --child zero2 <file>: the child exits 85 before it
+   builds anything, is relaunched once, joins NCCL at world 1 and trains
+   3 steps of examples/megatron_gpt2/ds_config_zero2.json as held (at
+   one data rank ZeRO 2 takes stage 0's step, whose collective over the
+   group is the grads' all-reduce), then runs the ZeRO partition's
+   reduce-scatter and all-gather on NCCL with each leaf as one chunk,
+   which must give the identity; the launcher exits 0, and the child's
+   losses are bitwise this process's run of the same config, batches
+   and seed with no group; the child's seconds from spawn to its first
+   step and its K1-K3 launches (24 a step).
 Phases 36 to 38 run after phase 9, before phase 13: Llama training,
 K1-K3 at G 4 (32 q heads over 8 kv heads) on the training path.
 36. llama_train_kernel_vs_plain: the LLAMA_1B widths at 2 layers, fp32,
@@ -465,7 +499,8 @@ printed first; too little space fails the run).
    load_checkpoint() falls back to global_step3 (bitwise B's params at
    step 3) with a fallback row that obs_report counts.
 39. the {"kernels": [...]} line (K1-K3 with their launches on the GPT-2
-   and the Llama training paths (and phase 40's) and their Llama-shape
+   and the Llama training paths (and phases 40, 53 and 54's, the last
+   counted in its child) and their Llama-shape
    times of phase 38, K1 with phase 49's calls, K4 with phase 41's,
    phase 44's and phase 46's plain decode dispatches and K4 and K4q with
    phase 47's,
@@ -481,6 +516,7 @@ printed first; too little space fails the run).
 
 import contextlib
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -7751,6 +7787,485 @@ def checkpoint_fallback_phase(smi, state):
                              f"{summary}, want 1 fallback and 1 load")
 
 
+# ------------------------------------------------------------------ #
+# phases 53-54: ZeRO-Offload and the launcher (ZeRO 2 over NCCL)
+# ------------------------------------------------------------------ #
+OFFLOAD_DS_CONFIG = "examples/megatron_gpt2/ds_config_offload.json"
+ZERO2_DS_CONFIG = "examples/megatron_gpt2/ds_config_zero2.json"
+# phase 53: the offload masters after 3 steps against the device Adam's.
+# JAX's own tolerance for this comparison, in fp32
+# (tests/unit/test_cpu_adam.py::test_engine_offload_matches_device_adam),
+# is rtol 1e-4, atol 1e-5. In bf16 the host's fp64 clip norm against the
+# device's fp32 one leaves a master a rounding apart, so a bf16 param can
+# sit one ulp apart and its next grads differ; where such a grad is near
+# zero the two Adams may step an entry in opposite directions, each by at
+# most about lr. So every entry is held within atol 2 x the lrs of the
+# steps taken (7.1e-5 with WarmupLR's first three), and the share of
+# entries outside the fp32 tolerance under OFFLOAD_SHARE_LIMIT.
+# WarmupLR's lr at step 0 is 0, so only steps 1 and 2 move a master, each
+# by about lr: a host Adam that updates nothing, or steps the wrong way,
+# still sits inside that atol. What fails them: the share (a no-op puts
+# most entries outside the fp32 tolerance), each leaf's update (masters
+# minus the initial params) against the device Adam's, as
+# ||host - device|| / ||device update|| (a no-op reads 1, a sign flip 2)
+# under OFFLOAD_UPDATE_LIMIT["leaf"], and over all leaves under
+# OFFLOAD_UPDATE_LIMIT["all"], and the step-2 loss
+# within OFFLOAD_LOSS_ATOL of the device Adam's (a no-op's is the initial
+# params' loss on that batch, which the overlapped run (b) measures). A
+# leaf's limit is wide because the key third of the fused qkv bias has an
+# exact grad of 0: its grads are rounding, which Adam scales to steps of
+# about lr in whatever direction the rounding took.
+OFFLOAD_TOL = dict(rtol=1e-4, atol=1e-5)
+OFFLOAD_SHARE_LIMIT = 1e-3
+OFFLOAD_UPDATE_LIMIT = {"leaf": 0.5, "all": 0.05}
+OFFLOAD_LOSS_ATOL = 2e-4
+OFFLOAD_BATCHES = 4
+LAUNCH_STEPS = 3
+
+
+def _ds_config(rel):
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, rel)) as f:
+        return json.load(f)
+
+
+def _offload_data(cfg, batch, n, seq=1024):
+    rng = np.random.RandomState(SEED)
+    return [{"input_ids": rng.randint(0, cfg.vocab_size, (batch, seq + 1))
+             .astype(np.int32)} for _ in range(n)]
+
+
+def _bf16_engine(cfg, params, ds, device):
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_loss_fn
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2_loss_fn(cfg, dtype=torch.bfloat16, deterministic=True),
+        model_parameters=params, config=ds, device=device, seed=SEED)
+    return engine
+
+
+def _leaves(tree):
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+    return list(tree_leaves(tree))
+
+
+def zero_offload_train_phase(smi, device="cuda", config=None, seq=1024):
+    """Phase 53: GPT-2 345M (the example's 50304-token vocab, dropout 0,
+    all 24 layers) through examples/megatron_gpt2/ds_config_offload.json
+    (ZeRO 2, cpu_offload, micro batch 4, ga 1, bf16, Adam with weight
+    decay, WarmupLR, clipping 1.0) at seq 1024 on 4 batches from seed 0.
+
+    (a) the config with overlap_comm false against the stage-0 device
+    Adam of the same optimizer, schedule and clipping: the losses of steps
+    0-1 bitwise (WarmupLR's lr at step 0 is 0, so step 1 reads the
+    initial params on both sides), step 2's within OFFLOAD_LOSS_ATOL; the
+    host masters after 3 steps against the device masters as the note at
+    OFFLOAD_TOL says (every entry, the share beyond the fp32 tolerance,
+    each leaf's update), each check beside what a host Adam that updates
+    nothing, or steps the wrong way, would read; the fourth step through
+    forward / backward / step, split into device fwd/bwd, grad D2H, host
+    prep, the C++ Adam and the param H2D. (b) the config as held
+    (overlap_comm): after window 1 the device params are bitwise the
+    initial ones, after window 2 bitwise (a)'s after its step 1 (the
+    initial ones again, lr 0), after window 3 bitwise (a)'s after its
+    step 2, which differ from (a)'s after steps 1 and 3: one window
+    behind, no more and no less; synchronize() applies every update (the
+    device params bitwise the masters' bf16). The masters must live on
+    the host and the device hold no Adam moment. Returns the launches of
+    K1-K3 in (a) and (b)."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import (count_params,
+                                                 init_gpt2_params)
+    from deepspeed_tpu_torch.utils.tree import tree_map_with_path
+    cfg = config or gpt2_345m_train_config()
+    on_cuda = torch.device(device).type == "cuda"
+    ds = _ds_config(OFFLOAD_DS_CONFIG)
+    batch = ds["train_micro_batch_size_per_gpu"]
+    data = _offload_data(cfg, batch, OFFLOAD_BATCHES, seq)
+    params = init_gpt2_params(cfg, torch.Generator(device=device)
+                              .manual_seed(SEED))
+    n_params = count_params(params)
+    init = [t.detach().float().cpu().reshape(-1) for t in _leaves(params)]
+    names = _leaves(tree_map_with_path(lambda path, _: "/".join(path),
+                                       params))
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize()
+
+    def peak_reset():
+        if on_cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def allocated():
+        return torch.cuda.memory_allocated() if on_cuda else 0
+
+    def host_params(engine):
+        return [t.detach().to("cpu", copy=True) for t in _leaves(
+            engine.params)]
+
+    def same(x, y):
+        return all(torch.equal(u.cpu(), v) for u, v in zip(x, y))
+
+    def timed_steps(engine, batches):
+        losses, times = [], []
+        for b in batches:
+            sync()
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(iter([b]))))
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return losses, times
+
+    # -- the stage-0 device Adam, the reference of (a); peak memory from
+    # -- the first step on --
+    dev = _bf16_engine(cfg, params, dict(ds, zero_optimization={
+        "stage": 0}), device)
+    peak_reset()
+    dev_losses, dev_ms = timed_steps(dev, data[:3])
+    dev_masters = [t.detach().float().cpu() for t in _leaves(dev.params)]
+    dev_peak = torch.cuda.max_memory_allocated() if on_cuda else 0
+    del dev
+    _reset_all_launches()
+
+    # -- (a) offload, overlap_comm false --
+    before = allocated()
+    a = _bf16_engine(cfg, params, dict(ds, zero_optimization=dict(
+        ds["zero_optimization"], overlap_comm=False)), device)
+    held = allocated() - before
+    peak_reset()
+    opt = a.optimizer
+    if not (a.zero_cpu_offload and a.master is None and a.opt_state == ()
+            and all(isinstance(m, np.ndarray) for m in opt.master_params)
+            and all(t.dtype == torch.bfloat16 and t.device.type ==
+                    torch.device(device).type for t in _leaves(a.params))):
+        raise AssertionError("zero_offload: the masters must live on the "
+                             "host and the device hold bf16 params only")
+    if on_cuda and held > 1.1 * 2 * n_params:
+        raise AssertionError(f"zero_offload: the engine holds {held} bytes "
+                             f"on the device for {n_params} bf16 params: "
+                             "masters or moments on the card")
+    a_losses, a_ms = timed_steps(a, data[:1])
+    a1 = host_params(a)
+    more, more_ms = timed_steps(a, data[1:2])
+    a2 = host_params(a)
+    more3, more3_ms = timed_steps(a, data[2:3])
+    a_losses += more + more3
+    a_ms += more_ms + more3_ms
+    a2_moved = not same(a1, a2) and not same(_leaves(a.params), a2)
+    masters3 = [torch.from_numpy(m.copy()) for m in opt.master_params]
+    tol = dict(OFFLOAD_TOL, atol=2 * sum(a._lr_at(i) for i in range(3)))
+    # the masters against the device Adam's, and what a host Adam that
+    # updates nothing (masters = init) or steps the wrong way (init minus
+    # the device's update) would read
+    worst, within = 0.0, True
+    beyond = {"offload": 0, "no_update": 0, "sign_flip": 0}
+    update_err, update_err_sq, update_sq = {}, 0.0, 0.0
+    for name, m, d, p0 in zip(names, masters3, dev_masters, init):
+        d = d.reshape(-1)
+        upd = d - p0
+        worst = max(worst, float((m - d).abs().max()))
+        within &= bool(torch.allclose(m, d, **tol))
+        for key, v in (("offload", m), ("no_update", p0),
+                       ("sign_flip", p0 - upd)):
+            beyond[key] += int((~torch.isclose(v, d, **OFFLOAD_TOL)).sum())
+        e, u = float(torch.linalg.vector_norm(m - d)), \
+            float(torch.linalg.vector_norm(upd))
+        update_err[name] = e / u if u else (0.0 if e == 0 else math.inf)
+        update_err_sq += e * e
+        update_sq += u * u
+    share = {k: v / n_params for k, v in beyond.items()}
+    update_err_all = math.sqrt(update_err_sq / update_sq)
+    worst_leaves = sorted(update_err.items(), key=lambda kv: -kv[1])[:3]
+    del masters3, init
+    # the fourth step in three calls, each part timed on the host clock
+    sync()
+    t0 = time.perf_counter()
+    a.forward(data[3])
+    a.backward()
+    sync()
+    t1 = time.perf_counter()
+    a.step()
+    sync()
+    t2 = time.perf_counter()
+    st = dict(a.offload_stats)
+    split = {"device_fwd_bwd_ms": (t1 - t0) * 1e3, "grad_d2h_ms":
+             st["d2h_ms"], "host_prep_ms": st["prep_ms"],
+             "host_adam_ms": st["adam_ms"],
+             "param_h2d_ms": (t2 - t1) * 1e3 - st["d2h_ms"] - st["prep_ms"]
+             - st["adam_ms"], "step_ms": (t2 - t0) * 1e3}
+    offload_peak = torch.cuda.max_memory_allocated() if on_cuda else 0
+    adam_bytes = 30 * n_params     # p, g, m, v read; p, m, v written; bf16
+    simd, threads = opt.simd_width(), opt.omp_threads()
+    lrs = [a._lr_at(i) for i in range(OFFLOAD_BATCHES)]
+    del a, opt
+
+    # -- (b) as held: overlap_comm, one window behind --
+    b = _bf16_engine(cfg, params, ds, device)
+    b_init = host_params(b)
+    del params
+    # the params after windows 1-3, cloned on the device (a copy to the
+    # host between windows would give the worker thread's Adam time that
+    # the overlapped step must not get), compared after the run
+    b_losses, b_ms, after = [], [], []
+    for k in range(3):
+        more, more_ms = timed_steps(b, data[k:k + 1])
+        b_losses += more
+        b_ms += more_ms
+        after.append([t.detach().clone() for t in _leaves(b.params)])
+    more, more_ms = timed_steps(b, data[3:])
+    b_losses += more
+    b_ms += more_ms
+    pending = b._offload_pending is not None
+    windows = [same(x, want) for x, want in zip(after, (b_init, a1, a2))]
+    del after, b_init, a1, a2
+    b.synchronize()
+    if not (pending and b._offload_pending is None and
+            b.optimizer.step_count == b.global_steps == OFFLOAD_BATCHES):
+        raise AssertionError("zero_offload overlap: synchronize() did not "
+                             "apply every update")
+    for t, m in zip(_leaves(b.params), b.optimizer.master_params):
+        if not torch.equal(t.reshape(-1).cpu(), torch.from_numpy(m).to(
+                torch.bfloat16)):
+            raise AssertionError("zero_offload overlap: the device params "
+                                 "are not the masters' after synchronize")
+    b.close()
+    del b
+    launches = _train_launches()
+    L = cfg.num_layers
+    want = L * 2 * OFFLOAD_BATCHES
+    # b_losses[2] is the initial params' loss on batch 2 (window 3 reads
+    # them): the step-2 loss of a host Adam that updates nothing
+    loss2 = abs(a_losses[2] - dev_losses[2])
+    loss2_no_update = abs(b_losses[2] - dev_losses[2])
+    emit({"phase": "zero_offload_train", "model": "gpt2-345m",
+          "params": n_params, "config": OFFLOAD_DS_CONFIG, "batch": batch,
+          "seq": seq, "lrs": lrs, "losses_offload": a_losses,
+          "losses_device_adam": dev_losses, "losses_overlap": b_losses,
+          "loss2_abs_diff": loss2, "loss2_abs_diff_no_update":
+          loss2_no_update, "loss2_atol": OFFLOAD_LOSS_ATOL,
+          "masters_max_abs_diff": worst, "tolerance": tol,
+          "masters_share_beyond_fp32_tolerance": share["offload"],
+          "share_beyond_if_no_update": share["no_update"],
+          "share_beyond_if_sign_flipped": share["sign_flip"],
+          "share_limit": OFFLOAD_SHARE_LIMIT,
+          "update_rel_err_worst_leaves": worst_leaves,
+          "update_rel_err_all": update_err_all,
+          "update_rel_err_limit": OFFLOAD_UPDATE_LIMIT,
+          "windows_one_behind": windows, "a2_moved": a2_moved,
+          "step_ms_offload": a_ms, "step_ms_overlap": b_ms,
+          "step_ms_device_adam": dev_ms, "split_step4": split,
+          "host_adam_gb_per_s": adam_bytes / (st["adam_ms"] / 1e3) / 1e9,
+          "host_adam_bytes": adam_bytes, "simd_width": simd,
+          "omp_threads": threads, "engine_device_bytes": held,
+          "peak_memory_bytes_offload": offload_peak,
+          "peak_memory_bytes_device_adam": dev_peak,
+          "peak_memory_saved_bytes": dev_peak - offload_peak,
+          "kernel_launches": launches, "nvidia_smi": smi})
+    if a_losses[:2] != dev_losses[:2]:
+        raise AssertionError(f"zero_offload: the losses of steps 0-1 "
+                             f"{a_losses[:2]} != the device Adam's "
+                             f"{dev_losses[:2]}")
+    if not loss2 <= OFFLOAD_LOSS_ATOL < loss2_no_update:
+        raise AssertionError(f"zero_offload: step 2's loss is {loss2} from "
+                             f"the device Adam's (atol {OFFLOAD_LOSS_ATOL}; "
+                             f"no update would read {loss2_no_update})")
+    if not within:
+        raise AssertionError(f"zero_offload: host masters after 3 steps "
+                             f"differ from the device Adam's beyond {tol} "
+                             f"(max |diff| {worst})")
+    if not share["offload"] <= OFFLOAD_SHARE_LIMIT < min(
+            share["no_update"], share["sign_flip"]):
+        raise AssertionError(f"zero_offload: shares of the masters beyond "
+                             f"the fp32 tolerance {share} (limit "
+                             f"{OFFLOAD_SHARE_LIMIT})")
+    if not (worst_leaves[0][1] <= OFFLOAD_UPDATE_LIMIT["leaf"] and
+            update_err_all <= OFFLOAD_UPDATE_LIMIT["all"]):
+        raise AssertionError(f"zero_offload: the host updates are "
+                             f"{update_err_all} of the device Adam's away "
+                             f"over all leaves, {worst_leaves} in the "
+                             f"worst (limits {OFFLOAD_UPDATE_LIMIT})")
+    if not (all(windows) and a2_moved):
+        raise AssertionError(f"zero_offload overlap: after windows 1-3 the "
+                             f"params equal (init, (a)'s after steps 1 and "
+                             f"2): {windows}; (a)'s after step 2 differ from "
+                             f"its after steps 1 and 3: {a2_moved}")
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"zero_offload: K1-K3 launched {launches}, "
+                             f"want {want} each ((a) and (b), 4 steps each)")
+    _check_mma_bodies("zero_offload_train", _mma_bodies(
+        ("masked_flash_fwd", "masked_flash_dq", "masked_flash_dkv")))
+    return launches
+
+
+def _zero2_losses(cfg, device, steps=LAUNCH_STEPS, seq=1024):
+    """GPT-2 345M (dropout 0) through ds_config_zero2.json as held, seed 0,
+    ``steps`` batches from seed 0: the losses (floats)."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import init_gpt2_params
+    ds = _ds_config(ZERO2_DS_CONFIG)
+    data = _offload_data(cfg, ds["train_micro_batch_size_per_gpu"], steps,
+                         seq)
+    params = init_gpt2_params(cfg, torch.Generator(device=device)
+                              .manual_seed(SEED))
+    engine = _bf16_engine(cfg, params, ds, device)
+    del params
+    t0 = time.time()
+    losses = [float(engine.train_batch(iter([b]))) for b in data]
+    return losses, engine, t0
+
+
+def _process_start() -> float:
+    """This process's start, on the wall clock (from /proc)."""
+    import os
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        up = float(f.read().split()[0])
+    return time.time() - up + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _one_chunk_collectives(engine, device="cuda"):
+    """ZeroPartition's reduce-scatter and all-gather over the group on
+    every leaf shape of ``engine``. At a world of one JAX's rule
+    replicates every leaf, so the engine's own step only all-reduces;
+    here each leaf is cut into one chunk (along dim 0, every other 2-D
+    leaf along dim 1), so that reduce_scatter_tensor and all_gather run,
+    and each must give the identity, bitwise: the grads in fp32, the
+    params in bf16, as the engine moves them."""
+    import torch
+    from deepspeed_tpu_torch.runtime.zero.sharding import ZeroPartition
+    shapes = [tuple(t.shape) for t in _leaves(engine.params)]
+    part = ZeroPartition(shapes, 1, 0, 2)
+    part.dims = [None if not s else 1 if len(s) == 2 and i % 2 else 0
+                 for i, s in enumerate(shapes)]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    wrong = 0
+    for i, s in enumerate(shapes):
+        g = torch.randn(s, generator=gen, device=device)
+        got = part.reduce_scatter(i, g.clone())
+        p = g.to(torch.bfloat16)
+        out = part.all_gather(i, p, torch.empty_like(p))
+        wrong += not (torch.equal(got, g) and torch.equal(out, p))
+    return {"live": part.live, "leaves": len(shapes),
+            "cut_along_dim1": part.dims.count(1),
+            "replicated": part.dims.count(None), "not_identity": wrong}
+
+
+def zero2_child(result_path):
+    """Phase 54's child, launched by the port's runner (one process per
+    device): on its first launch it exits 85 before it builds anything;
+    on the second it joins the launcher's group (NCCL), trains
+    LAUNCH_STEPS steps of ds_config_zero2.json (at one data rank ZeRO 2
+    takes stage 0's step, whose collective over the group is the grads'
+    all-reduce), then runs the partition's reduce-scatter and
+    all-gather on NCCL (:func:`_one_chunk_collectives`) and writes what
+    it saw. Prints no result line."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.distributed import init_distributed, local_rank
+    start = _process_start()
+    restarts = int(os.environ.get("DSTPU_RESTART_COUNT", "0"))
+    if restarts == 0:
+        return 85
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed()
+    _reset_all_launches()
+    losses, engine, t_first = _zero2_losses(gpt2_345m_train_config(), "cuda")
+    out = {"restarts": restarts, "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "rank": dist.get_rank(),
+           "local_rank": local_rank(), "device": torch.cuda.current_device(),
+           "dp_world_size": engine.dp_world_size,
+           "sharded": engine._sharded, "zero_stage": engine.zero_stage,
+           "step_over_group": engine._part is not None and
+           engine._part.live,
+           "losses": losses, "launches": _train_launches(),
+           "spawn_to_first_step_s": t_first - start,
+           "one_chunk_collectives": _one_chunk_collectives(engine)}
+    with open(result_path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def zero_launch_phase(smi):
+    """Phase 54: ``python -m deepspeed_tpu_torch.launcher.runner --num_gpus
+    1 --supervise --max_restarts 1 --restart_backoff 0 chip_smoke.py
+    --child zero2 <file>``: the launcher exits 0 after exactly one
+    relaunch; the child ran on NCCL at world 1 (rank 0, local rank 0;
+    ZeRO 2 at one data rank takes stage 0's step, its grads all-reduced
+    over the group) and its 3 losses are bitwise this process's, which
+    trains the same config, batches and seed with no group; the
+    partition's reduce-scatter and all-gather on NCCL, each leaf as one
+    chunk, gave the identity.
+    Returns the child's K1-K3 launches (counted in the child)."""
+    import os
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    losses, engine, _ = _zero2_losses(gpt2_345m_train_config(), "cuda")
+    if torch.distributed.is_initialized() or engine._part is not None:
+        raise AssertionError("zero_launch: the parent made a process group")
+    del engine
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        result = os.path.join(d, "child.json")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner",
+             "--num_gpus", "1", "--master_port", str(_free_port()),
+             "--supervise", "--max_restarts", "1", "--restart_backoff",
+             "0", os.path.join(here, "chip_smoke.py"), "--child", "zero2",
+             result], cwd=here, capture_output=True, text=True,
+            timeout=600)
+        seconds = time.perf_counter() - t0
+        log = p.stdout + p.stderr
+        if p.returncode != 0:
+            print(log[-4000:], file=sys.stderr)
+            raise AssertionError(f"zero_launch: the launcher exited "
+                                 f"{p.returncode}")
+        with open(result) as f:
+            child = json.load(f)
+    relaunches = log.count("relaunch 1/1")
+    row = {"phase": "zero_launch", "config": ZERO2_DS_CONFIG,
+           "launcher_seconds": seconds, "relaunches": relaunches,
+           "child": child, "parent_losses": losses, "nvidia_smi": smi}
+    emit(row)
+    if relaunches != 1 or child["restarts"] != 1:
+        raise AssertionError("zero_launch: want exactly one relaunch")
+    if (child["backend"], child["world"], child["rank"],
+            child["local_rank"]) != ("nccl", 1, 0, 0):
+        raise AssertionError(f"zero_launch: the child's group {child}")
+    if not (child["step_over_group"] and child["zero_stage"] == 2 and
+            child["dp_world_size"] == 1 and not child["sharded"]):
+        raise AssertionError("zero_launch: the child did not take ZeRO 2 "
+                             "at one data rank over its group")
+    coll = child["one_chunk_collectives"]
+    if not (coll["live"] and coll["leaves"] and coll["replicated"] == 0
+            and coll["not_identity"] == 0):
+        raise AssertionError(f"zero_launch: reduce-scatter and all-gather "
+                             f"on NCCL: {coll}")
+    if child["losses"] != losses:
+        raise AssertionError(f"zero_launch: the child's losses "
+                             f"{child['losses']} != the parent's {losses}")
+    want = gpt2_345m_train_config().num_layers * LAUNCH_STEPS
+    if any(n != want for n in child["launches"].values()):
+        raise AssertionError(f"zero_launch: K1-K3 launched "
+                             f"{child['launches']} in the child, want {want}")
+    return child["launches"]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     global _START
     _START = time.perf_counter()
@@ -7821,6 +8336,9 @@ def main() -> int:
     fleet_child_launches = fleet_process_phase(smi, GPT2_MEDIUM, params,
                                                gpt2_ref)
     del params, gpt2_ref
+    torch.cuda.empty_cache()
+    offload_launches = zero_offload_train_phase(smi)
+    launcher_child_launches = zero_launch_phase(smi)
     llama_launches = llama_phase(smi)
     train_launches, train_losses = training_phase(smi)
     training_dropout_phase()
@@ -7978,10 +8496,18 @@ def main() -> int:
             replaces=t["replaces"],
             launches=(train_launches[name] + llama_train_launches[name]
                       + ckpt_train_launches[name]
-                      + generate_launches.get(name, 0)),
+                      + generate_launches.get(name, 0)
+                      + offload_launches[name]),
             launches_by_path={
                 f"gpt2-345m training ({TRAIN_STEPS} steps)":
                     train_launches[name],
+                f"gpt2-345m ZeRO-Offload, {OFFLOAD_DS_CONFIG} (phase 53: "
+                f"{OFFLOAD_BATCHES} steps without overlap_comm and "
+                f"{OFFLOAD_BATCHES} windows with it)": offload_launches[name],
+                f"gpt2-345m ZeRO 2 over NCCL at world 1, {ZERO2_DS_CONFIG}, "
+                f"launched by the runner (phase 54, {LAUNCH_STEPS} steps; "
+                "counted in the child: not in launches, this process's "
+                "count)": launcher_child_launches[name],
                 f"llama-1b training, G 4 ({TRAIN_STEPS} steps)":
                     llama_train_launches[name],
                 f"gpt2-345m checkpoint save and resume ({CKPT_HALF} + "
@@ -8260,5 +8786,7 @@ def profile_activity_probe(pairs=2, steps=2, decode_steps=8):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:3] == ["--child", "zero2"]:
+        sys.exit(zero2_child(sys.argv[3]))
     sys.exit(profile_activity_probe() if sys.argv[1:] == ["--profile-probe"]
              else main())

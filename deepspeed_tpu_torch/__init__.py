@@ -4,9 +4,10 @@ Hopper GPUs.
 This package imports torch and numpy, never jax and nothing of
 ``deepspeed_tpu``. Ported so far:
 
-- training: :func:`initialize` builds a :class:`DeepSpeedEngine` (one
-  device, ZeRO stage 0, or 1 and 2 on a world of one; bf16 over fp32
-  masters; Adam or Lamb; the lr schedules of ``runtime/lr_schedules.py``)
+- training: :func:`initialize` builds a :class:`DeepSpeedEngine` (ZeRO
+  stages 0-2 over the launcher's process group, one process per device,
+  and ZeRO-Offload to the host's C++ Adam; bf16 over fp32 masters; Adam
+  or Lamb; the lr schedules of ``runtime/lr_schedules.py``)
   that trains a loss function such as ``models.gpt2.gpt2_loss_fn`` or
   ``models.bert.bert_mlm_loss_fn`` (BERT MLM pretraining on the
   DeepSpeed transformer layer, :class:`DeepSpeedTransformerLayer`), whose
@@ -26,8 +27,12 @@ This package imports torch and numpy, never jax and nothing of
   window (``observability.trace``) records a ``torch.profiler`` trace.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
+``python -m deepspeed_tpu_torch.launcher.runner`` launches a script on
+every local GPU (gloo children with ``device="cpu"``), and
+:func:`init_distributed` joins its process group.
 """
 
+from deepspeed_tpu_torch.distributed import init_distributed
 from deepspeed_tpu_torch.inference import (FinishedRequest, InferenceEngine,
                                            Request)
 from deepspeed_tpu_torch.models.bert import BERT_BASE, BERT_LARGE, BertConfig
@@ -50,7 +55,7 @@ __all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig", "Adam",
            "GPT2_SMALL", "GPT2_MEDIUM", "GPT2_LARGE", "GPT2_XL",
            "LlamaConfig", "BertConfig", "BERT_BASE", "BERT_LARGE",
            "DeepSpeedTransformerConfig", "DeepSpeedTransformerLayer",
-           "init_gpt2_params", "params_from_jax"]
+           "init_gpt2_params", "params_from_jax", "init_distributed"]
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,

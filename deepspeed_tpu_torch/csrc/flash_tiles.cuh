@@ -129,23 +129,25 @@ struct Dropout {
   uint32_t thresh;     // keep iff hash < thresh
   float inv_keep;      // 1 / (1 - rate), rounded to fp32
   uint32_t seed;       // the int32 seed's bits
+  uint32_t bh0;        // added to b * H + h: a rank's first global row * H
 
   // the two-round finalizer (flash._HASH_FINAL_ROUNDS == 2, which the
   // wrappers require)
   __device__ __forceinline__ bool keep(int bh, int qi, int ki) const {
-    const uint32_t row =
-        mix32((uint32_t)qi ^ ((uint32_t)bh * 0x9E3779B9u) ^ seed);
+    const uint32_t row = mix32(
+        (uint32_t)qi ^ (((uint32_t)bh + bh0) * 0x9E3779B9u) ^ seed);
     return mix32(row ^ (uint32_t)ki) < thresh;
   }
 };
 
 inline Dropout make_dropout(int on, uint32_t thresh, float inv_keep,
-                            int seed) {
+                            int seed, int bh0 = 0) {
   Dropout dr;
   dr.on = on;
   dr.thresh = thresh;
   dr.inv_keep = inv_keep;
   dr.seed = (uint32_t)seed;
+  dr.bh0 = (uint32_t)bh0;
   return dr;
 }
 

@@ -37,8 +37,9 @@
 // output equals that of the walk without the skip bit for bit. p is
 // rounded to V's dtype before P.V and ds to K/Q's dtype before its products; every sum
 // accumulates in fp32. Dropout regenerates
-// the keep mask of flash.dropout_keep_mask from (seed, b*H + h, q, k) in
-// all three kernels; the forward scales o by 1/(1-rate) after the
+// the keep mask of flash.dropout_keep_mask from (seed, bh0 + b*H + h, q,
+// k) in all three kernels (bh0: a data-parallel rank's first global batch
+// row times H, so a rank draws its rows' masks of the global batch); the forward scales o by 1/(1-rate) after the
 // normalization, dq scales dp, and dk/dv use the dropped, scaled pd for dv
 // and the undropped p in ds. dq and dk are scaled by sm_scale once at the
 // end, dv is not. At G > 1 dk/dv are written as fp32 per-q-head partials
@@ -826,14 +827,15 @@ extern "C" int masked_flash_fwd(
     int mask_heads, int seq_q, int seq_k, int head_dim, int block,
     int fine_block, int band_w, int band_g_r, int band_g_c, int band_causal,
     float sm_scale, int dropout, unsigned keep_thresh, float inv_keep,
-    int seed, void* stream) {
+    int seed, int bh0, void* stream) {
   const Band bd{fine_block, band_w, band_g_r, band_g_c, band_causal};
   if (bad_shape(bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim,
                 block) || bad_band(bd))
     return (int)cudaErrorInvalidValue;
   const Shape sh{heads, kv_heads, mask_heads, seq_q, seq_k,
                  head_dim, block, sm_scale};
-  const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
+  const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed,
+                                  bh0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* of = static_cast<const int32_t*>(offs);
   const int32_t* cn = static_cast<const int32_t*>(cnts);
@@ -863,7 +865,7 @@ extern "C" int masked_flash_dq(
     int dtype, int bh, int heads, int kv_heads, int mask_heads, int seq_q,
     int seq_k, int head_dim, int block, int fine_block, int band_w,
     int band_g_r, int band_g_c, int band_causal, float sm_scale,
-    int dropout, unsigned keep_thresh, float inv_keep, int seed,
+    int dropout, unsigned keep_thresh, float inv_keep, int seed, int bh0,
     void* stream) {
   const Band bd{fine_block, band_w, band_g_r, band_g_c, band_causal};
   if (bad_shape(bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim,
@@ -871,7 +873,8 @@ extern "C" int masked_flash_dq(
     return (int)cudaErrorInvalidValue;
   const Shape sh{heads, kv_heads, mask_heads, seq_q, seq_k,
                  head_dim, block, sm_scale};
-  const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
+  const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed,
+                                  bh0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -906,14 +909,15 @@ extern "C" int masked_flash_dkv(
     int kv_heads, int mask_heads, int seq_q, int seq_k, int head_dim,
     int block, int fine_block, int band_w, int band_g_r, int band_g_c,
     int band_causal, float sm_scale, int dropout, unsigned keep_thresh,
-    float inv_keep, int seed, void* stream) {
+    float inv_keep, int seed, int bh0, void* stream) {
   const Band bd{fine_block, band_w, band_g_r, band_g_c, band_causal};
   if (bad_shape(bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim,
                 block) || bad_band(bd))
     return (int)cudaErrorInvalidValue;
   const Shape sh{heads, kv_heads, mask_heads, seq_q, seq_k,
                  head_dim, block, sm_scale};
-  const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed);
+  const Dropout dr = make_dropout(dropout, keep_thresh, inv_keep, seed,
+                                  bh0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);

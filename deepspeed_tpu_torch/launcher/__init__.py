@@ -1,2 +1,3 @@
-"""Launcher of the port: so far only the restart policy that the serving
-fleet's replica supervision shares (``launcher/runner.py``)."""
+"""The port's launcher: ``python -m deepspeed_tpu_torch.launcher.runner``
+(``dstpu``; one process per device) and its multi-node transports
+(``launcher/multinode_runner.py``)."""

@@ -10,6 +10,10 @@ an edited source or header builds anew and an unchanged one loads what
 is there. :func:`build_all` starts
 one ``nvcc`` per source, all at once. :func:`arrival_counts` keeps the
 counters of the kernels whose splits merge in the same launch.
+
+:func:`build_host` builds a host C++ source the same way with ``g++``
+(``csrc/Makefile``'s flags): the ZeRO-Offload CPU Adam of
+``csrc/adam/cpu_adam.cpp``, loaded by ``ops/adam/cpu_adam.py``.
 """
 
 import ctypes
@@ -26,6 +30,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, ".build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# csrc/Makefile's flags for the host libraries
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-fopenmp", "-Wall"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}   # source name -> nvcc's output (ptxas -v)
@@ -96,6 +103,55 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build_all([name])[name])
         _loaded[name] = lib
     return lib
+
+
+def _host_compilers() -> List[str]:
+    """The C++ compilers to try, in order: ``$CXX``, ``g++`` on the path,
+    the system's ``/usr/bin/g++`` (each once)."""
+    found = []
+    for cand in (os.environ.get("CXX"), shutil.which("g++"),
+                 "/usr/bin/g++"):
+        if cand and os.path.isfile(cand) and cand not in found:
+            found.append(cand)
+    return found
+
+
+def build_host(source: str) -> str:
+    """The library of the host C++ file ``source`` (a path), compiled with
+    :data:`HOST_FLAGS` into ``.build/`` under a name that hashes the
+    source and the flags, at first use and under the build lock, written
+    to a temporary name and renamed into place, so no process loads a
+    half-written file. The compilers of :func:`_host_compilers` are tried
+    in turn (a toolchain's ``g++`` may lack the OpenMP runtime that
+    ``-fopenmp`` links); raises when the source is missing or every
+    compiler fails."""
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(" ".join(HOST_FLAGS).encode() + f.read())
+    stem = os.path.splitext(os.path.basename(source))[0]
+    so = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    compilers = _host_compilers()
+    if not compilers:
+        raise RuntimeError(f"no C++ compiler ($CXX or g++) to build {source}")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(so):         # another process built it meanwhile
+            return so
+        tmp = f"{so}.{os.getpid()}.tmp"
+        errors = []
+        for cxx in compilers:
+            p = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, source],
+                               capture_output=True, text=True)
+            build_logs[os.path.basename(source)] = \
+                f"{cxx}\n{p.stdout}{p.stderr}"
+            if p.returncode == 0:
+                os.replace(tmp, so)
+                return so
+            errors.append(f"{cxx}:\n{p.stdout}{p.stderr}")
+        raise RuntimeError(f"the build of {source} failed with every "
+                           "compiler:\n" + "\n".join(errors))
 
 
 def arrival_counts(owner: str, device, stream: int, n: int):

@@ -733,7 +733,10 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
     dropout_rate > 0 requires ``dropout_seed`` (an int32).
     ``force_reference``: the fp32 :func:`attention_reference`.
     ``kernel``: None (default) follows :func:`get_attention_options`;
-    "masked", "flash" or "reference" override it for this call."""
+    "masked", "flash" or "reference" override it for this call. Inside
+    ``functional.batch_rows(row0)`` the dropout draws the masks of the
+    global batch's rows from ``row0`` on (the masked route; another route
+    raises there)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.shape[1] % k.shape[1] != 0 or k.shape[1] != v.shape[1]:
@@ -754,6 +757,16 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
             raise ValueError(f"dropout_rate must be < 1, got "
                              f"{dropout_rate}")
     sq, sk = q.shape[2], k.shape[2]
+    from deepspeed_tpu_torch.ops.functional import batch_row0
+    bh0 = batch_row0() * q.shape[1]
+    masked = kernel == "masked" and (not causal or sq == sk) and \
+        not force_reference and sq % 16 == 0 and sk % 16 == 0
+    if dropout_rate > 0.0 and bh0 and not masked:
+        raise NotImplementedError(
+            "flash_attention: attention dropout at a data-parallel rank's "
+            "rows of a global batch runs on the masked route (K1-K3) only; "
+            f"kernel={kernel!r}, seq ({sq}, {sk}) would draw the local "
+            "rows' masks")
     force_ref = kernel == "reference"
     if force_ref and max(sq, sk) >= STREAM_THRESHOLD:
         # the A/B knob never re-routes a long-context run onto the O(S^2)
@@ -786,7 +799,8 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
         return masked_flash_attention(
             q, k, v, _dense_block_mask(sq, sk, bool(causal)),
             key_mask=mask, sm_scale=float(sm_scale),
-            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+            dropout_bh0=bh0)
     key_mask = None if mask is None else mask.reshape(q.shape[0], sk).float()
     return flash_call(q, k, v, dropout_seed or 0, causal, sm_scale,
                       dropout_rate, key_mask)

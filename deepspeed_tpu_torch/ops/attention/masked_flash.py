@@ -501,11 +501,14 @@ def _keep(seed, bh, q_idx, k_idx, seq_k, rate):
 
 
 def masked_flash_fwd_plain(q, k, v, mask: BlockMask, sm_scale: float,
-                           rate: float = 0.0, seed: int = 0, key_mask=None):
+                           rate: float = 0.0, seed: int = 0, key_mask=None,
+                           bh0: int = 0):
     """K1's function in plain PyTorch, with its tile walk: per walked
     tile an fp32 online-softmax step, p rounded to V's dtype before P.V.
     q (B, H, Sq, D), k/v (B, Hkv, Sk, D), optional fp32 ``key_mask``
-    (B, Sk) -> o (q's dtype), lse (B, H, Sq) fp32."""
+    (B, Sk) -> o (q's dtype), lse (B, H, Sq) fp32. The dropout hashes
+    ``bh0 + b * H + h`` (``bh0``: the first row's offset in a global
+    batch, times H)."""
     B, H, Sq, D = q.shape
     G = H // k.shape[1]
     blk = mask.block
@@ -537,8 +540,8 @@ def masked_flash_fwd_plain(q, k, v, mask: BlockMask, sm_scale: float,
                                 torch.exp(s - m_safe[..., None]), 0.0)
                 l = l * alpha + p.sum(dim=-1)
                 if rate > 0.0:
-                    p = torch.where(_keep(seed, bh, q_idx, k_idx, k.shape[2],
-                                          rate), p, 0.0)
+                    p = torch.where(_keep(seed, bh + bh0, q_idx, k_idx,
+                                          k.shape[2], rate), p, 0.0)
                 vt = vh[:, :, c * blk:(c + 1) * blk]
                 acc = acc * alpha[..., None] + \
                     p.to(v.dtype).float() @ vt.float()
@@ -556,7 +559,7 @@ def masked_flash_fwd_plain(q, k, v, mask: BlockMask, sm_scale: float,
 
 def masked_flash_dq_plain(q, k, v, do, lse, delta, mask: BlockMask,
                           sm_scale: float, rate: float = 0.0,
-                          seed: int = 0, key_mask=None):
+                          seed: int = 0, key_mask=None, bh0: int = 0):
     """K2's function in plain PyTorch over the CSR walk: p recomputed
     from lse (the key mask added as in K1), ds = p * (dp - delta) rounded
     to K's dtype, dq scaled by sm_scale at the end."""
@@ -586,7 +589,7 @@ def masked_flash_dq_plain(q, k, v, do, lse, delta, mask: BlockMask,
                                 torch.exp(s - lseh[:, :, rows, None]), 0.0)
                 dp = dot @ vh[:, :, c * blk:(c + 1) * blk].transpose(-1, -2)
                 if rate > 0.0:
-                    dp = torch.where(_keep(seed, bh, q_idx, k_idx,
+                    dp = torch.where(_keep(seed, bh + bh0, q_idx, k_idx,
                                            k.shape[2], rate), dp * inv, 0.0)
                 ds = p * (dp - dlh[:, :, rows, None])
                 acc = acc + ds.to(k.dtype).float() @ kt
@@ -596,7 +599,7 @@ def masked_flash_dq_plain(q, k, v, do, lse, delta, mask: BlockMask,
 
 def masked_flash_dkv_plain(q, k, v, do, lse, delta, mask: BlockMask,
                            sm_scale: float, rate: float = 0.0,
-                           seed: int = 0, key_mask=None):
+                           seed: int = 0, key_mask=None, bh0: int = 0):
     """K3's function in plain PyTorch over the CSC walk: p recomputed
     with the key block's mask row, dv from the dropped, scaled pd, dk
     from the undropped p in ds; per-q-head fp32 partials summed per group
@@ -633,7 +636,7 @@ def masked_flash_dkv_plain(q, k, v, do, lse, delta, mask: BlockMask,
                                 torch.exp(s - lseh[:, :, rows, None]), 0.0)
                 dp = dot @ vt.transpose(-1, -2)
                 if rate > 0.0:
-                    keep = _keep(seed, bh, q_idx, k_idx, Sk, rate)
+                    keep = _keep(seed, bh + bh0, q_idx, k_idx, Sk, rate)
                     pd = torch.where(keep, p * inv, 0.0)
                     dp = torch.where(keep, dp * inv, 0.0)
                 else:
@@ -805,9 +808,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # what every entry point takes after its pointers, dtype (and fp32_out):
 # bh, heads, kv_heads, mask_heads, seq_q, seq_k, head_dim, block, the
 # band (fine_block, w, g_r, g_c, causal; fine_block 0: no band arity),
-# then sm_scale, dropout, keep_thresh, inv_keep, seed, stream
+# then sm_scale, dropout, keep_thresh, inv_keep, seed, (bh0,) stream
 _GEOMETRY = [_I] * 13
 _TAIL = [_F, _I, ctypes.c_uint32, _F, ctypes.c_int32, _P]
+# masked_flash.cu's entry points take the dropout's bh0 before the stream
+_TAIL_BH0 = _TAIL[:-1] + [_I, _P]
 
 
 def _ptr(t) -> Optional[int]:
@@ -875,7 +880,8 @@ def _run(name, fn, q, args):
 @counted_flops("masked_flash_fwd", lambda q, k, v, mask, *a, **kw:
                walk_flops(q, mask, FWD_DOTS))
 def masked_flash_fwd(q, k, v, mask: BlockMask, sm_scale: float,
-                     rate: float = 0.0, seed: int = 0, key_mask=None):
+                     rate: float = 0.0, seed: int = 0, key_mask=None,
+                     bh0: int = 0):
     """K1: ``(o, lse)`` of :func:`masked_flash_fwd_plain`. A CUDA ``q``
     launches the sm_90a kernel (raising on any dtype, shape, device or
     launch problem), its tensor-core body in bf16 and its CUDA-core body
@@ -887,20 +893,21 @@ def masked_flash_fwd(q, k, v, mask: BlockMask, sm_scale: float,
     _check_hash_rounds(rate)
     if q.device.type == "cpu":
         return masked_flash_fwd_plain(q, k, v, mask, sm_scale, rate, seed,
-                                      key_mask)
+                                      key_mask, bh0)
     _check_cuda((q, k, v), mask, key_mask)
     _check_fwd_aligned(q, k, v, key_mask)
     B, H, Sq, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     # q, k, v, kpm, o, lse, offs, cnts, cols, kinds; dtype
-    fn = _kernel("masked_flash_fwd", [_P] * 10 + [_I] + _GEOMETRY + _TAIL)
+    fn = _kernel("masked_flash_fwd",
+                 [_P] * 10 + [_I] + _GEOMETRY + _TAIL_BH0)
     walk = mask.device_walk("csr", q.device)
     _run("masked_flash_fwd", fn, q,
          [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
           o.data_ptr(), lse.data_ptr(), *(w.data_ptr() for w in walk),
           _DTYPE_CODE[q.dtype], *_geometry(q, k, mask),
-          *_dropout(sm_scale, rate, seed)])
+          *_dropout(sm_scale, rate, seed), int(bh0)])
     _count(masked_flash_fwd, key_mask, mask)
     _count_body(masked_flash_fwd, q.dtype)
     return o, lse
@@ -910,7 +917,7 @@ def masked_flash_fwd(q, k, v, mask: BlockMask, sm_scale: float,
                *a, **kw: walk_flops(q, mask, DQ_DOTS))
 def masked_flash_dq(q, k, v, do, lse, delta, mask: BlockMask,
                     sm_scale: float, rate: float = 0.0, seed: int = 0,
-                    key_mask=None):
+                    key_mask=None, bh0: int = 0):
     """K2: ``dq`` of :func:`masked_flash_dq_plain`; kernel on CUDA (its
     key-mask arity with a ``key_mask``), its tensor-core body in bf16 and
     its CUDA-core body in fp32 (:data:`DQ_BODIES`, counted in
@@ -919,19 +926,20 @@ def masked_flash_dq(q, k, v, do, lse, delta, mask: BlockMask,
     _check_hash_rounds(rate)
     if q.device.type == "cpu":
         return masked_flash_dq_plain(q, k, v, do, lse, delta, mask,
-                                     sm_scale, rate, seed, key_mask)
+                                     sm_scale, rate, seed, key_mask, bh0)
     _check_cuda((q, k, v, do, lse, delta), mask, key_mask)
     _check_dq_aligned(q, k, v, do, key_mask)
     dq = torch.empty_like(q)
     # q, k, v, kpm, do, lse, delta, dq, offs, cnts, cols, kinds; dtype
-    fn = _kernel("masked_flash_dq", [_P] * 12 + [_I] + _GEOMETRY + _TAIL)
+    fn = _kernel("masked_flash_dq",
+                 [_P] * 12 + [_I] + _GEOMETRY + _TAIL_BH0)
     walk = mask.device_walk("csr", q.device)
     _run("masked_flash_dq", fn, q,
          [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
           *(w.data_ptr() for w in walk),
           _DTYPE_CODE[q.dtype], *_geometry(q, k, mask),
-          *_dropout(sm_scale, rate, seed)])
+          *_dropout(sm_scale, rate, seed), int(bh0)])
     _count(masked_flash_dq, key_mask, mask)
     _count_body(masked_flash_dq, q.dtype, DQ_BODIES)
     return dq
@@ -941,7 +949,7 @@ def masked_flash_dq(q, k, v, do, lse, delta, mask: BlockMask,
                *a, **kw: walk_flops(q, mask, DKV_DOTS))
 def masked_flash_dkv(q, k, v, do, lse, delta, mask: BlockMask,
                      sm_scale: float, rate: float = 0.0, seed: int = 0,
-                     key_mask=None):
+                     key_mask=None, bh0: int = 0):
     """K3: ``(dk, dv)`` of :func:`masked_flash_dkv_plain`; kernel on
     CUDA (fp32 per-q-head partials at G > 1, summed here; its key-mask
     arity with a ``key_mask``), its tensor-core body in bf16 and its
@@ -951,7 +959,7 @@ def masked_flash_dkv(q, k, v, do, lse, delta, mask: BlockMask,
     _check_hash_rounds(rate)
     if q.device.type == "cpu":
         return masked_flash_dkv_plain(q, k, v, do, lse, delta, mask,
-                                      sm_scale, rate, seed, key_mask)
+                                      sm_scale, rate, seed, key_mask, bh0)
     _check_cuda((q, k, v, do, lse, delta), mask, key_mask)
     _check_dkv_aligned(q, k, v, do, key_mask)
     B, H, Sq, D = q.shape
@@ -962,14 +970,14 @@ def masked_flash_dkv(q, k, v, do, lse, delta, mask: BlockMask,
     # q, k, v, kpm, do, lse, delta, dk, dv, coffs, ccnts, crows, ckinds;
     # dtype, fp32_out
     fn = _kernel("masked_flash_dkv",
-                 [_P] * 13 + [_I, _I] + _GEOMETRY + _TAIL)
+                 [_P] * 13 + [_I, _I] + _GEOMETRY + _TAIL_BH0)
     walk = mask.device_walk("csc", q.device)
     _run("masked_flash_dkv", fn, q,
          [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
           dv.data_ptr(), *(w.data_ptr() for w in walk),
           _DTYPE_CODE[q.dtype], int(G > 1), *_geometry(q, k, mask),
-          *_dropout(sm_scale, rate, seed)])
+          *_dropout(sm_scale, rate, seed), int(bh0)])
     _count(masked_flash_dkv, key_mask, mask)
     _count_body(masked_flash_dkv, q.dtype, DKV_BODIES)
     return _group_sum(dk, dv, k, v)
@@ -1021,12 +1029,13 @@ class _MaskedFlash(torch.autograd.Function):
     zero one where asked for, as the JAX package's vjp returns."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, seed, mask, sm_scale, rate):
+    def forward(ctx, q, k, v, key_mask, seed, mask, sm_scale, rate, bh0):
         o, lse = masked_flash_fwd(q, k, v, mask, sm_scale, rate, seed,
-                                  key_mask)
+                                  key_mask, bh0)
         ctx.save_for_backward(q, k, v, key_mask, o, lse)
         ctx.mask, ctx.sm_scale, ctx.rate, ctx.seed = mask, sm_scale, rate, \
             seed
+        ctx.bh0 = bh0
         return o
 
     @staticmethod
@@ -1034,35 +1043,40 @@ class _MaskedFlash(torch.autograd.Function):
         q, k, v, key_mask, o, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)
-        args = (ctx.mask, ctx.sm_scale, ctx.rate, ctx.seed, key_mask)
+        args = (ctx.mask, ctx.sm_scale, ctx.rate, ctx.seed, key_mask,
+                ctx.bh0)
         dq = masked_flash_dq(q, k, v, do, lse, delta, *args)
         dk, dv = masked_flash_dkv(q, k, v, do, lse, delta, *args)
         dkpm = (torch.zeros_like(key_mask) if ctx.needs_input_grad[3]
                 else None)
-        return dq, dk, dv, dkpm, None, None, None, None
+        return dq, dk, dv, dkpm, None, None, None, None, None
 
 
 def masked_flash_call(q, k, v, seed: int, mask: BlockMask, sm_scale: float,
-                      rate: float, key_mask=None):
+                      rate: float, key_mask=None, bh0: int = 0):
     """Low-level entry, all operands explicit: ``o`` with the custom
     backward. ``seed`` is the dropout seed (int32; unused at rate 0);
-    ``key_mask`` the optional fp32 (B, Sk) additive key mask."""
+    ``key_mask`` the optional fp32 (B, Sk) additive key mask; ``bh0``
+    offsets the dropout's ``b * H + h`` (a rank's first global row
+    times H)."""
     return _MaskedFlash.apply(
         q.contiguous(), k.contiguous(), v.contiguous(),
         None if key_mask is None else key_mask.contiguous(), int(seed),
-        mask, float(sm_scale), float(rate))
+        mask, float(sm_scale), float(rate), int(bh0))
 
 
 def masked_flash_attention(q, k, v, mask: BlockMask, key_mask=None,
                            sm_scale: Optional[float] = None,
                            dropout_rate: float = 0.0,
-                           dropout_seed: Optional[int] = None):
+                           dropout_seed: Optional[int] = None,
+                           dropout_bh0: int = 0):
     """Blocked flash attention under a static :class:`BlockMask`.
 
     q: (B, H, Sq, D); k, v: (B, kv_heads, Sk, D) with H % kv_heads == 0.
     ``mask.heads`` must be 1 or H. ``key_mask``: optional *additive* key
     mask, (B, Sk) or BERT-style (B, 1, 1, Sk), taken in fp32.
-    ``dropout_rate > 0`` requires ``dropout_seed`` (an int32)."""
+    ``dropout_rate > 0`` requires ``dropout_seed`` (an int32);
+    ``dropout_bh0`` offsets the dropout hash's ``b * H + h``."""
     if key_mask is not None:
         key_mask = key_mask.reshape(q.shape[0], k.shape[2]).float()
     _check_args(q, k, v, mask, key_mask)
@@ -1077,4 +1091,4 @@ def masked_flash_attention(q, k, v, mask: BlockMask, key_mask=None,
             raise ValueError(f"dropout_rate must be < 1, got "
                              f"{dropout_rate}")
     return masked_flash_call(q, k, v, dropout_seed or 0, mask, sm_scale,
-                             dropout_rate, key_mask)
+                             dropout_rate, key_mask, dropout_bh0)

@@ -12,9 +12,19 @@ of a ``jax.random`` key's data, which torch cannot reproduce. Given the
 same seed, the keep mask is the JAX package's bit for bit (the hash runs
 in int64 with the uint32 wrap-around done by hand; see
 ``ops/attention/flash.py``).
+
+Under data parallelism a rank holds rows ``[row0, row0 + micro)`` of the
+global batch, and JAX's sharded program draws its masks by the global
+row (a dropout's counter runs over the whole global tensor, the
+attention kernels hash ``b * H + h`` of the global ``b``).
+:func:`batch_rows` sets ``row0`` for the block it wraps: :func:`dropout`
+then starts its counter at the rank's first element, and
+``flash_attention`` offsets the kernels' ``b * H + h`` by ``row0 * H``,
+so a rank draws the masks of its rows of the global batch.
 """
 
 import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -45,12 +55,7 @@ def _hash_keep_mask(seed32: int, n: int, rate: float,
                     device=None) -> torch.Tensor:
     """lowbias32-style counter hash over ``0..n-1`` -> bool keep mask of
     n elements (True = keep)."""
-    x = torch.arange(n, dtype=torch.int64, device=device) ^ (int(seed32)
-                                                              & _M32)
-    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
-    x = _mul32(x ^ (x >> 15), 0x846CA68B)
-    x = x ^ (x >> 16)
-    return x < keep_threshold(rate)
+    return _hash_keep_mask_from(seed32, 0, n, rate, device)
 
 
 def fold_seed(seed: int, i: int) -> int:
@@ -62,14 +67,49 @@ def fold_seed(seed: int, i: int) -> int:
     return x - (1 << 32) if x >= (1 << 31) else x
 
 
+_ROW0 = contextvars.ContextVar("batch_row0", default=0)
+
+
+@contextlib.contextmanager
+def batch_rows(row0: int):
+    """Within the block, the tensors a loss sees hold the rows of the
+    global batch from ``row0`` on (their leading dim is the batch): the
+    dropouts draw those rows' masks."""
+    token = _ROW0.set(int(row0))
+    try:
+        yield
+    finally:
+        _ROW0.reset(token)
+
+
+def batch_row0() -> int:
+    """The first global batch row of the block (0 outside
+    :func:`batch_rows`)."""
+    return _ROW0.get()
+
+
+def _hash_keep_mask_from(seed32: int, start: int, n: int, rate: float,
+                         device=None) -> torch.Tensor:
+    """:func:`_hash_keep_mask`'s elements ``start .. start + n - 1``."""
+    x = torch.arange(start, start + n, dtype=torch.int64, device=device) \
+        ^ (int(seed32) & _M32)
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x < keep_threshold(rate)
+
+
 def dropout(x: torch.Tensor, rate: float, seed32, deterministic: bool):
     """Inverted dropout with the hash keep mask of ``seed32``; identity
-    when deterministic, rate == 0 or ``seed32`` is None."""
+    when deterministic, rate == 0 or ``seed32`` is None. Inside
+    :func:`batch_rows` the mask is that of ``x``'s rows of the global
+    batch (``x``'s leading dim is the batch)."""
     if deterministic or rate == 0.0 or seed32 is None:
         return x
     keep = 1.0 - rate
-    mask = _hash_keep_mask(seed32, x.numel(), rate,
-                           device=x.device).reshape(x.shape)
+    start = batch_row0() * (x.numel() // x.shape[0]) if x.dim() else 0
+    mask = _hash_keep_mask_from(seed32, start, x.numel(), rate,
+                                device=x.device).reshape(x.shape)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

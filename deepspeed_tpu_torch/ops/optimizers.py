@@ -132,7 +132,8 @@ class Lamb(Optimizer):
     ratios come in leaf order (sorted dict keys, JAX's order), and
     ``last_trust`` holds the last update's as a device tensor, beside
     ``last_zero_norm``, which of its leaves had a weight or update norm
-    of 0."""
+    of 0. Over ZeRO shards the engine sets ``leaf_norms``, which turns the
+    norms of the blocks this rank holds into the whole leaves' norms."""
 
     def __init__(self, lr: float = 1e-3, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0,
@@ -147,6 +148,7 @@ class Lamb(Optimizer):
         self.bias_correction = bias_correction
         self.last_trust = None
         self.last_zero_norm = None
+        self.leaf_norms = None
 
     def init(self, params):
         return LambState(0, *_zero_moments(params))
@@ -156,6 +158,8 @@ class Lamb(Optimizer):
         of 0)."""
         w = torch.stack(torch._foreach_norm(ps))
         u = torch.stack(torch._foreach_norm(upd))
+        if self.leaf_norms is not None:
+            w, u = self.leaf_norms(w), self.leaf_norms(u)
         nonzero = (w > 0) & (u > 0)
         return torch.where(nonzero,
                            torch.clamp(w / u, self.min_coeff,

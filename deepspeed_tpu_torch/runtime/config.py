@@ -6,23 +6,22 @@
 ``sparse_attention``, ``tensorboard``, the training ``observability``
 switch), ``get_inference_config`` and the serving part of
 ``get_observability_config``. The same dict resolves to the same fields
-and raises the same errors as the JAX package. ZeRO stages 1 and 2 are
-taken on a data-parallel world of one: the JAX engine then shards the
-masters, moments (and at stage 2 the grads) over a data axis of size 1,
-one shard, so the step is stage 0's. Settings whose runtime is not
-ported yet (ZeRO above a world of one, stage 3, offload, 1-bit Adam,
-pipeline, fp16, a ``mesh`` axis above 1, the training ``observability``
-switch ``health.enabled``, and the ``checkpoint`` section's
-``async_save`` and ``drain_on_preemption``) raise ``NotImplementedError``
-naming them; a ``mesh`` whose axes are all 1 (or -1, one device),
-``tensorboard``, ``observability.enabled``, the trace window
-(``observability.trace`` or the legacy ``profiler``) and
-``observability.serve`` are accepted. The ``checkpoint`` section is read
-by :func:`get_checkpoint_config` with the JAX package's checks (its
-``supervisor`` is checked and left to a launcher). Before those refusals
-the values of ``bf16.stochastic_rounding``, ``quantized_comm`` (and its
-legacy alias ``compressed_allreduce``), ``comm_autotune``,
-``async_pipeline`` and the training ``observability`` keys get the JAX
+and raises the same errors as the JAX package. ZeRO stages 0-2 (over
+the ``data`` axis, or ``data_inter`` x ``data_intra``, of any size) and
+ZeRO-Offload (``cpu_offload``, with ``overlap_comm``) are taken. Settings
+whose runtime is not ported yet (stage 3, 1-bit Adam, pipeline, fp16, a
+``pipe``, ``model``, ``seq`` or ``expert`` mesh axis above 1, the
+training ``observability`` switch ``health.enabled``, and the
+``checkpoint`` section's ``async_save`` and ``drain_on_preemption``)
+raise ``NotImplementedError`` naming them; ``tensorboard``,
+``observability.enabled``, the trace window (``observability.trace`` or
+the legacy ``profiler``) and ``observability.serve`` are accepted. The
+``checkpoint`` section is read by :func:`get_checkpoint_config` with the
+JAX package's checks (its ``supervisor`` is checked and left to a
+launcher). Before those refusals the values of
+``bf16.stochastic_rounding``, ``quantized_comm`` (and its legacy alias
+``compressed_allreduce``), ``comm_autotune``, ``async_pipeline`` and the
+training ``observability`` keys get the JAX
 package's checks and its ``DeepSpeedConfigError``, though the port runs
 none of those sections yet.
 """
@@ -36,6 +35,10 @@ from deepspeed_tpu_torch.runtime import constants as C
 
 class DeepSpeedConfigError(Exception):
     pass
+
+
+# the mesh axes of data parallelism: any size trains (ZeRO over them)
+_DATA_AXES = ("data", "data_inter", "data_intra")
 
 
 def get_scalar_param(param_dict, param_name, param_default_value):
@@ -396,8 +399,8 @@ def get_checkpoint_config(param_dict):
 
 
 class DeepSpeedZeroConfig:
-    """The ``zero_optimization`` section's stage and offload switch (the
-    legacy boolean form means stage 1)."""
+    """The ``zero_optimization`` section's stage, offload switch and
+    ``overlap_comm`` (the legacy boolean form means stage 1)."""
 
     def __init__(self, param_dict):
         sub = param_dict.get(C.ZERO_OPTIMIZATION, {})
@@ -408,12 +411,15 @@ class DeepSpeedZeroConfig:
         self.cpu_offload = get_scalar_param(
             sub, C.ZERO_OPTIMIZATION_CPU_OFFLOAD,
             C.ZERO_OPTIMIZATION_CPU_OFFLOAD_DEFAULT)
+        self.overlap_comm = get_scalar_param(
+            sub, C.ZERO_OPTIMIZATION_OVERLAP_COMM,
+            C.ZERO_OPTIMIZATION_OVERLAP_COMM_DEFAULT)
 
 
 class DeepSpeedConfig:
     """Parsed view of the training config. ``world_size`` is the
-    data-parallel degree the batch triangle resolves against (the port
-    trains on one device, so the engine passes 1)."""
+    data-parallel degree the batch triangle resolves against (the
+    engine passes its mesh's data size)."""
 
     def __init__(self, json_file_or_dict, world_size: Optional[int] = None):
         if isinstance(json_file_or_dict, dict):
@@ -531,28 +537,26 @@ class DeepSpeedConfig:
         self._value_checks()
         unported = []
         stage = self.zero_optimization_stage
-        if stage > 2 or (stage > 0 and self.world_size > 1):
-            unported.append(f"zero_optimization.stage {stage} (ZeRO) on a "
-                            f"data-parallel world of {self.world_size} "
-                            "(ROADMAP Queue 1 items 10-11)")
-        if self.zero_config.cpu_offload:
-            unported.append("zero_optimization.cpu_offload (ZeRO-Offload, "
-                            "ROADMAP Queue 1 item 11)")
+        if stage > 2:
+            unported.append(f"zero_optimization.stage {stage} (ZeRO stage 3, "
+                            "ROADMAP Queue 1 item 18)")
         if self.optimizer_name and "onebit" in \
                 self.optimizer_name.lower().replace("_", ""):
             unported.append(f"optimizer {self.optimizer_name} (1-bit Adam)")
         if C.PIPELINE in self._param_dict:
-            unported.append("pipeline")
+            unported.append("pipeline (ROADMAP Queue 1 item 14)")
         obs = self.observability_config
         if obs["health"]["enabled"]:
             unported.append("observability.health.enabled (the flight "
                             "recorder and watchdog, ROADMAP Queue 1 item "
                             "15)")
         axes = (self._param_dict.get(C.MESH) or {}).get(C.MESH_AXES) or {}
-        wide = {a: n for a, n in axes.items() if n > 1}
+        wide = {a: n for a, n in axes.items()
+                if n not in (1, -1) and a not in _DATA_AXES}
         if wide:
-            unported.append(f"mesh.axes {wide} (a device mesh, ROADMAP "
-                            "Queue 1 items 10 and 16)")
+            unported.append(f"mesh.axes {wide} (pipeline and tensor, "
+                            "sequence or expert parallelism, ROADMAP Queue 1 "
+                            "items 14 and 16)")
         ck = self.checkpoint_config
         if ck["async_save"]:
             unported.append("checkpoint.async_save (the async checkpoint "

@@ -116,6 +116,8 @@ ZERO_OPTIMIZATION_STAGE = "stage"
 ZERO_OPTIMIZATION_STAGE_DEFAULT = 0
 ZERO_OPTIMIZATION_CPU_OFFLOAD = "cpu_offload"
 ZERO_OPTIMIZATION_CPU_OFFLOAD_DEFAULT = False
+ZERO_OPTIMIZATION_OVERLAP_COMM = "overlap_comm"
+ZERO_OPTIMIZATION_OVERLAP_COMM_DEFAULT = False
 
 #############################################
 # Compressed comms, the async step pipeline and the training trace

@@ -1002,3 +1002,44 @@ def test_cuda_band_kernels_match_plain(case):
     assert float((lse - lse_p).abs().max()) <= 1e-3
     if pads:
         assert (o[list(pads)] == 0).all()
+
+
+def _row_offset_case(device, dtype, B=4, H=2, s=64, d=32, rows=(2, 4)):
+    """K1-K3 on rows ``rows`` of a dropout batch, with ``bh0 = row0 * H``,
+    against the same kernels on the whole batch, cut to those rows: a
+    data-parallel rank draws its rows' masks of the global batch."""
+    from deepspeed_tpu_torch.ops.attention import masked_flash as mf
+    rng = np.random.RandomState(5)
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v, do = (torch.from_numpy(a).to(device, td) for a in
+                   _inputs(rng, 1, dtype, B=B, H=H, s=s, d=d))
+    mask = _port_mask("causal", s=s, block=32)
+    scale, seed, rate = 1.0 / np.sqrt(d), 1234, 0.2
+    r0, r1 = rows
+
+    def run(q, k, v, do, bh0):
+        o, lse = mf.masked_flash_fwd(q, k, v, mask, scale, rate, seed,
+                                     bh0=bh0)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, mask, scale, rate, seed)
+        return [o, lse, mf.masked_flash_dq(*args, bh0=bh0),
+                *mf.masked_flash_dkv(*args, bh0=bh0)]
+    whole = run(q, k, v, do, 0)
+    part = run(q[r0:r1], k[r0:r1], v[r0:r1], do[r0:r1], r0 * H)
+    local = run(q[r0:r1], k[r0:r1], v[r0:r1], do[r0:r1], 0)
+    for w, p in zip(whole, part):
+        assert torch.equal(w[r0:r1], p)
+    # without the offset a rank would draw the first rows' masks
+    assert not torch.equal(whole[0][r0:r1], local[0])
+
+
+def test_row_offset_draws_the_global_rows():
+    _row_offset_case("cpu", "fp32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_cuda_row_offset_draws_the_global_rows(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _row_offset_case("cuda", dtype, B=4, H=16, s=1024, d=64)

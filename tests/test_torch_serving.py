@@ -478,7 +478,10 @@ def test_port_imports_neither_jax_nor_deepspeed_tpu():
                    "runtime/quantized_params.py", "inference/fleet.py",
                    "inference/rpc.py", "inference/replica_worker.py",
                    "runtime/elastic.py", "utils/health.py",
-                   "launcher/runner.py"):
+                   "launcher/runner.py", "launcher/multinode_runner.py",
+                   "parallel/topology.py", "parallel/mesh.py",
+                   "distributed.py", "runtime/zero/sharding.py",
+                   "ops/adam/cpu_adam.py"):
         assert REPO / "deepspeed_tpu_torch" / module in files
     for path in files:
         for name in _imports(path):

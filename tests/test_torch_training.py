@@ -315,7 +315,7 @@ def test_training_data_loader_repeats():
 
 @pytest.mark.parametrize("extra,word", [
     ({"zero_optimization": {"stage": 3}}, "ZeRO"),
-    ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "offload"),
+    ({"mesh": {"axes": {"data": 1, "seq": 2}}}, "mesh"),
     ({"fp16": {"enabled": True}}, "fp16"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}}, "1-bit"),
@@ -331,13 +331,21 @@ def test_unported_settings_raise(extra, word):
                                                  (3, 1, False),
                                                  (1, 1, True)])
 def test_zero_beyond_one_shard_raises(stage, world, offload):
-    """ZeRO across devices, stage 3 and offload name the ROADMAP items
-    that port them; stages 1 and 2 on a world of one parse."""
+    """Stage 3 still raises, naming the ROADMAP item that ports it; ZeRO
+    1 and 2 across a data-parallel world and ZeRO-Offload now parse (their
+    runtime: tests/test_torch_zero.py, tests/test_torch_cpu_adam.py), the
+    batch triangle resolving against the world."""
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     raw = {"train_micro_batch_size_per_gpu": 2,
            "zero_optimization": {"stage": stage, "cpu_offload": offload}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        DeepSpeedConfig(raw, world_size=world)
+    if stage == 3:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
+            DeepSpeedConfig(raw, world_size=world)
+        return
+    cfg = DeepSpeedConfig(raw, world_size=world)
+    assert cfg.zero_optimization_stage == stage
+    assert cfg.zero_config.cpu_offload == offload
+    assert cfg.train_batch_size == 2 * world
     for ok in (1, 2):
         cfg = DeepSpeedConfig({"train_micro_batch_size_per_gpu": 2,
                                "zero_optimization": {"stage": ok}})
@@ -346,14 +354,16 @@ def test_zero_beyond_one_shard_raises(stage, world, offload):
 
 @pytest.mark.parametrize("extra,word", [
     ({"mesh": {"axes": {"data": 1, "model": 2}}}, "mesh"),
-    ({"mesh": {"axes": {"data": 2}}}, "mesh"),
+    ({"mesh": {"axes": {"pipe": 2}}}, "mesh"),
     ({"observability": {"health": {"enabled": True}}},
      "observability.health"),
 ])
 def test_monitor_and_mesh_sections_raise(extra, word):
-    """The JAX engine opens the health plane and the mesh these sections
-    ask for; the port has neither yet, so it refuses them through the
-    config and through initialize, never training without.
+    """The JAX engine opens the health plane and the model or pipe mesh
+    axes these sections ask for; the port has neither yet, so it refuses
+    them through the config and through initialize, never training
+    without. (A data axis trains: tests/test_torch_zero.py; one larger
+    than the process group raises ValueError there.)
     (``tensorboard.enabled`` and ``observability.enabled`` train:
     tests/test_torch_observability.py; the trace window:
     tests/test_torch_checkpoint_durability.py.)"""
